@@ -2,28 +2,40 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result lines):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the main path from ``csrc/`` (one ``nvcc``
-   per source, started together) and print the build time;
-3. hold each kernel against its plain torch version on the card at the
-   main path's shapes (B2 arrival tables: the paper fleet's S=16 streams,
-   n=4096 entries): key words and uniform draws bit-exact, sizes / next
-   arrivals / cumulative folds within 1e-6 relative; time kernel and plain
-   version with CUDA events and compute the card's bound for the work;
-4. drive the main path through the CLI entry point
+   per source, started together) and print the build time and each
+   kernel's ptxas line (registers, shared memory, spills);
+3. hold B2 (arrival tables) against its plain torch version on the card at
+   the main path's shapes (the paper fleet's S=16 streams, n=4096 entries;
+   then R=32 lanes in one launch): key words and uniform draws bit-exact,
+   sizes / next arrivals / cumulative folds within 1e-6 relative (measured
+   bit-identical); time kernel and plain version, compute the card's bound;
+4. (a) hold B1 (the event scan) against its plain version on the card,
+   bitwise (final state leaves, key words, emissions): the duo/single-DC
+   loads of the CPU engine tests for both algorithms over 2 chunks of 300
+   events, then the paper fleet over 2 chunks of 1,024 events for both;
+   time the kernel and the plain version on the paper-fleet chunks;
+5. (b) drive the main path through the CLI entry point
    (``distributed_cluster_gpus_tpu_torch.run_sim``) on the paper fleet (8 DCs,
-   8 ingresses, 1,488 GPUs, job_cap 512, auto queue_cap) for
-   ``default_policy`` then ``joint_nf``, with the launch counters zeroed
-   just before each run and read just after; check queue conservation,
-   the energy integral against the CSV, and print events/s;
-5. check the engine on the card against the engine on the CPU: the same
-   small duo-fleet run with the same arrival tables must end in a
+   8 ingresses, 1,488 GPUs, job_cap 512, auto queue_cap) for 600 simulated
+   seconds, ``default_policy`` then ``joint_nf``, with the launch counters
+   zeroed just before each run and read just after: both kernels launched,
+   no host read inside any chunk, queue conservation, the energy integral
+   against the CSV; print events/s;
+6. (c) batched rollouts at the repo's bench shape (paper fleet, R=32,
+   J=128, queue_cap 256, log tick 20 s; ``bench.py:328-332``), 4 chunks of
+   512 steps in one launch each: every lane bitwise equal to the
+   single-lane kernel run of its key, lanes 0 and 1 equal to the plain
+   engine over the first chunk; print the aggregate events/s;
+7. (d) the engine on the card against the engine on the CPU: the same small
+   duo-fleet run with the same arrival tables must end in a
    bitwise-identical state and identical CSV bytes;
-6. profile one paper-fleet chunk (``torch.profiler``): device ops, host
-   reads and the device busy share per event;
-7. print the kernel JSON line, then the device line.
+8. (e) profile one paper-fleet chunk on the kernel path (``torch.profiler``):
+   device ops, host reads and the device busy share per event;
+9. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 """
@@ -38,7 +50,7 @@ import time
 
 import torch
 
-DURATION_S = 60.0
+MAIN_DURATION_S = 600.0
 LOG_INTERVAL_S = 1.0
 ALGOS = ("default_policy", "joint_nf")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -49,6 +61,31 @@ THREEFRY_OPS = 20 * 5 + 5 * 4 + 2
 BLOCKS_PER_ENTRY = 7  # 2 fold_in + split(2) + size split + 2 bit draws
 SAMPLER_OPS = 60  # mantissa trick, log1p, pow/exp or erf_inv, clamps
 BISECT_OPS = 30 * 14  # 30 iterations of mid, the integral (with cos), compare
+# B1, per event: the head touches every slot (status, finish projection
+# with its pinned product, two argmin compares, EMPTY test, dc_sum input:
+# ~12 ops) and the progress pass divides and clamps every slot (~5 ops); the
+# dc_sum is n_dc masked passes over the P padded slots plus the tree (~2 ops
+# per padded slot and DC); a log tick adds the 1/spu pass (~4 per slot), a
+# second dc_sum and the counts (~2 per slot and DC)
+B1_SLOT_OPS = 17
+B1_LOG_SLOT_OPS = 4
+BENCH_SHAPE = dict(algo="joint_nf", duration=1e9, log_interval=20.0,
+                   inf_mode="sinusoid", inf_rate=6.0, trn_mode="poisson",
+                   trn_rate=0.1, job_cap=128, lat_window=512, seed=0,
+                   queue_mode="ring", queue_cap=256)
+B1_LOADS = {
+    # the loads of tests/test_torch_engine.py: the rings fill, drain, drop
+    "duo": ("duo", dict(inf_mode="poisson", inf_rate=300.0, trn_rate=0.5,
+                        job_cap=6, queue_cap=2, log_interval=0.05)),
+    "single": ("single", dict(inf_mode="poisson", inf_rate=4000.0, trn_rate=5.0,
+                              job_cap=32, queue_cap=64, log_interval=0.02)),
+    "duo_options": ("duo", dict(inf_rate=300.0, inf_amp=0.9, inf_period=2.0,
+                                trn_rate=0.5, job_cap=6, queue_cap=2,
+                                log_interval=0.05, policy_name="perf_first",
+                                inf_priority=False, reserve_inf_gpus=4,
+                                max_gpus_per_job=4, dvfs_low=0.5,
+                                dvfs_high=0.9)),
+}
 
 
 def fail(msg):
@@ -87,25 +124,43 @@ def time_cuda(fn, reps, runs=5, warmup=2):
     return statistics.median(times)
 
 
-def phase_b2(report):
+def bound(bytes_moved, ops):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_b = bytes_moved / H100_BYTES_PER_S
+    t_o = ops / H100_F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def paper_params(**kw):
     from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
-    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
     from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
     from distributed_cluster_gpus_tpu_torch.run_sim import finalize_queue_cap
-    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
 
     fleet = build_fleet()
-    params = finalize_queue_cap(
-        SimParams(duration=DURATION_S, log_interval=LOG_INTERVAL_S), fleet)
+    params = finalize_queue_cap(SimParams(**kw), fleet)
+    return fleet, params
+
+
+def phase_b2(report):
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    fleet, params = paper_params(duration=MAIN_DURATION_S,
+                                 log_interval=LOG_INTERVAL_S)
     eng = Engine(fleet, params, device="cuda")
-    st = init_state(params.seed, fleet, params, workload=eng.workload,
-                    device="cuda")
     wl = eng.workload
     S, n = wl.n_streams, 4096
-    args = (st.arr_key, st.arr_count.reshape(S).contiguous(),
-            st.next_arrival.reshape(S).contiguous(),
-            st.arr_cum.reshape(S).contiguous(),
-            st.arr_epoch.reshape(S).contiguous(), wl.family_t, wl.sparams)
+
+    def args_of(st, lanes=()):
+        shape = lanes + (S,)
+        return (st.arr_key, st.arr_count.reshape(shape).contiguous(),
+                st.next_arrival.reshape(shape).contiguous(),
+                st.arr_cum.reshape(shape).contiguous(),
+                st.arr_epoch.reshape(shape).contiguous(), wl.family_t, wl.sparams)
+
+    st = init_state(params.seed, fleet, params, workload=wl, device="cuda")
+    args = args_of(st)
     out = b2.arrival_tables(*args, n, with_aux=True)
     ref = b2.arrival_tables_reference(*args, n, with_aux=True)
     torch.cuda.synchronize()
@@ -125,6 +180,15 @@ def phase_b2(report):
         max_rel = max(max_rel, rel)
         if rel > 1e-6:
             fail(f"B2 {k}: relative error {rel:.3g} > 1e-6")
+    # R=32 lanes in one launch, each against its plain version
+    lanes = batched_init(fleet, params, 32, workload=wl, device="cuda")
+    largs = args_of(lanes, (32,))
+    lout = b2.arrival_tables(*largs, 1024)
+    lref = b2.arrival_tables_reference(*largs, 1024)
+    torch.cuda.synchronize()
+    for k in ("sizes", "tnext", "cum"):
+        if not torch.equal(lout[k], lref[k]):
+            fail(f"B2 with 32 lanes: {k} differs from the plain version")
     ms = time_cuda(lambda: b2.arrival_tables(*args, n), reps=50)
     plain_ms = time_cuda(lambda: b2.arrival_tables_reference(*args, n), reps=1,
                          runs=3, warmup=1)
@@ -134,15 +198,123 @@ def phase_b2(report):
     bytes_moved = (2 * 8 + S * (4 * 5 + 16)) + 3 * S * n * 4
     ops = (n_active * n * (BLOCKS_PER_ENTRY * THREEFRY_OPS + SAMPLER_OPS)
            + n_sin * n * BISECT_OPS + S * n)
-    bound_s = max(bytes_moved / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
-    bound_by = ("bytes" if bytes_moved / H100_BYTES_PER_S
-                >= ops / H100_F32_OPS_PER_S else "operations")
+    bound_ms, bound_by = bound(bytes_moved, ops)
     print(f"B2 arrival_tables S={S} n={n}: max_abs_err={max_err:.3g} "
-          f"max_rel_err={max_rel:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {bound_s * 1e3:.5f} ms ({bound_by}: {bytes_moved} B, {ops} ops)")
+          f"max_rel_err={max_rel:.3g}, 32 lanes bit-identical; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {bytes_moved} B, {ops} ops)")
     report["b2"] = {"S": S, "n": n, "max_abs_err": max_err, "max_rel_err": max_rel,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "bytes": bytes_moved, "ops": ops}
+
+
+def _state_bytes(st):
+    from distributed_cluster_gpus_tpu_torch.models.structs import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(st))
+
+
+def b1_work(eng, st_before, pre, em, n_log_steps):
+    """(bytes, ops) the chunk's function must move and do: every state leaf
+    read and written once, the tables read once, the emissions written once;
+    the per-event operations of the events this chunk ran."""
+    J, P = eng.params.job_cap, 1
+    while P < J:
+        P *= 2
+    n_dc = eng.fleet.n_dc
+    events = int(em["valid_events"])
+    bytes_moved = (2 * _state_bytes(st_before)
+                   + sum(pre[k].numel() * pre[k].element_size()
+                         for k in ("sizes", "tnext", "c0"))
+                   + sum(v.numel() * v.element_size() for k, v in em.items()
+                         if k != "valid_events"))
+    ops = (events * (J * B1_SLOT_OPS + 2 * n_dc * P)
+           + n_log_steps * (J * B1_LOG_SLOT_OPS + 2 * n_dc * P + 2 * n_dc * J))
+    return bytes_moved, ops
+
+
+def phase_b1(report):
+    """(a) B1 against its plain version on the card, bitwise."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.configs.paper import (
+        build_duo_fleet, build_single_dc_fleet)
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        SimParams, clone_state, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    fleets = {"duo": build_duo_fleet, "single": build_single_dc_fleet}
+    cases = [(name, algo, fleets[fl](), SimParams(algo=algo, duration=400.0,
+                                                  lat_window=64, seed=5, **kw),
+              300)
+             for name, (fl, kw) in B1_LOADS.items() for algo in ALGOS]
+    for algo in ALGOS:
+        fleet, params = paper_params(algo=algo, duration=600.0,
+                                     log_interval=LOG_INTERVAL_S)
+        cases.append(("paper", algo, fleet, params, 1024))
+    rows = []
+    timing = {}
+    for name, algo, fleet, params, n_steps in cases:
+        eng = Engine(fleet, params, device="cuda")
+        st = with_lane_axis(init_state(params.seed, fleet, params,
+                                       workload=eng.workload, device="cuda"))
+        other = clone_state(st)
+        events = 0
+        for c in range(2):
+            pre = eng.workload.tables(st, n_steps)
+            before = clone_state(st)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            em_k, _ = b1.event_scan(eng, st, pre, n_steps)
+            b.record()
+            b.synchronize()
+            k_ms = a.elapsed_time(b)
+            t0 = time.perf_counter()
+            em_r, _ = b1.event_scan_reference(eng, other, pre, n_steps)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            for k in em_r:
+                if not torch.equal(em_k[k], em_r[k]):
+                    diff = (em_k[k].double() - em_r[k].double()).abs().max()
+                    fail(f"B1 {name}/{algo} chunk {c}: emission {k} differs from "
+                         f"the plain version (max abs {float(diff):.3g})")
+            eng.workload.advance_carries(st, pre)
+            eng.workload.advance_carries(other, pre)
+            bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                         bridge.state_to_numpy(st))
+            if bad:
+                fail(f"B1 {name}/{algo} chunk {c}: state differs from the plain "
+                     f"version at {bad[:5]}")
+            ev = int((st.n_events - before.n_events).sum())
+            events += ev
+            if name == "paper":
+                n_log = int((em_k["branch"] == 3).sum())
+                em_k["valid_events"] = ev
+                by, ops = b1_work(eng, before, pre, em_k, n_log)
+                timing.setdefault(algo, []).append(
+                    {"events": ev, "ms": k_ms, "plain_ms": p_ms, "bytes": by,
+                     "ops": ops})
+        rows.append({"load": name, "algo": algo, "events": events,
+                     "dropped": int(st.n_dropped.sum())})
+    print("B1 event_scan vs plain version on the card, bitwise identical "
+          "(state, key words, emissions): " + ", ".join(
+              f"{r['load']}/{r['algo']} {r['events']} events" for r in rows))
+    # the paper-fleet chunks: the second chunk of each algorithm (warm)
+    chunks = [timing[a][1] for a in ALGOS]
+    ms = statistics.mean(c["ms"] for c in chunks)
+    plain_ms = statistics.mean(c["plain_ms"] for c in chunks)
+    ev = statistics.mean(c["events"] for c in chunks)
+    bound_ms, bound_by = bound(statistics.mean(c["bytes"] for c in chunks),
+                               statistics.mean(c["ops"] for c in chunks))
+    print(f"B1 paper fleet, 1,024-step chunk ({ev:.0f} events, R=1): kernel "
+          f"{ms:.3f} ms ({ms / ev * 1e3:.2f} us/event), plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by})")
+    report["b1"] = {"loads": rows, "paper_chunks": timing, "ms": ms,
+                    "plain_ms": plain_ms, "events_per_chunk": ev,
+                    "us_per_event": ms / ev * 1e3, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": 0.0}
 
 
 def _read_csv(path):
@@ -153,26 +325,39 @@ def _read_csv(path):
 
 
 def phase_main_path(report, out_root):
+    """(b) the CLI main path on the paper fleet, both algorithms."""
     from distributed_cluster_gpus_tpu_torch import run_sim
     from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
 
     runs = {}
-    total_launches = 0
+    launches = {"event_scan": 0, "arrival_tables": 0}
     for algo in ALGOS:
         out = os.path.join(out_root, algo)
-        argv = ["--algo", algo, "--duration", str(DURATION_S), "--out", out,
+        argv = ["--algo", algo, "--duration", str(MAIN_DURATION_S), "--out", out,
                 "--log-interval", str(LOG_INTERVAL_S), "--device", "cuda",
                 "--quiet"]
+        reads = []
+
+        def on_chunk(state, emissions, engine):
+            reads.append(engine.stats["host_reads"])
+
         torch.cuda.synchronize()
+        b1.event_scan.launches = 0
         b2.arrival_tables.launches = 0
         t0 = time.perf_counter()
-        st = run_sim.main(argv)
+        st = run_sim.main(argv, on_chunk=on_chunk)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = b2.arrival_tables.launches
-        if launches <= 0:
+        n_b1, n_b2 = b1.event_scan.launches, b2.arrival_tables.launches
+        if n_b1 <= 0:
+            fail(f"{algo}: the main path never launched the B1 kernel")
+        if n_b2 <= 0:
             fail(f"{algo}: the main path never launched the B2 kernel")
-        total_launches += launches
+        if any(reads):
+            fail(f"{algo}: {sum(reads)} host reads inside the chunks")
+        launches["event_scan"] += n_b1
+        launches["arrival_tables"] += n_b2
         events = int(st.n_events)
         arrived = int(st.jid_counter) - 1
         finished = int(st.n_finished.sum())
@@ -186,7 +371,7 @@ def phase_main_path(report, out_root):
         if arrived != finished + queued + placed + dropped:
             fail(f"{algo}: conservation broken: {arrived} arrived != "
                  f"{finished} + {queued} + {placed} + {dropped}")
-        if not bool(st.done) or abs(float(st.t) - DURATION_S) > 1e-3:
+        if not bool(st.done) or abs(float(st.t) - MAIN_DURATION_S) > 1e-3:
             fail(f"{algo}: run did not reach its end (t={float(st.t)})")
         # energy: the growth of sum-over-DCs energy_kJ between the first and
         # last log tick against the trapezoid sum of power_W over the ticks
@@ -210,18 +395,92 @@ def phase_main_path(report, out_root):
         if not all(map(lambda x: x == x and abs(x) != float("inf"), vals)):
             fail(f"{algo}: non-finite job_log values")
         rate = events / wall
-        print(f"{algo}: {events} events, {wall:.2f} s wall, {rate:.1f} events/s, "
-              f"{finished} finished, {arrived} arrived, {dropped} dropped, "
-              f"B2 launches {launches}, energy {e_last / 3.6e6:.4f} kWh at the last tick")
+        print(f"{algo}: {events} events in {MAIN_DURATION_S:.0f} s simulated, "
+              f"{wall:.2f} s wall, {rate:.1f} events/s, {finished} finished, "
+              f"{arrived} arrived, {dropped} dropped, B1 launches {n_b1}, "
+              f"B2 launches {n_b2}, 0 host reads inside {len(reads)} chunks, "
+              f"energy {e_last / 3.6e6:.4f} kWh at the last tick")
         runs[algo] = {"events": events, "wall_s": wall, "events_per_s": rate,
                       "arrived": arrived, "finished": finished, "queued": queued,
-                      "placed": placed, "dropped": dropped, "b2_launches": launches}
+                      "placed": placed, "dropped": dropped, "b1_launches": n_b1,
+                      "b2_launches": n_b2, "chunks": len(reads)}
     report["main_path"] = runs
-    return total_launches
+    return launches
+
+
+def phase_rollouts(report):
+    """(c) R=32 lanes at the bench shape, one launch per chunk."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        SimParams, lane_state, lane_view, unstack_states, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    R, n_steps, n_chunks = 32, 512, 4
+    fleet = build_fleet()
+    out = {}
+    for algo in ALGOS:
+        params = SimParams(**dict(BENCH_SHAPE, algo=algo))
+        eng = Engine(fleet, params, device="cuda")
+        st = batched_init(fleet, params, R, workload=eng.workload, device="cuda")
+        singles = unstack_states(st)
+        plain = [lane_state(st, r) for r in (0, 1)]
+        ems = []
+        torch.cuda.synchronize()
+        launches = b1.event_scan.launches
+        t0 = time.perf_counter()
+        for c in range(n_chunks):
+            if c == 0:
+                pre0 = eng.workload.tables(st, n_steps)
+                st, em = eng.run_chunk(st, n_steps, pre=pre0)
+            else:
+                st, em = eng.run_chunk(st, n_steps)
+            ems.append(em)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if b1.event_scan.launches - launches != n_chunks:
+            fail(f"rollouts/{algo}: {b1.event_scan.launches - launches} B1 "
+                 f"launches for {n_chunks} chunks of {R} lanes")
+        events = int(st.n_events.sum())
+        # each lane against the single-lane kernel run of its key
+        for r, s in enumerate(singles):
+            for c in range(n_chunks):
+                s, em = eng.run_chunk(s, n_steps)
+                for k, v in em.items():
+                    if not torch.equal(v, ems[c][k][r]):
+                        fail(f"rollouts/{algo}: lane {r} chunk {c} emission {k} "
+                             "differs from its single-lane run")
+            bad = bridge.tree_mismatches(bridge.state_to_numpy(lane_view(st, r)),
+                                         bridge.state_to_numpy(s))
+            if bad:
+                fail(f"rollouts/{algo}: lane {r} differs from its single-lane "
+                     f"run at {bad[:5]}")
+        # lanes 0 and 1 against the plain engine over the first chunk
+        for r, s in zip((0, 1), plain):
+            em_r, _ = b1.event_scan_reference(
+                eng, with_lane_axis(s), {k: v[r:r + 1] for k, v in pre0.items()},
+                n_steps)
+            for k in ("t", "cluster", "job"):
+                if not torch.equal(em_r[k][0], ems[0][k][r]):
+                    fail(f"rollouts/{algo}: lane {r} chunk 0 emission {k} "
+                         "differs from the plain engine")
+            if not torch.equal(em_r["branch"][0] == 3, ems[0]["cluster_valid"][r]):
+                fail(f"rollouts/{algo}: lane {r} chunk 0 log ticks differ from "
+                     "the plain engine")
+        rate = events / wall
+        print(f"rollouts/{algo}: R={R} lanes x {n_chunks} chunks of {n_steps} "
+              f"steps, {events} events in {wall:.3f} s wall, {rate:.0f} events/s "
+              f"aggregate; every lane bitwise equal to its single-lane run, "
+              f"lanes 0-1 to the plain engine (chunk 0)")
+        out[algo] = {"R": R, "events": events, "wall_s": wall, "events_per_s": rate}
+    report["rollouts"] = out
 
 
 def phase_cuda_vs_cpu(report, out_root):
-    """The engine on the card against the engine on the CPU, same tables."""
+    """(d) the engine on the card (B1) against the engine on the CPU (the
+    plain loop), same tables."""
     from distributed_cluster_gpus_tpu_torch import bridge
     from distributed_cluster_gpus_tpu_torch.configs.paper import build_duo_fleet
     from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
@@ -242,7 +501,7 @@ def phase_cuda_vs_cpu(report, out_root):
 
     def recording_tables(state, n):
         out = orig(state, n)
-        tables.append({k: v.clone() for k, v in out.items()})
+        tables.append({k: v[0].clone() for k, v in out.items()})
         return out
 
     cpu_eng.workload.tables = recording_tables
@@ -267,30 +526,26 @@ def phase_cuda_vs_cpu(report, out_root):
             fail(f"{name} differs between the card and the CPU")
     reads = sum(s["host_reads"] for s in stats)
     events = int(s_gpu.n_events)
-    print(f"card vs CPU engine (duo fleet, joint_nf, {events} events): bitwise "
-          f"identical state and CSVs; {reads / max(events, 1):.3f} host reads "
-          f"per event, {events / wall:.1f} events/s on the card")
+    print(f"card (B1) vs CPU engine (duo fleet, joint_nf, {events} events): "
+          f"bitwise identical state and CSVs; {reads} host reads inside the "
+          f"chunks on the card")
     report["cuda_vs_cpu"] = {"events": events, "host_reads": reads,
-                             "events_per_s": events / wall}
+                             "wall_s": wall}
 
 
 def phase_profile(report):
-    """Where an event's time goes on the card: one profiled chunk of the
-    paper fleet (default_policy) after a warm-up chunk."""
+    """(e) where an event's time goes on the kernel path: one profiled
+    1,024-step chunk of the paper fleet (default_policy) after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
-    from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
-    from distributed_cluster_gpus_tpu_torch.run_sim import finalize_queue_cap
     from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
 
-    fleet = build_fleet()
-    params = finalize_queue_cap(
-        SimParams(duration=DURATION_S, log_interval=LOG_INTERVAL_S), fleet)
+    fleet, params = paper_params(duration=MAIN_DURATION_S,
+                                 log_interval=LOG_INTERVAL_S)
     eng = Engine(fleet, params, device="cuda")
     st = init_state(params.seed, fleet, params, workload=eng.workload,
                     device="cuda")
-    st, _ = eng.run_chunk(st, 512)
+    st, _ = eng.run_chunk(st, 1024)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -298,30 +553,37 @@ def phase_profile(report):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = eng.stats["events"]
-    dev_us, n_dev, b2_us = 0.0, 0, 0.0
+    dev_us, n_dev, b1_us, b2_us = 0.0, 0, 0.0, 0.0
     for e in prof.events():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             dur = e.time_range.elapsed_us()
             dev_us += dur
             n_dev += 1
+            if "event_scan_kernel" in e.name:
+                b1_us += dur
             if "draws_kernel" in e.name or "fold_kernel" in e.name:
                 b2_us += dur
     busy = dev_us / (wall * 1e6) if dev_us > 0 else None
+    ev = max(events, 1)
     print(f"profile (paper fleet, default_policy, {events} events, profiler on): "
-          f"{wall / max(events, 1) * 1e3:.3f} ms/event wall, "
-          f"{n_dev / max(events, 1):.1f} device ops/event, device busy share "
-          f"{'not measured' if busy is None else f'{busy:.3f}'}, "
-          f"B2 {b2_us:.1f} us of {dev_us:.1f} us device time, "
-          f"{eng.stats['host_reads'] / max(events, 1):.3f} host reads/event")
+          f"{wall / ev * 1e6:.2f} us/event wall, {n_dev} device ops in the chunk "
+          f"({n_dev / ev:.4f} per event), device busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'}, B1 {b1_us:.1f} us "
+          f"and B2 {b2_us:.1f} us of {dev_us:.1f} us device time, "
+          f"{eng.stats['host_reads']} host reads inside the chunk")
     report["profile"] = {"events": events, "wall_s": wall, "device_us": dev_us,
                          "device_ops": n_dev, "device_busy_share": busy,
-                         "b2_us": b2_us, "host_reads": eng.stats["host_reads"]}
+                         "b1_us": b1_us, "b2_us": b2_us,
+                         "host_reads": eng.stats["host_reads"]}
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA GPU")
     here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "distributed_cluster_gpus_tpu_torch")):
+        fail("run from the repository root: the port's package is not beside "
+             "this script")
     sys.path.insert(0, here)
     report = {}
     card = card_line()
@@ -333,33 +595,48 @@ def main():
     from distributed_cluster_gpus_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["arrival_tables"])
+    build.build(["event_scan", "arrival_tables"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
     for name, log in build.ptxas_reports.items():
         print(f"[ptxas {name}] " + " | ".join(
-            line.strip() for line in log.splitlines() if "registers" in line))
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line))
     report["build_s"] = build_s
 
     phase_b2(report)
+    phase_b1(report)
     # run outputs stay inside the checkout (smoke_out/ is git-ignored)
     out_root = os.path.join(here, "smoke_out", "runs")
     shutil.rmtree(out_root, ignore_errors=True)
     os.makedirs(out_root)
     try:
         launches = phase_main_path(report, out_root)
+        phase_rollouts(report)
         phase_cuda_vs_cpu(report, out_root)
         phase_profile(report)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
-    b2r = report["b2"]
+    b1r, b2r = report["b1"], report["b2"]
     kernels = {"kernels": [{
+        "name": "event_scan",
+        "route": "cuda",
+        "source": "distributed_cluster_gpus_tpu_torch/csrc/event_scan.cu",
+        "replaces": "distributed_cluster_gpus_tpu/sim/engine.py:4581",
+        "launches": launches["event_scan"],
+        "max_abs_err": b1r["max_abs_err"],
+        "ms": b1r["ms"],
+        "plain_ms": b1r["plain_ms"],
+        "bound_ms": b1r["bound_ms"],
+        "bound_by": b1r["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "arrival_tables",
         "route": "cuda",
         "source": "distributed_cluster_gpus_tpu_torch/csrc/arrival_tables.cu",
         "replaces": "distributed_cluster_gpus_tpu/workload/compiler.py:218",
-        "launches": launches,
+        "launches": launches["arrival_tables"],
         "max_abs_err": b2r["max_abs_err"],
         "ms": b2r["ms"],
         "plain_ms": b2r["plain_ms"],
@@ -370,6 +647,7 @@ def main():
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,8 +62,13 @@ def _build(cls, tree, device):
     return cls(**kw)
 
 
-def state_from_numpy(tree: Dict, device="cpu") -> SimState:
-    """A port SimState on ``device`` from nested dicts of numpy arrays."""
+def state_from_numpy(tree: Dict, device="cuda") -> SimState:
+    """A port SimState on ``device`` (the card unless the caller asks for
+    the CPU) from nested dicts of numpy arrays.  A tree whose leaves carry a
+    leading lane axis (a JAX ``vmap``-ed state) gives a lane-stacked state."""
+    from .sim.engine import resolve_device
+
+    device = resolve_device(device)
     nested = {"dc": DCArrays, "jobs": JobSlab, "lat": LatWindow,
               "queues": QueueRings}
     kw = {}
@@ -77,6 +82,13 @@ def state_from_numpy(tree: Dict, device="cpu") -> SimState:
         else:
             kw[f.name] = torch.tensor(np.array(v), device=device)
     return SimState(**kw)
+
+
+def tree_lane(tree: Dict, r: int) -> Dict:
+    """Lane ``r`` of a nested-dict tree whose leaves carry a lane axis."""
+    if isinstance(tree, dict):
+        return {k: tree_lane(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
 
 
 def fleet_from_numpy(src) -> FleetSpec:

@@ -8,7 +8,8 @@
 // `arrival_tables_reference` (kernels/arrival_tables.py) does:
 //   * per (stream s, entry i): the jax.random key chain
 //       k = fold_in(fold_in(arr_key, s), c0[s] + i); (k_size, k_gap) = split(k)
-//     (threefry-2x32, 20 rounds, partitionable jax semantics), the job size
+//     (threefry-2x32, 20 rounds, partitionable jax semantics; csrc/
+//     threefry.cuh), the job size
 //     (Pareto(1.8) for inference, max(0.1, LogNormal(ln 5e4, 0.4)) for
 //     training) and the gap increment: Exp(1)/rate (poisson) or Exp(1)
 //     (sinusoid inversion, where the fold carries the cumulative Exp sum);
@@ -16,6 +17,9 @@
 //     parallel scan: chunk invariance depends on this association);
 //   * per (s, i): tnext = fold (poisson), epoch + 30-step bisection of the
 //     integrated sinusoid rate (sin_inv), or +inf (off).
+// R rollout lanes (the JAX vmap axis) share one launch: lane r has its own
+// arr_key, cursors and clocks, and its tables are bit for bit the ones a
+// single-lane launch with that lane's inputs writes.
 //
 // Bound on the card (H100 SXM, 3.35 TB/s, S=16, n=4096): the output is
 // 3 * 4 * S * n = 0.79 MB (0.23 us of memory time); the integer work is
@@ -36,57 +40,18 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-constexpr uint32_t kParity = 0x1BD11BDAu;
 constexpr int kFamOff = 0;
 constexpr int kFamPoisson = 1;
 constexpr int kFamSinInv = 2;
 constexpr int kTile = 2048;
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-#define TF_ROUND(r)      \
-  x0 += x1;              \
-  x1 = rotl(x1, r) ^ x0;
-
-// threefry-2x32 block on counter (c0, c1) under key (k0, k1)
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1, uint32_t c0,
-                                         uint32_t c1, uint32_t& o0,
-                                         uint32_t& o1) {
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-  o0 = x0;
-  o1 = x1;
-}
-
-// fold_in(k, d) and split(k)[d] are the same block on counter (0, d)
-__device__ __forceinline__ void child(uint32_t k0, uint32_t k1, uint32_t d,
-                                      uint32_t& o0, uint32_t& o1) {
-  threefry(k0, k1, 0u, d, o0, o1);
-}
-
-__device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1) {
-  uint32_t o0, o1;
-  threefry(k0, k1, 0u, 0u, o0, o1);
-  return o0 ^ o1;
-}
-
-__device__ __forceinline__ float unit_float(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
+using tf::bits32;
+using tf::child;
+using tf::unit_float;
 
 __device__ __forceinline__ float erfinv_xla(float x) {
   const float small_c[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
@@ -111,19 +76,21 @@ __device__ __forceinline__ float pymod(float a, float b) {
   return r;
 }
 
-// kernel 1: one thread per (stream, entry) - keys, size, gap increment
+// kernel 1: one thread per (lane, stream, entry) - keys, size, gap increment
 __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
                              const int* __restrict__ c0,
                              const int* __restrict__ family,
-                             const float* __restrict__ sparams, int S, int n,
-                             float* __restrict__ sizes,
+                             const float* __restrict__ sparams, int R, int S,
+                             int n, float* __restrict__ sizes,
                              float* __restrict__ inc,
                              int* __restrict__ aux_key,
                              float* __restrict__ aux_u) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)S * n) return;
-  const int s = (int)(idx / n);
-  const int i = (int)(idx - (long long)s * n);
+  if (idx >= (long long)R * S * n) return;
+  const int rs = (int)(idx / n);  // lane * S + stream
+  const int r = rs / S;
+  const int s = rs - r * S;
+  const int i = (int)(idx - (long long)rs * n);
   const int fam = family[s];
   if (fam == kFamOff) {
     sizes[idx] = 0.0f;
@@ -132,8 +99,9 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
   }
   const float rate = sparams[4 * s + 0];
   uint32_t ks0, ks1, k0, k1, a0, a1, b0, b1;
-  child((uint32_t)arr_key[0], (uint32_t)arr_key[1], (uint32_t)s, ks0, ks1);
-  child(ks0, ks1, (uint32_t)(c0[s] + i), k0, k1);
+  child((uint32_t)arr_key[2 * r], (uint32_t)arr_key[2 * r + 1], (uint32_t)s,
+        ks0, ks1);
+  child(ks0, ks1, (uint32_t)(c0[rs] + i), k0, k1);
   child(k0, k1, 0u, a0, a1);  // k_size
   child(k0, k1, 1u, b0, b1);  // k_gap
   // sample_job_size: (k_u, k_n) = split(k_size)
@@ -189,7 +157,8 @@ __device__ __forceinline__ float sin_inv_gap(float rate, float amp_s,
   return 0.5f * (lo + hi);
 }
 
-// kernel 2: one block per stream - sequential fold, then tnext per entry
+// kernel 2: one block per (stream, lane) - sequential fold, then tnext per
+// entry
 __global__ void fold_kernel(const int* __restrict__ family,
                             const float* __restrict__ sparams,
                             const float* __restrict__ t0,
@@ -200,16 +169,17 @@ __global__ void fold_kernel(const int* __restrict__ family,
   __shared__ float tile[kTile];
   __shared__ float carry_s;
   const int s = blockIdx.x;
+  const int rs = blockIdx.y * gridDim.x + s;  // lane * S + stream
   const int fam = family[s];
   const float rate = sparams[4 * s + 0];
   const float amp = sparams[4 * s + 1];
   const float period = sparams[4 * s + 2];
   const float phase = sparams[4 * s + 3];
-  const float ep = epoch[s];
+  const float ep = epoch[rs];
   const float anchor = ep + phase;
-  float* row = cum + (long long)s * n;
-  float* trow = tnext + (long long)s * n;
-  if (threadIdx.x == 0) carry_s = fam == kFamSinInv ? cum0[s] : t0[s];
+  float* row = cum + (long long)rs * n;
+  float* trow = tnext + (long long)rs * n;
+  if (threadIdx.x == 0) carry_s = fam == kFamSinInv ? cum0[rs] : t0[rs];
   for (int base = 0; base < n; base += kTile) {
     const int len = min(kTile, n - base);
     __syncthreads();
@@ -244,27 +214,29 @@ __global__ void fold_kernel(const int* __restrict__ family,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  `cum` doubles as the increment
-// scratch between the two kernels.  aux_key/aux_u may be null; when given
-// they receive each entry's k_gap key words and its uniform draw.
-// Returns the cudaError_t of the launches (0 on success).
+// Plain C entry point (bound with ctypes).  Per-lane inputs are [R, 2]
+// (arr_key) and [R, S] (c0, t0, cum0, epoch); outputs are [R, S, n].  `cum`
+// doubles as the increment scratch between the two kernels.  aux_key/aux_u
+// may be null; when given they receive each entry's k_gap key words and its
+// uniform draw.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int arrival_tables_launch(const int64_t* arr_key, const int* c0,
                                      const float* t0, const float* cum0,
                                      const float* epoch, const int* family,
-                                     const float* sparams, int S, int n,
+                                     const float* sparams, int R, int S, int n,
                                      float* sizes, float* tnext, float* cum,
                                      int* aux_key, float* aux_u,
                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (S <= 0 || n <= 0) return (int)cudaSuccess;
+  if (R <= 0 || S <= 0 || n <= 0) return (int)cudaSuccess;
+  if (R > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  const long long total = (long long)S * n;
+  const long long total = (long long)R * S * n;
   const int blocks = (int)((total + threads - 1) / threads);
-  draws_kernel<<<blocks, threads, 0, st>>>(arr_key, c0, family, sparams, S, n,
-                                          sizes, cum, aux_key, aux_u);
+  draws_kernel<<<blocks, threads, 0, st>>>(arr_key, c0, family, sparams, R, S,
+                                          n, sizes, cum, aux_key, aux_u);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fold_kernel<<<S, threads, 0, st>>>(family, sparams, t0, cum0, epoch, n, cum,
-                                     tnext);
+  fold_kernel<<<dim3(S, R), threads, 0, st>>>(family, sparams, t0, cum0, epoch,
+                                              n, cum, tnext);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,10 @@ Replaces the XLA-fused region ``WorkloadProgram.tables``
 families this slice ports (``off``, ``poisson``, ``sin_inv``).  Given the
 workload key, each stream's draw cursor ``c0``, clock ``t0``, cumulative
 Exp sum ``cum0`` and epoch, it returns ``sizes``, ``tnext`` and ``cum``
-([S, n] float32), exactly what the JAX function returns.
+([S, n] float32), exactly what the JAX function returns.  With a leading
+lane axis (``arr_key`` [R, 2], the per-stream inputs [R, S]) one launch
+builds every rollout lane's tables ([R, S, n]); each lane's are bit for bit
+its single-lane tables.
 
 :func:`arrival_tables` is the wrapper every caller uses: a CPU tensor takes
 :func:`arrival_tables_reference`; a CUDA tensor launches
@@ -45,25 +48,39 @@ def _check(name, t, dtype, shape, device):
 
 
 def _validate(arr_key, c0, t0, cum0, epoch, family, sparams):
-    S = int(c0.shape[0])
+    """(lanes, S, device); ``lanes`` is () or (R,), the leading axis of
+    the per-lane inputs."""
+    if c0.dim() not in (1, 2):
+        raise ValueError(f"arrival_tables: c0 must be [S] or [R, S], got "
+                         f"{tuple(c0.shape)}")
+    lanes = tuple(c0.shape[:-1])
+    S = int(c0.shape[-1])
     dev = c0.device
-    _check("arr_key", arr_key, torch.int64, (2,), dev)
-    _check("c0", c0, torch.int32, (S,), dev)
+    _check("arr_key", arr_key, torch.int64, lanes + (2,), dev)
+    _check("c0", c0, torch.int32, lanes + (S,), dev)
     for name, t in (("t0", t0), ("cum0", cum0), ("epoch", epoch)):
-        _check(name, t, torch.float32, (S,), dev)
+        _check(name, t, torch.float32, lanes + (S,), dev)
     _check("family", family, torch.int32, (S,), dev)
     _check("sparams", sparams, torch.float32, (S, 4), dev)
-    return S, dev
+    return lanes, S, dev
 
 
 def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
                              n: int, with_aux: bool = False):
-    """Plain torch version: the same draws, fold and inversion, op by op.
+    """Plain torch version: the same draws, fold and inversion, op by op
+    (lane by lane when the inputs carry a lane axis).
 
-    Returns {"sizes", "tnext", "cum"} ([S, n] float32), plus with ``with_aux``
-    "aux_key" ([S, n, 2] int32, each entry's k_gap key words) and "aux_u"
-    ([S, n] float32, its uniform draw) — the kernel's debug outputs."""
-    S, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
+    Returns {"sizes", "tnext", "cum"} ([S, n] float32, [R, S, n] with lanes),
+    plus with ``with_aux`` "aux_key" ([..., S, n, 2] int32, each entry's
+    k_gap key words) and "aux_u" ([..., S, n] float32, its uniform draw) —
+    the kernel's debug outputs."""
+    lanes, S, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
+    if lanes:
+        outs = [arrival_tables_reference(arr_key[r], c0[r], t0[r], cum0[r],
+                                         epoch[r], family, sparams, n,
+                                         with_aux=with_aux)
+                for r in range(lanes[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     fam = family.tolist()
     sp = sparams.tolist()
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
@@ -119,7 +136,7 @@ def _lib():
     lib = build.load("arrival_tables")
     if _argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.arrival_tables_launch.argtypes = [P, P, P, P, P, P, P, I, I,
+        lib.arrival_tables_launch.argtypes = [P, P, P, P, P, P, P, I, I, I,
                                               P, P, P, P, P, P]
         lib.arrival_tables_launch.restype = ctypes.c_int
         _argtypes = True
@@ -131,7 +148,7 @@ def arrival_tables(arr_key, c0, t0, cum0, epoch, family, sparams, n: int,
     """The B2 wrapper: kernel on a CUDA tensor, plain version on a CPU one.
 
     Counts each kernel launch in ``arrival_tables.launches``."""
-    S, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
+    lanes, S, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
     if dev.type == "cpu":
         return arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family,
                                         sparams, n, with_aux=with_aux)
@@ -139,19 +156,23 @@ def arrival_tables(arr_key, c0, t0, cum0, epoch, family, sparams, n: int,
         raise ValueError(f"arrival_tables: unsupported device {dev}")
     if n <= 0:
         raise ValueError("arrival_tables: n must be positive")
+    R = lanes[0] if lanes else 1
+    if R > 65535:
+        raise ValueError("arrival_tables: at most 65,535 lanes per launch")
     lib = _lib()
-    sizes = torch.empty((S, n), dtype=torch.float32, device=dev)
-    tnext = torch.empty((S, n), dtype=torch.float32, device=dev)
-    cum = torch.empty((S, n), dtype=torch.float32, device=dev)
+    shape = lanes + (S, n)
+    sizes = torch.empty(shape, dtype=torch.float32, device=dev)
+    tnext = torch.empty(shape, dtype=torch.float32, device=dev)
+    cum = torch.empty(shape, dtype=torch.float32, device=dev)
     aux_key = aux_u = None
     if with_aux:
-        aux_key = torch.empty((S, n, 2), dtype=torch.int32, device=dev)
-        aux_u = torch.empty((S, n), dtype=torch.float32, device=dev)
+        aux_key = torch.empty(shape + (2,), dtype=torch.int32, device=dev)
+        aux_u = torch.empty(shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.arrival_tables_launch(
             arr_key.data_ptr(), c0.data_ptr(), t0.data_ptr(), cum0.data_ptr(),
-            epoch.data_ptr(), family.data_ptr(), sparams.data_ptr(), S, n,
+            epoch.data_ptr(), family.data_ptr(), sparams.data_ptr(), R, S, n,
             sizes.data_ptr(), tnext.data_ptr(), cum.data_ptr(),
             aux_key.data_ptr() if with_aux else None,
             aux_u.data_ptr() if with_aux else None, stream)

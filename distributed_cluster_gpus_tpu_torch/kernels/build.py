@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_kernels/`` at the repo
 root, at first use, from the sources in the checkout only.  The library
-name carries a hash of the source and flags, so an edited source is never
-served a stale build.  Libraries load with ``ctypes``; nothing here runs at
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is never served a stale build.  Libraries load with ``ctypes``; nothing here runs at
 import time, and nothing falls back: a missing ``nvcc`` or a failed build
 raises.
 """
@@ -46,8 +46,11 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple:
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -290,3 +290,69 @@ class SimParams:
     @property
     def tdtype(self) -> torch.dtype:
         return torch.float64 if self.time_dtype == "float64" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Rollout lanes: R states stacked along a leading axis of every leaf (the
+# JAX package's vmap axis).  A single state has no lane axis.
+# ---------------------------------------------------------------------------
+
+def _map_tree(fn, *trees):
+    """Apply ``fn`` leaf-wise over dataclass trees of tensors."""
+    first = trees[0]
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return type(first)(**{
+            f.name: _map_tree(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(first)})
+    return fn(*trees)
+
+
+def leaves(tree):
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from leaves(getattr(tree, f.name))
+    else:
+        yield tree
+
+
+def n_lanes(state: SimState) -> Optional[int]:
+    """R for a lane-stacked state, None for a single state."""
+    return int(state.t.shape[0]) if state.t.dim() == 1 else None
+
+
+def stack_states(states) -> SimState:
+    """R single states -> one state whose leaves are [R, ...] (copies)."""
+    return _map_tree(lambda *xs: torch.stack(xs), *states)
+
+
+def with_lane_axis(state: SimState) -> SimState:
+    """A single state as an R=1 lane-stacked state whose leaves are views of
+    the original's (writes through them land in ``state``)."""
+    return _map_tree(lambda x: x.unsqueeze(0), state)
+
+
+def clone_state(state: SimState) -> SimState:
+    """An independent copy of a state (single or lane-stacked)."""
+    return _map_tree(lambda x: x.clone(), state)
+
+
+def lane_view(state: SimState, r: int) -> SimState:
+    """Lane ``r`` of a lane-stacked state; its leaves are views."""
+    return _map_tree(lambda x: x[r], state)
+
+
+def lane_state(state: SimState, r: int) -> SimState:
+    """Lane ``r`` of a lane-stacked state as an independent copy."""
+    return _map_tree(lambda x: x[r].clone(), state)
+
+
+def unstack_states(state: SimState):
+    """A lane-stacked state -> a list of R independent single states."""
+    return [lane_state(state, r) for r in range(n_lanes(state))]
+
+
+def write_lane(state: SimState, r: int, lane: SimState) -> None:
+    """Copy a single state's leaves into lane ``r`` of ``state`` in place."""
+    for dst, src in zip(leaves(state), leaves(lane)):
+        if dst[r].data_ptr() != src.data_ptr():  # not already a view of it
+            dst[r].copy_(src)

@@ -58,11 +58,14 @@ def threefry2x32(k1, k2, c1, c2):
     return x0, x1
 
 
-def key(seed: int, device="cpu") -> torch.Tensor:
-    """``jax.random.key(seed)``'s two words as an int64 [2] tensor."""
+def key(seed: int, device="cuda") -> torch.Tensor:
+    """``jax.random.key(seed)``'s two words as an int64 [2] tensor on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    from ..sim.engine import resolve_device
+
     seed = int(seed)
     return torch.tensor([(seed >> 32) & MASK, seed & MASK], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def _block(k, counter):

@@ -1,4 +1,5 @@
-"""Event-exact simulation engine, one event at a time, in plain torch.
+"""Event-exact simulation engine: the B1 event-scan kernel and its plain
+torch oracle.
 
 Counterpart of ``distributed_cluster_gpus_tpu/sim/engine.py`` for the
 program this slice ports: the non-RL heuristic algorithms
@@ -15,18 +16,24 @@ Every step:
 3. applies that one event through its planner and the shared commit, then
    the step's single ring push and the post-switch queue drain.
 
-Unlike the JAX step, which runs every branch masked under ``lax.switch``,
-this step reads the event kind back to the host once per event (together
-with the few integers the branch indexes by) and runs only the branch that
-fires; a queue drain reads one flag per admitted job.  ``Engine.stats``
-counts these host reads per chunk.  Float values round exactly as the JAX
-program rounds them (``fmul_pinned`` products, the fixed ``tree_sum_last``
-association, float32 throughout), so given the reference's arrival tables
-the run is bit-identical; ``tests/test_torch_engine.py`` holds it so.  This
-engine is the oracle of the event-scan kernel (ROADMAP queue B item B1).
+``Engine.run_chunk`` runs a chunk through ``kernels/event_scan.py``: on the
+card the B1 kernel (``csrc/event_scan.cu``) advances every rollout lane in one
+launch with no host read inside the chunk; on the CPU the plain step loop
+below (``_scan_plain``) does, lane by lane.  The plain loop is the kernel's
+oracle and never runs on the card's main path.  Unlike the JAX step, which
+runs every branch masked under ``lax.switch``, the plain step reads the event
+kind back to the host once per event (together with the few integers the
+branch indexes by) and runs only the branch that fires; a queue drain reads
+one flag per admitted job.  ``Engine.stats`` counts the host reads inside a
+chunk.  Float values round exactly as the JAX program rounds them
+(``fmul_pinned`` products, the fixed ``tree_sum_last`` association, float32
+throughout), so given the reference's arrival tables the run is
+bit-identical; ``tests/test_torch_engine.py`` holds it so.
 
-The state is updated in place (the JAX engine donates its state to the
-same effect): ``run_chunk`` returns the object it was given.
+A state either is single or carries a leading lane axis ``[R, ...]`` on every
+leaf (``parallel/rollout.py``).  The state is updated in place (the JAX
+engine donates its state to the same effect): ``run_chunk`` returns the
+object it was given.
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ from typing import Optional
 
 import torch
 
+from ..kernels.event_scan import event_scan
 from ..models.structs import (ALGO_JOINT_NF, PORTED_ALGOS, DCArrays,
                               FleetSpec, JobSlab, JobStatus, LatWindow, QRec,
-                              QueueRings, SimParams, SimState)
+                              QueueRings, SimParams, SimState, n_lanes,
+                              with_lane_axis)
 from ..ops import prng
 from ..ops.arrivals import tmod
 from ..ops.physics import (LatencyCoeffs, PowerCoeffs, fmul_pinned,
@@ -61,13 +70,17 @@ JOB_COLS = (
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; asking for CUDA without a GPU raises
-    (the port never falls back to the CPU on its own)."""
+    """``device`` as a torch.device (``cuda`` with its index filled in);
+    asking for CUDA without a GPU raises (the port never falls back to the
+    CPU on its own)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -247,8 +260,25 @@ class Engine:
         self.k_drain = max(params.max_gpus_per_job,
                            min(params.num_fixed_gpus, params.job_cap))
         self.default_f_idx = fleet.default_f_idx
-        #: host reads of the last run_chunk call (event heads + drain flags)
+        #: the last run_chunk call: steps, events (all lanes) and the host
+        #: reads inside the chunk (plain loop: event heads + drain flags; the
+        #: kernel: none)
         self.stats = {"steps": 0, "events": 0, "host_reads": 0}
+        self._plain = {"events": 0, "host_reads": 0}
+        self._consts = None
+
+    def kernel_consts(self):
+        """The fleet constants the event-scan kernel reads, contiguous, by
+        the names of ``kernels/event_scan.PTR_NAMES``."""
+        if self._consts is None:
+            c = {"freq_levels": self.freq_levels, "total_gpus": self.total_gpus,
+                 "E_grid_cap": self.E_grid_cap, "transfer_s": self.transfer_s,
+                 "net_lat_s": self.net_lat_s, "idle_w": self.idle_w}
+            for grp, coeffs in (("power", self.power), ("latency", self.latency)):
+                for name, v in zip(coeffs._fields, coeffs):
+                    c[f"{grp}.{name}"] = v
+            self._consts = {k: v.contiguous() for k, v in c.items()}
+        return self._consts
 
     # ---------------- vector helpers over the slab ----------------
 
@@ -405,7 +435,7 @@ class Engine:
                 ok_t = found & (empty[slot_t] == 1)
                 ok, jt_sel, slot = torch.stack([
                     ok_t.to(torch.int64), jt_t.to(torch.int64), slot_t]).tolist()
-                self.stats["host_reads"] += 1
+                self._plain["host_reads"] += 1
                 if not ok:
                     return
                 dc_t = dcj
@@ -650,7 +680,7 @@ class Engine:
                             j_fin.to(i64), j_x.to(i64), a_idx.to(i64),
                             jobs.dc[j_fin].to(i64), jobs.jtype[j_fin].to(i64),
                             dc_x.to(i64), jt_x.to(i64)]).tolist()
-        self.stats["host_reads"] += 1
+        self._plain["host_reads"] += 1
         return vals, powers
 
     def _step(self, st: SimState, pre, key_host, em, i: int):
@@ -688,18 +718,11 @@ class Engine:
         st.n_events += 1
         return key_host
 
-    def run_chunk(self, state: SimState, n_steps: int, pre=None):
-        """Advance ``n_steps`` events in place; returns (state, emissions).
-
-        ``pre`` injects the chunk's arrival tables ({"sizes", "tnext",
-        "cum", "c0"}, e.g. the JAX reference's, converted); None builds them
-        with ``workload.tables`` (the B2 kernel on the card).  Emissions are
-        per-step records: "t" [n] f32, "cluster_valid"/"job_valid" [n] bool,
-        "cluster" [n, n_dc, 14] and "job" [n, 15] f32 (zero where invalid)."""
-        st = state
+    def _scan_plain(self, st: SimState, pre, n_steps: int):
+        """The plain step loop over one single state (in place): B1's
+        oracle.  ``pre`` holds one lane's tables.  Returns (emissions with
+        ``branch`` [n] int32, {"events", "host_reads"})."""
         dev = self.device
-        if pre is None:
-            pre = self.workload.tables(st, n_steps)
         n_dc = self.fleet.n_dc
         em = {"t": torch.zeros((n_steps,), dtype=torch.float32, device=dev),
               "cluster": torch.zeros((n_steps, n_dc, len(CLUSTER_COLS)),
@@ -707,7 +730,7 @@ class Engine:
               "job": torch.zeros((n_steps, len(JOB_COLS)), dtype=torch.float32,
                                  device=dev),
               "branch": [EV_NOOP] * n_steps}
-        self.stats = {"steps": n_steps, "events": 0, "host_reads": 1}
+        self._plain = {"events": 0, "host_reads": 1}
         key_host = tuple(st.key.tolist())
         done = bool(st.done)
         i = 0
@@ -715,7 +738,7 @@ class Engine:
             key_host = self._step(st, pre, key_host, em, i)
             done = em["branch"][i] == EV_NOOP
             if not done:
-                self.stats["events"] += 1
+                self._plain["events"] += 1
             i += 1
         if i < n_steps:
             # the rest of the chunk after `done`: each step only advances
@@ -724,8 +747,38 @@ class Engine:
             for _ in range(n_steps - i):
                 key_host = prng.split_int(key_host, 2)[0]
         st.key = torch.tensor(key_host, dtype=torch.int64, device=dev)
-        self.workload.advance_carries(st, pre)
-        branch = torch.tensor(em.pop("branch"), device=dev)
+        em["branch"] = torch.tensor(em["branch"], dtype=torch.int32, device=dev)
+        return em, dict(self._plain)
+
+    def run_chunk(self, state: SimState, n_steps: int, pre=None):
+        """Advance ``n_steps`` events in place; returns (state, emissions).
+
+        ``state`` is single or lane-stacked ([R, ...] leaves); the chunk runs
+        through ``kernels/event_scan.event_scan`` (the B1 kernel on the card,
+        the plain loop on the CPU).  ``pre`` injects the chunk's arrival
+        tables ({"sizes", "tnext", "cum", "c0"}, e.g. the JAX reference's,
+        converted; a lane axis first for a lane-stacked state); None builds
+        them with ``workload.tables`` (the B2 kernel on the card).  Emissions
+        are per-step records: "t" [n] f32, "cluster_valid"/"job_valid" [n]
+        bool, "cluster" [n, n_dc, 14] and "job" [n, 15] f32 (zero where
+        invalid), each with a leading [R] for a lane-stacked state."""
+        single = n_lanes(state) is None
+        lanes = with_lane_axis(state) if single else state
+        if pre is None:
+            pre = self.workload.tables(lanes, n_steps)
+        elif single:
+            pre = {k: v.unsqueeze(0) for k, v in pre.items()}
+        pre = {k: v.to(self.device).contiguous() for k, v in pre.items()}
+        before = lanes.n_events.clone()
+        em, stats = event_scan(self, lanes, pre, n_steps)
+        self.workload.advance_carries(lanes, pre)
+        if stats["events"] is None:
+            # the one read of the chunk, after it: the events it ran
+            stats["events"] = int((lanes.n_events - before).sum())
+        self.stats = {"steps": n_steps, **stats}
+        branch = em.pop("branch")
         em["cluster_valid"] = branch == EV_LOG
         em["job_valid"] = branch == EV_FINISH
-        return st, em
+        if single:
+            em = {k: v[0] for k, v in em.items()}
+        return state, em

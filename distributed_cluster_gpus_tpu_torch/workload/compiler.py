@@ -7,7 +7,9 @@ arrivals of every stream before a chunk's events run (on the card through
 the B2 kernel, ``kernels/arrival_tables.py``), and ``advance_carries``
 commits the cumulative-sum carries the chunk consumed.  Every value is a
 pure function of (seed, stream, draw index) with left-fold carries, so any
-chunking realizes the same arrivals bit for bit.
+chunking realizes the same arrivals bit for bit.  ``tables`` and
+``advance_carries`` take a single state or a lane-stacked one (leaves
+[R, ...]); with lanes, one B2 launch builds every lane's tables.
 
 Stream kind -> family: ``off``, ``poisson`` (gap fold ``t' = t + Exp/rate``)
 and ``sinusoid`` with |amp| <= 1 (``sin_inv``: epoch-anchored inversion of
@@ -42,8 +44,9 @@ def legacy_spec(params) -> WorkloadSpec:
         name="legacy_params")
 
 
-def compile_workload(fleet, params, device="cpu") -> "WorkloadProgram":
-    """(fleet, SimParams) -> the run's WorkloadProgram on ``device``."""
+def compile_workload(fleet, params, device="cuda") -> "WorkloadProgram":
+    """(fleet, SimParams) -> the run's WorkloadProgram on ``device`` (the
+    card unless the caller asks for the CPU)."""
     spec = params.workload if params.workload is not None else legacy_spec(params)
     return WorkloadProgram(fleet, params, spec, device=device)
 
@@ -51,11 +54,13 @@ def compile_workload(fleet, params, device="cpu") -> "WorkloadProgram":
 class WorkloadProgram:
     """Compiled workload for one (fleet, params, spec) on one device."""
 
-    def __init__(self, fleet, params, spec: WorkloadSpec, device="cpu"):
+    def __init__(self, fleet, params, spec: WorkloadSpec, device="cuda"):
+        from ..sim.engine import resolve_device
+
         self.fleet = fleet
         self.params = params
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.streams = spec.resolve(fleet.n_ing)
         # flat stream order is ing * 2 + jt (the clock-matrix layout and the
         # key-fold chain's stream id)
@@ -114,15 +119,16 @@ class WorkloadProgram:
         """Pregenerate the next ``n_steps`` arrivals of every stream.
 
         Returns {"sizes": [S, n] f32, "tnext": [S, n], "cum": [S, n],
-        "c0": [S] i32}: the engine reads ``sizes``/``tnext`` by cursor and
-        `advance_carries` commits ``cum`` after the chunk."""
-        S = self.n_streams
-        c0 = state.arr_count.reshape(S).contiguous()
+        "c0": [S] i32} (a leading [R] for a lane-stacked state): the engine
+        reads ``sizes``/``tnext`` by cursor and `advance_carries` commits
+        ``cum`` after the chunk."""
+        shape = tuple(state.arr_count.shape[:-2]) + (self.n_streams,)
+        c0 = state.arr_count.reshape(shape).contiguous()
         out = arrival_tables(
             state.arr_key.contiguous(), c0,
-            state.next_arrival.reshape(S).contiguous(),
-            state.arr_cum.reshape(S).contiguous(),
-            state.arr_epoch.reshape(S).contiguous(),
+            state.next_arrival.reshape(shape).contiguous(),
+            state.arr_cum.reshape(shape).contiguous(),
+            state.arr_epoch.reshape(shape).contiguous(),
             self.family_t, self.sparams, n_steps)
         out["c0"] = c0.clone()
         return out
@@ -132,12 +138,13 @@ class WorkloadProgram:
         sin_inv stream consumed (poisson clocks advanced in-step).  Updates
         ``state.arr_cum`` in place."""
         mask = self.uses_cum()
-        S = self.n_streams
-        n = pre["cum"].shape[1]
-        consumed = state.arr_count.reshape(S) - pre["c0"]
+        shape = tuple(state.arr_count.shape[:-2]) + (self.n_streams,)
+        n = pre["cum"].shape[-1]
+        consumed = state.arr_count.reshape(shape) - pre["c0"].reshape(shape)
         idx = torch.clamp(consumed - 1, 0, n - 1).to(torch.int64)
-        picked = pre["cum"][torch.arange(S, device=idx.device), idx]
+        picked = torch.gather(pre["cum"].reshape(shape + (n,)), -1,
+                              idx[..., None])[..., 0]
         newc = torch.where(mask & (consumed > 0), picked,
-                           state.arr_cum.reshape(S))
+                           state.arr_cum.reshape(shape))
         state.arr_cum.copy_(newc.reshape(state.arr_cum.shape))
         return state

@@ -7,17 +7,57 @@ since the suite's conftest imports JAX):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest -p no:cacheprovider
 
-``chip_smoke.py`` repeats the B2 check at the paper fleet's shape.
+``chip_smoke.py`` repeats the B1 and B2 checks at the paper fleet's shape.
 """
 
 import pytest
 import torch
 
-from distributed_cluster_gpus_tpu_torch.configs.paper import build_duo_fleet, build_fleet
+from distributed_cluster_gpus_tpu_torch import bridge
+from distributed_cluster_gpus_tpu_torch.configs.paper import (
+    build_duo_fleet, build_fleet, build_single_dc_fleet)
 from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
-from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
-from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+from distributed_cluster_gpus_tpu_torch.models.structs import (
+    SimParams, clone_state, with_lane_axis)
+from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
 from distributed_cluster_gpus_tpu_torch.workload.compiler import compile_workload
+
+# the loads of tests/test_torch_engine.py (that file imports JAX): the rings
+# fill, drain and (duo) drop
+FLEETS = {"duo": build_duo_fleet, "single": build_single_dc_fleet,
+          "duo_options": build_duo_fleet}
+LOADS = {
+    "duo": dict(inf_mode="poisson", inf_rate=300.0, trn_rate=0.5, job_cap=6,
+                queue_cap=2, log_interval=0.05),
+    "single": dict(inf_mode="poisson", inf_rate=4000.0, trn_rate=5.0,
+                   job_cap=32, queue_cap=64, log_interval=0.02),
+    "duo_options": dict(inf_rate=300.0, inf_amp=0.9, inf_period=2.0,
+                        trn_rate=0.5, job_cap=6, queue_cap=2,
+                        log_interval=0.05, policy_name="perf_first",
+                        inf_priority=False, reserve_inf_gpus=4,
+                        max_gpus_per_job=4, dvfs_low=0.5, dvfs_high=0.9),
+}
+N_STEPS = 300
+
+
+def kernel_vs_plain(eng, state, n_steps, n_chunks):
+    """Advance a lane-stacked state by the B1 kernel and a copy of it by the
+    plain version over the same tables; returns the bitwise mismatches of
+    the states and the emissions (empty lists when identical)."""
+    other = clone_state(state)
+    bad = []
+    for c in range(n_chunks):
+        pre = eng.workload.tables(state, n_steps)
+        em_k, _ = b1.event_scan(eng, state, pre, n_steps)
+        em_r, _ = b1.event_scan_reference(eng, other, pre, n_steps)
+        eng.workload.advance_carries(state, pre)
+        eng.workload.advance_carries(other, pre)
+        bad += [f"chunk {c} em.{k}" for k in em_r if not torch.equal(em_k[k], em_r[k])]
+    bad += bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                  bridge.state_to_numpy(state))
+    return bad
 
 
 @pytest.fixture
@@ -63,3 +103,71 @@ def test_arrival_tables_wrapper_rejects_mixed_devices(cuda):
     args[2] = args[2].cpu()
     with pytest.raises(ValueError, match="expected"):
         b2.arrival_tables(*args, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fleet_name", ["duo", "single", "duo_options"])
+@pytest.mark.parametrize("algo", ["default_policy", "joint_nf"])
+def test_event_scan_kernel_matches_plain_version(cuda, algo, fleet_name):
+    """B1 against its plain version on the card, bitwise: final state
+    leaves, key words, emissions; two chunks (a chunk boundary crossed)."""
+    fleet = FLEETS[fleet_name]()
+    params = SimParams(algo=algo, duration=400.0, lat_window=64, seed=5,
+                       **LOADS[fleet_name])
+    eng = Engine(fleet, params, device=cuda)
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device=cuda))
+    before = b1.event_scan.launches
+    assert kernel_vs_plain(eng, st, N_STEPS, 2) == []
+    assert b1.event_scan.launches == before + 2
+    assert int(st.n_events.sum()) == 2 * N_STEPS and int(st.n_finished.sum()) > 20
+    if fleet_name != "single":
+        assert int(st.n_dropped.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("job_cap", [16, 100, 2048])
+def test_event_scan_kernel_lanes_and_run_end(cuda, job_cap):
+    """Three lanes in one launch, run past the end of the simulation (the
+    done tail only advances the key), against the plain version; slabs
+    under a warp, padded to a power of two, and over 48 KB of shared
+    memory."""
+    fleet = build_duo_fleet()
+    params = SimParams(duration=3.0, job_cap=job_cap, queue_cap=16,
+                       lat_window=16, log_interval=0.5, seed=1)
+    eng = Engine(fleet, params, device=cuda)
+    st = batched_init(fleet, params, 3, workload=eng.workload, device=cuda)
+    assert kernel_vs_plain(eng, st, 512, 3) == []
+    assert bool(st.done.all())
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_runs_the_kernel(cuda):
+    fleet = build_duo_fleet()
+    params = SimParams(duration=5.0, job_cap=16, queue_cap=16, lat_window=16, seed=3)
+    eng = Engine(fleet, params, device=cuda)
+    st = init_state(params.seed, fleet, params, workload=eng.workload, device=cuda)
+    before = b1.event_scan.launches
+    st, em = eng.run_chunk(st, 256)
+    assert b1.event_scan.launches == before + 1
+    assert eng.stats["host_reads"] == 0 and eng.stats["events"] == int(st.n_events)
+    assert em["t"].shape == (256,) and em["cluster"].shape == (256, 2, 14)
+
+
+@pytest.mark.gpu
+def test_arrival_tables_kernel_lanes_match_plain_version(cuda):
+    """B2 with R=3 lanes in one launch against its plain version."""
+    fleet = build_fleet()
+    params = SimParams(queue_cap=64, job_cap=32, seed=2)
+    wt = compile_workload(fleet, params, cuda)
+    st = batched_init(fleet, params, 3, workload=wt, device=cuda)
+    S = wt.n_streams
+    args = (st.arr_key, st.arr_count.reshape(3, S).contiguous(),
+            st.next_arrival.reshape(3, S).contiguous(),
+            st.arr_cum.reshape(3, S).contiguous(),
+            st.arr_epoch.reshape(3, S).contiguous(), wt.family_t, wt.sparams)
+    out = b2.arrival_tables(*args, 1024, with_aux=True)
+    ref = b2.arrival_tables_reference(*args, 1024, with_aux=True)
+    torch.cuda.synchronize()
+    for k in ("aux_key", "aux_u", "sizes", "tnext", "cum"):
+        assert torch.equal(out[k], ref[k]), k

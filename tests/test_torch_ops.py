@@ -52,7 +52,7 @@ def keys():
     seeds = np.random.default_rng(0).integers(0, 2**31 - 1, 400)
     kj = jax.vmap(jax.random.key)(jnp.asarray(seeds, jnp.int32))
     kj = jax.vmap(lambda k: jax.random.split(k, 64))(kj).reshape(-1)
-    kt = torch.stack([prng.key(int(s)) for s in seeds])
+    kt = torch.stack([prng.key(int(s), "cpu") for s in seeds])
     kt = prng.split(kt, 64).reshape(-1, 2)
     return kj, kt
 
