@@ -20,6 +20,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.structs import (DCArrays, FleetSpec, JobSlab, LatWindow,
                              QueueRings, SimState)
 from .ops.physics import LatencyCoeffs, PowerCoeffs
@@ -66,8 +67,6 @@ def state_from_numpy(tree: Dict, device="cuda") -> SimState:
     """A port SimState on ``device`` (the card unless the caller asks for
     the CPU) from nested dicts of numpy arrays.  A tree whose leaves carry a
     leading lane axis (a JAX ``vmap``-ed state) gives a lane-stacked state."""
-    from .sim.engine import resolve_device
-
     device = resolve_device(device)
     nested = {"dc": DCArrays, "jobs": JobSlab, "lat": LatWindow,
               "queues": QueueRings}

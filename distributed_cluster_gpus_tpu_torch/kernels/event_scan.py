@@ -7,12 +7,14 @@ rollout lane in ONE launch, one block (one warp) per lane, the job slab in
 shared memory, no host read inside the chunk.  ``csrc/event_scan.cu``'s head
 note gives its design and what bounds it on the card.
 
-:func:`event_scan` is the wrapper ``Engine.run_chunk`` calls: it takes a state
+:func:`event_scan` is the wrapper ``Engine.run_chunk`` calls.  Its first
+argument is a ``sim.step.StepProgram`` (an ``Engine`` is one): the fleet
+constants the kernel reads and the plain step loop.  It takes a state
 whose leaves carry a leading lane axis ``[R, ...]`` and the chunk's arrival
 tables (``sizes``/``tnext`` [R, S, n_tab], ``c0`` [R, S]), advances the state
 in place and returns the emissions (``t`` [R, n], ``branch`` [R, n] int32,
 ``cluster`` [R, n, n_dc, 14], ``job`` [R, n, 15]).  A CPU state takes
-:func:`event_scan_reference`, the plain engine's step loop lane by lane; a
+:func:`event_scan_reference`, the plain step loop lane by lane; a
 CUDA state launches the kernel (built on first use) or raises — there is no
 fallback, and a configuration the kernel does not cover raises too.
 """
@@ -93,9 +95,9 @@ def smem_bytes(J: int) -> int:
     return 4 * (18 * J + 2 * pow2_at_least(J))
 
 
-def _lane_specs(eng, R: int, n_tab: int):
+def _lane_specs(prog, R: int, n_tab: int):
     """{name: (dtype, shape)} of every per-lane leaf the kernel reads."""
-    fleet, p = eng.fleet, eng.params
+    fleet, p = prog.fleet, prog.params
     n_dc, n_ing, J = fleet.n_dc, fleet.n_ing, p.job_cap
     S = 2 * n_ing
     lane = lambda *s: (R,) + s  # noqa: E731
@@ -135,7 +137,7 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"event_scan: {name} must be contiguous")
 
 
-def _validate(eng, state, pre, n_steps: int):
+def _validate(prog, state, pre, n_steps: int):
     """(R, n_tab): every leaf's dtype, [R, ...] shape, device, contiguity."""
     if n_steps <= 0:
         raise ValueError("event_scan: n_steps must be positive")
@@ -146,21 +148,21 @@ def _validate(eng, state, pre, n_steps: int):
     if n_tab < 1:
         raise ValueError("event_scan: the arrival tables are empty")
     src = {"pre": pre}
-    for name, (dtype, shape) in _lane_specs(eng, R, n_tab).items():
+    for name, (dtype, shape) in _lane_specs(prog, R, n_tab).items():
         obj = src if name.startswith("pre.") else state
-        _check(name, _get(obj, name), dtype, shape, eng.device)
+        _check(name, _get(obj, name), dtype, shape, prog.device)
     return R, n_tab
 
 
-def event_scan_reference(eng, state, pre, n_steps: int):
-    """Plain version: the engine's step loop (``Engine._scan_plain``), lane
-    by lane, each lane advanced in place.  Returns (emissions, stats)."""
-    R, _ = _validate(eng, state, pre, n_steps)
+def event_scan_reference(prog, state, pre, n_steps: int):
+    """Plain version: the plain step loop (``sim.step.StepProgram.scan_plain``),
+    lane by lane, each lane advanced in place.  Returns (emissions, stats)."""
+    R, _ = _validate(prog, state, pre, n_steps)
     ems = []
     stats = {"events": 0, "host_reads": 0}
     for r in range(R):
         st = lane_view(state, r)
-        em, s = eng._scan_plain(st, {k: v[r] for k, v in pre.items()}, n_steps)
+        em, s = prog.scan_plain(st, {k: v[r] for k, v in pre.items()}, n_steps)
         write_lane(state, r, st)
         ems.append(em)
         for k in stats:
@@ -181,15 +183,15 @@ def _lib():
     return lib
 
 
-def kernel_ints(eng, R: int, n_steps: int, n_tab: int):
+def kernel_ints(prog, R: int, n_steps: int, n_tab: int):
     """The kernel's integer parameters for this engine, in INT_NAMES order."""
-    fleet, p = eng.fleet, eng.params
+    fleet, p = prog.fleet, prog.params
     J = p.job_cap
     vals = {
         "R": R, "n_steps": n_steps, "n_dc": fleet.n_dc, "n_ing": fleet.n_ing,
-        "n_f": fleet.n_f, "n_cap": int(eng.E_grid_cap.shape[2]), "J": J,
+        "n_f": fleet.n_f, "n_cap": int(prog.E_grid_cap.shape[2]), "J": J,
         "P": pow2_at_least(J), "Q": p.queue_cap, "W": p.lat_window,
-        "n_tab": n_tab, "k_drain": eng.k_drain,
+        "n_tab": n_tab, "k_drain": prog.k_drain,
         "default_f_idx": fleet.default_f_idx,
         "algo_joint_nf": int(p.algo == ALGO_JOINT_NF),
         "perf_first": int(p.policy_name == "perf_first"),
@@ -203,10 +205,10 @@ def kernel_ints(eng, R: int, n_steps: int, n_tab: int):
     return [int(vals[k]) for k in INT_NAMES]
 
 
-def check_kernel_covers(eng) -> None:
+def check_kernel_covers(prog) -> None:
     """Raise for a configuration beyond the kernel's limits (the port never
     falls back to the plain step on the card)."""
-    fleet, J = eng.fleet, eng.params.job_cap
+    fleet, J = prog.fleet, prog.params.job_cap
     if fleet.n_dc > MAX_DC or 2 * fleet.n_ing > MAX_STREAMS or fleet.n_f > MAX_FREQS:
         raise ValueError(
             f"event_scan: at most {MAX_DC} DCs, {MAX_STREAMS // 2} ingresses and "
@@ -218,20 +220,20 @@ def check_kernel_covers(eng) -> None:
             f"per lane; the card offers {SMEM_BUDGET} B to the slab")
 
 
-def event_scan(eng, state, pre, n_steps: int):
+def event_scan(prog, state, pre, n_steps: int):
     """The B1 wrapper: kernel on a CUDA state, plain version on a CPU one.
 
     Advances ``state`` (leaves [R, ...]) by ``n_steps`` events in place;
     returns (emissions, stats).  Counts each kernel launch in
     ``event_scan.launches``."""
-    R, n_tab = _validate(eng, state, pre, n_steps)
-    dev = eng.device
+    R, n_tab = _validate(prog, state, pre, n_steps)
+    dev = prog.device
     if dev.type == "cpu":
-        return event_scan_reference(eng, state, pre, n_steps)
+        return event_scan_reference(prog, state, pre, n_steps)
     if dev.type != "cuda":
         raise ValueError(f"event_scan: unsupported device {dev}")
-    check_kernel_covers(eng)
-    fleet = eng.fleet
+    check_kernel_covers(prog)
+    fleet = prog.fleet
     em = {
         "t": torch.empty((R, n_steps), dtype=_F32, device=dev),
         "branch": torch.full((R, n_steps), EV_NOOP, dtype=_I32, device=dev),
@@ -239,7 +241,7 @@ def event_scan(eng, state, pre, n_steps: int):
                                dtype=_F32, device=dev),
         "job": torch.zeros((R, n_steps, JOB_COLS), dtype=_F32, device=dev),
     }
-    consts = eng.kernel_consts()
+    consts = prog.kernel_consts()
     src = {"pre": pre, "em": em}
     ptrs = []
     for name in PTR_NAMES:
@@ -251,9 +253,9 @@ def event_scan(eng, state, pre, n_steps: int):
         else:
             t = _get(state, name)
         ptrs.append(t.data_ptr())
-    ints = kernel_ints(eng, R, n_steps, n_tab)
+    ints = kernel_ints(prog, R, n_steps, n_tab)
     # csrc/event_scan.cu's `enum Flt` order
-    floats = [float(eng.params.duration), float(eng.params.log_interval)]
+    floats = [float(prog.params.duration), float(prog.params.log_interval)]
     lib = _lib()
     c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
@@ -269,7 +271,7 @@ def event_scan(eng, state, pre, n_steps: int):
                    rc, f"cudaError {rc}")
         raise RuntimeError(f"event_scan kernel launch failed: {why}")
     event_scan.launches += 1
-    return em, {"events": None, "host_reads": 0}
+    return em, {"events": None, "host_reads": None}
 
 
 event_scan.launches = 0

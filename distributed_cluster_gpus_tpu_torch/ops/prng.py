@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -61,8 +63,6 @@ def threefry2x32(k1, k2, c1, c2):
 def key(seed: int, device="cuda") -> torch.Tensor:
     """``jax.random.key(seed)``'s two words as an int64 [2] tensor on
     ``device`` (the card unless the caller asks for the CPU)."""
-    from ..sim.engine import resolve_device
-
     seed = int(seed)
     return torch.tensor([(seed >> 32) & MASK, seed & MASK], dtype=torch.int64,
                         device=resolve_device(device))

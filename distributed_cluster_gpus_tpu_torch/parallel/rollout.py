@@ -17,7 +17,8 @@ import torch
 
 from ..models.structs import FleetSpec, SimParams, SimState, stack_states
 from ..ops import prng
-from ..sim.engine import init_state, resolve_device
+from ..device import resolve_device
+from ..sim.engine import init_state
 from ..workload.compiler import compile_workload
 
 #: the fold constant of the batched key chain (the JAX package's)

@@ -137,10 +137,9 @@ def finalize_queue_cap(params, fleet):
     return dataclasses.replace(params, queue_cap=auto_queue_cap(params, fleet))
 
 
-def main(argv=None, pre_tables=None, on_chunk=None):
+def main(argv=None, pre_tables=None):
     """Run the CLI; returns the final SimState.  ``pre_tables`` (tests only)
-    injects each chunk's arrival tables; ``on_chunk(state, emissions,
-    engine)`` is called after each chunk (``sim.io.run_simulation``)."""
+    injects each chunk's arrival tables."""
     a = parse_args(argv)
     from .configs.paper import build_fleet, build_single_dc_fleet
     from .sim.io import run_simulation
@@ -150,7 +149,7 @@ def main(argv=None, pre_tables=None, on_chunk=None):
     t0 = time.time()
     state = run_simulation(fleet, params, out_dir=a.out,
                            chunk_steps=a.chunk_steps, device=a.device,
-                           pre_tables=pre_tables, on_chunk=on_chunk)
+                           pre_tables=pre_tables)
     wall = time.time() - t0
     if not a.quiet:
         n_fin = state.n_finished.tolist()

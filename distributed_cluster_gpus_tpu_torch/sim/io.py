@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..models.structs import FleetSpec, SimParams, SimState
-from .engine import CLUSTER_COLS, JOB_COLS, Engine, init_state
+from .engine import Engine, init_state
+from .step import CLUSTER_COLS, JOB_COLS
 
 CLUSTER_HEADER = [
     "time_s", "dc", "freq", "busy", "free", "run_total", "run_inf", "run_train",

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..kernels.arrival_tables import (FAM_OFF, FAM_POISSON, FAM_SIN_INV,
                                       arrival_tables)
 from ..ops import prng
@@ -55,8 +56,6 @@ class WorkloadProgram:
     """Compiled workload for one (fleet, params, spec) on one device."""
 
     def __init__(self, fleet, params, spec: WorkloadSpec, device="cuda"):
-        from ..sim.engine import resolve_device
-
         self.fleet = fleet
         self.params = params
         self.spec = spec
