@@ -43,9 +43,40 @@ Phases (any failure exits non-zero before the result lines):
 8. (e) profile one paper-fleet chunk on the kernel path (``torch.profiler``):
    device ops, device-to-host copies (host reads) and the device busy share
    per event;
-9. print the card line, the kernel JSON line, then the device line.
+9. (g) B1 in RL mode against the plain step, bitwise, the paper fleet as
+   the chsac_af CLI builds it (2 chunks), then R=4 lanes each against its
+   single-lane run; the policy's biases and kernels perturbed with seeded
+   values (``perturb_policy``: flax's init, the CLI's, zeroes the biases);
+10. (f) chsac_af's B3 (windowed p99) and B4 (policy forward and sample)
+    through the standalone launch of B1's RL-mode device code, against
+    their plain versions on the card, bitwise, with (g)'s perturbed policy:
+    seeded rings with counts 0, 1, 4, 5, W-1, W and beyond W, seeded
+    observations and masks (all but one action masked in two rows), and
+    (g)'s final latency windows and one of its decisions, on which both are
+    timed (device time of launches queued back to back) beside the plain
+    versions and one-call PyTorch yardsticks;
+11. (h) B6a (the replay ingest window) against ``_add_window``'s plain
+    version on windows that wrap, are all or none valid, or overwrite valid
+    rows;
+12. (i) the chsac_af CLI for 600 s on the paper fleet, warm-up above the
+    run: B1, B2 and B6a launched once per chunk, no synchronizing call with
+    the B1 or B6a wrapper on the stack, the replay's n_seen against the
+    emitted transitions, conservation and energy as in (b);
+13. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
+
+Two opt-in studies of B1 replace the smoke when asked for:
+
+    python3 chip_smoke.py --b1-phases
+        B1 in RL mode at the chsac_af CLI's shape from an instrumented copy
+        of ``csrc/event_scan.cu`` (``clock64`` per phase of each event):
+        cycles per event by phase over three 4,096-step chunks.
+    python3 chip_smoke.py --b1-ab PARENT
+        The heuristic B1 kernel of the checkout at PARENT (unpack it with
+        ``git archive`` into a git-ignored directory) and of this one,
+        alternating parent, change, change, parent, each in its own
+        process: ms per 4,096-step chunk at the CLI's shape.
 """
 
 import json
@@ -62,8 +93,11 @@ import torch
 MAIN_DURATION_S = 600.0
 LOG_INTERVAL_S = 1.0
 ALGOS = ("default_policy", "joint_nf")
+RL_WARMUP = 1_000_000_000  # above any run's transitions: act, never update
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # non-tensor float32 peak, H100 SXM data sheet
+SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's clock: time to queue launches
 # integer ops of one threefry-2x32 block: 20 rounds of add/rotate(3)/xor
 # plus 5 key injections of 4 adds and the 2 initial adds
 THREEFRY_OPS = 20 * 5 + 5 * 4 + 2
@@ -136,6 +170,50 @@ def time_cuda(fn, reps, runs=5, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, reps=20, runs=5):
+    """(ms, profiler launches seen): device time per call of ``fn``, whose
+    only device work must be one launch of ``kernel`` (a substring of the
+    kernel's name).  The ``reps`` calls are queued behind a spin kernel, so
+    they run back to back on the card and the CUDA events around them time
+    the launches, not the wrapper's host time (it fails if the host did not
+    finish queueing before the spin ended); the median of ``runs``.  A
+    profiled pass of ``reps`` calls fails on any other device op it sees;
+    it records only some of many short launches (0 to 6 of 20 on an H100),
+    so the count of ``kernel`` launches it saw is reported, not required."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    seen = sum(kernel in n for n in names)
+    others = sorted(set(n for n in names if kernel not in n))
+    if others:
+        fail(f"{reps} calls meant to launch only {kernel} ran other device "
+             f"ops: {others}")
+    times = []
+    for _ in range(runs):
+        s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        s1.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e.record()
+        e.synchronize()
+        if host_ms >= s0.elapsed_time(s1):
+            fail(f"{kernel}: queueing {reps} calls took {host_ms:.2f} ms, longer "
+                 f"than the {s0.elapsed_time(s1):.2f} ms spin ahead of them")
+        times.append(s1.elapsed_time(e) / reps)
+    return statistics.median(times), seen
+
+
 def bound(bytes_moved, ops):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     t_b = bytes_moved / H100_BYTES_PER_S
@@ -144,9 +222,13 @@ def bound(bytes_moved, ops):
 
 
 def cli_argv(algo, out):
-    """The main path's command line (phase (b))."""
-    return ["--algo", algo, "--duration", str(MAIN_DURATION_S), "--out", out,
+    """The main path's command line (phases (b) and (i)); chsac_af acts
+    without learning (warm-up above the run's transitions)."""
+    argv = ["--algo", algo, "--duration", str(MAIN_DURATION_S), "--out", out,
             "--log-interval", str(LOG_INTERVAL_S), "--device", "cuda", "--quiet"]
+    if algo == "chsac_af":
+        argv += ["--rl-warmup", str(RL_WARMUP)]
+    return argv
 
 
 def cli_params(algo):
@@ -176,21 +258,56 @@ def state_diff(a, b):
     return max(max_abs_diff(x, y) for x, y in zip(leaves(a), leaves(b)))
 
 
+def bound2(bytes_moved, f32_ops, bf16_ops):
+    """``bound`` with operations of two types, each at its own peak."""
+    t_b = bytes_moved / H100_BYTES_PER_S
+    t_o = f32_ops / H100_F32_OPS_PER_S + bf16_ops / H100_BF16_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def bits_equal(a, b):
+    """Bitwise equality of two float32 tensors, NaN payloads aside."""
+    nan = torch.isnan(a) & torch.isnan(b)
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0, a.view(torch.int32)),
+        torch.where(nan, 0, b.view(torch.int32)))
+
+
+def em_diff(a, b, where):
+    """Fail unless two (nested) emission dicts are bitwise equal; returns
+    the largest absolute difference (0.0)."""
+    err = 0.0
+    if set(a) != set(b):
+        fail(f"{where}: emission keys {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        if isinstance(a[k], dict):
+            err = max(err, em_diff(a[k], b[k], f"{where} rl"))
+            continue
+        err = max(err, max_abs_diff(a[k], b[k]))
+        if not torch.equal(a[k], b[k]):
+            fail(f"{where}: emission {k} differs from the plain version "
+                 f"(max abs {max_abs_diff(a[k], b[k]):.3g})")
+    return err
+
+
 class SyncCounter:
     """Counts the synchronizing CUDA calls made from Python while it is on
     (a host read is one: ``.item()``, ``.tolist()``, a copy to the host).
     torch's sync debug mode turns each into a warning raised at its calling
     line; the counter sees it while that line's stack is live, so it counts
-    a call as inside a chunk when the B1 wrapper (which spans the launch) or
-    the plain step loop is on the stack, and also counts every call by the
-    file of its line."""
+    a call as inside a chunk when the B1 wrapper (which spans the launch),
+    the plain step loop or the B6a wrapper is on the stack, and also counts
+    every call by the file of its line."""
 
     def __enter__(self):
         from distributed_cluster_gpus_tpu_torch.kernels.event_scan import (
             event_scan)
+        from distributed_cluster_gpus_tpu_torch.kernels.replay_ingest import (
+            replay_ingest)
         from distributed_cluster_gpus_tpu_torch.sim.step import StepProgram
 
-        self._chunk_code = {event_scan.__code__, StepProgram.scan_plain.__code__}
+        self._chunk_code = {event_scan.__code__, StepProgram.scan_plain.__code__,
+                            replay_ingest.__code__}
         self.by_file, self.in_chunk = {}, 0
         self._catch = warnings.catch_warnings()
         self._catch.__enter__()
@@ -721,6 +838,692 @@ def phase_profile(report):
                          "warmup_syncs_total": syncs.total}
 
 
+# ---------------------------------------------------------------- chsac_af
+
+
+def perturb_policy(sac, seed=21):
+    """Seeded non-zero biases and perturbed kernels in every layer, in
+    place: flax's default init (the CLI's) zeroes every bias, which would
+    leave the forward's bias add unchecked."""
+    g = torch.Generator().manual_seed(seed)
+    for layer in sac.layers():
+        for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
+            p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+
+
+def rl_setup():
+    """(fleet, params, chunk steps, engine, agent) of the chsac_af main path
+    as its CLI builds them (``cli_argv("chsac_af")``), with the policy's
+    biases and kernels perturbed by ``perturb_policy``."""
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    fleet, params, n = cli_params("chsac_af")
+    agent = make_agent(fleet, params, device="cuda")
+    perturb_policy(agent.sac)
+    eng = Engine(fleet, params, device="cuda", policy_apply=agent.policy_apply)
+    return fleet, params, n, eng, agent
+
+
+def seeded_rings(W, seed=7):
+    """Latency rings at the engine's window length and their counts: the
+    edge cases 0, 1, 4, 5, W-1, W and beyond W, ties (values rounded to the
+    millisecond, a ring of one repeated value, a top of repeated values)
+    and random counts."""
+    g = torch.Generator().manual_seed(seed)
+    counts = [0, 1, 4, 5, W - 1, W, 3 * W + 7] + torch.randint(
+        1, 2 * W, (25,), generator=g).tolist()
+    B = len(counts) + 3
+    buf = torch.empty((B, W)).exponential_(5.0, generator=g)
+    buf[: B // 2] = torch.round(buf[: B // 2] * 1000) / 1000
+    buf[-3] = 0.25  # one repeated value
+    buf[-2, : W // 2] = 3.0  # many ties at the top
+    counts += [W, W, W // 3]
+    return (buf.float().contiguous(),
+            torch.tensor(counts, dtype=torch.int32))
+
+
+def seeded_decisions(M, obs_dim, n_dc, n_g, seed=11):
+    """Observations in the policy's O(1) ranges, masks (rows 0 and 1 with all
+    but one action masked) and action keys."""
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+
+    g = torch.Generator().manual_seed(seed)
+    obs = torch.rand((M, obs_dim), generator=g)
+    m_dc = torch.rand((M, n_dc), generator=g) < 0.7
+    m_g = torch.rand((M, n_g), generator=g) < 0.6
+    m_dc[:, 0] |= ~m_dc.any(-1)
+    m_g[:, 0] = True
+    m_dc[0] = False
+    m_dc[0, n_dc - 1] = True
+    m_g[1] = False
+    m_g[1, n_g // 2] = True
+    keys = prng.split(prng.key(seed, "cpu"), M)
+    return obs.contiguous(), m_dc.contiguous(), m_g.contiguous(), keys.contiguous()
+
+
+def phase_rl_tail(report, real):
+    """(f) B3 and B4 against their plain versions on the card, through the
+    standalone batched launch of the RL-mode device code: every ring's p99
+    bitwise, every row's log-probabilities bitwise and its sampled actions
+    equal; time both on the main path's data (``real``, from phase (g): B3
+    on the two latency windows of the chsac_af CLI's state after two chunks,
+    B4 on one decision's observation and masks) beside their plain versions
+    and a one-call PyTorch yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.rl.sac import policy_logp, select_action
+    from distributed_cluster_gpus_tpu_torch.sim import algos
+
+    fleet, params, _, eng, agent = rl_setup()
+    sac, cfg = agent.sac, agent.cfg
+    W = params.lat_window
+    K = algos.percentile_k(W)
+    buf, cnt = (t.cuda() for t in seeded_rings(W))
+    M = 128
+    obs, m_dc, m_g, keys = (t.cuda() for t in seeded_decisions(
+        M, cfg.obs_dim, cfg.n_dc, cfg.n_g))
+    ops = b1.policy_operands(eng, sac, eng.device)
+    out = b1.rl_tail_batch(eng, sac, buf, cnt, obs, m_dc, m_g, keys, operands=ops)
+    ref_p99 = algos.windowed_percentile(buf, cnt, 99.0)
+    ref_dc, ref_g = policy_logp(sac, obs, m_dc, m_g)
+    torch.cuda.synchronize()
+    if not bits_equal(out["p99"], ref_p99):
+        bad = (~((out["p99"] == ref_p99) | (torch.isnan(out["p99"])
+                                            & torch.isnan(ref_p99)))).nonzero()
+        fail(f"B3 p99 differs from the plain version at rings "
+             f"{bad[:5, 0].tolist()} (counts {cnt[bad[:5, 0]].tolist()}): "
+             f"{out['p99'][bad[:5, 0]].tolist()} vs {ref_p99[bad[:5, 0]].tolist()}")
+    b3_err = max_abs_diff(out["p99"], ref_p99)
+    b4_err = max(max_abs_diff(out["logp_dc"], ref_dc),
+                 max_abs_diff(out["logp_g"], ref_g))
+    if not (torch.equal(out["logp_dc"], ref_dc) and torch.equal(out["logp_g"], ref_g)):
+        fail(f"B4 log-probabilities differ from the plain version (max abs "
+             f"{b4_err:.3g})")
+    for i in range(M):
+        a = select_action(cfg, sac, obs[i], m_dc[i], m_g[i], keys[i])
+        if (int(out["a_dc"][i]), int(out["a_g"][i])) != (int(a[0]), int(a[1])):
+            fail(f"B4 row {i}: kernel actions {int(out['a_dc'][i])}, "
+                 f"{int(out['a_g'][i])} vs plain {int(a[0])}, {int(a[1])}")
+    # timings on the main path's data; both held against the plain version
+    b2r, c2 = real["lat_buf"], real["lat_count"]
+    one = real["row"]
+    chk = b1.rl_tail_batch(eng, sac, b2r, c2, *one, operands=ops)
+    if not bits_equal(chk["p99"], algos.windowed_percentile(b2r, c2, 99.0)):
+        fail("B3 on the main path's latency windows differs from the plain version")
+    ld, lg = policy_logp(sac, *one[:3])
+    if not (torch.equal(chk["logp_dc"], ld) and torch.equal(chk["logp_g"], lg)):
+        fail("B4 on a main-path decision differs from the plain version")
+    none_obs = obs[:0].contiguous()
+
+    def b3_call():
+        return b1.rl_tail_batch(eng, sac, b2r, c2, none_obs,
+                                m_dc[:0].contiguous(), m_g[:0].contiguous(),
+                                keys[:0].contiguous(), operands=ops)
+
+    # the kernel's device time (launches back to back) and the wrapper's
+    # time per call
+    ms_b3, seen_b3 = device_ms(b3_call, "rl_tail_batch_kernel")
+    call_b3 = time_cuda(b3_call, reps=50)
+    plain_b3 = time_cuda(lambda: algos.windowed_percentile(b2r, c2, 99.0), reps=20)
+
+    def lib_p99():
+        m = torch.clamp(c2, max=W)
+        valid = torch.arange(W, device=b2r.device) < m[:, None]
+        top = torch.topk(torch.where(valid, b2r, -torch.inf), K, dim=-1).values
+        mf = torch.clamp(m, min=1)
+        pos = 0.99 * (mf - 1).float()
+        lo = torch.floor(pos)
+        frac = pos - lo
+        hi = torch.minimum(lo + 1, (mf - 1).float())
+        s_lo = top.gather(-1, (mf - 1 - lo.long()).clamp(0, K - 1)[:, None])[:, 0]
+        s_hi = top.gather(-1, (mf - 1 - hi.long()).clamp(0, K - 1)[:, None])[:, 0]
+        return s_lo * (1 - frac) + s_hi * frac
+
+    lib_b3 = time_cuda(lib_p99, reps=50)
+    no_ring, no_cnt = buf[:0].contiguous(), cnt[:0].contiguous()
+    def b4_call():
+        return b1.rl_tail_batch(eng, sac, no_ring, no_cnt, *one, operands=ops)
+
+    ms_b4, seen_b4 = device_ms(b4_call, "rl_tail_batch_kernel")
+    call_b4 = time_cuda(b4_call, reps=50)
+    plain_b4 = time_cuda(lambda: select_action(cfg, sac, one[0][0], one[1][0],
+                                               one[2][0], one[3][0]), reps=10)
+    lin = [(l.kernel.detach().t().to(torch.bfloat16).contiguous(),
+            l.bias.detach().to(torch.bfloat16)) for l in sac.layers()]
+
+    def lib_forward():
+        x = one[0].to(torch.bfloat16)
+        for w, b in lin[:4]:
+            x = F.relu(F.linear(x, w, b))
+        return (F.log_softmax(F.linear(x, *lin[4]).float(), -1),
+                F.log_softmax(F.linear(x, *lin[5]).float(), -1))
+
+    lib_b4 = time_cuda(lib_forward, reps=50)
+    # bounds: B3 reads the valid prefix of each window and its count once
+    # and writes the p99 (3 operations an entry); B4 reads the layers' bf16
+    # weights and biases (unpadded) once per decision and does 2 operations
+    # per multiply-add at bf16
+    valid_entries = int(torch.clamp(c2, max=W).sum())
+    b3_bytes = 4 * valid_entries + 2 * 4 + 2 * 4
+    b3_ops = 3 * valid_entries
+    b3_bound, b3_by = bound(b3_bytes, b3_ops)
+    w_bytes = sum(2 * l.kernel.numel() + 2 * l.bias.numel() for l in sac.layers())
+    macs = sum(l.kernel.numel() for l in sac.layers())
+    b4_bytes = w_bytes + cfg.obs_dim * 4 + cfg.n_dc + cfg.n_g + 8 + \
+        4 * (cfg.n_dc + cfg.n_g) + 8
+    b4_bound, b4_by = bound2(b4_bytes, 0, 2 * macs)
+    print(f"B3 windowed p99 (W={W}, K={K}): {len(cnt)} seeded rings bitwise "
+          f"equal to the plain version; on the CLI state's windows (counts "
+          f"{c2.tolist()}): kernel {ms_b3:.4f} ms device time per "
+          f"step's two windows (launches back to back; the profiler saw "
+          f"{seen_b3} of 20; {call_b3:.4f} ms per wrapper call), plain "
+          f"{plain_b3:.3f} ms, torch.topk yardstick {lib_b3:.4f} ms, bound "
+          f"{b3_bound:.6f} ms ({b3_by})")
+    print(f"B4 policy (obs {cfg.obs_dim} -> 256x3 -> 256 -> {cfg.n_dc}+{cfg.n_g}, "
+          f"{macs} weights): {M} rows' log-probabilities bitwise equal and "
+          f"actions equal to the plain version; kernel {ms_b4:.4f} ms device "
+          f"time per decision (back to back; the profiler saw {seen_b4} of "
+          f"20; {call_b4:.4f} ms per wrapper call), plain "
+          f"{plain_b4:.3f} ms, bf16 F.linear chain {lib_b4:.4f} ms, bound "
+          f"{b4_bound:.6f} ms ({b4_by}: {b4_bytes} B)")
+    report["b3"] = {"W": W, "K": K, "rings": len(cnt), "max_abs_err": b3_err,
+                    "ms": ms_b3, "call_ms": call_b3, "plain_ms": plain_b3,
+                    "library_ms": lib_b3, "bound_ms": b3_bound,
+                    "bound_by": b3_by, "bytes": b3_bytes, "ops": b3_ops,
+                    "profiler_launches_seen": seen_b3}
+    report["b4"] = {"rows": M, "max_abs_err": b4_err, "ms": ms_b4,
+                    "call_ms": call_b4, "plain_ms": plain_b4,
+                    "library_ms": lib_b4, "bound_ms": b4_bound,
+                    "bound_by": b4_by, "bytes": b4_bytes, "bf16_ops": 2 * macs,
+                    "profiler_launches_seen": seen_b4}
+
+
+def rl_b1_work(eng, before, after, pre, em, n_steps, agent):
+    """``b1_work`` plus what the RL tail needs.  Bytes: the valid prefix of
+    the two latency windows read once (``b1_work`` counts the entry each
+    finish appends), the policy's bf16 weights and biases read once, the
+    per-step RL records and the per-decision trace writes.  Operations
+    (float32): a window's p99 (3 per valid entry) once per window at the
+    launch and again only when a finish appends to it, at its count of that
+    moment, and the observation on every event; (bf16) two per multiply-add
+    of the forward at each decision."""
+    bytes_moved, ops, counts = b1_work(eng, before, after, pre, em, n_steps)
+    p, n_dc = eng.params, eng.fleet.n_dc
+    cfg = agent.cfg
+    d, g, W = cfg.obs_dim, cfg.n_g, p.lat_window
+    dropped = int((after.n_dropped - before.n_dropped).sum())
+    decisions = counts["arrivals"] - dropped + counts["finishes"]
+    w_bytes = sum(2 * l.kernel.numel() + 2 * l.bias.numel()
+                  for l in agent.sac.layers())
+    macs = sum(l.kernel.numel() for l in agent.sac.layers())
+    rec = n_steps * (4 * d + 16 + n_dc + g)
+    fin = counts["finishes"] * (4 * d + 13 + n_dc + g)
+    trace = decisions * (4 * d + 9 + n_dc + g)
+    c0 = before.lat.count.reshape(-1).tolist()
+    c1 = after.lat.count.reshape(-1).tolist()
+    entries = sum(min(a, W) for a in c0)  # valid entries at the launch
+    p99_entries = entries + sum(min(k, W) for a, b in zip(c0, c1)
+                                for k in range(a + 1, b + 1))
+    bytes_moved += 4 * entries + w_bytes + rec + fin + trace
+    f32_ops = ops + 3 * p99_entries + counts["events"] * 12 * n_dc
+    bf16_ops = decisions * 2 * macs
+    counts.update(decisions=decisions, dropped=dropped,
+                  p99_entries=p99_entries)
+    return bytes_moved, f32_ops, bf16_ops, counts
+
+
+def phase_b1_rl(report, lanes=4, steps=None):
+    """(g) B1 in RL mode against the plain step on the card, bitwise: the
+    paper fleet as the chsac_af CLI builds it (auto queue_cap, seed 123,
+    4,096-step chunks, lat_window 2,048, job_cap 512), 2 chunks, every
+    emission (``rl`` included) and state leaf; then R lanes in one launch,
+    each bitwise equal to its single-lane run.  Times the kernel and the
+    plain step on the second chunk and bounds the kernel by that chunk."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        clone_state, lane_view, unstack_states, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+
+    fleet, params, n_steps, eng, agent = rl_setup()
+    n_steps = steps or n_steps
+    sac = agent.sac
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    other = clone_state(st)
+    max_err, chunks = 0.0, []
+    for c in range(2):
+        pre = eng.workload.tables(st, n_steps)
+        before = clone_state(st)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        em_k, _ = b1.event_scan(eng, st, pre, n_steps, sac)
+        b.record()
+        b.synchronize()
+        k_ms = a.elapsed_time(b)
+        t0 = time.perf_counter()
+        em_r, _ = b1.event_scan_reference(eng, other, pre, n_steps, sac)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        max_err = max(max_err, em_diff(em_k, em_r, f"B1 RL paper chunk {c}"))
+        eng.workload.advance_carries(st, pre)
+        eng.workload.advance_carries(other, pre)
+        max_err = max(max_err, state_diff(st, other))
+        bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                     bridge.state_to_numpy(st))
+        if bad:
+            fail(f"B1 RL paper chunk {c}: state differs from the plain version "
+                 f"at {bad[:5]}")
+        by, f32_ops, bf16_ops, counts = rl_b1_work(eng, before, st, pre, em_k,
+                                                   n_steps, agent)
+        ev = int((st.n_events - before.n_events).sum())
+        chunks.append({"events": ev, "ms": k_ms, "plain_ms": p_ms, "bytes": by,
+                       "f32_ops": f32_ops, "bf16_ops": bf16_ops,
+                       "counts": counts,
+                       "valid": int(em_k["rl"]["valid"].sum())})
+    c = chunks[1]
+    bound_ms, bound_by = bound2(c["bytes"], c["f32_ops"], c["bf16_ops"])
+    # R lanes in one launch against their single-lane kernel runs
+    lanes_st = batched_init(fleet, params, lanes, workload=eng.workload,
+                            device="cuda")
+    singles = unstack_states(lanes_st)
+    lane_ems = []
+    for c2 in range(2):
+        lanes_st, em = eng.run_chunk(lanes_st, n_steps, policy_params=sac)
+        lane_ems.append(em)
+    for r, s in enumerate(singles):
+        for c2 in range(2):
+            s, em = eng.run_chunk(s, n_steps, policy_params=sac)
+            em_diff({k: v for k, v in em.items()},
+                    {k: (v[r] if not isinstance(v, dict) else
+                         {kk: vv[r] for kk, vv in v.items()})
+                     for k, v in lane_ems[c2].items()},
+                    f"B1 RL lane {r} chunk {c2} vs its single-lane run")
+        bad = bridge.tree_mismatches(bridge.state_to_numpy(lane_view(lanes_st, r)),
+                                     bridge.state_to_numpy(s))
+        if bad:
+            fail(f"B1 RL lane {r}: state differs from its single-lane run at "
+                 f"{bad[:5]}")
+    print(f"B1 RL mode vs plain step on the card (paper fleet as the chsac_af "
+          f"CLI runs it: queue_cap {params.queue_cap}, lat_window "
+          f"{params.lat_window}, {n_steps}-step chunks), 2 chunks bitwise "
+          f"identical (emissions incl. rl, state; max_abs_err {max_err}); "
+          f"second chunk {c['events']} events ({c['counts']['decisions']} "
+          f"decisions, {c['valid']} transitions): kernel {c['ms']:.3f} ms "
+          f"({c['ms'] / c['events'] * 1e3:.2f} us/event), plain "
+          f"{c['plain_ms']:.1f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+          f"R={lanes} lanes each bitwise equal to its single-lane run")
+    report["b1_rl"] = {"chunks": chunks, "ms": c["ms"], "plain_ms": c["plain_ms"],
+                       "us_per_event": c["ms"] / c["events"] * 1e3,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": max_err, "lanes": lanes,
+                       "queue_cap": params.queue_cap}
+    # the main path's data for timing B3 and B4 alone (phase (f))
+    rl = em_k["rl"]
+    i = int(torch.nonzero(rl["valid"][0])[0, 0])  # a finish: a drain decision
+    row = [rl["s1"][0, i:i + 1].contiguous(), rl["mask_dc"][0, i:i + 1].contiguous(),
+           rl["mask_g"][0, i:i + 1].contiguous(),
+           torch.tensor([[0, i]], dtype=torch.int64, device=rl["s1"].device)]
+    return {"lat_buf": st.lat.buf[0].contiguous(),
+            "lat_count": st.lat.count[0].contiguous(), "row": row}
+
+
+def seeded_window(g, N, obs_dim, n_dc, n_g, p_valid):
+    return {"valid": torch.rand(N, generator=g) < p_valid,
+            "s0": torch.randn((N, obs_dim), generator=g),
+            "s1": torch.randn((N, obs_dim), generator=g),
+            "a_dc": torch.randint(0, n_dc, (N,), generator=g, dtype=torch.int32),
+            "a_g": torch.randint(0, n_g, (N,), generator=g, dtype=torch.int32),
+            "r": torch.randn(N, generator=g),
+            "costs": torch.randn((N, 4), generator=g),
+            "mask_dc": torch.rand((N, n_dc), generator=g) < 0.5,
+            "mask_g": torch.rand((N, n_g), generator=g) < 0.5,
+            "mask_dc0": torch.rand((N, n_dc), generator=g) < 0.5,
+            "mask_g0": torch.rand((N, n_g), generator=g) < 0.5}
+
+
+def phase_b6a(report):
+    """(h) B6a against `_add_window`'s plain version on the card: seeded
+    windows that wrap, are all valid, have none valid and overwrite valid
+    rows, into a ring on the card and its twin (every leaf bitwise after
+    every window); then one 4,096-row window into the CLI's 200,000-row ring
+    timed beside the plain version."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    obs_dim, n_dc, n_g = 49, 8, 8
+    g = torch.Generator().manual_seed(3)
+    cases = {"wrap": (300, [70] * 9, 0.6), "all_valid": (300, [64] * 6, 1.0),
+             "none_valid": (300, [64] * 3, 0.0),
+             "overwrite": (257, [100, 100, 100, 100, 100], 0.9)}
+    n_win = 0
+    for name, (C, sizes, pv) in cases.items():
+        rk = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+        rp = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+        for N in sizes:
+            tr = {k: v.cuda() for k, v in seeded_window(g, N, obs_dim, n_dc, n_g,
+                                                        pv).items()}
+            b6.replay_ingest(rk, tr)
+            replay._add_window(rp, tr)
+            n_win += 1
+            bad = bridge.tree_mismatches(bridge.tree_to_numpy(rp, bridge.tensor_leaf),
+                                         bridge.tree_to_numpy(rk, bridge.tensor_leaf))
+            if bad:
+                fail(f"B6a {name}: ring differs from the plain version at {bad[:5]}")
+        if name == "overwrite" and not int(rk.size) < int(rk.n_seen):
+            fail("B6a overwrite case overwrote no valid row")
+    C, N = 200_000, 4096
+    rk = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+    rp = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+    tr = {k: v.cuda() for k, v in seeded_window(g, N, obs_dim, n_dc, n_g,
+                                                0.35).items()}
+    # the window's own done column, so that the wrapper's only device work
+    # is the kernel (it fills a missing one with ones)
+    tr["done"] = torch.ones(N, device="cuda")
+    for _ in range(3):
+        b6.replay_ingest(rk, tr)
+        replay._add_window(rp, tr)
+    bad = bridge.tree_mismatches(bridge.tree_to_numpy(rp, bridge.tensor_leaf),
+                                 bridge.tree_to_numpy(rk, bridge.tensor_leaf))
+    if bad:
+        fail(f"B6a at the CLI's shape: ring differs at {bad[:5]}")
+    ms, seen = device_ms(lambda: b6.replay_ingest(rk, tr), "replay_ingest_kernel")
+    call_ms = time_cuda(lambda: b6.replay_ingest(rk, tr), reps=50)
+    plain_ms = time_cuda(lambda: replay._add_window(rp, tr), reps=5, runs=3)
+    row = sum(v[0].numel() * v.element_size() for k, v in tr.items()
+              if k != "valid")
+    bytes_moved = N * (2 * row + 1) + 2 * N + 12
+    bound_ms, bound_by = bound(bytes_moved, 4 * N)
+    print(f"B6a replay ingest: {n_win} seeded windows (wrap, all/none valid, "
+          f"overwrite) bitwise equal to the plain version; {N}-row window "
+          f"into C={C}: kernel {ms:.4f} ms device time (launches back to "
+          f"back; the profiler saw {seen} of 20; {call_ms:.4f} ms per "
+          f"wrapper call), plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}: {bytes_moved} B)")
+    report["b6a"] = {"windows": n_win, "max_abs_err": 0.0, "ms": ms,
+                     "call_ms": call_ms, "plain_ms": plain_ms,
+                     "profiler_launches_seen": seen,
+                     "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": bytes_moved, "N": N, "C": C}
+
+
+def phase_chsac_cli(report, out_root):
+    """(i) the chsac_af main path through its CLI: paper fleet, 600 s,
+    warm-up above the run, 4,096-step chunks, CSVs written; the counters
+    zeroed just before the run and read just after: B1 (in RL mode), B2 and
+    B6a launched once per chunk; queue conservation, the energy integral,
+    the replay's n_seen against the transitions the chunks emitted; a
+    second run under torch's sync debug mode counts the synchronizing calls
+    made with the B1 or B6a wrapper on the stack (none allowed)."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
+
+    algo = "chsac_af"
+    out = os.path.join(out_root, algo)
+    seen = {"agents": [], "valid": []}
+    orig = CHSAC_AF.ingest_chunk
+
+    def counting_ingest(self, rl_em):
+        seen["agents"].append(self)
+        seen["valid"].append(rl_em["valid"].sum())  # stays on the card
+        return orig(self, rl_em)
+
+    CHSAC_AF.ingest_chunk = counting_ingest
+    try:
+        torch.cuda.synchronize()
+        b1.event_scan.launches = b1.event_scan.rl_launches = 0
+        b2.arrival_tables.launches = 0
+        b6.replay_ingest.launches = 0
+        t0 = time.perf_counter()
+        st = run_sim.main(cli_argv(algo, out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_b1, n_rl = b1.event_scan.launches, b1.event_scan.rl_launches
+        n_b2, n_b6 = b2.arrival_tables.launches, b6.replay_ingest.launches
+    finally:
+        CHSAC_AF.ingest_chunk = orig
+    n_chunks = len(seen["valid"])
+    if not (n_b1 == n_rl == n_b2 == n_b6 == n_chunks > 0):
+        fail(f"chsac_af: {n_b1} B1 ({n_rl} in RL mode), {n_b2} B2 and {n_b6} B6a "
+             f"launches for {n_chunks} chunks (one each per chunk)")
+    agent = seen["agents"][-1]
+    valid = int(torch.stack(seen["valid"]).sum())
+    n_seen = int(agent.replay.n_seen)
+    if n_seen != valid or valid <= 0:
+        fail(f"chsac_af: replay n_seen {n_seen} vs {valid} valid transitions "
+             "emitted")
+    with SyncCounter() as syncs:
+        run_sim.main(cli_argv(algo, out + "_syncs"))
+    if syncs.in_chunk:
+        fail(f"chsac_af: {syncs.in_chunk} synchronizing CUDA calls with the B1 "
+             f"or B6a wrapper on the stack ({syncs.by_file})")
+    events = int(st.n_events)
+    arrived = int(st.jid_counter) - 1
+    finished = int(st.n_finished.sum())
+    queued = int((st.queues.tail - st.queues.head).sum())
+    placed = int((st.jobs.status != 0).sum())
+    dropped = int(st.n_dropped)
+    jobs = _read_csv(os.path.join(out, "job_log.csv"))
+    cl = _read_csv(os.path.join(out, "cluster_log.csv"))
+    if len(jobs) != finished:
+        fail(f"chsac_af: job_log has {len(jobs)} rows for {finished} finishes")
+    if arrived != finished + queued + placed + dropped:
+        fail(f"chsac_af: conservation broken: {arrived} arrived != {finished} + "
+             f"{queued} + {placed} + {dropped}")
+    if not bool(st.done) or abs(float(st.t) - MAIN_DURATION_S) > 1e-3:
+        fail(f"chsac_af: run did not reach its end (t={float(st.t)})")
+    ticks = sorted({float(r["time_s"]) for r in cl})
+    by_t = {}
+    for r in cl:
+        by_t.setdefault(float(r["time_s"]), []).append(r)
+    e_last = sum(float(r["energy_kJ"]) for r in by_t[ticks[-1]]) * 1e3
+    e_first = sum(float(r["energy_kJ"]) for r in by_t[ticks[0]]) * 1e3
+    p_t = [sum(float(r["power_W"]) for r in by_t[t]) for t in ticks]
+    riemann = sum(0.5 * (p_t[i] + p_t[i + 1]) * (ticks[i + 1] - ticks[i])
+                  for i in range(len(ticks) - 1))
+    if not (e_last > 0 and abs((e_last - e_first) - riemann) <= 0.05 * riemann):
+        fail(f"chsac_af: energy {e_last - e_first:.1f} J vs sum P*dt {riemann:.1f} J")
+    dcs = {r["dc"] for r in jobs}
+    rate = events / wall
+    print(f"chsac_af: {events} events in {MAIN_DURATION_S:.0f} s simulated, "
+          f"{wall:.2f} s wall, {rate:.1f} events/s, {finished} finished on "
+          f"{len(dcs)} DCs, {arrived} arrived, {dropped} dropped, {n_seen} "
+          f"transitions in the replay ring (= the chunks' valid records); "
+          f"launches per chunk: B1 {n_b1}, B2 {n_b2}, B6a {n_b6} for {n_chunks} "
+          f"chunks; synchronizing CUDA calls with the B1 or B6a wrapper on the "
+          f"stack: {syncs.in_chunk} ({syncs.total} in the whole run); energy "
+          f"{e_last / 3.6e6:.4f} kWh at the last tick")
+    report["chsac_cli"] = {"events": events, "wall_s": wall, "events_per_s": rate,
+                           "arrived": arrived, "finished": finished,
+                           "dropped": dropped, "n_seen": n_seen,
+                           "chunks": n_chunks, "b1_launches": n_b1,
+                           "b2_launches": n_b2, "b6a_launches": n_b6,
+                           "syncs_in_chunks": syncs.in_chunk,
+                           "syncs_total": syncs.total, "dcs_used": len(dcs)}
+    return {"event_scan": n_b1, "rl": n_rl, "arrival_tables": n_b2,
+            "replay_ingest": n_b6}
+
+
+# ------------------------------------------------- opt-in studies of B1
+
+B1_PHASES = ("head", "branch", "B3 (2 windows)", "running power + obs",
+             "masks/costs/record", "forward", "softmax+sample",
+             "commit (route/drain)", "commit (none/xfer)")
+
+
+def instrumented_event_scan(src):
+    """``csrc/event_scan.cu`` with per-phase ``clock64`` accumulators in a
+    device array ``g_prof`` (slots 0-8 the phases of ``B1_PHASES``; 12
+    counts B3 calls, 13 its rounds, 14 its window walks, 15 forwards) and
+    entry points to read and reset it.  Exits if an anchor is gone."""
+    def rep(old, new):
+        if old not in src:
+            fail(f"instrumenting event_scan.cu: anchor not found: {old!r}")
+        return src.replace(old, new, 1)
+
+    def mark(k):
+        return ("    { long long _t = clock64(); if (lane == 0) atomicAdd("
+                f"&g_prof[{k}], (unsigned long long)(_t - t_mark)); "
+                "t_mark = _t; }\n")
+
+    src = rep('#include "threefry.cuh"\n',
+              '#include "threefry.cuh"\n__device__ unsigned long long g_prof[16];\n')
+    src = rep("  int n_ing;\n};", "  int n_ing;\n  long long t_mark;\n};")
+    src = rep("  __device__ void step_rl(int i) {\n    head(i);\n",
+              "  __device__ void step_rl(int i) {\n    t_mark = clock64();\n"
+              "    head(i);\n" + mark(0))
+    src = rep("    tail(i);\n    if (lane == 0 && branch != EV_NOOP)",
+              mark(1) + "    tail(i);\n    if (lane == 0 && branch != EV_NOOP)")
+    src = rep("      if (lane == 0) sm.p99[w] = v;\n    }\n",
+              "      if (lane == 0) sm.p99[w] = v;\n    }\n" + mark(2))
+    src = rep("    build_obs();\n    __syncwarp();\n    const int req = sm.req_kind",
+              "    build_obs();\n    __syncwarp();\n" + mark(3)
+              + "    const int req = sm.req_kind")
+    src = rep("    if (req == REQ_NONE) {\n", mark(4) + "    if (req == REQ_NONE) {\n")
+    src = rep("    rlk::forward(pol, obs, act0, act1, logit, lane);\n",
+              "    rlk::forward(pol, obs, act0, act1, logit, lane);\n" + mark(5)
+              + "    if (lane == 0) atomicAdd(&g_prof[15], 1ull);\n")
+    src = rep("      sm.a_g = rlk::sample(b0, b1, logp + 32, n_g, pol.greedy);\n"
+              "    }\n    __syncwarp();\n",
+              "      sm.a_g = rlk::sample(b0, b1, logp + 32, n_g, pol.greedy);\n"
+              "    }\n    __syncwarp();\n" + mark(6))
+    src = rep("      write_trace(slot);\n      __syncwarp();\n      return;",
+              "      write_trace(slot);\n      __syncwarp();\n" + mark(7)
+              + "      return;")
+    src = rep("    if (sm.flag) write_trace(sm.fin_slot);\n    __syncwarp();\n  }",
+              "    if (sm.flag) write_trace(sm.fin_slot);\n    __syncwarp();\n"
+              + mark(7) + "  }")
+    src = rep("                  sm.st_t0, sm.st_pt0, sm.st_tpt0);\n"
+              "      __syncwarp();\n      return;",
+              "                  sm.st_t0, sm.st_pt0, sm.st_tpt0);\n"
+              "      __syncwarp();\n" + mark(8) + "      return;")
+    src = rep("  const bool regs = !__any_sync(kAll, over);\n",
+              "  const bool regs = !__any_sync(kAll, over);\n"
+              "  if (!regs && lane == 0) atomicAdd(&g_prof[14], 1ull);\n"
+              "  if (lane == 0) atomicAdd(&g_prof[12], 1ull);\n")
+    src = rep("    cum += cnt;\n    prev = v;\n    first = false;",
+              "    cum += cnt;\n    prev = v;\n    first = false;\n"
+              "    if (lane == 0) atomicAdd(&g_prof[13], 1ull);")
+    return src + (
+        '\nextern "C" int prof_read(unsigned long long* out) {\n'
+        "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n}\n"
+        'extern "C" int prof_reset() {\n  unsigned long long z[16] = {0};\n'
+        "  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n}\n")
+
+
+def study_b1_phases(here):
+    """``--b1-phases``: where B1's RL-mode cycles go.  Builds the
+    instrumented copy of ``event_scan.cu`` into ``smoke_out/b1_phases/``,
+    makes the B1 wrapper launch it, and runs three 4,096-step chunks of the
+    chsac_af CLI's shape from the run's start (``rl_setup``): cycles per
+    event by phase, and B3's call, round and window-walk counts."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+
+    d = os.path.join(here, "smoke_out", "b1_phases")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(build.CSRC_DIR, "event_scan.cu")) as f:
+        src = instrumented_event_scan(f.read())
+    with open(os.path.join(d, "event_scan.cu"), "w") as f:
+        f.write(src)
+    shutil.copy(os.path.join(build.CSRC_DIR, "threefry.cuh"), d)
+    lib_path = os.path.join(d, "lib.so")
+    r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
+                        "-o", lib_path, os.path.join(d, "event_scan.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"instrumented event_scan.cu: nvcc failed\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.prof_read.argtypes = [ctypes.c_void_p]
+    build._libs["event_scan"] = lib  # the wrapper declares its entry points
+    b1._argtypes = None
+    fleet, params, n_steps, eng, agent = rl_setup()
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    for c in range(3):
+        pre = eng.workload.tables(st, n_steps)
+        lib.prof_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b1.event_scan(eng, st, pre, n_steps, agent.sac)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.workload.advance_carries(st, pre)
+        out = (ctypes.c_ulonglong * 16)()
+        lib.prof_read(ctypes.cast(out, ctypes.c_void_p))
+        tot = sum(out[k] for k in range(len(B1_PHASES)))
+        print(f"chunk {c}: {wall * 1e3:.1f} ms wall, {out[15]} forwards, B3 calls "
+              f"{out[12]} (window walked {out[14]}), rounds {out[13]}, latency "
+              f"counts {st.lat.count.tolist()}")
+        for k, name in enumerate(B1_PHASES):
+            print(f"   {name:24s} {out[k]:>14d} cycles  {100 * out[k] / max(tot, 1):5.1f}%"
+                  f"  per event {out[k] / n_steps:9.0f}")
+        print(f"   total {tot} cycles = {tot / n_steps:.0f} per event")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), "(SM clock, max)")
+
+
+def study_b1_chunk_ms():
+    """``--b1-chunk-ms ROOT`` (the A/B's child process): the heuristic B1
+    kernel of the package at ROOT on the paper fleet as the CLI builds it
+    (``default_policy``), four 4,096-step chunks from the run's start, each
+    timed with CUDA events; one JSON line."""
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    build.build(["event_scan"])
+    fleet, params, n = cli_params("default_policy")
+    eng = Engine(fleet, params, device="cuda")
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    ms = []
+    for _ in range(4):
+        pre = eng.workload.tables(st, n)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        b1.event_scan(eng, st, pre, n)
+        b.record()
+        b.synchronize()
+        eng.workload.advance_carries(st, pre)
+        ms.append(a.elapsed_time(b))
+    print(json.dumps({"ms": ms, "steps": n}))
+
+
+def study_b1_ab(parent, change):
+    """``--b1-ab PARENT``: the heuristic B1 kernel of two checkouts, the
+    parent and this one, alternating parent, change, change, parent, each
+    in its own process (``--b1-chunk-ms``): the mean of chunks 2-4."""
+    for name, root in (("parent", parent), ("change", change),
+                       ("change", change), ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--b1-chunk-ms", root], cwd=root, capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"B1 A/B: {name} ({root}) failed:\n{r.stderr[-2000:]}")
+        d = json.loads(r.stdout.strip().splitlines()[-1])
+        m = statistics.mean(d["ms"][1:])
+        print(f"{name}: chunks {d['ms']} ms; {m:.3f} ms per {d['steps']}-step "
+              f"chunk ({m / d['steps'] * 1e3:.3f} us/event)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA GPU")
@@ -729,6 +1532,19 @@ def main():
         fail("run from the repository root: the port's package is not beside "
              "this script")
     sys.path.insert(0, here)
+    args = sys.argv[1:]
+    if args:
+        if args == ["--b1-phases"]:
+            print(card_line())
+            return study_b1_phases(here)
+        if len(args) == 2 and args[0] == "--b1-ab":
+            print(card_line())
+            return study_b1_ab(os.path.abspath(args[1]), here)
+        if len(args) == 2 and args[0] == "--b1-chunk-ms":
+            sys.path.insert(0, os.path.abspath(args[1]))
+            return study_b1_chunk_ms()
+        fail(f"unknown arguments {args}: run with none for the smoke, or "
+             "--b1-phases, or --b1-ab PARENT_CHECKOUT")
     report = {}
     card = card_line()
     print(card)
@@ -739,7 +1555,7 @@ def main():
     from distributed_cluster_gpus_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["event_scan", "arrival_tables"])
+    build.build(["event_scan", "arrival_tables", "replay_ingest"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
     for name, log in build.ptxas_reports.items():
@@ -759,10 +1575,24 @@ def main():
         phase_rollouts(report)
         phase_cuda_vs_cpu(report, out_root)
         phase_profile(report)
+        real = phase_b1_rl(report)
+        phase_rl_tail(report, real)
+        phase_b6a(report)
+        rl_launches = phase_chsac_cli(report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
     b1r, b2r = report["b1"], report["b2"]
+    rl = {k: report[k] for k in ("b1_rl", "b3", "b4", "b6a")}
+
+    def entry(name, source, replaces, launches, r, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"distributed_cluster_gpus_tpu_torch/csrc/{source}",
+                "replaces": f"distributed_cluster_gpus_tpu/{replaces}",
+                "launches": launches, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": library_ms}
     kernels = {"kernels": [{
         "name": "event_scan",
         "route": "cuda",
@@ -787,7 +1617,16 @@ def main():
         "bound_ms": b2r["bound_ms"],
         "bound_by": b2r["bound_by"],
         "library_ms": None,
-    }]}
+    },
+        entry("event_scan_rl_mode", "event_scan.cu", "sim/engine.py:4581",
+              rl_launches["rl"], rl["b1_rl"], None),
+        entry("windowed_p99", "event_scan.cu", "sim/algos.py:210",
+              rl_launches["rl"], rl["b3"], rl["b3"]["library_ms"]),
+        entry("policy_tail", "event_scan.cu", "sim/engine.py:3454",
+              rl_launches["rl"], rl["b4"], rl["b4"]["library_ms"]),
+        entry("replay_ingest", "replay_ingest.cu", "rl/replay.py:165",
+              rl_launches["replay_ingest"], rl["b6a"], None),
+    ]}
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

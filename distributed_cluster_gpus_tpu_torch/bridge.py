@@ -5,8 +5,10 @@ This system's "weights" are its world (``FleetSpec``) and its state
 field names, so the bridge works on nested dicts of numpy arrays: the JAX
 side is turned into numpy by the caller (``tree_to_numpy`` with a leaf
 function that unwraps PRNG keys), the port side by :func:`state_to_numpy`.
-Fields the port does not carry yet (RL traces, bandit, fault, telemetry and
-signal sub-states) are ignored on the way in and absent on the way out.
+Fields the port does not carry yet (bandit, fault, telemetry and signal
+sub-states) are ignored on the way in and absent on the way out.
+:func:`sac_from_flax` carries the chsac_af policy's weights (the JAX
+``SACState``'s encoder and actor parameters) across.
 
 PRNG keys travel as their two uint32 threefry words; the port holds them in
 int64 tensors (``ops/prng.py``).
@@ -29,8 +31,12 @@ _KEY_FIELDS = ("key", "arr_key")
 
 
 def tree_to_numpy(obj, leaf: Callable = np.asarray):
-    """A dataclass tree (either package's state) as nested dicts of numpy
-    arrays; ``None`` members are dropped, ``leaf`` converts each array."""
+    """A dataclass tree (either package's state, or a dict of arrays such as
+    an emission) as nested dicts of numpy arrays; ``None`` members are
+    dropped, ``leaf`` converts each array."""
+    if isinstance(obj, dict):
+        return {k: tree_to_numpy(v, leaf) for k, v in obj.items()
+                if v is not None}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         out = {}
         for f in dataclasses.fields(obj):
@@ -43,13 +49,13 @@ def tree_to_numpy(obj, leaf: Callable = np.asarray):
     return leaf(obj)
 
 
-def _tensor_leaf(x):
+def tensor_leaf(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def state_to_numpy(state: SimState) -> Dict:
     """The port's state as nested dicts of numpy (keys as uint32 words)."""
-    tree = tree_to_numpy(state, _tensor_leaf)
+    tree = tree_to_numpy(state, tensor_leaf)
     for k in _KEY_FIELDS:
         tree[k] = tree[k].astype(np.uint32)
     return tree
@@ -88,6 +94,37 @@ def tree_lane(tree: Dict, r: int) -> Dict:
     if isinstance(tree, dict):
         return {k: tree_lane(v, r) for k, v in tree.items()}
     return np.asarray(tree)[r]
+
+
+def sac_from_flax(cfg, enc_params, actor_params, device="cuda"):
+    """The port's encoder and actor (an ``rl.sac.SACState`` on ``device``)
+    holding the JAX package's flax parameters: ``enc_params`` and
+    ``actor_params`` as nested dicts of numpy arrays (``{"params":
+    {"Dense_k": {"kernel" [in, out], "bias" [out]}}}``).  Flax's layout is
+    the port's, so each array is copied as it is."""
+    from .rl.sac import sac_init
+
+    sac = sac_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    for tree, layers in ((enc_params, list(sac.enc.layers)),
+                         (actor_params, sac.actor.layers())):
+        p = tree["params"]
+        if sorted(p) != [f"Dense_{k}" for k in range(len(layers))]:
+            raise ValueError(f"flax tree {sorted(p)} does not match the "
+                             f"port's {len(layers)} Dense layers")
+        for k, layer in enumerate(layers):
+            for name in ("kernel", "bias"):
+                src = torch.from_numpy(np.array(p[f"Dense_{k}"][name],
+                                                dtype=np.float32))
+                dst = getattr(layer, name)
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"Dense_{k}.{name}: {tuple(src.shape)} "
+                                     f"vs the port's {tuple(dst.shape)}")
+                with torch.no_grad():
+                    dst.copy_(src)
+    dev = resolve_device(device)
+    sac.enc.to(dev)
+    sac.actor.to(dev)
+    return sac
 
 
 def fleet_from_numpy(src) -> FleetSpec:

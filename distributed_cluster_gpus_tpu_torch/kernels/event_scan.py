@@ -4,8 +4,13 @@ Replaces the XLA-fused scan ``Engine._run_chunk`` -> ``lax.scan(Engine._step)``
 (``distributed_cluster_gpus_tpu/sim/engine.py:4581`` and ``:2966``) for the
 configurations ``sim.engine.check_ported`` admits: ``n_steps`` events of every
 rollout lane in ONE launch, one block (one warp) per lane, the job slab in
-shared memory, no host read inside the chunk.  ``csrc/event_scan.cu``'s head
-note gives its design and what bounds it on the card.
+shared memory, no host read inside the chunk.  Under ``chsac_af`` (RL mode)
+the same launch runs the policy tail of every event as device functions:
+the windowed p99 (B3, ``sim/algos.py:210``) and the observation, masks,
+encoder/actor forward and categorical sample (B4, ``sim/engine.py:3454``
+``_tail_head`` + ``:3584`` ``_policy_tail_planned`` + ``:1840``
+``_commit_tail``).  ``csrc/event_scan.cu``'s head note gives its design and
+what bounds it on the card.
 
 :func:`event_scan` is the wrapper ``Engine.run_chunk`` calls.  Its first
 argument is a ``sim.step.StepProgram`` (an ``Engine`` is one): the fleet
@@ -13,10 +18,20 @@ constants the kernel reads and the plain step loop.  It takes a state
 whose leaves carry a leading lane axis ``[R, ...]`` and the chunk's arrival
 tables (``sizes``/``tnext`` [R, S, n_tab], ``c0`` [R, S]), advances the state
 in place and returns the emissions (``t`` [R, n], ``branch`` [R, n] int32,
-``cluster`` [R, n, n_dc, 14], ``job`` [R, n, 15]).  A CPU state takes
+``cluster`` [R, n, n_dc, 14], ``job`` [R, n, 15] and, in RL mode, ``rl``:
+the per-step transition records, [R, n, ...] each).  A CPU state takes
 :func:`event_scan_reference`, the plain step loop lane by lane; a
 CUDA state launches the kernel (built on first use) or raises — there is no
-fallback, and a configuration the kernel does not cover raises too.
+fallback, and a configuration the kernel does not cover raises too.  In RL
+mode the kernel runs only the port's own policy (``rl.sac.make_policy_apply``)
+and reads its bf16 weights (``rl.sac.policy_weights``, built from
+``policy_params`` once per chunk) through the pointer table; a CUDA state
+without them raises.
+
+:func:`rl_tail_batch` is a thin standalone launch of the RL-mode device
+code (B3 over a batch of latency rings, B4 over a batch of observations and
+masks) that ``chip_smoke.py`` holds against the plain versions; the main
+path never calls it.
 """
 
 from __future__ import annotations
@@ -26,8 +41,8 @@ import dataclasses
 
 import torch
 
-from ..models.structs import (ALGO_JOINT_NF, JobSlab, lane_view, n_lanes,
-                              write_lane)
+from ..models.structs import (ALGO_CHSAC_AF, ALGO_JOINT_NF, CORE_JOB_FIELDS,
+                              lane_view, n_lanes, write_lane)
 from ..sim import algos
 
 EV_NOOP = 4
@@ -40,7 +55,15 @@ MAX_DC, MAX_STREAMS, MAX_FREQS = 32, 64, 32
 #: the kernel's static shared state (the C entry point checks exactly)
 SMEM_BUDGET = 232448 - 8192
 
-JOB_FIELDS = tuple(f.name for f in dataclasses.fields(JobSlab))
+JOB_FIELDS = CORE_JOB_FIELDS
+#: the per-step RL record, in csrc/event_scan.cu's pointer order
+RL_EM_FIELDS = ("valid", "s0", "s1", "a_dc", "a_g", "mask_dc0", "mask_g0",
+                "r", "costs", "mask_dc", "mask_g")
+#: the policy's six Dense layers (encoder 0-2, actor hidden, DC head,
+#: GPU-count head): the transposed bf16 kernel [out, in] and the bias of each
+N_LAYERS = 6
+#: widest layer the kernel takes and its largest observation
+MAX_WIDTH, MAX_OBS = 512, 256
 
 #: the pointer table, in csrc/event_scan.cu's `enum Ptr` order
 PTR_NAMES = (
@@ -56,6 +79,12 @@ PTR_NAMES = (
     "freq_levels", "total_gpus", "E_grid_cap", "transfer_s", "net_lat_s",
     "power.alpha_p", "power.beta_p", "power.gamma_p",
     "latency.alpha_t", "latency.beta_t", "latency.gamma_t", "idle_w",
+    # RL mode only (0 otherwise): the slab's RL traces, the RL records and
+    # the policy weights
+    "jobs.rl_obs0", "jobs.rl_a_dc", "jobs.rl_a_g", "jobs.rl_mask_dc0",
+    "jobs.rl_mask_g0", "jobs.rl_valid",
+    *("em.rl." + f for f in RL_EM_FIELDS),
+    *(f"w.{k}" for k in range(2 * N_LAYERS)),
 )
 #: the integer parameters, in csrc/event_scan.cu's `enum Int` order
 INT_NAMES = (
@@ -63,7 +92,11 @@ INT_NAMES = (
     "n_tab", "k_drain", "default_f_idx", "algo_joint_nf", "perf_first",
     "inf_priority", "reserve_inf_gpus", "max_gpus_per_job", "f_hi", "f_lo",
     "train_scale_out_low_freq",
+    # RL mode: on/off, greedy actions, obs width, percentile K, layer widths
+    "rl", "greedy", "obs_dim", "perc_k", "w_h0", "w_h1", "w_lat", "w_ah",
 )
+#: the float parameters, in csrc/event_scan.cu's `enum Flt` order
+FLT_NAMES = ("end", "log_interval", "sla_thr", "neg_w", "sla_ms")
 
 _I32, _F32, _I64, _BOOL = torch.int32, torch.float32, torch.int64, torch.bool
 _JOB_DTYPES = {
@@ -72,6 +105,7 @@ _JOB_DTYPES = {
     "t_ingress": _F32, "t_avail": _F32, "t_start": _F32, "net_lat_s": _F32,
     "preempt_count": _I32, "preempt_t": _F32, "total_preempt_time": _F32,
     "spu": _F32, "watts": _F32,
+    "rl_a_dc": _I32, "rl_a_g": _I32, "rl_valid": _BOOL,
 }
 
 _argtypes = None
@@ -90,9 +124,31 @@ def pow2_at_least(n: int) -> int:
     return p
 
 
-def smem_bytes(J: int) -> int:
-    """Dynamic shared memory of one block: the slab and two [P] rows."""
-    return 4 * (18 * J + 2 * pow2_at_least(J))
+def smem_bytes(J: int, W: int = 0, rl: bool = False) -> int:
+    """Dynamic shared memory of one block: the slab and two [P] rows, and in
+    RL mode the two latency windows and the policy's scratch (the
+    observation, two activation rows, logits and log-probabilities)."""
+    rl_part = 2 * W + MAX_OBS + 2 * MAX_WIDTH + 128 if rl else 0
+    return 4 * (18 * J + 2 * pow2_at_least(J) + rl_part)
+
+
+_bitrev_cache = {}
+
+
+def bitrev_perm(kp: int, device="cpu") -> torch.Tensor:
+    """[kp] int64 on ``device``: position n of a power-of-two row holds
+    element rev(n) (the kernel's order for the halving-tree sums).  Built
+    with integer ops on the device once per (kp, device), so a chunk's
+    operands need no host-to-device copy."""
+    key = (kp, str(device))
+    if key not in _bitrev_cache:
+        bits = kp.bit_length() - 1
+        n = torch.arange(kp, dtype=torch.int64, device=device)
+        r = torch.zeros_like(n)
+        for b in range(bits):
+            r = r | (((n >> b) & 1) << (bits - 1 - b))
+        _bitrev_cache[key] = r
+    return _bitrev_cache[key]
 
 
 def _lane_specs(prog, R: int, n_tab: int):
@@ -120,6 +176,9 @@ def _lane_specs(prog, R: int, n_tab: int):
     }
     for f, dt in _JOB_DTYPES.items():
         specs["jobs." + f] = (dt, lane(J))
+    specs["jobs.rl_obs0"] = (_F32, lane(J, p.obs_dim(n_dc)))
+    specs["jobs.rl_mask_dc0"] = (_BOOL, lane(J, n_dc))
+    specs["jobs.rl_mask_g0"] = (_BOOL, lane(J, p.max_gpus_per_job))
     return specs
 
 
@@ -154,7 +213,12 @@ def _validate(prog, state, pre, n_steps: int):
     return R, n_tab
 
 
-def event_scan_reference(prog, state, pre, n_steps: int):
+def _stack(ems):
+    return {k: (_stack([e[k] for e in ems]) if isinstance(ems[0][k], dict)
+                else torch.stack([e[k] for e in ems])) for k in ems[0]}
+
+
+def event_scan_reference(prog, state, pre, n_steps: int, policy_params=None):
     """Plain version: the plain step loop (``sim.step.StepProgram.scan_plain``),
     lane by lane, each lane advanced in place.  Returns (emissions, stats)."""
     R, _ = _validate(prog, state, pre, n_steps)
@@ -162,12 +226,13 @@ def event_scan_reference(prog, state, pre, n_steps: int):
     stats = {"events": 0, "host_reads": 0}
     for r in range(R):
         st = lane_view(state, r)
-        em, s = prog.scan_plain(st, {k: v[r] for k, v in pre.items()}, n_steps)
+        em, s = prog.scan_plain(st, {k: v[r] for k, v in pre.items()}, n_steps,
+                                policy_params)
         write_lane(state, r, st)
         ems.append(em)
         for k in stats:
             stats[k] += s[k]
-    return {k: torch.stack([e[k] for e in ems]) for k in ems[0]}, stats
+    return _stack(ems), stats
 
 
 def _lib():
@@ -177,16 +242,21 @@ def _lib():
     lib = build.load("event_scan")
     if _argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.event_scan_launch.argtypes = [P, I, P, I, P, I, P]
-        lib.event_scan_launch.restype = ctypes.c_int
+        for fn in (lib.event_scan_launch, lib.rl_tail_batch_launch):
+            fn.argtypes = [P, I, P, I, P, I, P]
+            fn.restype = ctypes.c_int
         _argtypes = True
     return lib
 
 
-def kernel_ints(prog, R: int, n_steps: int, n_tab: int):
-    """The kernel's integer parameters for this engine, in INT_NAMES order."""
+def kernel_ints(prog, R: int, n_steps: int, n_tab: int, greedy: bool = False,
+                widths=(0, 0, 0, 0)):
+    """The kernel's integer parameters for this engine, in INT_NAMES order
+    (``widths``: the policy's hidden widths h0, h1, latent and actor
+    hidden, from :func:`policy_operands`)."""
     fleet, p = prog.fleet, prog.params
     J = p.job_cap
+    rl = p.algo == ALGO_CHSAC_AF
     vals = {
         "R": R, "n_steps": n_steps, "n_dc": fleet.n_dc, "n_ing": fleet.n_ing,
         "n_f": fleet.n_f, "n_cap": int(prog.E_grid_cap.shape[2]), "J": J,
@@ -201,39 +271,112 @@ def kernel_ints(prog, R: int, n_steps: int, n_tab: int):
         "f_hi": algos.f_idx_of(fleet, p.dvfs_high),
         "f_lo": algos.f_idx_of(fleet, p.dvfs_low),
         "train_scale_out_low_freq": int(bool(p.train_scale_out_low_freq)),
+        "rl": int(rl), "greedy": int(bool(greedy)),
+        "obs_dim": p.obs_dim(fleet.n_dc),
+        "perc_k": algos.percentile_k(p.lat_window, 99.0),
+        "w_h0": widths[0], "w_h1": widths[1], "w_lat": widths[2],
+        "w_ah": widths[3],
     }
     return [int(vals[k]) for k in INT_NAMES]
+
+
+def kernel_floats(prog):
+    """The kernel's float parameters, in FLT_NAMES order (float32)."""
+    p = prog.params
+    return [float(p.duration), float(p.log_interval), 0.9 * p.sla_p99_ms,
+            -float(p.rl_energy_weight), float(p.sla_p99_ms)]
 
 
 def check_kernel_covers(prog) -> None:
     """Raise for a configuration beyond the kernel's limits (the port never
     falls back to the plain step on the card)."""
-    fleet, J = prog.fleet, prog.params.job_cap
+    fleet, p = prog.fleet, prog.params
+    J = p.job_cap
     if fleet.n_dc > MAX_DC or 2 * fleet.n_ing > MAX_STREAMS or fleet.n_f > MAX_FREQS:
         raise ValueError(
             f"event_scan: at most {MAX_DC} DCs, {MAX_STREAMS // 2} ingresses and "
             f"{MAX_FREQS} frequency levels (got {fleet.n_dc}, {fleet.n_ing}, "
             f"{fleet.n_f})")
-    if smem_bytes(J) > SMEM_BUDGET:
+    rl = p.algo == ALGO_CHSAC_AF
+    need = smem_bytes(J, p.lat_window, rl)
+    if need > SMEM_BUDGET:
         raise ValueError(
-            f"event_scan: job_cap {J} needs {smem_bytes(J)} B of shared memory "
-            f"per lane; the card offers {SMEM_BUDGET} B to the slab")
+            f"event_scan: job_cap {J} (lat_window {p.lat_window}) needs {need} B "
+            f"of shared memory per lane; the card offers {SMEM_BUDGET} B")
+    if rl:
+        if getattr(prog.policy_apply, "kernel_mode", None) is None:
+            raise ValueError(
+                "event_scan: the B1 kernel runs only the port's own policy "
+                "(rl.sac.make_policy_apply); other policy_apply callables run "
+                "on the CPU")
+        if not 5 <= p.obs_dim(fleet.n_dc) <= MAX_OBS or p.max_gpus_per_job > MAX_DC:
+            raise ValueError(
+                f"event_scan: RL mode takes 5 <= obs_dim <= {MAX_OBS} and at "
+                f"most {MAX_DC} GPU-count actions")
 
 
-def event_scan(prog, state, pre, n_steps: int):
+def policy_operands(prog, policy_params, device):
+    """The policy's operands for the kernel: per layer (encoder 0-2, actor
+    hidden, DC head, GPU-count head) the bf16 weight [out, pow2(in)] with
+    each row in bit-reversed order and zero-padded, then the bf16 bias;
+    and the hidden widths (h0, h1, latent, actor hidden).  Built once per
+    chunk; raises unless ``policy_params`` is an ``rl.sac.SACState`` whose
+    layers chain from the observation to the two heads."""
+    from ..rl.sac import policy_weights
+
+    if policy_params is None or not hasattr(policy_params, "layers"):
+        raise ValueError(
+            "event_scan: a chsac_af state on the card needs the policy's "
+            "weights (policy_params: an rl.sac.SACState)")
+    p, n_dc = prog.params, prog.fleet.n_dc
+    ws = policy_weights(policy_params, device)
+    outs = [int(ws[2 * k].shape[0]) for k in range(N_LAYERS)]
+    ins = [p.obs_dim(n_dc), outs[0], outs[1], outs[2], outs[3], outs[3]]
+    if outs[4] != n_dc or outs[5] != p.max_gpus_per_job:
+        raise ValueError(f"event_scan: policy heads {outs[4:]} do not match "
+                         f"(n_dc, max_gpus_per_job) = ({n_dc}, "
+                         f"{p.max_gpus_per_job})")
+    ops = []
+    for k in range(N_LAYERS):
+        w, b = ws[2 * k], ws[2 * k + 1]
+        if tuple(w.shape) != (outs[k], ins[k]) or tuple(b.shape) != (outs[k],):
+            raise ValueError(f"event_scan: policy layer {k} is {tuple(w.shape)}, "
+                             f"the kernel expects ({outs[k]}, {ins[k]})")
+        if not 5 <= ins[k] <= MAX_WIDTH or outs[k] > MAX_WIDTH:
+            raise ValueError(f"event_scan: layer widths 5..{MAX_WIDTH}")
+        kp = pow2_at_least(ins[k])
+        # zero columns past `in`, then the bit-reversed gather (positions
+        # whose element lies in the padding read a zero)
+        padded = torch.cat([w, torch.zeros((outs[k], kp - ins[k]), dtype=w.dtype,
+                                           device=device)], dim=1)
+        wp = padded.index_select(1, bitrev_perm(kp, device))
+        ops += [wp.contiguous(), b.contiguous()]
+    return ops, tuple(outs[:4])
+
+
+def _launch_error(rc):
+    return {-1: "pointer/parameter tables do not match the build",
+            -2: "a shape beyond the kernel's limits",
+            -3: "the slab does not fit in shared memory"}.get(
+                rc, f"cudaError {rc}")
+
+
+def event_scan(prog, state, pre, n_steps: int, policy_params=None):
     """The B1 wrapper: kernel on a CUDA state, plain version on a CPU one.
 
     Advances ``state`` (leaves [R, ...]) by ``n_steps`` events in place;
-    returns (emissions, stats).  Counts each kernel launch in
+    returns (emissions, stats).  ``policy_params``: the chsac_af policy's
+    (an ``rl.sac.SACState``).  Counts each kernel launch in
     ``event_scan.launches``."""
     R, n_tab = _validate(prog, state, pre, n_steps)
     dev = prog.device
     if dev.type == "cpu":
-        return event_scan_reference(prog, state, pre, n_steps)
+        return event_scan_reference(prog, state, pre, n_steps, policy_params)
     if dev.type != "cuda":
         raise ValueError(f"event_scan: unsupported device {dev}")
     check_kernel_covers(prog)
     fleet = prog.fleet
+    rl = prog.params.algo == ALGO_CHSAC_AF
     em = {
         "t": torch.empty((R, n_steps), dtype=_F32, device=dev),
         "branch": torch.full((R, n_steps), EV_NOOP, dtype=_I32, device=dev),
@@ -241,11 +384,23 @@ def event_scan(prog, state, pre, n_steps: int):
                                dtype=_F32, device=dev),
         "job": torch.zeros((R, n_steps, JOB_COLS), dtype=_F32, device=dev),
     }
+    weights, widths = [], (0, 0, 0, 0)
+    if rl:
+        weights, widths = policy_operands(prog, policy_params, dev)
+        em["rl"] = {k: v.unsqueeze(0).expand((R,) + tuple(v.shape)).contiguous()
+                    for k, v in prog.rl_emissions(n_steps).items()}
     consts = prog.kernel_consts()
     src = {"pre": pre, "em": em}
     ptrs = []
     for name in PTR_NAMES:
         head = name.split(".")[0]
+        if head == "w":
+            k = int(name.split(".")[1])
+            ptrs.append(weights[k].data_ptr() if rl else 0)
+            continue
+        if (name.startswith("em.rl.") or name.startswith("jobs.rl_")) and not rl:
+            ptrs.append(0)
+            continue
         if head in ("pre", "em"):
             t = _get(src, name)
         elif name in consts:
@@ -253,9 +408,9 @@ def event_scan(prog, state, pre, n_steps: int):
         else:
             t = _get(state, name)
         ptrs.append(t.data_ptr())
-    ints = kernel_ints(prog, R, n_steps, n_tab)
-    # csrc/event_scan.cu's `enum Flt` order
-    floats = [float(prog.params.duration), float(prog.params.log_interval)]
+    greedy = rl and prog.policy_apply.kernel_mode == "greedy"
+    ints = kernel_ints(prog, R, n_steps, n_tab, greedy, widths)
+    floats = kernel_floats(prog)
     lib = _lib()
     c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
@@ -265,13 +420,68 @@ def event_scan(prog, state, pre, n_steps: int):
         rc = lib.event_scan_launch(c_ptrs, len(ptrs), c_ints, len(ints),
                                    c_floats, len(floats), stream)
     if rc != 0:
-        why = {-1: "pointer/parameter tables do not match the build",
-               -2: "a shape beyond the kernel's limits",
-               -3: "the slab does not fit in shared memory"}.get(
-                   rc, f"cudaError {rc}")
-        raise RuntimeError(f"event_scan kernel launch failed: {why}")
+        raise RuntimeError(f"event_scan kernel launch failed: {_launch_error(rc)}")
     event_scan.launches += 1
+    event_scan.rl_launches += rl
     return em, {"events": None, "host_reads": None}
 
 
+#: kernel launches; ``rl_launches`` counts those in RL mode, which run the
+#: B3 and B4 device code inside the event loop
 event_scan.launches = 0
+event_scan.rl_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The RL-mode device code, launched standalone over a batch (chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+def rl_tail_batch(prog, policy_params, lat_buf, lat_count, obs, mask_dc,
+                  mask_g, keys, operands=None):
+    """B3 and B4 of the RL mode on a batch, through the kernel's own device
+    functions: ``lat_buf`` [B, W] f32 and ``lat_count`` [B] i32 give the
+    p99 of each ring ([B] f32); ``obs`` [M, obs_dim] f32 with ``mask_dc``
+    [M, n_dc] and ``mask_g`` [M, n_g] bool and ``keys`` [M, 2] int64 give
+    each row's log-probabilities ([M, n_dc], [M, n_g] f32) and sampled
+    actions ([M] int32 each, ``split(key)[0]`` for the DC head and
+    ``split(key)[1]`` for the GPU count).  One launch, one warp per row.
+    ``operands`` (from :func:`policy_operands`) skips rebuilding the
+    weights.  Not on the main path and not counted in
+    ``event_scan.launches``."""
+    dev = prog.device
+    if dev.type != "cuda":
+        raise ValueError("rl_tail_batch: the standalone launch runs on the card")
+    p, fleet = prog.params, prog.fleet
+    B, W = lat_buf.shape
+    M = obs.shape[0]
+    n_dc, n_g = fleet.n_dc, p.max_gpus_per_job
+    weights, widths = (operands if operands is not None else
+                       policy_operands(prog, policy_params, dev))
+    out = {"p99": torch.empty((B,), dtype=_F32, device=dev),
+           "logp_dc": torch.empty((M, n_dc), dtype=_F32, device=dev),
+           "logp_g": torch.empty((M, n_g), dtype=_F32, device=dev),
+           "a_dc": torch.empty((M,), dtype=_I32, device=dev),
+           "a_g": torch.empty((M,), dtype=_I32, device=dev)}
+    args = [lat_buf, lat_count, obs, mask_dc, mask_g, keys]
+    for t in args:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("rl_tail_batch: inputs must be contiguous on the card")
+    ptrs = [t.data_ptr() for t in args + [out["p99"], out["logp_dc"],
+                                          out["logp_g"], out["a_dc"],
+                                          out["a_g"]]]
+    ptrs += [w.data_ptr() for w in weights]
+    ints = kernel_ints(prog, 1, 1, 1,
+                       prog.policy_apply.kernel_mode == "greedy", widths)
+    ints += [B, W, M]
+    lib = _lib()
+    floats = kernel_floats(prog)
+    c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_floats = (ctypes.c_float * len(floats))(*floats)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rl_tail_batch_launch(c_ptrs, len(ptrs), c_ints, len(ints),
+                                      c_floats, len(floats), stream)
+    if rc != 0:
+        raise RuntimeError(f"rl_tail_batch launch failed: {_launch_error(rc)}")
+    return out

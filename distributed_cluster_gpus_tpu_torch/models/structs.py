@@ -7,8 +7,8 @@ converts leaf by leaf in either direction (``bridge.py``).  Differences:
 * state classes are plain mutable dataclasses whose leaves are tensors on
   one explicit device; the engine updates them in place where that saves
   a copy (JAX's arrays are immutable, so its engine rebuilds the tree);
-* the RL trace fields of :class:`JobSlab`, the bandit, fault, telemetry and
-  signal sub-states belong to later slices of the port and are absent;
+* the bandit, fault, telemetry and signal sub-states belong to later
+  slices of the port and are absent;
 * PRNG keys are ``int64`` tensors of shape ``[2]`` holding the two 32-bit
   threefry words (see ``ops/prng.py``).
 """
@@ -46,7 +46,7 @@ ALGO_CODES = (
 )
 
 #: the algorithms this port runs; the rest raise with their ROADMAP item
-PORTED_ALGOS = (ALGO_DEFAULT, ALGO_JOINT_NF)
+PORTED_ALGOS = (ALGO_DEFAULT, ALGO_JOINT_NF, ALGO_CHSAC_AF)
 
 N_JTYPE = 2  # 0 = inference, 1 = training
 
@@ -83,6 +83,21 @@ class JobSlab:
     total_preempt_time: torch.Tensor  # [J] f32
     spu: torch.Tensor  # [J] f32 cached seconds-per-unit
     watts: torch.Tensor  # [J] f32 cached task power
+    # RL traces (only written under chsac_af)
+    rl_obs0: torch.Tensor  # [J, obs_dim] f32 obs at action-selection time
+    rl_a_dc: torch.Tensor  # [J] int32
+    rl_a_g: torch.Tensor  # [J] int32
+    rl_mask_dc0: torch.Tensor  # [J, n_dc] bool: masks in force at s0
+    rl_mask_g0: torch.Tensor  # [J, n_g] bool
+    rl_valid: torch.Tensor  # [J] bool: the row holds a stored (s0, a) trace
+
+
+#: the JobSlab fields every algorithm reads and writes (the RL traces,
+#: written only under chsac_af, follow them)
+CORE_JOB_FIELDS = ("status", "jtype", "ingress", "dc", "seq", "size",
+                   "units_done", "n", "f_idx", "t_ingress", "t_avail",
+                   "t_start", "net_lat_s", "preempt_count", "preempt_t",
+                   "total_preempt_time", "spu", "watts")
 
 
 class QRec:
@@ -290,6 +305,13 @@ class SimParams:
     @property
     def tdtype(self) -> torch.dtype:
         return torch.float64 if self.time_dtype == "float64" else torch.float32
+
+    def obs_dim(self, n_dc: int) -> int:
+        """RL observation: [now] + per-DC [total, busy, free, cur_f, q_inf,
+        q_trn].  (The JAX package appends 1 + n_dc signal features for
+        workloads with observed price/carbon timelines, which the port does
+        not carry yet: ROADMAP queue A item 4.)"""
+        return 1 + 6 * n_dc
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""(n, f) energy tables for the grid optimizers.
+"""(n, f) energy tables for the grid optimizers, and the SLA sizing rule.
 
-Counterpart of ``distributed_cluster_gpus_tpu/ops/optimizers.py``.  Only
-the table builder is ported in this slice: ``joint_nf`` reads the table
-through ``sim.algos.admit_joint_nf`` (a first-minimum argmin over it);
-``best_nf_grid`` and ``min_n_for_sla`` serve carbon/cost admission and the
-RL reward, which are later slices (ROADMAP queue A items 5 and 9).
+Counterpart of ``distributed_cluster_gpus_tpu/ops/optimizers.py``:
+``nf_energy_table`` (``joint_nf`` reads it through
+``sim.algos.admit_joint_nf``) and ``min_n_for_sla`` (the ``gpu_over`` cost
+of the chsac_af reward record).  ``best_nf_grid`` serves carbon/cost
+admission, a later slice (ROADMAP queue A item 5).
 """
 
 from __future__ import annotations
@@ -30,3 +30,16 @@ def nf_energy_table(n_max: int, freq_levels, pc: PowerCoeffs,
     T = step_time_s(n, f, tc_b)
     P = task_power_w(n, f, pc_b)
     return T, P, T * P
+
+
+def min_n_for_sla(size, f, tc: LatencyCoeffs, sla_ms: float, n_max: int):
+    """Smallest n in 1..n_max with ``size * T(n, f) * 1000 <= sla_ms``
+    (int32), n_max when no n meets the SLA.  ``size`` and ``f`` are 0-d
+    float32 tensors; ``tc`` holds one (dc, jtype)'s coefficients."""
+    n = torch.arange(1, n_max + 1, dtype=torch.float32, device=size.device)
+    T = step_time_s(n, f, tc)
+    ok = size * T * 1000.0 <= torch.tensor(sla_ms, dtype=torch.float32,
+                                           device=size.device)
+    first_ok = torch.argmax(ok.to(torch.int32)) + 1
+    return torch.where(ok.any(), first_ok,
+                       torch.full_like(first_ok, n_max)).to(torch.int32)

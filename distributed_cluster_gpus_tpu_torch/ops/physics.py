@@ -17,6 +17,7 @@ the fused ops (``addcmul``, ``lerp``) may appear at these sites.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -51,6 +52,47 @@ def fmul_pinned(a, b):
 def fdiv_pinned(a, b):
     """``a / b`` as ``a * (1/b)``, the reference's one definition."""
     return fmul_pinned(a, 1.0 / b)
+
+
+def tree_sum_last(x):
+    """Sum over the last axis with the reference's fixed halving-tree
+    association (zero-padded to a power of two).  Never ``torch.sum`` on
+    floats here: its order is not the reference's."""
+    n = x.shape[-1]
+    p = 1
+    while p < n:
+        p *= 2
+    if p != n:
+        x = torch.cat([x, torch.zeros(x.shape[:-1] + (p - n,), dtype=x.dtype,
+                                      device=x.device)], dim=-1)
+    while p > 1:
+        p //= 2
+        x = x[..., :p] + x[..., p:]
+    return x[..., 0]
+
+
+def fma_f32(a, b, c):
+    """``a * b + c`` on float32 tensors rounded ONCE, as a fused multiply-add
+    rounds it (XLA's CPU code contracts some products into FMAs; CUDA's
+    ``__fmaf_rn``).  Computed in float64, where the product of two float32
+    values is exact; the one case where rounding the float64 sum to float32
+    would round twice (the sum landing exactly on a float32 midpoint while
+    the float64 addition itself was inexact) is decided by the sign of the
+    addition's exact error term, so the result equals a true FMA."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    toward = torch.where(s >= r.double(), torch.full_like(r, math.inf),
+                         torch.full_like(r, -math.inf))
+    other = torch.nextafter(r, toward)
+    mid = s == (r.double() + other.double()) * 0.5
+    fix = mid & (err != 0) & torch.isfinite(r)
+    # at a midpoint the exact value lies on err's side of s
+    pick = torch.where((err > 0) == (other > r), other, r)
+    return torch.where(fix, pick, r)
 
 
 def gpu_power_w(f, pc: PowerCoeffs):

@@ -108,6 +108,36 @@ def uniform(k, minval: float = 0.0, maxval: float = 1.0):
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
+def uniform_vec(k, n: int, minval: float = 0.0, maxval: float = 1.0):
+    """``jax.random.uniform(k, (n,), float32, minval, maxval)``: element i
+    from the bits of the block on counter ``(0, i)``; ``[..., n]``."""
+    i = torch.arange(n, dtype=torch.int64, device=k.device)
+    o0, o1 = _block(k[..., None, :], i)
+    f = bits_to_unit_float(o0 ^ o1)
+    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+#: float32's smallest normal number (the Gumbel sampler's uniform floor)
+TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(k, n: int):
+    """``jax.random.gumbel(k, (n,))`` in jax's default ("low") mode:
+    ``-log(-log(u))``, ``u`` uniform in [tiny, 1)."""
+    return -torch.log(-torch.log(uniform_vec(k, n, TINY_F32, 1.0)))
+
+
+def categorical(k, logits):
+    """``jax.random.categorical(k, logits)`` over the last axis (Gumbel-max,
+    the first maximum wins): int64 indices.  ``torch.log`` may differ from
+    XLA's by an ulp, so the action agrees with jax's except where the two
+    largest perturbed logits lie within an ulp or so of each other
+    (``tests/test_torch_rl_policy.py`` states the margin)."""
+    return torch.argmax(gumbel(k, logits.shape[-1]) + logits, dim=-1)
+
+
 def exponential(k):
     """``jax.random.exponential(k)``: ``-log1p(-u)``."""
     return -torch.log1p(-uniform(k))

@@ -1,0 +1,98 @@
+"""The chsac_af run loop, acting side: chunk -> CSV drain -> ingest -> update.
+
+Counterpart of ``distributed_cluster_gpus_tpu/rl/train.py``'s ``make_agent``
+(``:234``) and ``train_chsac`` (``:333``).  Each chunk runs the engine with
+the agent's policy (on the card: the B1 kernel in RL mode, the policy inside
+the event loop), drains the chunk's CSV rows, ingests its transition stream
+into the replay ring (the B6a kernel on the card) and then asks the agent
+for the chunk's updates.  Updates are the learning half (ROADMAP queue B
+item B5): once one falls due, ``CHSAC_AF.train_steps`` raises.  A run whose
+``--rl-warmup`` exceeds its transition count acts without learning, which is
+the path this slice ports.
+
+Checkpoints, the telemetry sink and graceful shutdown raise as unported
+(ROADMAP queue A items 14, 12 and 14).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.structs import FleetSpec, SimParams
+from ..sim.engine import Engine, init_state
+from ..sim.io import CSVWriters, drain_emissions
+from .agent import CHSAC_AF
+from .cmdp import constraints_from_params
+
+
+def make_agent(fleet: FleetSpec, params: SimParams, device="cuda") -> CHSAC_AF:
+    """The CLI-default CHSAC-AF agent for this (fleet, params) on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    return CHSAC_AF(
+        obs_dim=params.obs_dim(fleet.n_dc),
+        n_dc=fleet.n_dc,
+        n_g_choices=params.max_gpus_per_job,
+        constraints=constraints_from_params(params),
+        buffer_capacity=params.rl_buffer,
+        batch=params.rl_batch,
+        warmup=params.rl_warmup,
+        seed=params.seed,
+        device=device)
+
+
+def train_chsac(fleet: FleetSpec, params: SimParams,
+                out_dir: Optional[str] = None, chunk_steps: int = 2048,
+                max_chunks: int = 10_000, train_every_n: int = 1,
+                max_train_steps_per_chunk: int = 256,
+                agent: Optional[CHSAC_AF] = None, verbose: bool = False,
+                ckpt_dir: Optional[str] = None, on_chunk=None, obs=None,
+                shutdown=None, device="cuda",
+                pre_tables: Optional[Sequence[Dict]] = None):
+    """Run a chsac_af simulation, acting with ``agent``'s policy and feeding
+    its replay ring.  Returns (final SimState, agent, history of update
+    metrics).  ``on_chunk(chunk, state, history)`` runs after every chunk;
+    ``pre_tables`` (tests) injects each chunk's arrival tables.  The agent's
+    device is the run's: ``device`` builds a default agent there."""
+    if params.algo != "chsac_af":
+        raise ValueError(f"train_chsac runs chsac_af, not {params.algo!r}")
+    for name, val, item in (("ckpt_dir", ckpt_dir, "queue A item 14 (checkpoints)"),
+                            ("obs", obs, "queue A item 12 (telemetry)"),
+                            ("shutdown", shutdown,
+                             "queue A item 14 (graceful shutdown)")):
+        if val is not None:
+            raise NotImplementedError(f"train_chsac: {name} is not ported yet "
+                                      f"(ROADMAP {item})")
+    if agent is None:
+        agent = make_agent(fleet, params, device)
+    engine = Engine(fleet, params, device=agent.device,
+                    policy_apply=agent.policy_apply)
+    state = init_state(params.seed, fleet, params, workload=engine.workload,
+                       device=engine.device)
+    writers = CSVWriters(out_dir, fleet) if out_dir else None
+    history: List[Dict] = []
+    for chunk in range(max_chunks):
+        pre = None
+        if pre_tables is not None:
+            pre = {k: torch.tensor(np.asarray(v), device=engine.device)
+                   for k, v in pre_tables[chunk].items()}
+        state, emissions = engine.run_chunk(state, chunk_steps, pre=pre,
+                                            policy_params=agent.sac)
+        drain_emissions(emissions, writers)
+        n_new = int(emissions["rl"]["valid"].sum())
+        agent.ingest_chunk(emissions["rl"])
+        n_want = min(n_new // max(train_every_n, 1), max_train_steps_per_chunk)
+        metrics, n_done = (agent.train_steps(n_want, max_train_steps_per_chunk)
+                           if n_want else (None, 0))
+        if metrics is not None:
+            history.append(metrics)
+        if verbose:
+            print(f"t={float(state.t):.1f}s/{params.duration:.0f}s "
+                  f"replay={int(agent.replay.size)} warming up")
+        if on_chunk is not None:
+            on_chunk(chunk, state, history)
+        if bool(state.done):
+            break
+    return state, agent, history

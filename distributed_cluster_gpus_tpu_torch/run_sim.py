@@ -1,12 +1,18 @@
-"""CLI: run one heuristic simulation on the card and write the CSV logs.
+"""CLI: run one simulation on the card and write the CSV logs.
 
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo joint_nf \\
         --duration 600 --out runs/joint_nf [--device cpu]
+    python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
+        --duration 600 --rl-warmup 1000000000 --out runs/chsac
 
-The port's counterpart of the repo's ``run_sim.py`` for the flags this
-slice honours.  ``--device`` defaults to ``cuda`` and never falls back to
-the CPU.  The reference's other algorithms and flags exit with a message
-naming the ROADMAP item that ports them.
+The port's counterpart of the repo's ``run_sim.py`` for the flags the port
+honours: the heuristic algorithms ``default_policy`` and ``joint_nf``, and
+``chsac_af``'s acting half (the policy runs inside the event loop and feeds
+the replay ring; an update that falls due raises until ROADMAP queue B item
+B5 lands, so runs pass ``--rl-warmup`` above their transition count).
+``--device`` defaults to ``cuda`` and never falls back to the CPU.  The
+reference's other algorithms and flags exit with a message naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,14 +36,7 @@ UNPORTED_FLAGS = {
     "--num_fixed_gpus": "queue A item 5 (debug algo)",
     "--fixed_freq": "queue A item 5 (debug algo)",
     "--elastic-scaling": "queue A item 13 (elastic scaling)",
-    "--sla_p99_ms": "queue A item 9 (chsac_af)",
-    "--energy_budget_j": "queue A item 9 (chsac_af)",
-    "--power-cap-constraint": "queue A item 9 (chsac_af)",
-    "--rl-buffer": "queue A item 9 (chsac_af)",
-    "--rl-batch": "queue A item 9 (chsac_af)",
-    "--rl-warmup": "queue A item 9 (chsac_af)",
-    "--rl-energy-weight": "queue A item 9 (chsac_af)",
-    "--critic-arch": "queue A item 9 (chsac_af)",
+    "--critic-arch": "queue B item B5 (the critics)",
     "--offline-dataset": "queue A item 10 (offline RL)",
     "--offline-steps": "queue A item 10 (offline RL)",
     "--fault-outage": "queue A item 11 (faults)",
@@ -70,8 +69,11 @@ UNPORTED_FLAGS = {
 
 
 def parse_args(argv=None):
+    # no abbreviations: `--power-cap` (unported) must not read as a prefix
+    # of `--power-cap-constraint`
     p = argparse.ArgumentParser(
-        description="geo-distributed GPU-cluster simulator (PyTorch/CUDA port)")
+        description="geo-distributed GPU-cluster simulator (PyTorch/CUDA port)",
+        allow_abbrev=False)
     p.add_argument("--algo", default="default_policy", choices=ALL_ALGOS)
     p.add_argument("--duration", type=float, default=3600.0, help="simulated seconds")
     p.add_argument("--log-interval", type=float, default=20.0)
@@ -93,6 +95,16 @@ def parse_args(argv=None):
     p.add_argument("--job-cap", type=int, default=512)
     p.add_argument("--queue-cap", type=int, default=0,
                    help="per-(DC, jtype) queue-ring depth; 0 = auto-size")
+    # RL / constraints (chsac_af)
+    p.add_argument("--sla_p99_ms", type=float, default=500.0)
+    p.add_argument("--energy_budget_j", type=float, default=None)
+    p.add_argument("--power-cap-constraint", type=float, default=None,
+                   help="power constraint target for the CMDP")
+    p.add_argument("--rl-buffer", type=int, default=200_000)
+    p.add_argument("--rl-batch", type=int, default=256)
+    p.add_argument("--rl-warmup", type=int, default=1_000)
+    p.add_argument("--rl-energy-weight", type=float, default=1.0,
+                   help="weight on the reward's energy term")
     p.add_argument("--chunk-steps", type=int, default=4096)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -104,7 +116,7 @@ def parse_args(argv=None):
                       f"{UNPORTED_FLAGS[flag]})\n")
     if unknown:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if a.algo not in ("default_policy", "joint_nf"):
+    if a.algo not in ("default_policy", "joint_nf", "chsac_af"):
         item = {"chsac_af": "queue A item 9", "ppo": "queue A item 10"}.get(
             a.algo, "queue A items 5 and 6")
         p.exit(2, f"{p.prog}: --algo {a.algo} is not ported yet (ROADMAP {item})\n")
@@ -125,7 +137,11 @@ def build_params(a):
         dvfs_low=a.dvfs_low, dvfs_high=a.dvfs_high,
         inf_mode=a.inf_mode, inf_rate=a.inf_rate, inf_amp=a.inf_amp,
         inf_period=a.inf_period, trn_mode=a.trn_mode, trn_rate=a.trn_rate,
-        job_cap=a.job_cap, seed=a.seed, queue_cap=max(0, a.queue_cap))
+        job_cap=a.job_cap, seed=a.seed, queue_cap=max(0, a.queue_cap),
+        sla_p99_ms=a.sla_p99_ms, energy_budget_j=a.energy_budget_j,
+        power_cap_constraint=a.power_cap_constraint,
+        rl_buffer=a.rl_buffer, rl_batch=a.rl_batch, rl_warmup=a.rl_warmup,
+        rl_energy_weight=a.rl_energy_weight)
 
 
 def finalize_queue_cap(params, fleet):
@@ -147,16 +163,28 @@ def main(argv=None, pre_tables=None):
     fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
     params = finalize_queue_cap(build_params(a), fleet)
     t0 = time.time()
-    state = run_simulation(fleet, params, out_dir=a.out,
-                           chunk_steps=a.chunk_steps, device=a.device,
-                           pre_tables=pre_tables)
+    extra = ""
+    if a.algo == "chsac_af":
+        from .rl.train import train_chsac
+
+        state, agent, _ = train_chsac(fleet, params, out_dir=a.out,
+                                      chunk_steps=a.chunk_steps,
+                                      device=a.device, pre_tables=pre_tables)
+        extra = (f"; {int(agent.replay.n_seen)} transitions in the replay "
+                 f"ring, {agent.sac.step} train steps (the policy's weights "
+                 "come from the port's own generator: flax's initial "
+                 "distribution, not the JAX package's bits)")
+    else:
+        state = run_simulation(fleet, params, out_dir=a.out,
+                               chunk_steps=a.chunk_steps, device=a.device,
+                               pre_tables=pre_tables)
     wall = time.time() - t0
     if not a.quiet:
         n_fin = state.n_finished.tolist()
         print(f"done: t={float(state.t):.0f}s sim, {int(state.n_events)} events, "
               f"{n_fin[0]} inference + {n_fin[1]} training jobs finished, "
               f"{int(state.n_dropped)} dropped; {wall:.1f}s wall on {a.device} "
-              f"-> logs in {a.out}")
+              f"-> logs in {a.out}{extra}")
     return state
 
 

@@ -1,20 +1,24 @@
-"""Scheduling / routing / DVFS decisions for the heuristic algorithms.
+"""Scheduling / routing / DVFS decisions, and the RL observation and masks.
 
 Counterpart of the parts of ``distributed_cluster_gpus_tpu/sim/algos.py``
-that ``default_policy`` and ``joint_nf`` run: the in-DC heuristic
-allocation, the first-minimum (n, f) grid admission and uniform-random
-ingress routing.  Inputs are 0-d device tensors; results are int32
-tensors on the same device.  Carbon/cost admission, eco and weighted
-routing and the RL observation/masks are ROADMAP queue A items 5 and 9.
+that ``default_policy``, ``joint_nf`` and ``chsac_af`` run: the in-DC
+heuristic allocation, the first-minimum (n, f) grid admission,
+uniform-random ingress routing, the windowed latency percentile (B3's plain
+version) and the policy's observation vector and action masks.  Inputs are
+device tensors; results are on the same device.  Carbon/cost admission and
+eco and weighted routing are ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..models.structs import FleetSpec, SimParams
 from ..ops import prng
+from ..ops.physics import fma_f32
 
 
 def f_idx_of(fleet: FleetSpec, value: float) -> int:
@@ -64,3 +68,97 @@ def best_energy_f_idx_at_n(E_grid, dc, jtype, n):
 def route_random(key, n_dc: int):
     """Uniform-random DC: ``jax.random.randint(key, (), 0, n_dc)`` bit for bit."""
     return prng.randint(key, n_dc)
+
+
+# ---------------------------------------------------------------------------
+# RL observation / masks (chsac_af)
+# ---------------------------------------------------------------------------
+
+def percentile_k(W: int, q: float = 99.0) -> int:
+    """How many order statistics ``windowed_percentile`` keeps: the top
+    ``ceil((1 - q/100) W) + 2`` (23 at W = 2048, q = 99)."""
+    return min(W, int(np.ceil((1.0 - float(q) / 100.0) * W)) + 2)
+
+
+def windowed_percentile(buf, count, q: float = 99.0):
+    """B3's plain version: ``np.percentile`` (linear interpolation) over the
+    valid prefix ``buf[..., :min(count, W)]`` of a latency ring, from its top
+    ``percentile_k(W, q)`` order statistics, exactly as the JAX package's
+    ``windowed_percentile`` computes it (``distributed_cluster_gpus_tpu/sim/
+    algos.py:210``).  ``buf`` is [..., W] float32 and ``count`` [...] int32;
+    returns [...] float32.  The interpolation ``s_lo * (1 - frac) + s_hi *
+    frac`` rounds as XLA's CPU code rounds it, with the second product fused
+    into the add (:func:`~..ops.physics.fma_f32`; measured against the JAX
+    package, ``tests/test_torch_rl_obs.py``); an empty window gives NaN
+    there too (``-inf * 0``)."""
+    W = buf.shape[-1]
+    q = float(q)
+    K = percentile_k(W, q)
+    f32 = torch.float32
+    m = torch.clamp(count, max=W)
+    valid = torch.arange(W, device=buf.device) < m[..., None]
+    top = torch.topk(torch.where(valid, buf, torch.full_like(buf, -math.inf)),
+                     K, dim=-1).values  # descending
+    mf = torch.clamp(m, min=1)
+    pos = torch.tensor(q / 100.0, dtype=f32, device=buf.device) * (mf - 1).to(f32)
+    lo = torch.floor(pos).to(torch.int32)
+    hi = torch.minimum(lo + 1, mf - 1)
+    frac = pos - lo.to(f32)
+    # ascending index i is descending rank m - 1 - i; both ranks < K
+    r_lo = torch.clamp(mf - 1 - lo, 0, K - 1).to(torch.int64)
+    r_hi = torch.clamp(mf - 1 - hi, 0, K - 1).to(torch.int64)
+    s_lo = torch.gather(top, -1, r_lo[..., None])[..., 0]
+    s_hi = torch.gather(top, -1, r_hi[..., None])[..., 0]
+    return fma_f32(s_hi, frac, s_lo * (1.0 - frac))
+
+
+def rl_obs(fleet: FleetSpec, t, busy, cur_f_idx, q_inf_len, q_trn_len,
+           consts):
+    """[now] + per-DC [total, busy, free, current f, q_inf, q_trn] (dim
+    1 + 6 n_dc, DC-major), normalised to O(1) ranges as the JAX package's
+    ``rl_obs`` does: time as the fraction of the day, busy/free as fractions
+    of the DC, totals and queue lengths log-compressed.  ``consts`` holds
+    the device constants (``total_f``, ``freq_levels``, ``inv7``,
+    ``inv_day``).  XLA turns ``x / 7`` and ``x / 86400`` into multiplies by
+    the float32 reciprocals, so the port multiplies too; ``torch.log1p`` may
+    differ from XLA's by an ulp."""
+    total = consts["total_f"]
+    busy_f = busy.to(torch.float32)
+    free = torch.clamp(total - busy_f, min=0.0)
+    cf = consts["freq_levels"][cur_f_idx]
+    feats = torch.stack(
+        [torch.log1p(total) * consts["inv7"],
+         busy_f / total,
+         free / total,
+         cf,
+         torch.log1p(q_inf_len.to(torch.float32)) * 0.25,
+         torch.log1p(q_trn_len.to(torch.float32)) * 0.25],
+        dim=-1).reshape(-1)
+    from ..ops.arrivals import tmod
+
+    t_frac = (tmod(t, 86400.0) * consts["inv_day"]).to(torch.float32)
+    return torch.cat([t_frac.reshape(1), feats])
+
+
+def rl_masks(params: SimParams, fleet: FleetSpec, busy, lat_count, p99_pair,
+             total, reserve=0):
+    """(mask_dc [n_dc], mask_g [n_g]) bool: a DC is feasible when it has a
+    free GPU (less ``reserve`` for a training decision); GPU count g + 1 is
+    feasible up to the most free GPUs of any DC, capped at 1 when the recent
+    p99 (the training window when it has samples, else inference) sits
+    below 90% of the SLO (the SLO-slack heuristic).  ``p99_pair`` holds both
+    windows' ``windowed_percentile`` ([2] seconds)."""
+    free = torch.clamp(total - busy - reserve, min=0)
+    mask_dc = free > 0
+    max_free = free.max()
+    n_g = params.max_gpus_per_job
+    g_range = torch.arange(1, n_g + 1, dtype=torch.int32, device=busy.device)
+    mask_g = g_range <= max_free
+    use_trn = lat_count[1] > 0
+    cnt = torch.where(use_trn, lat_count[1], lat_count[0])
+    p99 = torch.where(use_trn, p99_pair[1], p99_pair[0])
+    thr = torch.tensor(0.9 * params.sla_p99_ms, dtype=torch.float32,
+                       device=busy.device)
+    slack = (cnt >= 5) & (p99 * 1000.0 < thr)
+    capped = g_range <= torch.clamp(max_free, max=1)
+    return mask_dc, torch.where(slack, capped, mask_g)

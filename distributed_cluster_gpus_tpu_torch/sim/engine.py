@@ -1,7 +1,7 @@
 """Event-exact simulation engine: a chunk of events through the B1 kernel.
 
 Counterpart of ``distributed_cluster_gpus_tpu/sim/engine.py`` for the
-program this slice ports (the step itself and its plain version are in
+programs the port runs (the step itself and its plain version are in
 ``sim/step.py``).  ``Engine.run_chunk`` runs a chunk through
 ``kernels/event_scan.py``: on the card the B1 kernel (``csrc/event_scan.cu``)
 advances every rollout lane in one launch with no host read inside the
@@ -20,9 +20,9 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.event_scan import event_scan
-from ..models.structs import (PORTED_ALGOS, DCArrays, FleetSpec, JobSlab,
-                              LatWindow, QRec, QueueRings, SimParams, SimState,
-                              n_lanes, with_lane_axis)
+from ..models.structs import (ALGO_CHSAC_AF, PORTED_ALGOS, DCArrays,
+                              FleetSpec, JobSlab, LatWindow, QRec, QueueRings,
+                              SimParams, SimState, n_lanes, with_lane_axis)
 from ..ops import prng
 from ..workload.compiler import compile_workload
 from .step import EV_FINISH, EV_LOG, StepProgram
@@ -32,7 +32,9 @@ def check_ported(params: SimParams) -> None:
     """Refuse configurations whose code paths later slices port."""
     todo = []
     if params.algo not in PORTED_ALGOS:
-        todo.append(f"algo {params.algo!r} (ROADMAP queue A items 5, 6 and 9)")
+        todo.append(f"algo {params.algo!r} (ROADMAP queue A items 5, 6 and 10)")
+    if params.elastic_scaling:
+        todo.append("elastic scaling (ROADMAP queue A item 13)")
     if params.queue_mode != "ring":
         todo.append("queue_mode 'slab' (ROADMAP queue A item 13)")
     if params.superstep_k != 1:
@@ -99,7 +101,13 @@ def init_state(key, fleet: FleetSpec, params: SimParams, workload=None,
         n=zi((J,)), f_idx=zi((J,)),
         t_ingress=zf((J,)), t_avail=zf((J,)), t_start=zf((J,)),
         net_lat_s=z32((J,)), preempt_count=zi((J,)), preempt_t=zf((J,)),
-        total_preempt_time=z32((J,)), spu=z32((J,)), watts=z32((J,)))
+        total_preempt_time=z32((J,)), spu=z32((J,)), watts=z32((J,)),
+        rl_obs0=z32((J, params.obs_dim(n_dc))), rl_a_dc=zi((J,)),
+        rl_a_g=zi((J,)),
+        rl_mask_dc0=torch.zeros((J, n_dc), dtype=torch.bool, device=dev),
+        rl_mask_g0=torch.zeros((J, params.max_gpus_per_job), dtype=torch.bool,
+                               device=dev),
+        rl_valid=torch.zeros((J,), dtype=torch.bool, device=dev))
     dc = DCArrays(
         busy=zi((n_dc,)),
         cur_f_idx=torch.full((n_dc,), fleet.default_f_idx, dtype=torch.int32,
@@ -129,12 +137,25 @@ def init_state(key, fleet: FleetSpec, params: SimParams, workload=None,
         n_dropped=zi(), done=torch.zeros((), dtype=torch.bool, device=dev))
 
 
-class Engine(StepProgram):
-    """Stepper for one (fleet, params) on one device (default: the card)."""
+def _lane0(em):
+    return {k: (_lane0(v) if isinstance(v, dict) else v[0]) for k, v in em.items()}
 
-    def __init__(self, fleet: FleetSpec, params: SimParams, device="cuda"):
+
+class Engine(StepProgram):
+    """Stepper for one (fleet, params) on one device (default: the card).
+
+    ``policy_apply(policy_params, obs, mask_dc, mask_g, key) -> (a_dc, a_g)``
+    is required for chsac_af and ignored otherwise.  On the card the B1
+    kernel runs the port's own policy (``rl.sac.make_policy_apply``) from
+    ``policy_params``' weights; another callable runs only on the CPU."""
+
+    def __init__(self, fleet: FleetSpec, params: SimParams, device="cuda", *,
+                 policy_apply=None):
         check_ported(params)
+        if params.algo == ALGO_CHSAC_AF and policy_apply is None:
+            raise ValueError("chsac_af requires a policy_apply callable")
         super().__init__(fleet, params, device)
+        self.policy_apply = policy_apply
         self.workload = compile_workload(fleet, params, self.device)
         #: the last run_chunk call: steps, events (all lanes) and, on the
         #: CPU, the plain loop's host reads inside the chunk (None on the
@@ -142,7 +163,8 @@ class Engine(StepProgram):
         #: them with the profiler)
         self.stats = {"steps": 0, "events": 0, "host_reads": 0}
 
-    def run_chunk(self, state: SimState, n_steps: int, pre=None):
+    def run_chunk(self, state: SimState, n_steps: int, pre=None,
+                  policy_params=None):
         """Advance ``n_steps`` events in place; returns (state, emissions).
 
         ``state`` is single or lane-stacked ([R, ...] leaves); the chunk runs
@@ -153,7 +175,9 @@ class Engine(StepProgram):
         them with ``workload.tables`` (the B2 kernel on the card).  Emissions
         are per-step records: "t" [n] f32, "cluster_valid"/"job_valid" [n]
         bool, "cluster" [n, n_dc, 14] and "job" [n, 15] f32 (zero where
-        invalid), each with a leading [R] for a lane-stacked state."""
+        invalid), each with a leading [R] for a lane-stacked state; under
+        chsac_af also "rl", the per-step transition records (the JAX
+        package's keys), acting with ``policy_params``."""
         single = n_lanes(state) is None
         lanes = with_lane_axis(state) if single else state
         if pre is None:
@@ -162,7 +186,7 @@ class Engine(StepProgram):
             pre = {k: v.unsqueeze(0) for k, v in pre.items()}
         pre = {k: v.to(self.device).contiguous() for k, v in pre.items()}
         before = lanes.n_events.clone()
-        em, stats = event_scan(self, lanes, pre, n_steps)
+        em, stats = event_scan(self, lanes, pre, n_steps, policy_params)
         self.workload.advance_carries(lanes, pre)
         if stats["events"] is None:
             # the kernel's chunk: one read after it, the events it ran
@@ -172,5 +196,5 @@ class Engine(StepProgram):
         em["cluster_valid"] = branch == EV_LOG
         em["job_valid"] = branch == EV_FINISH
         if single:
-            em = {k: v[0] for k, v in em.items()}
+            em = _lane0(em)
         return state, em

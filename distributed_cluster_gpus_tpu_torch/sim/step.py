@@ -1,8 +1,8 @@
-"""The heuristic step program in plain torch: B1's plain version.
+"""The step program in plain torch: B1's plain version.
 
 Counterpart of ``distributed_cluster_gpus_tpu/sim/engine.py``'s ``_step`` for
-the program this slice ports: the non-RL heuristic algorithms
-(``default_policy``, ``joint_nf``), ring queues, one event per step
+the programs the port runs: the heuristic algorithms (``default_policy``,
+``joint_nf``) and ``chsac_af``'s acting path, ring queues, one event per step
 (superstep K=1), faults / signals / telemetry off, the write-plan commit.
 Every step:
 
@@ -13,7 +13,13 @@ Every step:
 2. accrues energy (``E += P * dt``), GPU time and job progress over the
    exact inter-event gap;
 3. applies that one event through its planner and the shared commit, then
-   the step's single ring push and the post-switch queue drain.
+   the step's single ring push and the post-switch queue drain;
+4. under ``chsac_af`` (:meth:`StepProgram._step_rl`) there is no post-switch
+   drain: the policy tail reads both windows' p99 (B3), builds the
+   observation and masks, runs the policy once when a routing or drain
+   decision is pending (B4), emits the step's RL transition record, and a
+   second commit applies the route, or materializes and starts the head of
+   the finishing DC's ring where the policy sends it.
 
 :class:`StepProgram` holds one (fleet, params)'s constants on one device and
 runs this step over a single state (:meth:`StepProgram.scan_plain`).  It is
@@ -37,15 +43,18 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..models.structs import (ALGO_JOINT_NF, FleetSpec, JobSlab, JobStatus,
-                              QRec, SimParams, SimState)
+from ..models.structs import (ALGO_CHSAC_AF, ALGO_JOINT_NF, FleetSpec,
+                              JobSlab, JobStatus, QRec, SimParams, SimState)
 from ..ops import prng
 from ..ops.arrivals import tmod
 from ..ops.physics import (LatencyCoeffs, PowerCoeffs, fmul_pinned,
-                           step_time_s, task_power_w)
+                           step_time_s, task_power_w, tree_sum_last)
+from ..ops.optimizers import min_n_for_sla
 from . import algos
 
 EV_FINISH, EV_XFER, EV_ARRIVAL, EV_LOG, EV_NOOP = 0, 1, 2, 3, 4
+#: the policy tail's pending decision: none, route an arrival, drain a ring
+REQ_NONE, REQ_ROUTE, REQ_DRAIN = 0, 1, 2
 
 CLUSTER_COLS = (
     "time_s", "freq", "busy", "free", "run_total", "run_inf", "run_train",
@@ -62,23 +71,6 @@ JOB_COLS = (
 # ---------------------------------------------------------------------------
 # fixed-association reductions over the tiny DC axis
 # ---------------------------------------------------------------------------
-
-def tree_sum_last(x):
-    """Sum over the last axis with the reference's fixed halving-tree
-    association (zero-padded to a power of two).  Never ``torch.sum`` on
-    floats here: its order is not the reference's."""
-    n = x.shape[-1]
-    p = 1
-    while p < n:
-        p *= 2
-    if p != n:
-        x = torch.cat([x, torch.zeros(x.shape[:-1] + (p - n,), dtype=x.dtype,
-                                      device=x.device)], dim=-1)
-    while p > 1:
-        p //= 2
-        x = x[..., :p] + x[..., p:]
-    return x[..., 0]
-
 
 def dc_count(vals, dc_idx, n_dc: int):
     """Integer per-DC counts (exact under any order)."""
@@ -131,6 +123,22 @@ class StepProgram:
         self.k_drain = max(params.max_gpus_per_job,
                            min(params.num_fixed_gpus, params.job_cap))
         self.default_f_idx = fleet.default_f_idx
+        self.rl = params.algo == ALGO_CHSAC_AF
+        #: ``policy_apply(sac, obs, mask_dc, mask_g, key) -> (a_dc, a_g)``,
+        #: the chsac_af policy (set by ``sim.engine.Engine``)
+        self.policy_apply = None
+        if self.rl:
+            self.obs_dim = params.obs_dim(fleet.n_dc)
+            self.n_g = params.max_gpus_per_job
+            self.obs_consts = {
+                "total_f": self.total_gpus.to(torch.float32),
+                "freq_levels": self.freq_levels,
+                "inv7": 1.0 / torch.tensor(7.0, **f32),
+                "inv_day": 1.0 / torch.tensor(86400.0, **f32)}
+            self.inv_kwh = 1.0 / torch.tensor(3.6e6, **f32)
+            self.neg_w = torch.tensor(-params.rl_energy_weight, **f32)
+            self.c005 = torch.tensor(0.05, **f32)
+            self.c1000 = torch.tensor(1000.0, **f32)
         #: the plain loop's count over its last lane: events and host reads
         #: (event heads + drain flags)
         self._plain = {"events": 0, "host_reads": 0}
@@ -434,6 +442,7 @@ class StepProgram:
             jobs.preempt_count[j] = 0
             jobs.preempt_t[j] = 0.0
             jobs.total_preempt_time[j] = 0.0
+            jobs.rl_valid[j] = False
             return
         if kind == EV_XFER:
             if plan["evict"]:
@@ -443,6 +452,7 @@ class StepProgram:
         dcj, jt = plan["dc_row"], plan["fin_jt"]
         jobs.status[j] = JobStatus.EMPTY
         jobs.units_done[j] = plan["units_done"]
+        jobs.rl_valid[j] = False
         busy = st.dc.busy
         busy[dcj] -= plan["busy_delta"]
         torch.clamp_(busy, min=0)
@@ -587,10 +597,25 @@ class StepProgram:
         st.n_events += 1
         return key_host
 
-    def scan_plain(self, st: SimState, pre, n_steps: int):
+    def rl_emissions(self, n_steps: int):
+        """Zeroed per-step RL transition records ([n_steps, ...] leaves, the
+        JAX package's ``emission["rl"]`` keys)."""
+        dev, n_dc = self.device, self.fleet.n_dc
+        f32, i32, b = torch.float32, torch.int32, torch.bool
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
+        n, d = n_steps, self.obs_dim
+        return {"valid": z((n,), b), "s0": z((n, d), f32), "s1": z((n, d), f32),
+                "a_dc": z((n,), i32), "a_g": z((n,), i32),
+                "mask_dc0": z((n, n_dc), b), "mask_g0": z((n, self.n_g), b),
+                "r": z((n,), f32), "costs": z((n, 4), f32),
+                "mask_dc": z((n, n_dc), b), "mask_g": z((n, self.n_g), b)}
+
+    def scan_plain(self, st: SimState, pre, n_steps: int, policy_params=None):
         """The plain step loop over one single state (in place): B1's
-        plain version.  ``pre`` holds one lane's tables.  Returns (emissions with
-        ``branch`` [n] int32, {"events", "host_reads"})."""
+        plain version.  ``pre`` holds one lane's tables; ``policy_params`` is
+        the chsac_af policy's (``policy_apply``'s first argument).  Returns
+        (emissions with ``branch`` [n] int32 and, under chsac_af, ``rl``,
+        {"events", "host_reads"})."""
         dev = self.device
         n_dc = self.fleet.n_dc
         em = {"t": torch.zeros((n_steps,), dtype=torch.float32, device=dev),
@@ -599,12 +624,19 @@ class StepProgram:
               "job": torch.zeros((n_steps, len(JOB_COLS)), dtype=torch.float32,
                                  device=dev),
               "branch": [EV_NOOP] * n_steps}
+        if self.rl:
+            if self.policy_apply is None:
+                raise ValueError("chsac_af requires a policy_apply callable")
+            em["rl"] = self.rl_emissions(n_steps)
         self._plain = {"events": 0, "host_reads": 1}
         key_host = tuple(st.key.tolist())
         done = bool(st.done)
         i = 0
         while i < n_steps and not done:
-            key_host = self._step(st, pre, key_host, em, i)
+            if self.rl:
+                key_host = self._step_rl(st, pre, key_host, em, i, policy_params)
+            else:
+                key_host = self._step(st, pre, key_host, em, i)
             done = em["branch"][i] == EV_NOOP
             if not done:
                 self._plain["events"] += 1
@@ -612,9 +644,272 @@ class StepProgram:
         if i < n_steps:
             # the rest of the chunk after `done`: each step only advances
             # the key (t has reached the end, accrual and progress add zero)
+            # and, under chsac_af, emits the same record of the final state
             em["t"][i:] = st.t.to(torch.float32)
+            if self.rl:
+                row, _, _ = self._tail(st, REQ_NONE, 0, self._zero_fin(),
+                                       None, policy_params)
+                for k, v in row.items():
+                    em["rl"][k][i:] = v
             for _ in range(n_steps - i):
-                key_host = prng.split_int(key_host, 2)[0]
+                key_host = prng.split_int(key_host, 3 if self.rl else 2)[0]
         st.key = torch.tensor(key_host, dtype=torch.int64, device=dev)
         em["branch"] = torch.tensor(em["branch"], dtype=torch.int32, device=dev)
         return em, dict(self._plain)
+
+    # ---------------- chsac_af: the RL step and its policy tail ----------------
+
+    def _chsac_nf(self, dcj, jt, free, a_g):
+        """THE chsac sizing rule: n = clamp(a_g + 1, 1, min(free, cap)),
+        f = the energy argmin at that n (int32 tensors)."""
+        cap = torch.clamp(free, max=self.params.max_gpus_per_job)
+        n = torch.clamp(torch.minimum(a_g + 1, cap), min=1).to(torch.int32)
+        # n may exceed the grid's n_max (max_gpus_per_job above it): XLA's
+        # gather clamps the row index, and so does the port
+        row = torch.clamp(n, max=self.fleet.n_max)
+        return n, algos.best_energy_f_idx_at_n(self.E_grid, dcj, jt, row)
+
+    def _zero_fin(self):
+        dev, f32, i32 = self.device, torch.float32, torch.int32
+        return {"valid": torch.zeros((), dtype=torch.bool, device=dev),
+                "s0": torch.zeros((self.obs_dim,), dtype=f32, device=dev),
+                "a_dc": torch.zeros((), dtype=i32, device=dev),
+                "a_g": torch.zeros((), dtype=i32, device=dev),
+                "mask_dc0": torch.zeros((self.fleet.n_dc,), dtype=torch.bool,
+                                        device=dev),
+                "mask_g0": torch.zeros((self.n_g,), dtype=torch.bool, device=dev),
+                "r": self.zero_f, "gpu_over": self.zero_f,
+                "jt": 0, "dcj": 0, "slot": 0, "sojourn": self.zero_f}
+
+    def _fin_record(self, st: SimState, j: int, dcj: int, jt: int, plan):
+        """The finish branch's partial RL transition (reference
+        ``_plan_finish``'s chsac record): s0, the action and masks stored at
+        selection time, the reward ``-w E_unit_kWh + 0.05 / n_act`` with
+        both products pinned, and ``gpu_over`` against ``min_n_for_sla``."""
+        p = self.params
+        jobs = st.jobs
+        E_pred = jobs.spu[j] * jobs.watts[j]
+        E_unit_kwh = E_pred * self.inv_kwh
+        n_act = torch.clamp(jobs.rl_a_g[j] + 1, min=1).to(torch.float32)
+        r = (fmul_pinned(E_unit_kwh, self.neg_w)
+             + fmul_pinned(1.0 / n_act, self.c005))
+        tc = LatencyCoeffs(*(a[dcj, jt] for a in self.latency))
+        f_used = self.freq_levels[jobs.f_idx[j]]
+        n_min = min_n_for_sla(jobs.size[j], f_used, tc, p.sla_p99_ms,
+                              p.max_gpus_per_job)
+        gpu_over = torch.clamp(jobs.n[j] - n_min, min=0).to(torch.float32)
+        return {"valid": jobs.rl_valid[j].clone(), "s0": jobs.rl_obs0[j].clone(),
+                "a_dc": jobs.rl_a_dc[j].clone(), "a_g": jobs.rl_a_g[j].clone(),
+                "mask_dc0": jobs.rl_mask_dc0[j].clone(),
+                "mask_g0": jobs.rl_mask_g0[j].clone(),
+                "r": r, "gpu_over": gpu_over, "jt": jt, "dcj": dcj, "slot": j,
+                "sojourn": plan["sojourn"]}
+
+    def _plan_arrival_rl(self, st: SimState, ing: int, jt: int, pre,
+                         has_slot: bool, slot: int):
+        """chsac arrival planner: the pregenerated draw, no routing (the
+        policy tail routes), an XFER row placeholder (DC 0, t_avail inf) or
+        a drop when the slab is full; the stream clock advances."""
+        stream = ing * 2 + jt
+        n_tab = pre["sizes"].shape[1]
+        idx = torch.clamp(st.arr_count[ing, jt] - pre["c0"][stream],
+                          max=n_tab - 1).to(torch.int64)
+        size = pre["sizes"][stream].index_select(0, idx.reshape(1))[0]
+        t_next_arr = pre["tnext"][stream].index_select(0, idx.reshape(1))[0]
+        jid = st.jid_counter.clone()
+        plan = {"kind": EV_ARRIVAL, "row": slot, "place": has_slot,
+                "jtype": jt, "ingress": ing, "dc": 0, "seq": jid,
+                "size": size, "t_ingress": st.t.clone(), "t_avail": self.inf,
+                "net_lat_s": self.zero_f}
+        if not has_slot:
+            st.n_dropped += 1
+        st.jid_counter += 1
+        st.next_arrival[ing, jt] = t_next_arr.to(self.td)
+        st.arr_count[ing, jt] += 1
+        return plan
+
+    def _tail(self, st: SimState, req_kind: int, req_idx: int, fin, k_act,
+              pp):
+        """The policy tail's head and dispatch (reference ``_tail_head`` +
+        ``_policy_tail_planned``): (the step's RL record, the tail plan, the
+        tail's start request).  The drain's ring pop is applied here."""
+        p, fleet = self.params, self.fleet
+        jobs, busy = st.jobs, st.dc.busy
+        perc2 = algos.windowed_percentile(st.lat.buf, st.lat.count, 99.0)
+        q_inf, q_trn = self._queue_lens(st)
+        obs = algos.rl_obs(fleet, st.t, busy, st.dc.cur_f_idx, q_inf, q_trn,
+                           self.obs_consts)
+        extra = 0
+        if p.reserve_inf_gpus > 0:
+            jt_req = 0
+            if req_kind == REQ_ROUTE:
+                jt_req = int(jobs.jtype[req_idx])
+            elif req_kind == REQ_DRAIN:
+                jt_req = int(self._ring_head(st, req_idx)[1])
+            extra = p.reserve_inf_gpus if jt_req == 1 else 0
+        m_dc, m_g = algos.rl_masks(p, fleet, busy, st.lat.count, perc2,
+                                   self.total_gpus, extra)
+        jt_f = fin["jt"]
+        p99_ms = torch.where(st.lat.count[jt_f] >= 5, perc2[jt_f] * self.c1000,
+                             fin["sojourn"] * self.c1000)
+        P_now = self._dc_power(jobs, busy)[fin["dcj"]]
+        e_sum = st.dc.energy_j[0]
+        for d in range(1, fleet.n_dc):  # XLA's sum over a short axis: a left fold
+            e_sum = e_sum + st.dc.energy_j[d]
+        row = {"valid": fin["valid"], "s0": fin["s0"], "s1": obs,
+               "a_dc": fin["a_dc"], "a_g": fin["a_g"],
+               "mask_dc0": fin["mask_dc0"], "mask_g0": fin["mask_g0"],
+               "r": fin["r"],
+               "costs": torch.stack([p99_ms, P_now, fin["gpu_over"],
+                                     e_sum.to(torch.float32)]),
+               "mask_dc": m_dc, "mask_g": m_g}
+        if req_kind == REQ_NONE:
+            return row, None, None
+        # the forward runs only when its action is used (a step's key split
+        # and every emitted value are the same either way)
+        key = torch.tensor(k_act, dtype=torch.int64, device=self.device)
+        a_dc, a_g = self.policy_apply(pp, obs, m_dc, m_g, key)
+        a_dc, a_g = a_dc.to(torch.int32), a_g.to(torch.int32)
+        rl = {"rl_obs0": obs, "rl_a_dc": a_dc, "rl_a_g": a_g,
+              "rl_mask_dc0": m_dc, "rl_mask_g0": m_g}
+        if req_kind == REQ_ROUTE:
+            slot = req_idx
+            jt_s, ing_s = jobs.jtype[slot], jobs.ingress[slot]
+            transfer = self.transfer_s[ing_s, a_dc, jt_s]
+            tplan = {"row": slot, "mat": False, "rt": True, "rl": True,
+                     "dc": a_dc, "t_avail": st.t + transfer.to(self.td),
+                     "net_lat_s": self.net_lat_s[ing_s, a_dc], **rl}
+            return row, tplan, None
+        # REQ_DRAIN: the finishing DC's ring head, re-materialized into the
+        # slot the finish freed and started where the policy sends it
+        dcj = req_idx
+        rec, jt_sel, found = self._ring_head(st, dcj)
+        slot = fin["slot"]
+        free_tgt = self._free_for(busy, a_dc, jt_sel)
+        ok = bool(found & (free_tgt > 0))
+        self._plain["host_reads"] += 1
+        n, f_idx = self._chsac_nf(a_dc, jt_sel, free_tgt, a_g)
+        tplan = {"row": slot, "mat": ok, "rt": False, "rl": ok, "dc": a_dc,
+                 "rec": rec, "jtype": jt_sel, **rl}
+        sreq = {"enabled": ok, "j": slot, "n": n, "f_idx": f_idx,
+                "new_dc_f": st.dc.cur_f_idx[a_dc].clone(), "dcj": a_dc,
+                "jt": jt_sel, "t_start0": rec[QRec.T_START],
+                "preempt_t0": rec[QRec.PREEMPT_T],
+                "tpt0": rec[QRec.TOTAL_PREEMPT_TIME].to(torch.float32)}
+        if ok:
+            st.queues.head[dcj, int(jt_sel)] += 1
+        return row, tplan, sreq
+
+    def _commit_tail(self, st: SimState, tplan, sreq, row_s) -> None:
+        """The chsac step's second commit (reference ``_commit_tail``, ring
+        layout), in place: the tail plan's route / materialize and RL-trace
+        writes at ``tplan["row"]``, and the step's one start request at
+        ``row_s`` (which wins where the two coincide)."""
+        jobs = st.jobs
+        if tplan is not None:
+            j = tplan["row"]
+            if tplan["mat"]:
+                rec = tplan["rec"]
+                jobs.status[j] = JobStatus.QUEUED
+                jobs.jtype[j] = tplan["jtype"]
+                jobs.ingress[j] = rec[QRec.INGRESS].to(torch.int32)
+                jobs.seq[j] = rec[QRec.SEQ].to(torch.int32)
+                jobs.size[j] = rec[QRec.SIZE].to(torch.float32)
+                jobs.units_done[j] = rec[QRec.UNITS_DONE].to(torch.float32)
+                jobs.n[j] = 0
+                jobs.f_idx[j] = self.default_f_idx
+                jobs.t_ingress[j] = rec[QRec.T_INGRESS]
+                jobs.t_avail[j] = rec[QRec.T_AVAIL]
+                jobs.t_start[j] = rec[QRec.T_START]
+                jobs.net_lat_s[j] = rec[QRec.NET_LAT_S].to(torch.float32)
+                jobs.preempt_count[j] = rec[QRec.PREEMPT_COUNT].to(torch.int32)
+                jobs.preempt_t[j] = rec[QRec.PREEMPT_T]
+                jobs.total_preempt_time[j] = rec[QRec.TOTAL_PREEMPT_TIME].to(
+                    torch.float32)
+            if tplan["rt"]:
+                jobs.t_avail[j] = tplan["t_avail"]
+                jobs.net_lat_s[j] = tplan["net_lat_s"]
+            if tplan["rl"]:
+                jobs.dc[j] = tplan["dc"]
+                jobs.rl_obs0[j] = tplan["rl_obs0"]
+                jobs.rl_a_dc[j] = tplan["rl_a_dc"]
+                jobs.rl_a_g[j] = tplan["rl_a_g"]
+                jobs.rl_mask_dc0[j] = tplan["rl_mask_dc0"]
+                jobs.rl_mask_g0[j] = tplan["rl_mask_g0"]
+            if tplan["mat"] or tplan["rl"]:
+                jobs.rl_valid[j] = True
+        if sreq is None or not sreq["enabled"]:
+            return
+        # `_start_job` parity: clamp to free, cached physics, stamps
+        dcj, jt = sreq["dcj"], sreq["jt"]
+        free = self._free_for(st.dc.busy, dcj, jt)
+        n = torch.clamp(torch.minimum(sreq["n"], free), min=1).to(torch.int32)
+        f_start = sreq["f_idx"]
+        spu, watts = self._row_TP(dcj, jt, n, f_start)
+        t = st.t
+        j = row_s
+        jobs.status[j] = JobStatus.RUNNING
+        jobs.n[j] = n
+        jobs.f_idx[j] = f_start
+        jobs.t_start[j] = torch.where(sreq["t_start0"] <= 0.0, t,
+                                      sreq["t_start0"])
+        jobs.preempt_t[j] = 0.0
+        jobs.total_preempt_time[j] = sreq["tpt0"] + torch.where(
+            sreq["preempt_t0"] > 0.0, (t - sreq["preempt_t0"]).to(torch.float32),
+            self.zero_f)
+        jobs.spu[j] = spu
+        jobs.watts[j] = watts
+        st.dc.busy[dcj] += n
+        st.dc.cur_f_idx[dcj] = sreq["new_dc_f"]
+
+    def _step_rl(self, st: SimState, pre, key_host, em, i: int, pp):
+        """One chsac_af event (reference ``Engine._step`` with the planner
+        policy tail).  Returns the advanced host key pair."""
+        (branch, has_slot, slot, can, j_fin, j_x, a_idx,
+         dc_fin, jt_fin, dc_x, jt_x), powers = self._head(st)
+        key_host, _k_ev, k_act = prng.split_int(key_host, 3)
+        em["t"][i] = st.t.to(torch.float32)
+        fin = self._zero_fin()
+        req_kind, req_idx, sreq_evt = REQ_NONE, 0, None
+        if branch == EV_FINISH:
+            plan, job_row = self._plan_finish(st, j_fin, dc_fin, jt_fin)
+            fin = self._fin_record(st, j_fin, dc_fin, jt_fin, plan)
+            em["job"][i] = job_row
+            self._commit_plan(st, plan)
+            req_kind, req_idx = REQ_DRAIN, dc_fin
+        elif branch == EV_XFER:
+            jobs = st.jobs
+            if not can:  # queue-on-full: evict the row into its DC's ring
+                plan, push = self._plan_xfer(st, j_x, dc_x, jt_x, False)
+                self._commit_plan(st, plan)
+                self._ring_push(st, push)
+            else:  # the start rides the tail's commit
+                free = self._free_for(st.dc.busy, dc_x, jt_x)
+                n, f_idx = self._chsac_nf(dc_x, jt_x, free, jobs.rl_a_g[j_x])
+                sreq_evt = {"enabled": True, "j": j_x, "n": n, "f_idx": f_idx,
+                            "new_dc_f": st.dc.cur_f_idx[dc_x].clone(),
+                            "dcj": dc_x, "jt": jt_x,
+                            "t_start0": jobs.t_start[j_x].clone(),
+                            "preempt_t0": jobs.preempt_t[j_x].clone(),
+                            "tpt0": jobs.total_preempt_time[j_x].clone()}
+        elif branch == EV_ARRIVAL:
+            ing, jt = divmod(a_idx, 2)
+            plan = self._plan_arrival_rl(st, ing, jt, pre, bool(has_slot), slot)
+            self._commit_plan(st, plan)
+            if has_slot:
+                req_kind, req_idx = REQ_ROUTE, slot
+        elif branch == EV_LOG:
+            em["cluster"][i] = self._handle_log(st, powers)
+        if branch != EV_NOOP:
+            em["branch"][i] = branch
+        row, tplan, sreq_tail = self._tail(st, req_kind, req_idx, fin, k_act, pp)
+        for k, v in row.items():
+            em["rl"][k][i] = v
+        if branch == EV_XFER:
+            self._commit_tail(st, tplan, sreq_evt, j_x)
+        else:
+            self._commit_tail(st, tplan, sreq_tail,
+                              tplan["row"] if tplan is not None else 0)
+        if branch != EV_NOOP:
+            st.n_events += 1
+        return key_host

@@ -203,3 +203,213 @@ def test_arrival_tables_kernel_lanes_match_plain_version(cuda):
     torch.cuda.synchronize()
     for k in ("aux_key", "aux_u", "sizes", "tnext", "cum"):
         assert torch.equal(out[k], ref[k]), k
+
+
+# ---------------------------------------------------------------- chsac_af
+
+# the loads of tests/test_torch_rl_engine.py: the slab and the rings fill,
+# the policy routes and drains
+RL_LOADS = {
+    "duo": ("duo", dict(inf_mode="poisson", inf_rate=300.0, trn_rate=40.0,
+                        job_cap=64, queue_cap=3, log_interval=0.02)),
+    "single": ("single", dict(inf_mode="poisson", inf_rate=3000.0,
+                              trn_rate=3000.0, job_cap=160, queue_cap=8,
+                              log_interval=0.003)),
+    "duo_options": ("duo", dict(inf_rate=300.0, inf_amp=0.9, inf_period=2.0,
+                                trn_rate=40.0, job_cap=64, queue_cap=3,
+                                log_interval=0.02, inf_priority=False,
+                                reserve_inf_gpus=4, max_gpus_per_job=4,
+                                sla_p99_ms=80.0, rl_energy_weight=2.5)),
+}
+
+
+def _perturb(sac, seed):
+    """Seeded non-zero biases and perturbed kernels in every layer: flax's
+    default init zeroes the biases, which would leave the bias add of the
+    forward unchecked."""
+    g = torch.Generator().manual_seed(seed)
+    for layer in sac.layers():
+        for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
+            p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+
+
+def _rl_engine(fleet, params, dev, greedy=False):
+    """An engine acting with the port's policy, its weights perturbed."""
+    from distributed_cluster_gpus_tpu_torch.rl.sac import make_policy_apply
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    agent = make_agent(fleet, params, device=dev)
+    _perturb(agent.sac, params.seed)
+    assert all(bool(l.bias.ne(0).all()) for l in agent.sac.layers())
+    apply = make_policy_apply(agent.cfg, greedy=greedy)
+    return Engine(fleet, params, device=dev, policy_apply=apply), agent
+
+
+def _em_mismatches(a, b, where):
+    bad = []
+    for k in b:
+        if isinstance(b[k], dict):
+            bad += _em_mismatches(a[k], b[k], f"{where}.{k}")
+        elif not torch.equal(a[k], b[k]):
+            bad.append(f"{where}.{k}")
+    return bad
+
+
+def rl_kernel_vs_plain(eng, sac, state, n_steps, n_chunks):
+    other = clone_state(state)
+    bad = []
+    for c in range(n_chunks):
+        pre = eng.workload.tables(state, n_steps)
+        em_k, _ = b1.event_scan(eng, state, pre, n_steps, sac)
+        em_r, _ = b1.event_scan_reference(eng, other, pre, n_steps, sac)
+        eng.workload.advance_carries(state, pre)
+        eng.workload.advance_carries(other, pre)
+        bad += _em_mismatches(em_k, em_r, f"chunk {c} em")
+    bad += bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                  bridge.state_to_numpy(state))
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("greedy", [False, True], ids=["sampled", "greedy"])
+@pytest.mark.parametrize("load", list(RL_LOADS))
+def test_event_scan_rl_mode_matches_plain_version(cuda, load, greedy):
+    """B1 in RL mode (B3 and B4 inside the event loop) against the plain
+    step on the card, bitwise: state leaves (the slab's RL trace included)
+    and every emission (the RL records included), two chunks."""
+    fl, kw = RL_LOADS[load]
+    fleet = FLEETS[fl]()
+    params = SimParams(algo="chsac_af", duration=400.0, lat_window=64, seed=3,
+                       **kw)
+    eng, agent = _rl_engine(fleet, params, cuda, greedy)
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device=cuda))
+    before = (b1.event_scan.launches, b1.event_scan.rl_launches)
+    assert rl_kernel_vs_plain(eng, agent.sac, st, N_STEPS, 2) == []
+    assert (b1.event_scan.launches, b1.event_scan.rl_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert int(st.jobs.rl_valid.sum()) > 0 and int(st.n_finished.sum()) > 20
+
+
+@pytest.mark.gpu
+def test_event_scan_rl_mode_lanes_and_run_end(cuda):
+    """Two lanes past the end of the simulation in RL mode: the done steps
+    repeat the final record, against the plain version."""
+    fleet = build_duo_fleet()
+    params = SimParams(algo="chsac_af", duration=2.0, job_cap=24, queue_cap=8,
+                       lat_window=16, log_interval=0.5, seed=4)
+    eng, agent = _rl_engine(fleet, params, cuda)
+    st = batched_init(fleet, params, 2, workload=eng.workload, device=cuda)
+    assert rl_kernel_vs_plain(eng, agent.sac, st, 512, 3) == []
+    assert bool(st.done.all())
+
+
+@pytest.mark.gpu
+def test_event_scan_rl_mode_needs_the_ports_policy(cuda):
+    """No fallback: a chsac_af state on the card without the policy's
+    weights, or with a policy the kernel does not run, raises."""
+    fleet = build_duo_fleet()
+    params = SimParams(algo="chsac_af", duration=2.0, job_cap=16, queue_cap=8,
+                       lat_window=16, seed=4)
+    eng, agent = _rl_engine(fleet, params, cuda)
+    st = init_state(params.seed, fleet, params, workload=eng.workload, device=cuda)
+    with pytest.raises(ValueError, match="weights"):
+        eng.run_chunk(st, 64)
+    other = Engine(fleet, params, device=cuda,
+                   policy_apply=lambda pp, o, md, mg, k: (k[0], k[1]))
+    with pytest.raises(ValueError, match="own policy"):
+        other.run_chunk(init_state(params.seed, fleet, params,
+                                   workload=other.workload, device=cuda), 64,
+                        policy_params=agent.sac)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fleet_fn,W", [(build_duo_fleet, 64), (build_fleet, 2048)])
+def test_rl_tail_device_code_matches_plain_version(cuda, fleet_fn, W):
+    """B3 and B4 through the standalone launch: every ring's p99 and every
+    row's log-probabilities bitwise, the sampled actions equal."""
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl.sac import policy_logp, select_action
+    from distributed_cluster_gpus_tpu_torch.sim import algos
+
+    fleet = fleet_fn()
+    params = SimParams(algo="chsac_af", lat_window=W, seed=2)
+    eng, agent = _rl_engine(fleet, params, cuda)
+    g = torch.Generator().manual_seed(W)
+    counts = [0, 1, 4, 5, W - 1, W, 3 * W + 7, W // 2]
+    buf = torch.round(torch.empty((len(counts), W)).exponential_(
+        4.0, generator=g) * 1000) / 1000
+    buf[-1] = 0.5
+    buf, cnt = buf.float().to(cuda), torch.tensor(counts, dtype=torch.int32,
+                                                  device=cuda)
+    cfg = agent.cfg
+    M = 32
+    obs = torch.rand((M, cfg.obs_dim), generator=g).to(cuda)
+    m_dc = (torch.rand((M, cfg.n_dc), generator=g) < 0.6).to(cuda)
+    m_g = (torch.rand((M, cfg.n_g), generator=g) < 0.6).to(cuda)
+    m_dc[:, 0] = True
+    m_g[:, -1] = True
+    m_dc[0] = False
+    m_dc[0, -1] = True
+    keys = prng.split(prng.key(5, cuda), M).contiguous()
+    out = b1.rl_tail_batch(eng, agent.sac, buf, cnt, obs, m_dc, m_g, keys)
+    ref = algos.windowed_percentile(buf, cnt, 99.0)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out["p99"]), nan)
+    assert torch.equal(out["p99"][~nan].view(torch.int32),
+                       ref[~nan].view(torch.int32))
+    l_dc, l_g = policy_logp(agent.sac, obs, m_dc, m_g)
+    assert torch.equal(out["logp_dc"], l_dc) and torch.equal(out["logp_g"], l_g)
+    for i in range(M):
+        a = select_action(cfg, agent.sac, obs[i], m_dc[i], m_g[i], keys[i])
+        assert (int(out["a_dc"][i]), int(out["a_g"][i])) == (int(a[0]), int(a[1]))
+
+
+def _window(g, N, p_valid, dev):
+    f32 = dict(generator=g)
+    return {k: v.to(dev) for k, v in {
+        "valid": torch.rand(N, **f32) < p_valid,
+        "s0": torch.randn((N, 13), **f32), "s1": torch.randn((N, 13), **f32),
+        "a_dc": torch.randint(0, 2, (N,), dtype=torch.int32, **f32),
+        "a_g": torch.randint(0, 8, (N,), dtype=torch.int32, **f32),
+        "r": torch.randn(N, **f32), "costs": torch.randn((N, 4), **f32),
+        "mask_dc": torch.rand((N, 2), **f32) < 0.5,
+        "mask_g": torch.rand((N, 8), **f32) < 0.5,
+        "mask_dc0": torch.rand((N, 2), **f32) < 0.5,
+        "mask_g0": torch.rand((N, 8), **f32) < 0.5}.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["wrap", "all_valid", "none_valid", "overwrite"])
+def test_replay_ingest_kernel_matches_plain_version(cuda, case):
+    """B6a against `_add_window` on the card, every leaf bitwise after every
+    window (wrap to 0, n_lost, size, ptr, n_seen)."""
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    C, sizes, pv = {"wrap": (40, [9] * 7, 0.6), "all_valid": (40, [10] * 6, 1.0),
+                    "none_valid": (40, [10] * 3, 0.0),
+                    "overwrite": (37, [10] * 8, 0.9)}[case]
+    g = torch.Generator().manual_seed(len(case))
+    rk = replay.replay_init(C, 13, 2, 8, 4, device=cuda)
+    rp = replay.replay_init(C, 13, 2, 8, 4, device=cuda)
+    before = b6.replay_ingest.launches
+    for N in sizes:
+        tr = _window(g, N, pv, cuda)
+        b6.replay_ingest(rk, tr)
+        replay._add_window(rp, tr)
+        assert bridge.tree_mismatches(
+            bridge.tree_to_numpy(rp, bridge.tensor_leaf),
+            bridge.tree_to_numpy(rk, bridge.tensor_leaf)) == [], N
+    assert b6.replay_ingest.launches == before + len(sizes)
+
+
+@pytest.mark.gpu
+def test_replay_ingest_reads_nothing_back(cuda):
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    rb = replay.replay_init(64, 13, 2, 8, 4, device=cuda)
+    tr = _window(torch.Generator().manual_seed(0), 16, 0.5, cuda)
+    b6.replay_ingest(rb, tr)  # first call: loads the library
+    assert _syncs(lambda: b6.replay_ingest(rb, tr)) == []

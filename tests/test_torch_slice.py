@@ -123,7 +123,8 @@ def test_cli_single_dc_byte_identical(tmp_path):
 
 
 def test_cli_refuses_unported(capsys):
-    for argv, item in ((["--algo", "chsac_af"], "item 9"),
+    for argv, item in ((["--algo", "ppo"], "item 10"),
+                       (["--algo", "chsac_af", "--critic-arch", "heads"], "B5"),
                        (["--power-cap", "900"], "item 6"),
                        (["--faults-mtbf=3"], None),
                        (["--duration", "2e5"], "item 6")):
@@ -138,8 +139,12 @@ def test_port_imports_no_jax():
     code = (
         "import pkgutil, sys, importlib\n"
         "import distributed_cluster_gpus_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "need = ['rl.train', 'rl.agent', 'rl.sac', 'rl.nets', 'rl.replay', "
+        "'kernels.replay_ingest', 'kernels.event_scan']\n"
+        "assert all(p.__name__ + '.' + n in names for n in need), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distributed_cluster_gpus_tpu')]\n"
         "print(len(bad), sorted(bad)[:5])\n")
