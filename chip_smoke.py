@@ -62,7 +62,29 @@ Phases (any failure exits non-zero before the result lines):
     run: B1, B2 and B6a launched once per chunk, no synchronizing call with
     the B1 or B6a wrapper on the stack, the replay's n_seen against the
     emitted transitions, conservation and energy as in (b);
-13. print the card line, the kernel JSON line, then the device line.
+13. (j) the learning half's kernels against their plain versions on the
+    card, bitwise, at the update's published shapes: B5a (the quantile-Huber
+    loss and gradient; |td| exactly at kappa and at 0), B5b (the target and
+    the actor marginalization with its gradient, both critics' layouts;
+    masked and all-masked heads, done in {0, 1}), B5c (clipped Adam on the
+    four parameter groups; the clip on and off, a zero gradient, steps 1
+    and 1,000, the Polyak target, the alpha clamp) and B6b (the replay
+    sample on 200,000-row rings: empty, full, wrapped with gaps, one valid
+    row), each timed beside its plain version, its bound and a one-call
+    PyTorch yardstick where there is one;
+14. (k) whole updates at the published shape (the learning CLI's agent,
+    batch 256, a 200,000-row ring filled through B6a): the kernel path
+    against the plain path from one state and key chain, every state leaf
+    and metric bitwise (cuBLAS deterministic); ms per update and one
+    profiled update (matmuls, the port's kernels, other ops, gaps);
+15. (l) B1 in RL mode with the weights (k) trained, one 1,024-step chunk at
+    the chsac_af CLI's shape, bitwise against the plain step;
+16. (m) the learning CLI: chsac_af for 600 s at the default warm-up: B1, B2
+    and B6a once per chunk, each update kernel its per-update count times
+    the updates, the updates the schedule asks for, no synchronizing call
+    with B1, B6a or train_steps on the stack, metrics finite, alpha capped;
+    then the heads critic for 300 s with the same launch checks;
+17. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
@@ -296,7 +318,8 @@ class SyncCounter:
     torch's sync debug mode turns each into a warning raised at its calling
     line; the counter sees it while that line's stack is live, so it counts
     a call as inside a chunk when the B1 wrapper (which spans the launch),
-    the plain step loop or the B6a wrapper is on the stack, and also counts
+    the plain step loop, the B6a wrapper or the agent's ``train_steps`` (a
+    chunk's updates) is on the stack, and also counts
     every call by the file of its line."""
 
     def __enter__(self):
@@ -304,10 +327,12 @@ class SyncCounter:
             event_scan)
         from distributed_cluster_gpus_tpu_torch.kernels.replay_ingest import (
             replay_ingest)
+        from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
         from distributed_cluster_gpus_tpu_torch.sim.step import StepProgram
 
         self._chunk_code = {event_scan.__code__, StepProgram.scan_plain.__code__,
-                            replay_ingest.__code__}
+                            replay_ingest.__code__,
+                            CHSAC_AF.train_steps.__code__}
         self.by_file, self.in_chunk = {}, 0
         self._catch = warnings.catch_warnings()
         self._catch.__enter__()
@@ -846,9 +871,10 @@ def perturb_policy(sac, seed=21):
     place: flax's default init (the CLI's) zeroes every bias, which would
     leave the forward's bias add unchecked."""
     g = torch.Generator().manual_seed(seed)
-    for layer in sac.layers():
-        for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
-            p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+    with torch.no_grad():  # the parameters are trainable leaves
+        for layer in sac.layers():
+            for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
+                p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
 
 
 def rl_setup():
@@ -1353,6 +1379,592 @@ def phase_chsac_cli(report, out_root):
             "replay_ingest": n_b6}
 
 
+# ------------------------------------------------- chsac_af: the update
+
+N_Q, UPDATE_B = 32, 256  # the published quantiles and batch
+
+
+def _bits(a, b):
+    """Bitwise equality of two tensors of one dtype and shape (float32 by
+    their bits, so -0.0 and +0.0 differ)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def seeded_policy_logp(g, B, n_dc, n_g):
+    """Masked log-probabilities of both heads: random masks, row 0 with every
+    DC masked (a uniform head), row 1 with every GPU count masked, row 2 with
+    one feasible DC."""
+    from distributed_cluster_gpus_tpu_torch.rl.nets import masked_log_softmax
+
+    m_dc = torch.rand((B, n_dc), generator=g) < 0.6
+    m_g = torch.rand((B, n_g), generator=g) < 0.6
+    m_dc[:, 0] = True
+    m_g[:, 1] = True
+    m_dc[0] = False
+    m_g[1] = False
+    m_dc[2] = False
+    m_dc[2, n_dc - 1] = True
+    return (masked_log_softmax(torch.randn((B, n_dc), generator=g), m_dc),
+            masked_log_softmax(torch.randn((B, n_g), generator=g), m_g))
+
+
+def seeded_ring(C, windows, N, p_valid, seed, obs_dim=49, n_dc=8, n_g=8,
+                one_valid=False):
+    """A replay ring on the card filled through B6a (``replay_add_chunk``)
+    with seeded windows (``done`` in {0, 1})."""
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    rb = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(windows):
+        tr = seeded_window(g, N, obs_dim, n_dc, n_g, p_valid)
+        tr["costs"] = tr["costs"].abs() * 400
+        tr["done"] = (torch.rand(N, generator=g) < 0.5).float()
+        if one_valid:
+            tr["valid"][N // 3] = True
+        replay.replay_add_chunk(rb, {k: v.cuda() for k, v in tr.items()})
+    return rb
+
+
+def phase_update_kernels(report):
+    """(j) B5a, B5b, B5c and B6b against their plain versions on the card,
+    bitwise, at the update's published shapes (B = 256, N = 32, 8 x 8 joint
+    actions, the four parameter groups, a 200,000-row ring), on seeded
+    inputs with the edge cases; each timed (device time of launches queued
+    back to back) beside its plain version, its bound and, where one
+    PyTorch call computes the same function, that call."""
+    from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import optim, replay
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    B, N, n_dc, n_g = UPDATE_B, N_Q, 8, 8
+    A = n_dc * n_g
+    g = torch.Generator().manual_seed(41)
+    out = {}
+    # ---- B5a: |td| exactly at kappa (row 0) and at 0 (row 1)
+    q = torch.randn((B, 2, N), generator=g)
+    tgt = torch.randn((B, N), generator=g) * 2
+    q[0, 0, :4] = torch.tensor([0.25, -0.5, 1.5, 2.0])
+    tgt[0, :4] = q[0, 0, :4] + 1.0
+    tgt[1, :4] = q[1, 1, :4]
+    taus = (torch.arange(N, dtype=torch.float32) + 0.5) / N
+    q, tgt, taus = q.cuda(), tgt.cuda(), taus.cuda()
+    lk, gk = b5.quantile_huber(q, tgt, taus)
+    lp, gp = rsac.quantile_huber_loss(q, tgt, taus)
+    if not (_bits(lk, lp) and _bits(gk, gp)):
+        fail(f"B5a differs from its plain version (loss {float(lk)} vs "
+             f"{float(lp)}, grad max abs {max_abs_diff(gk, gp):.3g})")
+    ms, seen = device_ms(lambda: b5.quantile_huber(q, tgt, taus),
+                         "quantile_huber_kernel")
+    plain = time_cuda(lambda: rsac.quantile_huber_loss(q, tgt, taus), reps=10)
+    by = 4 * (2 * B * N + B * N + N + 2 * B * N + 1)
+    bnd, bnd_by = bound(by, 2 * B * N * N * 16)
+    out["b5a"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                  "library_ms": None, "profiler_launches_seen": seen}
+    # ---- B5b: the one-hot critic's [B, A, 2, N] layout (the main path's)
+    # and the heads critic's [B, 2, A, N]; masked and all-masked heads,
+    # done in {0, 1}
+    q_oh = torch.randn((B, A, 2, N), generator=g).cuda().permute(0, 2, 1, 3)
+    q_h = torch.randn((B, 2, A, N), generator=g).cuda()
+    ldc, lg = (t.cuda() for t in seeded_policy_logp(g, B, n_dc, n_g))
+    r = torch.randn(B, generator=g).cuda()
+    costs = (torch.rand((B, 4), generator=g) * 900).cuda()
+    lam = torch.tensor([0.4, 0.0, 2.0, 0.0]).cuda()
+    tg = torch.tensor([500.0, 1e30, 0.0, 1e30]).cuda()
+    done = (torch.arange(B) % 2).float().cuda()
+    alpha = torch.tensor(0.2).cuda()
+    for name, qq in (("onehot", q_oh), ("heads", q_h)):
+        args = (qq, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
+        for k_, p_ in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
+            if not _bits(k_, p_):
+                fail(f"B5b target ({name} layout) differs from its plain version")
+        ko = b5.marginal_actor(qq, ldc, lg, alpha)
+        po = rsac.marginal_actor(qq, ldc, lg, alpha)
+        for what, k_, p_ in zip(("loss", "H", "dlogp_dc", "dlogp_g"), ko, po):
+            if not (_bits(k_, p_) and bool(torch.isfinite(k_).all())):
+                fail(f"B5b actor ({name} layout): {what} differs from its plain "
+                     "version or is not finite")
+    t_args = (q_oh, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
+    ms, seen = device_ms(lambda: b5.marginal_target(*t_args),
+                         "marginal_target_kernel")
+    plain = time_cuda(lambda: rsac.marginal_target(*t_args), reps=10)
+    by = 4 * (B * 2 * A * N + B * (n_dc + n_g) + 6 * B + 8 + B * N + B)
+    bnd, bnd_by = bound(by, 5 * B * A * N)
+    out["b5b_target"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                         "library_ms": None, "profiler_launches_seen": seen}
+    ms, seen = device_ms(lambda: b5.marginal_actor(q_oh, ldc, lg, alpha),
+                         "marginal_actor_kernel")
+    plain = time_cuda(lambda: rsac.marginal_actor(q_oh, ldc, lg, alpha), reps=10)
+    by = 4 * (B * 2 * A * N + 2 * B * (n_dc + n_g) + B + 2)
+    bnd, bnd_by = bound(by, 3 * B * A * N + 10 * B * A)
+    out["b5b_actor"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                        "library_ms": None, "profiler_launches_seen": seen}
+    # ---- B5c: the four groups at their published sizes; the clip on and
+    # off, a zero gradient, steps 1 and 1,000; the critic with its target,
+    # log alpha with its clamp
+    sizes = {"critic": 287_808, "actor": 69_904, "enc": 144_384, "alpha": 1}
+    cfg = optim.AdamConfig()
+    clamp = float(torch.log(torch.tensor(10.0)))
+    n_case = 0
+    for case in ("clip", "no_clip", "zero", "step1000"):
+        for grp, n in sizes.items():
+            p = torch.randn(n, generator=g)
+            if grp == "alpha":
+                p.fill_(clamp - 1e-4)
+            grad = torch.randn(n, generator=g) * (0.1 if case == "clip" else 1e-4)
+            if case == "zero":
+                grad.zero_()
+            step = 999 if case == "step1000" else 0
+            mu = torch.randn(n, generator=g) * 0.01 if step else torch.zeros(n)
+            nu = torch.rand(n, generator=g) * 1e-4 if step else torch.zeros(n)
+            tgt0 = torch.randn(n, generator=g) if grp == "critic" else None
+            res = []
+            for plain_path in (False, True):
+                st = optim.AdamState(torch.tensor(step, dtype=torch.int32).cuda(),
+                                     mu.cuda(), nu.cuda())
+                pp = p.cuda()
+                tt = None if tgt0 is None else tgt0.cuda()
+                b5c.adam_step(pp, grad.cuda(), st, cfg, target=tt, tau=0.005,
+                              clamp=clamp if grp == "alpha" else None,
+                              plain=plain_path)
+                res.append([pp, st.mu, st.nu, st.count] + ([] if tt is None else [tt]))
+            if not all(_bits(x, y) for x, y in zip(*res)):
+                fail(f"B5c {case} {grp}: differs from its plain version")
+            n_case += 1
+    groups = []
+    for grp, n in sizes.items():
+        p = torch.randn(n, generator=g).cuda()
+        groups.append((grp, p, (torch.randn(n, generator=g) * 0.01).cuda(),
+                       optim.adam_init(p), torch.randn(n, generator=g).cuda()
+                       if grp == "critic" else None))
+
+    def adam_update(plain_path=False):
+        for grp, p, gr, st, tt in groups:
+            b5c.adam_step(p, gr, st, cfg, target=tt, tau=0.005,
+                          clamp=clamp if grp == "alpha" else None,
+                          plain=plain_path)
+
+    ms, seen = device_ms(adam_update, "adam_")
+    plain = time_cuda(lambda: adam_update(True), reps=5)
+    lib_params = [torch.nn.Parameter(p.clone()) for _, p, _, _, _ in groups]
+    for lp_, (_, _, gr, _, _) in zip(lib_params, groups):
+        lp_.grad = gr.clone()
+    lib_opt = torch.optim.Adam([{"params": [lp_]} for lp_ in lib_params],
+                               lr=cfg.lr, fused=True)
+
+    def lib_update():
+        for lp_ in lib_params:
+            torch.nn.utils.clip_grad_norm_([lp_], cfg.max_norm)
+        lib_opt.step()
+
+    lib = time_cuda(lib_update, reps=20)
+    n_all = sum(sizes.values())
+    by = 4 * (7 * n_all + 2 * sizes["critic"])
+    bnd, bnd_by = bound(by, 20 * n_all)
+    out["b5c"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                  "library_ms": lib, "cases": n_case,
+                  "profiler_launches_seen": seen}
+    # ---- B6b: 200,000-row rings: empty, full, wrapped with invalid gaps,
+    # one valid row
+    C = 200_000
+    rings = {"empty": seeded_ring(C, 0, 4000, 0.0, 1),
+             "full": seeded_ring(C, 50, 4000, 1.0, 2),
+             "wrapped_gaps": seeded_ring(C, 60, 4000, 0.7, 3),
+             "one_valid": seeded_ring(C, 1, 4000, 0.0, 4, one_valid=True)}
+    if int(rings["full"].size) != C:
+        fail("B6b: the full ring is not full")
+    for name, rb in rings.items():
+        for i in range(3):
+            key = prng.split(prng.key(60 + i, "cpu"), 2)[0]
+            ko = b6b.replay_sample(rb, key, B)
+            po = replay.replay_sample(rb, key, B)
+            for f in (*replay.ROW_FIELDS, "idx"):
+                if not _bits(ko[f], po[f]):
+                    fail(f"B6b {name} ring: {f} differs from its plain version")
+    rb = rings["wrapped_gaps"]
+    key = prng.split(prng.key(77, "cpu"), 2)[0]
+    ms, seen = device_ms(lambda: b6b.replay_sample(rb, key, B),
+                         "replay_sample_kernel")
+    plain = time_cuda(lambda: replay.replay_sample(rb, key, B), reps=10)
+    u = prng.uniform_vec(key.cuda(), B)
+
+    def lib_sample():
+        cdf = torch.cumsum(rb.valid.to(torch.float32), 0)
+        idx = torch.searchsorted(cdf, u * cdf[-1].clamp(min=1.0), right=True)
+        idx = idx.clamp(0, C - 1)
+        return [getattr(rb, f).index_select(0, idx) for f in replay.ROW_FIELDS]
+
+    lib = time_cuda(lib_sample, reps=20)
+    row = sum(getattr(rb, f)[0].numel() * getattr(rb, f).element_size()
+              for f in replay.ROW_FIELDS)
+    by = C + 2 * B * row + 4 * B
+    bnd, bnd_by = bound(by, B * THREEFRY_OPS + 2 * C)
+    out["b6b"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                  "library_ms": lib, "profiler_launches_seen": seen}
+    names = {"b5a": "B5a quantile-Huber (loss + gradient)",
+             "b5b_target": "B5b target marginalization",
+             "b5b_actor": "B5b actor marginalization (+ gradient)",
+             "b5c": "B5c clipped Adam, four groups (one update)",
+             "b6b": "B6b replay sample (C=200,000)"}
+    for k, v in out.items():
+        lib_s = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+        print(f"{names[k]}: bitwise equal to its plain version; kernel "
+              f"{v['ms']:.4f} ms device time (back to back; the profiler saw "
+              f"{v['profiler_launches_seen']} launches), plain "
+              f"{v['plain_ms']:.4f} ms, library {lib_s}, bound "
+              f"{v['bound_ms']:.6f} ms ({v['bound_by']}: {v['bytes']} B)")
+    report.update(out)
+
+
+def learning_params():
+    """(fleet, params, chunk steps) of the learning CLI (default warm-up)."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
+
+    a = run_sim.parse_args(learning_argv("unused"))
+    fleet = build_fleet()
+    return fleet, run_sim.finalize_queue_cap(run_sim.build_params(a), fleet), \
+        a.chunk_steps
+
+
+def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S):
+    """The learning main path's command line: chsac_af at the default
+    warm-up (1,000 transitions), with the ``arch`` critic."""
+    return ["--algo", "chsac_af", "--duration", str(duration), "--out", out,
+            "--log-interval", str(LOG_INTERVAL_S), "--device", "cuda",
+            "--critic-arch", arch, "--quiet"]
+
+
+UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
+                   "adam_step", "replay_sample")
+
+
+def update_counters():
+    """{name: the wrapper whose ``launches`` counts it} of the update."""
+    from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+
+    return {"quantile_huber": b5.quantile_huber,
+            "marginal_target": b5.marginal_target,
+            "marginal_actor": b5.marginal_actor,
+            "adam_step": b5c.adam_step, "replay_sample": b6b.replay_sample}
+
+
+#: wrapper calls of each update kernel per update
+PER_UPDATE = {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
+              "adam_step": 4, "replay_sample": 1}
+
+
+def phase_update_whole(report):
+    """(k) whole updates at the published shape (the learning CLI's agent:
+    256-wide networks, N = 32, 8 x 8 actions, batch 256, a 200,000-row ring
+    filled through B6a with seeded windows, done in {0, 1}): the kernel
+    path against the plain path from the same state and key chain, the
+    matmuls deterministic in both; every leaf of the state and every metric
+    bitwise.  Then ms per update on the kernel path, and one profiled update:
+    device time by kind (matmuls, the port's kernels, other torch ops) and
+    the gaps between.  Returns the trained agent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    fleet, params, _ = learning_params()
+    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
+    agents = []
+    for _ in range(2):
+        ag = make_agent(fleet, params, device="cuda")
+        ag.replay = ring
+        agents.append(ag)
+    k_ag, p_ag = agents
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mk, nk = k_ag.train_steps(4, 4)
+        mp, np_ = p_ag.train_steps(4, 4, plain=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not nk == np_ == 4:
+        fail(f"whole update: {nk} and {np_} updates run, 4 asked for")
+    for k in mk:
+        if not _bits(mk[k], mp[k]):
+            fail(f"whole update: metric {k} differs between the kernel and the "
+                 f"plain path ({mk[k].tolist()} vs {mp[k].tolist()})")
+    cfg = k_ag.cfg
+    bad = bridge.tree_mismatches(bridge.sac_to_numpy(cfg, p_ag.sac),
+                                 bridge.sac_to_numpy(cfg, k_ag.sac))
+    if bad:
+        fail(f"whole update: state differs between the kernel and the plain "
+             f"path at {bad[:5]}")
+    # ms per update (kernel path), 24 updates in one call
+    k_ag.train_steps(2, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_ag.train_steps(24, 24)
+    torch.cuda.synchronize()
+    ms_update = (time.perf_counter() - t0) * 1e3 / 24
+    plain_t0 = time.perf_counter()
+    p_ag.train_steps(4, 4, plain=True)
+    torch.cuda.synchronize()
+    ms_plain = (time.perf_counter() - plain_t0) * 1e3 / 4
+    counters = update_counters()
+    before = {k: w.launches for k, w in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        k_ag.train_steps(1, 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    launched = {k: w.launches - before[k] for k, w in counters.items()}
+    if launched != PER_UPDATE:
+        fail(f"whole update: kernel calls per update {launched}, expected "
+             f"{PER_UPDATE}")
+    ours = ("quantile_huber_kernel", "marginal_target_kernel",
+            "marginal_actor_kernel", "adam_norm_kernel", "adam_apply_kernel",
+            "replay_sample_kernel")
+    kinds = {"matmul": 0.0, "port kernels": 0.0, "other torch ops": 0.0}
+    n_ops = {"matmul": 0, "port kernels": 0, "other torch ops": 0}
+    seen = {k: 0 for k in ours}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = e.time_range.elapsed_us()
+        name = e.name
+        hit = [k for k in ours if k in name]
+        if hit:
+            kind = "port kernels"
+            seen[hit[0]] += 1
+        elif any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet",
+                                             "cublas", "sm90_")):
+            kind = "matmul"
+        else:
+            kind = "other torch ops"
+        kinds[kind] += dur
+        n_ops[kind] += 1
+    busy = sum(kinds.values())
+    if busy == 0:
+        fail("whole update: the profiler saw no device activity")
+    layers = k_ag.sac.layers()
+    nonzero_bias = all(bool(l.bias.ne(0).any()) for l in layers)
+    # the two all-actions products (the target critic's on s1, the online
+    # critic's on s0), the bulk of an update's matmul work: B * A rows
+    # through both twins, 2 operations per multiply-add, at the bf16 peak
+    rows = cfg.batch * cfg.n_dc * cfg.n_g
+    mm_ops = 2 * 2 * rows * sum(l.kernel.numel() for l in k_ag.sac.critic.layers)
+    mm_bound_ms = mm_ops / H100_BF16_OPS_PER_S * 1e3
+    print(f"whole update at the published shape (batch {cfg.batch}, N "
+          f"{cfg.n_quantiles}, {cfg.n_dc}x{cfg.n_g} actions, ring "
+          f"{params.rl_buffer}): 4 updates bitwise equal between the kernel "
+          f"and the plain path (every state leaf and metric); kernel path "
+          f"{ms_update:.3f} ms per update, plain path {ms_plain:.3f} ms; one "
+          f"profiled update: {wall_us:.0f} us wall, device busy {busy:.0f} us "
+          f"(matmuls {kinds['matmul']:.0f} us in {n_ops['matmul']} ops, the "
+          f"port's kernels {kinds['port kernels']:.0f} us in "
+          f"{n_ops['port kernels']}, other torch ops "
+          f"{kinds['other torch ops']:.0f} us in {n_ops['other torch ops']}), "
+          f"gaps {wall_us - busy:.0f} us; the two all-actions products "
+          f"{mm_ops / 1e9:.2f} GFLOP, {mm_bound_ms:.4f} ms at the bf16 peak; "
+          f"kernel calls per update {launched}; trained biases non-zero: "
+          f"{nonzero_bias}")
+    report["update"] = {"ms_per_update": ms_update, "plain_ms_per_update": ms_plain,
+                        "profiled_wall_us": wall_us, "device_us": kinds,
+                        "device_ops": n_ops, "gaps_us": wall_us - busy,
+                        "profiler_kernels_seen": seen,
+                        "all_actions_ops": mm_ops,
+                        "all_actions_bound_ms": mm_bound_ms,
+                        "calls_per_update": launched}
+    if not nonzero_bias:
+        fail("whole update: training left a layer's biases all zero")
+    return k_ag
+
+
+def phase_b1_after_learning(report, agent, steps=1024):
+    """(l) B1 in RL mode with weights that training produced (phase (k)'s
+    agent: non-zero biases from its updates) against the plain step, one
+    chunk at the chsac_af CLI's shape, bitwise.  The chunk is cut to
+    ``steps`` events: the plain step takes ~20 ms an event."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        clone_state, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    fleet, params, _ = learning_params()
+    eng = Engine(fleet, params, device="cuda", policy_apply=agent.policy_apply)
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    other = clone_state(st)
+    pre = eng.workload.tables(st, steps)
+    em_k, _ = b1.event_scan(eng, st, pre, steps, agent.sac)
+    em_r, _ = b1.event_scan_reference(eng, other, pre, steps, agent.sac)
+    err = em_diff(em_k, em_r, "B1 RL with trained weights")
+    bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                 bridge.state_to_numpy(st))
+    if bad:
+        fail(f"B1 RL with trained weights: state differs at {bad[:5]}")
+    dec = int(em_k["rl"]["valid"].sum())
+    print(f"B1 RL mode with trained weights (after {agent.sac.step} updates) "
+          f"vs the plain step, one {steps}-step chunk at the chsac_af CLI's "
+          f"shape: bitwise identical ({dec} transitions)")
+    report["b1_trained"] = {"steps": steps, "updates": agent.sac.step,
+                            "transitions": dec, "max_abs_err": err}
+
+
+def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
+    """One learning CLI run with the launch counters zeroed just before it
+    and read just after; fails unless B1 (RL mode), B2 and B6a ran once per
+    chunk, each update kernel its per-update count times the updates, the
+    updates the schedule asked for (one per new transition, at most 256 a
+    chunk, once warm) and every metric finite with alpha <= alpha_max.
+    Returns (final state, wall s, record, launches)."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
+
+    rec = {"agents": [], "valid": [], "asked": [], "done": [], "metrics": [],
+           "ms": []}
+    orig_ingest, orig_train = CHSAC_AF.ingest_chunk, CHSAC_AF.train_steps
+
+    def ingest(self, rl_em):
+        rec["agents"].append(self)
+        rec["valid"].append(rl_em["valid"].sum())
+        return orig_ingest(self, rl_em)
+
+    def train(self, n_train, max_steps=256, plain=False):
+        t0 = time.perf_counter()
+        m, n = orig_train(self, n_train, max_steps, plain)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["asked"].append((n_train, max_steps, self._warm))
+        rec["done"].append(n)
+        if m is not None:
+            rec["metrics"].append({k: v.detach().cpu() for k, v in m.items()})
+        return m, n
+
+    counters = update_counters()
+    CHSAC_AF.ingest_chunk, CHSAC_AF.train_steps = ingest, train
+    try:
+        torch.cuda.synchronize()
+        b1.event_scan.launches = b1.event_scan.rl_launches = 0
+        b2.arrival_tables.launches = 0
+        b6.replay_ingest.launches = 0
+        for w in counters.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        st = run_sim.main(learning_argv(out, arch, duration))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"event_scan": b1.event_scan.launches,
+                    "rl": b1.event_scan.rl_launches,
+                    "arrival_tables": b2.arrival_tables.launches,
+                    "replay_ingest": b6.replay_ingest.launches,
+                    **{k: w.launches for k, w in counters.items()}}
+    finally:
+        CHSAC_AF.ingest_chunk, CHSAC_AF.train_steps = orig_ingest, orig_train
+    where = f"learning CLI ({arch})"
+    n_chunks = len(rec["valid"])
+    per_chunk = [launches[k] for k in ("event_scan", "rl", "arrival_tables",
+                                       "replay_ingest")]
+    if not (n_chunks > 0 and per_chunk == [n_chunks] * 4):
+        fail(f"{where}: B1, B1 in RL mode, B2, B6a launches {per_chunk} for "
+             f"{n_chunks} chunks (one each per chunk)")
+    updates = sum(rec["done"])
+    if updates <= 0:
+        fail(f"{where}: no update ran at the default warm-up")
+    for (n_train, max_steps, warm), n in zip(rec["asked"], rec["done"]):
+        want = min(n_train, max_steps) if warm else 0
+        if n != want:
+            fail(f"{where}: {n} updates in a chunk that asked for {want}")
+    calls = {k: launches[k] for k in counters}
+    want_calls = {k: PER_UPDATE[k] * updates for k in counters}
+    if calls != want_calls:
+        fail(f"{where}: update kernel calls {calls}, expected {want_calls}")
+    agent = rec["agents"][-1]
+    if agent.sac.step != updates or agent.cfg.critic_arch != arch:
+        fail(f"{where}: the agent ({agent.cfg.critic_arch}) took "
+             f"{agent.sac.step} steps, {updates} ran")
+    for m in rec["metrics"]:
+        for k, v in m.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"{where}: metric {k} not finite: {v.tolist()}")
+        if float(m["alpha"]) > agent.cfg.alpha_max:
+            fail(f"{where}: alpha {float(m['alpha'])} above {agent.cfg.alpha_max}")
+    finished = int(st.n_finished.sum())
+    jobs = _read_csv(os.path.join(out, "job_log.csv"))
+    if len(jobs) != finished or not bool(st.done):
+        fail(f"{where}: {len(jobs)} job rows for {finished} finishes, done "
+             f"{bool(st.done)}")
+    return st, wall, rec, launches
+
+
+def phase_learning_cli(report, out_root):
+    """(m) the learning main path through its CLI: chsac_af on the paper
+    fleet for 600 s at the default warm-up, 4,096-step chunks, CSVs
+    written, checked by ``learning_run``; a second run under torch's sync
+    debug mode counts the synchronizing calls made with the B1, B6a or
+    ``train_steps`` code on the stack (none allowed); then the heads critic
+    (``--critic-arch heads``) for 300 s, checked the same way."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+
+    out = os.path.join(out_root, "chsac_af_learning")
+    st, wall, rec, launches = learning_run(out)
+    with SyncCounter() as syncs:
+        run_sim.main(learning_argv(out + "_syncs"))
+    if syncs.in_chunk:
+        fail(f"learning CLI: {syncs.in_chunk} synchronizing CUDA calls with the "
+             f"B1, B6a or train_steps code on the stack ({syncs.by_file})")
+    events, updates = int(st.n_events), sum(rec["done"])
+    upd_ms = sum(m for m, n in zip(rec["ms"], rec["done"]) if n)
+    ms_per_update = upd_ms / updates
+    last = rec["metrics"][-1]
+    per_chunk = [n for n in rec["done"] if n]
+    n_chunks = len(rec["valid"])
+    h_dur = MAIN_DURATION_S / 2
+    h_st, h_wall, h_rec, h_launch = learning_run(out + "_heads", "heads", h_dur)
+    h_upd = sum(h_rec["done"])
+    h_ms = sum(m for m, n in zip(h_rec["ms"], h_rec["done"]) if n) / h_upd
+    print(f"learning CLI chsac_af (default warm-up 1,000): {events} events in "
+          f"{MAIN_DURATION_S:.0f} s simulated, {wall:.2f} s wall, "
+          f"{events / wall:.1f} events/s; {updates} updates in {len(per_chunk)} "
+          f"of {n_chunks} chunks ({per_chunk}), {ms_per_update:.3f} ms per "
+          f"update (train_steps wall, synchronized), {upd_ms / 1e3:.2f} s of "
+          f"the wall; launches {launches} for {n_chunks} chunks; synchronizing "
+          f"calls with B1, B6a or train_steps on the stack: {syncs.in_chunk} "
+          f"({syncs.total} in the run); last metrics: critic_loss "
+          f"{float(last['critic_loss']):.4g}, actor_loss "
+          f"{float(last['actor_loss']):.4g}, alpha {float(last['alpha']):.4g}, "
+          f"entropy {float(last['entropy']):.4g}, lambda "
+          f"{last['lambda'].tolist()}; heads critic, {h_dur:.0f} s: "
+          f"{int(h_st.n_events)} events, {h_wall:.2f} s wall, {h_upd} updates, "
+          f"{h_ms:.3f} ms per update, launches {h_launch}")
+    report["learning_cli"] = {
+        "events": events, "wall_s": wall, "events_per_s": events / wall,
+        "updates": updates, "updates_per_chunk": rec["done"],
+        "ms_per_update": ms_per_update, "update_wall_s": upd_ms / 1e3,
+        "chunks": n_chunks, "launches": launches,
+        "syncs_in_chunks": syncs.in_chunk, "syncs_total": syncs.total,
+        "last_metrics": {k: v.tolist() for k, v in last.items()},
+        "heads": {"duration_s": h_dur, "events": int(h_st.n_events),
+                  "wall_s": h_wall, "updates": h_upd, "ms_per_update": h_ms,
+                  "launches": h_launch}}
+    return launches
+
+
 # ------------------------------------------------- opt-in studies of B1
 
 B1_PHASES = ("head", "branch", "B3 (2 windows)", "running power + obs",
@@ -1525,6 +2137,9 @@ def study_b1_ab(parent, change):
 
 
 def main():
+    # cuBLAS's deterministic mode (phase (k) compares two paths' matmuls)
+    # needs its workspace fixed before the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA GPU")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1555,7 +2170,8 @@ def main():
     from distributed_cluster_gpus_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["event_scan", "arrival_tables", "replay_ingest"])
+    build.build(["event_scan", "arrival_tables", "replay_ingest",
+                 "quantile_huber", "marginal", "adam", "replay_sample"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
     for name, log in build.ptxas_reports.items():
@@ -1579,6 +2195,10 @@ def main():
         phase_rl_tail(report, real)
         phase_b6a(report)
         rl_launches = phase_chsac_cli(report, out_root)
+        phase_update_kernels(report)
+        trained = phase_update_whole(report)
+        phase_b1_after_learning(report, trained)
+        upd_launches = phase_learning_cli(report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -1626,6 +2246,18 @@ def main():
               rl_launches["rl"], rl["b4"], rl["b4"]["library_ms"]),
         entry("replay_ingest", "replay_ingest.cu", "rl/replay.py:165",
               rl_launches["replay_ingest"], rl["b6a"], None),
+        entry("quantile_huber", "quantile_huber.cu", "rl/sac.py:178",
+              upd_launches["quantile_huber"], report["b5a"], None),
+        entry("marginal_target", "marginal.cu", "rl/sac.py:223",
+              upd_launches["marginal_target"], report["b5b_target"], None),
+        entry("marginal_actor", "marginal.cu", "rl/sac.py:251",
+              upd_launches["marginal_actor"], report["b5b_actor"], None),
+        entry("clip_adam_polyak", "adam.cu", "rl/sac.py:279",
+              upd_launches["adam_step"], report["b5c"],
+              report["b5c"]["library_ms"]),
+        entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
+              upd_launches["replay_sample"], report["b6b"],
+              report["b6b"]["library_ms"]),
     ]}
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:

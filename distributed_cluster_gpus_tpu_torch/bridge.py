@@ -7,8 +7,10 @@ side is turned into numpy by the caller (``tree_to_numpy`` with a leaf
 function that unwraps PRNG keys), the port side by :func:`state_to_numpy`.
 Fields the port does not carry yet (bandit, fault, telemetry and signal
 sub-states) are ignored on the way in and absent on the way out.
-:func:`sac_from_flax` carries the chsac_af policy's weights (the JAX
-``SACState``'s encoder and actor parameters) across.
+:func:`sac_from_flax` carries the chsac_af learner (the JAX ``SACState``:
+parameters, target critic, temperature, optimizer and CMDP states) across,
+and :func:`sac_to_numpy` / :func:`flax_sac_to_numpy` put either side's in
+one nested-dict layout, flax's, for leaf-by-leaf comparison.
 
 PRNG keys travel as their two uint32 threefry words; the port holds them in
 int64 tensors (``ops/prng.py``).
@@ -96,35 +98,154 @@ def tree_lane(tree: Dict, r: int) -> Dict:
     return np.asarray(tree)[r]
 
 
-def sac_from_flax(cfg, enc_params, actor_params, device="cuda"):
-    """The port's encoder and actor (an ``rl.sac.SACState`` on ``device``)
-    holding the JAX package's flax parameters: ``enc_params`` and
-    ``actor_params`` as nested dicts of numpy arrays (``{"params":
-    {"Dense_k": {"kernel" [in, out], "bias" [out]}}}``).  Flax's layout is
-    the port's, so each array is copied as it is."""
-    from .rl.sac import sac_init
+_OPT_GROUPS = (("enc_opt", "enc"), ("actor_opt", "actor"),
+               ("critic_opt", "critic"), ("alpha_opt", "alpha"))
 
-    sac = sac_init(cfg, torch.Generator().manual_seed(0), "cpu")
-    for tree, layers in ((enc_params, list(sac.enc.layers)),
-                         (actor_params, sac.actor.layers())):
-        p = tree["params"]
-        if sorted(p) != [f"Dense_{k}" for k in range(len(layers))]:
-            raise ValueError(f"flax tree {sorted(p)} does not match the "
-                             f"port's {len(layers)} Dense layers")
-        for k, layer in enumerate(layers):
-            for name in ("kernel", "bias"):
-                src = torch.from_numpy(np.array(p[f"Dense_{k}"][name],
-                                                dtype=np.float32))
-                dst = getattr(layer, name)
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"Dense_{k}.{name}: {tuple(src.shape)} "
-                                     f"vs the port's {tuple(dst.shape)}")
-                with torch.no_grad():
-                    dst.copy_(src)
+
+def _adam_state(opt):
+    """optax's ScaleByAdamState inside a chain's nested state tuple (the
+    first member with ``count``, ``mu`` and ``nu``)."""
+    if all(hasattr(opt, k) for k in ("count", "mu", "nu")):
+        return opt
+    if isinstance(opt, tuple):
+        for member in opt:
+            found = _adam_state(member)
+            if found is not None:
+                return found
+    return None
+
+
+def _layer_names(cfg, group):
+    """flax's names of a group's Dense layers, in the port's layer order."""
+    if group in ("enc", "actor"):
+        return [f"Dense_{k}" for k in range(3)]
+    if cfg.critic_arch == "heads":
+        return [f"twins_{t}_{j}" for t in range(2) for j in range(3)]
+    return [f"Dense_{k}" for k in range(6)]
+
+
+def _group_layers(sac, group):
+    mod = {"enc": sac.enc, "actor": sac.actor, "critic": sac.critic,
+           "target": sac.target_critic}[group]
+    return list(mod.layers) if group != "actor" else mod.layers()
+
+
+def _flat_np(tree, names):
+    """A flax params tree ({"params": {name: {kernel, bias}}}) as the flat
+    buffer the port keeps (each layer's kernel, then its bias)."""
+    p = tree["params"]
+    if sorted(p) != sorted(names):
+        raise ValueError(f"flax tree {sorted(p)} does not match the port's "
+                         f"layers {names}")
+    return np.concatenate([np.asarray(p[n][k], np.float32).reshape(-1)
+                           for n in names for k in ("kernel", "bias")])
+
+
+def _tree_np(flat, layers, names):
+    """The inverse of :func:`_flat_np` for the port's ``layers`` shapes."""
+    out, off = {}, 0
+    for name, layer in zip(names, layers):
+        entry = {}
+        for k in ("kernel", "bias"):
+            shape = tuple(getattr(layer, k).shape)
+            n = int(np.prod(shape))
+            entry[k] = flat[off:off + n].reshape(shape)
+            off += n
+        out[name] = entry
+    return {"params": out}
+
+
+def sac_from_flax(cfg, src, device="cuda"):
+    """The port's whole learner (an ``rl.sac.SACState`` on ``device``, the
+    card unless the caller asks for the CPU) holding the JAX package's
+    ``SACState`` ``src`` with numpy leaves (``jax.tree.map(np.asarray,
+    sac)``): the encoder, actor, critic and target critic parameters (flax's
+    ``Dense_k`` names, ``twins_i_j`` for the heads critic), ``log_alpha``,
+    optax's ``(EmptyState, ScaleByAdamState(count, mu, nu))`` of each group,
+    the CMDP state and the step.  Flax's layout is the port's, so each
+    array is copied as it is."""
+    from .rl.optim import AdamState
+    from .rl.sac import CMDPState, assemble, sac_init
+
+    proto = sac_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    trees = {"enc": src.enc_params, "actor": src.actor_params,
+             "critic": src.critic_params, "target": src.target_critic_params}
+    for group, tree in trees.items():
+        vals = _flat_np(tree, _layer_names(cfg, "critic" if group == "target"
+                                           else group))
+        flat = proto.flat[group]
+        if vals.shape != tuple(flat.shape):
+            raise ValueError(f"{group}: {vals.size} parameters vs the port's "
+                             f"{flat.numel()}")
+        with torch.no_grad():
+            flat.copy_(torch.from_numpy(vals))
     dev = resolve_device(device)
-    sac.enc.to(dev)
-    sac.actor.to(dev)
-    return sac
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    opts = {}
+    for attr, group in _OPT_GROUPS:
+        adam = _adam_state(getattr(src, attr))
+        if group == "alpha":
+            mu, nu = (np.asarray(x, np.float32).reshape(1) for x in (adam.mu, adam.nu))
+        else:
+            names = _layer_names(cfg, group)
+            mu, nu = _flat_np(adam.mu, names), _flat_np(adam.nu, names)
+        opts[group] = AdamState(count=t(adam.count, torch.int32), mu=t(mu),
+                                nu=t(nu))
+    cmdp = CMDPState(lam=t(src.cmdp.lam), integral=t(src.cmdp.integral),
+                     prev_err=t(src.cmdp.prev_err))
+    return assemble(cfg, proto.enc, proto.actor, proto.critic,
+                    proto.target_critic, t(src.log_alpha), dev, opts=opts,
+                    cmdp=cmdp, step=int(np.asarray(src.step)))
+
+
+def sac_to_numpy(cfg, sac):
+    """The port's SACState as nested dicts of numpy in flax's layout:
+    ``{enc,actor,critic,target_critic}_params`` ({"params": {name: {kernel,
+    bias}}}), ``log_alpha``, ``{enc,actor,critic,alpha}_opt`` ({count, mu,
+    nu}), ``cmdp`` ({lam, integral, prev_err}) and ``step`` (int32)."""
+    def np_(x):
+        return x.detach().cpu().numpy()
+
+    out = {}
+    for key, group in (("enc_params", "enc"), ("actor_params", "actor"),
+                       ("critic_params", "critic"),
+                       ("target_critic_params", "target")):
+        names = _layer_names(cfg, "critic" if group == "target" else group)
+        out[key] = _tree_np(np_(sac.flat[group]), _group_layers(sac, group),
+                            names)
+    out["log_alpha"] = np_(sac.log_alpha)
+    for attr, group in _OPT_GROUPS:
+        st = getattr(sac, attr)
+        if group == "alpha":
+            mu, nu = np_(st.mu).reshape(()), np_(st.nu).reshape(())
+        else:
+            layers, names = _group_layers(sac, group), _layer_names(cfg, group)
+            mu = _tree_np(np_(st.mu), layers, names)
+            nu = _tree_np(np_(st.nu), layers, names)
+        out[attr] = {"count": np_(st.count), "mu": mu, "nu": nu}
+    out["cmdp"] = {k: np_(getattr(sac.cmdp, k))
+                   for k in ("lam", "integral", "prev_err")}
+    out["step"] = np.asarray(sac.step, np.int32)
+    return out
+
+
+def flax_sac_to_numpy(src):
+    """The JAX package's SACState (numpy leaves) in :func:`sac_to_numpy`'s
+    layout."""
+    out = {k: tree_to_numpy(getattr(src, k)) for k in (
+        "enc_params", "actor_params", "critic_params", "target_critic_params")}
+    out["log_alpha"] = np.asarray(src.log_alpha)
+    for attr, _ in _OPT_GROUPS:
+        adam = _adam_state(getattr(src, attr))
+        out[attr] = {"count": np.asarray(adam.count),
+                     "mu": tree_to_numpy(adam.mu), "nu": tree_to_numpy(adam.nu)}
+    out["cmdp"] = {k: np.asarray(getattr(src.cmdp, k))
+                   for k in ("lam", "integral", "prev_err")}
+    out["step"] = np.asarray(src.step, np.int32)
+    return out
 
 
 def fleet_from_numpy(src) -> FleetSpec:

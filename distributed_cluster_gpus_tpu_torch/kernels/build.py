@@ -92,3 +92,24 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def check(op: str, name: str, t, dtype, device, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
+    (and of ``shape``, where given): the launch checks the wrappers share."""
+    if not hasattr(t, "dtype") or t.dtype != dtype:
+        raise TypeError(f"{op}: {name} must be a {dtype} tensor")
+    if t.device != device:
+        raise ValueError(f"{op}: {name} is on {t.device}, expected {device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def stream_of(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer-sized int."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,8 +1,12 @@
-"""The CHSAC-AF policy networks, forward only, with a fixed bf16 recipe.
+"""The CHSAC-AF networks: encoder, actor and the twin quantile critics.
 
 Counterpart of ``distributed_cluster_gpus_tpu/rl/nets.py``'s
-``MLPStateEncoder`` and ``HybridActor`` (``:26``, ``:42``), 256 wide as
-published.  The critics are ROADMAP queue B item B5 (the learning half).
+``MLPStateEncoder``, ``HybridActor``, ``QuantileCritic`` (with
+``all_actions``) and ``QuantileCriticHeads`` (``:26``, ``:42``, ``:70``,
+``:115``), 256 wide as published.  Each network has two forwards of the
+same float32 parameters: the acting recipe below, which the B4 device code
+repeats bit for bit, and the training forward (:func:`mm_dense`), which the
+SAC update differentiates.
 
 Parameters are float32 with flax's layout and names (``kernel [in, out]``,
 ``bias [out]``), so ``bridge.sac_from_flax`` carries the JAX package's
@@ -23,6 +27,21 @@ agree bit for bit on the card:
 XLA's CPU dot accumulates in another order, so against the JAX package the
 log-probabilities agree within a bf16 rounding of a layer's output (the
 tolerance ``tests/test_torch_rl_policy.py`` states), not bitwise.
+
+The training forward cannot use that recipe: the one-hot critic's
+``all_actions`` runs B x n_dc x n_g = 16,384 rows at the published shape,
+and the recipe's product tensor would be [16,384, 512, 256] float32.  It is
+instead what flax's bf16 ``Dense`` is: bf16 operands, ``torch.matmul`` with
+float32 accumulation and one rounding of the sum to bf16, then the bf16
+bias added (in float32, rounded to bf16); its backward is autograd's.  The
+float32 accumulation is pinned: cuBLAS may otherwise reduce a split-K
+product's partial sums in bf16
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+on by default), so :func:`pin_f32_accumulation` turns that off and
+``rl/sac.py::sac_train_step`` calls it before every update.  The two
+forwards of the same weights therefore agree to a bf16 rounding of a
+layer's output, not bitwise: the matmul sums in cuBLAS's (or the CPU
+BLAS's) order, the recipe by its tree.
 """
 
 from __future__ import annotations
@@ -52,11 +71,26 @@ def relu(x):
     return torch.where(x > 0, x, torch.zeros_like(x))
 
 
+def pin_f32_accumulation() -> None:
+    """Make cuBLAS accumulate bf16 products (split-K partials included) in
+    float32, as flax's bf16 ``Dense`` does."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def mm_dense(x, kernel, bias):
+    """One bf16 ``Dense`` for training: ``x`` [..., K] bf16 times ``kernel``
+    [K, N] bf16 by ``torch.matmul`` (float32 accumulation, the sum rounded
+    once to bf16), plus the bf16 ``bias`` [N] (added in float32 and rounded,
+    as torch's bf16 add does); differentiable."""
+    return torch.matmul(x, kernel) + bias
+
+
 def masked_log_softmax(logits, mask):
     """float32 log-probabilities with the infeasible logits at -1e9 (the
-    exponential sum by the fixed tree)."""
+    exponential sum by the fixed tree; the max is held constant under
+    differentiation, as flax's ``log_softmax`` stops its gradient)."""
     x = torch.where(mask, logits, torch.full_like(logits, NEG_MASK))
-    m = x.max(dim=-1, keepdim=True).values
+    m = x.max(dim=-1, keepdim=True).values.detach()
     sh = x - m
     lse = torch.log(tree_sum_last(torch.exp(sh)))
     return sh - lse[..., None]
@@ -83,6 +117,10 @@ class Dense(nn.Module):
     def forward(self, x):
         return bf16_dense(x, self.kernel.to(BF16), self.bias.to(BF16))
 
+    def mm(self, x):
+        """The training forward of this layer (:func:`mm_dense`)."""
+        return mm_dense(x, self.kernel.to(BF16), self.bias.to(BF16))
+
 
 class MLPStateEncoder(nn.Module):
     """obs [B, obs_dim] -> latent [B, latent] float32; 3-layer ReLU MLP."""
@@ -98,6 +136,12 @@ class MLPStateEncoder(nn.Module):
         x = obs.to(BF16)
         for layer in self.layers:
             x = relu(layer(x))
+        return x.to(torch.float32)
+
+    def train_forward(self, obs):
+        x = obs.to(BF16)
+        for layer in self.layers:
+            x = torch.relu(layer.mm(x))
         return x.to(torch.float32)
 
 
@@ -120,6 +164,90 @@ class HybridActor(nn.Module):
         logit_g = self.head_g(x).to(torch.float32)
         return (masked_log_softmax(logit_dc, mask_dc),
                 masked_log_softmax(logit_g, mask_g))
+
+    def train_forward(self, latent, mask_dc, mask_g):
+        x = torch.relu(self.hidden.mm(latent.to(BF16)))
+        logit_dc = self.head_dc.mm(x).to(torch.float32)
+        logit_g = self.head_g.mm(x).to(torch.float32)
+        return (masked_log_softmax(logit_dc, mask_dc),
+                masked_log_softmax(logit_g, mask_g))
+
+
+def _mlp(layers, x):
+    """bf16 ReLU MLP by the training forward; the last layer's output in
+    float32 (flax's ``.astype(jnp.float32)``)."""
+    for layer in layers[:-1]:
+        x = torch.relu(layer.mm(x))
+    return layers[-1].mm(x).to(torch.float32)
+
+
+class QuantileCritic(nn.Module):
+    """Twin quantile critics on (latent, onehot(a_dc), onehot(a_g)):
+    [B, 2, n_quantiles].  Flax's compact names: twin 0 is ``Dense_0..2``,
+    twin 1 ``Dense_3..5`` (``layers`` in that order).  Training forward only."""
+
+    def __init__(self, latent: int, n_dc: int, n_g: int, n_quantiles: int = 32,
+                 hidden: Sequence[int] = (256, 256)):
+        super().__init__()
+        self.n_dc, self.n_g, self.n_quantiles = n_dc, n_g, n_quantiles
+        widths = [latent + n_dc + n_g, *hidden, n_quantiles]
+        self.layers = nn.ModuleList(
+            Dense(a, b) for _ in range(2)
+            for a, b in zip(widths[:-1], widths[1:]))
+
+    def twins(self):
+        k = len(self.layers) // 2
+        return [list(self.layers[:k]), list(self.layers[k:])]
+
+    def forward(self, latent, a_dc, a_g):
+        eye_dc = torch.eye(self.n_dc, dtype=torch.float32, device=latent.device)
+        eye_g = torch.eye(self.n_g, dtype=torch.float32, device=latent.device)
+        x0 = torch.cat([latent, eye_dc[a_dc.long()], eye_g[a_g.long()]],
+                       dim=-1).to(BF16)
+        return torch.stack([_mlp(t, x0) for t in self.twins()], dim=1)
+
+    def all_actions(self, latent):
+        """Quantiles of every joint action a = a_dc * n_g + a_g, in the JAX
+        package's layout [B, 2, A, N] as a strided view of the [B, A, 2, N]
+        product (the marginalization kernel takes either)."""
+        B, A = latent.shape[0], self.n_dc * self.n_g
+        acts = torch.arange(A, device=latent.device)
+        q = self(latent.repeat_interleave(A, dim=0),
+                 (acts // self.n_g).repeat(B), (acts % self.n_g).repeat(B))
+        return q.reshape(B, A, 2, -1).permute(0, 2, 1, 3)
+
+
+class QuantileCriticHeads(nn.Module):
+    """Twin quantile critics with per-joint-action output heads: latent ->
+    MLP -> Dense(n_dc * n_g * n_quantiles) per twin (``critic_arch =
+    "heads"``).  Flax's setup names ``twins_i_j`` map to ``layers`` in the
+    order twin 0 layers 0..2, twin 1 layers 0..2.  Training forward only."""
+
+    def __init__(self, latent: int, n_dc: int, n_g: int, n_quantiles: int = 32,
+                 hidden: Sequence[int] = (256, 256)):
+        super().__init__()
+        self.n_dc, self.n_g, self.n_quantiles = n_dc, n_g, n_quantiles
+        widths = [latent, *hidden, n_dc * n_g * n_quantiles]
+        self.layers = nn.ModuleList(
+            Dense(a, b) for _ in range(2)
+            for a, b in zip(widths[:-1], widths[1:]))
+
+    def twins(self):
+        k = len(self.layers) // 2
+        return [list(self.layers[:k]), list(self.layers[k:])]
+
+    def all_actions(self, latent):
+        """[B, 2, A, N]: one forward per twin."""
+        B, A = latent.shape[0], self.n_dc * self.n_g
+        x = latent.to(BF16)
+        return torch.stack([_mlp(t, x).reshape(B, A, self.n_quantiles)
+                            for t in self.twins()], dim=1)
+
+    def forward(self, latent, a_dc, a_g):
+        """Taken-action quantiles [B, 2, N], gathered from the heads."""
+        q = self.all_actions(latent)
+        idx = (a_dc.long() * self.n_g + a_g.long())[:, None, None, None]
+        return torch.gather(q, 2, idx.expand(q.shape[0], 2, 1, q.shape[-1]))[:, :, 0]
 
 
 def init_modules(modules, gen: Optional[torch.Generator]) -> None:

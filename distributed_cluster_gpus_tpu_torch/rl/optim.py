@@ -1,0 +1,165 @@
+"""Clipped Adam and the Polyak target on flat parameter buffers (B5c's
+plain version).
+
+The port's own copy of what ``distributed_cluster_gpus_tpu/rl/sac.py``'s
+``_tx`` (``:117``) takes from optax — ``chain(clip_by_global_norm(5.0),
+adam(3e-4))`` — and of the Polyak target update (``:286-288``) and the
+``alpha_max`` clamp (``:300-302``) that follow it in ``sac_train_step``.
+
+Each optimizer group (critic, actor, encoder, log alpha) keeps its
+parameters in ONE flat float32 buffer; the modules' ``nn.Parameter``s are
+views of it (:func:`flatten_params`), so the update is one pass over one
+buffer, which the B5c kernel (``kernels/adam.py``) makes in at most two
+launches.  :func:`clip_adam_update` is the kernel's plain version and
+follows optax's order step for step::
+
+    g_norm = sqrt(sum g^2)                         (the blocked order below)
+    g      = g if g_norm < max_norm else (g / g_norm) * max_norm
+    mu     = (1 - b1) * g + b1 * mu
+    nu     = (1 - b2) * (g * g) + b2 * nu
+    count  = count + 1                             (saturating, int32)
+    u      = (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count) + 0) + eps)
+    p      = p + u * (-lr)
+    target = (1 - tau) * target + tau * p          (the critic's group)
+    p      = min(p, clamp)                         (log alpha's group)
+
+Constants are float32 (optax's weak-typed Python floats become float32 the
+same way).  ``b^count`` is taken in float64 and rounded to float32 (the
+kernel's ``pow`` and torch's agree there; XLA's float32 ``pow`` may differ
+from the correctly rounded value by an ulp, which the tests state).
+
+The sum of squares has a fixed order that the kernel shares: the buffer,
+zero-padded to ``K * R * THREADS`` elements, is read as [K, R, THREADS]; each
+(block k, thread j) folds its R squares left to right, each block sums its
+THREADS partials by the halving tree, and the K block sums are summed by
+the halving tree.  optax sums each leaf and then the leaves in tree order,
+so ``g_norm`` agrees with optax's to a few ulps, not bitwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..ops.physics import tree_sum_last
+
+#: threads per block of the sum of squares, and the most blocks it uses
+THREADS = 256
+MAX_BLOCKS = 64
+INT32_MAX = 2 ** 31 - 1
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to the nearest float32, as a Python float."""
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    """optax ``adam(lr)`` after ``clip_by_global_norm(max_norm)``."""
+
+    lr: float = 3e-4
+    max_norm: float = 5.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def constants(self):
+        """The float32 constants of the elementwise pass, in the kernel's
+        argument order: (1-b1, b1, 1-b2, b2, eps, -lr, max_norm)."""
+        return tuple(f32(v) for v in (1.0 - self.b1, self.b1, 1.0 - self.b2,
+                                      self.b2, self.eps, -self.lr,
+                                      self.max_norm))
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState`` for one flat group: ``count`` int32 0-d,
+    ``mu`` and ``nu`` float32 like the group's buffer."""
+
+    count: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+def adam_init(flat: torch.Tensor) -> AdamState:
+    return AdamState(count=torch.zeros((), dtype=torch.int32, device=flat.device),
+                     mu=torch.zeros_like(flat), nu=torch.zeros_like(flat))
+
+
+def flatten_params(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
+    """Move ``params`` into one new flat float32 buffer (in the given order)
+    and make each a view of its slice; returns the buffer."""
+    params = list(params)
+    dev = params[0].device
+    flat = torch.empty(sum(p.numel() for p in params), dtype=torch.float32,
+                       device=dev)
+    off = 0
+    with torch.no_grad():
+        for p in params:
+            n = p.numel()
+            flat[off:off + n].copy_(p.reshape(-1))
+            p.data = flat[off:off + n].view(p.shape)
+            off += n
+    return flat
+
+
+def norm_layout(n: int):
+    """(K blocks, R squares per thread) of the sum of squares over n."""
+    k = min(MAX_BLOCKS, max(1, math.ceil(n / THREADS)))
+    return k, max(1, math.ceil(n / (k * THREADS)))
+
+
+def sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """sum g^2 over a flat float32 buffer in the fixed blocked order (a 0-d
+    tensor)."""
+    n = g.numel()
+    k, r = norm_layout(n)
+    x = torch.zeros(k * r * THREADS, dtype=torch.float32, device=g.device)
+    x[:n] = g
+    sq = (x * x).reshape(k, r, THREADS)
+    acc = sq[:, 0]
+    for i in range(1, r):
+        acc = acc + sq[:, i]
+    return tree_sum_last(tree_sum_last(acc))
+
+
+def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """1 - decay^count (float32; the power in float64, rounded once)."""
+    d = torch.full((), f32(decay), dtype=torch.float64, device=count.device)
+    return 1 - torch.pow(d, count.to(torch.float64)).to(torch.float32)
+
+
+def clip_adam_update(p: torch.Tensor, g: torch.Tensor, st: AdamState,
+                     cfg: AdamConfig, target: Optional[torch.Tensor] = None,
+                     tau: float = 0.0, clamp: Optional[float] = None) -> None:
+    """One clipped-Adam step of a flat group, in place (``p``, ``st`` and,
+    for the critic, the Polyak ``target``), in optax's order (module note);
+    ``clamp`` caps ``p`` after the step (log alpha's ``alpha_max``)."""
+    c1, b1, c2, b2, eps, neg_lr, max_norm = cfg.constants()
+    g_norm = torch.sqrt(sum_squares(g))
+    mx = torch.full((), max_norm, dtype=torch.float32, device=g.device)
+    g = torch.where(g_norm < mx, g, (g / g_norm) * max_norm)
+    mu = c1 * g + b1 * st.mu
+    nu = c2 * (g * g) + b2 * st.nu
+    count = torch.where(st.count < INT32_MAX, st.count + 1, st.count)
+    u = (mu / bias_correction(cfg.b1, count)) / (
+        torch.sqrt(nu / bias_correction(cfg.b2, count) + 0.0) + eps)
+    p_new = p + u * neg_lr
+    if target is not None:
+        target.copy_(polyak(target, p_new, tau))
+    if clamp is not None:
+        p_new = torch.clamp_max(p_new, clamp)
+    p.copy_(p_new)
+    st.mu.copy_(mu)
+    st.nu.copy_(nu)
+    st.count.copy_(count)
+
+
+def polyak(target: torch.Tensor, online: torch.Tensor, tau: float):
+    """(1 - tau) * target + tau * online, with float32 constants."""
+    return f32(1.0 - tau) * target + f32(tau) * online

@@ -7,8 +7,9 @@ transitions are compacted valid-first (a stable partition, insertion order
 kept) and written as ONE contiguous window at the ring pointer, wrapping to
 0 when the window would run off the end; the pointer advances by the valid
 rows only, so the invalid tail written past it is overwritten by the next
-window.  ``replay_sample`` (B6b) and the "scatter" ingest mode are ROADMAP
-queue B item B6b and queue A item 9.
+window.  :func:`replay_sample` (``:212``) is B6b's plain version (the
+kernel: ``kernels/replay_sample.py``).  The "scatter" ingest mode is ROADMAP
+queue A item 9's.
 
 :func:`_add_window` is B6a's plain version; ``replay_add_chunk`` ingests
 each window through ``kernels/replay_ingest.replay_ingest``, which launches
@@ -24,6 +25,7 @@ from typing import Dict
 import torch
 
 from ..device import resolve_device
+from ..ops import prng
 
 #: max rows per contiguous write window
 INGEST_WINDOW = 4096
@@ -141,3 +143,22 @@ def replay_add_chunk(rb: ReplayState, tr: Dict[str, torch.Tensor],
     for lo, hi in windows(C, N, max_window):
         replay_ingest(rb, {k: v[lo:hi] for k, v in tr.items()})
     return rb
+
+
+def replay_sample(rb: ReplayState, key, batch: int) -> Dict[str, torch.Tensor]:
+    """B6b's plain version: ``batch`` rows drawn uniformly over the valid
+    rows by the inverse CDF, as the JAX package draws them: ``cdf =
+    cumsum(valid)`` (float32, exact below 2^24 rows), ``u = uniform(key,
+    (batch,)) * max(cdf[-1], 1)``, ``idx = clip(searchsorted(cdf, u,
+    right), 0, C - 1)`` (an empty ring, or ``u`` rounding up to the total,
+    gives row C - 1), then the rows of every ROW_FIELDS leaf at ``idx``.
+    ``key`` is the sample's threefry key (int64 [2]).  Returns the rows by
+    field name and ``idx`` (int32 [batch])."""
+    C = rb.valid.shape[0]
+    cdf = torch.cumsum(rb.valid.to(torch.float32), 0)
+    total = torch.clamp_min(cdf[-1], 1.0)
+    u = prng.uniform_vec(key.to(cdf.device), batch) * total
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, C - 1)
+    out = {name: getattr(rb, name).index_select(0, idx) for name in ROW_FIELDS}
+    out["idx"] = idx.to(torch.int32)
+    return out

@@ -1,76 +1,192 @@
-"""CHSAC-AF acting: config, policy state, action selection.
+"""Distributional hybrid-action SAC (CHSAC-AF): config, state, acting and
+the update.
 
-Counterpart of ``distributed_cluster_gpus_tpu/rl/sac.py``'s ``SACConfig``
-(``:38``), ``select_action`` (``:150``) and ``make_policy_apply`` (``:166``),
-with an encoder/actor initialisation of flax's default kind drawn from an
-explicit ``torch.Generator`` (the same distribution as the JAX package's
-``sac_init``, not the same bits).  The update (``sac_train_step``), the
-critics and the optimizers are ROADMAP queue B item B5.
+Counterpart of ``distributed_cluster_gpus_tpu/rl/sac.py``: ``SACConfig``
+(``:38``), ``SACState`` (``:96``), ``sac_init`` (``:122``),
+``select_action`` (``:150``), ``make_policy_apply`` (``:166``),
+``quantile_huber_loss`` (``:178``), ``_joint_policy`` (``:187``),
+``sac_zero_metrics`` and ``sac_train_step`` (``:206``).  Initialisation is
+of flax's default kind, drawn from an explicit ``torch.Generator`` (the
+same distribution as the JAX package's ``sac_init``, not the same bits).
 
-On the card the engine does not call :func:`select_action`: the policy runs
-inside the B1 kernel (``csrc/event_scan.cu``, the B4 device code) from the
-bf16 weights :func:`policy_weights` lays out once per chunk.  The plain step
-(``sim/step.py``) calls it through ``policy_apply``, which is how the kernel
-is held bit for bit against its plain version.
+Acting: on the card the engine does not call :func:`select_action`; the
+policy runs inside the B1 kernel (``csrc/event_scan.cu``, the B4 device
+code) from the bf16 weights :func:`policy_weights` lays out once per chunk.
+The plain step (``sim/step.py``) calls it through ``policy_apply``, which is
+how the kernel is held bit for bit against its plain version.
+
+Learning: :func:`sac_train_step` is one update, in the JAX package's order,
+on the agent's device.  The networks' products are bf16 ``torch.matmul``
+(``rl/nets.py``'s training forward, differentiated by autograd); the four
+regions XLA fused run as hand-written kernels on the card, each with its
+plain version here or beside it:
+
+* B6b, the replay sample: ``kernels/replay_sample.py`` (plain:
+  ``rl/replay.py::replay_sample``);
+* B5a, the quantile-Huber loss and its gradient: ``kernels/sac_update.py``
+  (plain: :func:`quantile_huber_loss`);
+* B5b, the exact marginalization over joint actions, the critic target and
+  the actor term with its gradient: ``kernels/sac_update.py`` (plain:
+  :func:`marginal_target` and :func:`marginal_actor`);
+* B5c, clipped Adam with the Polyak target and the alpha clamp:
+  ``kernels/adam.py`` (plain: ``rl/optim.py::clip_adam_update``).
+
+The sums of B5a and B5b follow the fixed halving tree of
+:func:`tree_sum_last` (quantile-Huber: over M, then over N, then over B;
+marginalization: over A, over N, over B), which their kernels repeat, so
+each kernel is bitwise equal to its plain version on the card.  Against
+XLA's own reduction orders they agree to float32 rounding.
+``plain=True`` runs the plain versions on any device (the card's smoke
+holds the two paths bitwise equal).  Nothing reads the card from the host
+inside an update.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..ops import prng
-from .cmdp import ConstraintSpec
-from .nets import BF16, HybridActor, MLPStateEncoder, init_modules
+from ..ops.physics import tree_sum_last
+from .cmdp import (CMDPState, ConstraintSpec, _gains, cmdp_init,
+                   effective_reward, update_lagrange)
+from .nets import (BF16, HybridActor, MLPStateEncoder, QuantileCritic,
+                   QuantileCriticHeads, init_modules, pin_f32_accumulation)
+from .optim import AdamConfig, AdamState, adam_init, f32, flatten_params
 
 
 @dataclasses.dataclass(frozen=True)
 class SACConfig:
-    """The acting half's static config (the JAX package's defaults); the
-    learning hyperparameters come with the update, ROADMAP B5."""
+    """Static hyperparameters (the JAX package's defaults).  ``alpha_max``
+    caps the temperature (a log-space clamp; None leaves it uncapped);
+    ``critic_arch`` is "onehot" (the reference's critic on one-hot actions)
+    or "heads" (per-joint-action output heads)."""
 
     obs_dim: int
     n_dc: int
     n_g: int
+    n_quantiles: int = 32
     latent: int = 256
+    gamma: float = 0.99
+    tau: float = 0.005
+    lr: float = 3e-4
+    alpha_init: float = 0.2
+    target_entropy: float = -3.0
+    alpha_max: Optional[float] = 10.0
+    grad_clip: float = 5.0
     batch: int = 256
     constraints: Tuple[ConstraintSpec, ...] = ()
+    critic_arch: str = "onehot"
 
     def __post_init__(self):
-        assert self.constraints, "SACConfig needs at least one ConstraintSpec"
+        if not self.constraints:
+            raise ValueError("SACConfig needs at least one ConstraintSpec")
+        if self.critic_arch not in ("onehot", "heads"):
+            raise ValueError(f"critic_arch {self.critic_arch!r}: 'onehot' or "
+                             "'heads'")
+        if self.alpha_max is not None and not self.alpha_max > 0:
+            raise ValueError("alpha_max must be positive (log-space clamp), "
+                             f"got {self.alpha_max}")
+
+    def adam(self) -> AdamConfig:
+        return AdamConfig(lr=self.lr, max_norm=self.grad_clip)
+
+
+#: the optimizer groups, in the update's order of application
+GROUPS = ("critic", "actor", "enc", "alpha")
+
+
+class UpdateConsts:
+    """A config's constants of the update on one device, built once with
+    the state (building them inside an update would copy from the host):
+    the quantile fractions ``taus`` [N], the PID gains (``cmdp._gains``) and
+    the log-alpha cap (a float32 value, or None)."""
+
+    def __init__(self, cfg: SACConfig, dev):
+        N = cfg.n_quantiles
+        self.taus = (torch.arange(N, dtype=torch.float32, device=dev) + 0.5) \
+            / _count(N, dev)
+        self.gains = _gains(cfg.constraints, dev)
+        self.clamp = (None if cfg.alpha_max is None else float(
+            torch.log(torch.tensor(cfg.alpha_max, dtype=torch.float32))))
 
 
 @dataclasses.dataclass
 class SACState:
-    """The acting half of the learned state: encoder and actor (float32
-    params), and the count of updates taken (0 until B5 lands)."""
+    """All learned state.  Each group's parameters live in one flat float32
+    buffer (``flat[group]``; the modules' parameters and ``log_alpha`` are
+    views of it), as do the target critic's (``flat["target"]``).  ``step``
+    counts the updates taken (the host knows it without a read)."""
 
     enc: MLPStateEncoder
     actor: HybridActor
+    critic: torch.nn.Module
+    target_critic: torch.nn.Module
+    log_alpha: torch.Tensor  # float32 0-d
+    enc_opt: AdamState
+    actor_opt: AdamState
+    critic_opt: AdamState
+    alpha_opt: AdamState
+    cmdp: CMDPState
+    flat: Dict[str, torch.Tensor]
+    consts: UpdateConsts
     step: int = 0
 
     def layers(self):
-        """The six Dense layers in the kernel's order: encoder 0-2, actor
-        hidden, DC head, GPU-count head."""
+        """The policy's six Dense layers in the kernel's order: encoder 0-2,
+        actor hidden, DC head, GPU-count head."""
         return [*self.enc.layers, *self.actor.layers()]
 
 
+def _critic_cls(cfg: SACConfig):
+    return QuantileCriticHeads if cfg.critic_arch == "heads" else QuantileCritic
+
+
 def sac_init(cfg: SACConfig, gen: torch.Generator, device="cpu") -> SACState:
-    """Fresh encoder and actor, initialised from ``gen`` (a CPU generator)
-    as flax initialises them: lecun-normal kernels, zero biases."""
+    """Fresh networks initialised from ``gen`` (a CPU generator) as flax
+    initialises them (lecun-normal kernels, zero biases; encoder, actor,
+    then critic), the target critic a copy of the critic, ``log_alpha`` =
+    log(alpha_init), zeroed Adam states and multipliers, on ``device``."""
     enc = MLPStateEncoder(cfg.obs_dim, latent=cfg.latent)
     actor = HybridActor(cfg.latent, cfg.n_dc, cfg.n_g)
-    init_modules([enc, actor], gen)
-    for m in (enc, actor):
-        m.requires_grad_(False)
-    return SACState(enc=enc.to(device), actor=actor.to(device))
+    critic = _critic_cls(cfg)(cfg.latent, cfg.n_dc, cfg.n_g, cfg.n_quantiles)
+    init_modules([enc, actor, critic], gen)
+    return assemble(cfg, enc, actor, critic, copy.deepcopy(critic),
+                    torch.log(torch.tensor(cfg.alpha_init, dtype=torch.float32)),
+                    device)
+
+
+def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
+             device, opts: Optional[Dict[str, AdamState]] = None,
+             cmdp: Optional[CMDPState] = None, step: int = 0) -> SACState:
+    """A SACState on ``device`` from its modules (moved and flattened here)
+    and, optionally, carried optimizer and CMDP states."""
+    dev = torch.device(device)
+    flat = {}
+    for name, mod in (("enc", enc), ("actor", actor), ("critic", critic),
+                      ("target", target)):
+        mod.to(dev)
+        flat[name] = flatten_params(mod.parameters())
+        mod.requires_grad_(name != "target")
+    flat["alpha"] = log_alpha.detach().reshape(1).to(device=dev,
+                                                     dtype=torch.float32).clone()
+    opts = opts or {g: adam_init(flat[g]) for g in GROUPS}
+    return SACState(enc=enc, actor=actor, critic=critic, target_critic=target,
+                    log_alpha=flat["alpha"].view(()),
+                    enc_opt=opts["enc"], actor_opt=opts["actor"],
+                    critic_opt=opts["critic"], alpha_opt=opts["alpha"],
+                    cmdp=cmdp if cmdp is not None else cmdp_init(
+                        cfg.constraints, dev),
+                    flat=flat, consts=UpdateConsts(cfg, dev), step=step)
 
 
 @torch.no_grad()
 def policy_logp(sac: SACState, obs, mask_dc, mask_g):
-    """(logp_dc, logp_g) of a batch ``obs`` [B, obs_dim]."""
+    """(logp_dc, logp_g) of a batch ``obs`` [B, obs_dim] by the acting
+    recipe."""
     return sac.actor(sac.enc(obs), mask_dc, mask_g)
 
 
@@ -114,3 +230,182 @@ def policy_weights(sac: SACState, device):
         out.append(layer.kernel.detach().to(device).to(BF16).t().contiguous())
         out.append(layer.bias.detach().to(device).to(BF16).contiguous())
     return out
+
+
+# ---------------------------------------------------------------------------
+# The loss regions' plain versions (B5a, B5b).  Each returns its value and
+# the gradient its kernel writes; kernels/sac_update.py binds them to
+# autograd.
+# ---------------------------------------------------------------------------
+
+def _count(n, device) -> torch.Tensor:
+    """``n`` as a float32 0-d tensor on ``device``: a divisor (torch on the
+    card turns a division by a Python number into a reciprocal multiply).
+    A fill, not a copy from the host."""
+    return torch.full((), float(n), dtype=torch.float32, device=device)
+
+
+def quantile_huber_loss(q, target, taus, kappa: float = 1.0):
+    """B5a's plain version, both twins at once: the QR-DQN loss of ``q``
+    [B, 2, N] against ``target`` [B, M] at quantile fractions ``taus`` [N],
+    ``l_0 + l_1`` with ``l_t = mean_b sum_i mean_j w * huber(td)``, ``td =
+    target[b, j] - q[b, t, i]``, ``w = |tau_i - 1{td < 0}|``; and its gradient
+    dL/dq [B, 2, N].  Sums by the tree: over j, then i, then b."""
+    B, M = q.shape[0], target.shape[-1]
+    k = f32(kappa)
+    td = target[:, None, None, :] - q[:, :, :, None]  # [B, 2, N, M]
+    a = td.abs()
+    small = a <= k
+    huber = torch.where(small, 0.5 * (td * td), k * (a - f32(0.5 * kappa)))
+    w = (taus[None, None, :, None] - (td < 0).to(torch.float32)).abs()
+    m_t, b_t = _count(M, q.device), _count(B, q.device)
+    rows = tree_sum_last(tree_sum_last(w * huber) / m_t)  # [B, 2]
+    per_twin = tree_sum_last(rows.t()) / b_t  # [2]
+    loss = per_twin[0] + per_twin[1]
+    dh = torch.where(small, td, torch.where(td > 0, k, -k))
+    grad = -((tree_sum_last(w * dh) / m_t) / b_t)
+    return loss, grad
+
+
+def _joint_policy(logp_dc, logp_g):
+    """Joint log-probabilities over the n_dc x n_g action set [B, A] (a =
+    a_dc * n_g + a_g)."""
+    return (logp_dc[:, :, None] + logp_g[:, None, :]).reshape(
+        logp_dc.shape[0], -1)
+
+
+def _twin_min(q_all):
+    """min over the twins of [B, 2, A, N] (torch's NaN-propagating minimum)."""
+    return torch.minimum(q_all[:, 0], q_all[:, 1])
+
+
+def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
+                    alpha, gamma: float):
+    """B5b's target, plain: (target_q [B, N], r_eff [B]) with ``r_eff`` the
+    Lagrangian effective reward and ``target_q = r_eff + gamma * (1 - done)
+    * v1``, ``v1 = sum_a pi(a) (min_twin q1 - alpha log pi(a))`` (the sum
+    over A by the tree).  ``q1_all`` [B, 2, A, N] (any strides), ``alpha`` a
+    0-d tensor.  A masked action has pi = 0 and adds 0."""
+    r_eff = effective_reward(r, costs, lam, targets)
+    logpi = _joint_policy(logp_dc1, logp_g1)
+    pi = torch.exp(logpi)
+    soft = _twin_min(q1_all) - alpha * logpi[:, :, None]
+    v1 = tree_sum_last((pi[:, :, None] * soft).transpose(1, 2))
+    tq = r_eff[:, None] + (f32(gamma) * (1 - done))[:, None] * v1
+    return tq, r_eff
+
+
+def marginal_actor(q0_all, logp_dc, logp_g, alpha):
+    """B5b's actor term, plain: (loss, H [B], dloss/dlogp_dc, dloss/dlogp_g)
+    with ``qm(a) = mean_i min_twin q0`` (held constant), ``H = -sum_a pi log
+    pi``, ``loss = -mean_b(sum_a pi qm + alpha H)``; the gradient of the
+    loss through pi = exp(logp_dc + logp_g) is ``-pi (qm - alpha (log pi +
+    1)) / B`` per joint action, summed over the other head.  Sums by the
+    tree: over N, over A, over B, and per head over the other head."""
+    B, n_dc, n_g = logp_dc.shape[0], logp_dc.shape[1], logp_g.shape[1]
+    n_t, b_t = (_count(q0_all.shape[-1], logp_dc.device),
+                _count(B, logp_dc.device))
+    qm = tree_sum_last(_twin_min(q0_all)) / n_t  # [B, A]
+    logpi = _joint_policy(logp_dc, logp_g)
+    pi = torch.exp(logpi)
+    ent = -tree_sum_last(pi * logpi)
+    val = tree_sum_last(pi * qm) + alpha * ent
+    loss = -(tree_sum_last(val) / b_t)
+    g = (pi * (qm - alpha * (logpi + 1))).reshape(B, n_dc, n_g)
+    d_dc = -(tree_sum_last(g) / b_t)
+    d_g = -(tree_sum_last(g.transpose(1, 2)) / b_t)
+    return loss, ent, d_dc, d_g
+
+
+# ---------------------------------------------------------------------------
+# The update
+# ---------------------------------------------------------------------------
+
+def sac_zero_metrics(cfg: SACConfig, sac: SACState):
+    """The metrics dict of :func:`sac_train_step` for no update."""
+    z = torch.zeros((), dtype=torch.float32, device=sac.log_alpha.device)
+    return {"critic_loss": z, "actor_loss": z, "alpha_loss": z,
+            "alpha": torch.exp(sac.log_alpha), "entropy": z, "q_mean": z,
+            "r_eff_mean": z, "lambda": sac.cmdp.lam,
+            "violation": torch.zeros(len(cfg.constraints), dtype=torch.float32,
+                                     device=z.device)}
+
+
+def _flat_grad(grads, like):
+    out = torch.empty_like(like)
+    torch.cat([g.reshape(-1) for g in grads], out=out)
+    return out
+
+
+def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False):
+    """One CHSAC-AF update from a replay sample, in place on ``sac``;
+    returns the metrics dict (the JAX package's keys, 0-d tensors and the
+    [n_costs] ``lambda``/``violation``, on the device).  ``key`` is the
+    update's threefry key (int64 [2], on the CPU): the sample uses
+    ``split(key)[0]`` as the JAX update does.  ``plain`` runs the four
+    regions' plain versions in place of their kernels."""
+    from ..kernels.adam import adam_step
+    from ..kernels.replay_sample import replay_sample
+    from ..kernels.sac_update import (marginal_actor_fn, marginal_target_fn,
+                                      quantile_huber_fn)
+
+    pin_f32_accumulation()
+    c = sac.consts
+    k_samp = prng.split(key.cpu(), 2)[0]
+    batch = replay_sample(rb, k_samp, cfg.batch, plain=plain)
+    alpha = torch.exp(sac.log_alpha)
+    tgt = c.gains[0]
+
+    # critic target: exact marginalization over the next actions
+    with torch.no_grad():
+        lat1 = sac.enc.train_forward(batch["s1"])
+        logp_dc1, logp_g1 = sac.actor.train_forward(lat1, batch["mask_dc"],
+                                                    batch["mask_g"])
+        q1_all = sac.target_critic.all_actions(lat1)
+        target_q, r_eff = marginal_target_fn(
+            q1_all, logp_dc1, logp_g1, batch["r"], batch["costs"],
+            sac.cmdp.lam, tgt, batch["done"], alpha, cfg.gamma, plain=plain)
+
+    # critic loss (the encoder is not differentiated here)
+    lat0 = sac.enc.train_forward(batch["s0"])
+    lat0_c = lat0.detach()
+    critic_params = list(sac.critic.parameters())
+    q = sac.critic(lat0_c, batch["a_dc"], batch["a_g"])
+    c_loss = quantile_huber_fn(q, target_q, c.taus, plain=plain)
+    q_mean = q.detach().mean()
+    c_grad = _flat_grad(torch.autograd.grad(c_loss, critic_params),
+                        sac.flat["critic"])
+
+    # actor + encoder loss: exact expectation under the masks at s0
+    logp_dc, logp_g = sac.actor.train_forward(lat0, batch["mask_dc0"],
+                                              batch["mask_g0"])
+    with torch.no_grad():
+        q0_all = sac.critic.all_actions(lat0_c)
+    a_loss, ent = marginal_actor_fn(q0_all, logp_dc, logp_g, alpha,
+                                    plain=plain)
+    actor_params = list(sac.actor.parameters())
+    enc_params = list(sac.enc.parameters())
+    grads = torch.autograd.grad(a_loss, actor_params + enc_params)
+    a_grad = _flat_grad(grads[:len(actor_params)], sac.flat["actor"])
+    e_grad = _flat_grad(grads[len(actor_params):], sac.flat["enc"])
+
+    # temperature loss
+    log_alpha = sac.log_alpha.detach().clone().requires_grad_(True)
+    al_loss = (torch.exp(log_alpha) * (ent + f32(cfg.target_entropy))).mean()
+    (al_grad,) = torch.autograd.grad(al_loss, log_alpha)
+
+    opt = cfg.adam()
+    with torch.no_grad():
+        adam_step(sac.flat["critic"], c_grad, sac.critic_opt, opt,
+                  target=sac.flat["target"], tau=cfg.tau, plain=plain)
+        adam_step(sac.flat["actor"], a_grad, sac.actor_opt, opt, plain=plain)
+        adam_step(sac.flat["enc"], e_grad, sac.enc_opt, opt, plain=plain)
+        adam_step(sac.flat["alpha"], al_grad.reshape(1), sac.alpha_opt, opt,
+                  clamp=c.clamp, plain=plain)
+        sac.cmdp, viol = update_lagrange(sac.cmdp, c.gains, batch["costs"])
+    sac.step += 1
+    return {"critic_loss": c_loss.detach(), "actor_loss": a_loss.detach(),
+            "alpha_loss": al_loss.detach(), "alpha": torch.exp(sac.log_alpha),
+            "entropy": ent.mean(), "q_mean": q_mean,
+            "r_eff_mean": r_eff.mean(), "lambda": sac.cmdp.lam,
+            "violation": viol}

@@ -1,14 +1,15 @@
-"""The chsac_af run loop, acting side: chunk -> CSV drain -> ingest -> update.
+"""The chsac_af run loop: chunk -> CSV drain -> ingest -> updates.
 
 Counterpart of ``distributed_cluster_gpus_tpu/rl/train.py``'s ``make_agent``
 (``:234``) and ``train_chsac`` (``:333``).  Each chunk runs the engine with
 the agent's policy (on the card: the B1 kernel in RL mode, the policy inside
 the event loop), drains the chunk's CSV rows, ingests its transition stream
-into the replay ring (the B6a kernel on the card) and then asks the agent
-for the chunk's updates.  Updates are the learning half (ROADMAP queue B
-item B5): once one falls due, ``CHSAC_AF.train_steps`` raises.  A run whose
-``--rl-warmup`` exceeds its transition count acts without learning, which is
-the path this slice ports.
+into the replay ring (the B6a kernel on the card) and then runs the chunk's
+SAC/CMDP updates (``CHSAC_AF.train_steps``: B6b, B5a, B5b and B5c on the
+card), one per new transition up to ``max_train_steps_per_chunk``, once the
+ring holds ``--rl-warmup`` transitions.  The next chunk acts with the
+updated weights.  ``history`` keeps the last update's metrics of each
+chunk that updated, as numpy.
 
 Checkpoints, the telemetry sink and graceful shutdown raise as unported
 (ROADMAP queue A items 14, 12 and 14).
@@ -40,6 +41,7 @@ def make_agent(fleet: FleetSpec, params: SimParams, device="cuda") -> CHSAC_AF:
         batch=params.rl_batch,
         warmup=params.rl_warmup,
         seed=params.seed,
+        critic_arch=params.critic_arch,
         device=device)
 
 
@@ -51,11 +53,14 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
                 ckpt_dir: Optional[str] = None, on_chunk=None, obs=None,
                 shutdown=None, device="cuda",
                 pre_tables: Optional[Sequence[Dict]] = None):
-    """Run a chsac_af simulation, acting with ``agent``'s policy and feeding
-    its replay ring.  Returns (final SimState, agent, history of update
-    metrics).  ``on_chunk(chunk, state, history)`` runs after every chunk;
-    ``pre_tables`` (tests) injects each chunk's arrival tables.  The agent's
-    device is the run's: ``device`` builds a default agent there."""
+    """Run a chsac_af simulation with online training: act with ``agent``'s
+    policy, feed its replay ring, and after each chunk run
+    ``min(n_new // train_every_n, max_train_steps_per_chunk)`` updates once
+    warmed up.  Returns (final SimState, agent, history of the last update
+    metrics of each chunk that updated).  ``on_chunk(chunk, state,
+    history)`` runs after every chunk; ``pre_tables`` (tests) injects each
+    chunk's arrival tables.  The agent's device is the run's: ``device``
+    builds a default agent there."""
     if params.algo != "chsac_af":
         raise ValueError(f"train_chsac runs chsac_af, not {params.algo!r}")
     for name, val, item in (("ckpt_dir", ckpt_dir, "queue A item 14 (checkpoints)"),
@@ -87,10 +92,14 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
         metrics, n_done = (agent.train_steps(n_want, max_train_steps_per_chunk)
                            if n_want else (None, 0))
         if metrics is not None:
-            history.append(metrics)
+            history.append({k: v.detach().cpu().numpy()
+                            for k, v in metrics.items()})
         if verbose:
+            m = history[-1] if metrics is not None else None
+            extra = (f"updates={n_done} critic_loss={float(m['critic_loss']):.4f} "
+                     f"lambda={m['lambda']}" if m is not None else "warming up")
             print(f"t={float(state.t):.1f}s/{params.duration:.0f}s "
-                  f"replay={int(agent.replay.size)} warming up")
+                  f"replay={int(agent.replay.size)} {extra}")
         if on_chunk is not None:
             on_chunk(chunk, state, history)
         if bool(state.done):

@@ -3,14 +3,15 @@
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo joint_nf \\
         --duration 600 --out runs/joint_nf [--device cpu]
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
-        --duration 600 --rl-warmup 1000000000 --out runs/chsac
+        --duration 600 --out runs/chsac [--critic-arch heads]
 
 The port's counterpart of the repo's ``run_sim.py`` for the flags the port
 honours: the heuristic algorithms ``default_policy`` and ``joint_nf``, and
-``chsac_af``'s acting half (the policy runs inside the event loop and feeds
-the replay ring; an update that falls due raises until ROADMAP queue B item
-B5 lands, so runs pass ``--rl-warmup`` above their transition count).
-``--device`` defaults to ``cuda`` and never falls back to the CPU.  The
+``chsac_af`` online (the policy runs inside the event loop and feeds the
+replay ring; once ``--rl-warmup`` transitions are in it, each chunk's SAC
+and Lagrange updates run on the card and the next chunk acts with the
+updated weights).  ``--device`` defaults to ``cuda`` and never falls back
+to the CPU.  The
 reference's other algorithms and flags exit with a message naming the
 ROADMAP item that ports them.
 """
@@ -36,7 +37,6 @@ UNPORTED_FLAGS = {
     "--num_fixed_gpus": "queue A item 5 (debug algo)",
     "--fixed_freq": "queue A item 5 (debug algo)",
     "--elastic-scaling": "queue A item 13 (elastic scaling)",
-    "--critic-arch": "queue B item B5 (the critics)",
     "--offline-dataset": "queue A item 10 (offline RL)",
     "--offline-steps": "queue A item 10 (offline RL)",
     "--fault-outage": "queue A item 11 (faults)",
@@ -105,6 +105,10 @@ def parse_args(argv=None):
     p.add_argument("--rl-warmup", type=int, default=1_000)
     p.add_argument("--rl-energy-weight", type=float, default=1.0,
                    help="weight on the reward's energy term")
+    p.add_argument("--critic-arch", default="onehot",
+                   choices=["onehot", "heads"],
+                   help="onehot = reference-shaped critic (one-hot action "
+                        "input); heads = per-joint-action output heads")
     p.add_argument("--chunk-steps", type=int, default=4096)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -141,7 +145,7 @@ def build_params(a):
         sla_p99_ms=a.sla_p99_ms, energy_budget_j=a.energy_budget_j,
         power_cap_constraint=a.power_cap_constraint,
         rl_buffer=a.rl_buffer, rl_batch=a.rl_batch, rl_warmup=a.rl_warmup,
-        rl_energy_weight=a.rl_energy_weight)
+        rl_energy_weight=a.rl_energy_weight, critic_arch=a.critic_arch)
 
 
 def finalize_queue_cap(params, fleet):
@@ -171,7 +175,7 @@ def main(argv=None, pre_tables=None):
                                       chunk_steps=a.chunk_steps,
                                       device=a.device, pre_tables=pre_tables)
         extra = (f"; {int(agent.replay.n_seen)} transitions in the replay "
-                 f"ring, {agent.sac.step} train steps (the policy's weights "
+                 f"ring, {agent.sac.step} train steps (the initial weights "
                  "come from the port's own generator: flax's initial "
                  "distribution, not the JAX package's bits)")
     else:

@@ -7,7 +7,7 @@ since the suite's conftest imports JAX):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest -p no:cacheprovider
 
-``chip_smoke.py`` repeats the B1 and B2 checks at the paper fleet's shape.
+``chip_smoke.py`` repeats these checks at the main path's shapes.
 """
 
 import warnings
@@ -228,9 +228,10 @@ def _perturb(sac, seed):
     default init zeroes the biases, which would leave the bias add of the
     forward unchecked."""
     g = torch.Generator().manual_seed(seed)
-    for layer in sac.layers():
-        for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
-            p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+    with torch.no_grad():  # the parameters are trainable leaves
+        for layer in sac.layers():
+            for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
+                p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
 
 
 def _rl_engine(fleet, params, dev, greedy=False):
@@ -413,3 +414,212 @@ def test_replay_ingest_reads_nothing_back(cuda):
     tr = _window(torch.Generator().manual_seed(0), 16, 0.5, cuda)
     b6.replay_ingest(rb, tr)  # first call: loads the library
     assert _syncs(lambda: b6.replay_ingest(rb, tr)) == []
+
+
+# ------------------------------------------------ the update: B5a-c, B6b
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.int32) if a.dtype == torch.float32 else a,
+        b.reshape(-1).view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(3, 8), (256, 32)])
+def test_quantile_huber_kernel_matches_plain_version(cuda, B, N):
+    """B5a: loss and gradient bitwise, |td| exactly at kappa and at 0."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl.sac import quantile_huber_loss
+
+    g = torch.Generator().manual_seed(B)
+    q = torch.randn((B, 2, N), generator=g)
+    tgt = torch.randn((B, N), generator=g) * 2
+    tgt[0, :2] = q[0, 0, :2] + 1.0
+    tgt[-1, :2] = q[-1, 1, :2]
+    taus = (torch.arange(N, dtype=torch.float32) + 0.5) / N
+    q, tgt, taus = q.to(cuda), tgt.to(cuda), taus.to(cuda)
+    before = b5.quantile_huber.launches
+    loss_k, grad_k = b5.quantile_huber(q, tgt, taus)
+    loss_p, grad_p = quantile_huber_loss(q, tgt, taus)
+    assert _bits_equal(loss_k, loss_p) and _bits_equal(grad_k, grad_p)
+    assert b5.quantile_huber.launches == before + 1
+
+
+def _marginal_inputs(dev, B=9, n_dc=3, n_g=4, N=8, layout="heads"):
+    g = torch.Generator().manual_seed(B + n_dc)
+    A = n_dc * n_g
+    if layout == "heads":
+        q = torch.randn((B, 2, A, N), generator=g).to(dev)
+    else:  # the one-hot critic's [B, A, 2, N] product, viewed as [B, 2, A, N]
+        q = torch.randn((B, A, 2, N), generator=g).to(dev).permute(0, 2, 1, 3)
+    m_dc = torch.rand((B, n_dc), generator=g) < 0.6
+    m_g = torch.rand((B, n_g), generator=g) < 0.6
+    m_dc[:, 0] = True
+    m_g[:, 1] = True
+    m_dc[0] = False  # every DC masked: uniform
+    m_g[1] = False
+    from distributed_cluster_gpus_tpu_torch.rl.nets import masked_log_softmax
+
+    ldc = masked_log_softmax(torch.randn((B, n_dc), generator=g), m_dc)
+    lg = masked_log_softmax(torch.randn((B, n_g), generator=g), m_g)
+    rest = dict(r=torch.randn(B, generator=g),
+                costs=torch.rand((B, 4), generator=g) * 900,
+                lam=torch.tensor([0.4, 0.0, 2.0, 0.0]),
+                targets=torch.tensor([500.0, 1e30, 0.0, 1e30]),
+                done=(torch.arange(B) % 2).float(),
+                alpha=torch.tensor(0.3))
+    return q, ldc.to(dev), lg.to(dev), {k: v.to(dev) for k, v in rest.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["heads", "onehot"])
+def test_marginal_kernels_match_plain_versions(cuda, layout):
+    """B5b: the target and the actor term (value, H, gradients) bitwise,
+    masked and all-masked heads, done in {0, 1}, both critics' layouts."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    q, ldc, lg, x = _marginal_inputs(cuda, layout=layout)
+    args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
+            x["alpha"], 0.99)
+    for k, p in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
+        assert _bits_equal(k, p)
+    out_k = b5.marginal_actor(q, ldc, lg, x["alpha"])
+    out_p = rsac.marginal_actor(q, ldc, lg, x["alpha"])
+    for k, p in zip(out_k, out_p):
+        assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["clip", "no_clip", "zero", "step1000_target",
+                                  "alpha_clamp"])
+def test_adam_kernel_matches_plain_version(cuda, case):
+    """B5c: parameters, moments, count (and target) bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import adam_step
+    from distributed_cluster_gpus_tpu_torch.rl import optim
+
+    g = torch.Generator().manual_seed(len(case))
+    n = 1 if case == "alpha_clamp" else 70_001
+    p = torch.randn(n, generator=g)
+    grad = torch.randn(n, generator=g) * (0.2 if case == "clip" else 0.001)
+    if case == "zero":
+        grad.zero_()
+    step = 999 if case == "step1000_target" else 0
+    mu = torch.randn(n, generator=g) * 0.01 if step else torch.zeros(n)
+    nu = torch.rand(n, generator=g) * 1e-4 if step else torch.zeros(n)
+    tgt = torch.randn(n, generator=g) if case == "step1000_target" else None
+    clamp = float(p[0]) - 1e-4 if case == "alpha_clamp" else None
+    states, outs = [], []
+    for kernel in (True, False):
+        st = optim.AdamState(count=torch.tensor(step, dtype=torch.int32).to(cuda),
+                             mu=mu.to(cuda), nu=nu.to(cuda))
+        pp, tt = p.to(cuda), None if tgt is None else tgt.to(cuda)
+        adam_step(pp, grad.to(cuda), st, optim.AdamConfig(), target=tt,
+                  tau=0.005, clamp=clamp, plain=not kernel)
+        outs.append([pp, st.mu, st.nu] + ([] if tt is None else [tt]))
+        states.append(st)
+    for a, b in zip(*outs):
+        assert _bits_equal(a, b)
+    assert int(states[0].count) == int(states[1].count) == step + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring", ["empty", "full", "wrapped_gaps", "one_valid"])
+def test_replay_sample_kernel_matches_plain_version(cuda, ring):
+    """B6b: indices and the 11 fields bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    C = 300
+    rb = replay.replay_init(C, 13, 2, 8, 4, device=cuda)
+    g = torch.Generator().manual_seed(len(ring))
+    sizes, pv = {"empty": ([], 0.0), "full": ([75] * 5, 1.0),
+                 "wrapped_gaps": ([90] * 5, 0.7), "one_valid": ([40], 0.0)}[ring]
+    for N in sizes:
+        tr = _window(g, N, pv, cuda)
+        if ring == "one_valid":
+            tr["valid"][7] = True
+        replay.replay_add_chunk(rb, tr)
+    key = prng.split(prng.key(5, "cpu"), 2)[0]
+    before = b6b.replay_sample.launches
+    out_k = b6b.replay_sample(rb, key, 256)
+    out_p = replay.replay_sample(rb, key, 256)
+    assert b6b.replay_sample.launches == before + 1
+    for name in (*replay.ROW_FIELDS, "idx"):
+        assert _bits_equal(out_k[name], out_p[name]), name
+
+
+def _small_agent(dev, arch):
+    from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
+    from distributed_cluster_gpus_tpu_torch.rl.replay import replay_add_chunk
+
+    agent = CHSAC_AF(obs_dim=13, n_dc=2, n_g_choices=8, batch=32,
+                     buffer_capacity=500, warmup=50, critic_arch=arch,
+                     device=dev)
+    g = torch.Generator().manual_seed(4)
+    tr = _window(g, 300, 0.7, dev)
+    tr["done"] = (torch.rand(300, generator=g) < 0.5).float().to(dev)
+    replay_add_chunk(agent.replay, tr)
+    return agent
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["onehot", "heads"])
+def test_update_kernel_path_matches_plain_path(cuda, arch):
+    """Whole updates on the card from one state and key chain: the kernel
+    path and the plain path leave every leaf and metric bitwise equal (the
+    matmuls run deterministically in both)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = _small_agent(cuda, arch), _small_agent(cuda, arch)
+        ma, na = a.train_steps(3, 4)
+        mb, nb = b.train_steps(3, 4, plain=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert na == nb == 3
+    for k in ma:
+        assert _bits_equal(ma[k], mb[k]), k
+    for name in a.sac.flat:
+        assert _bits_equal(a.sac.flat[name], b.sac.flat[name]), name
+    for grp in ("enc_opt", "actor_opt", "critic_opt", "alpha_opt"):
+        sa, sb = getattr(a.sac, grp), getattr(b.sac, grp)
+        for f in ("count", "mu", "nu"):
+            assert _bits_equal(getattr(sa, f), getattr(sb, f)), (grp, f)
+
+
+@pytest.mark.gpu
+def test_train_steps_read_nothing_back(cuda):
+    agent = _small_agent(cuda, "onehot")
+    agent.ingest_chunk(_window(torch.Generator().manual_seed(9), 16, 0.5, cuda))
+    agent.train_steps(1, 2)  # loads the libraries
+    assert _syncs(lambda: agent.train_steps(2, 2)) == []
+
+
+@pytest.mark.gpu
+def test_update_wrappers_reject_bad_operands(cuda):
+    """No fallback: a CUDA operand of the wrong dtype, shape or layout
+    raises instead of running the plain version."""
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import adam_step
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import optim, replay
+
+    q = torch.randn((4, 2, 8), device=cuda)
+    tgt, taus = torch.randn((4, 8), device=cuda), torch.rand(8, device=cuda)
+    with pytest.raises(TypeError):
+        b5.quantile_huber(q.double(), tgt, taus)
+    q_all, ldc, lg, x = _marginal_inputs(cuda)
+    with pytest.raises(ValueError):  # no unit stride over the quantiles
+        b5.marginal_actor(q_all.transpose(2, 3), ldc, lg, x["alpha"])
+    with pytest.raises(ValueError):  # a CPU operand beside CUDA ones
+        b5.marginal_actor(q_all, ldc.cpu(), lg, x["alpha"])
+    p = torch.randn(64, device=cuda)
+    with pytest.raises(ValueError):
+        adam_step(p, torch.randn(128, device=cuda)[::2], optim.adam_init(p),
+                  optim.AdamConfig())
+    rb = replay.replay_init(32, 13, 2, 8, 4, device=cuda)
+    with pytest.raises(ValueError):  # the key's words are launch arguments
+        b6b.replay_sample(rb, prng.key(1, cuda), 8)

@@ -62,7 +62,10 @@ def pair(request):
     rng = np.random.default_rng(23)
     enc_np = _perturbed(jax.tree.map(np.asarray, sj.enc_params), rng)
     act_np = _perturbed(jax.tree.map(np.asarray, sj.actor_params), rng)
-    st = bridge.sac_from_flax(ct, enc_np, act_np, device="cpu")
+    st = bridge.sac_from_flax(
+        ct, jax.tree.map(np.asarray, sj).replace(enc_params=enc_np,
+                                                 actor_params=act_np),
+        device="cpu")
     enc, actor, _ = jmodules(cj)
     enc_p, act_p = jax.tree.map(jnp.asarray, (enc_np, act_np))
 
@@ -93,9 +96,10 @@ def test_weights_carried_exactly(pair):
     cj, ct, (enc_np, _), st, _ = pair
     enc = enc_np["params"]
     for k, layer in enumerate(st.enc.layers):
-        assert np.array_equal(layer.kernel.numpy(), enc[f"Dense_{k}"]["kernel"])
-        assert np.array_equal(layer.bias.numpy(), enc[f"Dense_{k}"]["bias"])
-    assert all(np.all(l.bias.numpy() != 0) for l in st.layers())
+        assert np.array_equal(layer.kernel.detach().numpy(),
+                              enc[f"Dense_{k}"]["kernel"])
+        assert np.array_equal(layer.bias.detach().numpy(), enc[f"Dense_{k}"]["bias"])
+    assert all(np.all(l.bias.detach().numpy() != 0) for l in st.layers())
     ws = policy_weights(st, "cpu")
     assert len(ws) == 12 and ws[0].dtype == torch.bfloat16
     assert tuple(ws[0].shape) == (256, ct.obs_dim)  # [out, in]

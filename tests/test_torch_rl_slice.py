@@ -77,9 +77,7 @@ def runs(tmp_path_factory):
         pt = SimParams(**RUN)
         agent_t = ttrain.make_agent(ft, pt, device="cpu")
         to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-        agent_t.sac = bridge.sac_from_flax(agent_t.cfg,
-                                           to_np(agent_j.sac.enc_params),
-                                           to_np(agent_j.sac.actor_params),
+        agent_t.sac = bridge.sac_from_flax(agent_t.cfg, to_np(agent_j.sac),
                                            device="cpu")
         st, agent_t, hist = ttrain.train_chsac(
             ft, pt, out_dir=str(d / "port"), chunk_steps=CHUNK, agent=agent_t,

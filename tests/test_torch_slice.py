@@ -124,7 +124,7 @@ def test_cli_single_dc_byte_identical(tmp_path):
 
 def test_cli_refuses_unported(capsys):
     for argv, item in ((["--algo", "ppo"], "item 10"),
-                       (["--algo", "chsac_af", "--critic-arch", "heads"], "B5"),
+                       (["--algo", "chsac_af", "--offline-steps", "10"], "item 10"),
                        (["--power-cap", "900"], "item 6"),
                        (["--faults-mtbf=3"], None),
                        (["--duration", "2e5"], "item 6")):
@@ -143,7 +143,8 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "need = ['rl.train', 'rl.agent', 'rl.sac', 'rl.nets', 'rl.replay', "
-        "'kernels.replay_ingest', 'kernels.event_scan']\n"
+        "'rl.cmdp', 'rl.optim', 'kernels.replay_ingest', 'kernels.event_scan', "
+        "'kernels.sac_update', 'kernels.adam', 'kernels.replay_sample']\n"
         "assert all(p.__name__ + '.' + n in names for n in need), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distributed_cluster_gpus_tpu')]\n"
