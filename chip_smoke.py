@@ -90,15 +90,21 @@ Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
 Two opt-in studies of B1 replace the smoke when asked for:
 
-    python3 chip_smoke.py --b1-phases
-        B1 in RL mode at the chsac_af CLI's shape from an instrumented copy
-        of ``csrc/event_scan.cu`` (``clock64`` per phase of each event):
-        cycles per event by phase over three 4,096-step chunks.
+    python3 chip_smoke.py --b1-phases [CHECKOUT]
+        B1 in both modes from an instrumented copy of the ``event_scan.cu``
+        of the checkout at CHECKOUT (default: this one; ``clock64`` per
+        phase of each event on thread 0): ``default_policy`` at the CLI's
+        paper-fleet shape, then RL mode at the chsac_af CLI's shape, cycles
+        per event by phase over three 4,096-step chunks each.
+    python3 chip_smoke.py --b1-widths
+        B1 of this checkout at every block width the kernel is built for,
+        both modes at the A/B's shapes: us per event.
     python3 chip_smoke.py --b1-ab PARENT
-        The heuristic B1 kernel of the checkout at PARENT (unpack it with
-        ``git archive`` into a git-ignored directory) and of this one,
-        alternating parent, change, change, parent, each in its own
-        process: ms per 4,096-step chunk at the CLI's shape.
+        B1 of the checkout at PARENT (unpack it with ``git archive`` into a
+        git-ignored directory) and of this one, in both modes
+        (``default_policy`` at the CLI's shape; RL mode at the chsac_af
+        CLI's shape with the seeded perturbed policy), alternating parent,
+        change, change, parent, each in its own process: us per event.
 """
 
 import json
@@ -687,13 +693,17 @@ def phase_rollouts(report):
         torch.cuda.synchronize()
         b1.event_scan.launches = 0
         b2.arrival_tables.launches = 0
-        t0 = time.perf_counter()
+        walls = []  # each chunk's host wall: the first carries one-time costs
         for c in range(n_chunks):
+            t0 = time.perf_counter()
             pres.append(eng.workload.tables(st, n_steps))
             st, em = eng.run_chunk(st, n_steps, pre=pres[-1])
             ems.append(em)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if c == 0:
+                events_1 = int(st.n_events.sum())
+        wall = sum(walls)
         n_b1, n_b2 = b1.event_scan.launches, b2.arrival_tables.launches
         if n_b1 != n_chunks or n_b2 != n_chunks:
             fail(f"rollouts/{algo}: {n_b1} B1 and {n_b2} B2 launches for "
@@ -734,12 +744,16 @@ def phase_rollouts(report):
                 fail(f"rollouts/{algo}: lane {r} final state differs from the "
                      f"plain engine at {bad[:5]}")
         rate = events / wall
+        rest = (events - events_1) / sum(walls[1:])
         print(f"rollouts/{algo}: R={R} lanes x {n_chunks} chunks of {n_steps} "
               f"steps, {events} events in {wall:.3f} s wall, {rate:.0f} events/s "
-              f"aggregate; B1 and B2 {n_chunks} launches each; every lane "
-              f"bitwise equal to its single-lane run, lanes 0-1 to the plain "
-              f"engine (every chunk, final state)")
+              f"aggregate (chunk walls {[round(w * 1e3, 3) for w in walls]} ms; "
+              f"chunks 2-{n_chunks} {rest:.0f} events/s); B1 and B2 "
+              f"{n_chunks} launches each; every lane bitwise equal to its "
+              f"single-lane run, lanes 0-1 to the plain engine (every chunk, "
+              f"final state)")
         out[algo] = {"R": R, "events": events, "wall_s": wall, "events_per_s": rate,
+                     "chunk_walls_s": walls, "events_per_s_after_chunk_1": rest,
                      "b1_launches": n_b1, "b2_launches": n_b2}
     report["rollouts"] = out
     report["b1"]["max_abs_err"] = max(report["b1"]["max_abs_err"], max_err)
@@ -1967,91 +1981,210 @@ def phase_learning_cli(report, out_root):
 
 # ------------------------------------------------- opt-in studies of B1
 
-B1_PHASES = ("head", "branch", "B3 (2 windows)", "running power + obs",
+#: the instrumented kernel's ``g_prof`` slots: cycles on thread 0 by phase
+#: of an event (the head's four parts, the branches, the RL tail), then
+#: counts (B3 calls, B3 rounds, B3 window walks, forwards)
+B1_PHASES = ("head: slab pass + argmins", "head: dc_tree_sums",
+             "head: scalar (choice, accrual, key split)", "head: progress pass",
+             "finish commit", "drain", "xfer (evict or start plan)", "arrival",
+             "log_tick", "B3 (2 windows)", "running power + obs",
              "masks/costs/record", "forward", "softmax+sample",
-             "commit (route/drain)", "commit (none/xfer)")
+             "commit (route/drain)", "commit (none/xfer)", "event count")
+B1_COUNTS = {20: "B3 calls", 21: "B3 rounds", 22: "B3 window walks",
+             23: "forwards", 24: "B3 listed values"}
+#: parts of a phase, in cycles (not in the total): the RL forward's
+#: barriers of the lane's cluster
+B1_PARTS = {25: "forward: the request's cluster barrier",
+            26: "forward: the layers' cluster barriers",
+            27: "forward: the hidden layers' arithmetic",
+            28: "forward: the request's writes"}
+# the RL step's branch phase goes to the slot of its branch
+_RL_BRANCH_SLOT = ("(branch == EV_FINISH ? 4 : branch == EV_XFER ? 6 : "
+                   "branch == EV_ARRIVAL ? 7 : branch == EV_LOG ? 8 : 16)")
+
+# Anchors of the kernel's phases: (text, text with marks), where @k@ stands
+# for a mark into slot k and @@ for the start of the clock; B3's counts
+# (windows computed, fallback rounds and walks, listed values) written out
+B1_ANCHORS = (
+    ("  __device__ void step(int i) {\n    head(i);\n",
+     "  __device__ void step(int i) {\n@@    head(i);\n"),
+    ("  __device__ void step_rl(int i) {\n    head(i);\n",
+     "  __device__ void step_rl(int i) {\n@@    head(i);\n"),
+    ("    if (lane == 0) atomicMin(&sm.afe[p], fe);\n    bar();\n",
+     "    if (lane == 0) atomicMin(&sm.afe[p], fe);\n    bar();\n@0@"),
+    ("    dc_tree_sums(sm.active, true);\n    jf = argmin_index(",
+     "    dc_tree_sums(sm.active, true);\n@1@    jf = argmin_index("),
+    ("    // job progress over the gap (every slot; running ones advance)\n",
+     "@2@    // job progress over the gap (every slot; running ones advance)\n"),
+    ("      F(JF_UDONE, j) = minimum(F(JF_SIZE, j), F(JF_UDONE, j) + prog);\n"
+     "    }\n    bar();\n  }\n",
+     "      F(JF_UDONE, j) = minimum(F(JF_SIZE, j), F(JF_UDONE, j) + prog);\n"
+     "    }\n    bar();\n@3@  }\n"),
+    ("      if (tid == 0) finish(i);\n      bar();\n"
+     "      drain(I(JI_DC, sm.j_fin), true, -1);\n",
+     "      if (tid == 0) finish(i);\n      bar();\n@4@"
+     "      drain(I(JI_DC, sm.j_fin), true, -1);\n@5@"),
+    ("        bar();\n      } else {  // iteration 0 of the shared drain "
+     "is the xfer start\n        drain(dcj, false, j);\n      }\n",
+     "        bar();\n@6@      } else {  // iteration 0 of the shared "
+     "drain is the xfer start\n        drain(dcj, false, j);\n@5@      }\n"),
+    ("      if (tid == 0) arrival();\n      bar();\n"
+     "    } else if (branch == EV_LOG) {\n      log_tick(i);\n    }\n"
+     "    if (tid == 0) sm.n_events = wadd(sm.n_events, 1);\n",
+     "      if (tid == 0) arrival();\n      bar();\n@7@"
+     "    } else if (branch == EV_LOG) {\n      log_tick(i);\n@8@    }\n"
+     "    if (tid == 0) sm.n_events = wadd(sm.n_events, 1);\n@16@"),
+    ("    tail(i);\n    if (tid == 0 && branch != EV_NOOP)",
+     "@B@    tail(i);\n    if (tid == 0 && branch != EV_NOOP)"),
+    ("    if (tid == 0 && branch != EV_NOOP) sm.n_events = wadd(sm.n_events, 1);\n",
+     "    if (tid == 0 && branch != EV_NOOP) sm.n_events = wadd(sm.n_events, 1);\n@16@"),
+    ("      if (tid < 2) sm.p99_ok[tid] = 1;\n    }\n",
+     "      if (tid < 2) sm.p99_ok[tid] = 1;\n      if (tid == 0) atomicAdd("
+     "&g_prof[20], (unsigned long long)(stale[0] + stale[1]));\n    }\n@9@"),
+    ("    build_obs();\n    bar();\n    if (tid == 0) {\n",
+     "    build_obs();\n    bar();\n@10@    if (tid == 0) {\n"),
+    ("    if (req == REQ_NONE) {\n", "@11@    if (req == REQ_NONE) {\n"),
+    ("    rlk::forward<NT>(*pol, *slice, wsm, obs, act0, act1, logit, cmd, cs, tid);\n",
+     "    rlk::forward<NT>(*pol, *slice, wsm, obs, act0, act1, logit, cmd, cs, tid);\n"
+     "@12@@C23@"),
+    ("                          sm.ka1, pol->greedy, &sm.a_dc, &sm.a_g, tid);\n"
+     "    bar();\n",
+     "                          sm.ka1, pol->greedy, &sm.a_dc, &sm.a_g, tid);\n"
+     "    bar();\n@13@"),
+    ("      write_trace(slot);\n      bar();\n      return;",
+     "      write_trace(slot);\n      bar();\n@14@      return;"),
+    ("    if (sm.flag) write_trace(sm.fin_slot);\n    bar();\n  }",
+     "    if (sm.flag) write_trace(sm.fin_slot);\n    bar();\n@14@  }"),
+    ("                  sm.st_t0, sm.st_pt0, sm.st_tpt0);\n"
+     "      bar();\n      return;",
+     "                  sm.st_t0, sm.st_pt0, sm.st_tpt0);\n"
+     "      bar();\n@15@      return;"),
+    ("    if (cnt == 0) break;  // cannot happen for r_lo < m; a guard\n",
+     "    if (lane == 0) atomicAdd(&g_prof[21], 1ull);\n"
+     "    if (cnt == 0) break;  // cannot happen for r_lo < m; a guard\n"),
+    ("                lane);\n    if (lane == 0) {\n      sc.s_bits[2 * w] = ordered(s_lo);",
+     "                lane);\n    if (lane == 0) atomicAdd(&g_prof[22], 1ull);\n"
+     "    if (lane == 0) {\n      sc.s_bits[2 * w] = ordered(s_lo);"),
+    ("    dense_rows_kp<NT>(P.kp[k], x, true, xs, wsm + S.off[k], bsm + S.boff[k],\n"
+     "                      S.lo[k], S.n[k], out, kp_out, true, cs, tid);\n",
+     "    { long long _b = clock64();\n"
+     "    dense_rows_kp<NT>(P.kp[k], x, true, xs, wsm + S.off[k], bsm + S.boff[k],\n"
+     "                      S.lo[k], S.n[k], out, kp_out, true, cs, tid);\n"
+     "    if (tid == 0 && cg::this_cluster().block_rank() == 0) atomicAdd("
+     "&g_prof[27], (unsigned long long)(clock64() - _b)); }\n"),
+    ("  const int kp0 = P.kp[0];\n  for (int e = tid; e < kp0 * cs; e += NT) {",
+     "  const long long _f0 = clock64();\n"
+     "  const int kp0 = P.kp[0];\n  for (int e = tid; e < kp0 * cs; e += NT) {"),
+    ("  if (tid > 0 && tid < cs) *cl.map_shared_rank(cmd, tid) = CMD_FORWARD;\n"
+     "  cl.sync();\n",
+     "  if (tid > 0 && tid < cs) *cl.map_shared_rank(cmd, tid) = CMD_FORWARD;\n"
+     "  if (tid == 0) atomicAdd(&g_prof[28], (unsigned long long)(clock64() - _f0));\n"
+     "  cl.sync();\n"),
+    ("    cg::this_cluster().sync();\n  }\n  // the heads share their input",
+     "    { long long _b = clock64();\n    cg::this_cluster().sync();\n"
+     "    if (tid == 0 && cg::this_cluster().block_rank() == 0) atomicAdd("
+     "&g_prof[26], (unsigned long long)(clock64() - _b)); }\n  }\n"
+     "  // the heads share their input"),
+    ("                    S.lo[5], S.n[5], logit + 32, 0, false, cs, tid);\n"
+     "  cg::this_cluster().sync();\n",
+     "                    S.lo[5], S.n[5], logit + 32, 0, false, cs, tid);\n"
+     "  { long long _b = clock64();\n  cg::this_cluster().sync();\n"
+     "  if (tid == 0 && cg::this_cluster().block_rank() == 0) atomicAdd("
+     "&g_prof[26], (unsigned long long)(clock64() - _b)); }\n"),
+    ("  cl.sync();\n  forward_cluster<NT>(P, S, wsm, act0, act1, logit, cs, tid);\n",
+     "  { long long _b = clock64();\n  cl.sync();\n"
+     "  if (tid == 0) atomicAdd(&g_prof[25], (unsigned long long)(clock64() - _b)); }\n"
+     "  forward_cluster<NT>(P, S, wsm, act0, act1, logit, cs, tid);\n"),
+    ("    const int n = sc.n_cand[w];\n",
+     "    const int n = sc.n_cand[w];\n"
+     "    if (tid == 0) atomicAdd(&g_prof[24], (unsigned long long)n);\n"),
+)
 
 
 def instrumented_event_scan(src):
-    """``csrc/event_scan.cu`` with per-phase ``clock64`` accumulators in a
-    device array ``g_prof`` (slots 0-8 the phases of ``B1_PHASES``; 12
-    counts B3 calls, 13 its rounds, 14 its window walks, 15 forwards) and
-    entry points to read and reset it.  Exits if an anchor is gone."""
+    """``csrc/event_scan.cu`` with ``clock64`` accumulators on the first
+    thread in a device array ``g_prof`` (slots 0-16 the phases of
+    ``B1_PHASES``, 20-24 the counts of ``B1_COUNTS``, 25-28 the parts of
+    ``B1_PARTS``) and entry points to read and reset it; exits if an
+    anchor of ``B1_ANCHORS`` is gone."""
+
+    def expand(text):
+        out = text
+        for k in B1_COUNTS:
+            out = out.replace(f"@C{k}@", f"    if (tid == 0) atomicAdd(&g_prof[{k}], 1ull);\n")
+        out = out.replace("@@", "    t_mark = clock64();\n")
+        out = out.replace("@B@", "@%s@" % _RL_BRANCH_SLOT)
+        parts = out.split("@")
+        for n in range(1, len(parts), 2):
+            parts[n] = ("    { long long _t = clock64(); if (tid == 0) atomicAdd("
+                        "&g_prof[%s], (unsigned long long)(_t - t_mark)); "
+                        "t_mark = _t; }\n" % parts[n])
+        return "".join(parts)
+
     def rep(old, new):
-        if old not in src:
-            fail(f"instrumenting event_scan.cu: anchor not found: {old!r}")
+        if src.count(old) != 1:
+            fail(f"instrumenting event_scan.cu: anchor found {src.count(old)} "
+                 f"times, not once: {old!r}")
         return src.replace(old, new, 1)
 
-    def mark(k):
-        return ("    { long long _t = clock64(); if (lane == 0) atomicAdd("
-                f"&g_prof[{k}], (unsigned long long)(_t - t_mark)); "
-                "t_mark = _t; }\n")
-
     src = rep('#include "threefry.cuh"\n',
-              '#include "threefry.cuh"\n__device__ unsigned long long g_prof[16];\n')
+              '#include "threefry.cuh"\n__device__ unsigned long long g_prof[32];\n')
     src = rep("  int n_ing;\n};", "  int n_ing;\n  long long t_mark;\n};")
-    src = rep("  __device__ void step_rl(int i) {\n    head(i);\n",
-              "  __device__ void step_rl(int i) {\n    t_mark = clock64();\n"
-              "    head(i);\n" + mark(0))
-    src = rep("    tail(i);\n    if (lane == 0 && branch != EV_NOOP)",
-              mark(1) + "    tail(i);\n    if (lane == 0 && branch != EV_NOOP)")
-    src = rep("      if (lane == 0) sm.p99[w] = v;\n    }\n",
-              "      if (lane == 0) sm.p99[w] = v;\n    }\n" + mark(2))
-    src = rep("    build_obs();\n    __syncwarp();\n    const int req = sm.req_kind",
-              "    build_obs();\n    __syncwarp();\n" + mark(3)
-              + "    const int req = sm.req_kind")
-    src = rep("    if (req == REQ_NONE) {\n", mark(4) + "    if (req == REQ_NONE) {\n")
-    src = rep("    rlk::forward(pol, obs, act0, act1, logit, lane);\n",
-              "    rlk::forward(pol, obs, act0, act1, logit, lane);\n" + mark(5)
-              + "    if (lane == 0) atomicAdd(&g_prof[15], 1ull);\n")
-    src = rep("      sm.a_g = rlk::sample(b0, b1, logp + 32, n_g, pol.greedy);\n"
-              "    }\n    __syncwarp();\n",
-              "      sm.a_g = rlk::sample(b0, b1, logp + 32, n_g, pol.greedy);\n"
-              "    }\n    __syncwarp();\n" + mark(6))
-    src = rep("      write_trace(slot);\n      __syncwarp();\n      return;",
-              "      write_trace(slot);\n      __syncwarp();\n" + mark(7)
-              + "      return;")
-    src = rep("    if (sm.flag) write_trace(sm.fin_slot);\n    __syncwarp();\n  }",
-              "    if (sm.flag) write_trace(sm.fin_slot);\n    __syncwarp();\n"
-              + mark(7) + "  }")
-    src = rep("                  sm.st_t0, sm.st_pt0, sm.st_tpt0);\n"
-              "      __syncwarp();\n      return;",
-              "                  sm.st_t0, sm.st_pt0, sm.st_tpt0);\n"
-              "      __syncwarp();\n" + mark(8) + "      return;")
-    src = rep("  const bool regs = !__any_sync(kAll, over);\n",
-              "  const bool regs = !__any_sync(kAll, over);\n"
-              "  if (!regs && lane == 0) atomicAdd(&g_prof[14], 1ull);\n"
-              "  if (lane == 0) atomicAdd(&g_prof[12], 1ull);\n")
-    src = rep("    cum += cnt;\n    prev = v;\n    first = false;",
-              "    cum += cnt;\n    prev = v;\n    first = false;\n"
-              "    if (lane == 0) atomicAdd(&g_prof[13], 1ull);")
+    for old, new in B1_ANCHORS:
+        src = rep(old, expand(new))
     return src + (
         '\nextern "C" int prof_read(unsigned long long* out) {\n'
         "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n}\n"
-        'extern "C" int prof_reset() {\n  unsigned long long z[16] = {0};\n'
+        'extern "C" int prof_reset() {\n  unsigned long long z[32] = {0};\n'
         "  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n}\n")
 
 
-def study_b1_phases(here):
-    """``--b1-phases``: where B1's RL-mode cycles go.  Builds the
-    instrumented copy of ``event_scan.cu`` into ``smoke_out/b1_phases/``,
-    makes the B1 wrapper launch it, and runs three 4,096-step chunks of the
-    chsac_af CLI's shape from the run's start (``rl_setup``): cycles per
-    event by phase, and B3's call, round and window-walk counts."""
+def _phase_table(label, out, n_steps, wall_ms):
+    tot = sum(out[k] for k in range(len(B1_PHASES)))
+    print(f"{label}: {wall_ms:.1f} ms wall, " + ", ".join(
+        f"{out[k]} {name}" for k, name in B1_COUNTS.items()))
+    rows = {}
+    for k, name in enumerate(B1_PHASES):
+        if out[k]:
+            print(f"   {name:42s} {out[k]:>13d} cycles {100 * out[k] / max(tot, 1):5.1f}%"
+                  f"  per event {out[k] / n_steps:9.0f}")
+        rows[name] = out[k] / n_steps
+    for k, name in B1_PARTS.items():
+        if out[k]:
+            print(f"     of which {name:32s} {out[k]:>13d} cycles  per event "
+                  f"{out[k] / n_steps:9.0f}")
+        rows[name] = out[k] / n_steps
+    print(f"   total {tot} cycles = {tot / n_steps:.0f} per event")
+    return {"cycles_per_event": rows, "total_per_event": tot / n_steps,
+            "counts": {name: out[k] for k, name in B1_COUNTS.items()},
+            "wall_ms": wall_ms}
+
+
+def study_b1_phases(root):
+    """``--b1-phases [CHECKOUT]``: where B1's cycles go, both modes, in the
+    kernel of the checkout at CHECKOUT (default: this one).  Builds the
+    instrumented copy of its ``csrc/event_scan.cu`` into its
+    ``smoke_out/b1_phases/``, makes its B1 wrapper launch it, and runs three
+    4,096-step chunks from the run's start of ``default_policy`` at the
+    CLI's paper-fleet shape, then of the chsac_af CLI's shape
+    (``rl_setup``): cycles per event by phase (thread 0's clock), B3's
+    call, round and window-walk counts; one JSON line at the end."""
     import ctypes
 
     from distributed_cluster_gpus_tpu_torch.kernels import build
     from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
     from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
-    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
 
-    d = os.path.join(here, "smoke_out", "b1_phases")
+    d = os.path.join(root, "smoke_out", "b1_phases")
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(build.CSRC_DIR, "event_scan.cu")) as f:
         src = instrumented_event_scan(f.read())
     with open(os.path.join(d, "event_scan.cu"), "w") as f:
         f.write(src)
-    shutil.copy(os.path.join(build.CSRC_DIR, "threefry.cuh"), d)
+    for h in os.listdir(build.CSRC_DIR):
+        if h.endswith(".cuh"):
+            shutil.copy(os.path.join(build.CSRC_DIR, h), d)
     lib_path = os.path.join(d, "lib.so")
     r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
                         "-o", lib_path, os.path.join(d, "event_scan.cu")],
@@ -2062,38 +2195,82 @@ def study_b1_phases(here):
     lib.prof_read.argtypes = [ctypes.c_void_p]
     build._libs["event_scan"] = lib  # the wrapper declares its entry points
     b1._argtypes = None
-    fleet, params, n_steps, eng, agent = rl_setup()
-    st = with_lane_axis(init_state(params.seed, fleet, params,
-                                   workload=eng.workload, device="cuda"))
-    for c in range(3):
-        pre = eng.workload.tables(st, n_steps)
-        lib.prof_reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        b1.event_scan(eng, st, pre, n_steps, agent.sac)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        eng.workload.advance_carries(st, pre)
-        out = (ctypes.c_ulonglong * 16)()
-        lib.prof_read(ctypes.cast(out, ctypes.c_void_p))
-        tot = sum(out[k] for k in range(len(B1_PHASES)))
-        print(f"chunk {c}: {wall * 1e3:.1f} ms wall, {out[15]} forwards, B3 calls "
-              f"{out[12]} (window walked {out[14]}), rounds {out[13]}, latency "
-              f"counts {st.lat.count.tolist()}")
-        for k, name in enumerate(B1_PHASES):
-            print(f"   {name:24s} {out[k]:>14d} cycles  {100 * out[k] / max(tot, 1):5.1f}%"
-                  f"  per event {out[k] / n_steps:9.0f}")
-        print(f"   total {tot} cycles = {tot / n_steps:.0f} per event")
+    print(f"instrumented {build.CSRC_DIR}/event_scan.cu")
+    fleet, params, n = cli_params("default_policy")
+    runs = [("default_policy", Engine(fleet, params, device="cuda"), fleet,
+             params, n, None)]
+    fleet, params, n, eng, agent = rl_setup()
+    runs.append(("chsac_af", eng, fleet, params, n, agent.sac))
+    result = {}
+    for name, eng, fleet, params, n_steps, sac in runs:
+        st = with_lane_axis(init_state(params.seed, fleet, params,
+                                       workload=eng.workload, device="cuda"))
+        print(f"{name}: {b1.THREADS} threads per lane")
+        for c in range(3):
+            pre = eng.workload.tables(st, n_steps)
+            lib.prof_reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b1.event_scan(eng, st, pre, n_steps, sac)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            eng.workload.advance_carries(st, pre)
+            out = (ctypes.c_ulonglong * 32)()
+            lib.prof_read(ctypes.cast(out, ctypes.c_void_p))
+            result[f"{name} chunk {c}"] = _phase_table(
+                f"{name} chunk {c}", list(out), n_steps, wall)
     print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), "(SM clock, max)")
+    print(json.dumps({"b1_phases": result}))
 
 
-def study_b1_chunk_ms():
-    """``--b1-chunk-ms ROOT`` (the A/B's child process): the heuristic B1
-    kernel of the package at ROOT on the paper fleet as the CLI builds it
-    (``default_policy``), four 4,096-step chunks from the run's start, each
-    timed with CUDA events; one JSON line."""
+AB_MODES = ("default_policy", "chsac_af")
+
+
+def study_b1_chunk_ms(mode):
+    """``--b1-chunk-ms ROOT MODE`` (the A/B's child process): B1 of the
+    package at ROOT, four 4,096-step chunks from the run's start, each timed
+    with CUDA events; MODE ``default_policy`` is the heuristic kernel on the
+    paper fleet as the CLI builds it, ``chsac_af`` the RL mode at the
+    chsac_af CLI's shape with the seeded perturbed policy (``rl_setup``).
+    One JSON line."""
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    build.build(["event_scan"])
+    if mode == "chsac_af":
+        fleet, params, n, eng, agent = rl_setup()
+        sac = agent.sac
+    else:
+        fleet, params, n = cli_params(mode)
+        eng, sac = Engine(fleet, params, device="cuda"), None
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    ms, events = [], []
+    for _ in range(4):
+        pre = eng.workload.tables(st, n)
+        before = int(st.n_events.sum())
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        b1.event_scan(eng, st, pre, n, sac)
+        b.record()
+        b.synchronize()
+        eng.workload.advance_carries(st, pre)
+        ms.append(a.elapsed_time(b))
+        events.append(int(st.n_events.sum()) - before)
+    print(json.dumps({"ms": ms, "events": events, "steps": n}))
+
+
+def study_b1_widths():
+    """``--b1-widths``: B1 of this checkout at every block width it is built
+    for (``BLOCK_WIDTHS``), both modes at the shapes of ``--b1-chunk-ms``,
+    each width from the run's start over four 4,096-step chunks: us per
+    event (the mean of chunks 2-4); one JSON line at the end."""
     from distributed_cluster_gpus_tpu_torch.kernels import build
     from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
     from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
@@ -2101,39 +2278,64 @@ def study_b1_chunk_ms():
 
     build.build(["event_scan"])
     fleet, params, n = cli_params("default_policy")
-    eng = Engine(fleet, params, device="cuda")
-    st = with_lane_axis(init_state(params.seed, fleet, params,
-                                   workload=eng.workload, device="cuda"))
-    ms = []
-    for _ in range(4):
-        pre = eng.workload.tables(st, n)
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        b1.event_scan(eng, st, pre, n)
-        b.record()
-        b.synchronize()
-        eng.workload.advance_carries(st, pre)
-        ms.append(a.elapsed_time(b))
-    print(json.dumps({"ms": ms, "steps": n}))
+    runs = [("default_policy", Engine(fleet, params, device="cuda"), fleet,
+             params, n, None)]
+    fleet, params, n, eng, agent = rl_setup()
+    runs.append(("chsac_af", eng, fleet, params, n, agent.sac))
+    result = {}
+    for name, eng, fleet, params, n_steps, sac in runs:
+        for threads in b1.BLOCK_WIDTHS:
+            st = with_lane_axis(init_state(params.seed, fleet, params,
+                                           workload=eng.workload, device="cuda"))
+            ms, events = [], []
+            for _ in range(4):
+                pre = eng.workload.tables(st, n_steps)
+                before = int(st.n_events.sum())
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                b1.event_scan(eng, st, pre, n_steps, sac, threads=threads)
+                b.record()
+                b.synchronize()
+                eng.workload.advance_carries(st, pre)
+                ms.append(a.elapsed_time(b))
+                events.append(int(st.n_events.sum()) - before)
+            us = statistics.mean(ms[1:]) / statistics.mean(events[1:]) * 1e3
+            print(f"{name} {threads} threads: chunks {[round(m, 3) for m in ms]} ms, "
+                  f"{us:.3f} us/event", flush=True)
+            result[f"{name}/{threads}"] = us
+    print(json.dumps({"b1_widths": result}))
 
 
 def study_b1_ab(parent, change):
-    """``--b1-ab PARENT``: the heuristic B1 kernel of two checkouts, the
-    parent and this one, alternating parent, change, change, parent, each
-    in its own process (``--b1-chunk-ms``): the mean of chunks 2-4."""
-    for name, root in (("parent", parent), ("change", change),
-                       ("change", change), ("parent", parent)):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--b1-chunk-ms", root], cwd=root, capture_output=True,
-                           text=True, timeout=900)
-        if r.returncode != 0:
-            fail(f"B1 A/B: {name} ({root}) failed:\n{r.stderr[-2000:]}")
-        d = json.loads(r.stdout.strip().splitlines()[-1])
-        m = statistics.mean(d["ms"][1:])
-        print(f"{name}: chunks {d['ms']} ms; {m:.3f} ms per {d['steps']}-step "
-              f"chunk ({m / d['steps'] * 1e3:.3f} us/event)", flush=True)
+    """``--b1-ab PARENT``: B1 of two checkouts, the parent and this one, in
+    both modes (``AB_MODES``), alternating parent, change, change, parent,
+    each in its own process (``--b1-chunk-ms``): the mean of chunks 2-4 per
+    run, then per checkout; one JSON line at the end."""
+    result = {}
+    for mode in AB_MODES:
+        per = {"parent": [], "change": []}
+        for name, root in (("parent", parent), ("change", change),
+                           ("change", change), ("parent", parent)):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--b1-chunk-ms", root, mode], cwd=root,
+                               capture_output=True, text=True, timeout=900)
+            if r.returncode != 0:
+                fail(f"B1 A/B: {mode} {name} ({root}) failed:\n{r.stderr[-2000:]}")
+            d = json.loads(r.stdout.strip().splitlines()[-1])
+            m = statistics.mean(d["ms"][1:])
+            ev = statistics.mean(d["events"][1:])
+            per[name].append(m / ev * 1e3)
+            print(f"{mode} {name}: chunks {d['ms']} ms, events {d['events']}; "
+                  f"{m:.3f} ms per {d['steps']}-step chunk ({m / ev * 1e3:.3f} "
+                  f"us/event)", flush=True)
+        p, c = (statistics.mean(per[k]) for k in ("parent", "change"))
+        print(f"{mode}: parent {p:.3f} us/event, change {c:.3f} us/event, "
+              f"change/parent {c / p:.4f}")
+        result[mode] = {"parent_us_per_event": per["parent"],
+                        "change_us_per_event": per["change"], "ratio": c / p}
+    print(json.dumps({"b1_ab": result}))
 
 
 def main():
@@ -2149,17 +2351,22 @@ def main():
     sys.path.insert(0, here)
     args = sys.argv[1:]
     if args:
-        if args == ["--b1-phases"]:
+        if args[0] == "--b1-phases" and len(args) <= 2:
+            root = os.path.abspath(args[1]) if len(args) == 2 else here
+            sys.path.insert(0, root)
             print(card_line())
-            return study_b1_phases(here)
+            return study_b1_phases(root)
+        if args == ["--b1-widths"]:
+            print(card_line())
+            return study_b1_widths()
         if len(args) == 2 and args[0] == "--b1-ab":
             print(card_line())
             return study_b1_ab(os.path.abspath(args[1]), here)
-        if len(args) == 2 and args[0] == "--b1-chunk-ms":
+        if len(args) == 3 and args[0] == "--b1-chunk-ms" and args[2] in AB_MODES:
             sys.path.insert(0, os.path.abspath(args[1]))
-            return study_b1_chunk_ms()
+            return study_b1_chunk_ms(args[2])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
-             "--b1-phases, or --b1-ab PARENT_CHECKOUT")
+             "--b1-phases [CHECKOUT], --b1-widths or --b1-ab PARENT_CHECKOUT")
     report = {}
     card = card_line()
     print(card)

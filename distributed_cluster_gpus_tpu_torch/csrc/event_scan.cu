@@ -24,40 +24,65 @@
 // RL mode (chsac_af, `Lane::step_rl`): the event branches defer routing and
 // the post-finish drain to the policy tail, which runs on every event:
 //   B3 (sim/algos.py:210 `windowed_percentile`, `rlk::windowed_p99`): the
-//       exact linear-interpolation p99 of both latency windows.  The window
-//       lives in shared memory.  A warp bitonic sort of the 32 lane maxima
-//       gives a threshold no larger than the K-th largest value (K = top
-//       `ceil(0.01 W) + 2`, 23 at W = 2048), each lane keeps its few
-//       candidates at or above it in registers, and rounds of warp max +
-//       tie count walk the distinct values down to the two ranks the
-//       interpolation reads (a scan of the window per round when some lane
-//       holds more than 4 candidates).  Bound: the window's bytes, read once.
+//       exact linear-interpolation p99 of both latency windows, recomputed
+//       only for a window a finish appended to since its last p99 (it is a
+//       pure function of the window and its count).  The window lives in
+//       shared memory.  The maxima of the 32 classes j mod 32 (each class
+//       read by one lane of every warp) sorted in a warp give a threshold no
+//       larger than the K-th largest value (K = `ceil(0.01 W) + 2`, 23 at
+//       W = 2048); the values at or above it are compacted into a short
+//       shared list, and each listed value's rank (how many are larger, how
+//       many no smaller) picks out the two order statistics the
+//       interpolation reads.  A list longer than kCand falls back to rounds
+//       of warp max + tie count over the window.  Bound: the window's bytes.
 //   B4 (sim/engine.py:3454 `_tail_head`, :3584 `_policy_tail_planned`,
 //       :1840 `_commit_tail`, with rl/nets.py and rl/sac.py:150): the
 //       observation, the masks, ONE encoder/actor forward when a route or a
 //       drain decision is pending, the Gumbel-max samples, the step's RL
-//       record and the tail commit.  The forward is a warp GEMV: a lane owns
-//       outputs o = lane + 32k and sums its K products by the reference
-//       recipe's halving tree, which it evaluates as pairwise sums over the
-//       inputs in bit-reversed order (the wrapper stores each weight row and
-//       the kernel each activation in that order, padded with zeros to a
-//       power of two).  bf16 operands, exact float32 products, one bf16
-//       rounding before and one after the bias, as rl/nets.py's
-//       `bf16_dense`.  Bound: the 0.43 MB of bf16 weights per decision
-//       (L2-resident here) against 3.35 TB/s; one warp is far below it.
+//       record and the tail commit.  The forward runs on a thread-block
+//       cluster of cs blocks per lane (4 for the published 256-wide
+//       policy): each block keeps ceil(out / cs) rows of every layer's
+//       bf16 weights in its shared memory for the whole launch (read once
+//       from L2: streaming the 429 KB through one SM per decision is bound
+//       at ~10 B per cycle), computes those rows' outputs and writes them
+//       into every block's next activation row over distributed shared
+//       memory; a cluster barrier ends each layer.  Block 0 runs the lane;
+//       the others wait for its forwards (`serve_forwards`).  Where block
+//       0's slab leaves no room for a slice (job_cap over 1,024 at the
+//       published widths), the wrapper clears I_LEAD and blocks 1..cs-1
+//       hold ceil(out / (cs - 1)) rows each.  An output's K = KP products
+//       are summed by the reference recipe's halving tree, which over the
+//       inputs in bit-reversed order (the wrapper stores
+//       each weight row and the kernel each activation in that order,
+//       padded with zeros to a power of two) is the pairwise tree of
+//       contiguous ranges: KP / 16 threads each take 16 contiguous products
+//       and sum them by the tree, and shuffles add the partial sums
+//       pairwise up the same tree.  bf16 operands, exact float32 products,
+//       one bf16 rounding before and one after the bias, as rl/nets.py's
+//       `bf16_dense`.  The two heads' log-softmax and Gumbel-max samples run
+//       on a warp each, one action per lane.  Bound: the 0.43 MB of bf16
+//       weights per decision against 3.35 TB/s.
 //
 // Bound on the card: an event is a chain of dependent steps (three argmins,
 // n_dc tree sums, the branch, a drain loop), each a few hundred cycles of
 // latency, so one lane is latency-bound on one SM; the bytes (the slab in and
 // out once per chunk, ~100 B of emissions per event) and the operations
-// (~20 per slot per event) bound it far below that.  Design: one block of
-// ONE warp per lane (grid = R lanes); the job slab (18 four-byte fields x J)
-// lives in shared memory for the whole launch, the rings [n_dc, 2, Q, 11] in
-// global memory; reductions over J are warp-wide (a lane owns the slots
-// j = lane + 32k) and need no block barrier; the scalar program of an event
-// runs on lane 0 between __syncwarp()s.  Emissions go straight to the
-// preallocated [R, n_steps, ...] buffers; the rest of the state is written
-// back once, at chunk end.  No host read happens inside the chunk.
+// (~20 per slot per event) bound it far below that.  Design: one block of NT
+// threads (a multiple of 32, chosen by the wrapper) per lane (grid = R
+// lanes); the job slab (18 four-byte fields x J) lives in shared memory for
+// the whole launch, the rings [n_dc, 2, Q, 11] in global memory.  The scalar
+// program of an event runs on thread 0 between block barriers (`bar`, a warp
+// barrier when the block is one warp); the passes over the slab run on all
+// NT threads (thread t owns the slots j = t + NT k): the argmins as 32-bit
+// keys in `before`'s total order (`order_key`), reduced by two warp REDUX
+// and one shared 64-bit atomic min per warp (any order of reduction picks
+// the same slot); the DCs' power trees a warp each, in registers
+// (`dc_tree_sums`); the progress pass; the log tick's counts.  In RL mode
+// the lane is a cluster of blocks (B4 above).  The key split runs on three
+// threads of the last warp, the
+// per-DC accrual and cluster rows on a thread each.  Emissions go straight
+// to the preallocated [R, n_steps, ...] buffers; the rest of the state is
+// written back once, at chunk end.  No host read happens inside the chunk.
 //
 // Rounding: built with -fmad=false and IEEE division (-prec-div=true, the
 // default), never fast math.  Each float expression is the plain engine's,
@@ -67,6 +92,7 @@
 // order, and the dc_sum is the reference's fixed halving tree (element i +
 // element i + p/2 at each level, zero-padded to a power of two p).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -83,6 +109,15 @@ constexpr int kMaxF = 32;
 constexpr int kMaxObs = 256;    // widest observation (kernels/event_scan.py)
 constexpr int kMaxWidth = 512;  // widest layer
 constexpr int kNLayers = 6;     // encoder 0-2, actor hidden, DC head, GPU head
+constexpr int kMaxWarps = 8;    // widest block: 256 threads
+constexpr int kCand = 256;      // B3's compacted list, per window
+constexpr int kRed = 8 * kMaxWarps;  // block-reduction scratch (4-byte words)
+constexpr int kRegSlots = 16;   // a DC's power tree in registers up to P = 512
+// an activation row: kMaxWidth values, a pad word after every 16 (`apos`)
+constexpr int kActLen = kMaxWidth + kMaxWidth / 16;
+constexpr int kMaxCluster = 8;  // blocks per lane in RL mode (portable limit)
+// what the lane's block tells its cluster's other blocks
+constexpr int CMD_FORWARD = 1, CMD_EXIT = 2;
 
 constexpr int EV_FINISH = 0, EV_XFER = 1, EV_ARRIVAL = 2, EV_LOG = 3,
               EV_NOOP = 4;
@@ -127,6 +162,7 @@ enum Int {
   I_KDRAIN, I_DEFAULT_F, I_ALGO_JNF, I_PERF_FIRST, I_INF_PRIORITY,
   I_RESERVE, I_MAXGPU, I_FHI, I_FLO, I_SCALE_OUT_LOW,
   I_RL, I_GREEDY, I_OBS_DIM, I_PERC_K, I_WH0, I_WH1, I_WLAT, I_WAH,
+  I_THREADS, I_SUM_WARPS, I_CLUSTER, I_LEAD,
   N_INTS
 };
 
@@ -156,6 +192,12 @@ __constant__ int kJobCol[18] = {JI_STATUS, JI_JTYPE, JI_INGRESS, JI_DC,
 struct Small {
   float t, t_first, next_log_t, dt;
   uint32_t k0, k1, kev0, kev1;
+  uint32_t kc[6];  // the key's children 0, 1 (and 2 under RL)
+  // the head's block argmins (finish, xfer, arrival) as (key << 32 | slot)
+  // and its first EMPTY slot, a set per parity of the event (one is read
+  // while the other is reset for the next event)
+  unsigned long long amin[2][3];
+  int afe[2];
   int jid, started, done, n_events, n_dropped;
   int n_fin[2];
   float units_fin[2];
@@ -185,6 +227,10 @@ struct Small {
   int fin_jt, fin_dcj, fin_slot;
   float fin_soj, fin_over;
   float p99[2];
+  int p99_ok[2];      // p99[w] is that of window w as it stands
+  float tau[2];       // B3: each window's threshold
+  int n_cand[2];      // B3: each window's listed values
+  int s_bits[4];      // B3: the two order statistics of each window (ordered bits)
   int mdc[kMaxDC], mg[kMaxDC];
   int a_dc, a_g;
   int st_on, st_j, st_dcj, st_jt, st_n, st_f, st_newf;
@@ -240,16 +286,13 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kAll, v, off);
-    const int oi = __shfl_xor_sync(kAll, i, off);
-    if (before(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// before()'s order as an unsigned key: NaN first, then the float order with
+// -0 == +0 (ties go to the lower index, which a key carries beside it);
+// +inf maps below 0xffffffff, the key of "no candidate"
+__device__ __forceinline__ uint32_t order_key(float v) {
+  if (isnan(v)) return 0u;
+  const uint32_t u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 template <typename T>
@@ -260,13 +303,19 @@ __device__ __forceinline__ T* lane_ptr(const Args& a, int which, long long n,
 
 // ---------------------------------------------------------------- RL mode:
 // B3 (the windowed p99) and B4's policy (forward, log-softmax, sampling) as
-// warp-level device functions, shared by the event scan and the standalone
-// batched launch `rl_tail_batch_launch`.
+// block-level device functions, shared by the event scan and the standalone
+// batched launch `rl_tail_batch_launch`.  NT is the block's thread count.
 
 namespace rlk {
 
 constexpr float kTiny = 1.17549435e-38f;  // float32's smallest normal
 constexpr float kNegMask = -1e9f;          // rl/nets.py NEG_MASK
+
+template <int NT>
+__device__ __forceinline__ void bar() {
+  if constexpr (NT == 32) __syncwarp();
+  else __syncthreads();
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -290,61 +339,70 @@ __device__ float warp_kth_largest(float v, int k, int lane) {
   return __shfl_sync(kAll, v, k - 1);
 }
 
-// Descending order statistics r_lo >= r_hi (0-based ranks, with ties
-// counted) of buf[0..m), m >= 1, into s_lo / s_hi (all lanes).  The ring
-// holds latencies: finite values.
-__device__ void rank_values(const float* buf, int m, int K, int r_lo, int r_hi,
-                            float& s_lo, float& s_hi, int lane) {
-  float lm = -CUDART_INF_F;
-  for (int j = lane; j < m; j += 32) lm = fmaxf(lm, buf[j]);
-  // no larger than the K-th largest value: K lane maxima lie at or above it
-  const float tau = K <= 32 ? warp_kth_largest(lm, K, lane) : -CUDART_INF_F;
-  constexpr int kC = 4;
-  float c[kC];
-  int nc = 0;
-  bool over = false;
-#pragma unroll
-  for (int q = 0; q < kC; ++q) c[q] = -CUDART_INF_F;
-  for (int j = lane; j < m; j += 32) {
-    const float v = buf[j];
-    if (v >= tau) {
-      if (nc < kC) {
-#pragma unroll
-        for (int q = 0; q < kC; ++q)
-          if (q == nc) c[q] = v;
-        ++nc;
-      } else {
-        over = true;
-      }
-    }
-  }
-  const bool regs = !__any_sync(kAll, over);
+// float order as int order (-0 below +0): the largest of values that compare
+// equal is then a fixed one of them whatever the order of the writes
+__device__ __forceinline__ int ordered(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// What B3 keeps in shared memory: per window, the lanes' maxima [NT], the
+// listed values [kCand], and in `Small`-like scalars the threshold, the
+// list's length and the two order statistics.
+struct P99Scratch {
+  float* lmax;   // [2][NT]
+  float* cand;   // [2][kCand]
+  float* tau;    // [2]
+  int* n_cand;   // [2]
+  int* s_bits;   // [4]: window w's r_lo value at 2w, its r_hi value at 2w + 1
+};
+
+// The ranks of `windowed_percentile(buf, count, 99)`: (lo, hi) 0-based
+// descending ranks with ties counted, clamped to [0, K - 1], and the
+// interpolation weight.
+struct P99Ranks {
+  int m, r_lo, r_hi;
+  float frac;
+};
+
+__device__ __forceinline__ P99Ranks p99_ranks(int count, int W, int K) {
+  P99Ranks q;
+  q.m = count < W ? count : W;
+  const int mf = q.m > 1 ? q.m : 1;
+  const float pos = 0.99f * (float)(mf - 1);
+  const int lo = (int)floorf(pos);
+  const int hi = lo + 1 < mf - 1 ? lo + 1 : mf - 1;
+  q.frac = pos - (float)lo;
+  int r_lo = mf - 1 - lo, r_hi = mf - 1 - hi;
+  q.r_lo = r_lo < 0 ? 0 : (r_lo > K - 1 ? K - 1 : r_lo);
+  q.r_hi = r_hi < 0 ? 0 : (r_hi > K - 1 ? K - 1 : r_hi);
+  return q;
+}
+
+// The fallback for a long list: descending order statistics r_lo >= r_hi of
+// the window's values at or above tau by rounds of warp max + tie count
+// (one warp); into s_lo / s_hi (all lanes).  The ring holds latencies:
+// finite values.
+__device__ void rank_rounds(const float* buf, int m, float tau, int r_lo,
+                            int r_hi, float& s_lo, float& s_hi, int lane) {
   s_lo = s_hi = -CUDART_INF_F;
   float prev = CUDART_INF_F;
   bool first = true;
   int cum = 0;
   for (;;) {
     float v = -CUDART_INF_F;
-    if (regs) {
-#pragma unroll
-      for (int q = 0; q < kC; ++q)
-        if (q < nc && (first || c[q] < prev)) v = fmaxf(v, c[q]);
-    } else {
-      for (int j = lane; j < m; j += 32) {
-        const float x = buf[j];
-        if (x >= tau && (first || x < prev)) v = fmaxf(v, x);
-      }
+    for (int j = lane; j < m; j += 32) {
+      const float x = buf[j];
+      if (x >= tau && (first || x < prev)) v = fmaxf(v, x);
     }
     v = warp_max(v);
     int cnt = 0;
-    if (regs) {
-#pragma unroll
-      for (int q = 0; q < kC; ++q) cnt += (q < nc && c[q] == v) ? 1 : 0;
-    } else {
-      for (int j = lane; j < m; j += 32) {
-        const float x = buf[j];
-        cnt += (x >= tau && x == v) ? 1 : 0;
-      }
+    for (int j = lane; j < m; j += 32) {
+      const float x = buf[j];
+      cnt += (x >= tau && x == v) ? 1 : 0;
     }
     cnt = __reduce_add_sync(kAll, cnt);
     if (cnt == 0) break;  // cannot happen for r_lo < m; a guard
@@ -359,23 +417,106 @@ __device__ void rank_values(const float* buf, int m, int K, int r_lo, int r_hi,
   }
 }
 
-// sim/algos.py `windowed_percentile(buf, count, 99)`: the result in every
-// lane.  The interpolation rounds as the plain version does: the second
+// sim/algos.py `windowed_percentile(buf, count, 99)` of up to two windows at
+// once (window w when `on[w]`), over the whole block; every thread calls it.
+// Window w's result goes to out[w] (written by one thread; read it after a
+// barrier).  The interpolation rounds as the plain version does: the second
 // product fused into the add.
-__device__ float windowed_p99(const float* buf, int count, int W, int K,
-                              int lane) {
-  const int m = count < W ? count : W;
-  const int mf = m > 1 ? m : 1;
-  const float pos = 0.99f * (float)(mf - 1);
-  const int lo = (int)floorf(pos);
-  const int hi = lo + 1 < mf - 1 ? lo + 1 : mf - 1;
-  const float frac = pos - (float)lo;
-  int r_lo = mf - 1 - lo, r_hi = mf - 1 - hi;
-  r_lo = r_lo < 0 ? 0 : (r_lo > K - 1 ? K - 1 : r_lo);
-  r_hi = r_hi < 0 ? 0 : (r_hi > K - 1 ? K - 1 : r_hi);
-  float s_lo = -CUDART_INF_F, s_hi = -CUDART_INF_F;
-  if (m > 0) rank_values(buf, m, K, r_lo, r_hi, s_lo, s_hi, lane);
-  return __fmaf_rn(s_hi, frac, __fmul_rn(s_lo, 1.0f - frac));
+template <int NT>
+__device__ void windowed_p99(const float* const buf[2], const int count[2],
+                             const bool on[2], int W, int K, float* out,
+                             const P99Scratch& sc, int tid) {
+  constexpr int NW = NT / 32;
+  const int lane = tid & 31, warp = tid >> 5;
+  P99Ranks q[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) q[w] = p99_ranks(count[w], W, K);
+  // 1. each thread's maximum over its slots j = tid + NT k
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!on[w]) continue;
+    float lm = -CUDART_INF_F;
+    for (int j = tid; j < q[w].m; j += NT) lm = fmaxf(lm, buf[w][j]);
+    sc.lmax[w * NT + tid] = lm;
+  }
+  if (tid < 2) sc.n_cand[tid] = 0;
+  if (tid < 4) sc.s_bits[tid] = ordered(-CUDART_INF_F);
+  bar<NT>();
+  // 2. the threshold, on warp w (warp 0 for both in a one-warp block): the
+  // K-th largest of the 32 classes' maxima, class l being the slots
+  // j = l (mod 32), which lane l of every warp read
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!on[w] || warp != (NW > 1 ? w : 0)) continue;
+    float cm = -CUDART_INF_F;
+#pragma unroll
+    for (int v = 0; v < NW; ++v) cm = fmaxf(cm, sc.lmax[w * NT + 32 * v + lane]);
+    // no larger than the K-th largest value: K class maxima lie at or above
+    const float tau = K <= 32 ? warp_kth_largest(cm, K, lane) : -CUDART_INF_F;
+    if (lane == 0) sc.tau[w] = tau;
+  }
+  bar<NT>();
+  // 3. the values at or above the threshold into the list (a warp's in one
+  // atomic; the list's order does not matter below)
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!on[w]) continue;
+    const float tau = sc.tau[w];
+    for (int base = 0; base < q[w].m; base += NT) {
+      const int j = base + tid;
+      const float x = j < q[w].m ? buf[w][j] : -CUDART_INF_F;
+      const bool take = j < q[w].m && x >= tau;
+      const unsigned mask = __ballot_sync(kAll, take);
+      if (mask == 0) continue;
+      int at = 0;
+      if (lane == 0) at = atomicAdd(&sc.n_cand[w], __popc(mask));
+      at = __shfl_sync(kAll, at, 0) + __popc(mask & ((1u << lane) - 1u));
+      if (take && at < kCand) sc.cand[w * kCand + at] = x;
+    }
+  }
+  bar<NT>();
+  // 4. the order statistics: value x of the list sits at every descending
+  // rank r with #(> x) <= r < #(>= x); the list holds every value at or
+  // above the threshold, and ranks r_lo, r_hi lie above it
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!on[w] || q[w].m == 0) continue;
+    const int n = sc.n_cand[w];
+    if (n > kCand) continue;  // step 5
+    const float* c = sc.cand + w * kCand;
+    for (int at = tid; at < n; at += NT) {
+      const float x = c[at];
+      int gt = 0, ge = 0;
+      for (int k = 0; k < n; ++k) {
+        const float y = c[k];
+        gt += y > x ? 1 : 0;
+        ge += y >= x ? 1 : 0;
+      }
+      if (gt <= q[w].r_lo && q[w].r_lo < ge) atomicMax(&sc.s_bits[2 * w], ordered(x));
+      if (gt <= q[w].r_hi && q[w].r_hi < ge) atomicMax(&sc.s_bits[2 * w + 1], ordered(x));
+    }
+  }
+  // 5. a list that overflowed: rounds over the window on warp w
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!on[w] || q[w].m == 0 || sc.n_cand[w] <= kCand ||
+        warp != (NW > 1 ? w : 0))
+      continue;
+    float s_lo, s_hi;
+    rank_rounds(buf[w], q[w].m, sc.tau[w], q[w].r_lo, q[w].r_hi, s_lo, s_hi,
+                lane);
+    if (lane == 0) {
+      sc.s_bits[2 * w] = ordered(s_lo);
+      sc.s_bits[2 * w + 1] = ordered(s_hi);
+    }
+  }
+  bar<NT>();
+  if (tid < 2 && on[tid]) {
+    const float s_lo = unordered(sc.s_bits[2 * tid]);
+    const float s_hi = unordered(sc.s_bits[2 * tid + 1]);
+    const float frac = q[tid].frac;
+    out[tid] = __fmaf_rn(s_hi, frac, __fmul_rn(s_lo, 1.0f - frac));
+  }
 }
 
 // ---- the policy forward (rl/nets.py's recipe)
@@ -402,175 +543,364 @@ __device__ __forceinline__ int pow2_at_least(int n) {
   return p;
 }
 
-// One output's K = KP products summed by the halving tree: over the inputs
-// in bit-reversed order the tree is the sum of adjacent pairs, level by
-// level (groups of 16 leaves in registers, then the group sums).  `xs` and
-// `w` are both in that order.
-template <int KP>
-__device__ __forceinline__ float dot_tree(const float* xs, const uint16_t* w) {
-  constexpr int G = KP < 16 ? KP : 16;
-  constexpr int NG = KP / G;
-  const uint4* wv = reinterpret_cast<const uint4*>(w);
-  float gs[NG];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    float p[G];
-#pragma unroll
-    for (int h8 = 0; h8 < G / 8; ++h8) {
-      const uint4 q = __ldg(wv + (g * G) / 8 + h8);
-      const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = g * G + h8 * 8 + 2 * e;
-        p[h8 * 8 + 2 * e] = __fmul_rn(xs[idx], __uint_as_float(u[e] << 16));
-        p[h8 * 8 + 2 * e + 1] =
-            __fmul_rn(xs[idx + 1], __uint_as_float(u[e] & 0xffff0000u));
-      }
-    }
-#pragma unroll
-    for (int h = 1; h < G; h <<= 1)
-#pragma unroll
-      for (int e = 0; e < G; e += 2 * h) p[e] = __fadd_rn(p[e], p[e + h]);
-    gs[g] = p[0];
-  }
-#pragma unroll
-  for (int h = 1; h < NG; h <<= 1)
-#pragma unroll
-    for (int g = 0; g < NG; g += 2 * h) gs[g] = __fadd_rn(gs[g], gs[g + h]);
-  return gs[0];
-}
-
-// One bf16 Dense: xs [KP] (bit-reversed, shared) -> n_out outputs.  With
-// `relu` the outputs go to `out` in the next layer's bit-reversed order over
-// kp_out (zero padding included); without it (the heads) to out[o].
-template <int KP>
-__device__ void dense_t(const float* xs, const uint16_t* W, const uint16_t* b,
-                        int n_out, float* out, int kp_out, bool relu,
-                        int lane) {
-  for (int o = lane; o < n_out; o += 32) {
-    const float acc = dot_tree<KP>(xs, W + (long long)o * KP);
-    const float y = bf16_round(acc);
-    float z = bf16_round(__fadd_rn(y, bf16_bits(b[o])));
-    if (relu) {
-      z = z > 0.0f ? z : 0.0f;
-      out[bitrev(o, kp_out)] = z;
-    } else {
-      out[o] = z;
-    }
-  }
-  if (relu)
-    for (int n = lane; n < kp_out; n += 32)
-      if (bitrev(n, kp_out) >= n_out) out[n] = 0.0f;
-}
-
-__device__ void dense(const float* xs, int kp, const uint16_t* W,
-                      const uint16_t* b, int n_out, float* out, int kp_out,
-                      bool relu, int lane) {
-  switch (kp) {
-    case 8: dense_t<8>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-    case 16: dense_t<16>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-    case 32: dense_t<32>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-    case 64: dense_t<64>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-    case 128: dense_t<128>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-    case 256: dense_t<256>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-    default: dense_t<512>(xs, W, b, n_out, out, kp_out, relu, lane); break;
-  }
-}
+// where activation n sits in its shared row: a pad word after every 16, so
+// the 16 threads of an output, each reading its own 16 contiguous inputs,
+// hit 16 different banks
+__device__ __forceinline__ int apos(int n) { return n + (n >> 4); }
 
 struct Policy {
   const uint16_t* w[kNLayers];
   const uint16_t* b[kNLayers];
-  int in[kNLayers], out[kNLayers];
+  int in[kNLayers], out[kNLayers], kp[kNLayers];
   int greedy;
 };
 
-// Encoder (3 ReLU layers) and actor (ReLU hidden, two heads): the logits of
-// the DC head into logit[0..n_dc) and of the GPU-count head into
-// logit[32..32+n_g).  `obs` [in[0]] float32 in natural order (shared).
-__device__ void forward(const Policy& P, const float* obs, float* act0,
-                        float* act1, float* logit, int lane) {
-  const int kp0 = pow2_at_least(P.in[0]);
-  for (int n = lane; n < kp0; n += 32) {
-    const int r = bitrev(n, kp0);
-    act0[n] = r < P.in[0] ? bf16_round(obs[r]) : 0.0f;
+// The rows of each layer that block `rank` of a cluster of `cs` holds in
+// its shared memory (contiguous, ceil(out / nb) a block, the last blocks
+// fewer), and where each layer's rows start in its slice.  The nb blocks
+// are the whole cluster when `lead` is set, else blocks 1..cs-1: block 0
+// then holds no rows, and its slab takes their place.
+struct Slice {
+  int lo[kNLayers], n[kNLayers];
+  int off[kNLayers];   // where layer k's weight rows start (bf16 elements)
+  int boff[kNLayers];  // where its biases start (floats, after the weights)
+  int elems, belems;   // the slice's weights and biases
+};
+
+__device__ void plan_slice(const Policy& P, int cs, int lead, int rank,
+                           Slice& S) {
+  const int nb = lead ? cs : cs - 1, q = lead ? rank : rank - 1;
+  int off = 0, boff = 0;
+  for (int k = 0; k < kNLayers; ++k) {
+    const int per = (P.out[k] + nb - 1) / nb;
+    const int lo = q < 0 ? P.out[k] : q * per;
+    S.lo[k] = lo < P.out[k] ? lo : P.out[k];
+    S.n[k] = max(0, min(per, P.out[k] - lo));
+    S.off[k] = off;
+    S.boff[k] = boff;
+    off += S.n[k] * P.kp[k];
+    boff += S.n[k];
   }
-  __syncwarp();
-  float* x = act0;
-  float* y = act1;
-  for (int k = 0; k < 4; ++k) {
-    dense(x, pow2_at_least(P.in[k]), P.w[k], P.b[k], P.out[k], y,
-          pow2_at_least(P.out[k]), true, lane);
-    __syncwarp();
-    float* t = x;
-    x = y;
-    y = t;
-  }
-  dense(x, pow2_at_least(P.in[4]), P.w[4], P.b[4], P.out[4], logit, 0, false,
-        lane);
-  dense(x, pow2_at_least(P.in[5]), P.w[5], P.b[5], P.out[5], logit + 32, 0,
-        false, lane);
-  __syncwarp();
+  S.elems = off;
+  S.belems = boff;
 }
 
-// rl/nets.py `masked_log_softmax` over n <= 32 logits (one thread): the
-// infeasible logits at -1e9, the exponentials summed by the halving tree.
-__device__ void masked_log_softmax(const float* logit, const int* mask, int n,
-                                   float* logp) {
-  float x[32], e[32];
-  float m = -CUDART_INF_F;
-  for (int i = 0; i < n; ++i) {
-    x[i] = mask[i] ? logit[i] : kNegMask;
-    m = i == 0 ? x[i] : fmaxf(m, x[i]);
-  }
-  const int p = pow2_at_least(n);
-  for (int i = 0; i < p; ++i) e[i] = i < n ? expf(__fsub_rn(x[i], m)) : 0.0f;
-  for (int half = p >> 1; half >= 1; half >>= 1)
-    for (int i = 0; i < half; ++i) e[i] = __fadd_rn(e[i], e[i + half]);
-  const float lse = logf(e[0]);
-  for (int i = 0; i < n; ++i) logp[i] = __fsub_rn(__fsub_rn(x[i], m), lse);
+// The slice's biases (floats) follow its weights, 16-byte aligned.
+__device__ __forceinline__ float* slice_biases(uint16_t* wsm, const Slice& S) {
+  return reinterpret_cast<float*>(wsm) + (S.elems * 2 + 15) / 16 * 4;
 }
 
-// jax.random.categorical(key, logp) (Gumbel-max over uniform(tiny, 1), the
-// first maximum wins), or the first argmax when greedy (one thread).
-__device__ int sample(uint32_t k0, uint32_t k1, const float* logp, int n,
-                      bool greedy) {
-  int best = 0;
-  float bv = 0.0f;
-  const float span = __fsub_rn(1.0f, kTiny);
-  for (int i = 0; i < n; ++i) {
-    float v = logp[i];
-    if (!greedy) {
-      uint32_t o0, o1;
-      tf::threefry(k0, k1, 0u, (uint32_t)i, o0, o1);
-      const float f = tf::unit_float(o0 ^ o1);
-      const float u = fmaxf(kTiny, __fadd_rn(__fmul_rn(f, span), kTiny));
-      const float g = -logf(-logf(u));
-      v = __fadd_rn(g, logp[i]);
+// This block's slice of the weights and biases into shared memory (every
+// thread).
+template <int NT>
+__device__ void load_slice(const Policy& P, const Slice& S, uint16_t* wsm,
+                           int tid) {
+  float* bsm = slice_biases(wsm, S);
+  for (int k = 0; k < kNLayers; ++k) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(P.w[k] + (long long)S.lo[k] * P.kp[k]);
+    uint4* dst = reinterpret_cast<uint4*>(wsm + S.off[k]);
+    const int n16 = S.n[k] * P.kp[k] / 8;
+    for (int q = tid; q < n16; q += NT) dst[q] = __ldg(src + q);
+    for (int q = tid; q < S.n[k]; q += NT)
+      bsm[S.boff[k] + q] = bf16_bits(P.b[k][S.lo[k] + q]);
+  }
+}
+
+// This block's rows [lo, lo + nr) of one bf16 Dense, from its slice `wsm`,
+// against `xs` [KP] (bit-reversed at `apos`, shared).  An output's KP
+// products, in that order, are summed by the halving tree, which there is
+// the pairwise tree of contiguous ranges: TPO = KP / EPT threads each sum
+// EPT contiguous products by it (the leaves' levels), then shuffles add
+// neighbouring threads' sums (the levels above), every thread of the
+// output ending with the whole sum.  With `relu` output o goes to
+// out[apos(bitrev(o, kp_out))] (the next layer's order) in every block of
+// the cluster; without it to out[o] in block 0's shared memory.
+template <int KP, int NT>
+__device__ void dense_rows(float (&x)[16], bool load_x, const float* xs,
+                           const uint16_t* wsm, const float* bsm, int lo,
+                           int nr, float* out, int kp_out, bool relu, int cs,
+                           int tid) {
+  constexpr int EPT = KP < 16 ? KP : 16;  // products per thread
+  constexpr int TPO = KP / EPT;           // threads per output (<= 32)
+  constexpr int OPP = NT / TPO;           // outputs per pass of the block
+  constexpr int NQ = EPT / 8;             // 16-byte loads per thread
+  constexpr int U = 4;                    // passes in flight
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cl = cg::this_cluster();
+  const int c = tid % TPO, g = tid / TPO;
+  // the thread's inputs, the same for every output of the layer
+  if (load_x)
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) x[e] = xs[apos(c * EPT + e)];
+  for (int base = 0; base < nr; base += U * OPP) {
+    uint4 wq[U][NQ];
+    float bias[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int o = base + u * OPP + g;
+      if (o < nr) {
+        const uint4* wv = reinterpret_cast<const uint4*>(wsm + o * KP + c * EPT);
+#pragma unroll
+        for (int h = 0; h < NQ; ++h) wq[u][h] = wv[h];
+        bias[u] = bsm[o];
+      } else {
+#pragma unroll
+        for (int h = 0; h < NQ; ++h) wq[u][h] = make_uint4(0u, 0u, 0u, 0u);
+        bias[u] = 0.0f;
+      }
     }
-    if (i == 0 || v > bv) {
-      bv = v;
-      best = i;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (base + u * OPP >= nr) break;  // the same for the whole block
+      float p[EPT];
+#pragma unroll
+      for (int h = 0; h < NQ; ++h) {
+        const uint32_t w4[4] = {wq[u][h].x, wq[u][h].y, wq[u][h].z, wq[u][h].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = h * 8 + 2 * e;
+          p[idx] = __fmul_rn(x[idx], __uint_as_float(w4[e] << 16));
+          p[idx + 1] = __fmul_rn(x[idx + 1], __uint_as_float(w4[e] & 0xffff0000u));
+        }
+      }
+#pragma unroll
+      for (int h = 1; h < EPT; h <<= 1)
+#pragma unroll
+        for (int e = 0; e < EPT; e += 2 * h) p[e] = __fadd_rn(p[e], p[e + h]);
+      float sum = p[0];
+#pragma unroll
+      for (int h = 1; h < TPO; h <<= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(kAll, sum, h));
+      // every thread of the output holds the sum: the output goes to
+      // block q from its thread c = q (mod TPO), the stores in parallel
+      const int o = base + u * OPP + g;
+      if (o < nr) {
+        const float y = bf16_round(sum);
+        float z = bf16_round(__fadd_rn(y, bias[u]));
+        if (relu) {
+          z = z > 0.0f ? z : 0.0f;
+          const int at = apos(bitrev(lo + o, kp_out));
+          for (int q = c; q < cs; q += TPO) cl.map_shared_rank(out, q)[at] = z;
+        } else if (c == 0) {
+          cl.map_shared_rank(out, 0)[lo + o] = z;
+        }
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ void dense_rows_kp(int kp, float (&x)[16], bool load_x,
+                              const float* xs, const uint16_t* wsm,
+                              const float* bsm, int lo, int nr, float* out,
+                              int kp_out, bool relu, int cs, int tid) {
+  switch (kp) {
+#define DENSE_CASE(K)                                                       \
+    case K:                                                                 \
+      dense_rows<K, NT>(x, load_x, xs, wsm, bsm, lo, nr, out, kp_out,       \
+                        relu, cs, tid);                                     \
+      break;
+    DENSE_CASE(8) DENSE_CASE(16) DENSE_CASE(32) DENSE_CASE(64)
+    DENSE_CASE(128) DENSE_CASE(256)
+    default: dense_rows<512, NT>(x, load_x, xs, wsm, bsm, lo, nr, out,
+                                 kp_out, relu, cs, tid);
+#undef DENSE_CASE
+  }
+}
+
+// Encoder (3 ReLU layers) and actor (ReLU hidden, two heads) over the
+// cluster: every block computes its slice's rows of each layer from its
+// shared memory, writing each ReLU layer's outputs into every block's next
+// row (act1, act0, ...; bit-reversed at `apos`) and the heads' logits into
+// block 0's logit[0..n_dc) and logit[32..32+n_g); a cluster barrier ends
+// each layer.  The layer's inputs must be in every block's act0 (and the
+// cluster synchronized) when it is called; every thread of every block
+// calls it.  Not inlined: it keeps its own registers (the lane's state is
+// live around the call in block 0) and is built once per block width.
+template <int NT>
+__device__ __noinline__ void forward_cluster(const Policy& P, const Slice& S,
+                                const uint16_t* wsm, float* act0, float* act1,
+                                float* logit, int cs, int tid) {
+  namespace cg = cooperative_groups;
+  const float* bsm = slice_biases(const_cast<uint16_t*>(wsm), S);
+  float x[16];
+  for (int k = 0; k < 4; ++k) {
+    const float* xs = (k & 1) ? act1 : act0;
+    float* out = (k & 1) ? act0 : act1;
+    const int kp_out = P.kp[k + 1];
+    for (int m = tid; m < kp_out; m += NT)
+      if (bitrev(m, kp_out) >= P.out[k]) out[apos(m)] = 0.0f;
+    dense_rows_kp<NT>(P.kp[k], x, true, xs, wsm + S.off[k], bsm + S.boff[k],
+                      S.lo[k], S.n[k], out, kp_out, true, cs, tid);
+    cg::this_cluster().sync();
+  }
+  // the heads share their input (layer 3 wrote act0), and so the registers
+  dense_rows_kp<NT>(P.kp[4], x, true, act0, wsm + S.off[4], bsm + S.boff[4],
+                    S.lo[4], S.n[4], logit, 0, false, cs, tid);
+  dense_rows_kp<NT>(P.kp[5], x, false, act0, wsm + S.off[5], bsm + S.boff[5],
+                    S.lo[5], S.n[5], logit + 32, 0, false, cs, tid);
+  cg::this_cluster().sync();
+}
+
+// The lane's block asks its cluster for one forward: `obs` [in[0]] float32
+// in natural order becomes the first layer's input in every block, every
+// other block is told to run the forward, and the cluster runs it.  Only
+// block 0 calls it (its threads all), while the others wait in
+// `serve_forwards`.
+template <int NT>
+__device__ void forward(const Policy& P, const Slice& S, const uint16_t* wsm,
+                        const float* obs, float* act0, float* act1,
+                        float* logit, int* cmd, int cs, int tid) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cl = cg::this_cluster();
+  const int kp0 = P.kp[0];
+  for (int e = tid; e < kp0 * cs; e += NT) {  // (input n, block q) a thread
+    const int n = e % kp0, q = e / kp0;
+    const int r = bitrev(n, kp0);
+    const float v = r < P.in[0] ? bf16_round(obs[r]) : 0.0f;
+    cl.map_shared_rank(act0, q)[apos(n)] = v;
+  }
+  if (tid > 0 && tid < cs) *cl.map_shared_rank(cmd, tid) = CMD_FORWARD;
+  cl.sync();
+  forward_cluster<NT>(P, S, wsm, act0, act1, logit, cs, tid);
+}
+
+// The other blocks of a lane's cluster: run the forwards block 0 asks for
+// until it says the chunk is over (every thread; block 0 sends the
+// command, then synchronizes the cluster).
+template <int NT>
+__device__ void serve_forwards(const Policy& P, const Slice& S,
+                               const uint16_t* wsm, float* act0, float* act1,
+                               float* logit, const int* cmd, int cs, int tid) {
+  namespace cg = cooperative_groups;
+  for (;;) {
+    cg::this_cluster().sync();
+    if (*cmd == CMD_EXIT) return;
+    forward_cluster<NT>(P, S, wsm, act0, act1, logit, cs, tid);
+  }
+}
+
+// Block 0's last word to its cluster (every thread of block 0).
+template <int NT>
+__device__ void release_cluster(int* cmd, int cs, int tid) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cl = cg::this_cluster();
+  if (tid > 0 && tid < cs) *cl.map_shared_rank(cmd, tid) = CMD_EXIT;
+  cl.sync();
+}
+
+// The policy's layer widths from the launch's integers (thread 0).
+__device__ void policy_from(Policy& P, void* const* w, const int* ints) {
+  const int n_dc = ints[I_NDC], n_g = ints[I_MAXGPU];
+  const int widths[kNLayers + 1] = {ints[I_OBS_DIM], ints[I_WH0], ints[I_WH1],
+                                    ints[I_WLAT],    ints[I_WAH], n_dc, n_g};
+  for (int k = 0; k < kNLayers; ++k) {
+    P.w[k] = reinterpret_cast<const uint16_t*>(w[2 * k]);
+    P.b[k] = reinterpret_cast<const uint16_t*>(w[2 * k + 1]);
+  }
+  for (int k = 0; k < 4; ++k) {
+    P.in[k] = widths[k];
+    P.out[k] = widths[k + 1];
+  }
+  P.in[4] = P.in[5] = widths[4];
+  P.out[4] = n_dc;
+  P.out[5] = n_g;
+  for (int k = 0; k < kNLayers; ++k) P.kp[k] = pow2_at_least(P.in[k]);
+  P.greedy = ints[I_GREEDY];
+}
+
+// One head on one warp (lane i holds action i < n <= 32): rl/nets.py
+// `masked_log_softmax` (the infeasible logits at -1e9, the exponentials
+// summed by the halving tree) into logp[0..n), then
+// jax.random.categorical(split(key)[which], logp) (Gumbel-max over
+// uniform(tiny, 1), the first maximum wins), or the first argmax when
+// greedy.  Returns the action (every lane).
+__device__ int head_sample(const float* logit, const int* mask, int n,
+                           float* logp, uint32_t k0, uint32_t k1,
+                           uint32_t which, bool greedy, int lane) {
+  const bool on = lane < n;
+  const float x = on ? (mask[lane] ? logit[lane] : kNegMask) : -CUDART_INF_F;
+  const float m = warp_max(x);
+  const int p = pow2_at_least(n);
+  float e = on ? expf(__fsub_rn(x, m)) : 0.0f;
+  for (int half = p >> 1; half >= 1; half >>= 1) {
+    const float o = __shfl_down_sync(kAll, e, half);
+    if (lane < half) e = __fadd_rn(e, o);
+  }
+  const float lse = logf(__shfl_sync(kAll, e, 0));
+  const float lp = __fsub_rn(__fsub_rn(x, m), lse);
+  if (on) logp[lane] = lp;
+  float v = lp;
+  if (!greedy) {
+    uint32_t c0, c1, o0, o1;
+    tf::child(k0, k1, which, c0, c1);
+    tf::threefry(c0, c1, 0u, (uint32_t)lane, o0, o1);
+    const float span = __fsub_rn(1.0f, kTiny);
+    const float f = tf::unit_float(o0 ^ o1);
+    const float u = fmaxf(kTiny, __fadd_rn(__fmul_rn(f, span), kTiny));
+    const float gum = -logf(-logf(u));
+    v = __fadd_rn(gum, lp);
+  }
+  // the first maximum: a larger value, or an equal one at a lower index
+  int best = on ? lane : 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kAll, v, off);
+    const int ob = __shfl_xor_sync(kAll, best, off);
+    if (ob < 32 && (best == 32 || ov > v || (ov == v && ob < best))) {
+      v = ov;
+      best = ob;
     }
   }
   return best;
+}
+
+// Both heads: the DC head on warp 0 and the GPU-count head on warp 1 (both
+// on warp 0 in a one-warp block); the actions into *a_dc / *a_g (lane 0 of
+// the warp).  `ka` is the step's action key.  Every thread calls it; read
+// the actions after a barrier.
+template <int NT>
+__device__ void sample_heads(const float* logit, const int* mdc, int n_dc,
+                             const int* mg, int n_g, float* logp, uint32_t ka0,
+                             uint32_t ka1, bool greedy, int* a_dc, int* a_g,
+                             int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  if (warp == 0) {
+    const int a = head_sample(logit, mdc, n_dc, logp, ka0, ka1, 0u, greedy, lane);
+    if (lane == 0) *a_dc = a;
+  }
+  if (warp == (NT > 32 ? 1 : 0)) {
+    const int a = head_sample(logit + 32, mg, n_g, logp + 32, ka0, ka1, 1u,
+                              greedy, lane);
+    if (lane == 0) *a_g = a;
+  }
 }
 
 }  // namespace rlk
 
 }  // namespace
 
+
 namespace {
 
-// Everything one lane's warp needs; every thread holds a copy.
+// Everything one lane's block needs; every thread holds a copy.  NT threads
+// (NW warps); thread `tid` is lane `lane` of warp `warp`.
+template <int NT>
 struct Lane {
+  static constexpr int NW = NT / 32;
   Small& sm;
-  int lane, J, P, n_dc, n_f, Q, W, n_tab, k_drain, default_f, algo_jnf,
-      perf_first, inf_priority, reserve, maxgpu, f_hi, f_lo, scale_out_low;
+  int tid, lane, warp, n_sum;
+  int par;  // the parity of the head's argmin accumulators (sm.amin)
+  int J, P, n_dc, n_f, Q, W, n_tab, k_drain, default_f, algo_jnf, perf_first,
+      inf_priority, reserve, maxgpu, f_hi, f_lo, scale_out_low;
   float end, li;
   int* si;      // [N_JI, J] shared
   float* sf;    // [N_JF, J] shared
   float* vals;  // [P] shared scratch
-  float* scr;   // [P] shared scratch
+  float* scr;   // [n_sum, P] shared scratch: a row per DC-summing warp
+  float* red_v; // [kRed / 2] shared: the value of each warp's argmin
+  int* red_i;   // [kRed / 2] shared: the warps' first EMPTY slots
   float* recs;  // [n_dc, 2, Q, N_REC] global (this lane's)
   float* lat_buf;
   float* em_t;
@@ -586,10 +916,15 @@ struct Lane {
   // RL mode
   int rl, obs_dim, K, n_g;
   float sla_thr, neg_w, sla_ms, inv_kwh;
-  rlk::Policy pol;
+  const rlk::Policy* pol;   // shared
+  const rlk::Slice* slice;  // shared: this block's rows of each layer
+  const uint16_t* wsm;      // shared: those rows' weights
+  int* cmd;                 // shared: the word the cluster's blocks read
+  int cs;                   // blocks in the lane's cluster
+  rlk::P99Scratch p99s;
   float* obs;    // [kMaxObs] shared
-  float* act0;   // [kMaxWidth] shared
-  float* act1;   // [kMaxWidth] shared
+  float* act0;   // [kActLen] shared (at one offset in every block)
+  float* act1;   // [kActLen] shared (likewise)
   float* logit;  // [64] shared: DC head at 0, GPU-count head at 32
   float* logp;   // [64] shared, the same layout
   // the slab's RL trace (global, this lane's rows)
@@ -614,44 +949,103 @@ struct Lane {
 
   __device__ __forceinline__ int& I(int f, int j) { return si[f * J + j]; }
   __device__ __forceinline__ float& F(int f, int j) { return sf[f * J + j]; }
+  __device__ __forceinline__ void bar() { rlk::bar<NT>(); }
 
-  // ------------------------------------------------ warp-wide slab passes
+  // ------------------------------------------------ block-wide slab passes
 
-  // first EMPTY slot, or J when the slab is full (all lanes)
+  // A block argmin in before()'s order of each thread's (key, index,
+  // value): a warp's by two REDUX (the least key, then the least index
+  // with it), then one shared 64-bit atomic min per warp into *acc; the
+  // warp's winning value goes to red_v[s][warp], where the owner of the
+  // block's winner (slot j's thread is j mod NT) left it.  Read both after
+  // a barrier.
+  __device__ __forceinline__ void argmin_post(unsigned long long* acc, int s,
+                                              uint32_t key, int idx, float v) {
+    const uint32_t wk = __reduce_min_sync(kAll, key);
+    const int wj = __reduce_min_sync(kAll, key == wk ? idx : 0x7fffffff);
+    const float wv = __shfl_sync(kAll, v, (wj % NT) & 31);
+    if (lane == 0 && wk != 0xffffffffu) {
+      atomicMin(acc, ((unsigned long long)wk << 32) | (unsigned)wj);
+      red_v[s * kMaxWarps + warp] = wv;
+    }
+  }
+  // the winner of argmin_post's slot s: its index, its value
+  __device__ __forceinline__ int argmin_index(unsigned long long a) {
+    return (int)(unsigned)(a & 0xffffffffu);
+  }
+  __device__ __forceinline__ float argmin_value(int s, int idx) {
+    return red_v[s * kMaxWarps + ((idx % NT) >> 5)];
+  }
+
+  // first EMPTY slot, or J when the slab is full (every thread calls it;
+  // the result is on every thread)
   __device__ int first_empty() {
-    for (int base = 0; base < J; base += 32) {
-      const int j = base + lane;
-      const unsigned m =
-          __ballot_sync(kAll, j < J && I(JI_STATUS, j) == ST_EMPTY);
-      if (m) return base + __ffs(m) - 1;
-    }
-    return J;
-  }
-
-  // Per-DC fixed-tree sums of vals[0..J) into out[d] (all lanes): for each
-  // DC, the values of its slots (zero elsewhere and in the padding to P)
-  // reduced by the reference's halving tree.  Levels with half >= 32 pair
-  // slots of one lane (j and j + half are congruent mod 32); the last five
-  // levels are warp shuffles, element i taking element i + half.  With
-  // `only_dirty`, DCs whose flag in sm.dirty is clear keep their out[d].
-  __device__ void dc_tree_sums(float* out, bool only_dirty) {
-    for (int d = 0; d < n_dc; ++d) {
-      if (only_dirty && !sm.dirty[d]) continue;
-      for (int j = lane; j < P; j += 32)
-        scr[j] = (j < J && I(JI_DC, j) == d) ? vals[j] : 0.0f;
-      for (int half = P >> 1; half >= 32; half >>= 1)
-        for (int j = lane; j < half; j += 32) scr[j] = scr[j] + scr[j + half];
-      float v = lane < P ? scr[lane] : 0.0f;
-      for (int half = (P < 32 ? P : 32) >> 1; half >= 1; half >>= 1) {
-        const float o = __shfl_down_sync(kAll, v, half);
-        if (lane < half) v = v + o;
+    int fe = J;
+    for (int j = tid; j < J; j += NT)
+      if (I(JI_STATUS, j) == ST_EMPTY) {
+        fe = j;
+        break;
       }
-      if (lane == 0) out[d] = v;
-    }
-    __syncwarp();
+    fe = __reduce_min_sync(kAll, fe);
+    if constexpr (NW == 1) return fe;
+    if (lane == 0) red_i[warp] = fe;
+    bar();
+    return __reduce_min_sync(kAll, lane < NW ? red_i[lane] : J);
   }
 
-  // ------------------------------------------------ scalar helpers (lane 0)
+  // Per-DC fixed-tree sums of vals[0..J) into out[d] (every thread calls it,
+  // after a barrier that follows the writes to vals; ends with a barrier):
+  // warp w < n_sum sums DCs w, w + n_sum, ... in its own scratch row.  For
+  // each DC, the values of its slots (zero elsewhere and in the padding to
+  // P) reduced by the reference's halving tree.  Levels with half >= 32
+  // pair slots of one lane (j and j + half are congruent mod 32); the last
+  // five levels are warp shuffles, element i taking element i + half.
+  // With `only_dirty`, DCs whose flag in sm.dirty is clear keep their
+  // out[d].
+  __device__ void dc_tree_sums(float* out, bool only_dirty) {
+    if (warp < n_sum) {
+      for (int d = warp; d < n_dc; d += n_sum) {
+        if (only_dirty && !sm.dirty[d]) continue;
+        float v = P <= 32 * kRegSlots ? dc_lane_sum_regs(d)
+                                      : dc_lane_sum_shared(d, scr + warp * P);
+        for (int half = (P < 32 ? P : 32) >> 1; half >= 1; half >>= 1) {
+          const float o = __shfl_down_sync(kAll, v, half);
+          if (lane < half) v = v + o;
+        }
+        if (lane == 0) out[d] = v;
+      }
+    }
+    bar();
+  }
+
+  // The levels with half >= 32 of DC d's tree, on this lane's elements
+  // j = lane + 32 k: in registers (P <= 32 kRegSlots), element k taking
+  // element k + half / 32 ...
+  __device__ float dc_lane_sum_regs(int d) {
+    const int n = P >> 5;  // elements per lane (0: P < 32, one element)
+    float v[kRegSlots];
+#pragma unroll
+    for (int k = 0; k < kRegSlots; ++k) {
+      const int j = lane + 32 * k;
+      v[k] = (k < (n > 0 ? n : 1) && j < J && I(JI_DC, j) == d) ? vals[j] : 0.0f;
+    }
+#pragma unroll
+    for (int h = kRegSlots / 2; h >= 1; h >>= 1)
+      if (h < n)
+#pragma unroll
+        for (int k = 0; k < h; ++k) v[k] = v[k] + v[k + h];
+    return v[0];
+  }
+  // ... or in this warp's scratch row (a larger slab)
+  __device__ float dc_lane_sum_shared(int d, float* s) {
+    for (int j = lane; j < P; j += 32)
+      s[j] = (j < J && I(JI_DC, j) == d) ? vals[j] : 0.0f;
+    for (int half = P >> 1; half >= 32; half >>= 1)
+      for (int j = lane; j < half; j += 32) s[j] = s[j] + s[j + half];
+    return lane < P ? s[lane] : 0.0f;
+  }
+
+  // ------------------------------------------------ scalar helpers (thread 0)
 
   __device__ int free_for(int dcj, int jt) {
     const int fr = wsub(sm.total[dcj], sm.busy[dcj]);
@@ -705,6 +1099,14 @@ struct Lane {
     } else {
       sm.n_dropped = wadd(sm.n_dropped, 1);
     }
+  }
+
+  // whether _ring_head finds a record to start at dcj (any thread)
+  __device__ bool ring_ready(int dcj) {
+    const int q0 = dcj * 2, q1 = dcj * 2 + 1;
+    const bool has0 = wsub(sm.qtail[q0], sm.qhead[q0]) > 0;
+    const bool has1 = wsub(sm.qtail[q1], sm.qhead[q1]) > 0;
+    return (has0 && free_for(dcj, 0) > 0) || (has1 && free_for(dcj, 1) > 0);
   }
 
   // _ring_head: the head record to start at dcj (into sm.rec); returns jt,
@@ -783,23 +1185,24 @@ struct Lane {
 
   // _drain_queues(masked=True, xfer=...): at most k_drain starts; iteration
   // 0 is the xfer start when xfer_j >= 0; stops at the first iteration that
-  // starts nothing (all lanes)
+  // starts nothing (every thread calls it, after a barrier; it returns after
+  // one, or where no thread has written since the last)
   __device__ void drain(int dcj, bool enabled, int xfer_j) {
     for (int it = 0; it < k_drain; ++it) {
       if (xfer_j >= 0 && it == 0) {
-        __syncwarp();
-        if (lane == 0) {
+        if (tid == 0) {
           float rec[N_REC];
           rec_from_slab(xfer_j, rec);
           start_from_rec(xfer_j, dcj, I(JI_JTYPE, xfer_j), rec);
         }
-        __syncwarp();
+        bar();
         continue;
       }
-      if (!enabled) return;
-      __syncwarp();
+      // nothing to start: the first EMPTY slot is not needed (every thread
+      // reads the same rings and counts)
+      if (!enabled || !ring_ready(dcj)) return;
       const int fe = first_empty();
-      if (lane == 0) {
+      if (tid == 0) {
         bool found;
         const int jt = ring_head(dcj, found);
         const int ok = found && fe < J;
@@ -809,7 +1212,7 @@ struct Lane {
           sm.qhead[dcj * 2 + jt] = wadd(sm.qhead[dcj * 2 + jt], 1);
         }
       }
-      __syncwarp();
+      bar();
       if (!sm.flag) return;
     }
   }
@@ -817,86 +1220,121 @@ struct Lane {
   // ------------------------------------------------ B1a: head + accrual
 
   __device__ void head(int i) {
+    // what thread 0 rewrites below, read by every thread before the barrier
     const float t = sm.t;
-    float bf = CUDART_INF_F, bx = CUDART_INF_F, ba = CUDART_INF_F;
+    const int done0 = sm.done, started0 = sm.started;
+    const float next_log = sm.next_log_t;
+    const int p = par;
+    par ^= 1;
+    // the per-event key split, a child per thread: (key, k_ev) =
+    // split(key), or under RL (key, k_ev, k_act) = split(key, 3)
+    if (warp == NW - 1 && lane < (rl ? 3 : 2)) {
+      uint32_t c0, c1;
+      tf::child(sm.k0, sm.k1, (uint32_t)lane, c0, c1);
+      sm.kc[2 * lane] = c0;
+      sm.kc[2 * lane + 1] = c1;
+    }
+    // each thread's argmins over its slots (ascending: a tie keeps the
+    // first), its first EMPTY slot and the dc_sum input
+    uint32_t kf = 0xffffffffu, kx = 0xffffffffu, ka = 0xffffffffu;
     int jf = 0x7fffffff, jx = 0x7fffffff, ia = 0x7fffffff, fe = J;
-    for (int j = lane; j < J; j += 32) {
+    float bf = CUDART_INF_F, bx = CUDART_INF_F, ba = CUDART_INF_F;
+    for (int j = tid; j < J; j += NT) {
       const int st = I(JI_STATUS, j);
       const bool running = st == ST_RUNNING;
       const float runT = running ? F(JF_SPU, j) : CUDART_INF_F;
       const bool fin_ok = isfinite(runT);
       const float rem = clamp_min(F(JF_SIZE, j) - F(JF_UDONE, j), 0.0f);
       const float tf = fin_ok ? t + fmulp(rem, runT) : CUDART_INF_F;
-      if (before(tf, j, bf, jf)) {
-        bf = tf;
+      const uint32_t k1 = order_key(tf);
+      if (k1 < kf) {
+        kf = k1;
         jf = j;
+        bf = tf;
       }
       const float ta = st == ST_XFER ? F(JF_TAVAIL, j) : CUDART_INF_F;
-      if (before(ta, j, bx, jx)) {
-        bx = ta;
+      const uint32_t k2 = order_key(ta);
+      if (k2 < kx) {
+        kx = k2;
         jx = j;
+        bx = ta;
       }
       if (st == ST_EMPTY && j < fe) fe = j;
       // the dc_sum input: running jobs' cached watts
       vals[j] = running ? F(JF_WATTS, j) : 0.0f;
     }
-    for (int s = lane; s < 2 * n_ing; s += 32) {
+    for (int s = tid; s < 2 * n_ing; s += NT) {
       const float v = sm.next_arr[s];
-      if (before(v, s, ba, ia)) {
-        ba = v;
+      const uint32_t k3 = order_key(v);
+      if (k3 < ka) {
+        ka = k3;
         ia = s;
+        ba = v;
       }
     }
-    warp_argmin(bf, jf);
-    warp_argmin(bx, jx);
-    warp_argmin(ba, ia);
+    argmin_post(&sm.amin[p][0], 0, kf, jf, bf);
+    argmin_post(&sm.amin[p][1], 1, kx, jx, bx);
+    if (warp * 32 < 2 * n_ing) argmin_post(&sm.amin[p][2], 2, ka, ia, ba);
     fe = __reduce_min_sync(kAll, fe);
-    __syncwarp();
+    if (lane == 0) atomicMin(&sm.afe[p], fe);
+    bar();
     // active power per DC: the tree is a pure function of the running slots
     // of that DC, so only a DC whose running set changed since its last
     // sum (a finish or a start there) is summed again
     dc_tree_sums(sm.active, true);
-    if (lane == 0) {
-      for (int d = 0; d < n_dc; ++d) sm.dirty[d] = 0;
-      const float cand[4] = {bf, bx, ba, sm.next_log_t};
-      int kind = 0;
-      float tn = cand[0];
-      for (int k = 1; k < 4; ++k) {
-        if (before(cand[k], k, tn, kind)) {
-          tn = cand[k];
-          kind = k;
-        }
+    jf = argmin_index(sm.amin[p][0]);
+    jx = argmin_index(sm.amin[p][1]);
+    ia = argmin_index(sm.amin[p][2]);
+    bf = argmin_value(0, jf);
+    bx = argmin_value(1, jx);
+    ba = argmin_value(2, ia);
+    fe = sm.afe[p];
+    // the event choice, on every thread from the values read above
+    const float cand[4] = {bf, bx, ba, next_log};
+    int kind = 0;
+    float tn = cand[0];
+    for (int k = 1; k < 4; ++k) {
+      if (before(cand[k], k, tn, kind)) {
+        tn = cand[k];
+        kind = k;
       }
-      const bool past_end = (tn > end) || !isfinite(tn) || sm.done;
-      const float t_adv = past_end ? end : tn;
-      const float dt = clamp_min(t_adv - t, 0.0f);
-      const bool accrue = sm.started && !sm.done;
-      for (int d = 0; d < n_dc; ++d) {
-        const int idle_n = wsub(sm.total[d], sm.busy[d]);
-        const float pw = sm.active[d] + fmulp((float)idle_n, sm.idle_w[d]);
-        sm.powers[d] = pw;
-        const float e_inc = fmulp(pw, dt);
-        const float u_inc = fmulp((float)sm.busy[d], dt);
-        sm.energy[d] = sm.energy[d] + (accrue ? e_inc : 0.0f);
-        sm.util[d] = sm.util[d] + (accrue ? u_inc : 0.0f);
-      }
-      sm.t_first = sm.started ? sm.t_first : t_adv;
+    }
+    const bool past_end = (tn > end) || !isfinite(tn) || done0;
+    const float t_adv = past_end ? end : tn;
+    const float dt = clamp_min(t_adv - t, 0.0f);
+    // the accrual, a DC per thread
+    if (tid < n_dc) {
+      const int d = tid;
+      const bool accrue = started0 && !done0;
+      sm.dirty[d] = 0;
+      const int idle_n = wsub(sm.total[d], sm.busy[d]);
+      const float pw = sm.active[d] + fmulp((float)idle_n, sm.idle_w[d]);
+      sm.powers[d] = pw;
+      const float e_inc = fmulp(pw, dt);
+      const float u_inc = fmulp((float)sm.busy[d], dt);
+      sm.energy[d] = sm.energy[d] + (accrue ? e_inc : 0.0f);
+      sm.util[d] = sm.util[d] + (accrue ? u_inc : 0.0f);
+    }
+    if (tid == 0) {
+      // the other parity's accumulators, for the next event
+      for (int k = 0; k < 3; ++k) sm.amin[p ^ 1][k] = ~0ull;
+      sm.afe[p ^ 1] = 0x7fffffff;
+      sm.t_first = started0 ? sm.t_first : t_adv;
       sm.t = t_adv;
       sm.dt = dt;
       sm.started = 1;
-      sm.done = sm.done || past_end;
-      const int branch = sm.done ? EV_NOOP : kind;
+      const int done = done0 || past_end;
+      sm.done = done;
+      const int branch = done ? EV_NOOP : kind;
       sm.branch = branch;
-      // the per-event key split: (key, k_ev) = split(key), or under RL
-      // (key, k_ev, k_act) = split(key, 3)
-      uint32_t n0, n1, e0, e1;
-      tf::child(sm.k0, sm.k1, 0u, n0, n1);
-      tf::child(sm.k0, sm.k1, 1u, e0, e1);
-      if (rl) tf::child(sm.k0, sm.k1, 2u, sm.ka0, sm.ka1);
-      sm.k0 = n0;
-      sm.k1 = n1;
-      sm.kev0 = e0;
-      sm.kev1 = e1;
+      sm.k0 = sm.kc[0];
+      sm.k1 = sm.kc[1];
+      sm.kev0 = sm.kc[2];
+      sm.kev1 = sm.kc[3];
+      if (rl) {
+        sm.ka0 = sm.kc[4];
+        sm.ka1 = sm.kc[5];
+      }
       em_t[i] = t_adv;
       if (branch != EV_NOOP) em_branch[i] = branch;
       sm.j_fin = jf;
@@ -906,22 +1344,20 @@ struct Lane {
       sm.slot = fe < J ? fe : 0;
       sm.can = free_for(I(JI_DC, jx), I(JI_JTYPE, jx)) > 0;
     }
-    __syncwarp();
     // job progress over the gap (every slot; running ones advance)
-    const float dt = sm.dt;
-    for (int j = lane; j < J; j += 32) {
+    for (int j = tid; j < J; j += NT) {
       const bool running = I(JI_STATUS, j) == ST_RUNNING;
       const float runT = running ? F(JF_SPU, j) : CUDART_INF_F;
       const bool fin_ok = isfinite(runT);
       const float prog = fin_ok ? dt / (fin_ok ? runT : 1.0f) : 0.0f;
       F(JF_UDONE, j) = minimum(F(JF_SIZE, j), F(JF_UDONE, j) + prog);
     }
-    __syncwarp();
+    bar();
   }
 
   // ------------------------------------------------ B1b: planners + commit
 
-  __device__ void finish(int i) {  // lane 0
+  __device__ void finish(int i) {  // thread 0
     const int j = sm.j_fin;
     const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
     const float t = sm.t;
@@ -958,6 +1394,7 @@ struct Lane {
       if (sm.busy[d] < 0) sm.busy[d] = 0;
     sm.acc[dcj] = sm.acc[dcj] + acc;
     lat_buf[jt * W + sm.lat_ptr[jt]] = soj;
+    sm.p99_ok[jt] = 0;
     sm.lat_count[jt] = wadd(sm.lat_count[jt], 1);
     sm.lat_ptr[jt] = iremainder(wadd(sm.lat_ptr[jt], 1), W);
     sm.n_fin[jt] = wadd(sm.n_fin[jt], 1);
@@ -965,7 +1402,7 @@ struct Lane {
     if (rl) rl_valid[j] = 0;
   }
 
-  __device__ void arrival() {  // lane 0
+  __device__ void arrival() {  // thread 0
     const int s = sm.a_idx;  // stream = ingress * 2 + jtype
     const int ing = s >> 1, jt = s & 1;
     const float t = sm.t;
@@ -1016,16 +1453,22 @@ struct Lane {
   // ------------------------------------------------ B1e: the log tick
 
   __device__ void log_tick(int i) {
-    for (int j = lane; j < J; j += 32) {
+    for (int j = tid; j < J; j += NT) {
       const bool running = I(JI_STATUS, j) == ST_RUNNING;
       const float tpt = running ? 1.0f / F(JF_SPU, j) : 0.0f;
       vals[j] = fmulp(tpt, li);
     }
-    __syncwarp();
+    if (tid < n_dc) {
+      sm.run_tot[tid] = 0;
+      sm.run_inf[tid] = 0;
+    }
+    bar();
     dc_tree_sums(sm.red, false);
+    // running jobs per DC: a warp's counts, then the warps' added (integers:
+    // any order)
     for (int d = 0; d < n_dc; ++d) {
       int c_tot = 0, c_inf = 0;
-      for (int j = lane; j < J; j += 32) {
+      for (int j = tid; j < J; j += NT) {
         if (I(JI_DC, j) == d && I(JI_STATUS, j) == ST_RUNNING) {
           ++c_tot;
           if (I(JI_JTYPE, j) == 0) ++c_inf;
@@ -1033,73 +1476,73 @@ struct Lane {
       }
       c_tot = __reduce_add_sync(kAll, c_tot);
       c_inf = __reduce_add_sync(kAll, c_inf);
-      if (lane == 0) {
-        sm.run_tot[d] = c_tot;
-        sm.run_inf[d] = c_inf;
+      if (lane == 0 && c_tot > 0) {
+        atomicAdd(&sm.run_tot[d], c_tot);
+        atomicAdd(&sm.run_inf[d], c_inf);
       }
     }
-    __syncwarp();
-    if (lane == 0) {
+    bar();
+    // a DC's cluster row per thread
+    if (tid < n_dc) {
+      const int d = tid;
       const float t = sm.t;
       const float elapsed = clamp_min(t - sm.t_first, 1e-9f);
       const float inv_1000 = 1.0f / 1000.0f;
-      for (int d = 0; d < n_dc; ++d) {
-        sm.acc[d] = sm.acc[d] + sm.red[d];
-        const int busy = sm.busy[d], total = sm.total[d];
-        float* row = em_cluster + ((long long)i * n_dc + d) * kClusterCols;
-        row[0] = t;
-        row[1] = sm.freq[sm.cur_f[d]];
-        row[2] = (float)busy;
-        row[3] = (float)wsub(total, busy);
-        row[4] = (float)sm.run_tot[d];
-        row[5] = (float)sm.run_inf[d];
-        row[6] = (float)wsub(sm.run_tot[d], sm.run_inf[d]);
-        row[7] = (float)wsub(sm.qtail[2 * d], sm.qhead[2 * d]);
-        row[8] = (float)wsub(sm.qtail[2 * d + 1], sm.qhead[2 * d + 1]);
-        row[9] = (float)busy * sm.inv_total[d];
-        row[10] = sm.util[d] / ((float)total * elapsed);
-        row[11] = sm.acc[d];
-        row[12] = sm.powers[d];
-        row[13] = sm.energy[d] * inv_1000;
-      }
-      sm.next_log_t = sm.next_log_t + li;
+      sm.acc[d] = sm.acc[d] + sm.red[d];
+      const int busy = sm.busy[d], total = sm.total[d];
+      float* row = em_cluster + ((long long)i * n_dc + d) * kClusterCols;
+      row[0] = t;
+      row[1] = sm.freq[sm.cur_f[d]];
+      row[2] = (float)busy;
+      row[3] = (float)wsub(total, busy);
+      row[4] = (float)sm.run_tot[d];
+      row[5] = (float)sm.run_inf[d];
+      row[6] = (float)wsub(sm.run_tot[d], sm.run_inf[d]);
+      row[7] = (float)wsub(sm.qtail[2 * d], sm.qhead[2 * d]);
+      row[8] = (float)wsub(sm.qtail[2 * d + 1], sm.qhead[2 * d + 1]);
+      row[9] = (float)busy * sm.inv_total[d];
+      row[10] = sm.util[d] / ((float)total * elapsed);
+      row[11] = sm.acc[d];
+      row[12] = sm.powers[d];
+      row[13] = sm.energy[d] * inv_1000;
     }
-    __syncwarp();
+    if (tid == 0) sm.next_log_t = sm.next_log_t + li;
+    bar();
   }
 
   // ------------------------------------------------ one event
 
+  // Every branch ends with a barrier after its last shared write (or writes
+  // nothing after the head's), so the next head reads a settled state.
   __device__ void step(int i) {
     head(i);
     const int branch = sm.branch;
     if (branch == EV_NOOP) return;
     if (branch == EV_FINISH) {
-      if (lane == 0) finish(i);
-      __syncwarp();
+      if (tid == 0) finish(i);
+      bar();
       drain(I(JI_DC, sm.j_fin), true, -1);
     } else if (branch == EV_XFER) {
       const int j = sm.j_x;
       const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
       if (!sm.can) {  // queue-on-full: evict the row into the ring
-        __syncwarp();
-        if (lane == 0) {
+        if (tid == 0) {
           float rec[N_REC];
           rec_from_slab(j, rec);
           I(JI_STATUS, j) = ST_EMPTY;
           ring_push(dcj, jt, rec);
         }
-        __syncwarp();
+        bar();
       } else {  // iteration 0 of the shared drain is the xfer start
         drain(dcj, false, j);
       }
     } else if (branch == EV_ARRIVAL) {
-      if (lane == 0) arrival();
-      __syncwarp();
+      if (tid == 0) arrival();
+      bar();
     } else if (branch == EV_LOG) {
       log_tick(i);
     }
-    if (lane == 0) sm.n_events = wadd(sm.n_events, 1);
-    __syncwarp();
+    if (tid == 0) sm.n_events = wadd(sm.n_events, 1);
   }
 
   // ------------------------------------------------ RL mode (chsac_af)
@@ -1114,7 +1557,7 @@ struct Lane {
   }
 
   // _chsac_nf: n = clamp(a_g + 1, 1, min(free, cap)), f = the first energy
-  // argmin at that n (lane 0)
+  // argmin at that n (thread 0)
   __device__ void chsac_nf(int dcj, int jt, int free, int a_g, int& n,
                            int& f) {
     const int cap = free < maxgpu ? free : maxgpu;
@@ -1134,7 +1577,7 @@ struct Lane {
   }
 
   // `_commit_tail`'s start: clamp to free, refresh the cached physics,
-  // stamp the start / close a preemption wait (lane 0)
+  // stamp the start / close a preemption wait (thread 0)
   __device__ void start_req(int j, int dcj, int jt, int n_d, int f_d,
                             int new_f, float t_start0, float pt0,
                             float tpt0) {
@@ -1158,16 +1601,17 @@ struct Lane {
   }
 
   // the finish branch's partial transition (`_plan_finish`'s chsac record),
-  // read before the commit retires the row
+  // read before the commit retires the row (every thread; the scalars on
+  // thread 0)
   __device__ void fin_record(int i) {
     const int j = sm.j_fin;
-    for (int k = lane; k < obs_dim; k += 32)
+    for (int k = tid; k < obs_dim; k += NT)
       e_s0[(long long)i * obs_dim + k] = rl_obs0[(long long)j * obs_dim + k];
-    for (int d = lane; d < n_dc; d += 32)
+    for (int d = tid; d < n_dc; d += NT)
       e_mdc0[(long long)i * n_dc + d] = rl_mdc0[(long long)j * n_dc + d];
-    for (int g = lane; g < n_g; g += 32)
+    for (int g = tid; g < n_g; g += NT)
       e_mg0[(long long)i * n_g + g] = rl_mg0[(long long)j * n_g + g];
-    if (lane == 0) {
+    if (tid == 0) {
       const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
       const int q = dcj * 2 + jt;
       const float Ep = F(JF_SPU, j) * F(JF_WATTS, j);
@@ -1199,7 +1643,8 @@ struct Lane {
   }
 
   // chsac arrival planner: the pregenerated draw, no routing (the tail
-  // routes), the XFER placeholder row (DC 0, t_avail inf) or a drop (lane 0)
+  // routes), the XFER placeholder row (DC 0, t_avail inf) or a drop
+  // (thread 0)
   __device__ void arrival_rl() {
     const int s = sm.a_idx;
     const int ing = s >> 1, jt = s & 1;
@@ -1238,10 +1683,11 @@ struct Lane {
   }
 
   // rl_obs: [t as a fraction of the day] + per DC [log1p(total)/7,
-  // busy/total, free/total, f, log1p(q_inf)/4, log1p(q_trn)/4] (all lanes)
+  // busy/total, free/total, f, log1p(q_inf)/4, log1p(q_trn)/4] (every
+  // thread)
   __device__ void build_obs() {
     const float inv7 = 1.0f / 7.0f, inv_day = 1.0f / 86400.0f;
-    for (int k = lane; k < obs_dim; k += 32) {
+    for (int k = tid; k < obs_dim; k += NT) {
       float v;
       if (k == 0) {
         v = tmod(sm.t, 86400.0f) * inv_day;
@@ -1259,38 +1705,42 @@ struct Lane {
     }
   }
 
-  // the RL trace of slot j <- this step's (obs, action, masks) (all lanes)
+  // the RL trace of slot j <- this step's (obs, action, masks) (every
+  // thread)
   __device__ void write_trace(int j) {
-    for (int k = lane; k < obs_dim; k += 32)
+    for (int k = tid; k < obs_dim; k += NT)
       rl_obs0[(long long)j * obs_dim + k] = obs[k];
-    for (int d = lane; d < n_dc; d += 32)
+    for (int d = tid; d < n_dc; d += NT)
       rl_mdc0[(long long)j * n_dc + d] = (uint8_t)sm.mdc[d];
-    for (int g = lane; g < n_g; g += 32)
+    for (int g = tid; g < n_g; g += NT)
       rl_mg0[(long long)j * n_g + g] = (uint8_t)sm.mg[g];
-    if (lane == 0) {
+    if (tid == 0) {
       rl_adc[j] = sm.a_dc;
       rl_ag[j] = sm.a_g;
       rl_valid[j] = 1;
     }
   }
 
-  // the policy tail (`_tail_head` + `_policy_tail_planned` + `_commit_tail`)
+  // the policy tail (`_tail_head` + `_policy_tail_planned` + `_commit_tail`);
+  // every thread calls it after a barrier; it ends with one
   __device__ void tail(int i) {
-    // B3: both windows' p99
-    for (int w = 0; w < 2; ++w) {
-      const float v = rlk::windowed_p99(lat_buf + w * W, sm.lat_count[w], W,
-                                        K, lane);
-      if (lane == 0) sm.p99[w] = v;
+    const int req = sm.req_kind, req_idx = sm.req_idx;
+    // B3: the p99 of a window whose contents changed since its last p99
+    const bool stale[2] = {!sm.p99_ok[0], !sm.p99_ok[1]};
+    if (stale[0] || stale[1]) {
+      const float* bufs[2] = {lat_buf, lat_buf + W};
+      const int counts[2] = {sm.lat_count[0], sm.lat_count[1]};
+      rlk::windowed_p99<NT>(bufs, counts, stale, W, K, sm.p99, p99s, tid);
+      if (tid < 2) sm.p99_ok[tid] = 1;
     }
     // the running power of DCs whose running set changed (for P_now)
-    for (int j = lane; j < J; j += 32)
+    for (int j = tid; j < J; j += NT)
       vals[j] = I(JI_STATUS, j) == ST_RUNNING ? F(JF_WATTS, j) : 0.0f;
-    __syncwarp();
+    bar();
     dc_tree_sums(sm.active, true);
     build_obs();
-    __syncwarp();
-    const int req = sm.req_kind, req_idx = sm.req_idx;
-    if (lane == 0) {
+    bar();
+    if (tid == 0) {
       for (int d = 0; d < n_dc; ++d) sm.dirty[d] = 0;
       // masks: the inference reserve shrinks every free count when the
       // pending decision concerns a training job
@@ -1334,49 +1784,42 @@ struct Lane {
       c[2] = sm.fin_over;
       c[3] = e_sum;
     }
-    __syncwarp();
-    for (int k = lane; k < obs_dim; k += 32)
+    bar();
+    for (int k = tid; k < obs_dim; k += NT)
       e_s1[(long long)i * obs_dim + k] = obs[k];
-    for (int d = lane; d < n_dc; d += 32)
+    for (int d = tid; d < n_dc; d += NT)
       e_mdc[(long long)i * n_dc + d] = (uint8_t)sm.mdc[d];
-    for (int g = lane; g < n_g; g += 32)
+    for (int g = tid; g < n_g; g += NT)
       e_mg[(long long)i * n_g + g] = (uint8_t)sm.mg[g];
     if (req == REQ_NONE) {
       // the xfer branch's start rides this commit
-      if (lane == 0 && sm.st_on)
+      if (tid == 0 && sm.st_on)
         start_req(sm.st_j, sm.st_dcj, sm.st_jt, sm.st_n, sm.st_f, sm.st_newf,
                   sm.st_t0, sm.st_pt0, sm.st_tpt0);
-      __syncwarp();
+      bar();
       return;
     }
     // B4: one forward and the two samples (only when the action is used)
-    rlk::forward(pol, obs, act0, act1, logit, lane);
-    if (lane == 0) {
-      rlk::masked_log_softmax(logit, sm.mdc, n_dc, logp);
-      rlk::masked_log_softmax(logit + 32, sm.mg, n_g, logp + 32);
-      uint32_t a0, a1, b0, b1;
-      tf::child(sm.ka0, sm.ka1, 0u, a0, a1);
-      tf::child(sm.ka0, sm.ka1, 1u, b0, b1);
-      sm.a_dc = rlk::sample(a0, a1, logp, n_dc, pol.greedy);
-      sm.a_g = rlk::sample(b0, b1, logp + 32, n_g, pol.greedy);
-    }
-    __syncwarp();
+    rlk::forward<NT>(*pol, *slice, wsm, obs, act0, act1, logit, cmd, cs, tid);
+    rlk::sample_heads<NT>(logit, sm.mdc, n_dc, sm.mg, n_g, logp, sm.ka0,
+                          sm.ka1, pol->greedy, &sm.a_dc, &sm.a_g, tid);
+    bar();
     const int a_dc = sm.a_dc;
     if (req == REQ_ROUTE) {
       const int slot = req_idx;
-      if (lane == 0) {
+      if (tid == 0) {
         const int jt_s = I(JI_JTYPE, slot), ing_s = I(JI_INGRESS, slot);
         I(JI_DC, slot) = a_dc;
         F(JF_TAVAIL, slot) = sm.t + transfer[(ing_s * n_dc + a_dc) * 2 + jt_s];
         F(JF_NETLAT, slot) = netlat[ing_s * n_dc + a_dc];
       }
       write_trace(slot);
-      __syncwarp();
+      bar();
       return;
     }
     // REQ_DRAIN: the finishing DC's ring head, re-materialized into the
     // slot the finish freed and started where the policy sends it
-    if (lane == 0) {
+    if (tid == 0) {
       const int dcj = req_idx;
       bool found;
       const int jt_sel = ring_head(dcj, found);
@@ -1403,9 +1846,9 @@ struct Lane {
         sm.qhead[dcj * 2 + jt_sel] = wadd(sm.qhead[dcj * 2 + jt_sel], 1);
       }
     }
-    __syncwarp();
+    bar();
     if (sm.flag) write_trace(sm.fin_slot);
-    __syncwarp();
+    bar();
   }
 
   // one chsac_af event: the branches defer routing and the post-finish
@@ -1413,7 +1856,9 @@ struct Lane {
   __device__ void step_rl(int i) {
     head(i);
     const int branch = sm.branch;
-    if (lane == 0) {
+    // thread 0 resets the step's request, then runs its branch's scalar
+    // part; the tail reads both after its first barrier
+    if (tid == 0) {
       sm.req_kind = REQ_NONE;
       sm.req_idx = 0;
       sm.fin_jt = 0;
@@ -1423,18 +1868,16 @@ struct Lane {
       sm.fin_over = 0.0f;
       sm.st_on = 0;
     }
-    __syncwarp();
     if (branch == EV_FINISH) {
       fin_record(i);
-      __syncwarp();
-      if (lane == 0) {
+      if (tid == 0) {
         finish(i);
         sm.req_kind = REQ_DRAIN;
         sm.req_idx = sm.fin_dcj;
       }
-      __syncwarp();
+      bar();
     } else if (branch == EV_XFER) {
-      if (lane == 0) {
+      if (tid == 0) {
         const int j = sm.j_x;
         const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
         if (!sm.can) {  // queue-on-full: evict the row into the ring
@@ -1457,27 +1900,28 @@ struct Lane {
           sm.st_tpt0 = F(JF_TPT, j);
         }
       }
-      __syncwarp();
+      bar();
     } else if (branch == EV_ARRIVAL) {
-      if (lane == 0) arrival_rl();
-      __syncwarp();
+      if (tid == 0) arrival_rl();
+      bar();
     } else if (branch == EV_LOG) {
       log_tick(i);
+    } else {  // the run's end: the tail reads the reset request
+      bar();
     }
     tail(i);
-    if (lane == 0 && branch != EV_NOOP) sm.n_events = wadd(sm.n_events, 1);
-    __syncwarp();
+    if (tid == 0 && branch != EV_NOOP) sm.n_events = wadd(sm.n_events, 1);
   }
 
   // a step after the end: the same record as the step that reached it
   __device__ void copy_record(int src, int dst) {
-    for (int k = lane; k < obs_dim; k += 32)
+    for (int k = tid; k < obs_dim; k += NT)
       e_s1[(long long)dst * obs_dim + k] = e_s1[(long long)src * obs_dim + k];
-    for (int d = lane; d < n_dc; d += 32)
+    for (int d = tid; d < n_dc; d += NT)
       e_mdc[(long long)dst * n_dc + d] = e_mdc[(long long)src * n_dc + d];
-    for (int g = lane; g < n_g; g += 32)
+    for (int g = tid; g < n_g; g += NT)
       e_mg[(long long)dst * n_g + g] = e_mg[(long long)src * n_g + g];
-    if (lane < 4) e_costs[(long long)dst * 4 + lane] = e_costs[(long long)src * 4 + lane];
+    if (tid < 4) e_costs[(long long)dst * 4 + tid] = e_costs[(long long)src * 4 + tid];
   }
 
   int n_ing;
@@ -1488,20 +1932,61 @@ struct Lane {
 namespace {
 
 // kRL: chsac_af's RL mode.  A separate instantiation, so the heuristic
-// kernel carries none of the RL code's registers or stack.
-template <bool kRL>
-__global__ void __launch_bounds__(32)
+// kernel carries none of the RL code's registers or stack; NT: the block's
+// threads (the wrapper's choice, one of kernel_of's below).
+template <bool kRL, int NT>
+__global__ void __launch_bounds__(NT)
     event_scan_kernel(const Args a) {
-  extern __shared__ float dyn[];
+  extern __shared__ __align__(16) float dyn[];
   __shared__ Small sm;
-  const int r = blockIdx.x;
-  const int lane = threadIdx.x;
+  __shared__ rlk::Policy pol;
+  __shared__ rlk::Slice slice;
+  const int tid = threadIdx.x;
+  // RL mode: a cluster of cs blocks per lane; block 0 runs the lane, the
+  // others hold their slices of the policy's weights and serve its forwards
+  const int cs = kRL ? a.i[I_CLUSTER] : 1;
+  const int r = blockIdx.x / cs;
   const int J = a.i[I_J], P = a.i[I_P], n_dc = a.i[I_NDC];
   const int n_ing = a.i[I_NING], S = 2 * n_ing, n_f = a.i[I_NF];
   const int Q = a.i[I_Q], W = a.i[I_W], n_tab = a.i[I_NTAB];
   const int n_steps = a.i[I_NSTEPS], n_cap = a.i[I_NCAP];
-  Lane L{sm};
-  L.lane = lane;
+  Lane<NT> L{sm};
+  L.tid = tid;
+  L.lane = tid & 31;
+  L.warp = tid >> 5;
+  L.par = 0;
+  L.n_sum = a.i[I_SUM_WARPS];
+  float* base = dyn;  // the slab, after the cluster's rows in RL mode
+  if constexpr (kRL) {
+    namespace cg = cooperative_groups;
+    const int rank = (int)cg::this_cluster().block_rank();
+    if (tid == 0) {
+      rlk::policy_from(pol, a.p + P_W0, a.i);
+      rlk::plan_slice(pol, cs, a.i[I_LEAD], rank, slice);
+    }
+    __syncthreads();
+    // every block: the activation rows, the logits and the command word at
+    // the same offsets, then its weight slice; in block 0 the slab after
+    // its own slice (none without `lead`)
+    L.act0 = dyn;
+    L.act1 = L.act0 + kActLen;
+    L.logit = L.act1 + kActLen;
+    L.cmd = reinterpret_cast<int*>(L.logit + 64);
+    uint16_t* wsm = reinterpret_cast<uint16_t*>(L.logit + 68);
+    base = rlk::slice_biases(wsm, slice) + (slice.belems + 3) / 4 * 4;
+    rlk::load_slice<NT>(pol, slice, wsm, tid);
+    if (tid == 0) *L.cmd = 0;
+    cg::this_cluster().sync();
+    if (rank != 0) {
+      rlk::serve_forwards<NT>(pol, slice, wsm, L.act0, L.act1, L.logit, L.cmd,
+                              cs, tid);
+      return;
+    }
+    L.pol = &pol;
+    L.slice = &slice;
+    L.wsm = wsm;
+    L.cs = cs;
+  }
   L.J = J;
   L.P = P;
   L.n_dc = n_dc;
@@ -1522,10 +2007,12 @@ __global__ void __launch_bounds__(32)
   L.end = a.f[F_END];
   L.li = a.f[F_LOG_INTERVAL];
   L.n_ing = n_ing;
-  L.si = reinterpret_cast<int*>(dyn);
-  L.sf = dyn + N_JI * J;
-  L.vals = dyn + (N_JI + N_JF) * J;
+  L.si = reinterpret_cast<int*>(base);
+  L.sf = base + N_JI * J;
+  L.vals = base + (N_JI + N_JF) * J;
   L.scr = L.vals + P;
+  L.red_v = L.scr + (P > 32 * kRegSlots ? L.n_sum * P : 0);
+  L.red_i = reinterpret_cast<int*>(L.red_v + kRed / 2);
   L.recs = lane_ptr<float>(a, P_Q_RECS, (long long)n_dc * 2 * Q * N_REC, r);
   L.lat_buf = lane_ptr<float>(a, P_LAT_BUF, 2LL * W, r);
   L.em_t = lane_ptr<float>(a, P_EM_T, n_steps, r);
@@ -1551,28 +2038,19 @@ __global__ void __launch_bounds__(32)
     L.neg_w = a.f[F_NEG_W];
     L.sla_ms = a.f[F_SLA_MS];
     L.inv_kwh = 1.0f / 3.6e6f;
-    // RL scratch after the slab rows: the latency windows, then the
-    // observation, two activation rows, the logits and log-probabilities
-    L.lat_buf = L.scr + P;
+    // RL scratch after the block-reduction words: the latency windows, the
+    // observation, the log-probabilities.  B3's lane maxima and lists use
+    // the activation rows, which only a forward writes (never during B3)
+    static_assert(2 * kMaxWarps * 32 <= kActLen && 2 * kCand <= kActLen,
+                  "B3's scratch fits in an activation row");
+    L.lat_buf = L.red_v + kRed;
     L.obs = L.lat_buf + 2 * W;
-    L.act0 = L.obs + kMaxObs;
-    L.act1 = L.act0 + kMaxWidth;
-    L.logit = L.act1 + kMaxWidth;
-    L.logp = L.logit + 64;
-    const int widths[kNLayers + 1] = {obs_dim,      a.i[I_WH0], a.i[I_WH1],
-                                      a.i[I_WLAT], a.i[I_WAH], n_dc, n_g};
-    for (int k = 0; k < kNLayers; ++k) {
-      L.pol.w[k] = reinterpret_cast<const uint16_t*>(a.p[P_W0 + 2 * k]);
-      L.pol.b[k] = reinterpret_cast<const uint16_t*>(a.p[P_W0 + 2 * k + 1]);
-    }
-    for (int k = 0; k < 4; ++k) {
-      L.pol.in[k] = widths[k];
-      L.pol.out[k] = widths[k + 1];
-    }
-    L.pol.in[4] = L.pol.in[5] = widths[4];
-    L.pol.out[4] = n_dc;
-    L.pol.out[5] = n_g;
-    L.pol.greedy = a.i[I_GREEDY];
+    L.logp = L.obs + kMaxObs;
+    L.p99s.lmax = L.act0;
+    L.p99s.cand = L.act1;
+    L.p99s.tau = sm.tau;
+    L.p99s.n_cand = sm.n_cand;
+    L.p99s.s_bits = sm.s_bits;
     L.rl_obs0 = lane_ptr<float>(a, P_RL_OBS0, (long long)J * obs_dim, r);
     L.rl_adc = lane_ptr<int>(a, P_RL_ADC, J, r);
     L.rl_ag = lane_ptr<int>(a, P_RL_AG, J, r);
@@ -1590,7 +2068,7 @@ __global__ void __launch_bounds__(32)
     L.e_costs = lane_ptr<float>(a, P_E_COSTS, (long long)n_steps * 4, r);
     L.e_mdc = lane_ptr<uint8_t>(a, P_E_MDC, (long long)n_steps * n_dc, r);
     L.e_mg = lane_ptr<uint8_t>(a, P_E_MG, (long long)n_steps * n_g, r);
-    for (int k = lane; k < 2 * W; k += 32) L.lat_buf[k] = lat_global[k];
+    for (int k = tid; k < 2 * W; k += NT) L.lat_buf[k] = lat_global[k];
   }
 
   // ---- load: the slab into shared memory, lane state into `sm`
@@ -1598,9 +2076,9 @@ __global__ void __launch_bounds__(32)
     const int* src = lane_ptr<const int>(a, P_JOBS + f, J, r);
     int* dst = kJobIsF[f] ? reinterpret_cast<int*>(L.sf) + kJobCol[f] * J
                           : L.si + kJobCol[f] * J;
-    for (int j = lane; j < J; j += 32) dst[j] = src[j];
+    for (int j = tid; j < J; j += NT) dst[j] = src[j];
   }
-  for (int d = lane; d < n_dc; d += 32) {
+  for (int d = tid; d < n_dc; d += NT) {
     sm.dirty[d] = 1;
     sm.busy[d] = lane_ptr<int>(a, P_BUSY, n_dc, r)[d];
     sm.cur_f[d] = lane_ptr<int>(a, P_CUR_F, n_dc, r)[d];
@@ -1612,7 +2090,7 @@ __global__ void __launch_bounds__(32)
     sm.idle_w[d] = reinterpret_cast<const float*>(a.p[P_IDLE_W])[d];
     sm.inv_total[d] = 1.0f / (float)(tot > 1 ? tot : 1);
   }
-  for (int q = lane; q < 2 * n_dc; q += 32) {
+  for (int q = tid; q < 2 * n_dc; q += NT) {
     sm.qhead[q] = lane_ptr<int>(a, P_Q_HEAD, 2 * n_dc, r)[q];
     sm.qtail[q] = lane_ptr<int>(a, P_Q_TAIL, 2 * n_dc, r)[q];
     sm.pa[q] = reinterpret_cast<const float*>(a.p[P_PA])[q];
@@ -1635,14 +2113,14 @@ __global__ void __launch_bounds__(32)
     sm.jnf_n[q] = bi / n_f + 1;
     sm.jnf_f[q] = bi % n_f;
   }
-  for (int k = lane; k < n_f; k += 32)
+  for (int k = tid; k < n_f; k += NT)
     sm.freq[k] = reinterpret_cast<const float*>(a.p[P_FREQ])[k];
-  for (int s = lane; s < S; s += 32) {
+  for (int s = tid; s < S; s += NT) {
     sm.next_arr[s] = lane_ptr<float>(a, P_NEXT_ARR, S, r)[s];
     sm.arr_count[s] = lane_ptr<int>(a, P_ARR_COUNT, S, r)[s];
     sm.c0[s] = lane_ptr<int>(a, P_C0, S, r)[s];
   }
-  if (lane == 0) {
+  if (tid == 0) {
     sm.t = lane_ptr<float>(a, P_T, 1, r)[0];
     const int64_t* key = lane_ptr<int64_t>(a, P_KEY, 2, r);
     sm.k0 = (uint32_t)key[0];
@@ -1659,50 +2137,50 @@ __global__ void __launch_bounds__(32)
       sm.units_fin[k] = lane_ptr<float>(a, P_UNITS_FIN, 2, r)[k];
       sm.lat_count[k] = lane_ptr<int>(a, P_LAT_COUNT, 2, r)[k];
       sm.lat_ptr[k] = lane_ptr<int>(a, P_LAT_PTR, 2, r)[k];
+      sm.p99_ok[k] = 0;
+      sm.afe[k] = 0x7fffffff;
+      for (int q = 0; q < 3; ++q) sm.amin[k][q] = ~0ull;
     }
   }
-  __syncwarp();
+  L.bar();
 
   // ---- the chunk
   int rec_row = -1;  // RL: the step whose record every later step repeats
   for (int i = 0; i < n_steps; ++i) {
     if (sm.done) {  // after the end each step only advances the key
-      __syncwarp();
-      if (lane == 0) {
+      if (tid == 0) {
         uint32_t n0, n1;
         tf::child(sm.k0, sm.k1, 0u, n0, n1);
         sm.k0 = n0;
         sm.k1 = n1;
         L.em_t[i] = sm.t;
       }
-      __syncwarp();
       if constexpr (kRL) {  // and, under RL, emits the final state's record
         if (rec_row < 0) {
-          if (lane == 0) {
+          if (tid == 0) {
             sm.req_kind = REQ_NONE;
             sm.fin_jt = sm.fin_dcj = sm.fin_slot = 0;
             sm.fin_soj = sm.fin_over = 0.0f;
             sm.st_on = 0;
           }
-          __syncwarp();
+          L.bar();
           L.tail(i);
           rec_row = i;
         } else {
           L.copy_record(rec_row, i);
         }
-        __syncwarp();
       }
       continue;
     }
-    __syncwarp();
     if constexpr (kRL) {
       L.step_rl(i);
       if (sm.done) rec_row = i;
     } else {
       L.step(i);
     }
-    __syncwarp();
   }
+  L.bar();
+  if constexpr (kRL) rlk::release_cluster<NT>(L.cmd, cs, tid);
 
   // ---- write back
   for (int f = 0; f < 18; ++f) {
@@ -1710,26 +2188,26 @@ __global__ void __launch_bounds__(32)
     const int* src = kJobIsF[f]
                          ? reinterpret_cast<const int*>(L.sf) + kJobCol[f] * J
                          : L.si + kJobCol[f] * J;
-    for (int j = lane; j < J; j += 32) dst[j] = src[j];
+    for (int j = tid; j < J; j += NT) dst[j] = src[j];
   }
-  for (int d = lane; d < n_dc; d += 32) {
+  for (int d = tid; d < n_dc; d += NT) {
     lane_ptr<int>(a, P_BUSY, n_dc, r)[d] = sm.busy[d];
     lane_ptr<int>(a, P_CUR_F, n_dc, r)[d] = sm.cur_f[d];
     lane_ptr<float>(a, P_ENERGY, n_dc, r)[d] = sm.energy[d];
     lane_ptr<float>(a, P_UTIL, n_dc, r)[d] = sm.util[d];
     lane_ptr<float>(a, P_ACC, n_dc, r)[d] = sm.acc[d];
   }
-  for (int q = lane; q < 2 * n_dc; q += 32) {
+  for (int q = tid; q < 2 * n_dc; q += NT) {
     lane_ptr<int>(a, P_Q_HEAD, 2 * n_dc, r)[q] = sm.qhead[q];
     lane_ptr<int>(a, P_Q_TAIL, 2 * n_dc, r)[q] = sm.qtail[q];
   }
-  for (int s = lane; s < S; s += 32) {
+  for (int s = tid; s < S; s += NT) {
     lane_ptr<float>(a, P_NEXT_ARR, S, r)[s] = sm.next_arr[s];
     lane_ptr<int>(a, P_ARR_COUNT, S, r)[s] = sm.arr_count[s];
   }
   if constexpr (kRL)
-    for (int k = lane; k < 2 * W; k += 32) lat_global[k] = L.lat_buf[k];
-  if (lane == 0) {
+    for (int k = tid; k < 2 * W; k += NT) lat_global[k] = L.lat_buf[k];
+  if (tid == 0) {
     lane_ptr<float>(a, P_T, 1, r)[0] = sm.t;
     int64_t* key = lane_ptr<int64_t>(a, P_KEY, 2, r);
     key[0] = (int64_t)sm.k0;
@@ -1771,7 +2249,7 @@ bool policy_ok(const Args& a) {
 // ---------------------------------------------------------------- standalone
 // B3 and B4 over a batch through the same device functions (chip_smoke.py
 // holds them against their plain versions; the main path never calls it).
-// Block b (one warp): the p99 of ring b (b < B) and the policy on row b
+// Block b (NT threads): the p99 of ring b (b < B) and the policy on row b
 // (b < M): log-probabilities and the actions sampled with row b's key.
 
 enum TailPtr {
@@ -1785,66 +2263,159 @@ struct TailArgs {
   int B, W, M;
 };
 
-__global__ void __launch_bounds__(32) rl_tail_batch_kernel(const TailArgs a) {
-  __shared__ float obs[kMaxObs], act0[kMaxWidth], act1[kMaxWidth];
-  __shared__ float logit[64], logp[64];
-  __shared__ int mdc[32], mg[32];
-  const int b = blockIdx.x, lane = threadIdx.x;
+template <int NT>
+__global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
+  namespace cg = cooperative_groups;
+  // the cluster's rows, as in the event scan: the activation rows, the
+  // logits and the command word, then the weight slice
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ rlk::Policy P;
+  __shared__ rlk::Slice slice;
+  __shared__ float obs[kMaxObs], logp[64], p99[2];
+  __shared__ float lmax[2 * NT], cand[2 * kCand], tau[2];
+  __shared__ int mdc[32], mg[32], n_cand[2], s_bits[4];
+  __shared__ int acts[2];
+  const int cs = a.i[I_CLUSTER];
+  const int b = blockIdx.x / cs, tid = threadIdx.x;
+  const int rank = (int)cg::this_cluster().block_rank();
   const int W = a.W, K = a.i[I_PERC_K];
+  const int n_dc = a.i[I_NDC], n_g = a.i[I_MAXGPU], obs_dim = a.i[I_OBS_DIM];
+  if (tid == 0) {
+    rlk::policy_from(P, a.p + T_W0, a.i);
+    rlk::plan_slice(P, cs, a.i[I_LEAD], rank, slice);
+  }
+  __syncthreads();
+  float* act0 = dyn;
+  float* act1 = act0 + kActLen;
+  float* logit = act1 + kActLen;
+  int* cmd = reinterpret_cast<int*>(logit + 64);
+  uint16_t* wsm = reinterpret_cast<uint16_t*>(logit + 68);
+  rlk::load_slice<NT>(P, slice, wsm, tid);
+  if (tid == 0) *cmd = 0;
+  cg::this_cluster().sync();
+  if (rank != 0) {
+    rlk::serve_forwards<NT>(P, slice, wsm, act0, act1, logit, cmd, cs, tid);
+    return;
+  }
   if (b < a.B) {
     const float* buf = reinterpret_cast<const float*>(a.p[T_LAT]) + (long long)b * W;
+    const float* bufs[2] = {buf, buf};
     const int count = reinterpret_cast<const int*>(a.p[T_LAT_COUNT])[b];
-    const float v = rlk::windowed_p99(buf, count, W, K, lane);
-    if (lane == 0) reinterpret_cast<float*>(a.p[T_P99])[b] = v;
+    const int counts[2] = {count, count};
+    const bool on[2] = {true, false};
+    const rlk::P99Scratch sc{lmax, cand, tau, n_cand, s_bits};
+    rlk::windowed_p99<NT>(bufs, counts, on, W, K, p99, sc, tid);
+    if (tid == 0) reinterpret_cast<float*>(a.p[T_P99])[b] = p99[0];
   }
-  if (b >= a.M) return;
-  const int obs_dim = a.i[I_OBS_DIM], n_dc = a.i[I_NDC], n_g = a.i[I_MAXGPU];
-  rlk::Policy P;
-  const int widths[kNLayers + 1] = {obs_dim,      a.i[I_WH0], a.i[I_WH1],
-                                    a.i[I_WLAT], a.i[I_WAH], n_dc, n_g};
-  for (int k = 0; k < kNLayers; ++k) {
-    P.w[k] = reinterpret_cast<const uint16_t*>(a.p[T_W0 + 2 * k]);
-    P.b[k] = reinterpret_cast<const uint16_t*>(a.p[T_W0 + 2 * k + 1]);
-  }
-  for (int k = 0; k < 4; ++k) {
-    P.in[k] = widths[k];
-    P.out[k] = widths[k + 1];
-  }
-  P.in[4] = P.in[5] = widths[4];
-  P.out[4] = n_dc;
-  P.out[5] = n_g;
-  P.greedy = a.i[I_GREEDY];
-  const float* o = reinterpret_cast<const float*>(a.p[T_OBS]) + (long long)b * obs_dim;
-  for (int k = lane; k < obs_dim; k += 32) obs[k] = o[k];
-  const uint8_t* md = reinterpret_cast<const uint8_t*>(a.p[T_MDC]) + (long long)b * n_dc;
-  const uint8_t* mgp = reinterpret_cast<const uint8_t*>(a.p[T_MG]) + (long long)b * n_g;
-  if (lane < n_dc) mdc[lane] = md[lane] != 0;
-  if (lane < n_g) mg[lane] = mgp[lane] != 0;
-  __syncwarp();
-  rlk::forward(P, obs, act0, act1, logit, lane);
-  if (lane == 0) {
-    rlk::masked_log_softmax(logit, mdc, n_dc, logp);
-    rlk::masked_log_softmax(logit + 32, mg, n_g, logp + 32);
+  if (b < a.M) {
+    const float* o = reinterpret_cast<const float*>(a.p[T_OBS]) + (long long)b * obs_dim;
+    for (int k = tid; k < obs_dim; k += NT) obs[k] = o[k];
+    const uint8_t* md = reinterpret_cast<const uint8_t*>(a.p[T_MDC]) + (long long)b * n_dc;
+    const uint8_t* mgp = reinterpret_cast<const uint8_t*>(a.p[T_MG]) + (long long)b * n_g;
+    if (tid < n_dc) mdc[tid] = md[tid] != 0;
+    if (tid < n_g) mg[tid] = mgp[tid] != 0;
+    rlk::bar<NT>();
+    rlk::forward<NT>(P, slice, wsm, obs, act0, act1, logit, cmd, cs, tid);
     const int64_t* key = reinterpret_cast<const int64_t*>(a.p[T_KEYS]) + 2LL * b;
-    uint32_t a0, a1, b0, b1;
-    tf::child((uint32_t)key[0], (uint32_t)key[1], 0u, a0, a1);
-    tf::child((uint32_t)key[0], (uint32_t)key[1], 1u, b0, b1);
-    reinterpret_cast<int*>(a.p[T_ADC])[b] = rlk::sample(a0, a1, logp, n_dc, P.greedy);
-    reinterpret_cast<int*>(a.p[T_AG])[b] = rlk::sample(b0, b1, logp + 32, n_g, P.greedy);
+    rlk::sample_heads<NT>(logit, mdc, n_dc, mg, n_g, logp, (uint32_t)key[0],
+                          (uint32_t)key[1], P.greedy, &acts[0], &acts[1], tid);
+    rlk::bar<NT>();
+    if (tid == 0) {
+      reinterpret_cast<int*>(a.p[T_ADC])[b] = acts[0];
+      reinterpret_cast<int*>(a.p[T_AG])[b] = acts[1];
+    }
+    float* ld = reinterpret_cast<float*>(a.p[T_LOGP_DC]) + (long long)b * n_dc;
+    float* lg = reinterpret_cast<float*>(a.p[T_LOGP_G]) + (long long)b * n_g;
+    if (tid < n_dc) ld[tid] = logp[tid];
+    if (tid < n_g) lg[tid] = logp[32 + tid];
   }
-  __syncwarp();
-  float* ld = reinterpret_cast<float*>(a.p[T_LOGP_DC]) + (long long)b * n_dc;
-  float* lg = reinterpret_cast<float*>(a.p[T_LOGP_G]) + (long long)b * n_g;
-  if (lane < n_dc) ld[lane] = logp[lane];
-  if (lane < n_g) lg[lane] = logp[32 + lane];
+  rlk::bar<NT>();
+  rlk::release_cluster<NT>(cmd, cs, tid);
+}
+
+// The block widths each mode is built for (kernels/event_scan.py
+// BLOCK_WIDTHS; the wrapper picks one).
+template <bool kRL>
+void (*kernel_of(int threads))(Args) {
+  switch (threads) {
+    case 32: return event_scan_kernel<kRL, 32>;
+    case 256: return event_scan_kernel<kRL, 256>;
+    default: return nullptr;
+  }
+}
+
+void (*tail_kernel_of(int threads))(TailArgs) {
+  switch (threads) {
+    case 32: return rl_tail_batch_kernel<32>;
+    case 256: return rl_tail_batch_kernel<256>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
+// The longest weight slice (bf16 weights, then the float biases) when nb
+// blocks split every layer's rows, ceil(out / nb) each (`plan_slice`).
+static long long slice_bytes(const int* ints, int nb) {
+  const int widths[kNLayers + 1] = {ints[I_OBS_DIM], ints[I_WH0], ints[I_WH1],
+                                    ints[I_WLAT],    ints[I_WAH], ints[I_NDC],
+                                    ints[I_MAXGPU]};
+  long long elems = 0, belems = 0;
+  for (int k = 0; k < kNLayers; ++k) {
+    const int in = k < 4 ? widths[k] : widths[4];
+    const int out = widths[k + 1];
+    int kp = 1;
+    while (kp < in) kp <<= 1;
+    elems += (long long)((out + nb - 1) / nb) * kp;
+    belems += (out + nb - 1) / nb;
+  }
+  return (elems * 2 + 15) / 16 * 16 + (belems + 3) / 4 * 16;
+}
+
+// The dynamic shared memory of an RL cluster's blocks: the activation
+// rows, the logits and the command word at one offset in every block, then
+// each block's weight slice; block 0 holds its lane's `slab` bytes after
+// its own slice (I_LEAD) or in place of one.
+static long long cluster_block_bytes(const int* ints, long long slab) {
+  const int cs = ints[I_CLUSTER];
+  const long long rest =
+      ints[I_LEAD] ? slice_bytes(ints, cs) + slab
+                   : (slice_bytes(ints, cs - 1) > slab ? slice_bytes(ints, cs - 1)
+                                                       : slab);
+  return 4LL * (2 * kActLen + 68) + rest;
+}
+
+static bool cluster_ok(const int* ints) {
+  const int cs = ints[I_CLUSTER];
+  return cs >= 1 && cs <= kMaxCluster && (ints[I_LEAD] || cs >= 2);
+}
+
+// A launch of `kernel` in clusters of cs blocks.
+template <typename A>
+static cudaError_t launch_clusters(void (*kernel)(A), int blocks, int threads,
+                            long long smem, int cs, cudaStream_t stream,
+                            const A& args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
 // Plain C entry point of the standalone launch: `ptrs` N_TAIL_PTRS device
-// pointers (TailPtr order), `ints` the event scan's N_INTS followed by B, W
-// and M.  Returns the cudaError_t of the launch, -1 for tables of the wrong
-// length, -2 for shapes the device code does not take.
+// pointers (TailPtr order), `ints` the event scan's N_INTS (I_THREADS the
+// block width, I_CLUSTER and I_LEAD the row's cluster) followed by B, W
+// and M.  Returns the cudaError_t of the
+// launch, -1 for tables of the wrong length, -2 for shapes the device code
+// does not take.
 extern "C" int rl_tail_batch_launch(const uint64_t* ptrs, int n_ptrs,
                                     const int* ints, int n_ints,
                                     const float* floats, int n_floats,
@@ -1861,28 +2432,49 @@ extern "C" int rl_tail_batch_launch(const uint64_t* ptrs, int n_ptrs,
   a.B = ints[N_INTS];
   a.W = ints[N_INTS + 1];
   a.M = ints[N_INTS + 2];
-  if (a.B < 0 || a.M < 0 || a.W < 1 || !policy_ok(chk)) return -2;
+  auto kernel = tail_kernel_of(a.i[I_THREADS]);
+  const int cs = a.i[I_CLUSTER];
+  if (a.B < 0 || a.M < 0 || a.W < 1 || !policy_ok(chk) || kernel == nullptr ||
+      !cluster_ok(a.i))
+    return -2;
   const int grid = a.B > a.M ? a.B : a.M;
   if (grid == 0) return (int)cudaSuccess;
-  rl_tail_batch_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(a);
+  const long long smem = cluster_block_bytes(a.i, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_clusters(kernel, grid * cs, a.i[I_THREADS], smem, cs,
+                        (cudaStream_t)stream, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory a launch needs: the slab plus two [P] scratch
-// rows, and in RL mode the latency windows and the policy's scratch.
-extern "C" long long event_scan_smem_bytes(int J, int P, int W, int rl) {
-  const long long rl_part =
-      rl ? 2LL * W + kMaxObs + 2LL * kMaxWidth + 128 : 0;
-  return 4LL * ((N_JI + N_JF) * (long long)J + 2LL * P + rl_part);
+// The dynamic shared memory of a launch's blocks (`ints` in INT_NAMES
+// order).  A lane's slab: the job fields, the [P] row of the slots' values,
+// a [P] row per DC-summing warp when P exceeds the trees kept in registers,
+// the block-reduction words, and in RL mode the latency windows, the
+// observation and the log-probabilities; in RL mode inside its cluster's
+// rows (`cluster_block_bytes`; B3's scratch shares their activation rows).
+extern "C" long long event_scan_smem_bytes(const int* ints) {
+  const int J = ints[I_J], P = ints[I_P], rl = ints[I_RL];
+  const long long rl_part = rl ? 2LL * ints[I_W] + kMaxObs + 64 : 0;
+  const long long rows =
+      P > 32 * kRegSlots ? (long long)ints[I_SUM_WARPS] * P : 0;
+  const long long slab =
+      4LL * ((N_JI + N_JF) * (long long)J + P + rows + kRed + rl_part);
+  return rl ? cluster_block_bytes(ints, slab) : slab;
 }
 
 // Plain C entry point (bound with ctypes).  `ptrs` holds N_PTRS device
 // pointers in PTR_NAMES order, `ints` N_INTS and `floats` N_FLTS values (the
-// counts are checked against this build's).  Launches R blocks of one warp
-// on `stream`.  Returns the cudaError_t of the launch (0 on success), -1 for
-// a table of the wrong length, -2 for a shape the kernel does not take (too
-// many DCs, streams or frequency levels), -3 when the slab does not fit in
-// shared memory.
+// counts are checked against this build's).  Launches R blocks of
+// ints[I_THREADS] threads on `stream`, ints[I_SUM_WARPS] of whose warps sum
+// the DCs' power trees; in RL mode R clusters of ints[I_CLUSTER] such
+// blocks, which hold the policy's weights between them (block 0 too when
+// ints[I_LEAD] is set).  Returns the cudaError_t of the launch (0 on
+// success), -1 for a table of the wrong length, -2 for a shape the kernel
+// does not take (too many DCs, streams or frequency levels, a block width it
+// is not built for), -3 when the slab does not fit in shared memory.
 extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
                                  const int* ints, int n_ints,
                                  const float* floats, int n_floats,
@@ -1892,27 +2484,36 @@ extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
   for (int k = 0; k < N_PTRS; ++k) a.p[k] = (void*)ptrs[k];
   for (int k = 0; k < N_INTS; ++k) a.i[k] = ints[k];
   for (int k = 0; k < N_FLTS; ++k) a.f[k] = floats[k];
-  const int R = a.i[I_R];
+  const int R = a.i[I_R], threads = a.i[I_THREADS], sum_warps = a.i[I_SUM_WARPS];
   if (R <= 0 || a.i[I_NSTEPS] <= 0) return (int)cudaSuccess;
   if (a.i[I_NDC] < 1 || a.i[I_NDC] > kMaxDC || 2 * a.i[I_NING] > kMaxS ||
       a.i[I_NF] < 1 || a.i[I_NF] > kMaxF || a.i[I_J] < 1 || a.i[I_Q] < 1 ||
       a.i[I_W] < 1 || a.i[I_NTAB] < 1)
     return -2;
-  if (a.i[I_RL] && !policy_ok(a)) return -2;
-  const long long smem =
-      event_scan_smem_bytes(a.i[I_J], a.i[I_P], a.i[I_W], a.i[I_RL]);
+  auto kernel = a.i[I_RL] ? kernel_of<true>(threads) : kernel_of<false>(threads);
+  const int cs = a.i[I_RL] ? a.i[I_CLUSTER] : 1;
+  if (kernel == nullptr || sum_warps < 1 || sum_warps > threads / 32) return -2;
+  if (a.i[I_RL] && (!policy_ok(a) || !cluster_ok(a.i))) return -2;
+  const long long smem = event_scan_smem_bytes(a.i);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem + (long long)sizeof(Small) > optin) return -3;
-  auto kernel = a.i[I_RL] ? event_scan_kernel<true> : event_scan_kernel<false>;
+  if (smem + (long long)(sizeof(Small) + sizeof(rlk::Policy) +
+                         sizeof(rlk::Slice)) > optin)
+    return -3;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<R, 32, (size_t)smem, (cudaStream_t)stream>>>(a);
+  if (a.i[I_RL]) {
+    err = launch_clusters(kernel, R * cs, threads, smem, cs,
+                          (cudaStream_t)stream, a);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<R, threads, (size_t)smem, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

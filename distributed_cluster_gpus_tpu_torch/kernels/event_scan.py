@@ -3,8 +3,12 @@
 Replaces the XLA-fused scan ``Engine._run_chunk`` -> ``lax.scan(Engine._step)``
 (``distributed_cluster_gpus_tpu/sim/engine.py:4581`` and ``:2966``) for the
 configurations ``sim.engine.check_ported`` admits: ``n_steps`` events of every
-rollout lane in ONE launch, one block (one warp) per lane, the job slab in
-shared memory, no host read inside the chunk.  Under ``chsac_af`` (RL mode)
+rollout lane in ONE launch, one block of ``THREADS`` per lane (several
+warps share the slab passes and the DCs' power trees), the job slab in
+shared memory, no host read inside the chunk; in RL mode a cluster of
+blocks per lane (:func:`block_plan`), whose blocks hold slices of the
+policy's weights in their shared memory and compute their rows of each
+layer of the lane's forward.  Under ``chsac_af`` (RL mode)
 the same launch runs the policy tail of every event as device functions:
 the windowed p99 (B3, ``sim/algos.py:210``) and the observation, masks,
 encoder/actor forward and categorical sample (B4, ``sim/engine.py:3454``
@@ -54,6 +58,18 @@ MAX_DC, MAX_STREAMS, MAX_FREQS = 32, 64, 32
 #: dynamic shared memory a block may opt into on Hopper, less a reserve for
 #: the kernel's static shared state (the C entry point checks exactly)
 SMEM_BUDGET = 232448 - 8192
+#: the block widths (threads per lane) the kernel is built for
+#: (csrc/event_scan.cu ``kernel_of``): the one both modes launch (the slab
+#: passes and the RL step's forward spread over its warps; PERF.md §5) and
+#: one warp, for the tests
+BLOCK_WIDTHS = (32, 256)
+THREADS = 256
+#: csrc/event_scan.cu's kRed (block-reduction words), kRegSlots (a DC's
+#: power tree in registers up to P = 32 kRegSlots) and kMaxCluster (blocks
+#: per lane in RL mode)
+RED_WORDS, REG_SLOTS, MAX_CLUSTER = 8 * 8, 16, 8
+#: the cluster sizes the wrapper tries in RL mode, smallest first
+CLUSTERS = (1, 2, 4, 8)
 
 JOB_FIELDS = CORE_JOB_FIELDS
 #: the per-step RL record, in csrc/event_scan.cu's pointer order
@@ -64,6 +80,8 @@ RL_EM_FIELDS = ("valid", "s0", "s1", "a_dc", "a_g", "mask_dc0", "mask_g0",
 N_LAYERS = 6
 #: widest layer the kernel takes and its largest observation
 MAX_WIDTH, MAX_OBS = 512, 256
+#: an activation row of the forward: MAX_WIDTH values, a pad word per 16
+ACT_LEN = MAX_WIDTH + MAX_WIDTH // 16
 
 #: the pointer table, in csrc/event_scan.cu's `enum Ptr` order
 PTR_NAMES = (
@@ -94,6 +112,10 @@ INT_NAMES = (
     "train_scale_out_low_freq",
     # RL mode: on/off, greedy actions, obs width, percentile K, layer widths
     "rl", "greedy", "obs_dim", "perc_k", "w_h0", "w_h1", "w_lat", "w_ah",
+    # the block: threads per lane, warps that sum the DCs' power trees, and
+    # in RL mode the blocks of the lane's cluster and whether block 0 holds
+    # a slice of the weights
+    "threads", "sum_warps", "cluster", "lead",
 )
 #: the float parameters, in csrc/event_scan.cu's `enum Flt` order
 FLT_NAMES = ("end", "log_interval", "sla_thr", "neg_w", "sla_ms")
@@ -124,12 +146,76 @@ def pow2_at_least(n: int) -> int:
     return p
 
 
-def smem_bytes(J: int, W: int = 0, rl: bool = False) -> int:
-    """Dynamic shared memory of one block: the slab and two [P] rows, and in
-    RL mode the two latency windows and the policy's scratch (the
-    observation, two activation rows, logits and log-probabilities)."""
-    rl_part = 2 * W + MAX_OBS + 2 * MAX_WIDTH + 128 if rl else 0
-    return 4 * (18 * J + 2 * pow2_at_least(J) + rl_part)
+def slice_bytes(widths, nb: int) -> int:
+    """The longest slice of the policy when ``nb`` blocks split every
+    layer's rows, ceil(out / nb) each (csrc/event_scan.cu ``slice_bytes``):
+    the bf16 weights, rows padded to a power of two, then the biases as
+    float32.  ``widths``: obs_dim, h0, h1, latent, actor hidden, n_dc, n_g."""
+    ins = [widths[0], widths[1], widths[2], widths[3], widths[4], widths[4]]
+    rows = [-(-widths[k + 1] // nb) for k in range(N_LAYERS)]
+    elems = sum(rows[k] * pow2_at_least(ins[k]) for k in range(N_LAYERS))
+    return -(-2 * elems // 16) * 16 + -(-sum(rows) // 4) * 16
+
+
+#: what every block of an RL cluster holds at one offset: two activation
+#: rows, the logits and the command word
+ACT_BYTES = 4 * (2 * ACT_LEN + 68)
+
+
+def slab_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1) -> int:
+    """A lane's slab in shared memory: the job fields, the [P] row of the
+    slots' values, a [P] row per DC-summing warp when P exceeds the trees
+    kept in registers, the block-reduction words, and in RL mode the two
+    latency windows, the observation and the log-probabilities (B3's
+    scratch shares the cluster's activation rows, :data:`ACT_BYTES`)."""
+    P = pow2_at_least(J)
+    rows = sum_warps * P if P > 32 * REG_SLOTS else 0
+    rl_part = (2 * W + MAX_OBS + 64) if rl else 0
+    return 4 * (18 * J + P + rows + RED_WORDS + rl_part)
+
+
+def smem_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1,
+               widths=None, cs: int = 1, lead: bool = True) -> int:
+    """Dynamic shared memory of one block (csrc/event_scan.cu
+    ``event_scan_smem_bytes``): the lane's slab (:func:`slab_bytes`); in RL
+    mode the blocks of a cluster of ``cs`` hold :data:`ACT_BYTES`, then
+    their weight slices (:func:`slice_bytes` of ``widths``), and block 0
+    holds the slab after its own slice, or (``lead`` false) in place of
+    one."""
+    slab = slab_bytes(J, W, rl, sum_warps)
+    if not rl:
+        return slab
+    if lead:
+        return ACT_BYTES + slice_bytes(widths, cs) + slab
+    return ACT_BYTES + max(slice_bytes(widths, cs - 1), slab)
+
+
+def block_plan(prog, threads: int, widths=None):
+    """(sum_warps, cluster, lead) of a launch: the warps that sum the DCs'
+    power trees, a DC each at a time, one per DC up to the block's warps;
+    in RL mode the blocks of a lane's cluster and whether block 0 holds a
+    slice of the weights beside its slab.  Takes the fewest blocks that fit
+    in shared memory, block 0 holding a slice where it can, then as many
+    summing warps as fit (their scratch rows take room past 512 slots);
+    raises when nothing fits.  ``widths``: the policy's hidden widths (h0,
+    h1, latent, actor hidden)."""
+    p = prog.params
+    J, W, n_dc = p.job_cap, p.lat_window, prog.fleet.n_dc
+    n_max = max(1, min(threads // 32, n_dc))
+    if p.algo != ALGO_CHSAC_AF:
+        n = n_max
+        while n > 1 and slab_bytes(J, W, False, n) > SMEM_BUDGET:
+            n -= 1
+        return n, 1, True
+    w = (p.obs_dim(n_dc), *widths, n_dc, p.max_gpus_per_job)
+    for cs in CLUSTERS:
+        for lead in (True, False) if cs > 1 else (True,):
+            for n in range(n_max, 0, -1):
+                if smem_bytes(J, W, True, n, w, cs, lead) <= SMEM_BUDGET:
+                    return n, cs, lead
+    raise ValueError(
+        f"event_scan: the policy's weights (widths {w}) do not fit in "
+        f"{CLUSTERS[-1]} blocks' shared memory beside job_cap {J}")
 
 
 _bitrev_cache = {}
@@ -250,13 +336,14 @@ def _lib():
 
 
 def kernel_ints(prog, R: int, n_steps: int, n_tab: int, greedy: bool = False,
-                widths=(0, 0, 0, 0)):
+                widths=(0, 0, 0, 0), threads: int = 32):
     """The kernel's integer parameters for this engine, in INT_NAMES order
     (``widths``: the policy's hidden widths h0, h1, latent and actor
-    hidden, from :func:`policy_operands`)."""
+    hidden, from :func:`policy_operands`; ``threads``: the block's)."""
     fleet, p = prog.fleet, prog.params
     J = p.job_cap
     rl = p.algo == ALGO_CHSAC_AF
+    n_sum, cs, lead = block_plan(prog, threads, widths)
     vals = {
         "R": R, "n_steps": n_steps, "n_dc": fleet.n_dc, "n_ing": fleet.n_ing,
         "n_f": fleet.n_f, "n_cap": int(prog.E_grid_cap.shape[2]), "J": J,
@@ -276,6 +363,7 @@ def kernel_ints(prog, R: int, n_steps: int, n_tab: int, greedy: bool = False,
         "perc_k": algos.percentile_k(p.lat_window, 99.0),
         "w_h0": widths[0], "w_h1": widths[1], "w_lat": widths[2],
         "w_ah": widths[3],
+        "threads": threads, "sum_warps": n_sum, "cluster": cs, "lead": lead,
     }
     return [int(vals[k]) for k in INT_NAMES]
 
@@ -298,7 +386,7 @@ def check_kernel_covers(prog) -> None:
             f"{MAX_FREQS} frequency levels (got {fleet.n_dc}, {fleet.n_ing}, "
             f"{fleet.n_f})")
     rl = p.algo == ALGO_CHSAC_AF
-    need = smem_bytes(J, p.lat_window, rl)
+    need = slab_bytes(J, p.lat_window, rl, 1) + (ACT_BYTES if rl else 0)
     if need > SMEM_BUDGET:
         raise ValueError(
             f"event_scan: job_cap {J} (lat_window {p.lat_window}) needs {need} B "
@@ -361,13 +449,22 @@ def _launch_error(rc):
                 rc, f"cudaError {rc}")
 
 
-def event_scan(prog, state, pre, n_steps: int, policy_params=None):
+def _width(threads):
+    threads = THREADS if threads is None else int(threads)
+    if threads not in BLOCK_WIDTHS:
+        raise ValueError(f"event_scan: {threads} threads per lane; the kernel "
+                         f"is built for {BLOCK_WIDTHS}")
+    return threads
+
+
+def event_scan(prog, state, pre, n_steps: int, policy_params=None,
+               threads=None):
     """The B1 wrapper: kernel on a CUDA state, plain version on a CPU one.
 
     Advances ``state`` (leaves [R, ...]) by ``n_steps`` events in place;
     returns (emissions, stats).  ``policy_params``: the chsac_af policy's
-    (an ``rl.sac.SACState``).  Counts each kernel launch in
-    ``event_scan.launches``."""
+    (an ``rl.sac.SACState``).  ``threads`` overrides the block width
+    (``THREADS``; one of ``BLOCK_WIDTHS``), for tests and studies.  Counts each kernel launch in ``event_scan.launches``."""
     R, n_tab = _validate(prog, state, pre, n_steps)
     dev = prog.device
     if dev.type == "cpu":
@@ -375,6 +472,7 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None):
     if dev.type != "cuda":
         raise ValueError(f"event_scan: unsupported device {dev}")
     check_kernel_covers(prog)
+    threads = _width(threads)
     fleet = prog.fleet
     rl = prog.params.algo == ALGO_CHSAC_AF
     em = {
@@ -409,7 +507,7 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None):
             t = _get(state, name)
         ptrs.append(t.data_ptr())
     greedy = rl and prog.policy_apply.kernel_mode == "greedy"
-    ints = kernel_ints(prog, R, n_steps, n_tab, greedy, widths)
+    ints = kernel_ints(prog, R, n_steps, n_tab, greedy, widths, threads)
     floats = kernel_floats(prog)
     lib = _lib()
     c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
@@ -437,17 +535,17 @@ event_scan.rl_launches = 0
 # ---------------------------------------------------------------------------
 
 def rl_tail_batch(prog, policy_params, lat_buf, lat_count, obs, mask_dc,
-                  mask_g, keys, operands=None):
+                  mask_g, keys, operands=None, threads=None):
     """B3 and B4 of the RL mode on a batch, through the kernel's own device
     functions: ``lat_buf`` [B, W] f32 and ``lat_count`` [B] i32 give the
     p99 of each ring ([B] f32); ``obs`` [M, obs_dim] f32 with ``mask_dc``
     [M, n_dc] and ``mask_g`` [M, n_g] bool and ``keys`` [M, 2] int64 give
     each row's log-probabilities ([M, n_dc], [M, n_g] f32) and sampled
     actions ([M] int32 each, ``split(key)[0]`` for the DC head and
-    ``split(key)[1]`` for the GPU count).  One launch, one warp per row.
-    ``operands`` (from :func:`policy_operands`) skips rebuilding the
-    weights.  Not on the main path and not counted in
-    ``event_scan.launches``."""
+    ``split(key)[1]`` for the GPU count).  One launch, one cluster per row
+    (the RL mode's: its block width unless ``threads`` says otherwise).  ``operands``
+    (from :func:`policy_operands`) skips rebuilding the weights.  Not on the
+    main path and not counted in ``event_scan.launches``."""
     dev = prog.device
     if dev.type != "cuda":
         raise ValueError("rl_tail_batch: the standalone launch runs on the card")
@@ -471,7 +569,8 @@ def rl_tail_batch(prog, policy_params, lat_buf, lat_count, obs, mask_dc,
                                           out["a_g"]]]
     ptrs += [w.data_ptr() for w in weights]
     ints = kernel_ints(prog, 1, 1, 1,
-                       prog.policy_apply.kernel_mode == "greedy", widths)
+                       prog.policy_apply.kernel_mode == "greedy", widths,
+                       _width(threads))
     ints += [B, W, M]
     lib = _lib()
     floats = kernel_floats(prog)

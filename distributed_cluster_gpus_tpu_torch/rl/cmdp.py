@@ -19,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops.physics import tree_sum_last
 
 #: fixed cost layout: [latency_p99_ms, power_W, gpu_over, energy_total_J]
@@ -46,15 +47,22 @@ class CMDPState:
     prev_err: torch.Tensor
 
 
-def cmdp_init(constraints: Sequence[ConstraintSpec], device="cpu") -> CMDPState:
+def cmdp_init(constraints: Sequence[ConstraintSpec], device="cuda") -> CMDPState:
+    """Zero multipliers and PID memories on ``device`` (the card unless the
+    caller asks for the CPU; raises without a GPU)."""
+    device = resolve_device(device)
+
     def z():
         return torch.zeros(len(constraints), dtype=torch.float32, device=device)
 
     return CMDPState(lam=z(), integral=z(), prev_err=z())
 
 
-def _gains(constraints: Sequence[ConstraintSpec], device="cpu"):
-    """(target, kp, ki, kd, lambda_max) as float32 [n_costs] tensors."""
+def _gains(constraints: Sequence[ConstraintSpec], device="cuda"):
+    """(target, kp, ki, kd, lambda_max) as float32 [n_costs] tensors on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+
     def col(name):
         return torch.tensor([getattr(c, name) for c in constraints],
                             dtype=torch.float32, device=device)

@@ -49,6 +49,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops import prng
 from ..ops.physics import tree_sum_last
 from .cmdp import (CMDPState, ConstraintSpec, _gains, cmdp_init,
@@ -145,11 +146,13 @@ def _critic_cls(cfg: SACConfig):
     return QuantileCriticHeads if cfg.critic_arch == "heads" else QuantileCritic
 
 
-def sac_init(cfg: SACConfig, gen: torch.Generator, device="cpu") -> SACState:
+def sac_init(cfg: SACConfig, gen: torch.Generator, device="cuda") -> SACState:
     """Fresh networks initialised from ``gen`` (a CPU generator) as flax
     initialises them (lecun-normal kernels, zero biases; encoder, actor,
     then critic), the target critic a copy of the critic, ``log_alpha`` =
-    log(alpha_init), zeroed Adam states and multipliers, on ``device``."""
+    log(alpha_init), zeroed Adam states and multipliers, on ``device``
+    (the card unless the caller asks for the CPU; raises without a GPU)."""
+    device = resolve_device(device)
     enc = MLPStateEncoder(cfg.obs_dim, latent=cfg.latent)
     actor = HybridActor(cfg.latent, cfg.n_dc, cfg.n_g)
     critic = _critic_cls(cfg)(cfg.latent, cfg.n_dc, cfg.n_g, cfg.n_quantiles)

@@ -42,17 +42,21 @@ LOADS = {
                         max_gpus_per_job=4, dvfs_low=0.5, dvfs_high=0.9),
 }
 N_STEPS = 300
+# the block widths B1 is held at: the one the wrapper launches in each mode,
+# and one warp
+HEUR_WIDTHS = RL_WIDTHS = sorted({b1.THREADS, 32})
 
 
-def kernel_vs_plain(eng, state, n_steps, n_chunks):
-    """Advance a lane-stacked state by the B1 kernel and a copy of it by the
-    plain version over the same tables; returns the bitwise mismatches of
-    the states and the emissions (empty lists when identical)."""
+def kernel_vs_plain(eng, state, n_steps, n_chunks, threads=None):
+    """Advance a lane-stacked state by the B1 kernel (``threads`` per lane,
+    the wrapper's choice by default) and a copy of it by the plain version
+    over the same tables; returns the bitwise mismatches of the states and
+    the emissions (empty lists when identical)."""
     other = clone_state(state)
     bad = []
     for c in range(n_chunks):
         pre = eng.workload.tables(state, n_steps)
-        em_k, _ = b1.event_scan(eng, state, pre, n_steps)
+        em_k, _ = b1.event_scan(eng, state, pre, n_steps, threads=threads)
         em_r, _ = b1.event_scan_reference(eng, other, pre, n_steps)
         eng.workload.advance_carries(state, pre)
         eng.workload.advance_carries(other, pre)
@@ -108,11 +112,13 @@ def test_arrival_tables_wrapper_rejects_mixed_devices(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("threads", HEUR_WIDTHS)
 @pytest.mark.parametrize("fleet_name", ["duo", "single", "duo_options"])
 @pytest.mark.parametrize("algo", ["default_policy", "joint_nf"])
-def test_event_scan_kernel_matches_plain_version(cuda, algo, fleet_name):
+def test_event_scan_kernel_matches_plain_version(cuda, algo, fleet_name, threads):
     """B1 against its plain version on the card, bitwise: final state
-    leaves, key words, emissions; two chunks (a chunk boundary crossed)."""
+    leaves, key words, emissions; two chunks (a chunk boundary crossed);
+    at the block width the wrapper launches and at one warp."""
     fleet = FLEETS[fleet_name]()
     params = SimParams(algo=algo, duration=400.0, lat_window=64, seed=5,
                        **LOADS[fleet_name])
@@ -120,7 +126,7 @@ def test_event_scan_kernel_matches_plain_version(cuda, algo, fleet_name):
     st = with_lane_axis(init_state(params.seed, fleet, params,
                                    workload=eng.workload, device=cuda))
     before = b1.event_scan.launches
-    assert kernel_vs_plain(eng, st, N_STEPS, 2) == []
+    assert kernel_vs_plain(eng, st, N_STEPS, 2, threads) == []
     assert b1.event_scan.launches == before + 2
     assert int(st.n_events.sum()) == 2 * N_STEPS and int(st.n_finished.sum()) > 20
     if fleet_name != "single":
@@ -128,19 +134,44 @@ def test_event_scan_kernel_matches_plain_version(cuda, algo, fleet_name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("threads", HEUR_WIDTHS)
 @pytest.mark.parametrize("job_cap", [16, 100, 2048])
-def test_event_scan_kernel_lanes_and_run_end(cuda, job_cap):
+def test_event_scan_kernel_lanes_and_run_end(cuda, job_cap, threads):
     """Three lanes in one launch, run past the end of the simulation (the
     done tail only advances the key), against the plain version; slabs
-    under a warp, padded to a power of two, and over 48 KB of shared
-    memory."""
+    under a warp, not a multiple of the block, padded to a power of two,
+    and over 48 KB of shared memory."""
     fleet = build_duo_fleet()
     params = SimParams(duration=3.0, job_cap=job_cap, queue_cap=16,
                        lat_window=16, log_interval=0.5, seed=1)
     eng = Engine(fleet, params, device=cuda)
     st = batched_init(fleet, params, 3, workload=eng.workload, device=cuda)
-    assert kernel_vs_plain(eng, st, 512, 3) == []
+    assert kernel_vs_plain(eng, st, 512, 3, threads) == []
     assert bool(st.done.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", [32])
+@pytest.mark.parametrize("algo", ["default_policy", "chsac_af"])
+def test_event_scan_kernel_more_dcs_than_warps(cuda, algo, threads):
+    """The paper fleet's 8 DCs on a block of one warp (the warp sums every
+    DC's power tree), job_cap 100 (not a multiple of the block), both
+    modes, against the plain version bitwise over two chunks."""
+    fleet = build_fleet()
+    params = SimParams(algo=algo, duration=60.0, job_cap=100, queue_cap=8,
+                       lat_window=64, inf_rate=30.0, trn_rate=2.0,
+                       log_interval=0.5, seed=6)
+    if algo == "chsac_af":
+        eng, agent = _rl_engine(fleet, params, cuda)
+        st = with_lane_axis(init_state(params.seed, fleet, params,
+                                       workload=eng.workload, device=cuda))
+        assert rl_kernel_vs_plain(eng, agent.sac, st, N_STEPS, 2, threads) == []
+    else:
+        eng = Engine(fleet, params, device=cuda)
+        st = with_lane_axis(init_state(params.seed, fleet, params,
+                                       workload=eng.workload, device=cuda))
+        assert kernel_vs_plain(eng, st, N_STEPS, 2, threads) == []
+    assert int(st.n_finished.sum()) > 20
 
 
 @pytest.mark.gpu
@@ -172,17 +203,25 @@ def _syncs(fn):
 
 
 @pytest.mark.gpu
-def test_event_scan_kernel_reads_nothing_back(cuda):
-    """The B1 wrapper, launch included, makes no synchronizing CUDA call: no
-    host read inside the chunk (a scalar read is seen, so the count works)."""
+@pytest.mark.parametrize("algo", ["default_policy", "chsac_af"])
+def test_event_scan_kernel_reads_nothing_back(cuda, algo):
+    """The B1 wrapper, launch included, makes no synchronizing CUDA call in
+    either mode: no host read inside the chunk (a scalar read is seen, so
+    the count works)."""
     fleet = build_duo_fleet()
-    params = SimParams(duration=5.0, job_cap=16, queue_cap=16, lat_window=16, seed=3)
-    eng = Engine(fleet, params, device=cuda)
+    params = SimParams(algo=algo, duration=5.0, job_cap=16, queue_cap=16,
+                       lat_window=16, seed=3)
+    sac = None
+    if algo == "chsac_af":
+        eng, agent = _rl_engine(fleet, params, cuda)
+        sac = agent.sac
+    else:
+        eng = Engine(fleet, params, device=cuda)
     st = with_lane_axis(init_state(params.seed, fleet, params,
                                    workload=eng.workload, device=cuda))
     pre = eng.workload.tables(st, 256)
-    b1.event_scan(eng, st, pre, 256)  # first call: loads the library
-    assert _syncs(lambda: b1.event_scan(eng, st, pre, 256)) == []
+    b1.event_scan(eng, st, pre, 256, sac)  # first call: loads the library
+    assert _syncs(lambda: b1.event_scan(eng, st, pre, 256, sac)) == []
     assert len(_syncs(lambda: int(st.n_events.sum()))) >= 1
 
 
@@ -256,12 +295,12 @@ def _em_mismatches(a, b, where):
     return bad
 
 
-def rl_kernel_vs_plain(eng, sac, state, n_steps, n_chunks):
+def rl_kernel_vs_plain(eng, sac, state, n_steps, n_chunks, threads=None):
     other = clone_state(state)
     bad = []
     for c in range(n_chunks):
         pre = eng.workload.tables(state, n_steps)
-        em_k, _ = b1.event_scan(eng, state, pre, n_steps, sac)
+        em_k, _ = b1.event_scan(eng, state, pre, n_steps, sac, threads=threads)
         em_r, _ = b1.event_scan_reference(eng, other, pre, n_steps, sac)
         eng.workload.advance_carries(state, pre)
         eng.workload.advance_carries(other, pre)
@@ -272,12 +311,14 @@ def rl_kernel_vs_plain(eng, sac, state, n_steps, n_chunks):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("threads", RL_WIDTHS)
 @pytest.mark.parametrize("greedy", [False, True], ids=["sampled", "greedy"])
 @pytest.mark.parametrize("load", list(RL_LOADS))
-def test_event_scan_rl_mode_matches_plain_version(cuda, load, greedy):
+def test_event_scan_rl_mode_matches_plain_version(cuda, load, greedy, threads):
     """B1 in RL mode (B3 and B4 inside the event loop) against the plain
     step on the card, bitwise: state leaves (the slab's RL trace included)
-    and every emission (the RL records included), two chunks."""
+    and every emission (the RL records included), two chunks; at the block
+    width the wrapper launches and at one warp."""
     fl, kw = RL_LOADS[load]
     fleet = FLEETS[fl]()
     params = SimParams(algo="chsac_af", duration=400.0, lat_window=64, seed=3,
@@ -286,14 +327,15 @@ def test_event_scan_rl_mode_matches_plain_version(cuda, load, greedy):
     st = with_lane_axis(init_state(params.seed, fleet, params,
                                    workload=eng.workload, device=cuda))
     before = (b1.event_scan.launches, b1.event_scan.rl_launches)
-    assert rl_kernel_vs_plain(eng, agent.sac, st, N_STEPS, 2) == []
+    assert rl_kernel_vs_plain(eng, agent.sac, st, N_STEPS, 2, threads) == []
     assert (b1.event_scan.launches, b1.event_scan.rl_launches) == (
         before[0] + 2, before[1] + 2)
     assert int(st.jobs.rl_valid.sum()) > 0 and int(st.n_finished.sum()) > 20
 
 
 @pytest.mark.gpu
-def test_event_scan_rl_mode_lanes_and_run_end(cuda):
+@pytest.mark.parametrize("threads", RL_WIDTHS)
+def test_event_scan_rl_mode_lanes_and_run_end(cuda, threads):
     """Two lanes past the end of the simulation in RL mode: the done steps
     repeat the final record, against the plain version."""
     fleet = build_duo_fleet()
@@ -301,8 +343,33 @@ def test_event_scan_rl_mode_lanes_and_run_end(cuda):
                        lat_window=16, log_interval=0.5, seed=4)
     eng, agent = _rl_engine(fleet, params, cuda)
     st = batched_init(fleet, params, 2, workload=eng.workload, device=cuda)
-    assert rl_kernel_vs_plain(eng, agent.sac, st, 512, 3) == []
+    assert rl_kernel_vs_plain(eng, agent.sac, st, 512, 3, threads) == []
     assert bool(st.done.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", RL_WIDTHS)
+@pytest.mark.parametrize("job_cap", [1025, 2048])
+def test_event_scan_rl_mode_large_slabs(cuda, job_cap, threads):
+    """RL mode on the paper fleet at the published policy and W = 2,048
+    with slabs past 1,024 slots, whose DC-summing warps keep scratch rows:
+    job_cap 1,025 (one summing warp, so that block 0 keeps its slice) and
+    the evaluation's 2,048 (block 0 gives up its slice, the other blocks
+    hold the weights); bitwise against the plain version over two
+    chunks."""
+    fleet = build_fleet()
+    params = SimParams(algo="chsac_af", duration=60.0, job_cap=job_cap,
+                       queue_cap=8, lat_window=2048, inf_rate=30.0,
+                       trn_rate=2.0, log_interval=0.5, seed=7)
+    eng, agent = _rl_engine(fleet, params, cuda)
+    _, widths = b1.policy_operands(eng, agent.sac, cuda)
+    n_sum, cs, lead = b1.block_plan(eng, threads, widths)
+    assert cs > 1 and lead == (job_cap == 1025)
+    assert n_sum == 1 or job_cap == 2048
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device=cuda))
+    assert rl_kernel_vs_plain(eng, agent.sac, st, N_STEPS, 2, threads) == []
+    assert int(st.jobs.rl_valid.sum()) > 0 and int(st.n_finished.sum()) > 20
 
 
 @pytest.mark.gpu
@@ -325,8 +392,9 @@ def test_event_scan_rl_mode_needs_the_ports_policy(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("threads", RL_WIDTHS)
 @pytest.mark.parametrize("fleet_fn,W", [(build_duo_fleet, 64), (build_fleet, 2048)])
-def test_rl_tail_device_code_matches_plain_version(cuda, fleet_fn, W):
+def test_rl_tail_device_code_matches_plain_version(cuda, fleet_fn, W, threads):
     """B3 and B4 through the standalone launch: every ring's p99 and every
     row's log-probabilities bitwise, the sampled actions equal."""
     from distributed_cluster_gpus_tpu_torch.ops import prng
@@ -353,7 +421,8 @@ def test_rl_tail_device_code_matches_plain_version(cuda, fleet_fn, W):
     m_dc[0] = False
     m_dc[0, -1] = True
     keys = prng.split(prng.key(5, cuda), M).contiguous()
-    out = b1.rl_tail_batch(eng, agent.sac, buf, cnt, obs, m_dc, m_g, keys)
+    out = b1.rl_tail_batch(eng, agent.sac, buf, cnt, obs, m_dc, m_g, keys,
+                           threads=threads)
     ref = algos.windowed_percentile(buf, cnt, 99.0)
     nan = torch.isnan(ref)
     assert torch.equal(torch.isnan(out["p99"]), nan)

@@ -181,8 +181,8 @@ def test_lagrange_trajectory_matches_over_20_updates(sample_j):
     rbj, rbt = _rings("wrapped")
     cons_j = jcmdp.default_constraints(300.0, power_cap=500.0)
     cons_t = tcmdp.default_constraints(300.0, power_cap=500.0)
-    st_j, st_t = jcmdp.cmdp_init(cons_j), tcmdp.cmdp_init(cons_t)
-    gains = tcmdp._gains(cons_t)
+    st_j, st_t = jcmdp.cmdp_init(cons_j), tcmdp.cmdp_init(cons_t, device="cpu")
+    gains = tcmdp._gains(cons_t, device="cpu")
     upd_j = jax.jit(lambda s, c: jcmdp.update_lagrange(s, cons_j, c))
     lams = []
     for i in range(20):

@@ -155,7 +155,7 @@ class TestCMDP:
 
     def test_lambda_monotone_under_violation(self):
         cons = (tcmdp.ConstraintSpec("latency_p99", 500.0),)
-        st, gains = tcmdp.cmdp_init(cons), tcmdp._gains(cons)
+        st, gains = tcmdp.cmdp_init(cons, "cpu"), tcmdp._gains(cons, "cpu")
         lams = []
         for _ in range(20):
             st, _ = tcmdp.update_lagrange(st, gains, torch.full((8, 1), 510.0))
@@ -167,7 +167,8 @@ class TestCMDP:
 
     def test_lambda_clamped(self):
         cons = (tcmdp.ConstraintSpec("x", 0.0, kp=100.0, lambda_max=10.0),)
-        st, _ = tcmdp.update_lagrange(tcmdp.cmdp_init(cons), tcmdp._gains(cons),
+        st, _ = tcmdp.update_lagrange(tcmdp.cmdp_init(cons, "cpu"),
+                                      tcmdp._gains(cons, "cpu"),
                                       torch.full((4, 1), 1e9))
         assert float(st.lam[0]) == 10.0
 
@@ -178,8 +179,23 @@ def small(request):
     return cfg, fake_ring(cfg)
 
 
+def test_learner_entry_points_default_to_the_card(monkeypatch):
+    """``sac_init``, ``cmdp_init`` and ``_gains`` run on the card unless
+    asked for the CPU: without a GPU they raise, and never fall back."""
+    cfg = small_cfg()
+    cons = (tcmdp.ConstraintSpec("latency_p99", 500.0),)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tsac.sac_init(cfg, torch.Generator().manual_seed(0)),
+                 lambda: tcmdp.cmdp_init(cons), lambda: tcmdp._gains(cons)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert tcmdp.cmdp_init(cons, "cpu").lam.device.type == "cpu"
+    assert tsac.sac_init(cfg, torch.Generator().manual_seed(0),
+                         "cpu").log_alpha.device.type == "cpu"
+
+
 def _fresh(cfg, seed=0):
-    return tsac.sac_init(cfg, torch.Generator().manual_seed(seed))
+    return tsac.sac_init(cfg, torch.Generator().manual_seed(seed), device="cpu")
 
 
 def _maxdiff(a, b):
