@@ -67,23 +67,29 @@ Phases (any failure exits non-zero before the result lines):
     loss and gradient; |td| exactly at kappa and at 0), B5b (the target and
     the actor marginalization with its gradient, both critics' layouts;
     masked and all-masked heads, done in {0, 1}), B5c (clipped Adam on the
-    four parameter groups; the clip on and off, a zero gradient, steps 1
-    and 1,000, the Polyak target, the alpha clamp) and B6b (the replay
-    sample on 200,000-row rings: empty, full, wrapped with gaps, one valid
-    row), each timed beside its plain version, its bound and a one-call
-    PyTorch yardstick where there is one;
+    four parameter groups in one call; the clip on and off, a zero
+    gradient, steps 1 and 1,000, the count at saturation, the Polyak
+    target, the alpha clamp) and B6b (the replay sample on 200,000-row
+    rings: empty, full, wrapped with gaps, one valid row; batches 1, 256
+    and 4,096; the key given or derived on the card from a chunk key and
+    an update index), each timed beside its plain version, its bound and a
+    one-call PyTorch yardstick where there is one;
 14. (k) whole updates at the published shape (the learning CLI's agent,
-    batch 256, a 200,000-row ring filled through B6a): the kernel path
-    against the plain path from one state and key chain, every state leaf
-    and metric bitwise (cuBLAS deterministic); ms per update and one
-    profiled update (matmuls, the port's kernels, other ops, gaps);
+    batch 256, a 200,000-row ring filled through B6a): one chunk of updates
+    three ways from one state and key chain, as the CLI runs it (one
+    update captured as a CUDA graph and replayed once per update), every
+    update eager through the kernels, and the plain path, every state leaf
+    and metric bitwise (cuBLAS deterministic); ms per update each way and
+    profiled updates (device ops per update, busy share, by kind);
 15. (l) B1 in RL mode with the weights (k) trained, one 1,024-step chunk at
     the chsac_af CLI's shape, bitwise against the plain step;
 16. (m) the learning CLI: chsac_af for 600 s at the default warm-up: B1, B2
-    and B6a once per chunk, each update kernel its per-update count times
-    the updates, the updates the schedule asks for, no synchronizing call
-    with B1, B6a or train_steps on the stack, metrics finite, alpha capped;
-    then the heads critic for 300 s with the same launch checks;
+    and B6a once per chunk, every update after the first a replay of the
+    one captured graph (each update kernel counted by its wrapper in the
+    first, eager update and in the capture), the updates the schedule asks
+    for, no synchronizing call with B1, B6a or train_steps on the stack
+    apart from the capture's, metrics finite, alpha capped; then the heads
+    critic for 300 s with the same checks;
 17. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
@@ -126,6 +132,9 @@ H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # non-tensor float32 peak, H100 SXM data sheet
 SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's clock: time to queue launches
+#: device_ms's profiled pass: median us of each kernel it saw, by the kernel
+#: name device_ms was asked for (several kernels when a call launches several)
+KERNEL_US = {}
 # integer ops of one threefry-2x32 block: 20 rounds of add/rotate(3)/xor
 # plus 5 key injections of 4 adds and the 2 initial adds
 THREEFRY_OPS = 20 * 5 + 5 * 4 + 2
@@ -216,9 +225,14 @@ def device_ms(fn, kernel, reps=20, runs=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_events = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in dev_events]
     seen = sum(kernel in n for n in names)
+    per = {}
+    for e in dev_events:
+        per.setdefault(e.name[:80], []).append(e.time_range.elapsed_us())
+    KERNEL_US[kernel] = {k: statistics.median(v) for k, v in per.items()}
     others = sorted(set(n for n in names if kernel not in n))
     if others:
         fail(f"{reps} calls meant to launch only {kernel} ran other device "
@@ -325,8 +339,10 @@ class SyncCounter:
     line; the counter sees it while that line's stack is live, so it counts
     a call as inside a chunk when the B1 wrapper (which spans the launch),
     the plain step loop, the B6a wrapper or the agent's ``train_steps`` (a
-    chunk's updates) is on the stack, and also counts
-    every call by the file of its line."""
+    chunk's updates, the graph's replays among them) is on the stack, apart
+    from the calls of the update's one CUDA-graph capture (``in_capture``:
+    the capture synchronizes the device once before it records), and also
+    counts every call by the file of its line."""
 
     def __enter__(self):
         from distributed_cluster_gpus_tpu_torch.kernels.event_scan import (
@@ -339,7 +355,8 @@ class SyncCounter:
         self._chunk_code = {event_scan.__code__, StepProgram.scan_plain.__code__,
                             replay_ingest.__code__,
                             CHSAC_AF.train_steps.__code__}
-        self.by_file, self.in_chunk = {}, 0
+        self._capture_code = CHSAC_AF._capture.__code__
+        self.by_file, self.in_chunk, self.in_capture = {}, 0, 0
         self._catch = warnings.catch_warnings()
         self._catch.__enter__()
         warnings.simplefilter("always")
@@ -354,6 +371,9 @@ class SyncCounter:
         self.by_file[filename] = self.by_file.get(filename, 0) + 1
         f = sys._getframe(1)
         while f is not None:
+            if f.f_code is self._capture_code:
+                self.in_capture += 1
+                return
             if f.f_code in self._chunk_code:
                 self.in_chunk += 1
                 return
@@ -1524,14 +1544,16 @@ def phase_update_kernels(report):
     out["b5b_actor"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
                         "library_ms": None, "profiler_launches_seen": seen}
-    # ---- B5c: the four groups at their published sizes; the clip on and
-    # off, a zero gradient, steps 1 and 1,000; the critic with its target,
-    # log alpha with its clamp
+    # ---- B5c: the four groups at their published sizes in one call (the
+    # update's); the clip on and off, a zero gradient, steps 1 and 1,000,
+    # the count at saturation; the critic with its target, log alpha with
+    # its clamp
     sizes = {"critic": 287_808, "actor": 69_904, "enc": 144_384, "alpha": 1}
     cfg = optim.AdamConfig()
     clamp = float(torch.log(torch.tensor(10.0)))
     n_case = 0
-    for case in ("clip", "no_clip", "zero", "step1000"):
+    for case in ("clip", "no_clip", "zero", "step1000", "saturated"):
+        host = []
         for grp, n in sizes.items():
             p = torch.randn(n, generator=g)
             if grp == "alpha":
@@ -1539,41 +1561,43 @@ def phase_update_kernels(report):
             grad = torch.randn(n, generator=g) * (0.1 if case == "clip" else 1e-4)
             if case == "zero":
                 grad.zero_()
-            step = 999 if case == "step1000" else 0
+            step = {"step1000": 999, "saturated": optim.INT32_MAX}.get(case, 0)
             mu = torch.randn(n, generator=g) * 0.01 if step else torch.zeros(n)
             nu = torch.rand(n, generator=g) * 1e-4 if step else torch.zeros(n)
             tgt0 = torch.randn(n, generator=g) if grp == "critic" else None
-            res = []
-            for plain_path in (False, True):
-                st = optim.AdamState(torch.tensor(step, dtype=torch.int32).cuda(),
-                                     mu.cuda(), nu.cuda())
-                pp = p.cuda()
-                tt = None if tgt0 is None else tgt0.cuda()
-                b5c.adam_step(pp, grad.cuda(), st, cfg, target=tt, tau=0.005,
-                              clamp=clamp if grp == "alpha" else None,
-                              plain=plain_path)
-                res.append([pp, st.mu, st.nu, st.count] + ([] if tt is None else [tt]))
-            if not all(_bits(x, y) for x, y in zip(*res)):
-                fail(f"B5c {case} {grp}: differs from its plain version")
-            n_case += 1
+            host.append((grp, p, grad, step, mu, nu, tgt0))
+        res = []
+        for plain_path in (False, True):
+            groups = [b5c.AdamGroup(
+                p.cuda(), grad.cuda(),
+                optim.AdamState(torch.tensor(step, dtype=torch.int32).cuda(),
+                                mu.cuda(), nu.cuda()),
+                None if tgt0 is None else tgt0.cuda(), tau=0.005,
+                clamp=clamp if grp == "alpha" else None)
+                for grp, p, grad, step, mu, nu, tgt0 in host]
+            b5c.adam_update(groups, cfg, plain=plain_path)
+            res.append([t for gr in groups for t in
+                        (gr.p, gr.st.mu, gr.st.nu, gr.st.count)
+                        + (() if gr.target is None else (gr.target,))])
+        if not all(_bits(x, y) for x, y in zip(*res)):
+            fail(f"B5c {case}: differs from its plain version")
+        n_case += 1
     groups = []
     for grp, n in sizes.items():
         p = torch.randn(n, generator=g).cuda()
-        groups.append((grp, p, (torch.randn(n, generator=g) * 0.01).cuda(),
-                       optim.adam_init(p), torch.randn(n, generator=g).cuda()
-                       if grp == "critic" else None))
+        groups.append(b5c.AdamGroup(
+            p, (torch.randn(n, generator=g) * 0.01).cuda(), optim.adam_init(p),
+            torch.randn(n, generator=g).cuda() if grp == "critic" else None,
+            tau=0.005, clamp=clamp if grp == "alpha" else None))
 
     def adam_update(plain_path=False):
-        for grp, p, gr, st, tt in groups:
-            b5c.adam_step(p, gr, st, cfg, target=tt, tau=0.005,
-                          clamp=clamp if grp == "alpha" else None,
-                          plain=plain_path)
+        b5c.adam_update(groups, cfg, plain=plain_path)
 
     ms, seen = device_ms(adam_update, "adam_")
     plain = time_cuda(lambda: adam_update(True), reps=5)
-    lib_params = [torch.nn.Parameter(p.clone()) for _, p, _, _, _ in groups]
-    for lp_, (_, _, gr, _, _) in zip(lib_params, groups):
-        lp_.grad = gr.clone()
+    lib_params = [torch.nn.Parameter(gr.p.clone()) for gr in groups]
+    for lp_, gr in zip(lib_params, groups):
+        lp_.grad = gr.g.clone()
     lib_opt = torch.optim.Adam([{"params": [lp_]} for lp_ in lib_params],
                                lr=cfg.lr, fused=True)
 
@@ -1591,7 +1615,8 @@ def phase_update_kernels(report):
                   "library_ms": lib, "cases": n_case,
                   "profiler_launches_seen": seen}
     # ---- B6b: 200,000-row rings: empty, full, wrapped with invalid gaps,
-    # one valid row
+    # one valid row; batches 1, 256 and 4,096; the sample key given or
+    # derived on the card from a chunk key and an update index
     C = 200_000
     rings = {"empty": seeded_ring(C, 0, 4000, 0.0, 1),
              "full": seeded_ring(C, 50, 4000, 1.0, 2),
@@ -1599,20 +1624,24 @@ def phase_update_kernels(report):
              "one_valid": seeded_ring(C, 1, 4000, 0.0, 4, one_valid=True)}
     if int(rings["full"].size) != C:
         fail("B6b: the full ring is not full")
+    index = torch.tensor(5, dtype=torch.int32, device="cuda")
     for name, rb in rings.items():
-        for i in range(3):
-            key = prng.split(prng.key(60 + i, "cpu"), 2)[0]
-            ko = b6b.replay_sample(rb, key, B)
-            po = replay.replay_sample(rb, key, B)
+        for i, (bs, idx_arg) in enumerate(((B, None), (B, index), (1, None),
+                                           (4096, index))):
+            key = prng.split(prng.key(60 + i, "cuda"), 2)[0]
+            ko = b6b.replay_sample(rb, key, bs, index=idx_arg)
+            po = replay.replay_sample(rb, b6b.sample_key(key, idx_arg), bs)
             for f in (*replay.ROW_FIELDS, "idx"):
                 if not _bits(ko[f], po[f]):
-                    fail(f"B6b {name} ring: {f} differs from its plain version")
+                    fail(f"B6b {name} ring, batch {bs}: {f} differs from its "
+                         "plain version")
     rb = rings["wrapped_gaps"]
-    key = prng.split(prng.key(77, "cpu"), 2)[0]
-    ms, seen = device_ms(lambda: b6b.replay_sample(rb, key, B),
-                         "replay_sample_kernel")
-    plain = time_cuda(lambda: replay.replay_sample(rb, key, B), reps=10)
-    u = prng.uniform_vec(key.cuda(), B)
+    key = prng.split(prng.key(77, "cuda"), 2)[0]
+    ms, seen = device_ms(lambda: b6b.replay_sample(rb, key, B, index=index),
+                         "replay_sample_")
+    plain = time_cuda(lambda: replay.replay_sample(
+        rb, b6b.sample_key(key, index), B), reps=10)
+    u = prng.uniform_vec(b6b.sample_key(key, index), B)
 
     def lib_sample():
         cdf = torch.cumsum(rb.valid.to(torch.float32), 0)
@@ -1624,7 +1653,9 @@ def phase_update_kernels(report):
     row = sum(getattr(rb, f)[0].numel() * getattr(rb, f).element_size()
               for f in replay.ROW_FIELDS)
     by = C + 2 * B * row + 4 * B
-    bnd, bnd_by = bound(by, B * THREEFRY_OPS + 2 * C)
+    # three threefry blocks a draw (the update's key, the sample key, the
+    # draw) and a count per validity byte
+    bnd, bnd_by = bound(by, B * 3 * THREEFRY_OPS + 2 * C)
     out["b6b"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                   "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
                   "library_ms": lib, "profiler_launches_seen": seen}
@@ -1633,6 +1664,10 @@ def phase_update_kernels(report):
              "b5b_actor": "B5b actor marginalization (+ gradient)",
              "b5c": "B5c clipped Adam, four groups (one update)",
              "b6b": "B6b replay sample (C=200,000)"}
+    out["b5c"]["kernel_us"] = KERNEL_US.get("adam_")
+    out["b6b"]["kernel_us"] = KERNEL_US.get("replay_sample_")
+    print(f"B5c kernels (profiled, median us): {out['b5c']['kernel_us']}; "
+          f"B6b: {out['b6b']['kernel_us']}")
     for k, v in out.items():
         lib_s = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
         print(f"{names[k]}: bitwise equal to its plain version; kernel "
@@ -1663,7 +1698,7 @@ def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S):
 
 
 UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
-                   "adam_step", "replay_sample")
+                   "adam_update", "replay_sample")
 
 
 def update_counters():
@@ -1675,134 +1710,283 @@ def update_counters():
     return {"quantile_huber": b5.quantile_huber,
             "marginal_target": b5.marginal_target,
             "marginal_actor": b5.marginal_actor,
-            "adam_step": b5c.adam_step, "replay_sample": b6b.replay_sample}
+            "adam_update": b5c.adam_update, "replay_sample": b6b.replay_sample}
 
 
 #: wrapper calls of each update kernel per update
 PER_UPDATE = {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
-              "adam_step": 4, "replay_sample": 1}
+              "adam_update": 1, "replay_sample": 1}
 
 
-def phase_update_whole(report):
-    """(k) whole updates at the published shape (the learning CLI's agent:
-    256-wide networks, N = 32, 8 x 8 actions, batch 256, a 200,000-row ring
-    filled through B6a with seeded windows, done in {0, 1}): the kernel
-    path against the plain path from the same state and key chain, the
-    matmuls deterministic in both; every leaf of the state and every metric
-    bitwise.  Then ms per update on the kernel path, and one profiled update:
-    device time by kind (matmuls, the port's kernels, other torch ops) and
-    the gaps between.  Returns the trained agent."""
+#: updates in the chunk that phase (k) holds bitwise across the three paths
+GRAPH_CHUNK = 16
+
+
+def _profile_updates(agent, n, graph=True):
+    """Profile ``agent.train_steps(n, n)``: (wall us, device busy us by kind,
+    device ops by kind, port kernel names seen, device ops by name)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_cluster_gpus_tpu_torch import bridge
-    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
-
-    fleet, params, _ = learning_params()
-    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
-    agents = []
-    for _ in range(2):
-        ag = make_agent(fleet, params, device="cuda")
-        ag.replay = ring
-        agents.append(ag)
-    k_ag, p_ag = agents
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        mk, nk = k_ag.train_steps(4, 4)
-        mp, np_ = p_ag.train_steps(4, 4, plain=True)
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    if not nk == np_ == 4:
-        fail(f"whole update: {nk} and {np_} updates run, 4 asked for")
-    for k in mk:
-        if not _bits(mk[k], mp[k]):
-            fail(f"whole update: metric {k} differs between the kernel and the "
-                 f"plain path ({mk[k].tolist()} vs {mp[k].tolist()})")
-    cfg = k_ag.cfg
-    bad = bridge.tree_mismatches(bridge.sac_to_numpy(cfg, p_ag.sac),
-                                 bridge.sac_to_numpy(cfg, k_ag.sac))
-    if bad:
-        fail(f"whole update: state differs between the kernel and the plain "
-             f"path at {bad[:5]}")
-    # ms per update (kernel path), 24 updates in one call
-    k_ag.train_steps(2, 2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    k_ag.train_steps(24, 24)
-    torch.cuda.synchronize()
-    ms_update = (time.perf_counter() - t0) * 1e3 / 24
-    plain_t0 = time.perf_counter()
-    p_ag.train_steps(4, 4, plain=True)
-    torch.cuda.synchronize()
-    ms_plain = (time.perf_counter() - plain_t0) * 1e3 / 4
-    counters = update_counters()
-    before = {k: w.launches for k, w in counters.items()}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        k_ag.train_steps(1, 1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    launched = {k: w.launches - before[k] for k, w in counters.items()}
-    if launched != PER_UPDATE:
-        fail(f"whole update: kernel calls per update {launched}, expected "
-             f"{PER_UPDATE}")
     ours = ("quantile_huber_kernel", "marginal_target_kernel",
             "marginal_actor_kernel", "adam_norm_kernel", "adam_apply_kernel",
-            "replay_sample_kernel")
+            "replay_sample_count_kernel", "replay_sample_draw_kernel")
     kinds = {"matmul": 0.0, "port kernels": 0.0, "other torch ops": 0.0}
     n_ops = {"matmul": 0, "port kernels": 0, "other torch ops": 0}
     seen = {k: 0 for k in ours}
+    by_name = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.train_steps(n, n, graph=graph)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     for e in prof.events():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        dur = e.time_range.elapsed_us()
         name = e.name
         hit = [k for k in ours if k in name]
         if hit:
             kind = "port kernels"
             seen[hit[0]] += 1
-        elif any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet",
+        elif any(x in name.lower() for x in ("gemm", "cutlass", "xmma", "nvjet",
                                              "cublas", "sm90_")):
             kind = "matmul"
+        elif "memcpy" in name.lower() or "memset" in name.lower():
+            continue
         else:
             kind = "other torch ops"
-        kinds[kind] += dur
+        kinds[kind] += e.time_range.elapsed_us()
         n_ops[kind] += 1
-    busy = sum(kinds.values())
-    if busy == 0:
-        fail("whole update: the profiler saw no device activity")
-    layers = k_ag.sac.layers()
+        by_name[name[:80]] = by_name.get(name[:80], 0) + 1
+    return wall_us, kinds, n_ops, seen, by_name
+
+
+def _graph_device_ms(agent, n=2, runs=5):
+    """Device time per update of ``n`` graph replays queued behind a spin
+    kernel (CUDA events around them: the graph's span on the card, its
+    gaps between kernels included, not the host's launch time; a replay
+    queues ~600 kernels, so only a few fit in the launch queue at once);
+    the median of ``runs``."""
+    agent.train_steps(2, 2)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        s1.record()
+        t0 = time.perf_counter()
+        agent.train_steps(n, n)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e.record()
+        e.synchronize()
+        if host_ms >= s0.elapsed_time(s1):
+            fail(f"graph device time: queueing {n} replays took {host_ms:.2f} "
+                 f"ms, longer than the {s0.elapsed_time(s1):.2f} ms spin")
+        times.append(s1.elapsed_time(e) / n)
+    return statistics.median(times)
+
+
+#: the initial weights drawn on the card against the same draw on the CPU
+#: (which ``tests/test_torch_rl_init.py`` holds to the JAX package's): the
+#: threefry bits are equal, torch's ``log1p`` inside ``erf_inv`` may differ
+#: by an ulp between the two devices
+INIT_CARD_ULP = 4
+
+
+def init_on_card(fleet, params):
+    """The learning CLI's agent's initial weights (its ``k_init``, both
+    critics) drawn on the card against the same draw on the CPU: every
+    kernel within ``INIT_CARD_ULP`` ulp, everything else bitwise; returns
+    the largest ulp distance and the card's ``sac_init`` ms."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+    from distributed_cluster_gpus_tpu_torch.rl.agent import AGENT_FOLD
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}.{k}")
+        else:
+            yield path, np.asarray(tree)
+
+    def key32(x):
+        i = x.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    k_init = prng.split(prng.fold_in(prng.key(params.seed, "cpu"), AGENT_FOLD),
+                        2)[1]
+    out = {}
+    for arch in ("onehot", "heads"):
+        cfg = make_agent(fleet, dataclasses.replace(params, critic_arch=arch),
+                         device="cpu").cfg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = rsac.sac_init(cfg, k_init, "cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = dict(leaves(bridge.sac_to_numpy(cfg, rsac.sac_init(cfg, k_init,
+                                                                 "cpu"))))
+        worst = 0
+        for path, x in leaves(bridge.sac_to_numpy(cfg, card)):
+            y = cpu[path]
+            if x.dtype == np.float32 and path.endswith(".kernel"):
+                worst = max(worst, int(np.abs(key32(x) - key32(y)).max()))
+            elif not np.array_equal(x, y):
+                fail(f"initial weights ({arch}): {path} differs between the "
+                     "card's draw and the CPU's")
+        if worst > INIT_CARD_ULP:
+            fail(f"initial weights ({arch}): the card's draw is {worst} ulp "
+                 f"from the CPU's (bound {INIT_CARD_ULP})")
+        out[arch] = {"max_ulp": worst, "card_ms": ms}
+    print(f"initial weights drawn on the card vs on the CPU (the CLI's k_init): "
+          f"{out}")
+    return out
+
+
+def phase_update_whole(report):
+    """(k) whole updates at the published shape (the learning CLI's agent:
+    256-wide networks, N = 32, 8 x 8 actions, batch 256, a 200,000-row ring
+    filled through B6a with seeded windows, done in {0, 1}): one chunk of
+    ``GRAPH_CHUNK`` updates three ways from the same state and key chain,
+    the update captured as a CUDA graph and replayed (the main path), every
+    update run eagerly through the kernels, and the plain path; the matmuls
+    deterministic in all three; every leaf of the state and every metric
+    bitwise.  Then ms per update each way, and profiled updates: device ops
+    per update and the device's busy share, by kind (matmuls, the port's
+    kernels, other torch ops), for the replayed graph and the eager path.
+    Returns the graph path's trained agent."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    fleet, params, _ = learning_params()
+    init = init_on_card(fleet, params)
+    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
+    agents = []
+    for _ in range(3):
+        ag = make_agent(fleet, params, device="cuda")
+        ag.replay = ring
+        agents.append(ag)
+    g_ag, e_ag, p_ag = agents
+    n = GRAPH_CHUNK
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mg, ng = g_ag.train_steps(n, n)
+        me, ne = e_ag.train_steps(n, n, graph=False)
+        mp, np_ = p_ag.train_steps(n, n, plain=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not ng == ne == np_ == n:
+        fail(f"whole update: {ng}, {ne} and {np_} updates run, {n} asked for")
+    if (g_ag.graph_captures, g_ag.graph_replays) != (1, n - 1):
+        fail(f"whole update: {g_ag.graph_captures} captures and "
+             f"{g_ag.graph_replays} replays for a chunk of {n} updates")
+    cfg = g_ag.cfg
+    for name, m, ag in (("eager kernel", me, e_ag), ("plain", mp, p_ag)):
+        for k in mg:
+            if not _bits(mg[k], m[k]):
+                fail(f"whole update: metric {k} differs between the graph and "
+                     f"the {name} path ({mg[k].tolist()} vs {m[k].tolist()})")
+        bad = bridge.tree_mismatches(bridge.sac_to_numpy(cfg, ag.sac),
+                                     bridge.sac_to_numpy(cfg, g_ag.sac))
+        if bad:
+            fail(f"whole update: state differs between the graph and the "
+                 f"{name} path at {bad[:5]}")
+    # the graph above was captured under deterministic mode, which fills
+    # every new allocation (~200 fills an update); the CLI's is not: capture
+    # again for the timings and profiles below
+    g_ag.drop_graph()
+    # ms per update: the graph (replays only), the eager kernel path, plain
+    timing = {}
+    for name, ag, reps, kw in (("graph", g_ag, 64, {}),
+                               ("eager", e_ag, 24, {"graph": False}),
+                               ("plain", p_ag, 4, {"plain": True})):
+        ag.train_steps(2, 2, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ag.train_steps(reps, reps, **kw)
+        torch.cuda.synchronize()
+        timing[name] = (time.perf_counter() - t0) * 1e3 / reps
+    timing["graph_device"] = _graph_device_ms(g_ag)
+    counters = update_counters()
+    before = {k: w.launches for k, w in counters.items()}
+    n_eager = 4
+    e_prof = _profile_updates(e_ag, n_eager, graph=False)
+    launched = {k: w.launches - before[k] for k, w in counters.items()}
+    if launched != {k: v * n_eager for k, v in PER_UPDATE.items()}:
+        fail(f"whole update: kernel calls in {n_eager} eager updates "
+             f"{launched}, expected {PER_UPDATE} each")
+    launched = {k: v // n_eager for k, v in launched.items()}
+    replays0 = g_ag.graph_replays
+    before = {k: w.launches for k, w in counters.items()}
+    n_prof = 8
+    g_prof = _profile_updates(g_ag, n_prof)
+    if g_ag.graph_replays - replays0 != n_prof or any(
+            w.launches != before[k] for k, w in counters.items()):
+        fail("whole update: the profiled chunk did not run as graph replays")
+    prof = {}
+    for name, (wall_us, kinds, n_ops, seen, by_name), per in (
+            ("graph", g_prof, n_prof), ("eager", e_prof, n_eager)):
+        busy = sum(kinds.values())
+        if busy == 0:
+            fail(f"whole update ({name}): the profiler saw no device activity")
+        prof[name] = {"wall_us_per_update": wall_us / per,
+                      "busy_us_per_update": busy / per,
+                      "busy_share": busy / wall_us,
+                      "busy_share_unprofiled": busy / per / (
+                          1e3 * timing[name]),
+                      "ops_by_name": by_name,
+                      "device_us_per_update": {k: v / per for k, v in kinds.items()},
+                      "device_ops_per_update": {k: v / per for k, v in n_ops.items()},
+                      "launches_per_update": sum(n_ops.values()) / per,
+                      "port_kernels_seen": seen}
+    layers = g_ag.sac.layers()
     nonzero_bias = all(bool(l.bias.ne(0).any()) for l in layers)
     # the two all-actions products (the target critic's on s1, the online
     # critic's on s0), the bulk of an update's matmul work: B * A rows
     # through both twins, 2 operations per multiply-add, at the bf16 peak
     rows = cfg.batch * cfg.n_dc * cfg.n_g
-    mm_ops = 2 * 2 * rows * sum(l.kernel.numel() for l in k_ag.sac.critic.layers)
+    mm_ops = 2 * 2 * rows * sum(l.kernel.numel() for l in g_ag.sac.critic.layers)
     mm_bound_ms = mm_ops / H100_BF16_OPS_PER_S * 1e3
+    pg, pe = prof["graph"], prof["eager"]
     print(f"whole update at the published shape (batch {cfg.batch}, N "
           f"{cfg.n_quantiles}, {cfg.n_dc}x{cfg.n_g} actions, ring "
-          f"{params.rl_buffer}): 4 updates bitwise equal between the kernel "
-          f"and the plain path (every state leaf and metric); kernel path "
-          f"{ms_update:.3f} ms per update, plain path {ms_plain:.3f} ms; one "
-          f"profiled update: {wall_us:.0f} us wall, device busy {busy:.0f} us "
-          f"(matmuls {kinds['matmul']:.0f} us in {n_ops['matmul']} ops, the "
-          f"port's kernels {kinds['port kernels']:.0f} us in "
-          f"{n_ops['port kernels']}, other torch ops "
-          f"{kinds['other torch ops']:.0f} us in {n_ops['other torch ops']}), "
-          f"gaps {wall_us - busy:.0f} us; the two all-actions products "
+          f"{params.rl_buffer}): a chunk of {n} updates bitwise equal between "
+          f"the CUDA graph (1 capture, {n - 1} replays), the eager kernel path "
+          f"and the plain path (every state leaf and metric); ms per update: "
+          f"graph {timing['graph']:.3f}, eager kernels {timing['eager']:.3f}, "
+          f"plain {timing['plain']:.3f}; the graph's span on the card "
+          f"{timing['graph_device']:.3f} ms per update; profiled: graph "
+          f"{pg['wall_us_per_update']:.0f} us wall per update, "
+          f"{pg['launches_per_update']:.0f} device ops per update, busy "
+          f"{pg['busy_us_per_update']:.0f} us (share {pg['busy_share']:.3f} "
+          f"of the profiled wall, {pg['busy_share_unprofiled']:.3f} of the "
+          f"unprofiled; {pg['device_us_per_update']}); eager "
+          f"{pe['wall_us_per_update']:.0f} us wall, "
+          f"{pe['launches_per_update']:.0f} device ops, busy "
+          f"{pe['busy_us_per_update']:.0f} us (share {pe['busy_share']:.3f}, "
+          f"{pe['busy_share_unprofiled']:.3f}; {pe['device_us_per_update']}); "
+          f"the two all-actions products "
           f"{mm_ops / 1e9:.2f} GFLOP, {mm_bound_ms:.4f} ms at the bf16 peak; "
-          f"kernel calls per update {launched}; trained biases non-zero: "
+          f"kernel calls per eager update {launched}; trained biases non-zero: "
           f"{nonzero_bias}")
-    report["update"] = {"ms_per_update": ms_update, "plain_ms_per_update": ms_plain,
-                        "profiled_wall_us": wall_us, "device_us": kinds,
-                        "device_ops": n_ops, "gaps_us": wall_us - busy,
-                        "profiler_kernels_seen": seen,
-                        "all_actions_ops": mm_ops,
+    report["update"] = {"chunk": n, "init": init, "ms_per_update": timing["graph"],
+                        "graph_device_ms_per_update": timing["graph_device"],
+                        "eager_ms_per_update": timing["eager"],
+                        "plain_ms_per_update": timing["plain"],
+                        "profile": prof, "all_actions_ops": mm_ops,
                         "all_actions_bound_ms": mm_bound_ms,
                         "calls_per_update": launched}
     if not nonzero_bias:
         fail("whole update: training left a layer's biases all zero")
-    return k_ag
+    return g_ag
 
 
 def phase_b1_after_learning(report, agent, steps=1024):
@@ -1840,10 +2024,14 @@ def phase_b1_after_learning(report, agent, steps=1024):
 def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
     """One learning CLI run with the launch counters zeroed just before it
     and read just after; fails unless B1 (RL mode), B2 and B6a ran once per
-    chunk, each update kernel its per-update count times the updates, the
-    updates the schedule asked for (one per new transition, at most 256 a
-    chunk, once warm) and every metric finite with alpha <= alpha_max.
-    Returns (final state, wall s, record, launches)."""
+    chunk, every update but the first ran as a replay of the one captured
+    CUDA graph, each update kernel ran its per-update count in the eager
+    first update and was recorded once by the capture (so launched on the
+    card its per-update count times the updates), the updates the schedule
+    asked for ran (one per new transition, at most 256 a chunk, once warm)
+    and every metric is finite with alpha <= alpha_max.  Returns (final
+    state, wall s, record, launches: the update kernels' launches on the
+    card, the captures and the replays)."""
     from distributed_cluster_gpus_tpu_torch import run_sim
     from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
     from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
@@ -1851,7 +2039,7 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
     from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
 
     rec = {"agents": [], "valid": [], "asked": [], "done": [], "metrics": [],
-           "ms": []}
+           "ms": [], "replays": []}
     orig_ingest, orig_train = CHSAC_AF.ingest_chunk, CHSAC_AF.train_steps
 
     def ingest(self, rl_em):
@@ -1859,13 +2047,15 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
         rec["valid"].append(rl_em["valid"].sum())
         return orig_ingest(self, rl_em)
 
-    def train(self, n_train, max_steps=256, plain=False):
+    def train(self, n_train, max_steps=256, plain=False, graph=True):
         t0 = time.perf_counter()
-        m, n = orig_train(self, n_train, max_steps, plain)
+        replays0 = self.graph_replays
+        m, n = orig_train(self, n_train, max_steps, plain, graph)
         torch.cuda.synchronize()
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         rec["asked"].append((n_train, max_steps, self._warm))
         rec["done"].append(n)
+        rec["replays"].append(self.graph_replays - replays0)
         if m is not None:
             rec["metrics"].append({k: v.detach().cpu() for k, v in m.items()})
         return m, n
@@ -1904,11 +2094,21 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
         want = min(n_train, max_steps) if warm else 0
         if n != want:
             fail(f"{where}: {n} updates in a chunk that asked for {want}")
+    # the wrappers count their launches when they run: in the eager
+    # updates (one per capture, before it) and once in each capture, which
+    # records them; a replay relaunches the captured ones
+    agent = rec["agents"][-1]
+    replays, captures = sum(rec["replays"]), agent.graph_captures
+    if replays != updates - captures or replays != agent.graph_replays:
+        fail(f"{where}: {replays} graph replays and {captures} captures for "
+             f"{updates} updates")
     calls = {k: launches[k] for k in counters}
-    want_calls = {k: PER_UPDATE[k] * updates for k in counters}
+    want_calls = {k: PER_UPDATE[k] * 2 * captures for k in counters}
     if calls != want_calls:
         fail(f"{where}: update kernel calls {calls}, expected {want_calls}")
-    agent = rec["agents"][-1]
+    for k in counters:
+        launches[k] = PER_UPDATE[k] * updates  # launched on the card
+    launches["graph_captures"], launches["graph_replays"] = captures, replays
     if agent.sac.step != updates or agent.cfg.critic_arch != arch:
         fail(f"{where}: the agent ({agent.cfg.critic_arch}) took "
              f"{agent.sac.step} steps, {updates} ran")
@@ -1931,7 +2131,8 @@ def phase_learning_cli(report, out_root):
     fleet for 600 s at the default warm-up, 4,096-step chunks, CSVs
     written, checked by ``learning_run``; a second run under torch's sync
     debug mode counts the synchronizing calls made with the B1, B6a or
-    ``train_steps`` code on the stack (none allowed); then the heads critic
+    ``train_steps`` code on the stack (none allowed; the one capture's are
+    counted apart, every replay's with the rest); then the heads critic
     (``--critic-arch heads``) for 300 s, checked the same way."""
     from distributed_cluster_gpus_tpu_torch import run_sim
 
@@ -1941,8 +2142,11 @@ def phase_learning_cli(report, out_root):
         run_sim.main(learning_argv(out + "_syncs"))
     if syncs.in_chunk:
         fail(f"learning CLI: {syncs.in_chunk} synchronizing CUDA calls with the "
-             f"B1, B6a or train_steps code on the stack ({syncs.by_file})")
+             f"B1, B6a or train_steps code on the stack, the capture's aside "
+             f"({syncs.by_file})")
     events, updates = int(st.n_events), sum(rec["done"])
+    replays = [r for r, n in zip(rec["replays"], rec["done"]) if n]
+    upd = report["update"]["profile"]
     upd_ms = sum(m for m, n in zip(rec["ms"], rec["done"]) if n)
     ms_per_update = upd_ms / updates
     last = rec["metrics"][-1]
@@ -1957,9 +2161,14 @@ def phase_learning_cli(report, out_root):
           f"{events / wall:.1f} events/s; {updates} updates in {len(per_chunk)} "
           f"of {n_chunks} chunks ({per_chunk}), {ms_per_update:.3f} ms per "
           f"update (train_steps wall, synchronized), {upd_ms / 1e3:.2f} s of "
-          f"the wall; launches {launches} for {n_chunks} chunks; synchronizing "
-          f"calls with B1, B6a or train_steps on the stack: {syncs.in_chunk} "
-          f"({syncs.total} in the run); last metrics: critic_loss "
+          f"the wall; graph replays per updating chunk {replays} (1 capture); "
+          f"device ops per update {upd['graph']['launches_per_update']:.0f}, "
+          f"device busy share in an update {upd['graph']['busy_share']:.3f} "
+          f"(eager: {upd['eager']['launches_per_update']:.0f}, "
+          f"{upd['eager']['busy_share']:.3f}; phase (k)); launches {launches} "
+          f"for {n_chunks} chunks; synchronizing calls with B1, B6a or "
+          f"train_steps on the stack: {syncs.in_chunk}, in the capture: "
+          f"{syncs.in_capture} ({syncs.total} in the run); last metrics: critic_loss "
           f"{float(last['critic_loss']):.4g}, actor_loss "
           f"{float(last['actor_loss']):.4g}, alpha {float(last['alpha']):.4g}, "
           f"entropy {float(last['entropy']):.4g}, lambda "
@@ -1971,7 +2180,11 @@ def phase_learning_cli(report, out_root):
         "updates": updates, "updates_per_chunk": rec["done"],
         "ms_per_update": ms_per_update, "update_wall_s": upd_ms / 1e3,
         "chunks": n_chunks, "launches": launches,
-        "syncs_in_chunks": syncs.in_chunk, "syncs_total": syncs.total,
+        "graph_replays_per_chunk": rec["replays"],
+        "launches_per_update": upd["graph"]["launches_per_update"],
+        "busy_share_per_update": upd["graph"]["busy_share"],
+        "syncs_in_chunks": syncs.in_chunk, "syncs_in_capture": syncs.in_capture,
+        "syncs_total": syncs.total,
         "last_metrics": {k: v.tolist() for k, v in last.items()},
         "heads": {"duration_s": h_dur, "events": int(h_st.n_events),
                   "wall_s": h_wall, "updates": h_upd, "ms_per_update": h_ms,
@@ -2459,12 +2672,12 @@ def main():
               upd_launches["marginal_target"], report["b5b_target"], None),
         entry("marginal_actor", "marginal.cu", "rl/sac.py:251",
               upd_launches["marginal_actor"], report["b5b_actor"], None),
-        entry("clip_adam_polyak", "adam.cu", "rl/sac.py:279",
-              upd_launches["adam_step"], report["b5c"],
-              report["b5c"]["library_ms"]),
-        entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
-              upd_launches["replay_sample"], report["b6b"],
-              report["b6b"]["library_ms"]),
+        dict(entry("clip_adam_polyak", "adam.cu", "rl/sac.py:279",
+                   upd_launches["adam_update"], report["b5c"],
+                   report["b5c"]["library_ms"]), redesigned=True),
+        dict(entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
+                   upd_launches["replay_sample"], report["b6b"],
+                   report["b6b"]["library_ms"]), redesigned=True),
     ]}
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:

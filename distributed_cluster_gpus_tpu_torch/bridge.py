@@ -27,7 +27,9 @@ import torch
 from .device import resolve_device
 from .models.structs import (DCArrays, FleetSpec, JobSlab, LatWindow,
                              QueueRings, SimState)
+from .ops import prng
 from .ops.physics import LatencyCoeffs, PowerCoeffs
+from .rl.nets import dense_layers, flax_names
 
 _KEY_FIELDS = ("key", "arr_key")
 
@@ -115,19 +117,18 @@ def _adam_state(opt):
     return None
 
 
-def _layer_names(cfg, group):
+def _group_module(sac, group):
+    return {"enc": sac.enc, "actor": sac.actor, "critic": sac.critic,
+            "target": sac.target_critic}[group]
+
+
+def _layer_names(sac, group):
     """flax's names of a group's Dense layers, in the port's layer order."""
-    if group in ("enc", "actor"):
-        return [f"Dense_{k}" for k in range(3)]
-    if cfg.critic_arch == "heads":
-        return [f"twins_{t}_{j}" for t in range(2) for j in range(3)]
-    return [f"Dense_{k}" for k in range(6)]
+    return flax_names(_group_module(sac, group))
 
 
 def _group_layers(sac, group):
-    mod = {"enc": sac.enc, "actor": sac.actor, "critic": sac.critic,
-           "target": sac.target_critic}[group]
-    return list(mod.layers) if group != "actor" else mod.layers()
+    return dense_layers(_group_module(sac, group))
 
 
 def _flat_np(tree, names):
@@ -167,12 +168,11 @@ def sac_from_flax(cfg, src, device="cuda"):
     from .rl.optim import AdamState
     from .rl.sac import CMDPState, assemble, sac_init
 
-    proto = sac_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    proto = sac_init(cfg, prng.key(0, "cpu"), "cpu")
     trees = {"enc": src.enc_params, "actor": src.actor_params,
              "critic": src.critic_params, "target": src.target_critic_params}
     for group, tree in trees.items():
-        vals = _flat_np(tree, _layer_names(cfg, "critic" if group == "target"
-                                           else group))
+        vals = _flat_np(tree, _layer_names(proto, group))
         flat = proto.flat[group]
         if vals.shape != tuple(flat.shape):
             raise ValueError(f"{group}: {vals.size} parameters vs the port's "
@@ -190,7 +190,7 @@ def sac_from_flax(cfg, src, device="cuda"):
         if group == "alpha":
             mu, nu = (np.asarray(x, np.float32).reshape(1) for x in (adam.mu, adam.nu))
         else:
-            names = _layer_names(cfg, group)
+            names = _layer_names(proto, group)
             mu, nu = _flat_np(adam.mu, names), _flat_np(adam.nu, names)
         opts[group] = AdamState(count=t(adam.count, torch.int32), mu=t(mu),
                                 nu=t(nu))
@@ -213,7 +213,7 @@ def sac_to_numpy(cfg, sac):
     for key, group in (("enc_params", "enc"), ("actor_params", "actor"),
                        ("critic_params", "critic"),
                        ("target_critic_params", "target")):
-        names = _layer_names(cfg, "critic" if group == "target" else group)
+        names = _layer_names(sac, group)
         out[key] = _tree_np(np_(sac.flat[group]), _group_layers(sac, group),
                             names)
     out["log_alpha"] = np_(sac.log_alpha)
@@ -222,7 +222,7 @@ def sac_to_numpy(cfg, sac):
         if group == "alpha":
             mu, nu = np_(st.mu).reshape(()), np_(st.nu).reshape(())
         else:
-            layers, names = _group_layers(sac, group), _layer_names(cfg, group)
+            layers, names = _group_layers(sac, group), _layer_names(sac, group)
             mu = _tree_np(np_(st.mu), layers, names)
             nu = _tree_np(np_(st.nu), layers, names)
         out[attr] = {"count": np_(st.count), "mu": mu, "nu": nu}

@@ -2,15 +2,17 @@
 // Hopper (sm_90a): the port of the XLA-fused optimizer step of
 // `sac_train_step` (distributed_cluster_gpus_tpu/rl/sac.py:279-288 and
 // :300-302): optax's `clip_by_global_norm(5.0)` then `adam(3e-4)` (`_tx`,
-// :117) applied to one parameter group, the critic's Polyak target
+// :117) applied to each parameter group, the critic's Polyak target
 // `(1 - tau) * t + tau * o`, and log alpha's `min(., log(alpha_max))`.  The
 // JAX package has no Pallas kernel.
 //
-// What it computes for one group held in one flat float32 buffer of n
+// What it computes for each group of a table (the update's four: critic,
+// actor, encoder, log alpha), each held in one flat float32 buffer of n
 // elements (p, its gradient g, the moments mu and nu, the step count):
-//   ss     = sum g^2: the buffer read as [K, R, 256] (zero-padded), each
-//            thread (k, j) folding its R squares in order, each block's 256
-//            partials and then the K block sums by the halving tree
+//   ss     = sum g^2: the buffer read as [K, R, 256, 4] (zero-padded), each
+//            thread (k, j) folding its R float4s' squares in order, each
+//            block's 256 partials and then the K block sums by the halving
+//            tree (rl/optim.py::sum_squares, the same order)
 //   gn     = sqrt(ss);  g = gn < max_norm ? g : (g / gn) * max_norm
 //   mu     = c1 * g + b1 * mu;   nu = c2 * (g * g) + b2 * nu
 //   count  = count + 1 (saturating);  bc = 1 - (float)pow((double)b, count)
@@ -22,12 +24,19 @@
 //
 // Bound on the card: bytes.  A step reads g, p, mu, nu (and the target) and
 // writes p, mu, nu (and the target): 28 B per element, 36 with the target;
-// the critic's 287,808 parameters move 10.4 MB, all four groups 15.4 MB
-// (4.6 us at 3.35 TB/s).  Design: two launches.  The first sums the squares
-// in K <= 64 blocks of 256 threads into K partials and writes the new
-// count to scratch; the second, a grid-stride pass, has every block sum the
-// K partials by the same tree (64 floats), then update its elements; the
-// first block stores the new count.  No host read.
+// the four groups' 502,097 parameters move 16.4 MB, 4.9 us at 3.35 TB/s.
+// Design: two launches for all the groups, from a table of groups in the
+// launch's parameters, every block knowing its group from the table's
+// block offsets.  (1) The norm: a block per 1,024 elements of a group's
+// gradient (float4 loads, ~490 blocks at the published sizes), each writing
+// its partial; the group's first block also steps the count and computes
+// the two bias corrections (the float64 powers, once a group).  (2) The
+// elementwise pass: a block per 1,024 elements again, a float4 of each of
+// p, g, mu, nu (and the target) per thread, loaded first; meanwhile every
+// block sums its group's K partials by the tree (K <= 282 at the published
+// sizes: a read from L2 and a tree in shared memory, no grid-wide
+// handshake), so the loads from device memory overlap the norm.  No host
+// read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,97 +46,210 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 64;
+constexpr int kVec = 4;
+constexpr int kMaxBlocks = 1024;  // partials per group (the tree's width)
+constexpr int kMaxGroups = 8;
 constexpr int kInt32Max = 2147483647;
 
-struct Consts {
-  float c1, b1, c2, b2, eps, neg_lr, max_norm, omt, tau, clamp;
-  int has_target, has_clamp;
+struct Group {
+  float *p, *mu, *nu, *target;
+  const float* g;
+  int* count;
+  long long n;
+  int first_block, K, R, has_target, has_clamp;
+  float clamp;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    adam_norm_kernel(const float* __restrict__ g, long long n, int R,
-                     float* __restrict__ partial, const int* count,
-                     int* count_new) {
-  __shared__ float s[kThreads];
-  const long long base = (long long)blockIdx.x * R * kThreads + threadIdx.x;
-  float acc = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    const long long e = base + (long long)r * kThreads;
-    const float x = e < n ? g[e] : 0.0f;
-    acc = acc + x * x;
+struct Table {
+  Group grp[kMaxGroups];
+  int n_groups;
+  float c1, b1, c2, b2, eps, neg_lr, max_norm, omt, tau;
+};
+
+__device__ __forceinline__ int group_of(const Table& t, int block) {
+  int k = 0;
+  while (k + 1 < t.n_groups && block >= t.grp[k + 1].first_block) ++k;
+  return k;
+}
+
+// the float4 at float index e of x (elements at or past n read 0)
+__device__ __forceinline__ float4 load4(const float* x, long long e,
+                                        long long n) {
+  if (e + kVec <= n) return *reinterpret_cast<const float4*>(x + e);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (e < n) v.x = x[e];
+  if (e + 1 < n) v.y = x[e + 1];
+  if (e + 2 < n) v.z = x[e + 2];
+  return v;
+}
+
+__device__ __forceinline__ void store4(float* x, long long e, long long n,
+                                       float4 v) {
+  if (e + kVec <= n) {
+    *reinterpret_cast<float4*>(x + e) = v;
+    return;
   }
-  s[threadIdx.x] = acc;
-  rd::tree_rows(s, 1, kThreads, kThreads);
-  if (threadIdx.x == 0) {
-    partial[blockIdx.x] = s[0];
-    if (blockIdx.x == 0) {
-      const int c = *count;
-      *count_new = c < kInt32Max ? c + 1 : c;
-    }
-  }
+  if (e < n) x[e] = v.x;
+  if (e + 1 < n) x[e + 1] = v.y;
+  if (e + 2 < n) x[e + 2] = v.z;
 }
 
 __global__ void __launch_bounds__(kThreads)
-    adam_apply_kernel(float* __restrict__ p, const float* __restrict__ g,
-                      float* __restrict__ mu, float* __restrict__ nu,
-                      float* __restrict__ target, long long n,
-                      const float* __restrict__ partial, int K,
-                      const int* __restrict__ count_new, int* count,
-                      Consts c) {
-  __shared__ float s[kMaxBlocks];
-  for (int k = threadIdx.x; k < kMaxBlocks; k += blockDim.x)
-    s[k] = k < K ? partial[k] : 0.0f;
-  rd::tree_rows(s, 1, kMaxBlocks, kMaxBlocks);
-  const float gn = sqrtf(s[0]);
-  const bool keep = gn < c.max_norm;
-  const int t = *count_new;
-  const float bc1 = 1.0f - (float)pow((double)c.b1, (double)t);
-  const float bc2 = 1.0f - (float)pow((double)c.b2, (double)t);
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    float gi = g[e];
-    if (!keep) gi = (gi / gn) * c.max_norm;
-    const float m = c.c1 * gi + c.b1 * mu[e];
-    const float v = c.c2 * (gi * gi) + c.b2 * nu[e];
-    const float u = (m / bc1) / (sqrtf(v / bc2 + 0.0f) + c.eps);
-    float pn = p[e] + u * c.neg_lr;
-    if (c.has_target) target[e] = c.omt * target[e] + c.tau * pn;
-    if (c.has_clamp) pn = pn != pn ? pn : fminf(pn, c.clamp);
-    p[e] = pn;
-    mu[e] = m;
-    nu[e] = v;
+    adam_norm_kernel(const __grid_constant__ Table t,
+                     float* __restrict__ partial, float* __restrict__ bc) {
+  __shared__ float s[kThreads];
+  const int gi = group_of(t, blockIdx.x);
+  const Group& G = t.grp[gi];
+  const int k = blockIdx.x - G.first_block;
+  if (k == 0 && threadIdx.x == 32) {
+    // the group's new count and its bias corrections, while the other warps
+    // load (nothing else reads the count until the next update)
+    const int c0 = *G.count;
+    const int c = c0 < kInt32Max ? c0 + 1 : c0;
+    *G.count = c;
+    bc[2 * gi] = 1.0f - (float)pow((double)t.b1, (double)c);
+    bc[2 * gi + 1] = 1.0f - (float)pow((double)t.b2, (double)c);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = t;
+  float acc = 0.0f;
+  for (int r = 0; r < G.R; ++r) {
+    const long long e =
+        ((long long)(k * G.R + r) * kThreads + threadIdx.x) * kVec;
+    const float4 v = load4(G.g, e, G.n);
+    if (r == 0) {
+      acc = v.x * v.x;
+    } else {
+      acc = acc + v.x * v.x;
+    }
+    acc = acc + v.y * v.y;
+    acc = acc + v.z * v.z;
+    acc = acc + v.w * v.w;
+  }
+  s[threadIdx.x] = acc;
+  rd::tree_rows(s, 1, kThreads, kThreads);
+  if (threadIdx.x == 0) partial[blockIdx.x] = s[0];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    adam_apply_kernel(const __grid_constant__ Table t,
+                      const float* __restrict__ partial,
+                      const float* __restrict__ bc) {
+  __shared__ float s[kMaxBlocks];
+  const int gi = group_of(t, blockIdx.x);
+  const Group& G = t.grp[gi];
+  const long long e0 =
+      ((long long)(blockIdx.x - G.first_block) * kThreads + threadIdx.x) * kVec;
+  const long long stride = (long long)G.K * kThreads * kVec;
+  // this thread's first elements, loaded before the norm is known
+  float4 g4, p4, m4, v4, t4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (e0 < G.n) {
+    g4 = load4(G.g, e0, G.n);
+    p4 = load4(G.p, e0, G.n);
+    m4 = load4(G.mu, e0, G.n);
+    v4 = load4(G.nu, e0, G.n);
+    if (G.has_target) t4 = load4(G.target, e0, G.n);
+  }
+  // the group's norm: its K partials by the tree (zero-padded to a power
+  // of two), in every block of the group
+  const int P = rd::pow2_at_least(G.K);
+  for (int i = threadIdx.x; i < P; i += kThreads)
+    s[i] = i < G.K ? partial[G.first_block + i] : 0.0f;
+  rd::tree_rows(s, 1, P, P);
+  const float gn = sqrtf(s[0]), bc1 = bc[2 * gi], bc2 = bc[2 * gi + 1];
+  const bool keep = gn < t.max_norm;
+  for (long long e = e0; e < G.n; e += stride) {
+    if (e != e0) {
+      g4 = load4(G.g, e, G.n);
+      p4 = load4(G.p, e, G.n);
+      m4 = load4(G.mu, e, G.n);
+      v4 = load4(G.nu, e, G.n);
+      if (G.has_target) t4 = load4(G.target, e, G.n);
+    }
+    float gs[kVec] = {g4.x, g4.y, g4.z, g4.w};
+    float ps[kVec] = {p4.x, p4.y, p4.z, p4.w};
+    float ms[kVec] = {m4.x, m4.y, m4.z, m4.w};
+    float vs[kVec] = {v4.x, v4.y, v4.z, v4.w};
+    float ts[kVec] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float gi_ = gs[i];
+      if (!keep) gi_ = (gi_ / gn) * t.max_norm;
+      const float m = t.c1 * gi_ + t.b1 * ms[i];
+      const float v = t.c2 * (gi_ * gi_) + t.b2 * vs[i];
+      const float u = (m / bc1) / (sqrtf(v / bc2 + 0.0f) + t.eps);
+      float pn = ps[i] + u * t.neg_lr;
+      if (G.has_target) ts[i] = t.omt * ts[i] + t.tau * pn;
+      if (G.has_clamp) pn = pn != pn ? pn : fminf(pn, G.clamp);
+      ps[i] = pn;
+      ms[i] = m;
+      vs[i] = v;
+    }
+    store4(G.p, e, G.n, make_float4(ps[0], ps[1], ps[2], ps[3]));
+    store4(G.mu, e, G.n, make_float4(ms[0], ms[1], ms[2], ms[3]));
+    store4(G.nu, e, G.n, make_float4(vs[0], vs[1], vs[2], vs[3]));
+    if (G.has_target)
+      store4(G.target, e, G.n, make_float4(ts[0], ts[1], ts[2], ts[3]));
+  }
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  p, g, mu, nu (and target, or
-// null) are n float32 on the device; count one int32; partial 64 floats and
-// count_new one int32 of scratch.  `consts` holds (1-b1, b1, 1-b2, b2, eps,
-// -lr, max_norm, 1-tau, tau, clamp) as float32, `flags` bit 0 a target, bit
-// 1 a clamp.  K blocks of R squares per thread: rl/optim.py::norm_layout.
-// Returns the first failing launch's cudaError_t, or -1 for a bad layout.
-extern "C" int adam_launch(void* p, const void* g, void* mu, void* nu,
-                           void* target, long long n, const void* count,
-                           void* partial, void* count_new, int K, int R,
-                           const float* consts, int flags, int apply_blocks,
+// Plain C entry point (bound with ctypes).  For each of n_groups groups:
+// ptrs[6k..6k+5] = p, g, mu, nu, target (or 0), count (one int32) on the
+// device, all float buffers 16-byte aligned; ns[k] its n; KR[2k], KR[2k+1]
+// its K blocks and R float4s a thread (rl/optim.py::norm_layout);
+// flags[k] bit 0 a target, bit 1 a clamp; clamps[k] the clamp.  `consts`
+// holds (1-b1, b1, 1-b2, b2, eps, -lr, max_norm, 1-tau, tau) as float32.
+// Scratch: `partial` (the sum of the K floats), `bc` (2 n_groups floats).
+// Returns the first failing launch's cudaError_t, or -1 for a bad table.
+extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
+                           const int* KR, const int* flags,
+                           const float* clamps, int n_groups,
+                           const float* consts, void* partial, void* bc,
                            void* stream) {
-  if (n < 1 || K < 1 || K > kMaxBlocks || R < 1 ||
-      (long long)K * R * kThreads < n || apply_blocks < 1)
-    return -1;
+  if (n_groups < 1 || n_groups > kMaxGroups) return -1;
+  Table t;
+  t.n_groups = n_groups;
+  int blocks = 0;
+  for (int k = 0; k < n_groups; ++k) {
+    Group& G = t.grp[k];
+    G.p = reinterpret_cast<float*>(ptrs[6 * k]);
+    G.g = reinterpret_cast<const float*>(ptrs[6 * k + 1]);
+    G.mu = reinterpret_cast<float*>(ptrs[6 * k + 2]);
+    G.nu = reinterpret_cast<float*>(ptrs[6 * k + 3]);
+    G.target = reinterpret_cast<float*>(ptrs[6 * k + 4]);
+    G.count = reinterpret_cast<int*>(ptrs[6 * k + 5]);
+    G.n = ns[k];
+    G.K = KR[2 * k];
+    G.R = KR[2 * k + 1];
+    G.has_target = flags[k] & 1;
+    G.has_clamp = (flags[k] >> 1) & 1;
+    G.clamp = clamps[k];
+    G.first_block = blocks;
+    if (G.n < 1 || G.K < 1 || G.K > kMaxBlocks || G.R < 1 ||
+        (long long)G.K * G.R * kThreads * kVec < G.n ||
+        (long long)(G.K - 1) * G.R * kThreads * kVec >= G.n ||
+        (G.has_target && G.target == nullptr))
+      return -1;
+    for (int i = 0; i < 5; ++i)
+      if (ptrs[6 * k + i] % 16 != 0) return -1;
+    blocks += G.K;
+  }
+  t.c1 = consts[0];
+  t.b1 = consts[1];
+  t.c2 = consts[2];
+  t.b2 = consts[3];
+  t.eps = consts[4];
+  t.neg_lr = consts[5];
+  t.max_norm = consts[6];
+  t.omt = consts[7];
+  t.tau = consts[8];
   cudaStream_t s = (cudaStream_t)stream;
-  adam_norm_kernel<<<K, kThreads, 0, s>>>((const float*)g, n, R,
-                                          (float*)partial, (const int*)count,
-                                          (int*)count_new);
+  adam_norm_kernel<<<blocks, kThreads, 0, s>>>(
+      t, reinterpret_cast<float*>(partial), reinterpret_cast<float*>(bc));
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  Consts c{consts[0], consts[1], consts[2], consts[3], consts[4], consts[5],
-           consts[6], consts[7], consts[8], consts[9], flags & 1,
-           (flags >> 1) & 1};
-  adam_apply_kernel<<<apply_blocks, kThreads, 0, s>>>(
-      (float*)p, (const float*)g, (float*)mu, (float*)nu, (float*)target, n,
-      (const float*)partial, K, (const int*)count_new, (int*)count, c);
+  adam_apply_kernel<<<blocks, kThreads, 0, s>>>(
+      t, reinterpret_cast<const float*>(partial),
+      reinterpret_cast<const float*>(bc));
   return (int)cudaGetLastError();
 }

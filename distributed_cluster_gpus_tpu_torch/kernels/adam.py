@@ -4,83 +4,114 @@ hand-written CUDA kernel and its wrapper.
 Replaces the XLA-fused optimizer step of the JAX package's
 ``sac_train_step`` (``distributed_cluster_gpus_tpu/rl/sac.py:279-288`` and
 ``:300-302``: optax's ``clip_by_global_norm`` + ``adam`` of ``_tx``,
-``:117``, the critic's Polyak target and ``log_alpha``'s cap) for one
-parameter group held in one flat buffer.  ``csrc/adam.cu``'s head note
-gives its design and bound.
+``:117``, the critic's Polyak target and ``log_alpha``'s cap) for every
+parameter group of an update, each held in one flat buffer.
+``csrc/adam.cu``'s head note gives its design and bound.
 
-:func:`adam_step` is the wrapper ``rl.sac.sac_train_step`` calls once per
-group and update.  A group on the card launches the kernel (built on first
-use; two launches, counted as one call in ``adam_step.launches``) or
-raises; a group on the CPU, or ``plain=True``, runs
-``rl.optim.clip_adam_update``.  There is no fallback.
+:func:`adam_update` is the wrapper ``rl.sac.sac_train_step`` calls once
+per update with its four groups.  Groups on the card launch the kernel
+(built on first use; two launches for all the groups, counted as one call
+in ``adam_update.launches``) or raise; groups on the CPU, or
+``plain=True``, run ``rl.optim.clip_adam_update`` on each.  There is no
+fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
 from . import build
 
 _argtypes = None
-#: grid of the elementwise pass: enough blocks to cover the card's 132 SMs
-#: several times over, fewer for a small group
-APPLY_BLOCKS = 132 * 8
+
+
+@dataclasses.dataclass
+class AdamGroup:
+    """One group of an update: the flat parameters ``p``, their gradient
+    ``g``, their ``rl.optim.AdamState`` ``st``, and optionally the Polyak
+    ``target`` (with ``tau``) and the ``clamp`` after the step."""
+
+    p: torch.Tensor
+    g: torch.Tensor
+    st: object
+    target: Optional[torch.Tensor] = None
+    tau: float = 0.0
+    clamp: Optional[float] = None
 
 
 def _lib():
     global _argtypes
     lib = build.load("adam")
     if _argtypes is None:
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.adam_launch.argtypes = [P, P, P, P, P, LL, P, P, P, I, I, P, I, I, P]
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.adam_launch.argtypes = [P, P, P, P, P, I, P, P, P, P]
         lib.adam_launch.restype = ctypes.c_int
         _argtypes = True
     return lib
 
 
-def adam_step(p: torch.Tensor, g: torch.Tensor, st, cfg,
-              target: Optional[torch.Tensor] = None, tau: float = 0.0,
-              clamp: Optional[float] = None, plain: bool = False) -> None:
-    """One clipped-Adam step of the flat group ``p`` with gradient ``g`` and
-    state ``st`` (``rl.optim.AdamState``) under ``cfg`` (``rl.optim.
-    AdamConfig``), in place; the Polyak ``target`` (with ``tau``) and the
-    ``clamp`` as ``rl.optim.clip_adam_update`` takes them."""
-    from ..rl.optim import THREADS, clip_adam_update, f32, norm_layout
+def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
+    """One clipped-Adam step of every group under ``cfg``
+    (``rl.optim.AdamConfig``), in place, each as
+    ``rl.optim.clip_adam_update`` steps it; the groups share ``tau`` (the
+    critic's target is the only one)."""
+    from ..rl.optim import clip_adam_update, f32, norm_layout
 
-    dev = p.device
+    dev = groups[0].p.device
     if plain or dev.type == "cpu":
-        clip_adam_update(p, g, st, cfg, target=target, tau=tau, clamp=clamp)
+        for gr in groups:
+            clip_adam_update(gr.p, gr.g, gr.st, cfg, target=gr.target,
+                             tau=gr.tau, clamp=gr.clamp)
         return
     if dev.type != "cuda":
-        raise ValueError(f"adam_step: unsupported device {dev}")
-    n = p.numel()
-    op = "adam_step"
+        raise ValueError(f"adam_update: unsupported device {dev}")
+    op = "adam_update"
     f32t = torch.float32
-    for name, t in (("p", p), ("g", g), ("mu", st.mu), ("nu", st.nu)):
-        build.check(op, name, t, f32t, dev, (n,))
-    if target is not None:
-        build.check(op, "target", target, f32t, dev, (n,))
-    build.check(op, "count", st.count, torch.int32, dev, ())
-    k, r = norm_layout(n)
-    partial = torch.empty(k, dtype=f32t, device=dev)
-    count_new = torch.empty((), dtype=torch.int32, device=dev)
-    consts = (ctypes.c_float * 10)(*cfg.constants(), f32(1.0 - tau), f32(tau),
-                                   0.0 if clamp is None else f32(clamp))
-    flags = (target is not None) | ((clamp is not None) << 1)
-    blocks = min(APPLY_BLOCKS, -(-n // THREADS))
+    taus = {gr.tau for gr in groups if gr.target is not None}
+    if len(taus) > 1 or len(groups) > 8:
+        raise ValueError("adam_update: at most 8 groups, one Polyak tau")
+    tau = taus.pop() if taus else 0.0
+    n_g = len(groups)
+    ptrs = (ctypes.c_uint64 * (6 * n_g))()
+    ns = (ctypes.c_longlong * n_g)()
+    kr = (ctypes.c_int * (2 * n_g))()
+    flags = (ctypes.c_int * n_g)()
+    clamps = (ctypes.c_float * n_g)()
+    n_blocks = 0
+    for i, gr in enumerate(groups):
+        n = gr.p.numel()
+        for name, t in (("p", gr.p), ("g", gr.g), ("mu", gr.st.mu),
+                        ("nu", gr.st.nu)) + ((("target", gr.target),)
+                                             if gr.target is not None else ()):
+            build.check(op, name, t, f32t, dev, (n,))
+            if t.data_ptr() % 16:
+                raise ValueError(f"{op}: {name} must be 16-byte aligned")
+        build.check(op, "count", gr.st.count, torch.int32, dev, ())
+        k, r = norm_layout(n)
+        ptrs[6 * i:6 * i + 6] = [
+            gr.p.data_ptr(), gr.g.data_ptr(), gr.st.mu.data_ptr(),
+            gr.st.nu.data_ptr(),
+            0 if gr.target is None else gr.target.data_ptr(),
+            gr.st.count.data_ptr()]
+        ns[i], kr[2 * i], kr[2 * i + 1] = n, k, r
+        flags[i] = (gr.target is not None) | ((gr.clamp is not None) << 1)
+        clamps[i] = 0.0 if gr.clamp is None else f32(gr.clamp)
+        n_blocks += k
+    consts = (ctypes.c_float * 9)(*cfg.constants(), f32(1.0 - tau), f32(tau))
+    partial = torch.empty(n_blocks, dtype=f32t, device=dev)
+    bc = torch.empty(2 * n_g, dtype=f32t, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().adam_launch(
-            p.data_ptr(), g.data_ptr(), st.mu.data_ptr(), st.nu.data_ptr(),
-            0 if target is None else target.data_ptr(), n,
-            st.count.data_ptr(), partial.data_ptr(), count_new.data_ptr(),
-            k, r, consts, flags, blocks, build.stream_of(dev))
+        rc = _lib().adam_launch(ptrs, ns, kr, flags, clamps, n_g, consts,
+                                partial.data_ptr(), bc.data_ptr(),
+                                build.stream_of(dev))
     if rc != 0:
-        why = "a bad layout" if rc == -1 else f"cudaError {rc}"
-        raise RuntimeError(f"adam_step kernel launch failed: {why}")
-    adam_step.launches += 1
+        why = "a bad group table" if rc == -1 else f"cudaError {rc}"
+        raise RuntimeError(f"adam_update kernel launch failed: {why}")
+    adam_update.launches += 1
 
 
-adam_step.launches = 0
+adam_update.launches = 0

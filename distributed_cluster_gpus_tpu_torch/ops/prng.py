@@ -20,10 +20,14 @@ jax.  ``exponential`` and ``normal`` go through ``log1p`` (and for the
 normal, XLA's single-precision ``erf_inv`` polynomial, reproduced here with
 its fused multiply-adds emulated in float64); ``log1p`` differs from XLA's
 by at most an ulp on some inputs, which ``tests/test_torch_ops.py``
-measures and bounds.
+measures and bounds.  ``truncated_normal`` and flax's static fold-in
+(``fold_in_static``) derive the networks' initial weights as flax's
+``lecun_normal`` draws them (``rl/nets.py``).
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -182,6 +186,57 @@ def normal(k):
     """``jax.random.normal(k)``: ``sqrt(2) * erf_inv(u)``, u in (-1, 1)."""
     u = uniform(k, _NORMAL_LO, 1.0)
     return erfinv_f32(u) * _SQRT2_F32
+
+
+def truncated_normal(k, lower: float, upper: float, shape):
+    """``jax.random.truncated_normal(k, lower, upper, shape)`` in float32, on
+    ``k``'s device: ``a = erf(lower / sqrt2)``, ``b = erf(upper / sqrt2)``,
+    ``u`` uniform in [a, b) (element i from the block on counter ``(0, i)``
+    of the flattened shape; bit-exact), ``sqrt2 * erf_inv(u)`` clamped to
+    ``[nextafter(lower, +inf), nextafter(upper, -inf)]``.  The values go
+    through XLA's ``erf_inv`` (:func:`erfinv_f32`) and agree with jax's to
+    the ulps ``tests/test_torch_rl_init.py`` states."""
+    f32 = torch.float32
+    sqrt2 = torch.tensor(_SQRT2_F32, dtype=f32)
+    lo = torch.tensor(lower, dtype=f32)
+    hi = torch.tensor(upper, dtype=f32)
+    a, b = float(torch.erf(lo / sqrt2)), float(torch.erf(hi / sqrt2))
+    inf = torch.tensor(float("inf"), dtype=f32)
+    lo_in = float(torch.nextafter(lo, inf))
+    hi_in = float(torch.nextafter(hi, -inf))
+    n = 1
+    for d in shape:
+        n *= int(d)
+    # jax's uniform in [a, b): XLA contracts ``f * (b - a) + a`` into one
+    # fused multiply-add, emulated in float64 (the product and the sum are
+    # exact there, so the one rounding is the FMA's)
+    span = float(np.float32(b) - np.float32(a))
+    f = uniform_vec(k, n).double()
+    u = torch.clamp_min((f * span + a).to(f32), a).reshape(tuple(shape))
+    out = erfinv_f32(u) * _SQRT2_F32
+    return torch.clamp(out, lo_in, hi_in)
+
+
+def fold_in_static(k, parts, separator: bool = False):
+    """flax's ``LazyRng`` fold of static data (``flax/core/scope.py``
+    ``_fold_in_static``): SHA-1 over ``parts`` (a string as UTF-8, an int
+    as its minimal big-endian bytes; each part preceded by a zero byte when
+    flax's ``flax_fix_rng_separator`` is set, off by default), the digest's
+    first 4 bytes read big-endian, then :func:`fold_in`.  With no parts the
+    key is returned as it is."""
+    if not parts:
+        return k
+    m = hashlib.sha1()
+    for x in parts:
+        if separator:
+            m.update(b"\0")
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"fold_in_static: expected int or str, got {x!r}")
+    return fold_in(k, int.from_bytes(m.digest()[:4], byteorder="big"))
 
 
 def _randint_reduce(hi, lo, maxval: int):

@@ -46,12 +46,12 @@ BLAS's) order, the recipe by its tree.
 
 from __future__ import annotations
 
-import math
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 from torch import nn
 
+from ..ops import prng
 from ..ops.physics import tree_sum_last
 
 BF16 = torch.bfloat16
@@ -104,14 +104,21 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(n_in, n_out))
         self.bias = nn.Parameter(torch.zeros(n_out))
 
-    def reset(self, gen: torch.Generator) -> None:
-        """flax's default init: lecun_normal (a normal truncated at two
-        standard deviations, variance 1/fan_in) and a zero bias."""
+    def reset(self, key: torch.Tensor) -> None:
+        """flax's default init from this Dense's ``kernel`` key (int64 [2],
+        :func:`init_modules` derives it; drawn on the key's device):
+        ``lecun_normal``, i.e.
+        ``variance_scaling(1, "fan_in", "truncated_normal")`` =
+        ``truncated_normal(-2, 2) * sqrt(1 / fan_in) / 0.8796...`` in
+        float32, and a zero bias."""
+        f32 = torch.float32
         fan_in = self.kernel.shape[0]
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        std = torch.sqrt(torch.tensor(1.0 / fan_in, dtype=f32)) / torch.tensor(
+            0.87962566103423978, dtype=f32)
+        w = prng.truncated_normal(key, -2.0, 2.0, self.kernel.shape) * std.to(
+            key.device)
         with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=gen)
+            self.kernel.copy_(w)
             self.bias.zero_()
 
     def forward(self, x):
@@ -250,9 +257,28 @@ class QuantileCriticHeads(nn.Module):
         return torch.gather(q, 2, idx.expand(q.shape[0], 2, 1, q.shape[-1]))[:, :, 0]
 
 
-def init_modules(modules, gen: Optional[torch.Generator]) -> None:
-    """flax's default init for every Dense of ``modules``, in order."""
-    for mod in modules:
-        for sub in mod.modules():
-            if isinstance(sub, Dense):
-                sub.reset(gen)
+def dense_layers(module) -> list:
+    """``module``'s Dense layers in the port's order."""
+    return module.layers() if isinstance(module, HybridActor) else list(
+        module.layers)
+
+
+def flax_names(module) -> list:
+    """flax's names of ``module``'s Dense layers, in the order of
+    :func:`dense_layers`: ``Dense_k`` in ``nn.compact`` order (the encoder;
+    the actor's hidden layer and its two heads; the one-hot critic's twin 0,
+    then twin 1), ``twins_i_j`` for the heads critic's ``setup`` list."""
+    if isinstance(module, QuantileCriticHeads):
+        return [f"twins_{t}_{j}" for t in range(2) for j in range(3)]
+    return [f"Dense_{k}" for k in range(len(dense_layers(module)))]
+
+
+def init_modules(modules, keys) -> None:
+    """flax's default init of every Dense of each module from that module's
+    ``init`` key (``keys``, int64 [2] each): the kernel of the Dense named
+    ``name`` draws from ``fold_in_static(key, (name, 1))``, the key flax's
+    ``LazyRng`` gives the Dense's first ``make_rng("params")`` (its kernel;
+    the bias takes the second and ignores it)."""
+    for mod, key in zip(modules, keys):
+        for name, layer in zip(flax_names(mod), dense_layers(mod)):
+            layer.reset(prng.fold_in_static(key, (name, 1)))

@@ -9,8 +9,8 @@ adam(3e-4))`` — and of the Polyak target update (``:286-288``) and the
 Each optimizer group (critic, actor, encoder, log alpha) keeps its
 parameters in ONE flat float32 buffer; the modules' ``nn.Parameter``s are
 views of it (:func:`flatten_params`), so the update is one pass over one
-buffer, which the B5c kernel (``kernels/adam.py``) makes in at most two
-launches.  :func:`clip_adam_update` is the kernel's plain version and
+buffer; the B5c kernel (``kernels/adam.py``) updates every group of an
+update in two launches.  :func:`clip_adam_update` is the kernel's plain version and
 follows optax's order step for step::
 
     g_norm = sqrt(sum g^2)                         (the blocked order below)
@@ -29,11 +29,12 @@ kernel's ``pow`` and torch's agree there; XLA's float32 ``pow`` may differ
 from the correctly rounded value by an ulp, which the tests state).
 
 The sum of squares has a fixed order that the kernel shares: the buffer,
-zero-padded to ``K * R * THREADS`` elements, is read as [K, R, THREADS]; each
-(block k, thread j) folds its R squares left to right, each block sums its
-THREADS partials by the halving tree, and the K block sums are summed by
-the halving tree.  optax sums each leaf and then the leaves in tree order,
-so ``g_norm`` agrees with optax's to a few ulps, not bitwise.
+zero-padded to ``K * R * THREADS * VEC`` elements, is read as [K, R,
+THREADS, VEC]; each (block k, thread j) folds its R * VEC squares left to
+right (a float4 load at a time), each block sums its THREADS partials by the
+halving tree, and the K block sums are summed by the halving tree.  optax
+sums each leaf and then the leaves in tree order, so ``g_norm`` agrees with
+optax's to a few ulps, not bitwise.
 """
 
 from __future__ import annotations
@@ -47,9 +48,11 @@ import torch
 
 from ..ops.physics import tree_sum_last
 
-#: threads per block of the sum of squares, and the most blocks it uses
+#: threads per block of the sum of squares, the floats each loads at a
+#: time, and the most blocks (partials) a group uses
 THREADS = 256
-MAX_BLOCKS = 64
+VEC = 4
+MAX_BLOCKS = 1024
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -109,9 +112,10 @@ def flatten_params(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
 
 
 def norm_layout(n: int):
-    """(K blocks, R squares per thread) of the sum of squares over n."""
-    k = min(MAX_BLOCKS, max(1, math.ceil(n / THREADS)))
-    return k, max(1, math.ceil(n / (k * THREADS)))
+    """(K blocks, R float4s per thread) of the sum of squares over n."""
+    per = THREADS * VEC
+    r = max(1, math.ceil(n / (MAX_BLOCKS * per)))
+    return max(1, math.ceil(n / (r * per))), r
 
 
 def sum_squares(g: torch.Tensor) -> torch.Tensor:
@@ -119,12 +123,14 @@ def sum_squares(g: torch.Tensor) -> torch.Tensor:
     tensor)."""
     n = g.numel()
     k, r = norm_layout(n)
-    x = torch.zeros(k * r * THREADS, dtype=torch.float32, device=g.device)
+    x = torch.zeros(k * r * THREADS * VEC, dtype=torch.float32, device=g.device)
     x[:n] = g
-    sq = (x * x).reshape(k, r, THREADS)
-    acc = sq[:, 0]
-    for i in range(1, r):
-        acc = acc + sq[:, i]
+    sq = (x * x).reshape(k, r, THREADS, VEC)
+    acc = sq[:, 0, :, 0]
+    for i in range(r):
+        for v in range(VEC):
+            if i or v:
+                acc = acc + sq[:, i, :, v]
     return tree_sum_last(tree_sum_last(acc))
 
 

@@ -5,9 +5,9 @@ Counterpart of ``distributed_cluster_gpus_tpu/rl/sac.py``: ``SACConfig``
 (``:38``), ``SACState`` (``:96``), ``sac_init`` (``:122``),
 ``select_action`` (``:150``), ``make_policy_apply`` (``:166``),
 ``quantile_huber_loss`` (``:178``), ``_joint_policy`` (``:187``),
-``sac_zero_metrics`` and ``sac_train_step`` (``:206``).  Initialisation is
-of flax's default kind, drawn from an explicit ``torch.Generator`` (the
-same distribution as the JAX package's ``sac_init``, not the same bits).
+``sac_zero_metrics`` and ``sac_train_step`` (``:206``).  ``sac_init``
+draws the JAX package's initial weights from the same threefry key (flax's
+lecun-normal through the port's own threefry, ``ops/prng.py``).
 
 Acting: on the card the engine does not call :func:`select_action`; the
 policy runs inside the B1 kernel (``csrc/event_scan.cu``, the B4 device
@@ -119,8 +119,9 @@ class UpdateConsts:
 class SACState:
     """All learned state.  Each group's parameters live in one flat float32
     buffer (``flat[group]``; the modules' parameters and ``log_alpha`` are
-    views of it), as do the target critic's (``flat["target"]``).  ``step``
-    counts the updates taken (the host knows it without a read)."""
+    views of it), as do the target critic's (``flat["target"]``).
+    ``metrics`` holds the last update's metrics (written in place).
+    ``step`` counts the updates taken (the host knows it without a read)."""
 
     enc: MLPStateEncoder
     actor: HybridActor
@@ -134,6 +135,7 @@ class SACState:
     cmdp: CMDPState
     flat: Dict[str, torch.Tensor]
     consts: UpdateConsts
+    metrics: Dict[str, torch.Tensor]
     step: int = 0
 
     def layers(self):
@@ -146,17 +148,23 @@ def _critic_cls(cfg: SACConfig):
     return QuantileCriticHeads if cfg.critic_arch == "heads" else QuantileCritic
 
 
-def sac_init(cfg: SACConfig, gen: torch.Generator, device="cuda") -> SACState:
-    """Fresh networks initialised from ``gen`` (a CPU generator) as flax
-    initialises them (lecun-normal kernels, zero biases; encoder, actor,
-    then critic), the target critic a copy of the critic, ``log_alpha`` =
-    log(alpha_init), zeroed Adam states and multipliers, on ``device``
-    (the card unless the caller asks for the CPU; raises without a GPU)."""
+def sac_init(cfg: SACConfig, key: torch.Tensor, device="cuda") -> SACState:
+    """Fresh networks initialised from the threefry ``key`` (int64 [2]) as
+    the JAX package's ``sac_init`` draws them: ``k_e, k_a, k_c = split(key,
+    3)`` are the encoder's, actor's and critic's flax ``init`` keys, each
+    kernel lecun-normal from the key flax derives for its Dense
+    (``rl/nets.py::init_modules``), the biases zero; the target critic a
+    copy of the critic, ``log_alpha`` = log(alpha_init), zeroed Adam states
+    and multipliers, on ``device`` (the card unless the caller asks for the
+    CPU; raises without a GPU).  The weights are drawn on ``device``: the
+    threefry bits are the same there, and the values differ from the CPU's
+    only where torch's ``log1p`` does (inside XLA's ``erf_inv``
+    polynomial), by an ulp or so (``chip_smoke.py`` measures it)."""
     device = resolve_device(device)
     enc = MLPStateEncoder(cfg.obs_dim, latent=cfg.latent)
     actor = HybridActor(cfg.latent, cfg.n_dc, cfg.n_g)
     critic = _critic_cls(cfg)(cfg.latent, cfg.n_dc, cfg.n_g, cfg.n_quantiles)
-    init_modules([enc, actor, critic], gen)
+    init_modules([enc, actor, critic], prng.split(key.to(device), 3))
     return assemble(cfg, enc, actor, critic, copy.deepcopy(critic),
                     torch.log(torch.tensor(cfg.alpha_init, dtype=torch.float32)),
                     device)
@@ -183,7 +191,8 @@ def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
                     critic_opt=opts["critic"], alpha_opt=opts["alpha"],
                     cmdp=cmdp if cmdp is not None else cmdp_init(
                         cfg.constraints, dev),
-                    flat=flat, consts=UpdateConsts(cfg, dev), step=step)
+                    flat=flat, consts=UpdateConsts(cfg, dev),
+                    metrics=_metric_buffers(cfg, dev), step=step)
 
 
 @torch.no_grad()
@@ -324,6 +333,20 @@ def marginal_actor(q0_all, logp_dc, logp_g, alpha):
 # The update
 # ---------------------------------------------------------------------------
 
+METRIC_KEYS = ("critic_loss", "actor_loss", "alpha_loss", "alpha", "entropy",
+               "q_mean", "r_eff_mean", "lambda", "violation")
+
+
+def _metric_buffers(cfg: SACConfig, dev) -> Dict[str, torch.Tensor]:
+    """The update's metrics as tensors that persist across updates (each
+    update writes them in place): 0-d float32, ``lambda`` and ``violation``
+    [n_costs]."""
+    n = len(cfg.constraints)
+    return {k: torch.zeros(n if k in ("lambda", "violation") else (),
+                           dtype=torch.float32, device=dev)
+            for k in METRIC_KEYS}
+
+
 def sac_zero_metrics(cfg: SACConfig, sac: SACState):
     """The metrics dict of :func:`sac_train_step` for no update."""
     z = torch.zeros((), dtype=torch.float32, device=sac.log_alpha.device)
@@ -340,22 +363,32 @@ def _flat_grad(grads, like):
     return out
 
 
-def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False):
+def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
+                   index: Optional[torch.Tensor] = None):
     """One CHSAC-AF update from a replay sample, in place on ``sac``;
-    returns the metrics dict (the JAX package's keys, 0-d tensors and the
-    [n_costs] ``lambda``/``violation``, on the device).  ``key`` is the
-    update's threefry key (int64 [2], on the CPU): the sample uses
-    ``split(key)[0]`` as the JAX update does.  ``plain`` runs the four
-    regions' plain versions in place of their kernels."""
-    from ..kernels.adam import adam_step
+    returns ``sac.metrics``, the JAX package's metrics (0-d tensors and the
+    [n_costs] ``lambda``/``violation``, on the device), which the next
+    update overwrites.  ``key`` (int64 [2]) is the update's threefry key,
+    the sample drawing with ``split(key)[0]`` as the JAX update does; given
+    ``index`` (an int32 0-d tensor on the device) ``key`` is the chunk's key
+    and the update's is ``split(key, max_steps)[index]``, both read on the
+    device (``CHSAC_AF.train_steps``).  ``plain`` runs the four regions'
+    plain versions in place of their kernels.
+
+    Capturable as a CUDA graph: every tensor the next update reads (the
+    parameters, moments, counts, the target, log alpha, the CMDP state, the
+    metrics) is written in place, and nothing is read back to the host."""
+    from ..kernels.adam import AdamGroup, adam_update
     from ..kernels.replay_sample import replay_sample
     from ..kernels.sac_update import (marginal_actor_fn, marginal_target_fn,
                                       quantile_huber_fn)
 
     pin_f32_accumulation()
     c = sac.consts
-    k_samp = prng.split(key.cpu(), 2)[0]
-    batch = replay_sample(rb, k_samp, cfg.batch, plain=plain)
+    dev = rb.valid.device
+    if index is None:
+        key = prng.split(key, 2)[0].to(dev)
+    batch = replay_sample(rb, key, cfg.batch, plain=plain, index=index)
     alpha = torch.exp(sac.log_alpha)
     tgt = c.gains[0]
 
@@ -397,18 +430,23 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False):
     al_loss = (torch.exp(log_alpha) * (ent + f32(cfg.target_entropy))).mean()
     (al_grad,) = torch.autograd.grad(al_loss, log_alpha)
 
-    opt = cfg.adam()
     with torch.no_grad():
-        adam_step(sac.flat["critic"], c_grad, sac.critic_opt, opt,
-                  target=sac.flat["target"], tau=cfg.tau, plain=plain)
-        adam_step(sac.flat["actor"], a_grad, sac.actor_opt, opt, plain=plain)
-        adam_step(sac.flat["enc"], e_grad, sac.enc_opt, opt, plain=plain)
-        adam_step(sac.flat["alpha"], al_grad.reshape(1), sac.alpha_opt, opt,
-                  clamp=c.clamp, plain=plain)
-        sac.cmdp, viol = update_lagrange(sac.cmdp, c.gains, batch["costs"])
+        adam_update([
+            AdamGroup(sac.flat["critic"], c_grad, sac.critic_opt,
+                      target=sac.flat["target"], tau=cfg.tau),
+            AdamGroup(sac.flat["actor"], a_grad, sac.actor_opt),
+            AdamGroup(sac.flat["enc"], e_grad, sac.enc_opt),
+            AdamGroup(sac.flat["alpha"], al_grad.reshape(1), sac.alpha_opt,
+                      clamp=c.clamp)], cfg.adam(), plain=plain)
+        new, viol = update_lagrange(sac.cmdp, c.gains, batch["costs"])
+        for name in ("lam", "integral", "prev_err"):
+            getattr(sac.cmdp, name).copy_(getattr(new, name))
+        m = sac.metrics
+        for k, v in (("critic_loss", c_loss), ("actor_loss", a_loss),
+                     ("alpha_loss", al_loss), ("alpha", torch.exp(sac.log_alpha)),
+                     ("entropy", ent.mean()), ("q_mean", q_mean),
+                     ("r_eff_mean", r_eff.mean()), ("lambda", sac.cmdp.lam),
+                     ("violation", viol)):
+            m[k].copy_(v)
     sac.step += 1
-    return {"critic_loss": c_loss.detach(), "actor_loss": a_loss.detach(),
-            "alpha_loss": al_loss.detach(), "alpha": torch.exp(sac.log_alpha),
-            "entropy": ent.mean(), "q_mean": q_mean,
-            "r_eff_mean": r_eff.mean(), "lambda": sac.cmdp.lam,
-            "violation": viol}
+    return m

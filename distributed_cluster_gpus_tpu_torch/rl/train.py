@@ -9,7 +9,9 @@ SAC/CMDP updates (``CHSAC_AF.train_steps``: B6b, B5a, B5b and B5c on the
 card), one per new transition up to ``max_train_steps_per_chunk``, once the
 ring holds ``--rl-warmup`` transitions.  The next chunk acts with the
 updated weights.  ``history`` keeps the last update's metrics of each
-chunk that updated, as numpy.
+chunk that updated, as numpy; ``verbose`` prints the reference's
+per-chunk line (the progress bar, the ring's size, the last critic loss
+and lambda).
 
 Checkpoints, the telemetry sink and graceful shutdown raise as unported
 (ROADMAP queue A items 14, 12 and 14).
@@ -24,7 +26,7 @@ import torch
 
 from ..models.structs import FleetSpec, SimParams
 from ..sim.engine import Engine, init_state
-from ..sim.io import CSVWriters, drain_emissions
+from ..sim.io import CSVWriters, drain_emissions, sim_progress
 from .agent import CHSAC_AF
 from .cmdp import constraints_from_params
 
@@ -96,10 +98,11 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
                             for k, v in metrics.items()})
         if verbose:
             m = history[-1] if metrics is not None else None
-            extra = (f"updates={n_done} critic_loss={float(m['critic_loss']):.4f} "
-                     f"lambda={m['lambda']}" if m is not None else "warming up")
-            print(f"t={float(state.t):.1f}s/{params.duration:.0f}s "
-                  f"replay={int(agent.replay.size)} {extra}")
+            extra = (f"replay={int(agent.replay.size)} "
+                     + (f"critic_loss={float(m['critic_loss']):.4f} "
+                        f"lambda={np.asarray(m['lambda'])}"
+                        if m is not None else "warming up"))
+            print(sim_progress(float(state.t), params.duration, extra=extra))
         if on_chunk is not None:
             on_chunk(chunk, state, history)
         if bool(state.done):

@@ -173,15 +173,14 @@ def main(argv=None, pre_tables=None):
 
         state, agent, _ = train_chsac(fleet, params, out_dir=a.out,
                                       chunk_steps=a.chunk_steps,
+                                      verbose=not a.quiet,
                                       device=a.device, pre_tables=pre_tables)
         extra = (f"; {int(agent.replay.n_seen)} transitions in the replay "
-                 f"ring, {agent.sac.step} train steps (the initial weights "
-                 "come from the port's own generator: flax's initial "
-                 "distribution, not the JAX package's bits)")
+                 f"ring, {agent.sac.step} train steps")
     else:
         state = run_simulation(fleet, params, out_dir=a.out,
                                chunk_steps=a.chunk_steps, device=a.device,
-                               pre_tables=pre_tables)
+                               pre_tables=pre_tables, progress=not a.quiet)
     wall = time.time() - t0
     if not a.quiet:
         n_fin = state.n_finished.tolist()

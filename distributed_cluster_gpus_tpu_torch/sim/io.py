@@ -116,18 +116,31 @@ def drain_emissions(emissions: Dict, writers: Optional[CSVWriters]) -> Dict[str,
     return stats
 
 
+def sim_progress(t: float, end: float, extra: str = "",
+                 width: int = 40) -> str:
+    """The reference's one-line progress string over simulated time
+    (``distributed_cluster_gpus_tpu/obs/trace.py:232``)."""
+    frac = min(1.0, max(0.0, t / max(end, 1e-9)))
+    filled = int(frac * width)
+    bar = "#" * filled + "-" * (width - filled)
+    return f"[{bar}] sim {t:,.0f}/{end:,.0f}s ({100 * frac:5.1f}%) {extra}"
+
+
 def run_simulation(fleet: FleetSpec, params: SimParams,
                    out_dir: Optional[str] = None, chunk_steps: int = 4096,
                    max_chunks: int = 10_000, device="cuda",
                    pre_tables: Optional[Sequence[Dict]] = None,
                    on_chunk=None, state0: Optional[SimState] = None,
-                   engine: Optional[Engine] = None) -> SimState:
+                   engine: Optional[Engine] = None,
+                   progress: bool = False) -> SimState:
     """Serial host loop: run chunks until the simulation clock passes its end.
 
     ``pre_tables`` injects each chunk's arrival tables in order (the test
     seam that feeds the reference's tables); None builds them per chunk.
     ``on_chunk(state, emissions, engine)`` is called after each chunk's
-    drain.  Returns the final SimState (on ``device``)."""
+    drain.  ``progress`` prints the reference's line after each chunk (the
+    simulated-time bar and the event count).  Returns the final SimState
+    (on ``device``)."""
     engine = engine if engine is not None else Engine(fleet, params, device=device)
     state = (state0 if state0 is not None
              else init_state(params.seed, fleet, params,
@@ -142,6 +155,9 @@ def run_simulation(fleet: FleetSpec, params: SimParams,
         drain_emissions(emissions, writers)
         if on_chunk is not None:
             on_chunk(state, emissions, engine)
+        if progress:
+            print(sim_progress(float(state.t), params.duration,
+                               extra=f"events={int(state.n_events)}"))
         if bool(state.done):
             break
     return state

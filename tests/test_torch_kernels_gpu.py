@@ -565,7 +565,8 @@ def test_marginal_kernels_match_plain_versions(cuda, layout):
                                   "alpha_clamp"])
 def test_adam_kernel_matches_plain_version(cuda, case):
     """B5c: parameters, moments, count (and target) bitwise."""
-    from distributed_cluster_gpus_tpu_torch.kernels.adam import adam_step
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import (AdamGroup,
+                                                                 adam_update)
     from distributed_cluster_gpus_tpu_torch.rl import optim
 
     g = torch.Generator().manual_seed(len(case))
@@ -584,8 +585,9 @@ def test_adam_kernel_matches_plain_version(cuda, case):
         st = optim.AdamState(count=torch.tensor(step, dtype=torch.int32).to(cuda),
                              mu=mu.to(cuda), nu=nu.to(cuda))
         pp, tt = p.to(cuda), None if tgt is None else tgt.to(cuda)
-        adam_step(pp, grad.to(cuda), st, optim.AdamConfig(), target=tt,
-                  tau=0.005, clamp=clamp, plain=not kernel)
+        adam_update([AdamGroup(pp, grad.to(cuda), st, tt, tau=0.005,
+                               clamp=clamp)], optim.AdamConfig(),
+                    plain=not kernel)
         outs.append([pp, st.mu, st.nu] + ([] if tt is None else [tt]))
         states.append(st)
     for a, b in zip(*outs):
@@ -594,30 +596,87 @@ def test_adam_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ring", ["empty", "full", "wrapped_gaps", "one_valid"])
-def test_replay_sample_kernel_matches_plain_version(cuda, ring):
-    """B6b: indices and the 11 fields bitwise."""
+@pytest.mark.parametrize("case", ["clip", "no_clip", "saturated"])
+def test_adam_update_all_groups_matches_plain_version(cuda, case):
+    """B5c over the update's four groups at their published sizes in one
+    call (the critic with its Polyak target, log alpha with its clamp):
+    every parameter, moment, count and the target bitwise; the clip on and
+    off; the count at INT32_MAX stays there."""
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import (AdamGroup,
+                                                                 adam_update)
+    from distributed_cluster_gpus_tpu_torch.rl import optim
+
+    g = torch.Generator().manual_seed(len(case) + 40)
+    sizes = {"critic": 287_808, "actor": 69_904, "enc": 144_384, "alpha": 1}
+    step = optim.INT32_MAX if case == "saturated" else 7
+    clamp = 2.302585
+    host = {}
+    for grp, n in sizes.items():
+        p = torch.randn(n, generator=g)
+        if grp == "alpha":
+            p.fill_(clamp - 1e-4)
+        host[grp] = (p, torch.randn(n, generator=g) * (0.1 if case == "clip" else 1e-4),
+                     torch.randn(n, generator=g) * 0.01,
+                     torch.rand(n, generator=g) * 1e-4,
+                     torch.randn(n, generator=g) if grp == "critic" else None)
+    runs = []
+    for plain in (False, True):
+        groups = []
+        for grp, (p, gr, mu, nu, tt) in host.items():
+            st = optim.AdamState(torch.tensor(step, dtype=torch.int32).to(cuda),
+                                 mu.to(cuda), nu.to(cuda))
+            groups.append(AdamGroup(
+                p.to(cuda), gr.to(cuda), st, None if tt is None else tt.to(cuda),
+                tau=0.005, clamp=clamp if grp == "alpha" else None))
+        before = adam_update.launches
+        adam_update(groups, optim.AdamConfig(), plain=plain)
+        assert adam_update.launches == before + (0 if plain else 1)
+        runs.append(groups)
+    for a, b in zip(*runs):
+        for x, y in ((a.p, b.p), (a.st.mu, b.st.mu), (a.st.nu, b.st.nu),
+                     (a.st.count, b.st.count)):
+            assert _bits_equal(x, y)
+        if a.target is not None:
+            assert _bits_equal(a.target, b.target)
+        assert int(a.st.count) == (step if case == "saturated" else step + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 256, 4096])
+@pytest.mark.parametrize("ring", ["empty", "partial", "full", "wrapped_gaps",
+                                  "one_valid", "multi_tile"])
+def test_replay_sample_kernel_matches_plain_version(cuda, ring, batch):
+    """B6b: indices and the 11 fields bitwise, for a sample key and for an
+    update's key derived on the device from a chunk key and its index.
+    Rings: empty, partly filled, full, wrapped with invalid holes, one valid
+    row, and one of several 4,096-row tiles with its tail tile partial."""
     from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
     from distributed_cluster_gpus_tpu_torch.ops import prng
     from distributed_cluster_gpus_tpu_torch.rl import replay
 
-    C = 300
+    C = 10_000 if ring == "multi_tile" else 300
     rb = replay.replay_init(C, 13, 2, 8, 4, device=cuda)
     g = torch.Generator().manual_seed(len(ring))
-    sizes, pv = {"empty": ([], 0.0), "full": ([75] * 5, 1.0),
-                 "wrapped_gaps": ([90] * 5, 0.7), "one_valid": ([40], 0.0)}[ring]
+    sizes, pv = {"empty": ([], 0.0), "partial": ([60, 50], 0.8),
+                 "full": ([75] * 5, 1.0), "wrapped_gaps": ([90] * 5, 0.7),
+                 "one_valid": ([40], 0.0),
+                 "multi_tile": ([2000] * 7, 0.4)}[ring]
     for N in sizes:
         tr = _window(g, N, pv, cuda)
         if ring == "one_valid":
             tr["valid"][7] = True
         replay.replay_add_chunk(rb, tr)
-    key = prng.split(prng.key(5, "cpu"), 2)[0]
-    before = b6b.replay_sample.launches
-    out_k = b6b.replay_sample(rb, key, 256)
-    out_p = replay.replay_sample(rb, key, 256)
-    assert b6b.replay_sample.launches == before + 1
-    for name in (*replay.ROW_FIELDS, "idx"):
-        assert _bits_equal(out_k[name], out_p[name]), name
+    if ring == "full":
+        assert int(rb.size) == C
+    key = prng.split(prng.key(5 + batch, cuda), 2)[0]
+    index = torch.tensor(3, dtype=torch.int32, device=cuda)
+    for idx_arg in (None, index):
+        before = b6b.replay_sample.launches
+        out_k = b6b.replay_sample(rb, key, batch, index=idx_arg)
+        out_p = replay.replay_sample(rb, b6b.sample_key(key, idx_arg), batch)
+        assert b6b.replay_sample.launches == before + 1
+        for name in (*replay.ROW_FIELDS, "idx"):
+            assert _bits_equal(out_k[name], out_p[name]), (name, idx_arg)
 
 
 def _small_agent(dev, arch):
@@ -666,13 +725,84 @@ def test_train_steps_read_nothing_back(cuda):
     assert _syncs(lambda: agent.train_steps(2, 2)) == []
 
 
+def _same_learner(a, b):
+    """The bitwise mismatches between two agents' learned states: every
+    flat buffer, log alpha, each group's Adam count and moments, the CMDP
+    state and the last metrics."""
+    bad = [n for n in a.sac.flat if not _bits_equal(a.sac.flat[n], b.sac.flat[n])]
+    for grp in ("enc_opt", "actor_opt", "critic_opt", "alpha_opt"):
+        sa, sb = getattr(a.sac, grp), getattr(b.sac, grp)
+        bad += [(grp, f) for f in ("count", "mu", "nu")
+                if not _bits_equal(getattr(sa, f), getattr(sb, f))]
+    bad += [("cmdp", f) for f in ("lam", "integral", "prev_err")
+            if not _bits_equal(getattr(a.sac.cmdp, f), getattr(b.sac.cmdp, f))]
+    bad += [("metric", k) for k in a.sac.metrics
+            if not _bits_equal(a.sac.metrics[k], b.sac.metrics[k])]
+    if not _bits_equal(a.sac.log_alpha, b.sac.log_alpha) or a.sac.step != b.sac.step:
+        bad.append("log_alpha/step")
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["onehot", "heads"])
+def test_update_graph_matches_eager_kernel_path(cuda, arch):
+    """A chunk's updates as one captured CUDA graph replayed per update
+    against the same updates run eagerly through the kernels: every leaf of
+    the learned state and every metric bitwise, over two chunks (the second
+    replays the graph of the first without capturing again)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = _small_agent(cuda, arch), _small_agent(cuda, arch)
+        for n, max_steps in ((5, 8), (3, 4)):
+            ma, na = a.train_steps(n, max_steps)
+            mb, nb = b.train_steps(n, max_steps, graph=False)
+            torch.cuda.synchronize()
+            assert na == nb == n
+            assert all(_bits_equal(ma[k], mb[k]) for k in ma)
+            assert _same_learner(a, b) == []
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (a.graph_captures, a.graph_replays) == (1, 4 + 3)
+    assert (b.graph_captures, b.graph_replays) == (0, 0)
+
+
+@pytest.mark.gpu
+def test_update_graph_recaptures_after_replacement(cuda):
+    """Replacing what a captured update holds drops the graph: a new replay
+    ring, a new learned state (weights loaded), a CMDP state replaced inside
+    it; each next chunk captures again and stays bitwise equal to the eager
+    path given the same replacements."""
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+    from distributed_cluster_gpus_tpu_torch.rl.cmdp import cmdp_init
+
+    a, b = _small_agent(cuda, "onehot"), _small_agent(cuda, "onehot")
+    for agent in (a, b):
+        agent.train_steps(2, 2, graph=agent is a)
+    assert a.graph_captures == 1
+    fresh = _small_agent(cuda, "onehot")
+    replace = [
+        lambda ag: setattr(ag, "replay", fresh.replay),
+        lambda ag: setattr(ag, "sac", rsac.sac_init(ag.cfg, prng.key(11, "cpu"),
+                                                    cuda)),
+        lambda ag: setattr(ag.sac, "cmdp", cmdp_init(ag.cfg.constraints, cuda))]
+    for i, swap in enumerate(replace):
+        for agent in (a, b):
+            swap(agent)
+            agent.train_steps(3, 4, graph=agent is a)
+        torch.cuda.synchronize()
+        assert a.graph_captures == 2 + i
+        assert _same_learner(a, b) == []
+
+
 @pytest.mark.gpu
 def test_update_wrappers_reject_bad_operands(cuda):
     """No fallback: a CUDA operand of the wrong dtype, shape or layout
     raises instead of running the plain version."""
     from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
     from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
-    from distributed_cluster_gpus_tpu_torch.kernels.adam import adam_step
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import (AdamGroup,
+                                                                 adam_update)
     from distributed_cluster_gpus_tpu_torch.ops import prng
     from distributed_cluster_gpus_tpu_torch.rl import optim, replay
 
@@ -687,8 +817,8 @@ def test_update_wrappers_reject_bad_operands(cuda):
         b5.marginal_actor(q_all, ldc.cpu(), lg, x["alpha"])
     p = torch.randn(64, device=cuda)
     with pytest.raises(ValueError):
-        adam_step(p, torch.randn(128, device=cuda)[::2], optim.adam_init(p),
-                  optim.AdamConfig())
+        adam_update([AdamGroup(p, torch.randn(128, device=cuda)[::2],
+                               optim.adam_init(p))], optim.AdamConfig())
     rb = replay.replay_init(32, 13, 2, 8, 4, device=cuda)
-    with pytest.raises(ValueError):  # the key's words are launch arguments
-        b6b.replay_sample(rb, prng.key(1, cuda), 8)
+    with pytest.raises(ValueError):  # the kernel reads the key on the card
+        b6b.replay_sample(rb, prng.key(1, "cpu"), 8)

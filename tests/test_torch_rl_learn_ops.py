@@ -417,10 +417,11 @@ def test_clip_adam_matches_optax(clip, step):
 def test_sum_squares_blocked_order():
     """The plain global norm's blocked order against an exact sum."""
     rng = np.random.default_rng(31)
-    for n in (1, 255, 256, 257, 16_384 * 3 + 5, 287_808):
+    for n in (1, 255, 256, 257, 16_384 * 3 + 5, 287_808, 1_048_577):
         g = rng.normal(size=n).astype(np.float32)
         k, r = optim.norm_layout(n)
-        assert k * r * optim.THREADS >= n and k <= optim.MAX_BLOCKS
+        per = r * optim.THREADS * optim.VEC
+        assert k * per >= n > (k - 1) * per and k <= optim.MAX_BLOCKS
         got = float(optim.sum_squares(torch.tensor(g)))
         want = float(np.sum(g.astype(np.float64) ** 2))
         assert abs(got - want) <= 1e-5 * want

@@ -30,6 +30,7 @@ import torch
 from distributed_cluster_gpus_tpu.rl import replay as jreplay
 from distributed_cluster_gpus_tpu.rl import sac as jsac
 from distributed_cluster_gpus_tpu_torch import bridge
+from distributed_cluster_gpus_tpu_torch.ops import prng as tprng
 from distributed_cluster_gpus_tpu_torch.rl import cmdp as tcmdp
 from distributed_cluster_gpus_tpu_torch.rl import replay as treplay
 from distributed_cluster_gpus_tpu_torch.rl import sac as tsac
@@ -39,6 +40,9 @@ from test_torch_rl_learn_ops import (LAM_ULP, N_DC, N_G, OBS, _key_t, _ulps,
 
 METRIC_RTOL, METRIC_ATOL = 2e-3, 1e-4
 MOMENT_RTOL = 0.05
+#: log alpha after an update: Adam's step on a scalar whose gradient (the
+#: entropy's batch mean) agrees to float32 rounding
+ALPHA_ATOL = 1e-6
 LR, TAU = 3e-4, 0.005
 
 
@@ -115,6 +119,90 @@ def test_update_state_leaves_within_bounds(updated):
             assert d.max() <= MOMENT_RTOL * max(np.abs(x).max(), 1e-30), path
 
 
+# ------------------------------------------ a chunk of updates: train_steps
+
+#: updates asked for in one chunk, of at most CHUNK_MAX
+CHUNK_N, CHUNK_MAX = 5, 8
+
+
+@pytest.fixture(scope="module")
+def chunk_updated():
+    """Both agents' ``train_steps(CHUNK_N, CHUNK_MAX)`` from one carried
+    learner (seeded perturbed networks, the one-hot critic; the single
+    update above covers both critics) on one ring: the JAX package's one
+    jitted scan of the chunk's updates against the port's eager loop, whose
+    keys and update index live on the (CPU) device and whose CMDP state and
+    metrics are written in place."""
+    from distributed_cluster_gpus_tpu.rl.agent import CHSAC_AF as JAgent
+    from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF as TAgent
+
+    arch = "onehot"
+    kw = dict(obs_dim=OBS, n_dc=N_DC, n_g_choices=N_G, batch=32, warmup=10,
+              seed=9, critic_arch=arch, buffer_capacity=500)
+    aj, at = JAgent(**kw), TAgent(**kw, device="cpu")
+    _, _, sj, _ = carried_pair(arch, seed=4)
+    aj.sac = sj
+    at.sac = bridge.sac_from_flax(at.cfg, jax.tree.map(np.asarray, sj), "cpu")
+    aj.replay, at.replay = _ring()
+    lam_before = at.sac.cmdp.lam
+    mj, nj = aj.train_steps(CHUNK_N, CHUNK_MAX)
+    mt, nt = at.train_steps(CHUNK_N, CHUNK_MAX)
+    return aj, at, mj, nj, mt, nt, lam_before
+
+
+def test_train_steps_chunk_runs_the_reference_schedule(chunk_updated):
+    aj, at, mj, nj, mt, nt, lam_before = chunk_updated
+    assert nj == nt == CHUNK_N and at.sac.step == CHUNK_N
+    assert np.array_equal(at.key.numpy(), np.asarray(
+        jax.random.key_data(aj.key)).astype(np.int64))
+    # in place: the CMDP state keeps its tensors, the metrics are copies
+    assert at.sac.cmdp.lam is lam_before
+    assert mt["lambda"].data_ptr() != at.sac.metrics["lambda"].data_ptr()
+    assert int(at._uidx) == CHUNK_N
+
+
+def test_train_steps_chunk_within_tolerance(chunk_updated):
+    """After CHUNK_N updates: the metrics within the one update's bounds,
+    every parameter within ``CHUNK_N * 2 * lr`` (a sign flip per update at
+    most; after the first step Adam's moments carry the gradients' float32
+    differences, so the median is held to ``CHUNK_N * lr / 100``), the
+    target within ``tau * 2 * lr`` times 1 + 2 + ... + CHUNK_N (update j
+    blends in parameters up to ``j * 2 * lr`` apart) plus an ulp per update
+    (each Polyak step rounds), log alpha within
+    ``CHUNK_N * ALPHA_ATOL``, the counts equal, the moments within
+    ``CHUNK_N`` times one update's spread, lambda and the PID state within
+    ``LAM_ULP`` ulp (the samples, hence the costs, are bitwise equal)."""
+    aj, at, mj, nj, mt, nt, _ = chunk_updated
+    for k in mj:
+        a, b = np.asarray(mj[k]), mt[k].numpy()
+        assert a.shape == b.shape and np.isfinite(b).all(), k
+        assert np.all(np.abs(a - b) <= METRIC_RTOL * np.abs(a) + METRIC_ATOL), k
+    a = dict(_leaves(bridge.flax_sac_to_numpy(jax.tree.map(np.asarray, aj.sac))))
+    b = dict(_leaves(bridge.sac_to_numpy(at.cfg, at.sac)))
+    assert set(a) == set(b)
+    for path, x in a.items():
+        y = b[path]
+        assert x.dtype == y.dtype and x.shape == y.shape, path
+        d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        group = path.split(".")[0]
+        if group in ("enc_params", "actor_params", "critic_params"):
+            assert d.max() <= CHUNK_N * 2 * LR, path
+            assert np.median(d) <= CHUNK_N * LR / 100, path
+        elif group == "target_critic_params":
+            tri = CHUNK_N * (CHUNK_N + 1) // 2
+            assert np.all(d <= tri * 2 * LR * TAU
+                          + CHUNK_N * np.spacing(np.abs(x))), path
+        elif path.endswith(".count") or path == "step":
+            assert np.array_equal(x, y), path
+        elif path == "log_alpha":
+            assert d.max() <= CHUNK_N * ALPHA_ATOL, path
+        elif group == "cmdp":
+            assert _ulps(x, y).max() <= LAM_ULP, path
+        else:  # Adam's moments: each update's gradient adds its spread
+            assert d.max() <= CHUNK_N * MOMENT_RTOL * max(np.abs(x).max(),
+                                                          1e-30), path
+
+
 # ------------------------------------------ port analogues of test_rl.py
 
 
@@ -185,17 +273,17 @@ def test_learner_entry_points_default_to_the_card(monkeypatch):
     cfg = small_cfg()
     cons = (tcmdp.ConstraintSpec("latency_p99", 500.0),)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: tsac.sac_init(cfg, torch.Generator().manual_seed(0)),
+    for call in (lambda: tsac.sac_init(cfg, tprng.key(0, "cpu")),
                  lambda: tcmdp.cmdp_init(cons), lambda: tcmdp._gains(cons)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert tcmdp.cmdp_init(cons, "cpu").lam.device.type == "cpu"
-    assert tsac.sac_init(cfg, torch.Generator().manual_seed(0),
+    assert tsac.sac_init(cfg, tprng.key(0, "cpu"),
                          "cpu").log_alpha.device.type == "cpu"
 
 
 def _fresh(cfg, seed=0):
-    return tsac.sac_init(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    return tsac.sac_init(cfg, tprng.key(seed, "cpu"), device="cpu")
 
 
 def _maxdiff(a, b):

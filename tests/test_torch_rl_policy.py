@@ -152,18 +152,20 @@ def test_select_action_sampled_and_greedy(pair):
 
 
 def test_init_is_flax_default_distribution():
-    """The port's own initialisation: lecun-normal kernels (a normal
-    truncated at two standard deviations with variance 1/fan_in) and zero
-    biases, as flax's Dense defaults; the same distribution as the JAX
-    package's, not the same bits."""
+    """The port's initialisation: lecun-normal kernels (a normal truncated
+    at two standard deviations with variance 1/fan_in) and zero biases, as
+    flax's Dense defaults, drawn from a threefry key (the JAX package's
+    values to a few ulps: ``tests/test_torch_rl_init.py``)."""
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+
     _, ct = _cfgs(49, 8, 8)
-    st = sac_init(ct, torch.Generator().manual_seed(0), "cpu")
+    st = sac_init(ct, prng.key(0, "cpu"), "cpu")
     w = st.enc.layers[1].kernel
     assert tuple(w.shape) == (256, 256)
     assert abs(float(w.std()) - 1 / 16) < 0.004
     assert float(w.abs().max()) <= 2 / 16 / 0.8796 + 1e-6
     assert all(float(l.bias.abs().max()) == 0.0 for l in st.layers())
-    st2 = sac_init(ct, torch.Generator().manual_seed(0), "cpu")
+    st2 = sac_init(ct, prng.key(0, "cpu"), "cpu")
     assert torch.equal(st2.enc.layers[0].kernel, st.enc.layers[0].kernel)
 
 
