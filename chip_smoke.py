@@ -73,14 +73,24 @@ Phases (any failure exits non-zero before the result lines):
     rings: empty, full, wrapped with gaps, one valid row; batches 1, 256
     and 4,096; the key given or derived on the card from a chunk key and
     an update index), each timed beside its plain version, its bound and a
-    one-call PyTorch yardstick where there is one;
+    one-call PyTorch yardstick where there is one; then the update's small
+    fused regions, B5d (the Dense epilogues, forward and backward), B5e (the
+    one-hot critic's input rows), B5f (the masked log-softmax, forward and
+    backward) and B5g (the bf16 parameter shadows and the gradient pack),
+    each called with the inputs one eager update at the published shape
+    gave it (recorded at the call; the all-actions layers' 16,384 rows, the
+    heads critic's 2,048-wide output from a second, heads-critic update),
+    bitwise against its plain version, and one update's calls timed back to
+    back beside the plain versions, the bound and the library call;
 14. (k) whole updates at the published shape (the learning CLI's agent,
     batch 256, a 200,000-row ring filled through B6a): one chunk of updates
     three ways from one state and key chain, as the CLI runs it (one
     update captured as a CUDA graph and replayed once per update), every
     update eager through the kernels, and the plain path, every state leaf
-    and metric bitwise (cuBLAS deterministic); ms per update each way and
-    profiled updates (device ops per update, busy share, by kind);
+    and metric bitwise (cuBLAS deterministic), with the heads critic and
+    the one-hot critic; for the one-hot critic ms per update each way and
+    profiled updates (device ops per update, busy share, by kind, and
+    device us per update by kernel name);
 15. (l) B1 in RL mode with the weights (k) trained, one 1,024-step chunk at
     the chsac_af CLI's shape, bitwise against the plain step;
 16. (m) the learning CLI: chsac_af for 600 s at the default warm-up: B1, B2
@@ -1678,6 +1688,199 @@ def phase_update_kernels(report):
     report.update(out)
 
 
+def _clone(x):
+    """A copy of a nest of tensors, each with its own strides (a strided
+    view stays strided)."""
+    if isinstance(x, torch.Tensor):
+        out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                                  device=x.device)
+        return out.copy_(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
+
+
+def _same_bits(a, b):
+    """Bitwise equality of two tensors (float32 and bf16 by their bits)."""
+    views = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    v = views.get(a.dtype)
+    if v is None:
+        return torch.equal(a, b)
+    return torch.equal(a.contiguous().view(v), b.contiguous().view(v))
+
+
+def record_fused_calls(agent):
+    """One eager update of ``agent`` with the fused regions' wrappers
+    (``FUSED``) recording a copy of every call's arguments as the main
+    path gives them: {wrapper: [(args, kwargs), ...]}."""
+    import importlib
+
+    mods = {name: importlib.import_module(
+        f"distributed_cluster_gpus_tpu_torch.kernels.{mod}")
+        for name, (mod, _, _) in FUSED.items()}
+    orig = {name: getattr(m, name) for name, m in mods.items()}
+    rec = {name: [] for name in mods}
+
+    def recording(name):
+        def call(*args, **kw):
+            rec[name].append(_clone((args, kw)))
+            return orig[name](*args, **kw)
+        call.launches = 0  # the wrapper counts into its module's name
+        return call
+
+    for name, m in mods.items():
+        setattr(m, name, recording(name))
+    try:
+        agent.train_steps(1, 1, graph=False)
+        torch.cuda.synchronize()
+    finally:
+        for name, m in mods.items():
+            setattr(m, name, orig[name])
+    return rec, orig
+
+
+def _fused_bytes(name, args):
+    """Bytes one call must move (each input read once, each output written
+    once) and its float32 operations."""
+    nb = lambda t: t.numel() * t.element_size()  # noqa: E731
+    if name == "dense_epilogue":
+        y, bias, _, out32 = (list(args) + [None])[:4]
+        return 2 * nb(y) + nb(bias) + (0 if out32 is None else nb(out32)), \
+            3 * y.numel()
+    if name == "dense_backward":
+        g, y, db = args[:3]
+        g2 = args[3] if len(args) > 3 else None
+        n = g.numel()
+        return (nb(g) + 2 * n + nb(db) + (0 if y is None else nb(y))
+                + (0 if g2 is None else nb(g2))), 4 * n
+    if name == "critic_input":
+        lat, n_dc, n_g = args[:3]
+        acts = [a for a in args[3:5] if a is not None]
+        rows = lat.shape[0] * (1 if acts else n_dc * n_g)
+        return (nb(lat) + sum(nb(a) for a in acts)
+                + 2 * rows * (lat.shape[1] + n_dc + n_g)), rows * 2
+    if name.startswith("log_softmax2"):
+        heads = [t for t in args if isinstance(t, torch.Tensor)]
+        entries = heads[0].numel() + heads[1].numel()
+        return sum(nb(t) for t in heads) + 4 * entries, 40 * entries
+    # param_pack: every (src, dst) pair read and written once
+    pairs = args[0]
+    return sum(nb(a) + nb(b) for a, b in pairs), sum(a.numel() for a, _ in pairs)
+
+
+def _library_call(name, calls):
+    """One PyTorch call computing the same function for each recorded call,
+    or None: the log-softmax of the masked logits (its backward from the
+    forward's output), the buffers' ``Tensor.to``."""
+    if name == "log_softmax2":
+        ins = [(l_.clone(), (~m).contiguous()) for (a, _) in calls
+               for l_, m in ((a[0], a[2]), (a[1], a[3]))]
+        return lambda: [torch.log_softmax(l_.masked_fill(m, -1e9), -1)
+                        for l_, m in ins]
+    if name == "log_softmax2_backward":
+        ins = []
+        for a, _ in calls:
+            for l_, m, g in ((a[0], a[2], a[4]), (a[1], a[3], a[5])):
+                out = torch.log_softmax(l_.masked_fill(~m, -1e9), -1)
+                ins.append((g.clone(), out, (~m).contiguous()))
+        return lambda: [torch.ops.aten._log_softmax_backward_data(
+            g, out, -1, torch.float32).masked_fill_(m, 0.0) for g, out, m in ins]
+    if name == "param_pack":
+        ins = [(src.clone(), dst.dtype) for a, _ in calls for src, dst in a[0]]
+        return lambda: [src.to(dt) for src, dt in ins]
+    return None
+
+
+def phase_fused_regions(report):
+    """(j, continued) the update's small fused regions (B5d-B5g): every call
+    one eager update at the published shape (the learning CLI's agent,
+    batch 256, both critics) makes of each wrapper, recorded with its
+    inputs, run again through the kernel and through the plain version
+    from copies of those inputs: every output bitwise.  Then the one-hot
+    update's calls of each wrapper timed back to back (device time of one
+    update's calls), beside the plain versions, the bound (bytes these
+    calls move at the HBM peak) and a one-call PyTorch yardstick where one
+    computes the same function."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    fleet, params, _ = learning_params()
+    ring = seeded_ring(params.rl_buffer, 5, 4096, 0.5, 8)
+    out, n_calls, recs = {}, {}, {}
+    for arch in ("onehot", "heads"):
+        ag = make_agent(fleet, dataclasses.replace(params, critic_arch=arch),
+                        device="cuda")
+        ag.replay = ring
+        rec, orig = record_fused_calls(ag)
+        n_calls[arch] = {k: len(v) for k, v in rec.items()}
+        want = {k: v for k, v in per_update(arch).items() if k in FUSED}
+        if n_calls[arch] != want:
+            fail(f"fused regions ({arch}): calls in one update {n_calls[arch]}, "
+                 f"expected {want}")
+        for name, calls in rec.items():
+            for i, (args, kw) in enumerate(calls):
+                a_k, a_p = _clone(args), _clone(args)
+                r_k = orig[name](*a_k, **kw)
+                r_p = orig[name](*a_p, **{**kw, "plain": True})
+                got, want_ = _tensors((r_k, a_k)), _tensors((r_p, a_p))
+                if len(got) != len(want_) or not all(
+                        _same_bits(x, y) for x, y in zip(got, want_)):
+                    err = max(max_abs_diff(x.float(), y.float())
+                              for x, y in zip(got, want_))
+                    fail(f"fused regions ({arch}): {name} call {i} differs from "
+                         f"its plain version (max abs {err:.3g})")
+        recs[arch] = (rec, orig)
+    rec, orig = recs["onehot"]
+    shapes = {}
+    for name, calls in rec.items():
+        sets = [_clone(args) for args, _ in calls]
+        kws = [kw for _, kw in calls]
+
+        def run(plain=False, sets=sets, kws=kws, fn=orig[name]):
+            for a, kw in zip(sets, kws):
+                fn(*a, **{**kw, "plain": plain})
+
+        ms, seen = device_ms(run, FUSED[name][1])
+        plain = time_cuda(lambda: run(True), reps=5)
+        lib_fn = _library_call(name, calls)
+        lib = None if lib_fn is None else time_cuda(lib_fn, reps=20)
+        by, ops = (sum(v) for v in zip(*(_fused_bytes(name, a) for a, _ in calls)))
+        bnd, bnd_by = bound(by, ops)
+        shapes[name] = sorted({tuple(a[0].shape) if name != "param_pack"
+                               else tuple(p[0].numel() for p in a[0])
+                               for a, _ in calls})
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                     "library_ms": lib, "calls_per_update": len(calls),
+                     "profiler_launches_seen": seen,
+                     "kernel_us": KERNEL_US.get(FUSED[name][1])}
+    for name, v in out.items():
+        lib_s = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+        print(f"{name} ({v['calls_per_update']} calls an update; first operand "
+              f"shapes {shapes[name]}): bitwise equal to its plain version in "
+              f"every call of a one-hot and a heads update; one update's calls "
+              f"{v['ms']:.4f} ms device time (back to back), plain "
+              f"{v['plain_ms']:.4f} ms, library {lib_s}, bound "
+              f"{v['bound_ms']:.6f} ms ({v['bound_by']}: {v['bytes']} B)")
+    report["fused"] = {"calls_per_update": n_calls, "shapes": {
+        k: [list(x) for x in v] for k, v in shapes.items()}, **out}
+
+
 def learning_params():
     """(fleet, params, chunk steps) of the learning CLI (default warm-up)."""
     from distributed_cluster_gpus_tpu_torch import run_sim
@@ -1698,42 +1901,77 @@ def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S):
 
 
 UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
-                   "adam_update", "replay_sample")
+                   "adam_update", "replay_sample", "param_pack",
+                   "dense_epilogue", "dense_backward", "critic_input",
+                   "log_softmax2", "log_softmax2_backward")
+#: the update's small fused regions (B5d-B5g): {wrapper: (its module and
+#: CUDA source, the profiler's name of its kernel, the JAX package's code
+#: it replaces)}
+FUSED = {"dense_epilogue": ("dense", "dense_fwd_kernel", "rl/nets.py:37"),
+         "dense_backward": ("dense", "dense_bwd_kernel", "rl/sac.py:246"),
+         "critic_input": ("critic_input", "critic_input_kernel",
+                          "rl/nets.py:85"),
+         "log_softmax2": ("log_softmax", "log_softmax_kernel", "rl/nets.py:65"),
+         "log_softmax2_backward": ("log_softmax", "log_softmax_kernel",
+                                   "rl/sac.py:264"),
+         "param_pack": ("param_pack", "param_pack_kernel", "rl/sac.py:206")}
 
 
 def update_counters():
     """{name: the wrapper whose ``launches`` counts it} of the update."""
+    import importlib
+
     from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
     from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
     from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
 
-    return {"quantile_huber": b5.quantile_huber,
-            "marginal_target": b5.marginal_target,
-            "marginal_actor": b5.marginal_actor,
-            "adam_update": b5c.adam_update, "replay_sample": b6b.replay_sample}
+    out = {"quantile_huber": b5.quantile_huber,
+           "marginal_target": b5.marginal_target,
+           "marginal_actor": b5.marginal_actor,
+           "adam_update": b5c.adam_update, "replay_sample": b6b.replay_sample}
+    for name, (mod, _, _) in FUSED.items():
+        out[name] = getattr(importlib.import_module(
+            f"distributed_cluster_gpus_tpu_torch.kernels.{mod}"), name)
+    return out
 
 
-#: wrapper calls of each update kernel per update
-PER_UPDATE = {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
-              "adam_update": 1, "replay_sample": 1}
+def per_update(arch):
+    """Wrapper calls of each update kernel per update, with the ``arch``
+    critic: 30 Dense layers forward (the encoder twice, the actor twice, the
+    critics' two twins three times, the all-actions passes among them), 12
+    backward (the critic's 6, the actor's 3, the encoder's 3), the one-hot
+    critic's input rows three times, the log-softmax forward twice and
+    backward once, the shadows' and the gradients' pack."""
+    return {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
+            "adam_update": 1, "replay_sample": 1, "param_pack": 2,
+            "dense_epilogue": 30, "dense_backward": 12,
+            "critic_input": 3 if arch == "onehot" else 0, "log_softmax2": 2,
+            "log_softmax2_backward": 1}
 
 
 #: updates in the chunk that phase (k) holds bitwise across the three paths
 GRAPH_CHUNK = 16
 
 
+#: the update's kernels by the names the profiler gives them
+UPDATE_KERNELS = ("quantile_huber_kernel", "marginal_target_kernel",
+                  "marginal_actor_kernel", "adam_norm_kernel",
+                  "adam_apply_kernel", "replay_sample_count_kernel",
+                  "replay_sample_draw_kernel",
+                  *dict.fromkeys(k for _, k, _ in FUSED.values()))
+
+
 def _profile_updates(agent, n, graph=True):
     """Profile ``agent.train_steps(n, n)``: (wall us, device busy us by kind,
-    device ops by kind, port kernel names seen, device ops by name)."""
+    device ops by kind, port kernel names seen, device ops by name, device
+    us by name)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ours = ("quantile_huber_kernel", "marginal_target_kernel",
-            "marginal_actor_kernel", "adam_norm_kernel", "adam_apply_kernel",
-            "replay_sample_count_kernel", "replay_sample_draw_kernel")
+    ours = UPDATE_KERNELS
     kinds = {"matmul": 0.0, "port kernels": 0.0, "other torch ops": 0.0}
     n_ops = {"matmul": 0, "port kernels": 0, "other torch ops": 0}
     seen = {k: 0 for k in ours}
-    by_name = {}
+    by_name, us_by_name = {}, {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1755,10 +1993,12 @@ def _profile_updates(agent, n, graph=True):
             continue
         else:
             kind = "other torch ops"
-        kinds[kind] += e.time_range.elapsed_us()
+        us = e.time_range.elapsed_us()
+        kinds[kind] += us
         n_ops[kind] += 1
         by_name[name[:80]] = by_name.get(name[:80], 0) + 1
-    return wall_us, kinds, n_ops, seen, by_name
+        us_by_name[name[:80]] = us_by_name.get(name[:80], 0.0) + us
+    return wall_us, kinds, n_ops, seen, by_name, us_by_name
 
 
 def _graph_device_ms(agent, n=2, runs=5):
@@ -1850,31 +2090,23 @@ def init_on_card(fleet, params):
     return out
 
 
-def phase_update_whole(report):
-    """(k) whole updates at the published shape (the learning CLI's agent:
-    256-wide networks, N = 32, 8 x 8 actions, batch 256, a 200,000-row ring
-    filled through B6a with seeded windows, done in {0, 1}): one chunk of
-    ``GRAPH_CHUNK`` updates three ways from the same state and key chain,
-    the update captured as a CUDA graph and replayed (the main path), every
-    update run eagerly through the kernels, and the plain path; the matmuls
-    deterministic in all three; every leaf of the state and every metric
-    bitwise.  Then ms per update each way, and profiled updates: device ops
-    per update and the device's busy share, by kind (matmuls, the port's
-    kernels, other torch ops), for the replayed graph and the eager path.
-    Returns the graph path's trained agent."""
+def three_paths(fleet, params, ring, arch, n):
+    """(graph, eager kernel, plain) agents of the learning CLI with the
+    ``arch`` critic after one chunk of ``n`` updates each from the same
+    state, ring and key chain (matmuls deterministic); fails unless every
+    metric and every leaf of the state is bitwise equal across the three."""
+    import dataclasses
+
     from distributed_cluster_gpus_tpu_torch import bridge
     from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
 
-    fleet, params, _ = learning_params()
-    init = init_on_card(fleet, params)
-    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
     agents = []
     for _ in range(3):
-        ag = make_agent(fleet, params, device="cuda")
+        ag = make_agent(fleet, dataclasses.replace(params, critic_arch=arch),
+                        device="cuda")
         ag.replay = ring
         agents.append(ag)
     g_ag, e_ag, p_ag = agents
-    n = GRAPH_CHUNK
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         mg, ng = g_ag.train_steps(n, n)
@@ -1883,22 +2115,46 @@ def phase_update_whole(report):
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
+    where = f"whole update ({arch})"
     if not ng == ne == np_ == n:
-        fail(f"whole update: {ng}, {ne} and {np_} updates run, {n} asked for")
+        fail(f"{where}: {ng}, {ne} and {np_} updates run, {n} asked for")
     if (g_ag.graph_captures, g_ag.graph_replays) != (1, n - 1):
-        fail(f"whole update: {g_ag.graph_captures} captures and "
+        fail(f"{where}: {g_ag.graph_captures} captures and "
              f"{g_ag.graph_replays} replays for a chunk of {n} updates")
     cfg = g_ag.cfg
     for name, m, ag in (("eager kernel", me, e_ag), ("plain", mp, p_ag)):
         for k in mg:
             if not _bits(mg[k], m[k]):
-                fail(f"whole update: metric {k} differs between the graph and "
+                fail(f"{where}: metric {k} differs between the graph and "
                      f"the {name} path ({mg[k].tolist()} vs {m[k].tolist()})")
         bad = bridge.tree_mismatches(bridge.sac_to_numpy(cfg, ag.sac),
                                      bridge.sac_to_numpy(cfg, g_ag.sac))
         if bad:
-            fail(f"whole update: state differs between the graph and the "
+            fail(f"{where}: state differs between the graph and the "
                  f"{name} path at {bad[:5]}")
+    return g_ag, e_ag, p_ag
+
+
+def phase_update_whole(report):
+    """(k) whole updates at the published shape (the learning CLI's agent:
+    256-wide networks, N = 32, 8 x 8 actions, batch 256, a 200,000-row ring
+    filled through B6a with seeded windows, done in {0, 1}): one chunk of
+    ``GRAPH_CHUNK`` updates three ways from the same state and key chain,
+    the update captured as a CUDA graph and replayed (the main path), every
+    update run eagerly through the kernels, and the plain path; the matmuls
+    deterministic in all three; every leaf of the state and every metric
+    bitwise, with the heads critic and with the one-hot critic (the CLI's).
+    Then, for the one-hot critic, ms per update each way, and profiled
+    updates: device ops per update and the device's busy share, by kind
+    (matmuls, the port's kernels, other torch ops), for the replayed graph
+    and the eager path.  Returns the graph path's trained agent."""
+    fleet, params, _ = learning_params()
+    init = init_on_card(fleet, params)
+    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
+    n = GRAPH_CHUNK
+    for arch in ("heads", "onehot"):
+        g_ag, e_ag, p_ag = three_paths(fleet, params, ring, arch, n)
+    cfg = g_ag.cfg
     # the graph above was captured under deterministic mode, which fills
     # every new allocation (~200 fills an update); the CLI's is not: capture
     # again for the timings and profiles below
@@ -1920,9 +2176,10 @@ def phase_update_whole(report):
     n_eager = 4
     e_prof = _profile_updates(e_ag, n_eager, graph=False)
     launched = {k: w.launches - before[k] for k, w in counters.items()}
-    if launched != {k: v * n_eager for k, v in PER_UPDATE.items()}:
+    want = per_update(g_ag.cfg.critic_arch)
+    if launched != {k: v * n_eager for k, v in want.items()}:
         fail(f"whole update: kernel calls in {n_eager} eager updates "
-             f"{launched}, expected {PER_UPDATE} each")
+             f"{launched}, expected {want} each")
     launched = {k: v // n_eager for k, v in launched.items()}
     replays0 = g_ag.graph_replays
     before = {k: w.launches for k, w in counters.items()}
@@ -1932,7 +2189,7 @@ def phase_update_whole(report):
             w.launches != before[k] for k, w in counters.items()):
         fail("whole update: the profiled chunk did not run as graph replays")
     prof = {}
-    for name, (wall_us, kinds, n_ops, seen, by_name), per in (
+    for name, (wall_us, kinds, n_ops, seen, by_name, us_by_name), per in (
             ("graph", g_prof, n_prof), ("eager", e_prof, n_eager)):
         busy = sum(kinds.values())
         if busy == 0:
@@ -1943,10 +2200,19 @@ def phase_update_whole(report):
                       "busy_share_unprofiled": busy / per / (
                           1e3 * timing[name]),
                       "ops_by_name": by_name,
+                      "device_us_per_update_by_name": dict(sorted(
+                          ((k, v / per) for k, v in us_by_name.items()),
+                          key=lambda kv: -kv[1])[:20]),
                       "device_us_per_update": {k: v / per for k, v in kinds.items()},
                       "device_ops_per_update": {k: v / per for k, v in n_ops.items()},
                       "launches_per_update": sum(n_ops.values()) / per,
                       "port_kernels_seen": seen}
+    missing = [k for k in UPDATE_KERNELS if not prof["graph"]["port_kernels_seen"][k]]
+    if missing:
+        fail(f"whole update: the profiled graph replays launched none of {missing}")
+    top = list(prof["graph"]["device_us_per_update_by_name"].items())[:10]
+    print("whole update, replayed graph: device us per update by kernel name "
+          "(top 10): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
     layers = g_ag.sac.layers()
     nonzero_bias = all(bool(l.bias.ne(0).any()) for l in layers)
     # the two all-actions products (the target critic's on s1, the online
@@ -1960,7 +2226,8 @@ def phase_update_whole(report):
           f"{cfg.n_quantiles}, {cfg.n_dc}x{cfg.n_g} actions, ring "
           f"{params.rl_buffer}): a chunk of {n} updates bitwise equal between "
           f"the CUDA graph (1 capture, {n - 1} replays), the eager kernel path "
-          f"and the plain path (every state leaf and metric); ms per update: "
+          f"and the plain path (every state leaf and metric), with the heads "
+          f"and the one-hot critic; one-hot, ms per update: "
           f"graph {timing['graph']:.3f}, eager kernels {timing['eager']:.3f}, "
           f"plain {timing['plain']:.3f}; the graph's span on the card "
           f"{timing['graph_device']:.3f} ms per update; profiled: graph "
@@ -2103,11 +2370,12 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
         fail(f"{where}: {replays} graph replays and {captures} captures for "
              f"{updates} updates")
     calls = {k: launches[k] for k in counters}
-    want_calls = {k: PER_UPDATE[k] * 2 * captures for k in counters}
+    want = per_update(arch)
+    want_calls = {k: want[k] * 2 * captures for k in counters}
     if calls != want_calls:
         fail(f"{where}: update kernel calls {calls}, expected {want_calls}")
     for k in counters:
-        launches[k] = PER_UPDATE[k] * updates  # launched on the card
+        launches[k] = want[k] * updates  # launched on the card
     launches["graph_captures"], launches["graph_replays"] = captures, replays
     if agent.sac.step != updates or agent.cfg.critic_arch != arch:
         fail(f"{where}: the agent ({agent.cfg.critic_arch}) took "
@@ -2591,7 +2859,8 @@ def main():
 
     t0 = time.perf_counter()
     build.build(["event_scan", "arrival_tables", "replay_ingest",
-                 "quantile_huber", "marginal", "adam", "replay_sample"])
+                 "quantile_huber", "marginal", "adam", "replay_sample",
+                 "param_pack", "dense", "critic_input", "log_softmax"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
     for name, log in build.ptxas_reports.items():
@@ -2616,6 +2885,7 @@ def main():
         phase_b6a(report)
         rl_launches = phase_chsac_cli(report, out_root)
         phase_update_kernels(report)
+        phase_fused_regions(report)
         trained = phase_update_whole(report)
         phase_b1_after_learning(report, trained)
         upd_launches = phase_learning_cli(report, out_root)
@@ -2678,6 +2948,9 @@ def main():
         dict(entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
                    upd_launches["replay_sample"], report["b6b"],
                    report["b6b"]["library_ms"]), redesigned=True),
+        *(entry(name, f"{mod}.cu", replaces, upd_launches[name],
+                report["fused"][name], report["fused"][name]["library_ms"])
+          for name, (mod, _, replaces) in FUSED.items()),
     ]}
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:

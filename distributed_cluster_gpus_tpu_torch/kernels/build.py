@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: (source, entry point) pairs whose ctypes signature is set
+_bound = set()
 #: ptxas resource report (``-Xptxas -v``) of each source built in this process
 ptxas_reports: Dict[str, str] = {}
 
@@ -92,6 +94,35 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, fn: str, argtypes) -> "ctypes._CFuncPtr":
+    """The entry point ``fn`` of ``csrc/<name>.cu`` (built on first use),
+    its argument types set once; it returns an int status."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    if (name, fn) not in _bound:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _bound.add((name, fn))
+    return f
+
+
+def on_card(op: str, t) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the wrapper then runs
+    its plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {t.device}")
+    return True
+
+
+def launch_failed(op: str, rc: int) -> RuntimeError:
+    """The error of a failed launch: -1 is a shape the kernel does not take,
+    anything else a cudaError_t."""
+    why = "a shape the kernel does not take" if rc == -1 else f"cudaError {rc}"
+    return RuntimeError(f"{op} kernel launch failed: {why}")
 
 
 def check(op: str, name: str, t, dtype, device, shape=None) -> None:

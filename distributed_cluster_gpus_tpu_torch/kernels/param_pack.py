@@ -1,0 +1,67 @@
+"""B5g: the bf16 parameter shadows and the gradient pack of the SAC update
+— a hand-written CUDA kernel and its wrapper.
+
+Replaces the casts XLA fuses into the JAX package's ``sac_train_step``
+(``distributed_cluster_gpus_tpu/rl/sac.py:206-310``): flax's bf16 ``Dense``
+rounds each float32 parameter to bf16 before its product, and the cast's
+transpose widens each bf16 gradient to float32 for optax.
+``csrc/param_pack.cu``'s head note gives the design and bound.
+
+:func:`param_pack` converts a list of flat buffers in one launch (float32
+-> bf16 rounded to nearest even, or bf16 -> float32), for tensors on the
+card (built on first use) or raises; on the CPU or with ``plain=True`` it
+runs ``rl/optim.py::pack_plain``.  There is no fallback.  It counts its
+launches in ``param_pack.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from . import build
+
+#: the most buffers one launch converts
+MAX_GROUPS = 8
+
+
+def param_pack(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               plain: bool = False) -> None:
+    """``dst.copy_(src)`` for each (src, dst) pair of flat buffers of one
+    size, float32 -> bf16 or bf16 -> float32, in one launch."""
+    dev = pairs[0][0].device
+    if plain or not build.on_card("param_pack", pairs[0][0]):
+        from ..rl.optim import pack_plain
+        return pack_plain(pairs)
+    op = "param_pack"
+    if len(pairs) > MAX_GROUPS:
+        raise ValueError(f"{op}: at most {MAX_GROUPS} buffers a launch")
+    n_g = len(pairs)
+    ptrs = (ctypes.c_uint64 * (2 * n_g))()
+    ns = (ctypes.c_longlong * n_g)()
+    to16 = (ctypes.c_int * n_g)()
+    for i, (src, dst) in enumerate(pairs):
+        n = src.numel()
+        kinds = (src.dtype, dst.dtype)
+        if kinds not in ((torch.float32, torch.bfloat16),
+                         (torch.bfloat16, torch.float32)):
+            raise TypeError(f"{op}: pair {i} converts {kinds[0]} to {kinds[1]}")
+        build.check(op, "src", src, src.dtype, dev, (n,))
+        build.check(op, "dst", dst, dst.dtype, dev, (n,))
+        if src.data_ptr() % 16 or dst.data_ptr() % 16:
+            raise ValueError(f"{op}: pair {i} must be 16-byte aligned")
+        ptrs[2 * i:2 * i + 2] = [src.data_ptr(), dst.data_ptr()]
+        ns[i], to16[i] = n, int(dst.dtype == torch.bfloat16)
+    fn = build.bind("param_pack", "param_pack_launch",
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(ptrs, ns, to16, n_g, build.stream_of(dev))
+    if rc != 0:
+        raise build.launch_failed(op, rc)
+    param_pack.launches += 1
+
+
+param_pack.launches = 0

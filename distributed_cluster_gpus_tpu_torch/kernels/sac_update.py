@@ -1,5 +1,5 @@
-"""B5a and B5b: the SAC update's loss regions — hand-written CUDA kernels,
-their wrappers and their autograd bindings.
+"""B5a and B5b: the SAC update's loss regions — hand-written CUDA kernels
+and their wrappers.
 
 Replace the XLA-fused regions of the JAX package's ``sac_train_step``
 (``distributed_cluster_gpus_tpu/rl/sac.py:206``):
@@ -16,13 +16,10 @@ launch the kernel for tensors on the card (built on first use) or raise,
 and run the plain version (``rl/sac.py``) for tensors on the CPU; there is
 no fallback.  Each counts its launches in ``<wrapper>.launches``.
 
-The autograd bindings (``*_fn``) are what ``sac_train_step`` calls.  The
-kernels write the gradient in the forward, so a backward only scales it by
-the incoming gradient: B5a's loss is the last op of the critic's graph, and
-B5b's actor function returns ``(loss, H)`` with ``H`` not differentiated
-(JAX's ``has_aux``) and the gradient going to ``logp_dc`` and ``logp_g``
-only (the critic's quantiles are held constant, JAX's ``stop_gradient``).
-``plain=True`` binds the plain versions on any device.
+Each kernel writes its gradient in the forward (B5a dL/dq; B5b's actor term
+dL/dlogp of each head, the critic's quantiles held constant, JAX's
+``stop_gradient``), which ``rl/sac.py::sac_train_step`` carries back by
+hand; ``plain=True`` there calls the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -34,7 +31,6 @@ import torch
 from . import build
 
 F32 = torch.float32
-_bound = set()
 #: per device, the zeroed uint32 the loss kernels' blocks count their arrival
 #: in; the last block sets it back to 0, so a launch queues no memset
 _counters = {}
@@ -47,30 +43,7 @@ def _counter(dev):
     return c
 
 
-def _lib(name, fn, argtypes):
-    lib = build.load(name)
-    if fn not in _bound:
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-        _bound.add(fn)
-    return getattr(lib, fn)
-
-
 P, I, LL, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-
-
-def _raise(op, rc):
-    why = "a shape the kernel does not take" if rc == -1 else f"cudaError {rc}"
-    raise RuntimeError(f"{op} kernel launch failed: {why}")
-
-
-def _on_card(op, t):
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{op}: unsupported device {t.device}")
-    return True
 
 
 def quantile_huber(q, target, taus, kappa: float = 1.0):
@@ -80,7 +53,7 @@ def quantile_huber(q, target, taus, kappa: float = 1.0):
     from ..rl.optim import f32
     from ..rl.sac import quantile_huber_loss
 
-    if not _on_card("quantile_huber", q):
+    if not build.on_card("quantile_huber", q):
         return quantile_huber_loss(q, target, taus, kappa)
     dev = q.device
     B, _, N = q.shape
@@ -92,7 +65,7 @@ def quantile_huber(q, target, taus, kappa: float = 1.0):
     grad = torch.empty_like(q)
     partial = torch.empty(2 * B, dtype=F32, device=dev)
     counter = _counter(dev)
-    fn = _lib("quantile_huber", "quantile_huber_launch",
+    fn = build.bind("quantile_huber", "quantile_huber_launch",
               [P, P, P, P, P, P, P, I, I, I, FL, FL, P])
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), target.data_ptr(), taus.data_ptr(),
@@ -100,7 +73,7 @@ def quantile_huber(q, target, taus, kappa: float = 1.0):
                 counter.data_ptr(), B, N, M, f32(kappa), f32(0.5 * kappa),
                 build.stream_of(dev))
     if rc != 0:
-        _raise("quantile_huber", rc)
+        raise build.launch_failed("quantile_huber", rc)
     quantile_huber.launches += 1
     return loss, grad
 
@@ -123,7 +96,7 @@ def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
     from ..rl import sac as rsac
     from ..rl.optim import f32
 
-    if not _on_card("marginal_target", q1_all):
+    if not build.on_card("marginal_target", q1_all):
         return rsac.marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam,
                                     targets, done, alpha, gamma)
     dev = q1_all.device
@@ -142,7 +115,7 @@ def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
         build.check(op, name, t, F32, dev, shape)
     tq = torch.empty((B, N), dtype=F32, device=dev)
     r_eff = torch.empty(B, dtype=F32, device=dev)
-    fn = _lib("marginal", "marginal_target_launch",
+    fn = build.bind("marginal", "marginal_target_launch",
               [P, LL, LL, LL, P, P, P, P, P, P, P, P, FL, P, P, I, I, I, I, I, P])
     with torch.cuda.device(dev):
         rc = fn(q1_all.data_ptr(), sb, st, sa, logp_dc1.data_ptr(),
@@ -151,7 +124,7 @@ def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
                 alpha.data_ptr(), f32(gamma), tq.data_ptr(), r_eff.data_ptr(),
                 B, n_dc, n_g, N, K, build.stream_of(dev))
     if rc != 0:
-        _raise(op, rc)
+        raise build.launch_failed(op, rc)
     marginal_target.launches += 1
     return tq, r_eff
 
@@ -164,7 +137,7 @@ def marginal_actor(q0_all, logp_dc, logp_g, alpha):
     kernel on the card, ``rl.sac.marginal_actor`` on the CPU."""
     from ..rl import sac as rsac
 
-    if not _on_card("marginal_actor", q0_all):
+    if not build.on_card("marginal_actor", q0_all):
         return rsac.marginal_actor(q0_all, logp_dc, logp_g, alpha)
     dev = q0_all.device
     B, _, A, N = q0_all.shape
@@ -182,7 +155,7 @@ def marginal_actor(q0_all, logp_dc, logp_g, alpha):
     d_g = torch.empty((B, n_g), dtype=F32, device=dev)
     partial = torch.empty(B, dtype=F32, device=dev)
     counter = _counter(dev)
-    fn = _lib("marginal", "marginal_actor_launch",
+    fn = build.bind("marginal", "marginal_actor_launch",
               [P, LL, LL, LL, P, P, P, P, P, P, P, P, P, I, I, I, I, P])
     with torch.cuda.device(dev):
         rc = fn(q0_all.data_ptr(), sb, st, sa, logp_dc.data_ptr(),
@@ -191,62 +164,9 @@ def marginal_actor(q0_all, logp_dc, logp_g, alpha):
                 partial.data_ptr(), counter.data_ptr(), B, n_dc, n_g, N,
                 build.stream_of(dev))
     if rc != 0:
-        _raise(op, rc)
+        raise build.launch_failed(op, rc)
     marginal_actor.launches += 1
     return loss, ent, d_dc, d_g
 
 
 marginal_actor.launches = 0
-
-
-class _QuantileHuber(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, target, taus, plain):
-        from ..rl.sac import quantile_huber_loss
-
-        loss, grad = (quantile_huber_loss if plain else quantile_huber)(
-            q, target, taus)
-        ctx.save_for_backward(grad)
-        return loss
-
-    @staticmethod
-    def backward(ctx, g_loss):
-        (grad,) = ctx.saved_tensors
-        return grad * g_loss, None, None, None
-
-
-class _MarginalActor(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q0_all, logp_dc, logp_g, alpha, plain):
-        from ..rl import sac as rsac
-
-        loss, ent, d_dc, d_g = (rsac.marginal_actor if plain else marginal_actor)(
-            q0_all, logp_dc, logp_g, alpha)
-        ctx.save_for_backward(d_dc, d_g)
-        ctx.mark_non_differentiable(ent)
-        return loss, ent
-
-    @staticmethod
-    def backward(ctx, g_loss, _g_ent):
-        d_dc, d_g = ctx.saved_tensors
-        return None, d_dc * g_loss, d_g * g_loss, None, None
-
-
-def quantile_huber_fn(q, target, taus, plain: bool = False):
-    """B5a bound to autograd: the critic loss (a 0-d tensor)."""
-    return _QuantileHuber.apply(q, target, taus, plain)
-
-
-def marginal_target_fn(q1_all, logp_dc1, logp_g1, r, costs, lam, targets,
-                       done, alpha, gamma: float, plain: bool = False):
-    """B5b's target (no gradient): (target_q, r_eff)."""
-    from ..rl import sac as rsac
-
-    return (rsac.marginal_target if plain else marginal_target)(
-        q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done, alpha, gamma)
-
-
-def marginal_actor_fn(q0_all, logp_dc, logp_g, alpha, plain: bool = False):
-    """B5b's actor term bound to autograd: (loss, H), the gradient to
-    ``logp_dc`` and ``logp_g`` only."""
-    return _MarginalActor.apply(q0_all, logp_dc, logp_g, alpha, plain)

@@ -111,7 +111,8 @@ class CHSAC_AF:
         """The addresses of every tensor a captured update reads or writes:
         if any was replaced since the capture, the graph is stale."""
         st, rb = self.sac, self.replay
-        ts = [*st.flat.values(), *st.metrics.values(), st.log_alpha,
+        ts = [*st.flat.values(), *st.shadow.values(), *st.stage.values(),
+              *st.metrics.values(), st.log_alpha,
               st.consts.taus, *st.consts.gains, self._ukey, self._uidx,
               st.cmdp.lam, st.cmdp.integral, st.cmdp.prev_err,
               *(p for m in (st.enc, st.actor, st.critic, st.target_critic)

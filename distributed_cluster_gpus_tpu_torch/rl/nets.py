@@ -5,8 +5,8 @@ Counterpart of ``distributed_cluster_gpus_tpu/rl/nets.py``'s
 ``all_actions``) and ``QuantileCriticHeads`` (``:26``, ``:42``, ``:70``,
 ``:115``), 256 wide as published.  Each network has two forwards of the
 same float32 parameters: the acting recipe below, which the B4 device code
-repeats bit for bit, and the training forward (:func:`mm_dense`), which the
-SAC update differentiates.
+repeats bit for bit, and the training forward (:func:`dense_forward`) with
+its gradient, which the SAC update runs.
 
 Parameters are float32 with flax's layout and names (``kernel [in, out]``,
 ``bias [out]``), so ``bridge.sac_from_flax`` carries the JAX package's
@@ -33,15 +33,25 @@ The training forward cannot use that recipe: the one-hot critic's
 and the recipe's product tensor would be [16,384, 512, 256] float32.  It is
 instead what flax's bf16 ``Dense`` is: bf16 operands, ``torch.matmul`` with
 float32 accumulation and one rounding of the sum to bf16, then the bf16
-bias added (in float32, rounded to bf16); its backward is autograd's.  The
-float32 accumulation is pinned: cuBLAS may otherwise reduce a split-K
-product's partial sums in bf16
-(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+bias added (in float32, rounded to bf16), the ReLU, and a network's last
+layer widened to float32 (:func:`dense_forward`).  The float32 accumulation
+is pinned: cuBLAS may otherwise reduce a split-K product's partial sums in
+bf16 (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
 on by default), so :func:`pin_f32_accumulation` turns that off and
 ``rl/sac.py::sac_train_step`` calls it before every update.  The two
 forwards of the same weights therefore agree to a bf16 rounding of a
 layer's output, not bitwise: the matmul sums in cuBLAS's (or the CPU
 BLAS's) order, the recipe by its tree.
+
+The training forward's gradient is written out by hand, not left to
+autograd (:func:`dense_grads`, the modules' ``train_backward``): each
+layer's bf16 gradient is masked by its ReLU, its bias gradient summed over
+the rows by the fixed tree, its kernel gradient a bf16 ``torch.matmul``
+into the group's bf16 staging buffer.  Around the products the update's
+fused regions run as hand-written kernels on the card, each with its plain
+version here: B5d the layers' epilogues (``kernels/dense.py``), B5e the
+one-hot critic's input rows (``kernels/critic_input.py``), B5f the masked
+log-softmax of both heads (``kernels/log_softmax.py``).
 """
 
 from __future__ import annotations
@@ -77,23 +87,137 @@ def pin_f32_accumulation() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def mm_dense(x, kernel, bias):
-    """One bf16 ``Dense`` for training: ``x`` [..., K] bf16 times ``kernel``
-    [K, N] bf16 by ``torch.matmul`` (float32 accumulation, the sum rounded
-    once to bf16), plus the bf16 ``bias`` [N] (added in float32 and rounded,
-    as torch's bf16 add does); differentiable."""
-    return torch.matmul(x, kernel) + bias
-
-
 def masked_log_softmax(logits, mask):
     """float32 log-probabilities with the infeasible logits at -1e9 (the
     exponential sum by the fixed tree; the max is held constant under
-    differentiation, as flax's ``log_softmax`` stops its gradient)."""
+    differentiation, as flax's ``log_softmax`` stops its gradient): the
+    acting recipe's, and B5f's plain version (``kernels/log_softmax.py``)."""
     x = torch.where(mask, logits, torch.full_like(logits, NEG_MASK))
     m = x.max(dim=-1, keepdim=True).values.detach()
     sh = x - m
     lse = torch.log(tree_sum_last(torch.exp(sh)))
     return sh - lse[..., None]
+
+
+def masked_log_softmax_backward(logits, mask, g):
+    """B5f backward's plain version: dL/dlogits of :func:`masked_log_softmax`
+    from ``g`` = dL/dlogp, ``g + ((-T) / S) * exp(x - m)`` where ``mask``
+    and 0 elsewhere, with T the tree's sum of g and S the forward's sum of
+    exponentials (the max held constant)."""
+    x = torch.where(mask, logits, torch.full_like(logits, NEG_MASK))
+    e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    d_s = -tree_sum_last(g) / tree_sum_last(e)
+    return torch.where(mask, g + d_s[..., None] * e, torch.zeros_like(g))
+
+
+# ---------------------------------------------------------------------------
+# The training forward and its gradient.  A layer is a bf16 ``torch.matmul``
+# (float32 accumulation) and the B5d epilogue; its gradient the B5d backward
+# and the two products dW = x^T G (into the group's bf16 staging buffer) and
+# dX = G W^T.  The weights ``w`` are a list of (kernel, bias) bf16 pairs, one
+# per Dense layer: the state's shadows in an update (``rl/sac.py``), fresh
+# casts of the float32 parameters otherwise (:func:`casts`); ``dw`` the
+# matching (kernel, bias) views of the staging buffer.  ``plain`` runs the
+# regions' plain versions below in place of their kernels.
+# ---------------------------------------------------------------------------
+
+def dense_epilogue(y, bias, use_relu: bool, out32=None):
+    """B5d forward's plain version (``kernels/dense.py``), in place on the
+    product ``y`` (bf16 [R, N]): the bf16 ``bias`` added in float32 and
+    rounded to bf16 (torch's bf16 add), the ReLU where ``use_relu``, the
+    float32 copy into ``out32`` where given (flax's ``.astype``)."""
+    v = (y.to(torch.float32) + bias.to(torch.float32)).to(BF16)
+    y.copy_(relu(v) if use_relu else v)
+    if out32 is not None:
+        out32.copy_(y)
+    return y
+
+
+def dense_backward(g, y, db, g2=None):
+    """B5d backward's plain version: G = bf16(g) (or bf16(g + g2), summed in
+    float32), zero where the layer's output ``y`` is not positive (a ReLU
+    layer; ``y`` None for none), and ``db`` (bf16 [N]) = the tree's sum of G
+    over its rows, rounded to bf16.  Returns G."""
+    G = g.to(BF16) if g2 is None else (
+        g.to(torch.float32) + g2.to(torch.float32)).to(BF16)
+    if y is not None:
+        G = torch.where(y > 0, G, torch.zeros_like(G))
+    db.copy_(tree_sum_last(G.to(torch.float32).t()).to(BF16))
+    return G
+
+
+def dense_forward(x, kernel, bias, use_relu: bool, out32=None,
+                  plain: bool = False):
+    """One bf16 ``Dense`` for training: ``x`` [R, K] bf16 times ``kernel``
+    [K, N] bf16 by ``torch.matmul`` (float32 accumulation, the sum rounded
+    once to bf16), then B5d's epilogue; returns the bf16 output [R, N]."""
+    from ..kernels.dense import dense_epilogue as epilogue
+
+    return epilogue(torch.matmul(x, kernel), bias, use_relu, out32, plain=plain)
+
+
+def dense_grads(x, y, g, kernel, dkernel, dbias, g2=None, dx: bool = True,
+                plain: bool = False):
+    """One layer's gradient from the incoming ``g`` (and ``g2``): B5d's
+    backward writes ``dbias``, ``torch.matmul`` writes ``dkernel`` = x^T G;
+    returns dL/dx = G kernel^T (bf16) where ``dx``.  ``y`` is the layer's
+    output for a ReLU layer, None otherwise."""
+    from ..kernels.dense import dense_backward as backward
+
+    G = backward(g, y, dbias, g2, plain=plain)
+    torch.matmul(x.t(), G, out=dkernel)
+    return torch.matmul(G, kernel.t()) if dx else None
+
+
+def mlp_forward(x, w, last_relu: bool, out32=None, plain: bool = False):
+    """A ReLU MLP by the training forward: [x, y_1, ..., y_L], each layer's
+    bf16 input and the last one's output; the last layer has a ReLU where
+    ``last_relu`` and writes its float32 copy into ``out32`` where given."""
+    acts = [x]
+    for i, (kernel, bias) in enumerate(w):
+        last = i == len(w) - 1
+        acts.append(dense_forward(acts[-1], kernel, bias, last_relu or not last,
+                                  out32 if last else None, plain))
+    return acts
+
+
+def mlp_backward(acts, w, dw, g, last_relu: bool, plain: bool = False):
+    """The gradient of :func:`mlp_forward`'s MLP from ``g`` = dL/d(output):
+    every layer's into ``dw``; the input's is not formed."""
+    for i in reversed(range(len(w))):
+        act = last_relu or i < len(w) - 1
+        g = dense_grads(acts[i], acts[i + 1] if act else None, g, w[i][0],
+                        *dw[i], dx=i > 0, plain=plain)
+
+
+def casts(module) -> list:
+    """``module``'s weights for the training forward: each Dense layer's
+    (kernel, bias) rounded to bf16 (``astype``), in :func:`dense_layers`'s
+    order."""
+    return [(layer.kernel.detach().to(BF16), layer.bias.detach().to(BF16))
+            for layer in dense_layers(module)]
+
+
+def _twins(w):
+    k = len(w) // 2
+    return [w[:k], w[k:]]
+
+
+def critic_input(lat, n_dc: int, n_g: int, a_dc=None, a_g=None):
+    """B5e's plain version (``kernels/critic_input.py``): the one-hot
+    critic's bf16 input rows [rows, L + n_dc + n_g] from ``lat`` (float32
+    [B, L]), the JAX package's concat and cast: every joint action a = a_dc
+    * n_g + a_g in row b * A + a (``a_dc``, ``a_g`` None), or the taken
+    actions (int [B]) in row b."""
+    B, dev = lat.shape[0], lat.device
+    if a_dc is None:
+        acts = torch.arange(n_dc * n_g, device=dev)
+        a_dc, a_g = (acts // n_g).repeat(B), (acts % n_g).repeat(B)
+        lat = lat.repeat_interleave(n_dc * n_g, dim=0)
+    oh_dc = a_dc[:, None] == torch.arange(n_dc, device=dev)
+    oh_g = a_g[:, None] == torch.arange(n_g, device=dev)
+    return torch.cat([lat, oh_dc.to(torch.float32), oh_g.to(torch.float32)],
+                     dim=-1).to(BF16)
 
 
 class Dense(nn.Module):
@@ -124,10 +248,6 @@ class Dense(nn.Module):
     def forward(self, x):
         return bf16_dense(x, self.kernel.to(BF16), self.bias.to(BF16))
 
-    def mm(self, x):
-        """The training forward of this layer (:func:`mm_dense`)."""
-        return mm_dense(x, self.kernel.to(BF16), self.bias.to(BF16))
-
 
 class MLPStateEncoder(nn.Module):
     """obs [B, obs_dim] -> latent [B, latent] float32; 3-layer ReLU MLP."""
@@ -145,11 +265,18 @@ class MLPStateEncoder(nn.Module):
             x = relu(layer(x))
         return x.to(torch.float32)
 
-    def train_forward(self, obs):
-        x = obs.to(BF16)
-        for layer in self.layers:
-            x = torch.relu(layer.mm(x))
-        return x.to(torch.float32)
+    def train_forward(self, obs, w=None, plain: bool = False):
+        """(latent float32 [B, latent], the layers' bf16 activations, the
+        last being the bf16 latent) by the training forward."""
+        w = w or casts(self)
+        lat = torch.empty((obs.shape[0], w[-1][0].shape[1]),
+                          dtype=torch.float32, device=obs.device)
+        return lat, mlp_forward(obs.to(BF16), w, True, lat, plain)
+
+    def train_backward(self, acts, g, w, dw, plain: bool = False):
+        """Every layer's gradient into ``dw`` from ``g`` = dL/dlatent
+        (bf16)."""
+        mlp_backward(acts, w, dw, g, True, plain=plain)
 
 
 class HybridActor(nn.Module):
@@ -172,26 +299,44 @@ class HybridActor(nn.Module):
         return (masked_log_softmax(logit_dc, mask_dc),
                 masked_log_softmax(logit_g, mask_g))
 
-    def train_forward(self, latent, mask_dc, mask_g):
-        x = torch.relu(self.hidden.mm(latent.to(BF16)))
-        logit_dc = self.head_dc.mm(x).to(torch.float32)
-        logit_g = self.head_g.mm(x).to(torch.float32)
-        return (masked_log_softmax(logit_dc, mask_dc),
-                masked_log_softmax(logit_g, mask_g))
+    def train_forward(self, lat16, mask_dc, mask_g, w=None,
+                      plain: bool = False):
+        """(logp_dc, logp_g, saved) by the training forward from the bf16
+        latent ``lat16``; ``saved`` is what :meth:`train_backward` needs.
+        The masked log-softmax of both heads is one B5f launch."""
+        from ..kernels.log_softmax import log_softmax2
 
+        (k_h, b_h), (k_dc, b_dc), (k_g, b_g) = w or casts(self)
+        hid = dense_forward(lat16, k_h, b_h, True, plain=plain)
+        logits = []
+        for kernel, bias in ((k_dc, b_dc), (k_g, b_g)):
+            out = torch.empty((hid.shape[0], kernel.shape[1]),
+                              dtype=torch.float32, device=hid.device)
+            dense_forward(hid, kernel, bias, False, out, plain)
+            logits.append(out)
+        logp_dc, logp_g = log_softmax2(*logits, mask_dc, mask_g, plain=plain)
+        return logp_dc, logp_g, (lat16, hid, *logits, mask_dc, mask_g)
 
-def _mlp(layers, x):
-    """bf16 ReLU MLP by the training forward; the last layer's output in
-    float32 (flax's ``.astype(jnp.float32)``)."""
-    for layer in layers[:-1]:
-        x = torch.relu(layer.mm(x))
-    return layers[-1].mm(x).to(torch.float32)
+    def train_backward(self, saved, d_dc, d_g, w, dw, plain: bool = False):
+        """Every layer's gradient into ``dw`` from dL/dlogp of each head;
+        returns dL/dlat16 (bf16).  The hidden layer sums its two heads'
+        gradients in its B5d backward."""
+        from ..kernels.log_softmax import log_softmax2_backward
+
+        lat16, hid, l_dc, l_g, mask_dc, mask_g = saved
+        g_dc, g_g = log_softmax2_backward(l_dc, l_g, mask_dc, mask_g, d_dc, d_g,
+                                          plain=plain)
+        dx_dc = dense_grads(hid, None, g_dc, w[1][0], *dw[1], plain=plain)
+        dx_g = dense_grads(hid, None, g_g, w[2][0], *dw[2], plain=plain)
+        return dense_grads(lat16, hid, dx_dc, w[0][0], *dw[0], g2=dx_g,
+                           plain=plain)
 
 
 class QuantileCritic(nn.Module):
     """Twin quantile critics on (latent, onehot(a_dc), onehot(a_g)):
     [B, 2, n_quantiles].  Flax's compact names: twin 0 is ``Dense_0..2``,
-    twin 1 ``Dense_3..5`` (``layers`` in that order).  Training forward only."""
+    twin 1 ``Dense_3..5`` (``layers`` in that order).  Training forward only;
+    the input rows are B5e's."""
 
     def __init__(self, latent: int, n_dc: int, n_g: int, n_quantiles: int = 32,
                  hidden: Sequence[int] = (256, 256)):
@@ -202,25 +347,42 @@ class QuantileCritic(nn.Module):
             Dense(a, b) for _ in range(2)
             for a, b in zip(widths[:-1], widths[1:]))
 
-    def twins(self):
-        k = len(self.layers) // 2
-        return [list(self.layers[:k]), list(self.layers[k:])]
+    def _twins_forward(self, x0, w, plain):
+        """Both twins on the rows ``x0``: ([rows, 2, N] float32, the twins'
+        activations)."""
+        q = torch.empty((x0.shape[0], 2, self.n_quantiles), dtype=torch.float32,
+                        device=x0.device)
+        acts = [mlp_forward(x0, tw, False, q[:, t], plain)
+                for t, tw in enumerate(_twins(w))]
+        return q, acts
+
+    def train_forward(self, latent, a_dc, a_g, w=None, plain: bool = False):
+        """(taken-action quantiles [B, 2, N], saved) from the float32
+        ``latent``; ``saved`` is what :meth:`train_backward` needs."""
+        from ..kernels.critic_input import critic_input as rows
+
+        x0 = rows(latent, self.n_dc, self.n_g, a_dc.to(torch.int32),
+                  a_g.to(torch.int32), plain=plain)
+        return self._twins_forward(x0, w or casts(self), plain)
+
+    def train_backward(self, saved, dq, w, dw, plain: bool = False):
+        """Every layer's gradient into ``dw`` from ``dq`` = dL/dq [B, 2, N]
+        (float32)."""
+        for t, (acts, tw, tdw) in enumerate(zip(saved, _twins(w), _twins(dw))):
+            mlp_backward(acts, tw, tdw, dq[:, t], False, plain=plain)
 
     def forward(self, latent, a_dc, a_g):
-        eye_dc = torch.eye(self.n_dc, dtype=torch.float32, device=latent.device)
-        eye_g = torch.eye(self.n_g, dtype=torch.float32, device=latent.device)
-        x0 = torch.cat([latent, eye_dc[a_dc.long()], eye_g[a_g.long()]],
-                       dim=-1).to(BF16)
-        return torch.stack([_mlp(t, x0) for t in self.twins()], dim=1)
+        return self.train_forward(latent, a_dc, a_g)[0]
 
-    def all_actions(self, latent):
+    def all_actions(self, latent, w=None, plain: bool = False):
         """Quantiles of every joint action a = a_dc * n_g + a_g, in the JAX
         package's layout [B, 2, A, N] as a strided view of the [B, A, 2, N]
         product (the marginalization kernel takes either)."""
+        from ..kernels.critic_input import critic_input as rows
+
         B, A = latent.shape[0], self.n_dc * self.n_g
-        acts = torch.arange(A, device=latent.device)
-        q = self(latent.repeat_interleave(A, dim=0),
-                 (acts // self.n_g).repeat(B), (acts % self.n_g).repeat(B))
+        q, _ = self._twins_forward(rows(latent, self.n_dc, self.n_g, plain=plain),
+                                   w or casts(self), plain)
         return q.reshape(B, A, 2, -1).permute(0, 2, 1, 3)
 
 
@@ -239,22 +401,43 @@ class QuantileCriticHeads(nn.Module):
             Dense(a, b) for _ in range(2)
             for a, b in zip(widths[:-1], widths[1:]))
 
-    def twins(self):
-        k = len(self.layers) // 2
-        return [list(self.layers[:k]), list(self.layers[k:])]
-
-    def all_actions(self, latent):
-        """[B, 2, A, N]: one forward per twin."""
+    def _forward(self, latent, w, plain):
+        """([B, 2, A, N] float32, the twins' activations): one forward per
+        twin, each writing its half of the output."""
         B, A = latent.shape[0], self.n_dc * self.n_g
+        q = torch.empty((B, 2, A * self.n_quantiles), dtype=torch.float32,
+                        device=latent.device)
         x = latent.to(BF16)
-        return torch.stack([_mlp(t, x).reshape(B, A, self.n_quantiles)
-                            for t in self.twins()], dim=1)
+        acts = [mlp_forward(x, tw, False, q[:, t], plain)
+                for t, tw in enumerate(_twins(w))]
+        return q.view(B, 2, A, self.n_quantiles), acts
+
+    def all_actions(self, latent, w=None, plain: bool = False):
+        """[B, 2, A, N]: one forward per twin."""
+        return self._forward(latent, w or casts(self), plain)[0]
+
+    def train_forward(self, latent, a_dc, a_g, w=None, plain: bool = False):
+        """(taken-action quantiles [B, 2, N] gathered from the heads,
+        saved)."""
+        q, acts = self._forward(latent, w or casts(self), plain)
+        idx = (a_dc.long() * self.n_g + a_g.long())[:, None, None, None]
+        idx = idx.expand(q.shape[0], 2, 1, q.shape[-1])
+        return torch.gather(q, 2, idx)[:, :, 0], (acts, idx)
+
+    def train_backward(self, saved, dq, w, dw, plain: bool = False):
+        """Every layer's gradient into ``dw`` from ``dq`` = dL/dq [B, 2, N]
+        (float32), scattered to the taken action's head."""
+        acts, idx = saved
+        B, A, N = dq.shape[0], self.n_dc * self.n_g, self.n_quantiles
+        d = torch.zeros((B, 2, A, N), dtype=torch.float32, device=dq.device)
+        d.scatter_(2, idx, dq[:, :, None])
+        d = d.view(B, 2, A * N)
+        for t, (a, tw, tdw) in enumerate(zip(acts, _twins(w), _twins(dw))):
+            mlp_backward(a, tw, tdw, d[:, t], False, plain=plain)
 
     def forward(self, latent, a_dc, a_g):
         """Taken-action quantiles [B, 2, N], gathered from the heads."""
-        q = self.all_actions(latent)
-        idx = (a_dc.long() * self.n_g + a_g.long())[:, None, None, None]
-        return torch.gather(q, 2, idx.expand(q.shape[0], 2, 1, q.shape[-1]))[:, :, 0]
+        return self.train_forward(latent, a_dc, a_g)[0]
 
 
 def dense_layers(module) -> list:

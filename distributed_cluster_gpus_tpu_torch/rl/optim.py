@@ -111,6 +111,14 @@ def flatten_params(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
     return flat
 
 
+def pack_plain(pairs) -> None:
+    """B5g's plain version (``kernels/param_pack.py``): ``dst.copy_(src)``
+    for each (src, dst) pair, float32 -> bf16 rounded to nearest even or
+    bf16 -> float32 (exact)."""
+    for src, dst in pairs:
+        dst.copy_(src)
+
+
 def norm_layout(n: int):
     """(K blocks, R float4s per thread) of the sum of squares over n."""
     per = THREADS * VEC

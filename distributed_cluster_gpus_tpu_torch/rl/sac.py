@@ -17,12 +17,18 @@ how the kernel is held bit for bit against its plain version.
 
 Learning: :func:`sac_train_step` is one update, in the JAX package's order,
 on the agent's device.  The networks' products are bf16 ``torch.matmul``
-(``rl/nets.py``'s training forward, differentiated by autograd); the four
+(``rl/nets.py``'s training forward, its gradient written out by hand); the
 regions XLA fused run as hand-written kernels on the card, each with its
 plain version here or beside it:
 
 * B6b, the replay sample: ``kernels/replay_sample.py`` (plain:
   ``rl/replay.py::replay_sample``);
+* B5g, the bf16 parameter shadows and the gradient pack:
+  ``kernels/param_pack.py`` (plain: ``rl/optim.py::pack_plain``);
+* B5d, the Dense layers' epilogues forward and backward, B5e the one-hot
+  critic's input rows, B5f the masked log-softmax forward and backward:
+  ``kernels/dense.py``, ``kernels/critic_input.py``,
+  ``kernels/log_softmax.py`` (plain: ``rl/nets.py``);
 * B5a, the quantile-Huber loss and its gradient: ``kernels/sac_update.py``
   (plain: :func:`quantile_huber_loss`);
 * B5b, the exact marginalization over joint actions, the critic target and
@@ -31,9 +37,10 @@ plain version here or beside it:
 * B5c, clipped Adam with the Polyak target and the alpha clamp:
   ``kernels/adam.py`` (plain: ``rl/optim.py::clip_adam_update``).
 
-The sums of B5a and B5b follow the fixed halving tree of
+The sums of B5a, B5b, B5d and B5f follow the fixed halving tree of
 :func:`tree_sum_last` (quantile-Huber: over M, then over N, then over B;
-marginalization: over A, over N, over B), which their kernels repeat, so
+marginalization: over A, over N, over B; a bias gradient over the rows; a
+head's exponentials and gradients), which their kernels repeat, so
 each kernel is bitwise equal to its plain version on the card.  Against
 XLA's own reduction orders they agree to float32 rounding.
 ``plain=True`` runs the plain versions on any device (the card's smoke
@@ -55,7 +62,8 @@ from ..ops.physics import tree_sum_last
 from .cmdp import (CMDPState, ConstraintSpec, _gains, cmdp_init,
                    effective_reward, update_lagrange)
 from .nets import (BF16, HybridActor, MLPStateEncoder, QuantileCritic,
-                   QuantileCriticHeads, init_modules, pin_f32_accumulation)
+                   QuantileCriticHeads, dense_layers, init_modules,
+                   pin_f32_accumulation)
 from .optim import AdamConfig, AdamState, adam_init, f32, flatten_params
 
 
@@ -98,6 +106,10 @@ class SACConfig:
 
 #: the optimizer groups, in the update's order of application
 GROUPS = ("critic", "actor", "enc", "alpha")
+#: the groups the products read (bf16 shadows) and those with gradients
+#: (bf16 staging buffers)
+SHADOWED = ("enc", "actor", "critic", "target")
+STAGED = ("critic", "actor", "enc")
 
 
 class UpdateConsts:
@@ -119,7 +131,11 @@ class UpdateConsts:
 class SACState:
     """All learned state.  Each group's parameters live in one flat float32
     buffer (``flat[group]``; the modules' parameters and ``log_alpha`` are
-    views of it), as do the target critic's (``flat["target"]``).
+    views of it), as do the target critic's (``flat["target"]``).  The
+    networks' groups also have a bf16 shadow (``shadow[group]``, rewritten
+    from ``flat`` at the head of each update) and, but the target, a bf16
+    gradient staging buffer (``stage[group]``), both in ``flat``'s layout
+    (:meth:`views`).
     ``metrics`` holds the last update's metrics (written in place).
     ``step`` counts the updates taken (the host knows it without a read)."""
 
@@ -134,6 +150,8 @@ class SACState:
     alpha_opt: AdamState
     cmdp: CMDPState
     flat: Dict[str, torch.Tensor]
+    shadow: Dict[str, torch.Tensor]
+    stage: Dict[str, torch.Tensor]
     consts: UpdateConsts
     metrics: Dict[str, torch.Tensor]
     step: int = 0
@@ -142,6 +160,23 @@ class SACState:
         """The policy's six Dense layers in the kernel's order: encoder 0-2,
         actor hidden, DC head, GPU-count head."""
         return [*self.enc.layers, *self.actor.layers()]
+
+    def views(self, bufs: Dict[str, torch.Tensor]) -> Dict[str, list]:
+        """For each group of ``bufs`` (flat buffers in ``flat``'s layout:
+        ``shadow`` or ``stage``), each Dense layer's (kernel, bias) views of
+        it at the offsets its parameters have in ``flat[group]``."""
+        mods = {"enc": self.enc, "actor": self.actor, "critic": self.critic,
+                "target": self.target_critic}
+        out = {}
+        for g, buf in bufs.items():
+            flat, out[g] = self.flat[g], []
+            for layer in dense_layers(mods[g]):
+                pair = []
+                for p in (layer.kernel, layer.bias):
+                    off = (p.data_ptr() - flat.data_ptr()) // flat.element_size()
+                    pair.append(buf[off:off + p.numel()].view(p.shape))
+                out[g].append(tuple(pair))
+        return out
 
 
 def _critic_cls(cfg: SACConfig):
@@ -182,6 +217,8 @@ def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
         mod.to(dev)
         flat[name] = flatten_params(mod.parameters())
         mod.requires_grad_(name != "target")
+    shadow = {g: torch.empty_like(flat[g], dtype=BF16) for g in SHADOWED}
+    stage = {g: torch.empty_like(flat[g], dtype=BF16) for g in STAGED}
     flat["alpha"] = log_alpha.detach().reshape(1).to(device=dev,
                                                      dtype=torch.float32).clone()
     opts = opts or {g: adam_init(flat[g]) for g in GROUPS}
@@ -191,7 +228,8 @@ def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
                     critic_opt=opts["critic"], alpha_opt=opts["alpha"],
                     cmdp=cmdp if cmdp is not None else cmdp_init(
                         cfg.constraints, dev),
-                    flat=flat, consts=UpdateConsts(cfg, dev),
+                    flat=flat, shadow=shadow, stage=stage,
+                    consts=UpdateConsts(cfg, dev),
                     metrics=_metric_buffers(cfg, dev), step=step)
 
 
@@ -357,12 +395,6 @@ def sac_zero_metrics(cfg: SACConfig, sac: SACState):
                                      device=z.device)}
 
 
-def _flat_grad(grads, like):
-    out = torch.empty_like(like)
-    torch.cat([g.reshape(-1) for g in grads], out=out)
-    return out
-
-
 def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
                    index: Optional[torch.Tensor] = None):
     """One CHSAC-AF update from a replay sample, in place on ``sac``;
@@ -372,16 +404,22 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     the sample drawing with ``split(key)[0]`` as the JAX update does; given
     ``index`` (an int32 0-d tensor on the device) ``key`` is the chunk's key
     and the update's is ``split(key, max_steps)[index]``, both read on the
-    device (``CHSAC_AF.train_steps``).  ``plain`` runs the four regions'
-    plain versions in place of their kernels.
+    device (``CHSAC_AF.train_steps``).  ``plain`` runs the regions' plain
+    versions in place of their kernels.
+
+    The networks run on the bf16 shadows of their groups (B5g writes them
+    from the float32 buffers first); their gradients are written out by
+    hand into the bf16 staging buffers (``rl/nets.py``), which B5g widens
+    to float32 for B5c.  Only the temperature's scalar loss goes through
+    autograd.
 
     Capturable as a CUDA graph: every tensor the next update reads (the
     parameters, moments, counts, the target, log alpha, the CMDP state, the
     metrics) is written in place, and nothing is read back to the host."""
+    from ..kernels import sac_update as b5
     from ..kernels.adam import AdamGroup, adam_update
+    from ..kernels.param_pack import param_pack
     from ..kernels.replay_sample import replay_sample
-    from ..kernels.sac_update import (marginal_actor_fn, marginal_target_fn,
-                                      quantile_huber_fn)
 
     pin_f32_accumulation()
     c = sac.consts
@@ -389,41 +427,39 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     if index is None:
         key = prng.split(key, 2)[0].to(dev)
     batch = replay_sample(rb, key, cfg.batch, plain=plain, index=index)
+    param_pack([(sac.flat[g], sac.shadow[g]) for g in SHADOWED], plain=plain)
+    w, dw = sac.views(sac.shadow), sac.views(sac.stage)
+    huber = quantile_huber_loss if plain else b5.quantile_huber
+    target_fn = marginal_target if plain else b5.marginal_target
+    actor_fn = marginal_actor if plain else b5.marginal_actor
     alpha = torch.exp(sac.log_alpha)
-    tgt = c.gains[0]
 
     # critic target: exact marginalization over the next actions
-    with torch.no_grad():
-        lat1 = sac.enc.train_forward(batch["s1"])
-        logp_dc1, logp_g1 = sac.actor.train_forward(lat1, batch["mask_dc"],
-                                                    batch["mask_g"])
-        q1_all = sac.target_critic.all_actions(lat1)
-        target_q, r_eff = marginal_target_fn(
-            q1_all, logp_dc1, logp_g1, batch["r"], batch["costs"],
-            sac.cmdp.lam, tgt, batch["done"], alpha, cfg.gamma, plain=plain)
+    lat1, acts1 = sac.enc.train_forward(batch["s1"], w["enc"], plain)
+    logp_dc1, logp_g1, _ = sac.actor.train_forward(
+        acts1[-1], batch["mask_dc"], batch["mask_g"], w["actor"], plain)
+    q1_all = sac.target_critic.all_actions(lat1, w["target"], plain)
+    target_q, r_eff = target_fn(q1_all, logp_dc1, logp_g1, batch["r"],
+                                batch["costs"], sac.cmdp.lam, c.gains[0],
+                                batch["done"], alpha, cfg.gamma)
 
-    # critic loss (the encoder is not differentiated here)
-    lat0 = sac.enc.train_forward(batch["s0"])
-    lat0_c = lat0.detach()
-    critic_params = list(sac.critic.parameters())
-    q = sac.critic(lat0_c, batch["a_dc"], batch["a_g"])
-    c_loss = quantile_huber_fn(q, target_q, c.taus, plain=plain)
-    q_mean = q.detach().mean()
-    c_grad = _flat_grad(torch.autograd.grad(c_loss, critic_params),
-                        sac.flat["critic"])
+    # critic loss and its gradient (the encoder is not differentiated here)
+    lat0, acts0 = sac.enc.train_forward(batch["s0"], w["enc"], plain)
+    q, saved = sac.critic.train_forward(lat0, batch["a_dc"], batch["a_g"],
+                                        w["critic"], plain)
+    c_loss, dq = huber(q, target_q, c.taus)
+    q_mean = q.mean()
+    sac.critic.train_backward(saved, dq, w["critic"], dw["critic"], plain)
 
-    # actor + encoder loss: exact expectation under the masks at s0
-    logp_dc, logp_g = sac.actor.train_forward(lat0, batch["mask_dc0"],
-                                              batch["mask_g0"])
-    with torch.no_grad():
-        q0_all = sac.critic.all_actions(lat0_c)
-    a_loss, ent = marginal_actor_fn(q0_all, logp_dc, logp_g, alpha,
-                                    plain=plain)
-    actor_params = list(sac.actor.parameters())
-    enc_params = list(sac.enc.parameters())
-    grads = torch.autograd.grad(a_loss, actor_params + enc_params)
-    a_grad = _flat_grad(grads[:len(actor_params)], sac.flat["actor"])
-    e_grad = _flat_grad(grads[len(actor_params):], sac.flat["enc"])
+    # actor + encoder loss and its gradient: exact expectation under the
+    # masks at s0, the critic's quantiles held constant
+    logp_dc, logp_g, saved = sac.actor.train_forward(
+        acts0[-1], batch["mask_dc0"], batch["mask_g0"], w["actor"], plain)
+    q0_all = sac.critic.all_actions(lat0, w["critic"], plain)
+    a_loss, ent, d_dc, d_g = actor_fn(q0_all, logp_dc, logp_g, alpha)
+    d_lat = sac.actor.train_backward(saved, d_dc, d_g, w["actor"], dw["actor"],
+                                     plain)
+    sac.enc.train_backward(acts0, d_lat, w["enc"], dw["enc"], plain)
 
     # temperature loss
     log_alpha = sac.log_alpha.detach().clone().requires_grad_(True)
@@ -431,11 +467,13 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     (al_grad,) = torch.autograd.grad(al_loss, log_alpha)
 
     with torch.no_grad():
+        grads = {g: torch.empty_like(sac.flat[g]) for g in STAGED}
+        param_pack([(sac.stage[g], grads[g]) for g in STAGED], plain=plain)
         adam_update([
-            AdamGroup(sac.flat["critic"], c_grad, sac.critic_opt,
+            AdamGroup(sac.flat["critic"], grads["critic"], sac.critic_opt,
                       target=sac.flat["target"], tau=cfg.tau),
-            AdamGroup(sac.flat["actor"], a_grad, sac.actor_opt),
-            AdamGroup(sac.flat["enc"], e_grad, sac.enc_opt),
+            AdamGroup(sac.flat["actor"], grads["actor"], sac.actor_opt),
+            AdamGroup(sac.flat["enc"], grads["enc"], sac.enc_opt),
             AdamGroup(sac.flat["alpha"], al_grad.reshape(1), sac.alpha_opt,
                       clamp=c.clamp)], cfg.adam(), plain=plain)
         new, viol = update_lagrange(sac.cmdp, c.gains, batch["costs"])

@@ -489,9 +489,14 @@ def test_replay_ingest_reads_nothing_back(cuda):
 
 
 def _bits_equal(a, b):
+    views = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+    def bits(x):
+        v = views.get(x.dtype)
+        return x if v is None else x.reshape(-1).view(v)
+
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.reshape(-1).view(torch.int32) if a.dtype == torch.float32 else a,
-        b.reshape(-1).view(torch.int32) if b.dtype == torch.float32 else b)
+        bits(a), bits(b))
 
 
 @pytest.mark.gpu
@@ -822,3 +827,200 @@ def test_update_wrappers_reject_bad_operands(cuda):
     rb = replay.replay_init(32, 13, 2, 8, 4, device=cuda)
     with pytest.raises(ValueError):  # the kernel reads the key on the card
         b6b.replay_sample(rb, prng.key(1, "cpu"), 8)
+
+
+# ------------------------------------ the update's small regions: B5d-B5g
+
+
+def _bf16_rows(g, R, N, dev, scale=1.0):
+    """Seeded bf16 [R, N] with zeros, negative zeros and ties to even."""
+    x = torch.randn((R, N), generator=g) * scale
+    x.view(-1)[::7] = 0.0
+    x.view(-1)[3::11] = -0.0
+    return x.to(torch.bfloat16).to(dev)
+
+
+@pytest.mark.gpu
+def test_param_pack_kernel_matches_plain_version(cuda):
+    """B5g: float32 -> bf16 (ties, subnormals, overflow, infinities, NaN)
+    and back, several buffers of odd sizes in one launch, bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
+    from distributed_cluster_gpus_tpu_torch.rl.optim import pack_plain
+
+    g = torch.Generator().manual_seed(3)
+    srcs = []
+    for n in (1, 7, 8, 2049, 144_384):
+        x = torch.randn(n, generator=g) * 1e3
+        x[: min(n, 4)] = torch.tensor([1e-40, 3.4e38, float("inf"), float("nan")])[: min(n, 4)]
+        if n > 100:
+            x[10:60] = (torch.arange(50, dtype=torch.int32) << 16 | 0x8000).view(
+                torch.float32)
+        srcs.append(x.to(cuda))
+    for direction in ("to_bf16", "to_f32"):
+        if direction == "to_bf16":
+            pairs_k = [(s_, torch.empty_like(s_, dtype=torch.bfloat16)) for s_ in srcs]
+        else:
+            srcs = [d for _, d in pairs_k]
+            pairs_k = [(s_, torch.empty_like(s_, dtype=torch.float32)) for s_ in srcs]
+        pairs_p = [(s_, torch.empty_like(d)) for s_, d in pairs_k]
+        before = param_pack.launches
+        param_pack(pairs_k)
+        assert param_pack.launches == before + 1
+        pack_plain(pairs_p)
+        for (_, dk), (_, dp) in zip(pairs_k, pairs_p):
+            assert _bits_equal(dk, dp), direction
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N", [(256, 256), (16_384, 32), (33, 2), (5, 2048)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_dense_epilogue_kernel_matches_plain_version(cuda, R, N, relu):
+    """B5d forward: the bias add, the ReLU and the float32 copy into a
+    twin's strided slot, bitwise, on the vector path (N % 8 == 0) and the
+    scalar one."""
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import dense_epilogue
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    g = torch.Generator().manual_seed(R + N)
+    y = _bf16_rows(g, R, N, cuda)
+    bias = _bf16_rows(g, 1, N, cuda)[0]
+    outs = [torch.full((R, 2, N), 7.0, device=cuda) for _ in range(2)]
+    yk, yp = y.clone(), y.clone()
+    before = dense_epilogue.launches
+    dense_epilogue(yk, bias, relu, outs[0][:, 1])
+    assert dense_epilogue.launches == before + 1
+    nets.dense_epilogue(yp, bias, relu, outs[1][:, 1])
+    assert _bits_equal(yk, yp) and _bits_equal(outs[0], outs[1])
+    dense_epilogue(yk, bias, relu)  # no float32 copy
+    nets.dense_epilogue(yp, bias, relu)
+    assert _bits_equal(yk, yp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 33, 256, 4096])
+@pytest.mark.parametrize("N,kind", [(256, "bf16_relu"), (8, "f32_last"),
+                                    (2048, "f32_last"), (256, "two_relu"),
+                                    (3, "bf16_relu")])
+def test_dense_backward_kernel_matches_plain_version(cuda, R, N, kind):
+    """B5d backward: G (the mask, the bf16 cast of a float32 gradient from
+    a twin's strided slot, the sum of two bf16 gradients) and the bias
+    gradient by the tree over the rows, bitwise; R = 4,096 folds 16 rows a
+    thread before the block's tree."""
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import dense_backward
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    g_ = torch.Generator().manual_seed(R * N)
+    y = _bf16_rows(g_, R, N, cuda) if kind != "f32_last" else None
+    g2 = _bf16_rows(g_, R, N, cuda) if kind == "two_relu" else None
+    if kind == "f32_last":
+        g = (torch.randn((R, 2, N), generator=g_) * 3).to(cuda)[:, 0]
+    else:
+        g = _bf16_rows(g_, R, N, cuda, 3.0)
+    dbs = [torch.empty(N, dtype=torch.bfloat16, device=cuda) for _ in range(2)]
+    before = dense_backward.launches
+    Gk = dense_backward(g, y, dbs[0], g2)
+    assert dense_backward.launches == before + 1
+    Gp = nets.dense_backward(g, y, dbs[1], g2)
+    assert _bits_equal(Gk, Gp.contiguous()) and _bits_equal(dbs[0], dbs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,n_dc,n_g", [(256, 256, 8, 8), (5, 13, 2, 3)])
+def test_critic_input_kernel_matches_plain_version(cuda, B, L, n_dc, n_g):
+    """B5e: the taken actions' rows and every joint action's, bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels.critic_input import critic_input
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    g = torch.Generator().manual_seed(B)
+    lat = (torch.randn((B, L), generator=g) * 4).to(cuda)
+    a_dc = torch.randint(0, n_dc, (B,), generator=g, dtype=torch.int32).to(cuda)
+    a_g = torch.randint(0, n_g, (B,), generator=g, dtype=torch.int32).to(cuda)
+    before = critic_input.launches
+    for acts in ((a_dc, a_g), (None, None)):
+        k = critic_input(lat, n_dc, n_g, *acts)
+        assert _bits_equal(k, nets.critic_input(lat, n_dc, n_g, *acts))
+    assert critic_input.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dc,n_g", [(8, 8), (2, 8), (1, 64)])
+def test_log_softmax_kernels_match_plain_versions(cuda, n_dc, n_g):
+    """B5f: both heads' log-probabilities and the logits' gradient in one
+    launch each, bitwise (CUDA's expf/logf are torch's exp/log): random
+    masks, fully masked rows, one feasible entry, large logits."""
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    B = 256
+    g = torch.Generator().manual_seed(n_dc * n_g)
+    heads = []
+    for n in (n_dc, n_g):
+        m = torch.rand((B, n), generator=g) < 0.6
+        m[0] = False
+        m[1] = False
+        m[1, n - 1] = True
+        logits = torch.randn((B, n), generator=g) * torch.where(
+            torch.arange(B) % 2 == 0, 1.0, 40.0)[:, None]
+        heads.append((logits.to(cuda), m.to(cuda),
+                      torch.randn((B, n), generator=g).to(cuda)))
+    (l0, m0, c0), (l1, m1, c1) = heads
+    before = (b5f.log_softmax2.launches, b5f.log_softmax2_backward.launches)
+    fwd = b5f.log_softmax2(l0, l1, m0, m1)
+    bwd = b5f.log_softmax2_backward(l0, l1, m0, m1, c0, c1)
+    assert (b5f.log_softmax2.launches, b5f.log_softmax2_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    for k, (logits, m, c) in enumerate(heads):
+        assert _bits_equal(fwd[k], nets.masked_log_softmax(logits, m))
+        assert _bits_equal(bwd[k], nets.masked_log_softmax_backward(logits, m, c))
+
+
+@pytest.mark.gpu
+def test_fused_region_wrappers_reject_bad_operands(cuda):
+    """No fallback: a CUDA operand of the wrong dtype, shape or layout
+    raises instead of running the plain version."""
+    from distributed_cluster_gpus_tpu_torch.kernels.critic_input import critic_input
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import (dense_backward,
+                                                                  dense_epilogue)
+    from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import log_softmax2
+    from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
+
+    y = torch.zeros((4, 8), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        dense_epilogue(y.float(), b, True)
+    with pytest.raises(ValueError):  # the float32 copy needs unit column stride
+        dense_epilogue(y, b, True, torch.zeros((8, 4), device=cuda).t())
+    with pytest.raises(ValueError):
+        dense_backward(y.t(), None, b[:4])
+    with pytest.raises(TypeError):  # the kernel reads int32 actions
+        critic_input(torch.zeros((4, 6), device=cuda), 2, 3,
+                     torch.zeros(4, dtype=torch.int64, device=cuda),
+                     torch.zeros(4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        log_softmax2(torch.zeros((4, 3), device=cuda), torch.zeros((4, 2), device=cuda),
+                     torch.ones((4, 3), dtype=torch.bool, device=cuda),
+                     torch.ones((4, 2), dtype=torch.bool).cpu())
+    with pytest.raises(TypeError):
+        param_pack([(torch.zeros(8, device=cuda), torch.zeros(8, device=cuda))])
+
+
+@pytest.mark.gpu
+def test_update_graph_recaptures_after_buffer_replacement(cuda):
+    """Replacing a bf16 parameter shadow or a gradient staging buffer that a
+    captured update holds drops the graph: the next chunk captures again
+    and stays bitwise equal to the eager path given the same
+    replacements."""
+    a, b = _small_agent(cuda, "onehot"), _small_agent(cuda, "onehot")
+    for agent in (a, b):
+        agent.train_steps(2, 2, graph=agent is a)
+    assert a.graph_captures == 1
+    for i, (bufs, grp) in enumerate((("shadow", "critic"), ("shadow", "target"),
+                                     ("stage", "enc"))):
+        for agent in (a, b):
+            d = getattr(agent.sac, bufs)
+            d[grp] = torch.full_like(d[grp], float("nan"))
+            agent.train_steps(3, 4, graph=agent is a)
+        torch.cuda.synchronize()
+        assert a.graph_captures == 2 + i
+        assert _same_learner(a, b) == []
+        assert all(bool(torch.isfinite(v).all()) for v in a.sac.metrics.values())
