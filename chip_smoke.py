@@ -74,23 +74,31 @@ Phases (any failure exits non-zero before the result lines):
     and 4,096; the key given or derived on the card from a chunk key and
     an update index), each timed beside its plain version, its bound and a
     one-call PyTorch yardstick where there is one; then the update's small
-    fused regions, B5d (the Dense epilogues, forward and backward), B5e (the
-    one-hot critic's input rows), B5f (the masked log-softmax, forward and
-    backward) and B5g (the bf16 parameter shadows and the gradient pack),
-    each called with the inputs one eager update at the published shape
-    gave it (recorded at the call; the all-actions layers' 16,384 rows, the
-    heads critic's 2,048-wide output from a second, heads-critic update),
-    bitwise against its plain version, and one update's calls timed back to
-    back beside the plain versions, the bound and the library call;
+    fused regions, B5d (each Dense layer's product with its epilogue, a
+    hidden layer's gradient fused into the dX product, a top layer's
+    standalone backward), B5e (the one-hot critic's input rows), B5f (the
+    masked log-softmax, forward and backward) and B5g (the bf16 parameter
+    shadows and the gradient pack), each called with the inputs one eager
+    update at the published shape gave it (recorded at the call; the
+    all-actions layers' 16,384 rows, the heads critic's 2,048-wide output
+    from a second, heads-critic update), bitwise against its plain version
+    (B5d's forward on the encoder's 49-wide observations: its product
+    within a bf16 ulp of cuBLAS's, its epilogue bitwise), the share of
+    B5d's product elements that differ from cuBLAS's per shape, and one
+    update's calls timed back to back beside the plain versions, the bound
+    and the library call (B5d: cuBLAS's products alone), B5d's also shape
+    by shape;
 14. (k) whole updates at the published shape (the learning CLI's agent,
     batch 256, a 200,000-row ring filled through B6a): one chunk of updates
     three ways from one state and key chain, as the CLI runs it (one
     update captured as a CUDA graph and replayed once per update), every
-    update eager through the kernels, and the plain path, every state leaf
-    and metric bitwise (cuBLAS deterministic), with the heads critic and
-    the one-hot critic; for the one-hot critic ms per update each way and
-    profiled updates (device ops per update, busy share, by kind, and
-    device us per update by kernel name);
+    update eager through the kernels, and the plain path: graph and eager
+    bitwise in every state leaf and metric (cuBLAS deterministic), the
+    plain path bitwise or within the update's parity bounds (B5d's
+    products and cuBLAS's differ on the 49-wide observations), with the
+    heads critic and the one-hot critic; for the one-hot critic ms per
+    update each way and profiled updates (device ops per update, busy
+    share, by kind, and device us per update by kernel name);
 15. (l) B1 in RL mode with the weights (k) trained, one 1,024-step chunk at
     the chsac_af CLI's shape, bitwise against the plain step;
 16. (m) the learning CLI: chsac_af for 600 s at the default warm-up: B1, B2
@@ -121,6 +129,16 @@ Two opt-in studies of B1 replace the smoke when asked for:
         (``default_policy`` at the CLI's shape; RL mode at the chsac_af
         CLI's shape with the seeded perturbed policy), alternating parent,
         change, change, parent, each in its own process: us per event.
+    python3 chip_smoke.py --b5d-plans
+        B5d's forward at the update's layer shapes with every tile and ring
+        that fits: each bitwise against the plain version, device us per
+        call, fastest first (the wrapper's tile plan takes the fastest).
+    python3 chip_smoke.py --update-ab PARENT
+        The learning update of the checkout at PARENT and of this one
+        (alternating as above, each in its own process): ms per replayed
+        update, the graph's span, device ops and device us per update, B5d's
+        route per call at each one-hot update shape, the learning CLI's
+        events/s.
 """
 
 import json
@@ -222,8 +240,8 @@ def device_ms(fn, kernel, reps=20, runs=5):
     only device work must be one launch of ``kernel`` (a substring of the
     kernel's name).  The ``reps`` calls are queued behind a spin kernel, so
     they run back to back on the card and the CUDA events around them time
-    the launches, not the wrapper's host time (it fails if the host did not
-    finish queueing before the spin ended); the median of ``runs``.  A
+    the launches, not the wrapper's host time (``_behind_spin``); the median
+    of ``runs``.  A
     profiled pass of ``reps`` calls fails on any other device op it sees;
     it records only some of many short launches (0 to 6 of 20 on an H100),
     so the count of ``kernel`` launches it saw is reported, not required."""
@@ -247,23 +265,48 @@ def device_ms(fn, kernel, reps=20, runs=5):
     if others:
         fail(f"{reps} calls meant to launch only {kernel} ran other device "
              f"ops: {others}")
-    times = []
-    for _ in range(runs):
+    return _queued_ms(fn, reps, runs, kernel), seen
+
+
+def _behind_spin(queue, n, what):
+    """Device ms per item of ``queue()``, which queues ``n`` items: CUDA
+    events around them, queued behind a spin kernel so that they run back
+    to back on the card and the events time the device, not the host's
+    launches.  The host must finish queueing before the spin ends; where it
+    did not (a host slowed by other work), the run is made again behind a
+    spin twice as long, up to 16 times ``SPIN_CYCLES``, and then fails."""
+    cycles = SPIN_CYCLES
+    while True:
         s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         s0.record()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(cycles)
         s1.record()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        queue()
         host_ms = (time.perf_counter() - t0) * 1e3
         e.record()
         e.synchronize()
-        if host_ms >= s0.elapsed_time(s1):
-            fail(f"{kernel}: queueing {reps} calls took {host_ms:.2f} ms, longer "
-                 f"than the {s0.elapsed_time(s1):.2f} ms spin ahead of them")
-        times.append(s1.elapsed_time(e) / reps)
-    return statistics.median(times), seen
+        spin_ms = s0.elapsed_time(s1)
+        if host_ms < spin_ms:
+            return s1.elapsed_time(e) / n
+        if cycles >= 16 * SPIN_CYCLES:
+            fail(f"{what}: queueing {n} calls took {host_ms:.2f} ms, longer "
+                 f"than the {spin_ms:.2f} ms spin ahead of them")
+        cycles *= 2
+
+
+def _queued_ms(fn, reps=20, runs=5, what="timed calls"):
+    """Device ms per ``fn()``: ``reps`` calls queued behind a spin kernel
+    (``_behind_spin``); the median of ``runs``."""
+    fn()
+    torch.cuda.synchronize()
+
+    def queue():
+        for _ in range(reps):
+            fn()
+
+    return statistics.median(_behind_spin(queue, reps, what)
+                             for _ in range(runs))
 
 
 def bound(bytes_moved, ops):
@@ -1754,38 +1797,65 @@ def record_fused_calls(agent):
 
 
 def _fused_bytes(name, args):
-    """Bytes one call must move (each input read once, each output written
-    once) and its float32 operations."""
+    """(bytes, float32 operations, bf16 tensor operations) one call must
+    move and do: each input read once, each output written once; a product
+    2 R K N operations at the bf16 tensor peak, an epilogue's float32."""
     nb = lambda t: t.numel() * t.element_size()  # noqa: E731
-    if name == "dense_epilogue":
-        y, bias, _, out32 = (list(args) + [None])[:4]
-        return 2 * nb(y) + nb(bias) + (0 if out32 is None else nb(out32)), \
-            3 * y.numel()
+    if name == "dense_fwd":
+        x, w, bias, _ = args[:4]
+        out32 = args[4] if len(args) > 4 else None
+        R, N = x.shape[0], w.shape[1]
+        return (nb(x) + nb(w) + nb(bias) + 2 * R * N
+                + (0 if out32 is None else 4 * R * N)), 3 * R * N, \
+            2 * R * x.shape[1] * N
+    if name == "dense_dx":
+        g, w, y, db = args[:4]
+        pairs = [(g, w)] + ([tuple(args[4:6])] if len(args) > 4
+                            and args[4] is not None else [])
+        R, N = g.shape[0], w.shape[0]
+        return (sum(nb(a) + nb(b) for a, b in pairs) + 2 * R * N + nb(db)
+                + (0 if y is None else nb(y))), 4 * R * N, \
+            sum(2 * R * a.shape[1] * N for a, _ in pairs)
     if name == "dense_backward":
         g, y, db = args[:3]
         g2 = args[3] if len(args) > 3 else None
         n = g.numel()
         return (nb(g) + 2 * n + nb(db) + (0 if y is None else nb(y))
-                + (0 if g2 is None else nb(g2))), 4 * n
+                + (0 if g2 is None else nb(g2))), 4 * n, 0
     if name == "critic_input":
         lat, n_dc, n_g = args[:3]
         acts = [a for a in args[3:5] if a is not None]
         rows = lat.shape[0] * (1 if acts else n_dc * n_g)
         return (nb(lat) + sum(nb(a) for a in acts)
-                + 2 * rows * (lat.shape[1] + n_dc + n_g)), rows * 2
+                + 2 * rows * (lat.shape[1] + n_dc + n_g)), rows * 2, 0
     if name.startswith("log_softmax2"):
         heads = [t for t in args if isinstance(t, torch.Tensor)]
         entries = heads[0].numel() + heads[1].numel()
-        return sum(nb(t) for t in heads) + 4 * entries, 40 * entries
+        return sum(nb(t) for t in heads) + 4 * entries, 40 * entries, 0
     # param_pack: every (src, dst) pair read and written once
     pairs = args[0]
-    return sum(nb(a) + nb(b) for a, b in pairs), sum(a.numel() for a, _ in pairs)
+    return (sum(nb(a) + nb(b) for a, b in pairs),
+            sum(a.numel() for a, _ in pairs), 0)
+
+
+def _products(name, args):
+    """The bf16 products a B5d call computes, as (a, b) with a @ b the
+    product (cuBLAS's ``torch.matmul`` of them is the library call)."""
+    if name == "dense_fwd":
+        return [(args[0], args[1])]
+    if name == "dense_dx":
+        pairs = [(args[0], args[1])]
+        if len(args) > 4 and args[4] is not None:
+            pairs.append((args[4], args[5]))
+        return [(a, b.t()) for a, b in pairs]
+    return []
 
 
 def _library_call(name, calls):
     """One PyTorch call computing the same function for each recorded call,
     or None: the log-softmax of the masked logits (its backward from the
-    forward's output), the buffers' ``Tensor.to``."""
+    forward's output), the buffers' ``Tensor.to``, B5d's products alone
+    (cuBLAS's ``torch.matmul``, without the epilogue)."""
     if name == "log_softmax2":
         ins = [(l_.clone(), (~m).contiguous()) for (a, _) in calls
                for l_, m in ((a[0], a[2]), (a[1], a[3]))]
@@ -1802,7 +1872,90 @@ def _library_call(name, calls):
     if name == "param_pack":
         ins = [(src.clone(), dst.dtype) for a, _ in calls for src, dst in a[0]]
         return lambda: [src.to(dt) for src, dt in ins]
+    if name in ("dense_fwd", "dense_dx"):  # the products alone (cuBLAS)
+        ins = [(a.clone(), b) for args, _ in calls for a, b in _products(name, args)]
+        return lambda: [torch.matmul(a, b) for a, b in ins]
     return None
+
+
+def _ulp_gap(a, b):
+    """The largest distance in bf16 ulps between two bf16 tensors."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _differ(a, b):
+    """The share of elements whose bits differ between two tensors."""
+    v = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return float((a.contiguous().view(v) != b.contiguous().view(v)).float().mean())
+
+
+def _fwd_standing(args, kw, fn):
+    """B5d forward on a call whose kernel product may sum otherwise than
+    cuBLAS's (ROADMAP queue C): fails unless the kernel's product (bias 0,
+    no ReLU) is within one bf16 ulp of cuBLAS's and the kernel's output is
+    bitwise the plain epilogue applied to the kernel's own product.
+    Returns (share of product elements that differ, largest gap in ulps)."""
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    x, w, bias, relu = args[:4]
+    out32 = args[4] if len(args) > 4 else None
+    own = fn(x, w, torch.zeros_like(bias), False)
+    ref = torch.matmul(x, w)
+    gap = _ulp_gap(own, ref)
+    o_k = None if out32 is None else _clone(out32)
+    o_p = None if out32 is None else _clone(out32)
+    y = fn(x, w, bias, relu, o_k, **kw)
+    want = nets.dense_epilogue(own.clone(), bias, relu, o_p)
+    if gap > 1 or not _same_bits(y, want) or (
+            out32 is not None and not _same_bits(o_k, o_p)):
+        fail(f"fused regions: dense_fwd {tuple(x.shape)} x {tuple(w.shape)}: "
+             f"the product {gap} ulp from cuBLAS's (at most 1), or the "
+             "epilogue not its plain version's")
+    return _differ(own, ref), gap
+
+
+def _shape_key(name, args):
+    """A recorded call's shape: (R, K, N) forward, (R, N, K' of each
+    product) dX, (R, N, g's dtype) for the standalone backward."""
+    if name == "dense_fwd":
+        return (args[0].shape[0], args[0].shape[1], args[1].shape[1])
+    if name == "dense_dx":
+        return (args[0].shape[0], args[1].shape[0],
+                *(a.shape[1] for a, _ in _products(name, args)))
+    return (*args[0].shape, str(args[0].dtype).replace("torch.", ""))
+
+
+def _per_shape(name, calls, fn):
+    """B5d's calls of one update grouped by shape, each group timed per
+    call: the kernel (device time, back to back), the plain version, the
+    bound of the fused work and cuBLAS's product alone."""
+    groups = {}
+    for args, kw in calls:
+        groups.setdefault(_shape_key(name, args), []).append((args, kw))
+    out = {}
+    for key, grp in sorted(groups.items()):
+        sets = [(_clone(a), kw) for a, kw in grp]
+
+        def run(plain=False, sets=sets):
+            for a, kw in sets:
+                fn(*a, **{**kw, "plain": plain})
+
+        ms, _ = device_ms(run, FUSED[name][1])
+        plain = time_cuda(lambda: run(True), reps=5)
+        lib_fn = _library_call(name, grp)
+        lib = None if lib_fn is None else _queued_ms(lib_fn)
+        by, f32_ops, bf16_ops = (sum(v) for v in zip(
+            *(_fused_bytes(name, a) for a, _ in grp)))
+        bnd, bnd_by = bound2(by, f32_ops, bf16_ops)
+        n = len(grp)
+        out["x".join(map(str, key))] = {
+            "calls": n, "ms_per_call": ms / n, "plain_ms_per_call": plain / n,
+            "bound_ms_per_call": bnd / n, "bound_by": bnd_by,
+            "library_ms_per_call": None if lib is None else lib / n}
+    return out
 
 
 def phase_fused_regions(report):
@@ -1810,18 +1963,28 @@ def phase_fused_regions(report):
     one eager update at the published shape (the learning CLI's agent,
     batch 256, both critics) makes of each wrapper, recorded with its
     inputs, run again through the kernel and through the plain version
-    from copies of those inputs: every output bitwise.  Then the one-hot
+    from copies of those inputs: every output bitwise, but for B5d's
+    forward on an x whose rows TMA cannot load (the encoder's first layer,
+    49 observations): there cuBLAS runs another product kernel, so the
+    kernel's product is held within one bf16 ulp of cuBLAS's and its
+    epilogue bitwise (``_fwd_standing``).  The share of product elements
+    that differ from cuBLAS's is recorded per call shape.  Then the one-hot
     update's calls of each wrapper timed back to back (device time of one
-    update's calls), beside the plain versions, the bound (bytes these
-    calls move at the HBM peak) and a one-call PyTorch yardstick where one
-    computes the same function."""
+    update's calls), beside the plain versions, the bound (the larger of
+    the bytes these calls move at the HBM peak and their operations at
+    their peaks) and a one-call PyTorch yardstick where one computes the
+    same function (for B5d cuBLAS's products alone); B5d's calls also shape
+    by shape."""
     import dataclasses
 
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import tma_ok
+    from distributed_cluster_gpus_tpu_torch.rl.nets import pin_f32_accumulation
     from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
 
+    pin_f32_accumulation()
     fleet, params, _ = learning_params()
     ring = seeded_ring(params.rl_buffer, 5, 4096, 0.5, 8)
-    out, n_calls, recs = {}, {}, {}
+    out, n_calls, recs, cublas = {}, {}, {}, {}
     for arch in ("onehot", "heads"):
         ag = make_agent(fleet, dataclasses.replace(params, critic_arch=arch),
                         device="cuda")
@@ -1834,6 +1997,25 @@ def phase_fused_regions(report):
                  f"expected {want}")
         for name, calls in rec.items():
             for i, (args, kw) in enumerate(calls):
+                if name in ("dense_fwd", "dense_dx"):
+                    key = f"{name} " + "x".join(map(str, _shape_key(name, args)))
+                    prods = [torch.matmul(a, b) for a, b in _products(name, args)]
+                    if name == "dense_fwd":
+                        mine = [orig[name](args[0], args[1],
+                                           torch.zeros_like(args[2]), False)]
+                    else:  # each product alone, unmasked
+                        mine = [orig[name](a, b.t(), None, torch.empty_like(args[3]))
+                                for a, b in _products(name, args)]
+                    agree = cublas.setdefault(key, {"calls": 0, "share_differing": 0.0,
+                                                    "max_ulps": 0})
+                    agree["calls"] += 1
+                    agree["share_differing"] = max(agree["share_differing"], max(
+                        _differ(m, p) for m, p in zip(mine, prods)))
+                    agree["max_ulps"] = max(agree["max_ulps"], max(
+                        _ulp_gap(m, p) for m, p in zip(mine, prods)))
+                if name == "dense_fwd" and not tma_ok(args[0]):
+                    _fwd_standing(_clone(args), kw, orig[name])
+                    continue
                 a_k, a_p = _clone(args), _clone(args)
                 r_k = orig[name](*a_k, **kw)
                 r_p = orig[name](*a_p, **{**kw, "plain": True})
@@ -1845,8 +2027,12 @@ def phase_fused_regions(report):
                     fail(f"fused regions ({arch}): {name} call {i} differs from "
                          f"its plain version (max abs {err:.3g})")
         recs[arch] = (rec, orig)
+    print("B5d against cuBLAS (pinned float32 accumulation) on the products "
+          "one update's calls gave it: " + "; ".join(
+              f"{k}: {v['share_differing']:.6f} of elements differ, at most "
+              f"{v['max_ulps']} ulp ({v['calls']} calls)" for k, v in cublas.items()))
     rec, orig = recs["onehot"]
-    shapes = {}
+    shapes, per_shape = {}, {}
     for name, calls in rec.items():
         sets = [_clone(args) for args, _ in calls]
         kws = [kw for _, kw in calls]
@@ -1858,27 +2044,46 @@ def phase_fused_regions(report):
         ms, seen = device_ms(run, FUSED[name][1])
         plain = time_cuda(lambda: run(True), reps=5)
         lib_fn = _library_call(name, calls)
-        lib = None if lib_fn is None else time_cuda(lib_fn, reps=20)
-        by, ops = (sum(v) for v in zip(*(_fused_bytes(name, a) for a, _ in calls)))
-        bnd, bnd_by = bound(by, ops)
+        # B5d's yardstick, cuBLAS's products, as device time (queued behind
+        # a spin, as the kernels' are); the others' host to host
+        lib = None if lib_fn is None else (
+            _queued_ms(lib_fn) if name.startswith("dense") else time_cuda(
+                lib_fn, reps=20))
+        by, f32_ops, bf16_ops = (sum(v) for v in zip(
+            *(_fused_bytes(name, a) for a, _ in calls)))
+        bnd, bnd_by = bound2(by, f32_ops, bf16_ops)
         shapes[name] = sorted({tuple(a[0].shape) if name != "param_pack"
                                else tuple(p[0].numel() for p in a[0])
                                for a, _ in calls})
+        if name.startswith("dense"):
+            per_shape[name] = _per_shape(name, calls, orig[name])
         out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                      "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                     "bf16_ops": bf16_ops,
                      "library_ms": lib, "calls_per_update": len(calls),
                      "profiler_launches_seen": seen,
                      "kernel_us": KERNEL_US.get(FUSED[name][1])}
     for name, v in out.items():
         lib_s = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
         print(f"{name} ({v['calls_per_update']} calls an update; first operand "
-              f"shapes {shapes[name]}): bitwise equal to its plain version in "
-              f"every call of a one-hot and a heads update; one update's calls "
+              f"shapes {shapes[name]}): equal to its plain version in every "
+              f"call of a one-hot and a heads update; one update's calls "
               f"{v['ms']:.4f} ms device time (back to back), plain "
               f"{v['plain_ms']:.4f} ms, library {lib_s}, bound "
-              f"{v['bound_ms']:.6f} ms ({v['bound_by']}: {v['bytes']} B)")
+              f"{v['bound_ms']:.6f} ms ({v['bound_by']}: {v['bytes']} B, "
+              f"{v['bf16_ops']} bf16 ops)")
+    for name, rows in per_shape.items():
+        for key, v in rows.items():
+            lib_s = ("none" if v["library_ms_per_call"] is None
+                     else f"{v['library_ms_per_call'] * 1e3:.2f} us")
+            print(f"  {name} {key}: {v['calls']} calls, "
+                  f"{v['ms_per_call'] * 1e3:.2f} us a call (plain "
+                  f"{v['plain_ms_per_call'] * 1e3:.2f}, cuBLAS's product "
+                  f"{lib_s}, bound {v['bound_ms_per_call'] * 1e3:.3f} us, "
+                  f"{v['bound_by']})")
     report["fused"] = {"calls_per_update": n_calls, "shapes": {
-        k: [list(x) for x in v] for k, v in shapes.items()}, **out}
+        k: [list(x) for x in v] for k, v in shapes.items()},
+        "per_shape": per_shape, "against_cublas": cublas, **out}
 
 
 def learning_params():
@@ -1902,13 +2107,14 @@ def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S):
 
 UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
                    "adam_update", "replay_sample", "param_pack",
-                   "dense_epilogue", "dense_backward", "critic_input",
+                   "dense_fwd", "dense_dx", "dense_backward", "critic_input",
                    "log_softmax2", "log_softmax2_backward")
 #: the update's small fused regions (B5d-B5g): {wrapper: (its module and
 #: CUDA source, the profiler's name of its kernel, the JAX package's code
 #: it replaces)}
-FUSED = {"dense_epilogue": ("dense", "dense_fwd_kernel", "rl/nets.py:37"),
-         "dense_backward": ("dense", "dense_bwd_kernel", "rl/sac.py:246"),
+FUSED = {"dense_fwd": ("dense", "dense_fwd_gemm", "rl/nets.py:37"),
+         "dense_dx": ("dense", "dense_dx_gemm", "rl/sac.py:246"),
+         "dense_backward": ("dense", "dense_bwd_kernel", "rl/sac.py:264"),
          "critic_input": ("critic_input", "critic_input_kernel",
                           "rl/nets.py:85"),
          "log_softmax2": ("log_softmax", "log_softmax_kernel", "rl/nets.py:65"),
@@ -1939,12 +2145,15 @@ def per_update(arch):
     """Wrapper calls of each update kernel per update, with the ``arch``
     critic: 30 Dense layers forward (the encoder twice, the actor twice, the
     critics' two twins three times, the all-actions passes among them), 12
-    backward (the critic's 6, the actor's 3, the encoder's 3), the one-hot
-    critic's input rows three times, the log-softmax forward twice and
-    backward once, the shadows' and the gradients' pack."""
+    backward: 8 fused into a dX product (each critic twin's two lower
+    layers, the actor's hidden layer with both heads' products, the
+    encoder's three layers) and 4 standalone (the twins' top layers, the
+    actor's heads), the one-hot critic's input rows three times, the
+    log-softmax forward twice and backward once, the shadows' and the
+    gradients' pack."""
     return {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
             "adam_update": 1, "replay_sample": 1, "param_pack": 2,
-            "dense_epilogue": 30, "dense_backward": 12,
+            "dense_fwd": 30, "dense_dx": 8, "dense_backward": 4,
             "critic_input": 3 if arch == "onehot" else 0, "log_softmax2": 2,
             "log_softmax2_backward": 1}
 
@@ -1961,13 +2170,12 @@ UPDATE_KERNELS = ("quantile_huber_kernel", "marginal_target_kernel",
                   *dict.fromkeys(k for _, k, _ in FUSED.values()))
 
 
-def _profile_updates(agent, n, graph=True):
+def _profile_updates(agent, n, graph=True, ours=UPDATE_KERNELS):
     """Profile ``agent.train_steps(n, n)``: (wall us, device busy us by kind,
     device ops by kind, port kernel names seen, device ops by name, device
-    us by name)."""
+    us by name); a kernel whose name holds one of ``ours`` is the port's."""
     from torch.profiler import ProfilerActivity, profile
 
-    ours = UPDATE_KERNELS
     kinds = {"matmul": 0.0, "port kernels": 0.0, "other torch ops": 0.0}
     n_ops = {"matmul": 0, "port kernels": 0, "other torch ops": 0}
     seen = {k: 0 for k in ours}
@@ -2003,28 +2211,15 @@ def _profile_updates(agent, n, graph=True):
 
 def _graph_device_ms(agent, n=2, runs=5):
     """Device time per update of ``n`` graph replays queued behind a spin
-    kernel (CUDA events around them: the graph's span on the card, its
-    gaps between kernels included, not the host's launch time; a replay
-    queues ~600 kernels, so only a few fit in the launch queue at once);
-    the median of ``runs``."""
+    kernel (``_behind_spin``: the graph's span on the card, its gaps between
+    kernels included, not the host's launch time; a replay queues ~600
+    kernels, so only a few fit in the launch queue at once); the median of
+    ``runs``."""
     agent.train_steps(2, 2)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        s0, s1, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        s0.record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        s1.record()
-        t0 = time.perf_counter()
-        agent.train_steps(n, n)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        e.record()
-        e.synchronize()
-        if host_ms >= s0.elapsed_time(s1):
-            fail(f"graph device time: queueing {n} replays took {host_ms:.2f} "
-                 f"ms, longer than the {s0.elapsed_time(s1):.2f} ms spin")
-        times.append(s1.elapsed_time(e) / n)
-    return statistics.median(times)
+    return statistics.median(
+        _behind_spin(lambda: agent.train_steps(n, n), n, "graph device time")
+        for _ in range(runs))
 
 
 #: the initial weights drawn on the card against the same draw on the CPU
@@ -2093,8 +2288,13 @@ def init_on_card(fleet, params):
 def three_paths(fleet, params, ring, arch, n):
     """(graph, eager kernel, plain) agents of the learning CLI with the
     ``arch`` critic after one chunk of ``n`` updates each from the same
-    state, ring and key chain (matmuls deterministic); fails unless every
-    metric and every leaf of the state is bitwise equal across the three."""
+    state, ring and key chain (matmuls deterministic), and whether the
+    plain path matched bitwise; fails unless every metric and every leaf
+    of the state is bitwise equal between the graph and the eager kernel
+    path, and the plain path's is bitwise equal too or, where B5d's
+    products sum otherwise than cuBLAS's (the encoder's first layer: 49
+    observations, rows TMA cannot load; ROADMAP queue C), within the
+    bounds the update's parity tests use (``bridge.sac_far_apart``)."""
     import dataclasses
 
     from distributed_cluster_gpus_tpu_torch import bridge
@@ -2122,17 +2322,23 @@ def three_paths(fleet, params, ring, arch, n):
         fail(f"{where}: {g_ag.graph_captures} captures and "
              f"{g_ag.graph_replays} replays for a chunk of {n} updates")
     cfg = g_ag.cfg
-    for name, m, ag in (("eager kernel", me, e_ag), ("plain", mp, p_ag)):
-        for k in mg:
-            if not _bits(mg[k], m[k]):
-                fail(f"{where}: metric {k} differs between the graph and "
-                     f"the {name} path ({mg[k].tolist()} vs {m[k].tolist()})")
-        bad = bridge.tree_mismatches(bridge.sac_to_numpy(cfg, ag.sac),
-                                     bridge.sac_to_numpy(cfg, g_ag.sac))
-        if bad:
-            fail(f"{where}: state differs between the graph and the "
-                 f"{name} path at {bad[:5]}")
-    return g_ag, e_ag, p_ag
+    for k in mg:
+        if not _bits(mg[k], me[k]):
+            fail(f"{where}: metric {k} differs between the graph and the eager "
+                 f"kernel path ({mg[k].tolist()} vs {me[k].tolist()})")
+    g_tree = bridge.sac_to_numpy(cfg, g_ag.sac)
+    bad = bridge.tree_mismatches(bridge.sac_to_numpy(cfg, e_ag.sac), g_tree)
+    if bad:
+        fail(f"{where}: state differs between the graph and the eager kernel "
+             f"path at {bad[:5]}")
+    p_tree = bridge.sac_to_numpy(cfg, p_ag.sac)
+    bitwise = not bridge.tree_mismatches(p_tree, g_tree) and all(
+        _bits(mg[k], mp[k]) for k in mg)
+    far = bridge.sac_far_apart(cfg, p_tree, g_tree, n, (mp, mg))
+    if far:
+        fail(f"{where}: the plain path's state lies beyond the parity bounds "
+             f"from the graph's at {far[:5]}")
+    return g_ag, e_ag, p_ag, bitwise
 
 
 def phase_update_whole(report):
@@ -2152,8 +2358,10 @@ def phase_update_whole(report):
     init = init_on_card(fleet, params)
     ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
     n = GRAPH_CHUNK
+    plain_bitwise = {}
     for arch in ("heads", "onehot"):
-        g_ag, e_ag, p_ag = three_paths(fleet, params, ring, arch, n)
+        g_ag, e_ag, p_ag, plain_bitwise[arch] = three_paths(fleet, params, ring,
+                                                            arch, n)
     cfg = g_ag.cfg
     # the graph above was captured under deterministic mode, which fills
     # every new allocation (~200 fills an update); the CLI's is not: capture
@@ -2225,8 +2433,9 @@ def phase_update_whole(report):
     print(f"whole update at the published shape (batch {cfg.batch}, N "
           f"{cfg.n_quantiles}, {cfg.n_dc}x{cfg.n_g} actions, ring "
           f"{params.rl_buffer}): a chunk of {n} updates bitwise equal between "
-          f"the CUDA graph (1 capture, {n - 1} replays), the eager kernel path "
-          f"and the plain path (every state leaf and metric), with the heads "
+          f"the CUDA graph (1 capture, {n - 1} replays) and the eager kernel "
+          f"path (every state leaf and metric), the plain path bitwise equal "
+          f"too ({plain_bitwise}) or within the parity bounds, with the heads "
           f"and the one-hot critic; one-hot, ms per update: "
           f"graph {timing['graph']:.3f}, eager kernels {timing['eager']:.3f}, "
           f"plain {timing['plain']:.3f}; the graph's span on the card "
@@ -2248,6 +2457,7 @@ def phase_update_whole(report):
                         "graph_device_ms_per_update": timing["graph_device"],
                         "eager_ms_per_update": timing["eager"],
                         "plain_ms_per_update": timing["plain"],
+                        "plain_bitwise": plain_bitwise,
                         "profile": prof, "all_actions_ops": mm_ops,
                         "all_actions_bound_ms": mm_bound_ms,
                         "calls_per_update": launched}
@@ -2747,6 +2957,187 @@ def study_b1_chunk_ms(mode):
     print(json.dumps({"ms": ms, "events": events, "steps": n}))
 
 
+#: the one-hot update's B5d calls by shape for the A/B: forward (R, K, N,
+#: ReLU, float32 copy with the twins' row stride), fused dX (R, N, K' of
+#: each product), standalone backward (R, N, float32 row stride)
+AB_FWD = [(256, 49, 256, True, 0), (256, 256, 256, True, 0),
+          (256, 256, 8, False, 8), (256, 272, 256, True, 0),
+          (256, 256, 32, False, 64), (16_384, 272, 256, True, 0),
+          (16_384, 256, 256, True, 0), (16_384, 256, 32, False, 64)]
+AB_DX = [(256, 256, (256,)), (256, 256, (32,)), (256, 256, (8, 8))]
+AB_BWD = [(256, 32, 64), (256, 8, 8)]
+
+
+def _b5d_routes():
+    """us per call of the B5d route of the package on sys.path at each
+    one-hot update shape: this checkout's fused kernels, or the parent's
+    ``torch.matmul`` + epilogue kernel (``dense_epilogue``) and matmul +
+    backward kernel (``dense_backward``)."""
+    from distributed_cluster_gpus_tpu_torch.kernels import dense
+
+    g = torch.Generator().manual_seed(5)
+    r = lambda *sh: (torch.randn(sh, generator=g) * 0.1).to(  # noqa: E731
+        torch.bfloat16).cuda()
+    fused = hasattr(dense, "dense_fwd")
+    out = {}
+    for R, K, N, relu, ld in AB_FWD:
+        x, w, b = r(R, K), r(K, N), r(N)
+        o32 = None if not ld else torch.empty((R, ld), device="cuda")[:, :N]
+        if fused:
+            fn = lambda: dense.dense_fwd(x, w, b, relu, o32)  # noqa: E731
+        else:
+            fn = lambda: dense.dense_epilogue(  # noqa: E731
+                torch.matmul(x, w), b, relu, o32)
+        out[f"fwd {R}x{K}x{N}"] = _queued_ms(fn) * 1e3
+    for R, N, kcs in AB_DX:
+        ops = [t for kc in kcs for t in (r(R, kc), r(N, kc))]
+        y, db = r(R, N), torch.empty(N, dtype=torch.bfloat16, device="cuda")
+        if fused:
+            fn = lambda: dense.dense_dx(ops[0], ops[1], y, db, *ops[2:])  # noqa: E731
+        else:
+            def fn(ops=ops, y=y, db=db):
+                ds = [torch.matmul(a, w.t()) for a, w in zip(ops[::2], ops[1::2])]
+                dense.dense_backward(ds[0], y, db, *ds[1:])
+        out[f"dx {R}x{N}x" + "x".join(map(str, kcs))] = _queued_ms(fn) * 1e3
+    for R, N, ld in AB_BWD:
+        gf = torch.randn((R, ld), generator=g).cuda()[:, :N]
+        db = torch.empty(N, dtype=torch.bfloat16, device="cuda")
+        out[f"bwd {R}x{N}"] = _queued_ms(
+            lambda: dense.dense_backward(gf, None, db)) * 1e3
+    return out
+
+
+#: the forward tiles and rings ``--b5d-plans`` times: (bm, bn)
+B5D_TILES = [(128, 256), (128, 128), (64, 256), (64, 128), (128, 64), (64, 64)]
+
+
+def study_b5d_plans():
+    """``--b5d-plans``: B5d's forward at the one-hot update's 16,384-row
+    layers and three 256-row ones with every tile of ``B5D_TILES`` and every
+    ring of 1-4 stages (and the whole K) that fits a block's shared memory,
+    launched through the C entry point with the plan given; each output
+    bitwise against the plain version, device us per call (queued behind a
+    spin), fastest first.  The wrapper's ``fwd_plan`` takes the fastest."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build, dense
+    from distributed_cluster_gpus_tpu_torch.rl.nets import pin_f32_accumulation
+
+    pin_f32_accumulation()
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = build.bind("dense", "dense_fwd_launch",
+                    [P, LL, P, P, P, P, LL, I, I, I, I, I, I, I, P])
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    for R, K, N, relu, ld in [s for s in AB_FWD if s[0] > 256] + [
+            (256, 256, 256, True, 0), (256, 256, 8, False, 8),
+            (256, 256, 2048, False, 4096)]:
+        x = (torch.randn((R, K), generator=g)).to(torch.bfloat16).cuda()
+        w = (torch.randn((K, N), generator=g) * K ** -0.5).to(torch.bfloat16).cuda()
+        b = torch.randn(N, generator=g).to(torch.bfloat16).cuda()
+        o32 = None if not ld else torch.empty((R, ld), device="cuda")[:, :N]
+        want = dense.dense_fwd(x, w, b, relu, plain=True)
+        kt = -(-K // 64)
+        res = []
+        for bm, bn in B5D_TILES:
+            for st in sorted({1, 2, 3, 4, kt}):
+                ring = max(st * (bm + bn) * 128, bm * (bn + 8) * 2)
+                if st > kt or 1024 + ring + st * 8 + 16 + 2 * bn > dense.SMEM_MAX:
+                    continue
+                y = torch.empty((R, N), dtype=torch.bfloat16, device="cuda")
+
+                def launch(y=y, plan=(bm, bn, st)):
+                    rc = fn(x.data_ptr(), K, w.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), None if o32 is None else o32.data_ptr(),
+                            0 if o32 is None else o32.stride(0), R, K, N,
+                            int(relu), *plan, build.stream_of(y.device))
+                    if rc != 0:
+                        fail(f"b5d plans: {R}x{K}x{N} {plan}: launch failed {rc}")
+
+                launch()
+                torch.cuda.synchronize()
+                if not _same_bits(y, want):
+                    fail(f"b5d plans: {R}x{K}x{N} {bm}x{bn} S{st} differs from "
+                         "the plain version")
+                res.append((_queued_ms(launch) * 1e3, f"{bm}x{bn} S{st}"))
+        res.sort()
+        chosen = "{}x{} S{}".format(*dense.fwd_plan(R, K, N))
+        out[f"{R}x{K}x{N}"] = {"us": dict((k, t) for t, k in res), "plan": chosen}
+        print(f"{R}x{K}x{N} (plan {chosen}): " + "; ".join(
+            f"{k} {t:.2f}" for t, k in res), flush=True)
+    print(json.dumps({"b5d_plans": out}))
+
+
+def study_update_child():
+    """``--update-ab-child ROOT`` (the A/B's child process): the learning
+    update of the package at ROOT at the published shape (the learning
+    CLI's agent, one-hot critic, batch 256, a seeded 200,000-row ring):
+    ms per replayed update (host wall), the graph's span on the card,
+    device ops and device us per update by kind from 8 profiled replays,
+    B5d's route per call at each shape, then the learning CLI's events/s
+    (600 s). One JSON line."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    build.build([f[:-3] for f in os.listdir(build.CSRC_DIR) if f.endswith(".cu")])
+    fleet, params, _ = learning_params()
+    ag = make_agent(fleet, params, device="cuda")
+    ag.replay = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
+    ag.train_steps(2, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ag.train_steps(64, 64)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 64
+    span = _graph_device_ms(ag)
+    _, kinds, n_ops, _, _, us_by_name = _profile_updates(
+        ag, 8, ours=UPDATE_KERNELS + ("dense_fwd_kernel",))
+    routes = _b5d_routes()
+    out = os.path.join(os.getcwd(), "smoke_out", "ab_learning")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    st = run_sim.main(learning_argv(out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    top = sorted(us_by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        "ms_per_update": ms, "span_ms": span,
+        "device_us_per_update": {k: v / 8 for k, v in kinds.items()},
+        "launches_per_update": sum(n_ops.values()) / 8,
+        "device_us_by_name": {k: v / 8 for k, v in top},
+        "b5d_us_per_call": routes, "cli_events_per_s": int(st.n_events) / wall,
+        "cli_wall_s": wall}))
+
+
+def study_update_ab(parent, change):
+    """``--update-ab PARENT``: the learning update and B5d's route of two
+    checkouts, the parent and this one, alternating parent, change,
+    change, parent, each in its own process (``--update-ab-child``); one
+    JSON line at the end with every run and the means."""
+    runs = {"parent": [], "change": []}
+    for name, root in (("parent", parent), ("change", change),
+                       ("change", change), ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--update-ab-child", root], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"update A/B: {name} ({root}) failed:\n{r.stderr[-3000:]}")
+        d = json.loads(r.stdout.strip().splitlines()[-1])
+        runs[name].append(d)
+        print(f"{name}: {d['ms_per_update']:.4f} ms per update, span "
+              f"{d['span_ms']:.4f} ms, {d['launches_per_update']:.2f} device ops "
+              f"per update, device us {d['device_us_per_update']}, learning CLI "
+              f"{d['cli_events_per_s']:.1f} events/s; B5d us per call "
+              f"{d['b5d_us_per_call']}", flush=True)
+    mean = {name: {k: statistics.mean(d[k] for d in ds) for k in (
+        "ms_per_update", "span_ms", "launches_per_update", "cli_events_per_s")}
+        for name, ds in runs.items()}
+    print(f"update A/B means: {mean}")
+    print(json.dumps({"update_ab": {"runs": runs, "mean": mean}}))
+
+
 def study_b1_widths():
     """``--b1-widths``: B1 of this checkout at every block width it is built
     for (``BLOCK_WIDTHS``), both modes at the shapes of ``--b1-chunk-ms``,
@@ -2846,8 +3237,18 @@ def main():
         if len(args) == 3 and args[0] == "--b1-chunk-ms" and args[2] in AB_MODES:
             sys.path.insert(0, os.path.abspath(args[1]))
             return study_b1_chunk_ms(args[2])
+        if args == ["--b5d-plans"]:
+            print(card_line())
+            return study_b5d_plans()
+        if len(args) == 2 and args[0] == "--update-ab":
+            print(card_line())
+            return study_update_ab(os.path.abspath(args[1]), here)
+        if len(args) == 2 and args[0] == "--update-ab-child":
+            sys.path.insert(0, os.path.abspath(args[1]))
+            return study_update_child()
         fail(f"unknown arguments {args}: run with none for the smoke, or "
-             "--b1-phases [CHECKOUT], --b1-widths or --b1-ab PARENT_CHECKOUT")
+             "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
+             "--b5d-plans or --update-ab PARENT_CHECKOUT")
     report = {}
     card = card_line()
     print(card)
@@ -2948,8 +3349,9 @@ def main():
         dict(entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
                    upd_launches["replay_sample"], report["b6b"],
                    report["b6b"]["library_ms"]), redesigned=True),
-        *(entry(name, f"{mod}.cu", replaces, upd_launches[name],
-                report["fused"][name], report["fused"][name]["library_ms"])
+        *(dict(entry(name, f"{mod}.cu", replaces, upd_launches[name],
+                     report["fused"][name], report["fused"][name]["library_ms"]),
+               **({"redesigned": True} if mod == "dense" else {}))
           for name, (mod, _, replaces) in FUSED.items()),
     ]}
     report["kernels"] = kernels["kernels"]

@@ -290,3 +290,62 @@ def tree_mismatches(a: Dict, b: Dict, path: str = "") -> List[str]:
     if x.tobytes() != y.tobytes():
         return [path]
     return bad
+
+
+#: the bounds the update's parity tests hold a chunk of updates to
+#: (tests/test_torch_rl_learn_update.py): metrics relative and absolute,
+#: log alpha per update, Adam's moments per update (of a leaf's largest)
+METRIC_RTOL, METRIC_ATOL = 2e-3, 1e-4
+ALPHA_ATOL, MOMENT_RTOL = 1e-6, 0.05
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}" if path else k)
+    else:
+        yield path, np.asarray(tree)
+
+
+def sac_far_apart(cfg, a, b, n: int, metrics=None) -> List[str]:
+    """Paths where two learned states (``sac_to_numpy`` trees ``a`` and
+    ``b``), each ``n`` updates from one state and one sample chain whose
+    products summed in other orders, lie beyond the bounds the parity tests
+    hold a chunk of updates to: every parameter within ``n * 2 * lr`` (a
+    sign flip of Adam's step per update) with the median within ``n * lr /
+    100``; the target within ``tau * 2 * lr`` times 1 + ... + n plus an ulp
+    per update; log alpha within ``n * ALPHA_ATOL``; the moments within
+    ``n * MOMENT_RTOL`` of their largest; the counts, the step and the CMDP
+    state (the samples, hence the costs, are equal) bitwise; ``metrics``,
+    a pair of metric dicts, within ``METRIC_RTOL`` relative or
+    ``METRIC_ATOL``."""
+    lr, tau = cfg.lr, cfg.tau
+    a, b = dict(_leaves(a)), dict(_leaves(b))
+    bad = sorted(set(a) ^ set(b))
+    for path in sorted(set(a) & set(b)):
+        x, y = a[path], b[path]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(path)
+            continue
+        d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        group = path.split(".")[0]
+        if group in ("enc_params", "actor_params", "critic_params"):
+            ok = d.max() <= n * 2 * lr and np.median(d) <= n * lr / 100
+        elif group == "target_critic_params":
+            ok = np.all(d <= n * (n + 1) // 2 * 2 * lr * tau
+                        + n * np.spacing(np.abs(x)))
+        elif path == "log_alpha":
+            ok = d.max() <= n * ALPHA_ATOL
+        elif path.endswith(".mu") or ".mu." in path or path.endswith(".nu") \
+                or ".nu." in path:
+            ok = d.max() <= n * MOMENT_RTOL * max(np.abs(x).max(), 1e-30)
+        else:  # counts, step, the CMDP state
+            ok = x.tobytes() == y.tobytes()
+        if not ok:
+            bad.append(path)
+    for k in (metrics[0] if metrics else {}):
+        x, y = (np.asarray(m[k].detach().cpu()) for m in metrics)
+        if not (np.isfinite(y).all() and np.all(
+                np.abs(x - y) <= METRIC_RTOL * np.abs(x) + METRIC_ATOL)):
+            bad.append(f"metric {k}")
+    return bad

@@ -120,8 +120,11 @@ def on_card(op: str, t) -> bool:
 
 def launch_failed(op: str, rc: int) -> RuntimeError:
     """The error of a failed launch: -1 is a shape the kernel does not take,
-    anything else a cudaError_t."""
-    why = "a shape the kernel does not take" if rc == -1 else f"cudaError {rc}"
+    -2 and -3 a TMA descriptor libcuda could not give, anything else a
+    cudaError_t."""
+    why = {-1: "a shape the kernel does not take",
+           -2: "libcuda's tensor-map encoder was not found",
+           -3: "libcuda refused a tensor map"}.get(rc, f"cudaError {rc}")
     return RuntimeError(f"{op} kernel launch failed: {why}")
 
 

@@ -1,20 +1,31 @@
-"""B5d: the epilogues of the SAC update's bf16 Dense layers, forward and
-backward — a hand-written CUDA kernel and its wrappers.
+"""B5d: each bf16 Dense layer of the SAC update as one hand-written Hopper
+kernel with its epilogue fused, forward and backward, and their wrappers.
 
-Replace what XLA fuses around the products of flax's bf16 ``Dense`` in the
-JAX package's ``sac_train_step``
-(``distributed_cluster_gpus_tpu/rl/sac.py:206-310``; the layers at
-``rl/nets.py:37-39, 58-61, 93-95, 149-150``): the bias add, the ReLU and the
-float32 copy of a network's last layer, and in the gradient the ReLU's mask,
-the bf16 cast of a float32 incoming gradient and the bias gradient.
-``csrc/dense.cu``'s head note gives the design and bound.  The products stay
-bf16 ``torch.matmul``; ``rl/nets.py::dense_forward`` / ``dense_backward``
-put the layer together.
+Replace what XLA fuses around flax's bf16 ``Dense`` in the JAX package's
+``sac_train_step`` (``distributed_cluster_gpus_tpu/rl/sac.py:206-310``; the
+layers at ``rl/nets.py:37-39, 58-61, 93-95, 149-150``):
 
-Each wrapper launches the kernel for tensors on the card (built on first
-use) or raises, and runs its plain version (``rl/nets.py``) for tensors on
-the CPU or with ``plain=True``; there is no fallback.  Each counts its
-launches in ``<wrapper>.launches``.
+* :func:`dense_fwd`, a forward layer: the bf16 product (wgmma, float32
+  accumulation, rounded once), the bias, the ReLU and the float32 copy of a
+  network's last layer, in one launch (``dense_fwd_gemm``);
+* :func:`dense_dx`, a hidden layer's gradient: the product of the layer
+  above's gradient with its kernel (dX), rounded, summed with a second such
+  product where given (the actor's two heads), masked by the layer's ReLU,
+  and the bias gradient by the halving tree over the rows, in one launch
+  (``dense_dx_gemm``);
+* :func:`dense_backward`, a network's top layer: the cast (and mask) of a
+  float32 incoming gradient and its bias gradient (``dense_bwd_kernel``).
+
+``csrc/dense.cu``'s head note gives the design and bound; :func:`fwd_plan`
+and :func:`dx_plan` choose the tiles and the ring of stages per shape.  The
+rows R must be a multiple of 64 (the update's batch 256 and its 16,384
+all-actions rows are); the backward kernels take R <= 256, since a block
+owns whole columns of the bias gradient's tree.
+
+Each wrapper launches its kernel for tensors on the card (built on first
+use) or raises, and runs its plain version (``rl/nets.py``: ``torch.matmul``
+and the epilogue ops) for tensors on the CPU or with ``plain=True``; there
+is no fallback.  Each counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,79 @@ from . import build
 BF16, F32 = torch.bfloat16, torch.float32
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+#: a block's shared memory on the H100 (bytes); the ring's stages, their
+#: mbarriers, the alignment slack and the forward tile's bias must fit it
+#: (csrc/dense.cu ``fwd_smem``/``dx_smem``)
+SMEM_MAX = 232_448
+TILE = 64  # a k-tile's depth: one 128-byte swizzled row of bf16
+#: forward: from this many rows on, 128-row tiles and a ring of at most
+#: BIG_STAGES k-tiles
+BIG_ROWS, BIG_STAGES = 8192, 3
+#: dX: rows (all of a layer's) and columns a block owns
+DX_ROWS, DX_BN = 256, 16
+BWD_MAX_ROWS = 256
+
+
+def _check_rows(op, R, most=None):
+    """Raise unless R is a positive multiple of 64 (and at most ``most``)."""
+    if R < 64 or R % 64 or (most is not None and R > most):
+        bound = "" if most is None else f" up to {most}"
+        raise ValueError(f"{op}: {R} rows; the kernel takes a multiple of 64"
+                         f"{bound}")
+
+
+def _k_tiles(k):
+    return -(-k // TILE)
+
+
+def fwd_plan(R, K, N, x_tma=True, w_tma=True):
+    """(bm, bn, stages) of :func:`dense_fwd` for x [R, K] times W [K, N]:
+    from ``BIG_ROWS`` rows on, 128-row tiles (two warpgroups) 128 wide
+    (64 for N < 256) with a ring of at most ``BIG_STAGES``, so that two
+    blocks share an SM and one's epilogue overlaps the other's loads (the
+    fastest of the tiles and rings timed at the one-hot critic's 16,384-row
+    layers on the H100, PERF.md §6); below, 64 x 64 tiles with the whole K
+    in flight (the 256-row layers want blocks, not reuse).  An operand that
+    TMA cannot describe (``x_tma``/``w_tma`` False) is loaded by the
+    block's threads, and then the whole K must fit the ring.  Raises for a
+    shape the kernel does not take."""
+    _check_rows("dense_fwd", R)
+    if K < 1 or N < 1:
+        raise ValueError(f"dense_fwd: empty product {R} x {K} x {N}")
+    big = R >= BIG_ROWS
+    bm = 128 if big else 64
+    bn = 128 if big and N >= 256 else 64
+    kt = _k_tiles(K)
+    stages = min(kt, (SMEM_MAX - 1024 - 16 - 2 * bn) // ((bm + bn) * 128 + 8))
+    if big and (x_tma and w_tma):
+        stages = min(stages, BIG_STAGES)
+    if not (x_tma and w_tma) and kt > stages:
+        raise ValueError(f"dense_fwd: K = {K} with an operand TMA cannot "
+                         f"load needs {kt} stages, the ring holds {stages}")
+    return bm, bn, stages
+
+
+def dx_plan(R, kcs, tma=(True,)):
+    """The ring's stages of :func:`dense_dx` for R rows and products of
+    depths ``kcs`` (one or two), ``tma`` whether TMA loads every operand of
+    each; raises for a shape the kernel does not take."""
+    _check_rows("dense_dx", R, DX_ROWS)
+    if not 1 <= len(kcs) <= 2 or min(kcs) < 1:
+        raise ValueError(f"dense_dx: products of depths {kcs}")
+    kt = sum(_k_tiles(k) for k in kcs)
+    tree = DX_ROWS * (DX_BN + 1) * 4
+    stages = min(kt, (SMEM_MAX - 1024 - tree) // ((DX_ROWS + DX_BN) * 128 + 8))
+    if not all(tma) and kt > stages:
+        raise ValueError(f"dense_dx: depths {kcs} with an operand TMA cannot "
+                         f"load need {kt} stages, the ring holds {stages}")
+    return stages
+
+
+def tma_ok(t) -> bool:
+    """Whether TMA can describe the bf16 matrix ``t`` (rows 16-byte
+    aligned): else the kernel's threads load it."""
+    return t.data_ptr() % 16 == 0 and (t.stride(0) * 2) % 16 == 0
+
 
 def _rows(op, name, t, dtype, dev, R, N):
     """The row stride of ``t``, a [R, N] ``dtype`` tensor on ``dev`` with a
@@ -39,45 +123,100 @@ def _rows(op, name, t, dtype, dev, R, N):
     return t.stride(0) if R > 1 else N
 
 
-def dense_epilogue(y, bias, relu: bool, out32=None, plain: bool = False):
-    """B5d forward, in place on the product ``y`` (bf16 [R, N]): the bf16
-    ``bias`` [N] added (in float32, rounded to bf16), the ReLU where
-    ``relu``, and, where ``out32`` (float32 [R, N], any row stride) is given,
-    its float32 copy; returns ``y``."""
-    if plain or not build.on_card("dense_epilogue", y):
-        from ..rl.nets import dense_epilogue as plain_fn
-        return plain_fn(y, bias, relu, out32)
-    op, dev = "dense_epilogue", y.device
-    R, N = y.shape
-    build.check(op, "y", y, BF16, dev, (R, N))
+def dense_fwd(x, kernel, bias, relu: bool, out32=None, plain: bool = False):
+    """B5d forward: the bf16 output [R, N] of ``x`` (bf16 [R, K], unit
+    column stride) times ``kernel`` (bf16 [K, N]) with float32 accumulation,
+    rounded once, the bf16 ``bias`` [N] added (in float32, rounded to bf16),
+    the ReLU where ``relu``, and, where ``out32`` (float32 [R, N], any row
+    stride) is given, its float32 copy."""
+    if plain or not build.on_card("dense_fwd", x):
+        from ..rl.nets import dense_fwd_plain
+        return dense_fwd_plain(x, kernel, bias, relu, out32)
+    op, dev = "dense_fwd", x.device
+    R, K = x.shape
+    N = kernel.shape[-1]
+    ldx = _rows(op, "x", x, BF16, dev, R, K)
+    build.check(op, "kernel", kernel, BF16, dev, (K, N))
     build.check(op, "bias", bias, BF16, dev, (N,))
-    ld = 0 if out32 is None else _rows(op, "out32", out32, F32, dev, R, N)
-    fn = build.bind("dense", "dense_fwd_launch", [P, P, P, LL, I, I, I, P])
+    ld32 = 0 if out32 is None else _rows(op, "out32", out32, F32, dev, R, N)
+    bm, bn, stages = fwd_plan(R, K, N, tma_ok(x), tma_ok(kernel))
+    y = torch.empty((R, N), dtype=BF16, device=dev)
+    fn = build.bind("dense", "dense_fwd_launch",
+                    [P, LL, P, P, P, P, LL, I, I, I, I, I, I, I, P])
     with torch.cuda.device(dev):
-        rc = fn(y.data_ptr(), bias.data_ptr(),
-                None if out32 is None else out32.data_ptr(), ld, R, N,
-                int(relu), build.stream_of(dev))
+        rc = fn(x.data_ptr(), ldx, kernel.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), None if out32 is None else out32.data_ptr(),
+                ld32, R, K, N, int(relu), bm, bn, stages, build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
-    dense_epilogue.launches += 1
+    dense_fwd.launches += 1
     return y
 
 
-dense_epilogue.launches = 0
+dense_fwd.launches = 0
+
+
+def dense_dx(g, w, y, db, g2=None, w2=None, plain: bool = False):
+    """B5d backward fused into the dX product: a hidden layer's bf16
+    gradient G [R, N] from the layer above's gradient ``g`` (bf16 [R, K'],
+    unit column stride) and kernel ``w`` (bf16 [N, K']): G = bf16(g w^T), or,
+    with a second pair ``g2``, ``w2``, the two products each rounded to bf16
+    and summed in float32; zero where the layer's output ``y`` (bf16 [R, N])
+    is not positive (``y`` None: no mask); ``db`` (bf16 [N]) written with
+    the halving tree of G's rows.  Returns G."""
+    if plain or not build.on_card("dense_dx", g):
+        from ..rl.nets import dense_dx_plain
+        return dense_dx_plain(g, w, y, db, g2, w2)
+    op, dev = "dense_dx", g.device
+    R, kc = g.shape
+    N = w.shape[0]
+    ldg = _rows(op, "g", g, BF16, dev, R, kc)
+    build.check(op, "w", w, BF16, dev, (N, kc))
+    pairs, tma = [(g, w, ldg, kc)], [tma_ok(g) and tma_ok(w)]
+    if (g2 is None) != (w2 is None):
+        raise ValueError(f"{op}: a second gradient needs its kernel")
+    if g2 is not None:
+        kc2 = g2.shape[-1]
+        ldg2 = _rows(op, "g2", g2, BF16, dev, R, kc2)
+        build.check(op, "w2", w2, BF16, dev, (N, kc2))
+        pairs.append((g2, w2, ldg2, kc2))
+        tma.append(tma_ok(g2) and tma_ok(w2))
+    if y is not None:
+        build.check(op, "y", y, BF16, dev, (R, N))
+    build.check(op, "db", db, BF16, dev, (N,))
+    stages = dx_plan(R, [p[3] for p in pairs], tma)
+    G = torch.empty((R, N), dtype=BF16, device=dev)
+    # (g, ldg, w, ldw, K') of each product, zeros for a missing second one
+    args = [v for a, b, lda, ka in pairs
+            for v in (a.data_ptr(), lda, b.data_ptr(), b.stride(0), ka)]
+    args += [None, 0, None, 0, 0] * (2 - len(pairs))
+    fn = build.bind("dense", "dense_dx_launch",
+                    [P, LL, P, LL, I, P, LL, P, LL, I, P, P, P, I, I, I, P])
+    with torch.cuda.device(dev):
+        rc = fn(*args, None if y is None else y.data_ptr(), G.data_ptr(),
+                db.data_ptr(), R, N, stages, build.stream_of(dev))
+    if rc != 0:
+        raise build.launch_failed(op, rc)
+    dense_dx.launches += 1
+    return G
+
+
+dense_dx.launches = 0
 
 
 def dense_backward(g, y, db, g2=None, plain: bool = False):
-    """B5d backward: the layer's bf16 gradient G [R, N] from the incoming
-    ``g`` (bf16 [R, N], or float32 [R, N] with any row stride at a network's
-    last layer) plus, where given, a second bf16 ``g2``, masked by the
-    layer's bf16 output ``y > 0`` where ``y`` is given (a ReLU layer); writes
-    the bias gradient into ``db`` (bf16 [N]), the column sums of G by the
+    """B5d backward of a network's top layer: its bf16 gradient G [R, N]
+    from the incoming ``g`` (bf16 [R, N], or float32 [R, N] with any row
+    stride) plus, where given, a second bf16 ``g2``, masked by the layer's
+    bf16 output ``y > 0`` where ``y`` is given (a ReLU layer); writes the
+    bias gradient into ``db`` (bf16 [N]), the column sums of G by the
     halving tree over the rows.  Returns G."""
     if plain or not build.on_card("dense_backward", g):
         from ..rl.nets import dense_backward as plain_fn
         return plain_fn(g, y, db, g2)
     op, dev = "dense_backward", g.device
     R, N = g.shape
+    _check_rows(op, R, BWD_MAX_ROWS)
     g_f32 = g.dtype == F32
     ldg = _rows(op, "g", g, F32 if g_f32 else BF16, dev, R, N)
     for name, t in (("g2", g2), ("y", y)):

@@ -31,25 +31,28 @@ tolerance ``tests/test_torch_rl_policy.py`` states), not bitwise.
 The training forward cannot use that recipe: the one-hot critic's
 ``all_actions`` runs B x n_dc x n_g = 16,384 rows at the published shape,
 and the recipe's product tensor would be [16,384, 512, 256] float32.  It is
-instead what flax's bf16 ``Dense`` is: bf16 operands, ``torch.matmul`` with
+instead what flax's bf16 ``Dense`` is: bf16 operands, a product with
 float32 accumulation and one rounding of the sum to bf16, then the bf16
 bias added (in float32, rounded to bf16), the ReLU, and a network's last
-layer widened to float32 (:func:`dense_forward`).  The float32 accumulation
-is pinned: cuBLAS may otherwise reduce a split-K product's partial sums in
-bf16 (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
-on by default), so :func:`pin_f32_accumulation` turns that off and
+layer widened to float32 (:func:`dense_forward`): on the card one B5d
+kernel (tensor cores), in the plain version ``torch.matmul``.  The plain
+version's float32 accumulation is pinned: cuBLAS may otherwise reduce a
+split-K product's partial sums in bf16
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``, on
+by default), so :func:`pin_f32_accumulation` turns that off and
 ``rl/sac.py::sac_train_step`` calls it before every update.  The two
 forwards of the same weights therefore agree to a bf16 rounding of a
-layer's output, not bitwise: the matmul sums in cuBLAS's (or the CPU
-BLAS's) order, the recipe by its tree.
+layer's output, not bitwise: the products sum in the tensor cores' (or
+the CPU BLAS's) order, the recipe by its tree.
 
 The training forward's gradient is written out by hand, not left to
 autograd (:func:`dense_grads`, the modules' ``train_backward``): each
 layer's bf16 gradient is masked by its ReLU, its bias gradient summed over
 the rows by the fixed tree, its kernel gradient a bf16 ``torch.matmul``
-into the group's bf16 staging buffer.  Around the products the update's
-fused regions run as hand-written kernels on the card, each with its plain
-version here: B5d the layers' epilogues (``kernels/dense.py``), B5e the
+into the group's bf16 staging buffer.  The update's fused regions run as
+hand-written kernels on the card, each with its plain version here: B5d
+each layer's product with its epilogue, and a hidden layer's dX product
+with its mask and bias gradient (``kernels/dense.py``), B5e the
 one-hot critic's input rows (``kernels/critic_input.py``), B5f the masked
 log-softmax of both heads (``kernels/log_softmax.py``).
 """
@@ -111,26 +114,39 @@ def masked_log_softmax_backward(logits, mask, g):
 
 
 # ---------------------------------------------------------------------------
-# The training forward and its gradient.  A layer is a bf16 ``torch.matmul``
-# (float32 accumulation) and the B5d epilogue; its gradient the B5d backward
-# and the two products dW = x^T G (into the group's bf16 staging buffer) and
-# dX = G W^T.  The weights ``w`` are a list of (kernel, bias) bf16 pairs, one
-# per Dense layer: the state's shadows in an update (``rl/sac.py``), fresh
-# casts of the float32 parameters otherwise (:func:`casts`); ``dw`` the
-# matching (kernel, bias) views of the staging buffer.  ``plain`` runs the
-# regions' plain versions below in place of their kernels.
+# The training forward and its gradient.  A layer is a bf16 product (float32
+# accumulation) with its epilogue, one B5d kernel on the card
+# (``kernels/dense.py::dense_fwd``); its gradient G the B5d backward, and
+# dW = x^T G a bf16 ``torch.matmul`` into the group's staging buffer.  A top
+# layer's G comes from its float32 (or bf16) incoming gradient
+# (``dense_backward``); a hidden layer's from the layer above's G and
+# kernel, whose product dX the kernel forms itself (``dense_dx``), so an
+# incoming gradient is passed down as a tensor or as such a pair.  The
+# weights ``w`` are a list of (kernel, bias) bf16 pairs, one per Dense
+# layer: the state's shadows in an update (``rl/sac.py``), fresh casts of
+# the float32 parameters otherwise (:func:`casts`); ``dw`` the matching
+# (kernel, bias) views of the staging buffer.  ``plain`` runs the plain
+# versions below in place of the kernels.
 # ---------------------------------------------------------------------------
 
 def dense_epilogue(y, bias, use_relu: bool, out32=None):
-    """B5d forward's plain version (``kernels/dense.py``), in place on the
-    product ``y`` (bf16 [R, N]): the bf16 ``bias`` added in float32 and
-    rounded to bf16 (torch's bf16 add), the ReLU where ``use_relu``, the
-    float32 copy into ``out32`` where given (flax's ``.astype``)."""
+    """B5d forward's epilogue, in place on the product ``y`` (bf16 [R, N]):
+    the bf16 ``bias`` added in float32 and rounded to bf16 (torch's bf16
+    add), the ReLU where ``use_relu``, the float32 copy into ``out32`` where
+    given (flax's ``.astype``)."""
     v = (y.to(torch.float32) + bias.to(torch.float32)).to(BF16)
     y.copy_(relu(v) if use_relu else v)
     if out32 is not None:
         out32.copy_(y)
     return y
+
+
+def dense_fwd_plain(x, kernel, bias, use_relu: bool, out32=None):
+    """B5d forward's plain version (``kernels/dense.py::dense_fwd``): ``x``
+    [R, K] bf16 times ``kernel`` [K, N] bf16 by ``torch.matmul`` (float32
+    accumulation, the sum rounded once to bf16), then
+    :func:`dense_epilogue`."""
+    return dense_epilogue(torch.matmul(x, kernel), bias, use_relu, out32)
 
 
 def dense_backward(g, y, db, g2=None):
@@ -146,27 +162,39 @@ def dense_backward(g, y, db, g2=None):
     return G
 
 
+def dense_dx_plain(g, w, y, db, g2=None, w2=None):
+    """B5d's fused dX backward, plain (``kernels/dense.py::dense_dx``): the
+    products ``g w^T`` (and ``g2 w2^T``) by ``torch.matmul``, each rounded
+    to bf16, then :func:`dense_backward` (their float32 sum, the mask, the
+    bias gradient's tree)."""
+    d2 = None if g2 is None else torch.matmul(g2, w2.t())
+    return dense_backward(torch.matmul(g, w.t()), y, db, d2)
+
+
 def dense_forward(x, kernel, bias, use_relu: bool, out32=None,
                   plain: bool = False):
-    """One bf16 ``Dense`` for training: ``x`` [R, K] bf16 times ``kernel``
-    [K, N] bf16 by ``torch.matmul`` (float32 accumulation, the sum rounded
-    once to bf16), then B5d's epilogue; returns the bf16 output [R, N]."""
-    from ..kernels.dense import dense_epilogue as epilogue
+    """One bf16 ``Dense`` for training, B5d's forward: returns the bf16
+    output [R, N] (see :func:`dense_fwd_plain`)."""
+    from ..kernels.dense import dense_fwd
 
-    return epilogue(torch.matmul(x, kernel), bias, use_relu, out32, plain=plain)
+    return dense_fwd(x, kernel, bias, use_relu, out32, plain=plain)
 
 
-def dense_grads(x, y, g, kernel, dkernel, dbias, g2=None, dx: bool = True,
-                plain: bool = False):
-    """One layer's gradient from the incoming ``g`` (and ``g2``): B5d's
-    backward writes ``dbias``, ``torch.matmul`` writes ``dkernel`` = x^T G;
-    returns dL/dx = G kernel^T (bf16) where ``dx``.  ``y`` is the layer's
-    output for a ReLU layer, None otherwise."""
+def dense_grads(x, y, g, dkernel, dbias, plain: bool = False):
+    """One layer's gradient G from the incoming ``g``: a tensor dL/dout
+    (B5d's ``dense_backward``), or (G', W') or (G', W', G2, W2), the layer
+    above's gradients and kernels whose products form dL/dout inside B5d's
+    ``dense_dx``.  Writes ``dbias`` and ``dkernel`` = x^T G; returns G.
+    ``y`` is the layer's output for a ReLU layer, None otherwise."""
     from ..kernels.dense import dense_backward as backward
+    from ..kernels.dense import dense_dx
 
-    G = backward(g, y, dbias, g2, plain=plain)
+    if isinstance(g, torch.Tensor):
+        G = backward(g, y, dbias, plain=plain)
+    else:
+        G = dense_dx(g[0], g[1], y, dbias, *g[2:], plain=plain)
     torch.matmul(x.t(), G, out=dkernel)
-    return torch.matmul(G, kernel.t()) if dx else None
+    return G
 
 
 def mlp_forward(x, w, last_relu: bool, out32=None, plain: bool = False):
@@ -182,12 +210,15 @@ def mlp_forward(x, w, last_relu: bool, out32=None, plain: bool = False):
 
 
 def mlp_backward(acts, w, dw, g, last_relu: bool, plain: bool = False):
-    """The gradient of :func:`mlp_forward`'s MLP from ``g`` = dL/d(output):
-    every layer's into ``dw``; the input's is not formed."""
+    """The gradient of :func:`mlp_forward`'s MLP from ``g`` = dL/d(output)
+    (a tensor, or a pair as :func:`dense_grads` takes it): every layer's
+    into ``dw``; each layer below the top forms its dX in its backward
+    kernel, the input's is not formed."""
     for i in reversed(range(len(w))):
         act = last_relu or i < len(w) - 1
-        g = dense_grads(acts[i], acts[i + 1] if act else None, g, w[i][0],
-                        *dw[i], dx=i > 0, plain=plain)
+        G = dense_grads(acts[i], acts[i + 1] if act else None, g, *dw[i],
+                        plain=plain)
+        g = (G, w[i][0])
 
 
 def casts(module) -> list:
@@ -274,8 +305,9 @@ class MLPStateEncoder(nn.Module):
         return lat, mlp_forward(obs.to(BF16), w, True, lat, plain)
 
     def train_backward(self, acts, g, w, dw, plain: bool = False):
-        """Every layer's gradient into ``dw`` from ``g`` = dL/dlatent
-        (bf16)."""
+        """Every layer's gradient into ``dw`` from ``g`` = dL/dlatent: a
+        tensor, or the actor's (G, kernel) of :meth:`HybridActor.hidden_grad`
+        whose product the top layer's backward kernel forms."""
         mlp_backward(acts, w, dw, g, True, plain=plain)
 
 
@@ -319,17 +351,26 @@ class HybridActor(nn.Module):
 
     def train_backward(self, saved, d_dc, d_g, w, dw, plain: bool = False):
         """Every layer's gradient into ``dw`` from dL/dlogp of each head;
-        returns dL/dlat16 (bf16).  The hidden layer sums its two heads'
-        gradients in its B5d backward."""
+        returns dL/dlat16 (bf16)."""
+        G, kernel = self.hidden_grad(saved, d_dc, d_g, w, dw, plain)
+        return torch.matmul(G, kernel.t())
+
+    def hidden_grad(self, saved, d_dc, d_g, w, dw, plain: bool = False):
+        """Every layer's gradient into ``dw`` from dL/dlogp of each head;
+        returns the hidden layer's (G, kernel), whose product is dL/dlat16
+        (the encoder's top layer forms it in its backward kernel).  The
+        hidden layer's backward forms both heads' dX products and sums
+        them."""
         from ..kernels.log_softmax import log_softmax2_backward
 
         lat16, hid, l_dc, l_g, mask_dc, mask_g = saved
         g_dc, g_g = log_softmax2_backward(l_dc, l_g, mask_dc, mask_g, d_dc, d_g,
                                           plain=plain)
-        dx_dc = dense_grads(hid, None, g_dc, w[1][0], *dw[1], plain=plain)
-        dx_g = dense_grads(hid, None, g_g, w[2][0], *dw[2], plain=plain)
-        return dense_grads(lat16, hid, dx_dc, w[0][0], *dw[0], g2=dx_g,
-                           plain=plain)
+        G_dc = dense_grads(hid, None, g_dc, *dw[1], plain=plain)
+        G_g = dense_grads(hid, None, g_g, *dw[2], plain=plain)
+        G = dense_grads(lat16, hid, (G_dc, w[1][0], G_g, w[2][0]), *dw[0],
+                        plain=plain)
+        return G, w[0][0]
 
 
 class QuantileCritic(nn.Module):

@@ -16,8 +16,9 @@ The plain step (``sim/step.py``) calls it through ``policy_apply``, which is
 how the kernel is held bit for bit against its plain version.
 
 Learning: :func:`sac_train_step` is one update, in the JAX package's order,
-on the agent's device.  The networks' products are bf16 ``torch.matmul``
-(``rl/nets.py``'s training forward, its gradient written out by hand); the
+on the agent's device (``rl/nets.py``'s training forward, its gradient
+written out by hand).  The networks' forward and dX products are B5d's
+kernels on the card, the kernel gradients bf16 ``torch.matmul``; the
 regions XLA fused run as hand-written kernels on the card, each with its
 plain version here or beside it:
 
@@ -25,7 +26,8 @@ plain version here or beside it:
   ``rl/replay.py::replay_sample``);
 * B5g, the bf16 parameter shadows and the gradient pack:
   ``kernels/param_pack.py`` (plain: ``rl/optim.py::pack_plain``);
-* B5d, the Dense layers' epilogues forward and backward, B5e the one-hot
+* B5d, each Dense layer's product with its epilogue, and its gradient
+  (a hidden layer's fused into the dX product above it), B5e the one-hot
   critic's input rows, B5f the masked log-softmax forward and backward:
   ``kernels/dense.py``, ``kernels/critic_input.py``,
   ``kernels/log_softmax.py`` (plain: ``rl/nets.py``);
@@ -457,9 +459,9 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
         acts0[-1], batch["mask_dc0"], batch["mask_g0"], w["actor"], plain)
     q0_all = sac.critic.all_actions(lat0, w["critic"], plain)
     a_loss, ent, d_dc, d_g = actor_fn(q0_all, logp_dc, logp_g, alpha)
-    d_lat = sac.actor.train_backward(saved, d_dc, d_g, w["actor"], dw["actor"],
-                                     plain)
-    sac.enc.train_backward(acts0, d_lat, w["enc"], dw["enc"], plain)
+    g_lat = sac.actor.hidden_grad(saved, d_dc, d_g, w["actor"], dw["actor"],
+                                  plain)
+    sac.enc.train_backward(acts0, g_lat, w["enc"], dw["enc"], plain)
 
     # temperature loss
     log_alpha = sac.log_alpha.detach().clone().requires_grad_(True)
