@@ -112,7 +112,7 @@ Phases (any failure exits non-zero before the result lines):
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
-Two opt-in studies of B1 replace the smoke when asked for:
+Opt-in studies replace the smoke when asked for:
 
     python3 chip_smoke.py --b1-phases [CHECKOUT]
         B1 in both modes from an instrumented copy of the ``event_scan.cu``
@@ -133,6 +133,12 @@ Two opt-in studies of B1 replace the smoke when asked for:
         B5d's forward at the update's layer shapes with every tile and ring
         that fits: each bitwise against the plain version, device us per
         call, fastest first (the wrapper's tile plan takes the fastest).
+    python3 chip_smoke.py --b5-tails
+        B5a and B5b's actor term at the update's published shape, whole,
+        cut short at each stage (no batch tail, a tail without its loads,
+        no arrival, the launch alone; the actor's phase 1 alone) and with
+        the alternatives measured against the kept design: device us per
+        call, where the time of a call goes.
     python3 chip_smoke.py --update-ab PARENT
         The learning update of the checkout at PARENT and of this one
         (alternating as above, each in its own process): ms per replayed
@@ -1518,11 +1524,18 @@ def seeded_ring(C, windows, N, p_valid, seed, obs_dim=49, n_dc=8, n_g=8,
     return rb
 
 
+#: phase (j)'s edge shapes of B5a (B, N, M) and B5b's actor term (B,
+#: n_dc, n_g, N, q layout), beside the update's published shape
+EDGE_B5A = ((257, 33, 64), (3, 7, 5))
+EDGE_B5B = ((257, 3, 4, 64, "heads"), (3, 16, 16, 32, "onehot"))
+
+
 def phase_update_kernels(report):
     """(j) B5a, B5b, B5c and B6b against their plain versions on the card,
     bitwise, at the update's published shapes (B = 256, N = 32, 8 x 8 joint
     actions, the four parameter groups, a 200,000-row ring), on seeded
-    inputs with the edge cases; each timed (device time of launches queued
+    inputs with the edge cases (B5a and B5b's actor term also at the edge
+    shapes ``EDGE_B5A``, ``EDGE_B5B``); each timed (device time of launches queued
     back to back) beside its plain version, its bound and, where one
     PyTorch call computes the same function, that call."""
     from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
@@ -1549,6 +1562,23 @@ def phase_update_kernels(report):
     if not (_bits(lk, lp) and _bits(gk, gp)):
         fail(f"B5a differs from its plain version (loss {float(lk)} vs "
              f"{float(lp)}, grad max abs {max_abs_diff(gk, gp):.3g})")
+    # the redesigned kernel at two edges of its envelope: M != N, a batch
+    # tail of 257 rows, N > 32 (a register level over i), widths not powers
+    # of two
+    for Bx, Nx, Mx in EDGE_B5A:
+        qx = torch.randn((Bx, 2, Nx), generator=g)
+        tx = torch.randn((Bx, Mx), generator=g) * 2
+        n = min(Nx, Mx, 2)
+        tx[0, :n] = qx[0, 0, :n] + 1.0
+        tx[-1, :n] = qx[-1, 1, :n]
+        qx[0, 1, 0], tx[0, 0] = 0.0, -0.0
+        taux = (torch.arange(Nx, dtype=torch.float32) + 0.5) / Nx
+        qx, tx, taux = qx.cuda(), tx.cuda(), taux.cuda()
+        for k_, p_ in zip(b5.quantile_huber(qx, tx, taux),
+                          rsac.quantile_huber_loss(qx, tx, taux)):
+            if not _bits(k_, p_):
+                fail(f"B5a differs from its plain version at B = {Bx}, "
+                     f"N = {Nx}, M = {Mx}")
     ms, seen = device_ms(lambda: b5.quantile_huber(q, tgt, taus),
                          "quantile_huber_kernel")
     plain = time_cuda(lambda: rsac.quantile_huber_loss(q, tgt, taus), reps=10)
@@ -1580,6 +1610,20 @@ def phase_update_kernels(report):
             if not (_bits(k_, p_) and bool(torch.isfinite(k_).all())):
                 fail(f"B5b actor ({name} layout): {what} differs from its plain "
                      "version or is not finite")
+    # the redesigned actor term at two edges of its envelope: heads that
+    # are not powers of two with N = 64 (the tree over N in registers and
+    # shuffles) and a batch tail of 257 rows; 16 x 16 heads (Ap = 256)
+    for Bx, d_, c_, Nx, lay in EDGE_B5B:
+        A_ = d_ * c_
+        qx = (torch.randn((Bx, 2, A_, Nx), generator=g).cuda() if lay == "heads"
+              else torch.randn((Bx, A_, 2, Nx), generator=g).cuda().permute(0, 2, 1, 3))
+        lx = [t.cuda() for t in seeded_policy_logp(g, Bx, d_, c_)]
+        for what, k_, p_ in zip(("loss", "H", "dlogp_dc", "dlogp_g"),
+                                b5.marginal_actor(qx, *lx, alpha),
+                                rsac.marginal_actor(qx, *lx, alpha)):
+            if not _bits(k_, p_):
+                fail(f"B5b actor ({lay} layout, B = {Bx}, {d_} x {c_}, "
+                     f"N = {Nx}): {what} differs from its plain version")
     t_args = (q_oh, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
     ms, seen = device_ms(lambda: b5.marginal_target(*t_args),
                          "marginal_target_kernel")
@@ -1728,6 +1772,10 @@ def phase_update_kernels(report):
               f"{v['profiler_launches_seen']} launches), plain "
               f"{v['plain_ms']:.4f} ms, library {lib_s}, bound "
               f"{v['bound_ms']:.6f} ms ({v['bound_by']}: {v['bytes']} B)")
+    print(f"B5a also bitwise at (B, N, M) = {EDGE_B5A}; B5b actor at (B, n_dc, "
+          f"n_g, N, layout) = {EDGE_B5B}")
+    out["b5a"]["edge_shapes"] = EDGE_B5A
+    out["b5b_actor"]["edge_shapes"] = EDGE_B5B
     report.update(out)
 
 
@@ -3101,7 +3149,7 @@ def study_update_child():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     shutil.rmtree(out, ignore_errors=True)
-    top = sorted(us_by_name.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(us_by_name.items(), key=lambda kv: -kv[1])
     print(json.dumps({
         "ms_per_update": ms, "span_ms": span,
         "device_us_per_update": {k: v / 8 for k, v in kinds.items()},
@@ -3136,6 +3184,175 @@ def study_update_ab(parent, change):
         for name, ds in runs.items()}
     print(f"update A/B means: {mean}")
     print(json.dumps({"update_ab": {"runs": runs, "mean": mean}}))
+
+
+#: where a call of B5a and of B5b's actor term goes: copies of the kernel
+#: cut short at one stage each, as (text, replacement) edits of its source
+B5_LAST = "if (!__shfl_sync(rd::kFullMask, last, 0)) return;"
+B5_ARRIVE = "rd::arrive_last(counter)"
+B5_CUTS = {
+    "quantile_huber": {
+        "no batch tail": ((B5_LAST, B5_LAST[:-9] + " || B > 0) return;"),),
+        "tail without its loads": ((
+            "return {__ldcg(partial + k), __ldcg(partial + B + k)};",
+            "return {1.0f, 2.0f};"),),
+        "no arrival": ((B5_ARRIVE, "false"),),
+        "launch alone": ((
+            "const int b = blockIdx.x * kRows + (warp >> 1);",
+            "const int b = blockIdx.x * kRows + (warp >> 1);"
+            " if (b >= 0) { if (lane == 0 && b < B) partial[t * B + b] = 0.0f;"
+            " return; }"),),
+    },
+    "marginal": {
+        "no batch tail": ((B5_LAST, B5_LAST[:-9] + " || B > 0) return;"),),
+        "tail without its loads": ((
+            "return k < B ? __ldcg(partial + k) : 0.0f;",
+            "return k < B ? 1.0f : 0.0f;"),),
+        "no arrival": ((B5_ARRIVE, "false"),),
+        "phase 1 alone": ((
+            "if (warp != 0) return;",
+            "if (warp >= 0) { if (threadIdx.x == 0) partial[b] = s_pl[0];"
+            " return; }"),),
+        "launch alone": ((
+            "const int b = blockIdx.x, lane = threadIdx.x & 31, warp = "
+            "threadIdx.x >> 5;",
+            "const int b = blockIdx.x, lane = threadIdx.x & 31, warp = "
+            "threadIdx.x >> 5; if (b >= 0) { if (threadIdx.x == 0) "
+            "partial[b] = 0.0f; return; }"),),
+    },
+}
+
+
+#: the alternatives to the kept design that were measured, as edits of the
+#: same kind; each is still bitwise equal to the plain version
+B5_FIXED_HEADS = ("if (n_dc == 8 && n_g == 8)", "if (B < 0 && n_g == 8)")
+B5_ALTERNATIVES = {
+    "quantile_huber": {
+        "one row a block": (("kRows = 2;", "kRows = 1;"),),
+        "eight rows a block": (("kRows = 2;", "kRows = 8;"),),
+        "a streamed batch tail": (("const rd::Pair s = rd::tree_regs(",
+                                   "const rd::Pair s = rd::tree_stream("),),
+    },
+    "marginal": {
+        "4-byte loads": (("const int vec = N == 32 &&",
+                          "const int vec = 0 && N == 32 &&"),),
+        "a streamed batch tail": ((
+            "float s = rd::tree_regs(Bp > 32 ? Bp >> 5 : 1, 0.0f,",
+            "float s = rd::tree_stream(Bp > 32 ? Bp >> 5 : 1, 0.0f,"),),
+        "phase 2 with the heads' sizes at run time": (B5_FIXED_HEADS,),
+        "phase 2 at the largest register size": (B5_FIXED_HEADS, (
+            "else if (Ap <= 64 && rd::pow2_at_least(n_dc)",
+            "else if (B < 0 && rd::pow2_at_least(n_dc)")),
+    },
+}
+
+
+def study_b5_tails():
+    """``--b5-tails``: where a call of B5a and of B5b's actor term goes, at
+    the update's published shape (B = 256, N = M = 32, 8 x 8 actions, the
+    one-hot layout).  Copies of this checkout's two kernels, each cut short
+    at one stage (``B5_CUTS``) or changed to a measured alternative
+    (``B5_ALTERNATIVES``), are built beside the whole kernel into
+    ``smoke_out/b5_tails/``; the whole kernel and the alternatives are held
+    bitwise against the plain version; each copy is timed (launches queued
+    behind a spin, the arrival count zeroed first) in three rounds.  One
+    JSON line."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    d = os.path.join(os.getcwd(), "smoke_out", "b5_tails")
+    shutil.rmtree(d, ignore_errors=True)
+    procs = {}
+    for src, cuts in B5_CUTS.items():
+        with open(os.path.join(build.CSRC_DIR, src + ".cu")) as f:
+            text = f.read()
+        for cut, edits in (("whole kernel", ()), *cuts.items(),
+                           *B5_ALTERNATIVES[src].items()):
+            t = text
+            for a, b in edits:
+                if t.count(a) != 1:
+                    fail(f"--b5-tails: {src}.cu no longer holds {a!r}")
+                t = t.replace(a, b)
+            vd = os.path.join(d, f"{src}_{len(procs)}")
+            os.makedirs(vd)
+            for h in os.listdir(build.CSRC_DIR):
+                if h.endswith(".cuh"):
+                    shutil.copy(os.path.join(build.CSRC_DIR, h), vd)
+            with open(os.path.join(vd, src + ".cu"), "w") as f:
+                f.write(t)
+            lib = os.path.join(vd, "lib.so")
+            procs[(src, cut)] = (subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib,
+                 os.path.join(vd, src + ".cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for key, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"--b5-tails: {key} failed to build\n{log}")
+        libs[key] = ctypes.CDLL(lib)
+    P, I, LL, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    B, N, n_dc, n_g = UPDATE_B, N_Q, 8, 8
+    A = n_dc * n_g
+    g = torch.Generator().manual_seed(41)
+    q = torch.randn((B, 2, N), generator=g).cuda()
+    tgt = (torch.randn((B, N), generator=g) * 2).cuda()
+    taus = ((torch.arange(N, dtype=torch.float32) + 0.5) / N).cuda()
+    q_oh = torch.randn((B, A, 2, N), generator=g).cuda().permute(0, 2, 1, 3)
+    ldc, lg = (t.cuda() for t in seeded_policy_logp(g, B, n_dc, n_g))
+    alpha = torch.tensor(0.2).cuda()
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {"quantile_huber": [torch.empty((), device="cuda"), torch.empty_like(q)],
+            "marginal": [torch.empty((), device="cuda"),
+                         torch.empty(B, device="cuda"),
+                         torch.empty((B, n_dc), device="cuda"),
+                         torch.empty((B, n_g), device="cuda")]}
+    want = {"quantile_huber": rsac.quantile_huber_loss(q, tgt, taus),
+            "marginal": rsac.marginal_actor(q_oh, ldc, lg, alpha)}
+    part = torch.empty(2 * B, device="cuda")
+
+    def call(src, lib):
+        if src == "quantile_huber":
+            f = lib.quantile_huber_launch
+            f.argtypes = [P, P, P, P, P, P, P, I, I, I, FL, FL, P]
+            args = (q.data_ptr(), tgt.data_ptr(), taus.data_ptr(),
+                    *(o.data_ptr() for o in outs[src]), part.data_ptr(),
+                    count.data_ptr(), B, N, N, 1.0, 0.5, stream)
+        else:
+            f = lib.marginal_actor_launch
+            f.argtypes = [P, LL, LL, LL, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+            args = (q_oh.data_ptr(), *q_oh.stride()[:3], ldc.data_ptr(),
+                    lg.data_ptr(), alpha.data_ptr(),
+                    *(o.data_ptr() for o in outs[src]), part.data_ptr(),
+                    count.data_ptr(), B, n_dc, n_g, N, stream)
+
+        def run():
+            if f(*args) != 0:
+                fail(f"--b5-tails: {src} launch failed")
+        return run
+
+    runs = {key: call(key[0], lib) for key, lib in libs.items()}
+    for src in B5_CUTS:
+        for cut in ("whole kernel", *B5_ALTERNATIVES[src]):
+            count.zero_()
+            runs[(src, cut)]()
+            torch.cuda.synchronize()
+            if not all(_bits(k, p) for k, p in zip(outs[src], want[src])):
+                fail(f"--b5-tails: {src}, {cut}: differs from its plain "
+                     "version")
+    us = {key: [] for key in runs}
+    for _ in range(3):
+        for key, run in runs.items():
+            count.zero_()
+            us[key].append(_queued_ms(run, what=f"{key}") * 1e3)
+    result = {}
+    for (src, cut), t in us.items():
+        result.setdefault(src, {})[cut] = t
+        print(f"{src}, {cut}: {', '.join(f'{x:.2f}' for x in t)} us per call")
+    print(json.dumps({"b5_tails": result}))
 
 
 def study_b1_widths():
@@ -3240,6 +3457,9 @@ def main():
         if args == ["--b5d-plans"]:
             print(card_line())
             return study_b5d_plans()
+        if args == ["--b5-tails"]:
+            print(card_line())
+            return study_b5_tails()
         if len(args) == 2 and args[0] == "--update-ab":
             print(card_line())
             return study_update_ab(os.path.abspath(args[1]), here)
@@ -3248,7 +3468,7 @@ def main():
             return study_update_child()
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
-             "--b5d-plans or --update-ab PARENT_CHECKOUT")
+             "--b5d-plans, --b5-tails or --update-ab PARENT_CHECKOUT")
     report = {}
     card = card_line()
     print(card)
@@ -3337,12 +3557,14 @@ def main():
               rl_launches["rl"], rl["b4"], rl["b4"]["library_ms"]),
         entry("replay_ingest", "replay_ingest.cu", "rl/replay.py:165",
               rl_launches["replay_ingest"], rl["b6a"], None),
-        entry("quantile_huber", "quantile_huber.cu", "rl/sac.py:178",
-              upd_launches["quantile_huber"], report["b5a"], None),
+        dict(entry("quantile_huber", "quantile_huber.cu", "rl/sac.py:178",
+                   upd_launches["quantile_huber"], report["b5a"], None),
+             redesigned=True),
         entry("marginal_target", "marginal.cu", "rl/sac.py:223",
               upd_launches["marginal_target"], report["b5b_target"], None),
-        entry("marginal_actor", "marginal.cu", "rl/sac.py:251",
-              upd_launches["marginal_actor"], report["b5b_actor"], None),
+        dict(entry("marginal_actor", "marginal.cu", "rl/sac.py:251",
+                   upd_launches["marginal_actor"], report["b5b_actor"], None),
+             redesigned=True),
         dict(entry("clip_adam_polyak", "adam.cu", "rl/sac.py:279",
                    upd_launches["adam_update"], report["b5c"],
                    report["b5c"]["library_ms"]), redesigned=True),

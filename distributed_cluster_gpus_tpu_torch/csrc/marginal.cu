@@ -29,10 +29,19 @@
 //
 // Bound on the card: bytes.  Each call reads q once (B * 2 * A * N floats,
 // 4 MB at the published B = 256, A = 64, N = 32, 1.25 us at 3.35 TB/s) and
-// does ~4 operations per element of it.  Design: one block per batch row;
-// its A x N products or twin minima go to shared memory and the block sums
-// them by the tree; the actor's last block to finish (an atomic count) sums
-// the B row values.  One launch per call.
+// does ~4 operations per element of it.  One launch per call, one block per
+// batch row.  The target: its A x N products go to shared memory and the
+// block sums them by the tree.  The actor term (redesigned for the H100):
+// each twin-min row of N quantiles is one warp's coalesced load (16-byte
+// loads where the rows are aligned) and its tree over N stays in registers
+// and shuffles (eight actions a warp in flight), whose sum one lane turns
+// into the action's terms; the trees over
+// A and the per-head gradient trees are one warp's registers and shuffles,
+// so a row costs one block barrier; the shared memory is the row's terms,
+// sized at the launch.  Each row's warp counts its arrival (a fence and an
+// atomic); the last one sums the B row values by the tree
+// in its registers and shuffles and resets the count, so the kernel
+// replays in a CUDA graph.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,16 +55,19 @@ constexpr int kMaxTile = 8192;  // padded A x padded N floats in shared memory
 constexpr int kMaxA = 256;      // padded joint actions
 constexpr int kMaxHead = 64;    // padded head size
 constexpr int kMaxCosts = 16;
-constexpr int kMaxB = kMaxTile;  // rows the actor's last block sums
+constexpr int kMaxB = 8192;  // the actor's batch rows at most
+
+__device__ __forceinline__ float min_nan(float x, float y) {
+  // torch.minimum on the card: NaN-propagating, else fminf
+  return x != x ? x : (y != y ? y : fminf(x, y));
+}
 
 struct QView {
   const float* q;
   long long sb, st, sa;  // strides (floats) of the batch, twin, action axes
   __device__ __forceinline__ float min2(int b, int a, int i) const {
     const float* p = q + b * sb + a * sa + i;
-    const float x = p[0], y = p[st];
-    // torch.minimum on the card: NaN-propagating, else fminf
-    return x != x ? x : (y != y ? y : fminf(x, y));
+    return min_nan(p[0], p[st]);
   }
 };
 
@@ -120,69 +132,174 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) r_eff_out[b] = reff;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The actor term: a block per batch row, kActorWarps warps.  Phase 1, all
+// warps: each action's twin-min row is one warp's tree over N (at N = 32
+// with 16-byte aligned rows, eight actions a warp at once, a float4 per
+// lane: quantiles 4l..4l+3 of one of four actions, the levels of distance
+// 16, 8 and 4 shuffles within eight lanes, 2 and 1 in the registers; else
+// one action at a time, quantile i at lane i % 32, register i / 32); its
+// sum goes to one lane, which takes the action's terms
+// (pi log pi, pi qm, the gradient g) into shared memory, the
+// log-probabilities loaded beside the quantiles.  Phase 2, warp 0 alone
+// (actor_row): the trees over A (action a at lane a % 32, register a / 32)
+// and the per-head gradient trees over the padded [Dp, Gp] layout, in
+// registers and shuffles; then its arrival, and the last row's warp sums
+// the B row values.
+constexpr int kActorWarps = 8;
+constexpr int kActorAhead = 8;   // actions a warp loads at once (N = 32)
+constexpr int kMaxRA = kMaxA / 32;  // registers of the trees over A
+constexpr int kMaxRE = 16;  // registers of the padded [Dp, Gp] layout (<= 512)
+
+// Phase 2 and the batch tail, by warp 0 of row b's block, with RA / RE
+// registers for the trees over A / the padded heads (Ap <= 32 RA, Dp Gp
+// <= 32 RE); DC x G, where not 0, are the heads' sizes fixed at compile
+// time (powers of two), so every loop and guard folds.
+template <int RA, int RE, int DC = 0, int G = 0>
+__device__ __forceinline__ void actor_row(
+    const float* s_pl, const float* s_pq, const float* s_g, float alpha,
+    float* __restrict__ loss, float* __restrict__ ent,
+    float* __restrict__ d_dc, float* __restrict__ d_g, float* partial,
+    unsigned* counter, int b, int B, int n_dc_run, int n_g_run) {
+  const int lane = threadIdx.x & 31;
+  const int n_dc = DC ? DC : n_dc_run, n_g = G ? G : n_g_run;
+  const int A = n_dc * n_g, Ap = rd::pow2_at_least(A);
+  const float fB = (float)B;
+  const int ra = Ap > 32 ? Ap >> 5 : 1;
+  float pl[RA], pq[RA];
+#pragma unroll
+  for (int r = 0; r < RA; ++r) {
+    const int a = lane + 32 * r;
+    const bool in = r < ra && a < A;
+    pl[r] = in ? s_pl[a] : 0.0f;
+    pq[r] = in ? s_pq[a] : 0.0f;
+  }
+  // the gradient at e = d * Gp + c, zero in the padding: per DC over the
+  // GPU counts (segments of Gp), per GPU count over the DCs (stride Gp)
+  const int Gp = rd::pow2_at_least(n_g), Dp = rd::pow2_at_least(n_dc);
+  const int E = Dp * Gp, re = E > 32 ? E >> 5 : 1;
+  int gbits = 0;
+  while ((1 << gbits) < Gp) ++gbits;
+  float vd[RE], vg[RE];
+#pragma unroll
+  for (int r = 0; r < RE; ++r) {
+    const int e = lane + 32 * r, d = e >> gbits, c = e & (Gp - 1);
+    vd[r] = r < re && e < E && d < n_dc && c < n_g ? s_g[d * n_g + c] : 0.0f;
+    vg[r] = vd[r];
+  }
+  rd::tree_strided(pl, 1, Ap, ra);
+  rd::tree_strided(pq, 1, Ap, ra);
+  rd::tree_strided(vd, 1, Gp, re);
+  rd::tree_strided(vg, Gp, Dp, re);
+#pragma unroll
+  for (int r = 0; r < RE; ++r) {
+    const int e = lane + 32 * r, d = e >> gbits, c = e & (Gp - 1);
+    if (r < re && e < E && c == 0 && d < n_dc)
+      d_dc[b * n_dc + d] = -(vd[r] / fB);
+    if (r < re && e < n_g) d_g[b * n_g + e] = -(vg[r] / fB);
+  }
+  bool last = false;
+  if (lane == 0) {
+    const float h = -pl[0];
+    ent[b] = h;
+    partial[b] = pq[0] + alpha * h;
+    last = rd::arrive_last(counter);
+  }
+  if (!__shfl_sync(rd::kFullMask, last, 0)) return;
+  __syncwarp();  // the other lanes' loads after lane 0 saw the count
+  // the last row's warp: the tree over b, element k at lane k % 32,
+  // register k / 32
+  const int Bp = rd::pow2_at_least(B);
+  float s = rd::tree_regs(Bp > 32 ? Bp >> 5 : 1, 0.0f, [&](int r) {
+    const int k = lane + 32 * r;
+    return k < B ? __ldcg(partial + k) : 0.0f;
+  });
+  s = rd::warp_tree(s, Bp < 32 ? Bp : 32);
+  if (lane == 0) {
+    *loss = -(s / fB);
+    *counter = 0u;  // ready for the next launch on this stream
+  }
+}
+
+__global__ void __launch_bounds__(32 * kActorWarps, 1)
     marginal_actor_kernel(QView qv, const float* __restrict__ logp_dc,
                           const float* __restrict__ logp_g,
                           const float* __restrict__ alpha_p,
                           float* __restrict__ loss, float* __restrict__ ent,
                           float* __restrict__ d_dc, float* __restrict__ d_g,
                           float* partial, unsigned* counter, int B, int n_dc,
-                          int n_g, int N) {
-  __shared__ float tile[kMaxTile];  // [A][Np] twin minima; later the rows
-  __shared__ float logpi[kMaxA], pi[kMaxA], pl[kMaxA], pq[kMaxA], g[kMaxA];
-  __shared__ bool last;
-  const int b = blockIdx.x, A = n_dc * n_g, Ap = rd::pow2_at_least(A);
+                          int n_g, int N, int vec) {
+  extern __shared__ float smem[];  // pi log pi, pi qm, g: [Ap] each
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int A = n_dc * n_g, Ap = rd::pow2_at_least(A);
   const int Np = rd::pow2_at_least(N);
-  const float alpha = *alpha_p, fN = (float)N, fB = (float)B;
-  joint_policy(logp_dc, logp_g, b, n_dc, n_g, Ap, logpi, pi);
-  for (int e = threadIdx.x; e < A * Np; e += blockDim.x) {
-    const int a = e / Np, i = e % Np;
-    tile[e] = i < N ? qv.min2(b, a, i) : 0.0f;
-  }
-  rd::tree_rows(tile, A, Np, Np);
-  for (int a = threadIdx.x; a < Ap; a += blockDim.x) {
-    if (a < A) {
-      const float qm = tile[a * Np] / fN;
-      pl[a] = pi[a] * logpi[a];
-      pq[a] = pi[a] * qm;
-      g[a] = pi[a] * (qm - alpha * (logpi[a] + 1.0f));
-    } else {
-      pl[a] = 0.0f;
-      pq[a] = 0.0f;
+  const float fN = (float)N, alpha = *alpha_p;
+  float* s_pl = smem;
+  float* s_pq = smem + Ap;
+  float* s_g = smem + 2 * Ap;
+  // joint action a's log-probability, and its terms once qm[a] is known
+  auto logpi = [&](int a) {
+    return logp_dc[b * n_dc + a / n_g] + logp_g[b * n_g + a % n_g];
+  };
+  auto terms = [&](int a, float qm, float l) {
+    const float p = expf(l);
+    s_pl[a] = p * l;
+    s_pq[a] = p * qm;
+    s_g[a] = p * (qm - alpha * (l + 1.0f));
+  };
+  // ---- phase 1: qm[a] = tree_i(min over twins) / N, and the terms
+  if (vec) {  // N = 32, 16-byte rows: 4 actions a float4 load
+    for (int a0 = warp * kActorAhead; a0 < A; a0 += kActorWarps * kActorAhead) {
+      const int au = a0 + lane;  // lane u < kActorAhead takes action a0 + u
+      const bool mine = lane < kActorAhead && au < A;
+      const float l = mine ? logpi(au) : 0.0f;
+      float s[2];
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int a = a0 + 4 * grp + (lane >> 3);
+        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f), y = x;
+        if (a < A) {
+          const float* p = qv.q + b * qv.sb + a * qv.sa + 4 * (lane & 7);
+          x = __ldg(reinterpret_cast<const float4*>(p));
+          y = __ldg(reinterpret_cast<const float4*>(p + qv.st));
+        }
+        float m[4] = {min_nan(x.x, y.x), min_nan(x.y, y.y), min_nan(x.z, y.z),
+                      min_nan(x.w, y.w)};
+#pragma unroll
+        for (int h = 4; h >= 1; h >>= 1) {  // distances 16, 8, 4
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            m[v] = m[v] + __shfl_down_sync(rd::kFullMask, m[v], h);
+        }
+        s[grp] = (m[0] + m[2]) + (m[1] + m[3]);  // distances 2, 1
+      }
+      // action a0 + u's sum sits in lane 8 (u % 4) of group u / 4
+      const float x0 = __shfl_sync(rd::kFullMask, s[0], 8 * (lane & 3));
+      const float x1 = __shfl_sync(rd::kFullMask, s[1], 8 * (lane & 3));
+      if (mine) terms(au, (lane < 4 ? x0 : x1) / fN, l);
+    }
+  } else {  // any N: one action a warp at a time
+    for (int a = warp; a < A; a += kActorWarps) {
+      const float l = lane == 0 ? logpi(a) : 0.0f;
+      float s = rd::tree_regs(Np > 32 ? Np >> 5 : 1, 0.0f, [&](int r) {
+        const int i = lane + 32 * r;
+        return i < N ? qv.min2(b, a, i) : 0.0f;
+      });
+      s = rd::warp_tree(s, Np < 32 ? Np : 32);
+      if (lane == 0) terms(a, s / fN, l);
     }
   }
   __syncthreads();
-  // the gradient: per DC over the GPU-count head, per GPU count over DCs
-  const int Gp = rd::pow2_at_least(n_g), Dp = rd::pow2_at_least(n_dc);
-  for (int k = threadIdx.x; k < n_dc + n_g; k += blockDim.x) {
-    float v[kMaxHead];
-    if (k < n_dc) {
-      for (int j = 0; j < Gp; ++j) v[j] = j < n_g ? g[k * n_g + j] : 0.0f;
-      d_dc[b * n_dc + k] = -(rd::tree_local(v, Gp) / fB);
-    } else {
-      const int c = k - n_dc;
-      for (int j = 0; j < Dp; ++j) v[j] = j < n_dc ? g[j * n_g + c] : 0.0f;
-      d_g[b * n_g + c] = -(rd::tree_local(v, Dp) / fB);
-    }
-  }
-  rd::tree_rows(pl, 1, Ap, Ap);
-  rd::tree_rows(pq, 1, Ap, Ap);
-  if (threadIdx.x == 0) {
-    const float h = -pl[0];
-    ent[b] = h;
-    partial[b] = pq[0] + alpha * h;
-    last = rd::arrive_last(counter);
-  }
-  __syncthreads();
-  if (!last) return;
-  const int Bp = rd::pow2_at_least(B);
-  for (int k = threadIdx.x; k < Bp; k += blockDim.x)
-    tile[k] = k < B ? __ldcg(partial + k) : 0.0f;
-  rd::tree_rows(tile, 1, Bp, Bp);
-  if (threadIdx.x == 0) {
-    *loss = -(tile[0] / fB);
-    *counter = 0u;  // ready for the next launch on this stream
-  }
+  if (warp != 0) return;
+  // ---- phase 2, one warp, sized for the shape
+  if (n_dc == 8 && n_g == 8)  // the published heads
+    actor_row<2, 2, 8, 8>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g,
+                          partial, counter, b, B, n_dc, n_g);
+  else if (Ap <= 64 && rd::pow2_at_least(n_dc) * rd::pow2_at_least(n_g) <= 64)
+    actor_row<2, 2>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g, partial,
+                    counter, b, B, n_dc, n_g);
+  else
+    actor_row<kMaxRA, kMaxRE>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g,
+                              partial, counter, b, B, n_dc, n_g);
 }
 
 int check_view(int A, int N, int n_dc, int n_g) {
@@ -231,9 +348,14 @@ extern "C" int marginal_actor_launch(
       (long long)(n_dc * n_g) * rd::pow2_at_least(N) > kMaxTile)
     return -1;
   QView qv{(const float*)q, sb, st, sa};
-  marginal_actor_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+  const int A = n_dc * n_g;
+  const size_t smem = sizeof(float) * 3 * rd::pow2_at_least(A);
+  // 16-byte loads of the twin rows where they are aligned
+  const int vec = N == 32 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+                  sb % 4 == 0 && st % 4 == 0 && sa % 4 == 0;
+  marginal_actor_kernel<<<B, 32 * kActorWarps, smem, (cudaStream_t)stream>>>(
       qv, (const float*)logp_dc, (const float*)logp_g, (const float*)alpha,
       (float*)loss, (float*)ent, (float*)d_dc, (float*)d_g, (float*)partial,
-      (unsigned*)counter, B, n_dc, n_g, N);
+      (unsigned*)counter, B, n_dc, n_g, N, vec);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@
 //   loss = tree_b(row[., 0]) / B + tree_b(row[., 1]) / B
 //   grad[b, t, i] = -((tree_j(w * dh) / M) / B),  dh = |td| <= kappa ? td
 //                                                   : (td > 0 ? kappa : -kappa)
-// with every sum the fixed halving tree (reduce.cuh) that the plain version
+// with every sum the fixed halving tree that the plain version
 // (rl/sac.py::quantile_huber_loss) takes with tree_sum_last, in the same
 // order: over j, then i, then b.  Built with -fmad=false, so it is bitwise
 // equal to the plain version on the card.  The gradient is written in the
@@ -24,11 +24,19 @@
 // Bound on the card: operations, barely.  A call reads q (2BN floats),
 // target (BM) and taus and writes grad (2BN) and the loss: 80 KB at the
 // published B = 256, N = M = 32; it does ~2BNM x 20 float32 operations
-// (10.5M, 0.16 us at 67 TFLOP/s).  Design: one block per batch row, one
-// thread per (twin, quantile), each thread folding its M terms by the tree
-// in its own memory; the block sums a twin's N quantile means by the tree in
-// shared memory; the last block to finish (an atomic count) sums the B rows
-// by the tree.  One launch per call.
+// (10.5M, 0.16 us at 67 TFLOP/s).  So a call is its launch, one wave and
+// the batch tail's latency.  Design: one warp per (b, t), every lane busy:
+// lane i holds quantile i (and i + 32 when N > 32), the target row sits in
+// the warp's registers (lane l: j = l, l + 32) and each leaf takes its
+// target by a shuffle; the tree over j is a register tree unrolled for the
+// padded M (one instance per power of two, chosen at the launch), taken
+// depth first so only log2(M) partial sums are live; the tree over i is a
+// register add (N > 32) and shuffles from the padded half.  No shared
+// memory.  A block holds kRows batch rows; after one barrier it counts one
+// arrival (a fence and an atomic), and the last block's warp 0 sums
+// both twins' B rows by the same tree (rd::tree_regs over each lane's
+// registers, then shuffles) and resets the count, so the kernel replays in
+// a CUDA graph.  One launch per call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,10 +45,12 @@
 
 namespace {
 
-constexpr int kMaxQ = 64;      // N and M at most (padded to a power of two)
-constexpr int kMaxB = 4096;    // rows the last block sums in shared memory
-constexpr int kThreads = 2 * kMaxQ;
+constexpr int kMaxQ = 64;    // N and M at most (padded to a power of two)
+constexpr int kMaxB = 4096;  // batch rows at most
+constexpr int kRows = 2;     // batch rows a block, a warp per twin of each
+constexpr int kThreads = 64 * kRows;
 
+template <int Mp>
 __global__ void __launch_bounds__(kThreads)
     quantile_huber_kernel(const float* __restrict__ q,
                           const float* __restrict__ target,
@@ -48,54 +58,60 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ grad, float* partial,
                           unsigned* counter, int B, int N, int M,
                           float kappa, float half_kappa) {
-  __shared__ float rows[2 * kMaxQ];
-  __shared__ float sums[2 * kMaxB];
-  __shared__ bool last;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int Np = rd::pow2_at_least(N), Mp = rd::pow2_at_least(M);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = warp & 1;
+  const int b = blockIdx.x * kRows + (warp >> 1);
   const float fM = (float)M, fB = (float)B;
-  if (tid < 2 * Np) {
-    const int t = tid / Np, i = tid % Np;
-    float row = 0.0f;
-    if (i < N) {
-      float e[kMaxQ], d[kMaxQ];
-      const float qv = q[((long long)b * 2 + t) * N + i];
-      const float tau = taus[i];
-      for (int j = 0; j < Mp; ++j) {
-        if (j < M) {
-          const float td = target[(long long)b * M + j] - qv;
-          const float a = fabsf(td);
-          const bool small = a <= kappa;
-          const float h = small ? 0.5f * (td * td) : kappa * (a - half_kappa);
-          const float w = fabsf(tau - (td < 0.0f ? 1.0f : 0.0f));
-          e[j] = w * h;
-          d[j] = w * (small ? td : (td > 0.0f ? kappa : -kappa));
-        } else {
-          e[j] = 0.0f;
-          d[j] = 0.0f;
-        }
-      }
-      row = rd::tree_local(e, Mp) / fM;
-      grad[((long long)b * 2 + t) * N + i] = -((rd::tree_local(d, Mp) / fM) / fB);
-    }
-    rows[t * Np + i] = row;
+  if (b < B) {
+    const int Np = rd::pow2_at_least(N);
+    const float* trow = target + (long long)b * M;
+    const float t_lo = lane < M ? trow[lane] : 0.0f;
+    const float t_hi = Mp > 32 && lane + 32 < M ? trow[lane + 32] : 0.0f;
+    const long long qrow = ((long long)b * 2 + t) * N;
+    // quantile i's mean over j of w * h (0 for a padding quantile); its
+    // gradient written on the way
+    auto quantile = [&](int i) -> float {
+      const bool in = i < N;
+      const float qv = in ? q[qrow + i] : 0.0f;
+      const float tau = in ? taus[i] : 0.0f;
+      const rd::Pair s = rd::tree_static<Mp>([&](auto J) -> rd::Pair {
+        constexpr int j = decltype(J)::value;
+        const float tj =
+            __shfl_sync(rd::kFullMask, j < 32 ? t_lo : t_hi, j & 31);
+        if (j >= M) return {0.0f, 0.0f};
+        const float td = tj - qv;
+        const float a = fabsf(td);
+        const bool small = a <= kappa;
+        const float h = small ? 0.5f * (td * td) : kappa * (a - half_kappa);
+        const float w = fabsf(tau - (td < 0.0f ? 1.0f : 0.0f));
+        return {w * h, w * (small ? td : (td > 0.0f ? kappa : -kappa))};
+      });
+      if (in) grad[qrow + i] = -((s.b / fM) / fB);
+      return in ? s.a / fM : 0.0f;
+    };
+    float row = quantile(lane);
+    if (Np > 32) row = row + quantile(lane + 32);  // the level of distance 32
+    row = rd::warp_tree(row, Np < 32 ? Np : 32);
+    if (lane == 0) partial[t * B + b] = row;
   }
-  rd::tree_rows(rows, 2, Np, Np);
-  if (tid == 0) {
-    partial[b] = rows[0];
-    partial[B + b] = rows[Np];
-    last = rd::arrive_last(counter);
-  }
-  __syncthreads();
-  if (!last) return;
+  __syncthreads();  // the block's partials, then one arrival for them
+  if (warp != 0) return;
+  bool last = false;
+  if (lane == 0) last = rd::arrive_last(counter);
+  if (!__shfl_sync(rd::kFullMask, last, 0)) return;
+  __syncwarp();  // the other lanes' loads after lane 0 saw the count
+  // the last block's warp 0: both twins' trees over b, element k at lane
+  // k % 32, register k / 32
   const int Bp = rd::pow2_at_least(B);
-  for (int e = tid; e < 2 * Bp; e += blockDim.x) {
-    const int t = e / Bp, k = e % Bp;
-    sums[e] = k < B ? __ldcg(partial + t * B + k) : 0.0f;
-  }
-  rd::tree_rows(sums, 2, Bp, Bp);
-  if (tid == 0) {
-    *loss = sums[0] / fB + sums[Bp] / fB;
+  const rd::Pair s = rd::tree_regs(
+      Bp > 32 ? Bp >> 5 : 1, rd::Pair{0.0f, 0.0f}, [&](int r) -> rd::Pair {
+        const int k = lane + 32 * r;
+        if (k >= B) return {0.0f, 0.0f};
+        return {__ldcg(partial + k), __ldcg(partial + B + k)};
+      });
+  const int p = Bp < 32 ? Bp : 32;
+  const float s0 = rd::warp_tree(s.a, p), s1 = rd::warp_tree(s.b, p);
+  if (lane == 0) {
+    *loss = s0 / fB + s1 / fB;
     *counter = 0u;  // ready for the next launch on this stream
   }
 }
@@ -104,8 +120,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // Plain C entry point (bound with ctypes).  q [B, 2, N], target [B, M],
 // taus [N], grad [B, 2, N] float32 contiguous; loss one float; partial 2B
-// floats of scratch; counter one uint32, 0 at the launch and left at 0.  Returns the cudaError_t of
-// the launch, or -1 for shapes the kernel does not take.
+// floats of scratch; counter one uint32, 0 at the launch and left at 0.
+// Returns the cudaError_t of the launch, or -1 for shapes the kernel does
+// not take.
 extern "C" int quantile_huber_launch(const void* q, const void* target,
                                      const void* taus, void* loss, void* grad,
                                      void* partial, void* counter, int B,
@@ -113,7 +130,17 @@ extern "C" int quantile_huber_launch(const void* q, const void* target,
                                      float half_kappa, void* stream) {
   if (B < 1 || B > kMaxB || N < 1 || N > kMaxQ || M < 1 || M > kMaxQ)
     return -1;
-  quantile_huber_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+  decltype(&quantile_huber_kernel<1>) kernel;
+  switch (rd::pow2_at_least(M)) {  // the tree over j unrolled for its width
+    case 1: kernel = quantile_huber_kernel<1>; break;
+    case 2: kernel = quantile_huber_kernel<2>; break;
+    case 4: kernel = quantile_huber_kernel<4>; break;
+    case 8: kernel = quantile_huber_kernel<8>; break;
+    case 16: kernel = quantile_huber_kernel<16>; break;
+    case 32: kernel = quantile_huber_kernel<32>; break;
+    default: kernel = quantile_huber_kernel<64>; break;
+  }
+  kernel<<<(B + kRows - 1) / kRows, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)target, (const float*)taus, (float*)loss,
       (float*)grad, (float*)partial, (unsigned*)counter, B, N, M, kappa,
       half_kappa);

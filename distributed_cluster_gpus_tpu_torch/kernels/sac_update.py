@@ -31,8 +31,9 @@ import torch
 from . import build
 
 F32 = torch.float32
-#: per device, the zeroed uint32 the loss kernels' blocks count their arrival
-#: in; the last block sets it back to 0, so a launch queues no memset
+#: per device, the zeroed uint32 the loss kernels count their arrivals in
+#: (B5a's warps, B5b's rows); the last to arrive sets it back to 0, so a
+#: launch queues no memset
 _counters = {}
 
 

@@ -500,20 +500,41 @@ def _bits_equal(a, b):
         bits(a), bits(b))
 
 
+def _bits_equal_nan(a, b):
+    """The same elements NaN, bitwise equal elsewhere."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and _bits_equal(a[~na], b[~nb])
+
+
+def _huber_inputs(dev, B, N, M, seed):
+    """Seeded q [B, 2, N], target [B, M], taus [N]: |td| exactly at kappa
+    (row 0, twin 0) and at 0 (the last row, twin 1), and td = -0.0 (a -0.0
+    target against a +0.0 q)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, 2, N), generator=g)
+    tgt = torch.randn((B, M), generator=g) * 2
+    n = min(N, M, 2)
+    tgt[0, :n] = q[0, 0, :n] + 1.0
+    tgt[-1, :n] = q[-1, 1, :n]
+    q[0, 1, 0], tgt[0, 0] = 0.0, -0.0
+    taus = (torch.arange(N, dtype=torch.float32) + 0.5) / N
+    return q.to(dev), tgt.to(dev), taus.to(dev)
+
+
+HUBER_B = [1, 3, 255, 256, 257, 4096]
+HUBER_NM = [(8, 8), (1, 1), (7, 5), (32, 32), (33, 64), (64, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N", [(3, 8), (256, 32)])
-def test_quantile_huber_kernel_matches_plain_version(cuda, B, N):
-    """B5a: loss and gradient bitwise, |td| exactly at kappa and at 0."""
+@pytest.mark.parametrize("N,M", HUBER_NM)
+@pytest.mark.parametrize("B", HUBER_B)
+def test_quantile_huber_kernel_matches_plain_version(cuda, B, N, M):
+    """B5a: loss and gradient bitwise over the kernel's shape envelope,
+    |td| exactly at kappa and at 0, td = -0.0."""
     from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
     from distributed_cluster_gpus_tpu_torch.rl.sac import quantile_huber_loss
 
-    g = torch.Generator().manual_seed(B)
-    q = torch.randn((B, 2, N), generator=g)
-    tgt = torch.randn((B, N), generator=g) * 2
-    tgt[0, :2] = q[0, 0, :2] + 1.0
-    tgt[-1, :2] = q[-1, 1, :2]
-    taus = (torch.arange(N, dtype=torch.float32) + 0.5) / N
-    q, tgt, taus = q.to(cuda), tgt.to(cuda), taus.to(cuda)
+    q, tgt, taus = _huber_inputs(cuda, B, N, M, B * 100 + N + M)
     before = b5.quantile_huber.launches
     loss_k, grad_k = b5.quantile_huber(q, tgt, taus)
     loss_p, grad_p = quantile_huber_loss(q, tgt, taus)
@@ -521,19 +542,39 @@ def test_quantile_huber_kernel_matches_plain_version(cuda, B, N):
     assert b5.quantile_huber.launches == before + 1
 
 
-def _marginal_inputs(dev, B=9, n_dc=3, n_g=4, N=8, layout="heads"):
-    g = torch.Generator().manual_seed(B + n_dc)
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M", [(3, 8, 8), (256, 32, 32), (257, 33, 64)])
+def test_quantile_huber_kernel_nan_in_q(cuda, B, N, M):
+    """B5a with one NaN quantile: the same elements NaN as the plain
+    version's (the loss), the rest bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl.sac import quantile_huber_loss
+
+    q, tgt, taus = _huber_inputs(cuda, B, N, M, B + N)
+    q[B // 2, 1, N - 1] = float("nan")
+    before = b5.quantile_huber.launches
+    loss_k, grad_k = b5.quantile_huber(q, tgt, taus)
+    loss_p, grad_p = quantile_huber_loss(q, tgt, taus)
+    assert bool(torch.isnan(loss_p))
+    assert _bits_equal_nan(loss_k, loss_p) and _bits_equal_nan(grad_k, grad_p)
+    assert b5.quantile_huber.launches == before + 1
+
+
+def _marginal_inputs(dev, B=9, n_dc=3, n_g=4, N=8, layout="heads", seed=0):
+    g = torch.Generator().manual_seed(B + n_dc + N + 1000 * seed)
     A = n_dc * n_g
     if layout == "heads":
         q = torch.randn((B, 2, A, N), generator=g).to(dev)
+    elif layout == "offset":  # rows that are not 16-byte aligned
+        q = torch.randn((B, 2, A, N + 1), generator=g).to(dev)[..., 1:]
     else:  # the one-hot critic's [B, A, 2, N] product, viewed as [B, 2, A, N]
         q = torch.randn((B, A, 2, N), generator=g).to(dev).permute(0, 2, 1, 3)
     m_dc = torch.rand((B, n_dc), generator=g) < 0.6
     m_g = torch.rand((B, n_g), generator=g) < 0.6
     m_dc[:, 0] = True
-    m_g[:, 1] = True
+    m_g[:, n_g - 1] = True
     m_dc[0] = False  # every DC masked: uniform
-    m_g[1] = False
+    m_g[min(1, B - 1)] = False  # every GPU count masked (row 0 too if B = 1)
     from distributed_cluster_gpus_tpu_torch.rl.nets import masked_log_softmax
 
     ldc = masked_log_softmax(torch.randn((B, n_dc), generator=g), m_dc)
@@ -547,23 +588,98 @@ def _marginal_inputs(dev, B=9, n_dc=3, n_g=4, N=8, layout="heads"):
     return q, ldc.to(dev), lg.to(dev), {k: v.to(dev) for k, v in rest.items()}
 
 
+# heads x N of the actor's envelope (Ap x Np <= 8,192): 16 x 16 is Ap = 256
+MARGINAL_SHAPES = [(3, 4, 8)] + [(d, c, n) for d, c in ((1, 1), (3, 4), (8, 8))
+                                 for n in (1, 32, 64)] + [(16, 16, 1), (16, 16, 32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["heads", "onehot"])
-def test_marginal_kernels_match_plain_versions(cuda, layout):
+@pytest.mark.parametrize("n_dc,n_g,N", MARGINAL_SHAPES)
+@pytest.mark.parametrize("B", [9, 1, 257])
+@pytest.mark.parametrize("layout", ["heads", "onehot", "offset"])
+def test_marginal_kernels_match_plain_versions(cuda, layout, B, n_dc, n_g, N):
     """B5b: the target and the actor term (value, H, gradients) bitwise,
-    masked and all-masked heads, done in {0, 1}, both critics' layouts."""
+    masked and all-masked heads, done in {0, 1}, both critics' layouts and
+    rows that are not 16-byte aligned, over the actor's shape envelope; each
+    a launch."""
     from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
     from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
 
-    q, ldc, lg, x = _marginal_inputs(cuda, layout=layout)
+    q, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, N, layout=layout)
     args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
             x["alpha"], 0.99)
     for k, p in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
         assert _bits_equal(k, p)
+    before = b5.marginal_actor.launches
     out_k = b5.marginal_actor(q, ldc, lg, x["alpha"])
     out_p = rsac.marginal_actor(q, ldc, lg, x["alpha"])
+    assert b5.marginal_actor.launches == before + 1
     for k, p in zip(out_k, out_p):
         assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_dc,n_g,N", [(600, 8, 8, 32), (8192, 8, 8, 32),
+                                          (3, 1, 1, 8192), (5, 2, 2, 2048)])
+def test_marginal_actor_kernel_long_trees(cuda, B, n_dc, n_g, N):
+    """B5b's actor term where its trees stream through the registers: a
+    batch tail of more than 16 values a lane (up to B = 8,192, the
+    envelope's edge) and a tree over N of up to 256 a lane; bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    q, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, N, layout="onehot")
+    before = b5.marginal_actor.launches
+    out_k = b5.marginal_actor(q, ldc, lg, x["alpha"])
+    out_p = rsac.marginal_actor(q, ldc, lg, x["alpha"])
+    assert b5.marginal_actor.launches == before + 1
+    for k, p in zip(out_k, out_p):
+        assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
+
+
+@pytest.mark.gpu
+def test_loss_kernels_replay_in_a_cuda_graph(cuda):
+    """B5a and B5b's actor term captured in one CUDA graph and replayed
+    three times on new inputs: bitwise equal to the plain versions each
+    time (the arrival count is reset, nothing stale carries over); the
+    wrappers count the capture's launches only."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    q, tgt, taus = _huber_inputs(cuda, 256, 32, 32, 5)
+    qa, ldc, lg, x = _marginal_inputs(cuda, 256, 8, 8, 32, layout="onehot")
+    alpha = x["alpha"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        b5.quantile_huber(q, tgt, taus)
+        b5.marginal_actor(qa, ldc, lg, alpha)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (b5.quantile_huber.launches, b5.marginal_actor.launches)
+    with torch.cuda.graph(graph):
+        huber = b5.quantile_huber(q, tgt, taus)
+        actor = b5.marginal_actor(qa, ldc, lg, alpha)
+    assert (b5.quantile_huber.launches, b5.marginal_actor.launches) == (
+        before[0] + 1, before[1] + 1)
+    for i in range(3):
+        nq, nt, _ = _huber_inputs(cuda, 256, 32, 32, 10 + i)
+        na, nd, ng, _ = _marginal_inputs(cuda, 256, 8, 8, 32, layout="onehot",
+                                         seed=i + 1)
+        q.copy_(nq)
+        tgt.copy_(nt)
+        qa.copy_(na)
+        ldc.copy_(nd)
+        lg.copy_(ng)
+        alpha.fill_(0.1 * (i + 1))
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, p in zip(huber, rsac.quantile_huber_loss(q, tgt, taus)):
+            assert _bits_equal(k, p), i
+        for k, p in zip(actor, rsac.marginal_actor(qa, ldc, lg, alpha)):
+            assert _bits_equal(k, p), i
+    assert (b5.quantile_huber.launches, b5.marginal_actor.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.gpu

@@ -1,11 +1,13 @@
-"""``chip_smoke.py``'s B1 studies against the kernel source, on the CPU.
+"""``chip_smoke.py``'s B1 and B5 studies against the kernel sources, on the CPU.
 
 ``--b1-phases`` instruments ``csrc/event_scan.cu`` by text: it inserts a
 ``clock64`` mark at fixed anchors of the heuristic step, the RL step and
 its tail.  An edit of the kernel that moves an anchor would only show on
 the card; these tests apply the instrumentation to the current source here,
 with no ``nvcc``.  They also hold the wrapper's block widths and shared-
-memory count against the constants the kernel is built with.
+memory count against the constants the kernel is built with.  ``--b5-tails``
+cuts B5a and B5b's actor term short, or swaps in an alternative, by text
+edits; each edit's anchor must be in the current source exactly once.
 """
 
 import os
@@ -181,3 +183,13 @@ def test_rl_mode_fits_every_slab_that_fits(job_cap, threads):
     ints = dict(zip(b1.INT_NAMES, b1.kernel_ints(eng, 1, 16, 4, False,
                                                  PAPER_POLICY, threads)))
     assert (ints["sum_warps"], ints["cluster"], ints["lead"]) == (n, cs, int(lead))
+
+
+@pytest.mark.parametrize("src", sorted(chip_smoke.B5_CUTS))
+def test_b5_tail_cuts_apply_to_the_sources(src):
+    with open(os.path.join(build.CSRC_DIR, src + ".cu")) as f:
+        text = f.read()
+    variants = {**chip_smoke.B5_CUTS[src], **chip_smoke.B5_ALTERNATIVES[src]}
+    for cut, edits in variants.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (cut, old)
