@@ -76,9 +76,11 @@ Phases (any failure exits non-zero before the result lines):
     one-call PyTorch yardstick where there is one; then the update's small
     fused regions, B5d (each Dense layer's product with its epilogue, a
     hidden layer's gradient fused into the dX product, a top layer's
-    standalone backward), B5e (the one-hot critic's input rows), B5f (the
-    masked log-softmax, forward and backward) and B5g (the bf16 parameter
-    shadows and the gradient pack), each called with the inputs one eager
+    standalone backward; the one-hot critic's first layer building its
+    input rows, B5e, inside its product; the actor's two heads with their
+    masked log-softmax, B5f's forward, in one launch), B5f's backward and
+    B5g (the bf16 parameter shadows and the gradient pack), each called
+    with the inputs one eager
     update at the published shape gave it (recorded at the call; the
     all-actions layers' 16,384 rows, the heads critic's 2,048-wide output
     from a second, heads-critic update), bitwise against its plain version
@@ -87,7 +89,8 @@ Phases (any failure exits non-zero before the result lines):
     B5d's product elements that differ from cuBLAS's per shape, and one
     update's calls timed back to back beside the plain versions, the bound
     and the library call (B5d: cuBLAS's products alone), B5d's also shape
-    by shape;
+    by shape, the two fused input layers beside the B5d launches of the
+    unfused route they replace;
 14. (k) whole updates at the published shape (the learning CLI's agent,
     batch 256, a 200,000-row ring filled through B6a): one chunk of updates
     three ways from one state and key chain, as the CLI runs it (one
@@ -1844,10 +1847,11 @@ def record_fused_calls(agent):
     return rec, orig
 
 
-def _fused_bytes(name, args):
-    """(bytes, float32 operations, bf16 tensor operations) one call must
-    move and do: each input read once, each output written once; a product
-    2 R K N operations at the bf16 tensor peak, an epilogue's float32."""
+def _fused_bytes(name, args, kw=None):
+    """(bytes, float32 operations, bf16 tensor operations) one call (its
+    positional ``args`` and keywords ``kw``) must move and do: each input
+    read once, each output written once; a product 2 R K N operations at
+    the bf16 tensor peak, an epilogue's float32."""
     nb = lambda t: t.numel() * t.element_size()  # noqa: E731
     if name == "dense_fwd":
         x, w, bias, _ = args[:4]
@@ -1870,12 +1874,19 @@ def _fused_bytes(name, args):
         n = g.numel()
         return (nb(g) + 2 * n + nb(db) + (0 if y is None else nb(y))
                 + (0 if g2 is None else nb(g2))), 4 * n, 0
-    if name == "critic_input":
-        lat, n_dc, n_g = args[:3]
-        acts = [a for a in args[3:5] if a is not None]
-        rows = lat.shape[0] * (1 if acts else n_dc * n_g)
-        return (nb(lat) + sum(nb(a) for a in acts)
-                + 2 * rows * (lat.shape[1] + n_dc + n_g)), rows * 2, 0
+    if name == "critic_first_fwd":  # the rows are built, not read
+        lat, n_dc, n_g, w, bias = args[:5]
+        acts = [a for a in args[5:7] if a is not None]
+        R, (K, N) = lat.shape[0] * (1 if acts else n_dc * n_g), w.shape
+        keep = (kw or {}).get("keep_rows", False)
+        return (nb(lat) + sum(nb(a) for a in acts) + nb(w) + nb(bias)
+                + 2 * R * N + (2 * R * K if keep else 0)), 3 * R * N, \
+            2 * R * K * N
+    if name == "actor_heads_fwd":
+        x, k_dc, b_dc, k_g, b_g, m_dc, m_g = args[:7]
+        n = m_dc.numel() + m_g.numel()
+        return (sum(nb(t) for t in args[:7]) + 8 * n), 43 * n, \
+            2 * x.numel() * (k_dc.shape[1] + k_g.shape[1])
     if name.startswith("log_softmax2"):
         heads = [t for t in args if isinstance(t, torch.Tensor)]
         entries = heads[0].numel() + heads[1].numel()
@@ -1904,11 +1915,10 @@ def _library_call(name, calls):
     or None: the log-softmax of the masked logits (its backward from the
     forward's output), the buffers' ``Tensor.to``, B5d's products alone
     (cuBLAS's ``torch.matmul``, without the epilogue)."""
-    if name == "log_softmax2":
-        ins = [(l_.clone(), (~m).contiguous()) for (a, _) in calls
-               for l_, m in ((a[0], a[2]), (a[1], a[3]))]
-        return lambda: [torch.log_softmax(l_.masked_fill(m, -1e9), -1)
-                        for l_, m in ins]
+    if name == "critic_first_fwd":  # the product on prebuilt rows (cuBLAS)
+        from distributed_cluster_gpus_tpu_torch.rl.nets import critic_input
+        ins = [(critic_input(*a[:3], *a[5:7]), a[3]) for a, _ in calls]
+        return lambda: [torch.matmul(x, w) for x, w in ins]
     if name == "log_softmax2_backward":
         ins = []
         for a, _ in calls:
@@ -1965,24 +1975,57 @@ def _fwd_standing(args, kw, fn):
     return _differ(own, ref), gap
 
 
-def _shape_key(name, args):
+def _shape_key(name, args, kw=None):
     """A recorded call's shape: (R, K, N) forward, (R, N, K' of each
-    product) dX, (R, N, g's dtype) for the standalone backward."""
+    product) dX, (R, N, g's dtype) for the standalone backward, (R, K, N,
+    whether the rows are kept) for the critic's first layer, (R, K, n_dc,
+    n_g) for the heads."""
     if name == "dense_fwd":
         return (args[0].shape[0], args[0].shape[1], args[1].shape[1])
     if name == "dense_dx":
         return (args[0].shape[0], args[1].shape[0],
                 *(a.shape[1] for a, _ in _products(name, args)))
+    if name == "critic_first_fwd":
+        lat, n_dc, n_g, w = args[:4]
+        rows = lat.shape[0] * (n_dc * n_g if args[5] is None else 1)
+        return (rows, *w.shape, "rows" if (kw or {}).get("keep_rows") else "")
+    if name == "actor_heads_fwd":
+        return (*args[0].shape, args[1].shape[1], args[3].shape[1])
     return (*args[0].shape, str(args[0].dtype).replace("torch.", ""))
 
 
+#: the fused input layers: their kernels, and the B5d launches of the
+#: unfused route they replace
+FUSED_INPUTS = ("critic_first_fwd", "actor_heads_fwd")
+
+
+def _unfused_route(name, args):
+    """The unfused route's B5d launches for a fused input layer's call,
+    from this checkout's ``dense_fwd``: the product on prebuilt rows (the
+    critic), each head's layer with its float32 copy (the actor).  The
+    route's third launch, B5e's rows or B5f's forward, is gone from this
+    checkout; ``--update-ab`` times the parent's whole route."""
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import dense_fwd
+    from distributed_cluster_gpus_tpu_torch.rl.nets import critic_input
+
+    if name == "critic_first_fwd":
+        lat, n_dc, n_g, w, bias = args[:5]
+        x0 = critic_input(lat, n_dc, n_g, *args[5:7])
+        return lambda: dense_fwd(x0, w, bias, True)
+    x, k_dc, b_dc, k_g, b_g = args[:5]
+    heads = [(k, b, torch.empty((x.shape[0], k.shape[1]), device=x.device))
+             for k, b in ((k_dc, b_dc), (k_g, b_g))]
+    return lambda: [dense_fwd(x, k, b, False, o) for k, b, o in heads]
+
+
 def _per_shape(name, calls, fn):
-    """B5d's calls of one update grouped by shape, each group timed per
-    call: the kernel (device time, back to back), the plain version, the
-    bound of the fused work and cuBLAS's product alone."""
+    """The calls of one update of a B5d wrapper grouped by shape, each
+    group timed per call: the kernel (device time, back to back), the
+    plain version, the bound of the fused work and cuBLAS's product alone;
+    for the fused input layers also the unfused route's B5d launches."""
     groups = {}
     for args, kw in calls:
-        groups.setdefault(_shape_key(name, args), []).append((args, kw))
+        groups.setdefault(_shape_key(name, args, kw), []).append((args, kw))
     out = {}
     for key, grp in sorted(groups.items()):
         sets = [(_clone(a), kw) for a, kw in grp]
@@ -1996,13 +2039,17 @@ def _per_shape(name, calls, fn):
         lib_fn = _library_call(name, grp)
         lib = None if lib_fn is None else _queued_ms(lib_fn)
         by, f32_ops, bf16_ops = (sum(v) for v in zip(
-            *(_fused_bytes(name, a) for a, _ in grp)))
+            *(_fused_bytes(name, a, kw) for a, kw in grp)))
         bnd, bnd_by = bound2(by, f32_ops, bf16_ops)
         n = len(grp)
-        out["x".join(map(str, key))] = {
-            "calls": n, "ms_per_call": ms / n, "plain_ms_per_call": plain / n,
-            "bound_ms_per_call": bnd / n, "bound_by": bnd_by,
-            "library_ms_per_call": None if lib is None else lib / n}
+        row = {"calls": n, "ms_per_call": ms / n, "plain_ms_per_call": plain / n,
+               "bound_ms_per_call": bnd / n, "bound_by": bnd_by,
+               "library_ms_per_call": None if lib is None else lib / n}
+        if name in FUSED_INPUTS:
+            routes = [_unfused_route(name, a) for a, _ in sets]
+            row["unfused_b5d_ms_per_call"] = device_ms(
+                lambda: [r() for r in routes], "dense_fwd_gemm")[0] / n
+        out["x".join(map(str, key))] = row
     return out
 
 
@@ -2095,15 +2142,15 @@ def phase_fused_regions(report):
         # B5d's yardstick, cuBLAS's products, as device time (queued behind
         # a spin, as the kernels' are); the others' host to host
         lib = None if lib_fn is None else (
-            _queued_ms(lib_fn) if name.startswith("dense") else time_cuda(
-                lib_fn, reps=20))
+            _queued_ms(lib_fn) if name.startswith("dense") or name in FUSED_INPUTS
+            else time_cuda(lib_fn, reps=20))
         by, f32_ops, bf16_ops = (sum(v) for v in zip(
-            *(_fused_bytes(name, a) for a, _ in calls)))
+            *(_fused_bytes(name, a, kw) for a, kw in calls)))
         bnd, bnd_by = bound2(by, f32_ops, bf16_ops)
         shapes[name] = sorted({tuple(a[0].shape) if name != "param_pack"
                                else tuple(p[0].numel() for p in a[0])
                                for a, _ in calls})
-        if name.startswith("dense"):
+        if name.startswith("dense") or name in FUSED_INPUTS:
             per_shape[name] = _per_shape(name, calls, orig[name])
         out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                      "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
@@ -2124,11 +2171,14 @@ def phase_fused_regions(report):
         for key, v in rows.items():
             lib_s = ("none" if v["library_ms_per_call"] is None
                      else f"{v['library_ms_per_call'] * 1e3:.2f} us")
+            unfused = v.get("unfused_b5d_ms_per_call")
+            unfused_s = "" if unfused is None else (
+                f"; the unfused route's B5d launches {unfused * 1e3:.2f} us")
             print(f"  {name} {key}: {v['calls']} calls, "
                   f"{v['ms_per_call'] * 1e3:.2f} us a call (plain "
                   f"{v['plain_ms_per_call'] * 1e3:.2f}, cuBLAS's product "
                   f"{lib_s}, bound {v['bound_ms_per_call'] * 1e3:.3f} us, "
-                  f"{v['bound_by']})")
+                  f"{v['bound_by']}{unfused_s})")
     report["fused"] = {"calls_per_update": n_calls, "shapes": {
         k: [list(x) for x in v] for k, v in shapes.items()},
         "per_shape": per_shape, "against_cublas": cublas, **out}
@@ -2155,20 +2205,24 @@ def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S):
 
 UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
                    "adam_update", "replay_sample", "param_pack",
-                   "dense_fwd", "dense_dx", "dense_backward", "critic_input",
-                   "log_softmax2", "log_softmax2_backward")
+                   "dense_fwd", "dense_dx", "dense_backward",
+                   "critic_first_fwd", "actor_heads_fwd",
+                   "log_softmax2_backward")
 #: the update's small fused regions (B5d-B5g): {wrapper: (its module and
 #: CUDA source, the profiler's name of its kernel, the JAX package's code
 #: it replaces)}
 FUSED = {"dense_fwd": ("dense", "dense_fwd_gemm", "rl/nets.py:37"),
          "dense_dx": ("dense", "dense_dx_gemm", "rl/sac.py:246"),
          "dense_backward": ("dense", "dense_bwd_kernel", "rl/sac.py:264"),
-         "critic_input": ("critic_input", "critic_input_kernel",
-                          "rl/nets.py:85"),
-         "log_softmax2": ("log_softmax", "log_softmax_kernel", "rl/nets.py:65"),
-         "log_softmax2_backward": ("log_softmax", "log_softmax_kernel",
+         "critic_first_fwd": ("dense", "critic_first_gemm", "rl/nets.py:85"),
+         "actor_heads_fwd": ("dense", "actor_heads_gemm", "rl/nets.py:58"),
+         "log_softmax2_backward": ("log_softmax", "log_softmax_backward_kernel",
                                    "rl/sac.py:264"),
          "param_pack": ("param_pack", "param_pack_kernel", "rl/sac.py:206")}
+#: the kernels the parent's update launched that this checkout has not
+#: (B5e's rows, B5f's forward alone): an A/B counts them as port kernels,
+#: and phase (k) fails if one runs
+PARENT_KERNELS = ("critic_input_kernel", "log_softmax_kernel")
 
 
 def update_counters():
@@ -2192,17 +2246,20 @@ def update_counters():
 def per_update(arch):
     """Wrapper calls of each update kernel per update, with the ``arch``
     critic: 30 Dense layers forward (the encoder twice, the actor twice, the
-    critics' two twins three times, the all-actions passes among them), 12
-    backward: 8 fused into a dX product (each critic twin's two lower
-    layers, the actor's hidden layer with both heads' products, the
-    encoder's three layers) and 4 standalone (the twins' top layers, the
-    actor's heads), the one-hot critic's input rows three times, the
-    log-softmax forward twice and backward once, the shadows' and the
-    gradients' pack."""
+    critics' two twins three times, the all-actions passes among them): the
+    one-hot critic's 6 first layers each one ``critic_first_fwd`` (its rows
+    built inside), the actor's two heads with their log-softmax one
+    ``actor_heads_fwd`` a forward, the rest ``dense_fwd``; 12 backward: 8
+    fused into a dX product (each critic twin's two lower layers, the
+    actor's hidden layer with both heads' products, the encoder's three
+    layers) and 4 standalone (the twins' top layers, the actor's heads);
+    the log-softmax's backward once, the shadows' and the gradients'
+    pack."""
+    first = 6 if arch == "onehot" else 0
     return {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
             "adam_update": 1, "replay_sample": 1, "param_pack": 2,
-            "dense_fwd": 30, "dense_dx": 8, "dense_backward": 4,
-            "critic_input": 3 if arch == "onehot" else 0, "log_softmax2": 2,
+            "dense_fwd": 26 - first, "dense_dx": 8, "dense_backward": 4,
+            "critic_first_fwd": first, "actor_heads_fwd": 2,
             "log_softmax2_backward": 1}
 
 
@@ -2466,9 +2523,19 @@ def phase_update_whole(report):
     missing = [k for k in UPDATE_KERNELS if not prof["graph"]["port_kernels_seen"][k]]
     if missing:
         fail(f"whole update: the profiled graph replays launched none of {missing}")
+    stale = [k for k in g_prof[4] if any(p in k for p in PARENT_KERNELS)]
+    if stale:
+        fail(f"whole update: the replayed graph launched {stale}, which the "
+             "fused input layers replace")
     top = list(prof["graph"]["device_us_per_update_by_name"].items())[:10]
     print("whole update, replayed graph: device us per update by kernel name "
           "(top 10): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+    ours = {k: (v / n_prof, g_prof[5][k] / n_prof) for k, v in g_prof[4].items()
+            if any(u in k for u in UPDATE_KERNELS)}
+    print("whole update, replayed graph: the port's kernels, device ops and us "
+          "per update by name (none of B5e's or B5f's forward alone): " +
+          "; ".join(f"{k[:60]} {o:.2f} ops {us:.2f} us"
+                    for k, (o, us) in sorted(ours.items())))
     layers = g_ag.sac.layers()
     nonzero_bias = all(bool(l.bias.ne(0).any()) for l in layers)
     # the two all-actions products (the target critic's on s1, the online
@@ -3052,6 +3119,54 @@ def _b5d_routes():
         db = torch.empty(N, dtype=torch.bfloat16, device="cuda")
         out[f"bwd {R}x{N}"] = _queued_ms(
             lambda: dense.dense_backward(gf, None, db)) * 1e3
+    out.update(_fused_input_routes(r))
+    return out
+
+
+def _fused_input_routes(r):
+    """us per call of the one-hot critic's first layer (all actions; the
+    taken actions with their rows kept) and of the actor's two heads with
+    their log-softmax at the update's shapes, by the route of the package
+    on sys.path: the fused kernels of this checkout, or the parent's three
+    launches (B5e's rows and B5d's product; two B5d heads and B5f's
+    forward)."""
+    from distributed_cluster_gpus_tpu_torch.kernels import dense
+
+    g = torch.Generator().manual_seed(6)
+    lat = torch.randn((256, 256), generator=g).abs().cuda()
+    acts = [torch.randint(0, 8, (256,), generator=g, dtype=torch.int32).cuda()
+            for _ in range(2)]
+    w, b = r(272, 256), r(256)
+    hid, heads = r(256, 256), [(r(256, 8), r(8)) for _ in range(2)]
+    masks = [(torch.rand((256, 8), generator=g) < 0.7).cuda() for _ in range(2)]
+    out = {}
+    if hasattr(dense, "critic_first_fwd"):
+        calls = {"critic all 16384x272x256": lambda: dense.critic_first_fwd(
+            lat, 8, 8, w, b),
+            "critic taken 256x272x256 (rows kept)": lambda: dense.critic_first_fwd(
+                lat, 8, 8, w, b, *acts, keep_rows=True),
+            "actor heads 256x256x8+8": lambda: dense.actor_heads_fwd(
+                hid, *heads[0], *heads[1], *masks)}
+    else:
+        from distributed_cluster_gpus_tpu_torch.kernels.critic_input import \
+            critic_input
+        from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import \
+            log_softmax2
+
+        logits = [torch.empty((256, 8), device="cuda") for _ in range(2)]
+
+        def heads_route():
+            for (k, bias), o in zip(heads, logits):
+                dense.dense_fwd(hid, k, bias, False, o)
+            return log_softmax2(*logits, *masks)
+
+        calls = {"critic all 16384x272x256": lambda: dense.dense_fwd(
+            critic_input(lat, 8, 8), w, b, True),
+            "critic taken 256x272x256 (rows kept)": lambda: dense.dense_fwd(
+                critic_input(lat, 8, 8, *acts), w, b, True),
+            "actor heads 256x256x8+8": heads_route}
+    for name, fn in calls.items():
+        out[name] = _queued_ms(fn) * 1e3
     return out
 
 
@@ -3113,7 +3228,74 @@ def study_b5d_plans():
         out[f"{R}x{K}x{N}"] = {"us": dict((k, t) for t, k in res), "plan": chosen}
         print(f"{R}x{K}x{N} (plan {chosen}): " + "; ".join(
             f"{k} {t:.2f}" for t, k in res), flush=True)
+    out.update(_critic_first_plans())
     print(json.dumps({"b5d_plans": out}))
+
+
+#: the critic's first layer's tiles ``--b5d-plans`` times: (bm, bn)
+CRITIC_TILES = [(128, 256), (128, 128), (64, 128), (128, 64), (64, 64)]
+
+
+def _critic_first_plans():
+    """The one-hot critic's first layer, its rows built in the kernel, at
+    the update's all-actions call (16,384 rows) and taken-action call (256
+    rows, the rows kept) with every tile of ``CRITIC_TILES`` and every ring
+    of 1-5 stages that fits: the rows built as a ring shallower than K
+    cycles, or the whole K in the ring; each output bitwise against the
+    plain composition, device us per call, fastest first."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build, dense
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = build.bind("dense", "critic_first_launch",
+                    [P, P, P, P, I, I, I, I, P, P, P, I, I, I, I, P])
+    g = torch.Generator().manual_seed(4)
+    lat = torch.randn((256, 256), generator=g).abs().cuda()
+    acts = [torch.randint(0, 8, (256,), generator=g, dtype=torch.int32).cuda()
+            for _ in range(2)]
+    w = (torch.randn((272, 256), generator=g) / 16).to(torch.bfloat16).cuda()
+    b = torch.randn(256, generator=g).to(torch.bfloat16).cuda()
+    out = {}
+    for what, taken in (("all actions", False), ("taken actions", True)):
+        a = acts if taken else (None, None)
+        want, rows = dense.critic_first_fwd(lat, 8, 8, w, b, *a,
+                                            keep_rows=taken, plain=True)
+        R = want.shape[0]
+        res = []
+        for bm, bn in CRITIC_TILES:
+            for st in range(1, 6):
+                ring = max(st * (bm + bn) * 128, bm * (bn + 8) * 2)
+                aux = dense.critic_aux(bm, 256, 1 if taken else 64, taken)
+                if 1024 + ring + aux + st * 8 + 16 + 2 * bn > dense.SMEM_MAX:
+                    continue
+                y = torch.empty_like(want)
+                x0 = None if rows is None else torch.empty_like(rows)
+
+                def launch(y=y, x0=x0, plan=(bm, bn, st)):
+                    rc = fn(lat.data_ptr(), *(None if t is None else t.data_ptr()
+                                              for t in a),
+                            None if x0 is None else x0.data_ptr(), 256, 256, 8,
+                            8, w.data_ptr(), b.data_ptr(), y.data_ptr(), 256,
+                            *plan, build.stream_of(y.device))
+                    if rc != 0:
+                        fail(f"critic plans: {what} {plan}: launch failed {rc}")
+
+                launch()
+                torch.cuda.synchronize()
+                if not _same_bits(y, want) or (
+                        x0 is not None and not _same_bits(x0, rows)):
+                    fail(f"critic plans: {what} {bm}x{bn} S{st} differs from "
+                         "the plain composition")
+                res.append((_queued_ms(launch) * 1e3, f"{bm}x{bn} S{st}" + (
+                    " (ring cycles)" if st < 5 else " (whole K)")))
+        res.sort()
+        chosen = "{}x{} S{}".format(*dense.critic_plan(R, 256, 8, 8, 256, taken))
+        key = f"critic first {what} {R}x272x256"
+        out[key] = {"us": dict((k, t) for t, k in res), "plan": chosen}
+        print(f"{key} (plan {chosen}): " + "; ".join(
+            f"{k} {t:.2f}" for t, k in res), flush=True)
+    return out
 
 
 def study_update_child():
@@ -3140,7 +3322,7 @@ def study_update_child():
     ms = (time.perf_counter() - t0) * 1e3 / 64
     span = _graph_device_ms(ag)
     _, kinds, n_ops, _, _, us_by_name = _profile_updates(
-        ag, 8, ours=UPDATE_KERNELS + ("dense_fwd_kernel",))
+        ag, 8, ours=UPDATE_KERNELS + PARENT_KERNELS + ("dense_fwd_kernel",))
     routes = _b5d_routes()
     out = os.path.join(os.getcwd(), "smoke_out", "ab_learning")
     shutil.rmtree(out, ignore_errors=True)
@@ -3355,6 +3537,153 @@ def study_b5_tails():
     print(json.dumps({"b5_tails": result}))
 
 
+#: where a call of the fused input layers goes: copies of csrc/dense.cu
+#: with one part cut (timing only; a cut copy computes something else)
+FUSED_INPUT_CUTS = {
+    "no row builds": ((
+        "#pragma unroll\n  for (int i = 0; i < 4; ++i) v[i] = critic_chunk<BM>(a, src, t, i, col0);",
+        "#pragma unroll\n  for (int i = 0; i < 4; ++i) v[i] = make_uint4(col0, i, 0, 0);"),
+        ("  if (kRows && a.bcast) build_atoms<BM>(aux, a, m0);", "")),
+    "no latent atoms": (("  if (kRows && a.bcast) build_atoms<BM>(aux, a, m0);", ""),),
+    "heads: no log-softmax": ((
+        "  const int h = tid / BM, r = tid % BM, row = m0 + r;  // a warp, one head\n"
+        "  if (row >= a.R) return;",
+        "  const int h = tid / BM, r = tid % BM, row = m0 + r;  // a warp, one head\n"
+        "  if (row >= 0) return;"),),
+    "heads: no W load": (("    if (kHeads) load_heads<BM>(smem, a);", ""),),
+}
+
+
+def study_fused_input_cuts():
+    """``--fused-input-cuts``: where a call of the one-hot critic's first
+    layer (every joint action, 16,384 rows; the taken actions, 256 rows
+    with the rows kept) and of the actor's heads (256 rows, 8 + 8) goes, at
+    the update's shapes and plans.  Copies of this checkout's
+    ``csrc/dense.cu``, each with one part cut (``FUSED_INPUT_CUTS``), are
+    built beside the whole kernel into ``smoke_out/fused_input_cuts/``; the
+    whole kernel is held bitwise against the plain compositions; each copy
+    is timed (launches queued behind a spin) in three rounds, beside B5d's
+    forward alone on the prebuilt rows and the two heads' B5d launches.
+    One JSON line."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build, dense
+    from distributed_cluster_gpus_tpu_torch.rl.nets import critic_input
+
+    d = os.path.join(os.getcwd(), "smoke_out", "fused_input_cuts")
+    shutil.rmtree(d, ignore_errors=True)
+    with open(os.path.join(build.CSRC_DIR, "dense.cu")) as f:
+        text = f.read()
+    procs = {}
+    for cut, edits in (("whole kernel", ()), *FUSED_INPUT_CUTS.items()):
+        t = text
+        for a, b in edits:
+            if t.count(a) != 1:
+                fail(f"--fused-input-cuts: dense.cu no longer holds {a!r}")
+            t = t.replace(a, b)
+        vd = os.path.join(d, str(len(procs)))
+        os.makedirs(vd)
+        for h in os.listdir(build.CSRC_DIR):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(build.CSRC_DIR, h), vd)
+        with open(os.path.join(vd, "dense.cu"), "w") as f:
+            f.write(t)
+        lib = os.path.join(vd, "lib.so")
+        procs[cut] = (subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib,
+             os.path.join(vd, "dense.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for cut, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"--fused-input-cuts: {cut} failed to build\n{log}")
+        libs[cut] = ctypes.CDLL(lib)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    g = torch.Generator().manual_seed(43)
+    r = lambda *sh: (torch.randn(sh, generator=g) * 0.1).to(  # noqa: E731
+        torch.bfloat16).cuda()
+    B, L = UPDATE_B, 256
+    lat = torch.randn((B, L), generator=g).abs().cuda()
+    acts = [torch.randint(0, 8, (B,), generator=g, dtype=torch.int32).cuda()
+            for _ in range(2)]
+    w, b = r(L + 16, 256), r(256)
+    hid, heads = r(B, 256), [(r(256, 8), r(8)) for _ in range(2)]
+    masks = [(torch.rand((B, 8), generator=g) < 0.7).cuda() for _ in range(2)]
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {"critic, every joint action": (False, B * 64),
+             "critic, taken actions (rows kept)": (True, B)}
+    outs = {k: (torch.empty((R, 256), dtype=torch.bfloat16, device="cuda"),
+                torch.empty((R, L + 16), dtype=torch.bfloat16, device="cuda")
+                if taken else None) for k, (taken, R) in cases.items()}
+    h_out = [torch.empty((B, 8), device="cuda") for _ in range(4)]
+
+    def call(name, lib):
+        if name.startswith("critic"):
+            taken, R = cases[name]
+            f = lib.critic_first_launch
+            f.argtypes = [P, P, P, P, I, I, I, I, P, P, P, I, I, I, I, P]
+            a = acts if taken else (None, None)
+            y, x0 = outs[name]
+            plan = dense.critic_plan(R, L, 8, 8, 256, taken, True, taken)
+            args = (lat.data_ptr(), *(None if t is None else t.data_ptr()
+                                      for t in a),
+                    None if x0 is None else x0.data_ptr(), B, L, 8, 8,
+                    w.data_ptr(), b.data_ptr(), y.data_ptr(), 256, *plan, stream)
+        else:
+            f = lib.actor_heads_launch
+            f.argtypes = [P, LL] + [P] * 10 + [I] * 6 + [P]
+            args = (hid.data_ptr(), 256, heads[0][0].data_ptr(),
+                    heads[0][1].data_ptr(), heads[1][0].data_ptr(),
+                    heads[1][1].data_ptr(), masks[0].data_ptr(),
+                    masks[1].data_ptr(), *(o.data_ptr() for o in h_out), B, 256,
+                    8, 8, *dense.heads_plan(B, 256), stream)
+
+        def run():
+            if f(*args) != 0:
+                fail(f"--fused-input-cuts: {name} launch failed")
+        return run
+
+    names = [*cases, "actor heads"]
+    runs = {(n, cut): call(n, lib) for cut, lib in libs.items() for n in names
+            if not (cut.startswith("heads") and n.startswith("critic"))
+            and not (n == "actor heads" and not cut.startswith("heads")
+                     and cut != "whole kernel")}
+    for n in names:  # the whole kernel, bitwise
+        runs[(n, "whole kernel")]()
+        torch.cuda.synchronize()
+        if n.startswith("critic"):
+            taken, R = cases[n]
+            a = acts if taken else (None, None)
+            want, rows = dense.critic_first_fwd(lat, 8, 8, w, b, *a,
+                                                keep_rows=taken, plain=True)
+            ok = _same_bits(outs[n][0], want) and (
+                not taken or _same_bits(outs[n][1], rows))
+        else:
+            want = dense.actor_heads_fwd(hid, *heads[0], *heads[1], *masks,
+                                         plain=True)  # logp_dc, logp_g, l_dc, l_g
+            ok = all(_same_bits(k, p) for k, p in zip(h_out[2:] + h_out[:2], want))
+        if not ok:
+            fail(f"--fused-input-cuts: {n} differs from its plain composition")
+    x_all, x_t = critic_input(lat, 8, 8), critic_input(lat, 8, 8, *acts)
+    lo = [torch.empty((B, 8), device="cuda") for _ in range(2)]
+    runs[("critic, every joint action", "B5d alone on prebuilt rows")] = \
+        lambda: dense.dense_fwd(x_all, w, b, True)
+    runs[("critic, taken actions (rows kept)", "B5d alone on prebuilt rows")] = \
+        lambda: dense.dense_fwd(x_t, w, b, True)
+    runs[("actor heads", "the two heads' B5d launches")] = lambda: [
+        dense.dense_fwd(hid, k, bb, False, o) for (k, bb), o in zip(heads, lo)]
+    us = {key: [] for key in runs}
+    for _ in range(3):
+        for key, run in runs.items():
+            us[key].append(_queued_ms(run, what=f"{key}") * 1e3)
+    result = {}
+    for (n, cut), t in us.items():
+        result.setdefault(n, {})[cut] = t
+        print(f"{n}, {cut}: {', '.join(f'{x:.2f}' for x in t)} us per call")
+    print(json.dumps({"fused_input_cuts": result}))
+
+
 def study_b1_widths():
     """``--b1-widths``: B1 of this checkout at every block width it is built
     for (``BLOCK_WIDTHS``), both modes at the shapes of ``--b1-chunk-ms``,
@@ -3460,6 +3789,9 @@ def main():
         if args == ["--b5-tails"]:
             print(card_line())
             return study_b5_tails()
+        if args == ["--fused-input-cuts"]:
+            print(card_line())
+            return study_fused_input_cuts()
         if len(args) == 2 and args[0] == "--update-ab":
             print(card_line())
             return study_update_ab(os.path.abspath(args[1]), here)
@@ -3468,7 +3800,8 @@ def main():
             return study_update_child()
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
-             "--b5d-plans, --b5-tails or --update-ab PARENT_CHECKOUT")
+             "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
+             "PARENT_CHECKOUT")
     report = {}
     card = card_line()
     print(card)
@@ -3481,7 +3814,7 @@ def main():
     t0 = time.perf_counter()
     build.build(["event_scan", "arrival_tables", "replay_ingest",
                  "quantile_huber", "marginal", "adam", "replay_sample",
-                 "param_pack", "dense", "critic_input", "log_softmax"])
+                 "param_pack", "dense", "log_softmax"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
     for name, log in build.ptxas_reports.items():

@@ -13,6 +13,20 @@
 //                                              torch's bf16 bias add)
 //   y   = y > 0 ? y : 0                       (where the layer has a ReLU)
 //   out32 = float(y)                          (where given; row stride ld32)
+// critic_first_gemm, the one-hot critic's first layer (B5e folded into its
+// A operand): the same layer with the ReLU, x [R, L + n_dc + n_g] the
+// critic's input rows (rl/nets.py::critic_input: the JAX package's concat
+// and cast at rl/nets.py:85-87 and its all_actions tiling at :98-112),
+// which the block builds in shared memory from the float32 latents and the
+// row index (every joint action) or the taken actions, never reading x
+// from device memory; for the taken actions it also writes the rows it
+// built (the first layer's dW reads them).
+// actor_heads_gemm, the actor's two heads and their masked log-softmax
+// (B5f's forward; rl/nets.py:58-66): one product with k_dc and k_g side by
+// side in W's tile, each logit rounded and its head's bias added as above,
+// written as float32, then per (row, head) x = mask ? l : -1e9, m = max x
+// (NaN wins), S = the halving tree of exp(x - m), logp = (x - m) - log(S),
+// csrc/log_softmax.cu's arithmetic op for op (expf, logf: torch's).
 // dense_dx_gemm, a hidden layer's gradient from the layer above's G' [R, K']
 // and kernel W' [N, K'] (and, for the actor's hidden layer, a second pair):
 //   G  = bf16(G' W'^T)  or  bf16(float(bf16(G' W'^T)) + float(bf16(G2 W2^T)))
@@ -31,7 +45,10 @@
 // rows of the one-hot critic) are bound by bytes: x in, y out (plus the
 // float32 copy at a twin's top layer), 17.0 MB for a 16,384 x 272 -> 256
 // layer, 5.1 us at 3.35 TB/s, against 2.3 us of bf16 tensor work at 989
-// TF.  The 256-row layers move ~0.3 MB and do ~34 MFLOP: latency.
+// TF.  The critic's first layer built from the latents moves 8.7 MB (y
+// out, W and 0.26 MB of latents): 2.6 us against 2.3 us of tensor work.
+// The 256-row layers move ~0.3 MB and do ~34 MFLOP: latency; so do the
+// actor's heads (~0.17 MB, 2 x 256 x 16 logits).
 //
 // Design.
 // * Forward: a block owns a BM x BN tile of y (BM = 64 x its warpgroups).
@@ -54,6 +71,30 @@
 //   16 bytes: the encoder's first layer, K = 49, 98-byte rows) is loaded by
 //   the block's threads into the same swizzled layout before the loop; its
 //   K must then fit the ring (the wrapper's plan checks).
+// * The critic's rows are built the same way, 16 bytes a store, from the
+//   latent rows the block's rows use, which one TMA copy stages in shared
+//   memory behind the ring at the start (2-3 rows of 1 KB for 128 rows of
+//   every joint action at A = 64; the block's own rows for the taken
+//   actions, whose actions its threads stage beside them), so a build
+//   reads shared memory only.  The product sees the bf16 operands TMA
+//   would have loaded, in the same k order: bitwise the layer on
+//   critic_input's rows.  For every joint action with A a multiple of 64,
+//   a warpgroup's 64 rows share one latent: a latent k-tile is 8 copies of
+//   it (one 1,024-byte swizzle atom) that the products read with a stride
+//   byte offset of 0 between 8-row groups, so only the one-hot k-tile is
+//   built row by row.  Rows are built after each k-tile's products are
+//   retired (ptxas serializes every product of a loop that runs other code
+//   while one is in flight): k-tile kt + 1's rows into a stage not yet
+//   filled, and kt's stage refilled.  W arrives by TMA on the stage's
+//   mbarrier (its expected bytes W's alone) and every warp arrives on it
+//   after its rows and a proxy fence.  Generic stores into shared memory
+//   are fenced (fence.proxy.async) before the asynchronous products read
+//   them.
+// * The heads' kernels (4- or 16-byte rows, side by side in one 64-wide
+//   tile) are loaded by the block's threads; the log-softmax runs one
+//   thread per (row, head), a warp on one head, its exponentials in its
+//   column of shared memory behind the tile (entry j of thread t at j T +
+//   t: no bank conflicts, no local memory).
 // * dX: a block owns 16 columns of all R <= 256 rows (four warpgroups of 64
 //   rows), so the bias gradient's tree over the rows stays in the block:
 //   wgmma m64n16k16 with both operands K-major (W' is [N, K'] row-major),
@@ -72,6 +113,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include "reduce.cuh"
 
 namespace {
 
@@ -143,6 +186,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+
 
 // keep the compiler from moving reads or writes of the accumulators across
 // the asynchronous products
@@ -342,6 +386,12 @@ __device__ __forceinline__ float column_tree(const float* s, int stride, int c,
 
 // ------------------------------------------------------------- forward
 
+// What a forward instance's block reads besides W: a plain x [R, K]; the
+// one-hot critic's input rows, which it builds (critic_first_gemm); or a
+// plain x with the actor's two heads side by side as W, whose masked
+// log-softmax its epilogue takes (actor_heads_gemm).
+enum FwdMode { kPlain = 0, kCriticRows = 1, kActorHeads = 2 };
+
 struct FwdArgs {
   const bf16* x;
   const bf16* w;
@@ -350,6 +400,35 @@ struct FwdArgs {
   float* out32;
   long long ldx, ld32;
   int R, K, N, kt, stages, ring_bytes, relu, x_tma, w_tma, vec32;
+  // kCriticRows: x's rows from lat (float32 [B, L]) and the actions (a_dc,
+  // a_g int32 [R]; both 0 for every joint action); where x0 is given, the
+  // blocks of n-tile 0 also store the rows they build (bf16 [R, K]).  A
+  // block stages the lat_rows latent rows its rows use, and its taken
+  // actions (at act_off), in the aux_bytes of shared memory behind the
+  // ring, the latents by TMA where lat_tma (map_x is then lat's map), and
+  // rounds the latents to bf16 once (at lat16_off)
+  const float* lat;
+  const int* a_dc;
+  const int* a_g;
+  bf16* x0;
+  int B, L, n_dc, n_g, lat_vec, x0_vec, lat_rows, lat_tma, lat16_off, act_off;
+  // every joint action with A and L multiples of 64 (no rows kept): a
+  // warpgroup's 64 rows share one latent, and its latent k-tiles are
+  // atoms of 8 copies at the start of aux (bcast_tile); nothing else of
+  // the latents is staged
+  int bcast;
+  // the bytes behind the ring: the critic's staged latents and actions
+  // (its last 8 bytes the latents' mbarrier)
+  int aux_bytes;
+  // kActorHeads: W's columns [0, n_dc) are w (k_dc [K, n_dc]), the next n_g
+  // w2 (k_g [K, n_g]), with biases bias and bias2; per head its mask (bool
+  // [R, n]), float32 logits and log-probabilities (float32 [R, n])
+  const bf16* w2;
+  const bf16* bias2;
+  int heads_vec;  // both heads' rows whole 16-byte chunks, 16-byte aligned
+  const uint8_t* mask[2];
+  float* logits[2];
+  float* logp[2];
 };
 
 // the layer's output from the product rounded to bf16 (p) and the bias
@@ -359,20 +438,339 @@ __device__ __forceinline__ bf16 fwd_out(bf16 p, bf16 b, int relu) {
   return r;
 }
 
-// thread 0: arm stage kt % stages and issue k-tile kt's TMA loads
+// The block's sources of its critic rows in shared memory.  Every joint
+// action: the latent rows b0 .. b0 + lat_rows - 1 as staged (float32, row
+// stride L) and rounded to bf16 once (lat16, the same stride).  The taken
+// actions: the block's BM latent rows (b0 = m0) in k-tile boxes (box j,
+// columns 64j .. 64j + 63, at lat + 64 BM j, row stride 64), each on its
+// own mbarrier and rounded as it is built, and a_dc of the rows followed
+// by their a_g.
+struct RowsSrc {
+  const float* lat;
+  const bf16* lat16;
+  const int* act;
+  int b0;
+};
+
+// A thread builds the same 16-byte column (chunk tid % 8) of the same four
+// rows (tid / 8 + i BM / 4) of every k-tile: what it needs of each row,
+// worked out once.  Row b A + a of every joint action (A = n_dc n_g, a =
+// a_dc n_g + a_g), or row b of the taken actions.
+struct RowsOfThread {
+  const bf16* lat[4];  // every joint action: the row's bf16 latent
+  int one[4][2];       // the columns of its ones (-1: an action outside
+                       // its head has none)
+  bool in[4];          // a row of the layer (< R)
+};
+
+// the taken actions' staged latent of tile row r, column j (< L)
+template <int BM>
+__device__ __forceinline__ const float* taken_lat(const RowsSrc& src, int r,
+                                                  int j) {
+  return src.lat + (j / kTile) * BM * kTile + r * kTile + j % kTile;
+}
+
+template <int BM>
+__device__ __forceinline__ RowsOfThread rows_of_thread(const FwdArgs& a,
+                                                       const RowsSrc& src,
+                                                       int m0) {
+  RowsOfThread t;
+  const int A = a.n_dc * a.n_g;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = threadIdx.x / 8 + i * BM / 4, row = m0 + r;
+    int b = row, adc, ag;
+    if (a.a_dc == nullptr) {
+      b = row / A;
+      const int act = row - b * A;
+      adc = act / a.n_g;
+      ag = act - adc * a.n_g;
+    } else {
+      adc = src.act[r];
+      ag = src.act[BM + r];
+    }
+    t.lat[i] = src.lat16 + (b - src.b0) * a.L;
+    t.one[i][0] = adc >= 0 && adc < a.n_dc ? a.L + adc : -1;
+    t.one[i][1] = ag >= 0 && ag < a.n_g ? a.L + a.n_dc + ag : -1;
+    t.in[i] = row < a.R;
+  }
+  return t;
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Entries [col0, col0 + 8) of the thread's row i of the one-hot critic's
+// input as rl/nets.py::critic_input gives them: bf16(lat[b]) (to nearest
+// even, as torch's and XLA's casts) in [0, L), a one at L + a_dc and at
+// L + n_dc + a_g (none for an action outside its head), zeros to K and
+// past it.  A chunk of latents is a 16-byte copy of the rounded row (the
+// taken actions: 8 staged floats rounded), one past them its ones' bits
+// (1.0 is 0x3f80 in bf16).
+template <int BM>
+__device__ __forceinline__ uint4 critic_chunk(const FwdArgs& a,
+                                              const RowsSrc& src,
+                                              const RowsOfThread& t, int i,
+                                              int col0) {
+  const int r = threadIdx.x / 8 + i * BM / 4;
+  if (!t.in[i] || col0 >= a.K) return make_uint4(0, 0, 0, 0);
+  if (a.lat_vec && col0 + 8 <= a.L) {
+    if (a.a_dc == nullptr) return *reinterpret_cast<const uint4*>(t.lat[i] + col0);
+    const float* f = taken_lat<BM>(src, r, col0);
+    const float4 u = *reinterpret_cast<const float4*>(f);
+    const float4 v = *reinterpret_cast<const float4*>(f + 4);
+    return make_uint4(pack2(u.x, u.y), pack2(u.z, u.w), pack2(v.x, v.y),
+                      pack2(v.z, v.w));
+  }
+  uint32_t w[4] = {0, 0, 0, 0};
+  if (col0 >= a.L) {  // word k holds entries 2k, 2k + 1 (no -1 matches)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = t.one[i][h] - col0;
+        w[k] |= d == 2 * k ? 0x3f80u : d == 2 * k + 1 ? 0x3f800000u : 0u;
+      }
+  } else {  // a chunk across L (L not a multiple of 8)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int j = col0 + k;
+      const unsigned short v =
+          j >= a.L ? (j == t.one[i][0] || j == t.one[i][1] ? 0x3f80 : 0)
+          : a.a_dc == nullptr
+              ? __bfloat16_as_ushort(t.lat[i][j])
+              : __bfloat16_as_ushort(__float2bfloat16_rn(*taken_lat<BM>(src, r, j)));
+      w[k / 2] |= (uint32_t)v << (16 * (k % 2));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the 16-byte chunk c of row r of a swizzled box (TMA's 128-byte swizzle:
+// at r * 128 + (c ^ r % 8) * 16)
+__device__ __forceinline__ uint4* swizzled(uint8_t* box, int r, int c) {
+  return reinterpret_cast<uint4*>(box + r * kRowBytes + (c ^ (r % 8)) * 16);
+}
+
+// Whether k-tile kt of every warpgroup's 64 critic rows is one latent's
+// columns repeated 64 times: then 8 copies of it (one 1,024-byte swizzle
+// atom, built once at the start, atom (wg, kt) at aux + (wg L / 64 + kt)
+// 1024) stand for the 64 rows, which the products read with a stride of
+// 0 between 8-row groups
+__device__ __forceinline__ bool bcast_tile(const FwdArgs& a, int kt) {
+  return a.bcast && kt * kTile < a.L;
+}
+
+// Every warpgroup's latent atoms (bcast_tile), by the block's first BM
+// threads, a 16-byte chunk of each k-tile a thread: their loads of the
+// float32 latent first, then the rounded chunks' stores
+template <int BM>
+__device__ __forceinline__ void build_atoms(uint8_t* aux, const FwdArgs& a,
+                                            int m0) {
+  constexpr int kMaxTiles = 4;  // L <= 256 (the host checks)
+  const int wg = threadIdx.x / 64, q = threadIdx.x / 8 % 8, c = threadIdx.x % 8;
+  const int nt = a.L / kTile, b = (m0 + 64 * wg) / (a.n_dc * a.n_g);
+  if (threadIdx.x >= BM) return;
+  float4 u[kMaxTiles][2];
+#pragma unroll
+  for (int kt = 0; kt < kMaxTiles; ++kt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      u[kt][h] = kt < nt && b < a.B
+                     ? *reinterpret_cast<const float4*>(
+                           a.lat + (long long)b * a.L + kt * kTile + 8 * c + 4 * h)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int kt = 0; kt < kMaxTiles; ++kt)
+    if (kt < nt)
+      *swizzled(aux + (wg * nt + kt) * 1024, q, c) =
+          make_uint4(pack2(u[kt][0].x, u[kt][0].y), pack2(u[kt][0].z, u[kt][0].w),
+                     pack2(u[kt][1].x, u[kt][1].y), pack2(u[kt][1].z, u[kt][1].w));
+}
+
+// k-tile kt of the block's BM critic rows into shared memory, swizzled as
+// TMA lays a box out, from the staged sources, by every thread of the
+// block (2 BM of them): its four 16-byte chunks (RowsOfThread); nothing for
+// a bcast_tile (its atoms are built).  The blocks of n-tile 0 also store
+// the rows into x0 where it is given.
+template <int BM>
+__device__ __forceinline__ void build_rows(uint8_t* dst, const FwdArgs& a,
+                                           const RowsSrc& src,
+                                           const RowsOfThread& t,
+                                           uint64_t* lat_bars, int m0,
+                                           int kt) {
+  if (bcast_tile(a, kt)) return;
+  if (a.a_dc != nullptr && a.lat_tma && kt * kTile < a.L)
+    mbar_wait(lat_bars + kt, 0);  // the taken actions' latent box kt
+  const int c = threadIdx.x % 8, col0 = kt * kTile + 8 * c;
+  uint4 v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = critic_chunk<BM>(a, src, t, i, col0);
+  const bool side = a.x0 != nullptr && blockIdx.y == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = threadIdx.x / 8 + i * BM / 4, row = m0 + r;
+    *swizzled(dst, r, c) = v[i];
+    if (side && row < a.R && col0 < a.K) {
+      bf16* o = a.x0 + (long long)row * a.K + col0;
+      if (a.x0_vec) {
+        *reinterpret_cast<uint4*>(o) = v[i];
+      } else {
+        const uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (col0 + k < a.K)
+            o[k] = __ushort_as_bfloat16((unsigned short)(w[k / 2] >> (16 * (k % 2))));
+      }
+    }
+  }
+}
+
+// Chunk c (columns 8c .. 8c + 7) of k row k of the actor's two heads'
+// kernels side by side: k_dc in columns [0, n_dc), k_g in the next n_g,
+// zeros past them and past K
+__device__ __forceinline__ uint4 heads_chunk(const FwdArgs& a, int k, int c) {
+  const int n = a.n_dc + a.n_g;
+  if (k >= a.K) return make_uint4(0, 0, 0, 0);
+  if (a.heads_vec)  // both heads 8-column multiples: a chunk is one head's
+    return 8 * c < a.n_dc
+               ? *reinterpret_cast<const uint4*>(a.w + (long long)k * a.n_dc + 8 * c)
+               : *reinterpret_cast<const uint4*>(a.w2 + (long long)k * a.n_g +
+                                                 8 * c - a.n_dc);
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * c + i;
+    bf16 v = __ushort_as_bfloat16(0);
+    if (col < a.n_dc)
+      v = a.w[(long long)k * a.n_dc + col];
+    else if (col < n)
+      v = a.w2[(long long)k * a.n_g + col - a.n_dc];
+    w[i / 2] |= (uint32_t)__bfloat16_as_ushort(v) << (16 * (i % 2));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The whole K of the heads' kernels into W's half of every stage (N-major
+// and swizzled as TMA lays out a [K, N] kernel's box), by every thread of
+// the block, two k rows a thread at a time: the loads of their chunks that
+// hold entries first, then all eight chunks of each row (zeros past the
+// heads)
+template <int BM>
+__device__ __forceinline__ void load_heads(uint8_t* smem, const FwdArgs& a) {
+  constexpr int A_BYTES = BM * kRowBytes, STAGE = (BM + 64) * kRowBytes;
+  const int nc = (a.n_dc + a.n_g + 7) / 8, rows = a.kt * kTile;
+  const int T = blockDim.x;
+  for (int k0 = threadIdx.x; k0 < rows; k0 += 2 * T) {
+    uint4 v[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        v[i][c] = c < nc && k0 + i * T < rows ? heads_chunk(a, k0 + i * T, c)
+                                               : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = k0 + i * T;
+      if (k < rows)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          *swizzled(smem + (k / kTile) * STAGE + A_BYTES, k % kTile, c) = v[i][c];
+    }
+  }
+}
+
+// A latent row b of the critic's source, or zeros past B (the staging's
+// thread path, where TMA cannot describe lat)
+__device__ __forceinline__ float lat_at(const FwdArgs& a, int b, int j) {
+  return b < a.B ? a.lat[(long long)b * a.L + j] : 0.0f;
+}
+
+// What the block's threads stage in shared memory before the product
+// loop: the critic's taken actions (and its latent rows where TMA cannot
+// load them, a thread's loads eight together, then their stores).
+template <int BM>
+__device__ __forceinline__ void stage_rows(const FwdArgs& a,
+                                           const RowsSrc& src, int m0) {
+  const int T = blockDim.x;
+  {
+    int* act = const_cast<int*>(src.act);
+    if (a.a_dc != nullptr)
+      for (int r = threadIdx.x; r < BM; r += T) {
+        const bool in = m0 + r < a.R;
+        act[r] = in ? a.a_dc[m0 + r] : 0;
+        act[BM + r] = in ? a.a_g[m0 + r] : 0;
+      }
+    if (!a.lat_tma && a.lat_rows > 0) {  // element e of the staged layout (RowsSrc)
+      float* lat = const_cast<float*>(src.lat);
+      const bool taken = a.a_dc != nullptr;
+      const int n = taken ? (a.L + kTile - 1) / kTile * kTile * BM : a.lat_rows * a.L;
+      for (int base = 0; base < n; base += 8 * T) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = base + threadIdx.x + i * T;
+          const int row = taken ? e / kTile % BM : e / a.L;
+          const int col = taken ? e / (kTile * BM) * kTile + e % kTile : e % a.L;
+          v[i] = e < n && col < a.L ? lat_at(a, src.b0 + row, col) : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = base + threadIdx.x + i * T;
+          if (e < n) lat[e] = v[i];
+        }
+      }
+    }
+  }
+}
+
+// thread 0: the block's latent rows by TMA into shared memory (zeros past
+// B and L), as RowsSrc lays them out: every joint action one box of
+// lat_rows x L floats on bars[0]; the taken actions a box of BM x 64 a
+// k-tile, box j on bars[j]
+template <int BM>
+__device__ __forceinline__ void lat_issue(float* dst, const CUtensorMap* map,
+                                          uint64_t* bars, const FwdArgs& a,
+                                          int b0) {
+  if (a.a_dc == nullptr) {
+    mbar_arrive_tx(bars, (uint32_t)(a.lat_rows * a.L * 4));
+    tma_load(dst, map, bars, 0, b0);
+    return;
+  }
+  for (int j = 0; j * kTile < a.L; ++j) {
+    mbar_arrive_tx(bars + j, (uint32_t)(BM * kTile * 4));
+    tma_load(dst + j * BM * kTile, map, bars + j, j * kTile, b0);
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// one arrival a warp, after all its lanes' stores and proxy fences
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// thread 0: arm stage kt % stages and issue k-tile kt's TMA loads of the
+// operands TMA loads (x_tma, w_tma)
 template <int BM, int BN>
 __device__ __forceinline__ void fwd_issue(uint8_t* smem, uint64_t* full,
                                           const CUtensorMap* mx,
-                                          const CUtensorMap* mw,
-                                          const FwdArgs& a, int kt, int m0,
-                                          int n0) {
+                                          const CUtensorMap* mw, bool x_tma,
+                                          bool w_tma, int stages, int kt,
+                                          int m0, int n0) {
   constexpr int A_BYTES = BM * kRowBytes, STAGE = (BM + BN) * kRowBytes;
-  const int s = kt % a.stages;
+  const int s = kt % stages;
   uint8_t* st = smem + s * STAGE;
-  const uint32_t tx = (a.x_tma ? A_BYTES : 0) + (a.w_tma ? BN * kRowBytes : 0);
+  const uint32_t tx = (x_tma ? A_BYTES : 0) + (w_tma ? BN * kRowBytes : 0);
   mbar_arrive_tx(&full[s], tx);
-  if (a.x_tma) tma_load(st, mx, &full[s], kt * kTile, m0);
-  if (a.w_tma)
+  if (x_tma) tma_load(st, mx, &full[s], kt * kTile, m0);
+  if (w_tma)
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j)
       tma_load(st + A_BYTES + j * 64 * kRowBytes, mw, &full[s], n0 + 64 * j,
@@ -398,40 +796,164 @@ __device__ __forceinline__ void fwd_mma<256>(float (&acc)[128], uint64_t da,
   wgmma_n256<1>(acc, da, db, scale_d);
 }
 
-template <int WG, int BN>
-__global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
-    dense_fwd_gemm(const __grid_constant__ CUtensorMap map_x,
-                   const __grid_constant__ CUtensorMap map_w, const FwdArgs a) {
+constexpr float kNegMask = -1e9f;
+
+// The actor heads' epilogue (kActorHeads), from the block's [BM x BN] tile
+// of bf16 products (row stride TS): each logit the product plus its head's
+// bf16 bias (fwd_out, no ReLU), written as float32 per head and kept in
+// the tile; then one thread per (row, head) takes the masked log-softmax
+// (its mask's line prefetched before the product loop) of
+// csrc/log_softmax.cu op for op (x = mask ? l : -1e9, torch's max with
+// NaN winning, expf(x - m) summed by the halving tree zero-padded to a
+// power of two in the thread's column of `scratch`, (x - m) - logf(S)).
+template <int BM, int TS>
+__device__ __forceinline__ void heads_epilogue(bf16* tile, const bf16* bias_s,
+                                               float* scratch, const FwdArgs& a,
+                                               int m0) {
+  const int tid = threadIdx.x, n = a.n_dc + a.n_g;
+  for (int e = tid; e < BM * n; e += blockDim.x) {
+    const int r = e / n, c = e % n, row = m0 + r;
+    const bf16 y = fwd_out(tile[r * TS + c], bias_s[c], 0);
+    tile[r * TS + c] = y;
+    if (row >= a.R) continue;
+    if (c < a.n_dc)
+      a.logits[0][(long long)row * a.n_dc + c] = __bfloat162float(y);
+    else
+      a.logits[1][(long long)row * a.n_g + c - a.n_dc] = __bfloat162float(y);
+  }
+  __syncthreads();
+  const int h = tid / BM, r = tid % BM, row = m0 + r;  // a warp, one head
+  if (row >= a.R) return;
+  const int nh = h ? a.n_g : a.n_dc, T = blockDim.x;
+  const uint8_t* mk = a.mask[h] + (long long)row * nh;
+  const bf16* l = tile + r * TS + (h ? a.n_dc : 0);
+  float* e = scratch + tid;  // entry j at e[j * T]: no bank conflicts
+  // x_j (the masked logit) into e, its max by torch's rule (NaN wins)
+  float m = 0.0f;
+#pragma unroll 8
+  for (int j = 0; j < nh; ++j) {
+    const float x = mk[j] ? __bfloat162float(l[j]) : kNegMask;
+    e[j * T] = x;
+    if (j == 0 || x != x || (m == m && x > m)) m = x;
+  }
+  int p = rd::pow2_at_least(nh);
+#pragma unroll 8
+  for (int j = 0; j < p; ++j) e[j * T] = j < nh ? expf(e[j * T] - m) : 0.0f;
+  while (p > 1) {
+    p >>= 1;
+    for (int i = 0; i < p; ++i) e[i * T] = e[i * T] + e[(i + p) * T];
+  }
+  const float lse = logf(e[0]);
+  float* out = a.logp[h] + (long long)row * nh;
+#pragma unroll 8
+  for (int j = 0; j < nh; ++j)
+    out[j] = ((mk[j] ? __bfloat162float(l[j]) : kNegMask) - m) - lse;
+}
+
+// The forward layer of one [BM x BN] tile (the design in the head note).
+template <int WG, int BN, int MODE>
+__device__ __forceinline__ void fwd_body(const CUtensorMap* map_x,
+                                         const CUtensorMap* map_w,
+                                         const FwdArgs& a) {
   constexpr int BM = 64 * WG;
   constexpr int A_BYTES = BM * kRowBytes, STAGE = (BM + BN) * kRowBytes;
+  constexpr bool kRows = MODE == kCriticRows, kHeads = MODE == kActorHeads;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  // the ring (which the epilogue's tile reuses), its mbarriers, the bias
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.ring_bytes);
+  // the ring (which the epilogue's tile reuses), what the block stages
+  // behind it (aux), the ring's mbarriers, the bias
+  uint8_t* aux = smem + a.ring_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(aux + a.aux_bytes);
   bf16* bias_s = reinterpret_cast<bf16*>(  // 16-byte aligned
-      smem + a.ring_bytes + ((a.stages * 8 + 15) & ~15));
+      aux + a.aux_bytes + ((a.stages * 8 + 15) & ~15));
   const int tid = threadIdx.x, wg = tid / 128;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const bool tma = a.x_tma || a.w_tma;
+  // the critic's rows come from its latent rows b0 .. and taken actions,
+  // staged in aux (the latents' mbarriers in its last 32 bytes)
+  const RowsSrc src{reinterpret_cast<const float*>(aux),
+                    reinterpret_cast<const bf16*>(aux + a.lat16_off),
+                    reinterpret_cast<const int*>(aux + a.act_off),
+                    a.a_dc != nullptr ? m0 : m0 / (a.n_dc * a.n_g)};
+  uint64_t* lat_bars = reinterpret_cast<uint64_t*>(aux + a.aux_bytes - 32);
+  // what the block's threads put in the ring themselves: the critic's rows
+  // (built), the heads' kernels, an operand TMA cannot describe
+  const bool x_tma = !kRows && a.x_tma, w_tma = !kHeads && a.w_tma;
+  const bool tma = x_tma || w_tma;
   // thread 0 sets up the ring and puts its loads in flight at once; the
   // block stages the bias meanwhile (nobody waits on the ring before the
-  // barrier below)
+  // barrier below).  The critic's rows are built stage by stage: every
+  // warp arrives on the stage's barrier after its part, beside thread 0's
+  // arrival with W's bytes where TMA loads W.
   if (tid == 0) {
-    if (a.x_tma) prefetch_map(&map_x);
-    if (a.w_tma) prefetch_map(&map_w);
-    for (int s = 0; s < a.stages; ++s) mbar_init(&full[s], 1);
+    if (x_tma) prefetch_map(map_x);
+    if (w_tma) prefetch_map(map_w);
+    for (int s = 0; s < a.stages; ++s)
+      mbar_init(&full[s], kRows ? blockDim.x / 32 + (w_tma ? 1 : 0) : 1);
+    if (kRows && a.lat_tma)
+      for (int j = 0; j < 4; ++j) mbar_init(lat_bars + j, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (kRows && a.lat_tma)
+      lat_issue<BM>(const_cast<float*>(src.lat), map_x, lat_bars, a, src.b0);
     if (tma)
       for (int kt = 0; kt < a.kt && kt < a.stages; ++kt)
-        fwd_issue<BM, BN>(smem, full, &map_x, &map_w, a, kt, m0, n0);
+        fwd_issue<BM, BN>(smem, full, map_x, map_w, x_tma, w_tma, a.stages, kt,
+                          m0, n0);
   }
-  for (int c = tid; c < BN; c += blockDim.x)
-    bias_s[c] = n0 + c < a.N ? a.bias[n0 + c] : __ushort_as_bfloat16(0);
-  if (!a.x_tma || !a.w_tma) {  // the whole K is in the ring (the plan checks)
+  for (int c = tid; c < BN; c += blockDim.x) {
+    bf16 b = __ushort_as_bfloat16(0);
+    if (kHeads) {
+      if (c < a.n_dc)
+        b = a.bias[c];
+      else if (c < a.n_dc + a.n_g)
+        b = a.bias2[c - a.n_dc];
+    } else if (n0 + c < a.N) {
+      b = a.bias[n0 + c];
+    }
+    bias_s[c] = b;
+  }
+  if (kRows) stage_rows<BM>(a, src, m0);
+  if (kHeads) {  // the mask row the thread's log-softmax reads, into L1
+    const int h = tid / BM, row = m0 + tid % BM, nh = h ? a.n_g : a.n_dc;
+    if (row < a.R)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(a.mask[h] + (long long)row * nh));
+  }
+  RowsOfThread rows{};
+  if (kRows) {
+    // the actions staged (and the latents where the threads stage them);
+    // every joint action's latent rows rounded to bf16 once
+    __syncthreads();
+    bf16* lat16 = const_cast<bf16*>(src.lat16);
+    const int n = a.a_dc == nullptr ? a.lat_rows * a.L : 0;
+    if (n > 0 && a.lat_tma) mbar_wait(lat_bars, 0);
+    for (int e = 8 * tid; e < n; e += 8 * blockDim.x) {
+      float f[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] = e + k < n ? src.lat[e + k] : 0.0f;
+      const uint4 v = make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]),
+                                 pack2(f[4], f[5]), pack2(f[6], f[7]));
+      if (e + 8 <= n) {
+        *reinterpret_cast<uint4*>(lat16 + e) = v;
+      } else {
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (e + k < n)
+            lat16[e + k] = __ushort_as_bfloat16((unsigned short)(w[k / 2] >> (16 * (k % 2))));
+      }
+    }
+    __syncthreads();
+    rows = rows_of_thread<BM>(a, src, m0);
+  }
+  if (kRows && a.bcast) build_atoms<BM>(aux, a, m0);
+  // what the threads load into the ring (the whole K: the plan checks),
+  // and the critic's atoms, fenced for the products
+  if (!x_tma || !w_tma) {
+    if (kHeads) load_heads<BM>(smem, a);
     for (int kt = 0; kt < a.kt; ++kt) {
       uint8_t* st = smem + kt * STAGE;
-      if (!a.x_tma) load_box(st, a.x, a.ldx, a.R, a.K, m0, kt * kTile, BM);
-      if (!a.w_tma)
+      if (!kRows && !x_tma)
+        load_box(st, a.x, a.ldx, a.R, a.K, m0, kt * kTile, BM);
+      if (!kHeads && !w_tma)
         for (int j = 0; j < BN / 64; ++j)
           load_box(st + A_BYTES + j * 64 * kRowBytes, a.w, a.N, a.K, a.N,
                    kt * kTile, n0 + 64 * j, kTile);
@@ -439,33 +961,64 @@ __global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
     fence_generic_to_async();
   }
   __syncthreads();
+  if (kRows) {  // k-tile 0's rows (the barriers are initialized now)
+    build_rows<BM>(smem, a, src, rows, lat_bars, m0, 0);
+    fence_generic_to_async();
+    warp_arrive(&full[0]);
+  }
 
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
   for (int kt = 0; kt < a.kt; ++kt) {
     const int s = kt % a.stages;
-    if (tma) mbar_wait(&full[s], (kt / a.stages) & 1);
+    if (tma || kRows) mbar_wait(&full[s], (kt / a.stages) & 1);
     // x: K-major, this warpgroup's 64 rows; a k16 step is 32 bytes along a
     // swizzled row.  W: N-major, 64-column chunks 64 rows apart (LBO), eight
     // k rows a 1,024-byte swizzle atom (SBO); a k16 step is 16 rows.
-    const uint32_t sa = smem_u32(smem + s * STAGE) + wg * 64 * kRowBytes;
+    const bool atom = kRows && bcast_tile(a, kt);
+    const uint32_t sa =
+        atom ? smem_u32(aux + (wg * (a.L / kTile) + kt) * 1024)
+             : smem_u32(smem + s * STAGE) + wg * 64 * kRowBytes;
     const uint32_t sb = smem_u32(smem + s * STAGE + A_BYTES);
+    const uint32_t sbo = atom ? 0 : 1024;
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kTile / 16; ++ks)
-      fwd_mma<BN>(acc, desc(sa + ks * 32, 16, 1024),
+      fwd_mma<BN>(acc, desc(sa + ks * 32, 16, sbo),
                   desc(sb + ks * 16 * kRowBytes, 64 * kRowBytes, 1024),
                   (kt | ks) != 0);
     wgmma_commit();
     fence_regs(acc);
-    if (kt + a.stages < a.kt) {  // refill this stage: every product on it done
+    if (kRows) {
+      // the rows are built with no product in flight (code between a
+      // product and its wait makes ptxas serialize every product): this
+      // k-tile's retired first, then the next stage not yet filled, then
+      // this stage refilled
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (kt + 1 < a.stages && kt + 1 < a.kt) {
+        build_rows<BM>(smem + (kt + 1) * STAGE, a, src, rows, lat_bars, m0, kt + 1);
+        fence_generic_to_async();
+        warp_arrive(&full[kt + 1]);
+      }
+      if (kt + a.stages < a.kt) {
+        __syncthreads();  // every warpgroup's products on this stage done
+        if (tid == 0 && w_tma)
+          fwd_issue<BM, BN>(smem, full, map_x, map_w, false, true, a.stages,
+                            kt + a.stages, m0, n0);
+        build_rows<BM>(smem + s * STAGE, a, src, rows, lat_bars, m0, kt + a.stages);
+        fence_generic_to_async();
+        warp_arrive(&full[s]);
+      }
+    } else if (kt + a.stages < a.kt) {  // refill this stage: every product on it done
       wgmma_wait_all();
       fence_regs(acc);
       __syncthreads();
       if (tid == 0)
-        fwd_issue<BM, BN>(smem, full, &map_x, &map_w, a, kt + a.stages, m0, n0);
+        fwd_issue<BM, BN>(smem, full, map_x, map_w, x_tma, w_tma, a.stages,
+                          kt + a.stages, m0, n0);
     }
   }
   wgmma_wait_all();
@@ -476,7 +1029,7 @@ __global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
   // they go to a [BM x BN] tile in shared memory (the ring is free now;
   // rows padded by 16 bytes, so the pairs of a warp hit distinct banks),
   // then the block adds the bias, applies the ReLU and stores whole rows
-  // in 16-byte pieces.
+  // in 16-byte pieces (the heads: their log-softmax, heads_epilogue).
   constexpr int TS = BN + 8;
   bf16* tile = reinterpret_cast<bf16*>(smem);
   __syncthreads();  // every warpgroup's products are done with the ring
@@ -491,6 +1044,12 @@ __global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
           __halves2bfloat162(__float2bfloat16_rn(acc[4 * n + 2 * j]),
                              __float2bfloat16_rn(acc[4 * n + 2 * j + 1]));
   __syncthreads();
+  if (kHeads) {
+    heads_epilogue<BM, TS>(
+        tile, bias_s,
+        reinterpret_cast<float*>(smem + ((BM * TS * 2 + 15) & ~15)), a, m0);
+    return;
+  }
   const bool vec = a.N % 8 == 0;
   for (int e = tid; e < BM * BN / 8; e += blockDim.x) {
     const int r = e / (BN / 8), c = 8 * (e % (BN / 8));
@@ -534,6 +1093,29 @@ __global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
       }
     }
   }
+}
+
+// Three instances of the body, named apart for the profiler: a plain
+// layer, the one-hot critic's first layer, the actor's two heads.
+template <int WG, int BN>
+__global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
+    dense_fwd_gemm(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w, const FwdArgs a) {
+  fwd_body<WG, BN, kPlain>(&map_x, &map_w, a);
+}
+
+template <int WG, int BN>
+__global__ void __launch_bounds__(WG * 128, BN <= 128 ? 2 : 1)
+    critic_first_gemm(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w, const FwdArgs a) {
+  fwd_body<WG, BN, kCriticRows>(&map_x, &map_w, a);
+}
+
+template <int WG, int BN>
+__global__ void __launch_bounds__(WG * 128, 1)
+    actor_heads_gemm(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w, const FwdArgs a) {
+  fwd_body<WG, BN, kActorHeads>(&map_x, &map_w, a);
 }
 
 // ------------------------------------------------------------------ dX
@@ -820,6 +1402,24 @@ int make_map(CUtensorMap* m, const void* base, long long rows, long long cols,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
+// a 2-D map of a row-major contiguous float32 matrix (rows x cols) in boxes
+// of box_rows x box_cols, unswizzled; zeros outside it
+int make_rows_map(CUtensorMap* m, const void* base, long long rows, int cols,
+                  int box_rows, int box_cols) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t es[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<void*>(base), dims, strides, box, es,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
 bool tma_ok(const void* p, long long ld) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * 2) % 16 == 0;
 }
@@ -827,14 +1427,36 @@ bool tma_ok(const void* p, long long ld) {
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 
 // the ring (at least the epilogue's BM x (BN + 8) bf16 tile, which reuses
-// it), its mbarriers and the tile's bias
-int fwd_ring(int bm, int bn, int stages) {
-  const int ring = stages * (bm + bn) * kRowBytes, tile = bm * (bn + 8) * 2;
+// it, and for the heads the log-softmax's 64 floats a thread after it),
+// its mbarriers and the tile's bias
+int fwd_ring(int bm, int bn, int stages, int mode) {
+  const int ring = stages * (bm + bn) * kRowBytes;
+  int tile = bm * (bn + 8) * 2;
+  if (mode == kActorHeads) tile = ((tile + 15) & ~15) + 2 * bm * 64 * 4;
   return ring > tile ? ring : tile;
 }
 
-int fwd_smem(int bm, int bn, int stages) {
-  return 1024 + fwd_ring(bm, bn, stages) + stages * 8 + 16 + bn * 2;
+int fwd_smem(int bm, int bn, int stages, int mode, int aux = 0) {
+  return 1024 + fwd_ring(bm, bn, stages, mode) + aux + stages * 8 + 16 + bn * 2;
+}
+
+// The critic's staging behind the ring (RowsSrc): the latent rows a
+// block's BM rows use (every joint action: at most (BM - 1) / A + 2 of
+// them, as float32 and rounded to bf16, or where bcast the warpgroups'
+// latent atoms; the taken actions: BM, float32 in k-tile boxes), its
+// taken actions, the latents' four mbarriers; sets lat_rows, lat16_off,
+// act_off, aux_bytes
+void critic_aux(FwdArgs& a, int bm) {
+  const bool taken = a.a_dc != nullptr;
+  const int A = a.n_dc * a.n_g;
+  a.lat_rows = a.bcast ? 0 : taken ? bm : (bm - 1) / A + 2;
+  if (a.lat_rows > bm) a.lat_rows = bm;
+  const int lat32 = a.bcast ? bm / 64 * (a.L / kTile) * 1024
+                    : taken ? (a.L + kTile - 1) / kTile * kTile * bm * 4
+                            : a.lat_rows * a.L * 4;
+  a.lat16_off = (lat32 + 15) & ~15;
+  a.act_off = a.lat16_off + (taken ? 0 : (a.lat_rows * a.L * 2 + 15) & ~15);
+  a.aux_bytes = (a.act_off + 2 * bm * 4 + 32 + 127) & ~127;
 }
 
 int dx_smem(int stages) {
@@ -842,19 +1464,31 @@ int dx_smem(int stages) {
          kDxRows * (kDxBN + 1) * 4 + stages * 8;
 }
 
-template <int WG, int BN>
+// the forward instance of a mode (only that one is instantiated)
+template <int WG, int BN, int MODE>
+constexpr auto fwd_kernel() {
+  if constexpr (MODE == kCriticRows)
+    return critic_first_gemm<WG, BN>;
+  else if constexpr (MODE == kActorHeads)
+    return actor_heads_gemm<WG, BN>;
+  else
+    return dense_fwd_gemm<WG, BN>;
+}
+
+template <int WG, int BN, int MODE>
 int fwd_launch(const CUtensorMap& mx, const CUtensorMap& mw, const FwdArgs& a,
                cudaStream_t stream) {
   static bool attr = false;
-  const int smem = fwd_smem(64 * WG, BN, a.stages);
+  auto kern = fwd_kernel<WG, BN, MODE>();
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_fwd_gemm<WG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
   const dim3 grid((a.R + 64 * WG - 1) / (64 * WG), (a.N + BN - 1) / BN);
-  dense_fwd_gemm<WG, BN><<<grid, WG * 128, smem, stream>>>(mx, mw, a);
+  const int smem = fwd_smem(64 * WG, BN, a.stages, MODE, a.aux_bytes);
+  kern<<<grid, WG * 128, smem, stream>>>(mx, mw, a);
   return (int)cudaGetLastError();
 }
 
@@ -890,9 +1524,9 @@ extern "C" int dense_fwd_launch(const void* x, long long ldx, const void* w,
                                 long long ld32, int R, int K, int N, int relu,
                                 int bm, int bn, int stages, void* stream) {
   if (!rows_ok(R) || K < 1 || N < 1 || ldx < K || stages < 1 ||
-      fwd_smem(bm, bn, stages) > kSmemMax)
+      fwd_smem(bm, bn, stages, kPlain) > kSmemMax)
     return -1;
-  FwdArgs a;
+  FwdArgs a = {};
   a.x = reinterpret_cast<const bf16*>(x);
   a.w = reinterpret_cast<const bf16*>(w);
   a.bias = reinterpret_cast<const bf16*>(bias);
@@ -901,7 +1535,7 @@ extern "C" int dense_fwd_launch(const void* x, long long ldx, const void* w,
   a.ldx = ldx;
   a.ld32 = ld32;
   a.R = R, a.K = K, a.N = N, a.relu = relu, a.stages = stages;
-  a.ring_bytes = fwd_ring(bm, bn, stages);
+  a.ring_bytes = fwd_ring(bm, bn, stages, kPlain);
   a.kt = (K + kTile - 1) / kTile;
   a.x_tma = tma_ok(x, ldx);
   a.w_tma = tma_ok(w, N);
@@ -913,12 +1547,121 @@ extern "C" int dense_fwd_launch(const void* x, long long ldx, const void* w,
   if (a.x_tma && (rc = make_map(&mx, x, R, K, ldx, bm)) != 0) return rc;
   if (a.w_tma && (rc = make_map(&mw, w, K, N, N, kTile)) != 0) return rc;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bm == 64 && bn == 64) return fwd_launch<1, 64>(mx, mw, a, s);
-  if (bm == 128 && bn == 64) return fwd_launch<2, 64>(mx, mw, a, s);
-  if (bm == 128 && bn == 256) return fwd_launch<2, 256>(mx, mw, a, s);
-  if (bm == 64 && bn == 256) return fwd_launch<1, 256>(mx, mw, a, s);
-  if (bm == 128 && bn == 128) return fwd_launch<2, 128>(mx, mw, a, s);
-  if (bm == 64 && bn == 128) return fwd_launch<1, 128>(mx, mw, a, s);
+  if (bm == 64 && bn == 64) return fwd_launch<1, 64, kPlain>(mx, mw, a, s);
+  if (bm == 128 && bn == 64) return fwd_launch<2, 64, kPlain>(mx, mw, a, s);
+  if (bm == 128 && bn == 256) return fwd_launch<2, 256, kPlain>(mx, mw, a, s);
+  if (bm == 64 && bn == 256) return fwd_launch<1, 256, kPlain>(mx, mw, a, s);
+  if (bm == 128 && bn == 128) return fwd_launch<2, 128, kPlain>(mx, mw, a, s);
+  if (bm == 64 && bn == 128) return fwd_launch<1, 128, kPlain>(mx, mw, a, s);
+  return -1;
+}
+
+// The one-hot critic's first layer: y = ReLU(x0 w + bias) (bf16 [R, N]
+// contiguous) with x0 the critic's input rows, built in shared memory from
+// lat (float32 [B, L] contiguous) and the actions: a_dc, a_g (int32 [B])
+// for the taken actions (R = B), or both 0 for every joint action (R = B
+// n_dc n_g); w (bf16 [L + n_dc + n_g, N] contiguous), bias (bf16 [N]);
+// where x0 is not 0 it also receives the rows (bf16 [R, L + n_dc + n_g]
+// contiguous).  bm, bn, stages from kernels/dense.py::critic_plan; a ring
+// shallower than K needs w through TMA.  Latents TMA cannot load (L not a
+// multiple of 4 or above 256) are staged by the block's threads.
+extern "C" int critic_first_launch(const void* lat, const void* a_dc,
+                                   const void* a_g, void* x0, int B, int L,
+                                   int n_dc, int n_g, const void* w,
+                                   const void* bias, void* y, int N, int bm,
+                                   int bn, int stages, void* stream) {
+  if (B < 1 || L < 1 || n_dc < 1 || n_g < 1 || N < 1 ||
+      (a_dc == nullptr) != (a_g == nullptr) || stages < 1)
+    return -1;
+  const long long R = a_dc == nullptr ? (long long)B * n_dc * n_g : B;
+  if (R > (1LL << 30) || !rows_ok((int)R)) return -1;
+  FwdArgs a = {};
+  a.w = reinterpret_cast<const bf16*>(w);
+  a.bias = reinterpret_cast<const bf16*>(bias);
+  a.y = reinterpret_cast<bf16*>(y);
+  a.R = (int)R, a.K = L + n_dc + n_g, a.N = N, a.relu = 1, a.stages = stages;
+  a.ldx = a.K;
+  a.ring_bytes = fwd_ring(bm, bn, stages, kCriticRows);
+  a.kt = (a.K + kTile - 1) / kTile;
+  a.w_tma = tma_ok(w, N);
+  a.lat = reinterpret_cast<const float*>(lat);
+  a.a_dc = reinterpret_cast<const int*>(a_dc);
+  a.a_g = reinterpret_cast<const int*>(a_g);
+  a.x0 = reinterpret_cast<bf16*>(x0);
+  a.B = B, a.L = L, a.n_dc = n_dc, a.n_g = n_g;
+  a.lat_vec = L % 8 == 0;
+
+  a.x0_vec = a.K % 8 == 0 && reinterpret_cast<uintptr_t>(x0) % 16 == 0;
+  a.bcast = a_dc == nullptr && x0 == nullptr && (n_dc * n_g) % 64 == 0 &&
+            L % kTile == 0 && L <= 256 && reinterpret_cast<uintptr_t>(lat) % 16 == 0;
+  critic_aux(a, bm);
+  a.lat_tma = !a.bcast && L % 4 == 0 && L <= 256 &&
+              reinterpret_cast<uintptr_t>(lat) % 16 == 0;
+  if ((!a.w_tma && a.kt > stages) ||
+      fwd_smem(bm, bn, stages, kCriticRows, a.aux_bytes) > kSmemMax)
+    return -1;
+  CUtensorMap mx = {}, mw = {};
+  int rc;
+  if (a.lat_tma &&
+      (rc = make_rows_map(&mx, lat, B, L, a.lat_rows, a_dc == nullptr ? L : kTile)) != 0)
+    return rc;
+  if (a.w_tma && (rc = make_map(&mw, w, a.K, N, N, kTile)) != 0) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bm == 64 && bn == 64) return fwd_launch<1, 64, kCriticRows>(mx, mw, a, s);
+  if (bm == 128 && bn == 64) return fwd_launch<2, 64, kCriticRows>(mx, mw, a, s);
+  if (bm == 128 && bn == 128) return fwd_launch<2, 128, kCriticRows>(mx, mw, a, s);
+  if (bm == 64 && bn == 128) return fwd_launch<1, 128, kCriticRows>(mx, mw, a, s);
+  if (bm == 128 && bn == 256) return fwd_launch<2, 256, kCriticRows>(mx, mw, a, s);
+  return -1;
+}
+
+// The actor's two heads in one launch: the logits l_dc = x w_dc + b_dc and
+// l_g = x w_g + b_g (each product rounded to bf16, its bias added in
+// float32 and rounded, written as float32 [R, n] contiguous) and their
+// masked log-softmax lp_dc, lp_g (float32 [R, n] contiguous) under the
+// masks m_dc, m_g (bool [R, n] contiguous); x bf16 [R, K] (row stride ldx,
+// unit column stride), w_dc bf16 [K, n_dc] and w_g bf16 [K, n_g]
+// contiguous, b_dc, b_g bf16.  n_dc + n_g <= 64; the whole K in the ring
+// (stages from kernels/dense.py::heads_plan).
+extern "C" int actor_heads_launch(const void* x, long long ldx, const void* w_dc,
+                                  const void* b_dc, const void* w_g,
+                                  const void* b_g, const void* m_dc,
+                                  const void* m_g, void* l_dc, void* l_g,
+                                  void* lp_dc, void* lp_g, int R, int K,
+                                  int n_dc, int n_g, int bm, int stages,
+                                  void* stream) {
+  constexpr int BN = 64;
+  if (!rows_ok(R) || K < 1 || n_dc < 1 || n_g < 1 || n_dc + n_g > BN ||
+      ldx < K || stages < 1 || fwd_smem(bm, BN, stages, kActorHeads) > kSmemMax)
+    return -1;
+  FwdArgs a = {};
+  a.x = reinterpret_cast<const bf16*>(x);
+  a.w = reinterpret_cast<const bf16*>(w_dc);
+  a.w2 = reinterpret_cast<const bf16*>(w_g);
+  a.bias = reinterpret_cast<const bf16*>(b_dc);
+  a.bias2 = reinterpret_cast<const bf16*>(b_g);
+  a.ldx = ldx;
+  a.R = R, a.K = K, a.N = n_dc + n_g, a.stages = stages;
+  a.n_dc = n_dc, a.n_g = n_g;
+  a.ring_bytes = fwd_ring(bm, BN, stages, kActorHeads);
+  a.kt = (K + kTile - 1) / kTile;
+  a.x_tma = tma_ok(x, ldx);
+  a.heads_vec = n_dc % 8 == 0 && n_g % 8 == 0 &&
+                reinterpret_cast<uintptr_t>(w_dc) % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(w_g) % 16 == 0;
+  a.mask[0] = reinterpret_cast<const uint8_t*>(m_dc);
+  a.mask[1] = reinterpret_cast<const uint8_t*>(m_g);
+  a.logits[0] = reinterpret_cast<float*>(l_dc);
+  a.logits[1] = reinterpret_cast<float*>(l_g);
+  a.logp[0] = reinterpret_cast<float*>(lp_dc);
+  a.logp[1] = reinterpret_cast<float*>(lp_g);
+  if (a.kt > stages) return -1;
+  CUtensorMap mx = {}, mw = {};
+  int rc;
+  if (a.x_tma && (rc = make_map(&mx, x, R, K, ldx, bm)) != 0) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bm == 64) return fwd_launch<1, BN, kActorHeads>(mx, mw, a, s);
+  if (bm == 128) return fwd_launch<2, BN, kActorHeads>(mx, mw, a, s);
   return -1;
 }
 

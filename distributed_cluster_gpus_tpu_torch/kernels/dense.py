@@ -14,13 +14,20 @@ layers at ``rl/nets.py:37-39, 58-61, 93-95, 149-150``):
   and the bias gradient by the halving tree over the rows, in one launch
   (``dense_dx_gemm``);
 * :func:`dense_backward`, a network's top layer: the cast (and mask) of a
-  float32 incoming gradient and its bias gradient (``dense_bwd_kernel``).
+  float32 incoming gradient and its bias gradient (``dense_bwd_kernel``);
+* :func:`critic_first_fwd`, the one-hot critic's first layer with its input
+  rows (B5e: the concat and cast at ``rl/nets.py:85-87`` and the
+  ``all_actions`` tiling at ``:98-112``) built inside the product from the
+  latents and the actions (``critic_first_gemm``);
+* :func:`actor_heads_fwd`, the actor's two heads and their masked
+  log-softmax (B5f's forward, ``rl/nets.py:58-66``) in one launch
+  (``actor_heads_gemm``).
 
-``csrc/dense.cu``'s head note gives the design and bound; :func:`fwd_plan`
-and :func:`dx_plan` choose the tiles and the ring of stages per shape.  The
-rows R must be a multiple of 64 (the update's batch 256 and its 16,384
-all-actions rows are); the backward kernels take R <= 256, since a block
-owns whole columns of the bias gradient's tree.
+``csrc/dense.cu``'s head note gives the design and bound; :func:`fwd_plan`,
+:func:`heads_plan` and :func:`dx_plan` choose the tiles and the ring of
+stages per shape.  The rows R must be a multiple of 64 (the update's batch
+256 and its 16,384 all-actions rows are); the backward kernels take R <=
+256, since a block owns whole columns of the bias gradient's tree.
 
 Each wrapper launches its kernel for tensors on the card (built on first
 use) or raises, and runs its plain version (``rl/nets.py``: ``torch.matmul``
@@ -47,6 +54,11 @@ TILE = 64  # a k-tile's depth: one 128-byte swizzled row of bf16
 #: forward: from this many rows on, 128-row tiles and a ring of at most
 #: BIG_STAGES k-tiles
 BIG_ROWS, BIG_STAGES = 8192, 3
+#: the one-hot critic's first layer at BIG_ROWS rows and more: a ring of
+#: at most this many k-tiles, whose rows the block builds as it cycles
+CRITIC_STAGES = 2
+#: the actor's heads side by side in one tile: n_dc + n_g at most this
+HEADS_MAX = 64
 #: dX: rows (all of a layer's) and columns a block owns
 DX_ROWS, DX_BN = 256, 16
 BWD_MAX_ROWS = 256
@@ -89,6 +101,65 @@ def fwd_plan(R, K, N, x_tma=True, w_tma=True):
         raise ValueError(f"dense_fwd: K = {K} with an operand TMA cannot "
                          f"load needs {kt} stages, the ring holds {stages}")
     return bm, bn, stages
+
+
+def critic_aux(bm, L, A, taken, keep_rows=False):
+    """Bytes a block of :func:`critic_first_fwd` stages behind its ring
+    (csrc/dense.cu ``critic_aux``): the latent rows its ``bm`` rows use
+    (every joint action: at most (bm - 1) // A + 2, as float32 and rounded
+    to bf16, or, with A and L multiples of 64 and no rows kept, each
+    warpgroup's latent k-tiles as 1,024-byte atoms; the taken actions: bm,
+    float32 in 64-column boxes), its taken actions and the latents' four
+    mbarriers."""
+    def up(n, k):
+        return -(-n // k) * k
+    if not taken and not keep_rows and A % 64 == 0 and L % 64 == 0 and L <= 256:
+        lat = bm // 64 * (L // 64) * 1024
+    elif taken:
+        lat = up(L, 64) * bm * 4
+    else:
+        rows = min(bm, (bm - 1) // A + 2)
+        lat = up(rows * L * 4, 16) + up(rows * L * 2, 16)
+    return up(up(lat, 16) + 8 * bm + 32, 128)
+
+
+def critic_plan(R, L, n_dc, n_g, N, taken, w_tma=True, keep_rows=False):
+    """(bm, bn, stages) of :func:`critic_first_fwd` for R rows of the
+    critic (``taken``: the taken actions', else every joint action's) and
+    its first layer's kernel [L + n_dc + n_g, N]: the tiles of
+    :func:`fwd_plan`; from ``BIG_ROWS`` rows on a ring of at most
+    ``CRITIC_STAGES`` whose rows are built as it cycles (the fastest of the
+    tiles and rings timed on the H100, PERF.md §6), below the whole K in
+    flight.  A kernel TMA cannot load needs the whole K in the ring.
+    Raises for a shape the kernel does not take."""
+    _check_rows("critic_first_fwd", R)
+    big = R >= BIG_ROWS
+    bm = 128 if big else 64
+    bn = 128 if big and N >= 256 else 64
+    kt = _k_tiles(L + n_dc + n_g)
+    aux = critic_aux(bm, L, n_dc * n_g, taken, keep_rows)
+    stages = min(kt, (SMEM_MAX - 1024 - 16 - 2 * bn - aux)
+                 // ((bm + bn) * 128 + 8))
+    if big and w_tma:
+        stages = min(stages, CRITIC_STAGES)
+    if stages < 1 or (not w_tma and kt > stages):
+        raise ValueError(f"critic_first_fwd: K = {L + n_dc + n_g} beside "
+                         f"{aux} bytes of latents does not fit the ring")
+    return bm, bn, stages
+
+
+def heads_plan(R, K):
+    """(bm, stages) of :func:`actor_heads_fwd` for x [R, K]: 64-row tiles
+    (128 from ``BIG_ROWS`` rows on), 64 columns, the whole K in the ring
+    (the heads' kernels are loaded by the block's threads), at least the
+    epilogue's tile and the log-softmax's 64 floats a thread; raises for a
+    shape it does not take."""
+    _check_rows("actor_heads_fwd", R)
+    bm, kt = (128 if R >= BIG_ROWS else 64), _k_tiles(K)
+    ring = max(kt * (bm + 64) * 128, -(-bm * 72 * 2 // 16) * 16 + 2 * bm * 256)
+    if K < 1 or 1024 + ring + kt * 8 + 16 + 128 > SMEM_MAX:
+        raise ValueError(f"actor_heads_fwd: K = {K} does not fit the ring")
+    return bm, kt
 
 
 def dx_plan(R, kcs, tma=(True,)):
@@ -239,3 +310,92 @@ def dense_backward(g, y, db, g2=None, plain: bool = False):
 
 
 dense_backward.launches = 0
+
+
+def critic_first_fwd(lat, n_dc: int, n_g: int, kernel, bias, a_dc=None,
+                     a_g=None, keep_rows: bool = False, plain: bool = False):
+    """The one-hot critic's first layer, ReLU(x0 kernel + bias) bf16 [rows,
+    N], with x0 the critic's input rows (``rl/nets.py::critic_input``) built
+    inside the product from ``lat`` (float32 [B, L]): every joint action a
+    = a_dc * n_g + a_g in row b * A + a (``a_dc``, ``a_g`` None), or the
+    taken actions ``a_dc``, ``a_g`` (int32 [B]) in row b; ``kernel`` bf16
+    [L + n_dc + n_g, N], ``bias`` bf16 [N].  Returns (y, x0), x0 (bf16
+    [rows, L + n_dc + n_g]) written where ``keep_rows``, else None."""
+    if plain or not build.on_card("critic_first_fwd", lat):
+        from ..rl.nets import critic_first_plain
+        y, x0 = critic_first_plain(lat, n_dc, n_g, kernel, bias, a_dc, a_g)
+        return y, x0 if keep_rows else None
+    op, dev = "critic_first_fwd", lat.device
+    B, L = lat.shape
+    K, N = L + n_dc + n_g, kernel.shape[-1]
+    build.check(op, "lat", lat, F32, dev, (B, L))
+    build.check(op, "kernel", kernel, BF16, dev, (K, N))
+    build.check(op, "bias", bias, BF16, dev, (N,))
+    if (a_dc is None) != (a_g is None):
+        raise ValueError(f"{op}: give both actions or neither")
+    if a_dc is not None:
+        build.check(op, "a_dc", a_dc, torch.int32, dev, (B,))
+        build.check(op, "a_g", a_g, torch.int32, dev, (B,))
+    R = B * n_dc * n_g if a_dc is None else B
+    bm, bn, stages = critic_plan(R, L, n_dc, n_g, N, a_dc is not None,
+                                 tma_ok(kernel), keep_rows)
+    y = torch.empty((R, N), dtype=BF16, device=dev)
+    x0 = torch.empty((R, K), dtype=BF16, device=dev) if keep_rows else None
+    fn = build.bind("dense", "critic_first_launch",
+                    [P, P, P, P, I, I, I, I, P, P, P, I, I, I, I, P])
+    with torch.cuda.device(dev):
+        rc = fn(lat.data_ptr(), None if a_dc is None else a_dc.data_ptr(),
+                None if a_g is None else a_g.data_ptr(),
+                None if x0 is None else x0.data_ptr(), B, L, n_dc, n_g,
+                kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), N, bm, bn,
+                stages, build.stream_of(dev))
+    if rc != 0:
+        raise build.launch_failed(op, rc)
+    critic_first_fwd.launches += 1
+    return y, x0
+
+
+critic_first_fwd.launches = 0
+
+
+def actor_heads_fwd(x, k_dc, b_dc, k_g, b_g, mask_dc, mask_g,
+                    plain: bool = False):
+    """The actor's two heads from its hidden layer's bf16 output ``x`` [R,
+    K] (unit column stride): each head's logits, the bf16 product with its
+    ``kernel`` [K, n] plus its bf16 bias (``dense_fwd`` without a ReLU),
+    as float32, and their masked log-softmax under its bool mask [R, n],
+    in one launch.  Returns (logp_dc, logp_g, l_dc, l_g), float32 [R, n]
+    each.  n_dc + n_g at most ``HEADS_MAX``."""
+    if plain or not build.on_card("actor_heads_fwd", x):
+        from ..rl.nets import actor_heads_plain
+        return actor_heads_plain(x, k_dc, b_dc, k_g, b_g, mask_dc, mask_g)
+    op, dev = "actor_heads_fwd", x.device
+    R, K = x.shape
+    n_dc, n_g = k_dc.shape[-1], k_g.shape[-1]
+    if n_dc + n_g > HEADS_MAX:
+        raise ValueError(f"{op}: heads of {n_dc} and {n_g} entries; the "
+                         f"kernel takes {HEADS_MAX} together")
+    ldx = _rows(op, "x", x, BF16, dev, R, K)
+    for name, t, shape in (("k_dc", k_dc, (K, n_dc)), ("k_g", k_g, (K, n_g)),
+                           ("b_dc", b_dc, (n_dc,)), ("b_g", b_g, (n_g,))):
+        build.check(op, name, t, BF16, dev, shape)
+    build.check(op, "mask_dc", mask_dc, torch.bool, dev, (R, n_dc))
+    build.check(op, "mask_g", mask_g, torch.bool, dev, (R, n_g))
+    bm, stages = heads_plan(R, K)
+    outs = [torch.empty((R, n), dtype=F32, device=dev)
+            for n in (n_dc, n_g, n_dc, n_g)]
+    fn = build.bind("dense", "actor_heads_launch",
+                    [P, LL, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P])
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), ldx, k_dc.data_ptr(), b_dc.data_ptr(),
+                k_g.data_ptr(), b_g.data_ptr(), mask_dc.data_ptr(),
+                mask_g.data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), R, K, n_dc, n_g, bm,
+                stages, build.stream_of(dev))
+    if rc != 0:
+        raise build.launch_failed(op, rc)
+    actor_heads_fwd.launches += 1
+    return tuple(outs)
+
+
+actor_heads_fwd.launches = 0

@@ -52,9 +52,11 @@ the rows by the fixed tree, its kernel gradient a bf16 ``torch.matmul``
 into the group's bf16 staging buffer.  The update's fused regions run as
 hand-written kernels on the card, each with its plain version here: B5d
 each layer's product with its epilogue, and a hidden layer's dX product
-with its mask and bias gradient (``kernels/dense.py``), B5e the
-one-hot critic's input rows (``kernels/critic_input.py``), B5f the masked
-log-softmax of both heads (``kernels/log_softmax.py``).
+with its mask and bias gradient (``kernels/dense.py``); B5e, the one-hot
+critic's input rows, built inside the critic's first layer
+(``dense.critic_first_fwd``); B5f's forward, the masked log-softmax of
+both heads, in the epilogue of their one product
+(``dense.actor_heads_fwd``), and its backward (``kernels/log_softmax.py``).
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ def masked_log_softmax(logits, mask):
     """float32 log-probabilities with the infeasible logits at -1e9 (the
     exponential sum by the fixed tree; the max is held constant under
     differentiation, as flax's ``log_softmax`` stops its gradient): the
-    acting recipe's, and B5f's plain version (``kernels/log_softmax.py``)."""
+    acting recipe's, and the plain version of B5f's forward in
+    :func:`actor_heads_plain`."""
     x = torch.where(mask, logits, torch.full_like(logits, NEG_MASK))
     m = x.max(dim=-1, keepdim=True).values.detach()
     sh = x - m
@@ -235,11 +238,10 @@ def _twins(w):
 
 
 def critic_input(lat, n_dc: int, n_g: int, a_dc=None, a_g=None):
-    """B5e's plain version (``kernels/critic_input.py``): the one-hot
-    critic's bf16 input rows [rows, L + n_dc + n_g] from ``lat`` (float32
-    [B, L]), the JAX package's concat and cast: every joint action a = a_dc
-    * n_g + a_g in row b * A + a (``a_dc``, ``a_g`` None), or the taken
-    actions (int [B]) in row b."""
+    """B5e's plain version: the one-hot critic's bf16 input rows [rows, L +
+    n_dc + n_g] from ``lat`` (float32 [B, L]), the JAX package's concat and
+    cast: every joint action a = a_dc * n_g + a_g in row b * A + a
+    (``a_dc``, ``a_g`` None), or the taken actions (int [B]) in row b."""
     B, dev = lat.shape[0], lat.device
     if a_dc is None:
         acts = torch.arange(n_dc * n_g, device=dev)
@@ -249,6 +251,30 @@ def critic_input(lat, n_dc: int, n_g: int, a_dc=None, a_g=None):
     oh_g = a_g[:, None] == torch.arange(n_g, device=dev)
     return torch.cat([lat, oh_dc.to(torch.float32), oh_g.to(torch.float32)],
                      dim=-1).to(BF16)
+
+
+def critic_first_plain(lat, n_dc: int, n_g: int, kernel, bias, a_dc=None,
+                       a_g=None):
+    """The plain version of ``kernels/dense.py::critic_first_fwd``: the
+    one-hot critic's first layer (with its ReLU) on :func:`critic_input`'s
+    rows; returns (y, the rows)."""
+    x0 = critic_input(lat, n_dc, n_g, a_dc, a_g)
+    return dense_fwd_plain(x0, kernel, bias, True), x0
+
+
+def actor_heads_plain(x, k_dc, b_dc, k_g, b_g, mask_dc, mask_g):
+    """The plain version of ``kernels/dense.py::actor_heads_fwd``: each
+    head's float32 logits (:func:`dense_fwd_plain` without a ReLU) and
+    their :func:`masked_log_softmax`; returns (logp_dc, logp_g, l_dc,
+    l_g)."""
+    logits = []
+    for kernel, bias in ((k_dc, b_dc), (k_g, b_g)):
+        out = torch.empty((x.shape[0], kernel.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        dense_fwd_plain(x, kernel, bias, False, out)
+        logits.append(out)
+    return (masked_log_softmax(logits[0], mask_dc),
+            masked_log_softmax(logits[1], mask_g), *logits)
 
 
 class Dense(nn.Module):
@@ -335,19 +361,15 @@ class HybridActor(nn.Module):
                       plain: bool = False):
         """(logp_dc, logp_g, saved) by the training forward from the bf16
         latent ``lat16``; ``saved`` is what :meth:`train_backward` needs.
-        The masked log-softmax of both heads is one B5f launch."""
-        from ..kernels.log_softmax import log_softmax2
+        Both heads and their masked log-softmax are one launch
+        (``actor_heads_fwd``)."""
+        from ..kernels.dense import actor_heads_fwd
 
         (k_h, b_h), (k_dc, b_dc), (k_g, b_g) = w or casts(self)
         hid = dense_forward(lat16, k_h, b_h, True, plain=plain)
-        logits = []
-        for kernel, bias in ((k_dc, b_dc), (k_g, b_g)):
-            out = torch.empty((hid.shape[0], kernel.shape[1]),
-                              dtype=torch.float32, device=hid.device)
-            dense_forward(hid, kernel, bias, False, out, plain)
-            logits.append(out)
-        logp_dc, logp_g = log_softmax2(*logits, mask_dc, mask_g, plain=plain)
-        return logp_dc, logp_g, (lat16, hid, *logits, mask_dc, mask_g)
+        logp_dc, logp_g, l_dc, l_g = actor_heads_fwd(
+            hid, k_dc, b_dc, k_g, b_g, mask_dc, mask_g, plain=plain)
+        return logp_dc, logp_g, (lat16, hid, l_dc, l_g, mask_dc, mask_g)
 
     def train_backward(self, saved, d_dc, d_g, w, dw, plain: bool = False):
         """Every layer's gradient into ``dw`` from dL/dlogp of each head;
@@ -377,7 +399,8 @@ class QuantileCritic(nn.Module):
     """Twin quantile critics on (latent, onehot(a_dc), onehot(a_g)):
     [B, 2, n_quantiles].  Flax's compact names: twin 0 is ``Dense_0..2``,
     twin 1 ``Dense_3..5`` (``layers`` in that order).  Training forward only;
-    the input rows are B5e's."""
+    each twin's first layer builds the input rows itself
+    (``critic_first_fwd``)."""
 
     def __init__(self, latent: int, n_dc: int, n_g: int, n_quantiles: int = 32,
                  hidden: Sequence[int] = (256, 256)):
@@ -388,23 +411,32 @@ class QuantileCritic(nn.Module):
             Dense(a, b) for _ in range(2)
             for a, b in zip(widths[:-1], widths[1:]))
 
-    def _twins_forward(self, x0, w, plain):
-        """Both twins on the rows ``x0``: ([rows, 2, N] float32, the twins'
-        activations)."""
-        q = torch.empty((x0.shape[0], 2, self.n_quantiles), dtype=torch.float32,
-                        device=x0.device)
-        acts = [mlp_forward(x0, tw, False, q[:, t], plain)
-                for t, tw in enumerate(_twins(w))]
+    def _twins_forward(self, latent, w, plain, a_dc=None, a_g=None):
+        """Both twins on the critic's rows of the float32 ``latent``: every
+        joint action (``a_dc``, ``a_g`` None) or the taken actions (int32
+        [B]).  Returns ([rows, 2, N] float32, the twins' activations, each
+        led by the taken actions' rows, which twin 0's first layer writes,
+        or None)."""
+        from ..kernels.dense import critic_first_fwd
+
+        A = self.n_dc * self.n_g if a_dc is None else 1
+        q = torch.empty((latent.shape[0] * A, 2, self.n_quantiles),
+                        dtype=torch.float32, device=latent.device)
+        acts, x0 = [], None
+        for t, tw in enumerate(_twins(w)):
+            y1, rows = critic_first_fwd(latent, self.n_dc, self.n_g, *tw[0],
+                                        a_dc, a_g, keep_rows=(
+                                            t == 0 and a_dc is not None),
+                                        plain=plain)
+            x0 = rows if t == 0 else x0
+            acts.append([x0, *mlp_forward(y1, tw[1:], False, q[:, t], plain)])
         return q, acts
 
     def train_forward(self, latent, a_dc, a_g, w=None, plain: bool = False):
         """(taken-action quantiles [B, 2, N], saved) from the float32
         ``latent``; ``saved`` is what :meth:`train_backward` needs."""
-        from ..kernels.critic_input import critic_input as rows
-
-        x0 = rows(latent, self.n_dc, self.n_g, a_dc.to(torch.int32),
-                  a_g.to(torch.int32), plain=plain)
-        return self._twins_forward(x0, w or casts(self), plain)
+        return self._twins_forward(latent, w or casts(self), plain,
+                                   a_dc.to(torch.int32), a_g.to(torch.int32))
 
     def train_backward(self, saved, dq, w, dw, plain: bool = False):
         """Every layer's gradient into ``dw`` from ``dq`` = dL/dq [B, 2, N]
@@ -419,11 +451,8 @@ class QuantileCritic(nn.Module):
         """Quantiles of every joint action a = a_dc * n_g + a_g, in the JAX
         package's layout [B, 2, A, N] as a strided view of the [B, A, 2, N]
         product (the marginalization kernel takes either)."""
-        from ..kernels.critic_input import critic_input as rows
-
         B, A = latent.shape[0], self.n_dc * self.n_g
-        q, _ = self._twins_forward(rows(latent, self.n_dc, self.n_g, plain=plain),
-                                   w or casts(self), plain)
+        q, _ = self._twins_forward(latent, w or casts(self), plain)
         return q.reshape(B, A, 2, -1).permute(0, 2, 1, 3)
 
 

@@ -27,9 +27,10 @@ plain version here or beside it:
 * B5g, the bf16 parameter shadows and the gradient pack:
   ``kernels/param_pack.py`` (plain: ``rl/optim.py::pack_plain``);
 * B5d, each Dense layer's product with its epilogue, and its gradient
-  (a hidden layer's fused into the dX product above it), B5e the one-hot
-  critic's input rows, B5f the masked log-softmax forward and backward:
-  ``kernels/dense.py``, ``kernels/critic_input.py``,
+  (a hidden layer's fused into the dX product above it); B5e, the one-hot
+  critic's input rows, built inside the critic's first layer; B5f's
+  forward, the masked log-softmax of both heads, in the epilogue of their
+  one product; B5f's backward: ``kernels/dense.py``,
   ``kernels/log_softmax.py`` (plain: ``rl/nets.py``);
 * B5a, the quantile-Huber loss and its gradient: ``kernels/sac_update.py``
   (plain: :func:`quantile_huber_loss`);

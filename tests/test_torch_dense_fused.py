@@ -6,8 +6,10 @@ path shares with the CPU, on the CPU.
   of 64, of a dX wider than a block's 256 rows, of an operand TMA cannot
   load whose K overflows the ring (shape logic alone: no card);
 * which backward calls fuse into a dX product: one whole update at small
-  widths, both critics, counts each wrapper's calls (30 forward, 8 fused,
-  4 standalone, as ``chip_smoke.py::per_update`` expects on the card);
+  widths, both critics, counts each wrapper's calls (30 forward layers, of
+  them the one-hot critic's 6 first layers and the actor's 2 pairs of
+  heads fused calls; 8 fused, 4 standalone backward calls, as
+  ``chip_smoke.py::per_update`` expects on the card);
 * the plain composition of ``dense_dx`` (products, rounding, mask, tree)
   and the new layer-by-layer backward, bitwise against the sequence the
   update ran before the fusion (B5d backward, then dW, then dX by
@@ -122,13 +124,17 @@ def _small_update(arch):
 
 @pytest.mark.parametrize("arch", ["onehot", "heads"])
 def test_update_fuses_eight_of_twelve_backward_calls(arch, monkeypatch):
-    """One update's B5d calls: 30 forward layers, 8 hidden-layer gradients
-    inside a dX product (each critic twin's two lower layers, the actor's
-    hidden layer with both heads' products in one call, the encoder's three
-    layers, the top one fed by the actor), 4 standalone top layers (the
-    twins' and the actor's heads, from a float32 gradient)."""
+    """One update's B5d calls: 30 forward layers (the one-hot critic's six
+    first layers each one ``critic_first_fwd`` with its input rows, the
+    actor's two heads one ``actor_heads_fwd`` per actor forward, the rest
+    ``dense_fwd``), 8 hidden-layer gradients inside a dX product (each
+    critic twin's two lower layers, the actor's hidden layer with both
+    heads' products in one call, the encoder's three layers, the top one
+    fed by the actor), 4 standalone top layers (the twins' and the actor's
+    heads, from a float32 gradient)."""
     cfg, sac, rb = _small_update(arch)
-    seen = {"dense_fwd": [], "dense_dx": [], "dense_backward": []}
+    seen = {"dense_fwd": [], "critic_first_fwd": [], "actor_heads_fwd": [],
+            "dense_dx": [], "dense_backward": []}
     for name in seen:
         orig = getattr(dense, name)
 
@@ -137,8 +143,10 @@ def test_update_fuses_eight_of_twelve_backward_calls(arch, monkeypatch):
             return _orig(*a, **kw)
         monkeypatch.setattr(dense, name, rec)
     tsac.sac_train_step(cfg, sac, rb, torch.tensor([0, 9], dtype=torch.int64))
+    first = 6 if arch == "onehot" else 0
     assert {k: len(v) for k, v in seen.items()} == {
-        "dense_fwd": 30, "dense_dx": 8, "dense_backward": 4}
+        "dense_fwd": 26 - first, "critic_first_fwd": first,
+        "actor_heads_fwd": 2, "dense_dx": 8, "dense_backward": 4}
     assert sum(len(a) == 6 for a in seen["dense_dx"]) == 1  # the actor's pair
     assert all(a[0].dtype == torch.float32 for a in seen["dense_backward"])
     assert all(a[0].dtype == BF16 for a in seen["dense_dx"])

@@ -1197,30 +1197,216 @@ def test_dense_backward_kernel_matches_plain_version(cuda, R, N, kind):
     assert _bits_equal(Gk, Gp.contiguous()) and _bits_equal(dbs[0], dbs[1])
 
 
+#: the fused critic first layer's envelope (B, L, n_dc, n_g): A = 8, 15
+#: and 64 joint actions at the small agents' and the published batch, and
+#: a latent whose rows are not 16-byte aligned (13 floats, K = 19)
+CRITIC_FIRST = [(64, 256, 2, 4), (256, 256, 2, 4), (64, 256, 3, 5),
+                (256, 256, 3, 5), (64, 256, 8, 8), (256, 256, 8, 8),
+                (64, 13, 2, 4)]
+
+
+def _critic_first_inputs(kind, B, L, n_dc, n_g, N, dev, seed=0):
+    """lat, the taken actions (one outside each head), kernel, bias:
+    small integers (every sum exact in any order) or random values."""
+    g = torch.Generator().manual_seed(B + L + 7 * n_dc + 13 * n_g + seed)
+    K = L + n_dc + n_g
+    if kind == "exact":
+        lat = torch.randint(-3, 4, (B, L), generator=g).float()
+        w = _small_ints(g, (K, N), dev)
+    else:
+        lat = torch.randn((B, L), generator=g) * 4
+        w = _bf16_rows(g, K, N, dev, K ** -0.5)
+    a_dc = torch.randint(0, n_dc, (B,), generator=g, dtype=torch.int32)
+    a_g = torch.randint(0, n_g, (B,), generator=g, dtype=torch.int32)
+    a_dc[1], a_g[2] = n_dc, -1  # no one where an action lies outside its head
+    bias = _bf16_rows(g, 1, N, dev)[0]
+    return lat.to(dev), a_dc.to(dev), a_g.to(dev), w, bias
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,n_dc,n_g", [(256, 256, 8, 8), (5, 13, 2, 3)])
-def test_critic_input_kernel_matches_plain_version(cuda, B, L, n_dc, n_g):
-    """B5e: the taken actions' rows and every joint action's, bitwise."""
-    from distributed_cluster_gpus_tpu_torch.kernels.critic_input import critic_input
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("B,L,n_dc,n_g", CRITIC_FIRST)
+def test_critic_first_kernel_matches_plain_version(cuda, B, L, n_dc, n_g, kind):
+    """B5e folded into B5d (``critic_first_gemm``), every joint action's
+    rows and the taken actions' with their rows written out: on exactly
+    summed operands bitwise the plain composition (``critic_input``, then
+    ``torch.matmul`` and the epilogue); on random ones bitwise the layer
+    ``dense_fwd`` gives on ``critic_input``'s rows (the same wgmma product);
+    the rows bitwise always."""
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import (
+        critic_first_fwd, dense_fwd)
     from distributed_cluster_gpus_tpu_torch.rl import nets
 
-    g = torch.Generator().manual_seed(B)
-    lat = (torch.randn((B, L), generator=g) * 4).to(cuda)
-    a_dc = torch.randint(0, n_dc, (B,), generator=g, dtype=torch.int32).to(cuda)
-    a_g = torch.randint(0, n_g, (B,), generator=g, dtype=torch.int32).to(cuda)
-    before = critic_input.launches
-    for acts in ((a_dc, a_g), (None, None)):
-        k = critic_input(lat, n_dc, n_g, *acts)
-        assert _bits_equal(k, nets.critic_input(lat, n_dc, n_g, *acts))
-    assert critic_input.launches == before + 2
+    lat, a_dc, a_g, w, bias = _critic_first_inputs(kind, B, L, n_dc, n_g, 256,
+                                                   cuda)
+    for acts in ((None, None), (a_dc, a_g)):
+        before = critic_first_fwd.launches
+        y, x0 = critic_first_fwd(lat, n_dc, n_g, w, bias, *acts, keep_rows=True)
+        assert critic_first_fwd.launches == before + 1
+        yp, x0p = critic_first_fwd(lat, n_dc, n_g, w, bias, *acts,
+                                   keep_rows=True, plain=True)
+        assert _bits_equal(x0, x0p)
+        assert _bits_equal(y, dense_fwd(x0p, w, bias, True))
+        if kind == "exact":
+            assert _bits_equal(y, yp)
+        y2, none = critic_first_fwd(lat, n_dc, n_g, w, bias, *acts)
+        assert none is None and _bits_equal(y2, y)
+    assert _bits_equal(x0p, nets.critic_input(lat, n_dc, n_g, a_dc, a_g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [256, 16_384])
+def test_critic_first_kernel_every_plan(cuda, R):
+    """The critic's first layer at each tile and ring the C entry point
+    takes, as a ring of 1-4 stages cycles (W by TMA, every warp arriving on
+    the stage's barrier after its rows) and with the whole K in the ring:
+    the taken actions' rows from latents staged by TMA in k-tile boxes,
+    every joint action's from latent atoms (no rows kept) or from staged
+    latent rows (the rows kept); bitwise equal to one another and to the
+    plain composition."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build, dense
+
+    B = R // 64 if R > 256 else R
+    lat, a_dc, a_g, w, bias = _critic_first_inputs("exact", B, 256, 8, 8, 256,
+                                                   cuda, seed=1)
+    acts = (a_dc, a_g) if R == 256 else (None, None)
+    want, rows = dense.critic_first_fwd(lat, 8, 8, w, bias, *acts,
+                                        keep_rows=True, plain=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = build.bind("dense", "critic_first_launch",
+                    [P, P, P, P, I, I, I, I, P, P, P, I, I, I, I, P])
+    for keep in (True, False) if R > 256 else (True,):
+        for bm, bn in ((128, 128), (64, 64), (128, 64), (64, 128), (128, 256)):
+            for stages in (1, 2, 3, 4, 5):
+                aux = dense.critic_aux(bm, 256, 1 if R == 256 else 64, R == 256,
+                                       keep)
+                if 1024 + max(stages * (bm + bn) * 128, bm * (bn + 8) * 2) + \
+                        aux + stages * 8 + 16 + 2 * bn > dense.SMEM_MAX:
+                    continue
+                y = torch.full((R, 256), float("nan"), dtype=torch.bfloat16,
+                               device=cuda)
+                x0 = torch.full_like(rows, float("nan")) if keep else None
+                rc = fn(lat.data_ptr(), *(None if t is None else t.data_ptr()
+                                          for t in acts),
+                        None if x0 is None else x0.data_ptr(), B, 256, 8, 8,
+                        w.data_ptr(), bias.data_ptr(), y.data_ptr(), 256, bm, bn,
+                        stages, build.stream_of(cuda))
+                torch.cuda.synchronize()
+                where = (keep, bm, bn, stages)
+                assert rc == 0, where
+                assert _bits_equal(y, want), where
+                assert not keep or _bits_equal(x0, rows), where
+
+
+def _heads_inputs(kind, R, n_dc, n_g, dev, seed=0):
+    """hid [R, 256] and the heads' kernels and biases (small integers, or a
+    permutation: the logits pick seeded entries of hid, exactly), masks
+    with a fully masked row, one feasible entry and random ones."""
+    g = torch.Generator().manual_seed(R + 7 * n_dc + 13 * n_g + seed)
+    K = 256
+    if kind == "exact":
+        hid = _small_ints(g, (R, K), dev)
+        ks = [_small_ints(g, (K, n), dev) for n in (n_dc, n_g)]
+    else:
+        hid = _bf16_rows(g, R, K, dev, 6.0)
+        ks = [_permutation(g, K, n, dev) for n in (n_dc, n_g)]
+    bs = [_bf16_rows(g, 1, n, dev)[0] for n in (n_dc, n_g)]
+    masks = []
+    for n in (n_dc, n_g):
+        m = torch.rand((R, n), generator=g) < 0.6
+        m[0] = False
+        m[1] = False
+        m[1, n - 1] = True
+        masks.append(m.to(dev))
+    return hid, ks, bs, masks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exact", "permutation", "nan"])
+@pytest.mark.parametrize("n_dc,n_g", [(8, 8), (2, 8), (3, 5), (1, 63)])
+@pytest.mark.parametrize("R", [64, 256])
+def test_actor_heads_kernel_matches_plain_version(cuda, R, n_dc, n_g, kind):
+    """B5f's forward folded into the heads' product (``actor_heads_gemm``),
+    one launch for both heads: the float32 logits and the masked
+    log-probabilities bitwise the plain composition (two ``torch.matmul``
+    layers, then ``masked_log_softmax``): a fully masked row, one feasible
+    entry, random masks, and (``nan``) a NaN in hid, whose row's logits
+    and log-probabilities are all NaN in both."""
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import actor_heads_fwd
+
+    hid, (k_dc, k_g), (b_dc, b_g), (m_dc, m_g) = _heads_inputs(
+        "permutation" if kind == "nan" else kind, R, n_dc, n_g, cuda)
+    if kind == "nan":
+        hid[2] = float("nan")
+        m_dc[2] = m_g[2] = True
+    before = actor_heads_fwd.launches
+    got = actor_heads_fwd(hid, k_dc, b_dc, k_g, b_g, m_dc, m_g)
+    assert actor_heads_fwd.launches == before + 1
+    want = actor_heads_fwd(hid, k_dc, b_dc, k_g, b_g, m_dc, m_g, plain=True)
+    for k, p in zip(got, want):
+        assert _bits_equal_nan(k, p)
+    if kind == "nan":
+        assert bool(torch.isnan(got[0][2]).all() and torch.isnan(got[1][2]).all())
+        assert not bool(torch.isnan(got[0][3:]).any())
+
+
+@pytest.mark.gpu
+def test_fused_inputs_replay_in_a_cuda_graph(cuda):
+    """Both fused calls of an update captured in one CUDA graph (the
+    critic's 16,384 rows built as the ring cycles, its taken-action rows
+    written out, the heads and their log-softmax) and replayed 40 times on
+    new inputs: bitwise the plain compositions every time (the rows' proxy
+    fence and the stages' barriers hold replay after replay)."""
+    from distributed_cluster_gpus_tpu_torch.kernels import dense
+
+    lat, a_dc, a_g, w, bias = _critic_first_inputs("exact", 256, 256, 8, 8, 256,
+                                                   cuda)
+    hid, (k_dc, k_g), (b_dc, b_g), (m_dc, m_g) = _heads_inputs(
+        "permutation", 256, 8, 8, cuda)
+
+    def calls():
+        return (dense.critic_first_fwd(lat, 8, 8, w, bias),
+                dense.critic_first_fwd(lat, 8, 8, w, bias, a_dc, a_g,
+                                       keep_rows=True),
+                dense.actor_heads_fwd(hid, k_dc, b_dc, k_g, b_g, m_dc, m_g))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    for i in range(40):
+        nl, nd, ng, nw, nb = _critic_first_inputs("exact", 256, 256, 8, 8, 256,
+                                                  cuda, seed=i + 1)
+        nh, nk, nbs, nm = _heads_inputs("permutation", 256, 8, 8, cuda, seed=i + 1)
+        for dst, src in ((lat, nl), (a_dc, nd), (a_g, ng), (w, nw), (bias, nb),
+                         (hid, nh), (k_dc, nk[0]), (k_g, nk[1]), (b_dc, nbs[0]),
+                         (b_g, nbs[1]), (m_dc, nm[0]), (m_g, nm[1])):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = (dense.critic_first_fwd(lat, 8, 8, w, bias, plain=True),
+                dense.critic_first_fwd(lat, 8, 8, w, bias, a_dc, a_g,
+                                       keep_rows=True, plain=True),
+                dense.actor_heads_fwd(hid, k_dc, b_dc, k_g, b_g, m_dc, m_g,
+                                      plain=True))
+        got = [t for t in (*out[0], *out[1], *out[2]) if t is not None]
+        ref = [t for t in (*want[0], *want[1], *want[2]) if t is not None]
+        assert len(got) == len(ref) == 7
+        assert all(_bits_equal(k, p) for k, p in zip(got, ref)), i
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_dc,n_g", [(8, 8), (2, 8), (1, 64)])
-def test_log_softmax_kernels_match_plain_versions(cuda, n_dc, n_g):
-    """B5f: both heads' log-probabilities and the logits' gradient in one
-    launch each, bitwise (CUDA's expf/logf are torch's exp/log): random
-    masks, fully masked rows, one feasible entry, large logits."""
+def test_log_softmax_backward_kernel_matches_plain_version(cuda, n_dc, n_g):
+    """B5f's backward: the logits' gradient of both heads in one launch,
+    bitwise (CUDA's expf is torch's exp): random masks, fully masked rows,
+    one feasible entry, large logits."""
     from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
     from distributed_cluster_gpus_tpu_torch.rl import nets
 
@@ -1237,13 +1423,10 @@ def test_log_softmax_kernels_match_plain_versions(cuda, n_dc, n_g):
         heads.append((logits.to(cuda), m.to(cuda),
                       torch.randn((B, n), generator=g).to(cuda)))
     (l0, m0, c0), (l1, m1, c1) = heads
-    before = (b5f.log_softmax2.launches, b5f.log_softmax2_backward.launches)
-    fwd = b5f.log_softmax2(l0, l1, m0, m1)
+    before = b5f.log_softmax2_backward.launches
     bwd = b5f.log_softmax2_backward(l0, l1, m0, m1, c0, c1)
-    assert (b5f.log_softmax2.launches, b5f.log_softmax2_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert b5f.log_softmax2_backward.launches == before + 1
     for k, (logits, m, c) in enumerate(heads):
-        assert _bits_equal(fwd[k], nets.masked_log_softmax(logits, m))
         assert _bits_equal(bwd[k], nets.masked_log_softmax_backward(logits, m, c))
 
 
@@ -1251,11 +1434,10 @@ def test_log_softmax_kernels_match_plain_versions(cuda, n_dc, n_g):
 def test_fused_region_wrappers_reject_bad_operands(cuda):
     """No fallback: a CUDA operand of the wrong dtype, shape or layout
     raises instead of running the plain version."""
-    from distributed_cluster_gpus_tpu_torch.kernels.critic_input import critic_input
-    from distributed_cluster_gpus_tpu_torch.kernels.dense import (dense_backward,
-                                                                  dense_dx,
-                                                                  dense_fwd)
-    from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import log_softmax2
+    from distributed_cluster_gpus_tpu_torch.kernels.dense import (
+        actor_heads_fwd, critic_first_fwd, dense_backward, dense_dx, dense_fwd)
+    from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import \
+        log_softmax2_backward
     from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
 
     x = torch.zeros((64, 8), dtype=torch.bfloat16, device=cuda)
@@ -1279,14 +1461,32 @@ def test_fused_region_wrappers_reject_bad_operands(cuda):
         dense_backward(x[:8].t(), None, b[:4])
     with pytest.raises(ValueError):
         dense_backward(x[:40], None, b)
+    lat = torch.zeros((64, 3), device=cuda)
+    w1 = torch.zeros((8, 16), dtype=torch.bfloat16, device=cuda)
+    b1 = torch.zeros(16, dtype=torch.bfloat16, device=cuda)
+    a64 = torch.zeros(64, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):  # the kernel reads int32 actions
-        critic_input(torch.zeros((4, 6), device=cuda), 2, 3,
-                     torch.zeros(4, dtype=torch.int64, device=cuda),
-                     torch.zeros(4, dtype=torch.int64, device=cuda))
+        critic_first_fwd(lat, 2, 3, w1, b1, a64, a64)
+    with pytest.raises(ValueError):  # rows: a multiple of 64 (6 x 6 here)
+        critic_first_fwd(lat[:6], 2, 3, w1, b1)
+    with pytest.raises(ValueError):  # the kernel's depth is L + n_dc + n_g
+        critic_first_fwd(lat, 2, 4, w1, b1)
+    m8 = torch.ones((64, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):  # a CPU mask beside CUDA operands
+        actor_heads_fwd(x, k, b, k, b, m8, m8.cpu())
+    with pytest.raises(ValueError):  # rows: a multiple of 64
+        actor_heads_fwd(x[:40], k, b, k, b, m8[:40], m8[:40])
+    wide = torch.zeros((8, 60), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # both heads in one 64-wide tile
+        actor_heads_fwd(x, k, b, wide, wide[0], m8,
+                        torch.ones((64, 60), dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError):
-        log_softmax2(torch.zeros((4, 3), device=cuda), torch.zeros((4, 2), device=cuda),
-                     torch.ones((4, 3), dtype=torch.bool, device=cuda),
-                     torch.ones((4, 2), dtype=torch.bool).cpu())
+        log_softmax2_backward(torch.zeros((4, 3), device=cuda),
+                              torch.zeros((4, 2), device=cuda),
+                              torch.ones((4, 3), dtype=torch.bool, device=cuda),
+                              torch.ones((4, 2), dtype=torch.bool).cpu(),
+                              torch.zeros((4, 3), device=cuda),
+                              torch.zeros((4, 2), device=cuda))
     with pytest.raises(TypeError):
         param_pack([(torch.zeros(8, device=cuda), torch.zeros(8, device=cuda))])
 

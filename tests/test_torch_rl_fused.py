@@ -14,12 +14,13 @@ small widths and on the same numpy-seeded inputs:
   (each partial rounded), the port sums it in float32 by the fixed tree and
   rounds once, so the two differ by XLA's accumulation error (the port's
   within one bf16 rounding of the exact sum, which is also checked);
-* B5e, the one-hot critic's input rows, bitwise against the rows the JAX
-  package's ``QuantileCritic`` feeds its first ``Dense`` (taken actions and
-  ``all_actions``);
-* B5f, the masked log-softmax and its gradient against ``nn.log_softmax``
-  under the mask (``jax.vjp``), a fully masked head included, within
-  ``LOGP_ULP`` ulp / ``GRAD_RTOL``;
+* B5e, the one-hot critic's input rows (the rows ``critic_first_fwd``
+  keeps), bitwise against the rows the JAX package's ``QuantileCritic``
+  feeds its first ``Dense`` (taken actions and ``all_actions``);
+* B5f, the masked log-softmax (its plain version, which the heads' fused
+  forward repeats) and its gradient against ``nn.log_softmax`` under the
+  mask (``jax.vjp``), a fully masked head included, within ``LOGP_ULP`` ulp
+  / ``GRAD_RTOL``;
 * B5g, the pack: float32 -> bf16 bitwise equal to ``astype(bfloat16)``
   (ties to even, subnormals, overflow to infinity), bf16 -> float32 exact.
 """
@@ -34,9 +35,9 @@ import torch
 from distributed_cluster_gpus_tpu.rl.nets import HybridActor as JActor
 from distributed_cluster_gpus_tpu.rl.nets import MLPStateEncoder as JEnc
 from distributed_cluster_gpus_tpu.rl.nets import QuantileCritic as JQC
-from distributed_cluster_gpus_tpu_torch.kernels.critic_input import critic_input
-from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import (
-    log_softmax2, log_softmax2_backward)
+from distributed_cluster_gpus_tpu_torch.kernels.dense import critic_first_fwd
+from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import \
+    log_softmax2_backward
 from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
 from distributed_cluster_gpus_tpu_torch.rl import nets
 
@@ -225,8 +226,9 @@ def _first_dense_input(critic, params, *args, **kw):
 
 
 def test_critic_input_rows_match_flax(n_dc=3, n_g=4):
-    """B5e's rows bitwise against the JAX critic's concat and cast, for the
-    taken actions and for ``all_actions``."""
+    """B5e's rows (those the critic's fused first layer keeps) bitwise
+    against the JAX critic's concat and cast, for the taken actions and for
+    ``all_actions``."""
     B, L = 6, 16
     rng = np.random.default_rng(n_dc)
     lat = rng.normal(size=(B, L)).astype(np.float32)
@@ -234,15 +236,19 @@ def test_critic_input_rows_match_flax(n_dc=3, n_g=4):
     a_g = rng.integers(0, n_g, B).astype(np.int32)
     critic = JQC(n_dc=n_dc, n_g=n_g, n_quantiles=4, hidden=(8, 8))
     params = critic.init(jax.random.key(0), lat, a_dc, a_g)
+    k0 = _bf16_np(params["params"]["Dense_0"]["kernel"])
+    b0 = _bf16_np(params["params"]["Dense_0"]["bias"])
     want = _first_dense_input(critic, params, lat, a_dc, a_g)
-    got = critic_input(torch.from_numpy(lat), n_dc, n_g, torch.from_numpy(a_dc),
-                       torch.from_numpy(a_g))
+    _, got = critic_first_fwd(torch.from_numpy(lat), n_dc, n_g, k0, b0,
+                              torch.from_numpy(a_dc), torch.from_numpy(a_g),
+                              keep_rows=True)
     assert got.dtype == BF16 and np.array_equal(want, got.to(torch.float32).numpy())
     want = _first_dense_input(critic, params, lat, method=critic.all_actions)
-    got = critic_input(torch.from_numpy(lat), n_dc, n_g)
+    _, got = critic_first_fwd(torch.from_numpy(lat), n_dc, n_g, k0, b0,
+                              keep_rows=True)
     assert got.shape == (B * n_dc * n_g, L + n_dc + n_g)
     assert np.array_equal(want, got.to(torch.float32).numpy())
-    assert critic_input.launches == 0  # the plain version on the CPU
+    assert critic_first_fwd.launches == 0  # the plain version on the CPU
 
 
 # ---------------------------------------------------------------- B5f
@@ -250,7 +256,8 @@ def test_critic_input_rows_match_flax(n_dc=3, n_g=4):
 
 @pytest.mark.parametrize("n", [1, 5, 8])
 def test_masked_log_softmax_and_grad_match_flax(n):
-    """Both heads through one call and its backward against flax's
+    """Both heads' masked log-softmax (the plain version the fused heads
+    repeat) and B5f's backward in one call against flax's
     ``nn.log_softmax`` under the mask and its ``jax.vjp``: random masks, a
     fully masked row (a uniform head), one feasible entry, large logits."""
     B = 12
@@ -262,8 +269,8 @@ def test_masked_log_softmax_and_grad_match_flax(n):
         m[1] = False
         m[1, n - 1] = True
     cts = [rng.normal(size=(B, n)).astype(np.float32) for _ in range(2)]
-    lp_t = log_softmax2(*(torch.from_numpy(x) for x in logits),
-                        *(torch.from_numpy(m) for m in masks))
+    lp_t = [nets.masked_log_softmax(torch.from_numpy(x), torch.from_numpy(m))
+            for x, m in zip(logits, masks)]
     dl_t = log_softmax2_backward(*(torch.from_numpy(x) for x in logits),
                                  *(torch.from_numpy(m) for m in masks),
                                  *(torch.from_numpy(c) for c in cts))
@@ -279,7 +286,7 @@ def test_masked_log_softmax_and_grad_match_flax(n):
         assert np.abs(dl_j - dl_t[k].numpy()).max() <= GRAD_RTOL * max(
             np.abs(dl_j).max(), 1.0)
         assert np.all(dl_t[k].numpy()[~masks[k]] == 0)
-    assert log_softmax2.launches == log_softmax2_backward.launches == 0
+    assert log_softmax2_backward.launches == 0
 
 
 # ---------------------------------------------------------------- B5g

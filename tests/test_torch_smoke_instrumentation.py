@@ -7,7 +7,9 @@ the card; these tests apply the instrumentation to the current source here,
 with no ``nvcc``.  They also hold the wrapper's block widths and shared-
 memory count against the constants the kernel is built with.  ``--b5-tails``
 cuts B5a and B5b's actor term short, or swaps in an alternative, by text
-edits; each edit's anchor must be in the current source exactly once.
+edits, and ``--fused-input-cuts`` cuts parts of the fused input layers out
+of ``csrc/dense.cu``; each edit's anchor must be in the current source
+exactly once.
 """
 
 import os
@@ -193,3 +195,12 @@ def test_b5_tail_cuts_apply_to_the_sources(src):
     for cut, edits in variants.items():
         for old, _ in edits:
             assert text.count(old) == 1, (cut, old)
+
+
+@pytest.mark.parametrize("cut", sorted(chip_smoke.FUSED_INPUT_CUTS))
+def test_fused_input_cuts_apply_to_the_source(cut):
+    """Every ``--fused-input-cuts`` edit's anchor is in csrc/dense.cu once."""
+    with open(os.path.join(build.CSRC_DIR, "dense.cu")) as f:
+        text = f.read()
+    for old, _ in chip_smoke.FUSED_INPUT_CUTS[cut]:
+        assert text.count(old) == 1, (cut, old)
