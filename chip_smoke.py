@@ -78,7 +78,8 @@ Phases (any failure exits non-zero before the result lines):
     hidden layer's gradient fused into the dX product, a top layer's
     standalone backward; the one-hot critic's first layer building its
     input rows, B5e, inside its product; the actor's two heads with their
-    masked log-softmax, B5f's forward, in one launch), B5f's backward and
+    masked log-softmax, B5f's forward, in one launch), B5f's backward fused
+    with the heads' top-layer backward and
     B5g (the bf16 parameter shadows and the gradient pack), each called
     with the inputs one eager
     update at the published shape gave it (recorded at the call; the
@@ -90,7 +91,10 @@ Phases (any failure exits non-zero before the result lines):
     update's calls timed back to back beside the plain versions, the bound
     and the library call (B5d: cuBLAS's products alone), B5d's also shape
     by shape, the two fused input layers beside the B5d launches of the
-    unfused route they replace;
+    unfused route they replace; then the widened envelope (B5b and the
+    heads' backward at batches 1-4,096 and heads up to 8 x 128, B5d at 1 to
+    4,096 rows, a NaN logit, one or no valid action; every fused call of
+    one update at ``--rl-batch 512 --max-gpus-per-job 64``), bitwise;
 14. (k) whole updates at the published shape (the learning CLI's agent,
     batch 256, a 200,000-row ring filled through B6a): one chunk of updates
     three ways from one state and key chain, as the CLI runs it (one
@@ -99,9 +103,13 @@ Phases (any failure exits non-zero before the result lines):
     bitwise in every state leaf and metric (cuBLAS deterministic), the
     plain path bitwise or within the update's parity bounds (B5d's
     products and cuBLAS's differ on the 49-wide observations), with the
-    heads critic and the one-hot critic; for the one-hot critic ms per
-    update each way and profiled updates (device ops per update, busy
-    share, by kind, and device us per update by kernel name);
+    heads critic and the one-hot critic, at the published shape and at
+    ``--rl-batch 512 --max-gpus-per-job 64``; one eager kernel-path update
+    at the envelope's corner (``--rl-batch 4096 --max-gpus-per-job 128``,
+    both critics) within the parity bounds of the plain path's; for the
+    one-hot critic ms per update each way and profiled updates (device ops per update, busy
+    share, by kind, and device us per update by kernel name) and the
+    bounds of the dW products and the small torch ops;
 15. (l) B1 in RL mode with the weights (k) trained, one 1,024-step chunk at
     the chsac_af CLI's shape, bitwise against the plain step;
 16. (m) the learning CLI: chsac_af for 600 s at the default warm-up: B1, B2
@@ -110,7 +118,8 @@ Phases (any failure exits non-zero before the result lines):
     first, eager update and in the capture), the updates the schedule asks
     for, no synchronizing call with B1, B6a or train_steps on the stack
     apart from the capture's, metrics finite, alpha capped; then the heads
-    critic for 300 s with the same checks;
+    critic for 300 s and a widened setting (``--rl-batch 300
+    --max-gpus-per-job 32``, 120 s) with the same checks;
 17. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
@@ -142,10 +151,10 @@ Opt-in studies replace the smoke when asked for:
         no arrival, the launch alone; the actor's phase 1 alone) and with
         the alternatives measured against the kept design: device us per
         call, where the time of a call goes.
-    python3 chip_smoke.py --update-ab PARENT
-        The learning update of the checkout at PARENT and of this one
-        (alternating as above, each in its own process): ms per replayed
-        update, the graph's span, device ops and device us per update, B5d's
+    python3 chip_smoke.py --update-ab PARENT [onehot|heads]
+        The learning update (the one-hot critic, or the heads critic) of
+        the checkout at PARENT and of this one (alternating as above, each
+        in its own process): ms per replayed update, the graph's span, device ops and device us per update, B5d's
         route per call at each one-hot update shape, the learning CLI's
         events/s.
 """
@@ -1500,11 +1509,11 @@ def seeded_policy_logp(g, B, n_dc, n_g):
     m_dc = torch.rand((B, n_dc), generator=g) < 0.6
     m_g = torch.rand((B, n_g), generator=g) < 0.6
     m_dc[:, 0] = True
-    m_g[:, 1] = True
+    m_g[:, min(1, n_g - 1)] = True
     m_dc[0] = False
-    m_g[1] = False
-    m_dc[2] = False
-    m_dc[2, n_dc - 1] = True
+    m_g[min(1, B - 1)] = False
+    m_dc[min(2, B - 1)] = False
+    m_dc[min(2, B - 1), n_dc - 1] = True
     return (masked_log_softmax(torch.randn((B, n_dc), generator=g), m_dc),
             masked_log_softmax(torch.randn((B, n_g), generator=g), m_g))
 
@@ -1887,10 +1896,10 @@ def _fused_bytes(name, args, kw=None):
         n = m_dc.numel() + m_g.numel()
         return (sum(nb(t) for t in args[:7]) + 8 * n), 43 * n, \
             2 * x.numel() * (k_dc.shape[1] + k_g.shape[1])
-    if name.startswith("log_softmax2"):
-        heads = [t for t in args if isinstance(t, torch.Tensor)]
-        entries = heads[0].numel() + heads[1].numel()
-        return sum(nb(t) for t in heads) + 4 * entries, 40 * entries, 0
+    if name == "heads_backward":  # logits, masks, g in; G, db out
+        entries = args[0].numel() + args[1].numel()
+        return (sum(nb(t) for t in args[:6]) + 2 * entries + nb(args[6])
+                + nb(args[7])), 40 * entries, 0
     # param_pack: every (src, dst) pair read and written once
     pairs = args[0]
     return (sum(nb(a) + nb(b) for a, b in pairs),
@@ -1919,14 +1928,16 @@ def _library_call(name, calls):
         from distributed_cluster_gpus_tpu_torch.rl.nets import critic_input
         ins = [(critic_input(*a[:3], *a[5:7]), a[3]) for a, _ in calls]
         return lambda: [torch.matmul(x, w) for x, w in ins]
-    if name == "log_softmax2_backward":
+    if name == "heads_backward":  # each head: the gradient, cast, sum
         ins = []
         for a, _ in calls:
             for l_, m, g in ((a[0], a[2], a[4]), (a[1], a[3], a[5])):
                 out = torch.log_softmax(l_.masked_fill(~m, -1e9), -1)
                 ins.append((g.clone(), out, (~m).contiguous()))
         return lambda: [torch.ops.aten._log_softmax_backward_data(
-            g, out, -1, torch.float32).masked_fill_(m, 0.0) for g, out, m in ins]
+            g, out, -1, torch.float32).masked_fill_(m, 0.0).to(
+                torch.bfloat16).float().sum(0).to(torch.bfloat16)
+            for g, out, m in ins]
     if name == "param_pack":
         ins = [(src.clone(), dst.dtype) for a, _ in calls for src, dst in a[0]]
         return lambda: [src.to(dt) for src, dt in ins]
@@ -2053,33 +2064,20 @@ def _per_shape(name, calls, fn):
     return out
 
 
-def phase_fused_regions(report):
-    """(j, continued) the update's small fused regions (B5d-B5g): every call
-    one eager update at the published shape (the learning CLI's agent,
-    batch 256, both critics) makes of each wrapper, recorded with its
-    inputs, run again through the kernel and through the plain version
-    from copies of those inputs: every output bitwise, but for B5d's
-    forward on an x whose rows TMA cannot load (the encoder's first layer,
-    49 observations): there cuBLAS runs another product kernel, so the
-    kernel's product is held within one bf16 ulp of cuBLAS's and its
-    epilogue bitwise (``_fwd_standing``).  The share of product elements
-    that differ from cuBLAS's is recorded per call shape.  Then the one-hot
-    update's calls of each wrapper timed back to back (device time of one
-    update's calls), beside the plain versions, the bound (the larger of
-    the bytes these calls move at the HBM peak and their operations at
-    their peaks) and a one-call PyTorch yardstick where one computes the
-    same function (for B5d cuBLAS's products alone); B5d's calls also shape
-    by shape."""
+def check_recorded_calls(fleet, params, ring, cublas):
+    """One eager update of the learning CLI's agent at ``params`` (both
+    critics) on ``ring``, every call of each fused wrapper recorded and run
+    again through the kernel and through the plain version from copies of
+    its inputs: every output bitwise, but for B5d's forward on an x whose
+    rows TMA cannot load (``_fwd_standing``); each B5d product's share of
+    elements that differ from cuBLAS's into ``cublas`` by shape.  Returns
+    ({arch: calls per wrapper}, {arch: (records, the wrappers)})."""
     import dataclasses
 
     from distributed_cluster_gpus_tpu_torch.kernels.dense import tma_ok
-    from distributed_cluster_gpus_tpu_torch.rl.nets import pin_f32_accumulation
     from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
 
-    pin_f32_accumulation()
-    fleet, params, _ = learning_params()
-    ring = seeded_ring(params.rl_buffer, 5, 4096, 0.5, 8)
-    out, n_calls, recs, cublas = {}, {}, {}, {}
+    n_calls, recs = {}, {}
     for arch in ("onehot", "heads"):
         ag = make_agent(fleet, dataclasses.replace(params, critic_arch=arch),
                         device="cuda")
@@ -2087,9 +2085,10 @@ def phase_fused_regions(report):
         rec, orig = record_fused_calls(ag)
         n_calls[arch] = {k: len(v) for k, v in rec.items()}
         want = {k: v for k, v in per_update(arch).items() if k in FUSED}
+        where = f"fused regions ({arch}, batch {params.rl_batch}, {fleet.n_dc} x " \
+                f"{params.max_gpus_per_job})"
         if n_calls[arch] != want:
-            fail(f"fused regions ({arch}): calls in one update {n_calls[arch]}, "
-                 f"expected {want}")
+            fail(f"{where}: calls in one update {n_calls[arch]}, expected {want}")
         for name, calls in rec.items():
             for i, (args, kw) in enumerate(calls):
                 if name in ("dense_fwd", "dense_dx"):
@@ -2119,9 +2118,36 @@ def phase_fused_regions(report):
                         _same_bits(x, y) for x, y in zip(got, want_)):
                     err = max(max_abs_diff(x.float(), y.float())
                               for x, y in zip(got, want_))
-                    fail(f"fused regions ({arch}): {name} call {i} differs from "
-                         f"its plain version (max abs {err:.3g})")
+                    fail(f"{where}: {name} call {i} differs from its plain "
+                         f"version (max abs {err:.3g})")
         recs[arch] = (rec, orig)
+    return n_calls, recs
+
+
+def phase_fused_regions(report):
+    """(j, continued) the update's small fused regions (B5d-B5g): every call
+    one eager update at the published shape (the learning CLI's agent,
+    batch 256, both critics) makes of each wrapper, recorded with its
+    inputs, run again through the kernel and through the plain version
+    from copies of those inputs: every output bitwise, but for B5d's
+    forward on an x whose rows TMA cannot load (the encoder's first layer,
+    49 observations): there cuBLAS runs another product kernel, so the
+    kernel's product is held within one bf16 ulp of cuBLAS's and its
+    epilogue bitwise (``_fwd_standing``).  The share of product elements
+    that differ from cuBLAS's is recorded per call shape.  Then the one-hot
+    update's calls of each wrapper timed back to back (device time of one
+    update's calls), beside the plain versions, the bound (the larger of
+    the bytes these calls move at the HBM peak and their operations at
+    their peaks) and a one-call PyTorch yardstick where one computes the
+    same function (for B5d cuBLAS's products alone); B5d's calls also shape
+    by shape."""
+    from distributed_cluster_gpus_tpu_torch.rl.nets import pin_f32_accumulation
+
+    pin_f32_accumulation()
+    fleet, params, _ = learning_params()
+    ring = seeded_ring(params.rl_buffer, 5, 4096, 0.5, 8)
+    out, cublas = {}, {}
+    n_calls, recs = check_recorded_calls(fleet, params, ring, cublas)
     print("B5d against cuBLAS (pinned float32 accumulation) on the products "
           "one update's calls gave it: " + "; ".join(
               f"{k}: {v['share_differing']:.6f} of elements differ, at most "
@@ -2184,30 +2210,194 @@ def phase_fused_regions(report):
         "per_shape": per_shape, "against_cublas": cublas, **out}
 
 
-def learning_params():
-    """(fleet, params, chunk steps) of the learning CLI (default warm-up)."""
+#: phase (j)'s widened envelope: batch rows and (n_dc, n_g) heads of B5b
+#: and the heads' backward, and the widened update shape whose every fused
+#: call is held against its plain version (``--rl-batch 512
+#: --max-gpus-per-job 64``: A = 512, 72 heads' columns)
+WIDE_B = (1, 100, 256, 512, 4096)
+WIDE_HEADS = ((8, 8), (3, 65), (8, 64), (8, 128))
+WIDE_ARGV = ("--rl-batch", "512", "--max-gpus-per-job", "64")
+
+
+def _nan_aware_bits(a, b):
+    """The same elements NaN, bitwise equal elsewhere."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and _same_bits(a[~na], b[~nb])
+
+
+def _small_ints(g, shape, lo=-3, hi=4):
+    """bf16 small integers on the card: every float32 sum of their products
+    is exact in any order."""
+    return torch.randint(lo, hi, shape, generator=g).to(torch.bfloat16).cuda()
+
+
+def phase_widened_kernels(report):
+    """(j, widened) every widened kernel and both new ones against their
+    plain versions on the card, bitwise, over the envelope: B5b's target
+    and actor term and the heads' fused backward at
+    batches ``WIDE_B`` and heads ``WIDE_HEADS`` (masked, all-masked and
+    one-feasible heads; a NaN logit, NaN-aware); B5d's forward, dX and
+    top-layer backward at 1, 100, 512 and 4,096 rows (exactly summed
+    operands), the heads' forward at 72, 68 and 136 columns, the critic's
+    first layer at 100 x 512 rows; then every fused call of one eager
+    update at ``WIDE_ARGV``, both critics (``check_recorded_calls``).  The
+    two new kernels are also timed at the widened update's shapes."""
+    from distributed_cluster_gpus_tpu_torch.kernels import dense
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    g = torch.Generator().manual_seed(43)
+    n_cases = 0
+    timed = {}
+    for B in WIDE_B:
+        for n_dc, n_g in WIDE_HEADS:
+            A = n_dc * n_g
+            q = torch.randn((B, A, 2, N_Q), generator=g).cuda().permute(0, 2, 1, 3)
+            ldc, lg = (t.cuda() for t in seeded_policy_logp(g, B, n_dc, n_g))
+            r = torch.randn(B, generator=g).cuda()
+            costs = (torch.rand((B, 4), generator=g) * 900).cuda()
+            lam = torch.tensor([0.4, 0.0, 2.0, 0.0]).cuda()
+            tg = torch.tensor([500.0, 1e30, 0.0, 1e30]).cuda()
+            done = (torch.arange(B) % 2).float().cuda()
+            alpha = torch.tensor(0.2).cuda()
+            for nan in (False, True):
+                if nan:  # a NaN logit's log-probabilities in the last row
+                    ldc[-1, 0] = float("nan")
+                t_args = (q, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
+                outs = [*zip(b5.marginal_target(*t_args),
+                             rsac.marginal_target(*t_args)),
+                        *zip(b5.marginal_actor(q, ldc, lg, alpha),
+                             rsac.marginal_actor(q, ldc, lg, alpha))]
+                if not all(_nan_aware_bits(k_, p_) for k_, p_ in outs):
+                    fail(f"B5b at B = {B}, {n_dc} x {n_g} (NaN logit {nan}): "
+                         "differs from its plain version")
+                n_cases += 1
+            heads = []
+            for n in (n_dc, n_g):
+                m = torch.rand((B, n), generator=g) < 0.6
+                m[0] = False  # no valid action
+                if B > 1:
+                    m[1] = False
+                    m[1, n - 1] = True  # one
+                heads.append([(torch.randn((B, n), generator=g) * 3).cuda(),
+                              m.cuda(), torch.randn((B, n), generator=g).cuda()])
+            heads[1][0][-1, 0] = float("nan")  # a NaN logit in the last row
+            heads[1][1][-1, 0] = True
+            (l0, m0, c0), (l1, m1, c1) = heads
+            want_db = [torch.empty(n, dtype=torch.bfloat16, device="cuda")
+                       for n in (n_dc, n_g)]
+            want = nets.heads_backward_plain(l0, l1, m0, m1, c0, c1, *want_db)
+            dbs = [torch.empty_like(d) for d in want_db]
+            got = b5f.heads_backward(l0, l1, m0, m1, c0, c1, *dbs)
+            if not all(_nan_aware_bits(k_.float(), p_.float()) for k_, p_ in
+                       zip((*got, *dbs), (*want, *want_db))):
+                fail(f"heads_backward at B = {B}, {n_dc} + {n_g}: differs "
+                     "from its plain version")
+            n_cases += 1
+            if B == 512 and (n_dc, n_g) == (8, 64):
+                heads[1][0][-1, 0] = 0.0
+                timed["marginal_target 512x(8x64)x32"] = device_ms(
+                    lambda: b5.marginal_target(*t_args), "marginal_target_kernel")[0]
+                dbs = [torch.empty_like(d) for d in want_db]
+                timed["heads_backward 512x(8+64)"] = device_ms(
+                    lambda: b5f.heads_backward(l0, l1, m0, m1, c0, c1, *dbs),
+                    "heads_backward")[0]
+    # B5d at the widened rows, exactly summed operands
+    for R in (1, 100, 512, 4096):
+        x, w = _small_ints(g, (R, 256)), _small_ints(g, (256, 256))
+        b = _small_ints(g, (256,))
+        for relu in (False, True):
+            o = [torch.empty((R, 256), device="cuda") for _ in range(2)]
+            if not (_same_bits(dense.dense_fwd(x, w, b, relu, o[0]),
+                               dense.dense_fwd(x, w, b, relu, o[1], plain=True))
+                    and _same_bits(o[0], o[1])):
+                fail(f"dense_fwd at {R} rows differs from its plain version")
+        gd, wd, y = _small_ints(g, (R, 256)), _small_ints(g, (256, 256)), \
+            _small_ints(g, (R, 256))
+        dbs = [torch.empty(256, dtype=torch.bfloat16, device="cuda")
+               for _ in range(2)]
+        if not (_same_bits(dense.dense_dx(gd, wd, y, dbs[0]),
+                           dense.dense_dx(gd, wd, y, dbs[1], plain=True))
+                and _same_bits(dbs[0], dbs[1])):
+            fail(f"dense_dx at {R} rows differs from its plain version")
+        gf = (torch.randn((R, 2, N_Q), generator=g) * 3).cuda()[:, 1]
+        dbs = [torch.empty(N_Q, dtype=torch.bfloat16, device="cuda")
+               for _ in range(2)]
+        if not (_same_bits(dense.dense_backward(gf, None, dbs[0]),
+                           dense.dense_backward(gf, None, dbs[1], plain=True))
+                and _same_bits(dbs[0], dbs[1])):
+            fail(f"dense_backward at {R} rows differs from its plain version")
+        n_cases += 4
+        for n_dc, n_g in ((8, 64), (3, 65), (8, 128)):
+            ks = [_small_ints(g, (256, n)) for n in (n_dc, n_g)]
+            bs = [_small_ints(g, (n,)) for n in (n_dc, n_g)]
+            ms = [(torch.rand((R, n), generator=g) < 0.7).cuda()
+                  for n in (n_dc, n_g)]
+            hargs = (x, ks[0], bs[0], ks[1], bs[1], *ms)
+            if not all(_nan_aware_bits(k_, p_) for k_, p_ in zip(
+                    dense.actor_heads_fwd(*hargs),
+                    dense.actor_heads_fwd(*hargs, plain=True))):
+                fail(f"actor_heads_fwd at {R} rows, {n_dc} + {n_g}: differs "
+                     "from its plain version")
+            n_cases += 1
+    lat = torch.randint(-3, 4, (100, 256), generator=g).float().cuda()
+    wc, bc = _small_ints(g, (256 + 72, 256)), _small_ints(g, (256,))
+    a_dc = torch.randint(0, 8, (100,), generator=g, dtype=torch.int32).cuda()
+    a_g = torch.randint(0, 64, (100,), generator=g, dtype=torch.int32).cuda()
+    for acts in ((None, None), (a_dc, a_g)):
+        got = dense.critic_first_fwd(lat, 8, 64, wc, bc, *acts, keep_rows=True)
+        want = dense.critic_first_fwd(lat, 8, 64, wc, bc, *acts, keep_rows=True,
+                                      plain=True)
+        if not all(_same_bits(k_, p_) for k_, p_ in zip(got, want)):
+            fail("critic_first_fwd at 100 x 8 x 64 differs from its plain version")
+        n_cases += 1
+    # every fused call of one update at the widened shape, both critics
+    fleet, params, _ = learning_params(WIDE_ARGV)
+    ring = seeded_ring(params.rl_buffer, 5, 4096, 0.5, 9, n_g=64)
+    cublas = {}
+    n_calls, _ = check_recorded_calls(fleet, params, ring, cublas)
+    print(f"widened envelope: {n_cases} kernel cases bitwise equal to their "
+          f"plain versions (B5b and the heads' backward at B = {WIDE_B} x heads "
+          f"{WIDE_HEADS}, a NaN logit; B5d's forward, dX, top-layer backward "
+          f"and heads at 1-4,096 rows; the critic's first layer at 100 x 512 "
+          f"rows); every fused call of one update at {' '.join(WIDE_ARGV)} "
+          f"bitwise, both critics ({n_calls['onehot']}); B5d against cuBLAS "
+          f"there: {cublas}; timed there (ms a call): {timed}")
+    report["widened"] = {"cases": n_cases, "calls": n_calls, "argv": WIDE_ARGV,
+                         "against_cublas": cublas, "timed_ms": timed}
+
+
+def learning_params(extra=()):
+    """(fleet, params, chunk steps) of the learning CLI (default warm-up),
+    with the ``extra`` flags, for an agent driven alone: parsed as for the
+    CPU, since the CLI on the card also holds the GPU-count head to B1's
+    32 actions, which the update alone does not need (``CHSAC_AF`` checks
+    the update's own envelope on the card)."""
     from distributed_cluster_gpus_tpu_torch import run_sim
     from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
 
-    a = run_sim.parse_args(learning_argv("unused"))
+    a = run_sim.parse_args(learning_argv("unused") + list(extra) +
+                           ["--device", "cpu"])
     fleet = build_fleet()
     return fleet, run_sim.finalize_queue_cap(run_sim.build_params(a), fleet), \
         a.chunk_steps
 
 
-def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S):
+def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
     """The learning main path's command line: chsac_af at the default
-    warm-up (1,000 transitions), with the ``arch`` critic."""
+    warm-up (1,000 transitions), with the ``arch`` critic and the ``extra``
+    flags."""
     return ["--algo", "chsac_af", "--duration", str(duration), "--out", out,
             "--log-interval", str(LOG_INTERVAL_S), "--device", "cuda",
-            "--critic-arch", arch, "--quiet"]
+            "--critic-arch", arch, "--quiet", *extra]
 
 
 UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
                    "adam_update", "replay_sample", "param_pack",
                    "dense_fwd", "dense_dx", "dense_backward",
-                   "critic_first_fwd", "actor_heads_fwd",
-                   "log_softmax2_backward")
+                   "critic_first_fwd", "actor_heads_fwd", "heads_backward")
 #: the update's small fused regions (B5d-B5g): {wrapper: (its module and
 #: CUDA source, the profiler's name of its kernel, the JAX package's code
 #: it replaces)}
@@ -2216,13 +2406,13 @@ FUSED = {"dense_fwd": ("dense", "dense_fwd_gemm", "rl/nets.py:37"),
          "dense_backward": ("dense", "dense_bwd_kernel", "rl/sac.py:264"),
          "critic_first_fwd": ("dense", "critic_first_gemm", "rl/nets.py:85"),
          "actor_heads_fwd": ("dense", "actor_heads_gemm", "rl/nets.py:58"),
-         "log_softmax2_backward": ("log_softmax", "log_softmax_backward_kernel",
-                                   "rl/sac.py:264"),
+         "heads_backward": ("log_softmax", "heads_backward", "rl/nets.py:62"),
          "param_pack": ("param_pack", "param_pack_kernel", "rl/sac.py:206")}
-#: the kernels the parent's update launched that this checkout has not
-#: (B5e's rows, B5f's forward alone): an A/B counts them as port kernels,
-#: and phase (k) fails if one runs
-PARENT_KERNELS = ("critic_input_kernel", "log_softmax_kernel")
+#: the kernels the parents' updates launched that this checkout has not
+#: (B5e's rows, B5f's forward alone, B5f's backward alone): an A/B counts
+#: them as port kernels, and phase (k) fails if one runs
+PARENT_KERNELS = ("critic_input_kernel", "log_softmax_kernel",
+                  "log_softmax_backward_kernel")
 
 
 def update_counters():
@@ -2252,19 +2442,22 @@ def per_update(arch):
     ``actor_heads_fwd`` a forward, the rest ``dense_fwd``; 12 backward: 8
     fused into a dX product (each critic twin's two lower layers, the
     actor's hidden layer with both heads' products, the encoder's three
-    layers) and 4 standalone (the twins' top layers, the actor's heads);
-    the log-softmax's backward once, the shadows' and the gradients'
-    pack."""
+    layers), 2 standalone (the twins' top layers) and the actor's heads in
+    one ``heads_backward`` with the log-softmax's backward; the shadows'
+    and the gradients' pack."""
     first = 6 if arch == "onehot" else 0
     return {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
             "adam_update": 1, "replay_sample": 1, "param_pack": 2,
-            "dense_fwd": 26 - first, "dense_dx": 8, "dense_backward": 4,
+            "dense_fwd": 26 - first, "dense_dx": 8, "dense_backward": 2,
             "critic_first_fwd": first, "actor_heads_fwd": 2,
-            "log_softmax2_backward": 1}
+            "heads_backward": 1}
 
 
 #: updates in the chunk that phase (k) holds bitwise across the three paths
 GRAPH_CHUNK = 16
+#: phase (m)'s widened learning CLI run
+WIDE_CLI_S = 120.0
+WIDE_CLI_ARGV = ("--rl-batch", "300", "--max-gpus-per-job", "32")
 
 
 #: the update's kernels by the names the profiler gives them
@@ -2446,6 +2639,71 @@ def three_paths(fleet, params, ring, arch, n):
     return g_ag, e_ag, p_ag, bitwise
 
 
+#: the envelope's corner, the largest update the card takes: batch 4,096
+#: at 8 x 128 joint actions (A = 1,024, 136 heads' columns; the one-hot
+#: critic's all-actions layers 4,194,304 rows)
+CORNER_ARGV = ("--rl-batch", "4096", "--max-gpus-per-job", "128")
+
+
+def corner_update():
+    """One eager kernel-path update at ``CORNER_ARGV`` against the plain
+    path's from the same state and sample, both critics (matmuls
+    deterministic): metrics finite, the state within the parity bounds
+    (``bridge.sac_far_apart``).  Returns {arch: {bitwise, ms, plain_ms,
+    peak_gib}}."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    fleet, params, _ = learning_params(CORNER_ARGV)
+    ring = seeded_ring(32768, 8, 4096, 0.35, 8, n_g=128)
+    out = {}
+    for arch in ("heads", "onehot"):
+        where = f"update at the envelope's corner ({arch})"
+        agents = [make_agent(fleet, dataclasses.replace(params, critic_arch=arch),
+                             device="cuda") for _ in range(2)]
+        for ag in agents:
+            ag.replay = ring
+        e_ag, p_ag = agents
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            me, ne = e_ag.train_steps(1, 1, graph=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mp, np_ = p_ag.train_steps(1, 1, plain=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if (ne, np_) != (1, 1):
+            fail(f"{where}: {ne} and {np_} updates run, 1 asked for")
+        if not all(bool(torch.isfinite(v).all()) for v in me.values()):
+            fail(f"{where}: the kernel path's metrics are not finite {me}")
+        cfg = e_ag.cfg
+        e_tree = bridge.sac_to_numpy(cfg, e_ag.sac)
+        p_tree = bridge.sac_to_numpy(cfg, p_ag.sac)
+        far = bridge.sac_far_apart(cfg, p_tree, e_tree, 1, (mp, me))
+        if far:
+            fail(f"{where}: the plain path's state lies beyond the parity "
+                 f"bounds from the kernel path's at {far[:5]}")
+        out[arch] = {"bitwise": not bridge.tree_mismatches(p_tree, e_tree) and
+                     all(_bits(me[k], mp[k]) for k in me),
+                     "ms": (t1 - t0) * 1e3, "plain_ms": (t2 - t1) * 1e3,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del agents, e_ag, p_ag
+        torch.cuda.empty_cache()
+    del ring
+    torch.cuda.empty_cache()
+    print(f"one update at the envelope's corner ({' '.join(CORNER_ARGV)}: "
+          f"A = 1,024): the eager kernel path against the plain path, within "
+          f"the parity bounds, both critics: {out}", flush=True)
+    return out
+
+
 def phase_update_whole(report):
     """(k) whole updates at the published shape (the learning CLI's agent:
     256-wide networks, N = 32, 8 x 8 actions, batch 256, a 200,000-row ring
@@ -2454,15 +2712,29 @@ def phase_update_whole(report):
     the update captured as a CUDA graph and replayed (the main path), every
     update run eagerly through the kernels, and the plain path; the matmuls
     deterministic in all three; every leaf of the state and every metric
-    bitwise, with the heads critic and with the one-hot critic (the CLI's).
-    Then, for the one-hot critic, ms per update each way, and profiled
+    bitwise, with the heads critic and with the one-hot critic (the CLI's);
+    the same at ``WIDE_ARGV`` and one eager update at the envelope's corner
+    (``corner_update``).  Then, for the one-hot critic, ms per update each way, and profiled
     updates: device ops per update and the device's busy share, by kind
     (matmuls, the port's kernels, other torch ops), for the replayed graph
     and the eager path.  Returns the graph path's trained agent."""
     fleet, params, _ = learning_params()
     init = init_on_card(fleet, params)
-    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
     n = GRAPH_CHUNK
+    # the widened envelope first (its agents are dropped before the
+    # published shape's timings): batch 512, 8 x 64 joint actions
+    wfleet, wparams, _ = learning_params(WIDE_ARGV)
+    wring = seeded_ring(wparams.rl_buffer, 50, 4096, 0.35, 6, n_g=64)
+    wide_bitwise = {}
+    for arch in ("heads", "onehot"):
+        wide_bitwise[arch] = three_paths(wfleet, wparams, wring, arch, n)[3]
+    del wring
+    print(f"whole update at {' '.join(WIDE_ARGV)} (A = 512, 72 heads' "
+          f"columns): a chunk of {n} updates bitwise equal between the CUDA "
+          f"graph and the eager kernel path, the plain path bitwise "
+          f"({wide_bitwise}) or within the parity bounds, both critics")
+    corner = corner_update()
+    ring = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
     plain_bitwise = {}
     for arch in ("heads", "onehot"):
         g_ag, e_ag, p_ag, plain_bitwise[arch] = three_paths(fleet, params, ring,
@@ -2536,6 +2808,32 @@ def phase_update_whole(report):
           "per update by name (none of B5e's or B5f's forward alone): " +
           "; ".join(f"{k[:60]} {o:.2f} ops {us:.2f} us"
                     for k, (o, us) in sorted(ours.items())))
+    # the bounds of what the port leaves to torch: the 12 dW products
+    # (x^T G of every layer with a gradient, each operand read once and the
+    # product written once; 2 B K N bf16 operations) and the update's small
+    # ops (the sample's fields read, the observations' bf16 casts written,
+    # the taken quantiles' mean, the CMDP and metric scalars)
+    from distributed_cluster_gpus_tpu_torch.rl.nets import dense_layers
+
+    B = cfg.batch
+    kn = [tuple(l.kernel.shape) for m in (g_ag.sac.critic, g_ag.sac.actor,
+                                          g_ag.sac.enc) for l in dense_layers(m)]
+    dw_bytes = sum(2 * (B * K + B * N_ + K * N_) for K, N_ in kn)
+    dw_ops = sum(2 * B * K * N_ for K, N_ in kn)
+    dw_bound, dw_by = bound2(dw_bytes, 0, dw_ops)
+    obs = cfg.obs_dim
+    small_bytes = B * (2 * obs * (4 + 2) + 4 * 4 + 2 * 4 + 2 * 4
+                       + 2 * (cfg.n_dc + cfg.n_g)) + B * 2 * cfg.n_quantiles * 4 \
+        + 64 * 4
+    small_bound, small_by = bound(small_bytes, 0)
+    pg_us, pg_ops = prof["graph"]["device_us_per_update"], \
+        prof["graph"]["device_ops_per_update"]
+    print(f"whole update, what torch runs: the {len(kn)} dW products bound "
+          f"{dw_bound * 1e3:.3f} us ({dw_by}: {dw_bytes} B, {dw_ops} bf16 ops) "
+          f"against {pg_us['matmul']:.1f} us in {pg_ops['matmul']:.2f} launches; "
+          f"the small ops bound {small_bound * 1e3:.4f} us ({small_by}: "
+          f"{small_bytes} B) against {pg_us['other torch ops']:.1f} us in "
+          f"{pg_ops['other torch ops']:.2f} launches (replayed graph)")
     layers = g_ag.sac.layers()
     nonzero_bias = all(bool(l.bias.ne(0).any()) for l in layers)
     # the two all-actions products (the target critic's on s1, the online
@@ -2573,6 +2871,13 @@ def phase_update_whole(report):
                         "eager_ms_per_update": timing["eager"],
                         "plain_ms_per_update": timing["plain"],
                         "plain_bitwise": plain_bitwise,
+                        "widened": {"argv": WIDE_ARGV,
+                                    "plain_bitwise": wide_bitwise},
+                        "corner": {"argv": CORNER_ARGV, **corner},
+                        "dw_bound_ms": dw_bound, "dw_bound_by": dw_by,
+                        "dw_bytes": dw_bytes, "dw_ops": dw_ops,
+                        "small_ops_bound_ms": small_bound,
+                        "small_ops_bytes": small_bytes,
                         "profile": prof, "all_actions_ops": mm_ops,
                         "all_actions_bound_ms": mm_bound_ms,
                         "calls_per_update": launched}
@@ -2613,7 +2918,7 @@ def phase_b1_after_learning(report, agent, steps=1024):
                             "transitions": dec, "max_abs_err": err}
 
 
-def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
+def learning_run(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
     """One learning CLI run with the launch counters zeroed just before it
     and read just after; fails unless B1 (RL mode), B2 and B6a ran once per
     chunk, every update but the first ran as a replay of the one captured
@@ -2662,7 +2967,7 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
         for w in counters.values():
             w.launches = 0
         t0 = time.perf_counter()
-        st = run_sim.main(learning_argv(out, arch, duration))
+        st = run_sim.main(learning_argv(out, arch, duration, extra))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"event_scan": b1.event_scan.launches,
@@ -2672,7 +2977,7 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S):
                     **{k: w.launches for k, w in counters.items()}}
     finally:
         CHSAC_AF.ingest_chunk, CHSAC_AF.train_steps = orig_ingest, orig_train
-    where = f"learning CLI ({arch})"
+    where = f"learning CLI ({arch}{' ' if extra else ''}{' '.join(extra)})"
     n_chunks = len(rec["valid"])
     per_chunk = [launches[k] for k in ("event_scan", "rl", "arrival_tables",
                                        "replay_ingest")]
@@ -2727,8 +3032,14 @@ def phase_learning_cli(report, out_root):
     ``train_steps`` code on the stack (none allowed; the one capture's are
     counted apart, every replay's with the rest); then the heads critic
     (``--critic-arch heads``) for 300 s, checked the same way."""
+    import gc
+
     from distributed_cluster_gpus_tpu_torch import run_sim
 
+    # each run starts as a fresh CLI process would: no memory cached by the
+    # earlier phases (a capture's pool would otherwise go through freeing it)
+    gc.collect()
+    torch.cuda.empty_cache()
     out = os.path.join(out_root, "chsac_af_learning")
     st, wall, rec, launches = learning_run(out)
     with SyncCounter() as syncs:
@@ -2749,12 +3060,19 @@ def phase_learning_cli(report, out_root):
     h_st, h_wall, h_rec, h_launch = learning_run(out + "_heads", "heads", h_dur)
     h_upd = sum(h_rec["done"])
     h_ms = sum(m for m, n in zip(h_rec["ms"], h_rec["done"]) if n) / h_upd
+    # a widened setting: an odd batch over two 256-row tiles, 8 x 32 joint
+    # actions (B1's RL mode acts with at most 32 GPU-count actions)
+    w_st, w_wall, w_rec, w_launch = learning_run(
+        out + "_wide", "onehot", WIDE_CLI_S, WIDE_CLI_ARGV)
+    w_upd = sum(w_rec["done"])
+    w_ms = sum(m for m, n in zip(w_rec["ms"], w_rec["done"]) if n) / w_upd
     print(f"learning CLI chsac_af (default warm-up 1,000): {events} events in "
           f"{MAIN_DURATION_S:.0f} s simulated, {wall:.2f} s wall, "
           f"{events / wall:.1f} events/s; {updates} updates in {len(per_chunk)} "
           f"of {n_chunks} chunks ({per_chunk}), {ms_per_update:.3f} ms per "
           f"update (train_steps wall, synchronized), {upd_ms / 1e3:.2f} s of "
-          f"the wall; graph replays per updating chunk {replays} (1 capture); "
+          f"the wall (ms per updating chunk "
+          f"{[round(m, 1) for m, n in zip(rec['ms'], rec['done']) if n]}); graph replays per updating chunk {replays} (1 capture); "
           f"device ops per update {upd['graph']['launches_per_update']:.0f}, "
           f"device busy share in an update {upd['graph']['busy_share']:.3f} "
           f"(eager: {upd['eager']['launches_per_update']:.0f}, "
@@ -2767,7 +3085,10 @@ def phase_learning_cli(report, out_root):
           f"entropy {float(last['entropy']):.4g}, lambda "
           f"{last['lambda'].tolist()}; heads critic, {h_dur:.0f} s: "
           f"{int(h_st.n_events)} events, {h_wall:.2f} s wall, {h_upd} updates, "
-          f"{h_ms:.3f} ms per update, launches {h_launch}")
+          f"{h_ms:.3f} ms per update, launches {h_launch}; "
+          f"{' '.join(WIDE_CLI_ARGV)}, {WIDE_CLI_S:.0f} s: {int(w_st.n_events)} "
+          f"events, {w_wall:.2f} s wall, {w_upd} updates, {w_ms:.3f} ms per "
+          f"update, launches {w_launch}")
     report["learning_cli"] = {
         "events": events, "wall_s": wall, "events_per_s": events / wall,
         "updates": updates, "updates_per_chunk": rec["done"],
@@ -2781,7 +3102,11 @@ def phase_learning_cli(report, out_root):
         "last_metrics": {k: v.tolist() for k, v in last.items()},
         "heads": {"duration_s": h_dur, "events": int(h_st.n_events),
                   "wall_s": h_wall, "updates": h_upd, "ms_per_update": h_ms,
-                  "launches": h_launch}}
+                  "launches": h_launch},
+        "widened": {"argv": WIDE_CLI_ARGV, "duration_s": WIDE_CLI_S,
+                    "events": int(w_st.n_events), "wall_s": w_wall,
+                    "updates": w_upd, "ms_per_update": w_ms,
+                    "launches": w_launch}}
     return launches
 
 
@@ -3126,11 +3451,13 @@ def _b5d_routes():
 def _fused_input_routes(r):
     """us per call of the one-hot critic's first layer (all actions; the
     taken actions with their rows kept) and of the actor's two heads with
-    their log-softmax at the update's shapes, by the route of the package
-    on sys.path: the fused kernels of this checkout, or the parent's three
-    launches (B5e's rows and B5d's product; two B5d heads and B5f's
-    forward)."""
+    their log-softmax at the update's shapes; then of B5b's target and of
+    the heads' backward by the route of the package on sys.path: this
+    checkout's heads_backward (one launch), or the parent's three launches
+    (B5f's backward, then two B5d top-layer backwards)."""
     from distributed_cluster_gpus_tpu_torch.kernels import dense
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
 
     g = torch.Generator().manual_seed(6)
     lat = torch.randn((256, 256), generator=g).abs().cuda()
@@ -3139,32 +3466,34 @@ def _fused_input_routes(r):
     w, b = r(272, 256), r(256)
     hid, heads = r(256, 256), [(r(256, 8), r(8)) for _ in range(2)]
     masks = [(torch.rand((256, 8), generator=g) < 0.7).cuda() for _ in range(2)]
-    out = {}
-    if hasattr(dense, "critic_first_fwd"):
-        calls = {"critic all 16384x272x256": lambda: dense.critic_first_fwd(
-            lat, 8, 8, w, b),
-            "critic taken 256x272x256 (rows kept)": lambda: dense.critic_first_fwd(
-                lat, 8, 8, w, b, *acts, keep_rows=True),
-            "actor heads 256x256x8+8": lambda: dense.actor_heads_fwd(
-                hid, *heads[0], *heads[1], *masks)}
+    calls = {"critic all 16384x272x256": lambda: dense.critic_first_fwd(
+        lat, 8, 8, w, b),
+        "critic taken 256x272x256 (rows kept)": lambda: dense.critic_first_fwd(
+            lat, 8, 8, w, b, *acts, keep_rows=True),
+        "actor heads 256x256x8+8": lambda: dense.actor_heads_fwd(
+            hid, *heads[0], *heads[1], *masks)}
+    q = torch.randn((256, 64, 2, N_Q), generator=g).cuda().permute(0, 2, 1, 3)
+    ldc, lg = (t.cuda() for t in seeded_policy_logp(g, 256, 8, 8))
+    t_args = (q, ldc, lg, torch.randn(256, generator=g).cuda(),
+              (torch.rand((256, 4), generator=g) * 900).cuda(),
+              torch.tensor([0.4, 0.0, 2.0, 0.0]).cuda(),
+              torch.tensor([500.0, 1e30, 0.0, 1e30]).cuda(),
+              (torch.arange(256) % 2).float().cuda(), torch.tensor(0.2).cuda(),
+              0.99)
+    calls["B5b target 256x64x32"] = lambda: b5.marginal_target(*t_args)
+    lg_ = [torch.randn((256, 8), generator=g).cuda() for _ in range(2)]
+    cg = [torch.randn((256, 8), generator=g).cuda() for _ in range(2)]
+    dbs = [torch.empty(8, dtype=torch.bfloat16, device="cuda") for _ in range(2)]
+    if hasattr(b5f, "heads_backward"):
+        calls["heads backward 256x(8+8)"] = lambda: b5f.heads_backward(
+            *lg_, *masks, *cg, *dbs)
     else:
-        from distributed_cluster_gpus_tpu_torch.kernels.critic_input import \
-            critic_input
-        from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import \
-            log_softmax2
-
-        logits = [torch.empty((256, 8), device="cuda") for _ in range(2)]
-
         def heads_route():
-            for (k, bias), o in zip(heads, logits):
-                dense.dense_fwd(hid, k, bias, False, o)
-            return log_softmax2(*logits, *masks)
+            for d, db in zip(b5f.log_softmax2_backward(*lg_, *masks, *cg), dbs):
+                dense.dense_backward(d, None, db)
 
-        calls = {"critic all 16384x272x256": lambda: dense.dense_fwd(
-            critic_input(lat, 8, 8), w, b, True),
-            "critic taken 256x272x256 (rows kept)": lambda: dense.dense_fwd(
-                critic_input(lat, 8, 8, *acts), w, b, True),
-            "actor heads 256x256x8+8": heads_route}
+        calls["heads backward 256x(8+8)"] = heads_route
+    out = {}
     for name, fn in calls.items():
         out[name] = _queued_ms(fn) * 1e3
     return out
@@ -3298,10 +3627,11 @@ def _critic_first_plans():
     return out
 
 
-def study_update_child():
-    """``--update-ab-child ROOT`` (the A/B's child process): the learning
-    update of the package at ROOT at the published shape (the learning
-    CLI's agent, one-hot critic, batch 256, a seeded 200,000-row ring):
+def study_update_child(arch="onehot"):
+    """``--update-ab-child ROOT [ARCH]`` (the A/B's child process): the
+    learning update of the package at ROOT at the published shape (the
+    learning CLI's agent, the ``arch`` critic, batch 256, a seeded
+    200,000-row ring):
     ms per replayed update (host wall), the graph's span on the card,
     device ops and device us per update by kind from 8 profiled replays,
     B5d's route per call at each shape, then the learning CLI's events/s
@@ -3311,7 +3641,7 @@ def study_update_child():
     from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
 
     build.build([f[:-3] for f in os.listdir(build.CSRC_DIR) if f.endswith(".cu")])
-    fleet, params, _ = learning_params()
+    fleet, params, _ = learning_params(("--critic-arch", arch))
     ag = make_agent(fleet, params, device="cuda")
     ag.replay = seeded_ring(params.rl_buffer, 50, 4096, 0.35, 5)
     ag.train_steps(2, 2)
@@ -3327,7 +3657,7 @@ def study_update_child():
     out = os.path.join(os.getcwd(), "smoke_out", "ab_learning")
     shutil.rmtree(out, ignore_errors=True)
     t0 = time.perf_counter()
-    st = run_sim.main(learning_argv(out))
+    st = run_sim.main(learning_argv(out, arch))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     shutil.rmtree(out, ignore_errors=True)
@@ -3341,16 +3671,17 @@ def study_update_child():
         "cli_wall_s": wall}))
 
 
-def study_update_ab(parent, change):
-    """``--update-ab PARENT``: the learning update and B5d's route of two
-    checkouts, the parent and this one, alternating parent, change,
-    change, parent, each in its own process (``--update-ab-child``); one
-    JSON line at the end with every run and the means."""
+def study_update_ab(parent, change, arch="onehot"):
+    """``--update-ab PARENT [ARCH]``: the learning update (the ``arch``
+    critic) and B5d's route of two checkouts, the parent and this one,
+    alternating parent, change, change, parent, each in its own process
+    (``--update-ab-child``); one JSON line at the end with every run and
+    the means."""
     runs = {"parent": [], "change": []}
     for name, root in (("parent", parent), ("change", change),
                        ("change", change), ("parent", parent)):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--update-ab-child", root], cwd=root,
+                            "--update-ab-child", root, arch], cwd=root,
                            capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             fail(f"update A/B: {name} ({root}) failed:\n{r.stderr[-3000:]}")
@@ -3365,7 +3696,7 @@ def study_update_ab(parent, change):
         "ms_per_update", "span_ms", "launches_per_update", "cli_events_per_s")}
         for name, ds in runs.items()}
     print(f"update A/B means: {mean}")
-    print(json.dumps({"update_ab": {"runs": runs, "mean": mean}}))
+    print(json.dumps({"update_ab": {"arch": arch, "runs": runs, "mean": mean}}))
 
 
 #: where a call of B5a and of B5b's actor term goes: copies of the kernel
@@ -3422,9 +3753,10 @@ B5_ALTERNATIVES = {
             "float s = rd::tree_regs(Bp > 32 ? Bp >> 5 : 1, 0.0f,",
             "float s = rd::tree_stream(Bp > 32 ? Bp >> 5 : 1, 0.0f,"),),
         "phase 2 with the heads' sizes at run time": (B5_FIXED_HEADS,),
-        "phase 2 at the largest register size": (B5_FIXED_HEADS, (
-            "else if (Ap <= 64 && rd::pow2_at_least(n_dc)",
-            "else if (B < 0 && rd::pow2_at_least(n_dc)")),
+        "phase 2 at the largest register size": (
+            B5_FIXED_HEADS, ("else if (Ap <= 64 && E <= 64)",
+                             "else if (B < 0 && E <= 64)"),
+            ("else if (Ap <= 256 && E <= 256)", "else if (B < 0 && E <= 256)")),
     },
 }
 
@@ -3550,7 +3882,7 @@ FUSED_INPUT_CUTS = {
         "  if (row >= a.R) return;",
         "  const int h = tid / BM, r = tid % BM, row = m0 + r;  // a warp, one head\n"
         "  if (row >= 0) return;"),),
-    "heads: no W load": (("    if (kHeads) load_heads<BM>(smem, a);", ""),),
+    "heads: no W load": (("    if (kHeads) load_heads<BM, BN>(smem, a);", ""),),
 }
 
 
@@ -3632,12 +3964,12 @@ def study_fused_input_cuts():
                     w.data_ptr(), b.data_ptr(), y.data_ptr(), 256, *plan, stream)
         else:
             f = lib.actor_heads_launch
-            f.argtypes = [P, LL] + [P] * 10 + [I] * 6 + [P]
+            f.argtypes = [P, LL] + [P] * 10 + [I] * 7 + [P]
             args = (hid.data_ptr(), 256, heads[0][0].data_ptr(),
                     heads[0][1].data_ptr(), heads[1][0].data_ptr(),
                     heads[1][1].data_ptr(), masks[0].data_ptr(),
                     masks[1].data_ptr(), *(o.data_ptr() for o in h_out), B, 256,
-                    8, 8, *dense.heads_plan(B, 256), stream)
+                    8, 8, *dense.heads_plan(B, 256, 16), stream)
 
         def run():
             if f(*args) != 0:
@@ -3792,16 +4124,17 @@ def main():
         if args == ["--fused-input-cuts"]:
             print(card_line())
             return study_fused_input_cuts()
-        if len(args) == 2 and args[0] == "--update-ab":
+        if len(args) in (2, 3) and args[0] == "--update-ab" and (
+                args[2:] in ([], ["onehot"], ["heads"])):
             print(card_line())
-            return study_update_ab(os.path.abspath(args[1]), here)
-        if len(args) == 2 and args[0] == "--update-ab-child":
+            return study_update_ab(os.path.abspath(args[1]), here, *args[2:])
+        if len(args) in (2, 3) and args[0] == "--update-ab-child":
             sys.path.insert(0, os.path.abspath(args[1]))
-            return study_update_child()
+            return study_update_child(*args[2:])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
-             "PARENT_CHECKOUT")
+             "PARENT_CHECKOUT [onehot|heads]")
     report = {}
     card = card_line()
     print(card)
@@ -3840,6 +4173,7 @@ def main():
         rl_launches = phase_chsac_cli(report, out_root)
         phase_update_kernels(report)
         phase_fused_regions(report)
+        phase_widened_kernels(report)
         trained = phase_update_whole(report)
         phase_b1_after_learning(report, trained)
         upd_launches = phase_learning_cli(report, out_root)
@@ -3893,8 +4227,9 @@ def main():
         dict(entry("quantile_huber", "quantile_huber.cu", "rl/sac.py:178",
                    upd_launches["quantile_huber"], report["b5a"], None),
              redesigned=True),
-        entry("marginal_target", "marginal.cu", "rl/sac.py:223",
-              upd_launches["marginal_target"], report["b5b_target"], None),
+        dict(entry("marginal_target", "marginal.cu", "rl/sac.py:223",
+                   upd_launches["marginal_target"], report["b5b_target"], None),
+             redesigned=True),
         dict(entry("marginal_actor", "marginal.cu", "rl/sac.py:251",
                    upd_launches["marginal_actor"], report["b5b_actor"], None),
              redesigned=True),
@@ -3906,7 +4241,8 @@ def main():
                    report["b6b"]["library_ms"]), redesigned=True),
         *(dict(entry(name, f"{mod}.cu", replaces, upd_launches[name],
                      report["fused"][name], report["fused"][name]["library_ms"]),
-               **({"redesigned": True} if mod == "dense" else {}))
+               **({"redesigned": True} if mod in ("dense", "log_softmax")
+                  else {}))
           for name, (mod, _, replaces) in FUSED.items()),
     ]}
     report["kernels"] = kernels["kernels"]

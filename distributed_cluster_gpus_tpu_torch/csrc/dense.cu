@@ -26,7 +26,8 @@
 // side in W's tile, each logit rounded and its head's bias added as above,
 // written as float32, then per (row, head) x = mask ? l : -1e9, m = max x
 // (NaN wins), S = the halving tree of exp(x - m), logp = (x - m) - log(S),
-// csrc/log_softmax.cu's arithmetic op for op (expf, logf: torch's).
+// rl/nets.py::masked_log_softmax's arithmetic op for op (expf, logf:
+// torch's).
 // dense_dx_gemm, a hidden layer's gradient from the layer above's G' [R, K']
 // and kernel W' [N, K'] (and, for the actor's hidden layer, a second pair):
 //   G  = bf16(G' W'^T)  or  bf16(float(bf16(G' W'^T)) + float(bf16(G2 W2^T)))
@@ -90,23 +91,33 @@
 //   after its rows and a proxy fence.  Generic stores into shared memory
 //   are fenced (fence.proxy.async) before the asynchronous products read
 //   them.
-// * The heads' kernels (4- or 16-byte rows, side by side in one 64-wide
-//   tile) are loaded by the block's threads; the log-softmax runs one
-//   thread per (row, head), a warp on one head, its exponentials in its
-//   column of shared memory behind the tile (entry j of thread t at j T +
-//   t: no bank conflicts, no local memory).
-// * dX: a block owns 16 columns of all R <= 256 rows (four warpgroups of 64
-//   rows), so the bias gradient's tree over the rows stays in the block:
-//   wgmma m64n16k16 with both operands K-major (W' is [N, K'] row-major),
-//   then the epilogue rounds (and sums the second product), masks by y,
-//   writes G and puts float(G) in shared memory, and one warp a column runs
-//   the tree: the levels of 128, 64 and 32 rows in registers (a lane holds
-//   rows l, l + 32, ...), the last five by __shfl_down_sync.  No atomics.
-//   The mask's y is loaded before any store of G.
+// * The heads' kernels (4- or 16-byte rows, side by side in one tile of
+//   64, 128, 192 or 256 columns: one wgmma a k16 step holds whole rows) are
+//   loaded by the block's threads; the log-softmax runs one thread per
+//   (row, head), a warp on one head, its exponentials taken as the tree
+//   needs them (rd::tree_regs, at most 9 partial sums live: no scratch, no
+//   local memory).
+// * Rows: the forward takes any R >= 1, the last row tile partial (TMA
+//   fills rows past R with zeros, threads that load an operand predicate
+//   its rows, and no store lands past R); offsets into the all-actions
+//   rows (up to 4,096 x 1,024) are 64-bit.
+// * dX: a block owns 16 columns of a 256-row tile (four warpgroups of 64
+//   rows): wgmma m64n16k16 with both operands K-major (W' is [N, K']
+//   row-major), then the epilogue rounds (and sums the second product),
+//   masks by y, writes G and puts float(G) in shared memory (+0.0 past R,
+//   as the plain tree pads), and one warp a column runs the bias
+//   gradient's tree (rd::column_tree: levels of distance >= 32 in
+//   registers, the rest by __shfl_down_sync from the padded half).  Over R
+//   > 256 rows (up to 4,096) the grid has a block per tile; each counts
+//   its arrival on its column group's counter, and the last to arrive
+//   takes the tree's tile levels (tile t + tile t + T/2, elementwise) from
+//   G in device memory, then the tree inside a tile (rd::tiled_column_tree):
+//   tree_sum_last's order over the padded rows.  The mask's y is loaded
+//   before any store of G.
 // * The top layers' standalone backward (dense_bwd_kernel): a block owns 8
-//   columns; two neighbouring threads read a row's 8 columns as 16-byte
-//   vectors, each thread its two rows (r and r + 128) before any store;
-//   the same register-and-shuffle tree follows.
+//   columns of a 256-row tile; two neighbouring threads read a row's 8
+//   columns as 16-byte vectors, each thread its two rows (r and r + 128)
+//   before any store; the same trees follow.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -123,9 +134,10 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;        // k-tile depth, and a 128-byte swizzle row
 constexpr int kRowBytes = 128;   // one swizzled row of 64 bf16
 constexpr int kDxBN = 16;        // dX: columns a block owns
-constexpr int kDxRows = 256;     // dX: rows a block owns (4 warpgroups)
+constexpr int kDxRows = rd::kTileRows;  // backward: rows a block owns (dX:
+                                        // 4 warpgroups)
 constexpr int kBwdCols = 8;      // standalone backward: columns a block owns
-constexpr int kMaxTreeRows = 256;
+constexpr int kMaxRows = rd::kMaxTiles * rd::kTileRows;  // backward rows
 
 // ---------------------------------------------------------------- PTX
 
@@ -278,6 +290,50 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64 x 192] += A[64 x 16] * B[16 x 192], both operands in shared memory
+// (descriptors); TB: 0 for a K-major B, 1 for an N-major one
+template <int TB>
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // D[64 x 256] += A[64 x 16] * B[16 x 256], both operands in shared memory
 // (descriptors); TB: 0 for a K-major B, 1 for an N-major one
 template <int TB>
@@ -359,29 +415,6 @@ __device__ void load_box(uint8_t* dst, const bf16* __restrict__ src,
 
 __device__ __forceinline__ void fence_generic_to_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// The halving tree over the P rows (P a power of two, 64 <= P <= 256) of
-// column c of s (row stride `stride` floats), by one warp: lane l holds
-// rows l, l + 32, ...; the levels of 128, 64 and 32 rows run in registers,
-// the last five by shuffles.  The sum ends in lane 0.
-__device__ __forceinline__ float column_tree(const float* s, int stride, int c,
-                                             int P) {
-  const int lane = threadIdx.x % 32;
-  float v[kMaxTreeRows / 32];
-#pragma unroll
-  for (int k = 0; k < kMaxTreeRows / 32; ++k)
-    v[k] = 32 * k < P ? s[(lane + 32 * k) * stride + c] : 0.0f;
-#pragma unroll
-  for (int h = kMaxTreeRows / 64; h >= 1; h >>= 1)
-    if (64 * h <= P) {
-#pragma unroll
-      for (int k = 0; k < h; ++k) v[k] = __fadd_rn(v[k], v[k + h]);
-    }
-#pragma unroll
-  for (int h = 16; h >= 1; h >>= 1)
-    v[0] = __fadd_rn(v[0], __shfl_down_sync(0xffffffffu, v[0], h));
-  return v[0];
 }
 
 // ------------------------------------------------------------- forward
@@ -654,30 +687,35 @@ __device__ __forceinline__ uint4 heads_chunk(const FwdArgs& a, int k, int c) {
 }
 
 // The whole K of the heads' kernels into W's half of every stage (N-major
-// and swizzled as TMA lays out a [K, N] kernel's box), by every thread of
-// the block, two k rows a thread at a time: the loads of their chunks that
-// hold entries first, then all eight chunks of each row (zeros past the
-// heads)
-template <int BM>
+// and swizzled as TMA lays out a [K, N] kernel's BN / 64 boxes), by every
+// thread of the block, two k rows a thread at a time, a box (8 chunks of 8
+// columns) at a time: the loads of its chunks that hold entries first, then
+// all its chunks (zeros past the heads)
+template <int BM, int BN>
 __device__ __forceinline__ void load_heads(uint8_t* smem, const FwdArgs& a) {
-  constexpr int A_BYTES = BM * kRowBytes, STAGE = (BM + 64) * kRowBytes;
+  constexpr int A_BYTES = BM * kRowBytes, STAGE = (BM + BN) * kRowBytes;
   const int nc = (a.n_dc + a.n_g + 7) / 8, rows = a.kt * kTile;
   const int T = blockDim.x;
   for (int k0 = threadIdx.x; k0 < rows; k0 += 2 * T) {
-    uint4 v[2][8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int box = 0; box < BN / 64; ++box) {
+      uint4 v[2][8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
-        v[i][c] = c < nc && k0 + i * T < rows ? heads_chunk(a, k0 + i * T, c)
-                                               : make_uint4(0, 0, 0, 0);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = k0 + i * T;
-      if (k < rows)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int c = 0; c < 8; ++c)
-          *swizzled(smem + (k / kTile) * STAGE + A_BYTES, k % kTile, c) = v[i][c];
+          v[i][c] = 8 * box + c < nc && k0 + i * T < rows
+                        ? heads_chunk(a, k0 + i * T, 8 * box + c)
+                        : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = k0 + i * T;
+        if (k < rows)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            *swizzled(smem + (k / kTile) * STAGE + A_BYTES + box * 64 * kRowBytes,
+                      k % kTile, c) = v[i][c];
+      }
     }
   }
 }
@@ -791,6 +829,11 @@ __device__ __forceinline__ void fwd_mma<128>(float (&acc)[64], uint64_t da,
   wgmma_n128<1>(acc, da, db, scale_d);
 }
 template <>
+__device__ __forceinline__ void fwd_mma<192>(float (&acc)[96], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_n192<1>(acc, da, db, scale_d);
+}
+template <>
 __device__ __forceinline__ void fwd_mma<256>(float (&acc)[128], uint64_t da,
                                              uint64_t db, int scale_d) {
   wgmma_n256<1>(acc, da, db, scale_d);
@@ -803,13 +846,14 @@ constexpr float kNegMask = -1e9f;
 // bf16 bias (fwd_out, no ReLU), written as float32 per head and kept in
 // the tile; then one thread per (row, head) takes the masked log-softmax
 // (its mask's line prefetched before the product loop) of
-// csrc/log_softmax.cu op for op (x = mask ? l : -1e9, torch's max with
-// NaN winning, expf(x - m) summed by the halving tree zero-padded to a
-// power of two in the thread's column of `scratch`, (x - m) - logf(S)).
+// rl/nets.py::masked_log_softmax op for op (x = mask ? l : -1e9, torch's
+// max with NaN winning, expf(x - m) summed by the halving tree zero-padded
+// to a power of two, (x - m) - logf(S)).  The tree takes its leaves as it
+// needs them (rd::tree_regs: depth first up to 16, streamed above, at most
+// 9 partial sums live), so a head of up to 256 entries needs no scratch.
 template <int BM, int TS>
 __device__ __forceinline__ void heads_epilogue(bf16* tile, const bf16* bias_s,
-                                               float* scratch, const FwdArgs& a,
-                                               int m0) {
+                                               const FwdArgs& a, int m0) {
   const int tid = threadIdx.x, n = a.n_dc + a.n_g;
   for (int e = tid; e < BM * n; e += blockDim.x) {
     const int r = e / n, c = e % n, row = m0 + r;
@@ -824,30 +868,24 @@ __device__ __forceinline__ void heads_epilogue(bf16* tile, const bf16* bias_s,
   __syncthreads();
   const int h = tid / BM, r = tid % BM, row = m0 + r;  // a warp, one head
   if (row >= a.R) return;
-  const int nh = h ? a.n_g : a.n_dc, T = blockDim.x;
+  const int nh = h ? a.n_g : a.n_dc;
   const uint8_t* mk = a.mask[h] + (long long)row * nh;
   const bf16* l = tile + r * TS + (h ? a.n_dc : 0);
-  float* e = scratch + tid;  // entry j at e[j * T]: no bank conflicts
-  // x_j (the masked logit) into e, its max by torch's rule (NaN wins)
+  auto x_at = [&](int j) { return mk[j] ? __bfloat162float(l[j]) : kNegMask; };
+  // the max by torch's rule (NaN wins)
   float m = 0.0f;
 #pragma unroll 8
   for (int j = 0; j < nh; ++j) {
-    const float x = mk[j] ? __bfloat162float(l[j]) : kNegMask;
-    e[j * T] = x;
+    const float x = x_at(j);
     if (j == 0 || x != x || (m == m && x > m)) m = x;
   }
-  int p = rd::pow2_at_least(nh);
-#pragma unroll 8
-  for (int j = 0; j < p; ++j) e[j * T] = j < nh ? expf(e[j * T] - m) : 0.0f;
-  while (p > 1) {
-    p >>= 1;
-    for (int i = 0; i < p; ++i) e[i * T] = e[i * T] + e[(i + p) * T];
-  }
-  const float lse = logf(e[0]);
+  const float S = rd::tree_regs(rd::pow2_at_least(nh), 0.0f, [&](int j) {
+    return j < nh ? expf(x_at(j) - m) : 0.0f;
+  });
+  const float lse = logf(S);
   float* out = a.logp[h] + (long long)row * nh;
 #pragma unroll 8
-  for (int j = 0; j < nh; ++j)
-    out[j] = ((mk[j] ? __bfloat162float(l[j]) : kNegMask) - m) - lse;
+  for (int j = 0; j < nh; ++j) out[j] = (x_at(j) - m) - lse;
 }
 
 // The forward layer of one [BM x BN] tile (the design in the head note).
@@ -948,7 +986,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* map_x,
   // what the threads load into the ring (the whole K: the plan checks),
   // and the critic's atoms, fenced for the products
   if (!x_tma || !w_tma) {
-    if (kHeads) load_heads<BM>(smem, a);
+    if (kHeads) load_heads<BM, BN>(smem, a);
     for (int kt = 0; kt < a.kt; ++kt) {
       uint8_t* st = smem + kt * STAGE;
       if (!kRows && !x_tma)
@@ -1045,9 +1083,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* map_x,
                              __float2bfloat16_rn(acc[4 * n + 2 * j + 1]));
   __syncthreads();
   if (kHeads) {
-    heads_epilogue<BM, TS>(
-        tile, bias_s,
-        reinterpret_cast<float*>(smem + ((BM * TS * 2 + 15) & ~15)), a, m0);
+    heads_epilogue<BM, TS>(tile, bias_s, a, m0);
     return;
   }
   const bool vec = a.N % 8 == 0;
@@ -1128,6 +1164,7 @@ struct DxArgs {
   const bf16* y;
   bf16* G;
   bf16* db;
+  unsigned* counters;  // one a column group, 0 at the launch (R > 256)
   int R, N, P, stages, n_kt;
 };
 
@@ -1137,18 +1174,20 @@ __device__ __forceinline__ uint32_t dx_tx(const DxArgs& a, int p) {
 }
 
 // thread 0: arm stage t % stages and issue tile t's TMA loads (tile t is
-// k-tile t of the first product, then those of the second)
+// k-tile t of the first product, then those of the second) for the
+// block's rows m0 .. m0 + 255 (TMA fills rows past R with zeros)
 __device__ __forceinline__ void dx_issue(uint8_t* smem, uint64_t* full,
                                          const CUtensorMap* mg,
                                          const CUtensorMap* mw,
-                                         const DxArgs& a, int t, int n0) {
+                                         const DxArgs& a, int t, int m0,
+                                         int n0) {
   constexpr int A_BYTES = kDxRows * kRowBytes;
   constexpr int STAGE = (kDxRows + kDxBN) * kRowBytes;
   const int p = t < a.kt[0] ? 0 : 1, kk = p ? t - a.kt[0] : t;
   const int s = t % a.stages;
   uint8_t* st = smem + s * STAGE;
   mbar_arrive_tx(&full[s], dx_tx(a, p));
-  if (a.g_tma[p]) tma_load(st, mg + p, &full[s], kk * kTile, 0);
+  if (a.g_tma[p]) tma_load(st, mg + p, &full[s], kk * kTile, m0);
   if (a.w_tma[p]) tma_load(st + A_BYTES, mw + p, &full[s], kk * kTile, n0);
 }
 
@@ -1167,7 +1206,7 @@ __global__ void __launch_bounds__(512, 1)
   float* tree = reinterpret_cast<float*>(smem + a.stages * STAGE);
   uint64_t* full = reinterpret_cast<uint64_t*>(tree + kDxRows * TS);
   const int tid = threadIdx.x, wg = tid / 128;
-  const int n0 = blockIdx.x * kDxBN;
+  const int n0 = blockIdx.x * kDxBN, m0 = blockIdx.y * kDxRows;
   // thread 0 sets up the ring and puts its loads in flight at once; the
   // block loads the mask's y meanwhile (into registers, before any store:
   // a store to G could alias it)
@@ -1180,7 +1219,7 @@ __global__ void __launch_bounds__(512, 1)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int t = 0; t < a.n_kt && t < a.stages; ++t)
       if (dx_tx(a, t < a.kt[0] ? 0 : 1))
-        dx_issue(smem, full, maps.g, maps.w, a, t, n0);
+        dx_issue(smem, full, maps.g, maps.w, a, t, m0, n0);
   }
   const int w = (tid % 128) / 32, l = tid % 32;
   const int row_a = wg * 64 + w * 16 + l / 4;
@@ -1188,7 +1227,7 @@ __global__ void __launch_bounds__(512, 1)
   float yv[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int row = row_a + 8 * ((i / 2) % 2);
+    const int row = m0 + row_a + 8 * ((i / 2) % 2);
     const int col = n0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
     yv[i] = a.y == nullptr ? 1.0f
             : row < a.R && col < a.N ? __bfloat162float(a.y[(long long)row * a.N + col])
@@ -1201,7 +1240,7 @@ __global__ void __launch_bounds__(512, 1)
       const int p = t < a.kt[0] ? 0 : 1, kk = p ? t - a.kt[0] : t;
       uint8_t* st = smem + t * STAGE;
       if (!a.g_tma[p])
-        load_box(st, a.g[p], a.ldg[p], a.R, a.kc[p], 0, kk * kTile, kDxRows);
+        load_box(st, a.g[p], a.ldg[p], a.R, a.kc[p], m0, kk * kTile, kDxRows);
       if (!a.w_tma[p])
         load_box(st + A_BYTES, a.w[p], a.ldw[p], a.N, a.kc[p], n0, kk * kTile,
                  kDxBN);
@@ -1243,7 +1282,7 @@ __global__ void __launch_bounds__(512, 1)
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       __syncthreads();
-      if (tid == 0) dx_issue(smem, full, maps.g, maps.w, a, t + a.stages, n0);
+      if (tid == 0) dx_issue(smem, full, maps.g, maps.w, a, t + a.stages, m0, n0);
     }
   }
   wgmma_wait_all();
@@ -1251,10 +1290,10 @@ __global__ void __launch_bounds__(512, 1)
   fence_regs(acc[1]);
 
   // epilogue: round (and sum the second product), mask, write G and the
-  // tree's rows (zeros past R and N)
+  // tree's rows (+0.0 past R and N, as the plain tree pads)
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int row = row_a + 8 * ((i / 2) % 2);
+    const int r = row_a + 8 * ((i / 2) % 2), row = m0 + r;
     const int cl = 8 * (i / 4) + 2 * (l % 4) + i % 2, col = n0 + cl;
     bf16 v = __float2bfloat16_rn(acc[0][i]);
     if (NP == 2)
@@ -1263,11 +1302,22 @@ __global__ void __launch_bounds__(512, 1)
     const bool in = row < a.R && col < a.N;
     if (!(yv[i] > 0.0f)) v = __ushort_as_bfloat16(0);
     if (in) a.G[(long long)row * a.N + col] = v;
-    tree[row * TS + cl] = in ? __bfloat162float(v) : 0.0f;
+    tree[r * TS + cl] = in ? __bfloat162float(v) : 0.0f;
   }
-  __syncthreads();
+  // the bias gradient: over one tile, the block's tree from shared memory;
+  // over several, the last of the column group's blocks to finish takes
+  // the tiles' levels from G, then the tree inside a tile
   const int c = tid / 32;  // one warp a column (16 warps, 16 columns)
-  const float sum = column_tree(tree, TS, c, a.P);
+  float sum;
+  if (gridDim.y == 1) {
+    __syncthreads();
+    sum = rd::column_tree(tree, TS, c, a.P);
+  } else {
+    if (!rd::block_arrives_last(a.counters + blockIdx.x, gridDim.y,
+                                reinterpret_cast<int*>(tree)))
+      return;
+    sum = rd::tiled_column_tree<kDxBN>(a.G, a.N, a.R, a.N, n0, tree);
+  }
   if (l == 0 && n0 + c < a.N) a.db[n0 + c] = __float2bfloat16_rn(sum);
 }
 
@@ -1287,19 +1337,20 @@ __device__ __forceinline__ bf16 grad_of(float g, int g_f32, int two, float g2,
 __global__ void __launch_bounds__(256)
     dense_bwd_kernel(const void* __restrict__ g, int g_f32, long long ldg,
                      const bf16* __restrict__ g2, const bf16* __restrict__ y,
-                     bf16* __restrict__ G, bf16* __restrict__ db, int R, int N,
-                     int P, int vec) {
+                     bf16* __restrict__ G, bf16* __restrict__ db,
+                     unsigned* counters, int R, int N, int P, int vec) {
   constexpr int TS = kBwdCols + 1;
-  constexpr int kHalf = kMaxTreeRows / 2;
-  __shared__ float s[kMaxTreeRows * TS];
-  const int c0 = blockIdx.x * kBwdCols;
+  constexpr int kHalf = kDxRows / 2;
+  __shared__ float s[kDxRows * TS];
+  const int c0 = blockIdx.x * kBwdCols, m0 = blockIdx.y * kDxRows;
   const int q = threadIdx.x % 2, col = c0 + 4 * q;  // 4 columns a thread
   const int two = g2 != nullptr;
-  // rows r and r + 128 of this thread: every input loaded before any store
+  // rows r and r + 128 of this thread's tile: every input loaded before any
+  // store
   float gv[2][4], g2v[2][4], yv[2][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = threadIdx.x / 2 + h * kHalf;
+    const int r = m0 + threadIdx.x / 2 + h * kHalf;
     const long long gi = (long long)r * ldg + col, ri = (long long)r * N + col;
 #pragma unroll
     for (int e = 0; e < 4; ++e) gv[h][e] = 0.0f, g2v[h][e] = 0.0f, yv[h][e] = 1.0f;
@@ -1336,7 +1387,7 @@ __global__ void __launch_bounds__(256)
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = threadIdx.x / 2 + h * kHalf;
+    const int t = threadIdx.x / 2 + h * kHalf, r = m0 + t;
     const long long ri = (long long)r * N + col;
     bf16 out[4];
 #pragma unroll
@@ -1344,7 +1395,7 @@ __global__ void __launch_bounds__(256)
       const bool in = r < R && col + e < N;
       out[e] = in ? grad_of(gv[h][e], g_f32, two, g2v[h][e], yv[h][e])
                   : __ushort_as_bfloat16(0);
-      s[r * TS + 4 * q + e] = __bfloat162float(out[e]);
+      s[t * TS + 4 * q + e] = __bfloat162float(out[e]);
     }
     if (r >= R) continue;
     if (vec && col + 3 < N) {
@@ -1357,9 +1408,18 @@ __global__ void __launch_bounds__(256)
       for (int e = 0; e < 4 && col + e < N; ++e) G[ri + e] = out[e];
     }
   }
-  __syncthreads();
+  // the bias gradient, as dense_dx_gemm's
   const int c = threadIdx.x / 32;  // one warp a column
-  const float sum = column_tree(s, TS, c, P);
+  float sum;
+  if (gridDim.y == 1) {
+    __syncthreads();
+    sum = rd::column_tree(s, TS, c, P);
+  } else {
+    if (!rd::block_arrives_last(counters + blockIdx.x, gridDim.y,
+                                reinterpret_cast<int*>(s)))
+      return;
+    sum = rd::tiled_column_tree<kBwdCols>(G, N, R, N, c0, s);
+  }
   if (threadIdx.x % 32 == 0 && c0 + c < N) db[c0 + c] = __float2bfloat16_rn(sum);
 }
 
@@ -1427,17 +1487,15 @@ bool tma_ok(const void* p, long long ld) {
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 
 // the ring (at least the epilogue's BM x (BN + 8) bf16 tile, which reuses
-// it, and for the heads the log-softmax's 64 floats a thread after it),
-// its mbarriers and the tile's bias
-int fwd_ring(int bm, int bn, int stages, int mode) {
+// it), its mbarriers and the tile's bias
+int fwd_ring(int bm, int bn, int stages) {
   const int ring = stages * (bm + bn) * kRowBytes;
-  int tile = bm * (bn + 8) * 2;
-  if (mode == kActorHeads) tile = ((tile + 15) & ~15) + 2 * bm * 64 * 4;
+  const int tile = bm * (bn + 8) * 2;
   return ring > tile ? ring : tile;
 }
 
-int fwd_smem(int bm, int bn, int stages, int mode, int aux = 0) {
-  return 1024 + fwd_ring(bm, bn, stages, mode) + aux + stages * 8 + 16 + bn * 2;
+int fwd_smem(int bm, int bn, int stages, int aux = 0) {
+  return 1024 + fwd_ring(bm, bn, stages) + aux + stages * 8 + 16 + bn * 2;
 }
 
 // The critic's staging behind the ring (RowsSrc): the latent rows a
@@ -1487,7 +1545,7 @@ int fwd_launch(const CUtensorMap& mx, const CUtensorMap& mw, const FwdArgs& a,
     attr = true;
   }
   const dim3 grid((a.R + 64 * WG - 1) / (64 * WG), (a.N + BN - 1) / BN);
-  const int smem = fwd_smem(64 * WG, BN, a.stages, MODE, a.aux_bytes);
+  const int smem = fwd_smem(64 * WG, BN, a.stages, a.aux_bytes);
   kern<<<grid, WG * 128, smem, stream>>>(mx, mw, a);
   return (int)cudaGetLastError();
 }
@@ -1501,12 +1559,12 @@ int dx_launch(const DxMaps& maps, const DxArgs& a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  const int blocks = (a.N + kDxBN - 1) / kDxBN;
-  dense_dx_gemm<NP><<<blocks, 512, dx_smem(a.stages), stream>>>(maps, a);
+  const dim3 grid((a.N + kDxBN - 1) / kDxBN, (a.R + kDxRows - 1) / kDxRows);
+  dense_dx_gemm<NP><<<grid, 512, dx_smem(a.stages), stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
-bool rows_ok(int R) { return R >= 64 && R % 64 == 0; }
+bool rows_ok(long long R) { return R >= 1 && R <= (1LL << 30); }
 
 }  // namespace
 
@@ -1517,14 +1575,16 @@ bool rows_ok(int R) { return R >= 64 && R % 64 == 0; }
 // Forward: x (bf16 [R, K], row stride ldx, unit column stride), w (bf16
 // [K, N] contiguous), bias (bf16 [N]); writes y (bf16 [R, N] contiguous)
 // and, where out32 is not 0, its float32 copy (row stride ld32, unit
-// column stride).  bm in {64, 128}, bn in {64, 256} and the ring's stages
-// come from the wrapper's plan (kernels/dense.py::fwd_plan).
+// column stride).  Any R >= 1: the last row tile is partial (TMA fills its
+// rows past R with zeros, the epilogue stores none of them).  bm in {64,
+// 128}, bn in {64, 128, 256} and the ring's stages come from the wrapper's
+// plan (kernels/dense.py::fwd_plan).
 extern "C" int dense_fwd_launch(const void* x, long long ldx, const void* w,
                                 const void* bias, void* y, void* out32,
                                 long long ld32, int R, int K, int N, int relu,
                                 int bm, int bn, int stages, void* stream) {
   if (!rows_ok(R) || K < 1 || N < 1 || ldx < K || stages < 1 ||
-      fwd_smem(bm, bn, stages, kPlain) > kSmemMax)
+      fwd_smem(bm, bn, stages) > kSmemMax)
     return -1;
   FwdArgs a = {};
   a.x = reinterpret_cast<const bf16*>(x);
@@ -1535,7 +1595,7 @@ extern "C" int dense_fwd_launch(const void* x, long long ldx, const void* w,
   a.ldx = ldx;
   a.ld32 = ld32;
   a.R = R, a.K = K, a.N = N, a.relu = relu, a.stages = stages;
-  a.ring_bytes = fwd_ring(bm, bn, stages, kPlain);
+  a.ring_bytes = fwd_ring(bm, bn, stages);
   a.kt = (K + kTile - 1) / kTile;
   a.x_tma = tma_ok(x, ldx);
   a.w_tma = tma_ok(w, N);
@@ -1574,14 +1634,14 @@ extern "C" int critic_first_launch(const void* lat, const void* a_dc,
       (a_dc == nullptr) != (a_g == nullptr) || stages < 1)
     return -1;
   const long long R = a_dc == nullptr ? (long long)B * n_dc * n_g : B;
-  if (R > (1LL << 30) || !rows_ok((int)R)) return -1;
+  if (!rows_ok(R)) return -1;
   FwdArgs a = {};
   a.w = reinterpret_cast<const bf16*>(w);
   a.bias = reinterpret_cast<const bf16*>(bias);
   a.y = reinterpret_cast<bf16*>(y);
   a.R = (int)R, a.K = L + n_dc + n_g, a.N = N, a.relu = 1, a.stages = stages;
   a.ldx = a.K;
-  a.ring_bytes = fwd_ring(bm, bn, stages, kCriticRows);
+  a.ring_bytes = fwd_ring(bm, bn, stages);
   a.kt = (a.K + kTile - 1) / kTile;
   a.w_tma = tma_ok(w, N);
   a.lat = reinterpret_cast<const float*>(lat);
@@ -1598,7 +1658,7 @@ extern "C" int critic_first_launch(const void* lat, const void* a_dc,
   a.lat_tma = !a.bcast && L % 4 == 0 && L <= 256 &&
               reinterpret_cast<uintptr_t>(lat) % 16 == 0;
   if ((!a.w_tma && a.kt > stages) ||
-      fwd_smem(bm, bn, stages, kCriticRows, a.aux_bytes) > kSmemMax)
+      fwd_smem(bm, bn, stages, a.aux_bytes) > kSmemMax)
     return -1;
   CUtensorMap mx = {}, mw = {};
   int rc;
@@ -1621,18 +1681,18 @@ extern "C" int critic_first_launch(const void* lat, const void* a_dc,
 // masked log-softmax lp_dc, lp_g (float32 [R, n] contiguous) under the
 // masks m_dc, m_g (bool [R, n] contiguous); x bf16 [R, K] (row stride ldx,
 // unit column stride), w_dc bf16 [K, n_dc] and w_g bf16 [K, n_g]
-// contiguous, b_dc, b_g bf16.  n_dc + n_g <= 64; the whole K in the ring
-// (stages from kernels/dense.py::heads_plan).
+// contiguous, b_dc, b_g bf16.  n_dc + n_g <= bn, one tile of bn in {64,
+// 128, 192, 256} columns; the whole K in the ring (bm, bn and stages from
+// kernels/dense.py::heads_plan).
 extern "C" int actor_heads_launch(const void* x, long long ldx, const void* w_dc,
                                   const void* b_dc, const void* w_g,
                                   const void* b_g, const void* m_dc,
                                   const void* m_g, void* l_dc, void* l_g,
                                   void* lp_dc, void* lp_g, int R, int K,
-                                  int n_dc, int n_g, int bm, int stages,
+                                  int n_dc, int n_g, int bm, int bn, int stages,
                                   void* stream) {
-  constexpr int BN = 64;
-  if (!rows_ok(R) || K < 1 || n_dc < 1 || n_g < 1 || n_dc + n_g > BN ||
-      ldx < K || stages < 1 || fwd_smem(bm, BN, stages, kActorHeads) > kSmemMax)
+  if (!rows_ok(R) || K < 1 || n_dc < 1 || n_g < 1 || n_dc + n_g > bn ||
+      bm != 64 || ldx < K || stages < 1 || fwd_smem(bm, bn, stages) > kSmemMax)
     return -1;
   FwdArgs a = {};
   a.x = reinterpret_cast<const bf16*>(x);
@@ -1643,7 +1703,7 @@ extern "C" int actor_heads_launch(const void* x, long long ldx, const void* w_dc
   a.ldx = ldx;
   a.R = R, a.K = K, a.N = n_dc + n_g, a.stages = stages;
   a.n_dc = n_dc, a.n_g = n_g;
-  a.ring_bytes = fwd_ring(bm, BN, stages, kActorHeads);
+  a.ring_bytes = fwd_ring(bm, bn, stages);
   a.kt = (K + kTile - 1) / kTile;
   a.x_tma = tma_ok(x, ldx);
   a.heads_vec = n_dc % 8 == 0 && n_g % 8 == 0 &&
@@ -1660,8 +1720,12 @@ extern "C" int actor_heads_launch(const void* x, long long ldx, const void* w_dc
   int rc;
   if (a.x_tma && (rc = make_map(&mx, x, R, K, ldx, bm)) != 0) return rc;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bm == 64) return fwd_launch<1, BN, kActorHeads>(mx, mw, a, s);
-  if (bm == 128) return fwd_launch<2, BN, kActorHeads>(mx, mw, a, s);
+  switch (bn) {
+    case 64: return fwd_launch<1, 64, kActorHeads>(mx, mw, a, s);
+    case 128: return fwd_launch<1, 128, kActorHeads>(mx, mw, a, s);
+    case 192: return fwd_launch<1, 192, kActorHeads>(mx, mw, a, s);
+    case 256: return fwd_launch<1, 256, kActorHeads>(mx, mw, a, s);
+  }
   return -1;
 }
 
@@ -1670,16 +1734,20 @@ extern "C" int actor_heads_launch(const void* x, long long ldx, const void* w_dc
 // tree over its rows.  g (bf16 [R, kc], row stride ldg), w (bf16 [N, kc],
 // row stride ldw: the layer above's kernel), likewise g2 and w2 (kc2 deep)
 // or 0; y (bf16 [R, N] contiguous) the layer's output, or 0 for no mask.
-// R <= 256; the ring's stages come from kernels/dense.py::dx_plan.
+// 1 <= R <= 4,096, a block a 256-row tile of 16 columns; over several
+// tiles `counters` (zeroed uint32, one a column group) count the tiles
+// done.  The ring's stages come from kernels/dense.py::dx_plan.
 extern "C" int dense_dx_launch(const void* g, long long ldg, const void* w,
                                long long ldw, int kc, const void* g2,
                                long long ldg2, const void* w2, long long ldw2,
-                               int kc2, const void* y, void* G, void* db, int R,
-                               int N, int stages, void* stream) {
+                               int kc2, const void* y, void* G, void* db,
+                               void* counters, int R, int N, int stages,
+                               void* stream) {
   const int np = g2 != nullptr ? 2 : 1;
-  if (!rows_ok(R) || R > kDxRows || N < 1 || kc < 1 || ldg < kc || ldw < kc ||
+  if (!rows_ok(R) || R > kMaxRows || N < 1 || kc < 1 || ldg < kc || ldw < kc ||
       (np == 2 && (kc2 < 1 || ldg2 < kc2 || ldw2 < kc2)) || stages < 1 ||
-      dx_smem(stages) > kSmemMax)
+      dx_smem(stages) > kSmemMax || (N + kDxBN - 1) / kDxBN > rd::kMaxCounters ||
+      (R > kDxRows && counters == nullptr))
     return -1;
   DxArgs a;
   DxMaps maps = {};
@@ -1706,8 +1774,8 @@ extern "C" int dense_dx_launch(const void* g, long long ldg, const void* w,
   a.y = reinterpret_cast<const bf16*>(y);
   a.G = reinterpret_cast<bf16*>(G);
   a.db = reinterpret_cast<bf16*>(db);
-  a.R = R, a.N = N, a.P = 64, a.stages = stages;
-  while (a.P < R) a.P <<= 1;
+  a.counters = reinterpret_cast<unsigned*>(counters);
+  a.R = R, a.N = N, a.P = rd::pow2_at_least(R), a.stages = stages;
   a.n_kt = a.kt[0] + a.kt[1];
   if (manual && a.n_kt > stages) return -1;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1718,21 +1786,24 @@ extern "C" int dense_dx_launch(const void* g, long long ldg, const void* w,
 // ([R, N] at row stride ldg, unit column stride; float32 when g_f32, else
 // bf16), g2 a second bf16 one ([R, N] contiguous, only with a bf16 g) or 0,
 // y the layer's bf16 output ([R, N] contiguous) when it has a ReLU, else 0;
-// writes G (bf16 [R, N], contiguous) and db (bf16 [N]).  R <= 256.
+// writes G (bf16 [R, N], contiguous) and db (bf16 [N]).  1 <= R <= 4,096,
+// a block a 256-row tile of 8 columns; `counters` as dense_dx_launch's.
 extern "C" int dense_bwd_launch(const void* g, int g_f32, long long ldg,
                                 const void* g2, const void* y, void* G,
-                                void* db, int R, int N, void* stream) {
-  if (!rows_ok(R) || R > kMaxTreeRows || N < 1 || ldg < N ||
-      (g_f32 && g2 != nullptr))
+                                void* db, void* counters, int R, int N,
+                                void* stream) {
+  const int blocks = (N + kBwdCols - 1) / kBwdCols;
+  if (!rows_ok(R) || R > kMaxRows || N < 1 || ldg < N ||
+      (g_f32 && g2 != nullptr) || blocks > rd::kMaxCounters ||
+      (R > kDxRows && counters == nullptr))
     return -1;
-  int P = 64;
-  while (P < R) P <<= 1;
   const int vec = N % 4 == 0 && ldg % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(g) % (g_f32 ? 16 : 8) == 0;
-  const int blocks = (N + kBwdCols - 1) / kBwdCols;
-  dense_bwd_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(blocks, (R + kDxRows - 1) / kDxRows);
+  dense_bwd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       g, g_f32, ldg, reinterpret_cast<const bf16*>(g2),
       reinterpret_cast<const bf16*>(y), reinterpret_cast<bf16*>(G),
-      reinterpret_cast<bf16*>(db), R, N, P, vec);
+      reinterpret_cast<bf16*>(db), reinterpret_cast<unsigned*>(counters), R, N,
+      rd::pow2_at_least(R), vec);
   return (int)cudaGetLastError();
 }

@@ -30,18 +30,25 @@
 // Bound on the card: bytes.  Each call reads q once (B * 2 * A * N floats,
 // 4 MB at the published B = 256, A = 64, N = 32, 1.25 us at 3.35 TB/s) and
 // does ~4 operations per element of it.  One launch per call, one block per
-// batch row.  The target: its A x N products go to shared memory and the
-// block sums them by the tree.  The actor term (redesigned for the H100):
-// each twin-min row of N quantiles is one warp's coalesced load (16-byte
-// loads where the rows are aligned) and its tree over N stays in registers
-// and shuffles (eight actions a warp in flight), whose sum one lane turns
-// into the action's terms; the trees over
-// A and the per-head gradient trees are one warp's registers and shuffles,
-// so a row costs one block barrier; the shared memory is the row's terms,
-// sized at the launch.  Each row's warp counts its arrival (a fence and an
-// atomic); the last one sums the B row values by the tree
-// in its registers and shuffles and resets the count, so the kernel
-// replays in a CUDA graph.
+// batch row.  The target (redesigned for the H100 after the actor term):
+// lane i holds quantile i, so each twin's quantiles of an action are one
+// coalesced 128-byte load; warp w owns the actions a = w (mod W), so every
+// level of the tree over A of distance >= W stays in that warp's
+// registers, taken depth first as the leaves load, and only the last
+// log2(W) levels cross warps, through shared memory in one warp; the
+// row's pi and alpha log pi are put in shared memory once (one barrier),
+// and r_eff, the discount and the write of target_q stay on the lane that
+// writes.  The actor term: each twin-min row of N quantiles is one warp's
+// coalesced load (16-byte loads where the rows are aligned) and its tree
+// over N stays in registers and shuffles (eight actions a warp in flight),
+// whose sum one lane turns into the action's terms; the trees over A and
+// the per-head gradient trees are one warp's registers and shuffles, so a
+// row costs one block barrier; the shared memory is the row's terms, sized
+// at the launch.  Each row's warp counts its arrival (a fence and an
+// atomic); the last one sums the B row values by the tree in its registers
+// and shuffles and resets the count, so the kernel replays in a CUDA
+// graph.  Both take A <= 1,024 joint actions of heads of up to 256 entries
+// (the update's envelope, kernels/envelope.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,12 +57,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxTile = 8192;  // padded A x padded N floats in shared memory
-constexpr int kMaxA = 256;      // padded joint actions
-constexpr int kMaxHead = 64;    // padded head size
+constexpr int kMaxA = 1024;     // padded joint actions
+constexpr int kMaxHead = 256;   // padded head size
 constexpr int kMaxCosts = 16;
 constexpr int kMaxB = 8192;  // the actor's batch rows at most
+constexpr int kMaxN = 8192;  // quantiles (the actor's tree over N: 256 a lane)
 
 __device__ __forceinline__ float min_nan(float x, float y) {
   // torch.minimum on the card: NaN-propagating, else fminf
@@ -71,24 +77,21 @@ struct QView {
   }
 };
 
-__device__ __forceinline__ void joint_policy(const float* logp_dc,
-                                             const float* logp_g, int b,
-                                             int n_dc, int n_g, int Ap,
-                                             float* logpi, float* pi) {
-  const int A = n_dc * n_g;
-  for (int a = threadIdx.x; a < Ap; a += blockDim.x) {
-    if (a < A) {
-      const float l = logp_dc[b * n_dc + a / n_g] + logp_g[b * n_g + a % n_g];
-      logpi[a] = l;
-      pi[a] = expf(l);
-    } else {
-      logpi[a] = 0.0f;
-      pi[a] = 0.0f;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+// The target: a block of W warps per batch row b.  Each block first puts
+// the row's joint policy in shared memory (pi[a] and alpha * logpi[a], one
+// barrier).  Then lane i holds quantile i (+ 32 per further pass over N):
+// twin t's N quantiles of action a are one coalesced 128-byte load of the
+// warp.  Warp w owns the actions a = w + W j, j < J = Ap / W: the halving
+// tree's levels over Ap of distance >= W pair two actions of one warp (a
+// and a + d, d a multiple of W), so they are the tree over j in the lane's
+// registers, taken as the leaves load (rd::tree_regs: depth first up to 16
+// leaves, streamed above, eight loads in flight); the last log2(W) levels,
+// over w, run in warp 0 from shared memory.  W divides Ap (the plan takes
+// W <= Ap), so no level adds padding the plain tree does not.  Each lane
+// of warp 0 then takes r_eff's tree over the costs, gamma * (1 - done) and
+// writes target_q[b, i].
+template <int W>
+__global__ void __launch_bounds__(32 * W)
     marginal_target_kernel(QView qv, const float* __restrict__ logp_dc,
                            const float* __restrict__ logp_g,
                            const float* __restrict__ r,
@@ -100,35 +103,59 @@ __global__ void __launch_bounds__(kThreads)
                            float* __restrict__ target_q,
                            float* __restrict__ r_eff_out, int n_dc, int n_g,
                            int N, int n_costs) {
-  __shared__ float tile[kMaxTile];  // [N][Ap]: the products, summed over a
-  __shared__ float logpi[kMaxA], pi[kMaxA];
-  __shared__ float s_reff;
-  const int b = blockIdx.x, A = n_dc * n_g, Ap = rd::pow2_at_least(A);
-  const float alpha = *alpha_p;
-  if (threadIdx.x == 0) {
+  extern __shared__ float smem[];  // pi [Ap], alpha logpi [Ap], sums [W][32]
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int A = n_dc * n_g, Ap = rd::pow2_at_least(A), J = Ap / W;
+  float* s_pi = smem;
+  float* s_al = smem + Ap;
+  float* s_w = smem + 2 * Ap;
+  {
+    const float alpha = *alpha_p;
+    for (int a = threadIdx.x; a < A; a += 32 * W) {
+      const float l = logp_dc[b * n_dc + a / n_g] + logp_g[b * n_g + a % n_g];
+      s_pi[a] = expf(l);
+      s_al[a] = alpha * l;
+    }
+  }
+  float reff = 0.0f, disc = 0.0f;
+  if (warp == 0) {  // r_eff and the discount, on every lane that writes
     float v[kMaxCosts];
     const int Kp = rd::pow2_at_least(n_costs);
-    for (int k = 0; k < Kp; ++k) {
-      if (k < n_costs) {
-        const float x = costs[b * n_costs + k] - targets[k];
-        v[k] = lam[k] * (x != x ? x : fmaxf(x, 0.0f));
-      } else {
-        v[k] = 0.0f;
-      }
+#pragma unroll
+    for (int k = 0; k < kMaxCosts; ++k) {
+      const float x = k < n_costs ? costs[b * n_costs + k] - targets[k] : 0.0f;
+      v[k] = k < n_costs ? lam[k] * (x != x ? x : fmaxf(x, 0.0f)) : 0.0f;
     }
-    s_reff = r[b] - rd::tree_local(v, Kp);
+#pragma unroll
+    for (int h = kMaxCosts / 2; h >= 1; h >>= 1)
+      if (2 * h <= Kp) {
+#pragma unroll
+        for (int k = 0; k < h; ++k) v[k] = v[k] + v[k + h];
+      }
+    reff = r[b] - v[0];
+    disc = gamma * (1.0f - done[b]);
   }
-  joint_policy(logp_dc, logp_g, b, n_dc, n_g, Ap, logpi, pi);
   __syncthreads();
-  for (int e = threadIdx.x; e < N * Ap; e += blockDim.x) {
-    const int i = e / Ap, a = e % Ap;
-    tile[e] = a < A ? pi[a] * (qv.min2(b, a, i) - alpha * logpi[a]) : 0.0f;
+  const float* qb = qv.q + b * qv.sb;
+  for (int i0 = 0; i0 < N; i0 += 32) {
+    const int i = i0 + lane;
+    const bool in = i < N;
+    float v = rd::tree_regs(J, 0.0f, [&](int j) {
+      const int a = warp + W * j;
+      if (a >= A || !in) return 0.0f;
+      const float* p = qb + a * qv.sa + i;
+      return s_pi[a] * (min_nan(p[0], p[qv.st]) - s_al[a]);
+    });
+    if (W > 1) {
+      s_w[warp * 32 + lane] = v;
+      __syncthreads();
+      if (warp == 0)
+        v = rd::tree_static<W>(
+            [&](auto w) { return s_w[decltype(w)::value * 32 + lane]; });
+      __syncthreads();  // s_w free for the next pass
+    }
+    if (warp == 0 && in) target_q[b * N + i] = reff + disc * v;
   }
-  rd::tree_rows(tile, N, Ap, Ap);
-  const float reff = s_reff;
-  const float disc = gamma * (1.0f - done[b]);
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
-    target_q[b * N + i] = reff + disc * tile[i * Ap];
   if (threadIdx.x == 0) r_eff_out[b] = reff;
 }
 
@@ -148,7 +175,9 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kActorWarps = 8;
 constexpr int kActorAhead = 8;   // actions a warp loads at once (N = 32)
 constexpr int kMaxRA = kMaxA / 32;  // registers of the trees over A
-constexpr int kMaxRE = 16;  // registers of the padded [Dp, Gp] layout (<= 512)
+// registers of the padded [Dp, Gp] layout: Dp Gp <= 2,048 for A <= 1,024
+// (Dp Gp = 4,096 would need more than n_dc > Dp / 2 times n_g > Gp / 2)
+constexpr int kMaxRE = 64;
 
 // Phase 2 and the batch tail, by warp 0 of row b's block, with RA / RE
 // registers for the trees over A / the padded heads (Ap <= 32 RA, Dp Gp
@@ -165,43 +194,54 @@ __device__ __forceinline__ void actor_row(
   const int A = n_dc * n_g, Ap = rd::pow2_at_least(A);
   const float fB = (float)B;
   const int ra = Ap > 32 ? Ap >> 5 : 1;
-  float pl[RA], pq[RA];
+  // the trees over A, one after the other (registers: the widest layout's)
+  auto over_a = [&](const float* src) {
+    float x[RA];
 #pragma unroll
-  for (int r = 0; r < RA; ++r) {
-    const int a = lane + 32 * r;
-    const bool in = r < ra && a < A;
-    pl[r] = in ? s_pl[a] : 0.0f;
-    pq[r] = in ? s_pq[a] : 0.0f;
-  }
+    for (int r = 0; r < RA; ++r) {
+      const int a = lane + 32 * r;
+      x[r] = r < ra && a < A ? src[a] : 0.0f;
+    }
+    rd::tree_strided(x, 1, Ap, ra);
+    return x[0];
+  };
+  const float pl = over_a(s_pl), pq = over_a(s_pq);
   // the gradient at e = d * Gp + c, zero in the padding: per DC over the
   // GPU counts (segments of Gp), per GPU count over the DCs (stride Gp)
   const int Gp = rd::pow2_at_least(n_g), Dp = rd::pow2_at_least(n_dc);
   const int E = Dp * Gp, re = E > 32 ? E >> 5 : 1;
   int gbits = 0;
   while ((1 << gbits) < Gp) ++gbits;
-  float vd[RE], vg[RE];
+#pragma unroll 1
+  for (int head = 0; head < 2; ++head) {  // one head's registers at a time
+    float v[RE];
 #pragma unroll
-  for (int r = 0; r < RE; ++r) {
-    const int e = lane + 32 * r, d = e >> gbits, c = e & (Gp - 1);
-    vd[r] = r < re && e < E && d < n_dc && c < n_g ? s_g[d * n_g + c] : 0.0f;
-    vg[r] = vd[r];
-  }
-  rd::tree_strided(pl, 1, Ap, ra);
-  rd::tree_strided(pq, 1, Ap, ra);
-  rd::tree_strided(vd, 1, Gp, re);
-  rd::tree_strided(vg, Gp, Dp, re);
+    for (int r = 0; r < RE; ++r) {
+      const int e = lane + 32 * r, d = e >> gbits, c = e & (Gp - 1);
+      v[r] = r < re && e < E && d < n_dc && c < n_g ? s_g[d * n_g + c] : 0.0f;
+    }
+    if (head == 0) {
+      rd::tree_strided(v, 1, Gp, re);
 #pragma unroll
-  for (int r = 0; r < RE; ++r) {
-    const int e = lane + 32 * r, d = e >> gbits, c = e & (Gp - 1);
-    if (r < re && e < E && c == 0 && d < n_dc)
-      d_dc[b * n_dc + d] = -(vd[r] / fB);
-    if (r < re && e < n_g) d_g[b * n_g + e] = -(vg[r] / fB);
+      for (int r = 0; r < RE; ++r) {
+        const int e = lane + 32 * r, d = e >> gbits, c = e & (Gp - 1);
+        if (r < re && e < E && c == 0 && d < n_dc)
+          d_dc[b * n_dc + d] = -(v[r] / fB);
+      }
+    } else {
+      rd::tree_strided(v, Gp, Dp, re);
+#pragma unroll
+      for (int r = 0; r < RE; ++r) {
+        const int e = lane + 32 * r;
+        if (r < re && e < n_g) d_g[b * n_g + e] = -(v[r] / fB);
+      }
+    }
   }
   bool last = false;
   if (lane == 0) {
-    const float h = -pl[0];
+    const float h = -pl;
     ent[b] = h;
-    partial[b] = pq[0] + alpha * h;
+    partial[b] = pq + alpha * h;
     last = rd::arrive_last(counter);
   }
   if (!__shfl_sync(rd::kFullMask, last, 0)) return;
@@ -220,6 +260,7 @@ __device__ __forceinline__ void actor_row(
   }
 }
 
+template <int RA, int RE, int DC = 0, int G = 0>
 __global__ void __launch_bounds__(32 * kActorWarps, 1)
     marginal_actor_kernel(QView qv, const float* __restrict__ logp_dc,
                           const float* __restrict__ logp_g,
@@ -290,25 +331,36 @@ __global__ void __launch_bounds__(32 * kActorWarps, 1)
   }
   __syncthreads();
   if (warp != 0) return;
-  // ---- phase 2, one warp, sized for the shape
-  if (n_dc == 8 && n_g == 8)  // the published heads
-    actor_row<2, 2, 8, 8>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g,
-                          partial, counter, b, B, n_dc, n_g);
-  else if (Ap <= 64 && rd::pow2_at_least(n_dc) * rd::pow2_at_least(n_g) <= 64)
-    actor_row<2, 2>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g, partial,
-                    counter, b, B, n_dc, n_g);
-  else
-    actor_row<kMaxRA, kMaxRE>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g,
-                              partial, counter, b, B, n_dc, n_g);
+  // ---- phase 2, one warp, its registers sized for the shape (the
+  // launch picks the instance: a wide shape's registers do not cost the
+  // published one's occupancy)
+  actor_row<RA, RE, DC, G>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g,
+                           partial, counter, b, B, n_dc, n_g);
 }
 
 int check_view(int A, int N, int n_dc, int n_g) {
-  const int Ap = rd::pow2_at_least(A), Np = rd::pow2_at_least(N);
-  if (n_dc < 1 || n_g < 1 || N < 1 || Ap > kMaxA) return -1;
+  if (n_dc < 1 || n_g < 1 || N < 1 || N > kMaxN ||
+      rd::pow2_at_least(A) > kMaxA)
+    return -1;
   if (rd::pow2_at_least(n_dc) > kMaxHead || rd::pow2_at_least(n_g) > kMaxHead)
     return -1;
-  if ((long long)Ap * Np > kMaxTile) return -1;
   return 0;
+}
+
+template <int W>
+int target_launch(const QView& qv, const void* logp_dc, const void* logp_g,
+                  const void* r, const void* costs, const void* lam,
+                  const void* targets, const void* done, const void* alpha,
+                  float gamma, void* target_q, void* r_eff, int B, int n_dc,
+                  int n_g, int N, int n_costs, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (2 * rd::pow2_at_least(n_dc * n_g) + 32 * W);
+  marginal_target_kernel<W><<<B, 32 * W, smem, stream>>>(
+      qv, (const float*)logp_dc, (const float*)logp_g, (const float*)r,
+      (const float*)costs, (const float*)lam, (const float*)targets,
+      (const float*)done, (const float*)alpha, gamma, (float*)target_q,
+      (float*)r_eff, n_dc, n_g, N, n_costs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -318,23 +370,32 @@ int check_view(int A, int N, int n_dc, int n_g) {
 // logp_dc [B, n_dc], logp_g [B, n_g], r/done [B], costs [B, n_costs],
 // lam/targets [n_costs] float32 contiguous; alpha one float on the device.
 // Return the cudaError_t of the launch, or -1 for shapes they do not take.
+// The target's warps a row, W, come from kernels/sac_update.py::
+// target_warps: a power of two, at most 32 and at most the padded A, with
+// at most 256 actions a warp.
 extern "C" int marginal_target_launch(
     const void* q, long long sb, long long st, long long sa,
     const void* logp_dc, const void* logp_g, const void* r, const void* costs,
     const void* lam, const void* targets, const void* done, const void* alpha,
     float gamma, void* target_q, void* r_eff, int B, int n_dc, int n_g, int N,
-    int n_costs, void* stream) {
-  if (B < 1 || check_view(n_dc * n_g, N, n_dc, n_g) ||
-      (long long)N * rd::pow2_at_least(n_dc * n_g) > kMaxTile ||
-      n_costs < 1 || rd::pow2_at_least(n_costs) > kMaxCosts)
+    int n_costs, int W, void* stream) {
+  const int Ap = rd::pow2_at_least(n_dc * n_g);
+  if (B < 1 || check_view(n_dc * n_g, N, n_dc, n_g) || n_costs < 1 ||
+      n_costs > kMaxCosts || W < 1 || W > 32 || (W & (W - 1)) || W > Ap ||
+      Ap / W > 256)
     return -1;
-  QView qv{(const float*)q, sb, st, sa};
-  marginal_target_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      qv, (const float*)logp_dc, (const float*)logp_g, (const float*)r,
-      (const float*)costs, (const float*)lam, (const float*)targets,
-      (const float*)done, (const float*)alpha, gamma, (float*)target_q,
-      (float*)r_eff, n_dc, n_g, N, n_costs);
-  return (int)cudaGetLastError();
+  const QView qv{(const float*)q, sb, st, sa};
+  cudaStream_t s = (cudaStream_t)stream;
+#define TARGET(w)                                                             \
+  case w:                                                                     \
+    return target_launch<w>(qv, logp_dc, logp_g, r, costs, lam, targets, done, \
+                            alpha, gamma, target_q, r_eff, B, n_dc, n_g, N,   \
+                            n_costs, s);
+  switch (W) {
+    TARGET(1) TARGET(2) TARGET(4) TARGET(8) TARGET(16) TARGET(32)
+  }
+#undef TARGET
+  return -1;
 }
 
 // loss one float, ent [B], d_dc [B, n_dc], d_g [B, n_g]; partial B floats
@@ -344,16 +405,23 @@ extern "C" int marginal_actor_launch(
     const void* logp_dc, const void* logp_g, const void* alpha, void* loss,
     void* ent, void* d_dc, void* d_g, void* partial, void* counter, int B,
     int n_dc, int n_g, int N, void* stream) {
-  if (B < 1 || B > kMaxB || check_view(n_dc * n_g, N, n_dc, n_g) ||
-      (long long)(n_dc * n_g) * rd::pow2_at_least(N) > kMaxTile)
-    return -1;
+  if (B < 1 || B > kMaxB || check_view(n_dc * n_g, N, n_dc, n_g)) return -1;
   QView qv{(const float*)q, sb, st, sa};
   const int A = n_dc * n_g;
   const size_t smem = sizeof(float) * 3 * rd::pow2_at_least(A);
   // 16-byte loads of the twin rows where they are aligned
   const int vec = N == 32 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
                   sb % 4 == 0 && st % 4 == 0 && sa % 4 == 0;
-  marginal_actor_kernel<<<B, 32 * kActorWarps, smem, (cudaStream_t)stream>>>(
+  const int Ap = rd::pow2_at_least(A);
+  const int E = rd::pow2_at_least(n_dc) * rd::pow2_at_least(n_g);
+  auto kernel = marginal_actor_kernel<kMaxRA, kMaxRE>;
+  if (n_dc == 8 && n_g == 8)  // the published heads
+    kernel = marginal_actor_kernel<2, 2, 8, 8>;
+  else if (Ap <= 64 && E <= 64)
+    kernel = marginal_actor_kernel<2, 2>;
+  else if (Ap <= 256 && E <= 256)
+    kernel = marginal_actor_kernel<8, 8>;
+  kernel<<<B, 32 * kActorWarps, smem, (cudaStream_t)stream>>>(
       qv, (const float*)logp_dc, (const float*)logp_g, (const float*)alpha,
       (float*)loss, (float*)ent, (float*)d_dc, (float*)d_g, (float*)partial,
       (unsigned*)counter, B, n_dc, n_g, N, vec);

@@ -1,4 +1,4 @@
-// Fixed-order sums shared by the SAC update's kernels (B5a, B5b, B5c).
+// Fixed-order sums shared by the SAC update's kernels (B5a-B5d, B5f).
 //
 // Every sum here is the halving tree of ops/physics.py::tree_sum_last: the
 // n values, zero-padded to the next power of two p, are summed as
@@ -8,6 +8,7 @@
 // to its plain version's.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rd {
@@ -16,15 +17,6 @@ __host__ __device__ __forceinline__ int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p <<= 1;
   return p;
-}
-
-// The tree over x[0..p) in one thread's own memory (p a power of two).
-__device__ __forceinline__ float tree_local(float* x, int p) {
-  while (p > 1) {
-    p >>= 1;
-    for (int i = 0; i < p; ++i) x[i] = x[i] + x[i + p];
-  }
-  return x[0];
 }
 
 // The trees over `rows` rows of p entries each, stored with row stride
@@ -196,6 +188,135 @@ __device__ __forceinline__ void tree_strided(float (&x)[R], int s, int P,
     for (int r = 0; r < R; ++r)
       if (r < used) x[r] = x[r] + __shfl_down_sync(kFullMask, x[r], h);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Column trees over rows: a bias gradient, the tree over the R rows of each
+// column of a bf16 gradient G (B5d's backward kernels, the heads'
+// backward).  The rows come in tiles of kTileRows; a block's tile of one
+// column group sits in shared memory (row stride `stride` floats), one warp
+// a column.  Over more rows, P = pow2_at_least(R) > kTileRows, the tree's
+// first levels, of distance >= kTileRows, add whole tiles elementwise (tile
+// t + tile t + T/2 of T = P / kTileRows, then again on the first half):
+// the last block of a column group to finish its tile takes them from G in
+// device memory (tiled_column_tree), the rest of the tree inside one tile.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileRows = 256;  // rows of a tile
+constexpr int kMaxTiles = 16;   // R <= 4,096
+// The arrival counts such a launch keeps, one a column group (blockIdx.x),
+// in the caller's zeroed buffer of this many (kernels/build.py::counters,
+// N_COUNTERS).  Every launch on a device shares that buffer, so such
+// launches must run in order, on one stream: two in flight at once would
+// mix their arrivals.
+constexpr int kMaxCounters = 8192;
+
+// The halving tree over the first P rows of column c of s (P a power of
+// two <= kTileRows), by one warp: lane l holds rows l, l + 32, ...; the
+// levels of distance >= 32 in registers, the rest by shuffles from the
+// padded half.  The sum ends in lane 0.
+__device__ __forceinline__ float column_tree(const float* s, int stride, int c,
+                                             int P) {
+  const int lane = threadIdx.x & 31;
+  float v[kTileRows / 32];
+#pragma unroll
+  for (int k = 0; k < kTileRows / 32; ++k)
+    v[k] = lane + 32 * k < P ? s[(lane + 32 * k) * stride + c] : 0.0f;
+#pragma unroll
+  for (int h = kTileRows / 64; h >= 1; h >>= 1)
+    if (64 * h <= P) {
+#pragma unroll
+      for (int k = 0; k < h; ++k) v[k] = v[k] + v[k + h];
+    }
+  if (P < 32) return warp_tree(v[0], P);
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1)
+    v[0] = v[0] + __shfl_down_sync(kFullMask, v[0], h);
+  return v[0];
+}
+
+// Each thread's stores made visible device-wide, then one arrival a block
+// on `counter`; true in every thread of the last of `n` blocks to arrive,
+// which sets the count back to 0 (so the kernel replays in a CUDA graph).
+// `flag` is a word of the block's shared memory that nothing reads until
+// the next barrier after this returns (the caller's: a static __shared__
+// here would count against a launch that takes all of it dynamically).
+__device__ __forceinline__ bool block_arrives_last(unsigned* counter,
+                                                   unsigned n, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int last = atomicAdd(counter, 1u) == n - 1;
+    if (last) *counter = 0u;
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// Row r of every tile of column col of a bf16 G in device memory (read
+// past the L1: other blocks wrote it), +0.0 past R, summed over the T tiles
+// by the halving tree (depth first: T a compile-time power of two)
+template <int T>
+__device__ __forceinline__ float tile_levels(const __nv_bfloat16* G,
+                                             long long ld, int R, int col,
+                                             int r) {
+  return tree_static<T>([&](auto t) {
+    const int row = decltype(t)::value * kTileRows + r;
+    return row < R ? __bfloat162float(__ushort_as_bfloat16(__ldcg(
+                         reinterpret_cast<const unsigned short*>(G) +
+                         (long long)row * ld + col)))
+                   : 0.0f;
+  });
+}
+
+// A thread's cells (row r, column c0 + c of a tile: e = r W + c at
+// threadIdx.x + NT i) of a block of NT threads, each summed over its T
+// tiles: every load in flight before the first add
+template <int T, int W, int NT>
+__device__ __forceinline__ void tile_cells(float (&v)[kTileRows * W / NT],
+                                           const __nv_bfloat16* G, long long ld,
+                                           int R, int N, int c0, int rows) {
+#pragma unroll
+  for (int i = 0; i < kTileRows * W / NT; ++i) {
+    const int e = threadIdx.x + i * NT, col = c0 + e % W;
+    v[i] = e < rows * W && col < N ? tile_levels<T>(G, ld, R, col, e / W) : 0.0f;
+  }
+}
+
+// The tree over the R rows (R <= kMaxTiles * kTileRows, zero-padded to
+// P = pow2_at_least(R)) of columns [c0, c0 + W) of a bf16 G (row stride ld,
+// N columns) in device memory, by a block of exactly NT threads (NT a
+// multiple of 32 W that divides kTileRows W).  Each (row r of a tile,
+// column) first takes the tile levels over its T values in one thread
+// (tile_levels), into s (kTileRows rows of stride W + 1), then warp c < W
+// the tree inside the tile.  The sum of column c0 + c ends in lane 0 of
+// warp c; the other warps return 0.
+template <int W, int NT = 32 * W>
+__device__ __forceinline__ float tiled_column_tree(const __nv_bfloat16* G,
+                                                   long long ld, int R, int N,
+                                                   int c0, float* s) {
+  constexpr int kCells = kTileRows * W / NT;
+  const int P = pow2_at_least(R);
+  const int T = P > kTileRows ? P / kTileRows : 1;
+  const int rows = P > kTileRows ? kTileRows : P;
+  __syncthreads();  // s is free (an earlier group's trees are done)
+  float v[kCells];
+  switch (T) {
+    case 1: tile_cells<1, W, NT>(v, G, ld, R, N, c0, rows); break;
+    case 2: tile_cells<2, W, NT>(v, G, ld, R, N, c0, rows); break;
+    case 4: tile_cells<4, W, NT>(v, G, ld, R, N, c0, rows); break;
+    case 8: tile_cells<8, W, NT>(v, G, ld, R, N, c0, rows); break;
+    default: tile_cells<kMaxTiles, W, NT>(v, G, ld, R, N, c0, rows); break;
+  }
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int e = threadIdx.x + i * NT;
+    if (e < rows * W) s[(e / W) * (W + 1) + e % W] = v[i];
+  }
+  __syncthreads();
+  const int c = threadIdx.x / 32;
+  return c < W ? column_tree(s, W + 1, c, rows) : 0.0f;
 }
 
 }  // namespace rd

@@ -142,6 +142,31 @@ def check(op: str, name: str, t, dtype, device, shape=None) -> None:
         raise ValueError(f"{op}: {name} must be contiguous")
 
 
+#: zeroed uint32 arrival counts a kernel whose tree spans several blocks
+#: keeps per column group (the backward kernels over more than one row
+#: tile, the heads' backward); the last block to arrive resets its count,
+#: so launches queue no memset.  One buffer per device, allocated once (a
+#: captured CUDA graph keeps its address).  Every such launch on a device
+#: indexes it by its column group, so they must run in order on one
+#: stream, as the port's update does: two in flight at once (two streams,
+#: two agents' updates overlapping) would mix their arrivals.  Each launch
+#: checks that its column groups fit (``rd::kMaxCounters``,
+#: ``csrc/reduce.cuh``).
+N_COUNTERS = 8192
+_counters: Dict[object, object] = {}
+
+
+def counters(device):
+    """The device's zeroed counter buffer (int32 [N_COUNTERS])."""
+    import torch
+
+    c = _counters.get(device)
+    if c is None:
+        c = _counters[device] = torch.zeros(N_COUNTERS, dtype=torch.int32,
+                                            device=device)
+    return c
+
+
 def stream_of(device) -> int:
     """The current CUDA stream of ``device`` as a pointer-sized int."""
     import torch

@@ -25,9 +25,11 @@ layers at ``rl/nets.py:37-39, 58-61, 93-95, 149-150``):
 
 ``csrc/dense.cu``'s head note gives the design and bound; :func:`fwd_plan`,
 :func:`heads_plan` and :func:`dx_plan` choose the tiles and the ring of
-stages per shape.  The rows R must be a multiple of 64 (the update's batch
-256 and its 16,384 all-actions rows are); the backward kernels take R <=
-256, since a block owns whole columns of the bias gradient's tree.
+stages per shape.  The forward takes any R >= 1 rows (the last tile
+partial); the backward kernels take 1 <= R <= ``MAX_ROWS``, a block a
+256-row tile, whose bias gradient's tree over more than one tile the last
+block of each column group finishes (counting on ``build.counters``);
+the heads take up to ``HEADS_MAX`` columns together.
 
 Each wrapper launches its kernel for tensors on the card (built on first
 use) or raises, and runs its plain version (``rl/nets.py``: ``torch.matmul``
@@ -57,19 +59,20 @@ BIG_ROWS, BIG_STAGES = 8192, 3
 #: the one-hot critic's first layer at BIG_ROWS rows and more: a ring of
 #: at most this many k-tiles, whose rows the block builds as it cycles
 CRITIC_STAGES = 2
-#: the actor's heads side by side in one tile: n_dc + n_g at most this
-HEADS_MAX = 64
-#: dX: rows (all of a layer's) and columns a block owns
+#: the actor's heads side by side in one tile of 64, 128, 192 or 256
+#: columns: n_dc + n_g at most this
+HEADS_MAX = 256
+#: the backward kernels: a block's row tile (dX: and its columns), and the
+#: rows they take (16 tiles)
 DX_ROWS, DX_BN = 256, 16
-BWD_MAX_ROWS = 256
+MAX_ROWS = 4096
 
 
 def _check_rows(op, R, most=None):
-    """Raise unless R is a positive multiple of 64 (and at most ``most``)."""
-    if R < 64 or R % 64 or (most is not None and R > most):
+    """Raise unless 1 <= R (<= ``most``)."""
+    if R < 1 or (most is not None and R > most):
         bound = "" if most is None else f" up to {most}"
-        raise ValueError(f"{op}: {R} rows; the kernel takes a multiple of 64"
-                         f"{bound}")
+        raise ValueError(f"{op}: {R} rows; the kernel takes 1{bound}")
 
 
 def _k_tiles(k):
@@ -148,25 +151,28 @@ def critic_plan(R, L, n_dc, n_g, N, taken, w_tma=True, keep_rows=False):
     return bm, bn, stages
 
 
-def heads_plan(R, K):
-    """(bm, stages) of :func:`actor_heads_fwd` for x [R, K]: 64-row tiles
-    (128 from ``BIG_ROWS`` rows on), 64 columns, the whole K in the ring
+def heads_plan(R, K, n):
+    """(bm, bn, stages) of :func:`actor_heads_fwd` for x [R, K] and n = n_dc
+    + n_g columns: 64-row tiles, one tile of bn = n rounded up to 64 (64,
+    128, 192 or 256: one wgmma holds whole rows), the whole K in the ring
     (the heads' kernels are loaded by the block's threads), at least the
-    epilogue's tile and the log-softmax's 64 floats a thread; raises for a
-    shape it does not take."""
+    epilogue's tile; raises for a shape it does not take."""
     _check_rows("actor_heads_fwd", R)
-    bm, kt = (128 if R >= BIG_ROWS else 64), _k_tiles(K)
-    ring = max(kt * (bm + 64) * 128, -(-bm * 72 * 2 // 16) * 16 + 2 * bm * 256)
-    if K < 1 or 1024 + ring + kt * 8 + 16 + 128 > SMEM_MAX:
+    if not 1 <= n <= HEADS_MAX:
+        raise ValueError(f"actor_heads_fwd: heads of {n} entries together; "
+                         f"the kernel takes 1 to {HEADS_MAX}")
+    bm, bn, kt = 64, -(-n // 64) * 64, _k_tiles(K)
+    ring = max(kt * (bm + bn) * 128, bm * (bn + 8) * 2)
+    if K < 1 or 1024 + ring + kt * 8 + 16 + 2 * bn > SMEM_MAX:
         raise ValueError(f"actor_heads_fwd: K = {K} does not fit the ring")
-    return bm, kt
+    return bm, bn, kt
 
 
 def dx_plan(R, kcs, tma=(True,)):
     """The ring's stages of :func:`dense_dx` for R rows and products of
     depths ``kcs`` (one or two), ``tma`` whether TMA loads every operand of
     each; raises for a shape the kernel does not take."""
-    _check_rows("dense_dx", R, DX_ROWS)
+    _check_rows("dense_dx", R, MAX_ROWS)
     if not 1 <= len(kcs) <= 2 or min(kcs) < 1:
         raise ValueError(f"dense_dx: products of depths {kcs}")
     kt = sum(_k_tiles(k) for k in kcs)
@@ -262,10 +268,11 @@ def dense_dx(g, w, y, db, g2=None, w2=None, plain: bool = False):
             for v in (a.data_ptr(), lda, b.data_ptr(), b.stride(0), ka)]
     args += [None, 0, None, 0, 0] * (2 - len(pairs))
     fn = build.bind("dense", "dense_dx_launch",
-                    [P, LL, P, LL, I, P, LL, P, LL, I, P, P, P, I, I, I, P])
+                    [P, LL, P, LL, I, P, LL, P, LL, I, P, P, P, P, I, I, I, P])
     with torch.cuda.device(dev):
         rc = fn(*args, None if y is None else y.data_ptr(), G.data_ptr(),
-                db.data_ptr(), R, N, stages, build.stream_of(dev))
+                db.data_ptr(), build.counters(dev).data_ptr(), R, N, stages,
+                build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     dense_dx.launches += 1
@@ -287,7 +294,7 @@ def dense_backward(g, y, db, g2=None, plain: bool = False):
         return plain_fn(g, y, db, g2)
     op, dev = "dense_backward", g.device
     R, N = g.shape
-    _check_rows(op, R, BWD_MAX_ROWS)
+    _check_rows(op, R, MAX_ROWS)
     g_f32 = g.dtype == F32
     ldg = _rows(op, "g", g, F32 if g_f32 else BF16, dev, R, N)
     for name, t in (("g2", g2), ("y", y)):
@@ -297,12 +304,14 @@ def dense_backward(g, y, db, g2=None, plain: bool = False):
         raise ValueError(f"{op}: a second gradient only beside a bf16 one")
     build.check(op, "db", db, BF16, dev, (N,))
     G = torch.empty((R, N), dtype=BF16, device=dev)
-    fn = build.bind("dense", "dense_bwd_launch", [P, I, LL, P, P, P, P, I, I, P])
+    fn = build.bind("dense", "dense_bwd_launch",
+                    [P, I, LL, P, P, P, P, P, I, I, P])
     with torch.cuda.device(dev):
         rc = fn(g.data_ptr(), int(g_f32), ldg,
                 None if g2 is None else g2.data_ptr(),
                 None if y is None else y.data_ptr(), G.data_ptr(),
-                db.data_ptr(), R, N, build.stream_of(dev))
+                db.data_ptr(), build.counters(dev).data_ptr(), R, N,
+                build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     dense_backward.launches += 1
@@ -365,33 +374,31 @@ def actor_heads_fwd(x, k_dc, b_dc, k_g, b_g, mask_dc, mask_g,
     ``kernel`` [K, n] plus its bf16 bias (``dense_fwd`` without a ReLU),
     as float32, and their masked log-softmax under its bool mask [R, n],
     in one launch.  Returns (logp_dc, logp_g, l_dc, l_g), float32 [R, n]
-    each.  n_dc + n_g at most ``HEADS_MAX``."""
+    each.  n_dc + n_g at most ``HEADS_MAX`` (:func:`heads_plan`)."""
     if plain or not build.on_card("actor_heads_fwd", x):
         from ..rl.nets import actor_heads_plain
         return actor_heads_plain(x, k_dc, b_dc, k_g, b_g, mask_dc, mask_g)
     op, dev = "actor_heads_fwd", x.device
     R, K = x.shape
     n_dc, n_g = k_dc.shape[-1], k_g.shape[-1]
-    if n_dc + n_g > HEADS_MAX:
-        raise ValueError(f"{op}: heads of {n_dc} and {n_g} entries; the "
-                         f"kernel takes {HEADS_MAX} together")
     ldx = _rows(op, "x", x, BF16, dev, R, K)
     for name, t, shape in (("k_dc", k_dc, (K, n_dc)), ("k_g", k_g, (K, n_g)),
                            ("b_dc", b_dc, (n_dc,)), ("b_g", b_g, (n_g,))):
         build.check(op, name, t, BF16, dev, shape)
     build.check(op, "mask_dc", mask_dc, torch.bool, dev, (R, n_dc))
     build.check(op, "mask_g", mask_g, torch.bool, dev, (R, n_g))
-    bm, stages = heads_plan(R, K)
+    bm, bn, stages = heads_plan(R, K, n_dc + n_g)
     outs = [torch.empty((R, n), dtype=F32, device=dev)
             for n in (n_dc, n_g, n_dc, n_g)]
     fn = build.bind("dense", "actor_heads_launch",
-                    [P, LL, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P])
+                    [P, LL, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                     P])
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), ldx, k_dc.data_ptr(), b_dc.data_ptr(),
                 k_g.data_ptr(), b_g.data_ptr(), mask_dc.data_ptr(),
                 mask_g.data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(),
                 outs[0].data_ptr(), outs[1].data_ptr(), R, K, n_dc, n_g, bm,
-                stages, build.stream_of(dev))
+                bn, stages, build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     actor_heads_fwd.launches += 1

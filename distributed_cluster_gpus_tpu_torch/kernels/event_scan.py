@@ -375,6 +375,18 @@ def kernel_floats(prog):
             -float(p.rl_energy_weight), float(p.sla_p99_ms)]
 
 
+#: what B1's RL mode takes: the policy's observations and GPU-count head
+RL_ENVELOPE = (f"B1 (the event scan) acts in RL mode with 5 to {MAX_OBS} "
+               f"observations and at most {MAX_DC} GPU-count actions "
+               "(--max-gpus-per-job)")
+
+
+def rl_covers(obs_dim: int, n_g: int) -> bool:
+    """Whether B1's RL mode takes a policy of ``obs_dim`` observations and
+    ``n_g`` GPU-count actions (``RL_ENVELOPE``)."""
+    return 5 <= obs_dim <= MAX_OBS and n_g <= MAX_DC
+
+
 def check_kernel_covers(prog) -> None:
     """Raise for a configuration beyond the kernel's limits (the port never
     falls back to the plain step on the card)."""
@@ -397,10 +409,8 @@ def check_kernel_covers(prog) -> None:
                 "event_scan: the B1 kernel runs only the port's own policy "
                 "(rl.sac.make_policy_apply); other policy_apply callables run "
                 "on the CPU")
-        if not 5 <= p.obs_dim(fleet.n_dc) <= MAX_OBS or p.max_gpus_per_job > MAX_DC:
-            raise ValueError(
-                f"event_scan: RL mode takes 5 <= obs_dim <= {MAX_OBS} and at "
-                f"most {MAX_DC} GPU-count actions")
+        if not rl_covers(p.obs_dim(fleet.n_dc), p.max_gpus_per_job):
+            raise ValueError(f"event_scan: {RL_ENVELOPE}")
 
 
 def policy_operands(prog, policy_params, device):

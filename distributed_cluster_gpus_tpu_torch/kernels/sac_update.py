@@ -46,6 +46,24 @@ def _counter(dev):
 
 P, I, LL, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
+#: the kernels' envelope: B5a's batch rows and quantiles, B5b's joint
+#: actions and head entries (each padded to a power of two), and the actor
+#: term's batch rows (``csrc/quantile_huber.cu``, ``csrc/marginal.cu``)
+HUBER_MAX_B, HUBER_MAX_Q = 4096, 64
+MARGINAL_MAX_A, MARGINAL_MAX_HEAD, ACTOR_MAX_B = 1024, 256, 8192
+
+
+def target_warps(A: int) -> int:
+    """The warps a batch row of B5b's target takes for A joint actions: a
+    warp per 4 of the padded actions (the tree's register levels over 4
+    leaves: the fastest of 1 to 32 warps at the published 8 x 8 on the
+    H100, PERF.md §6), at least 1, at most 32 (so at most 32 actions a
+    warp)."""
+    Ap = 1
+    while Ap < A:
+        Ap *= 2
+    return min(32, max(1, Ap // 4))
+
 
 def quantile_huber(q, target, taus, kappa: float = 1.0):
     """B5a: (loss, dloss/dq) of ``q`` [B, 2, N] against ``target`` [B, M] at
@@ -93,7 +111,8 @@ def _q_view(op, q_all, dev):
 def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
                     alpha, gamma: float):
     """B5b's critic target: (target_q [B, N], r_eff [B]); the kernel on the
-    card, ``rl.sac.marginal_target`` on the CPU."""
+    card (:func:`target_warps` a row), and ``rl.sac.marginal_target`` on
+    the CPU."""
     from ..rl import sac as rsac
     from ..rl.optim import f32
 
@@ -117,13 +136,15 @@ def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
     tq = torch.empty((B, N), dtype=F32, device=dev)
     r_eff = torch.empty(B, dtype=F32, device=dev)
     fn = build.bind("marginal", "marginal_target_launch",
-              [P, LL, LL, LL, P, P, P, P, P, P, P, P, FL, P, P, I, I, I, I, I, P])
+              [P, LL, LL, LL, P, P, P, P, P, P, P, P, FL, P, P, I, I, I, I, I,
+               I, P])
     with torch.cuda.device(dev):
         rc = fn(q1_all.data_ptr(), sb, st, sa, logp_dc1.data_ptr(),
                 logp_g1.data_ptr(), r.data_ptr(), costs.data_ptr(),
                 lam.data_ptr(), targets.data_ptr(), done.data_ptr(),
                 alpha.data_ptr(), f32(gamma), tq.data_ptr(), r_eff.data_ptr(),
-                B, n_dc, n_g, N, K, build.stream_of(dev))
+                B, n_dc, n_g, N, K, target_warps(A),
+                build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     marginal_target.launches += 1

@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..kernels.envelope import check_config
 from ..ops import prng
 from .cmdp import N_COSTS, default_constraints
 from .replay import ROW_FIELDS, ReplayState, replay_add_chunk, replay_init
@@ -43,13 +44,17 @@ class CHSAC_AF:
                  constraints=None,
                  critic_arch: str = "onehot",
                  device="cuda"):
-        self.device = resolve_device(device)
         self.cfg = SACConfig(
             obs_dim=obs_dim, n_dc=n_dc, n_g=n_g_choices, batch=batch,
             constraints=(constraints if constraints is not None else
                          default_constraints(sla_p99_ms, power_cap,
                                              energy_budget_j)),
             critic_arch=critic_arch)
+        if torch.device(device).type == "cuda":
+            # the card's update kernels take a stated envelope: refuse
+            # outside it now, not at the first update after the warm-up
+            check_config(self.cfg)
+        self.device = resolve_device(device)
         self.warmup = warmup
         # the agent's threefry chain and its initial weights, both the JAX
         # package's: key, k_init = split(fold_in(key(seed), AGENT_FOLD))

@@ -56,7 +56,9 @@ with its mask and bias gradient (``kernels/dense.py``); B5e, the one-hot
 critic's input rows, built inside the critic's first layer
 (``dense.critic_first_fwd``); B5f's forward, the masked log-softmax of
 both heads, in the epilogue of their one product
-(``dense.actor_heads_fwd``), and its backward (``kernels/log_softmax.py``).
+(``dense.actor_heads_fwd``), and its backward with the heads' own (the
+bf16 cast and the bias gradients) in one launch
+(``kernels/log_softmax.py::heads_backward``).
 """
 
 from __future__ import annotations
@@ -163,6 +165,16 @@ def dense_backward(g, y, db, g2=None):
         G = torch.where(y > 0, G, torch.zeros_like(G))
     db.copy_(tree_sum_last(G.to(torch.float32).t()).to(BF16))
     return G
+
+
+def heads_backward_plain(l_dc, l_g, mask_dc, mask_g, g_dc, g_g, db_dc, db_g):
+    """The plain version of ``kernels/log_softmax.py::heads_backward``: for
+    each head the logits' gradient (:func:`masked_log_softmax_backward`)
+    then its top layer's backward (:func:`dense_backward`, no ReLU: the
+    bf16 cast and the bias gradient into ``db``); returns (G_dc, G_g)."""
+    return tuple(dense_backward(masked_log_softmax_backward(l_, m, g), None, db)
+                 for l_, m, g, db in ((l_dc, mask_dc, g_dc, db_dc),
+                                      (l_g, mask_g, g_g, db_g)))
 
 
 def dense_dx_plain(g, w, y, db, g2=None, w2=None):
@@ -380,16 +392,17 @@ class HybridActor(nn.Module):
     def hidden_grad(self, saved, d_dc, d_g, w, dw, plain: bool = False):
         """Every layer's gradient into ``dw`` from dL/dlogp of each head;
         returns the hidden layer's (G, kernel), whose product is dL/dlat16
-        (the encoder's top layer forms it in its backward kernel).  The
-        hidden layer's backward forms both heads' dX products and sums
-        them."""
-        from ..kernels.log_softmax import log_softmax2_backward
+        (the encoder's top layer forms it in its backward kernel).  Both
+        heads' gradients (the log-softmax's, the cast, the bias gradients)
+        are one launch (``heads_backward``); the hidden layer's backward
+        forms both heads' dX products and sums them."""
+        from ..kernels.log_softmax import heads_backward
 
         lat16, hid, l_dc, l_g, mask_dc, mask_g = saved
-        g_dc, g_g = log_softmax2_backward(l_dc, l_g, mask_dc, mask_g, d_dc, d_g,
-                                          plain=plain)
-        G_dc = dense_grads(hid, None, g_dc, *dw[1], plain=plain)
-        G_g = dense_grads(hid, None, g_g, *dw[2], plain=plain)
+        G_dc, G_g = heads_backward(l_dc, l_g, mask_dc, mask_g, d_dc, d_g,
+                                   dw[1][1], dw[2][1], plain=plain)
+        torch.matmul(hid.t(), G_dc, out=dw[1][0])
+        torch.matmul(hid.t(), G_g, out=dw[2][0])
         G = dense_grads(lat16, hid, (G_dc, w[1][0], G_g, w[2][0]), *dw[0],
                         plain=plain)
         return G, w[0][0]

@@ -30,8 +30,9 @@ plain version here or beside it:
   (a hidden layer's fused into the dX product above it); B5e, the one-hot
   critic's input rows, built inside the critic's first layer; B5f's
   forward, the masked log-softmax of both heads, in the epilogue of their
-  one product; B5f's backward: ``kernels/dense.py``,
-  ``kernels/log_softmax.py`` (plain: ``rl/nets.py``);
+  one product; B5f's backward with the heads' own top-layer backward in
+  one launch: ``kernels/dense.py``, ``kernels/log_softmax.py`` (plain:
+  ``rl/nets.py``);
 * B5a, the quantile-Huber loss and its gradient: ``kernels/sac_update.py``
   (plain: :func:`quantile_huber_loss`);
 * B5b, the exact marginalization over joint actions, the critic target and

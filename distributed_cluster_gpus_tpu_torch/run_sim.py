@@ -127,6 +127,25 @@ def parse_args(argv=None):
     if a.duration > 1e5:
         p.exit(2, f"{p.prog}: duration > 1e5 s needs the float64 clock, not "
                   "ported yet (ROADMAP queue A item 6)\n")
+    if a.algo == "chsac_af" and a.device == "cuda":
+        # the card's acting kernel (B1) and update kernels each take a
+        # stated envelope: refuse a setting outside either now, not at the
+        # first chunk or the first update after the warm-up
+        from .configs.paper import FLEET
+        from .kernels.envelope import ENVELOPE, check_update
+        from .kernels.event_scan import RL_ENVELOPE, rl_covers
+
+        n_dc = 1 if a.single_dc else len(FLEET)
+        obs_dim = build_params(a).obs_dim(n_dc)
+        if not rl_covers(obs_dim, a.max_gpus_per_job):
+            p.exit(2, f"{p.prog}: chsac_af with {a.max_gpus_per_job} GPU-count "
+                      f"actions is outside the card's envelope: {RL_ENVELOPE}; "
+                      f"{ENVELOPE}\n")
+        try:
+            check_update(a.rl_batch, n_dc, a.max_gpus_per_job, obs_dim,
+                         critic_arch=a.critic_arch)
+        except ValueError as e:
+            p.exit(2, f"{p.prog}: {e}; {RL_ENVELOPE}\n")
     return a
 
 

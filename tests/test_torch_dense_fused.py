@@ -1,10 +1,11 @@
 """B5d's fused Dense kernels (``kernels/dense.py``): the Python the card's
 path shares with the CPU, on the CPU.
 
-* the tile plan per update shape (:func:`fwd_plan`, :func:`dx_plan`): the
-  tiles, the ring's stages, and the refusal of rows that are not a multiple
-  of 64, of a dX wider than a block's 256 rows, of an operand TMA cannot
-  load whose K overflows the ring (shape logic alone: no card);
+* the tile plan per update shape (:func:`fwd_plan`, :func:`dx_plan`,
+  :func:`heads_plan`): the tiles, the ring's stages, any row count (a
+  backward up to 4,096), one tile of up to 256 heads' columns, and the
+  refusal of an empty or larger shape, of an operand TMA cannot load whose
+  K overflows the ring (shape logic alone: no card);
 * which backward calls fuse into a dX product: one whole update at small
   widths, both critics, counts each wrapper's calls (30 forward layers, of
   them the one-hot critic's 6 first layers and the actor's 2 pairs of
@@ -80,21 +81,60 @@ def test_dx_plan_per_update_shape(kcs, stages):
             dense.dx_plan(256, kcs, [False] * len(kcs))
 
 
-@pytest.mark.parametrize("R", [0, 32, 100, 257, 16_383])
-def test_rows_not_a_multiple_of_64_are_refused(R):
-    with pytest.raises(ValueError, match="multiple of 64"):
-        dense.fwd_plan(R, 256, 256)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        dense.dx_plan(R, (256,))
+@pytest.mark.parametrize("R", [1, 32, 100, 257, 512, 4096, 16_383])
+def test_plans_take_any_row_count(R):
+    """Any R >= 1: the forward's last row tile is partial; the backward
+    kernels tile their rows by 256, up to 4,096 (the bias gradient's tree
+    over the tiles finished by the last block of a column group)."""
+    assert dense.fwd_plan(R, 256, 256)[0] == (128 if R >= dense.BIG_ROWS else 64)
+    assert dense.critic_plan(R, 256, 8, 8, 256, taken=R < 1024)
+    assert dense.heads_plan(R, 256, 16) == (64, 64, 4)
+    if R <= dense.MAX_ROWS:
+        assert dense.dx_plan(R, (256,)) == 4
+        assert dense.dx_plan(R, (8, 8), (False, False)) == 2
 
 
-def test_dx_rows_beyond_a_block_are_refused():
-    """The bias gradient's tree stays in one block: at most 256 rows."""
-    assert dense.dx_plan(192, (256,)) == 4
-    with pytest.raises(ValueError, match="up to 256"):
-        dense.dx_plan(320, (256,))
-    with pytest.raises(ValueError, match="up to 256"):
-        dense._check_rows("dense_backward", 512, dense.BWD_MAX_ROWS)
+def test_rows_outside_the_envelope_are_refused():
+    """No rows, or a backward over more than 4,096 (16 tiles of 256)."""
+    for plan in (lambda R: dense.fwd_plan(R, 256, 256),
+                 lambda R: dense.dx_plan(R, (256,)),
+                 lambda R: dense.heads_plan(R, 256, 16)):
+        with pytest.raises(ValueError, match="rows"):
+            plan(0)
+    with pytest.raises(ValueError, match="up to 4096"):
+        dense.dx_plan(4097, (256,))
+    with pytest.raises(ValueError, match="up to 4096"):
+        dense._check_rows("dense_backward", 4097, dense.MAX_ROWS)
+
+
+@pytest.mark.parametrize("n,bn", [(2, 64), (16, 64), (64, 64), (65, 128),
+                                  (72, 128), (136, 192), (200, 256),
+                                  (256, 256)])
+def test_heads_plan_takes_one_tile_of_the_heads(n, bn):
+    """Both heads side by side in one tile of n rounded up to 64 columns
+    (one wgmma up to 256 wide), the whole K = 256 in the ring, within a
+    block's shared memory; more than 256 columns are refused."""
+    bm, got, stages = dense.heads_plan(256, 256, n)
+    assert (bm, got, stages) == (64, bn, 4)
+    ring = max(stages * (bm + bn) * 128, bm * (bn + 8) * 2)
+    assert 1024 + ring + 8 * stages + 16 + 2 * bn <= dense.SMEM_MAX
+    with pytest.raises(ValueError, match="256"):
+        dense.heads_plan(256, 256, 257)
+
+
+@pytest.mark.parametrize("B,n_dc,n_g", [(256, 8, 8), (512, 8, 64),
+                                        (1024, 8, 128), (100, 3, 65),
+                                        (4096, 8, 128), (1, 1, 1)])
+def test_every_update_shape_of_the_envelope_has_a_plan(B, n_dc, n_g):
+    """Every kernel call of an update at the widened envelope's edges (the
+    paper fleet at --max-gpus-per-job 64 and 128, batches 1 to 4,096, heads
+    of 72 and 136 columns, A = 1,024) fits its kernel's plan, with both
+    critics."""
+    from distributed_cluster_gpus_tpu_torch.kernels import envelope
+
+    for arch in ("onehot", "heads"):
+        assert envelope.update_refusals(B, n_dc, n_g, 1 + 6 * n_dc,
+                                        critic_arch=arch) == []
 
 
 # ------------------------------------------------- which backward calls fuse
@@ -130,23 +170,28 @@ def test_update_fuses_eight_of_twelve_backward_calls(arch, monkeypatch):
     ``dense_fwd``), 8 hidden-layer gradients inside a dX product (each
     critic twin's two lower layers, the actor's hidden layer with both
     heads' products in one call, the encoder's three layers, the top one
-    fed by the actor), 4 standalone top layers (the twins' and the actor's
-    heads, from a float32 gradient)."""
+    fed by the actor), 2 standalone top layers (the twins', from a float32
+    gradient) and the actor's heads in the fused heads' backward, one call
+    for both with their log-softmax's gradient."""
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax
+
     cfg, sac, rb = _small_update(arch)
     seen = {"dense_fwd": [], "critic_first_fwd": [], "actor_heads_fwd": [],
-            "dense_dx": [], "dense_backward": []}
+            "dense_dx": [], "dense_backward": [], "heads_backward": []}
     for name in seen:
-        orig = getattr(dense, name)
+        mod = log_softmax if name == "heads_backward" else dense
+        orig = getattr(mod, name)
 
         def rec(*a, _name=name, _orig=orig, **kw):
             seen[_name].append(a)
             return _orig(*a, **kw)
-        monkeypatch.setattr(dense, name, rec)
+        monkeypatch.setattr(mod, name, rec)
     tsac.sac_train_step(cfg, sac, rb, torch.tensor([0, 9], dtype=torch.int64))
     first = 6 if arch == "onehot" else 0
     assert {k: len(v) for k, v in seen.items()} == {
         "dense_fwd": 26 - first, "critic_first_fwd": first,
-        "actor_heads_fwd": 2, "dense_dx": 8, "dense_backward": 4}
+        "actor_heads_fwd": 2, "dense_dx": 8, "dense_backward": 2,
+        "heads_backward": 1}
     assert sum(len(a) == 6 for a in seen["dense_dx"]) == 1  # the actor's pair
     assert all(a[0].dtype == torch.float32 for a in seen["dense_backward"])
     assert all(a[0].dtype == BF16 for a in seen["dense_dx"])

@@ -196,16 +196,25 @@ def test_critic_staging_covers_a_tiles_latents():
     assert dense.critic_aux(64, 256, 1, True) == 66176
 
 
-@pytest.mark.parametrize("R,K,plan", [(256, 256, (64, 4)), (64, 256, (64, 4)),
-                                      (16_384, 256, (128, 4))])
+@pytest.mark.parametrize("R,K,plan", [(256, 256, (64, 64, 4)),
+                                      (64, 256, (64, 64, 4)),
+                                      (16_384, 256, (64, 64, 4))])
 def test_heads_plan(R, K, plan):
-    assert dense.heads_plan(R, K) == plan
+    """The published heads (8 + 8 columns): one 64 x 64 tile, the whole K
+    in the ring, at every row count (the update's batch is at most 4,096)."""
+    assert dense.heads_plan(R, K, 16) == plan
 
 
 def test_fused_plans_refuse_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match="multiple of 64"):
-        dense.heads_plan(100, 256)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        dense.critic_plan(6 * 8, 256, 2, 4, 256, False)
+    """No rows; more than 256 heads' columns; a K the ring cannot hold.
+    Any row count is taken (the last tile partial)."""
+    with pytest.raises(ValueError, match="rows"):
+        dense.heads_plan(0, 256, 16)
+    with pytest.raises(ValueError, match="rows"):
+        dense.critic_plan(0, 256, 2, 4, 256, False)
+    with pytest.raises(ValueError, match="256"):
+        dense.heads_plan(256, 256, 257)
     with pytest.raises(ValueError, match="ring"):
-        dense.heads_plan(256, 4096)
+        dense.heads_plan(256, 4096, 16)
+    assert dense.heads_plan(100, 256, 72) == (64, 128, 4)
+    assert dense.critic_plan(6 * 8, 256, 2, 4, 256, False)[0] == 64

@@ -435,19 +435,19 @@ def test_rl_tail_device_code_matches_plain_version(cuda, fleet_fn, W, threads):
         assert (int(out["a_dc"][i]), int(out["a_g"][i])) == (int(a[0]), int(a[1]))
 
 
-def _window(g, N, p_valid, dev, obs_dim=13, n_dc=2):
+def _window(g, N, p_valid, dev, obs_dim=13, n_dc=2, n_g=8):
     f32 = dict(generator=g)
     return {k: v.to(dev) for k, v in {
         "valid": torch.rand(N, **f32) < p_valid,
         "s0": torch.randn((N, obs_dim), **f32),
         "s1": torch.randn((N, obs_dim), **f32),
         "a_dc": torch.randint(0, n_dc, (N,), dtype=torch.int32, **f32),
-        "a_g": torch.randint(0, 8, (N,), dtype=torch.int32, **f32),
+        "a_g": torch.randint(0, n_g, (N,), dtype=torch.int32, **f32),
         "r": torch.randn(N, **f32), "costs": torch.randn((N, 4), **f32),
         "mask_dc": torch.rand((N, n_dc), **f32) < 0.5,
-        "mask_g": torch.rand((N, 8), **f32) < 0.5,
+        "mask_g": torch.rand((N, n_g), **f32) < 0.5,
         "mask_dc0": torch.rand((N, n_dc), **f32) < 0.5,
-        "mask_g0": torch.rand((N, 8), **f32) < 0.5}.items()}
+        "mask_g0": torch.rand((N, n_g), **f32) < 0.5}.items()}
 
 
 @pytest.mark.gpu
@@ -616,6 +616,58 @@ def test_marginal_kernels_match_plain_versions(cuda, layout, B, n_dc, n_g, N):
     assert b5.marginal_actor.launches == before + 1
     for k, p in zip(out_k, out_p):
         assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dc,n_g", [(8, 8), (3, 65), (8, 64), (8, 128),
+                                      (128, 8), (4, 252), (1, 255)])
+@pytest.mark.parametrize("B", [1, 100, 256, 512, 4096])
+def test_marginal_kernels_widened_envelope(cuda, B, n_dc, n_g):
+    """B5b at the widened envelope (A up to 1,024, heads up to 256, batches
+    to 4,096; the one-hot critic's layout, N = 32): the redesigned target
+    at the plan's warp count and the widened actor term, bitwise."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    q, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, 32, layout="onehot")
+    args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
+            x["alpha"], 0.99)
+    before = b5.marginal_target.launches
+    for k, p in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
+        assert _bits_equal(k, p)
+    assert b5.marginal_target.launches == before + 1
+    for k, p in zip(b5.marginal_actor(q, ldc, lg, x["alpha"]),
+                    rsac.marginal_actor(q, ldc, lg, x["alpha"])):
+        assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dc,n_g,N", [(8, 8, 32), (3, 65, 32), (8, 128, 33)])
+def test_marginal_target_negative_zeros_and_nan(cuda, n_dc, n_g, N):
+    """The redesigned target keeps -0.0 through its trees (a row whose
+    leaves pi (-0.0 - (-0.0) log pi) are all -0.0, with r_eff = -0.0: with
+    A a power of two its targets are -0.0 unless a level adds a +0.0 the
+    plain tree does not; else the plain tree's own padding makes them
+    +0.0) and propagates a NaN quantile (torch.minimum's rule) to that
+    quantile's target only: bitwise the plain version."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    q, ldc, lg, x = _marginal_inputs(cuda, 9, n_dc, n_g, N, layout="heads")
+    q[3] = -0.0
+    x["alpha"].fill_(-0.0)
+    x["r"][3] = -0.0
+    x["costs"][3] = 0.0
+    q[4, 1, n_dc * n_g // 2, 5] = float("nan")
+    args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
+            x["alpha"], 0.99)
+    got, want = b5.marginal_target(*args), rsac.marginal_target(*args)
+    for k, p in zip(got, want):
+        assert _bits_equal_nan(k, p)
+    A = n_dc * n_g
+    assert bool((torch.signbit(got[0][3]) == (A & (A - 1) == 0)).all())
+    assert bool((got[0][3] == 0).all())
+    assert bool(torch.isnan(got[0][4, 5])) and not bool(torch.isnan(got[0][4, 6]))
 
 
 @pytest.mark.gpu
@@ -801,15 +853,15 @@ def test_replay_sample_kernel_matches_plain_version(cuda, ring, batch):
             assert _bits_equal(out_k[name], out_p[name]), (name, idx_arg)
 
 
-def _small_agent(dev, arch, obs_dim=13, n_dc=2):
+def _small_agent(dev, arch, obs_dim=13, n_dc=2, n_g=8, batch=64):
     from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
     from distributed_cluster_gpus_tpu_torch.rl.replay import replay_add_chunk
 
-    agent = CHSAC_AF(obs_dim=obs_dim, n_dc=n_dc, n_g_choices=8, batch=64,
+    agent = CHSAC_AF(obs_dim=obs_dim, n_dc=n_dc, n_g_choices=n_g, batch=batch,
                      buffer_capacity=500, warmup=50, critic_arch=arch,
                      device=dev)
     g = torch.Generator().manual_seed(4)
-    tr = _window(g, 300, 0.7, dev, obs_dim, n_dc)
+    tr = _window(g, 300, 0.7, dev, obs_dim, n_dc, n_g)
     tr["done"] = (torch.rand(300, generator=g) < 0.5).float().to(dev)
     replay_add_chunk(agent.replay, tr)
     return agent
@@ -860,6 +912,39 @@ def test_update_kernel_path_bitwise_at_aligned_widths(cuda, arch):
     for k in ma:
         assert _bits_equal(ma[k], mb[k]), k
     assert _same_learner(a, b) == []
+
+
+#: the widened envelope's update shapes (batch, n_dc, n_g): an odd batch
+#: with 3 + 65 heads' columns (rows TMA cannot load), and the paper fleet's
+#: 8 DCs at --max-gpus-per-job 64 at batch 512 (A = 512, 72 columns)
+WIDE_UPDATES = [(100, 3, 65), (512, 8, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_dc,n_g", WIDE_UPDATES)
+@pytest.mark.parametrize("arch", ["onehot", "heads"])
+def test_update_kernel_path_matches_plain_path_widened(cuda, arch, B, n_dc, n_g):
+    """Whole updates beyond the published shape (batch and heads the
+    kernels refused before the envelope was widened): the kernel path
+    within the parity bounds of the plain path, as at the published
+    shape, and the CUDA graph bitwise the eager kernel path."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b, c = (_small_agent(cuda, arch, 13, n_dc, n_g, B) for _ in range(3))
+        ma, na = a.train_steps(3, 4)
+        mb, nb = b.train_steps(3, 4, plain=True)
+        mc, nc = c.train_steps(3, 4, graph=False)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert na == nb == nc == 3 and a.graph_captures == 1
+    assert bridge.sac_far_apart(
+        a.cfg, bridge.sac_to_numpy(a.cfg, b.sac),
+        bridge.sac_to_numpy(a.cfg, a.sac), 3, (mb, ma)) == []
+    assert all(_bits_equal(ma[k], mc[k]) for k in ma)
+    assert _same_learner(a, c) == []
 
 
 @pytest.mark.gpu
@@ -1018,13 +1103,26 @@ def test_param_pack_kernel_matches_plain_version(cuda):
 #: and the small agents' narrow heads and unaligned inputs (N = 2, K = 266)
 FWD_SHAPES = [(256, 49, 256), (256, 256, 256), (256, 256, 8), (256, 256, 32),
               (256, 272, 256), (256, 256, 2048), (16_384, 272, 256),
-              (16_384, 256, 256), (16_384, 256, 32), (64, 266, 256), (64, 256, 2)]
+              (16_384, 256, 256), (16_384, 256, 32), (64, 266, 256), (64, 256, 2),
+              # the widened envelope: any row count (a partial last tile),
+              # batches up to 4,096, all-actions rows that are not a
+              # multiple of a tile, the heads critic at A = 512
+              (1, 49, 256), (100, 49, 256), (37, 272, 256), (512, 256, 256),
+              (4096, 256, 256), (4096, 256, 32), (8_191, 256, 256),
+              (20_000, 256, 32), (512, 256, 16_384)]
 #: every fused dX backward (R, N, K' of each product): the hidden layers
 #: (K' = 256), a critic twin's layer below its top (K' = 32), the heads
 #: critic's (K' = 2,048), the actor's hidden layer (both heads, K' = 8 each)
 #: and the small agent's (K' = 2)
 DX_SHAPES = [(256, 256, (256,)), (256, 256, (32,)), (256, 256, (2048,)),
-             (256, 256, (8, 8)), (64, 256, (2, 8)), (192, 256, (256,))]
+             (256, 256, (8, 8)), (64, 256, (2, 8)), (192, 256, (256,)),
+             # the widened envelope: 1 to 4,096 rows (several 256-row tiles:
+             # the bias gradient's tree finished by the last block), the
+             # paper fleet's heads at --max-gpus-per-job 64, 3 x 65 heads
+             # (rows TMA cannot load), the heads critic at A = 512
+             (1, 256, (256,)), (100, 256, (256,)), (257, 256, (256,)),
+             (512, 256, (256,)), (1000, 256, (32,)), (4096, 256, (256,)),
+             (512, 256, (8, 64)), (100, 256, (3, 65)), (512, 256, (16_384,))]
 
 
 def _small_ints(g, shape, dev, lo=-3, hi=4):
@@ -1169,7 +1267,7 @@ def test_dense_dx_kernel_within_an_ulp_on_random_operands(cuda, R, N, kcs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R", [64, 192, 256])
+@pytest.mark.parametrize("R", [64, 192, 256, 1, 100, 257, 512, 4096])
 @pytest.mark.parametrize("N,kind", [(256, "bf16_relu"), (8, "f32_last"),
                                     (32, "f32_last"), (2048, "f32_last"),
                                     (256, "two_relu"), (3, "bf16_relu")])
@@ -1178,7 +1276,8 @@ def test_dense_backward_kernel_matches_plain_version(cuda, R, N, kind):
     bf16 cast of a float32 gradient from a twin's strided slot, the sum of
     two bf16 gradients) and the bias gradient by the tree over the rows,
     bitwise; R = 192 pads the tree to 256 rows, N = 3 takes the scalar
-    loads."""
+    loads; R > 256 spans several row tiles (the last block of a column
+    group takes the tiles' levels from G)."""
     from distributed_cluster_gpus_tpu_torch.kernels.dense import dense_backward
     from distributed_cluster_gpus_tpu_torch.rl import nets
 
@@ -1317,30 +1416,39 @@ def _heads_inputs(kind, R, n_dc, n_g, dev, seed=0):
     for n in (n_dc, n_g):
         m = torch.rand((R, n), generator=g) < 0.6
         m[0] = False
-        m[1] = False
-        m[1, n - 1] = True
+        if R > 1:
+            m[1] = False
+            m[1, n - 1] = True
         masks.append(m.to(dev))
     return hid, ks, bs, masks
 
 
+#: the heads' widths: the published 8 x 8, the small agents', and the
+#: widened envelope's (72, 68, 136 and 256 columns: tiles of 128, 192, 256)
+HEADS = [(8, 8), (2, 8), (3, 5), (1, 63), (8, 64), (3, 65), (8, 128),
+         (128, 8), (1, 255)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["exact", "permutation", "nan"])
-@pytest.mark.parametrize("n_dc,n_g", [(8, 8), (2, 8), (3, 5), (1, 63)])
-@pytest.mark.parametrize("R", [64, 256])
+@pytest.mark.parametrize("n_dc,n_g", HEADS)
+@pytest.mark.parametrize("R", [64, 256, 1, 100, 4096])
 def test_actor_heads_kernel_matches_plain_version(cuda, R, n_dc, n_g, kind):
     """B5f's forward folded into the heads' product (``actor_heads_gemm``),
     one launch for both heads: the float32 logits and the masked
     log-probabilities bitwise the plain composition (two ``torch.matmul``
     layers, then ``masked_log_softmax``): a fully masked row, one feasible
     entry, random masks, and (``nan``) a NaN in hid, whose row's logits
-    and log-probabilities are all NaN in both."""
+    and log-probabilities are all NaN in both; any row count, heads up to
+    256 columns together."""
     from distributed_cluster_gpus_tpu_torch.kernels.dense import actor_heads_fwd
 
     hid, (k_dc, k_g), (b_dc, b_g), (m_dc, m_g) = _heads_inputs(
         "permutation" if kind == "nan" else kind, R, n_dc, n_g, cuda)
+    nan_row = min(2, R - 1)
     if kind == "nan":
-        hid[2] = float("nan")
-        m_dc[2] = m_g[2] = True
+        hid[nan_row] = float("nan")
+        m_dc[nan_row] = m_g[nan_row] = True
     before = actor_heads_fwd.launches
     got = actor_heads_fwd(hid, k_dc, b_dc, k_g, b_g, m_dc, m_g)
     assert actor_heads_fwd.launches == before + 1
@@ -1348,8 +1456,9 @@ def test_actor_heads_kernel_matches_plain_version(cuda, R, n_dc, n_g, kind):
     for k, p in zip(got, want):
         assert _bits_equal_nan(k, p)
     if kind == "nan":
-        assert bool(torch.isnan(got[0][2]).all() and torch.isnan(got[1][2]).all())
-        assert not bool(torch.isnan(got[0][3:]).any())
+        assert bool(torch.isnan(got[0][nan_row]).all()
+                    and torch.isnan(got[1][nan_row]).all())
+        assert not bool(torch.isnan(got[0][nan_row + 1:]).any())
 
 
 @pytest.mark.gpu
@@ -1401,33 +1510,108 @@ def test_fused_inputs_replay_in_a_cuda_graph(cuda):
         assert all(_bits_equal(k, p) for k, p in zip(got, ref)), i
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_dc,n_g", [(8, 8), (2, 8), (1, 64)])
-def test_log_softmax_backward_kernel_matches_plain_version(cuda, n_dc, n_g):
-    """B5f's backward: the logits' gradient of both heads in one launch,
-    bitwise (CUDA's expf is torch's exp): random masks, fully masked rows,
-    one feasible entry, large logits."""
-    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
-    from distributed_cluster_gpus_tpu_torch.rl import nets
-
-    B = 256
-    g = torch.Generator().manual_seed(n_dc * n_g)
+def _heads_grad_inputs(B, n_dc, n_g, dev, seed=0):
+    """Both heads' logits (every other row large), masks (a fully masked
+    row, one feasible entry, random ones) and dL/dlogp."""
+    g = torch.Generator().manual_seed(B + 7 * n_dc + 13 * n_g + seed)
     heads = []
     for n in (n_dc, n_g):
         m = torch.rand((B, n), generator=g) < 0.6
         m[0] = False
-        m[1] = False
-        m[1, n - 1] = True
+        if B > 1:
+            m[1] = False
+            m[1, n - 1] = True
         logits = torch.randn((B, n), generator=g) * torch.where(
             torch.arange(B) % 2 == 0, 1.0, 40.0)[:, None]
-        heads.append((logits.to(cuda), m.to(cuda),
-                      torch.randn((B, n), generator=g).to(cuda)))
-    (l0, m0, c0), (l1, m1, c1) = heads
-    before = b5f.log_softmax2_backward.launches
-    bwd = b5f.log_softmax2_backward(l0, l1, m0, m1, c0, c1)
-    assert b5f.log_softmax2_backward.launches == before + 1
-    for k, (logits, m, c) in enumerate(heads):
-        assert _bits_equal(bwd[k], nets.masked_log_softmax_backward(logits, m, c))
+        heads.append((logits.to(dev), m.to(dev),
+                      torch.randn((B, n), generator=g).to(dev)))
+    return heads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dc,n_g", [(8, 8), (2, 8), (1, 64), (3, 65), (8, 64),
+                                      (8, 128), (128, 8), (1, 255)])
+@pytest.mark.parametrize("B", [256, 1, 100, 512, 4096])
+def test_log_softmax_backward_kernel_matches_plain_version(cuda, B, n_dc, n_g):
+    """B5f's backward fused with the heads' top-layer backward
+    (``heads_backward``): both heads' bf16 gradients and bias gradients in
+    one launch, bitwise the plain composition (``masked_log_softmax_
+    backward``, then ``dense_backward``; CUDA's expf is torch's exp):
+    random masks, fully masked rows, one feasible entry, large logits, at
+    1 to 4,096 rows (several 256-row tiles: the bias
+    gradients' trees finished by a last block) and heads up to 256
+    entries."""
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    (l0, m0, c0), (l1, m1, c1) = _heads_grad_inputs(B, n_dc, n_g, cuda)
+    dbs = [torch.empty(n, dtype=torch.bfloat16, device=cuda)
+           for n in (n_dc, n_g, n_dc, n_g)]
+    before = b5f.heads_backward.launches
+    got = b5f.heads_backward(l0, l1, m0, m1, c0, c1, dbs[0], dbs[1])
+    assert b5f.heads_backward.launches == before + 1
+    want = nets.heads_backward_plain(l0, l1, m0, m1, c0, c1, dbs[2], dbs[3])
+    for k in range(2):
+        assert _bits_equal(got[k], want[k]) and _bits_equal(dbs[k], dbs[k + 2])
+
+
+@pytest.mark.gpu
+def test_heads_backward_nan_logit(cuda):
+    """A NaN logit: its row's gradient is NaN where the mask lets it
+    through in both versions, every other row bitwise; the bias gradient
+    of the columns the row reaches is NaN in both."""
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    (l0, m0, c0), (l1, m1, c1) = _heads_grad_inputs(300, 8, 64, cuda, seed=3)
+    l1[5, 7] = float("nan")
+    m1[5] = True
+    dbs = [torch.empty(n, dtype=torch.bfloat16, device=cuda)
+           for n in (8, 64, 8, 64)]
+    got = b5f.heads_backward(l0, l1, m0, m1, c0, c1, dbs[0], dbs[1])
+    want = nets.heads_backward_plain(l0, l1, m0, m1, c0, c1, dbs[2], dbs[3])
+    for k in range(2):
+        assert _bits_equal_nan(got[k].float(), want[k].float())
+        assert _bits_equal_nan(dbs[k].float(), dbs[k + 2].float())
+    assert bool(torch.isnan(got[1][5].float()).all())
+
+
+@pytest.mark.gpu
+def test_heads_backward_replays_in_a_cuda_graph(cuda):
+    """The fused heads' backward over several row tiles (its arrival counts
+    reset by the last block) captured once and replayed 20 times on new
+    inputs: bitwise the plain composition every time."""
+    from distributed_cluster_gpus_tpu_torch.kernels import log_softmax as b5f
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    ins = [t for h in _heads_grad_inputs(600, 8, 72, cuda) for t in h]
+    dbs = [torch.empty(n, dtype=torch.bfloat16, device=cuda) for n in (8, 72)]
+
+    def calls():
+        l0, m0, c0, l1, m1, c1 = ins
+        return [b5f.heads_backward(l0, l1, m0, m1, c0, c1, *dbs)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    for i in range(20):
+        new = [t for h in _heads_grad_inputs(600, 8, 72, cuda, seed=i + 1)
+               for t in h]
+        for dst, src in zip(ins, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        l0, m0, c0, l1, m1, c1 = ins
+        ref = [torch.empty_like(d) for d in dbs]
+        want = nets.heads_backward_plain(l0, l1, m0, m1, c0, c1, *ref)
+        for got in out:
+            assert all(_bits_equal(k, p) for k, p in zip(got, want)), i
+        assert all(_bits_equal(d, r) for d, r in zip(dbs, ref)), i
 
 
 @pytest.mark.gpu
@@ -1437,7 +1621,7 @@ def test_fused_region_wrappers_reject_bad_operands(cuda):
     from distributed_cluster_gpus_tpu_torch.kernels.dense import (
         actor_heads_fwd, critic_first_fwd, dense_backward, dense_dx, dense_fwd)
     from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import \
-        log_softmax2_backward
+        heads_backward
     from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
 
     x = torch.zeros((64, 8), dtype=torch.bfloat16, device=cuda)
@@ -1447,46 +1631,53 @@ def test_fused_region_wrappers_reject_bad_operands(cuda):
         dense_fwd(x, k.float(), b, True)
     with pytest.raises(ValueError):  # the float32 copy needs unit column stride
         dense_fwd(x, k, b, True, torch.zeros((8, 64), device=cuda).t())
-    with pytest.raises(ValueError):  # rows: a multiple of 64
-        dense_fwd(x[:40], k, b, True)
+    with pytest.raises(ValueError):  # no rows
+        dense_fwd(x[:0], k, b, True)
     with pytest.raises(ValueError):  # x needs unit column stride
         dense_fwd(torch.zeros((8, 64), dtype=torch.bfloat16, device=cuda).t(),
                   k, b, True)
-    with pytest.raises(ValueError):  # the bias gradient's tree: R <= 256
-        dense_dx(torch.zeros((320, 8), dtype=torch.bfloat16, device=cuda), k,
+    with pytest.raises(ValueError):  # the bias gradient's tree: R <= 4,096
+        dense_dx(torch.zeros((4097, 8), dtype=torch.bfloat16, device=cuda), k,
                  None, b)
     with pytest.raises(ValueError):  # a second gradient needs its kernel
         dense_dx(x, k, None, b, x)
     with pytest.raises(ValueError):
         dense_backward(x[:8].t(), None, b[:4])
     with pytest.raises(ValueError):
-        dense_backward(x[:40], None, b)
+        dense_backward(torch.zeros((4097, 8), device=cuda), None, b)
     lat = torch.zeros((64, 3), device=cuda)
     w1 = torch.zeros((8, 16), dtype=torch.bfloat16, device=cuda)
     b1 = torch.zeros(16, dtype=torch.bfloat16, device=cuda)
     a64 = torch.zeros(64, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):  # the kernel reads int32 actions
         critic_first_fwd(lat, 2, 3, w1, b1, a64, a64)
-    with pytest.raises(ValueError):  # rows: a multiple of 64 (6 x 6 here)
-        critic_first_fwd(lat[:6], 2, 3, w1, b1)
+    with pytest.raises(ValueError):  # no rows
+        critic_first_fwd(lat[:0], 2, 3, w1, b1)
     with pytest.raises(ValueError):  # the kernel's depth is L + n_dc + n_g
         critic_first_fwd(lat, 2, 4, w1, b1)
     m8 = torch.ones((64, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):  # a CPU mask beside CUDA operands
         actor_heads_fwd(x, k, b, k, b, m8, m8.cpu())
-    with pytest.raises(ValueError):  # rows: a multiple of 64
-        actor_heads_fwd(x[:40], k, b, k, b, m8[:40], m8[:40])
-    wide = torch.zeros((8, 60), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):  # both heads in one 64-wide tile
+    with pytest.raises(ValueError):  # no rows
+        actor_heads_fwd(x[:0], k, b, k, b, m8[:0], m8[:0])
+    wide = torch.zeros((8, 250), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # both heads in one tile of <= 256
         actor_heads_fwd(x, k, b, wide, wide[0], m8,
-                        torch.ones((64, 60), dtype=torch.bool, device=cuda))
-    with pytest.raises(ValueError):
-        log_softmax2_backward(torch.zeros((4, 3), device=cuda),
-                              torch.zeros((4, 2), device=cuda),
-                              torch.ones((4, 3), dtype=torch.bool, device=cuda),
-                              torch.ones((4, 2), dtype=torch.bool).cpu(),
-                              torch.zeros((4, 3), device=cuda),
-                              torch.zeros((4, 2), device=cuda))
+                        torch.ones((64, 250), dtype=torch.bool, device=cuda))
+    db3, db2 = (torch.zeros(n, dtype=torch.bfloat16, device=cuda) for n in (3, 2))
+    with pytest.raises(ValueError):  # a CPU mask beside CUDA operands
+        heads_backward(torch.zeros((4, 3), device=cuda),
+                       torch.zeros((4, 2), device=cuda),
+                       torch.ones((4, 3), dtype=torch.bool, device=cuda),
+                       torch.ones((4, 2), dtype=torch.bool).cpu(),
+                       torch.zeros((4, 3), device=cuda),
+                       torch.zeros((4, 2), device=cuda), db3, db2)
+    with pytest.raises(ValueError):  # rows: 1 to 4,096
+        heads_backward(*(torch.zeros((4097, n), device=cuda) for n in (3, 2)),
+                       *(torch.ones((4097, n), dtype=torch.bool, device=cuda)
+                         for n in (3, 2)),
+                       *(torch.zeros((4097, n), device=cuda) for n in (3, 2)),
+                       db3, db2)
     with pytest.raises(TypeError):
         param_pack([(torch.zeros(8, device=cuda), torch.zeros(8, device=cuda))])
 

@@ -365,3 +365,244 @@ def test_b5b_actor_warp_mapping_matches_plain_version(B, n_dc, n_g, N, vec):
     want = rsac.marginal_actor(q, ldc, lg, alpha)
     for name, a, b in zip(("loss", "H", "dlogp_dc", "dlogp_g"), got, want):
         assert _same_bits(a, b), name
+
+
+# ------------------------------ B5b's target: strided actions, warp tail
+
+
+def target_tree(x, W):
+    """``marginal_target_kernel``'s tree over the last axis of x [..., A]:
+    warp w owns the actions a = w + W j, j < J = Ap / W; its tree over j
+    (the levels of distance >= W) in the lane's registers as the leaves
+    load (``tree_regs``: depth first up to 16, streamed above), then the
+    last log2(W) levels over w in one warp (``tree_static``)."""
+    A = x.shape[-1]
+    Ap = _pow2(A)
+    J = Ap // W
+    zero = torch.zeros(x.shape[:-1])
+
+    def warp(w):
+        return tree_regs(J, lambda j: x[..., w + W * j] if w + W * j < A else zero)
+
+    sums = [warp(w) for w in range(W)]
+    return tree_static(lambda w: sums[w], W)
+
+
+@pytest.mark.parametrize("W", [4, 8, 16, 32])
+@pytest.mark.parametrize("A", [64, 72, 195, 512, 1024])
+def test_target_warp_mapping_keeps_the_tree(A, W):
+    """Strided ownership, the register levels and the cross-warp tail add
+    exactly tree_sum_last's pairs: bitwise, with -0.0 rows (no padding
+    beyond Ap turns them into +0.0) and NaN entries."""
+    rng = np.random.default_rng(A + W)
+    x = _seeded(rng, (6, A))
+    x[1, ::17] = float("nan")
+    assert _same_bits(target_tree(x, W), tree_sum_last(x))
+
+
+def b5b_target_warps(q, logp_dc, logp_g, r, costs, lam, targets, done, alpha,
+                     gamma, W):
+    """``marginal_target_kernel``'s dataflow: the row's pi and alpha log pi
+    once, each lane's leaves pi (min over the twins - alpha log pi) summed
+    by :func:`target_tree`, r_eff's tree over the costs on every writing
+    lane, then r_eff + gamma (1 - done) v."""
+    B, _, A, N = q.shape
+    logpi = (logp_dc[:, :, None] + logp_g[:, None, :]).reshape(B, A)
+    pi, al = torch.exp(logpi), alpha * logpi
+    qmin = torch.minimum(q[:, 0], q[:, 1])  # [B, A, N]
+    leaves = pi[:, :, None] * (qmin - al[:, :, None])
+    v = target_tree(leaves.transpose(1, 2), W)  # [B, N]
+    x = costs - targets[None, :]
+    viol = torch.where(torch.isnan(x), x, torch.maximum(x, torch.zeros(())))
+    reff = r - tree_sum_last(lam[None, :] * viol)
+    disc = torch.tensor(gamma, dtype=F32) * (1.0 - done)
+    return reff[:, None] + disc[:, None] * v, reff
+
+
+@pytest.mark.parametrize("B,n_dc,n_g,N", [(5, 8, 8, 32), (3, 8, 9, 32),
+                                          (2, 3, 65, 32), (2, 8, 64, 32),
+                                          (2, 8, 128, 32), (4, 1, 1, 33),
+                                          (3, 5, 7, 64)])
+def test_b5b_target_warp_mapping_matches_plain_version(B, n_dc, n_g, N):
+    """The redesigned target's whole mapping at the plan's warp count
+    (``sac_update.target_warps``) and at every other the kernel is built
+    for, bitwise against ``rl/sac.py::marginal_target``: masked and
+    all-masked heads (pi = 0, pi log pi = -0), -0.0 and NaN quantiles."""
+    from distributed_cluster_gpus_tpu_torch.kernels.sac_update import target_warps
+
+    rng = np.random.default_rng(B * n_g + N)
+    A = n_dc * n_g
+    q = torch.from_numpy(rng.standard_normal((B, 2, A, N)).astype(np.float32))
+    q[:, :, :, ::7] = -0.0
+    q[0, 1, A // 2, 3] = float("nan")
+    m_dc = torch.from_numpy(rng.random((B, n_dc)) < 0.6)
+    m_g = torch.from_numpy(rng.random((B, n_g)) < 0.6)
+    m_dc[:, 0] = True
+    m_g[:, -1] = True
+    m_dc[0] = False
+    ldc = masked_log_softmax(torch.from_numpy(
+        rng.standard_normal((B, n_dc)).astype(np.float32)), m_dc)
+    lg = masked_log_softmax(torch.from_numpy(
+        rng.standard_normal((B, n_g)).astype(np.float32)), m_g)
+    r = torch.from_numpy(rng.standard_normal(B).astype(np.float32))
+    costs = torch.from_numpy((rng.random((B, 4)) * 900).astype(np.float32))
+    lam = torch.tensor([0.4, 0.0, 2.0, 0.0])
+    tg = torch.tensor([500.0, 1e30, 0.0, 1e30])
+    done = (torch.arange(B) % 2).float()
+    alpha = torch.tensor(0.3)
+    args = (q, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
+    want = rsac.marginal_target(*args)
+    Ap = _pow2(A)
+    for W in sorted({target_warps(A), *(w for w in (1, 2, 4, 8, 16, 32)
+                                        if w <= Ap and Ap // w <= 256)}):
+        got = b5b_target_warps(*args, W)
+        for a, b in zip(got, want):
+            assert _same_bits(a, b), W
+
+
+# ------------------- the bias gradient's tree over tiles of 256 rows
+
+
+def tiled_column_tree(G, R):
+    """``rd::tiled_column_tree`` (and, for one tile, ``rd::column_tree``)
+    over the rows of G [R, C]: rows zero-padded to P = pow2(R); over P > 256
+    the levels of distance >= 256 add whole tiles elementwise (tile t + tile
+    t + T/2), then one warp a column the tree inside the tile: lane l holds
+    rows l + 32 k, the levels of distance >= 32 in registers, the rest by
+    shuffles from the padded half."""
+    C = G.shape[1]
+    P = _pow2(R)
+    T, rows = max(1, P // 256), min(P, 256)
+    x = torch.zeros((T, 256, C))
+    x.reshape(T * 256, C)[:R] = G
+    h = T // 2
+    while h >= 1:
+        x[:h] = x[:h] + x[h:2 * h]
+        h //= 2
+    tile = x[0].t()  # [C, 256]
+    v = torch.zeros((8, C, LANES))
+    for k in range(8):
+        idx = LANE + 32 * k
+        v[k] = torch.where(idx < rows, tile[:, idx.clamp(max=255)], torch.zeros(()))
+    h = 4
+    while h >= 1:
+        if 64 * h <= rows:
+            for k in range(h):
+                v[k] = v[k] + v[k + h]
+        h //= 2
+    return warp_tree(v[0], min(rows, 32))[..., 0]
+
+
+@pytest.mark.parametrize("R", [1, 3, 64, 100, 256, 257, 512, 1000, 4096])
+def test_tiled_column_tree_keeps_the_tree(R):
+    """B5d's backward kernels and the heads' backward over R rows, one tile
+    or several: bitwise tree_sum_last over the rows, -0.0 columns kept
+    (rows past R are +0.0, as the plain tree pads)."""
+    rng = np.random.default_rng(R)
+    G = _seeded(rng, (R, 9))
+    G[:, 3] = -0.0
+    G = G.to(torch.bfloat16).to(F32)  # G is bf16: float(G) exact
+    assert _same_bits(tiled_column_tree(G, R), tree_sum_last(G.t()))
+
+
+# ------------------------- the heads' backward: a row by a lane segment
+
+
+def segment_row_grad(logits, mask, g):
+    """``row_grad`` of ``csrc/log_softmax.cu``: a row of n entries by a
+    segment of s = min(P, 32) lanes, entry j at lane j % s, register j / s;
+    the max by a xor butterfly, S and T by the register levels (distance
+    >= s) then shuffles from the segment's padded half."""
+    R, n = logits.shape
+    P = _pow2(n)
+    s, RJ = min(P, 32), max(1, P // 32)
+    ok = torch.zeros((R, RJ, s), dtype=torch.bool)
+    pad = torch.zeros((R, RJ * s), dtype=torch.bool)
+    pad[:, :n] = True
+    ok[:] = pad.reshape(R, RJ, s)
+
+    def layout(x, fill):
+        y = torch.full((R, RJ * s), fill, dtype=x.dtype)
+        y[:, :n] = x
+        return y.reshape(R, RJ, s)
+
+    mk = layout(mask, False)
+    x = torch.where(mk, layout(logits, 0.0), torch.where(
+        ok, torch.tensor(-1e9), torch.tensor(float("-inf"))))
+    gv = layout(g, 0.0)
+    m = x.amax(dim=(1, 2), keepdim=True)  # a NaN-free row: any order
+    e = torch.where(ok, torch.exp(x - m), torch.zeros(()))
+    ts, tg = e.clone(), gv.clone()
+    d = RJ // 2
+    while d >= 1:
+        ts[:, :d] = ts[:, :d] + ts[:, d:2 * d]
+        tg[:, :d] = tg[:, :d] + tg[:, d:2 * d]
+        d //= 2
+    lane = torch.arange(s)
+    o = s // 2
+    S, T = ts[:, 0], tg[:, 0]
+    while o >= 1:
+        src = torch.where(lane + o < s, lane + o, lane)
+        S, T = S + S[:, src], T + T[:, src]
+        o //= 2
+    ds = (-T[:, :1]) / S[:, :1]
+    dl = torch.where(mk, gv + ds[:, :, None] * e, torch.zeros(()))
+    return dl.reshape(R, RJ * s)[:, :n]
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 33, 64, 65, 128, 200, 256])
+def test_heads_backward_row_segments_keep_the_plain_order(n):
+    """The fused heads' backward's row statistics on a lane segment, bitwise
+    ``rl/nets.py::masked_log_softmax_backward``: random masks, a fully
+    masked row, one feasible entry, large logits."""
+    from distributed_cluster_gpus_tpu_torch.rl import nets
+
+    rng = np.random.default_rng(n)
+    R = 40
+    logits = torch.from_numpy((rng.standard_normal((R, n)) * np.where(
+        np.arange(R) % 2, 40.0, 1.0)[:, None]).astype(np.float32))
+    mask = torch.from_numpy(rng.random((R, n)) < 0.6)
+    mask[0] = False
+    mask[1] = False
+    mask[1, n - 1] = True
+    g = torch.from_numpy(rng.standard_normal((R, n)).astype(np.float32))
+    assert _same_bits(segment_row_grad(logits, mask, g),
+                      nets.masked_log_softmax_backward(logits, mask, g))
+
+
+def _source_int(name):
+    """An ``int`` constant of ``csrc/log_softmax.cu``."""
+    import os
+    import re
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "log_softmax.cu")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+@pytest.mark.parametrize("P", [1, 2, 4, 8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("R", [256, 37])
+def test_heads_backward_passes_cover_every_entry_once(P, R):
+    """The fused heads' backward's work split, as the kernel indexes it
+    (its warps a block from the source): a 256-row tile of a head padded to
+    P entries, in passes of 32 / s rows a warp, kAhead passes at once,
+    guarded as the kernel guards its loads: every (row, entry) of the R
+    rows exactly once (a whole tile, or a last tile of 37 rows), none past
+    them."""
+    warps, tile = _source_int("kWarps"), 256
+    RJ = max(1, P // 32)
+    s, U = (P if RJ == 1 else 32), (1 if RJ >= 4 else 4 // RJ)
+    rpw = 32 // s
+    passes = (tile + warps * rpw - 1) // (warps * rpw)
+    seen = {}
+    for p0 in range(0, passes, U):
+        for u in range(U):
+            for warp in range(warps):
+                for lane in range(32):
+                    t = ((p0 + u) * warps + warp) * rpw + lane // s
+                    if p0 + u < passes and t < tile and t < R:
+                        for k in range(RJ):
+                            j = (lane & (s - 1)) + s * k
+                            seen[(t, j)] = seen.get((t, j), 0) + 1
+    assert seen == {(t, j): 1 for t in range(R) for j in range(P)}

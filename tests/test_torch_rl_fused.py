@@ -20,7 +20,9 @@ small widths and on the same numpy-seeded inputs:
 * B5f, the masked log-softmax (its plain version, which the heads' fused
   forward repeats) and its gradient against ``nn.log_softmax`` under the
   mask (``jax.vjp``), a fully masked head included, within ``LOGP_ULP`` ulp
-  / ``GRAD_RTOL``;
+  / ``GRAD_RTOL``; the fused heads' backward (``heads_backward``, both
+  heads' gradients cast to bf16 with their bias gradients) bitwise the
+  gradient's bf16 cast and its tree;
 * B5g, the pack: float32 -> bf16 bitwise equal to ``astype(bfloat16)``
   (ties to even, subnormals, overflow to infinity), bf16 -> float32 exact.
 """
@@ -37,7 +39,7 @@ from distributed_cluster_gpus_tpu.rl.nets import MLPStateEncoder as JEnc
 from distributed_cluster_gpus_tpu.rl.nets import QuantileCritic as JQC
 from distributed_cluster_gpus_tpu_torch.kernels.dense import critic_first_fwd
 from distributed_cluster_gpus_tpu_torch.kernels.log_softmax import \
-    log_softmax2_backward
+    heads_backward
 from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
 from distributed_cluster_gpus_tpu_torch.rl import nets
 
@@ -197,8 +199,8 @@ def test_actor_value_and_grads_match_flax(masks):
     # each layer's bf16 gradient G: the heads' the logits' gradient rounded,
     # the hidden layer's their two products summed and masked by its ReLU
     _, hid, l_dc, l_g, _, _ = saved
-    G = [None, *(g.to(BF16) for g in log_softmax2_backward(
-        l_dc, l_g, md, mg, torch.from_numpy(c_dc), torch.from_numpy(c_g)))]
+    G = [None, *(nets.masked_log_softmax_backward(l_, m, torch.from_numpy(c)).to(
+        BF16) for l_, m, c in ((l_dc, md, c_dc), (l_g, mg, c_g)))]
     dx = [torch.matmul(G[k], w[k][0].t()).to(torch.float32) for k in (1, 2)]
     G[0] = torch.where(hid > 0, (dx[0] + dx[1]).to(BF16), torch.zeros_like(hid))
     for k, name in enumerate(nets.flax_names(act_t)):
@@ -271,9 +273,12 @@ def test_masked_log_softmax_and_grad_match_flax(n):
     cts = [rng.normal(size=(B, n)).astype(np.float32) for _ in range(2)]
     lp_t = [nets.masked_log_softmax(torch.from_numpy(x), torch.from_numpy(m))
             for x, m in zip(logits, masks)]
-    dl_t = log_softmax2_backward(*(torch.from_numpy(x) for x in logits),
-                                 *(torch.from_numpy(m) for m in masks),
-                                 *(torch.from_numpy(c) for c in cts))
+    dl_t = [nets.masked_log_softmax_backward(*(torch.from_numpy(v) for v in a))
+            for a in zip(logits, masks, cts)]
+    dbs = [torch.empty(n, dtype=BF16) for _ in range(2)]
+    G_t = heads_backward(*(torch.from_numpy(x) for x in logits),
+                         *(torch.from_numpy(m) for m in masks),
+                         *(torch.from_numpy(c) for c in cts), *dbs)
     for k in range(2):
         def f(x, m=masks[k]):
             return nn.log_softmax(jnp.where(m, x, jnp.float32(-1e9)), axis=-1)
@@ -286,7 +291,11 @@ def test_masked_log_softmax_and_grad_match_flax(n):
         assert np.abs(dl_j - dl_t[k].numpy()).max() <= GRAD_RTOL * max(
             np.abs(dl_j).max(), 1.0)
         assert np.all(dl_t[k].numpy()[~masks[k]] == 0)
-    assert log_softmax2_backward.launches == 0
+        want = dl_t[k].to(BF16)
+        assert torch.equal(G_t[k].view(torch.int16), want.view(torch.int16))
+        assert torch.equal(dbs[k].view(torch.int16), torch.from_numpy(_tree_np(
+            want.to(torch.float32).numpy().T)).to(BF16).view(torch.int16))
+    assert heads_backward.launches == 0
 
 
 # ---------------------------------------------------------------- B5g

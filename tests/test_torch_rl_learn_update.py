@@ -19,6 +19,9 @@ masked actions) and the same key:
   log alpha and the counts equal, the moments within their gradient's
   spread (``MOMENT_RTOL`` of each leaf's largest value), lambda within
   ``LAM_ULP`` ulp.
+
+The same bounds hold for one update at the card's widened envelope (batch
+37, 3 x 65 joint actions: heads of 68 columns together), both critics.
 """
 
 import jax
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_cluster_gpus_tpu.rl import cmdp as jcmdp
 from distributed_cluster_gpus_tpu.rl import replay as jreplay
 from distributed_cluster_gpus_tpu.rl import sac as jsac
 from distributed_cluster_gpus_tpu_torch import bridge
@@ -35,8 +39,8 @@ from distributed_cluster_gpus_tpu_torch.rl import cmdp as tcmdp
 from distributed_cluster_gpus_tpu_torch.rl import replay as treplay
 from distributed_cluster_gpus_tpu_torch.rl import sac as tsac
 
-from test_torch_rl_learn_ops import (LAM_ULP, N_DC, N_G, OBS, _key_t, _ulps,
-                                     _window, carried_pair)
+from test_torch_rl_learn_ops import (LAM_ULP, N_DC, N_G, OBS, _key_t,
+                                     _perturbed, _ulps, _window, carried_pair)
 
 METRIC_RTOL, METRIC_ATOL = 2e-3, 1e-4
 MOMENT_RTOL = 0.05
@@ -99,6 +103,90 @@ def test_update_metrics_within_tolerance(updated):
 
 def test_update_state_leaves_within_bounds(updated):
     cj, ct, rbj, rbt, key, sj2, mj, st, mt = updated
+    a = dict(_leaves(bridge.flax_sac_to_numpy(jax.tree.map(np.asarray, sj2))))
+    b = dict(_leaves(bridge.sac_to_numpy(ct, st)))
+    assert set(a) == set(b)
+    for path, x in a.items():
+        y = b[path]
+        assert x.dtype == y.dtype and x.shape == y.shape, path
+        d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        group = path.split(".")[0]
+        if group in ("enc_params", "actor_params", "critic_params"):
+            assert d.max() <= 2 * LR and np.median(d) <= LR / 100, path
+        elif group == "target_critic_params":
+            assert np.all(d <= 2 * LR * TAU + np.spacing(np.abs(x))), path
+        elif path.endswith(".count") or path in ("step", "log_alpha"):
+            assert np.array_equal(x, y), path
+        elif group == "cmdp":
+            assert _ulps(x, y).max() <= LAM_ULP, path
+        else:  # Adam's moments
+            assert d.max() <= MOMENT_RTOL * max(np.abs(x).max(), 1e-30), path
+
+
+# --------------------------- one update beyond the published widths
+
+#: the card's widened envelope at an odd batch with heads wider than 64
+#: together (3 + 65 entries, 195 joint actions), cut to a CPU size
+WIDE_B, WIDE_DC, WIDE_G = 37, 3, 65
+
+
+def _wide_ring(seed=8, C=300, N=260):
+    rng = np.random.default_rng(seed)
+    w = {"valid": rng.random(N) < 0.7,
+         "s0": rng.normal(size=(N, OBS)).astype(np.float32),
+         "s1": rng.normal(size=(N, OBS)).astype(np.float32),
+         "a_dc": rng.integers(0, WIDE_DC, N).astype(np.int32),
+         "a_g": rng.integers(0, WIDE_G, N).astype(np.int32),
+         "r": rng.normal(size=N).astype(np.float32),
+         "costs": (rng.random((N, 4)) * 800).astype(np.float32),
+         "done": (rng.random(N) < 0.5).astype(np.float32)}
+    for name, n in (("mask_dc", WIDE_DC), ("mask_g", WIDE_G),
+                    ("mask_dc0", WIDE_DC), ("mask_g0", WIDE_G)):
+        w[name] = rng.random((N, n)) < 0.7
+        w[name][:, 0] = True
+    w["mask_dc0"][:3] = False  # every DC masked at s0: a uniform head
+    rbj = jreplay.replay_add_chunk(
+        jreplay.replay_init(C, OBS, WIDE_DC, WIDE_G, 4),
+        {k: jnp.asarray(v) for k, v in w.items()})
+    tree = bridge.tree_to_numpy(jax.device_get(rbj))
+    return rbj, treplay.ReplayState(**{k: torch.tensor(np.array(v))
+                                       for k, v in tree.items()})
+
+
+@pytest.fixture(scope="module", params=["onehot", "heads"])
+def wide_updated(request):
+    """One update of both packages at batch 37 with 3 x 65 joint actions,
+    from a JAX ``SACState`` with seeded perturbed networks carried across."""
+    arch = request.param
+    kw = dict(obs_dim=OBS, n_dc=WIDE_DC, n_g=WIDE_G, batch=WIDE_B,
+              critic_arch=arch)
+    cj = jsac.SACConfig(**kw, constraints=jcmdp.default_constraints(500.0))
+    ct = tsac.SACConfig(**kw, constraints=tcmdp.default_constraints(500.0))
+    sj = jsac.sac_init(cj, jax.random.key(6))
+    rng = np.random.default_rng(11)
+    crit = _perturbed(sj.critic_params, rng)
+    sj = jax.tree.map(jnp.asarray, sj.replace(
+        enc_params=_perturbed(sj.enc_params, rng),
+        actor_params=_perturbed(sj.actor_params, rng), critic_params=crit,
+        target_critic_params=_perturbed(crit, rng)))
+    st = bridge.sac_from_flax(ct, jax.tree.map(np.asarray, sj), device="cpu")
+    rbj, rbt = _wide_ring()
+    key = jax.random.key(43)
+    sj2, mj = jax.jit(lambda s, r, k: jsac.sac_train_step(cj, s, r, k))(sj, rbj, key)
+    mt = tsac.sac_train_step(ct, st, rbt, _key_t(key))
+    return ct, sj2, mj, st, mt
+
+
+def test_update_beyond_the_published_widths_within_tolerance(wide_updated):
+    """The plain path at the widened envelope (an odd batch, heads of 68
+    columns together, 195 joint actions; the card's kernels take it, the
+    published shapes' kernels did not) against the JAX package's update:
+    the metrics and every leaf within the published-width bounds above."""
+    ct, sj2, mj, st, mt = wide_updated
+    for k in mj:
+        a, b = np.asarray(mj[k]), mt[k].numpy()
+        assert a.shape == b.shape and np.isfinite(b).all(), k
+        assert np.all(np.abs(a - b) <= METRIC_RTOL * np.abs(a) + METRIC_ATOL), k
     a = dict(_leaves(bridge.flax_sac_to_numpy(jax.tree.map(np.asarray, sj2))))
     b = dict(_leaves(bridge.sac_to_numpy(ct, st)))
     assert set(a) == set(b)
