@@ -10,9 +10,11 @@ Phases (any failure exits non-zero before the result lines):
    kernel's ptxas line (registers, shared memory, spills);
 3. hold B2 (arrival tables) against its plain torch version on the card at
    the main path's shapes (the paper fleet's S=16 streams, n=4096 entries;
-   then R=32 lanes in one launch): key words and uniform draws bit-exact,
-   sizes / next arrivals / cumulative folds within 1e-6 relative (measured
-   bit-identical); time kernel and plain version, compute the card's bound;
+   then R=32 lanes in one launch; both at n = 1, 1,024, 2,047, 2,048, 4,096
+   and 4,097): key words, uniform draws, sizes, next arrivals and
+   cumulative folds bitwise; time kernel (device time, and at R=32 with the
+   bench's 512-step chunks) and plain version, compute the card's bound
+   and the fold chain's floor;
 4. (a) hold B1 (the event scan) against its plain version on the card,
    bitwise (final state leaves, key words, emissions; the largest absolute
    difference is computed and reported): the duo/single-DC loads of the CPU
@@ -47,6 +49,8 @@ Phases (any failure exits non-zero before the result lines):
    the chsac_af CLI builds it (2 chunks), then R=4 lanes each against its
    single-lane run; the policy's biases and kernels perturbed with seeded
    values (``perturb_policy``: flax's init, the CLI's, zeroes the biases);
+   then at ``--max-gpus-per-job 128`` (8 x 128 joint actions) a 1,024-step
+   chunk bitwise and the kernel's us per event;
 10. (f) chsac_af's B3 (windowed p99) and B4 (policy forward and sample)
     through the standalone launch of B1's RL-mode device code, against
     their plain versions on the card, bitwise, with (g)'s perturbed policy:
@@ -54,7 +58,10 @@ Phases (any failure exits non-zero before the result lines):
     observations and masks (all but one action masked in two rows), and
     (g)'s final latency windows and one of its decisions, on which both are
     timed (device time of launches queued back to back) beside the plain
-    versions and one-call PyTorch yardsticks;
+    versions and one-call PyTorch yardsticks; then B4's GPU-count head at
+    n_g = 33, 64, 128 (paper fleet) and 255 (single-DC fleet), sampled and
+    greedy, rows with all but one action masked, bitwise, a decision timed
+    at each width beside the event scan's cluster plan;
 11. (h) B6a (the replay ingest window) against ``_add_window``'s plain
     version on windows that wrap, are all or none valid, or overwrite valid
     rows;
@@ -67,9 +74,12 @@ Phases (any failure exits non-zero before the result lines):
     loss and gradient; |td| exactly at kappa and at 0), B5b (the target and
     the actor marginalization with its gradient, both critics' layouts;
     masked and all-masked heads, done in {0, 1}), B5c (clipped Adam on the
-    four parameter groups in one call; the clip on and off, a zero
-    gradient, steps 1 and 1,000, the count at saturation, the Polyak
-    target, the alpha clamp) and B6b (the replay sample on 200,000-row
+    four parameter groups in one call, with B5g's casts inside: the
+    networks' gradients read as bf16, their shadows written, and with
+    float32 gradients; the clip on and off, a zero gradient, steps 1 and
+    1,000, the count at saturation, the Polyak target, the alpha clamp),
+    B5g's own kernel (the shadows' refresh) and B6b (the replay sample on
+    200,000-row
     rings: empty, full, wrapped with gaps, one valid row; batches 1, 256
     and 4,096; the key given or derived on the card from a chunk key and
     an update index), each timed beside its plain version, its bound and a
@@ -80,8 +90,7 @@ Phases (any failure exits non-zero before the result lines):
     input rows, B5e, inside its product; the actor's two heads with their
     masked log-softmax, B5f's forward, in one launch), B5f's backward fused
     with the heads' top-layer backward and
-    B5g (the bf16 parameter shadows and the gradient pack), each called
-    with the inputs one eager
+    each called with the inputs one eager
     update at the published shape gave it (recorded at the call; the
     all-actions layers' 16,384 rows, the heads critic's 2,048-wide output
     from a second, heads-critic update), bitwise against its plain version
@@ -102,7 +111,8 @@ Phases (any failure exits non-zero before the result lines):
     update eager through the kernels, and the plain path: graph and eager
     bitwise in every state leaf and metric (cuBLAS deterministic), the
     plain path bitwise or within the update's parity bounds (B5d's
-    products and cuBLAS's differ on the 49-wide observations), with the
+    products and cuBLAS's differ on the 49-wide observations), every
+    path's bf16 shadows bf16 of its parameters, with the
     heads critic and the one-hot critic, at the published shape and at
     ``--rl-batch 512 --max-gpus-per-job 64``; one eager kernel-path update
     at the envelope's corner (``--rl-batch 4096 --max-gpus-per-job 128``,
@@ -119,7 +129,8 @@ Phases (any failure exits non-zero before the result lines):
     for, no synchronizing call with B1, B6a or train_steps on the stack
     apart from the capture's, metrics finite, alpha capped; then the heads
     critic for 300 s and a widened setting (``--rl-batch 300
-    --max-gpus-per-job 32``, 120 s) with the same checks;
+    --max-gpus-per-job 128``, 120 s) with the same checks; B5g's kernel
+    launched once a run (the new agent's shadows);
 17. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
@@ -140,7 +151,12 @@ Opt-in studies replace the smoke when asked for:
         git-ignored directory) and of this one, in both modes
         (``default_policy`` at the CLI's shape; RL mode at the chsac_af
         CLI's shape with the seeded perturbed policy), alternating parent,
-        change, change, parent, each in its own process: us per event.
+        change, change, parent, each in its own process: us per event;
+        then the change alone at ``--max-gpus-per-job 128``, twice.
+    python3 chip_smoke.py --b2-ab PARENT
+        B2 of the checkout at PARENT and of this one, alternating as
+        above: device ms per call at the CLI's shape (R = 1, n = 4,096)
+        and the bench's (R = 32, n = 512).
     python3 chip_smoke.py --b5d-plans
         B5d's forward at the update's layer shapes with every tile and ring
         that fits: each bitwise against the plain version, device us per
@@ -344,14 +360,15 @@ def cli_argv(algo, out):
     return argv
 
 
-def cli_params(algo):
+def cli_params(algo, extra=()):
     """(fleet, params, chunk steps) exactly as the CLI builds them for the
-    main path's command line."""
+    main path's command line with the ``extra`` flags."""
     from distributed_cluster_gpus_tpu_torch import run_sim
-    from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
+    from distributed_cluster_gpus_tpu_torch.configs.paper import (
+        build_fleet, build_single_dc_fleet)
 
-    a = run_sim.parse_args(cli_argv(algo, "unused"))
-    fleet = build_fleet()
+    a = run_sim.parse_args(cli_argv(algo, "unused") + list(extra))
+    fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
     return fleet, run_sim.finalize_queue_cap(run_sim.build_params(a), fleet), \
         a.chunk_steps
 
@@ -498,16 +515,27 @@ def phase_b2(report):
         max_rel = max(max_rel, rel)
         if rel > 1e-6:
             fail(f"B2 {k}: relative error {rel:.3g} > 1e-6")
-    # R=32 lanes in one launch, each against its plain version
+    # R=32 lanes in one launch, each against its plain version; both lane
+    # counts at the fold's edges (one entry, a vector tail, whole vectors,
+    # a second tile of B2_TILE)
     lanes = batched_init(fleet, params, 32, workload=wl, device="cuda")
     largs = args_of(lanes, (32,))
-    lout = b2.arrival_tables(*largs, 1024)
-    lref = b2.arrival_tables_reference(*largs, 1024)
-    torch.cuda.synchronize()
-    for k in ("sizes", "tnext", "cum"):
-        if not torch.equal(lout[k], lref[k]):
-            fail(f"B2 with 32 lanes: {k} differs from the plain version")
-    ms = time_cuda(lambda: b2.arrival_tables(*args, n), reps=50)
+    for R_, a_ in ((1, args), (32, largs)):
+        for n_ in (1, 1024, 2047, 2048, n, 4097):
+            lout = b2.arrival_tables(*a_, n_, with_aux=True)
+            lref = b2.arrival_tables_reference(*a_, n_, with_aux=True)
+            torch.cuda.synchronize()
+            for k in ("sizes", "tnext", "cum", "aux_key", "aux_u"):
+                if not bits_equal(lout[k], lref[k]):
+                    fail(f"B2 with {R_} lane(s), n = {n_}: {k} differs from "
+                         "the plain version")
+    # device time (calls queued back to back behind a spin) and the
+    # wrapper's time per call
+    ms, _ = device_ms(lambda: b2.arrival_tables(*args, n), "_kernel", reps=50)
+    kernel_us = dict(KERNEL_US["_kernel"])  # each of its launches, median us
+    call_ms = time_cuda(lambda: b2.arrival_tables(*args, n), reps=50)
+    n_bench = 512  # the bench shape's chunk (phase (c)): S x R = 512 folds
+    ms_r32 = _queued_ms(lambda: b2.arrival_tables(*largs, n_bench), reps=50)
     plain_ms = time_cuda(lambda: b2.arrival_tables_reference(*args, n), reps=1,
                          runs=3, warmup=1)
     fams = wl.family_t.tolist()
@@ -517,13 +545,22 @@ def phase_b2(report):
     ops = (n_active * n * (BLOCKS_PER_ENTRY * THREEFRY_OPS + SAMPLER_OPS)
            + n_sin * n * BISECT_OPS + S * n)
     bound_ms, bound_by = bound(bytes_moved, ops)
+    # the dependent float32 fold: n adds on one thread at ~4 cycles each
+    chain_ms = 4 * n / 1.755e9 * 1e3
     print(f"B2 arrival_tables S={S} n={n}: max_abs_err={max_err:.3g} "
-          f"max_rel_err={max_rel:.3g}, 32 lanes bit-identical; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}: {bytes_moved} B, {ops} ops)")
+          f"max_rel_err={max_rel:.3g}; R = 1 and 32 lanes bitwise at n = 1, "
+          f"1,024, 2,047, 2,048, {n:,} and 4,097; kernel {ms:.4f} ms device "
+          f"time ({call_ms:.4f} ms per wrapper call; R = 32, n = {n_bench}: "
+          f"{ms_r32:.4f} ms), plain {plain_ms:.2f} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by}: {bytes_moved} B, {ops} "
+          f"ops), the fold chain's floor {chain_ms:.4f} ms; its launches, "
+          f"median us: {kernel_us}")
     report["b2"] = {"S": S, "n": n, "max_abs_err": max_err, "max_rel_err": max_rel,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bytes": bytes_moved, "ops": ops}
+                    "ms": ms, "call_ms": call_ms, "ms_r32_bench": ms_r32,
+                    "kernel_us": kernel_us,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "fold_chain_ms": chain_ms, "bytes": bytes_moved, "ops": ops}
 
 
 def b1_work(eng, before, after, pre, em, n_steps):
@@ -937,7 +974,8 @@ def phase_profile(report):
             n_dtoh += 1
         if "event_scan_kernel" in e.name:
             b1_us += dur
-        if "draws_kernel" in e.name or "fold_kernel" in e.name:
+        if any(k in e.name for k in ("draws_kernel", "fold_kernel",
+                                     "tnext_kernel")):
             b2_us += dur
     if n_dev == 0:
         fail("profile: the profiler saw no device activity")
@@ -974,22 +1012,30 @@ def phase_profile(report):
 def perturb_policy(sac, seed=21):
     """Seeded non-zero biases and perturbed kernels in every layer, in
     place: flax's default init (the CLI's) zeroes every bias, which would
-    leave the forward's bias add unchecked."""
+    leave the forward's bias add unchecked.  A write of the parameters
+    outside the update: the shadows are refreshed after it (a parent
+    checkout of an A/B, before PR 12, has no refresh: its updates cast the
+    shadows at their head)."""
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():  # the parameters are trainable leaves
         for layer in sac.layers():
             for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
                 p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+    if hasattr(rsac, "refresh_shadows"):
+        rsac.refresh_shadows(sac)
 
 
-def rl_setup():
+def rl_setup(extra=()):
     """(fleet, params, chunk steps, engine, agent) of the chsac_af main path
-    as its CLI builds them (``cli_argv("chsac_af")``), with the policy's
-    biases and kernels perturbed by ``perturb_policy``."""
+    as its CLI builds them (``cli_argv("chsac_af")`` and the ``extra``
+    flags), with the policy's biases and kernels perturbed by
+    ``perturb_policy``."""
     from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
     from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
 
-    fleet, params, n = cli_params("chsac_af")
+    fleet, params, n = cli_params("chsac_af", extra)
     agent = make_agent(fleet, params, device="cuda")
     perturb_policy(agent.sac)
     eng = Engine(fleet, params, device="cuda", policy_apply=agent.policy_apply)
@@ -1169,6 +1215,152 @@ def phase_rl_tail(report, real):
                     "library_ms": lib_b4, "bound_ms": b4_bound,
                     "bound_by": b4_by, "bytes": b4_bytes, "bf16_ops": 2 * macs,
                     "profiler_launches_seen": seen_b4}
+
+
+#: phase (f)'s widened GPU-count heads: (n_g, its CLI flags) on the paper
+#: fleet, 255 on the single-DC fleet (n_dc + n_g <= 256)
+WIDE_HEAD_N = ((33, ()), (64, ()), (128, ()), (255, ("--single-dc",)))
+
+
+def phase_wide_heads(report):
+    """(f, widened) B4's GPU-count head at n_g = 33, 64, 128 (paper fleet)
+    and 255 (single-DC fleet) through the standalone launch, sampled and
+    greedy, against the plain version on the card: every row's
+    log-probabilities bitwise and its actions equal, on seeded observations
+    and masks with all but one action masked (the first, a middle, the
+    last) and every action feasible; then a decision's device time at
+    8 x 128 beside 8 x 8 (the event scan's cluster size for each)."""
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.rl.sac import (make_policy_apply,
+                                                           policy_logp,
+                                                           select_action)
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    out = {}
+    M = 40
+    for n_g, flags in WIDE_HEAD_N:
+        fleet, params, _, eng, agent = rl_setup(
+            flags + ("--max-gpus-per-job", str(n_g)))
+        sac, cfg = agent.sac, agent.cfg
+        obs, m_dc, m_g, keys = (t.cuda() for t in seeded_decisions(
+            M, cfg.obs_dim, cfg.n_dc, n_g, seed=n_g))
+        m_g[2:5] = False
+        m_g[2, 0] = m_g[3, n_g // 2] = m_g[4, n_g - 1] = True
+        m_g[5] = True
+        ops = b1.policy_operands(eng, sac, eng.device)
+        ring = torch.zeros((0, params.lat_window), device="cuda")
+        cnt = torch.zeros((0,), dtype=torch.int32, device="cuda")
+        ref_dc, ref_g = policy_logp(sac, obs, m_dc, m_g)
+        for greedy in (False, True):
+            e_ = Engine(fleet, params, device="cuda",
+                        policy_apply=make_policy_apply(cfg, greedy=greedy))
+            got = b1.rl_tail_batch(e_, sac, ring, cnt, obs, m_dc, m_g, keys,
+                                   operands=ops)
+            torch.cuda.synchronize()
+            where = f"B4 at {cfg.n_dc} x {n_g} ({'greedy' if greedy else 'sampled'})"
+            if not (bits_equal(got["logp_dc"], ref_dc)
+                    and bits_equal(got["logp_g"], ref_g)):
+                fail(f"{where}: log-probabilities differ from the plain version")
+            for i in range(M):
+                a = select_action(cfg, sac, obs[i], m_dc[i], m_g[i], keys[i],
+                                  greedy=greedy)
+                if (int(got["a_dc"][i]), int(got["a_g"][i])) != (int(a[0]),
+                                                                 int(a[1])):
+                    fail(f"{where} row {i}: kernel actions "
+                         f"{int(got['a_dc'][i])}, {int(got['a_g'][i])} vs "
+                         f"plain {int(a[0])}, {int(a[1])}")
+            if int(got["a_g"][4]) != n_g - 1 or int(got["a_g"][2]) != 0:
+                fail(f"{where}: a one-feasible row took another action")
+        one = [obs[:1].contiguous(), m_dc[:1].contiguous(),
+               m_g[:1].contiguous(), keys[:1].contiguous()]
+
+        def call(one=one, eng=eng, sac=sac, ops=ops, ring=ring, cnt=cnt):
+            return b1.rl_tail_batch(eng, sac, ring, cnt, *one, operands=ops)
+
+        ms, _ = device_ms(call, "rl_tail_batch_kernel")
+        widths = tuple(int(ops[0][2 * k].shape[0]) for k in range(4))
+        plan = b1.block_plan(eng, b1.THREADS, widths)
+        out[f"{cfg.n_dc}x{n_g}"] = {"us_per_decision": ms * 1e3,
+                                    "cluster": plan[1], "lead": plan[2],
+                                    "sum_warps": plan[0]}
+        del agent, sac, ops
+    fleet, params, _, eng, agent = rl_setup()
+    ops = b1.policy_operands(eng, agent.sac, eng.device)
+    plan = b1.block_plan(eng, b1.THREADS,
+                         tuple(int(ops[0][2 * k].shape[0]) for k in range(4)))
+    out["8x8"] = {"cluster": plan[1], "lead": plan[2], "sum_warps": plan[0],
+                  "us_per_decision": report["b4"]["ms"] * 1e3}
+    print("B4 widened GPU-count heads (n_g 33, 64, 128 on the paper fleet, "
+          "255 on the single-DC fleet): log-probabilities bitwise and actions "
+          "equal to the plain version, sampled and greedy, rows with all but "
+          "one action masked; per decision (device time, back to back) and "
+          "the event scan's (summing warps, cluster, lead) at each: " +
+          "; ".join(f"{k}: {v['us_per_decision']:.2f} us, ({v['sum_warps']}, "
+                    f"{v['cluster']}, {v['lead']})" for k, v in out.items()))
+    report["b4_wide"] = out
+
+
+#: phase (g)'s widest setting on the paper fleet, and its bitwise chunk
+WIDE_B1_ARGV = ("--max-gpus-per-job", "128")
+WIDE_B1_STEPS = 1024
+
+
+def phase_b1_rl_wide(report):
+    """(g, widened) B1 in RL mode on the paper fleet at ``WIDE_B1_ARGV``
+    (8 x 128 joint actions) against the plain step on the card, bitwise
+    over a ``WIDE_B1_STEPS``-step chunk from the run's start (every
+    emission, ``rl`` with its 128-wide masks included, and the state); then
+    the kernel alone over three 4,096-step chunks: us per event."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        clone_state, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+
+    fleet, params, n_steps, eng, agent = rl_setup(WIDE_B1_ARGV)
+    sac = agent.sac
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    other = clone_state(st)
+    pre = eng.workload.tables(st, WIDE_B1_STEPS)
+    em_k, _ = b1.event_scan(eng, st, pre, WIDE_B1_STEPS, sac)
+    em_r, _ = b1.event_scan_reference(eng, other, pre, WIDE_B1_STEPS, sac)
+    torch.cuda.synchronize()
+    where = f"B1 RL mode at 8 x {params.max_gpus_per_job}"
+    em_diff(em_k, em_r, where)
+    bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                 bridge.state_to_numpy(st))
+    if bad:
+        fail(f"{where}: state differs from the plain version at {bad[:5]}")
+    eng.workload.advance_carries(st, pre)
+    mg = em_k["rl"]["mask_g"]
+    decisions = int(em_k["rl"]["valid"].sum())
+    if tuple(mg.shape[-1:]) != (params.max_gpus_per_job,) or not bool(
+            mg[..., 8:].any()):
+        fail(f"{where}: no GPU-count action past 8 was ever feasible")
+    ms, events = [], []
+    for _ in range(3):
+        pre = eng.workload.tables(st, n_steps)
+        before = int(st.n_events.sum())
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        b1.event_scan(eng, st, pre, n_steps, sac)
+        b.record()
+        b.synchronize()
+        eng.workload.advance_carries(st, pre)
+        ms.append(a.elapsed_time(b))
+        events.append(int(st.n_events.sum()) - before)
+    us = statistics.mean(ms) / statistics.mean(events) * 1e3
+    print(f"{where} vs plain step on the card (paper fleet as the chsac_af "
+          f"CLI runs it with {' '.join(WIDE_B1_ARGV)}): a {WIDE_B1_STEPS}-step "
+          f"chunk bitwise identical (emissions incl. rl, state; "
+          f"{decisions} transitions); the kernel over 3 more {n_steps}-step "
+          f"chunks {[round(m, 3) for m in ms]} ms, {us:.3f} us/event")
+    report["b1_rl_wide"] = {"argv": WIDE_B1_ARGV, "steps": WIDE_B1_STEPS,
+                            "chunk_ms": ms, "events": events,
+                            "us_per_event": us}
 
 
 def rl_b1_work(eng, before, after, pre, em, n_steps, agent):
@@ -1500,6 +1692,13 @@ def _bits(a, b):
     return torch.equal(a, b)
 
 
+def _bits16(a, b):
+    """Bitwise equality of two bf16 tensors of one shape."""
+    return a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape and \
+        torch.equal(a.contiguous().view(torch.int16),
+                    b.contiguous().view(torch.int16))
+
+
 def seeded_policy_logp(g, B, n_dc, n_g):
     """Masked log-probabilities of both heads: random masks, row 0 with every
     DC masked (a uniform head), row 1 with every GPU count masked, row 2 with
@@ -1654,12 +1853,34 @@ def phase_update_kernels(report):
                         "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
                         "library_ms": None, "profiler_launches_seen": seen}
     # ---- B5c: the four groups at their published sizes in one call (the
-    # update's); the clip on and off, a zero gradient, steps 1 and 1,000,
-    # the count at saturation; the critic with its target, log alpha with
-    # its clamp
+    # update's: the networks' gradients bf16, their shadows written, the
+    # critic's target and its shadow; log alpha's gradient float32, its
+    # clamp), and the same with float32 gradients and no shadows; the clip
+    # on and off, a zero gradient, steps 1 and 1,000, the count at
+    # saturation
     sizes = {"critic": 287_808, "actor": 69_904, "enc": 144_384, "alpha": 1}
     cfg = optim.AdamConfig()
     clamp = float(torch.log(torch.tensor(10.0)))
+    bf16 = torch.bfloat16
+
+    def b5c_groups(host, casts):
+        """The update's AdamGroups on the card from host tensors; with
+        ``casts`` the networks' gradients bf16 and their shadows given."""
+        out_ = []
+        for grp, p, grad, step, mu, nu, tgt0 in host:
+            net = casts and grp != "alpha"
+            out_.append(b5c.AdamGroup(
+                p.cuda(), (grad.to(bf16) if net else grad).cuda(),
+                optim.AdamState(torch.tensor(step, dtype=torch.int32).cuda(),
+                                mu.cuda(), nu.cuda()),
+                None if tgt0 is None else tgt0.cuda(), tau=0.005,
+                clamp=clamp if grp == "alpha" else None,
+                shadow=torch.empty(p.numel(), dtype=bf16, device="cuda")
+                if net else None,
+                target_shadow=torch.empty(p.numel(), dtype=bf16, device="cuda")
+                if net and tgt0 is not None else None))
+        return out_
+
     n_case = 0
     for case in ("clip", "no_clip", "zero", "step1000", "saturated"):
         host = []
@@ -1675,29 +1896,29 @@ def phase_update_kernels(report):
             nu = torch.rand(n, generator=g) * 1e-4 if step else torch.zeros(n)
             tgt0 = torch.randn(n, generator=g) if grp == "critic" else None
             host.append((grp, p, grad, step, mu, nu, tgt0))
-        res = []
-        for plain_path in (False, True):
-            groups = [b5c.AdamGroup(
-                p.cuda(), grad.cuda(),
-                optim.AdamState(torch.tensor(step, dtype=torch.int32).cuda(),
-                                mu.cuda(), nu.cuda()),
-                None if tgt0 is None else tgt0.cuda(), tau=0.005,
-                clamp=clamp if grp == "alpha" else None)
-                for grp, p, grad, step, mu, nu, tgt0 in host]
-            b5c.adam_update(groups, cfg, plain=plain_path)
-            res.append([t for gr in groups for t in
-                        (gr.p, gr.st.mu, gr.st.nu, gr.st.count)
-                        + (() if gr.target is None else (gr.target,))])
-        if not all(_bits(x, y) for x, y in zip(*res)):
-            fail(f"B5c {case}: differs from its plain version")
-        n_case += 1
-    groups = []
-    for grp, n in sizes.items():
-        p = torch.randn(n, generator=g).cuda()
-        groups.append(b5c.AdamGroup(
-            p, (torch.randn(n, generator=g) * 0.01).cuda(), optim.adam_init(p),
-            torch.randn(n, generator=g).cuda() if grp == "critic" else None,
-            tau=0.005, clamp=clamp if grp == "alpha" else None))
+        for casts in (True, False):
+            res = []
+            for plain_path in (False, True):
+                groups = b5c_groups(host, casts)
+                b5c.adam_update(groups, cfg, plain=plain_path)
+                res.append([t for gr in groups for t in
+                            (gr.p, gr.st.mu, gr.st.nu, gr.st.count)
+                            + tuple(x for x in (gr.target, gr.shadow,
+                                                gr.target_shadow)
+                                    if x is not None)])
+            if not all((_bits16 if x.dtype == bf16 else _bits)(x, y)
+                       for x, y in zip(*res)):
+                what = "bf16 gradients, shadows" if casts else "float32 gradients"
+                fail(f"B5c {case} ({what}): differs from its plain version")
+            if casts and not all(_bits16(gr.shadow, gr.p.to(bf16))
+                                 for gr in groups if gr.shadow is not None):
+                fail(f"B5c {case}: a shadow is not bf16 of its parameters")
+            n_case += 1
+    groups = b5c_groups([
+        (grp, torch.randn(n, generator=g), torch.randn(n, generator=g) * 0.01,
+         0, torch.zeros(n), torch.zeros(n),
+         torch.randn(n, generator=g) if grp == "critic" else None)
+        for grp, n in sizes.items()], True)
 
     def adam_update(plain_path=False):
         b5c.adam_update(groups, cfg, plain=plain_path)
@@ -1706,7 +1927,7 @@ def phase_update_kernels(report):
     plain = time_cuda(lambda: adam_update(True), reps=5)
     lib_params = [torch.nn.Parameter(gr.p.clone()) for gr in groups]
     for lp_, gr in zip(lib_params, groups):
-        lp_.grad = gr.g.clone()
+        lp_.grad = gr.g.float()
     lib_opt = torch.optim.Adam([{"params": [lp_]} for lp_ in lib_params],
                                lr=cfg.lr, fused=True)
 
@@ -1717,12 +1938,39 @@ def phase_update_kernels(report):
 
     lib = time_cuda(lib_update, reps=20)
     n_all = sum(sizes.values())
-    by = 4 * (7 * n_all + 2 * sizes["critic"])
+    # a bf16 gradient read (float32 for log alpha), p, mu, nu read and
+    # written, the shadow written; the critic's target read and written and
+    # its shadow written
+    by = 28 * n_all + 10 * sizes["critic"]
     bnd, bnd_by = bound(by, 20 * n_all)
     out["b5c"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                   "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
                   "library_ms": lib, "cases": n_case,
                   "profiler_launches_seen": seen}
+    # ---- B5g's kernel, the shadows' refresh outside the update (the four
+    # groups at their published sizes: the target's as large as the
+    # critic's), bitwise against its plain version
+    from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
+
+    nets = dict(sizes, target=sizes["critic"])
+    del nets["alpha"]
+    srcs = [torch.randn(n, generator=g).cuda() * 3 for n in nets.values()]
+    srcs[0][:4] = torch.tensor([0.0, -0.0, 1e-40, 3.4e38])
+    dsts = [[torch.empty(n, dtype=bf16, device="cuda") for n in nets.values()]
+            for _ in range(2)]
+    param_pack(list(zip(srcs, dsts[0])))
+    optim.pack_plain(list(zip(srcs, dsts[1])))
+    if not all(_bits16(a, b) for a, b in zip(*dsts)):
+        fail("B5g (the shadows' refresh) differs from its plain version")
+    pairs = list(zip(srcs, dsts[0]))
+    ms, seen = device_ms(lambda: param_pack(pairs), "param_pack_kernel")
+    plain = time_cuda(lambda: optim.pack_plain(pairs), reps=20)
+    lib = time_cuda(lambda: [x.to(bf16) for x in srcs], reps=20)
+    by = 6 * sum(nets.values())
+    bnd, bnd_by = bound(by, sum(nets.values()))
+    out["b5g"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+                  "library_ms": lib, "profiler_launches_seen": seen}
     # ---- B6b: 200,000-row rings: empty, full, wrapped with invalid gaps,
     # one valid row; batches 1, 256 and 4,096; the sample key given or
     # derived on the card from a chunk key and an update index
@@ -1771,7 +2019,10 @@ def phase_update_kernels(report):
     names = {"b5a": "B5a quantile-Huber (loss + gradient)",
              "b5b_target": "B5b target marginalization",
              "b5b_actor": "B5b actor marginalization (+ gradient)",
-             "b5c": "B5c clipped Adam, four groups (one update)",
+             "b5c": "B5c clipped Adam, four groups (one update, B5g's casts "
+                    "inside)",
+             "b5g": "B5g's kernel, the four shadows' refresh (outside the "
+                    "update)",
              "b6b": "B6b replay sample (C=200,000)"}
     out["b5c"]["kernel_us"] = KERNEL_US.get("adam_")
     out["b6b"]["kernel_us"] = KERNEL_US.get("replay_sample_")
@@ -1896,14 +2147,10 @@ def _fused_bytes(name, args, kw=None):
         n = m_dc.numel() + m_g.numel()
         return (sum(nb(t) for t in args[:7]) + 8 * n), 43 * n, \
             2 * x.numel() * (k_dc.shape[1] + k_g.shape[1])
-    if name == "heads_backward":  # logits, masks, g in; G, db out
-        entries = args[0].numel() + args[1].numel()
-        return (sum(nb(t) for t in args[:6]) + 2 * entries + nb(args[6])
-                + nb(args[7])), 40 * entries, 0
-    # param_pack: every (src, dst) pair read and written once
-    pairs = args[0]
-    return (sum(nb(a) + nb(b) for a, b in pairs),
-            sum(a.numel() for a, _ in pairs), 0)
+    # heads_backward: logits, masks, g in; G, db out
+    entries = args[0].numel() + args[1].numel()
+    return (sum(nb(t) for t in args[:6]) + 2 * entries + nb(args[6])
+            + nb(args[7])), 40 * entries, 0
 
 
 def _products(name, args):
@@ -1922,8 +2169,8 @@ def _products(name, args):
 def _library_call(name, calls):
     """One PyTorch call computing the same function for each recorded call,
     or None: the log-softmax of the masked logits (its backward from the
-    forward's output), the buffers' ``Tensor.to``, B5d's products alone
-    (cuBLAS's ``torch.matmul``, without the epilogue)."""
+    forward's output), B5d's products alone (cuBLAS's ``torch.matmul``,
+    without the epilogue)."""
     if name == "critic_first_fwd":  # the product on prebuilt rows (cuBLAS)
         from distributed_cluster_gpus_tpu_torch.rl.nets import critic_input
         ins = [(critic_input(*a[:3], *a[5:7]), a[3]) for a, _ in calls]
@@ -1938,9 +2185,6 @@ def _library_call(name, calls):
             g, out, -1, torch.float32).masked_fill_(m, 0.0).to(
                 torch.bfloat16).float().sum(0).to(torch.bfloat16)
             for g, out, m in ins]
-    if name == "param_pack":
-        ins = [(src.clone(), dst.dtype) for a, _ in calls for src, dst in a[0]]
-        return lambda: [src.to(dt) for src, dt in ins]
     if name in ("dense_fwd", "dense_dx"):  # the products alone (cuBLAS)
         ins = [(a.clone(), b) for args, _ in calls for a, b in _products(name, args)]
         return lambda: [torch.matmul(a, b) for a, b in ins]
@@ -2125,7 +2369,7 @@ def check_recorded_calls(fleet, params, ring, cublas):
 
 
 def phase_fused_regions(report):
-    """(j, continued) the update's small fused regions (B5d-B5g): every call
+    """(j, continued) the update's small fused regions (B5d-B5f): every call
     one eager update at the published shape (the learning CLI's agent,
     batch 256, both critics) makes of each wrapper, recorded with its
     inputs, run again through the kernel and through the plain version
@@ -2173,9 +2417,7 @@ def phase_fused_regions(report):
         by, f32_ops, bf16_ops = (sum(v) for v in zip(
             *(_fused_bytes(name, a, kw) for a, kw in calls)))
         bnd, bnd_by = bound2(by, f32_ops, bf16_ops)
-        shapes[name] = sorted({tuple(a[0].shape) if name != "param_pack"
-                               else tuple(p[0].numel() for p in a[0])
-                               for a, _ in calls})
+        shapes[name] = sorted({tuple(a[0].shape) for a, _ in calls})
         if name.startswith("dense") or name in FUSED_INPUTS:
             per_shape[name] = _per_shape(name, calls, orig[name])
         out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
@@ -2371,15 +2613,12 @@ def phase_widened_kernels(report):
 
 def learning_params(extra=()):
     """(fleet, params, chunk steps) of the learning CLI (default warm-up),
-    with the ``extra`` flags, for an agent driven alone: parsed as for the
-    CPU, since the CLI on the card also holds the GPU-count head to B1's
-    32 actions, which the update alone does not need (``CHSAC_AF`` checks
-    the update's own envelope on the card)."""
+    with the ``extra`` flags, for an agent driven alone, parsed as the CLI
+    on the card parses them (its envelopes checked)."""
     from distributed_cluster_gpus_tpu_torch import run_sim
     from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
 
-    a = run_sim.parse_args(learning_argv("unused") + list(extra) +
-                           ["--device", "cpu"])
+    a = run_sim.parse_args(learning_argv("unused") + list(extra))
     fleet = build_fleet()
     return fleet, run_sim.finalize_queue_cap(run_sim.build_params(a), fleet), \
         a.chunk_steps
@@ -2395,10 +2634,11 @@ def learning_argv(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
 
 
 UPDATE_COUNTERS = ("quantile_huber", "marginal_target", "marginal_actor",
-                   "adam_update", "replay_sample", "param_pack",
+                   "adam_update", "replay_sample",
                    "dense_fwd", "dense_dx", "dense_backward",
                    "critic_first_fwd", "actor_heads_fwd", "heads_backward")
-#: the update's small fused regions (B5d-B5g): {wrapper: (its module and
+#: the update's small fused regions (B5d-B5f; B5g's casts run inside B5c):
+#: {wrapper: (its module and
 #: CUDA source, the profiler's name of its kernel, the JAX package's code
 #: it replaces)}
 FUSED = {"dense_fwd": ("dense", "dense_fwd_gemm", "rl/nets.py:37"),
@@ -2406,13 +2646,13 @@ FUSED = {"dense_fwd": ("dense", "dense_fwd_gemm", "rl/nets.py:37"),
          "dense_backward": ("dense", "dense_bwd_kernel", "rl/sac.py:264"),
          "critic_first_fwd": ("dense", "critic_first_gemm", "rl/nets.py:85"),
          "actor_heads_fwd": ("dense", "actor_heads_gemm", "rl/nets.py:58"),
-         "heads_backward": ("log_softmax", "heads_backward", "rl/nets.py:62"),
-         "param_pack": ("param_pack", "param_pack_kernel", "rl/sac.py:206")}
-#: the kernels the parents' updates launched that this checkout has not
-#: (B5e's rows, B5f's forward alone, B5f's backward alone): an A/B counts
-#: them as port kernels, and phase (k) fails if one runs
+         "heads_backward": ("log_softmax", "heads_backward", "rl/nets.py:62")}
+#: the kernels the parents' updates launched that this checkout's does not
+#: (B5e's rows, B5f's forward alone, B5f's backward alone, B5g's casts on
+#: their own, which run inside B5c since PR 12): an A/B counts them as port
+#: kernels, and phase (k) fails if one runs in a replayed update
 PARENT_KERNELS = ("critic_input_kernel", "log_softmax_kernel",
-                  "log_softmax_backward_kernel")
+                  "log_softmax_backward_kernel", "param_pack_kernel")
 
 
 def update_counters():
@@ -2443,11 +2683,11 @@ def per_update(arch):
     fused into a dX product (each critic twin's two lower layers, the
     actor's hidden layer with both heads' products, the encoder's three
     layers), 2 standalone (the twins' top layers) and the actor's heads in
-    one ``heads_backward`` with the log-softmax's backward; the shadows'
-    and the gradients' pack."""
+    one ``heads_backward`` with the log-softmax's backward; B5c with the
+    gradients' widening and the shadows' casts inside."""
     first = 6 if arch == "onehot" else 0
     return {"quantile_huber": 1, "marginal_target": 1, "marginal_actor": 1,
-            "adam_update": 1, "replay_sample": 1, "param_pack": 2,
+            "adam_update": 1, "replay_sample": 1,
             "dense_fwd": 26 - first, "dense_dx": 8, "dense_backward": 2,
             "critic_first_fwd": first, "actor_heads_fwd": 2,
             "heads_backward": 1}
@@ -2457,7 +2697,7 @@ def per_update(arch):
 GRAPH_CHUNK = 16
 #: phase (m)'s widened learning CLI run
 WIDE_CLI_S = 120.0
-WIDE_CLI_ARGV = ("--rl-batch", "300", "--max-gpus-per-job", "32")
+WIDE_CLI_ARGV = ("--rl-batch", "300", "--max-gpus-per-job", "128")
 
 
 #: the update's kernels by the names the profiler gives them
@@ -2614,6 +2854,14 @@ def three_paths(fleet, params, ring, arch, n):
     finally:
         torch.use_deterministic_algorithms(False)
     where = f"whole update ({arch})"
+    from distributed_cluster_gpus_tpu_torch.rl.sac import SHADOWED
+
+    for path, ag in zip(("graph", "eager", "plain"), agents):
+        stale = [grp for grp in SHADOWED if not _bits16(
+            ag.sac.shadow[grp], ag.sac.flat[grp].to(torch.bfloat16))]
+        if stale:
+            fail(f"{where}: after the {path} path's updates the shadows of "
+                 f"{stale} are not bf16 of their parameters")
     if not ng == ne == np_ == n:
         fail(f"{where}: {ng}, {ne} and {np_} updates run, {n} asked for")
     if (g_ag.graph_captures, g_ag.graph_replays) != (1, n - 1):
@@ -2797,8 +3045,8 @@ def phase_update_whole(report):
         fail(f"whole update: the profiled graph replays launched none of {missing}")
     stale = [k for k in g_prof[4] if any(p in k for p in PARENT_KERNELS)]
     if stale:
-        fail(f"whole update: the replayed graph launched {stale}, which the "
-             "fused input layers replace")
+        fail(f"whole update: the replayed graph launched {stale}, which this "
+             "checkout's update runs inside other kernels")
     top = list(prof["graph"]["device_us_per_update_by_name"].items())[:10]
     print("whole update, replayed graph: device us per update by kernel name "
           "(top 10): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
@@ -2928,11 +3176,12 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
     asked for ran (one per new transition, at most 256 a chunk, once warm)
     and every metric is finite with alpha <= alpha_max.  Returns (final
     state, wall s, record, launches: the update kernels' launches on the
-    card, the captures and the replays)."""
+    card, B5g's one refresh, the captures and the replays)."""
     from distributed_cluster_gpus_tpu_torch import run_sim
     from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
     from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
     from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
     from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
 
     rec = {"agents": [], "valid": [], "asked": [], "done": [], "metrics": [],
@@ -2964,6 +3213,7 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
         b1.event_scan.launches = b1.event_scan.rl_launches = 0
         b2.arrival_tables.launches = 0
         b6.replay_ingest.launches = 0
+        param_pack.launches = 0
         for w in counters.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -2974,6 +3224,7 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
                     "rl": b1.event_scan.rl_launches,
                     "arrival_tables": b2.arrival_tables.launches,
                     "replay_ingest": b6.replay_ingest.launches,
+                    "param_pack": param_pack.launches,
                     **{k: w.launches for k, w in counters.items()}}
     finally:
         CHSAC_AF.ingest_chunk, CHSAC_AF.train_steps = orig_ingest, orig_train
@@ -2984,6 +3235,11 @@ def learning_run(out, arch="onehot", duration=MAIN_DURATION_S, extra=()):
     if not (n_chunks > 0 and per_chunk == [n_chunks] * 4):
         fail(f"{where}: B1, B1 in RL mode, B2, B6a launches {per_chunk} for "
              f"{n_chunks} chunks (one each per chunk)")
+    # B5g's kernel fills the shadows once, when the agent is built; the
+    # updates keep them in step inside B5c
+    if launches["param_pack"] != 1:
+        fail(f"{where}: {launches['param_pack']} launches of B5g's kernel, "
+             "expected the one refresh of the new agent's shadows")
     updates = sum(rec["done"])
     if updates <= 0:
         fail(f"{where}: no update ran at the default warm-up")
@@ -3060,8 +3316,8 @@ def phase_learning_cli(report, out_root):
     h_st, h_wall, h_rec, h_launch = learning_run(out + "_heads", "heads", h_dur)
     h_upd = sum(h_rec["done"])
     h_ms = sum(m for m, n in zip(h_rec["ms"], h_rec["done"]) if n) / h_upd
-    # a widened setting: an odd batch over two 256-row tiles, 8 x 32 joint
-    # actions (B1's RL mode acts with at most 32 GPU-count actions)
+    # a widened setting: an odd batch over two 256-row tiles, 8 x 128 joint
+    # actions (the paper fleet's widest, acted with by B1's RL mode)
     w_st, w_wall, w_rec, w_launch = learning_run(
         out + "_wide", "onehot", WIDE_CLI_S, WIDE_CLI_ARGV)
     w_upd = sum(w_rec["done"])
@@ -3178,10 +3434,7 @@ B1_ANCHORS = (
     ("    rlk::forward<NT>(*pol, *slice, wsm, obs, act0, act1, logit, cmd, cs, tid);\n",
      "    rlk::forward<NT>(*pol, *slice, wsm, obs, act0, act1, logit, cmd, cs, tid);\n"
      "@12@@C23@"),
-    ("                          sm.ka1, pol->greedy, &sm.a_dc, &sm.a_g, tid);\n"
-     "    bar();\n",
-     "                          sm.ka1, pol->greedy, &sm.a_dc, &sm.a_g, tid);\n"
-     "    bar();\n@13@"),
+    ("&sm.a_g, tid);\n    bar();\n", "&sm.a_g, tid);\n    bar();\n@13@"),
     ("      write_trace(slot);\n      bar();\n      return;",
      "      write_trace(slot);\n      bar();\n@14@      return;"),
     ("    if (sm.flag) write_trace(sm.fin_slot);\n    bar();\n  }",
@@ -3357,6 +3610,9 @@ def study_b1_phases(root):
 
 
 AB_MODES = ("default_policy", "chsac_af")
+#: the RL mode at the paper fleet's widest GPU-count head, which only a
+#: checkout since its widening runs: timed on the change alone
+AB_WIDE_MODE = "chsac_af_g128"
 
 
 def study_b1_chunk_ms(mode):
@@ -3372,8 +3628,9 @@ def study_b1_chunk_ms(mode):
     from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
 
     build.build(["event_scan"])
-    if mode == "chsac_af":
-        fleet, params, n, eng, agent = rl_setup()
+    if mode in ("chsac_af", AB_WIDE_MODE):
+        fleet, params, n, eng, agent = rl_setup(
+            WIDE_B1_ARGV if mode == AB_WIDE_MODE else ())
         sac = agent.sac
     else:
         fleet, params, n = cli_params(mode)
@@ -4062,7 +4319,9 @@ def study_b1_ab(parent, change):
     """``--b1-ab PARENT``: B1 of two checkouts, the parent and this one, in
     both modes (``AB_MODES``), alternating parent, change, change, parent,
     each in its own process (``--b1-chunk-ms``): the mean of chunks 2-4 per
-    run, then per checkout; one JSON line at the end."""
+    run, then per checkout; then the change alone at the paper fleet's
+    widest GPU-count head (``AB_WIDE_MODE``, 8 x 128), twice; one JSON
+    line at the end."""
     result = {}
     for mode in AB_MODES:
         per = {"parent": [], "change": []}
@@ -4085,7 +4344,77 @@ def study_b1_ab(parent, change):
               f"change/parent {c / p:.4f}")
         result[mode] = {"parent_us_per_event": per["parent"],
                         "change_us_per_event": per["change"], "ratio": c / p}
+    # the widened head, which the parent refuses: the change alone, twice
+    wide = []
+    for _ in range(2):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--b1-chunk-ms", change, AB_WIDE_MODE], cwd=change,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"B1 A/B: {AB_WIDE_MODE} failed:\n{r.stderr[-2000:]}")
+        d = json.loads(r.stdout.strip().splitlines()[-1])
+        wide.append(statistics.mean(d["ms"][1:]) / statistics.mean(
+            d["events"][1:]) * 1e3)
+        print(f"{AB_WIDE_MODE} change: chunks {d['ms']} ms, events "
+              f"{d['events']}; {wide[-1]:.3f} us/event", flush=True)
+    result[AB_WIDE_MODE] = {"change_us_per_event": wide}
     print(json.dumps({"b1_ab": result}))
+
+
+#: the B2 A/B's shapes: the CLI's (one lane, a 4,096-step chunk) and the
+#: bench's (32 lanes, 512-step chunks)
+B2_AB_SHAPES = ((1, 4096), (32, 512))
+
+
+def study_b2_ms():
+    """``--b2-ms ROOT`` (the A/B's child process): B2 of the package at ROOT
+    at ``B2_AB_SHAPES`` on the paper fleet as the CLI builds it, ms per
+    call: device time (50 calls queued back to back behind a spin, the
+    median of 5 runs) and the wrapper's time per call.  One JSON line."""
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    build.build(["arrival_tables"])
+    fleet, params, _ = cli_params("default_policy")
+    eng = Engine(fleet, params, device="cuda")
+    wl = eng.workload
+    out = {}
+    for R, n in B2_AB_SHAPES:
+        st = batched_init(fleet, params, R, workload=wl, device="cuda")
+        S = wl.n_streams
+        args = (st.arr_key, st.arr_count.reshape(R, S).contiguous(),
+                st.next_arrival.reshape(R, S).contiguous(),
+                st.arr_cum.reshape(R, S).contiguous(),
+                st.arr_epoch.reshape(R, S).contiguous(), wl.family_t,
+                wl.sparams)
+        if R == 1:  # the single-lane call the CLI makes
+            args = tuple(a[0] if i < 5 else a for i, a in enumerate(args))
+        out[f"R{R}_n{n}"], _ = device_ms(
+            lambda: b2.arrival_tables(*args, n), "_kernel", reps=50)
+        out[f"R{R}_n{n}_kernel_us"] = dict(KERNEL_US["_kernel"])
+        out[f"R{R}_n{n}_call"] = time_cuda(
+            lambda: b2.arrival_tables(*args, n), reps=50)
+    print(json.dumps(out))
+
+
+def study_b2_ab(parent, change):
+    """``--b2-ab PARENT``: B2 of two checkouts, alternating parent, change,
+    change, parent, each in its own process (``--b2-ms``): ms per call at
+    each of ``B2_AB_SHAPES``; one JSON line at the end."""
+    runs = {"parent": [], "change": []}
+    for name, root in (("parent", parent), ("change", change),
+                       ("change", change), ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--b2-ms", root], cwd=root, capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"B2 A/B: {name} ({root}) failed:\n{r.stderr[-2000:]}")
+        d = json.loads(r.stdout.strip().splitlines()[-1])
+        runs[name].append(d)
+        print(f"B2 {name}: {d}", flush=True)
+    print(json.dumps({"b2_ab": runs}))
 
 
 def main():
@@ -4112,7 +4441,14 @@ def main():
         if len(args) == 2 and args[0] == "--b1-ab":
             print(card_line())
             return study_b1_ab(os.path.abspath(args[1]), here)
-        if len(args) == 3 and args[0] == "--b1-chunk-ms" and args[2] in AB_MODES:
+        if len(args) == 2 and args[0] == "--b2-ab":
+            print(card_line())
+            return study_b2_ab(os.path.abspath(args[1]), here)
+        if len(args) == 2 and args[0] == "--b2-ms":
+            sys.path.insert(0, os.path.abspath(args[1]))
+            return study_b2_ms()
+        if len(args) == 3 and args[0] == "--b1-chunk-ms" and args[2] in (
+                *AB_MODES, AB_WIDE_MODE):
             sys.path.insert(0, os.path.abspath(args[1]))
             return study_b1_chunk_ms(args[2])
         if args == ["--b5d-plans"]:
@@ -4133,6 +4469,7 @@ def main():
             return study_update_child(*args[2:])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
+             "--b2-ab PARENT_CHECKOUT, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
              "PARENT_CHECKOUT [onehot|heads]")
     report = {}
@@ -4168,7 +4505,9 @@ def main():
         phase_cuda_vs_cpu(report, out_root)
         phase_profile(report)
         real = phase_b1_rl(report)
+        phase_b1_rl_wide(report)
         phase_rl_tail(report, real)
+        phase_wide_heads(report)
         phase_b6a(report)
         rl_launches = phase_chsac_cli(report, out_root)
         phase_update_kernels(report)
@@ -4236,6 +4575,13 @@ def main():
         dict(entry("clip_adam_polyak", "adam.cu", "rl/sac.py:279",
                    upd_launches["adam_update"], report["b5c"],
                    report["b5c"]["library_ms"]), redesigned=True),
+        # B5g: the update's casts run inside B5c's launches (held bitwise in
+        # phase (j) and by the shadows' check of phase (k)); its own kernel
+        # fills the shadows outside the update, once per agent
+        dict(entry("param_pack", "param_pack.cu", "rl/sac.py:206",
+                   upd_launches["param_pack"], report["b5g"],
+                   report["b5g"]["library_ms"]), redesigned=True,
+             update_casts_run_inside="clip_adam_polyak (csrc/adam.cu)"),
         dict(entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
                    upd_launches["replay_sample"], report["b6b"],
                    report["b6b"]["library_ms"]), redesigned=True),

@@ -8,7 +8,9 @@
 //
 // What it computes for each group of a table (the update's four: critic,
 // actor, encoder, log alpha), each held in one flat float32 buffer of n
-// elements (p, its gradient g, the moments mu and nu, the step count):
+// elements (p, its gradient g, the moments mu and nu, the step count; g
+// float32, or bf16 widened exactly as it is read: the networks' hand-written
+// gradients are staged in bf16):
 //   ss     = sum g^2: the buffer read as [K, R, 256, 4] (zero-padded), each
 //            thread (k, j) folding its R float4s' squares in order, each
 //            block's 256 partials and then the K block sums by the halving
@@ -19,12 +21,24 @@
 //   u      = (mu / bc1) / (sqrt(nu / bc2 + 0) + eps);  p = p + u * (-lr)
 //   target = (1 - tau) * target + tau * p     (when a target is given)
 //   p      = min(p, clamp)                    (when clamped)
+//   shadow = bf16(p), target shadow = bf16(target)   (where given)
 // which is rl/optim.py::clip_adam_update (optax's order) op for op; built
 // with -fmad=false, the two are bitwise equal on the card.
 //
-// Bound on the card: bytes.  A step reads g, p, mu, nu (and the target) and
-// writes p, mu, nu (and the target): 28 B per element, 36 with the target;
-// the four groups' 502,097 parameters move 16.4 MB, 4.9 us at 3.35 TB/s.
+// B5g, the casts XLA fuses into the JAX package's `sac_train_step`
+// (rl/sac.py:206-310: flax's bf16 `Dense` rounds each parameter to bf16
+// before its product, and the cast's transpose widens each bf16 gradient
+// for optax), runs inside these two launches: the gradient's widening as
+// the passes read it, and the shadows the next update's products read
+// (bf16(p) after the step, bf16(target) after the Polyak step: the casts at
+// that update's head, of the parameters it starts from) as the elementwise
+// pass writes p and the target.  kernels/param_pack.py fills the shadows
+// once outside the update (csrc/param_pack.cu).
+//
+// Bound on the card: bytes.  A step reads g (2 B in bf16), p, mu, nu (and
+// the target) and writes p, mu, nu, the shadow (and the target and its
+// shadow): 28 B per element, 38 with the target; the four groups' 502,097
+// parameters move 16.9 MB, 5.0 us at 3.35 TB/s.
 // Design: two launches for all the groups, from a table of groups in the
 // launch's parameters, every block knowing its group from the table's
 // block offsets.  (1) The norm: a block per 1,024 elements of a group's
@@ -38,6 +52,7 @@
 // handshake), so the loads from device memory overlap the norm.  No host
 // read.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,10 +68,11 @@ constexpr int kInt32Max = 2147483647;
 
 struct Group {
   float *p, *mu, *nu, *target;
-  const float* g;
+  const void* g;  // float32, or bf16 where g_bf16
+  __nv_bfloat16 *shadow, *tshadow;  // bf16(p), bf16(target), or null
   int* count;
   long long n;
-  int first_block, K, R, has_target, has_clamp;
+  int first_block, K, R, has_target, has_clamp, g_bf16;
   float clamp;
 };
 
@@ -94,6 +110,40 @@ __device__ __forceinline__ void store4(float* x, long long e, long long n,
   if (e + 2 < n) x[e + 2] = v.z;
 }
 
+// the gradient's four elements at e, widened from bf16 where it is bf16
+// (exact: the bf16 bits are the float's upper half)
+__device__ __forceinline__ float4 load_g(const Group& G, long long e) {
+  if (!G.g_bf16) return load4(reinterpret_cast<const float*>(G.g), e, G.n);
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(G.g);
+  uint32_t w[kVec] = {0u, 0u, 0u, 0u};
+  if (e + kVec <= G.n) {
+    const uint2 u = *reinterpret_cast<const uint2*>(h + e);
+    w[0] = u.x << 16;
+    w[1] = u.x & 0xffff0000u;
+    w[2] = u.y << 16;
+    w[3] = u.y & 0xffff0000u;
+  } else {
+    for (int i = 0; i < kVec; ++i)
+      if (e + i < G.n) w[i] = (uint32_t)h[e + i] << 16;
+  }
+  return make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
+                     __uint_as_float(w[2]), __uint_as_float(w[3]));
+}
+
+// bf16(v[i]) into the shadow at e (round to nearest even, as torch's
+// `.to(bfloat16)` and csrc/param_pack.cu)
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* x, long long e,
+                                           long long n, const float* v) {
+  if (e + kVec <= n) {
+    alignas(8) __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                                      __floats2bfloat162_rn(v[2], v[3])};
+    *reinterpret_cast<uint2*>(x + e) = *reinterpret_cast<const uint2*>(h);
+    return;
+  }
+  for (int i = 0; i < kVec; ++i)
+    if (e + i < n) x[e + i] = __float2bfloat16_rn(v[i]);
+}
+
 __global__ void __launch_bounds__(kThreads)
     adam_norm_kernel(const __grid_constant__ Table t,
                      float* __restrict__ partial, float* __restrict__ bc) {
@@ -114,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < G.R; ++r) {
     const long long e =
         ((long long)(k * G.R + r) * kThreads + threadIdx.x) * kVec;
-    const float4 v = load4(G.g, e, G.n);
+    const float4 v = load_g(G, e);
     if (r == 0) {
       acc = v.x * v.x;
     } else {
@@ -142,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
   // this thread's first elements, loaded before the norm is known
   float4 g4, p4, m4, v4, t4 = make_float4(0.f, 0.f, 0.f, 0.f);
   if (e0 < G.n) {
-    g4 = load4(G.g, e0, G.n);
+    g4 = load_g(G, e0);
     p4 = load4(G.p, e0, G.n);
     m4 = load4(G.mu, e0, G.n);
     v4 = load4(G.nu, e0, G.n);
@@ -158,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool keep = gn < t.max_norm;
   for (long long e = e0; e < G.n; e += stride) {
     if (e != e0) {
-      g4 = load4(G.g, e, G.n);
+      g4 = load_g(G, e);
       p4 = load4(G.p, e, G.n);
       m4 = load4(G.mu, e, G.n);
       v4 = load4(G.nu, e, G.n);
@@ -188,16 +238,20 @@ __global__ void __launch_bounds__(kThreads)
     store4(G.nu, e, G.n, make_float4(vs[0], vs[1], vs[2], vs[3]));
     if (G.has_target)
       store4(G.target, e, G.n, make_float4(ts[0], ts[1], ts[2], ts[3]));
+    if (G.shadow != nullptr) store_bf16(G.shadow, e, G.n, ps);
+    if (G.tshadow != nullptr) store_bf16(G.tshadow, e, G.n, ts);
   }
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  For each of n_groups groups:
-// ptrs[6k..6k+5] = p, g, mu, nu, target (or 0), count (one int32) on the
-// device, all float buffers 16-byte aligned; ns[k] its n; KR[2k], KR[2k+1]
+// ptrs[8k..8k+7] = p, g, mu, nu, target (or 0), count (one int32), shadow
+// (or 0), target shadow (or 0) on the device, the float32 buffers 16-byte
+// aligned, the bf16 ones 8-byte aligned; ns[k] its n; KR[2k], KR[2k+1]
 // its K blocks and R float4s a thread (rl/optim.py::norm_layout);
-// flags[k] bit 0 a target, bit 1 a clamp; clamps[k] the clamp.  `consts`
+// flags[k] bit 0 a target, bit 1 a clamp, bit 2 a bf16 gradient; clamps[k]
+// the clamp.  `consts`
 // holds (1-b1, b1, 1-b2, b2, eps, -lr, max_norm, 1-tau, tau) as float32.
 // Scratch: `partial` (the sum of the K floats), `bc` (2 n_groups floats).
 // Returns the first failing launch's cudaError_t, or -1 for a bad table.
@@ -212,26 +266,32 @@ extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
   int blocks = 0;
   for (int k = 0; k < n_groups; ++k) {
     Group& G = t.grp[k];
-    G.p = reinterpret_cast<float*>(ptrs[6 * k]);
-    G.g = reinterpret_cast<const float*>(ptrs[6 * k + 1]);
-    G.mu = reinterpret_cast<float*>(ptrs[6 * k + 2]);
-    G.nu = reinterpret_cast<float*>(ptrs[6 * k + 3]);
-    G.target = reinterpret_cast<float*>(ptrs[6 * k + 4]);
-    G.count = reinterpret_cast<int*>(ptrs[6 * k + 5]);
+    const uint64_t* q = ptrs + 8 * k;
+    G.p = reinterpret_cast<float*>(q[0]);
+    G.g = reinterpret_cast<const void*>(q[1]);
+    G.mu = reinterpret_cast<float*>(q[2]);
+    G.nu = reinterpret_cast<float*>(q[3]);
+    G.target = reinterpret_cast<float*>(q[4]);
+    G.count = reinterpret_cast<int*>(q[5]);
+    G.shadow = reinterpret_cast<__nv_bfloat16*>(q[6]);
+    G.tshadow = reinterpret_cast<__nv_bfloat16*>(q[7]);
     G.n = ns[k];
     G.K = KR[2 * k];
     G.R = KR[2 * k + 1];
     G.has_target = flags[k] & 1;
     G.has_clamp = (flags[k] >> 1) & 1;
+    G.g_bf16 = (flags[k] >> 2) & 1;
     G.clamp = clamps[k];
     G.first_block = blocks;
     if (G.n < 1 || G.K < 1 || G.K > kMaxBlocks || G.R < 1 ||
         (long long)G.K * G.R * kThreads * kVec < G.n ||
         (long long)(G.K - 1) * G.R * kThreads * kVec >= G.n ||
-        (G.has_target && G.target == nullptr))
+        (G.has_target && G.target == nullptr) ||
+        (G.tshadow != nullptr && !G.has_target))
       return -1;
     for (int i = 0; i < 5; ++i)
-      if (ptrs[6 * k + i] % 16 != 0) return -1;
+      if (q[i] % (i == 1 && G.g_bf16 ? 8 : 16) != 0) return -1;
+    if (q[6] % 8 != 0 || q[7] % 8 != 0) return -1;
     blocks += G.K;
   }
   t.c1 = consts[0];

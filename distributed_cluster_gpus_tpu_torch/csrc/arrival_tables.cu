@@ -25,11 +25,22 @@
 // 3 * 4 * S * n = 0.79 MB (0.23 us of memory time); the integer work is
 // about 8 threefry blocks (~170 integer ops each) per entry, ~2e7 ops, a
 // few us; the floor is the dependent float32 fold, 4096 adds per stream at
-// ~4 cycles each, ~9 us at 1.75 GHz.  Design: one thread per entry for the
-// draws (kernel 1); one block per stream for the fold and the inversion
-// (kernel 2) - the block stages a tile of increments in shared memory with
-// coalesced loads, thread 0 folds the tile from shared memory, and all
-// threads then write the fold and run the bisections for the tile.
+// ~4 cycles each, ~9.4 us at 1.75 GHz (the left fold is one chain: no
+// parallel scan keeps its association).  Design, three launches:
+//   1. `draws_kernel`, one thread per entry: keys, size, gap increment;
+//   2. `fold_kernel`, one block per (stream, lane), a pipeline over chunks
+//      of the stream's increments in a ring in shared memory: while thread
+//      0 folds chunk c from registers (taking it as 16-byte vectors, the
+//      next batch's loads in flight while it adds the current one, so the
+//      chain of adds, not a load, is on every step, and writing the sums
+//      back as vectors), the other warps write chunk c - 1's fold out and
+//      stage chunk c + 1 (every load of a thread in flight at once);
+//   3. `tnext_kernel`, one thread per entry over the whole card: the next
+//      arrival from the fold (the 30-step bisections of the sinusoid's
+//      inversion run on every SM, not on the S fold blocks' 16).  Where
+//      the fold blocks alone fill the card (S x R at least twice its SMs:
+//      the bench's 32 lanes), the fold blocks invert their own chunks as
+//      they write them out, and this launch is not made.
 //
 // Built with -fmad=false: no product may be contracted into an FMA, so
 // every float32 expression rounds as the plain version's separate torch
@@ -47,7 +58,10 @@ namespace {
 constexpr int kFamOff = 0;
 constexpr int kFamPoisson = 1;
 constexpr int kFamSinInv = 2;
-constexpr int kTile = 2048;
+constexpr int kChunk = 512;  // a stage of the fold block's pipeline (floats)
+constexpr int kRing = 3;     // chunks in flight: staged, folded, drained
+constexpr int kFoldVec = 8;  // float4s the folding thread loads a batch
+constexpr int kFoldPad = 4 * kFoldVec;  // floats a batch may read past a chunk
 
 using tf::bits32;
 using tf::child;
@@ -134,20 +148,46 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
   }
 }
 
-__device__ __forceinline__ float sin_inv_gap(float rate, float amp_s,
-                                             float period, float anchor,
-                                             float s) {
+// A stream's constants of its next arrivals, once per (stream, lane): its
+// family, the epoch, and for the sinusoid's inversion the terms that do
+// not depend on the entry
+struct Arrive {
+  int fam;
+  float ep, rate, period, w, phase0, cos0, coef, den_lo, den_hi, den_per;
+};
+
+__device__ __forceinline__ Arrive arrive_of(const int* __restrict__ family,
+                                            const float* __restrict__ sparams,
+                                            const float* __restrict__ epoch,
+                                            int s, int rs) {
+  Arrive A;
+  A.fam = family[s];
+  A.ep = epoch[rs];
+  const float rate = sparams[4 * s + 0], amp_s = sparams[4 * s + 1];
+  const float period = sparams[4 * s + 2];
+  const float anchor = A.ep + sparams[4 * s + 3];
   const float a = fabsf(amp_s);
-  const float w = 6.28318548f / period;
-  const float phase0 = w * pymod(anchor, period);
-  const float cos0 = cosf(phase0);
-  const float coef = rate * amp_s / w;
-  float lo = s / fmaxf(rate * (1.0f + a), 1e-30f);
-  float hi = fminf(s / fmaxf(rate * (1.0f - a), 1e-9f),
-                   (s / fmaxf(rate * period, 1e-30f) + 1.0f) * period);
+  A.rate = rate;
+  A.period = period;
+  A.w = 6.28318548f / period;
+  A.phase0 = A.w * pymod(anchor, period);
+  A.cos0 = cosf(A.phase0);
+  A.coef = rate * amp_s / A.w;
+  A.den_lo = fmaxf(rate * (1.0f + a), 1e-30f);
+  A.den_hi = fmaxf(rate * (1.0f - a), 1e-9f);
+  A.den_per = fmaxf(rate * period, 1e-30f);
+  return A;
+}
+
+// the 30-step bisection of the integrated sinusoid rate for cumulative
+// Exp sum s (ops/arrivals.py sinusoid_gap_from_cum)
+__device__ __forceinline__ float sin_inv_gap(const Arrive& A, float s) {
+  float lo = s / A.den_lo;
+  float hi = fminf(s / A.den_hi, (s / A.den_per + 1.0f) * A.period);
   for (int it = 0; it < 30; ++it) {
     const float mid = 0.5f * (lo + hi);
-    const float g = rate * mid + coef * (cos0 - cosf(phase0 + w * mid));
+    const float g =
+        A.rate * mid + A.coef * (A.cos0 - cosf(A.phase0 + A.w * mid));
     if (g < s) {
       lo = mid;
     } else {
@@ -157,66 +197,140 @@ __device__ __forceinline__ float sin_inv_gap(float rate, float amp_s,
   return 0.5f * (lo + hi);
 }
 
-// kernel 2: one block per (stream, lane) - sequential fold, then tnext per
-// entry
+// the next arrival of a stream from its fold f
+__device__ __forceinline__ float tnext_of(const Arrive& A, float f) {
+  if (A.fam == kFamPoisson) return f;
+  if (A.fam != kFamSinInv) return CUDART_INF_F;
+  return A.ep + (A.rate > 0.0f ? sin_inv_gap(A, f) : CUDART_INF_F);
+}
+
+// The left fold c += tile[j], tile[j] = c over tile[0..len) by one thread
+// (the tile 16-byte aligned, with kFoldPad readable floats past len):
+// whole batches of kFoldVec float4s in two register sets, the next batch's
+// loads issued (unconditionally: a batch past the whole ones reads the pad
+// and is not used) before the current batch's adds, then the rest one
+// float at a time.  Returns the carry.
+__device__ __forceinline__ void fold_batch(float4 (&v)[kFoldVec], float4* t4,
+                                           float& c) {
+#pragma unroll
+  for (int u = 0; u < kFoldVec; ++u) {
+    float4 x = v[u];
+    c = c + x.x;
+    x.x = c;
+    c = c + x.y;
+    x.y = c;
+    c = c + x.z;
+    x.z = c;
+    c = c + x.w;
+    x.w = c;
+    t4[u] = x;
+  }
+}
+
+__device__ __forceinline__ void load_batch(float4 (&v)[kFoldVec],
+                                           const float4* t4) {
+#pragma unroll
+  for (int u = 0; u < kFoldVec; ++u) v[u] = t4[u];
+}
+
+__device__ __forceinline__ float fold_tile(float* tile, int len, float c) {
+  float4* t4 = reinterpret_cast<float4*>(tile);
+  const int nb = len / (4 * kFoldVec) * kFoldVec;  // float4s in whole batches
+  float4 a[kFoldVec], b[kFoldVec];
+  load_batch(a, t4);
+  for (int i = 0; i < nb; i += 2 * kFoldVec) {
+    load_batch(b, t4 + i + kFoldVec);
+    fold_batch(a, t4 + i, c);
+    if (i + kFoldVec >= nb) break;
+    load_batch(a, t4 + i + 2 * kFoldVec);
+    fold_batch(b, t4 + i + kFoldVec, c);
+  }
+  for (int j = 4 * nb; j < len; ++j) {
+    c = c + tile[j];
+    tile[j] = c;
+  }
+  return c;
+}
+
+// src[0..len) into dst, threads t0, t0 + nt, ...: each thread's loads in
+// flight together
+__device__ __forceinline__ void stage(float* dst, const float* src, int len,
+                                      int t0, int nt) {
+  for (int j0 = t0; j0 < len; j0 += 4 * nt) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * nt;
+      v[u] = j < len ? src[j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u * nt < len) dst[j0 + u * nt] = v[u];
+  }
+}
+
+// kernel 2: one block per (stream, lane) - the sequential fold of the
+// increments (in `cum`) into the cumulative row, in place; with `invert`
+// also the next arrivals (`tnext_of`) of its entries
 __global__ void fold_kernel(const int* __restrict__ family,
                             const float* __restrict__ sparams,
                             const float* __restrict__ t0,
                             const float* __restrict__ cum0,
                             const float* __restrict__ epoch, int n,
-                            float* __restrict__ cum,
+                            int invert, float* __restrict__ cum,
                             float* __restrict__ tnext) {
-  __shared__ float tile[kTile];
-  __shared__ float carry_s;
-  const int s = blockIdx.x;
+  __shared__ __align__(16) float ring[kRing][kChunk + kFoldPad];
+  const int s = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int rs = blockIdx.y * gridDim.x + s;  // lane * S + stream
-  const int fam = family[s];
-  const float rate = sparams[4 * s + 0];
-  const float amp = sparams[4 * s + 1];
-  const float period = sparams[4 * s + 2];
-  const float phase = sparams[4 * s + 3];
-  const float ep = epoch[rs];
-  const float anchor = ep + phase;
   float* row = cum + (long long)rs * n;
   float* trow = tnext + (long long)rs * n;
-  if (threadIdx.x == 0) carry_s = fam == kFamSinInv ? cum0[rs] : t0[rs];
-  for (int base = 0; base < n; base += kTile) {
-    const int len = min(kTile, n - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < len; j += blockDim.x) tile[j] = row[base + j];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float c = carry_s;
-      for (int j = 0; j < len; ++j) {
-        c = c + tile[j];
-        tile[j] = c;
-      }
-      carry_s = c;
+  const int nc = (n + kChunk - 1) / kChunk;
+  const Arrive A = arrive_of(family, sparams, epoch, s, rs);
+  // chunk k's fold out of the ring (and its next arrivals), threads t0,
+  // t0 + step, ...
+  auto drain = [&](int k, int t0, int step) {
+    const float* buf = ring[k % kRing];
+    const int base = k * kChunk, len = min(kChunk, n - base);
+    for (int j = t0; j < len; j += step) {
+      row[base + j] = buf[j];
+      if (invert) trow[base + j] = tnext_of(A, buf[j]);
+    }
+  };
+  float c = A.fam == kFamSinInv ? cum0[rs] : t0[rs];  // thread 0's
+  stage(ring[0], row, min(kChunk, n), tid, nt);
+  __syncthreads();
+  for (int k = 0; k < nc; ++k) {
+    if (tid == 0) {
+      c = fold_tile(ring[k % kRing], min(kChunk, n - k * kChunk), c);
+    } else if (tid >= 32) {  // warps 1..: the chunks either side
+      if (k > 0) drain(k - 1, tid - 32, nt - 32);
+      if (k + 1 < nc)
+        stage(ring[(k + 1) % kRing], row + (k + 1) * kChunk,
+              min(kChunk, n - (k + 1) * kChunk), tid - 32, nt - 32);
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < len; j += blockDim.x) {
-      const float f = tile[j];
-      row[base + j] = f;
-      float tn;
-      if (fam == kFamPoisson) {
-        tn = f;
-      } else if (fam == kFamSinInv) {
-        const float d = rate > 0.0f ? sin_inv_gap(rate, amp, period, anchor, f)
-                                    : CUDART_INF_F;
-        tn = ep + d;
-      } else {
-        tn = CUDART_INF_F;
-      }
-      trow[base + j] = tn;
-    }
   }
+  drain(nc - 1, tid, nt);
+}
+
+// kernel 3: one thread per (lane, stream, entry) - the next arrival from
+// the fold
+__global__ void tnext_kernel(const int* __restrict__ family,
+                             const float* __restrict__ sparams,
+                             const float* __restrict__ epoch, int R, int S,
+                             int n, const float* __restrict__ cum,
+                             float* __restrict__ tnext) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)R * S * n) return;
+  const int rs = (int)(idx / n);  // lane * S + stream
+  tnext[idx] = tnext_of(arrive_of(family, sparams, epoch, rs % S, rs), cum[idx]);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Per-lane inputs are [R, 2]
 // (arr_key) and [R, S] (c0, t0, cum0, epoch); outputs are [R, S, n].  `cum`
-// doubles as the increment scratch between the two kernels.  aux_key/aux_u
+// doubles as the increment scratch of the first two kernels.  aux_key/aux_u
 // may be null; when given they receive each entry's k_gap key words and its
 // uniform draw.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int arrival_tables_launch(const int64_t* arr_key, const int* c0,
@@ -236,7 +350,18 @@ extern "C" int arrival_tables_launch(const int64_t* arr_key, const int* c0,
                                           n, sizes, cum, aux_key, aux_u);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // the fold blocks invert their own entries where they alone fill the card
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int invert = (long long)S * R >= 2LL * sms;
   fold_kernel<<<dim3(S, R), threads, 0, st>>>(family, sparams, t0, cum0, epoch,
-                                              n, cum, tnext);
+                                              n, invert, cum, tnext);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || invert) return (int)err;
+  tnext_kernel<<<blocks, threads, 0, st>>>(family, sparams, epoch, R, S, n,
+                                          cum, tnext);
   return (int)cudaGetLastError();
 }

@@ -59,9 +59,16 @@
 //       and sum them by the tree, and shuffles add the partial sums
 //       pairwise up the same tree.  bf16 operands, exact float32 products,
 //       one bf16 rounding before and one after the bias, as rl/nets.py's
-//       `bf16_dense`.  The two heads' log-softmax and Gumbel-max samples run
-//       on a warp each, one action per lane.  Bound: the 0.43 MB of bf16
-//       weights per decision against 3.35 TB/s.
+//       `bf16_dense`.  The heads take what the learning update takes (n_dc
+//       <= 32, n_dc + n_g <= 256): the DC head's log-softmax and
+//       Gumbel-max sample run on one warp, one action per lane; the
+//       GPU-count head's actions sit in register slots (action a at lane
+//       a % 32 of slot a / 32), each warp computes the log-softmax (the
+//       tree's levels of distance >= 32 in registers, the last five by
+//       shuffles) and draws the Gumbels of its own slots, and the first
+//       maximum is taken across the warps (a head of up to 32 actions on
+//       one warp, as the DC head's).  Bound: the 0.43 MB of bf16 weights
+//       per decision against 3.35 TB/s (0.49 MB at 8 x 128 actions).
 //
 // Bound on the card: an event is a chain of dependent steps (three argmins,
 // n_dc tree sums, the branch, a drain loop), each a few hundred cycles of
@@ -104,6 +111,17 @@ namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kMaxDC = 32;
+// both policy heads together (n_dc + n_g), as the learning update takes
+// them (kernels/envelope.py); the GPU-count head's actions sit in kSlots
+// register slots of a warp (kMaxHeads - 1 at most: n_dc >= 1)
+constexpr int kMaxHeads = 256;
+constexpr int kSlots = kMaxHeads / 32;
+// a cluster's logit row: the DC head at 0, the GPU-count head at 32; as
+// long as n_g needs (a multiple of 4: what follows stays 16-byte aligned)
+constexpr int kLogitLen = 32 + kMaxHeads;
+__host__ __device__ __forceinline__ int logit_len(int n_g) {
+  return 32 + (n_g + 3) / 4 * 4;
+}
 constexpr int kMaxS = 64;
 constexpr int kMaxF = 32;
 constexpr int kMaxObs = 256;    // widest observation (kernels/event_scan.py)
@@ -231,7 +249,8 @@ struct Small {
   float tau[2];       // B3: each window's threshold
   int n_cand[2];      // B3: each window's listed values
   int s_bits[4];      // B3: the two order statistics of each window (ordered bits)
-  int mdc[kMaxDC], mg[kMaxDC];
+  int mdc[kMaxDC], mg[kMaxHeads];
+  int g_cap;          // the GPU-count mask's last feasible count
   int a_dc, a_g;
   int st_on, st_j, st_dcj, st_jt, st_n, st_f, st_newf;
   float st_t0, st_pt0, st_tpt0;
@@ -713,11 +732,12 @@ __device__ void dense_rows_kp(int kp, float (&x)[16], bool load_x,
 // cluster: every block computes its slice's rows of each layer from its
 // shared memory, writing each ReLU layer's outputs into every block's next
 // row (act1, act0, ...; bit-reversed at `apos`) and the heads' logits into
-// block 0's logit[0..n_dc) and logit[32..32+n_g); a cluster barrier ends
-// each layer.  The layer's inputs must be in every block's act0 (and the
-// cluster synchronized) when it is called; every thread of every block
-// calls it.  Not inlined: it keeps its own registers (the lane's state is
-// live around the call in block 0) and is built once per block width.
+// block 0's logit[0..n_dc) and logit[32..32+n_g) (`logit_len`); a cluster
+// barrier ends each layer.  The layer's inputs must be in every block's
+// act0 (and the cluster synchronized) when it is called; every thread of
+// every block calls it.  Not inlined: it keeps its own registers (the
+// lane's state is live around the call in block 0) and is built once per
+// block width.
 template <int NT>
 __device__ __noinline__ void forward_cluster(const Policy& P, const Slice& S,
                                 const uint16_t* wsm, float* act0, float* act1,
@@ -810,70 +830,166 @@ __device__ void policy_from(Policy& P, void* const* w, const int* ints) {
   P.greedy = ints[I_GREEDY];
 }
 
-// One head on one warp (lane i holds action i < n <= 32): rl/nets.py
-// `masked_log_softmax` (the infeasible logits at -1e9, the exponentials
-// summed by the halving tree) into logp[0..n), then
-// jax.random.categorical(split(key)[which], logp) (Gumbel-max over
-// uniform(tiny, 1), the first maximum wins), or the first argmax when
-// greedy.  Returns the action (every lane).
+// A head of n actions (n <= 32 * kS) on one warp, action a at lane a % 32
+// of register slot a / 32 (kS slots: 1, or kSlots for a wider head):
+// rl/nets.py `masked_log_softmax` (the infeasible logits at -1e9, the
+// exponentials
+// summed by the halving tree over pow2(n): its levels of distance >= 32 in
+// a lane's registers, slot s + half / 32 into slot s, the last five by
+// shuffles), then jax.random.categorical(split(key)[which], logp)
+// (Gumbel-max over uniform(tiny, 1), action a drawing counter a, the first
+// maximum wins), or the first argmax when greedy, over the slots whose bit
+// is set in `own` only: every warp that calls it computes the whole
+// log-softmax, and draws and writes logp[a] (where logp is given) for its
+// own slots.  Returns that first maximum (every lane): its action (kNone
+// when the warp has no action) and its value in *v.
+constexpr int kNone = 1 << 30;
+
+template <int kS>
 __device__ int head_sample(const float* logit, const int* mask, int n,
                            float* logp, uint32_t k0, uint32_t k1,
-                           uint32_t which, bool greedy, int lane) {
-  const bool on = lane < n;
-  const float x = on ? (mask[lane] ? logit[lane] : kNegMask) : -CUDART_INF_F;
-  const float m = warp_max(x);
-  const int p = pow2_at_least(n);
-  float e = on ? expf(__fsub_rn(x, m)) : 0.0f;
-  for (int half = p >> 1; half >= 1; half >>= 1) {
-    const float o = __shfl_down_sync(kAll, e, half);
-    if (lane < half) e = __fadd_rn(e, o);
+                           uint32_t which, bool greedy, int lane,
+                           unsigned own, float* v) {
+  float sh[kS], e[kS];
+  float mx = -CUDART_INF_F;
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int a = 32 * s + lane;
+    sh[s] = a < n ? (mask[a] ? logit[a] : kNegMask) : -CUDART_INF_F;
+    mx = fmaxf(mx, sh[s]);
   }
-  const float lse = logf(__shfl_sync(kAll, e, 0));
-  const float lp = __fsub_rn(__fsub_rn(x, m), lse);
-  if (on) logp[lane] = lp;
-  float v = lp;
-  if (!greedy) {
-    uint32_t c0, c1, o0, o1;
-    tf::child(k0, k1, which, c0, c1);
-    tf::threefry(c0, c1, 0u, (uint32_t)lane, o0, o1);
-    const float span = __fsub_rn(1.0f, kTiny);
-    const float f = tf::unit_float(o0 ^ o1);
-    const float u = fmaxf(kTiny, __fadd_rn(__fmul_rn(f, span), kTiny));
-    const float gum = -logf(-logf(u));
-    v = __fadd_rn(gum, lp);
+  const float m = warp_max(mx);
+  const int p = pow2_at_least(n);
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    sh[s] = __fsub_rn(sh[s], m);
+    e[s] = 32 * s + lane < n ? expf(sh[s]) : 0.0f;
+  }
+#pragma unroll
+  for (int hs = kS / 2; hs >= 1; hs >>= 1)
+    if (64 * hs <= p)  // the level of distance 32 hs
+#pragma unroll
+      for (int s = 0; s < hs; ++s) e[s] = __fadd_rn(e[s], e[s + hs]);
+  for (int half = (p < 32 ? p : 32) >> 1; half >= 1; half >>= 1) {
+    const float o = __shfl_down_sync(kAll, e[0], half);
+    if (lane < half) e[0] = __fadd_rn(e[0], o);
+  }
+  const float lse = logf(__shfl_sync(kAll, e[0], 0));
+  uint32_t c0 = 0, c1 = 0;
+  if (!greedy) tf::child(k0, k1, which, c0, c1);
+  float bv = 0.0f;
+  int best = kNone;
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int a = 32 * s + lane;
+    if (!((own >> s) & 1u) || a >= n) continue;
+    const float lp = __fsub_rn(sh[s], lse);
+    if (logp != nullptr) logp[a] = lp;
+    float va = lp;
+    if (!greedy) {
+      uint32_t o0, o1;
+      tf::threefry(c0, c1, 0u, (uint32_t)a, o0, o1);
+      const float span = __fsub_rn(1.0f, kTiny);
+      const float f = tf::unit_float(o0 ^ o1);
+      const float u = fmaxf(kTiny, __fadd_rn(__fmul_rn(f, span), kTiny));
+      const float gum = -logf(-logf(u));
+      va = __fadd_rn(gum, lp);
+    }
+    if (best == kNone || va > bv) {  // a lane's slots rise: ties stay
+      bv = va;
+      best = a;
+    }
   }
   // the first maximum: a larger value, or an equal one at a lower index
-  int best = on ? lane : 32;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kAll, v, off);
+    const float ov = __shfl_xor_sync(kAll, bv, off);
     const int ob = __shfl_xor_sync(kAll, best, off);
-    if (ob < 32 && (best == 32 || ov > v || (ov == v && ob < best))) {
-      v = ov;
+    if (ob != kNone && (best == kNone || ov > bv || (ov == bv && ob < best))) {
+      bv = ov;
       best = ob;
     }
   }
+  *v = bv;
   return best;
 }
 
-// Both heads: the DC head on warp 0 and the GPU-count head on warp 1 (both
-// on warp 0 in a one-warp block); the actions into *a_dc / *a_g (lane 0 of
-// the warp).  `ka` is the step's action key.  Every thread calls it; read
-// the actions after a barrier.
-template <int NT>
+// The GPU-count head wider than a warp (head_sample over kSlots), not
+// inlined: the slots' code keeps its own registers (the lane's state is
+// live around the call in block 0)
+__device__ __noinline__ int head_sample_wide(const float* logit,
+                                             const int* mask, int n,
+                                             float* logp, uint32_t k0,
+                                             uint32_t k1, bool greedy,
+                                             int lane, unsigned own,
+                                             float* v) {
+  return head_sample<kSlots>(logit, mask, n, logp, k0, k1, 1u, greedy, lane,
+                             own, v);
+}
+
+// Both heads (n_dc <= 32, n_dc + n_g <= kMaxHeads), the actions into
+// *a_dc / *a_g and, where `logp` is given, the log-probabilities into
+// logp[0..n_dc) and logp[32..32+n_g).  `ka` is the step's action key.
+// Every thread calls it; read the actions after a barrier.  kWide (n_g >
+// 32): the DC head on the block's last warp, the GPU-count head's slots s
+// on warps s mod NW, each warp's first maximum then the first across the
+// warps, a lower index winning ties.  Otherwise each head on a warp of its
+// own (warps 0 and 1; warp 0 in a one-warp block): a separate instance,
+// so the kernels at the published widths carry none of the wide code.
+template <int NT, bool kWide>
 __device__ void sample_heads(const float* logit, const int* mdc, int n_dc,
                              const int* mg, int n_g, float* logp, uint32_t ka0,
                              uint32_t ka1, bool greedy, int* a_dc, int* a_g,
                              int tid) {
+  constexpr int NW = NT / 32;
   const int lane = tid & 31, warp = tid >> 5;
-  if (warp == 0) {
-    const int a = head_sample(logit, mdc, n_dc, logp, ka0, ka1, 0u, greedy, lane);
+  float v;
+  float* lg = logp == nullptr ? nullptr : logp + 32;
+  if constexpr (!kWide) {
+    if (warp == 0) {
+      const int a = head_sample<1>(logit, mdc, n_dc, logp, ka0, ka1, 0u,
+                                   greedy, lane, 1u, &v);
+      if (lane == 0) *a_dc = a;
+    }
+    if (warp == (NT > 32 ? 1 : 0)) {
+      const int a = head_sample<1>(logit + 32, mg, n_g, lg, ka0, ka1, 1u,
+                                   greedy, lane, 1u, &v);
+      if (lane == 0) *a_g = a;
+    }
+    return;
+  }
+  __shared__ float cand_v[NW];
+  __shared__ int cand_a[NW];
+  if (warp == NW - 1) {
+    const int a = head_sample<1>(logit, mdc, n_dc, logp, ka0, ka1, 0u, greedy,
+                                 lane, 1u, &v);
     if (lane == 0) *a_dc = a;
   }
-  if (warp == (NT > 32 ? 1 : 0)) {
-    const int a = head_sample(logit + 32, mg, n_g, logp + 32, ka0, ka1, 1u,
-                              greedy, lane);
-    if (lane == 0) *a_g = a;
+  const int ns = (n_g + 31) >> 5;      // the GPU-count head's slots
+  const int nw = ns < NW ? ns : NW;    // the warps that draw them
+  if (warp < nw) {
+    unsigned own = 0;  // slots warp, warp + NW, ...
+    for (int s = warp; s < kSlots; s += NW) own |= 1u << s;
+    const int a = head_sample_wide(logit + 32, mg, n_g, lg, ka0, ka1, greedy,
+                                   lane, own, &v);
+    if (lane == 0) {
+      if (nw == 1) *a_g = a;
+      cand_v[warp] = v;
+      cand_a[warp] = a;
+    }
+  }
+  if (nw > 1) {  // the same for the whole block
+    bar<NT>();
+    if (tid == 0) {
+      float bv = cand_v[0];
+      int best = cand_a[0];
+      for (int w = 1; w < nw; ++w)  // warp w's actions follow warp w - 1's
+        if (cand_a[w] != kNone && (best == kNone || cand_v[w] > bv)) {
+          bv = cand_v[w];
+          best = cand_a[w];
+        }
+      *a_g = best;
+    }
   }
 }
 
@@ -885,8 +1001,9 @@ __device__ void sample_heads(const float* logit, const int* mdc, int n_dc,
 namespace {
 
 // Everything one lane's block needs; every thread holds a copy.  NT threads
-// (NW warps); thread `tid` is lane `lane` of warp `warp`.
-template <int NT>
+// (NW warps); thread `tid` is lane `lane` of warp `warp`; kWide: RL mode
+// with a GPU-count head wider than a warp (`rlk::sample_heads`).
+template <int NT, bool kWide = false>
 struct Lane {
   static constexpr int NW = NT / 32;
   Small& sm;
@@ -925,8 +1042,7 @@ struct Lane {
   float* obs;    // [kMaxObs] shared
   float* act0;   // [kActLen] shared (at one offset in every block)
   float* act1;   // [kActLen] shared (likewise)
-  float* logit;  // [64] shared: DC head at 0, GPU-count head at 32
-  float* logp;   // [64] shared, the same layout
+  float* logit;  // [logit_len(n_g)] shared: DC head at 0, GPU-count head at 32
   // the slab's RL trace (global, this lane's rows)
   float* rl_obs0;
   int* rl_adc;
@@ -1767,8 +1883,7 @@ struct Lane {
       const float p99 = use_trn ? sm.p99[1] : sm.p99[0];
       const bool slack = cnt >= 5 && (p99 * 1000.0f < sla_thr);
       const int cap1 = max_free < 1 ? max_free : 1;
-      for (int g = 0; g < n_g; ++g)
-        sm.mg[g] = slack ? (g + 1 <= cap1) : (g + 1 <= max_free);
+      sm.g_cap = slack ? cap1 : max_free;  // count g + 1 feasible up to it
       // costs: [p99 ms, P_now, gpu_over, energy]
       const int jf = sm.fin_jt, df = sm.fin_dcj;
       const float p99_ms = sm.lat_count[jf] >= 5 ? sm.p99[jf] * 1000.0f
@@ -1789,8 +1904,11 @@ struct Lane {
       e_s1[(long long)i * obs_dim + k] = obs[k];
     for (int d = tid; d < n_dc; d += NT)
       e_mdc[(long long)i * n_dc + d] = (uint8_t)sm.mdc[d];
-    for (int g = tid; g < n_g; g += NT)
-      e_mg[(long long)i * n_g + g] = (uint8_t)sm.mg[g];
+    for (int g = tid; g < n_g; g += NT) {
+      const int on = g + 1 <= sm.g_cap;
+      sm.mg[g] = on;
+      e_mg[(long long)i * n_g + g] = (uint8_t)on;
+    }
     if (req == REQ_NONE) {
       // the xfer branch's start rides this commit
       if (tid == 0 && sm.st_on)
@@ -1801,8 +1919,9 @@ struct Lane {
     }
     // B4: one forward and the two samples (only when the action is used)
     rlk::forward<NT>(*pol, *slice, wsm, obs, act0, act1, logit, cmd, cs, tid);
-    rlk::sample_heads<NT>(logit, sm.mdc, n_dc, sm.mg, n_g, logp, sm.ka0,
-                          sm.ka1, pol->greedy, &sm.a_dc, &sm.a_g, tid);
+    rlk::sample_heads<NT, kWide>(logit, sm.mdc, n_dc, sm.mg, n_g, nullptr,
+                                 sm.ka0, sm.ka1, pol->greedy, &sm.a_dc,
+                                 &sm.a_g, tid);
     bar();
     const int a_dc = sm.a_dc;
     if (req == REQ_ROUTE) {
@@ -1933,8 +2052,9 @@ namespace {
 
 // kRL: chsac_af's RL mode.  A separate instantiation, so the heuristic
 // kernel carries none of the RL code's registers or stack; NT: the block's
-// threads (the wrapper's choice, one of kernel_of's below).
-template <bool kRL, int NT>
+// threads (the wrapper's choice, one of kernel_of's below); kWide: RL mode
+// with more than 32 GPU-count actions.
+template <bool kRL, int NT, bool kWide>
 __global__ void __launch_bounds__(NT)
     event_scan_kernel(const Args a) {
   extern __shared__ __align__(16) float dyn[];
@@ -1950,7 +2070,7 @@ __global__ void __launch_bounds__(NT)
   const int n_ing = a.i[I_NING], S = 2 * n_ing, n_f = a.i[I_NF];
   const int Q = a.i[I_Q], W = a.i[I_W], n_tab = a.i[I_NTAB];
   const int n_steps = a.i[I_NSTEPS], n_cap = a.i[I_NCAP];
-  Lane<NT> L{sm};
+  Lane<NT, kWide> L{sm};
   L.tid = tid;
   L.lane = tid & 31;
   L.warp = tid >> 5;
@@ -1971,8 +2091,9 @@ __global__ void __launch_bounds__(NT)
     L.act0 = dyn;
     L.act1 = L.act0 + kActLen;
     L.logit = L.act1 + kActLen;
-    L.cmd = reinterpret_cast<int*>(L.logit + 64);
-    uint16_t* wsm = reinterpret_cast<uint16_t*>(L.logit + 68);
+    const int n_logit = logit_len(a.i[I_MAXGPU]);
+    L.cmd = reinterpret_cast<int*>(L.logit + n_logit);
+    uint16_t* wsm = reinterpret_cast<uint16_t*>(L.logit + n_logit + 4);
     base = rlk::slice_biases(wsm, slice) + (slice.belems + 3) / 4 * 4;
     rlk::load_slice<NT>(pol, slice, wsm, tid);
     if (tid == 0) *L.cmd = 0;
@@ -2038,14 +2159,14 @@ __global__ void __launch_bounds__(NT)
     L.neg_w = a.f[F_NEG_W];
     L.sla_ms = a.f[F_SLA_MS];
     L.inv_kwh = 1.0f / 3.6e6f;
-    // RL scratch after the block-reduction words: the latency windows, the
-    // observation, the log-probabilities.  B3's lane maxima and lists use
-    // the activation rows, which only a forward writes (never during B3)
+    // RL scratch after the block-reduction words: the latency windows and
+    // the observation (the heads' log-probabilities are not kept).  B3's
+    // lane maxima and lists use the activation rows, which only a forward
+    // writes (never during B3)
     static_assert(2 * kMaxWarps * 32 <= kActLen && 2 * kCand <= kActLen,
                   "B3's scratch fits in an activation row");
     L.lat_buf = L.red_v + kRed;
     L.obs = L.lat_buf + 2 * W;
-    L.logp = L.obs + kMaxObs;
     L.p99s.lmax = L.act0;
     L.p99s.cand = L.act1;
     L.p99s.tau = sm.tau;
@@ -2233,11 +2354,14 @@ __global__ void __launch_bounds__(NT)
 namespace {
 
 // The RL shapes the device code takes: an observation of 5..kMaxObs, layer
-// widths up to kMaxWidth, at most 32 actions per head, K >= 1, weights.
+// widths up to kMaxWidth, heads of n_dc <= 32 and n_g >= 1 actions with
+// n_dc + n_g <= kMaxHeads, K >= 1, weights.
 bool policy_ok(const Args& a) {
   const int obs_dim = a.i[I_OBS_DIM];
   if (obs_dim < 5 || obs_dim > kMaxObs || a.i[I_PERC_K] < 1) return false;
-  if (a.i[I_NDC] > 32 || a.i[I_MAXGPU] < 1 || a.i[I_MAXGPU] > 32) return false;
+  if (a.i[I_NDC] > kMaxDC || a.i[I_MAXGPU] < 1 ||
+      a.i[I_NDC] + a.i[I_MAXGPU] > kMaxHeads)
+    return false;
   const int w[4] = {a.i[I_WH0], a.i[I_WH1], a.i[I_WLAT], a.i[I_WAH]};
   for (int k = 0; k < 4; ++k)
     if (w[k] < 5 || w[k] > kMaxWidth) return false;
@@ -2263,7 +2387,7 @@ struct TailArgs {
   int B, W, M;
 };
 
-template <int NT>
+template <int NT, bool kWide>
 __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
   namespace cg = cooperative_groups;
   // the cluster's rows, as in the event scan: the activation rows, the
@@ -2271,9 +2395,9 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
   extern __shared__ __align__(16) float dyn[];
   __shared__ rlk::Policy P;
   __shared__ rlk::Slice slice;
-  __shared__ float obs[kMaxObs], logp[64], p99[2];
+  __shared__ float obs[kMaxObs], logp[kLogitLen], p99[2];
   __shared__ float lmax[2 * NT], cand[2 * kCand], tau[2];
-  __shared__ int mdc[32], mg[32], n_cand[2], s_bits[4];
+  __shared__ int mdc[kMaxDC], mg[kMaxHeads], n_cand[2], s_bits[4];
   __shared__ int acts[2];
   const int cs = a.i[I_CLUSTER];
   const int b = blockIdx.x / cs, tid = threadIdx.x;
@@ -2288,8 +2412,8 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
   float* act0 = dyn;
   float* act1 = act0 + kActLen;
   float* logit = act1 + kActLen;
-  int* cmd = reinterpret_cast<int*>(logit + 64);
-  uint16_t* wsm = reinterpret_cast<uint16_t*>(logit + 68);
+  int* cmd = reinterpret_cast<int*>(logit + logit_len(n_g));
+  uint16_t* wsm = reinterpret_cast<uint16_t*>(logit + logit_len(n_g) + 4);
   rlk::load_slice<NT>(P, slice, wsm, tid);
   if (tid == 0) *cmd = 0;
   cg::this_cluster().sync();
@@ -2313,12 +2437,13 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
     const uint8_t* md = reinterpret_cast<const uint8_t*>(a.p[T_MDC]) + (long long)b * n_dc;
     const uint8_t* mgp = reinterpret_cast<const uint8_t*>(a.p[T_MG]) + (long long)b * n_g;
     if (tid < n_dc) mdc[tid] = md[tid] != 0;
-    if (tid < n_g) mg[tid] = mgp[tid] != 0;
+    for (int k = tid; k < n_g; k += NT) mg[k] = mgp[k] != 0;
     rlk::bar<NT>();
     rlk::forward<NT>(P, slice, wsm, obs, act0, act1, logit, cmd, cs, tid);
     const int64_t* key = reinterpret_cast<const int64_t*>(a.p[T_KEYS]) + 2LL * b;
-    rlk::sample_heads<NT>(logit, mdc, n_dc, mg, n_g, logp, (uint32_t)key[0],
-                          (uint32_t)key[1], P.greedy, &acts[0], &acts[1], tid);
+    rlk::sample_heads<NT, kWide>(logit, mdc, n_dc, mg, n_g, logp,
+                                 (uint32_t)key[0], (uint32_t)key[1], P.greedy,
+                                 &acts[0], &acts[1], tid);
     rlk::bar<NT>();
     if (tid == 0) {
       reinterpret_cast<int*>(a.p[T_ADC])[b] = acts[0];
@@ -2327,27 +2452,38 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
     float* ld = reinterpret_cast<float*>(a.p[T_LOGP_DC]) + (long long)b * n_dc;
     float* lg = reinterpret_cast<float*>(a.p[T_LOGP_G]) + (long long)b * n_g;
     if (tid < n_dc) ld[tid] = logp[tid];
-    if (tid < n_g) lg[tid] = logp[32 + tid];
+    for (int k = tid; k < n_g; k += NT) lg[k] = logp[32 + k];
   }
   rlk::bar<NT>();
   rlk::release_cluster<NT>(cmd, cs, tid);
 }
 
 // The block widths each mode is built for (kernels/event_scan.py
-// BLOCK_WIDTHS; the wrapper picks one).
-template <bool kRL>
+// BLOCK_WIDTHS; the wrapper picks one); RL mode in a second instance for
+// GPU-count heads wider than a warp.
+template <bool kRL, bool kWide>
 void (*kernel_of(int threads))(Args) {
   switch (threads) {
-    case 32: return event_scan_kernel<kRL, 32>;
-    case 256: return event_scan_kernel<kRL, 256>;
+    case 32: return event_scan_kernel<kRL, 32, kWide>;
+    case 256: return event_scan_kernel<kRL, 256, kWide>;
     default: return nullptr;
   }
 }
 
-void (*tail_kernel_of(int threads))(TailArgs) {
-  switch (threads) {
-    case 32: return rl_tail_batch_kernel<32>;
-    case 256: return rl_tail_batch_kernel<256>;
+void (*kernel_of(const int* ints))(Args) {
+  const int threads = ints[I_THREADS];
+  if (!ints[I_RL]) return kernel_of<false, false>(threads);
+  return ints[I_MAXGPU] > 32 ? kernel_of<true, true>(threads)
+                             : kernel_of<true, false>(threads);
+}
+
+void (*tail_kernel_of(const int* ints))(TailArgs) {
+  const bool wide = ints[I_MAXGPU] > 32;
+  switch (ints[I_THREADS]) {
+    case 32: return wide ? rl_tail_batch_kernel<32, true>
+                         : rl_tail_batch_kernel<32, false>;
+    case 256: return wide ? rl_tail_batch_kernel<256, true>
+                          : rl_tail_batch_kernel<256, false>;
     default: return nullptr;
   }
 }
@@ -2382,7 +2518,7 @@ static long long cluster_block_bytes(const int* ints, long long slab) {
       ints[I_LEAD] ? slice_bytes(ints, cs) + slab
                    : (slice_bytes(ints, cs - 1) > slab ? slice_bytes(ints, cs - 1)
                                                        : slab);
-  return 4LL * (2 * kActLen + 68) + rest;
+  return 4LL * (2 * kActLen + logit_len(ints[I_MAXGPU]) + 4) + rest;
 }
 
 static bool cluster_ok(const int* ints) {
@@ -2432,7 +2568,7 @@ extern "C" int rl_tail_batch_launch(const uint64_t* ptrs, int n_ptrs,
   a.B = ints[N_INTS];
   a.W = ints[N_INTS + 1];
   a.M = ints[N_INTS + 2];
-  auto kernel = tail_kernel_of(a.i[I_THREADS]);
+  auto kernel = tail_kernel_of(a.i);
   const int cs = a.i[I_CLUSTER];
   if (a.B < 0 || a.M < 0 || a.W < 1 || !policy_ok(chk) || kernel == nullptr ||
       !cluster_ok(a.i))
@@ -2457,7 +2593,7 @@ extern "C" int rl_tail_batch_launch(const uint64_t* ptrs, int n_ptrs,
 // rows (`cluster_block_bytes`; B3's scratch shares their activation rows).
 extern "C" long long event_scan_smem_bytes(const int* ints) {
   const int J = ints[I_J], P = ints[I_P], rl = ints[I_RL];
-  const long long rl_part = rl ? 2LL * ints[I_W] + kMaxObs + 64 : 0;
+  const long long rl_part = rl ? 2LL * ints[I_W] + kMaxObs : 0;
   const long long rows =
       P > 32 * kRegSlots ? (long long)ints[I_SUM_WARPS] * P : 0;
   const long long slab =
@@ -2490,7 +2626,7 @@ extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
       a.i[I_NF] < 1 || a.i[I_NF] > kMaxF || a.i[I_J] < 1 || a.i[I_Q] < 1 ||
       a.i[I_W] < 1 || a.i[I_NTAB] < 1)
     return -2;
-  auto kernel = a.i[I_RL] ? kernel_of<true>(threads) : kernel_of<false>(threads);
+  auto kernel = kernel_of(a.i);
   const int cs = a.i[I_RL] ? a.i[I_CLUSTER] : 1;
   if (kernel == nullptr || sum_warps < 1 || sum_warps > threads / 32) return -2;
   if (a.i[I_RL] && (!policy_ok(a) || !cluster_ok(a.i))) return -2;

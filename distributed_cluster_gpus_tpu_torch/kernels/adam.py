@@ -5,7 +5,9 @@ Replaces the XLA-fused optimizer step of the JAX package's
 ``sac_train_step`` (``distributed_cluster_gpus_tpu/rl/sac.py:279-288`` and
 ``:300-302``: optax's ``clip_by_global_norm`` + ``adam`` of ``_tx``,
 ``:117``, the critic's Polyak target and ``log_alpha``'s cap) for every
-parameter group of an update, each held in one flat buffer.
+parameter group of an update, each held in one flat buffer; and B5g, the
+update's bf16 casts: a group's gradient may be bf16 (widened as it is
+read) and the step writes the group's bf16 shadow (and the target's).
 ``csrc/adam.cu``'s head note gives its design and bound.
 
 :func:`adam_update` is the wrapper ``rl.sac.sac_train_step`` calls once
@@ -32,8 +34,10 @@ _argtypes = None
 @dataclasses.dataclass
 class AdamGroup:
     """One group of an update: the flat parameters ``p``, their gradient
-    ``g``, their ``rl.optim.AdamState`` ``st``, and optionally the Polyak
-    ``target`` (with ``tau``) and the ``clamp`` after the step."""
+    ``g`` (float32 or bf16), their ``rl.optim.AdamState`` ``st``, and
+    optionally the Polyak ``target`` (with ``tau``), the ``clamp`` after
+    the step, and the bf16 ``shadow`` of ``p`` and ``target_shadow`` of
+    the target that the step rewrites."""
 
     p: torch.Tensor
     g: torch.Tensor
@@ -41,6 +45,8 @@ class AdamGroup:
     target: Optional[torch.Tensor] = None
     tau: float = 0.0
     clamp: Optional[float] = None
+    shadow: Optional[torch.Tensor] = None
+    target_shadow: Optional[torch.Tensor] = None
 
 
 def _lib():
@@ -65,7 +71,8 @@ def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
     if plain or dev.type == "cpu":
         for gr in groups:
             clip_adam_update(gr.p, gr.g, gr.st, cfg, target=gr.target,
-                             tau=gr.tau, clamp=gr.clamp)
+                             tau=gr.tau, clamp=gr.clamp, shadow=gr.shadow,
+                             target_shadow=gr.target_shadow)
         return
     if dev.type != "cuda":
         raise ValueError(f"adam_update: unsupported device {dev}")
@@ -76,29 +83,41 @@ def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
         raise ValueError("adam_update: at most 8 groups, one Polyak tau")
     tau = taus.pop() if taus else 0.0
     n_g = len(groups)
-    ptrs = (ctypes.c_uint64 * (6 * n_g))()
+    ptrs = (ctypes.c_uint64 * (8 * n_g))()
     ns = (ctypes.c_longlong * n_g)()
     kr = (ctypes.c_int * (2 * n_g))()
     flags = (ctypes.c_int * n_g)()
     clamps = (ctypes.c_float * n_g)()
     n_blocks = 0
+    bf16 = torch.bfloat16
     for i, gr in enumerate(groups):
         n = gr.p.numel()
-        for name, t in (("p", gr.p), ("g", gr.g), ("mu", gr.st.mu),
-                        ("nu", gr.st.nu)) + ((("target", gr.target),)
-                                             if gr.target is not None else ()):
-            build.check(op, name, t, f32t, dev, (n,))
-            if t.data_ptr() % 16:
-                raise ValueError(f"{op}: {name} must be 16-byte aligned")
+        g16 = gr.g.dtype == bf16
+        if gr.target_shadow is not None and gr.target is None:
+            raise ValueError(f"{op}: a target shadow needs its target")
+        for name, t, dt in (
+                ("p", gr.p, f32t), ("g", gr.g, bf16 if g16 else f32t),
+                ("mu", gr.st.mu, f32t), ("nu", gr.st.nu, f32t),
+                ("target", gr.target, f32t), ("shadow", gr.shadow, bf16),
+                ("target_shadow", gr.target_shadow, bf16)):
+            if t is None:
+                continue
+            build.check(op, name, t, dt, dev, (n,))
+            if t.data_ptr() % (8 if dt == bf16 else 16):
+                raise ValueError(f"{op}: {name} must be "
+                                 f"{8 if dt == bf16 else 16}-byte aligned")
         build.check(op, "count", gr.st.count, torch.int32, dev, ())
         k, r = norm_layout(n)
-        ptrs[6 * i:6 * i + 6] = [
+        ptrs[8 * i:8 * i + 8] = [
             gr.p.data_ptr(), gr.g.data_ptr(), gr.st.mu.data_ptr(),
             gr.st.nu.data_ptr(),
             0 if gr.target is None else gr.target.data_ptr(),
-            gr.st.count.data_ptr()]
+            gr.st.count.data_ptr(),
+            0 if gr.shadow is None else gr.shadow.data_ptr(),
+            0 if gr.target_shadow is None else gr.target_shadow.data_ptr()]
         ns[i], kr[2 * i], kr[2 * i + 1] = n, k, r
-        flags[i] = (gr.target is not None) | ((gr.clamp is not None) << 1)
+        flags[i] = ((gr.target is not None) | ((gr.clamp is not None) << 1)
+                    | (g16 << 2))
         clamps[i] = 0.0 if gr.clamp is None else f32(gr.clamp)
         n_blocks += k
     consts = (ctypes.c_float * 9)(*cfg.constants(), f32(1.0 - tau), f32(tau))

@@ -55,6 +55,9 @@ JOB_COLS = 15
 QREC_FIELDS = 11
 #: the kernel's compile-time limits (csrc/event_scan.cu kMaxDC/kMaxS/kMaxF)
 MAX_DC, MAX_STREAMS, MAX_FREQS = 32, 64, 32
+#: the policy's two heads together in RL mode (csrc/event_scan.cu
+#: kMaxHeads: n_dc + n_g, as the learning update takes them)
+MAX_HEADS = 256
 #: dynamic shared memory a block may opt into on Hopper, less a reserve for
 #: the kernel's static shared state (the C entry point checks exactly)
 SMEM_BUDGET = 232448 - 8192
@@ -157,20 +160,27 @@ def slice_bytes(widths, nb: int) -> int:
     return -(-2 * elems // 16) * 16 + -(-sum(rows) // 4) * 16
 
 
-#: what every block of an RL cluster holds at one offset: two activation
-#: rows, the logits and the command word
-ACT_BYTES = 4 * (2 * ACT_LEN + 68)
+def logit_len(n_g: int) -> int:
+    """A cluster's logit row (csrc/event_scan.cu ``logit_len``): the DC
+    head at 0, the ``n_g`` GPU-count actions at 32, padded to 4 floats."""
+    return 32 + -(-n_g // 4) * 4
+
+
+def act_bytes(n_g: int) -> int:
+    """What every block of an RL cluster holds at one offset: two
+    activation rows, the logits and the command word."""
+    return 4 * (2 * ACT_LEN + logit_len(n_g) + 4)
 
 
 def slab_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1) -> int:
     """A lane's slab in shared memory: the job fields, the [P] row of the
     slots' values, a [P] row per DC-summing warp when P exceeds the trees
     kept in registers, the block-reduction words, and in RL mode the two
-    latency windows, the observation and the log-probabilities (B3's
-    scratch shares the cluster's activation rows, :data:`ACT_BYTES`)."""
+    latency windows and the observation (B3's scratch shares the cluster's
+    activation rows, :func:`act_bytes`)."""
     P = pow2_at_least(J)
     rows = sum_warps * P if P > 32 * REG_SLOTS else 0
-    rl_part = (2 * W + MAX_OBS + 64) if rl else 0
+    rl_part = (2 * W + MAX_OBS) if rl else 0
     return 4 * (18 * J + P + rows + RED_WORDS + rl_part)
 
 
@@ -178,16 +188,17 @@ def smem_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1,
                widths=None, cs: int = 1, lead: bool = True) -> int:
     """Dynamic shared memory of one block (csrc/event_scan.cu
     ``event_scan_smem_bytes``): the lane's slab (:func:`slab_bytes`); in RL
-    mode the blocks of a cluster of ``cs`` hold :data:`ACT_BYTES`, then
+    mode the blocks of a cluster of ``cs`` hold :func:`act_bytes`, then
     their weight slices (:func:`slice_bytes` of ``widths``), and block 0
     holds the slab after its own slice, or (``lead`` false) in place of
     one."""
     slab = slab_bytes(J, W, rl, sum_warps)
     if not rl:
         return slab
+    act = act_bytes(widths[-1])
     if lead:
-        return ACT_BYTES + slice_bytes(widths, cs) + slab
-    return ACT_BYTES + max(slice_bytes(widths, cs - 1), slab)
+        return act + slice_bytes(widths, cs) + slab
+    return act + max(slice_bytes(widths, cs - 1), slab)
 
 
 def block_plan(prog, threads: int, widths=None):
@@ -375,16 +386,18 @@ def kernel_floats(prog):
             -float(p.rl_energy_weight), float(p.sla_p99_ms)]
 
 
-#: what B1's RL mode takes: the policy's observations and GPU-count head
+#: what B1's RL mode takes: the policy's observations and heads
 RL_ENVELOPE = (f"B1 (the event scan) acts in RL mode with 5 to {MAX_OBS} "
-               f"observations and at most {MAX_DC} GPU-count actions "
-               "(--max-gpus-per-job)")
+               f"observations, at most {MAX_DC} DCs and heads of up to "
+               f"{MAX_HEADS} actions together: n_dc + n_g <= {MAX_HEADS} "
+               "(n_g: --max-gpus-per-job)")
 
 
-def rl_covers(obs_dim: int, n_g: int) -> bool:
-    """Whether B1's RL mode takes a policy of ``obs_dim`` observations and
-    ``n_g`` GPU-count actions (``RL_ENVELOPE``)."""
-    return 5 <= obs_dim <= MAX_OBS and n_g <= MAX_DC
+def rl_covers(obs_dim: int, n_dc: int, n_g: int) -> bool:
+    """Whether B1's RL mode takes a policy of ``obs_dim`` observations, an
+    ``n_dc``-way DC head and ``n_g`` GPU-count actions (``RL_ENVELOPE``)."""
+    return (5 <= obs_dim <= MAX_OBS and 1 <= n_dc <= MAX_DC and n_g >= 1
+            and n_dc + n_g <= MAX_HEADS)
 
 
 def check_kernel_covers(prog) -> None:
@@ -398,7 +411,8 @@ def check_kernel_covers(prog) -> None:
             f"{MAX_FREQS} frequency levels (got {fleet.n_dc}, {fleet.n_ing}, "
             f"{fleet.n_f})")
     rl = p.algo == ALGO_CHSAC_AF
-    need = slab_bytes(J, p.lat_window, rl, 1) + (ACT_BYTES if rl else 0)
+    need = slab_bytes(J, p.lat_window, rl, 1) + (
+        act_bytes(p.max_gpus_per_job) if rl else 0)
     if need > SMEM_BUDGET:
         raise ValueError(
             f"event_scan: job_cap {J} (lat_window {p.lat_window}) needs {need} B "
@@ -409,7 +423,7 @@ def check_kernel_covers(prog) -> None:
                 "event_scan: the B1 kernel runs only the port's own policy "
                 "(rl.sac.make_policy_apply); other policy_apply callables run "
                 "on the CPU")
-        if not rl_covers(p.obs_dim(fleet.n_dc), p.max_gpus_per_job):
+        if not rl_covers(p.obs_dim(fleet.n_dc), fleet.n_dc, p.max_gpus_per_job):
             raise ValueError(f"event_scan: {RL_ENVELOPE}")
 
 

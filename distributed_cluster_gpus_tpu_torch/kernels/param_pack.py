@@ -1,17 +1,18 @@
-"""B5g: the bf16 parameter shadows and the gradient pack of the SAC update
-— a hand-written CUDA kernel and its wrapper.
+"""B5g: the bf16 parameter shadows of the SAC update — a hand-written CUDA
+kernel and its wrapper.
 
 Replaces the casts XLA fuses into the JAX package's ``sac_train_step``
 (``distributed_cluster_gpus_tpu/rl/sac.py:206-310``): flax's bf16 ``Dense``
-rounds each float32 parameter to bf16 before its product, and the cast's
-transpose widens each bf16 gradient to float32 for optax.
+rounds each float32 parameter to bf16 before its product.  Inside an update
+the casts run in B5c's launches (``kernels/adam.py``); this kernel fills
+the shadows outside it (``rl/sac.py::refresh_shadows``).
 ``csrc/param_pack.cu``'s head note gives the design and bound.
 
-:func:`param_pack` converts a list of flat buffers in one launch (float32
--> bf16 rounded to nearest even, or bf16 -> float32), for tensors on the
-card (built on first use) or raises; on the CPU or with ``plain=True`` it
-runs ``rl/optim.py::pack_plain``.  There is no fallback.  It counts its
-launches in ``param_pack.launches``.
+:func:`param_pack` rounds a list of flat float32 buffers to bf16 (to
+nearest even) in one launch, for tensors on the card (built on first use)
+or raises; on the CPU or with ``plain=True`` it runs
+``rl/optim.py::pack_plain``.  There is no fallback.  It counts its launches
+in ``param_pack.launches``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ MAX_GROUPS = 8
 def param_pack(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                plain: bool = False) -> None:
     """``dst.copy_(src)`` for each (src, dst) pair of flat buffers of one
-    size, float32 -> bf16 or bf16 -> float32, in one launch."""
+    size, float32 -> bf16, in one launch."""
     dev = pairs[0][0].device
     if plain or not build.on_card("param_pack", pairs[0][0]):
         from ..rl.optim import pack_plain
@@ -41,24 +42,23 @@ def param_pack(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     n_g = len(pairs)
     ptrs = (ctypes.c_uint64 * (2 * n_g))()
     ns = (ctypes.c_longlong * n_g)()
-    to16 = (ctypes.c_int * n_g)()
     for i, (src, dst) in enumerate(pairs):
         n = src.numel()
         kinds = (src.dtype, dst.dtype)
-        if kinds not in ((torch.float32, torch.bfloat16),
-                         (torch.bfloat16, torch.float32)):
-            raise TypeError(f"{op}: pair {i} converts {kinds[0]} to {kinds[1]}")
+        if kinds != (torch.float32, torch.bfloat16):
+            raise TypeError(f"{op}: pair {i} converts {kinds[0]} to {kinds[1]}, "
+                            "not float32 to bfloat16")
         build.check(op, "src", src, src.dtype, dev, (n,))
         build.check(op, "dst", dst, dst.dtype, dev, (n,))
         if src.data_ptr() % 16 or dst.data_ptr() % 16:
             raise ValueError(f"{op}: pair {i} must be 16-byte aligned")
         ptrs[2 * i:2 * i + 2] = [src.data_ptr(), dst.data_ptr()]
-        ns[i], to16[i] = n, int(dst.dtype == torch.bfloat16)
+        ns[i] = n
     fn = build.bind("param_pack", "param_pack_launch",
-                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_void_p])
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p])
     with torch.cuda.device(dev):
-        rc = fn(ptrs, ns, to16, n_g, build.stream_of(dev))
+        rc = fn(ptrs, ns, n_g, build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     param_pack.launches += 1

@@ -22,6 +22,16 @@ follows optax's order step for step::
     p      = p + u * (-lr)
     target = (1 - tau) * target + tau * p          (the critic's group)
     p      = min(p, clamp)                         (log alpha's group)
+    shadow = bf16(p); target shadow = bf16(target) (the networks' groups)
+
+A bf16 gradient (the networks' hand-written gradients are staged in bf16)
+is widened to float32 first, exactly.  The shadows are B5g's casts of the
+JAX package's update (flax's bf16 ``Dense`` rounds each parameter before
+its product): written after the step, they are the casts of the
+parameters the next update starts from.  Whatever writes a group's
+parameters outside the update refreshes its shadow (``rl/sac.py``
+``refresh_shadows``, B5g's kernel ``kernels/param_pack.py``, plain
+:func:`pack_plain`).
 
 Constants are float32 (optax's weak-typed Python floats become float32 the
 same way).  ``b^count`` is taken in float64 and rounded to float32 (the
@@ -113,8 +123,7 @@ def flatten_params(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
 
 def pack_plain(pairs) -> None:
     """B5g's plain version (``kernels/param_pack.py``): ``dst.copy_(src)``
-    for each (src, dst) pair, float32 -> bf16 rounded to nearest even or
-    bf16 -> float32 (exact)."""
+    for each (src, dst) pair, float32 -> bf16 rounded to nearest even."""
     for src, dst in pairs:
         dst.copy_(src)
 
@@ -150,11 +159,16 @@ def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
 
 def clip_adam_update(p: torch.Tensor, g: torch.Tensor, st: AdamState,
                      cfg: AdamConfig, target: Optional[torch.Tensor] = None,
-                     tau: float = 0.0, clamp: Optional[float] = None) -> None:
+                     tau: float = 0.0, clamp: Optional[float] = None,
+                     shadow: Optional[torch.Tensor] = None,
+                     target_shadow: Optional[torch.Tensor] = None) -> None:
     """One clipped-Adam step of a flat group, in place (``p``, ``st`` and,
     for the critic, the Polyak ``target``), in optax's order (module note);
-    ``clamp`` caps ``p`` after the step (log alpha's ``alpha_max``)."""
+    ``g`` float32 or bf16 (widened exactly); ``clamp`` caps ``p`` after the
+    step (log alpha's ``alpha_max``); ``shadow`` and ``target_shadow``
+    receive bf16(p) and bf16(target) after it."""
     c1, b1, c2, b2, eps, neg_lr, max_norm = cfg.constants()
+    g = g.to(torch.float32)
     g_norm = torch.sqrt(sum_squares(g))
     mx = torch.full((), max_norm, dtype=torch.float32, device=g.device)
     g = torch.where(g_norm < mx, g, (g / g_norm) * max_norm)
@@ -172,6 +186,10 @@ def clip_adam_update(p: torch.Tensor, g: torch.Tensor, st: AdamState,
     st.mu.copy_(mu)
     st.nu.copy_(nu)
     st.count.copy_(count)
+    if shadow is not None:
+        pack_plain([(p, shadow)])
+    if target_shadow is not None:
+        pack_plain([(target, target_shadow)])
 
 
 def polyak(target: torch.Tensor, online: torch.Tensor, tau: float):

@@ -24,8 +24,11 @@ plain version here or beside it:
 
 * B6b, the replay sample: ``kernels/replay_sample.py`` (plain:
   ``rl/replay.py::replay_sample``);
-* B5g, the bf16 parameter shadows and the gradient pack:
-  ``kernels/param_pack.py`` (plain: ``rl/optim.py::pack_plain``);
+* B5g, the bf16 parameter shadows and the gradients' widening: inside
+  B5c (below), which reads the bf16 gradients and writes each group's
+  shadow after its step; :func:`refresh_shadows` (``kernels/param_pack.py``,
+  plain: ``rl/optim.py::pack_plain``) fills the shadows outside the
+  update;
 * B5d, each Dense layer's product with its epilogue, and its gradient
   (a hidden layer's fused into the dX product above it); B5e, the one-hot
   critic's input rows, built inside the critic's first layer; B5f's
@@ -38,8 +41,9 @@ plain version here or beside it:
 * B5b, the exact marginalization over joint actions, the critic target and
   the actor term with its gradient: ``kernels/sac_update.py`` (plain:
   :func:`marginal_target` and :func:`marginal_actor`);
-* B5c, clipped Adam with the Polyak target and the alpha clamp:
-  ``kernels/adam.py`` (plain: ``rl/optim.py::clip_adam_update``).
+* B5c, clipped Adam with the Polyak target and the alpha clamp, and
+  B5g's casts: ``kernels/adam.py`` (plain:
+  ``rl/optim.py::clip_adam_update``).
 
 The sums of B5a, B5b, B5d and B5f follow the fixed halving tree of
 :func:`tree_sum_last` (quantile-Huber: over M, then over N, then over B;
@@ -136,10 +140,11 @@ class SACState:
     """All learned state.  Each group's parameters live in one flat float32
     buffer (``flat[group]``; the modules' parameters and ``log_alpha`` are
     views of it), as do the target critic's (``flat["target"]``).  The
-    networks' groups also have a bf16 shadow (``shadow[group]``, rewritten
-    from ``flat`` at the head of each update) and, but the target, a bf16
-    gradient staging buffer (``stage[group]``), both in ``flat``'s layout
-    (:meth:`views`).
+    networks' groups also have a bf16 shadow (``shadow[group]`` =
+    bf16(``flat[group]``): filled by :func:`assemble`, rewritten by each
+    update's B5c step, and by :func:`refresh_shadows` after any other
+    write of ``flat``) and, but the target, a bf16 gradient staging buffer
+    (``stage[group]``), both in ``flat``'s layout (:meth:`views`).
     ``metrics`` holds the last update's metrics (written in place).
     ``step`` counts the updates taken (the host knows it without a read)."""
 
@@ -226,7 +231,7 @@ def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
     flat["alpha"] = log_alpha.detach().reshape(1).to(device=dev,
                                                      dtype=torch.float32).clone()
     opts = opts or {g: adam_init(flat[g]) for g in GROUPS}
-    return SACState(enc=enc, actor=actor, critic=critic, target_critic=target,
+    sac = SACState(enc=enc, actor=actor, critic=critic, target_critic=target,
                     log_alpha=flat["alpha"].view(()),
                     enc_opt=opts["enc"], actor_opt=opts["actor"],
                     critic_opt=opts["critic"], alpha_opt=opts["alpha"],
@@ -235,6 +240,20 @@ def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
                     flat=flat, shadow=shadow, stage=stage,
                     consts=UpdateConsts(cfg, dev),
                     metrics=_metric_buffers(cfg, dev), step=step)
+    refresh_shadows(sac)
+    return sac
+
+
+def refresh_shadows(sac: SACState) -> None:
+    """Rewrite every bf16 shadow from its float32 group: ``shadow[g] =
+    bf16(flat[g])`` (B5g's kernel, ``kernels/param_pack.py``, one launch on
+    the card).  The update keeps the shadows in step itself (B5c writes
+    them); whatever else writes a group's parameters (loading weights,
+    perturbing them, replacing a shadow buffer) calls this before the next
+    update."""
+    from ..kernels.param_pack import param_pack
+
+    param_pack([(sac.flat[g], sac.shadow[g]) for g in SHADOWED])
 
 
 @torch.no_grad()
@@ -411,10 +430,12 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     device (``CHSAC_AF.train_steps``).  ``plain`` runs the regions' plain
     versions in place of their kernels.
 
-    The networks run on the bf16 shadows of their groups (B5g writes them
-    from the float32 buffers first); their gradients are written out by
-    hand into the bf16 staging buffers (``rl/nets.py``), which B5g widens
-    to float32 for B5c.  Only the temperature's scalar loss goes through
+    The networks run on the bf16 shadows of their groups (bf16 of the
+    parameters the update starts from: B5c's step wrote them, or
+    :func:`refresh_shadows`); their gradients are written out by hand into
+    the bf16 staging buffers (``rl/nets.py``), which B5c reads, widening
+    them, and its step writes the shadows of the new parameters (B5g's
+    casts inside B5c).  Only the temperature's scalar loss goes through
     autograd.
 
     Capturable as a CUDA graph: every tensor the next update reads (the
@@ -422,7 +443,6 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     metrics) is written in place, and nothing is read back to the host."""
     from ..kernels import sac_update as b5
     from ..kernels.adam import AdamGroup, adam_update
-    from ..kernels.param_pack import param_pack
     from ..kernels.replay_sample import replay_sample
 
     pin_f32_accumulation()
@@ -431,7 +451,6 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     if index is None:
         key = prng.split(key, 2)[0].to(dev)
     batch = replay_sample(rb, key, cfg.batch, plain=plain, index=index)
-    param_pack([(sac.flat[g], sac.shadow[g]) for g in SHADOWED], plain=plain)
     w, dw = sac.views(sac.shadow), sac.views(sac.stage)
     huber = quantile_huber_loss if plain else b5.quantile_huber
     target_fn = marginal_target if plain else b5.marginal_target
@@ -471,13 +490,15 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     (al_grad,) = torch.autograd.grad(al_loss, log_alpha)
 
     with torch.no_grad():
-        grads = {g: torch.empty_like(sac.flat[g]) for g in STAGED}
-        param_pack([(sac.stage[g], grads[g]) for g in STAGED], plain=plain)
         adam_update([
-            AdamGroup(sac.flat["critic"], grads["critic"], sac.critic_opt,
-                      target=sac.flat["target"], tau=cfg.tau),
-            AdamGroup(sac.flat["actor"], grads["actor"], sac.actor_opt),
-            AdamGroup(sac.flat["enc"], grads["enc"], sac.enc_opt),
+            AdamGroup(sac.flat["critic"], sac.stage["critic"], sac.critic_opt,
+                      target=sac.flat["target"], tau=cfg.tau,
+                      shadow=sac.shadow["critic"],
+                      target_shadow=sac.shadow["target"]),
+            AdamGroup(sac.flat["actor"], sac.stage["actor"], sac.actor_opt,
+                      shadow=sac.shadow["actor"]),
+            AdamGroup(sac.flat["enc"], sac.stage["enc"], sac.enc_opt,
+                      shadow=sac.shadow["enc"]),
             AdamGroup(sac.flat["alpha"], al_grad.reshape(1), sac.alpha_opt,
                       clamp=c.clamp)], cfg.adam(), plain=plain)
         new, viol = update_lagrange(sac.cmdp, c.gains, batch["costs"])

@@ -137,7 +137,7 @@ def parse_args(argv=None):
 
         n_dc = 1 if a.single_dc else len(FLEET)
         obs_dim = build_params(a).obs_dim(n_dc)
-        if not rl_covers(obs_dim, a.max_gpus_per_job):
+        if not rl_covers(obs_dim, n_dc, a.max_gpus_per_job):
             p.exit(2, f"{p.prog}: chsac_af with {a.max_gpus_per_job} GPU-count "
                       f"actions is outside the card's envelope: {RL_ENVELOPE}; "
                       f"{ENVELOPE}\n")

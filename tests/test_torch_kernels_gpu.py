@@ -104,6 +104,32 @@ def test_arrival_tables_kernel_matches_plain_version(cuda, fleet_fn, kw, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2047, 2048, 4096, 4097])
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_arrival_tables_fold_edges_bitwise(cuda, lanes, n):
+    """B2 at the fold's edges (one entry, a vector tail, whole vectors, a
+    second staged tile), one lane and 32 in one launch: every output
+    bitwise the plain version's."""
+    fleet = build_fleet()
+    params = SimParams(queue_cap=64, job_cap=32, seed=5, inf_amp=0.8)
+    wt = compile_workload(fleet, params, cuda)
+    st = batched_init(fleet, params, lanes, workload=wt, device=cuda)
+    S = wt.n_streams
+    args = [st.arr_key, st.arr_count.reshape(lanes, S).contiguous(),
+            st.next_arrival.reshape(lanes, S).contiguous(),
+            st.arr_cum.reshape(lanes, S).contiguous(),
+            st.arr_epoch.reshape(lanes, S).contiguous(), wt.family_t,
+            wt.sparams]
+    if lanes == 1:
+        args = [a[0] for a in args[:5]] + args[5:]
+    out = b2.arrival_tables(*args, n, with_aux=True)
+    ref = b2.arrival_tables_reference(*args, n, with_aux=True)
+    torch.cuda.synchronize()
+    for k, v in ref.items():
+        assert _bits_equal(out[k], v), k
+
+
+@pytest.mark.gpu
 def test_arrival_tables_wrapper_rejects_mixed_devices(cuda):
     args = list(_args(build_duo_fleet(), SimParams(queue_cap=8, job_cap=8), cuda))
     args[2] = args[2].cpu()
@@ -259,18 +285,29 @@ RL_LOADS = {
                                 log_interval=0.02, inf_priority=False,
                                 reserve_inf_gpus=4, max_gpus_per_job=4,
                                 sla_p99_ms=80.0, rl_energy_weight=2.5)),
+    # GPU-count heads wider than a warp (a DC has 16 GPUs): B4 over
+    # register slots and warps
+    "duo_g64": ("duo", dict(inf_mode="poisson", inf_rate=300.0, trn_rate=40.0,
+                            job_cap=64, queue_cap=3, log_interval=0.02,
+                            max_gpus_per_job=64)),
+    "duo_g254": ("duo", dict(inf_mode="poisson", inf_rate=300.0,
+                             trn_rate=40.0, job_cap=64, queue_cap=3,
+                             log_interval=0.02, max_gpus_per_job=254)),
 }
 
 
 def _perturb(sac, seed):
     """Seeded non-zero biases and perturbed kernels in every layer: flax's
     default init zeroes the biases, which would leave the bias add of the
-    forward unchecked."""
+    forward unchecked.  The shadows are refreshed after the write."""
+    from distributed_cluster_gpus_tpu_torch.rl.sac import refresh_shadows
+
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():  # the parameters are trainable leaves
         for layer in sac.layers():
             for p, std in ((layer.kernel, 0.02), (layer.bias, 0.1)):
                 p.add_((torch.randn(p.shape, generator=g) * std).to(p.device))
+    refresh_shadows(sac)
 
 
 def _rl_engine(fleet, params, dev, greedy=False):
@@ -433,6 +470,48 @@ def test_rl_tail_device_code_matches_plain_version(cuda, fleet_fn, W, threads):
     for i in range(M):
         a = select_action(cfg, agent.sac, obs[i], m_dc[i], m_g[i], keys[i])
         assert (int(out["a_dc"][i]), int(out["a_g"][i])) == (int(a[0]), int(a[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", RL_WIDTHS)
+@pytest.mark.parametrize("greedy", [False, True], ids=["sampled", "greedy"])
+@pytest.mark.parametrize("n_g", [33, 64, 128, 254])
+def test_rl_tail_wide_gpu_count_heads(cuda, n_g, greedy, threads):
+    """B4's GPU-count head past one warp (register slots, the Gumbels drawn
+    by each warp for its slots, the first maximum across the warps) on the
+    duo fleet up to n_dc + n_g = 256: log-probabilities bitwise, actions
+    equal to the plain version's, rows with all but one action masked (the
+    first, a middle, the last) and every action feasible."""
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl.sac import policy_logp, select_action
+
+    fleet = build_duo_fleet()
+    params = SimParams(algo="chsac_af", lat_window=64, seed=2,
+                       max_gpus_per_job=n_g)
+    eng, agent = _rl_engine(fleet, params, cuda, greedy)
+    cfg = agent.cfg
+    g = torch.Generator().manual_seed(n_g)
+    M = 24
+    obs = torch.rand((M, cfg.obs_dim), generator=g).to(cuda)
+    m_dc = (torch.rand((M, cfg.n_dc), generator=g) < 0.6).to(cuda)
+    m_g = (torch.rand((M, n_g), generator=g) < 0.5).to(cuda)
+    m_dc[:, 0] = True
+    m_g[:, 1] = True
+    m_g[:3] = False
+    m_g[0, 0] = m_g[1, n_g // 2] = m_g[2, n_g - 1] = True
+    m_g[3] = True
+    keys = prng.split(prng.key(9, cuda), M).contiguous()
+    empty = torch.zeros((0, 64), device=cuda)
+    out = b1.rl_tail_batch(eng, agent.sac, empty,
+                           torch.zeros((0,), dtype=torch.int32, device=cuda),
+                           obs, m_dc, m_g, keys, threads=threads)
+    l_dc, l_g = policy_logp(agent.sac, obs, m_dc, m_g)
+    assert _bits_equal(out["logp_dc"], l_dc) and _bits_equal(out["logp_g"], l_g)
+    for i in range(M):
+        a = select_action(cfg, agent.sac, obs[i], m_dc[i], m_g[i], keys[i],
+                          greedy=greedy)
+        assert (int(out["a_dc"][i]), int(out["a_g"][i])) == (int(a[0]), int(a[1]))
+    assert [int(x) for x in out["a_g"][:3]] == [0, n_g // 2, n_g - 1]
 
 
 def _window(g, N, p_valid, dev, obs_dim=13, n_dc=2, n_g=8):
@@ -770,6 +849,71 @@ def test_adam_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 70_001, 287_808])
+@pytest.mark.parametrize("case", ["clip", "no_clip", "nan"])
+def test_adam_kernel_bf16_gradients_and_shadows(cuda, case, n):
+    """B5c with B5g's casts inside: a bf16 gradient read and widened, the
+    shadows of the new parameters and of the Polyak target written; every
+    parameter, moment, target and shadow bitwise the plain version's (a
+    NaN parameter's shadow too), and the shadows bf16 of what was
+    written."""
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import (AdamGroup,
+                                                                 adam_update)
+    from distributed_cluster_gpus_tpu_torch.rl import optim
+
+    g = torch.Generator().manual_seed(n + len(case))
+    p = torch.randn(n, generator=g)
+    if case == "nan":
+        p[n // 2] = float("nan")
+    grad = (torch.randn(n, generator=g) * (0.2 if case == "clip" else 0.001)
+            ).to(torch.bfloat16)
+    mu = torch.randn(n, generator=g) * 0.01
+    nu = torch.rand(n, generator=g) * 1e-4
+    tgt = torch.randn(n, generator=g)
+    runs = []
+    for plain in (False, True):
+        st = optim.AdamState(torch.tensor(3, dtype=torch.int32).to(cuda),
+                             mu.to(cuda), nu.to(cuda))
+        gr = AdamGroup(p.to(cuda), grad.to(cuda), st, tgt.to(cuda), tau=0.005,
+                       shadow=torch.empty(n, dtype=torch.bfloat16, device=cuda),
+                       target_shadow=torch.empty(n, dtype=torch.bfloat16,
+                                                 device=cuda))
+        before = adam_update.launches
+        adam_update([gr], optim.AdamConfig(), plain=plain)
+        assert adam_update.launches == before + (0 if plain else 1)
+        runs.append([gr.p, gr.st.mu, gr.st.nu, gr.target, gr.shadow,
+                     gr.target_shadow])
+    for a, b in zip(*runs):
+        assert _bits_equal(a, b) or (case == "nan" and _bits_equal_nan(
+            a.float(), b.float()))
+    k = runs[0]
+    assert _bits_equal_nan(k[4].float(), k[0].to(torch.bfloat16).float())
+    assert _bits_equal(k[5], k[3].to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["onehot", "heads"])
+def test_shadows_follow_every_update_path(cuda, arch):
+    """The update keeps each bf16 shadow bf16 of its group (B5c writes them
+    after the step): after eager kernel updates and after graph replays
+    (the capture records the writes) every shadow equals ``bf16(flat)``
+    bitwise, and the two paths stay bitwise equal."""
+    from distributed_cluster_gpus_tpu_torch.rl.sac import SHADOWED
+
+    a, b = _small_agent(cuda, arch), _small_agent(cuda, arch)
+    for n in (1, 4):
+        a.train_steps(n, n)
+        b.train_steps(n, n, graph=False)
+        torch.cuda.synchronize()
+        for ag in (a, b):
+            for grp in SHADOWED:
+                assert _bits_equal(ag.sac.shadow[grp],
+                                   ag.sac.flat[grp].to(torch.bfloat16)), grp
+    assert a.graph_replays > 0
+    assert _same_learner(a, b) == []
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["clip", "no_clip", "saturated"])
 def test_adam_update_all_groups_matches_plain_version(cuda, case):
     """B5c over the update's four groups at their published sizes in one
@@ -1067,8 +1211,9 @@ def _bf16_rows(g, R, N, dev, scale=1.0):
 
 @pytest.mark.gpu
 def test_param_pack_kernel_matches_plain_version(cuda):
-    """B5g: float32 -> bf16 (ties, subnormals, overflow, infinities, NaN)
-    and back, several buffers of odd sizes in one launch, bitwise."""
+    """B5g's refresh: float32 -> bf16 (ties, subnormals, overflow,
+    infinities, NaN), several buffers of odd sizes in one launch,
+    bitwise."""
     from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
     from distributed_cluster_gpus_tpu_torch.rl.optim import pack_plain
 
@@ -1081,19 +1226,14 @@ def test_param_pack_kernel_matches_plain_version(cuda):
             x[10:60] = (torch.arange(50, dtype=torch.int32) << 16 | 0x8000).view(
                 torch.float32)
         srcs.append(x.to(cuda))
-    for direction in ("to_bf16", "to_f32"):
-        if direction == "to_bf16":
-            pairs_k = [(s_, torch.empty_like(s_, dtype=torch.bfloat16)) for s_ in srcs]
-        else:
-            srcs = [d for _, d in pairs_k]
-            pairs_k = [(s_, torch.empty_like(s_, dtype=torch.float32)) for s_ in srcs]
-        pairs_p = [(s_, torch.empty_like(d)) for s_, d in pairs_k]
-        before = param_pack.launches
-        param_pack(pairs_k)
-        assert param_pack.launches == before + 1
-        pack_plain(pairs_p)
-        for (_, dk), (_, dp) in zip(pairs_k, pairs_p):
-            assert _bits_equal(dk, dp), direction
+    pairs_k = [(s_, torch.empty_like(s_, dtype=torch.bfloat16)) for s_ in srcs]
+    pairs_p = [(s_, torch.empty_like(d)) for s_, d in pairs_k]
+    before = param_pack.launches
+    param_pack(pairs_k)
+    assert param_pack.launches == before + 1
+    pack_plain(pairs_p)
+    for (_, dk), (_, dp) in zip(pairs_k, pairs_p):
+        assert _bits_equal(dk, dp)
 
 
 #: every forward layer of an update at the published shape (R, K, N): the
@@ -1680,6 +1820,9 @@ def test_fused_region_wrappers_reject_bad_operands(cuda):
                        db3, db2)
     with pytest.raises(TypeError):
         param_pack([(torch.zeros(8, device=cuda), torch.zeros(8, device=cuda))])
+    with pytest.raises(TypeError):  # the widening runs inside B5c
+        param_pack([(torch.zeros(8, device=cuda, dtype=torch.bfloat16),
+                     torch.zeros(8, device=cuda))])
 
 
 @pytest.mark.gpu
@@ -1687,7 +1830,10 @@ def test_update_graph_recaptures_after_buffer_replacement(cuda):
     """Replacing a bf16 parameter shadow or a gradient staging buffer that a
     captured update holds drops the graph: the next chunk captures again
     and stays bitwise equal to the eager path given the same
-    replacements."""
+    replacements (a new shadow filled by the refresh, as any write of the
+    shadows outside the update must be)."""
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
     a, b = _small_agent(cuda, "onehot"), _small_agent(cuda, "onehot")
     for agent in (a, b):
         agent.train_steps(2, 2, graph=agent is a)
@@ -1697,6 +1843,8 @@ def test_update_graph_recaptures_after_buffer_replacement(cuda):
         for agent in (a, b):
             d = getattr(agent.sac, bufs)
             d[grp] = torch.full_like(d[grp], float("nan"))
+            if bufs == "shadow":  # a new shadow is filled by the refresh
+                rsac.refresh_shadows(agent.sac)
             agent.train_steps(3, 4, graph=agent is a)
         torch.cuda.synchronize()
         assert a.graph_captures == 2 + i

@@ -12,6 +12,11 @@ over the lane axis, with the hardware's rule that a lane reading past lane
 31 keeps its own value) and hold it bitwise against ``tree_sum_last``, on
 seeded data with -0.0 entries and magnitudes from 1e-8 to 1e8, and the two
 kernels' whole mappings against their plain versions (``rl/sac.py``).  The
+acting policy's GPU-count head in B1's RL mode (``csrc/event_scan.cu``
+``head_sample``/``sample_heads``: action a at lane a % 32 of register slot
+a / 32, the tree's levels of distance >= 32 in registers, each warp
+drawing its own slots, the first maximum across the warps) is replayed the
+same way against ``masked_log_softmax`` and the plain Gumbel-max.  The
 gpu tests hold the kernels themselves on the card.
 """
 
@@ -606,3 +611,98 @@ def test_heads_backward_passes_cover_every_entry_once(P, R):
                             j = (lane & (s - 1)) + s * k
                             seen[(t, j)] = seen.get((t, j), 0) + 1
     assert seen == {(t, j): 1 for t in range(R) for j in range(P)}
+
+
+# ------------------------------- the acting heads of B1's RL mode, replayed
+
+def acting_head(logits, mask, gum, NW, greedy=False):
+    """``head_sample`` / ``sample_heads`` for one head of n <= 256 actions
+    on NW warps: (logp [n], action).  ``gum`` [n] holds action a's Gumbel
+    draw (counter a).  Slot s of a lane holds action 32 s + lane; every
+    warp computes the log-softmax, warp w draws slots w, w + NW, ..., keeps
+    a lane's first maximum over its slots (ascending), then the warp's by
+    shuffles (a larger value, or an equal one at a lower index); the warps'
+    first maxima are taken in warp order, strictly larger replacing."""
+    n = logits.shape[0]
+    kS = 1 if n <= 32 else 8
+    a = torch.arange(kS * LANES).reshape(kS, LANES)
+    on = a < n
+    pad = torch.full((kS * LANES - n,), 0.0)
+    x = torch.where(torch.cat([mask, pad.bool()]).reshape(kS, LANES),
+                    torch.cat([logits, pad]).reshape(kS, LANES),
+                    torch.full((kS, LANES), -1e9))
+    x = torch.where(on, x, torch.full_like(x, -torch.inf))
+    m = x.max()
+    sh = x - m
+    e = torch.where(on, torch.exp(sh), torch.zeros_like(sh))
+    p = _pow2(n)
+    hs = kS // 2
+    while hs >= 1:
+        if 64 * hs <= p:
+            e = torch.cat([e[:hs] + e[hs:2 * hs], e[hs:]])
+        hs //= 2
+    e0 = e[0]
+    half = min(p, 32) // 2
+    while half >= 1:
+        o = shfl_down(e0, half)
+        e0 = torch.where(LANE < half, e0 + o, e0)
+        half //= 2
+    lse = torch.log(e0[0])
+    lp = sh - lse
+    v = lp if greedy else torch.cat([gum, pad]).reshape(kS, LANES) + lp
+    cands = []
+    for w in range(min(-(-n // 32), NW)):
+        bv = torch.zeros(LANES)
+        best = torch.full((LANES,), 1 << 30)
+        for s_ in range(w, kS, NW):
+            take = on[s_] & ((best == 1 << 30) | (v[s_] > bv))
+            bv = torch.where(take, v[s_], bv)
+            best = torch.where(take, a[s_], best)
+        off = 16
+        while off:
+            src = LANE ^ off
+            ov, ob = bv[src], best[src]
+            take = (ob != 1 << 30) & ((best == 1 << 30) | (ov > bv)
+                                      | ((ov == bv) & (ob < best)))
+            bv, best = torch.where(take, ov, bv), torch.where(take, ob, best)
+            off //= 2
+        cands.append((bv[0], int(best[0])))
+    bv, best = cands[0]
+    for ov, ob in cands[1:]:
+        if ob != 1 << 30 and (best == 1 << 30 or ov > bv):
+            bv, best = ov, ob
+    return lp.reshape(-1)[:n], best
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 32, 33, 64, 100, 128, 200, 255])
+@pytest.mark.parametrize("NW", [1, 8])
+def test_acting_head_warps_match_plain_version(n, NW):
+    """The widened acting head, replayed: every log-probability bitwise
+    ``masked_log_softmax``'s, the sampled action the first argmax of Gumbel
+    plus logp, the greedy one the first argmax of logp, on seeded logits
+    with ties, masks with all but one action masked (the first, a middle
+    and the last), and equal perturbed values (ties across warps)."""
+    rng = np.random.default_rng(n * 16 + NW)
+    rows = []
+    for r in range(12):
+        logits = torch.from_numpy(rng.normal(0, 2, n).astype(np.float32))
+        if r % 3 == 0:
+            logits = torch.round(logits)  # ties
+        mask = torch.from_numpy(rng.random(n) < 0.6)
+        mask[rng.integers(0, n)] = True
+        gum = torch.from_numpy(rng.gumbel(size=n).astype(np.float32))
+        if r in (1, 2, 3):
+            mask[:] = False
+            mask[(0, n // 2, n - 1)[r - 1]] = True
+        if r == 4:
+            logits[:] = 0.5
+            mask[:] = True
+            gum[:] = 1.0  # every perturbed value equal: action 0
+        rows.append((logits, mask, gum))
+    for logits, mask, gum in rows:
+        want = masked_log_softmax(logits[None], mask[None])[0]
+        for greedy in (False, True):
+            lp, a = acting_head(logits, mask, gum, NW, greedy)
+            assert _same_bits(lp, want)
+            ref = want if greedy else gum + want
+            assert a == int(torch.argmax(ref))

@@ -11,8 +11,10 @@ and ``_commit_tail`` run exactly as with the real policy, while every value
 stays + - * / on float32 and int32.  The final ``SimState`` leaves (the
 slab's RL trace included), every emission row (``rl`` included) and the
 CSV bytes drained from them must be identical, over two chunks on the duo
-and single-DC fleets and a duo case with the options off their defaults
-(inference reserve, GPU cap, no inference priority, reward weight).
+and single-DC fleets, a duo case with the options off their defaults
+(inference reserve, GPU cap, no inference priority, reward weight) and the
+duo load at ``max_gpus_per_job`` 64 and 128 (GPU-count masks and actions
+as wide as B1's RL mode now acts with).
 
 One stated exception: the observation's two queue-length features are
 ``log1p(q) / 4``, and XLA's CPU ``log1p`` (its own ``log(1 + x)``
@@ -47,7 +49,8 @@ N_CHUNKS = 2
 OBS_ULP = 1
 OBS_LEAVES = {"jobs": ("rl_obs0",), "rl": ("s0", "s1")}
 FLEETS = {"duo": build_duo_fleet, "single": build_single_dc_fleet,
-          "duo_options": build_duo_fleet}
+          "duo_options": build_duo_fleet, "duo_g64": build_duo_fleet,
+          "duo_g128": build_duo_fleet}
 LOADS = {
     # 2 x 16 GPUs under 300 inference and 40 training arrivals/s with a
     # 64-slot slab: the slab fills (arrivals drop), xfers find their DC full
@@ -63,6 +66,10 @@ LOADS = {
                         reserve_inf_gpus=4, max_gpus_per_job=4,
                         sla_p99_ms=80.0, rl_energy_weight=2.5),
 }
+# the duo load with GPU-count heads wider than a DC (16 GPUs): rows of 64
+# and 128 masks, most of them infeasible
+for _n_g in (64, 128):
+    LOADS[f"duo_g{_n_g}"] = dict(LOADS["duo"], max_gpus_per_job=_n_g)
 
 
 def standin_jax(n_dc, n_g):
@@ -191,4 +198,7 @@ def test_loads_exercise_the_tail(runs):
     assert int(st.queues.head.sum()) > 0, "no ring drain started a job"
     assert int(st.n_dropped) > 0, "neither the slab nor a ring ever filled"
     m_g = np.concatenate([e[1]["rl"]["mask_g"] for e in ems])
-    assert m_g.all(-1).any() and (~m_g).any(), "masks never varied"
+    # some row allows every count up to the largest DC's GPUs (all n_g of
+    # them where a DC has as many), some row refuses some count
+    widest = min(m_g.shape[-1], int(FLEETS[fleet_name]().total_gpus.max()))
+    assert m_g.sum(-1).max() == widest and (~m_g).any(), "masks never varied"

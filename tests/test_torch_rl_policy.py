@@ -11,6 +11,9 @@ their scale.  The stated tolerance is therefore ``LOGP_ATOL`` on every
 log-probability, with feasible actions compared (masked ones sit at about
 -1e9 on both sides and agree to float32 rounding of that).
 
+The published 8 x 8 heads and the paper fleet at 128 GPU-count actions (the
+widest head B1's RL mode acts with there) are both held.
+
 The JAX package's initialisation zeroes every bias, so the carried weights
 are first perturbed with seeded values (non-zero biases, shifted kernels)
 on the JAX side: both forwards then add a bias in every layer.
@@ -51,8 +54,8 @@ def _perturbed(tree, rng):
                         tree)
 
 
-@pytest.fixture(scope="module", params=[(13, 2, 8), (49, 8, 8)],
-                ids=["duo", "paper"])
+@pytest.fixture(scope="module", params=[(13, 2, 8), (49, 8, 8), (49, 8, 128)],
+                ids=["duo", "paper", "paper_g128"])
 def pair(request):
     """(JAX config, port config, the JAX weights as numpy trees (perturbed),
     the port's SACState carried from them, JAX's jitted logp)."""
@@ -201,7 +204,8 @@ def test_kernel_operand_layout_reproduces_the_recipe(pair):
 
     cj, ct, sj, st, _ = pair
     fleet = build_duo_fleet() if ct.n_dc == 2 else build_fleet()
-    prog = StepProgram(fleet, SimParams(algo="chsac_af"), "cpu")
+    prog = StepProgram(fleet, SimParams(algo="chsac_af",
+                                        max_gpus_per_job=ct.n_g), "cpu")
     ops, widths = policy_operands(prog, st, "cpu")
     assert widths == (256, 256, 256, 256)
     rng = np.random.default_rng(9)

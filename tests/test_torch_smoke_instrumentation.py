@@ -76,10 +76,12 @@ def test_wrapper_widths_are_built(src):
     """The widths the wrapper may launch are the kernel's instantiations,
     and each mode's choice is one of them."""
     built = sorted(int(n) for n in re.findall(
-        r"case (\d+): return event_scan_kernel<kRL, \1>;", src))
+        r"case (\d+): return event_scan_kernel<kRL, \1, kWide>;", src))
     assert built == sorted(b1.BLOCK_WIDTHS)
+    # the standalone launch: each width in both head instances
     tail = sorted(int(n) for n in re.findall(
-        r"case (\d+): return rl_tail_batch_kernel<\1>;", src))
+        r"case (\d+): return wide \? rl_tail_batch_kernel<\1, true>\s*"
+        r": rl_tail_batch_kernel<\1, false>;", src))
     assert tail == sorted(b1.BLOCK_WIDTHS)
     assert b1.THREADS in b1.BLOCK_WIDTHS
 
@@ -94,26 +96,32 @@ def test_shared_memory_count_matches_the_kernel(src):
     assert b1.RED_WORDS == int(red.group(1)) * warps
     assert re.search(r"constexpr int kActLen = kMaxWidth \+ kMaxWidth / 16;", src)
     assert b1.ACT_LEN == b1.MAX_WIDTH + b1.MAX_WIDTH // 16
-    assert "return 4LL * (2 * kActLen + 68) + rest;" in src
-    assert b1.ACT_BYTES == 4 * (2 * b1.ACT_LEN + 68)
+    heads = int(re.search(r"constexpr int kMaxHeads = (\d+);", src).group(1))
+    assert b1.MAX_HEADS == heads
+    assert "  return 32 + (n_g + 3) / 4 * 4;\n" in src
+    assert [b1.logit_len(n) for n in (1, 4, 5, 8, 128, 255)] == [
+        36, 36, 40, 40, 160, 288]
+    assert "return 4LL * (2 * kActLen + logit_len(ints[I_MAXGPU]) + 4) + rest;" in src
+    assert b1.act_bytes(8) == 4 * (2 * b1.ACT_LEN + b1.logit_len(8) + 4)
     for name, val in (("kRegSlots", b1.REG_SLOTS), ("kMaxCluster", b1.MAX_CLUSTER)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == val
     assert max(b1.CLUSTERS) <= b1.MAX_CLUSTER
-    # a scratch row per DC-summing warp past P = 512; the RL windows,
-    # observation and log-probabilities; no slab term for the block width
+    # a scratch row per DC-summing warp past P = 512; the RL windows and
+    # observation; no slab term for the block width
     base = b1.slab_bytes(1024, 2048, True, 1)
     assert b1.slab_bytes(1024, 2048, True, 3) - base == 4 * 2 * 1024
     assert b1.slab_bytes(512, 2048, True, 3) == b1.slab_bytes(512, 2048, True, 1)
-    assert base - b1.slab_bytes(1024, 2048, False, 1) == 4 * (2 * 2048 + 256 + 64)
+    assert "2LL * ints[I_W] + kMaxObs : 0;" in src
+    assert base - b1.slab_bytes(1024, 2048, False, 1) == 4 * (2 * 2048 + 256)
     assert b1.slab_bytes(512) == 4 * (18 * 512 + 512 + b1.RED_WORDS)
     w = (49, 256, 256, 256, 256, 8, 8)
     assert b1.smem_bytes(512, 2048, False, 1, w, 4, True) == b1.slab_bytes(512)
     assert b1.smem_bytes(1024, 2048, True, 1, w, 4, True) == (
-        b1.ACT_BYTES + b1.slice_bytes(w, 4) + base)
+        b1.act_bytes(8) + b1.slice_bytes(w, 4) + base)
     assert b1.smem_bytes(1024, 2048, True, 1, w, 4, False) == (
-        b1.ACT_BYTES + max(b1.slice_bytes(w, 3), base))
+        b1.act_bytes(8) + max(b1.slice_bytes(w, 3), base))
     assert b1.smem_bytes(16, 64, True, 1, w, 2, False) == (
-        b1.ACT_BYTES + b1.slice_bytes(w, 1))
+        b1.act_bytes(8) + b1.slice_bytes(w, 1))
 
 
 def test_cluster_rows_split_the_weights():
@@ -126,7 +134,7 @@ def test_cluster_rows_split_the_weights():
     assert b1.slice_bytes(w, 4) == (
         2 * (64 * 64 + 3 * 64 * 256 + 2 * 2 * 256) + 4 * (4 * 64 + 4))
     assert b1.slice_bytes((5, 7, 7, 7, 7, 3, 3), 8) == 2 * (4 * 8 + 2 * 8) + 2 * 16
-    room = b1.SMEM_BUDGET - b1.ACT_BYTES
+    room = b1.SMEM_BUDGET - b1.act_bytes(8)
     assert b1.slice_bytes(w, 2) + b1.slab_bytes(16, 2048, True) > room
     assert b1.slice_bytes(w, 4) + b1.slab_bytes(512, 2048, True) <= room
 

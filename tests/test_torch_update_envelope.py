@@ -3,7 +3,8 @@
 The card's update kernels take batches 1 to 4,096, heads of up to 256
 entries with n_dc + n_g <= 256 and n_dc x n_g <= 1,024 joint actions
 (``kernels/envelope.py``).  The CLI (``run_sim.parse_args``, which also
-holds the GPU-count head to what B1's RL mode acts with) and
+holds the heads to what B1's RL mode acts with: n_dc + n_g <= 256, the
+same) and
 ``CHSAC_AF`` check a configuration against every kernel's plan and limit
 before anything runs: inside the envelope nothing is refused; outside it
 they raise at once with the envelope in the message, never after the
@@ -68,28 +69,60 @@ def test_the_plans_take_the_widened_shapes():
         assert target_warps(A) == W
 
 
-def test_cli_takes_a_widened_setting_on_the_card():
-    """The widest settings the card runs end to end: an odd batch over
-    several row tiles, and B1's widest GPU-count head (32: 8 x 32 joint
-    actions, 40 heads' columns)."""
-    a = run_sim.parse_args(_argv(100, 32))
-    assert (a.rl_batch, a.max_gpus_per_job, a.device) == (100, 32, "cuda")
-    a = run_sim.parse_args(_argv(4096, 32, "--critic-arch", "heads"))
+@pytest.mark.parametrize("B,n_g", [(100, 32), (100, 64), (300, 128)])
+def test_cli_takes_a_widened_setting_on_the_card(B, n_g):
+    """Settings the card runs end to end: odd batches over several row
+    tiles, up to the paper fleet's widest GPU-count head (128: 8 x 128
+    joint actions, 136 heads' columns), which B1's RL mode acts with and
+    the update learns with."""
+    a = run_sim.parse_args(_argv(B, n_g))
+    assert (a.rl_batch, a.max_gpus_per_job, a.device) == (B, n_g, "cuda")
+    a = run_sim.parse_args(_argv(4096, n_g, "--critic-arch", "heads"))
     assert a.critic_arch == "heads"
 
 
-@pytest.mark.parametrize("B,n_g", [(4097, 8), (256, 129), (256, 250),
-                                   (100, 64)])
+@pytest.mark.parametrize("B,n_g", [(4097, 8), (256, 129), (256, 250)])
 def test_cli_refuses_outside_the_envelope_at_parse_time(B, n_g, capsys):
-    """Outside the update's envelope, or past B1's 32 GPU-count actions
-    (the update takes 64, the acting kernel does not): refused before
-    anything runs, with both envelopes in the message."""
+    """Outside the update's envelope (a batch past 4,096, more than 1,024
+    joint actions on the paper fleet): refused before anything runs, with
+    both envelopes in the message."""
     with pytest.raises(SystemExit) as e:
         run_sim.parse_args(_argv(B, n_g))
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert envelope.ENVELOPE in err and "outside the card's envelope" in err
     assert event_scan.RL_ENVELOPE in err
+
+
+def test_b1_refuses_more_than_256_heads_on_a_small_fleet(capsys):
+    """B1's RL mode acts with n_dc + n_g <= 256: on the single-DC fleet 255
+    GPU-count actions are taken and 256 refused, by the kernel's check and
+    by the CLI at parse time (B1's check, with both envelopes in the
+    message)."""
+    from distributed_cluster_gpus_tpu_torch.configs.paper import build_single_dc_fleet
+    from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    obs = SimParams(algo="chsac_af").obs_dim(1)
+    assert event_scan.rl_covers(obs, 1, 255)
+    assert not event_scan.rl_covers(obs, 1, 256)
+    assert not event_scan.rl_covers(obs, 33, 8)
+    run_sim.parse_args(_argv(256, 255, "--single-dc"))
+
+    def act(pp, o, md, mg, k):
+        return k[0], k[1]
+
+    act.kernel_mode = "sample"
+    eng = Engine(build_single_dc_fleet(), SimParams(
+        algo="chsac_af", max_gpus_per_job=256, job_cap=64, queue_cap=8),
+        device="cpu", policy_apply=act)
+    with pytest.raises(ValueError, match="n_dc \\+ n_g <= 256"):
+        event_scan.check_kernel_covers(eng)
+    with pytest.raises(SystemExit) as e:
+        run_sim.parse_args(_argv(256, 256, "--single-dc"))
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert event_scan.RL_ENVELOPE in err and envelope.ENVELOPE in err
 
 
 def test_cli_refuses_nothing_on_the_cpu():
