@@ -64,7 +64,10 @@ Phases (any failure exits non-zero before the result lines):
     at each width beside the event scan's cluster plan;
 11. (h) B6a (the replay ingest window) against ``_add_window``'s plain
     version on windows that wrap, are all or none valid, or overwrite valid
-    rows;
+    rows, and in both layouts (``_add_window``, ``_add_scatter``) on
+    windows of 1, 4,096, 8,193 and C = 200,000 rows; a 4,096-row window
+    into the CLI's ring timed (device time, the wrapper's host time) in
+    both layouts;
 12. (i) the chsac_af CLI for 600 s on the paper fleet, warm-up above the
     run: B1, B2 and B6a launched once per chunk, no synchronizing call with
     the B1 or B6a wrapper on the stack, the replay's n_seen against the
@@ -83,7 +86,12 @@ Phases (any failure exits non-zero before the result lines):
     rings: empty, full, wrapped with gaps, one valid row; batches 1, 256
     and 4,096; the key given or derived on the card from a chunk key and
     an update index), each timed beside its plain version, its bound and a
-    one-call PyTorch yardstick where there is one; then the update's small
+    one-call PyTorch yardstick where there is one; the update's tail (R1d)
+    inside those kernels (B5a's taken action of the heads critic with its
+    gradient's scatter and q_mean, B5b target's PID step and r_eff mean,
+    B5b actor's entropy mean and temperature loss and gradient) bitwise
+    against the plain versions, and timed as the host calls with their
+    tail outputs less the same calls without; then the update's small
     fused regions, B5d (each Dense layer's product with its epilogue, a
     hidden layer's gradient fused into the dX product, a top layer's
     standalone backward; the one-hot critic's first layer building its
@@ -119,7 +127,10 @@ Phases (any failure exits non-zero before the result lines):
     both critics) within the parity bounds of the plain path's; for the
     one-hot critic ms per update each way and profiled updates (device ops per update, busy
     share, by kind, and device us per update by kernel name) and the
-    bounds of the dW products and the small torch ops;
+    bounds of the dW products and of the update's tail; fails if a
+    replayed update runs a plain-torch launch or a copy
+    (``UPDATE_TORCH_OPS``: none; the chunk's own three fills,
+    ``CHUNK_TORCH_OPS``, run outside the graph);
 15. (l) B1 in RL mode with the weights (k) trained, one 1,024-step chunk at
     the chsac_af CLI's shape, bitwise against the plain step;
 16. (m) the learning CLI: chsac_af for 600 s at the default warm-up: B1, B2
@@ -1510,12 +1521,22 @@ def seeded_window(g, N, obs_dim, n_dc, n_g, p_valid):
             "mask_g0": torch.rand((N, n_g), generator=g) < 0.5}
 
 
+#: B6a's windows past the small cases, both layouts: (ring C, window sizes,
+#: valid fraction); 8,193 rows is past the one-block kernel's old limit,
+#: N = C above 32,768 rows takes the count launch first
+B6A_SIZES = {"sizes_slotring": (200_000, [1, 4096, 8193, 200_000, 4096], 0.35),
+             "sizes_scatter": (200_000, [1, 4096, 8193, 200_000, 4096], 0.35)}
+
+
 def phase_b6a(report):
-    """(h) B6a against `_add_window`'s plain version on the card: seeded
-    windows that wrap, are all valid, have none valid and overwrite valid
-    rows, into a ring on the card and its twin (every leaf bitwise after
-    every window); then one 4,096-row window into the CLI's 200,000-row ring
-    timed beside the plain version."""
+    """(h) B6a against its plain versions on the card: seeded windows that
+    wrap, are all valid, have none valid and overwrite valid rows, into a
+    ring on the card and its twin (every leaf bitwise after every window),
+    then windows of 1, 4,096, 8,193 and C = 200,000 rows in both layouts
+    (`_add_window`, `_add_scatter`; the 4,096-row ones with no ``done``
+    column, which the kernel fills); then one 4,096-row window into the
+    CLI's 200,000-row ring timed beside the plain version (device time, and
+    the wrapper's host time a call), in both layouts."""
     from distributed_cluster_gpus_tpu_torch import bridge
     from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
     from distributed_cluster_gpus_tpu_torch.rl import replay
@@ -1541,6 +1562,30 @@ def phase_b6a(report):
                 fail(f"B6a {name}: ring differs from the plain version at {bad[:5]}")
         if name == "overwrite" and not int(rk.size) < int(rk.n_seen):
             fail("B6a overwrite case overwrote no valid row")
+    for name, (C, sizes, pv) in B6A_SIZES.items():
+        mode = name.split("_")[1]
+        plain = replay._add_window if mode == "slotring" else replay._add_scatter
+        rk = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+        rp = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+        for N in sizes:
+            tr = {k: v.cuda() for k, v in seeded_window(g, N, obs_dim, n_dc, n_g,
+                                                        pv).items()}
+            if N != 4096:
+                tr["done"] = (torch.rand(N, generator=g) < 0.5).float().cuda()
+            b6.replay_ingest(rk, tr, mode)
+            plain(rp, tr)
+            n_win += 1
+            bad = bridge.tree_mismatches(bridge.tree_to_numpy(rp, bridge.tensor_leaf),
+                                         bridge.tree_to_numpy(rk, bridge.tensor_leaf))
+            if bad:
+                fail(f"B6a {mode}, a {N}-row window into {C}: ring differs "
+                     f"from the plain version at {bad[:5]}")
+        if mode == "slotring" and not int(rk.size) < int(rk.n_seen):
+            fail(f"B6a {mode}: the {C}-row window overwrote no valid row")
+        if mode == "scatter" and int(rk.size) != min(int(rk.n_seen), C):
+            fail(f"B6a {mode}: size {int(rk.size)} for {int(rk.n_seen)} "
+                 f"rows seen in a ring of {C}")
+        del rk, rp
     C, N = 200_000, 4096
     rk = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
     rp = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
@@ -1558,19 +1603,46 @@ def phase_b6a(report):
         fail(f"B6a at the CLI's shape: ring differs at {bad[:5]}")
     ms, seen = device_ms(lambda: b6.replay_ingest(rk, tr), "replay_ingest_kernel")
     call_ms = time_cuda(lambda: b6.replay_ingest(rk, tr), reps=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        b6.replay_ingest(rk, tr)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
     plain_ms = time_cuda(lambda: replay._add_window(rp, tr), reps=5, runs=3)
+    rs = replay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cuda")
+    scatter_ms, _ = device_ms(lambda: b6.replay_ingest(rs, tr, "scatter"),
+                              "replay_ingest_kernel")
+    # the floor: a one-row window (the launch and the kernel's chain of
+    # dependent loads), and a window of 16,384 rows
+    by_n = {}
+    for n_ in (1, 16384):
+        tn = {k: v.cuda() for k, v in seeded_window(g, n_, obs_dim, n_dc, n_g,
+                                                    0.35).items()}
+        tn["done"] = torch.ones(n_, device="cuda")
+        by_n[n_] = device_ms(lambda: b6.replay_ingest(rs, tn),
+                             "replay_ingest_kernel")[0]
+    scatter_plain_ms = time_cuda(lambda: replay._add_scatter(rs, tr), reps=5,
+                                 runs=3)
     row = sum(v[0].numel() * v.element_size() for k, v in tr.items()
               if k != "valid")
     bytes_moved = N * (2 * row + 1) + 2 * N + 12
     bound_ms, bound_by = bound(bytes_moved, 4 * N)
     print(f"B6a replay ingest: {n_win} seeded windows (wrap, all/none valid, "
-          f"overwrite) bitwise equal to the plain version; {N}-row window "
-          f"into C={C}: kernel {ms:.4f} ms device time (launches back to "
+          f"overwrite; 1, 4,096, 8,193 and 200,000 rows in both layouts) "
+          f"bitwise equal to the plain versions; {N}-row window "
+          f"into C={C}: kernel {ms:.5f} ms device time (launches back to "
           f"back; the profiler saw {seen} of 20; {call_ms:.4f} ms per "
-          f"wrapper call), plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}: {bytes_moved} B)")
+          f"wrapper call on the stream, {host_ms:.4f} ms of host time a "
+          f"call), plain {plain_ms:.3f} ms; scatter layout {scatter_ms:.5f} "
+          f"ms (plain {scatter_plain_ms:.3f} ms); bound {bound_ms:.6f} ms "
+          f"({bound_by}: {bytes_moved} B); a 1-row window {by_n[1]:.5f} ms, "
+          f"16,384 rows {by_n[16384]:.5f} ms")
     report["b6a"] = {"windows": n_win, "max_abs_err": 0.0, "ms": ms,
-                     "call_ms": call_ms, "plain_ms": plain_ms,
+                     "call_ms": call_ms, "host_ms": host_ms,
+                     "plain_ms": plain_ms, "scatter_ms": scatter_ms,
+                     "scatter_plain_ms": scatter_plain_ms,
+                     "ms_by_rows": by_n,
                      "profiler_launches_seen": seen,
                      "bound_ms": bound_ms,
                      "bound_by": bound_by, "bytes": bytes_moved, "N": N, "C": C}
@@ -1741,6 +1813,137 @@ EDGE_B5A = ((257, 33, 64), (3, 7, 5))
 EDGE_B5B = ((257, 3, 4, 64, "heads"), (3, 16, 16, 32, "onehot"))
 
 
+#: the outputs ``tail_calls`` returns, in order
+TAIL_OUTPUTS = ("B5a loss", "B5a gradient", "target_q", "r_eff", "actor loss",
+                "H", "dlogp_dc", "dlogp_g", "lam", "integral", "prev_err",
+                "critic_loss", "q_mean", "r_eff_mean", "actor_loss", "entropy",
+                "alpha_loss", "alpha (unused)", "lambda", "violation",
+                "alpha_grad")
+
+
+def tail_state():
+    """(gains, CMDP state, metric buffers) on the card for the tail calls:
+    seeded multipliers and PID memories, gains with every term non-zero."""
+    from distributed_cluster_gpus_tpu_torch.rl import cmdp
+
+    g = torch.Generator().manual_seed(4)
+    st = cmdp.CMDPState(lam=torch.rand(4, generator=g).cuda(),
+                        integral=torch.rand(4, generator=g).cuda(),
+                        prev_err=(torch.rand(4, generator=g) * 50).cuda())
+    gains = cmdp._gains((cmdp.ConstraintSpec("lat", 500.0, kd=0.02),
+                         cmdp.ConstraintSpec("pow", 300.0, kp=0.1),
+                         cmdp.ConstraintSpec("over", 0.0, lambda_max=1.0),
+                         cmdp.ConstraintSpec("en", 1e30)), "cuda")
+    outs = [torch.zeros((), device="cuda") for _ in range(7)] + [
+        torch.zeros(4, device="cuda") for _ in range(2)] + [
+        torch.zeros(1, device="cuda")]
+    return gains, st, outs
+
+
+def tail_calls(fns, q, tgt, taus, take, qa, ldc, lg, x, gains, st, outs):
+    """B5a with the taken action and q_mean, B5b's target with its PID
+    tail and its actor term with the temperature's, through ``fns`` (the
+    wrappers or the plain versions): every output (``TAIL_OUTPUTS``)."""
+    from distributed_cluster_gpus_tpu_torch.rl.sac import PidTail, TempTail
+
+    huber, target, actor = fns
+    loss, qm, r_mean, a_loss, h, al_loss, _, lam, viol, al_grad = outs
+    l_, dq = huber(q, tgt, taus, 1.0, take, loss, qm)
+    tq, r_eff = target(qa, ldc, lg, x["r"], x["costs"], st.lam, gains[0],
+                       x["done"], x["log_alpha"], 0.99,
+                       PidTail(st, gains, r_mean, lam, viol))
+    a_ = actor(qa, ldc, lg, x["log_alpha"], a_loss,
+               TempTail(-3.0, h, al_loss, al_grad))
+    return [l_, dq, tq, r_eff, *a_, st.lam, st.integral, st.prev_err, *outs]
+
+
+def tail_bytes(B, obs, n_dc, n_g, N):
+    """The bytes R1d's ops must move once (phase (k)'s bound): the
+    observations read as float32 and written as bf16, the costs, rewards,
+    entropies and the scalars, the taken quantiles read for their mean,
+    the CMDP state and the metrics."""
+    return B * (2 * obs * (4 + 2) + 4 * 4 + 2 * 4 + 2 * 4
+                + 2 * (n_dc + n_g)) + B * 2 * N * 4 + 64 * 4
+
+
+def tail_timing(b5, b5c, b6b, rsac, replay, optim, q, tgt, taus, t_args, ldc,
+                lg, log_alpha, groups, cfg, rb, key, index):
+    """R1d's device time per update at the main path's shapes (the one-hot
+    critic): for each host kernel, its call with the tail outputs less the
+    same call without, both timed back to back (``device_ms``); the plain
+    tail's time; its bound."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch.rl.sac import PidTail, TempTail
+
+    gains, st, outs = tail_state()
+    loss, qm, r_mean, a_loss, h, al_loss, _, lam, viol, al_grad = outs
+    qa = t_args[0]
+    exp_out = torch.zeros((), device="cuda")
+    with_exp = [dataclasses.replace(gr, exp_out=exp_out)
+                if gr.clamp is not None else gr for gr in groups]
+    pairs = {
+        "b5a q_mean": ((lambda: b5.quantile_huber(q, tgt, taus, 1.0, None,
+                                                  loss, qm)),
+                       (lambda: b5.quantile_huber(q, tgt, taus)),
+                       "quantile_huber_kernel"),
+        "b5b target PID": ((lambda: b5.marginal_target(
+            *t_args[:5], st.lam, gains[0], t_args[7], log_alpha, 0.99,
+            PidTail(st, gains, r_mean, lam, viol))),
+            (lambda: b5.marginal_target(*t_args)), "marginal_target_kernel"),
+        "b5b actor temperature": ((lambda: b5.marginal_actor(
+            qa, ldc, lg, log_alpha, a_loss, TempTail(-3.0, h, al_loss,
+                                                     al_grad))),
+            (lambda: b5.marginal_actor(qa, ldc, lg, log_alpha)),
+            "marginal_actor_kernel"),
+        "b5c exp(log alpha)": ((lambda: b5c.adam_update(with_exp, cfg)),
+                               (lambda: b5c.adam_update(groups, cfg)),
+                               "adam_"),
+        "b6b casts + index": ((lambda: b6b.replay_sample(
+            rb, key, UPDATE_B, index=index, bf16_obs=True, advance=True)),
+            (lambda: b6b.replay_sample(rb, key, UPDATE_B, index=index)),
+            "replay_sample_"),
+    }
+    deltas = {}
+    for name, (with_tail, without, kern) in pairs.items():
+        # in turns: without, with, with, without
+        a1 = device_ms(without, kern)[0]
+        b1_ = device_ms(with_tail, kern)[0]
+        b2_ = device_ms(with_tail, kern)[0]
+        a2 = device_ms(without, kern)[0]
+        deltas[name] = (b1_ + b2_ - a1 - a2) / 2
+    ms = sum(deltas.values())
+    # the plain tail as the parent's update ran it in torch: the casts, the
+    # exp, the q mean, the temperature, the PID step, the index's step
+    s0 = rb.s0[:UPDATE_B]
+    ent = torch.rand(UPDATE_B, device="cuda") * 4
+    r_eff = torch.randn(UPDATE_B, device="cuda")
+    costs = rb.costs[:UPDATE_B]
+    pid = PidTail(st, gains, r_mean, lam, viol)
+
+    def plain_tail():
+        s0.to(torch.bfloat16)
+        s0.to(torch.bfloat16)
+        torch.exp(log_alpha)
+        qm.copy_(rsac.batch_mean(rsac.tree_sum_last(q).reshape(-1)))
+        for o, v in zip((h, al_loss, al_grad),
+                        rsac.temperature(ent, log_alpha, -3.0)):
+            o.copy_(v)
+        rsac.pid_tail(pid, r_eff, costs)
+        index.add_(1)
+
+    plain_ms = time_cuda(plain_tail, reps=20)
+    by = tail_bytes(UPDATE_B, rb.s0.shape[1], ldc.shape[1], lg.shape[1], N_Q)
+    bnd, bnd_by = bound(by, 0)
+    print("R1d, the update's tail inside its host kernels (device us, the "
+          "call with its tail less the call without): "
+          + "; ".join(f"{k} {v * 1e3:.3f}" for k, v in deltas.items()))
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
+            "library_ms": None, "deltas_ms": deltas,
+            "profiler_launches_seen": None}
+
+
 def phase_update_kernels(report):
     """(j) B5a, B5b, B5c and B6b against their plain versions on the card,
     bitwise, at the update's published shapes (B = 256, N = 32, 8 x 8 joint
@@ -1748,7 +1951,9 @@ def phase_update_kernels(report):
     inputs with the edge cases (B5a and B5b's actor term also at the edge
     shapes ``EDGE_B5A``, ``EDGE_B5B``); each timed (device time of launches queued
     back to back) beside its plain version, its bound and, where one
-    PyTorch call computes the same function, that call."""
+    PyTorch call computes the same function, that call.  Then the update's
+    tail (R1d) inside those kernels, bitwise (``tail_calls``), and timed
+    (``tail_timing``)."""
     from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
     from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
     from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
@@ -1809,7 +2014,7 @@ def phase_update_kernels(report):
     lam = torch.tensor([0.4, 0.0, 2.0, 0.0]).cuda()
     tg = torch.tensor([500.0, 1e30, 0.0, 1e30]).cuda()
     done = (torch.arange(B) % 2).float().cuda()
-    alpha = torch.tensor(0.2).cuda()
+    alpha = torch.tensor(-1.6).cuda()  # log alpha: the kernels take exp
     for name, qq in (("onehot", q_oh), ("heads", q_h)):
         args = (qq, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
         for k_, p_ in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
@@ -2016,6 +2221,30 @@ def phase_update_kernels(report):
     out["b6b"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                   "bound_ms": bnd, "bound_by": bnd_by, "bytes": by,
                   "library_ms": lib, "profiler_launches_seen": seen}
+    # ---- R1d, the update's tail inside its host kernels (the heads
+    # critic's layout for B5a's taken action and gradient scatter; the
+    # one-hot critic's, the main path's, for the rest): every output and
+    # the CMDP state bitwise against the plain versions; then its device
+    # time, each host kernel called as the main path calls it less the same
+    # call without its tail outputs
+    take = (torch.randint(0, n_dc, (B,), dtype=torch.int32, generator=g).cuda(),
+            torch.randint(0, n_g, (B,), dtype=torch.int32, generator=g).cuda(),
+            n_g)
+    tail_in = (q_h, tgt[:, :N].contiguous(), taus, take, q_oh, ldc, lg,
+               {"r": r, "costs": costs, "done": done, "log_alpha": alpha})
+    res = []
+    for fns in ((b5.quantile_huber, b5.marginal_target, b5.marginal_actor),
+                (rsac.quantile_huber_loss, rsac.marginal_target,
+                 rsac.marginal_actor)):
+        res.append(tail_calls(fns, *tail_in, *tail_state()))
+    torch.cuda.synchronize()
+    for i, (k_, p_) in enumerate(zip(*res)):
+        if not _bits(k_, p_):
+            fail(f"R1d: the tail's output {TAIL_OUTPUTS[i]} differs from its "
+                 "plain version")
+    out["update_tail"] = tail_timing(b5, b5c, b6b, rsac, replay, optim, q, tgt,
+                                     taus, t_args, ldc, lg, alpha, groups, cfg,
+                                     rings["wrapped_gaps"], key, index)
     names = {"b5a": "B5a quantile-Huber (loss + gradient)",
              "b5b_target": "B5b target marginalization",
              "b5b_actor": "B5b actor marginalization (+ gradient)",
@@ -2023,7 +2252,10 @@ def phase_update_kernels(report):
                     "inside)",
              "b5g": "B5g's kernel, the four shadows' refresh (outside the "
                     "update)",
-             "b6b": "B6b replay sample (C=200,000)"}
+             "b6b": "B6b replay sample (C=200,000)",
+             "update_tail": "R1d the update's tail inside B5a, B5b, B5c, B6b "
+                            "(the calls with their tail outputs less the "
+                            "calls without)"}
     out["b5c"]["kernel_us"] = KERNEL_US.get("adam_")
     out["b6b"]["kernel_us"] = KERNEL_US.get("replay_sample_")
     print(f"B5c kernels (profiled, median us): {out['b5c']['kernel_us']}; "
@@ -2700,6 +2932,19 @@ WIDE_CLI_S = 120.0
 WIDE_CLI_ARGV = ("--rl-batch", "300", "--max-gpus-per-job", "128")
 
 
+#: the plain-torch launches and copies a chunk of updates makes outside the
+#: update (``CHSAC_AF.train_steps``: the chunk key's two words filled, the
+#: update index zeroed, the last metrics copied out), once a chunk, at most;
+#: and those each replayed update may make: none since the update's tail
+#: (R1d) runs inside its kernels
+CHUNK_TORCH_OPS = ("fill_ of the chunk key's word 0", "fill_ of word 1",
+                   "zero_ of the update index",
+                   *(f"clone of the {k} metric" for k in (
+                       "critic_loss", "actor_loss", "alpha_loss", "alpha",
+                       "entropy", "q_mean", "r_eff_mean", "lambda",
+                       "violation")))
+UPDATE_TORCH_OPS = ()
+
 #: the update's kernels by the names the profiler gives them
 UPDATE_KERNELS = ("quantile_huber_kernel", "marginal_target_kernel",
                   "marginal_actor_kernel", "adam_norm_kernel",
@@ -2736,6 +2981,10 @@ def _profile_updates(agent, n, graph=True, ours=UPDATE_KERNELS):
                                              "cublas", "sm90_")):
             kind = "matmul"
         elif "memcpy" in name.lower() or "memset" in name.lower():
+            # counted by name only (not a kernel: outside the kinds)
+            by_name[name[:80]] = by_name.get(name[:80], 0) + 1
+            us_by_name[name[:80]] = us_by_name.get(name[:80], 0.0) + \
+                e.time_range.elapsed_us()
             continue
         else:
             kind = "other torch ops"
@@ -3047,6 +3296,45 @@ def phase_update_whole(report):
     if stale:
         fail(f"whole update: the replayed graph launched {stale}, which this "
              "checkout's update runs inside other kernels")
+    # R1d: the replayed graph runs no plain-torch launch or copy but the
+    # ones named (UPDATE_TORCH_OPS: none).  A chunk of r replays also runs
+    # its own ops outside the graph (CHUNK_TORCH_OPS, once a chunk; a fill
+    # the runtime turns into a memset counts as a copy), so it may show at
+    # most len(CHUNK_TORCH_OPS) + r len(UPDATE_TORCH_OPS): one op more a
+    # replay adds r.  The profiler can miss a chunk's first launches (the
+    # chunk's fills, queued as its tracing starts), so each chunk is held to
+    # that ceiling on its own: differencing two chunks' counts would read a
+    # missed fill as an op a replay
+    def torch_ops(prof):
+        copies = sum(v for k, v in prof[4].items()
+                     if "memcpy" in k.lower() or "memset" in k.lower())
+        return prof[2]["other torch ops"] + copies
+
+    g_prof2 = _profile_updates(g_ag, 2 * n_prof)
+    if g_ag.graph_replays - replays0 != 3 * n_prof:
+        fail("whole update: the second profiled chunk did not run as graph "
+             "replays")
+    chunk_ops = {}
+    for r, p in ((n_prof, g_prof), (2 * n_prof, g_prof2)):
+        chunk_ops[r] = torch_ops(p)
+        cap = len(CHUNK_TORCH_OPS) + r * len(UPDATE_TORCH_OPS)
+        if chunk_ops[r] > cap:
+            others = {k: v for k, v in p[4].items() if not any(
+                u in k for u in UPDATE_KERNELS)}
+            fail(f"whole update: {chunk_ops[r]} plain-torch launches or copies "
+                 f"in a chunk of {r} replays, at most {cap} "
+                 f"({len(CHUNK_TORCH_OPS)} the chunk's own, "
+                 f"{len(UPDATE_TORCH_OPS)} named a replay): {others}")
+    # the most plain-torch ops a replay can have run, were every one of the
+    # chunk's own ops missed
+    per_replay = chunk_ops[2 * n_prof] / (2 * n_prof)
+    print(f"whole update, replayed graph: {chunk_ops[n_prof]} and "
+          f"{chunk_ops[2 * n_prof]} plain-torch launches and copies in chunks "
+          f"of {n_prof} and {2 * n_prof} replays, at most "
+          f"{len(CHUNK_TORCH_OPS)} a chunk outside the graph (the key's fills, "
+          f"the index's zero, the metrics' copies) and "
+          f"{UPDATE_TORCH_OPS or 'none named'} a replay: at most "
+          f"{per_replay:.3f} a replay, so none runs in every replay")
     top = list(prof["graph"]["device_us_per_update_by_name"].items())[:10]
     print("whole update, replayed graph: device us per update by kernel name "
           "(top 10): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
@@ -3069,10 +3357,8 @@ def phase_update_whole(report):
     dw_bytes = sum(2 * (B * K + B * N_ + K * N_) for K, N_ in kn)
     dw_ops = sum(2 * B * K * N_ for K, N_ in kn)
     dw_bound, dw_by = bound2(dw_bytes, 0, dw_ops)
-    obs = cfg.obs_dim
-    small_bytes = B * (2 * obs * (4 + 2) + 4 * 4 + 2 * 4 + 2 * 4
-                       + 2 * (cfg.n_dc + cfg.n_g)) + B * 2 * cfg.n_quantiles * 4 \
-        + 64 * 4
+    small_bytes = tail_bytes(B, cfg.obs_dim, cfg.n_dc, cfg.n_g,
+                             cfg.n_quantiles)
     small_bound, small_by = bound(small_bytes, 0)
     pg_us, pg_ops = prof["graph"]["device_us_per_update"], \
         prof["graph"]["device_ops_per_update"]
@@ -3127,6 +3413,8 @@ def phase_update_whole(report):
                         "small_ops_bound_ms": small_bound,
                         "small_ops_bytes": small_bytes,
                         "profile": prof, "all_actions_ops": mm_ops,
+                        "torch_ops_per_replay_at_most": per_replay,
+                        "torch_ops_per_chunk": chunk_ops,
                         "all_actions_bound_ms": mm_bound_ms,
                         "calls_per_update": launched}
     if not nonzero_bias:
@@ -3964,8 +4252,8 @@ B5_CUTS = {
     "quantile_huber": {
         "no batch tail": ((B5_LAST, B5_LAST[:-9] + " || B > 0) return;"),),
         "tail without its loads": ((
-            "return {__ldcg(partial + k), __ldcg(partial + B + k)};",
-            "return {1.0f, 2.0f};"),),
+            "const float l0 = __ldcg(partial + k), l1 = __ldcg(partial + B + k);",
+            "const float l0 = 1.0f, l1 = 2.0f;"),),
         "no arrival": ((B5_ARRIVE, "false"),),
         "launch alone": ((
             "const int b = blockIdx.x * kRows + (warp >> 1);",
@@ -3976,8 +4264,7 @@ B5_CUTS = {
     "marginal": {
         "no batch tail": ((B5_LAST, B5_LAST[:-9] + " || B > 0) return;"),),
         "tail without its loads": ((
-            "return k < B ? __ldcg(partial + k) : 0.0f;",
-            "return k < B ? 1.0f : 0.0f;"),),
+            "const float v = __ldcg(partial + k);", "const float v = 1.0f;"),),
         "no arrival": ((B5_ARRIVE, "false"),),
         "phase 1 alone": ((
             "if (warp != 0) return;",
@@ -4000,15 +4287,14 @@ B5_ALTERNATIVES = {
     "quantile_huber": {
         "one row a block": (("kRows = 2;", "kRows = 1;"),),
         "eight rows a block": (("kRows = 2;", "kRows = 8;"),),
-        "a streamed batch tail": (("const rd::Pair s = rd::tree_regs(",
-                                   "const rd::Pair s = rd::tree_stream("),),
+        "a streamed batch tail": (("const rd::Quad s = rd::tree_regs(",
+                                   "const rd::Quad s = rd::tree_stream("),),
     },
     "marginal": {
         "4-byte loads": (("const int vec = N == 32 &&",
                           "const int vec = 0 && N == 32 &&"),),
-        "a streamed batch tail": ((
-            "float s = rd::tree_regs(Bp > 32 ? Bp >> 5 : 1, 0.0f,",
-            "float s = rd::tree_stream(Bp > 32 ? Bp >> 5 : 1, 0.0f,"),),
+        "a streamed batch tail": (("const rd::Quad s = rd::tree_regs(",
+                                   "const rd::Quad s = rd::tree_stream("),),
         "phase 2 with the heads' sizes at run time": (B5_FIXED_HEADS,),
         "phase 2 at the largest register size": (
             B5_FIXED_HEADS, ("else if (Ap <= 64 && E <= 64)",
@@ -4366,6 +4652,73 @@ def study_b1_ab(parent, change):
 B2_AB_SHAPES = ((1, 4096), (32, 512))
 
 
+#: B6a's measured alternatives to the kept design, as edits of
+#: csrc/replay_ingest.cu (each still bitwise equal to the plain versions:
+#: ``--b6a-only`` runs phase (h) on it)
+B6A_VARIANTS = {
+    "256 threads, 4 rows a warp ahead": (
+        ("constexpr int kThreads = 512;", "constexpr int kThreads = 256;"),
+        ("constexpr int kRowsAhead = 2;", "constexpr int kRowsAhead = 4;")),
+    "256 threads, 2 rows a warp ahead": (
+        ("constexpr int kThreads = 512;", "constexpr int kThreads = 256;"),),
+    "512 threads, 2 units a lane a pass": (
+        ("constexpr int kPass = 4;", "constexpr int kPass = 2;"),),
+    "512 threads, 64-row tiles": (
+        ("if (groups < 1) groups = 1;", "if (groups < 2) groups = 2;"),),
+}
+
+
+def study_b6a_only(root):
+    """``--b6a-only ROOT``: phase (h) alone on the package at ROOT."""
+    sys.path.insert(0, root)
+    report = {}
+    phase_b6a(report)
+    print(json.dumps({k: v for k, v in report["b6a"].items()
+                      if k.endswith("ms") or k == "ms_by_rows"}))
+
+
+def study_b6a_variants(here):
+    """``--b6a-variants``: phase (h)'s B6a timings of this checkout and of
+    each ``B6A_VARIANTS`` copy (the package copied into
+    ``smoke_out/b6a_variants/<i>/`` with the edit, built there), in turns
+    (this checkout, every variant, every variant again, this checkout),
+    each run its own process (``--b6a-only``); one JSON line at the end."""
+    base = os.path.join(here, "smoke_out", "b6a_variants")
+    shutil.rmtree(base, ignore_errors=True)
+    pkg = "distributed_cluster_gpus_tpu_torch"
+    roots = {"kept": here}
+    for i, (name, edits) in enumerate(B6A_VARIANTS.items()):
+        root = os.path.join(base, str(i))
+        shutil.copytree(os.path.join(here, pkg), os.path.join(root, pkg),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        src = os.path.join(root, pkg, "csrc", "replay_ingest.cu")
+        with open(src) as f:
+            t = f.read()
+        for a, b in edits:
+            if t.count(a) != 1:
+                fail(f"B6a variant {name!r}: anchor {a!r} found {t.count(a)} "
+                     "times")
+            t = t.replace(a, b)
+        with open(src, "w") as f:
+            f.write(t)
+        roots[name] = root
+    order = ["kept", *B6A_VARIANTS, *reversed(list(B6A_VARIANTS)), "kept"]
+    runs = {name: [] for name in roots}
+    for name in order:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--b6a-only", roots[name]], cwd=here,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"B6a variant {name!r} failed:\n{r.stderr[-3000:]}")
+        d = json.loads(r.stdout.strip().splitlines()[-1])
+        runs[name].append(d)
+        print(f"{name}: 4,096 rows {d['ms'] * 1e3:.2f} us, scatter "
+              f"{d['scatter_ms'] * 1e3:.2f} us, 1 row "
+              f"{d['ms_by_rows']['1'] * 1e3:.2f} us, 16,384 rows "
+              f"{d['ms_by_rows']['16384'] * 1e3:.2f} us", flush=True)
+    print(json.dumps({"b6a_variants": runs}))
+
+
 def study_b2_ms():
     """``--b2-ms ROOT`` (the A/B's child process): B2 of the package at ROOT
     at ``B2_AB_SHAPES`` on the paper fleet as the CLI builds it, ms per
@@ -4451,6 +4804,11 @@ def main():
                 *AB_MODES, AB_WIDE_MODE):
             sys.path.insert(0, os.path.abspath(args[1]))
             return study_b1_chunk_ms(args[2])
+        if len(args) == 2 and args[0] == "--b6a-only":
+            return study_b6a_only(os.path.abspath(args[1]))
+        if args == ["--b6a-variants"]:
+            print(card_line())
+            return study_b6a_variants(here)
         if args == ["--b5d-plans"]:
             print(card_line())
             return study_b5d_plans()
@@ -4469,7 +4827,7 @@ def main():
             return study_update_child(*args[2:])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
-             "--b2-ab PARENT_CHECKOUT, "
+             "--b2-ab PARENT_CHECKOUT, --b6a-variants, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
              "PARENT_CHECKOUT [onehot|heads]")
     report = {}
@@ -4561,8 +4919,12 @@ def main():
               rl_launches["rl"], rl["b3"], rl["b3"]["library_ms"]),
         entry("policy_tail", "event_scan.cu", "sim/engine.py:3454",
               rl_launches["rl"], rl["b4"], rl["b4"]["library_ms"]),
-        entry("replay_ingest", "replay_ingest.cu", "rl/replay.py:165",
-              rl_launches["replay_ingest"], rl["b6a"], None),
+        dict(entry("replay_ingest", "replay_ingest.cu", "rl/replay.py:165",
+                   rl_launches["replay_ingest"], rl["b6a"], None),
+             redesigned=True, host_ms=rl["b6a"]["host_ms"],
+             scatter_layout={"replaces": "distributed_cluster_gpus_tpu/rl/"
+                             "replay.py:132", "ms": rl["b6a"]["scatter_ms"],
+                             "plain_ms": rl["b6a"]["scatter_plain_ms"]}),
         dict(entry("quantile_huber", "quantile_huber.cu", "rl/sac.py:178",
                    upd_launches["quantile_huber"], report["b5a"], None),
              redesigned=True),
@@ -4585,6 +4947,18 @@ def main():
         dict(entry("replay_sample", "replay_sample.cu", "rl/replay.py:212",
                    upd_launches["replay_sample"], report["b6b"],
                    report["b6b"]["library_ms"]), redesigned=True),
+        # R1d: the update's last plain-torch region, no launch of its own;
+        # it runs in the batch tails of B5a, B5b (target and actor), B5c
+        # and B6b, once an update (their launches; ms: those calls less the
+        # same calls without their tail outputs, phase (j))
+        dict(entry("update_tail", "marginal.cu", "rl/sac.py:268",
+                   upd_launches["marginal_target"], report["update_tail"],
+                   None),
+             runs_inside=["quantile_huber (csrc/quantile_huber.cu)",
+                          "marginal_target, marginal_actor (csrc/marginal.cu)",
+                          "clip_adam_polyak (csrc/adam.cu)",
+                          "replay_sample (csrc/replay_sample.cu)"],
+             ms_by_host=report["update_tail"]["deltas_ms"]),
         *(dict(entry(name, f"{mod}.cu", replaces, upd_launches[name],
                      report["fused"][name], report["fused"][name]["library_ms"]),
                **({"redesigned": True} if mod in ("dense", "log_softmax")

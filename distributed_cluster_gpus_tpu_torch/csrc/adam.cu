@@ -22,6 +22,8 @@
 //   target = (1 - tau) * target + tau * p     (when a target is given)
 //   p      = min(p, clamp)                    (when clamped)
 //   shadow = bf16(p), target shadow = bf16(target)   (where given)
+//   exp_out = exp(p)                          (where given: log alpha's
+//                                              group writes the alpha metric)
 // which is rl/optim.py::clip_adam_update (optax's order) op for op; built
 // with -fmad=false, the two are bitwise equal on the card.
 //
@@ -70,6 +72,7 @@ struct Group {
   float *p, *mu, *nu, *target;
   const void* g;  // float32, or bf16 where g_bf16
   __nv_bfloat16 *shadow, *tshadow;  // bf16(p), bf16(target), or null
+  float* exp_out;                   // exp(p), or null
   int* count;
   long long n;
   int first_block, K, R, has_target, has_clamp, g_bf16;
@@ -239,6 +242,9 @@ __global__ void __launch_bounds__(kThreads)
     if (G.has_target)
       store4(G.target, e, G.n, make_float4(ts[0], ts[1], ts[2], ts[3]));
     if (G.shadow != nullptr) store_bf16(G.shadow, e, G.n, ps);
+    if (G.exp_out != nullptr)
+      store4(G.exp_out, e, G.n,
+             make_float4(expf(ps[0]), expf(ps[1]), expf(ps[2]), expf(ps[3])));
     if (G.tshadow != nullptr) store_bf16(G.tshadow, e, G.n, ts);
   }
 }
@@ -246,9 +252,9 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  For each of n_groups groups:
-// ptrs[8k..8k+7] = p, g, mu, nu, target (or 0), count (one int32), shadow
-// (or 0), target shadow (or 0) on the device, the float32 buffers 16-byte
-// aligned, the bf16 ones 8-byte aligned; ns[k] its n; KR[2k], KR[2k+1]
+// ptrs[9k..9k+8] = p, g, mu, nu, target (or 0), count (one int32), shadow
+// (or 0), target shadow (or 0), exp_out (or 0) on the device, the float32
+// buffers 16-byte aligned, the bf16 ones 8-byte aligned; ns[k] its n; KR[2k], KR[2k+1]
 // its K blocks and R float4s a thread (rl/optim.py::norm_layout);
 // flags[k] bit 0 a target, bit 1 a clamp, bit 2 a bf16 gradient; clamps[k]
 // the clamp.  `consts`
@@ -266,7 +272,7 @@ extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
   int blocks = 0;
   for (int k = 0; k < n_groups; ++k) {
     Group& G = t.grp[k];
-    const uint64_t* q = ptrs + 8 * k;
+    const uint64_t* q = ptrs + 9 * k;
     G.p = reinterpret_cast<float*>(q[0]);
     G.g = reinterpret_cast<const void*>(q[1]);
     G.mu = reinterpret_cast<float*>(q[2]);
@@ -275,6 +281,7 @@ extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
     G.count = reinterpret_cast<int*>(q[5]);
     G.shadow = reinterpret_cast<__nv_bfloat16*>(q[6]);
     G.tshadow = reinterpret_cast<__nv_bfloat16*>(q[7]);
+    G.exp_out = reinterpret_cast<float*>(q[8]);
     G.n = ns[k];
     G.K = KR[2 * k];
     G.R = KR[2 * k + 1];
@@ -291,7 +298,7 @@ extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
       return -1;
     for (int i = 0; i < 5; ++i)
       if (q[i] % (i == 1 && G.g_bf16 ? 8 : 16) != 0) return -1;
-    if (q[6] % 8 != 0 || q[7] % 8 != 0) return -1;
+    if (q[6] % 8 != 0 || q[7] % 8 != 0 || q[8] % 16 != 0) return -1;
     blocks += G.K;
   }
   t.c1 = consts[0];

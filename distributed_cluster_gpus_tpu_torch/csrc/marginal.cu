@@ -49,6 +49,24 @@
 // and shuffles and resets the count, so the kernel replays in a CUDA
 // graph.  Both take A <= 1,024 joint actions of heads of up to 256 entries
 // (the update's envelope, kernels/envelope.py).
+//
+// Folded in from the update's plain-torch tail (rl/sac.py:268-273, :293,
+// :304-310 and rl/cmdp.py:65, their port's sites rl/sac.py:458-513): both
+// read log alpha and take alpha = exp(log alpha) themselves; the target's
+// rows count their arrivals too, and the last block's warp 0 takes the
+// batch means of r_eff and of each cost's violation max(0, costs[b, k] -
+// target[k]) by the tree over b, then the PID step on the multipliers
+// (integral += err; lam = min(max(kp err + ki integral + kd (err -
+// prev_err), 0), lam_max); prev_err = err, rl/cmdp.py::update_lagrange's
+// order), writing the CMDP state in place and the metrics: every block
+// read lam before it arrived, so the writes follow every read.  The actor
+// term's batch tail also takes the temperature's loss and its gradient,
+// written out by hand (x_b = H[b] + target_entropy):
+//   entropy    = tree_b(H) / B
+//   alpha_loss = tree_b(alpha * x_b) / B
+//   d alpha_loss / d log alpha = tree_b(x_b * (1 / B)) * alpha
+// the reverse of jax.value_and_grad of mean(exp(log alpha) * x) (the
+// mean's cotangent 1 / B, the product's, the sum over b, exp's).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +95,74 @@ struct QView {
   }
 };
 
+// The target's batch tail: the means over the batch and the PID step
+// (counter null: no tail).
+struct PidTail {
+  unsigned* counter;
+  const float *target, *kp, *ki, *kd, *lam_max;
+  float *lam, *integral, *prev_err;       // the CMDP state, in place
+  float *r_eff_mean, *lam_out, *viol_out;  // the metrics
+};
+
+// The tree over b of leaf(b) (0 past B), by one warp: element k at lane k %
+// 32, register k / 32; the sum in lane 0.
+template <class Leaf>
+__device__ __forceinline__ float batch_tree(int B, const Leaf& leaf) {
+  const int lane = threadIdx.x & 31, Bp = rd::pow2_at_least(B);
+  const float sum = rd::tree_regs(Bp > 32 ? Bp >> 5 : 1, 0.0f, [&](int r) {
+    const int k = lane + 32 * r;
+    return k < B ? leaf(k) : 0.0f;
+  });
+  return rd::warp_tree(sum, Bp < 32 ? Bp : 32);
+}
+
+// By the target's last block, its W warps side by side (warp w the trees
+// c = w, w + W, ...): r_eff's batch mean (c = n_costs), each cost's mean
+// violation and its PID step (rl/cmdp.py::update_lagrange, op for op)
+// Constraint c's PID inputs (its target, gains and memories)
+struct PidIn {
+  float tgt, kp, ki, kd, lmax, integral, prev;
+};
+
+__device__ __forceinline__ PidIn pid_in(const PidTail& t, int c) {
+  return {t.target[c], t.kp[c], t.ki[c], t.kd[c], t.lam_max[c],
+          t.integral[c], t.prev_err[c]};
+}
+
+// `mine`: constraint `warp`'s inputs, read by every block at its start (so
+// the last block finds them in registers)
+__device__ __forceinline__ void pid_tail(const PidTail& t, const PidIn& mine,
+                                         const float* r_eff,
+                                         const float* costs, int B,
+                                         int n_costs, int W) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float fB = (float)B;
+  for (int c = warp; c <= n_costs; c += W) {
+    if (c == n_costs) {
+      const float rm = batch_tree(B, [&](int k) { return __ldcg(r_eff + k); });
+      if (lane == 0) *t.r_eff_mean = rm / fB;
+      continue;
+    }
+    const PidIn in = c == warp ? mine : pid_in(t, c);
+    const float s = batch_tree(B, [&](int k) {
+      const float x = costs[k * n_costs + c] - in.tgt;
+      return x != x ? x : fmaxf(x, 0.0f);
+    });
+    if (lane == 0) {
+      const float err = s / fB;
+      const float integral = in.integral + err;
+      const float deriv = err - in.prev;
+      const float x = in.kp * err + in.ki * integral + in.kd * deriv;
+      const float lam = min_nan(x != x ? x : fmaxf(x, 0.0f), in.lmax);
+      t.lam[c] = lam;
+      t.integral[c] = integral;
+      t.prev_err[c] = err;
+      t.lam_out[c] = lam;
+      t.viol_out[c] = err;
+    }
+  }
+}
+
 // The target: a block of W warps per batch row b.  Each block first puts
 // the row's joint policy in shared memory (pi[a] and alpha * logpi[a], one
 // barrier).  Then lane i holds quantile i (+ 32 per further pass over N):
@@ -99,18 +185,20 @@ __global__ void __launch_bounds__(32 * W)
                            const float* __restrict__ lam,
                            const float* __restrict__ targets,
                            const float* __restrict__ done,
-                           const float* __restrict__ alpha_p, float gamma,
-                           float* __restrict__ target_q,
-                           float* __restrict__ r_eff_out, int n_dc, int n_g,
-                           int N, int n_costs) {
+                           const float* __restrict__ log_alpha, float gamma,
+                           float* __restrict__ target_q, float* r_eff_out,
+                           PidTail tail, int B, int n_dc, int n_g, int N,
+                           int n_costs) {
   extern __shared__ float smem[];  // pi [Ap], alpha logpi [Ap], sums [W][32]
   const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int A = n_dc * n_g, Ap = rd::pow2_at_least(A), J = Ap / W;
   float* s_pi = smem;
   float* s_al = smem + Ap;
   float* s_w = smem + 2 * Ap;
+  PidIn mine{};
+  if (tail.counter != nullptr && warp < n_costs) mine = pid_in(tail, warp);
   {
-    const float alpha = *alpha_p;
+    const float alpha = expf(*log_alpha);
     for (int a = threadIdx.x; a < A; a += 32 * W) {
       const float l = logp_dc[b * n_dc + a / n_g] + logp_g[b * n_g + a % n_g];
       s_pi[a] = expf(l);
@@ -157,6 +245,22 @@ __global__ void __launch_bounds__(32 * W)
     if (warp == 0 && in) target_q[b * N + i] = reff + disc * v;
   }
   if (threadIdx.x == 0) r_eff_out[b] = reff;
+  if (tail.counter == nullptr) return;
+  // this row's read of lam (warp 0's r_eff) is done: one arrival a block,
+  // by thread 0 after its write of r_eff (the flag in s_w, free after the
+  // passes); the last block's warps take the batch tail, the count reset
+  // for the next launch
+  int* flag = reinterpret_cast<int*>(s_w);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last_row = atomicAdd(tail.counter, 1u) == gridDim.x - 1;
+    if (last_row) *tail.counter = 0u;
+    *flag = last_row;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  pid_tail(tail, mine, r_eff_out, costs, B, n_costs, W);
 }
 
 // The actor term: a block per batch row, kActorWarps warps.  Phase 1, all
@@ -183,12 +287,19 @@ constexpr int kMaxRE = 64;
 // registers for the trees over A / the padded heads (Ap <= 32 RA, Dp Gp
 // <= 32 RE); DC x G, where not 0, are the heads' sizes fixed at compile
 // time (powers of two), so every loop and guard folds.
+// The actor term's temperature outputs (entropy null: none).
+struct TempTail {
+  float target_entropy;
+  float *entropy, *alpha_loss, *alpha_grad;
+};
+
 template <int RA, int RE, int DC = 0, int G = 0>
 __device__ __forceinline__ void actor_row(
     const float* s_pl, const float* s_pq, const float* s_g, float alpha,
-    float* __restrict__ loss, float* __restrict__ ent,
+    float* __restrict__ loss, float* ent,
     float* __restrict__ d_dc, float* __restrict__ d_g, float* partial,
-    unsigned* counter, int b, int B, int n_dc_run, int n_g_run) {
+    unsigned* counter, const TempTail& temp, int b, int B, int n_dc_run,
+    int n_g_run) {
   const int lane = threadIdx.x & 31;
   const int n_dc = DC ? DC : n_dc_run, n_g = G ? G : n_g_run;
   const int A = n_dc * n_g, Ap = rd::pow2_at_least(A);
@@ -248,14 +359,30 @@ __device__ __forceinline__ void actor_row(
   __syncwarp();  // the other lanes' loads after lane 0 saw the count
   // the last row's warp: the tree over b, element k at lane k % 32,
   // register k / 32
-  const int Bp = rd::pow2_at_least(B);
-  float s = rd::tree_regs(Bp > 32 ? Bp >> 5 : 1, 0.0f, [&](int r) {
-    const int k = lane + 32 * r;
-    return k < B ? __ldcg(partial + k) : 0.0f;
-  });
-  s = rd::warp_tree(s, Bp < 32 ? Bp : 32);
+  // (and, with the temperature, of H, alpha x_b and x_b (1 / B), x_b =
+  // H[b] + target_entropy, beside it: one pass of loads)
+  const int Bp = rd::pow2_at_least(B), p = Bp < 32 ? Bp : 32;
+  const bool tt = temp.entropy != nullptr;
+  const float inv_b = 1.0f / fB, te = temp.target_entropy;
+  const rd::Quad s = rd::tree_regs(
+      Bp > 32 ? Bp >> 5 : 1, rd::Quad{0.0f, 0.0f, 0.0f, 0.0f},
+      [&](int r) -> rd::Quad {
+        const int k = lane + 32 * r;
+        if (k >= B) return {0.0f, 0.0f, 0.0f, 0.0f};
+        const float v = __ldcg(partial + k);
+        if (!tt) return {v, 0.0f, 0.0f, 0.0f};
+        const float h = __ldcg(ent + k), xb = h + te;
+        return {v, h, alpha * xb, xb * inv_b};
+      });
+  const float sv = rd::warp_tree(s.a, p), sh = rd::warp_tree(s.b, p);
+  const float xl = rd::warp_tree(s.c, p), xg = rd::warp_tree(s.d, p);
+  if (tt && lane == 0) {
+    *temp.entropy = sh / fB;
+    *temp.alpha_loss = xl / fB;
+    *temp.alpha_grad = xg * alpha;
+  }
   if (lane == 0) {
-    *loss = -(s / fB);
+    *loss = -(sv / fB);
     *counter = 0u;  // ready for the next launch on this stream
   }
 }
@@ -264,16 +391,16 @@ template <int RA, int RE, int DC = 0, int G = 0>
 __global__ void __launch_bounds__(32 * kActorWarps, 1)
     marginal_actor_kernel(QView qv, const float* __restrict__ logp_dc,
                           const float* __restrict__ logp_g,
-                          const float* __restrict__ alpha_p,
-                          float* __restrict__ loss, float* __restrict__ ent,
+                          const float* __restrict__ log_alpha,
+                          float* __restrict__ loss, float* ent,
                           float* __restrict__ d_dc, float* __restrict__ d_g,
-                          float* partial, unsigned* counter, int B, int n_dc,
-                          int n_g, int N, int vec) {
+                          float* partial, unsigned* counter, TempTail temp,
+                          int B, int n_dc, int n_g, int N, int vec) {
   extern __shared__ float smem[];  // pi log pi, pi qm, g: [Ap] each
   const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int A = n_dc * n_g, Ap = rd::pow2_at_least(A);
   const int Np = rd::pow2_at_least(N);
-  const float fN = (float)N, alpha = *alpha_p;
+  const float fN = (float)N, alpha = expf(*log_alpha);
   float* s_pl = smem;
   float* s_pq = smem + Ap;
   float* s_g = smem + 2 * Ap;
@@ -335,7 +462,7 @@ __global__ void __launch_bounds__(32 * kActorWarps, 1)
   // launch picks the instance: a wide shape's registers do not cost the
   // published one's occupancy)
   actor_row<RA, RE, DC, G>(s_pl, s_pq, s_g, alpha, loss, ent, d_dc, d_g,
-                           partial, counter, b, B, n_dc, n_g);
+                           partial, counter, temp, b, B, n_dc, n_g);
 }
 
 int check_view(int A, int N, int n_dc, int n_g) {
@@ -350,16 +477,17 @@ int check_view(int A, int N, int n_dc, int n_g) {
 template <int W>
 int target_launch(const QView& qv, const void* logp_dc, const void* logp_g,
                   const void* r, const void* costs, const void* lam,
-                  const void* targets, const void* done, const void* alpha,
-                  float gamma, void* target_q, void* r_eff, int B, int n_dc,
-                  int n_g, int N, int n_costs, cudaStream_t stream) {
+                  const void* targets, const void* done, const void* log_alpha,
+                  float gamma, void* target_q, void* r_eff,
+                  const PidTail& tail, int B, int n_dc, int n_g, int N,
+                  int n_costs, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * rd::pow2_at_least(n_dc * n_g) + 32 * W);
   marginal_target_kernel<W><<<B, 32 * W, smem, stream>>>(
       qv, (const float*)logp_dc, (const float*)logp_g, (const float*)r,
       (const float*)costs, (const float*)lam, (const float*)targets,
-      (const float*)done, (const float*)alpha, gamma, (float*)target_q,
-      (float*)r_eff, n_dc, n_g, N, n_costs);
+      (const float*)done, (const float*)log_alpha, gamma, (float*)target_q,
+      (float*)r_eff, tail, B, n_dc, n_g, N, n_costs);
   return (int)cudaGetLastError();
 }
 
@@ -368,29 +496,49 @@ int target_launch(const QView& qv, const void* logp_dc, const void* logp_g,
 // Plain C entry points (bound with ctypes).  q: the [B, 2, A, N] float32
 // quantiles with strides (sb, st, sa) in floats and unit stride over N;
 // logp_dc [B, n_dc], logp_g [B, n_g], r/done [B], costs [B, n_costs],
-// lam/targets [n_costs] float32 contiguous; alpha one float on the device.
-// Return the cudaError_t of the launch, or -1 for shapes they do not take.
-// The target's warps a row, W, come from kernels/sac_update.py::
+// lam/targets [n_costs] float32 contiguous; log alpha one float on the
+// device.  Return the cudaError_t of the launch, or -1 for shapes they do
+// not take.  The target's warps a row, W, come from kernels/sac_update.py::
 // target_warps: a power of two, at most 32 and at most the padded A, with
-// at most 256 actions a warp.
+// at most 256 actions a warp.  Its batch tail, where `counter` is not null
+// (one uint32, 0 at the launch and left 0): pid = the PID's target, kp,
+// ki, kd, lam_max [n_costs] read, its lam, integral, prev_err [n_costs]
+// written in place, and the metrics r_eff_mean (one float), lam_out and
+// viol_out [n_costs].
 extern "C" int marginal_target_launch(
     const void* q, long long sb, long long st, long long sa,
     const void* logp_dc, const void* logp_g, const void* r, const void* costs,
-    const void* lam, const void* targets, const void* done, const void* alpha,
-    float gamma, void* target_q, void* r_eff, int B, int n_dc, int n_g, int N,
-    int n_costs, int W, void* stream) {
+    const void* lam, const void* targets, const void* done,
+    const void* log_alpha, float gamma, void* target_q, void* r_eff, int B,
+    int n_dc, int n_g, int N, int n_costs, int W, void* counter,
+    const uint64_t* pid, void* stream) {
   const int Ap = rd::pow2_at_least(n_dc * n_g);
   if (B < 1 || check_view(n_dc * n_g, N, n_dc, n_g) || n_costs < 1 ||
       n_costs > kMaxCosts || W < 1 || W > 32 || (W & (W - 1)) || W > Ap ||
-      Ap / W > 256)
+      Ap / W > 256 || (counter != nullptr && B > kMaxB))
     return -1;
+  PidTail tail{};
+  if (counter != nullptr) {
+    tail.counter = (unsigned*)counter;
+    tail.target = (const float*)pid[0];
+    tail.kp = (const float*)pid[1];
+    tail.ki = (const float*)pid[2];
+    tail.kd = (const float*)pid[3];
+    tail.lam_max = (const float*)pid[4];
+    tail.lam = (float*)pid[5];
+    tail.integral = (float*)pid[6];
+    tail.prev_err = (float*)pid[7];
+    tail.r_eff_mean = (float*)pid[8];
+    tail.lam_out = (float*)pid[9];
+    tail.viol_out = (float*)pid[10];
+  }
   const QView qv{(const float*)q, sb, st, sa};
   cudaStream_t s = (cudaStream_t)stream;
 #define TARGET(w)                                                             \
   case w:                                                                     \
     return target_launch<w>(qv, logp_dc, logp_g, r, costs, lam, targets, done, \
-                            alpha, gamma, target_q, r_eff, B, n_dc, n_g, N,   \
-                            n_costs, s);
+                            log_alpha, gamma, target_q, r_eff, tail, B, n_dc, \
+                            n_g, N, n_costs, s);
   switch (W) {
     TARGET(1) TARGET(2) TARGET(4) TARGET(8) TARGET(16) TARGET(32)
   }
@@ -399,12 +547,14 @@ extern "C" int marginal_target_launch(
 }
 
 // loss one float, ent [B], d_dc [B, n_dc], d_g [B, n_g]; partial B floats
-// of scratch, counter one uint32, 0 at the launch and left at 0.
+// of scratch, counter one uint32, 0 at the launch and left at 0; the
+// temperature's outputs, one float each (entropy null: none).
 extern "C" int marginal_actor_launch(
     const void* q, long long sb, long long st, long long sa,
-    const void* logp_dc, const void* logp_g, const void* alpha, void* loss,
-    void* ent, void* d_dc, void* d_g, void* partial, void* counter, int B,
-    int n_dc, int n_g, int N, void* stream) {
+    const void* logp_dc, const void* logp_g, const void* log_alpha,
+    void* loss, void* ent, void* d_dc, void* d_g, void* partial,
+    void* counter, float target_entropy, void* entropy, void* alpha_loss,
+    void* alpha_grad, int B, int n_dc, int n_g, int N, void* stream) {
   if (B < 1 || B > kMaxB || check_view(n_dc * n_g, N, n_dc, n_g)) return -1;
   QView qv{(const float*)q, sb, st, sa};
   const int A = n_dc * n_g;
@@ -421,9 +571,14 @@ extern "C" int marginal_actor_launch(
     kernel = marginal_actor_kernel<2, 2>;
   else if (Ap <= 256 && E <= 256)
     kernel = marginal_actor_kernel<8, 8>;
+  if (entropy != nullptr && (alpha_loss == nullptr || alpha_grad == nullptr))
+    return -1;
+  const TempTail temp{target_entropy, (float*)entropy, (float*)alpha_loss,
+                      (float*)alpha_grad};
   kernel<<<B, 32 * kActorWarps, smem, (cudaStream_t)stream>>>(
-      qv, (const float*)logp_dc, (const float*)logp_g, (const float*)alpha,
-      (float*)loss, (float*)ent, (float*)d_dc, (float*)d_g, (float*)partial,
-      (unsigned*)counter, B, n_dc, n_g, N, vec);
+      qv, (const float*)logp_dc, (const float*)logp_g,
+      (const float*)log_alpha, (float*)loss, (float*)ent, (float*)d_dc,
+      (float*)d_g, (float*)partial, (unsigned*)counter, temp, B, n_dc, n_g,
+      N, vec);
   return (int)cudaGetLastError();
 }

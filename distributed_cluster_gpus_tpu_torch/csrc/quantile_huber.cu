@@ -18,8 +18,18 @@
 // (rl/sac.py::quantile_huber_loss) takes with tree_sum_last, in the same
 // order: over j, then i, then b.  Built with -fmad=false, so it is bitwise
 // equal to the plain version on the card.  The gradient is written in the
-// forward (the loss is the last op of the critic's graph); the autograd
-// binding scales it by the incoming gradient.
+// forward (the loss is the last op of the critic's graph).
+//
+// Folded in from the update's plain-torch tail (rl/sac.py:242-243 take the
+// taken action's quantiles; `jnp.mean(q)` is the q_mean metric):
+//   * the taken action: q may hold every joint action, [B, 2, A, N] (the
+//     heads critic's output), read at a = a_dc[b] * n_g + a_g[b]; the
+//     gradient then has q's shape, zero but at the taken action (the
+//     scatter of the taken quantiles' gradient into the heads);
+//   * q_mean = (tree_b(tree_i(q[b, 0, i])) + tree_b(tree_i(q[b, 1, i])))
+//     / (2 B N) of the taken quantiles, beside the loss in the batch tail;
+//   * the loss and q_mean written where the caller says (the update's
+//     metric buffers).
 //
 // Bound on the card: operations, barely.  A call reads q (2BN floats),
 // target (BM) and taus and writes grad (2BN) and the loss: 80 KB at the
@@ -50,14 +60,21 @@ constexpr int kMaxB = 4096;  // batch rows at most
 constexpr int kRows = 2;     // batch rows a block, a warp per twin of each
 constexpr int kThreads = 64 * kRows;
 
+// The taken action of each batch row, where q holds every joint action.
+struct Take {
+  const int* a_dc;  // null: q holds the taken action alone (A = 1)
+  const int* a_g;
+  int A, n_g;
+};
+
 template <int Mp>
 __global__ void __launch_bounds__(kThreads)
     quantile_huber_kernel(const float* __restrict__ q,
                           const float* __restrict__ target,
                           const float* __restrict__ taus, float* loss,
-                          float* __restrict__ grad, float* partial,
-                          unsigned* counter, int B, int N, int M,
-                          float kappa, float half_kappa) {
+                          float* q_mean, float* __restrict__ grad,
+                          float* partial, unsigned* counter, Take take, int B,
+                          int N, int M, float kappa, float half_kappa) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = warp & 1;
   const int b = blockIdx.x * kRows + (warp >> 1);
   const float fM = (float)M, fB = (float)B;
@@ -66,10 +83,19 @@ __global__ void __launch_bounds__(kThreads)
     const float* trow = target + (long long)b * M;
     const float t_lo = lane < M ? trow[lane] : 0.0f;
     const float t_hi = Mp > 32 && lane + 32 < M ? trow[lane + 32] : 0.0f;
-    const long long qrow = ((long long)b * 2 + t) * N;
-    // quantile i's mean over j of w * h (0 for a padding quantile); its
-    // gradient written on the way
-    auto quantile = [&](int i) -> float {
+    const int a = take.a_dc == nullptr ? 0 : take.a_dc[b] * take.n_g + take.a_g[b];
+    const long long row0 = ((long long)b * 2 + t) * take.A * N;
+    const long long qrow = row0 + (long long)a * N;
+    if (take.A > 1) {
+      // the gradient of the actions not taken: zero (a row of A N floats,
+      // the taken action's N written below)
+      for (long long e = lane; e < (long long)take.A * N; e += 32)
+        if (e < (long long)a * N || e >= (long long)(a + 1) * N)
+          grad[row0 + e] = 0.0f;
+    }
+    // quantile i's mean over j of w * h (0 for a padding quantile) and the
+    // quantile itself; its gradient written on the way
+    auto quantile = [&](int i) -> rd::Pair {
       const bool in = i < N;
       const float qv = in ? q[qrow + i] : 0.0f;
       const float tau = in ? taus[i] : 0.0f;
@@ -86,12 +112,16 @@ __global__ void __launch_bounds__(kThreads)
         return {w * h, w * (small ? td : (td > 0.0f ? kappa : -kappa))};
       });
       if (in) grad[qrow + i] = -((s.b / fM) / fB);
-      return in ? s.a / fM : 0.0f;
+      return {in ? s.a / fM : 0.0f, qv};
     };
-    float row = quantile(lane);
-    if (Np > 32) row = row + quantile(lane + 32);  // the level of distance 32
-    row = rd::warp_tree(row, Np < 32 ? Np : 32);
-    if (lane == 0) partial[t * B + b] = row;
+    rd::Pair row = quantile(lane);
+    if (Np > 32) row = rd::add(row, quantile(lane + 32));  // distance 32
+    const float rl = rd::warp_tree(row.a, Np < 32 ? Np : 32);
+    const float rq = rd::warp_tree(row.b, Np < 32 ? Np : 32);
+    if (lane == 0) {
+      partial[t * B + b] = rl;
+      partial[(2 + t) * B + b] = rq;
+    }
   }
   __syncthreads();  // the block's partials, then one arrival for them
   if (warp != 0) return;
@@ -101,35 +131,50 @@ __global__ void __launch_bounds__(kThreads)
   __syncwarp();  // the other lanes' loads after lane 0 saw the count
   // the last block's warp 0: both twins' trees over b, element k at lane
   // k % 32, register k / 32
+  // (and, for q_mean, the taken quantiles' trees over b, per twin, beside
+  // them: one pass of loads)
   const int Bp = rd::pow2_at_least(B);
-  const rd::Pair s = rd::tree_regs(
-      Bp > 32 ? Bp >> 5 : 1, rd::Pair{0.0f, 0.0f}, [&](int r) -> rd::Pair {
+  const bool qm = q_mean != nullptr;
+  const rd::Quad s = rd::tree_regs(
+      Bp > 32 ? Bp >> 5 : 1, rd::Quad{0.0f, 0.0f, 0.0f, 0.0f},
+      [&](int r) -> rd::Quad {
         const int k = lane + 32 * r;
-        if (k >= B) return {0.0f, 0.0f};
-        return {__ldcg(partial + k), __ldcg(partial + B + k)};
+        if (k >= B) return {0.0f, 0.0f, 0.0f, 0.0f};
+        const float l0 = __ldcg(partial + k), l1 = __ldcg(partial + B + k);
+        if (!qm) return {l0, l1, 0.0f, 0.0f};
+        return {l0, l1, __ldcg(partial + 2 * B + k),
+                __ldcg(partial + 3 * B + k)};
       });
   const int p = Bp < 32 ? Bp : 32;
   const float s0 = rd::warp_tree(s.a, p), s1 = rd::warp_tree(s.b, p);
+  const float m0 = rd::warp_tree(s.c, p), m1 = rd::warp_tree(s.d, p);
   if (lane == 0) {
     *loss = s0 / fB + s1 / fB;
+    if (q_mean != nullptr) *q_mean = (m0 + m1) / (float)(2 * B * N);
     *counter = 0u;  // ready for the next launch on this stream
   }
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  q [B, 2, N], target [B, M],
-// taus [N], grad [B, 2, N] float32 contiguous; loss one float; partial 2B
-// floats of scratch; counter one uint32, 0 at the launch and left at 0.
-// Returns the cudaError_t of the launch, or -1 for shapes the kernel does
-// not take.
+// Plain C entry point (bound with ctypes).  q [B, 2, A, N] (A = 1: the
+// taken action's quantiles alone, a_dc and a_g null; else every joint
+// action, a = a_dc[b] * n_g + a_g[b] from int32 [B] a_dc, a_g), target
+// [B, M], taus [N], grad like q, float32 contiguous; loss one float, q_mean
+// one float or null; partial 4B floats of scratch; counter one uint32, 0
+// at the launch and left at 0.  Returns the cudaError_t of the launch, or
+// -1 for shapes the kernel does not take.
 extern "C" int quantile_huber_launch(const void* q, const void* target,
-                                     const void* taus, void* loss, void* grad,
-                                     void* partial, void* counter, int B,
+                                     const void* taus, void* loss,
+                                     void* q_mean, void* grad, void* partial,
+                                     void* counter, const void* a_dc,
+                                     const void* a_g, int A, int n_g, int B,
                                      int N, int M, float kappa,
                                      float half_kappa, void* stream) {
-  if (B < 1 || B > kMaxB || N < 1 || N > kMaxQ || M < 1 || M > kMaxQ)
+  if (B < 1 || B > kMaxB || N < 1 || N > kMaxQ || M < 1 || M > kMaxQ ||
+      A < 1 || (A > 1 && (a_dc == nullptr || a_g == nullptr || n_g < 1)))
     return -1;
+  const Take take{A > 1 ? (const int*)a_dc : nullptr, (const int*)a_g, A, n_g};
   decltype(&quantile_huber_kernel<1>) kernel;
   switch (rd::pow2_at_least(M)) {  // the tree over j unrolled for its width
     case 1: kernel = quantile_huber_kernel<1>; break;
@@ -142,7 +187,7 @@ extern "C" int quantile_huber_launch(const void* q, const void* target,
   }
   kernel<<<(B + kRows - 1) / kRows, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)target, (const float*)taus, (float*)loss,
-      (float*)grad, (float*)partial, (unsigned*)counter, B, N, M, kappa,
-      half_kappa);
+      (float*)q_mean, (float*)grad, (float*)partial, (unsigned*)counter, take,
+      B, N, M, kappa, half_kappa);
   return (int)cudaGetLastError();
 }

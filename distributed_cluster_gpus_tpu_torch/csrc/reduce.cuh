@@ -66,14 +66,20 @@ struct Int {
   static constexpr int value = V;
 };
 
-// Two trees taken side by side.
+// Two (four) trees taken side by side.
 struct Pair {
   float a, b;
+};
+struct Quad {
+  float a, b, c, d;
 };
 
 __device__ __forceinline__ float add(float x, float y) { return x + y; }
 __device__ __forceinline__ Pair add(Pair x, Pair y) {
   return {x.a + y.a, x.b + y.b};
+}
+__device__ __forceinline__ Quad add(Quad x, Quad y) {
+  return {x.a + y.a, x.b + y.b, x.c + y.c, x.d + y.d};
 }
 
 // The halving tree over leaf(Int<j>) for j in [0, P), P a compile-time

@@ -13,6 +13,8 @@
 //            or C - 1 when r_s >= total (JAX's clip of searchsorted's C:
 //            an empty ring, or u_s rounded up to the total)
 //   out[field][s] = ring[field][idx_s]   for the 11 row fields
+//   (s0 and s1 optionally rounded to bf16 as they are copied: the encoder's
+//   input cast, round to nearest even as torch's `.to(bfloat16)`)
 // searchsorted(cdf, u, 'right') counts the cdf entries <= u; with an
 // integer cdf that is the first row whose cdf exceeds floor(u), the row of
 // rank floor(u).  The bits are jax.random.uniform(key, (Bs,))'s: element s
@@ -20,7 +22,10 @@
 // (threefry.cuh), bit for bit.  The sample key is read from device memory:
 // the key itself, or, given an update index i (an int32 on the device), the
 // JAX update chain's split(fold_in(key, i))[0] for the chunk key `key`, so
-// a CUDA graph of an update replays with the next update's key.
+// a CUDA graph of an update replays with the next update's key; the draw
+// launch then advances the index by one (the last of its blocks, after
+// every block has read it), so the update needs no launch of its own for
+// that.
 //
 // Bound on the card: bytes.  A draw reads the ring's validity bytes (C, 200
 // KB at the CLI's ring) and the Bs sampled rows (about 450 B each at the
@@ -43,6 +48,7 @@
 //      the ~110 units of a paper-fleet row, not one per field).
 // No host read.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +70,8 @@ struct Fields {
   uint8_t* dst[kMaxFields];
   int row_bytes[kMaxFields];
   int unit[kMaxFields];            // bytes per copy unit: 16, 8, 4, 2 or 1
+  int cast[kMaxFields];            // float32 rows written as bf16 (a unit
+                                   // of u source bytes stores u / 2)
   int first_unit[kMaxFields + 1];  // the fields' units, numbered in a row
   int n;
 };
@@ -93,6 +101,29 @@ __device__ __forceinline__ void store_unit(uint8_t* p, int e, int unit,
     case 4: reinterpret_cast<uint32_t*>(p)[e] = v.x; break;
     case 2: reinterpret_cast<uint16_t*>(p)[e] = (uint16_t)v.x; break;
     default: p[e] = (uint8_t)v.x;
+  }
+}
+
+// the unit's float32 words (unit / 4 of them) rounded to bf16 and stored
+// as unit / 2 bytes at element e of p
+__device__ __forceinline__ void store_bf16_unit(uint8_t* p, int e, int unit,
+                                                uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint16_t h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(w[i])));
+  switch (unit) {
+    case 16:
+      reinterpret_cast<uint2*>(p)[e] =
+          make_uint2((uint32_t)h[0] | ((uint32_t)h[1] << 16),
+                     (uint32_t)h[2] | ((uint32_t)h[3] << 16));
+      break;
+    case 8:
+      reinterpret_cast<uint32_t*>(p)[e] =
+          (uint32_t)h[0] | ((uint32_t)h[1] << 16);
+      break;
+    default: reinterpret_cast<uint16_t*>(p)[e] = h[0];
   }
 }
 
@@ -178,17 +209,30 @@ __global__ void __launch_bounds__(kDrawThreads)
                               const uint8_t* __restrict__ valid, int C, int T,
                               const int* __restrict__ prefix, int Bs,
                               const long long* __restrict__ key,
-                              const int* __restrict__ index,
+                              int* index, int advance, unsigned* ticket,
                               int* __restrict__ idx_out) {
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * (kDrawThreads / 32) + (threadIdx.x >> 5);
-  if (s >= Bs) return;
   uint32_t k0 = (uint32_t)key[0], k1 = (uint32_t)key[1];
   if (index != nullptr) {  // the update's key, then its sample key
     uint32_t u0, u1;
     tf::child(k0, k1, (uint32_t)*index, u0, u1);
     tf::child(u0, u1, 0u, k0, k1);
   }
+  if (advance) {
+    // every warp of the block has read the index (its key came from it):
+    // one arrival a block; the last to arrive advances it and resets the
+    // ticket, so the launch replays in a CUDA graph
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(ticket, 1u) == gridDim.x - 1) {
+        *index = *index + 1;
+        *ticket = 0u;
+      }
+    }
+  }
+  if (s >= Bs) return;
   uint32_t o0, o1;
   tf::threefry(k0, k1, 0u, (uint32_t)s, o0, o1);
   const int total = prefix[T];
@@ -261,7 +305,11 @@ __global__ void __launch_bounds__(kDrawThreads)
 #pragma unroll
     for (int j = 0; j < kPass; ++j) {
       const int k = fk[j];
-      if (k >= 0)
+      if (k < 0) continue;
+      if (f.cast[k])
+        store_bf16_unit(f.dst[k] + (long long)s * (f.row_bytes[k] / 2), fe[j],
+                        f.unit[k], v[j]);
+      else
         store_unit(f.dst[k] + (long long)s * f.row_bytes[k], fe[j], f.unit[k],
                    v[j]);
     }
@@ -269,7 +317,14 @@ __global__ void __launch_bounds__(kDrawThreads)
 }
 
 // the widest copy unit that divides the row size and both base addresses
-int copy_unit(uint64_t src, uint64_t dst, int rb) {
+// (of a cast field: 16, 8 or 4 source bytes, whose bf16 half divides the
+// destination's base; 0 if none does)
+int copy_unit(uint64_t src, uint64_t dst, int rb, int cast) {
+  if (cast) {
+    for (int u = 16; u >= 4; u >>= 1)
+      if (rb % u == 0 && src % u == 0 && dst % (u / 2) == 0) return u;
+    return 0;
+  }
   for (int u = 16; u > 1; u >>= 1)
     if (rb % u == 0 && src % u == 0 && dst % u == 0) return u;
   return 1;
@@ -283,23 +338,26 @@ extern "C" int replay_sample_tiles(int C) { return (C + kTile - 1) / kTile; }
 
 // Plain C entry point (bound with ctypes): `src`/`dst` hold n_fields device
 // pointers (the ring's rows and the batch's, in rl/replay.py's ROW_FIELDS
-// order), `row_bytes` each field's bytes per row; `valid` the ring's C
-// validity bytes (16-byte aligned); `key` two int64 words on the device (the
-// sample key, or with `index` non-null the chunk key and the int32 update
-// index on the device); idx [Bs] int32; `scratch` 2T + 1 ints; `ticket` one
-// unsigned on the device, 0 at the launch (the count kernel leaves it 0).
+// order), `row_bytes` each field's bytes per row (of the ring's rows),
+// `cast` 1 for a float32 field the batch holds as bf16; `valid` the ring's
+// C validity bytes (16-byte aligned); `key` two int64 words on the device
+// (the sample key, or with `index` non-null the chunk key and the int32
+// update index on the device, which `advance` increments once every draw
+// has read it); idx [Bs] int32; `scratch` 2T + 1 ints; `ticket` two
+// unsigned on the device, 0 at the launch and left 0.
 // Launches the two kernels on `stream`.  Returns the first failing
 // launch's cudaError_t, -1 for a bad field table, -2 for a batch or ring the
 // kernel does not take.
 extern "C" int replay_sample_launch(const uint64_t* src, const uint64_t* dst,
-                                    const int* row_bytes, int n_fields,
-                                    const void* valid, int C, int Bs,
-                                    const void* key, const void* index,
-                                    void* idx, void* scratch, void* ticket,
-                                    void* stream) {
+                                    const int* row_bytes, const int* cast,
+                                    int n_fields, const void* valid, int C,
+                                    int Bs, const void* key, void* index,
+                                    int advance, void* idx, void* scratch,
+                                    void* ticket, void* stream) {
   if (n_fields < 1 || n_fields > kMaxFields) return -1;
   if (C < 1 || C > (1 << 24) || Bs < 1 ||
-      reinterpret_cast<uint64_t>(valid) % 16 != 0)
+      reinterpret_cast<uint64_t>(valid) % 16 != 0 ||
+      (advance && index == nullptr))
     return -2;
   Fields f;
   f.n = n_fields;
@@ -308,7 +366,9 @@ extern "C" int replay_sample_launch(const uint64_t* src, const uint64_t* dst,
     f.src[k] = reinterpret_cast<const uint8_t*>(src[k]);
     f.dst[k] = reinterpret_cast<uint8_t*>(dst[k]);
     f.row_bytes[k] = row_bytes[k];
-    f.unit[k] = copy_unit(src[k], dst[k], row_bytes[k]);
+    f.cast[k] = cast[k] != 0;
+    f.unit[k] = copy_unit(src[k], dst[k], row_bytes[k], f.cast[k]);
+    if (f.unit[k] == 0) return -1;
   }
   f.first_unit[0] = 0;
   for (int k = 0; k < n_fields; ++k)
@@ -325,7 +385,8 @@ extern "C" int replay_sample_launch(const uint64_t* src, const uint64_t* dst,
   const int warps = kDrawThreads / 32;
   replay_sample_draw_kernel<<<(Bs + warps - 1) / warps, kDrawThreads, 0, s>>>(
       f, reinterpret_cast<const uint8_t*>(valid), C, T, prefix, Bs,
-      reinterpret_cast<const long long*>(key),
-      reinterpret_cast<const int*>(index), reinterpret_cast<int*>(idx));
+      reinterpret_cast<const long long*>(key), reinterpret_cast<int*>(index),
+      advance, reinterpret_cast<unsigned*>(ticket) + 1,
+      reinterpret_cast<int*>(idx));
   return (int)cudaGetLastError();
 }

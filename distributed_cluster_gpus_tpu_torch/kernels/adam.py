@@ -7,8 +7,9 @@ Replaces the XLA-fused optimizer step of the JAX package's
 ``:117``, the critic's Polyak target and ``log_alpha``'s cap) for every
 parameter group of an update, each held in one flat buffer; and B5g, the
 update's bf16 casts: a group's gradient may be bf16 (widened as it is
-read) and the step writes the group's bf16 shadow (and the target's).
-``csrc/adam.cu``'s head note gives its design and bound.
+read) and the step writes the group's bf16 shadow (and the target's); and
+log alpha's group writes ``exp`` of the new value (the update's alpha
+metric).  ``csrc/adam.cu``'s head note gives its design and bound.
 
 :func:`adam_update` is the wrapper ``rl.sac.sac_train_step`` calls once
 per update with its four groups.  Groups on the card launch the kernel
@@ -36,8 +37,9 @@ class AdamGroup:
     """One group of an update: the flat parameters ``p``, their gradient
     ``g`` (float32 or bf16), their ``rl.optim.AdamState`` ``st``, and
     optionally the Polyak ``target`` (with ``tau``), the ``clamp`` after
-    the step, and the bf16 ``shadow`` of ``p`` and ``target_shadow`` of
-    the target that the step rewrites."""
+    the step, the bf16 ``shadow`` of ``p`` and ``target_shadow`` of the
+    target that the step rewrites, and ``exp_out``, which receives
+    ``exp(p)`` after the step."""
 
     p: torch.Tensor
     g: torch.Tensor
@@ -47,6 +49,7 @@ class AdamGroup:
     clamp: Optional[float] = None
     shadow: Optional[torch.Tensor] = None
     target_shadow: Optional[torch.Tensor] = None
+    exp_out: Optional[torch.Tensor] = None
 
 
 def _lib():
@@ -72,7 +75,8 @@ def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
         for gr in groups:
             clip_adam_update(gr.p, gr.g, gr.st, cfg, target=gr.target,
                              tau=gr.tau, clamp=gr.clamp, shadow=gr.shadow,
-                             target_shadow=gr.target_shadow)
+                             target_shadow=gr.target_shadow,
+                             exp_out=gr.exp_out)
         return
     if dev.type != "cuda":
         raise ValueError(f"adam_update: unsupported device {dev}")
@@ -83,7 +87,7 @@ def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
         raise ValueError("adam_update: at most 8 groups, one Polyak tau")
     tau = taus.pop() if taus else 0.0
     n_g = len(groups)
-    ptrs = (ctypes.c_uint64 * (8 * n_g))()
+    ptrs = (ctypes.c_uint64 * (9 * n_g))()
     ns = (ctypes.c_longlong * n_g)()
     kr = (ctypes.c_int * (2 * n_g))()
     flags = (ctypes.c_int * n_g)()
@@ -99,22 +103,27 @@ def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
                 ("p", gr.p, f32t), ("g", gr.g, bf16 if g16 else f32t),
                 ("mu", gr.st.mu, f32t), ("nu", gr.st.nu, f32t),
                 ("target", gr.target, f32t), ("shadow", gr.shadow, bf16),
-                ("target_shadow", gr.target_shadow, bf16)):
+                ("target_shadow", gr.target_shadow, bf16),
+                ("exp_out", gr.exp_out, f32t)):
             if t is None:
                 continue
-            build.check(op, name, t, dt, dev, (n,))
+            build.check(op, name, t, dt, dev,
+                        (n,) if name != "exp_out" else tuple(t.shape))
+            if name == "exp_out" and t.numel() != n:
+                raise ValueError(f"{op}: exp_out must hold {n} elements")
             if t.data_ptr() % (8 if dt == bf16 else 16):
                 raise ValueError(f"{op}: {name} must be "
                                  f"{8 if dt == bf16 else 16}-byte aligned")
         build.check(op, "count", gr.st.count, torch.int32, dev, ())
         k, r = norm_layout(n)
-        ptrs[8 * i:8 * i + 8] = [
+        ptrs[9 * i:9 * i + 9] = [
             gr.p.data_ptr(), gr.g.data_ptr(), gr.st.mu.data_ptr(),
             gr.st.nu.data_ptr(),
             0 if gr.target is None else gr.target.data_ptr(),
             gr.st.count.data_ptr(),
             0 if gr.shadow is None else gr.shadow.data_ptr(),
-            0 if gr.target_shadow is None else gr.target_shadow.data_ptr()]
+            0 if gr.target_shadow is None else gr.target_shadow.data_ptr(),
+            0 if gr.exp_out is None else gr.exp_out.data_ptr()]
         ns[i], kr[2 * i], kr[2 * i + 1] = n, k, r
         flags[i] = ((gr.target is not None) | ((gr.clamp is not None) << 1)
                     | (g16 << 2))

@@ -20,6 +20,14 @@ Each kernel writes its gradient in the forward (B5a dL/dq; B5b's actor term
 dL/dlogp of each head, the critic's quantiles held constant, JAX's
 ``stop_gradient``), which ``rl/sac.py::sac_train_step`` carries back by
 hand; ``plain=True`` there calls the plain versions on any device.
+
+The update's last plain-torch region runs inside these kernels' batch tails
+(each writes into the caller's tensors, the update's metric buffers and its
+CMDP state): B5a takes the taken action from every joint action's
+quantiles, scatters its gradient and takes ``q_mean``; B5b's target takes
+``r_eff``'s mean and the PID step (``rl.sac.PidTail``); B5b's actor term
+takes the entropy's mean and the temperature's loss and hand-written
+gradient (``rl.sac.TempTail``); both read log alpha, not alpha.
 """
 
 from __future__ import annotations
@@ -65,32 +73,62 @@ def target_warps(A: int) -> int:
     return min(32, max(1, Ap // 4))
 
 
-def quantile_huber(q, target, taus, kappa: float = 1.0):
-    """B5a: (loss, dloss/dq) of ``q`` [B, 2, N] against ``target`` [B, M] at
-    ``taus`` [N]; the kernel on the card, ``rl.sac.quantile_huber_loss`` on
-    the CPU."""
+def _scalar_out(op, name, t, dev):
+    if t is None:
+        return torch.empty((), dtype=F32, device=dev)
+    build.check(op, name, t, F32, dev)
+    if t.numel() != 1:
+        raise ValueError(f"{op}: {name} must hold one float")
+    return t
+
+
+def quantile_huber(q, target, taus, kappa: float = 1.0, take=None,
+                   loss_out=None, q_mean_out=None):
+    """B5a: (loss, dloss/dq) of ``q`` [B, 2, N] (or, with ``take`` = (a_dc,
+    a_g, n_g), every joint action's [B, 2, A, N], read at the taken action
+    and the gradient of q's shape) against ``target`` [B, M] at ``taus``
+    [N]; the loss into ``loss_out`` and the taken quantiles' mean into
+    ``q_mean_out`` where given; the kernel on the card,
+    ``rl.sac.quantile_huber_loss`` on the CPU."""
     from ..rl.optim import f32
     from ..rl.sac import quantile_huber_loss
 
     if not build.on_card("quantile_huber", q):
-        return quantile_huber_loss(q, target, taus, kappa)
+        return quantile_huber_loss(q, target, taus, kappa, take, loss_out,
+                                   q_mean_out)
+    op = "quantile_huber"
     dev = q.device
-    B, _, N = q.shape
+    B, N = q.shape[0], q.shape[-1]
+    A, n_g, a_dc, a_g = 1, 1, None, None
+    if take is None:
+        build.check(op, "q", q, F32, dev, (B, 2, N))
+    else:
+        a_dc, a_g, n_g = take
+        A = q.shape[2]
+        build.check(op, "q", q, F32, dev, (B, 2, A, N))
+        build.check(op, "a_dc", a_dc, torch.int32, dev, (B,))
+        build.check(op, "a_g", a_g, torch.int32, dev, (B,))
+        if A % n_g:
+            raise ValueError(f"{op}: {A} joint actions for heads of {n_g}")
     M = target.shape[-1]
-    build.check("quantile_huber", "q", q, F32, dev, (B, 2, N))
-    build.check("quantile_huber", "target", target, F32, dev, (B, M))
-    build.check("quantile_huber", "taus", taus, F32, dev, (N,))
-    loss = torch.empty((), dtype=F32, device=dev)
+    build.check(op, "target", target, F32, dev, (B, M))
+    build.check(op, "taus", taus, F32, dev, (N,))
+    loss = _scalar_out(op, "loss_out", loss_out, dev)
+    if q_mean_out is not None:
+        _scalar_out(op, "q_mean_out", q_mean_out, dev)
     grad = torch.empty_like(q)
-    partial = torch.empty(2 * B, dtype=F32, device=dev)
+    partial = torch.empty(4 * B, dtype=F32, device=dev)
     counter = _counter(dev)
     fn = build.bind("quantile_huber", "quantile_huber_launch",
-              [P, P, P, P, P, P, P, I, I, I, FL, FL, P])
+              [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, FL, FL, P])
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), target.data_ptr(), taus.data_ptr(),
-                loss.data_ptr(), grad.data_ptr(), partial.data_ptr(),
-                counter.data_ptr(), B, N, M, f32(kappa), f32(0.5 * kappa),
-                build.stream_of(dev))
+                loss.data_ptr(),
+                None if q_mean_out is None else q_mean_out.data_ptr(),
+                grad.data_ptr(), partial.data_ptr(), counter.data_ptr(),
+                None if a_dc is None else a_dc.data_ptr(),
+                None if a_g is None else a_g.data_ptr(), A, n_g, B, N, M,
+                f32(kappa), f32(0.5 * kappa), build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed("quantile_huber", rc)
     quantile_huber.launches += 1
@@ -109,16 +147,17 @@ def _q_view(op, q_all, dev):
 
 
 def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
-                    alpha, gamma: float):
-    """B5b's critic target: (target_q [B, N], r_eff [B]); the kernel on the
-    card (:func:`target_warps` a row), and ``rl.sac.marginal_target`` on
-    the CPU."""
+                    log_alpha, gamma: float, pid=None):
+    """B5b's critic target: (target_q [B, N], r_eff [B]); with ``pid`` (an
+    ``rl.sac.PidTail``) also r_eff's batch mean and the PID step in place;
+    the kernel on the card (:func:`target_warps` a row), and
+    ``rl.sac.marginal_target`` on the CPU."""
     from ..rl import sac as rsac
     from ..rl.optim import f32
 
     if not build.on_card("marginal_target", q1_all):
         return rsac.marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam,
-                                    targets, done, alpha, gamma)
+                                    targets, done, log_alpha, gamma, pid)
     dev = q1_all.device
     B, _, A, N = q1_all.shape
     n_dc, n_g = logp_dc1.shape[1], logp_g1.shape[1]
@@ -131,20 +170,34 @@ def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
                            ("logp_g", logp_g1, (B, n_g)), ("r", r, (B,)),
                            ("costs", costs, (B, K)), ("lam", lam, (K,)),
                            ("targets", targets, (K,)), ("done", done, (B,)),
-                           ("alpha", alpha, ())):
+                           ("log_alpha", log_alpha, ())):
         build.check(op, name, t, F32, dev, shape)
     tq = torch.empty((B, N), dtype=F32, device=dev)
     r_eff = torch.empty(B, dtype=F32, device=dev)
+    counter, ptrs = None, None
+    if pid is not None:
+        if B > ACTOR_MAX_B:
+            raise ValueError(f"{op}: the PID tail takes at most {ACTOR_MAX_B} "
+                             "rows")
+        gains = pid.gains
+        vecs = (*gains, pid.cmdp.lam, pid.cmdp.integral, pid.cmdp.prev_err)
+        for i, t in enumerate((*vecs, pid.lam, pid.violation)):
+            build.check(op, f"pid[{i}]", t, F32, dev, (K,))
+        build.check(op, "r_eff_mean", pid.r_eff_mean, F32, dev, ())
+        counter = _counter(dev).data_ptr()
+        ptrs = (ctypes.c_uint64 * 11)(
+            *(t.data_ptr() for t in (*vecs, pid.r_eff_mean, pid.lam,
+                                     pid.violation)))
     fn = build.bind("marginal", "marginal_target_launch",
               [P, LL, LL, LL, P, P, P, P, P, P, P, P, FL, P, P, I, I, I, I, I,
-               I, P])
+               I, P, P, P])
     with torch.cuda.device(dev):
         rc = fn(q1_all.data_ptr(), sb, st, sa, logp_dc1.data_ptr(),
                 logp_g1.data_ptr(), r.data_ptr(), costs.data_ptr(),
                 lam.data_ptr(), targets.data_ptr(), done.data_ptr(),
-                alpha.data_ptr(), f32(gamma), tq.data_ptr(), r_eff.data_ptr(),
-                B, n_dc, n_g, N, K, target_warps(A),
-                build.stream_of(dev))
+                log_alpha.data_ptr(), f32(gamma), tq.data_ptr(),
+                r_eff.data_ptr(), B, n_dc, n_g, N, K, target_warps(A), counter,
+                ptrs, build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     marginal_target.launches += 1
@@ -154,13 +207,19 @@ def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
 marginal_target.launches = 0
 
 
-def marginal_actor(q0_all, logp_dc, logp_g, alpha):
-    """B5b's actor term: (loss, H [B], dloss/dlogp_dc, dloss/dlogp_g); the
-    kernel on the card, ``rl.sac.marginal_actor`` on the CPU."""
+def marginal_actor(q0_all, logp_dc, logp_g, log_alpha, loss_out=None,
+                   temp=None):
+    """B5b's actor term: (loss, H [B], dloss/dlogp_dc, dloss/dlogp_g), the
+    loss into ``loss_out`` where given; with ``temp`` (an
+    ``rl.sac.TempTail``) also the entropy's mean and the temperature's loss
+    and gradient; the kernel on the card, ``rl.sac.marginal_actor`` on the
+    CPU."""
     from ..rl import sac as rsac
+    from ..rl.optim import f32
 
     if not build.on_card("marginal_actor", q0_all):
-        return rsac.marginal_actor(q0_all, logp_dc, logp_g, alpha)
+        return rsac.marginal_actor(q0_all, logp_dc, logp_g, log_alpha,
+                                   loss_out, temp)
     dev = q0_all.device
     B, _, A, N = q0_all.shape
     n_dc, n_g = logp_dc.shape[1], logp_g.shape[1]
@@ -169,22 +228,30 @@ def marginal_actor(q0_all, logp_dc, logp_g, alpha):
     sb, st, sa = _q_view("marginal_actor", q0_all, dev)
     op = "marginal_actor"
     for name, t, shape in (("logp_dc", logp_dc, (B, n_dc)),
-                           ("logp_g", logp_g, (B, n_g)), ("alpha", alpha, ())):
+                           ("logp_g", logp_g, (B, n_g)),
+                           ("log_alpha", log_alpha, ())):
         build.check(op, name, t, F32, dev, shape)
-    loss = torch.empty((), dtype=F32, device=dev)
+    loss = _scalar_out(op, "loss_out", loss_out, dev)
+    outs = (None, None, None)
+    if temp is not None:
+        outs = tuple(_scalar_out(op, name, getattr(temp, name), dev)
+                     for name in ("entropy", "alpha_loss", "alpha_grad"))
     ent = torch.empty(B, dtype=F32, device=dev)
     d_dc = torch.empty((B, n_dc), dtype=F32, device=dev)
     d_g = torch.empty((B, n_g), dtype=F32, device=dev)
     partial = torch.empty(B, dtype=F32, device=dev)
     counter = _counter(dev)
     fn = build.bind("marginal", "marginal_actor_launch",
-              [P, LL, LL, LL, P, P, P, P, P, P, P, P, P, I, I, I, I, P])
+              [P, LL, LL, LL, P, P, P, P, P, P, P, P, P, FL, P, P, P, I, I, I,
+               I, P])
     with torch.cuda.device(dev):
         rc = fn(q0_all.data_ptr(), sb, st, sa, logp_dc.data_ptr(),
-                logp_g.data_ptr(), alpha.data_ptr(), loss.data_ptr(),
+                logp_g.data_ptr(), log_alpha.data_ptr(), loss.data_ptr(),
                 ent.data_ptr(), d_dc.data_ptr(), d_g.data_ptr(),
-                partial.data_ptr(), counter.data_ptr(), B, n_dc, n_g, N,
-                build.stream_of(dev))
+                partial.data_ptr(), counter.data_ptr(),
+                f32(temp.target_entropy) if temp is not None else 0.0,
+                *(None if t is None else t.data_ptr() for t in outs),
+                B, n_dc, n_g, N, build.stream_of(dev))
     if rc != 0:
         raise build.launch_failed(op, rc)
     marginal_actor.launches += 1

@@ -117,7 +117,7 @@ class CHSAC_AF:
         if any was replaced since the capture, the graph is stale."""
         st, rb = self.sac, self.replay
         ts = [*st.flat.values(), *st.shadow.values(), *st.stage.values(),
-              *st.metrics.values(), st.log_alpha,
+              *st.metrics.values(), st.log_alpha, st.alpha_grad,
               st.consts.taus, *st.consts.gains, self._ukey, self._uidx,
               st.cmdp.lam, st.cmdp.integral, st.cmdp.prev_err,
               *(p for m in (st.enc, st.actor, st.critic, st.target_critic)
@@ -129,16 +129,15 @@ class CHSAC_AF:
 
     def _update(self, plain: bool) -> None:
         """One update of the chunk: its key is update ``_uidx`` of the
-        chunk key ``_ukey``, both read on the device; then the index
-        advances (on the device)."""
+        chunk key ``_ukey``, both read on the device; the update advances
+        the index (on the device, inside B6b's draw)."""
         sac_train_step(self.cfg, self.sac, self.replay, self._ukey,
                        plain=plain, index=self._uidx)
-        self._uidx.add_(1)
 
     def _capture(self) -> None:
         """Capture one update as a CUDA graph on the agent's side stream,
         after one eager update there (a real update: the chunk's first,
-        which also warms the stream up for autograd and cuBLAS).  Capture
+        which also warms the stream up for cuBLAS).  Capture
         records the update's launches without running them, so the host's
         step count is restored.  A failed capture raises."""
         dev = self.device

@@ -486,7 +486,8 @@ class QuantileCriticHeads(nn.Module):
 
     def _forward(self, latent, w, plain):
         """([B, 2, A, N] float32, the twins' activations): one forward per
-        twin, each writing its half of the output."""
+        twin, each writing its half of the output.  ``latent`` float32, or
+        the encoder's bf16 latent (the update's: no cast launched)."""
         B, A = latent.shape[0], self.n_dc * self.n_g
         q = torch.empty((B, 2, A * self.n_quantiles), dtype=torch.float32,
                         device=latent.device)
@@ -500,27 +501,25 @@ class QuantileCriticHeads(nn.Module):
         return self._forward(latent, w or casts(self), plain)[0]
 
     def train_forward(self, latent, a_dc, a_g, w=None, plain: bool = False):
-        """(taken-action quantiles [B, 2, N] gathered from the heads,
-        saved)."""
-        q, acts = self._forward(latent, w or casts(self), plain)
-        idx = (a_dc.long() * self.n_g + a_g.long())[:, None, None, None]
-        idx = idx.expand(q.shape[0], 2, 1, q.shape[-1])
-        return torch.gather(q, 2, idx)[:, :, 0], (acts, idx)
+        """(every joint action's quantiles [B, 2, A, N], saved): the update
+        takes the taken action's (a = a_dc * n_g + a_g) inside B5a, which
+        also scatters its gradient back into this shape
+        (``rl/sac.py::quantile_huber_loss``'s ``take``)."""
+        return self._forward(latent, w or casts(self), plain)
 
     def train_backward(self, saved, dq, w, dw, plain: bool = False):
-        """Every layer's gradient into ``dw`` from ``dq`` = dL/dq [B, 2, N]
-        (float32), scattered to the taken action's head."""
-        acts, idx = saved
-        B, A, N = dq.shape[0], self.n_dc * self.n_g, self.n_quantiles
-        d = torch.zeros((B, 2, A, N), dtype=torch.float32, device=dq.device)
-        d.scatter_(2, idx, dq[:, :, None])
-        d = d.view(B, 2, A * N)
-        for t, (a, tw, tdw) in enumerate(zip(acts, _twins(w), _twins(dw))):
+        """Every layer's gradient into ``dw`` from ``dq`` = dL/dq [B, 2, A,
+        N] (float32, zero but at the taken action's head: B5a's)."""
+        d = dq.reshape(dq.shape[0], 2, -1)
+        for t, (a, tw, tdw) in enumerate(zip(saved, _twins(w), _twins(dw))):
             mlp_backward(a, tw, tdw, d[:, t], False, plain=plain)
 
     def forward(self, latent, a_dc, a_g):
         """Taken-action quantiles [B, 2, N], gathered from the heads."""
-        return self.train_forward(latent, a_dc, a_g)[0]
+        q = self.all_actions(latent)
+        idx = (a_dc.long() * self.n_g + a_g.long())[:, None, None, None]
+        return torch.gather(q, 2, idx.expand(q.shape[0], 2, 1, q.shape[-1]))[
+            :, :, 0]
 
 
 def dense_layers(module) -> list:

@@ -23,6 +23,7 @@ follows optax's order step for step::
     target = (1 - tau) * target + tau * p          (the critic's group)
     p      = min(p, clamp)                         (log alpha's group)
     shadow = bf16(p); target shadow = bf16(target) (the networks' groups)
+    exp_out = exp(p)                               (log alpha's: the alpha metric)
 
 A bf16 gradient (the networks' hand-written gradients are staged in bf16)
 is widened to float32 first, exactly.  The shadows are B5g's casts of the
@@ -161,12 +162,13 @@ def clip_adam_update(p: torch.Tensor, g: torch.Tensor, st: AdamState,
                      cfg: AdamConfig, target: Optional[torch.Tensor] = None,
                      tau: float = 0.0, clamp: Optional[float] = None,
                      shadow: Optional[torch.Tensor] = None,
-                     target_shadow: Optional[torch.Tensor] = None) -> None:
+                     target_shadow: Optional[torch.Tensor] = None,
+                     exp_out: Optional[torch.Tensor] = None) -> None:
     """One clipped-Adam step of a flat group, in place (``p``, ``st`` and,
     for the critic, the Polyak ``target``), in optax's order (module note);
     ``g`` float32 or bf16 (widened exactly); ``clamp`` caps ``p`` after the
     step (log alpha's ``alpha_max``); ``shadow`` and ``target_shadow``
-    receive bf16(p) and bf16(target) after it."""
+    receive bf16(p) and bf16(target) after it, ``exp_out`` exp(p)."""
     c1, b1, c2, b2, eps, neg_lr, max_norm = cfg.constants()
     g = g.to(torch.float32)
     g_norm = torch.sqrt(sum_squares(g))
@@ -190,6 +192,8 @@ def clip_adam_update(p: torch.Tensor, g: torch.Tensor, st: AdamState,
         pack_plain([(p, shadow)])
     if target_shadow is not None:
         pack_plain([(target, target_shadow)])
+    if exp_out is not None:
+        exp_out.copy_(torch.exp(p).reshape(exp_out.shape))
 
 
 def polyak(target: torch.Tensor, online: torch.Tensor, tau: float):

@@ -7,19 +7,23 @@ transitions are compacted valid-first (a stable partition, insertion order
 kept) and written as ONE contiguous window at the ring pointer, wrapping to
 0 when the window would run off the end; the pointer advances by the valid
 rows only, so the invalid tail written past it is overwritten by the next
-window.  :func:`replay_sample` (``:212``) is B6b's plain version (the
-kernel: ``kernels/replay_sample.py``).  The "scatter" ingest mode is ROADMAP
-queue A item 9's.
+window.  The "scatter" layout (``_add_scatter``, ``:132``) writes each valid
+row at the ring pointer plus its rank, modulo C, the whole chunk (its newest
+C rows) in one pass; ``DCG_REPLAY_INGEST`` selects it, read at import as the
+JAX package reads it (``:39``).  :func:`replay_sample` (``:212``) is B6b's
+plain version (the kernel: ``kernels/replay_sample.py``).
 
-:func:`_add_window` is B6a's plain version; ``replay_add_chunk`` ingests
-each window through ``kernels/replay_ingest.replay_ingest``, which launches
-the B6a kernel for a replay on the card (no host read) and runs
-``_add_window`` for one on the CPU.  The state is updated in place.
+:func:`_add_window` and :func:`_add_scatter` are B6a's plain versions;
+``replay_add_chunk`` ingests each window through
+``kernels/replay_ingest.replay_ingest``, which launches the B6a kernel for a
+replay on the card (no host read) and runs the plain version for one on the
+CPU.  The state is updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict
 
 import torch
@@ -29,6 +33,9 @@ from ..ops import prng
 
 #: max rows per contiguous write window
 INGEST_WINDOW = 4096
+#: the ingest layout, read at import as the JAX package reads it:
+#: "slotring" (the default) or "scatter"
+INGEST_MODE = os.environ.get("DCG_REPLAY_INGEST", "slotring")
 
 #: the row fields of a transition, in the ring's (and the kernel's) order
 ROW_FIELDS = ("s0", "s1", "a_dc", "a_g", "r", "costs", "done", "mask_dc",
@@ -121,6 +128,30 @@ def _add_window(rb: ReplayState, tr: Dict[str, torch.Tensor]) -> None:
     rb.n_seen.fill_(int(rb.n_seen) + n_new)
 
 
+def _add_scatter(rb: ReplayState, tr: Dict[str, torch.Tensor]) -> None:
+    """B6a's plain version in the "scatter" layout: the N <= C rows of
+    ``tr`` into the ring in one pass, in place.  The valid row of rank k
+    (in insertion order) lands at ``(ptr + k) % C``, invalid rows are
+    dropped, ``valid`` is set at every written row, ``ptr`` advances by the
+    valid rows modulo C, ``size`` is ``min(size + n_new, C)`` and ``n_seen``
+    grows by n_new (the JAX package's ``_add_scatter``).  Reads the ring
+    pointer on the host (the kernel reads it on the device)."""
+    C = rb.valid.shape[0]
+    rows = window_rows(tr)
+    valid = rows["valid"].to(torch.bool)
+    rank = torch.cumsum(valid.to(torch.int64), 0) - 1
+    n_new = int(valid.sum())
+    ptr = int(rb.ptr)
+    idx = (ptr + rank[valid]) % C
+    for name in ROW_FIELDS:
+        dst = getattr(rb, name)
+        dst[idx] = rows[name][valid].to(dst.dtype)
+    rb.valid[idx] = True
+    rb.ptr.fill_((ptr + n_new) % C)
+    rb.size.fill_(min(int(rb.size) + n_new, C))
+    rb.n_seen.fill_(int(rb.n_seen) + n_new)
+
+
 def windows(C: int, N: int, max_window: int = INGEST_WINDOW):
     """The (lo, hi) row ranges ``replay_add_chunk`` ingests a chunk of N
     rows in (the newest C rows when N > C)."""
@@ -134,31 +165,42 @@ def replay_add_chunk(rb: ReplayState, tr: Dict[str, torch.Tensor],
                      max_window: int = INGEST_WINDOW) -> ReplayState:
     """Ingest one chunk's RL emission stream (leading axis N; keys
     {valid, s0, s1, a_dc, a_g, r, costs, mask_dc, mask_g, mask_dc0,
-    mask_g0}) in windows of at most ``max_window`` rows (and at most C // 4,
-    so a small ring keeps most of its rows live).  In place; returns ``rb``."""
+    mask_g0}) in the :data:`INGEST_MODE` layout: "slotring" in windows of
+    at most ``max_window`` rows (and at most C // 4, so a small ring keeps
+    most of its rows live), "scatter" in one pass of the newest C rows.  In
+    place; returns ``rb``."""
     from ..kernels.replay_ingest import replay_ingest
 
     C = rb.valid.shape[0]
     N = int(tr["valid"].shape[0])
+    if INGEST_MODE == "scatter":
+        first = N - C if N > C else 0
+        replay_ingest(rb, {k: v[first:] for k, v in tr.items()}, "scatter")
+        return rb
     for lo, hi in windows(C, N, max_window):
         replay_ingest(rb, {k: v[lo:hi] for k, v in tr.items()})
     return rb
 
 
-def replay_sample(rb: ReplayState, key, batch: int) -> Dict[str, torch.Tensor]:
+def replay_sample(rb: ReplayState, key, batch: int,
+                  bf16_obs: bool = False) -> Dict[str, torch.Tensor]:
     """B6b's plain version: ``batch`` rows drawn uniformly over the valid
     rows by the inverse CDF, as the JAX package draws them: ``cdf =
     cumsum(valid)`` (float32, exact below 2^24 rows), ``u = uniform(key,
     (batch,)) * max(cdf[-1], 1)``, ``idx = clip(searchsorted(cdf, u,
     right), 0, C - 1)`` (an empty ring, or ``u`` rounding up to the total,
-    gives row C - 1), then the rows of every ROW_FIELDS leaf at ``idx``.
-    ``key`` is the sample's threefry key (int64 [2]).  Returns the rows by
-    field name and ``idx`` (int32 [batch])."""
+    gives row C - 1), then the rows of every ROW_FIELDS leaf at ``idx``
+    (``s0`` and ``s1`` rounded to bf16 with ``bf16_obs``: the encoder's
+    input cast).  ``key`` is the sample's threefry key (int64 [2]).
+    Returns the rows by field name and ``idx`` (int32 [batch])."""
     C = rb.valid.shape[0]
     cdf = torch.cumsum(rb.valid.to(torch.float32), 0)
     total = torch.clamp_min(cdf[-1], 1.0)
     u = prng.uniform_vec(key.to(cdf.device), batch) * total
     idx = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, C - 1)
     out = {name: getattr(rb, name).index_select(0, idx) for name in ROW_FIELDS}
+    if bf16_obs:
+        for name in ("s0", "s1"):
+            out[name] = out[name].to(torch.bfloat16)
     out["idx"] = idx.to(torch.int32)
     return out

@@ -45,6 +45,18 @@ plain version here or beside it:
   B5g's casts: ``kernels/adam.py`` (plain:
   ``rl/optim.py::clip_adam_update``).
 
+The update's small tail (R1d: the temperature loss and its gradient, the
+PID step, the metrics, the observations' casts, the update index's step,
+and on the heads critic the taken action's gather and its gradient's
+scatter) has no launch of its own: B6b casts the observations and advances
+the index, B5a takes the taken action, scatters its gradient and takes
+``q_mean``, B5b's target takes ``r_eff``'s mean and the PID step
+(:class:`PidTail`), B5b's actor term the entropy's mean and the
+temperature's loss and hand-written gradient (:class:`TempTail`), B5c
+writes ``exp(log alpha)``; each writes its metric in place.  Their plain
+versions take the batch means by :func:`batch_mean` (the kernels' tree
+over b), not ``Tensor.mean``.
+
 The sums of B5a, B5b, B5d and B5f follow the fixed halving tree of
 :func:`tree_sum_last` (quantile-Huber: over M, then over N, then over B;
 marginalization: over A, over N, over B; a bias gradient over the rows; a
@@ -60,7 +72,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -145,8 +157,10 @@ class SACState:
     update's B5c step, and by :func:`refresh_shadows` after any other
     write of ``flat``) and, but the target, a bf16 gradient staging buffer
     (``stage[group]``), both in ``flat``'s layout (:meth:`views`).
-    ``metrics`` holds the last update's metrics (written in place).
-    ``step`` counts the updates taken (the host knows it without a read)."""
+    ``metrics`` holds the last update's metrics (written in place), and
+    ``alpha_grad`` [1] the last update's temperature gradient (B5b's actor
+    term writes it, B5c reads it).  ``step`` counts the updates taken (the
+    host knows it without a read)."""
 
     enc: MLPStateEncoder
     actor: HybridActor
@@ -164,6 +178,7 @@ class SACState:
     consts: UpdateConsts
     metrics: Dict[str, torch.Tensor]
     step: int = 0
+    alpha_grad: Optional[torch.Tensor] = None
 
     def layers(self):
         """The policy's six Dense layers in the kernel's order: encoder 0-2,
@@ -239,7 +254,8 @@ def assemble(cfg: SACConfig, enc, actor, critic, target, log_alpha,
                         cfg.constraints, dev),
                     flat=flat, shadow=shadow, stage=stage,
                     consts=UpdateConsts(cfg, dev),
-                    metrics=_metric_buffers(cfg, dev), step=step)
+                    metrics=_metric_buffers(cfg, dev), step=step,
+                    alpha_grad=torch.zeros(1, dtype=torch.float32, device=dev))
     refresh_shadows(sac)
     return sac
 
@@ -306,9 +322,9 @@ def policy_weights(sac: SACState, device):
 
 
 # ---------------------------------------------------------------------------
-# The loss regions' plain versions (B5a, B5b).  Each returns its value and
-# the gradient its kernel writes; kernels/sac_update.py binds them to
-# autograd.
+# The loss regions' plain versions (B5a, B5b) with their batch tails.  Each
+# returns its value and the gradient its kernel writes
+# (kernels/sac_update.py launches the kernels).
 # ---------------------------------------------------------------------------
 
 def _count(n, device) -> torch.Tensor:
@@ -318,12 +334,26 @@ def _count(n, device) -> torch.Tensor:
     return torch.full((), float(n), dtype=torch.float32, device=device)
 
 
-def quantile_huber_loss(q, target, taus, kappa: float = 1.0):
+def quantile_huber_loss(q, target, taus, kappa: float = 1.0, take=None,
+                        loss_out=None, q_mean_out=None):
     """B5a's plain version, both twins at once: the QR-DQN loss of ``q``
     [B, 2, N] against ``target`` [B, M] at quantile fractions ``taus`` [N],
     ``l_0 + l_1`` with ``l_t = mean_b sum_i mean_j w * huber(td)``, ``td =
     target[b, j] - q[b, t, i]``, ``w = |tau_i - 1{td < 0}|``; and its gradient
-    dL/dq [B, 2, N].  Sums by the tree: over j, then i, then b."""
+    dL/dq [B, 2, N].  Sums by the tree: over j, then i, then b.
+
+    With ``take`` = (a_dc, a_g, n_g), ``q`` holds every joint action [B, 2,
+    A, N]: the loss is the taken action's (a = a_dc * n_g + a_g) and the
+    gradient has q's shape, zero but at the taken action.  ``loss_out``
+    receives the loss (and is returned), ``q_mean_out`` the taken
+    quantiles' mean, ``(tree_b(tree_i(q_0)) + tree_b(tree_i(q_1))) / (2 B
+    N)``."""
+    q_shape = q.shape
+    if take is not None:
+        a_dc, a_g, n_g = take
+        idx = (a_dc.long() * n_g + a_g.long())[:, None, None, None].expand(
+            q.shape[0], 2, 1, q.shape[-1])
+        q = torch.gather(q, 2, idx)[:, :, 0]
     B, M = q.shape[0], target.shape[-1]
     k = f32(kappa)
     td = target[:, None, None, :] - q[:, :, :, None]  # [B, 2, N, M]
@@ -337,6 +367,15 @@ def quantile_huber_loss(q, target, taus, kappa: float = 1.0):
     loss = per_twin[0] + per_twin[1]
     dh = torch.where(small, td, torch.where(td > 0, k, -k))
     grad = -((tree_sum_last(w * dh) / m_t) / b_t)
+    if take is not None:
+        full = torch.zeros(q_shape, dtype=grad.dtype, device=grad.device)
+        grad = full.scatter_(2, idx, grad[:, :, None])
+    if q_mean_out is not None:
+        q_twin = tree_sum_last(tree_sum_last(q).t())
+        q_mean_out.copy_((q_twin[0] + q_twin[1])
+                         / _count(2 * B * q.shape[-1], q.device))
+    if loss_out is not None:
+        loss = loss_out.copy_(loss)
     return loss, grad
 
 
@@ -352,29 +391,95 @@ def _twin_min(q_all):
     return torch.minimum(q_all[:, 0], q_all[:, 1])
 
 
+class PidTail(NamedTuple):
+    """B5b target's batch tail: ``r_eff``'s batch mean into ``r_eff_mean``,
+    and the PID step of ``rl/cmdp.py::update_lagrange`` on the batch's
+    costs, in place on ``cmdp`` with ``gains`` (``cmdp._gains``), the new
+    multipliers also into ``lam`` and the mean violation into
+    ``violation`` (the update's metrics)."""
+
+    cmdp: CMDPState
+    gains: tuple
+    r_eff_mean: torch.Tensor
+    lam: torch.Tensor
+    violation: torch.Tensor
+
+
+class TempTail(NamedTuple):
+    """B5b actor term's batch tail: the entropy's batch mean into
+    ``entropy``, the temperature loss into ``alpha_loss`` and its gradient
+    with respect to log alpha into ``alpha_grad`` (:func:`temperature`)."""
+
+    target_entropy: float
+    entropy: torch.Tensor
+    alpha_loss: torch.Tensor
+    alpha_grad: torch.Tensor
+
+
+def batch_mean(x):
+    """The mean over the last axis as the kernels' batch tails take it:
+    ``tree_sum_last(x) / n``."""
+    return tree_sum_last(x) / _count(x.shape[-1], x.device)
+
+
+def pid_tail(pid: PidTail, r_eff, costs) -> None:
+    """:class:`PidTail`'s plain version: r_eff's batch mean and the PID
+    step, written in place."""
+    pid.r_eff_mean.copy_(batch_mean(r_eff))
+    new, viol = update_lagrange(pid.cmdp, pid.gains, costs)
+    for name in ("lam", "integral", "prev_err"):
+        getattr(pid.cmdp, name).copy_(getattr(new, name))
+    pid.lam.copy_(new.lam)
+    pid.violation.copy_(viol)
+
+
+def temperature(ent, log_alpha, target_entropy: float):
+    """(the entropy's batch mean, the temperature loss ``mean_b(exp(log
+    alpha) * x_b)``, its gradient with respect to log alpha) with ``x_b =
+    ent[b] + target_entropy`` (held constant), the gradient written out as
+    the reverse pass of ``jax.value_and_grad`` takes it: the mean's
+    cotangent 1 / B times x_b, summed over b, times exp's output.  Sums by
+    the tree over b."""
+    e = torch.exp(log_alpha)
+    x = ent + f32(target_entropy)
+    b_t = _count(ent.shape[0], ent.device)
+    inv_b = _count(1, ent.device) / b_t
+    return (tree_sum_last(ent) / b_t, tree_sum_last(e * x) / b_t,
+            tree_sum_last(x * inv_b) * e)
+
+
 def marginal_target(q1_all, logp_dc1, logp_g1, r, costs, lam, targets, done,
-                    alpha, gamma: float):
+                    log_alpha, gamma: float, pid: Optional[PidTail] = None):
     """B5b's target, plain: (target_q [B, N], r_eff [B]) with ``r_eff`` the
     Lagrangian effective reward and ``target_q = r_eff + gamma * (1 - done)
     * v1``, ``v1 = sum_a pi(a) (min_twin q1 - alpha log pi(a))`` (the sum
-    over A by the tree).  ``q1_all`` [B, 2, A, N] (any strides), ``alpha`` a
-    0-d tensor.  A masked action has pi = 0 and adds 0."""
+    over A by the tree), ``alpha = exp(log_alpha)`` (a 0-d tensor).
+    ``q1_all`` [B, 2, A, N] (any strides).  A masked action has pi = 0 and
+    adds 0.  With ``pid``, then :func:`pid_tail`."""
+    alpha = torch.exp(log_alpha)
     r_eff = effective_reward(r, costs, lam, targets)
     logpi = _joint_policy(logp_dc1, logp_g1)
     pi = torch.exp(logpi)
     soft = _twin_min(q1_all) - alpha * logpi[:, :, None]
     v1 = tree_sum_last((pi[:, :, None] * soft).transpose(1, 2))
     tq = r_eff[:, None] + (f32(gamma) * (1 - done))[:, None] * v1
+    if pid is not None:
+        pid_tail(pid, r_eff, costs)
     return tq, r_eff
 
 
-def marginal_actor(q0_all, logp_dc, logp_g, alpha):
+def marginal_actor(q0_all, logp_dc, logp_g, log_alpha, loss_out=None,
+                   temp: Optional[TempTail] = None):
     """B5b's actor term, plain: (loss, H [B], dloss/dlogp_dc, dloss/dlogp_g)
     with ``qm(a) = mean_i min_twin q0`` (held constant), ``H = -sum_a pi log
-    pi``, ``loss = -mean_b(sum_a pi qm + alpha H)``; the gradient of the
-    loss through pi = exp(logp_dc + logp_g) is ``-pi (qm - alpha (log pi +
-    1)) / B`` per joint action, summed over the other head.  Sums by the
-    tree: over N, over A, over B, and per head over the other head."""
+    pi``, ``loss = -mean_b(sum_a pi qm + alpha H)``, ``alpha =
+    exp(log_alpha)``; the gradient of the loss through pi = exp(logp_dc +
+    logp_g) is ``-pi (qm - alpha (log pi + 1)) / B`` per joint action,
+    summed over the other head.  Sums by the tree: over N, over A, over B,
+    and per head over the other head.  ``loss_out`` receives the loss (and
+    is returned); with ``temp``, :func:`temperature`'s three values are
+    written into it."""
+    alpha = torch.exp(log_alpha)
     B, n_dc, n_g = logp_dc.shape[0], logp_dc.shape[1], logp_g.shape[1]
     n_t, b_t = (_count(q0_all.shape[-1], logp_dc.device),
                 _count(B, logp_dc.device))
@@ -387,6 +492,12 @@ def marginal_actor(q0_all, logp_dc, logp_g, alpha):
     g = (pi * (qm - alpha * (logpi + 1))).reshape(B, n_dc, n_g)
     d_dc = -(tree_sum_last(g) / b_t)
     d_g = -(tree_sum_last(g.transpose(1, 2)) / b_t)
+    if temp is not None:
+        for out, v in zip((temp.entropy, temp.alpha_loss, temp.alpha_grad),
+                          temperature(ent, log_alpha, temp.target_entropy)):
+            out.copy_(v)
+    if loss_out is not None:
+        loss = loss_out.copy_(loss)
     return loss, ent, d_dc, d_g
 
 
@@ -427,67 +538,84 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     the sample drawing with ``split(key)[0]`` as the JAX update does; given
     ``index`` (an int32 0-d tensor on the device) ``key`` is the chunk's key
     and the update's is ``split(key, max_steps)[index]``, both read on the
-    device (``CHSAC_AF.train_steps``).  ``plain`` runs the regions' plain
-    versions in place of their kernels.
+    device (``CHSAC_AF.train_steps``), and the update advances ``index`` by
+    one.  ``plain`` runs the regions' plain versions in place of their
+    kernels.
 
     The networks run on the bf16 shadows of their groups (bf16 of the
     parameters the update starts from: B5c's step wrote them, or
     :func:`refresh_shadows`); their gradients are written out by hand into
     the bf16 staging buffers (``rl/nets.py``), which B5c reads, widening
     them, and its step writes the shadows of the new parameters (B5g's
-    casts inside B5c).  Only the temperature's scalar loss goes through
-    autograd.
+    casts inside B5c).  The temperature's gradient is written out by hand
+    too (:func:`temperature`): nothing goes through autograd.  The metrics,
+    the CMDP step and the observations' casts run inside the regions'
+    kernels (module note), so on the card the update launches nothing but
+    its kernels and the dW products.
 
     Capturable as a CUDA graph: every tensor the next update reads (the
     parameters, moments, counts, the target, log alpha, the CMDP state, the
-    metrics) is written in place, and nothing is read back to the host."""
+    metrics, the update index) is written in place, and nothing is read
+    back to the host."""
     from ..kernels import sac_update as b5
     from ..kernels.adam import AdamGroup, adam_update
     from ..kernels.replay_sample import replay_sample
 
     pin_f32_accumulation()
-    c = sac.consts
+    c, m = sac.consts, sac.metrics
     dev = rb.valid.device
     if index is None:
         key = prng.split(key, 2)[0].to(dev)
-    batch = replay_sample(rb, key, cfg.batch, plain=plain, index=index)
+    # the sample, its observations in bf16 (the encoder's input cast); the
+    # update index advances once the sample has read it
+    batch = replay_sample(rb, key, cfg.batch, plain=plain, index=index,
+                          bf16_obs=True, advance=index is not None)
     w, dw = sac.views(sac.shadow), sac.views(sac.stage)
     huber = quantile_huber_loss if plain else b5.quantile_huber
     target_fn = marginal_target if plain else b5.marginal_target
     actor_fn = marginal_actor if plain else b5.marginal_actor
-    alpha = torch.exp(sac.log_alpha)
+    la = sac.log_alpha
+    # the heads critic reads the encoder's bf16 latent (its first layer's
+    # input); the one-hot critic's first layer rounds the float32 latent
+    heads = cfg.critic_arch == "heads"
 
-    # critic target: exact marginalization over the next actions
+    # critic target: exact marginalization over the next actions; the
+    # batch tail takes r_eff's mean and the PID step
     lat1, acts1 = sac.enc.train_forward(batch["s1"], w["enc"], plain)
     logp_dc1, logp_g1, _ = sac.actor.train_forward(
         acts1[-1], batch["mask_dc"], batch["mask_g"], w["actor"], plain)
-    q1_all = sac.target_critic.all_actions(lat1, w["target"], plain)
-    target_q, r_eff = target_fn(q1_all, logp_dc1, logp_g1, batch["r"],
-                                batch["costs"], sac.cmdp.lam, c.gains[0],
-                                batch["done"], alpha, cfg.gamma)
+    q1_all = sac.target_critic.all_actions(acts1[-1] if heads else lat1,
+                                           w["target"], plain)
+    target_q, _ = target_fn(
+        q1_all, logp_dc1, logp_g1, batch["r"], batch["costs"], sac.cmdp.lam,
+        c.gains[0], batch["done"], la, cfg.gamma,
+        PidTail(sac.cmdp, c.gains, m["r_eff_mean"], m["lambda"],
+                m["violation"]))
 
     # critic loss and its gradient (the encoder is not differentiated here)
     lat0, acts0 = sac.enc.train_forward(batch["s0"], w["enc"], plain)
-    q, saved = sac.critic.train_forward(lat0, batch["a_dc"], batch["a_g"],
+    q, saved = sac.critic.train_forward(acts0[-1] if heads else lat0,
+                                        batch["a_dc"], batch["a_g"],
                                         w["critic"], plain)
-    c_loss, dq = huber(q, target_q, c.taus)
-    q_mean = q.mean()
+    take = (batch["a_dc"], batch["a_g"], cfg.n_g) if heads else None
+    _, dq = huber(q, target_q, c.taus, 1.0, take, m["critic_loss"],
+                  m["q_mean"])
     sac.critic.train_backward(saved, dq, w["critic"], dw["critic"], plain)
 
     # actor + encoder loss and its gradient: exact expectation under the
-    # masks at s0, the critic's quantiles held constant
+    # masks at s0, the critic's quantiles held constant; the batch tail
+    # takes the entropy's mean and the temperature loss with its gradient
     logp_dc, logp_g, saved = sac.actor.train_forward(
         acts0[-1], batch["mask_dc0"], batch["mask_g0"], w["actor"], plain)
-    q0_all = sac.critic.all_actions(lat0, w["critic"], plain)
-    a_loss, ent, d_dc, d_g = actor_fn(q0_all, logp_dc, logp_g, alpha)
+    q0_all = sac.critic.all_actions(acts0[-1] if heads else lat0,
+                                    w["critic"], plain)
+    _, _, d_dc, d_g = actor_fn(
+        q0_all, logp_dc, logp_g, la, m["actor_loss"],
+        TempTail(cfg.target_entropy, m["entropy"], m["alpha_loss"],
+                 sac.alpha_grad))
     g_lat = sac.actor.hidden_grad(saved, d_dc, d_g, w["actor"], dw["actor"],
                                   plain)
     sac.enc.train_backward(acts0, g_lat, w["enc"], dw["enc"], plain)
-
-    # temperature loss
-    log_alpha = sac.log_alpha.detach().clone().requires_grad_(True)
-    al_loss = (torch.exp(log_alpha) * (ent + f32(cfg.target_entropy))).mean()
-    (al_grad,) = torch.autograd.grad(al_loss, log_alpha)
 
     with torch.no_grad():
         adam_update([
@@ -499,17 +627,8 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
                       shadow=sac.shadow["actor"]),
             AdamGroup(sac.flat["enc"], sac.stage["enc"], sac.enc_opt,
                       shadow=sac.shadow["enc"]),
-            AdamGroup(sac.flat["alpha"], al_grad.reshape(1), sac.alpha_opt,
-                      clamp=c.clamp)], cfg.adam(), plain=plain)
-        new, viol = update_lagrange(sac.cmdp, c.gains, batch["costs"])
-        for name in ("lam", "integral", "prev_err"):
-            getattr(sac.cmdp, name).copy_(getattr(new, name))
-        m = sac.metrics
-        for k, v in (("critic_loss", c_loss), ("actor_loss", a_loss),
-                     ("alpha_loss", al_loss), ("alpha", torch.exp(sac.log_alpha)),
-                     ("entropy", ent.mean()), ("q_mean", q_mean),
-                     ("r_eff_mean", r_eff.mean()), ("lambda", sac.cmdp.lam),
-                     ("violation", viol)):
-            m[k].copy_(v)
+            AdamGroup(sac.flat["alpha"], sac.alpha_grad, sac.alpha_opt,
+                      clamp=c.clamp, exp_out=m["alpha"])], cfg.adam(),
+            plain=plain)
     sac.step += 1
     return m

@@ -565,6 +565,40 @@ def test_replay_ingest_reads_nothing_back(cuda):
     assert _syncs(lambda: b6.replay_ingest(rb, tr)) == []
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["slotring", "scatter"])
+def test_replay_ingest_every_window_size(cuda, mode):
+    """B6a in both layouts against its plain version: windows of 1, 4,096,
+    8,193 (past the one-block kernel's old limit) and C = 40,000 rows (a
+    count launch first: more than 32,768) into one ring, every leaf bitwise
+    after each; the 4,096-row window without a ``done`` column (the kernel
+    writes the ones), the others with one."""
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    C = 40_000
+    plain = replay._add_window if mode == "slotring" else replay._add_scatter
+    g = torch.Generator().manual_seed(17)
+    rk = replay.replay_init(C, 49, 8, 8, 4, device=cuda)
+    rp = replay.replay_init(C, 49, 8, 8, 4, device=cuda)
+    before = b6.replay_ingest.launches
+    sizes = [1, 4096, 8193, C, 4096]
+    for i, N in enumerate(sizes):
+        tr = _window(g, N, 0.35, cuda, obs_dim=49, n_dc=8, n_g=8)
+        if N != 4096:
+            tr["done"] = (torch.rand(N, generator=g) < 0.5).float().to(cuda)
+        b6.replay_ingest(rk, tr, mode)
+        plain(rp, tr)
+        assert bridge.tree_mismatches(
+            bridge.tree_to_numpy(rp, bridge.tensor_leaf),
+            bridge.tree_to_numpy(rk, bridge.tensor_leaf)) == [], (i, N)
+    assert b6.replay_ingest.launches == before + len(sizes)
+    if mode == "slotring":  # the C-row window overwrote valid rows
+        assert int(rk.size) < int(rk.n_seen)
+    else:  # scatter: size = min(n_seen, C)
+        assert int(rk.size) == min(int(rk.n_seen), C)
+
+
 # ------------------------------------------------ the update: B5a-c, B6b
 
 
@@ -663,7 +697,7 @@ def _marginal_inputs(dev, B=9, n_dc=3, n_g=4, N=8, layout="heads", seed=0):
                 lam=torch.tensor([0.4, 0.0, 2.0, 0.0]),
                 targets=torch.tensor([500.0, 1e30, 0.0, 1e30]),
                 done=(torch.arange(B) % 2).float(),
-                alpha=torch.tensor(0.3))
+                log_alpha=torch.tensor(0.3))
     return q, ldc.to(dev), lg.to(dev), {k: v.to(dev) for k, v in rest.items()}
 
 
@@ -686,12 +720,12 @@ def test_marginal_kernels_match_plain_versions(cuda, layout, B, n_dc, n_g, N):
 
     q, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, N, layout=layout)
     args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
-            x["alpha"], 0.99)
+            x["log_alpha"], 0.99)
     for k, p in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
         assert _bits_equal(k, p)
     before = b5.marginal_actor.launches
-    out_k = b5.marginal_actor(q, ldc, lg, x["alpha"])
-    out_p = rsac.marginal_actor(q, ldc, lg, x["alpha"])
+    out_k = b5.marginal_actor(q, ldc, lg, x["log_alpha"])
+    out_p = rsac.marginal_actor(q, ldc, lg, x["log_alpha"])
     assert b5.marginal_actor.launches == before + 1
     for k, p in zip(out_k, out_p):
         assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
@@ -710,13 +744,13 @@ def test_marginal_kernels_widened_envelope(cuda, B, n_dc, n_g):
 
     q, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, 32, layout="onehot")
     args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
-            x["alpha"], 0.99)
+            x["log_alpha"], 0.99)
     before = b5.marginal_target.launches
     for k, p in zip(b5.marginal_target(*args), rsac.marginal_target(*args)):
         assert _bits_equal(k, p)
     assert b5.marginal_target.launches == before + 1
-    for k, p in zip(b5.marginal_actor(q, ldc, lg, x["alpha"]),
-                    rsac.marginal_actor(q, ldc, lg, x["alpha"])):
+    for k, p in zip(b5.marginal_actor(q, ldc, lg, x["log_alpha"]),
+                    rsac.marginal_actor(q, ldc, lg, x["log_alpha"])):
         assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
 
 
@@ -724,22 +758,26 @@ def test_marginal_kernels_widened_envelope(cuda, B, n_dc, n_g):
 @pytest.mark.parametrize("n_dc,n_g,N", [(8, 8, 32), (3, 65, 32), (8, 128, 33)])
 def test_marginal_target_negative_zeros_and_nan(cuda, n_dc, n_g, N):
     """The redesigned target keeps -0.0 through its trees (a row whose
-    leaves pi (-0.0 - (-0.0) log pi) are all -0.0, with r_eff = -0.0: with
-    A a power of two its targets are -0.0 unless a level adds a +0.0 the
-    plain tree does not; else the plain tree's own padding makes them
-    +0.0) and propagates a NaN quantile (torch.minimum's rule) to that
-    quantile's target only: bitwise the plain version."""
+    leaves pi (q - alpha log pi) are all -0.0, with r_eff = -0.0: with A a
+    power of two its targets are -0.0 unless a level adds a +0.0 the plain
+    tree does not; else the plain tree's own padding makes them +0.0) and
+    propagates a NaN quantile (torch.minimum's rule) to that quantile's
+    target only: bitwise the plain version.  The kernel reads log alpha, so
+    the leaves are made -0.0 by underflow: log alpha -100 (alpha = exp of
+    it, +0.0), log-probabilities of -60 a head (pi = +0.0) and q = -1."""
     from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
     from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
 
     q, ldc, lg, x = _marginal_inputs(cuda, 9, n_dc, n_g, N, layout="heads")
-    q[3] = -0.0
-    x["alpha"].fill_(-0.0)
+    q[3] = -1.0
+    ldc[3] = -60.0
+    lg[3] = -60.0
+    x["log_alpha"].fill_(-100.0)
     x["r"][3] = -0.0
     x["costs"][3] = 0.0
     q[4, 1, n_dc * n_g // 2, 5] = float("nan")
     args = (q, ldc, lg, x["r"], x["costs"], x["lam"], x["targets"], x["done"],
-            x["alpha"], 0.99)
+            x["log_alpha"], 0.99)
     got, want = b5.marginal_target(*args), rsac.marginal_target(*args)
     for k, p in zip(got, want):
         assert _bits_equal_nan(k, p)
@@ -761,8 +799,8 @@ def test_marginal_actor_kernel_long_trees(cuda, B, n_dc, n_g, N):
 
     q, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, N, layout="onehot")
     before = b5.marginal_actor.launches
-    out_k = b5.marginal_actor(q, ldc, lg, x["alpha"])
-    out_p = rsac.marginal_actor(q, ldc, lg, x["alpha"])
+    out_k = b5.marginal_actor(q, ldc, lg, x["log_alpha"])
+    out_p = rsac.marginal_actor(q, ldc, lg, x["log_alpha"])
     assert b5.marginal_actor.launches == before + 1
     for k, p in zip(out_k, out_p):
         assert _bits_equal(k, p) and bool(torch.isfinite(k).all())
@@ -779,7 +817,7 @@ def test_loss_kernels_replay_in_a_cuda_graph(cuda):
 
     q, tgt, taus = _huber_inputs(cuda, 256, 32, 32, 5)
     qa, ldc, lg, x = _marginal_inputs(cuda, 256, 8, 8, 32, layout="onehot")
-    alpha = x["alpha"]
+    alpha = x["log_alpha"]  # the kernels read log alpha
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -811,6 +849,158 @@ def test_loss_kernels_replay_in_a_cuda_graph(cuda):
             assert _bits_equal(k, p), i
     assert (b5.quantile_huber.launches, b5.marginal_actor.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _tail_outputs(dev, K=4):
+    """Fresh metric buffers and a seeded CMDP state for the tails."""
+    from distributed_cluster_gpus_tpu_torch.rl.cmdp import CMDPState
+
+    g = torch.Generator().manual_seed(K)
+    st = CMDPState(lam=torch.rand(K, generator=g).to(dev),
+                   integral=torch.rand(K, generator=g).to(dev),
+                   prev_err=(torch.rand(K, generator=g) * 50).to(dev))
+    return st, [torch.zeros((), device=dev) for _ in range(7)] + [
+        torch.zeros(K, device=dev) for _ in range(2)] + [
+        torch.zeros(1, device=dev)]
+
+
+def _gains_of(dev):
+    from distributed_cluster_gpus_tpu_torch.rl import cmdp
+
+    return cmdp._gains((cmdp.ConstraintSpec("lat", 500.0, kd=0.02),
+                        cmdp.ConstraintSpec("pow", 300.0, kp=0.1),
+                        cmdp.ConstraintSpec("over", 0.0, lambda_max=1.0),
+                        cmdp.ConstraintSpec("en", 1e30)), dev)
+
+
+def _run_tails(fns, q, tgt, taus, take, qa, ldc, lg, x, gains, st, outs):
+    """B5a with the taken action and q_mean, B5b's target with its PID tail,
+    B5b's actor term with its temperature tail, through ``fns`` (the
+    wrappers or the plain versions); returns every output."""
+    from distributed_cluster_gpus_tpu_torch.rl.sac import PidTail, TempTail
+
+    huber, target, actor = fns
+    loss, qm, r_mean, a_loss, h, al_loss, _, lam, viol, al_grad = outs
+    l_, dq = huber(q, tgt, taus, 1.0, take, loss, qm)
+    tq, r_eff = target(qa, ldc, lg, x["r"], x["costs"], st.lam, gains[0],
+                       x["done"], x["log_alpha"], 0.99,
+                       PidTail(st, gains, r_mean, lam, viol))
+    a_ = actor(qa, ldc, lg, x["log_alpha"], a_loss,
+               TempTail(-3.0, h, al_loss, al_grad))
+    return [l_, dq, tq, r_eff, *a_, st.lam, st.integral, st.prev_err, *outs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_dc,n_g,N", [(256, 8, 8, 32), (37, 3, 65, 32),
+                                          (1, 1, 1, 8), (4096, 8, 8, 32)])
+def test_update_tail_kernels_match_plain_versions(cuda, B, n_dc, n_g, N):
+    """The update's tail folded into B5a (the heads critic's taken action,
+    its gradient's scatter, q_mean), B5b's target (r_eff's mean, the PID
+    step in place) and actor term (the entropy's mean, the temperature's
+    loss and gradient): every output and the CMDP state bitwise against the
+    plain versions."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    A = n_dc * n_g
+    qa, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, N, layout="heads")
+    _, tgt, taus = _huber_inputs(cuda, B, N, N, B + A)
+    g = torch.Generator().manual_seed(B)
+    take = (torch.randint(0, n_dc, (B,), dtype=torch.int32, generator=g).to(cuda),
+            torch.randint(0, n_g, (B,), dtype=torch.int32, generator=g).to(cuda),
+            n_g)
+    gains = _gains_of(cuda)
+    res = []
+    for fns in ((b5.quantile_huber, b5.marginal_target, b5.marginal_actor),
+                (rsac.quantile_huber_loss, rsac.marginal_target,
+                 rsac.marginal_actor)):
+        st, outs = _tail_outputs(cuda)
+        res.append(_run_tails(fns, qa, tgt, taus, take, qa, ldc, lg, x, gains,
+                              st, outs))
+    torch.cuda.synchronize()
+    for i, (k, p) in enumerate(zip(*res)):
+        assert _bits_equal(k, p), i
+    assert bool((res[0][1] != 0).any()) and bool(torch.isfinite(res[0][-1]).all())
+
+
+@pytest.mark.gpu
+def test_update_tail_kernels_replay_in_a_cuda_graph(cuda):
+    """The three tail kernels captured in one CUDA graph and replayed three
+    times on new inputs: the PID state advances in place each replay, every
+    output bitwise equal to the plain versions run as often."""
+    from distributed_cluster_gpus_tpu_torch.kernels import sac_update as b5
+    from distributed_cluster_gpus_tpu_torch.rl import sac as rsac
+
+    B, n_dc, n_g, N = 256, 8, 8, 32
+    qa, ldc, lg, x = _marginal_inputs(cuda, B, n_dc, n_g, N, layout="heads")
+    _, tgt, taus = _huber_inputs(cuda, B, N, N, 3)
+    take = (torch.arange(B, dtype=torch.int32, device=cuda) % n_dc,
+            torch.arange(B, dtype=torch.int32, device=cuda) % n_g, n_g)
+    gains = _gains_of(cuda)
+    st_k, outs_k = _tail_outputs(cuda)
+    st_p, outs_p = _tail_outputs(cuda)
+    kfns = (b5.quantile_huber, b5.marginal_target, b5.marginal_actor)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (and load) off the capture
+        _run_tails(kfns, qa, tgt, taus, take, qa, ldc, lg, x, gains,
+                   *_tail_outputs(cuda))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = _run_tails(kfns, qa, tgt, taus, take, qa, ldc, lg, x, gains,
+                         st_k, outs_k)
+    for i in range(3):
+        na, nd, ng, nx = _marginal_inputs(cuda, B, n_dc, n_g, N,
+                                          layout="heads", seed=i + 1)
+        for dst, src in ((qa, na), (ldc, nd), (lg, ng), (x["costs"], nx["costs"]),
+                         (x["r"], nx["r"])):
+            dst.copy_(src)
+        x["log_alpha"].fill_(-0.5 * (i + 1))
+        graph.replay()
+        want = _run_tails((rsac.quantile_huber_loss, rsac.marginal_target,
+                           rsac.marginal_actor), qa, tgt, taus, take, qa, ldc,
+                          lg, x, gains, st_p, outs_p)
+        torch.cuda.synchronize()
+        for j, (k, p) in enumerate(zip(got, want)):
+            assert _bits_equal(k, p), (i, j)
+
+
+@pytest.mark.gpu
+def test_adam_alpha_exp_and_sample_casts(cuda):
+    """B5c writes exp(log alpha) after its step (the alpha metric), and
+    B6b's draw rounds the observations to bf16 and advances the update
+    index once: each bitwise against its plain version."""
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import (AdamGroup,
+                                                                 adam_update)
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import optim, replay
+
+    res = []
+    for plain in (False, True):
+        p = torch.tensor([0.3], device=cuda)
+        st = optim.adam_init(p)
+        e = torch.zeros((), device=cuda)
+        adam_update([AdamGroup(p, torch.tensor([-0.7], device=cuda), st,
+                               clamp=0.31, exp_out=e)], optim.AdamConfig(),
+                    plain=plain)
+        res.append((p, e))
+    assert _bits_equal(res[0][1], res[1][1]) and _bits_equal(res[0][0], res[1][0])
+    assert _bits_equal(res[0][1], torch.exp(res[0][0]).reshape(()))
+    rb = replay.replay_init(5000, 49, 8, 8, 4, device=cuda)
+    replay.replay_add_chunk(rb, _window(torch.Generator().manual_seed(2), 4096,
+                                        0.5, cuda, obs_dim=49, n_dc=8, n_g=8))
+    key = prng.key(9, "cuda")
+    outs = []
+    for plain in (False, True):
+        index = torch.tensor(7, dtype=torch.int32, device=cuda)
+        outs.append(b6b.replay_sample(rb, key, 256, plain=plain, index=index,
+                                      bf16_obs=True, advance=True))
+        assert int(index) == 8
+    for f in (*replay.ROW_FIELDS, "idx"):
+        assert _bits_equal(outs[0][f], outs[1][f]), f
+    assert outs[0]["s0"].dtype == torch.bfloat16
 
 
 @pytest.mark.gpu
@@ -1186,9 +1376,9 @@ def test_update_wrappers_reject_bad_operands(cuda):
         b5.quantile_huber(q.double(), tgt, taus)
     q_all, ldc, lg, x = _marginal_inputs(cuda)
     with pytest.raises(ValueError):  # no unit stride over the quantiles
-        b5.marginal_actor(q_all.transpose(2, 3), ldc, lg, x["alpha"])
+        b5.marginal_actor(q_all.transpose(2, 3), ldc, lg, x["log_alpha"])
     with pytest.raises(ValueError):  # a CPU operand beside CUDA ones
-        b5.marginal_actor(q_all, ldc.cpu(), lg, x["alpha"])
+        b5.marginal_actor(q_all, ldc.cpu(), lg, x["log_alpha"])
     p = torch.randn(64, device=cuda)
     with pytest.raises(ValueError):
         adam_update([AdamGroup(p, torch.randn(128, device=cuda)[::2],

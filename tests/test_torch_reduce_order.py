@@ -365,9 +365,9 @@ def test_b5b_actor_warp_mapping_matches_plain_version(B, n_dc, n_g, N, vec):
         rng.standard_normal((B, n_dc)).astype(np.float32)), m_dc)
     lg = masked_log_softmax(torch.from_numpy(
         rng.standard_normal((B, n_g)).astype(np.float32)), m_g)
-    alpha = torch.tensor(0.3)
-    got = b5b_actor_warps(q, ldc, lg, alpha, vec)
-    want = rsac.marginal_actor(q, ldc, lg, alpha)
+    log_alpha = torch.tensor(0.3)  # the plain version reads log alpha
+    got = b5b_actor_warps(q, ldc, lg, torch.exp(log_alpha), vec)
+    want = rsac.marginal_actor(q, ldc, lg, log_alpha)
     for name, a, b in zip(("loss", "H", "dlogp_dc", "dlogp_g"), got, want):
         assert _same_bits(a, b), name
 
@@ -454,9 +454,9 @@ def test_b5b_target_warp_mapping_matches_plain_version(B, n_dc, n_g, N):
     lam = torch.tensor([0.4, 0.0, 2.0, 0.0])
     tg = torch.tensor([500.0, 1e30, 0.0, 1e30])
     done = (torch.arange(B) % 2).float()
-    alpha = torch.tensor(0.3)
-    args = (q, ldc, lg, r, costs, lam, tg, done, alpha, 0.99)
-    want = rsac.marginal_target(*args)
+    log_alpha = torch.tensor(0.3)  # the plain version reads log alpha
+    args = (q, ldc, lg, r, costs, lam, tg, done, torch.exp(log_alpha), 0.99)
+    want = rsac.marginal_target(*args[:8], log_alpha, 0.99)
     Ap = _pow2(A)
     for W in sorted({target_warps(A), *(w for w in (1, 2, 4, 8, 16, 32)
                                         if w <= Ap and Ap // w <= 256)}):

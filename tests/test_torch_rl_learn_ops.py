@@ -318,14 +318,16 @@ def test_marginal_target_value(all_masked):
     lam = np.asarray([0.4, 0.0, 2.0, 0.0], np.float32)
     tgt = np.asarray([500.0, 1e30, 0.0, 1e30], np.float32)
     done = (np.arange(B) % 2).astype(np.float32)
-    alpha = np.float32(0.3)
+    # the port's region reads log alpha, as the JAX update derives alpha
+    log_alpha = np.float32(np.log(0.3))
+    alpha = jnp.exp(log_alpha)
     r_eff = jcmdp.effective_reward(r, costs, lam, tgt)
     logpi = _joint(ldc, lg)
     soft = jnp.min(q, axis=1) - alpha * logpi[:, :, None]
     v1 = jnp.sum(jnp.exp(logpi)[:, :, None] * soft, axis=1)
     want = r_eff[:, None] + 0.99 * (1.0 - done[:, None]) * v1
     tq, re = tsac.marginal_target(*(torch.tensor(x) for x in (
-        q, ldc, lg, r, costs, lam, tgt, done, alpha)), 0.99)
+        q, ldc, lg, r, costs, lam, tgt, done, log_alpha)), 0.99)
     assert np.isfinite(tq.numpy()).all()
     _rel_close(want, tq.numpy())
     _rel_close(r_eff, re.numpy())
@@ -339,7 +341,8 @@ def test_marginal_actor_value_and_grad(all_masked):
     B, A = 32, N_DC * N_G
     q = rng.normal(size=(B, 2, A, N_Q)).astype(np.float32)
     ldc, lg = _policy_inputs(rng, B, all_masked)
-    alpha = np.float32(0.25)
+    log_alpha = np.float32(np.log(0.25))
+    alpha = jnp.exp(log_alpha)
 
     def loss_j(ldc_, lg_):
         logpi = _joint(ldc_, lg_)
@@ -351,7 +354,7 @@ def test_marginal_actor_value_and_grad(all_masked):
     (v_j, ent_j), (gdc_j, gg_j) = jax.value_and_grad(
         loss_j, argnums=(0, 1), has_aux=True)(jnp.asarray(ldc), jnp.asarray(lg))
     v_t, ent_t, gdc_t, gg_t = tsac.marginal_actor(*(torch.tensor(x) for x in (
-        q, ldc, lg, alpha)))
+        q, ldc, lg, log_alpha)))
     for x in (v_t, ent_t, gdc_t, gg_t):
         assert np.isfinite(x.numpy()).all()
     _rel_close(v_j, v_t.numpy())

@@ -209,25 +209,32 @@ def _window(rng, N, obs_dim, n_dc, n_g, p_valid):
 
 
 @pytest.mark.parametrize("case", ["wrap", "all_valid", "none_valid",
-                                  "overwrite", "chunk_gt_capacity"])
+                                  "overwrite", "chunk_gt_capacity",
+                                  "window_gt_8192"])
 def test_add_window_bitwise(case):
     C, obs_dim, n_dc, n_g = 40, 13, 2, 8
+    max_window = treplay.INGEST_WINDOW
+    if case == "window_gt_8192":  # windows of 9,000 rows (the kernel's old
+        # limit was 8,192), wrapping onto valid rows at the fifth
+        C, max_window = 40_000, 10_000
     rng = np.random.default_rng(len(case))
     rb_j = jreplay.replay_init(C, obs_dim, n_dc, n_g, 4)
     rb_t = treplay.replay_init(C, obs_dim, n_dc, n_g, 4, device="cpu")
-    p_valid = {"all_valid": 1.0, "none_valid": 0.0}.get(case, 0.6)
+    p_valid = {"all_valid": 1.0, "none_valid": 0.0,
+               "window_gt_8192": 0.9}.get(case, 0.6)
     sizes = {"wrap": [9, 9, 9, 9, 9, 9], "overwrite": [10] * 9,
-             "chunk_gt_capacity": [57, 23]}.get(case, [10, 10, 10])
-    add_j = jax.jit(jreplay.replay_add_chunk)
+             "chunk_gt_capacity": [57, 23],
+             "window_gt_8192": [9000] * 5}.get(case, [10, 10, 10])
+    add_j = jax.jit(lambda rb, tr: jreplay.replay_add_chunk(rb, tr, max_window))
     for N in sizes:
         tr = _window(rng, N, obs_dim, n_dc, n_g, p_valid)
         rb_j = add_j(rb_j, {k: jnp.asarray(v) for k, v in tr.items()})
         treplay.replay_add_chunk(rb_t, {k: torch.from_numpy(v)
-                                        for k, v in tr.items()})
+                                        for k, v in tr.items()}, max_window)
         jt = bridge.tree_to_numpy(rb_j)
         pt = bridge.tree_to_numpy(rb_t, bridge.tensor_leaf)
         assert bridge.tree_mismatches(jt, pt) == [], N
-    if case == "overwrite":
+    if case in ("overwrite", "window_gt_8192"):
         assert int(rb_t.size) < int(rb_t.n_seen)
     if case == "none_valid":
         assert int(rb_t.n_seen) == 0 and int(rb_t.ptr) == 0

@@ -205,6 +205,16 @@ def test_b5_tail_cuts_apply_to_the_sources(src):
             assert text.count(old) == 1, (cut, old)
 
 
+@pytest.mark.parametrize("variant", sorted(chip_smoke.B6A_VARIANTS))
+def test_b6a_variants_apply_to_the_source(variant):
+    """Every ``--b6a-variants`` edit's anchor is in csrc/replay_ingest.cu
+    once."""
+    with open(os.path.join(build.CSRC_DIR, "replay_ingest.cu")) as f:
+        text = f.read()
+    for old, _ in chip_smoke.B6A_VARIANTS[variant]:
+        assert text.count(old) == 1, (variant, old)
+
+
 @pytest.mark.parametrize("cut", sorted(chip_smoke.FUSED_INPUT_CUTS))
 def test_fused_input_cuts_apply_to_the_source(cut):
     """Every ``--fused-input-cuts`` edit's anchor is in csrc/dense.cu once."""
