@@ -22,12 +22,23 @@ Phases (any failure exits non-zero before the result lines):
    paper fleet exactly as the CLI of phase (b) builds it (auto queue_cap,
    seed 123, 4,096-step chunks) over 2 chunks for both; time the kernel and
    the plain version on the paper-fleet chunks and bound the kernel by the
-   bytes and operations those chunks needed;
+   bytes and operations those chunks needed; then B1's extended instance
+   (carbon_cost, debug, bandit, eco and weighted routing, the cap
+   controllers) the same way: the CPU tests' loads, their hour-crossing
+   world (price 0 in hour 7, a DC free of carbon), and the paper fleet at
+   the CLI's shape for each configuration of ``EXT_RUNS`` (2 chunks of 512
+   steps, caps the fleet passes within seconds): the controllers'
+   ticks and iterations equal to the plain step's, their device time per
+   tick from the kernel's ``clock64`` counters;
 5. (b) drive the main path through the CLI entry point
    (``distributed_cluster_gpus_tpu_torch.run_sim``) on the paper fleet (8 DCs,
    8 ingresses, 1,488 GPUs, job_cap 512, auto queue_cap) for 600 simulated
-   seconds, ``default_policy`` then ``joint_nf``, with the launch counters
-   zeroed just before each run and read just after: both kernels launched,
+   seconds, ``default_policy`` then ``joint_nf``, then every configuration
+   of ``EXT_RUNS`` (``cap_uniform``, ``cap_greedy`` with --power-cap 150000,
+   ``bandit``, ``carbon_cost``, ``eco_route``, ``debug``, ``default_policy``
+   with --router-weights) at run.sh's settings (``RUN_SH_ARGV``), with the
+   launch counters zeroed just before each run and read just after: both
+   kernels launched (the extended instance by exactly those runs),
    no synchronizing CUDA call (so no host read) made while the B1 wrapper or
    the plain step is on the stack (a second run under torch's sync debug
    mode), queue conservation, the energy integral against the CSV;
@@ -37,8 +48,9 @@ Phases (any failure exits non-zero before the result lines):
    512 steps in one launch each, both counters zeroed before the run: one
    B1 and one B2 launch per chunk, every lane bitwise equal to the
    single-lane kernel run of its key, lanes 0 and 1 equal to the plain
-   engine over every chunk and in their final state; print the aggregate
-   events/s;
+   engine over every chunk and in their final state, for ``default_policy``
+   and ``joint_nf``, then ``bandit`` (the extended instance; lane 0 against
+   the plain engine); print the aggregate events/s;
 7. (d) the engine on the card against the engine on the CPU: the same small
    duo-fleet run with the same arrival tables must end in a
    bitwise-identical state and identical CSV bytes;
@@ -160,10 +172,17 @@ Opt-in studies replace the smoke when asked for:
     python3 chip_smoke.py --b1-ab PARENT
         B1 of the checkout at PARENT (unpack it with ``git archive`` into a
         git-ignored directory) and of this one, in both modes
-        (``default_policy`` at the CLI's shape; RL mode at the chsac_af
-        CLI's shape with the seeded perturbed policy), alternating parent,
+        (``default_policy`` and ``joint_nf`` at the CLI's shape; RL mode at
+        the chsac_af CLI's shape with the seeded perturbed policy),
+        alternating parent,
         change, change, parent, each in its own process: us per event;
         then the change alone at ``--max-gpus-per-job 128``, twice.
+    python3 chip_smoke.py --b1-ext [OTHER]
+        B1's extended instance (every configuration of ``EXT_RUNS``, phase
+        (a)'s flags) beside the base instance (``default_policy``) at the
+        A/B's shape, each in its own process, in turns, twice: us per event
+        and the ratio to the base's (and, given a second checkout OTHER,
+        to its runs, interleaved).
     python3 chip_smoke.py --b2-ab PARENT
         B2 of the checkout at PARENT and of this one, alternating as
         above: device ms per call at the CLI's shape (R = 1, n = 4,096)
@@ -200,6 +219,49 @@ import torch
 MAIN_DURATION_S = 600.0
 LOG_INTERVAL_S = 1.0
 ALGOS = ("default_policy", "joint_nf")
+#: run.sh's traffic and log tick (its 3,600 s cut to MAIN_DURATION_S)
+RUN_SH_ARGV = ("--log-interval", "20", "--inf-mode", "sinusoid", "--inf-rate",
+               "6.0", "--trn-mode", "poisson", "--trn-rate", "0.02")
+#: the weighted-routing runs' weights: latency s, energy J, carbon g, USD,
+#: queue length
+ROUTER_WEIGHTS = "1.0,0.00001,0.01,1.0,0.5"
+#: the extended B1 instance's configurations, label: (algo, the flags phase
+#: (a) adds to the CLI's shape on the paper fleet -- a cap the fleet passes
+#: within seconds, so the controllers fire --, the flags phase (b) adds to
+#: run.sh's settings: its --power-cap 150000 for the cap controllers)
+EXT_RUNS = {
+    "cap_uniform": ("cap_uniform", ("--power-cap", "25000"),
+                    ("--power-cap", "150000")),
+    "cap_greedy": ("cap_greedy", ("--power-cap", "25000"),
+                   ("--power-cap", "150000")),
+    "bandit": ("bandit", (), ()),
+    "carbon_cost": ("carbon_cost", ("--power-cap", "25000"), ()),
+    "eco_route": ("eco_route", ("--eco-objective", "cost", "--power-cap",
+                                "25000"), ()),
+    "debug": ("debug", ("--num_fixed_gpus", "4"), ()),
+    "weighted": ("default_policy", ("--router-weights", ROUTER_WEIGHTS),
+                 ("--router-weights", ROUTER_WEIGHTS)),
+}
+#: phase (a)'s chunks of the extended instance on the paper fleet (2 of them;
+#: the caps of EXT_RUNS fire from the first seconds)
+EXT_PAPER_STEPS = 512
+#: the extended instance on the CPU tests' loads (tests/test_torch_algos.py,
+#: tests/test_torch_cap.py; the gpu tests take every family at both block
+#: widths): (B1_LOADS key, algo, SimParams fields)
+EXT_LOADS = (
+    ("duo", "debug", dict(num_fixed_gpus=12, fixed_freq=0.75)),
+    ("single", "bandit", {}),
+    ("duo", "eco_route", dict(power_cap=100.0)),
+    ("duo", "cap_uniform", dict(power_cap=4000.0)),
+    ("single", "cap_greedy", dict(power_cap=12000.0)),
+)
+#: tests/test_torch_algos.py's hour-crossing world: the duo fleet with no
+#: price in hour 7 and DC 0 free of carbon, its clocks bridged to WORLD_T0
+WORLD_T0 = 7 * 3600.0 - 0.25
+#: the controllers' operations per slot and iteration (cap_uniform: two
+#: clamped powers and the apply; cap_greedy: ~20 per ladder step of a job),
+#: beside the per-DC trees each iteration sums
+CTL_SLOT_OPS = {"cap_uniform": 40, "cap_greedy": 160}
 RL_WARMUP = 1_000_000_000  # above any run's transitions: act, never update
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -225,6 +287,8 @@ B1_SLOT_OPS = 17
 B1_LOG_SLOT_OPS = 4
 QREC_BYTES = 11 * 4  # one ring record
 EV_FINISH, EV_LOG = 0, 3
+#: profiled chunks phase (e) tries before it fails for want of device events
+PROFILE_TRIES = 3
 BENCH_SHAPE = dict(algo="joint_nf", duration=1e9, log_interval=20.0,
                    inf_mode="sinusoid", inf_rate=6.0, trn_mode="poisson",
                    trn_rate=0.1, job_cap=128, lat_window=512, seed=0,
@@ -586,7 +650,7 @@ def b1_work(eng, before, after, pre, em, n_steps):
     sum once at the launch and again only for a DC where a job started or
     finished, and the log ticks' passes."""
     from distributed_cluster_gpus_tpu_torch.kernels.event_scan import (
-        pow2_at_least)
+        EXT_PTRS, ext_plan, pow2_at_least)
     from distributed_cluster_gpus_tpu_torch.models.structs import (
         JobStatus, leaves)
 
@@ -603,11 +667,17 @@ def b1_work(eng, before, after, pre, em, n_steps):
     starts = running(after) - running(before) + finishes
     n_log = int((em["branch"] == EV_LOG).sum())
     slab = nbytes(leaves(before.jobs))
+    # the leaves and constants the launch's instance reads (the extended
+    # one also the bandit's arms, the uncapped grid, the price and carbon)
+    ext = ext_plan(eng.params)[0]
     small = (nbytes(leaves(before)) - slab - nbytes([before.queues.recs])
-             - nbytes([before.lat.buf]))
+             - nbytes([before.lat.buf])
+             - (0 if ext else nbytes(leaves(before.bandit))))
+    consts = [v for k, v in eng.kernel_consts().items()
+              if ext or k not in EXT_PTRS]
     bytes_moved = (2 * (slab + small) + QREC_BYTES * (pushes + pops)
                    + 4 * finishes + 8 * arrivals + nbytes([pre["c0"]])
-                   + nbytes(eng.kernel_consts().values())
+                   + nbytes(consts)
                    + 8 * n_steps + 4 * n_log * n_dc * 14 + 4 * finishes * 15)
     ops = (events * J * B1_SLOT_OPS + (n_dc + starts + finishes) * 2 * P
            + n_log * (J * B1_LOG_SLOT_OPS + 2 * n_dc * P + 2 * n_dc * J))
@@ -707,6 +777,157 @@ def phase_b1(report):
                     "max_abs_err": max_err}
 
 
+def world_fleet():
+    """tests/test_torch_algos.py's world: the duo fleet, price 0 in hour 7,
+    DC 0 of carbon intensity 0."""
+    import dataclasses
+
+    import numpy as np
+    from distributed_cluster_gpus_tpu_torch.configs.paper import build_duo_fleet
+
+    fleet = build_duo_fleet()
+    price = np.array(fleet.price_hourly, np.float32)
+    price[7] = 0.0
+    return dataclasses.replace(fleet, price_hourly=price,
+                               carbon=np.array([0.0, 400.0], np.float32))
+
+
+def phase_b1_ext(report):
+    """(a) continued: B1's extended instance (carbon_cost, debug, bandit,
+    eco and weighted routing, the cap controllers) against the plain step
+    on the card, bitwise: the CPU tests' loads, the hour-crossing world, and
+    the paper fleet as the CLI builds it for each configuration of
+    ``EXT_RUNS`` (2 chunks of ``EXT_PAPER_STEPS``; the caps fire within
+    seconds).
+    The controllers' log ticks and iterations must be the plain step's;
+    their device time per tick is their share of the launch's cycles
+    (``clock64`` on the lane's thread 0) times the launch's time."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.configs.paper import (
+        build_duo_fleet, build_single_dc_fleet)
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        SimParams, clone_state, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    fleets = {"duo": build_duo_fleet, "single": build_single_dc_fleet}
+    cases = []
+    for fl, algo, kw in EXT_LOADS:
+        tag = " ".join(f"{k}={v}" if k != "router_weights" else "weighted"
+                       for k, v in kw.items())
+        cases.append((f"{fl}/{algo} {tag}".strip(), fleets[fl](), SimParams(
+            algo=algo, duration=400.0, lat_window=64, seed=5,
+            **B1_LOADS[fl][1], **kw), 300, None))
+    for algo, kw in (("carbon_cost", {}), ("eco_route", dict(eco_objective="cost"))):
+        cases.append((f"world/{algo}", world_fleet(), SimParams(
+            algo=algo, duration=WORLD_T0 + 400.0, lat_window=64, seed=5,
+            **B1_LOADS["duo"][1], **kw), 300, WORLD_T0))
+    for label, (algo, flags, _) in EXT_RUNS.items():
+        fleet, params, _ = cli_params(algo, flags)
+        cases.append((f"paper/{label}", fleet, params, EXT_PAPER_STEPS, None))
+    rows, paper = [], {}
+    max_err = 0.0
+    for name, fleet, params, n_steps, t0 in cases:
+        if not b1.ext_plan(params)[0]:
+            fail(f"B1 {name}: the configuration does not take the extended "
+                 "instance")
+        eng = Engine(fleet, params, device="cuda")
+        st0 = init_state(params.seed, fleet, params, workload=eng.workload,
+                         device="cuda")
+        if t0 is not None:  # bridge the clocks to just before an hour
+            st0.t.fill_(t0)
+            st0.next_arrival += t0
+            st0.next_log_t.fill_(t0 + params.log_interval)
+        st = with_lane_axis(st0)
+        other = clone_state(st)
+        events, ctl = 0, torch.zeros(4, dtype=torch.int64)
+        for c in range(2):
+            pre = eng.workload.tables(st, n_steps)
+            before = clone_state(st)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            em_k, stats_k = b1.event_scan(eng, st, pre, n_steps)
+            b.record()
+            b.synchronize()
+            k_ms = a.elapsed_time(b)
+            t_0 = time.perf_counter()
+            em_r, stats_r = b1.event_scan_reference(eng, other, pre, n_steps)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t_0) * 1e3
+            for k in em_r:
+                err = max_abs_diff(em_k[k], em_r[k])
+                max_err = max(max_err, err)
+                if not torch.equal(em_k[k], em_r[k]):
+                    fail(f"B1 {name} chunk {c}: emission {k} differs from the "
+                         f"plain version (max abs {err:.3g})")
+            eng.workload.advance_carries(st, pre)
+            eng.workload.advance_carries(other, pre)
+            max_err = max(max_err, state_diff(st, other))
+            bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                         bridge.state_to_numpy(st))
+            if bad:
+                fail(f"B1 {name} chunk {c}: state differs from the plain "
+                     f"version at {bad[:5]}")
+            ck = stats_k["ctl"].cpu()[0]
+            if not torch.equal(ck[:2], stats_r["ctl"][0, :2]):
+                fail(f"B1 {name} chunk {c}: the controller's ticks and "
+                     f"iterations {ck[:2].tolist()} differ from the plain "
+                     f"step's {stats_r['ctl'][0, :2].tolist()}")
+            ctl += ck
+            ev = int((st.n_events - before.n_events).sum())
+            events += ev
+            if name.startswith("paper/") and c == 1:
+                by, ops, counts = b1_work(eng, before, st, pre, em_k, n_steps)
+                algo = params.algo
+                if algo in CTL_SLOT_OPS:
+                    P = b1.pow2_at_least(params.job_cap)
+                    ops += int(ck[1]) * (params.job_cap * CTL_SLOT_OPS[algo]
+                                         + 2 * fleet.n_dc * P)
+                paper[name[6:]] = {
+                    "steps": n_steps, "events": ev, "ms": k_ms,
+                    "plain_ms": p_ms, "bytes": by, "ops": ops,
+                    "counts": counts, "ctl_ticks": int(ck[0]),
+                    "ctl_iters": int(ck[1]),
+                    "ctl_ms": (float(ck[2]) / float(ck[3]) * k_ms
+                               if int(ck[3]) > 0 else 0.0)}
+        if name.startswith("paper/cap") and int(ctl[0]) == 0:
+            fail(f"B1 {name}: the controller never ran")
+        rows.append({"case": name, "events": events, "n_steps": n_steps,
+                     "ctl_ticks": int(ctl[0]), "ctl_iters": int(ctl[1]),
+                     "dropped": int(st.n_dropped.sum()),
+                     "t": float(st.t.max())})
+    if not any(r["ctl_iters"] > r["ctl_ticks"] > 0 for r in rows):
+        fail("B1 extended instance: no controller iterated twice in a tick")
+    print("B1 extended instance vs plain version on the card, bitwise "
+          f"identical (state, bandit arms, emissions, controller counts; "
+          f"max_abs_err {max_err}): " + ", ".join(
+              f"{r['case']} {r['events']} events"
+              + (f" ({r['ctl_iters']} controller iterations in {r['ctl_ticks']} "
+                 "ticks)" if r["ctl_ticks"] else "") for r in rows))
+    for label, c in paper.items():
+        per_tick = (f"; controller {c['ctl_iters'] / c['ctl_ticks']:.2f} "
+                    f"iterations and {c['ctl_ms'] / c['ctl_ticks'] * 1e3:.2f} "
+                    f"us per tick over {c['ctl_ticks']} ticks"
+                    if c["ctl_ticks"] else "")
+        print(f"B1 extended instance, paper fleet {label} (second {c['steps']}"
+              f"-step chunk, {c['events']} events): kernel {c['ms']:.3f} ms "
+              f"({c['ms'] / c['events'] * 1e3:.2f} us/event), plain "
+              f"{c['plain_ms']:.1f} ms{per_tick}")
+    chunks = list(paper.values())
+    ms = statistics.mean(c["ms"] for c in chunks)
+    ev = statistics.mean(c["events"] for c in chunks)
+    by = statistics.mean(c["bytes"] for c in chunks)
+    ops = statistics.mean(c["ops"] for c in chunks)
+    bound_ms, bound_by = bound(by, ops)
+    report["b1_ext"] = {"cases": rows, "paper_chunks": paper, "ms": ms,
+                        "plain_ms": statistics.mean(c["plain_ms"] for c in chunks),
+                        "events_per_chunk": ev, "us_per_event": ms / ev * 1e3,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": by, "ops": ops, "max_abs_err": max_err}
+
+
 def _read_csv(path):
     import csv
 
@@ -714,44 +935,94 @@ def _read_csv(path):
         return list(csv.DictReader(f))
 
 
+class B1Tally:
+    """While on, times every B1 launch of a run with CUDA events recorded
+    around it on the launch's stream and sums the extended instance's
+    controller counters (``stats["ctl"]``, on the card): no host read inside
+    a chunk.  ``ms()`` after the run: B1's device ms over the run."""
+
+    def __enter__(self):
+        from distributed_cluster_gpus_tpu_torch.sim import engine
+
+        self._engine, self._orig = engine, engine.event_scan
+        self.total, self.events = None, []
+
+        def tallied(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            em, stats = self._orig(*args, **kw)
+            b.record()
+            self.events.append((a, b))
+            if stats.get("ctl") is not None:
+                c = stats["ctl"].sum(0)
+                self.total = c if self.total is None else self.total + c
+            return em, stats
+
+        engine.event_scan = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.event_scan = self._orig
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
 def phase_main_path(report, out_root):
-    """(b) the CLI main path on the paper fleet, both algorithms."""
+    """(b) the CLI main path on the paper fleet: both base algorithms at the
+    main path's settings, then every configuration of ``EXT_RUNS`` at
+    run.sh's (``RUN_SH_ARGV``)."""
     from distributed_cluster_gpus_tpu_torch import run_sim
     from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
     from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
 
     runs = {}
-    launches = {"event_scan": 0, "arrival_tables": 0}
-    for algo in ALGOS:
-        out = os.path.join(out_root, algo)
+    launches = {"event_scan": 0, "arrival_tables": 0, "ext": 0}
+    plan = [(algo, algo, ()) for algo in ALGOS] + [
+        (label, algo, RUN_SH_ARGV + flags)
+        for label, (algo, _, flags) in EXT_RUNS.items()]
+    for label, algo, extra in plan:
+        out = os.path.join(out_root, label)
+        argv = lambda o: cli_argv(algo, o) + list(extra)  # noqa: E731
         torch.cuda.synchronize()
         b1.event_scan.launches = 0
+        b1.event_scan.ext_launches = 0
         b2.arrival_tables.launches = 0
         t0 = time.perf_counter()
-        st = run_sim.main(cli_argv(algo, out))
+        with B1Tally() as tally:
+            st = run_sim.main(argv(out))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        b1_ms = tally.ms()
         n_b1, n_b2 = b1.event_scan.launches, b2.arrival_tables.launches
+        n_ext = b1.event_scan.ext_launches
         if n_b1 <= 0:
-            fail(f"{algo}: the main path never launched the B1 kernel")
+            fail(f"{label}: the main path never launched the B1 kernel")
         if n_b2 <= 0:
-            fail(f"{algo}: the main path never launched the B2 kernel")
+            fail(f"{label}: the main path never launched the B2 kernel")
+        if (n_ext == n_b1) != (label in EXT_RUNS):
+            fail(f"{label}: {n_ext} of {n_b1} B1 launches took the extended "
+                 "instance")
+        ctl = [int(x) for x in tally.total.cpu()] if tally.total is not None else None
         # the same run again (its own output directory), counting the
         # synchronizing CUDA calls by the file that made them; the timed
         # run above goes without the counter's warnings
         with SyncCounter() as syncs:
-            run_sim.main(cli_argv(algo, out + "_syncs"))
+            run_sim.main(argv(out + "_syncs"))
         in_chunk = syncs.in_chunk
         port = syncs.count(*(f"distributed_cluster_gpus_tpu_torch/{d}" for d in
                              ("sim/io.py", "sim/engine.py", "run_sim.py")))
         if port == 0:
-            fail(f"{algo}: the sync counter saw no sync made by the run loop, "
+            fail(f"{label}: the sync counter saw no sync made by the run loop, "
                  f"so it measures nothing ({syncs.by_file})")
         if in_chunk:
-            fail(f"{algo}: {in_chunk} synchronizing CUDA calls inside the "
+            fail(f"{label}: {in_chunk} synchronizing CUDA calls inside the "
                  f"chunks ({syncs.by_file})")
         launches["event_scan"] += n_b1
         launches["arrival_tables"] += n_b2
+        launches["ext"] += n_ext
         events = int(st.n_events)
         arrived = int(st.jid_counter) - 1
         finished = int(st.n_finished.sum())
@@ -761,19 +1032,19 @@ def phase_main_path(report, out_root):
         jobs = _read_csv(os.path.join(out, "job_log.csv"))
         cl = _read_csv(os.path.join(out, "cluster_log.csv"))
         if len(jobs) != finished:
-            fail(f"{algo}: job_log has {len(jobs)} rows for {finished} finishes")
+            fail(f"{label}: job_log has {len(jobs)} rows for {finished} finishes")
         if arrived != finished + queued + placed + dropped:
-            fail(f"{algo}: conservation broken: {arrived} arrived != "
+            fail(f"{label}: conservation broken: {arrived} arrived != "
                  f"{finished} + {queued} + {placed} + {dropped}")
         if not bool(st.done) or abs(float(st.t) - MAIN_DURATION_S) > 1e-3:
-            fail(f"{algo}: run did not reach its end (t={float(st.t)})")
+            fail(f"{label}: run did not reach its end (t={float(st.t)})")
         # energy: the growth of sum-over-DCs energy_kJ between the first and
         # last log tick against the trapezoid sum of power_W over the ticks
         # (the engine integrates P*dt exactly between events; sampled at 1 s
         # the two agree to a few percent)
         ticks = sorted({float(r["time_s"]) for r in cl})
         if len(ticks) < 2:
-            fail(f"{algo}: too few log ticks")
+            fail(f"{label}: too few log ticks")
         by_t = {}
         for r in cl:
             by_t.setdefault(float(r["time_s"]), []).append(r)
@@ -783,20 +1054,30 @@ def phase_main_path(report, out_root):
         riemann = sum(0.5 * (p_t[i] + p_t[i + 1]) * (ticks[i + 1] - ticks[i])
                       for i in range(len(ticks) - 1))
         if not (e_last > 0 and abs((e_last - e_first) - riemann) <= 0.05 * riemann):
-            fail(f"{algo}: energy {e_last - e_first:.1f} J vs sum P*dt {riemann:.1f} J")
+            fail(f"{label}: energy {e_last - e_first:.1f} J vs sum P*dt {riemann:.1f} J")
         vals = [float(v) for r in jobs for k, v in r.items()
                 if k not in ("ingress", "type", "dc")]
         if not all(map(lambda x: x == x and abs(x) != float("inf"), vals)):
-            fail(f"{algo}: non-finite job_log values")
+            fail(f"{label}: non-finite job_log values")
         rate = events / wall
-        print(f"{algo}: {events} events in {MAIN_DURATION_S:.0f} s simulated, "
+        b1_us = b1_ms / max(events, 1) * 1e3
+        ctl_s = ""
+        if ctl is not None and ctl[0]:
+            ctl_s = (f"; the cap controller ran in {ctl[0]} log ticks, {ctl[1]} "
+                     f"iterations ({ctl[1] / ctl[0]:.2f} a tick)")
+        elif label.startswith("cap_"):
+            ctl_s = "; the fleet's power never called for the cap controller"
+        print(f"{label} ({' '.join(extra) or 'main path settings'}): B1 "
+              f"{b1_ms:.2f} ms on the card ({b1_us:.3f} us/event); {events} events in {MAIN_DURATION_S:.0f} s simulated, "
               f"{wall:.2f} s wall, {rate:.1f} events/s, {finished} finished, "
               f"{arrived} arrived, {dropped} dropped, B1 launches {n_b1}, "
               f"B2 launches {n_b2}; synchronizing CUDA calls: {in_chunk} inside "
               f"the {n_b1} chunks, {syncs.total} in the whole run "
               f"({syncs.total / n_b1:.1f} per chunk, between the chunks); energy "
-              f"{e_last / 3.6e6:.4f} kWh at the last tick")
-        runs[algo] = {"events": events, "wall_s": wall, "events_per_s": rate,
+              f"{e_last / 3.6e6:.4f} kWh at the last tick{ctl_s}")
+        runs[label] = {"algo": algo, "flags": list(extra), "ctl": ctl,
+                       "b1_ms": b1_ms, "b1_us_per_event": b1_us,
+                       "ext_launches": n_ext, "events": events, "wall_s": wall, "events_per_s": rate,
                       "arrived": arrived, "finished": finished, "queued": queued,
                       "placed": placed, "dropped": dropped, "b1_launches": n_b1,
                       "b2_launches": n_b2, "syncs_in_chunks": in_chunk,
@@ -822,12 +1103,14 @@ def phase_rollouts(report):
     fleet = build_fleet()
     out = {}
     max_err = 0.0
-    for algo in ALGOS:
+    for algo in ALGOS + ("bandit",):
+        # bandit: the extended instance; its lane 0 against the plain engine
+        plain_lanes = (0,) if algo == "bandit" else (0, 1)
         params = SimParams(**dict(BENCH_SHAPE, algo=algo))
         eng = Engine(fleet, params, device="cuda")
         st = batched_init(fleet, params, R, workload=eng.workload, device="cuda")
         singles = unstack_states(st)
-        plain = [with_lane_axis(lane_state(st, r)) for r in (0, 1)]
+        plain = [with_lane_axis(lane_state(st, r)) for r in plain_lanes]
         ems, pres = [], []
         torch.cuda.synchronize()
         b1.event_scan.launches = 0
@@ -861,8 +1144,8 @@ def phase_rollouts(report):
             if bad:
                 fail(f"rollouts/{algo}: lane {r} differs from its single-lane "
                      f"run at {bad[:5]}")
-        # lanes 0 and 1 against the plain engine, every chunk and the end
-        for r, ps in zip((0, 1), plain):
+        # those lanes against the plain engine, every chunk and the end
+        for r, ps in zip(plain_lanes, plain):
             for c, pre in enumerate(pres):
                 pre_r = {k: v[r:r + 1] for k, v in pre.items()}
                 em_r, _ = b1.event_scan_reference(eng, ps, pre_r, n_steps)
@@ -889,7 +1172,8 @@ def phase_rollouts(report):
               f"aggregate (chunk walls {[round(w * 1e3, 3) for w in walls]} ms; "
               f"chunks 2-{n_chunks} {rest:.0f} events/s); B1 and B2 "
               f"{n_chunks} launches each; every lane bitwise equal to its "
-              f"single-lane run, lanes 0-1 to the plain engine (every chunk, "
+              f"single-lane run, lanes {list(plain_lanes)} to the plain engine "
+              f"(every chunk, "
               f"final state)")
         out[algo] = {"R": R, "events": events, "wall_s": wall, "events_per_s": rate,
                      "chunk_walls_s": walls, "events_per_s_after_chunk_1": rest,
@@ -965,31 +1249,39 @@ def phase_profile(report):
     if in_chunk:
         fail(f"profile: {in_chunk} synchronizing CUDA calls inside the chunk "
              f"({syncs.by_file})")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st, _ = eng.run_chunk(st, n_steps)
+    # the profiler records only some of a chunk's short launches, and now
+    # and then none: up to PROFILE_TRIES profiled chunks, the first in which
+    # it saw device work is read
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = eng.stats["events"]
-    dev_us, n_dev, b1_us, b2_us, n_dtoh, n_scalar = 0.0, 0, 0.0, 0.0, 0, 0
-    for e in prof.events():
-        if e.name == "aten::_local_scalar_dense":
-            n_scalar += 1
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        dur = e.time_range.elapsed_us()
-        dev_us += dur
-        n_dev += 1
-        if "DtoH" in e.name:
-            n_dtoh += 1
-        if "event_scan_kernel" in e.name:
-            b1_us += dur
-        if any(k in e.name for k in ("draws_kernel", "fold_kernel",
-                                     "tnext_kernel")):
-            b2_us += dur
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st, _ = eng.run_chunk(st, n_steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = eng.stats["events"]
+        dev_us, n_dev, b1_us, b2_us, n_dtoh, n_scalar = 0.0, 0, 0.0, 0.0, 0, 0
+        for e in prof.events():
+            if e.name == "aten::_local_scalar_dense":
+                n_scalar += 1
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            dur = e.time_range.elapsed_us()
+            dev_us += dur
+            n_dev += 1
+            if "DtoH" in e.name:
+                n_dtoh += 1
+            if "event_scan_kernel" in e.name:
+                b1_us += dur
+            if any(k in e.name for k in ("draws_kernel", "fold_kernel",
+                                         "tnext_kernel")):
+                b2_us += dur
+        if n_dev:
+            break
     if n_dev == 0:
-        fail("profile: the profiler saw no device activity")
+        fail(f"profile: the profiler saw no device activity in "
+             f"{PROFILE_TRIES} profiled chunks")
     if n_dtoh < 1:
         fail("profile: no device-to-host copy seen, though run_chunk reads the "
              "chunk's event count after it")
@@ -1008,6 +1300,7 @@ def phase_profile(report):
           f"{reads_in_chunk} inside the chunk; {in_chunk} synchronizing calls "
           f"inside the warm-up chunk, {syncs.total} in its run_chunk")
     report["profile"] = {"events": events, "n_steps": n_steps, "wall_s": wall,
+                         "profiled_chunks": attempt + 1,
                          "device_us": dev_us, "device_ops": n_dev,
                          "device_busy_share": busy, "b1_us": b1_us,
                          "b2_us": b2_us, "dtoh_copies": n_dtoh,
@@ -3897,7 +4190,7 @@ def study_b1_phases(root):
     print(json.dumps({"b1_phases": result}))
 
 
-AB_MODES = ("default_policy", "chsac_af")
+AB_MODES = ("default_policy", "joint_nf", "chsac_af")
 #: the RL mode at the paper fleet's widest GPU-count head, which only a
 #: checkout since its widening runs: timed on the change alone
 AB_WIDE_MODE = "chsac_af_g128"
@@ -3907,7 +4200,8 @@ def study_b1_chunk_ms(mode):
     """``--b1-chunk-ms ROOT MODE`` (the A/B's child process): B1 of the
     package at ROOT, four 4,096-step chunks from the run's start, each timed
     with CUDA events; MODE ``default_policy`` is the heuristic kernel on the
-    paper fleet as the CLI builds it, ``chsac_af`` the RL mode at the
+    paper fleet as the CLI builds it (``joint_nf`` likewise), ``chsac_af``
+    the RL mode at the
     chsac_af CLI's shape with the seeded perturbed policy (``rl_setup``).
     One JSON line."""
     from distributed_cluster_gpus_tpu_torch.kernels import build
@@ -3921,7 +4215,8 @@ def study_b1_chunk_ms(mode):
             WIDE_B1_ARGV if mode == AB_WIDE_MODE else ())
         sac = agent.sac
     else:
-        fleet, params, n = cli_params(mode)
+        algo, flags = (EXT_RUNS[mode][:2] if mode in EXT_RUNS else (mode, ()))
+        fleet, params, n = cli_params(algo, flags)
         eng, sac = Engine(fleet, params, device="cuda"), None
     st = with_lane_axis(init_state(params.seed, fleet, params,
                                    workload=eng.workload, device="cuda"))
@@ -3940,6 +4235,49 @@ def study_b1_chunk_ms(mode):
         ms.append(a.elapsed_time(b))
         events.append(int(st.n_events.sum()) - before)
     print(json.dumps({"ms": ms, "events": events, "steps": n}))
+
+
+def study_b1_ext(other=None):
+    """``--b1-ext [OTHER]``: B1 of this checkout at the A/B's shape (the
+    paper fleet as the CLI builds it, four 4,096-step chunks from the run's
+    start, each in its own process, ``--b1-chunk-ms``) for
+    ``default_policy`` (the base instance) and every configuration of
+    ``EXT_RUNS`` with phase (a)'s flags (the extended instance), in turns,
+    twice: us per event (the mean of chunks 2-4), each against the base's;
+    with OTHER (a checkout of the same configurations), each run of this
+    checkout follows OTHER's and the ratio to OTHER's is given too.  One
+    JSON line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    modes = ("default_policy",) + tuple(EXT_RUNS)
+    roots = ((("other", other),) if other else ()) + (("here", here),)
+    per = {(n, m): [] for n, _ in roots for m in modes}
+    for _ in range(2):
+        for mode in modes:
+            for name, root in roots:
+                r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                    "--b1-chunk-ms", root, mode], cwd=root,
+                                   capture_output=True, text=True, timeout=900)
+                if r.returncode != 0:
+                    fail(f"B1 ext: {mode} ({root}) failed:\n{r.stderr[-2000:]}")
+                d = json.loads(r.stdout.strip().splitlines()[-1])
+                us = statistics.mean(d["ms"][1:]) / statistics.mean(
+                    d["events"][1:]) * 1e3
+                per[(name, mode)].append(us)
+                print(f"{mode} {name}: chunks {[round(m, 3) for m in d['ms']]} "
+                      f"ms, events {d['events']}; {us:.3f} us/event", flush=True)
+    result = {}
+    for name, _ in roots:
+        base = statistics.mean(per[(name, "default_policy")])
+        for m in modes:
+            us = statistics.mean(per[(name, m)])
+            row = {"us_per_event": per[(name, m)], "over_base": us / base}
+            if other and name == "here":
+                row["over_other"] = us / statistics.mean(per[("other", m)])
+            result[f"{name}/{m}"] = row
+            print(f"{name} {m}: {us:.3f} us/event, {us / base:.4f} x the base "
+                  "instance's" + (f", {row['over_other']:.4f} x other's"
+                                  if "over_other" in row else ""))
+    print(json.dumps({"b1_ext": result}))
 
 
 #: the one-hot update's B5d calls by shape for the A/B: forward (R, K, N,
@@ -4800,8 +5138,11 @@ def main():
         if len(args) == 2 and args[0] == "--b2-ms":
             sys.path.insert(0, os.path.abspath(args[1]))
             return study_b2_ms()
+        if args[0] == "--b1-ext" and len(args) <= 2:
+            print(card_line())
+            return study_b1_ext(*(os.path.abspath(x) for x in args[1:]))
         if len(args) == 3 and args[0] == "--b1-chunk-ms" and args[2] in (
-                *AB_MODES, AB_WIDE_MODE):
+                *AB_MODES, AB_WIDE_MODE, *EXT_RUNS):
             sys.path.insert(0, os.path.abspath(args[1]))
             return study_b1_chunk_ms(args[2])
         if len(args) == 2 and args[0] == "--b6a-only":
@@ -4827,6 +5168,7 @@ def main():
             return study_update_child(*args[2:])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
+             "--b1-ext [CHECKOUT], "
              "--b2-ab PARENT_CHECKOUT, --b6a-variants, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
              "PARENT_CHECKOUT [onehot|heads]")
@@ -4851,29 +5193,40 @@ def main():
             if "registers" in line or "spill" in line))
     report["build_s"] = build_s
 
-    phase_b2(report)
-    phase_b1(report)
+    report["phase_s"] = {}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t
+        report["phase_s"][fn.__name__] = dt
+        print(f"[{fn.__name__}: {dt:.1f} s]", flush=True)
+        return out
+
+    timed(phase_b2, report)
+    timed(phase_b1, report)
+    timed(phase_b1_ext, report)
     # run outputs stay inside the checkout (smoke_out/ is git-ignored)
     out_root = os.path.join(here, "smoke_out", "runs")
     shutil.rmtree(out_root, ignore_errors=True)
     os.makedirs(out_root)
     try:
-        launches = phase_main_path(report, out_root)
-        phase_rollouts(report)
-        phase_cuda_vs_cpu(report, out_root)
-        phase_profile(report)
-        real = phase_b1_rl(report)
-        phase_b1_rl_wide(report)
-        phase_rl_tail(report, real)
-        phase_wide_heads(report)
-        phase_b6a(report)
-        rl_launches = phase_chsac_cli(report, out_root)
-        phase_update_kernels(report)
-        phase_fused_regions(report)
-        phase_widened_kernels(report)
-        trained = phase_update_whole(report)
-        phase_b1_after_learning(report, trained)
-        upd_launches = phase_learning_cli(report, out_root)
+        launches = timed(phase_main_path, report, out_root)
+        timed(phase_rollouts, report)
+        timed(phase_cuda_vs_cpu, report, out_root)
+        timed(phase_profile, report)
+        real = timed(phase_b1_rl, report)
+        timed(phase_b1_rl_wide, report)
+        timed(phase_rl_tail, report, real)
+        timed(phase_wide_heads, report)
+        timed(phase_b6a, report)
+        rl_launches = timed(phase_chsac_cli, report, out_root)
+        timed(phase_update_kernels, report)
+        timed(phase_fused_regions, report)
+        timed(phase_widened_kernels, report)
+        trained = timed(phase_update_whole, report)
+        timed(phase_b1_after_learning, report, trained)
+        upd_launches = timed(phase_learning_cli, report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -4894,12 +5247,21 @@ def main():
         "source": "distributed_cluster_gpus_tpu_torch/csrc/event_scan.cu",
         "replaces": "distributed_cluster_gpus_tpu/sim/engine.py:4581",
         "launches": launches["event_scan"],
-        "max_abs_err": b1r["max_abs_err"],
+        "max_abs_err": max(b1r["max_abs_err"], report["b1_ext"]["max_abs_err"]),
         "ms": b1r["ms"],
         "plain_ms": b1r["plain_ms"],
         "bound_ms": b1r["bound_ms"],
         "bound_by": b1r["bound_by"],
         "library_ms": None,
+        # the heuristic launches by instance: default_policy / joint_nf, and
+        # the extended one (carbon_cost, debug, bandit, eco and weighted
+        # routing, the cap controllers; phase (a)'s paper-fleet chunks)
+        "instances": {
+            "base": {"launches": launches["event_scan"] - launches["ext"],
+                     "ms": b1r["ms"], "us_per_event": b1r["us_per_event"]},
+            "extended": {k: report["b1_ext"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "us_per_event",
+                "max_abs_err")} | {"launches": launches["ext"]}},
     }, {
         "name": "arrival_tables",
         "route": "cuda",

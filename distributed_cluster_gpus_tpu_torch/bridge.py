@@ -5,7 +5,7 @@ This system's "weights" are its world (``FleetSpec``) and its state
 field names, so the bridge works on nested dicts of numpy arrays: the JAX
 side is turned into numpy by the caller (``tree_to_numpy`` with a leaf
 function that unwraps PRNG keys), the port side by :func:`state_to_numpy`.
-Fields the port does not carry yet (bandit, fault, telemetry and signal
+Fields the port does not carry yet (the fault, telemetry and signal
 sub-states) are ignored on the way in and absent on the way out.
 :func:`sac_from_flax` carries the chsac_af learner (the JAX ``SACState``:
 parameters, target critic, temperature, optimizer and CMDP states) across,
@@ -28,6 +28,7 @@ from .device import resolve_device
 from .models.structs import (DCArrays, FleetSpec, JobSlab, LatWindow,
                              QueueRings, SimState)
 from .ops import prng
+from .ops.bandit import BanditState
 from .ops.physics import LatencyCoeffs, PowerCoeffs
 from .rl.nets import dense_layers, flax_names
 
@@ -79,7 +80,7 @@ def state_from_numpy(tree: Dict, device="cuda") -> SimState:
     leading lane axis (a JAX ``vmap``-ed state) gives a lane-stacked state."""
     device = resolve_device(device)
     nested = {"dc": DCArrays, "jobs": JobSlab, "lat": LatWindow,
-              "queues": QueueRings}
+              "queues": QueueRings, "bandit": BanditState}
     kw = {}
     for f in dataclasses.fields(SimState):
         v = tree[f.name]

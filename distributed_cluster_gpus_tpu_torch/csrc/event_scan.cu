@@ -1,9 +1,9 @@
 // B1, the event scan, on Hopper (sm_90a): the port of the XLA-fused scan
 // `Engine._run_chunk` -> `lax.scan(Engine._step)` (distributed_cluster_gpus_
 // tpu/sim/engine.py:4581 and :2966), the K=1 write-plan program with ring
-// queues for the heuristic algorithms (default_policy, joint_nf) and, in RL
-// mode, for chsac_af's acting path.  The JAX package has no Pallas kernel;
-// this replaces the fused jnp step.
+// queues for the heuristic algorithms and, in RL mode, for chsac_af's acting
+// path.  The JAX package has no Pallas kernel; this replaces the fused jnp
+// step.
 //
 // What it computes: `n_steps` events of every rollout lane, exactly as the
 // plain torch engine (`Engine._scan_plain`, sim/engine.py, the kernel's
@@ -20,6 +20,29 @@
 //       priority and free-GPU gating, pop);
 //   B1e the log tick (per-DC cluster row, log clock).
 // Steps after the run is done only advance the key, as the plain engine's.
+//
+// The extended heuristic instance (`kExt`; default_policy and joint_nf keep
+// an instance without its code: unexecuted code costs an event 5-6%):
+//   admission: carbon_cost's first-minimum cell of E * (price(hour) * 1/3.6e6)
+//       or, at price 0, of E * carbon (a table of (dc, jtype) cells rebuilt
+//       when a decision's hour differs from the table's), debug's fixed GPU
+//       count at its fixed or least-energy frequency (a table built at
+//       launch), the bandit's UCB1 select (the arms in global memory, read
+//       and written by thread 0; the select count committed with the start,
+//       the reward at the finish before the drain; `ln t` XLA's CPU float32
+//       polynomial, `xla_log`, so the arm is the JAX package's bit for bit);
+//   routing: eco_route's least job score over the DCs from each DC's
+//       best-cell energy (a table per hour key) and the weighted score's five
+//       terms summed left to right, per arrival on thread 0;
+//   the log tick's control (`control`): idle DCs to ladder index 0, or the
+//       cap controllers over the block: cap_uniform's clamped powers as two
+//       passes of DC tree sums per iteration and its apply pass; cap_greedy's
+//       per-job least rho over the job's ladder steps, the block argmin of
+//       (rho key, atom) and the applied job's DC tree summed again; each
+//       touched DC marked dirty and the log row's power summed after the
+//       control.  The controller's ticks, iterations and clock cycles are
+//       counted per lane (P_CTL).  Every eco score is written in XLA's
+//       association (`E / 3.6e6 * price` as `E * (price * kKwh)`).
 //
 // RL mode (chsac_af, `Lane::step_rl`): the event branches defer routing and
 // the post-finish drain to the policy tail, which runs on every event:
@@ -171,7 +194,13 @@ enum Ptr {
   P_E_VALID, P_E_S0, P_E_S1, P_E_ADC, P_E_AG, P_E_MDC0, P_E_MG0, P_E_R,
   P_E_COSTS, P_E_MDC, P_E_MG,
   P_W0,  // per layer: the weight [out, pow2(in)] then the bias [out]
-  N_PTRS = P_W0 + 2 * kNLayers
+  // the extended heuristic instance only (null otherwise): the uncapped E
+  // grid [n_dc, 2, n_max, n_f], the hourly price [24], the per-DC carbon
+  // intensity, the bandit's arms [R, n_dc, 2, n_f] and select count [R],
+  // and the controller's counters [R, 4] (an output)
+  P_EGRID_FULL = P_W0 + 2 * kNLayers, P_PRICE, P_CARBON, P_BAND_N, P_BAND_S,
+  P_BAND_T, P_CTL,
+  N_PTRS
 };
 
 // Integer parameters, in kernels/event_scan.py's INT_NAMES order.
@@ -181,10 +210,31 @@ enum Int {
   I_RESERVE, I_MAXGPU, I_FHI, I_FLO, I_SCALE_OUT_LOW,
   I_RL, I_GREEDY, I_OBS_DIM, I_PERC_K, I_WH0, I_WH1, I_WLAT, I_WAH,
   I_THREADS, I_SUM_WARPS, I_CLUSTER, I_LEAD,
+  // the extended heuristic instance: on/off, the admission, the routing,
+  // the eco objective, the log tick's control, debug's GPU count, fixed
+  // ladder index (-1: the energy argmin)
+  // and E-grid row, the uncapped grid's rows
+  I_EXT, I_ADM, I_ROUTE, I_ECO_OBJ, I_CAP, I_NUM_FIXED, I_FIXED_F, I_DEBUG_ROW,
+  I_NMAX,
   N_INTS
 };
 
-enum Flt { F_END, F_LOG_INTERVAL, F_SLA_THR, F_NEG_W, F_SLA_MS, N_FLTS };
+enum Flt {
+  F_END, F_LOG_INTERVAL, F_SLA_THR, F_NEG_W, F_SLA_MS,
+  // the extended instance: the power cap, its trigger (cap - margin) and
+  // the router's five weights
+  F_POWER_CAP, F_CAP_THR, F_W_LAT, F_W_E, F_W_C, F_W_COST, F_W_Q,
+  N_FLTS
+};
+
+// the extended instance's choices (kernels/event_scan.py ADM_/ROUTE_/
+// ECO_/CAP_ codes)
+constexpr int ADM_HEUR = 0, ADM_TABLE = 1, ADM_CC = 2, ADM_BANDIT = 3;
+constexpr int RT_RANDOM = 0, RT_ECO = 1, RT_WEIGHTED = 2;
+constexpr int ECO_ENERGY = 0, ECO_CARBON = 1, ECO_COST = 2;
+constexpr int CAP_NONE = 0, CAP_IDLE = 1, CAP_UNIFORM = 2, CAP_GREEDY = 3;
+// float32(1 / 3.6e6): XLA's multiplier for `/ 3.6e6` (sim/algos.py KWH)
+constexpr float kKwh = 2.7777778655035945e-07f;
 
 struct Args {
   void* p[N_PTRS];
@@ -256,6 +306,21 @@ struct Small {
   float st_t0, st_pt0, st_tpt0;
 };
 
+// the extended instance's scalars and tables, in static shared memory of
+// that instance only (`ExtOf`)
+struct Ext {
+  int cc_hour;    // the hour carbon_cost's admission table (sm.jnf_*) is of
+  int eco_key;    // what eco_e holds: eco_route's hour key, -1 none
+  float eco_e[2 * kMaxDC];  // each (dc, jtype)'s energy per unit at its cell
+  float ctl_now[kMaxDC], ctl_lo[kMaxDC];  // cap_uniform's clamped powers
+  unsigned long long gmin;  // cap_greedy's block argmin (key << 32 | atom)
+  float deficit, total;
+  int live, best, newl;
+  long long ticks, iters, cycles;  // the controller's counters
+};
+template <bool kExt> struct ExtOf { using T = Ext; };
+template <> struct ExtOf<false> { using T = int; };
+
 // ---------------------------------------------------------------- helpers
 
 // fmul_pinned: the product rounded once, plus the reference's a*0 fence
@@ -285,6 +350,41 @@ __device__ __forceinline__ int iremainder(int a, int b) {
   int r = a % b;
   if (r != 0 && ((r < 0) != (b < 0))) r += b;
   return r;
+}
+
+// Engine._hour: floor((t mod 86400) / 3600) clipped to [0, 23], exact
+// (t - t mod 3600 is a multiple of 3600)
+__device__ __forceinline__ int hour_of(float t) {
+  const float day = tmod(t, 86400.0f);
+  const float whole = day - tmod(day, 3600.0f);
+  const int h = (int)rintf(whole / 3600.0f);
+  return h < 0 ? 0 : (h > 23 ? 23 : h);
+}
+
+// log of x >= 1 as XLA's CPU code computes a float32 log (ops/bandit.py
+// `xla_log_f32`): the range reduction, the polynomial with the products
+// its backend contracts into fused multiply-adds
+__device__ float xla_log(float x) {
+  x = fmaxf(x, 1.17549435e-38f);
+  const uint32_t b = __float_as_uint(x);
+  float e = (float)((int)(b >> 23) - 127);
+  const float m = __uint_as_float((b & 0x807fffffu) | 0x3f000000u);
+  e = 1.0f + e;
+  const bool small = m < __uint_as_float(0x3f3504f3u);
+  e = e - (small ? 1.0f : 0.0f);
+  const float v = (m - 1.0f) + (small ? m : 0.0f);
+  const float v2 = v * v, v3 = v2 * v;
+  float y = __fmaf_rn(v, __uint_as_float(0x3d9021bbu), __uint_as_float(0xbdebd1b8u));
+  float y1 = __fmaf_rn(v, __uint_as_float(0xbdfe5d4fu), __uint_as_float(0x3e11e9bfu));
+  float y2 = __fmaf_rn(v, __uint_as_float(0x3e4cceacu), __uint_as_float(0xbe7ffffcu));
+  y = __fmaf_rn(y, v, __uint_as_float(0x3def251au));
+  y1 = __fmaf_rn(y1, v, __uint_as_float(0xbe2aae50u));
+  y2 = __fmaf_rn(y2, v, __uint_as_float(0x3eaaaaaau));
+  y = __fmaf_rn(y, v3, y1);
+  y = __fmaf_rn(y, v3, y2);
+  y = __fmaf_rn(y, v3, __uint_as_float(0xb95e8083u) * e);
+  const float r = __fmaf_rn(-0.5f, v2, v) + y;
+  return __fmaf_rn(__uint_as_float(0x3f318000u), e, r);
 }
 
 // int32 arithmetic with int32 wraparound
@@ -1002,8 +1102,11 @@ namespace {
 
 // Everything one lane's block needs; every thread holds a copy.  NT threads
 // (NW warps); thread `tid` is lane `lane` of warp `warp`; kWide: RL mode
-// with a GPU-count head wider than a warp (`rlk::sample_heads`).
-template <int NT, bool kWide = false>
+// with a GPU-count head wider than a warp (`rlk::sample_heads`); kExt: the
+// extended heuristic instance (carbon_cost, debug, bandit, eco and weighted
+// routing, the log tick's control), whose code the default_policy /
+// joint_nf instance does not carry.
+template <int NT, bool kWide = false, bool kExt = false>
 struct Lane {
   static constexpr int NW = NT / 32;
   Small& sm;
@@ -1030,6 +1133,15 @@ struct Lane {
   const float* netlat;    // [n_ing, n_dc]
   const float* egrid;     // E_grid_cap [n_dc, 2, n_cap, n_f]
   int n_cap;
+  // the extended instance
+  Ext* xs;                // shared
+  int adm, route, eco_obj, cap;
+  float power_cap, cap_thr, w_lat, w_e, w_c, w_cost, w_q;
+  const float* price;     // [24]
+  const float* carbon;    // [n_dc]
+  int* band_n;            // [n_dc, 2, n_f] (this lane's)
+  float* band_s;
+  int* band_t;
   // RL mode
   int rl, obs_dim, K, n_g;
   float sla_thr, neg_w, sla_ms, inv_kwh;
@@ -1247,7 +1359,17 @@ struct Lane {
     const int fr = free_for(dcj, jt);
     const int cur = sm.cur_f[dcj];
     int n_d, f_d, new_f;
-    if (algo_jnf) {
+    if (kExt && adm == ADM_BANDIT) {
+      n_d = fr < maxgpu ? fr : maxgpu;
+      f_d = bandit_select(dcj * 2 + jt);
+      new_f = cur;
+    } else if (kExt ? adm != ADM_HEUR : algo_jnf) {
+      // a table of first-minimum cells: joint_nf's and debug's built at
+      // launch, carbon_cost's for the hour of the decision
+      if (kExt && adm == ADM_CC) {
+        const int h = hour_of(sm.t);
+        if (h != xs->cc_hour) cc_tables(h);
+      }
       n_d = sm.jnf_n[dcj * 2 + jt];
       f_d = sm.jnf_f[dcj * 2 + jt];
       new_f = cur;
@@ -1297,6 +1419,315 @@ struct Lane {
     sm.busy[dcj] = wadd(sm.busy[dcj], n_st);
     sm.cur_f[dcj] = new_f;
     sm.dirty[dcj] = 1;
+  }
+
+  // ------------------------------------------------ the extended instance
+  // (thread 0 unless said otherwise)
+
+  // bandit_select for (dc, jtype) q: the first arm never pulled, else the
+  // first maximum of mean + sqrt(2 ln t / n); the select count advances
+  __device__ int bandit_select(int q) {
+    const int t = wadd(*band_t, 1);
+    const int* N = band_n + q * n_f;
+    const float* S = band_s + q * n_f;
+    int f = -1;
+    for (int k = 0; k < n_f; ++k)
+      if (N[k] < 1) {
+        f = k;
+        break;
+      }
+    if (f < 0) {
+      const float lt = xla_log(fmaxf((float)t, 1.0f));
+      float best = 0.0f;
+      for (int k = 0; k < n_f; ++k) {
+        const float ns = (float)(N[k] > 1 ? N[k] : 1);
+        const float mean = N[k] > 0 ? S[k] / ns : 0.0f;
+        const float ucb = mean + sqrtf((lt * 2.0f) / ns);
+        if (k == 0 || ucb > best || (isnan(ucb) && !isnan(best))) {
+          best = ucb;
+          f = k;
+        }
+      }
+    }
+    *band_t = t;
+    return f;
+  }
+
+  // carbon_cost's admission table for hour h: each (dc, jtype)'s first
+  // minimum of E * (price * kKwh) over the capped grid when the price is
+  // positive, else of E * ci
+  __device__ void cc_tables(int h) {
+    const float pr = price[h];
+    const float pc = pr * kKwh;
+    for (int q = 0; q < 2 * n_dc; ++q) {
+      const float ci = carbon[q >> 1];
+      const float* eg = egrid + (long long)q * n_cap * n_f;
+      float bv = 0.0f;
+      int bi = 0;
+      for (int k = 0; k < n_cap * n_f; ++k) {
+        const float v = pr > 0.0f ? eg[k] * pc : eg[k] * ci;
+        if (k == 0 || before(v, k, bv, bi)) {
+          bv = v;
+          bi = k;
+        }
+      }
+      sm.jnf_n[q] = bi / n_f + 1;
+      sm.jnf_f[q] = bi % n_f;
+    }
+    xs->cc_hour = h;
+  }
+
+  // route_eco's first half for the hour key: each (dc, jtype)'s energy per
+  // unit at its first-minimum cell of the objective's grid score
+  __device__ void eco_tables(int key, float pc) {
+    for (int q = 0; q < 2 * n_dc; ++q) {
+      const float ci = carbon[q >> 1];
+      const float* eg = egrid + (long long)q * n_cap * n_f;
+      float bv = 0.0f;
+      int bi = 0;
+      for (int k = 0; k < n_cap * n_f; ++k) {
+        const float v = eco_obj == ECO_ENERGY   ? eg[k]
+                        : eco_obj == ECO_CARBON ? eg[k] * ci
+                                                : eg[k] * pc;
+        if (k == 0 || before(v, k, bv, bi)) {
+          bv = v;
+          bi = k;
+        }
+      }
+      xs->eco_e[q] = eg[bi];
+    }
+    xs->eco_key = key;
+  }
+
+  // the DC an arrival of (ing, jt, size) is routed to: route_eco's or
+  // route_weighted's first minimum over the DCs
+  __device__ int route_det(int ing, int jt, float size) {
+    const int h = hour_of(sm.t);
+    const float pc = price[h] * kKwh;
+    if (route == RT_ECO) {
+      const int key = eco_obj == ECO_COST ? h : 0;
+      if (key != xs->eco_key) eco_tables(key, pc);
+    }
+    float bv = 0.0f;
+    int bd = 0;
+    for (int d = 0; d < n_dc; ++d) {
+      const float e_job = xs->eco_e[d * 2 + jt] * size;
+      float v;
+      if (route == RT_ECO) {
+        v = eco_obj == ECO_ENERGY   ? e_job
+            : eco_obj == ECO_CARBON ? (e_job * kKwh) * carbon[d]
+                                    : e_job * pc;
+      } else {  // RouterPolicy.score, summed left to right
+        const int ql = wadd(wsub(sm.qtail[2 * d], sm.qhead[2 * d]),
+                            wsub(sm.qtail[2 * d + 1], sm.qhead[2 * d + 1]));
+        v = w_lat * netlat[ing * n_dc + d];
+        v = v + w_e * e_job;
+        v = v + w_c * ((e_job * kKwh) * carbon[d]);
+        v = v + w_cost * (e_job * pc);
+        v = v + w_q * (float)ql;
+      }
+      if (d == 0 || before(v, d, bv, bd)) {
+        bv = v;
+        bd = d;
+      }
+    }
+    return bd;
+  }
+
+  // task_power_w(n, f) of (dc, jtype) q
+  __device__ float task_power(int q, float f, int n) {
+    const int n2 = n > 0 ? n : 0;
+    const float f2 = clamp_min(f, 0.0f);
+    const float gp = fmulp(sm.pa[q], (f2 * f2) * f2) + fmulp(sm.pb[q], f2) +
+                     sm.pg[q];
+    return fmulp((float)n2, gp);
+  }
+
+  // tree_sum_last over the DCs of x (thread 0)
+  __device__ float dc_total(const float* x) {
+    float v[kMaxDC];
+    int p = 1;
+    while (p < n_dc) p <<= 1;
+    for (int i = 0; i < p; ++i) v[i] = i < n_dc ? x[i] : 0.0f;
+    while (p > 1) {
+      p >>= 1;
+      for (int i = 0; i < p; ++i) v[i] = v[i] + v[i + p];
+    }
+    return v[0];
+  }
+
+  // every DC's _dc_power again where a controller changed a running job's
+  // watts (every thread; ends with a barrier)
+  __device__ void refresh_powers() {
+    for (int j = tid; j < J; j += NT)
+      vals[j] = I(JI_STATUS, j) == ST_RUNNING ? F(JF_WATTS, j) : 0.0f;
+    bar();
+    dc_tree_sums(sm.active, true);
+    if (tid < n_dc) {
+      const int d = tid;
+      sm.powers[d] = sm.active[d] +
+                     fmulp((float)wsub(sm.total[d], sm.busy[d]), sm.idle_w[d]);
+      sm.dirty[d] = 0;
+    }
+    bar();
+  }
+
+  // _control at the top of a log tick (every thread; ends with a barrier):
+  // idle DCs to ladder index 0 (eco_route / carbon_cost under a cap), or a
+  // cap controller when the fleet's power exceeds cap - margin
+  __device__ void control() {
+    if (cap == CAP_IDLE) {
+      if (tid < n_dc && sm.busy[tid] == 0) sm.cur_f[tid] = 0;
+      bar();
+      return;
+    }
+    long long c0 = 0;
+    if (tid == 0) {
+      c0 = clock64();
+      xs->total = dc_total(sm.powers);
+      xs->live = xs->total > cap_thr;
+    }
+    bar();
+    const int need = xs->live;
+    bar();  // read by every thread before thread 0 writes it again
+    if (!need) return;
+    if (cap == CAP_UNIFORM) cap_uniform();
+    else if (cap == CAP_GREEDY) cap_greedy();
+    if (tid == 0) {
+      xs->ticks += 1;
+      xs->cycles += clock64() - c0;
+    }
+  }
+
+  // _cap_uniform: lower by one step the DC whose step saves the most power
+  // while the deficit lasts (every thread)
+  __device__ void cap_uniform() {
+    if (tid == 0) {
+      xs->deficit = clamp_min(xs->total - power_cap, 0.0f);
+      xs->live = xs->deficit > 1e-6f;
+    }
+    bar();
+    while (xs->live) {
+      // each DC's running power clamped to its level, then one level lower
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int j = tid; j < J; j += NT) {
+          float v = 0.0f;
+          if (I(JI_STATUS, j) == ST_RUNNING) {
+            const int d = I(JI_DC, j);
+            const int lv = pass == 0 ? sm.cur_f[d]
+                                     : (sm.cur_f[d] > 0 ? sm.cur_f[d] - 1 : 0);
+            const int fi = I(JI_FIDX, j) < lv ? I(JI_FIDX, j) : lv;
+            v = task_power(d * 2 + I(JI_JTYPE, j), sm.freq[fi], I(JI_N, j));
+          }
+          vals[j] = v;
+        }
+        bar();
+        dc_tree_sums(pass == 0 ? xs->ctl_now : xs->ctl_lo, false);
+      }
+      if (tid == 0) {
+        xs->iters += 1;
+        int best = 0;
+        float bdp = 0.0f;
+        for (int d = 0; d < n_dc; ++d) {
+          const float dp = sm.cur_f[d] > 0 ? xs->ctl_now[d] - xs->ctl_lo[d] : 0.0f;
+          if (d == 0 || dp > bdp || (isnan(dp) && !isnan(bdp))) {
+            bdp = dp;
+            best = d;
+          }
+        }
+        const bool ok = bdp > 1e-9f;
+        xs->best = ok ? best : -1;
+        if (ok) {
+          const int nl = sm.cur_f[best] > 0 ? sm.cur_f[best] - 1 : 0;
+          xs->newl = nl;
+          sm.cur_f[best] = nl;
+          sm.dirty[best] = 1;
+          xs->deficit = xs->deficit - bdp;
+        }
+        xs->live = ok && xs->deficit > 1e-6f;
+      }
+      bar();
+      const int b = xs->best;
+      if (b >= 0) {  // clamp the DC's running jobs, refresh their physics
+        const int nl = xs->newl;
+        for (int j = tid; j < J; j += NT) {
+          if (I(JI_STATUS, j) != ST_RUNNING || I(JI_DC, j) != b) continue;
+          const int fi = I(JI_FIDX, j) < nl ? I(JI_FIDX, j) : nl;
+          float spu, watts;
+          row_tp(b, I(JI_JTYPE, j), I(JI_N, j), fi, spu, watts);
+          I(JI_FIDX, j) = fi;
+          F(JF_SPU, j) = spu;
+          F(JF_WATTS, j) = watts;
+        }
+      }
+      bar();
+    }
+    refresh_powers();
+  }
+
+  // _cap_greedy: apply the cheapest ladder step k -> k-1 of any running job
+  // by rho = dP / dV (first minimum over the job-major [J, n_f - 1] atoms)
+  // while the fleet's power exceeds the cap (every thread)
+  __device__ void cap_greedy() {
+    if (tid == 0) xs->live = xs->total > power_cap;
+    bar();
+    const int n_at = n_f - 1;
+    while (xs->live) {
+      if (tid == 0) xs->gmin = ~0ull;
+      bar();
+      uint32_t bk = 0xffffffffu;
+      int bi = 0x7fffffff;
+      for (int j = tid; j < J; j += NT) {
+        if (I(JI_STATUS, j) != ST_RUNNING) continue;
+        const int q = I(JI_DC, j) * 2 + I(JI_JTYPE, j), n = I(JI_N, j);
+        const int top = I(JI_FIDX, j) < n_at ? I(JI_FIDX, j) : n_at;
+        float p0 = task_power(q, sm.freq[0], n);
+        float v0 = 1.0f / step_time(q, sm.freq[0], n);
+        for (int k = 1; k <= top; ++k) {
+          const float p1 = task_power(q, sm.freq[k], n);
+          const float v1 = 1.0f / step_time(q, sm.freq[k], n);
+          const float dp = clamp_min(p1 - p0, 0.0f);
+          const float dv = clamp_min(v1 - v0, 0.0f);
+          if (dv > 0.0f) {
+            const float rho = dp / clamp_min(dv, 1e-12f);
+            const uint32_t key = order_key(rho);
+            if (isfinite(rho) && key < bk) {
+              bk = key;
+              bi = j * n_at + (k - 1);
+            }
+          }
+          p0 = p1;
+          v0 = v1;
+        }
+      }
+      const uint32_t wk = __reduce_min_sync(kAll, bk);
+      const int wi = __reduce_min_sync(kAll, bk == wk ? bi : 0x7fffffff);
+      if (lane == 0 && wk != 0xffffffffu)
+        atomicMin(&xs->gmin, ((unsigned long long)wk << 32) | (unsigned)wi);
+      bar();
+      if (tid == 0) {
+        xs->iters += 1;
+        const unsigned long long g = xs->gmin;
+        xs->best = -1;
+        if (g != ~0ull) {
+          const int idx = (int)(unsigned)(g & 0xffffffffu);
+          const int j = idx / n_at, tgt = idx % n_at;
+          const int dcj = I(JI_DC, j);
+          float spu, watts;
+          row_tp(dcj, I(JI_JTYPE, j), I(JI_N, j), tgt, spu, watts);
+          I(JI_FIDX, j) = tgt;
+          F(JF_SPU, j) = spu;
+          F(JF_WATTS, j) = watts;
+          sm.dirty[dcj] = 1;
+          xs->best = j;
+        }
+      }
+      bar();
+      if (xs->best < 0) break;
+      refresh_powers();
+      if (tid == 0) xs->live = dc_total(sm.powers) > power_cap;
+      bar();
+    }
   }
 
   // _drain_queues(masked=True, xfer=...): at most k_drain starts; iteration
@@ -1516,6 +1947,11 @@ struct Lane {
     sm.n_fin[jt] = wadd(sm.n_fin[jt], 1);
     sm.units_fin[jt] = sm.units_fin[jt] + size_j;
     if (rl) rl_valid[j] = 0;
+    if (kExt && adm == ADM_BANDIT) {  // the finished arm's reward
+      const int a = (dcj * 2 + jt) * n_f + I(JI_FIDX, j);
+      band_n[a] = wadd(band_n[a], 1);
+      band_s[a] = band_s[a] - Ep;
+    }
   }
 
   __device__ void arrival() {  // thread 0
@@ -1527,7 +1963,9 @@ struct Lane {
     if (idx < 0) idx = 0;
     const float size = sizes[(long long)s * n_tab + idx];
     const float t_next_arr = tnext[(long long)s * n_tab + idx];
-    const int dc_sel = tf::randint(sm.kev0, sm.kev1, n_dc);
+    const int dc_sel = (kExt && route != RT_RANDOM)
+                           ? route_det(ing, jt, size)
+                           : tf::randint(sm.kev0, sm.kev1, n_dc);
     const float xfer_s = transfer[(ing * n_dc + dc_sel) * 2 + jt];
     const float nl = netlat[ing * n_dc + dc_sel];
     const float t_avail = t + xfer_s;
@@ -1569,6 +2007,9 @@ struct Lane {
   // ------------------------------------------------ B1e: the log tick
 
   __device__ void log_tick(int i) {
+    if constexpr (kExt) {
+      if (cap != CAP_NONE) control();
+    }
     for (int j = tid; j < J; j += NT) {
       const bool running = I(JI_STATUS, j) == ST_RUNNING;
       const float tpt = running ? 1.0f / F(JF_SPU, j) : 0.0f;
@@ -2053,12 +2494,14 @@ namespace {
 // kRL: chsac_af's RL mode.  A separate instantiation, so the heuristic
 // kernel carries none of the RL code's registers or stack; NT: the block's
 // threads (the wrapper's choice, one of kernel_of's below); kWide: RL mode
-// with more than 32 GPU-count actions.
-template <bool kRL, int NT, bool kWide>
+// with more than 32 GPU-count actions; kExt: the extended heuristic
+// instance (`Lane`).
+template <bool kRL, int NT, bool kWide, bool kExt>
 __global__ void __launch_bounds__(NT)
     event_scan_kernel(const Args a) {
   extern __shared__ __align__(16) float dyn[];
   __shared__ Small sm;
+  __shared__ typename ExtOf<kExt>::T xs_sm;
   __shared__ rlk::Policy pol;
   __shared__ rlk::Slice slice;
   const int tid = threadIdx.x;
@@ -2070,7 +2513,7 @@ __global__ void __launch_bounds__(NT)
   const int n_ing = a.i[I_NING], S = 2 * n_ing, n_f = a.i[I_NF];
   const int Q = a.i[I_Q], W = a.i[I_W], n_tab = a.i[I_NTAB];
   const int n_steps = a.i[I_NSTEPS], n_cap = a.i[I_NCAP];
-  Lane<NT, kWide> L{sm};
+  Lane<NT, kWide, kExt> L{sm};
   L.tid = tid;
   L.lane = tid & 31;
   L.warp = tid >> 5;
@@ -2147,6 +2590,32 @@ __global__ void __launch_bounds__(NT)
   L.netlat = reinterpret_cast<const float*>(a.p[P_NETLAT]);
   L.egrid = reinterpret_cast<const float*>(a.p[P_EGRID]);
   L.n_cap = n_cap;
+  long long t_launch = 0;
+  if constexpr (kExt) {
+    L.xs = &xs_sm;
+    L.adm = a.i[I_ADM];
+    L.route = a.i[I_ROUTE];
+    L.eco_obj = a.i[I_ECO_OBJ];
+    L.cap = a.i[I_CAP];
+    L.power_cap = a.f[F_POWER_CAP];
+    L.cap_thr = a.f[F_CAP_THR];
+    L.w_lat = a.f[F_W_LAT];
+    L.w_e = a.f[F_W_E];
+    L.w_c = a.f[F_W_C];
+    L.w_cost = a.f[F_W_COST];
+    L.w_q = a.f[F_W_Q];
+    L.price = reinterpret_cast<const float*>(a.p[P_PRICE]);
+    L.carbon = reinterpret_cast<const float*>(a.p[P_CARBON]);
+    L.band_n = lane_ptr<int>(a, P_BAND_N, (long long)n_dc * 2 * n_f, r);
+    L.band_s = lane_ptr<float>(a, P_BAND_S, (long long)n_dc * 2 * n_f, r);
+    L.band_t = lane_ptr<int>(a, P_BAND_T, 1, r);
+    if (tid == 0) {
+      t_launch = clock64();
+      xs_sm.cc_hour = -1;
+      xs_sm.eco_key = -1;
+      xs_sm.ticks = xs_sm.iters = xs_sm.cycles = 0;
+    }
+  }
   const int rl = kRL;
   L.rl = rl;
   float* lat_global = L.lat_buf;
@@ -2233,6 +2702,31 @@ __global__ void __launch_bounds__(NT)
       }
     sm.jnf_n[q] = bi / n_f + 1;
     sm.jnf_f[q] = bi % n_f;
+    if constexpr (kExt) {
+      if (L.adm == ADM_TABLE && !L.algo_jnf) {
+        // debug: the fixed GPU count, and the fixed ladder index or the
+        // first energy minimum of the UNcapped grid's row
+        sm.jnf_n[q] = a.i[I_NUM_FIXED];
+        int fi = a.i[I_FIXED_F];
+        if (fi < 0) {
+          const float* row = reinterpret_cast<const float*>(a.p[P_EGRID_FULL]) +
+                             ((long long)q * a.i[I_NMAX] + a.i[I_DEBUG_ROW]) * n_f;
+          float rv = row[0];
+          fi = 0;
+          for (int k = 1; k < n_f; ++k)
+            if (before(row[k], k, rv, fi)) {
+              rv = row[k];
+              fi = k;
+            }
+        }
+        sm.jnf_f[q] = fi;
+      }
+      if (L.route == RT_WEIGHTED) {  // each (dc, jtype)'s least energy
+        float m = eg[0];
+        for (int k = 1; k < n_cap * n_f; ++k) m = fminf(m, eg[k]);
+        xs_sm.eco_e[q] = m;
+      }
+    }
   }
   for (int k = tid; k < n_f; k += NT)
     sm.freq[k] = reinterpret_cast<const float*>(a.p[P_FREQ])[k];
@@ -2328,6 +2822,15 @@ __global__ void __launch_bounds__(NT)
   }
   if constexpr (kRL)
     for (int k = tid; k < 2 * W; k += NT) lat_global[k] = L.lat_buf[k];
+  if constexpr (kExt) {
+    if (tid == 0 && a.p[P_CTL] != nullptr) {
+      long long* ctl = lane_ptr<long long>(a, P_CTL, 4, r);
+      ctl[0] = xs_sm.ticks;
+      ctl[1] = xs_sm.iters;
+      ctl[2] = xs_sm.cycles;
+      ctl[3] = clock64() - t_launch;
+    }
+  }
   if (tid == 0) {
     lane_ptr<float>(a, P_T, 1, r)[0] = sm.t;
     int64_t* key = lane_ptr<int64_t>(a, P_KEY, 2, r);
@@ -2461,20 +2964,22 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
 // The block widths each mode is built for (kernels/event_scan.py
 // BLOCK_WIDTHS; the wrapper picks one); RL mode in a second instance for
 // GPU-count heads wider than a warp.
-template <bool kRL, bool kWide>
+template <bool kRL, bool kWide, bool kExt>
 void (*kernel_of(int threads))(Args) {
   switch (threads) {
-    case 32: return event_scan_kernel<kRL, 32, kWide>;
-    case 256: return event_scan_kernel<kRL, 256, kWide>;
+    case 32: return event_scan_kernel<kRL, 32, kWide, kExt>;
+    case 256: return event_scan_kernel<kRL, 256, kWide, kExt>;
     default: return nullptr;
   }
 }
 
 void (*kernel_of(const int* ints))(Args) {
   const int threads = ints[I_THREADS];
-  if (!ints[I_RL]) return kernel_of<false, false>(threads);
-  return ints[I_MAXGPU] > 32 ? kernel_of<true, true>(threads)
-                             : kernel_of<true, false>(threads);
+  if (!ints[I_RL])
+    return ints[I_EXT] ? kernel_of<false, false, true>(threads)
+                       : kernel_of<false, false, false>(threads);
+  return ints[I_MAXGPU] > 32 ? kernel_of<true, true, false>(threads)
+                             : kernel_of<true, false, false>(threads);
 }
 
 void (*tail_kernel_of(const int* ints))(TailArgs) {
@@ -2630,6 +3135,12 @@ extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
   const int cs = a.i[I_RL] ? a.i[I_CLUSTER] : 1;
   if (kernel == nullptr || sum_warps < 1 || sum_warps > threads / 32) return -2;
   if (a.i[I_RL] && (!policy_ok(a) || !cluster_ok(a.i))) return -2;
+  if (a.i[I_EXT] &&
+      (a.i[I_RL] || a.p[P_PRICE] == nullptr || a.p[P_CARBON] == nullptr ||
+       a.p[P_BAND_N] == nullptr || a.p[P_BAND_S] == nullptr ||
+       a.p[P_BAND_T] == nullptr || a.p[P_EGRID_FULL] == nullptr ||
+       a.i[I_DEBUG_ROW] < 0 || a.i[I_DEBUG_ROW] >= a.i[I_NMAX]))
+    return -2;
   const long long smem = event_scan_smem_bytes(a.i);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -2638,7 +3149,8 @@ extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
                                dev);
   if (err != cudaSuccess) return (int)err;
   if (smem + (long long)(sizeof(Small) + sizeof(rlk::Policy) +
-                         sizeof(rlk::Slice)) > optin)
+                         sizeof(rlk::Slice) + (a.i[I_EXT] ? sizeof(Ext) : 0)) >
+      optin)
     return -3;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

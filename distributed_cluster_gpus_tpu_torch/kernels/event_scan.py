@@ -13,8 +13,14 @@ the same launch runs the policy tail of every event as device functions:
 the windowed p99 (B3, ``sim/algos.py:210``) and the observation, masks,
 encoder/actor forward and categorical sample (B4, ``sim/engine.py:3454``
 ``_tail_head`` + ``:3584`` ``_policy_tail_planned`` + ``:1840``
-``_commit_tail``).  ``csrc/event_scan.cu``'s head note gives its design and
-what bounds it on the card.
+``_commit_tail``).  The heuristic algorithms past default_policy and
+joint_nf (carbon_cost, debug, bandit, eco_route, the cap controllers) and
+weighted routing run in a second heuristic instance of the kernel
+(:func:`ext_plan`; admission sites ``sim/engine.py:772-829`` and
+``:1046-1078``, the bandit's ``:1573-1578`` and ``:1651-1656``, routing
+``:1732-1753``, the log tick's control ``:1988-2205`` and ``:2776``), so
+the first instance compiles to what it ran before.  ``csrc/event_scan.cu``'s
+head note gives its design and what bounds it on the card.
 
 :func:`event_scan` is the wrapper ``Engine.run_chunk`` calls.  Its first
 argument is a ``sim.step.StepProgram`` (an ``Engine`` is one): the fleet
@@ -45,7 +51,9 @@ import dataclasses
 
 import torch
 
-from ..models.structs import (ALGO_CHSAC_AF, ALGO_JOINT_NF, CORE_JOB_FIELDS,
+from ..models.structs import (ALGO_BANDIT, ALGO_CAP_GREEDY, ALGO_CAP_UNIFORM,
+                              ALGO_CARBON_COST, ALGO_CHSAC_AF, ALGO_DEBUG,
+                              ALGO_ECO_ROUTE, ALGO_JOINT_NF, CORE_JOB_FIELDS,
                               lane_view, n_lanes, write_lane)
 from ..sim import algos
 
@@ -106,6 +114,11 @@ PTR_NAMES = (
     "jobs.rl_mask_g0", "jobs.rl_valid",
     *("em.rl." + f for f in RL_EM_FIELDS),
     *(f"w.{k}" for k in range(2 * N_LAYERS)),
+    # the extended heuristic instance only (0 otherwise): the uncapped E
+    # grid, the hourly price, the per-DC carbon, the bandit's arms and its
+    # select count, and the controller's counters (an output)
+    "E_grid", "price_hourly", "carbon", "bandit.N", "bandit.S", "bandit.t",
+    "out.ctl",
 )
 #: the integer parameters, in csrc/event_scan.cu's `enum Int` order
 INT_NAMES = (
@@ -119,11 +132,54 @@ INT_NAMES = (
     # in RL mode the blocks of the lane's cluster and whether block 0 holds
     # a slice of the weights
     "threads", "sum_warps", "cluster", "lead",
+    # the extended instance (:func:`ext_plan`): on/off, admission, routing,
+    # eco objective, the log tick's control; debug's GPU count, fixed ladder
+    # index (-1: the energy argmin) and E-grid row; the uncapped grid's rows
+    "ext", "adm", "route", "eco_obj", "cap", "num_fixed", "fixed_f",
+    "debug_row", "n_max",
 )
 #: the float parameters, in csrc/event_scan.cu's `enum Flt` order
-FLT_NAMES = ("end", "log_interval", "sla_thr", "neg_w", "sla_ms")
+FLT_NAMES = ("end", "log_interval", "sla_thr", "neg_w", "sla_ms",
+             "power_cap", "cap_thr", "w_lat", "w_e", "w_c", "w_cost", "w_q")
+
+#: csrc/event_scan.cu's codes for the extended instance's choices
+ADM_HEUR, ADM_TABLE, ADM_CC, ADM_BANDIT = 0, 1, 2, 3
+ROUTE_RANDOM, ROUTE_ECO, ROUTE_WEIGHTED = 0, 1, 2
+ECO_CODES = {"energy": 0, "carbon": 1, "cost": 2}
+CAP_NONE, CAP_IDLE, CAP_UNIFORM, CAP_GREEDY = 0, 1, 2, 3
+#: the counters the extended instance writes per lane (``stats["ctl"]``):
+#: log ticks the cap controller ran in, its iterations, its clock cycles and
+#: the lane's cycles over the whole launch
+CTL_FIELDS = ("ticks", "iters", "cycles", "launch_cycles")
+
+
+def ext_plan(params):
+    """{adm, route, eco_obj, cap} of a configuration, and whether it takes
+    the extended instance (any choice off the default_policy / joint_nf
+    program: carbon_cost, debug or bandit admission, eco or weighted
+    routing, a log tick that controls)."""
+    algo = params.algo
+    adm = {ALGO_JOINT_NF: ADM_TABLE, ALGO_DEBUG: ADM_TABLE,
+           ALGO_CARBON_COST: ADM_CC, ALGO_BANDIT: ADM_BANDIT}.get(algo, ADM_HEUR)
+    route = (ROUTE_ECO if algo == ALGO_ECO_ROUTE
+             else ROUTE_WEIGHTED if params.router_weights is not None
+             else ROUTE_RANDOM)
+    cap = CAP_NONE
+    if params.power_cap > 0:
+        cap = {ALGO_ECO_ROUTE: CAP_IDLE, ALGO_CARBON_COST: CAP_IDLE,
+               ALGO_CAP_UNIFORM: CAP_UNIFORM,
+               ALGO_CAP_GREEDY: CAP_GREEDY}.get(algo, CAP_NONE)
+    plan = {"adm": adm, "route": route,
+            "eco_obj": ECO_CODES[params.eco_objective], "cap": cap}
+    ext = algo != ALGO_CHSAC_AF and (
+        algo in (ALGO_CARBON_COST, ALGO_DEBUG, ALGO_BANDIT)
+        or route != ROUTE_RANDOM or cap != CAP_NONE)
+    return ext, plan
 
 _I32, _F32, _I64, _BOOL = torch.int32, torch.float32, torch.int64, torch.bool
+#: the pointers only the extended instance reads (0 for the others)
+EXT_PTRS = ("E_grid", "price_hourly", "carbon", "bandit.N", "bandit.S",
+            "bandit.t", "out.ctl")
 _JOB_DTYPES = {
     "status": _I32, "jtype": _I32, "ingress": _I32, "dc": _I32, "seq": _I32,
     "size": _F32, "units_done": _F32, "n": _I32, "f_idx": _I32,
@@ -273,6 +329,9 @@ def _lane_specs(prog, R: int, n_tab: int):
     }
     for f, dt in _JOB_DTYPES.items():
         specs["jobs." + f] = (dt, lane(J))
+    specs["bandit.N"] = (_I32, lane(n_dc, 2, fleet.n_f))
+    specs["bandit.S"] = (_F32, lane(n_dc, 2, fleet.n_f))
+    specs["bandit.t"] = (_I32, lane())
     specs["jobs.rl_obs0"] = (_F32, lane(J, p.obs_dim(n_dc)))
     specs["jobs.rl_mask_dc0"] = (_BOOL, lane(J, n_dc))
     specs["jobs.rl_mask_g0"] = (_BOOL, lane(J, p.max_gpus_per_job))
@@ -321,14 +380,19 @@ def event_scan_reference(prog, state, pre, n_steps: int, policy_params=None):
     R, _ = _validate(prog, state, pre, n_steps)
     ems = []
     stats = {"events": 0, "host_reads": 0}
+    ctl = torch.zeros((R, len(CTL_FIELDS)), dtype=_I64)
     for r in range(R):
         st = lane_view(state, r)
+        before = (prog.ctl_ticks, prog.ctl_iters)
         em, s = prog.scan_plain(st, {k: v[r] for k, v in pre.items()}, n_steps,
                                 policy_params)
         write_lane(state, r, st)
         ems.append(em)
         for k in stats:
             stats[k] += s[k]
+        ctl[r, 0] = prog.ctl_ticks - before[0]
+        ctl[r, 1] = prog.ctl_iters - before[1]
+    stats["ctl"] = ctl
     return _stack(ems), stats
 
 
@@ -376,14 +440,22 @@ def kernel_ints(prog, R: int, n_steps: int, n_tab: int, greedy: bool = False,
         "w_ah": widths[3],
         "threads": threads, "sum_warps": n_sum, "cluster": cs, "lead": lead,
     }
+    ext, plan = ext_plan(p)
+    vals.update(plan, ext=int(ext), num_fixed=p.num_fixed_gpus,
+                fixed_f=(algos.f_idx_of(fleet, p.fixed_freq)
+                         if p.fixed_freq is not None else -1),
+                debug_row=prog.debug_row, n_max=fleet.n_max)
     return [int(vals[k]) for k in INT_NAMES]
 
 
 def kernel_floats(prog):
     """The kernel's float parameters, in FLT_NAMES order (float32)."""
     p = prog.params
+    w = p.router_weights if p.router_weights is not None else (0.0,) * 5
     return [float(p.duration), float(p.log_interval), 0.9 * p.sla_p99_ms,
-            -float(p.rl_energy_weight), float(p.sla_p99_ms)]
+            -float(p.rl_energy_weight), float(p.sla_p99_ms),
+            float(p.power_cap), float(p.power_cap - p.cap_margin_w),
+            *(float(x) for x in w)]
 
 
 #: what B1's RL mode takes: the policy's observations and heads
@@ -512,7 +584,10 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
         em["rl"] = {k: v.unsqueeze(0).expand((R,) + tuple(v.shape)).contiguous()
                     for k, v in prog.rl_emissions(n_steps).items()}
     consts = prog.kernel_consts()
-    src = {"pre": pre, "em": em}
+    ext, _ = ext_plan(prog.params)
+    ctl = (torch.zeros((R, len(CTL_FIELDS)), dtype=_I64, device=dev)
+           if ext else None)
+    src = {"pre": pre, "em": em, "out": {"ctl": ctl}}
     ptrs = []
     for name in PTR_NAMES:
         head = name.split(".")[0]
@@ -523,7 +598,10 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
         if (name.startswith("em.rl.") or name.startswith("jobs.rl_")) and not rl:
             ptrs.append(0)
             continue
-        if head in ("pre", "em"):
+        if name in EXT_PTRS and not ext:
+            ptrs.append(0)
+            continue
+        if head in ("pre", "em", "out"):
             t = _get(src, name)
         elif name in consts:
             t = consts[name]
@@ -545,13 +623,17 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
         raise RuntimeError(f"event_scan kernel launch failed: {_launch_error(rc)}")
     event_scan.launches += 1
     event_scan.rl_launches += rl
-    return em, {"events": None, "host_reads": None}
+    event_scan.ext_launches += ext
+    return em, {"events": None, "host_reads": None, "ctl": ctl}
 
 
 #: kernel launches; ``rl_launches`` counts those in RL mode, which run the
 #: B3 and B4 device code inside the event loop
 event_scan.launches = 0
 event_scan.rl_launches = 0
+#: launches of the extended heuristic instance (carbon_cost, debug, bandit,
+#: eco / weighted routing, the cap controllers)
+event_scan.ext_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ converts leaf by leaf in either direction (``bridge.py``).  Differences:
 * state classes are plain mutable dataclasses whose leaves are tensors on
   one explicit device; the engine updates them in place where that saves
   a copy (JAX's arrays are immutable, so its engine rebuilds the tree);
-* the bandit, fault, telemetry and signal sub-states belong to later
-  slices of the port and are absent;
+* the fault, telemetry and signal sub-states belong to later slices of
+  the port and are absent;
 * PRNG keys are ``int64`` tensors of shape ``[2]`` holding the two 32-bit
   threefry words (see ``ops/prng.py``).
 """
@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.bandit import BanditState
 from ..ops.physics import LatencyCoeffs, PowerCoeffs
 
 ALGO_DEFAULT = "default_policy"
@@ -45,8 +46,8 @@ ALGO_CODES = (
     ALGO_DEBUG,
 )
 
-#: the algorithms this port runs; the rest raise with their ROADMAP item
-PORTED_ALGOS = (ALGO_DEFAULT, ALGO_JOINT_NF, ALGO_CHSAC_AF)
+#: the algorithms this port runs (every SimParams algorithm)
+PORTED_ALGOS = ALGO_CODES
 
 N_JTYPE = 2  # 0 = inference, 1 = training
 
@@ -164,6 +165,7 @@ class SimState:
     arr_epoch: torch.Tensor  # [n_ing, 2]
     next_log_t: torch.Tensor
     lat: LatWindow
+    bandit: BanditState  # the UCB1 arms (read and written under bandit only)
     queues: QueueRings
     n_events: torch.Tensor  # int32
     n_finished: torch.Tensor  # [2] int32
@@ -226,8 +228,7 @@ class FleetSpec:
 class SimParams:
     """Static run shape; same fields, defaults and checks as the JAX package.
 
-    Fields of later slices (faults, obs, bandit, RL, superstep, weighted
-    routing) are kept so configurations carry over unchanged; the engine
+    Fields of later slices (faults, obs, superstep, slab queues) are kept so configurations carry over unchanged; the engine
     refuses values it does not port yet (`sim.engine.check_ported`)."""
 
     algo: str = ALGO_DEFAULT

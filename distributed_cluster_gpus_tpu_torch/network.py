@@ -119,3 +119,23 @@ def precompute_net_matrices(
         "bottleneck_gbps": bneck,
         "cost_per_gb": cost,
     }
+
+
+@dataclass(frozen=True)
+class RouterPolicy:
+    """DC-scoring weight vector for ingress routing (``--router-weights``):
+    ``sim.algos.route_weighted`` sends an arrival to the DC of least
+    :meth:`score`."""
+
+    w_latency: float = 1.0
+    w_energy: float = 0.0
+    w_carbon: float = 0.0
+    w_cost: float = 0.0
+    w_queue: float = 0.0
+
+    def score(self, latency_s, energy_j, carbon_g, cost_usd, queue_len):
+        """Lower is better; per-DC tensors.  The five weighted terms are
+        summed left to right, as the JAX package's expression is."""
+        return (self.w_latency * latency_s + self.w_energy * energy_j
+                + self.w_carbon * carbon_g + self.w_cost * cost_usd
+                + self.w_queue * queue_len)

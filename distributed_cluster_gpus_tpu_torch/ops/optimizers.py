@@ -3,8 +3,9 @@
 Counterpart of ``distributed_cluster_gpus_tpu/ops/optimizers.py``:
 ``nf_energy_table`` (``joint_nf`` reads it through
 ``sim.algos.admit_joint_nf``) and ``min_n_for_sla`` (the ``gpu_over`` cost
-of the chsac_af reward record).  ``best_nf_grid`` serves carbon/cost
-admission, a later slice (ROADMAP queue A item 5).
+of the chsac_af reward record).  The reference's ``best_nf_grid`` is not
+on the engine's path: carbon/cost admission scores the grid itself
+(``sim.algos.admit_carbon_cost``).
 """
 
 from __future__ import annotations

@@ -2,18 +2,22 @@
 
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo joint_nf \\
         --duration 600 --out runs/joint_nf [--device cpu]
+    python -m distributed_cluster_gpus_tpu_torch.run_sim --algo cap_greedy \\
+        --power-cap 150000 --duration 600 --out runs/cap_greedy
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
         --duration 600 --out runs/chsac [--critic-arch heads]
 
 The port's counterpart of the repo's ``run_sim.py`` for the flags the port
-honours: the heuristic algorithms ``default_policy`` and ``joint_nf``, and
+honours: every heuristic algorithm (``default_policy``, ``cap_uniform``,
+``cap_greedy``, ``joint_nf``, ``bandit``, ``carbon_cost``, ``eco_route``,
+``debug``) with the power cap and its control interval, the eco objective,
+``--router-weights`` and debug's fixed GPU count and frequency, and
 ``chsac_af`` online (the policy runs inside the event loop and feeds the
 replay ring; once ``--rl-warmup`` transitions are in it, each chunk's SAC
 and Lagrange updates run on the card and the next chunk acts with the
 updated weights).  ``--device`` defaults to ``cuda`` and never falls back
-to the CPU.  The
-reference's other algorithms and flags exit with a message naming the
-ROADMAP item that ports them.
+to the CPU.  The reference's other flags (and ``--algo ppo``) exit with a
+message naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,12 +34,6 @@ ALL_ALGOS = ("default_policy", "cap_uniform", "cap_greedy", "joint_nf",
 UNPORTED_FLAGS = {
     "--workload": "queue A item 4 (workload presets and spec files)",
     "--workload-observe": "queue A item 4 (signal timelines)",
-    "--power-cap": "queue A item 6 (cap controllers)",
-    "--control-interval": "queue A item 6 (cap controllers)",
-    "--eco-objective": "queue A item 5 (eco routing)",
-    "--router-weights": "queue A item 5 (weighted routing)",
-    "--num_fixed_gpus": "queue A item 5 (debug algo)",
-    "--fixed_freq": "queue A item 5 (debug algo)",
     "--elastic-scaling": "queue A item 13 (elastic scaling)",
     "--offline-dataset": "queue A item 10 (offline RL)",
     "--offline-steps": "queue A item 10 (offline RL)",
@@ -69,8 +67,8 @@ UNPORTED_FLAGS = {
 
 
 def parse_args(argv=None):
-    # no abbreviations: `--power-cap` (unported) must not read as a prefix
-    # of `--power-cap-constraint`
+    # no abbreviations: an unported flag must not read as a prefix of a
+    # ported one
     p = argparse.ArgumentParser(
         description="geo-distributed GPU-cluster simulator (PyTorch/CUDA port)",
         allow_abbrev=False)
@@ -92,6 +90,20 @@ def parse_args(argv=None):
     p.add_argument("--dvfs-low", type=float, default=0.6)
     p.add_argument("--dvfs-high", type=float, default=1.0)
     p.add_argument("--single-dc", action="store_true", help="1-DC/1-ingress debug fleet")
+    # controllers
+    p.add_argument("--power-cap", type=float, default=0.0, help="W; 0 disables")
+    p.add_argument("--control-interval", type=float, default=0.0,
+                   help="s; 0 -> use --log-interval (reference behavior)")
+    p.add_argument("--eco-objective", default="energy",
+                   choices=["energy", "carbon", "cost"])
+    p.add_argument("--router-weights", default=None, metavar="LAT,EN,CO2,USD,Q",
+                   help="5 comma-separated weights (latency_s, energy_j, "
+                        "carbon_g, cost_usd, queue_len): route arrivals by "
+                        "the weighted DC score instead of uniform-random "
+                        "(non-RL, non-eco_route algorithms)")
+    # debug algo
+    p.add_argument("--num_fixed_gpus", type=int, default=1)
+    p.add_argument("--fixed_freq", type=float, default=None)
     p.add_argument("--job-cap", type=int, default=512)
     p.add_argument("--queue-cap", type=int, default=0,
                    help="per-(DC, jtype) queue-ring depth; 0 = auto-size")
@@ -99,7 +111,8 @@ def parse_args(argv=None):
     p.add_argument("--sla_p99_ms", type=float, default=500.0)
     p.add_argument("--energy_budget_j", type=float, default=None)
     p.add_argument("--power-cap-constraint", type=float, default=None,
-                   help="power constraint target for the CMDP")
+                   help="power constraint target for the CMDP (defaults to "
+                        "--power-cap)")
     p.add_argument("--rl-buffer", type=int, default=200_000)
     p.add_argument("--rl-batch", type=int, default=256)
     p.add_argument("--rl-warmup", type=int, default=1_000)
@@ -120,10 +133,9 @@ def parse_args(argv=None):
                       f"{UNPORTED_FLAGS[flag]})\n")
     if unknown:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if a.algo not in ("default_policy", "joint_nf", "chsac_af"):
-        item = {"chsac_af": "queue A item 9", "ppo": "queue A item 10"}.get(
-            a.algo, "queue A items 5 and 6")
-        p.exit(2, f"{p.prog}: --algo {a.algo} is not ported yet (ROADMAP {item})\n")
+    if a.algo == "ppo":
+        p.exit(2, f"{p.prog}: --algo ppo is not ported yet (ROADMAP queue A "
+                  "item 10)\n")
     if a.duration > 1e5:
         p.exit(2, f"{p.prog}: duration > 1e5 s needs the float64 clock, not "
                   "ported yet (ROADMAP queue A item 6)\n")
@@ -153,7 +165,9 @@ def build_params(a):
     from .models.structs import SimParams
 
     return SimParams(
-        algo=a.algo, duration=a.duration, log_interval=a.log_interval,
+        algo=a.algo, duration=a.duration,
+        log_interval=(a.control_interval if a.control_interval > 0
+                      else a.log_interval),
         policy_name=a.policy, max_gpus_per_job=a.max_gpus_per_job,
         inf_priority=not a.no_inf_priority,
         reserve_inf_gpus=a.reserve_inf_gpus,
@@ -164,7 +178,11 @@ def build_params(a):
         sla_p99_ms=a.sla_p99_ms, energy_budget_j=a.energy_budget_j,
         power_cap_constraint=a.power_cap_constraint,
         rl_buffer=a.rl_buffer, rl_batch=a.rl_batch, rl_warmup=a.rl_warmup,
-        rl_energy_weight=a.rl_energy_weight, critic_arch=a.critic_arch)
+        rl_energy_weight=a.rl_energy_weight, critic_arch=a.critic_arch,
+        power_cap=a.power_cap, eco_objective=a.eco_objective,
+        router_weights=(tuple(float(w) for w in a.router_weights.split(","))
+                        if a.router_weights else None),
+        num_fixed_gpus=a.num_fixed_gpus, fixed_freq=a.fixed_freq)
 
 
 def finalize_queue_cap(params, fleet):

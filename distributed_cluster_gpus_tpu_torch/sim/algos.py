@@ -1,12 +1,18 @@
 """Scheduling / routing / DVFS decisions, and the RL observation and masks.
 
 Counterpart of the parts of ``distributed_cluster_gpus_tpu/sim/algos.py``
-that ``default_policy``, ``joint_nf`` and ``chsac_af`` run: the in-DC
-heuristic allocation, the first-minimum (n, f) grid admission,
-uniform-random ingress routing, the windowed latency percentile (B3's plain
-version) and the policy's observation vector and action masks.  Inputs are
-device tensors; results are on the same device.  Carbon/cost admission and
-eco and weighted routing are ROADMAP queue A item 5.
+the port runs: the in-DC heuristic allocation, the first-minimum (n, f)
+grid admission (energy, and carbon or cost by the hour), uniform-random,
+eco and weighted ingress routing, the windowed latency percentile (B3's
+plain version) and the policy's observation vector and action masks.
+Inputs are device tensors; results are on the same device.
+
+The eco scores divide an energy in joules by 3.6e6.  XLA rewrites
+``x / 3.6e6`` into ``x * fl(1/3.6e6)`` and, where a price multiplies the
+result, scales the price first: ``E / 3.6e6 * price`` is computed as
+``E * (price * fl(1/3.6e6))`` and ``E / 3.6e6 * ci`` (a per-DC vector) as
+``(E * fl(1/3.6e6)) * ci`` (read from the JAX engine's optimized HLO).  The
+functions below write each site in that association (``KWH``).
 """
 
 from __future__ import annotations
@@ -63,6 +69,82 @@ def admit_joint_nf(E_grid, dc, jtype):
 def best_energy_f_idx_at_n(E_grid, dc, jtype, n):
     """argmin_f E at fixed n."""
     return torch.argmin(E_grid[dc, jtype, n - 1]).to(torch.int32)
+
+
+#: float32(1 / 3.6e6): XLA's multiplier for ``/ 3.6e6``
+KWH = float(np.float32(1.0 / 3.6e6))
+
+
+def hour_of(t):
+    """The hour of the day of a float32 clock (``Engine._hour``): exactly
+    ``floor((t mod 86400) / 3600)`` clipped to [0, 23], as XLA's
+    ``floor_divide`` gives it (``t - t mod 3600`` is an exact multiple of
+    3600)."""
+    from ..ops.arrivals import tmod
+
+    day = tmod(t, 86400.0)
+    whole = day - tmod(day, 3600.0)
+    h = torch.round(whole / torch.tensor(3600.0, dtype=whole.dtype,
+                                         device=whole.device))
+    return torch.clamp(h.to(torch.int32), 0, 23)
+
+
+def admit_carbon_cost(E_grid, dc, jtype, price, ci):
+    """(n*, f_idx*): the first minimum of the cost score ``E * (price *
+    KWH)`` over the (capped) grid when the hour's price is positive, else
+    of the carbon score ``E * ci``.  A DC with ``ci == 0`` scores every
+    cell 0, so its first cell wins (the reference's quirk, kept)."""
+    E = E_grid[dc, jtype]
+    pc = price * torch.tensor(KWH, dtype=torch.float32, device=E.device)
+    score = torch.where(price > 0.0, E * pc, E * ci)
+    return _first_min_flat(score)
+
+
+def eco_unit_energy(E_grid, jtype, objective: str, price, ci):
+    """[n_dc] energy per unit at each DC's own best grid cell (first
+    minimum, n-major) under ``objective`` (``route_eco``'s first half)."""
+    E = E_grid[:, jtype]  # [n_dc, n_max, n_f]
+    if objective == "carbon":
+        grid = E * ci[:, None, None]
+    elif objective == "cost":
+        grid = E * (price * torch.tensor(KWH, dtype=torch.float32,
+                                         device=E.device))
+    else:
+        grid = E
+    flat = E.reshape(E.shape[0], -1)
+    best = torch.argmin(grid.reshape(grid.shape[0], -1), dim=-1)
+    return torch.gather(flat, 1, best[:, None])[:, 0]
+
+
+def route_eco(E_grid, jtype, size, objective: str, price, ci):
+    """The DC of least job score (first minimum over the DC order): energy
+    ``E_unit * size`` J, carbon ``(E_unit * size) * KWH * ci`` g or cost
+    ``(E_unit * size) * (price * KWH)`` USD, ``E_unit`` at each DC's best
+    cell (``sim/algos.py:138`` of the JAX package)."""
+    e_unit = eco_unit_energy(E_grid, jtype, objective, price, ci)
+    kwh = torch.tensor(KWH, dtype=torch.float32, device=e_unit.device)
+    e_job = e_unit * size
+    if objective == "carbon":
+        score = (e_job * kwh) * ci
+    elif objective == "cost":
+        score = e_job * (price * kwh)
+    else:
+        score = e_job
+    return torch.argmin(score).to(torch.int32)
+
+
+def route_weighted(policy, net_lat_row, E_unit_min, size, price, ci, q_len):
+    """The DC of least :class:`~..network.RouterPolicy` score: latency, the
+    job's energy at each DC's least-energy cell (``E_unit_min`` [n_dc]),
+    its carbon ``(E_job * KWH) * ci`` and cost ``E_job * (price * KWH)``,
+    and the DC's queue length, weighted and summed left to right."""
+    kwh = torch.tensor(KWH, dtype=torch.float32, device=E_unit_min.device)
+    e_job = E_unit_min * size
+    score = policy.score(latency_s=net_lat_row, energy_j=e_job,
+                         carbon_g=(e_job * kwh) * ci,
+                         cost_usd=e_job * (price * kwh),
+                         queue_len=q_len.to(torch.float32))
+    return torch.argmin(score).to(torch.int32)
 
 
 def route_random(key, n_dc: int):

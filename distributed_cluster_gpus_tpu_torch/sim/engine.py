@@ -24,6 +24,7 @@ from ..models.structs import (ALGO_CHSAC_AF, PORTED_ALGOS, DCArrays,
                               FleetSpec, JobSlab, LatWindow, QRec, QueueRings,
                               SimParams, SimState, n_lanes, with_lane_axis)
 from ..ops import prng
+from ..ops.bandit import bandit_init
 from ..workload.compiler import compile_workload
 from .step import EV_FINISH, EV_LOG, StepProgram
 
@@ -32,7 +33,7 @@ def check_ported(params: SimParams) -> None:
     """Refuse configurations whose code paths later slices port."""
     todo = []
     if params.algo not in PORTED_ALGOS:
-        todo.append(f"algo {params.algo!r} (ROADMAP queue A items 5, 6 and 10)")
+        todo.append(f"algo {params.algo!r}")
     if params.elastic_scaling:
         todo.append("elastic scaling (ROADMAP queue A item 13)")
     if params.queue_mode != "ring":
@@ -45,8 +46,6 @@ def check_ported(params: SimParams) -> None:
         todo.append("in-loop telemetry (ROADMAP queue A item 12)")
     if params.time_dtype != "float32":
         todo.append("the float64 clock (ROADMAP queue A item 6)")
-    if params.router_weights is not None:
-        todo.append("weighted routing (ROADMAP queue A item 5)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -132,7 +131,7 @@ def init_state(key, fleet: FleetSpec, params: SimParams, workload=None,
         arr_cum=clocks["arr_cum"].to(td),
         arr_epoch=clocks["arr_epoch"].to(td),
         next_log_t=torch.tensor(params.log_interval, dtype=td, device=dev),
-        lat=lat, queues=queues,
+        lat=lat, bandit=bandit_init(n_dc, fleet.n_f, dev), queues=queues,
         n_events=zi(), n_finished=zi((2,)), units_finished=z32((2,)),
         n_dropped=zi(), done=torch.zeros((), dtype=torch.bool, device=dev))
 

@@ -2,8 +2,11 @@
 
 Counterpart of ``distributed_cluster_gpus_tpu/sim/engine.py``'s ``_step`` for
 the programs the port runs: the heuristic algorithms (``default_policy``,
-``joint_nf``) and ``chsac_af``'s acting path, ring queues, one event per step
-(superstep K=1), faults / signals / telemetry off, the write-plan commit.
+``joint_nf``, ``carbon_cost``, ``debug``, ``eco_route``, ``bandit`` and the
+power-cap controllers ``cap_uniform`` / ``cap_greedy``, any of them with
+``--router-weights`` routing where the reference honours it) and
+``chsac_af``'s acting path, ring queues, one event per step (superstep
+K=1), faults / signals / telemetry off, the write-plan commit.
 Every step:
 
 1. computes the next event time as a min over the arrival clocks, the
@@ -43,10 +46,14 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..models.structs import (ALGO_CHSAC_AF, ALGO_JOINT_NF, FleetSpec,
+from ..models.structs import (ALGO_BANDIT, ALGO_CAP_GREEDY, ALGO_CAP_UNIFORM,
+                              ALGO_CARBON_COST, ALGO_CHSAC_AF, ALGO_DEBUG,
+                              ALGO_ECO_ROUTE, ALGO_JOINT_NF, FleetSpec,
                               JobSlab, JobStatus, QRec, SimParams, SimState)
+from ..network import RouterPolicy
 from ..ops import prng
 from ..ops.arrivals import tmod
+from ..ops.bandit import bandit_select, bandit_update
 from ..ops.physics import (LatencyCoeffs, PowerCoeffs, fmul_pinned,
                            step_time_s, task_power_w, tree_sum_last)
 from ..ops.optimizers import min_n_for_sla
@@ -124,6 +131,37 @@ class StepProgram:
                            min(params.num_fixed_gpus, params.job_cap))
         self.default_f_idx = fleet.default_f_idx
         self.rl = params.algo == ALGO_CHSAC_AF
+        # the eco sites' static tables (no signal timelines: the hourly
+        # price and the per-DC carbon intensity)
+        self.price_hourly = torch.tensor(fleet.price_hourly, **f32)
+        self.carbon = torch.tensor(fleet.carbon, **f32)
+        #: each (dc, jtype)'s least energy per unit over the capped grid
+        #: (``route_weighted``'s E_unit)
+        self.E_unit_min = self.E_grid_cap.reshape(
+            fleet.n_dc, 2, -1).min(dim=-1).values
+        # routing: the policy tail (chsac_af), eco, the weighted score or
+        # uniform-random
+        self.route = ("rl" if self.rl else "eco" if params.algo == ALGO_ECO_ROUTE
+                      else "weighted" if params.router_weights is not None
+                      else "random")
+        self.router = (RouterPolicy(*params.router_weights)
+                       if params.router_weights is not None else None)
+        #: debug's frequency at its fixed GPU count, per (dc, jtype): the
+        #: fixed ladder index, or the energy argmin on the UNcapped grid at
+        #: row n - 1 (a negative row counts from the end and any row is
+        #: clamped into the grid, as XLA's indexing does)
+        row = params.num_fixed_gpus - 1
+        self.debug_row = row = min(max(row + fleet.n_max if row < 0 else row, 0),
+                                   fleet.n_max - 1)
+        if params.fixed_freq is not None:
+            self.debug_f = torch.full((fleet.n_dc, 2),
+                                      algos.f_idx_of(fleet, params.fixed_freq),
+                                      dtype=torch.int32, device=dev)
+        else:
+            self.debug_f = torch.argmin(self.E_grid[:, :, row, :],
+                                        dim=-1).to(torch.int32)
+        self.cap_on = (params.power_cap > 0
+                       and params.algo in (ALGO_CAP_UNIFORM, ALGO_CAP_GREEDY))
         #: ``policy_apply(sac, obs, mask_dc, mask_g, key) -> (a_dc, a_g)``,
         #: the chsac_af policy (set by ``sim.engine.Engine``)
         self.policy_apply = None
@@ -142,6 +180,13 @@ class StepProgram:
         #: the plain loop's count over its last lane: events and host reads
         #: (event heads + drain flags)
         self._plain = {"events": 0, "host_reads": 0}
+        #: the cap controllers' log ticks (those where the fleet's power
+        #: called for control) and iterations since construction
+        self.ctl_ticks = 0
+        self.ctl_iters = 0
+        #: cap_greedy's iterations whose cheapest rho more than one atom
+        #: shares (the first, job-major, wins)
+        self.ctl_ties = 0
         self._consts = None
 
     def kernel_consts(self):
@@ -150,7 +195,9 @@ class StepProgram:
         if self._consts is None:
             c = {"freq_levels": self.freq_levels, "total_gpus": self.total_gpus,
                  "E_grid_cap": self.E_grid_cap, "transfer_s": self.transfer_s,
-                 "net_lat_s": self.net_lat_s, "idle_w": self.idle_w}
+                 "net_lat_s": self.net_lat_s, "idle_w": self.idle_w,
+                 "E_grid": self.E_grid, "price_hourly": self.price_hourly,
+                 "carbon": self.carbon}
             for grp, coeffs in (("power", self.power), ("latency", self.latency)):
                 for name, v in zip(coeffs._fields, coeffs):
                     c[f"{grp}.{name}"] = v
@@ -263,25 +310,42 @@ class StepProgram:
     # ---------------- admission ----------------
 
     def _decide_nf_core(self, st: SimState, dcj: int, jt, free, cur_f):
-        """The non-RL admission dispatch: (n, f_idx, new DC ladder index)."""
+        """The non-RL, non-bandit admission dispatch: (n, f_idx, new DC
+        ladder index)."""
         p = self.params
         if p.algo == ALGO_JOINT_NF:
             n, f_idx = algos.admit_joint_nf(self.E_grid_cap, dcj, jt)
             return n, f_idx, cur_f
+        if p.algo == ALGO_CARBON_COST:
+            price = self.price_hourly[algos.hour_of(st.t)]
+            n, f_idx = algos.admit_carbon_cost(self.E_grid_cap, dcj, jt, price,
+                                               self.carbon[dcj])
+            return n, f_idx, cur_f
+        if p.algo == ALGO_DEBUG:
+            n = torch.full_like(cur_f, p.num_fixed_gpus)
+            return n, self.debug_f[dcj, jt], cur_f
         q_inf_len = (st.queues.tail[dcj, 0] - st.queues.head[dcj, 0])
         n, new_dc_f = algos.heuristic_select(p, self.fleet, jt, free, cur_f,
                                              q_inf_len)
         return n, new_dc_f, new_dc_f
 
     def _decide_start_vals(self, st: SimState, dcj: int, jt):
-        """`_decide_nf_core` plus `_start_job`'s clamp and physics refresh."""
+        """`_decide_nf_core` (or the bandit's select) plus `_start_job`'s
+        clamp and physics refresh; the bandit's new select count last (None
+        for the other algorithms), for the caller to commit."""
         free = self._free_for(st.dc.busy, dcj, jt)
-        n_d, f_d, new_dc_f = self._decide_nf_core(st, dcj, jt, free,
-                                                  st.dc.cur_f_idx[dcj])
+        cur_f = st.dc.cur_f_idx[dcj]
+        t_sel = None
+        if self.params.algo == ALGO_BANDIT:
+            n_d = torch.clamp(free, max=self.params.max_gpus_per_job)
+            f_d, t_sel = bandit_select(st.bandit, dcj, jt)
+            new_dc_f = cur_f
+        else:
+            n_d, f_d, new_dc_f = self._decide_nf_core(st, dcj, jt, free, cur_f)
         n_st = torch.clamp(torch.minimum(n_d.to(torch.int32), free), min=1)
         f_d = f_d.to(torch.int32)
         spu, watts = self._row_TP(dcj, jt, n_st, f_d)
-        return n_st, f_d, new_dc_f.to(torch.int32), spu, watts
+        return n_st, f_d, new_dc_f.to(torch.int32), spu, watts, t_sel
 
     # ---------------- queue drain ----------------
 
@@ -324,7 +388,10 @@ class StepProgram:
         """Commit a record straight to RUNNING at ``slot`` with the decided
         (n, f) and refreshed physics (the masked drain body's one write
         chain), in place."""
-        n_st, f_d, new_dc_f, spu, watts = self._decide_start_vals(st, dcj, jt)
+        n_st, f_d, new_dc_f, spu, watts, t_sel = self._decide_start_vals(
+            st, dcj, jt)
+        if t_sel is not None:
+            st.bandit.t = t_sel
         jobs = st.jobs
         t = st.t
         t_start0 = rec[QRec.T_START]
@@ -377,6 +444,10 @@ class StepProgram:
         plan = {"kind": EV_FINISH, "row": j, "dc_row": dcj, "fin_jt": jt,
                 "units_done": size_j.clone(), "busy_delta": n.clone(),
                 "acc_add": acc, "fin_size": size_j.clone(), "sojourn": sojourn}
+        if self.params.algo == ALGO_BANDIT:
+            # the finished arm's reward, committed before the post-finish
+            # drain's selects read the counts
+            plan["bandit"] = (jobs.f_idx[j].clone(), E_pred)
         return plan, job_row
 
     def _plan_xfer(self, st: SimState, j: int, dcj: int, jt: int, can: bool):
@@ -391,15 +462,30 @@ class StepProgram:
     def _plan_arrival(self, st: SimState, ing: int, jt: int, k_ev, pre,
                       has_slot: bool, slot: int):
         """Arrival planner: the pregenerated draw at the stream's cursor,
-        uniform-random routing, the XFER placement (or a ring spill when the
-        slab is full) and the stream-clock advance (applied here, in place)."""
+        the routing (eco, weighted or uniform-random), the XFER placement
+        (or a ring spill when the slab is full) and the stream-clock advance
+        (applied here, in place)."""
         stream = ing * 2 + jt
         n_tab = pre["sizes"].shape[1]
         idx = torch.clamp(st.arr_count[ing, jt] - pre["c0"][stream],
                           max=n_tab - 1).to(torch.int64)
         size = pre["sizes"][stream].index_select(0, idx.reshape(1))[0]
         t_next_arr = pre["tnext"][stream].index_select(0, idx.reshape(1))[0]
-        dc_sel = prng.randint_int(k_ev, self.fleet.n_dc)
+        if self.route == "random":
+            dc_sel = prng.randint_int(k_ev, self.fleet.n_dc)
+        else:
+            price = self.price_hourly[algos.hour_of(st.t)]
+            if self.route == "eco":
+                dc_t = algos.route_eco(self.E_grid_cap, jt, size,
+                                       self.params.eco_objective, price,
+                                       self.carbon)
+            else:
+                q_inf, q_trn = self._queue_lens(st)
+                dc_t = algos.route_weighted(
+                    self.router, self.net_lat_s[ing], self.E_unit_min[:, jt],
+                    size, price, self.carbon, q_inf + q_trn)
+            dc_sel = int(dc_t)
+            self._plain["host_reads"] += 1
         transfer = self.transfer_s[ing, dc_sel, jt]
         net_lat = self.net_lat_s[ing, dc_sel]
         t_avail = st.t + transfer.to(self.td)
@@ -465,13 +551,154 @@ class StepProgram:
         lat.ptr[jt] = torch.remainder(lat.ptr[jt] + 1, W)
         st.n_finished[jt] += 1
         st.units_finished[jt] += plan["fin_size"]
+        if "bandit" in plan:
+            f_arm, cost = plan["bandit"]
+            bandit_update(st.bandit, dcj, jt, f_arm, cost)
 
     # ---------------- the log tick ----------------
 
-    def _handle_log(self, st: SimState, powers):
-        """Per-DC cluster row + the log clock (``powers``: this step's accrual
-        power, which nothing in a non-capped log tick changes)."""
+    def _control(self, st: SimState) -> None:
+        """The power-cap control at the top of a log tick (reference
+        ``_control``), in place: under ``eco_route`` / ``carbon_cost`` idle
+        DCs drop to ladder index 0; under the cap controllers, when the
+        fleet's power exceeds ``power_cap - cap_margin_w``, the controller
+        runs."""
+        p = self.params
+        if p.power_cap <= 0:
+            return
+        if p.algo in (ALGO_ECO_ROUTE, ALGO_CARBON_COST):
+            idle = st.dc.busy == 0
+            st.dc.cur_f_idx = torch.where(idle, torch.zeros_like(st.dc.cur_f_idx),
+                                          st.dc.cur_f_idx)
+            return
+        if not self.cap_on:
+            return
+        need = self._total_power(st) > torch.tensor(
+            p.power_cap - p.cap_margin_w, dtype=torch.float32, device=self.device)
+        self._plain["host_reads"] += 1
+        if not bool(need):
+            return
+        self.ctl_ticks += 1
+        if p.algo == ALGO_CAP_UNIFORM:
+            self._cap_uniform(st)
+        else:
+            self._cap_greedy(st)
+
+    def _total_power(self, st: SimState):
+        """The fleet's power: the DCs' ``_dc_power`` by the fixed tree."""
+        return tree_sum_last(self._dc_power(st.jobs, st.dc.busy))
+
+    def _job_coeffs(self, jobs: JobSlab):
+        pc = PowerCoeffs(*(a[jobs.dc, jobs.jtype] for a in self.power))
+        tc = LatencyCoeffs(*(a[jobs.dc, jobs.jtype] for a in self.latency))
+        return pc, tc
+
+    def _cap_uniform(self, st: SimState) -> None:
+        """Uniform DC downclock (reference ``_cap_uniform``): while the
+        deficit ``total - power_cap`` (no margin) exceeds 1e-6, lower by one
+        ladder step the DC whose step saves the most power (the first
+        maximum; a saving must exceed 1e-9), clamping every running job
+        there to the new level and refreshing its cached physics.  Each
+        saving is the masked tree sum of the DC's running jobs' power
+        clamped to its level, less the same one level lower.  One host
+        read per iteration (``self.ctl_iters`` counts them)."""
         p, fleet = self.params, self.fleet
+        jobs = st.jobs
+        f32 = torch.float32
+        deficit = torch.clamp(self._total_power(st) - torch.tensor(
+            p.power_cap, dtype=f32, device=self.device), min=0.0)
+        live = bool(deficit > 1e-6)
+        d_idx = torch.arange(fleet.n_dc, device=self.device)
+        while live:
+            self.ctl_iters += 1
+            pc, _ = self._job_coeffs(jobs)
+            cur = st.dc.cur_f_idx
+            run_in = ((jobs.status == JobStatus.RUNNING)[None, :]
+                      & (jobs.dc[None, :] == d_idx[:, None]))  # [n_dc, J]
+
+            def power_at(level):  # [n_dc] per-DC clamped power
+                f_cl = self.freq_levels[torch.minimum(jobs.f_idx[None, :],
+                                                      level[:, None])]
+                pw = task_power_w(jobs.n[None, :], f_cl,
+                                  PowerCoeffs(*(c[None, :] for c in pc)))
+                return tree_sum_last(torch.where(run_in, pw, self.zero_f))
+
+            p_now = power_at(cur)
+            p_lo = power_at(torch.clamp(cur - 1, min=0))
+            dps = torch.where(cur > 0, p_now - p_lo, self.zero_f)
+            best = torch.argmax(dps)
+            best_dp = dps[best]
+            ok = bool(best_dp > 1e-9)
+            self._plain["host_reads"] += 1
+            if ok:
+                b = int(best)
+                new_level = torch.clamp(cur[b] - 1, min=0)
+                in_dc = (jobs.status == JobStatus.RUNNING) & (jobs.dc == b)
+                jobs.f_idx = torch.where(in_dc, torch.minimum(jobs.f_idx, new_level),
+                                         jobs.f_idx)
+                pc, tc = self._job_coeffs(jobs)
+                f = self.freq_levels[jobs.f_idx]
+                jobs.spu = torch.where(in_dc, step_time_s(jobs.n, f, tc),
+                                       jobs.spu).to(f32)
+                jobs.watts = torch.where(in_dc, task_power_w(jobs.n, f, pc),
+                                         jobs.watts).to(f32)
+                st.dc.cur_f_idx[b] = new_level
+                deficit = deficit - best_dp
+            live = ok and bool(deficit > 1e-6)
+
+    def _cap_greedy(self, st: SimState) -> None:
+        """Atom-ladder downclock (reference ``_cap_greedy``): while the
+        fleet's power exceeds ``power_cap``, apply the globally cheapest
+        ladder step k -> k-1 below a running job's level, by rho = dP / dV
+        over the [J, n_f - 1] atoms (first minimum, job-major), setting the
+        job's level to the step's lower end with its cached physics; the
+        total is summed again after each atom.  One host read per
+        iteration (``self.ctl_iters`` counts them, ``self.ctl_ties`` those
+        whose least rho more than one atom shares)."""
+        p = self.params
+        jobs = st.jobs
+        f32 = torch.float32
+        levels = self.freq_levels
+        n_f = levels.shape[0]
+        cap = torch.tensor(p.power_cap, dtype=f32, device=self.device)
+        k_idx = torch.arange(1, n_f, device=self.device)
+        live = bool(self._total_power(st) > cap)
+        while live:
+            self.ctl_iters += 1
+            pc, tc = self._job_coeffs(jobs)
+            pc2 = PowerCoeffs(*(c[:, None] for c in pc))
+            tc2 = LatencyCoeffs(*(c[:, None] for c in tc))
+            n2 = jobs.n[:, None]
+            P_all = task_power_w(n2, levels[None, :], pc2)  # [J, n_f]
+            T_all = step_time_s(n2, levels[None, :], tc2)
+            V_all = 1.0 / T_all
+            dP = torch.clamp(P_all[:, 1:] - P_all[:, :-1], min=0.0)
+            dV = torch.clamp(V_all[:, 1:] - V_all[:, :-1], min=0.0)
+            running = jobs.status == JobStatus.RUNNING
+            below = k_idx[None, :] <= jobs.f_idx[:, None]
+            can = running[:, None] & below & (dV > 0)
+            rho = torch.where(can, dP / torch.clamp(dV, min=1e-12),
+                              torch.full_like(dP, math.inf))
+            flat = rho.reshape(-1)
+            idx = int(torch.argmin(flat))
+            ok = bool(torch.isfinite(flat[idx]))
+            self.ctl_ties += int(ok and int((flat == flat[idx]).sum()) > 1)
+            self._plain["host_reads"] += 1
+            if ok:
+                j, tgt = divmod(idx, n_f - 1)
+                jobs.f_idx[j] = tgt
+                jobs.spu[j] = T_all[j, tgt].to(f32)
+                jobs.watts[j] = P_all[j, tgt].to(f32)
+            live = ok and bool(self._total_power(st) > cap)
+
+    def _handle_log(self, st: SimState, powers):
+        """The control step, then the per-DC cluster row and the log clock
+        (``powers``: this step's accrual power; the row takes the DCs' power
+        summed again after a cap controller, which changes it)."""
+        p, fleet = self.params, self.fleet
+        self._control(st)
+        if self.cap_on:
+            powers = self._dc_power(st.jobs, st.dc.busy)
         jobs = st.jobs
         running = jobs.status == JobStatus.RUNNING
         tpt = torch.where(running, 1.0 / jobs.spu, self.zero_f)

@@ -144,7 +144,8 @@ def test_unported_configs_raise():
     from distributed_cluster_gpus_tpu_torch.configs.paper import build_duo_fleet as tduo
 
     fleet = tduo()
-    for bad in (dict(algo="bandit"), dict(algo="cap_greedy"),
+    for bad in (dict(algo="bandit", faults=object()),
+                dict(algo="cap_greedy", time_dtype="float64"),
                 dict(algo="chsac_af", elastic_scaling=True),
                 dict(queue_mode="slab"), dict(superstep_k=4),
                 dict(time_dtype="float64"), dict(obs_enabled=True)):

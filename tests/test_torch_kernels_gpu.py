@@ -159,6 +159,86 @@ def test_event_scan_kernel_matches_plain_version(cuda, algo, fleet_name, threads
         assert int(st.n_dropped.sum()) > 0
 
 
+# B1's extended instance (tests/test_torch_algos.py and test_torch_cap.py
+# hold these configurations against the JAX package): each admission,
+# routing and control family, the cap controllers at caps they iterate under
+EXT_CASES = {
+    "carbon_cost": ("duo", "carbon_cost", {}),
+    "debug": ("duo", "debug", dict(num_fixed_gpus=12, fixed_freq=0.75)),
+    "debug_argmin": ("single", "debug", dict(num_fixed_gpus=3)),
+    "bandit": ("single", "bandit", {}),
+    "eco_energy_idle": ("duo", "eco_route", dict(power_cap=100.0)),
+    "eco_carbon": ("duo", "eco_route", dict(eco_objective="carbon")),
+    "eco_cost": ("duo", "eco_route", dict(eco_objective="cost")),
+    "weighted": ("duo", "default_policy",
+                 dict(router_weights=(0.5, 2e-5, 0.3, 40.0, 0.25))),
+    "cap_uniform": ("duo", "cap_uniform", dict(power_cap=4000.0)),
+    "cap_greedy": ("single", "cap_greedy", dict(power_cap=12000.0)),
+}
+
+
+def ext_kernel_vs_plain(eng, state, n_steps, n_chunks, threads=None):
+    """``kernel_vs_plain`` for the extended instance, which also counts the
+    cap controller's log ticks and iterations: (mismatches, [kernel's
+    (ticks, iterations)], [the plain step's])."""
+    other = clone_state(state)
+    bad, ctl_k, ctl_r = [], [], []
+    for c in range(n_chunks):
+        pre = eng.workload.tables(state, n_steps)
+        em_k, st_k = b1.event_scan(eng, state, pre, n_steps, threads=threads)
+        em_r, st_r = b1.event_scan_reference(eng, other, pre, n_steps)
+        eng.workload.advance_carries(state, pre)
+        eng.workload.advance_carries(other, pre)
+        bad += [f"chunk {c} em.{k}" for k in em_r if not torch.equal(em_k[k], em_r[k])]
+        ctl_k += st_k["ctl"][:, :2].cpu().tolist()
+        ctl_r += st_r["ctl"][:, :2].tolist()
+    bad += bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                  bridge.state_to_numpy(state))
+    return bad, ctl_k, ctl_r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", HEUR_WIDTHS)
+@pytest.mark.parametrize("case", list(EXT_CASES))
+def test_event_scan_extended_instance_matches_plain_version(cuda, case, threads):
+    """B1's extended instance against the plain step on the card, bitwise
+    (state with the bandit's arms, key words, emissions) over two chunks,
+    the controllers' ticks and iterations the plain step's; every launch
+    counted as the extended instance's."""
+    fleet_name, algo, kw = EXT_CASES[case]
+    fleet = FLEETS[fleet_name]()
+    params = SimParams(algo=algo, duration=400.0, lat_window=64, seed=5,
+                       **LOADS[fleet_name], **kw)
+    assert b1.ext_plan(params)[0]
+    eng = Engine(fleet, params, device=cuda)
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device=cuda))
+    before = (b1.event_scan.launches, b1.event_scan.ext_launches)
+    bad, ctl_k, ctl_r = ext_kernel_vs_plain(eng, st, N_STEPS, 2, threads)
+    assert bad == []
+    assert ctl_k == ctl_r
+    assert (b1.event_scan.launches, b1.event_scan.ext_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert int(st.n_events.sum()) == 2 * N_STEPS and int(st.n_finished.sum()) > 20
+    if algo.startswith("cap_"):
+        ticks = sum(t for t, _ in ctl_k)
+        assert 0 < ticks < sum(i for _, i in ctl_k)
+
+
+@pytest.mark.gpu
+def test_event_scan_extended_instance_lanes(cuda):
+    """Four bandit lanes in one launch of the extended instance, each
+    against the plain step, bitwise, run past the simulation's end."""
+    fleet = build_duo_fleet()
+    params = SimParams(algo="bandit", duration=3.0, job_cap=16, queue_cap=16,
+                       lat_window=16, log_interval=0.5, seed=1, inf_rate=60.0)
+    eng = Engine(fleet, params, device=cuda)
+    st = batched_init(fleet, params, 4, workload=eng.workload, device=cuda)
+    bad, _, _ = ext_kernel_vs_plain(eng, st, 512, 3)
+    assert bad == []
+    assert bool(st.done.all()) and int(st.bandit.t.min()) > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("threads", HEUR_WIDTHS)
 @pytest.mark.parametrize("job_cap", [16, 100, 2048])

@@ -125,7 +125,8 @@ def test_cli_single_dc_byte_identical(tmp_path):
 def test_cli_refuses_unported(capsys):
     for argv, item in ((["--algo", "ppo"], "item 10"),
                        (["--algo", "chsac_af", "--offline-steps", "10"], "item 10"),
-                       (["--power-cap", "900"], "item 6"),
+                       (["--time-dtype", "float64"], "item 6"),
+                       (["--workload", "diurnal"], "item 4"),
                        (["--faults-mtbf=3"], None),
                        (["--duration", "2e5"], "item 6")):
         with pytest.raises(SystemExit) as e:
