@@ -154,7 +154,27 @@ Phases (any failure exits non-zero before the result lines):
     critic for 300 s and a widened setting (``--rl-batch 300
     --max-gpus-per-job 128``, 120 s) with the same checks; B5g's kernel
     launched once a run (the new agent's shadows);
-17. print the card line, the kernel JSON line, then the device line.
+17. (n) the float64 clock's kernels (``SimParams.time_dtype`` "float64",
+    csrc/event_scan64.cu and the double instances of B2, B6b and B5c)
+    against their plain versions on the card, bitwise: B1's double
+    instances on the paper fleet at the CLI's shape from a state bridged to
+    t = 6e5 s (base ``default_policy`` and ``joint_nf``, the extended
+    instance's eco_route from just before hour 7 of day 7 and cap_greedy
+    with its controller firing, RL mode at 8 x 8 and 8 x 128), two chunks
+    each, with their us per event beside the float32 instances' (both from
+    init_state, a warm chunk each); R = 32 lanes of the double instance at
+    the bench shape, each equal to its single-lane run, lanes 0-1 to the
+    plain step; B2's double instance at R = 1 and 32 at the fold's edges;
+    B6b's float64 draw on a 200,000-row ring; B5c's float64 bias
+    corrections on the update's four groups; each timed beside its plain
+    version and its bound;
+18. (o) the float64 clock's main path through the CLI past the auto
+    threshold (``--duration 200000`` with run.sh's training traffic, no
+    inference, a 20 s log tick; no ``--time-dtype``): ``joint_nf``, then
+    ``chsac_af`` learning at the default warm-up with ``learning_run``'s
+    checks; the run's clock float64, every B1 and B2 launch the double
+    instance, the update's B6b and B5c calls the float64 ones;
+19. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
@@ -285,7 +305,6 @@ BISECT_OPS = 30 * 14  # 30 iterations of mid, the integral (with cos), compare
 # (~2 per slot and DC)
 B1_SLOT_OPS = 17
 B1_LOG_SLOT_OPS = 4
-QREC_BYTES = 11 * 4  # one ring record
 EV_FINISH, EV_LOG = 0, 3
 #: profiled chunks phase (e) tries before it fails for want of device events
 PROFILE_TRIES = 3
@@ -675,8 +694,11 @@ def b1_work(eng, before, after, pre, em, n_steps):
              - (0 if ext else nbytes(leaves(before.bandit))))
     consts = [v for k, v in eng.kernel_consts().items()
               if ext or k not in EXT_PTRS]
-    bytes_moved = (2 * (slab + small) + QREC_BYTES * (pushes + pops)
-                   + 4 * finishes + 8 * arrivals + nbytes([pre["c0"]])
+    # a ring record is N_REC fields and a table entry a size and a next
+    # arrival, each in the clock's dtype (8 bytes under the float64 clock)
+    tb = before.t.element_size()
+    bytes_moved = (2 * (slab + small) + 11 * tb * (pushes + pops)
+                   + 4 * finishes + (4 + tb) * arrivals + nbytes([pre["c0"]])
                    + nbytes(consts)
                    + 8 * n_steps + 4 * n_log * n_dc * 14 + 4 * finishes * 15)
     ops = (events * J * B1_SLOT_OPS + (n_dc + starts + finishes) * 2 * P
@@ -1249,9 +1271,10 @@ def phase_profile(report):
     if in_chunk:
         fail(f"profile: {in_chunk} synchronizing CUDA calls inside the chunk "
              f"({syncs.by_file})")
-    # the profiler records only some of a chunk's short launches, and now
-    # and then none: up to PROFILE_TRIES profiled chunks, the first in which
-    # it saw device work is read
+    # the profiler records only some of a chunk's short launches and
+    # copies, and now and then none: up to PROFILE_TRIES profiled chunks,
+    # the first in which it saw device work and the chunk's one read (the
+    # event count run_chunk reads after the kernel, always made) is read
     for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1277,7 +1300,7 @@ def phase_profile(report):
             if any(k in e.name for k in ("draws_kernel", "fold_kernel",
                                          "tnext_kernel")):
                 b2_us += dur
-        if n_dev:
+        if n_dev and n_dtoh:
             break
     if n_dev == 0:
         fail(f"profile: the profiler saw no device activity in "
@@ -3947,6 +3970,440 @@ def phase_learning_cli(report, out_root):
     return launches
 
 
+# ------------------------------------------------- the float64 clock (n, o)
+
+#: the float64 clock's bridged start: a float32 clock's ulp there is 1/16 s
+T_LATE = 6.0e5
+#: a quarter second before hour 7 of day 7: the eco sites' hour changes
+T_HOUR = 6 * 86400 + 7 * 3600.0 - 0.25
+#: the float64 clock on the CLI's command line
+X64_ARGV = ("--time-dtype", "float64")
+#: phase (o)'s CLI runs: past the auto threshold (no --time-dtype given),
+#: run.sh's training traffic without inference, the reference's 20 s tick
+CLOCK64_CLI_S = 200_000.0
+CLOCK64_CLI_ARGV = ("--inf-mode", "off", "--trn-rate", "0.02",
+                    "--log-interval", "20")
+#: phase (n)'s B1 double instances at the CLI's shape: label -> (algo, the
+#: flags added to the CLI's, the bridged start)
+CLOCK64_B1 = {
+    "base/default_policy": ("default_policy", (), T_LATE),
+    "base/joint_nf": ("joint_nf", (), T_LATE),
+    "extended/eco_route": ("eco_route", ("--eco-objective", "cost",
+                                         "--power-cap", "25000"), T_HOUR),
+    "extended/cap_greedy": ("cap_greedy", ("--power-cap", "25000"), T_LATE),
+    "rl/8x8": ("chsac_af", (), T_LATE),
+    "rl/8x128": ("chsac_af", ("--max-gpus-per-job", "128"), T_LATE),
+}
+#: phase (n)'s chunks: two of CLOCK64_CHECK_STEPS held against the plain
+#: step (its host time bounds the depth), and the us per event of a warm
+#: chunk of the CLI's 4,096 steps
+CLOCK64_CHECK_STEPS = 512
+CLOCK64_TIME_STEPS = 4096
+#: float64 outside the tensor cores, H100 SXM data sheet (the guide's table
+#: has no float64 rate)
+H100_F64_OPS_PER_S = 34e12
+
+
+def bridged(state, t0, log_interval):
+    """A lane-stacked state moved to clock ``t0`` in place: the streams'
+    next arrivals and epochs (the sinusoid's inversion anchors at its
+    epoch) and the log tick shifted with it."""
+    shift = torch.tensor(t0, dtype=state.t.dtype, device=state.t.device)
+    state.t.fill_(t0)
+    state.next_arrival.add_(shift)
+    state.arr_epoch.add_(shift)
+    state.next_log_t.fill_(t0 + log_interval)
+    return state
+
+
+def clock64_setup(algo, extra, x64=True, duration=None):
+    """(fleet, params, engine, agent or None) of the CLI's shape with the
+    ``extra`` flags (and ``--duration``), in the float64 clock (or the
+    float32 one); chsac_af's policy perturbed as ``rl_setup`` does."""
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    flags = tuple(extra) + (X64_ARGV if x64 else ("--time-dtype", "float32"))
+    if duration is not None:
+        flags += ("--duration", str(duration))
+    if algo == "chsac_af":
+        fleet, params, _, eng, agent = rl_setup(flags)
+        return fleet, params, eng, agent
+    fleet, params, _ = cli_params(algo, flags)
+    return fleet, params, Engine(fleet, params, device="cuda"), None
+
+
+def _timed_chunk(eng, st, pre, n_steps, sac):
+    """(kernel ms, emissions) of one B1 launch."""
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    em, _ = b1.event_scan(eng, st, pre, n_steps, sac)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), em
+
+
+def _us_per_event(algo, extra, n_steps, x64):
+    """B1's us per event of one clock's instance at the CLI's shape from
+    init_state: the second of two chunks (warm)."""
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+
+    fleet, params, eng, agent = clock64_setup(algo, extra, x64)
+    sac = agent.sac if agent is not None else None
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    for _ in range(2):
+        pre = eng.workload.tables(st, n_steps)
+        ev0 = int(st.n_events.sum())
+        ms, _ = _timed_chunk(eng, st, pre, n_steps, sac)
+        eng.workload.advance_carries(st, pre)
+    return ms / (int(st.n_events.sum()) - ev0) * 1e3
+
+
+def phase_clock64(report):
+    """(n) the float64 clock's kernels against their plain versions on the
+    card, bitwise, at the main path's shapes: each double instance of B1
+    (base, extended with the hour changing and a controller firing, RL at
+    8 x 8 and 8 x 128) on the paper fleet as the CLI builds it, from a state
+    bridged to t = 6e5 s (the eco run to just before hour 7 of day 7), two
+    chunks, with its us per event beside its float32 instance's (both from
+    init_state, a warm chunk each); R = 32 lanes of the double instance at
+    the bench shape in one launch, each lane equal to its single-lane run,
+    lanes 0-1 to the plain step; B2's double instance at R = 1 and 32 and
+    the fold's edges; B6b's float64 draw on a 200,000-row ring and B5c's
+    float64 bias corrections on the update's four groups.  Each timed
+    beside its plain version and its bound."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        SimParams, clone_state, lane_view, unstack_states, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.rl import optim, replay
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    rows, max_err = {}, 0.0
+    n_steps = CLOCK64_CHECK_STEPS
+    for label, (algo, extra, t0) in CLOCK64_B1.items():
+        # the run's end past the bridged start
+        fleet, params, eng, agent = clock64_setup(algo, extra,
+                                                  duration=t0 + MAIN_DURATION_S)
+        if not params.x64:
+            fail(f"B1 float64 {label}: the CLI's flags did not give the float64 clock")
+        sac = agent.sac if agent is not None else None
+        st = bridged(with_lane_axis(init_state(params.seed, fleet, params,
+                                               workload=eng.workload,
+                                               device="cuda")),
+                     t0, params.log_interval)
+        other = clone_state(st)
+        x0 = b1.event_scan.x64_launches
+        ctl_k, ctl_r = [], []
+        for c in range(2):
+            pre = eng.workload.tables(st, n_steps)
+            before = clone_state(st)
+            k_ms, em_k = _timed_chunk(eng, st, pre, n_steps, sac)
+            t1 = time.perf_counter()
+            em_r, st_r = b1.event_scan_reference(eng, other, pre, n_steps, sac)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t1) * 1e3
+            max_err = max(max_err, em_diff(em_k, em_r, f"B1 float64 {label} "
+                                                       f"chunk {c}"))
+            eng.workload.advance_carries(st, pre)
+            eng.workload.advance_carries(other, pre)
+            max_err = max(max_err, state_diff(st, other))
+            bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                         bridge.state_to_numpy(st))
+            if bad:
+                fail(f"B1 float64 {label} chunk {c}: state differs from the "
+                     f"plain version at {bad[:5]}")
+            ctl_r += st_r["ctl"][:, :2].tolist()
+        if b1.event_scan.x64_launches != x0 + 2:
+            fail(f"B1 float64 {label}: {b1.event_scan.x64_launches - x0} "
+                 "launches of the double instance for 2 chunks")
+        ev = int((st.n_events - before.n_events).sum())
+        if agent is not None:
+            by, f32_ops, bf16_ops, counts = rl_b1_work(eng, before, st, pre,
+                                                       em_k, n_steps, agent)
+            bnd, bnd_by = bound2(by, f32_ops, bf16_ops)
+        else:
+            by, ops, counts = b1_work(eng, before, st, pre, em_k, n_steps)
+            bnd, bnd_by = bound(by, ops)
+        us64 = _us_per_event(algo, extra, CLOCK64_TIME_STEPS, True)
+        us32 = _us_per_event(algo, extra, CLOCK64_TIME_STEPS, False)
+        rows[label] = {"algo": algo, "flags": list(extra), "t0": t0,
+                       "n_steps": n_steps, "events": ev, "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": bnd, "bound_by": bnd_by,
+                       "bytes": by, "counts": counts,
+                       "us_per_event": us64, "us_per_event_float32": us32,
+                       "t_end": float(st.t.max()),
+                       "ctl_ticks": sum(t for t, _ in ctl_r)}
+        print(f"B1 float64 {label}: 2 chunks of {n_steps} from t = {t0:.2f} s "
+              f"bitwise equal to the plain step (to t = {float(st.t.max()):.4f}"
+              f" s); second chunk {ev} events, kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms, bound {bnd:.6f} ms ({bnd_by}); from init_state, "
+              f"{CLOCK64_TIME_STEPS}-step chunks: {us64:.3f} us/event (float32 "
+              f"instance {us32:.3f}, x{us64 / us32:.3f})")
+        if label.startswith("extended/cap") and not rows[label]["ctl_ticks"]:
+            fail(f"B1 float64 {label}: the cap controller never fired")
+        if label == "extended/eco_route" and float(st.t.max()) <= T_HOUR + 0.25:
+            fail("B1 float64 extended/eco_route: the run never reached hour 7")
+    # ---- R = 32 lanes of the double instance at the bench shape
+    fleet, _, _ = cli_params("default_policy")
+    params = SimParams(**dict(BENCH_SHAPE, algo="default_policy",
+                              time_dtype="float64"))
+    eng = Engine(fleet, params, device="cuda")
+    lanes = batched_init(fleet, params, 32, workload=eng.workload, device="cuda")
+    singles = unstack_states(lanes)
+    plain = [clone_state(with_lane_axis(singles[r])) for r in range(2)]
+    lane_ems = []
+    ev0 = int(lanes.n_events.sum())
+    for c in range(2):
+        pre = eng.workload.tables(lanes, 512)
+        l_ms, em = _timed_chunk(eng, lanes, pre, 512, None)
+        eng.workload.advance_carries(lanes, pre)
+        lane_ems.append(em)
+    lane_us = l_ms / (int(lanes.n_events.sum()) - ev0) * 2 * 1e3
+    for r, s in enumerate(singles):
+        s = with_lane_axis(s)
+        for c in range(2):
+            pre = eng.workload.tables(s, 512)
+            em, _ = b1.event_scan(eng, s, pre, 512)
+            eng.workload.advance_carries(s, pre)
+            em_diff({k: v[0] for k, v in em.items()},
+                    {k: v[r] for k, v in lane_ems[c].items()},
+                    f"B1 float64 lane {r} chunk {c} vs its single-lane run")
+            if r < 2:
+                em_p, _ = b1.event_scan_reference(eng, plain[r], pre, 512)
+                eng.workload.advance_carries(plain[r], pre)
+                em_diff(em, em_p, f"B1 float64 lane {r} chunk {c} vs the plain step")
+        for other in ([s] + ([plain[r]] if r < 2 else [])):
+            bad = bridge.tree_mismatches(
+                bridge.state_to_numpy(lane_view(lanes, r)),
+                bridge.state_to_numpy(lane_view(other, 0)))
+            if bad:
+                fail(f"B1 float64 lane {r}: state differs at {bad[:5]}")
+    print(f"B1 float64, R = 32 lanes at the bench shape in one launch: every "
+          f"lane bitwise equal to its single-lane run, lanes 0-1 to the plain "
+          f"step; {lane_us:.3f} us per event and lane (the second chunk)")
+    # ---- B2's double instance
+    fleet, params, n = cli_params("default_policy", X64_ARGV)
+    eng = Engine(fleet, params, device="cuda")
+    wl = eng.workload
+    S = wl.n_streams
+
+    def args_of(st, lanes_=()):
+        shape = lanes_ + (S,)
+        return (st.arr_key, st.arr_count.reshape(shape).contiguous(),
+                st.next_arrival.reshape(shape).contiguous(),
+                st.arr_cum.reshape(shape).contiguous(),
+                st.arr_epoch.reshape(shape).contiguous(), wl.family_t,
+                wl.sparams)
+
+    st1 = bridged(with_lane_axis(init_state(params.seed, fleet, params,
+                                            workload=wl, device="cuda")),
+                  T_LATE, params.log_interval)
+    st32 = bridged(batched_init(fleet, params, 32, workload=wl, device="cuda"),
+                   T_LATE, params.log_interval)
+    args = tuple(a[0] if i < 5 else a for i, a in enumerate(args_of(st1, (1,))))
+    largs = args_of(st32, (32,))
+    for R_, a_ in ((1, args), (32, largs)):
+        for n_ in (1, 2047, n, 4097):
+            out = b2.arrival_tables(*a_, n_, with_aux=True)
+            ref = b2.arrival_tables_reference(*a_, n_, with_aux=True)
+            torch.cuda.synchronize()
+            for k in ("sizes", "tnext", "cum", "aux_key", "aux_u"):
+                if not torch.equal(out[k].view(torch.uint8),
+                                   ref[k].view(torch.uint8)):
+                    fail(f"B2 float64 with {R_} lane(s), n = {n_}: {k} "
+                         "differs from the plain version")
+    b2_ms, _ = device_ms(lambda: b2.arrival_tables(*args, n), "_kernel", reps=50)
+    b2_r32 = _queued_ms(lambda: b2.arrival_tables(*largs, 512), reps=50)
+    b2_plain = time_cuda(lambda: b2.arrival_tables_reference(*args, n), reps=1,
+                         runs=3, warmup=1)
+    fams = wl.family_t.tolist()
+    n_active = sum(1 for f in fams if f != b2.FAM_OFF)
+    n_sin = sum(1 for f in fams if f == b2.FAM_SIN_INV)
+    b2_bytes = (2 * 8 + S * (4 + 8 * 4)) + (4 + 8 + 8) * S * n
+    int_ops = n_active * n * BLOCKS_PER_ENTRY * THREEFRY_OPS
+    f64_ops = n_active * n * SAMPLER_OPS + n_sin * n * BISECT_OPS + S * n
+    t_b = b2_bytes / H100_BYTES_PER_S
+    t_o = int_ops / H100_F32_OPS_PER_S + f64_ops / H100_F64_OPS_PER_S
+    b2_bound, b2_by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    print(f"B2 float64 (S={S}, from t = 6e5 s): R = 1 and 32 bitwise at n = 1, "
+          f"2,047, {n:,}, 4,097; {b2_ms:.4f} ms device time at R = 1, n = "
+          f"{n} (R = 32, n = 512: {b2_r32:.4f} ms), plain {b2_plain:.2f} ms, "
+          f"bound {b2_bound:.5f} ms ({b2_by})")
+    # ---- B6b's float64 draw on the CLI's 200,000-row ring
+    C, B = 200_000, UPDATE_B
+    rb = seeded_ring(C, 60, 4000, 0.7, 3)
+    index = torch.tensor(5, dtype=torch.int32, device="cuda")
+    for i, (bs, idx_arg) in enumerate(((B, None), (B, index), (1, None),
+                                       (4096, index))):
+        key = prng.split(prng.key(80 + i, "cuda"), 2)[0]
+        ko = b6b.replay_sample(rb, key, bs, index=idx_arg, x64=True)
+        po = replay.replay_sample(rb, b6b.sample_key(key, idx_arg), bs, x64=True)
+        for f in (*replay.ROW_FIELDS, "idx"):
+            if not torch.equal(ko[f], po[f]):
+                fail(f"B6b float64 draw, batch {bs}: {f} differs from its "
+                     "plain version")
+    key = prng.split(prng.key(77, "cuda"), 2)[0]
+    b6_ms, _ = device_ms(lambda: b6b.replay_sample(rb, key, B, index=index,
+                                                   x64=True), "replay_sample_")
+    b6_plain = time_cuda(lambda: replay.replay_sample(
+        rb, b6b.sample_key(key, index), B, x64=True), reps=10)
+    row = sum(getattr(rb, f)[0].numel() * getattr(rb, f).element_size()
+              for f in replay.ROW_FIELDS)
+    b6_bytes = C + 2 * B * row + 4 * B
+    b6_bound, b6_by = bound(b6_bytes, B * 3 * THREEFRY_OPS + 2 * C)
+    # ---- B5c's float64 bias corrections on the update's four groups
+    sizes = {"critic": 287_808, "actor": 69_904, "enc": 144_384, "alpha": 1}
+    g = torch.Generator().manual_seed(43)
+    cfg = optim.AdamConfig(x64=True)
+    for step in (0, 999, 4999):
+        res = []
+        for plain_path in (False, True):
+            g2 = torch.Generator().manual_seed(step)
+            groups = [b5c.AdamGroup(
+                torch.randn(n_, generator=g2).cuda(),
+                (torch.randn(n_, generator=g2) * 0.01).cuda(),
+                optim.AdamState(torch.tensor(step, dtype=torch.int32).cuda(),
+                                torch.zeros(n_).cuda(), torch.zeros(n_).cuda()))
+                for n_ in sizes.values()]
+            b5c.adam_update(groups, cfg, plain=plain_path)
+            res.append([t for gr in groups for t in (gr.p, gr.st.mu, gr.st.nu,
+                                                    gr.st.count)])
+        if not all(torch.equal(x, y) for x, y in zip(*res)):
+            fail(f"B5c float64 bias corrections at step {step}: differs from "
+                 "its plain version")
+    groups = [b5c.AdamGroup(torch.randn(n_, generator=g).cuda(),
+                            (torch.randn(n_, generator=g) * 0.01).cuda(),
+                            optim.AdamState(torch.tensor(0, dtype=torch.int32).cuda(),
+                                            torch.zeros(n_).cuda(),
+                                            torch.zeros(n_).cuda()))
+              for n_ in sizes.values()]
+    b5_ms, _ = device_ms(lambda: b5c.adam_update(groups, cfg), "adam_")
+    b5_plain = time_cuda(lambda: b5c.adam_update(groups, cfg, plain=True), reps=5)
+    n_all = sum(sizes.values())
+    b5_bytes = 28 * n_all
+    b5_bound, b5_by = bound(b5_bytes, 20 * n_all)
+    print(f"B6b float64 draw (C = {C:,}, batch {B}): bitwise at batches 1, "
+          f"{B} and 4,096; {b6_ms:.4f} ms device time, plain {b6_plain:.4f} ms, "
+          f"bound {b6_bound:.6f} ms ({b6_by}); B5c float64 bias corrections "
+          f"(four groups): bitwise at steps 1, 1,000, 5,000; {b5_ms:.4f} ms, "
+          f"plain {b5_plain:.4f} ms, bound {b5_bound:.6f} ms ({b5_by})")
+    base = rows["base/joint_nf"]
+    report["clock64"] = {
+        "b1": rows, "b1_max_abs_err": max_err, "b1_lanes_us_per_event": lane_us,
+        "b1_summary": {"ms": base["ms"], "plain_ms": base["plain_ms"],
+                       "bound_ms": base["bound_ms"], "bound_by": base["bound_by"],
+                       "max_abs_err": max_err},
+        "b2": {"ms": b2_ms, "ms_r32_bench": b2_r32, "plain_ms": b2_plain,
+               "bound_ms": b2_bound, "bound_by": b2_by, "bytes": b2_bytes,
+               "max_abs_err": 0.0},
+        "b6b": {"ms": b6_ms, "plain_ms": b6_plain, "bound_ms": b6_bound,
+                "bound_by": b6_by, "bytes": b6_bytes, "max_abs_err": 0.0},
+        "b5c": {"ms": b5_ms, "plain_ms": b5_plain, "bound_ms": b5_bound,
+                "bound_by": b5_by, "bytes": b5_bytes, "max_abs_err": 0.0}}
+
+
+def phase_clock64_cli(report, out_root):
+    """(o) the float64 clock's main path through the CLI, past the auto
+    threshold (``--duration 200000``, no ``--time-dtype``): ``joint_nf``,
+    then ``chsac_af`` learning at the default warm-up (``learning_run``'s
+    checks), run.sh's training traffic without inference, a 20 s log tick;
+    each run resolved to the float64 clock, every B1 and B2 launch the
+    double instance, the update's B6b and B5c calls the float64 ones."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.kernels import adam as b5c
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+
+    out = os.path.join(out_root, "clock64_joint_nf")
+    argv = cli_argv("joint_nf", out) + ["--duration", str(CLOCK64_CLI_S),
+                                        *CLOCK64_CLI_ARGV]
+    if not run_sim.build_params(run_sim.parse_args(argv)).x64:
+        fail("the CLI did not resolve --duration 200000 to the float64 clock")
+    torch.cuda.synchronize()
+    b1.event_scan.launches = b1.event_scan.x64_launches = 0
+    b2.arrival_tables.launches = b2.arrival_tables.x64_launches = 0
+    t0 = time.perf_counter()
+    st = run_sim.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_b1, n_b2 = b1.event_scan.launches, b2.arrival_tables.launches
+    if st.t.dtype != torch.float64 or not bool(st.done) or abs(
+            float(st.t) - CLOCK64_CLI_S) > 1e-6:
+        fail(f"float64 CLI joint_nf: clock {st.t.dtype} at {float(st.t)}")
+    if not (n_b1 > 0 and n_b1 == b1.event_scan.x64_launches):
+        fail(f"float64 CLI joint_nf: {b1.event_scan.x64_launches} of {n_b1} "
+             "B1 launches the double instance")
+    if not (n_b2 > 0 and n_b2 == b2.arrival_tables.x64_launches):
+        fail(f"float64 CLI joint_nf: {b2.arrival_tables.x64_launches} of {n_b2} "
+             "B2 launches the double instance")
+    finished = int(st.n_finished.sum())
+    arrived = int(st.jid_counter) - 1
+    queued = int((st.queues.tail - st.queues.head).sum())
+    placed = int((st.jobs.status != 0).sum())
+    if arrived != finished + queued + placed + int(st.n_dropped):
+        fail("float64 CLI joint_nf: conservation broken")
+    if len(_read_csv(os.path.join(out, "job_log.csv"))) != finished:
+        fail("float64 CLI joint_nf: job_log rows differ from the finishes")
+    events = int(st.n_events)
+    print(f"float64 CLI joint_nf (--duration {CLOCK64_CLI_S:.0f} "
+          f"{' '.join(CLOCK64_CLI_ARGV)}, auto -> float64): {events} events, "
+          f"{wall:.2f} s wall, {events / wall:.1f} events/s, {finished} "
+          f"finished; B1 launches {n_b1}, B2 {n_b2}, all double instances")
+    # chsac_af learning past the threshold
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    b6b.replay_sample.x64_launches = 0
+    b5c.adam_update.x64_launches = 0
+    b1.event_scan.x64_launches = b2.arrival_tables.x64_launches = 0
+    l_st, l_wall, rec, launches = learning_run(
+        os.path.join(out_root, "clock64_chsac_af"), "onehot", CLOCK64_CLI_S,
+        CLOCK64_CLI_ARGV)
+    captures = launches["graph_captures"]
+    if l_st.t.dtype != torch.float64:
+        fail("float64 learning CLI: the clock is not float64")
+    x64 = {"event_scan": b1.event_scan.x64_launches,
+           "arrival_tables": b2.arrival_tables.x64_launches,
+           "replay_sample": b6b.replay_sample.x64_launches,
+           "adam_update": b5c.adam_update.x64_launches}
+    if (x64["event_scan"] != launches["event_scan"]
+            or x64["arrival_tables"] != launches["arrival_tables"]
+            or x64["replay_sample"] != 2 * captures
+            or x64["adam_update"] != 2 * captures or captures < 1):
+        fail(f"float64 learning CLI: float64 calls {x64} for launches "
+             f"{launches} and {captures} captures")
+    updates = sum(rec["done"])
+    l_events = int(l_st.n_events)
+    print(f"float64 learning CLI chsac_af (--duration {CLOCK64_CLI_S:.0f} "
+          f"{' '.join(CLOCK64_CLI_ARGV)}): {l_events} events, {l_wall:.2f} s "
+          f"wall, {l_events / l_wall:.1f} events/s, {updates} updates "
+          f"({captures} capture); float64 calls {x64}")
+    report["clock64_cli"] = {
+        "joint_nf": {"events": events, "wall_s": wall,
+                     "events_per_s": events / wall, "b1_launches": n_b1,
+                     "b2_launches": n_b2, "finished": finished},
+        "chsac_af": {"events": l_events, "wall_s": l_wall,
+                     "events_per_s": l_events / l_wall, "updates": updates,
+                     "launches": launches, "x64_calls": x64}}
+    return {"event_scan": n_b1 + launches["event_scan"],
+            "arrival_tables": n_b2 + launches["arrival_tables"],
+            "replay_sample": launches["replay_sample"],
+            "adam_update": launches["adam_update"]}
+
+
 # ------------------------------------------------- opt-in studies of B1
 
 #: the instrumented kernel's ``g_prof`` slots: cycles on thread 0 by phase
@@ -3980,8 +4437,8 @@ B1_ANCHORS = (
      "  __device__ void step_rl(int i) {\n@@    head(i);\n"),
     ("    if (lane == 0) atomicMin(&sm.afe[p], fe);\n    bar();\n",
      "    if (lane == 0) atomicMin(&sm.afe[p], fe);\n    bar();\n@0@"),
-    ("    dc_tree_sums(sm.active, true);\n    jf = argmin_index(",
-     "    dc_tree_sums(sm.active, true);\n@1@    jf = argmin_index("),
+    ("    dc_tree_sums(sm.active, true);\n    if constexpr (kD) {\n",
+     "    dc_tree_sums(sm.active, true);\n@1@    if constexpr (kD) {\n"),
     ("    // job progress over the gap (every slot; running ones advance)\n",
      "@2@    // job progress over the gap (every slot; running ones advance)\n"),
     ("      F(JF_UDONE, j) = minimum(F(JF_SIZE, j), F(JF_UDONE, j) + prog);\n"
@@ -5182,9 +5639,9 @@ def main():
     from distributed_cluster_gpus_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(["event_scan", "arrival_tables", "replay_ingest",
-                 "quantile_huber", "marginal", "adam", "replay_sample",
-                 "param_pack", "dense", "log_softmax"])
+    build.build(["event_scan", "event_scan64", "arrival_tables",
+                 "replay_ingest", "quantile_huber", "marginal", "adam",
+                 "replay_sample", "param_pack", "dense", "log_softmax"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
     for name, log in build.ptxas_reports.items():
@@ -5206,6 +5663,7 @@ def main():
     timed(phase_b2, report)
     timed(phase_b1, report)
     timed(phase_b1_ext, report)
+    timed(phase_clock64, report)
     # run outputs stay inside the checkout (smoke_out/ is git-ignored)
     out_root = os.path.join(here, "smoke_out", "runs")
     shutil.rmtree(out_root, ignore_errors=True)
@@ -5227,10 +5685,12 @@ def main():
         trained = timed(phase_update_whole, report)
         timed(phase_b1_after_learning, report, trained)
         upd_launches = timed(phase_learning_cli, report, out_root)
+        x64_launches = timed(phase_clock64_cli, report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
     b1r, b2r = report["b1"], report["b2"]
+    c64 = report["clock64"]
     rl = {k: report[k] for k in ("b1_rl", "b3", "b4", "b6a")}
 
     def entry(name, source, replaces, launches, r, library_ms):
@@ -5326,6 +5786,21 @@ def main():
                **({"redesigned": True} if mod in ("dense", "log_softmax")
                   else {}))
           for name, (mod, _, replaces) in FUSED.items()),
+        # the float64 clock's instances (phases (n) and (o); launches: the
+        # float64 CLI runs of (o))
+        dict(entry("event_scan_f64", "event_scan64.cu", "sim/engine.py:4581",
+                   x64_launches["event_scan"], c64["b1_summary"], None),
+             instances={k: {f: v[f] for f in (
+                 "us_per_event", "us_per_event_float32", "ms", "plain_ms",
+                 "bound_ms", "bound_by")} for k, v in c64["b1"].items()},
+             lanes_us_per_event=c64["b1_lanes_us_per_event"]),
+        dict(entry("arrival_tables_f64", "arrival_tables.cu",
+                   "workload/compiler.py:218", x64_launches["arrival_tables"],
+                   c64["b2"], None), ms_r32_bench=c64["b2"]["ms_r32_bench"]),
+        entry("replay_sample_x64", "replay_sample.cu", "rl/replay.py:212",
+              x64_launches["replay_sample"], c64["b6b"], None),
+        entry("clip_adam_polyak_x64", "adam.cu", "rl/sac.py:279",
+              x64_launches["adam_update"], c64["b5c"], None),
     ]}
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:

@@ -18,6 +18,8 @@
 //   gn     = sqrt(ss);  g = gn < max_norm ? g : (g / gn) * max_norm
 //   mu     = c1 * g + b1 * mu;   nu = c2 * (g * g) + b2 * nu
 //   count  = count + 1 (saturating);  bc = 1 - (float)pow((double)b, count)
+//            (x64, the float64 clock's run: optax under jax_enable_x64,
+//            bc = (float)(1 - pow(b64, count)) with b64 the double decay)
 //   u      = (mu / bc1) / (sqrt(nu / bc2 + 0) + eps);  p = p + u * (-lr)
 //   target = (1 - tau) * target + tau * p     (when a target is given)
 //   p      = min(p, clamp)                    (when clamped)
@@ -83,6 +85,8 @@ struct Table {
   Group grp[kMaxGroups];
   int n_groups;
   float c1, b1, c2, b2, eps, neg_lr, max_norm, omt, tau;
+  int x64;          // the bias corrections in double (AdamConfig.x64)
+  double b1d, b2d;  // the double decays (x64)
 };
 
 __device__ __forceinline__ int group_of(const Table& t, int block) {
@@ -160,8 +164,13 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = *G.count;
     const int c = c0 < kInt32Max ? c0 + 1 : c0;
     *G.count = c;
-    bc[2 * gi] = 1.0f - (float)pow((double)t.b1, (double)c);
-    bc[2 * gi + 1] = 1.0f - (float)pow((double)t.b2, (double)c);
+    if (t.x64) {
+      bc[2 * gi] = (float)(1.0 - pow(t.b1d, (double)c));
+      bc[2 * gi + 1] = (float)(1.0 - pow(t.b2d, (double)c));
+    } else {
+      bc[2 * gi] = 1.0f - (float)pow((double)t.b1, (double)c);
+      bc[2 * gi + 1] = 1.0f - (float)pow((double)t.b2, (double)c);
+    }
   }
   float acc = 0.0f;
   for (int r = 0; r < G.R; ++r) {
@@ -258,13 +267,15 @@ __global__ void __launch_bounds__(kThreads)
 // its K blocks and R float4s a thread (rl/optim.py::norm_layout);
 // flags[k] bit 0 a target, bit 1 a clamp, bit 2 a bf16 gradient; clamps[k]
 // the clamp.  `consts`
-// holds (1-b1, b1, 1-b2, b2, eps, -lr, max_norm, 1-tau, tau) as float32.
+// holds (1-b1, b1, 1-b2, b2, eps, -lr, max_norm, 1-tau, tau) as float32;
+// `decays` (b1, b2) as double, read when `x64` is set.
 // Scratch: `partial` (the sum of the K floats), `bc` (2 n_groups floats).
 // Returns the first failing launch's cudaError_t, or -1 for a bad table.
 extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
                            const int* KR, const int* flags,
                            const float* clamps, int n_groups,
-                           const float* consts, void* partial, void* bc,
+                           const float* consts, int x64,
+                           const double* decays, void* partial, void* bc,
                            void* stream) {
   if (n_groups < 1 || n_groups > kMaxGroups) return -1;
   Table t;
@@ -310,6 +321,9 @@ extern "C" int adam_launch(const uint64_t* ptrs, const long long* ns,
   t.max_norm = consts[6];
   t.omt = consts[7];
   t.tau = consts[8];
+  t.x64 = x64 != 0;
+  t.b1d = decays[0];
+  t.b2d = decays[1];
   cudaStream_t s = (cudaStream_t)stream;
   adam_norm_kernel<<<blocks, kThreads, 0, s>>>(
       t, reinterpret_cast<float*>(partial), reinterpret_cast<float*>(bc));

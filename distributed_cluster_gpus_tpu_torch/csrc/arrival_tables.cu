@@ -46,6 +46,16 @@
 // every float32 expression rounds as the plain version's separate torch
 // ops round.  The erf_inv polynomial is the one place that wants fused
 // multiply-adds (XLA's polynomial uses them); it calls fmaf explicitly.
+//
+// The float64 clock (`arrival_tables64_launch`, the JAX package under
+// jax_enable_x64): the same three launches instantiated for double.  The
+// draws take the 64 bits (o0 << 32 | o1) of the block whose float32 draw
+// takes o0 ^ o1 (no more threefry rounds), the samplers run in double
+// (the uniform's top 52 bits, log1p, pow, exp, XLA's double erf_inv
+// polynomial `erfinv_f64` with each step rounded twice, as the plain
+// version's torch ops round it, and cos in the inversion), the sizes are
+// stored as float32, and the increments, the fold (a plain left fold, one
+// double add an entry) and the next arrivals are double.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -65,7 +75,47 @@ constexpr int kFoldPad = 4 * kFoldVec;  // floats a batch may read past a chunk
 
 using tf::bits32;
 using tf::child;
+using tf::unit_double;
 using tf::unit_float;
+
+// XLA's double erf_inv (ops/prng.py erfinv_f64: the coefficients of its
+// three branches, w < 6.25, w < 16 and above, read from its optimized HLO)
+__device__ __constant__ double kErfSmall[23] = {
+    -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+    1.1157877678025181e-17, -1.3331716628546209e-16, 2.0972767875968562e-17,
+    6.6376381343583238e-15, -4.0545662729752069e-14, -8.1519341976054722e-14,
+    2.6335093153082323e-12, -1.2975133253453532e-11, -5.4154120542946279e-11,
+    1.0512122733215323e-09, -4.1126339803469837e-09, -2.9070369957882005e-08,
+    4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+    0.00018673420803405714, -0.000740702534166267, -0.0060336708714301491,
+    0.24015818242558962, 1.6536545626831027};
+__device__ __constant__ double kErfMid[19] = {
+    2.2137376921775787e-09, 9.0756561938885391e-08, -2.7517406297064545e-07,
+    1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+    2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+    6.8284851459573175e-05, 2.4031110387097894e-05, -0.00035503752036284748,
+    0.0009532893797373805, -0.0016882755560235047, 0.0024914420961078508,
+    -0.0037512085075692412, 0.0053709145535900636, 1.0052589676941592,
+    3.0838856104922208};
+__device__ __constant__ double kErfLarge[17] = {
+    -2.7109920616438573e-11, -2.5556418169965252e-10, 1.5076572693500548e-09,
+    -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+    2.9147953450901081e-08, -6.7711997758452339e-08, 2.2900482228026655e-07,
+    -9.9298272942317e-07, 4.5260625972231537e-06, -1.9681778105531671e-05,
+    7.5995277030017761e-05, -0.00021503011930044477, -0.00013871931833623122,
+    1.0103004648645344, 4.8499064014085844};
+
+__device__ double erfinv_f64(double x) {
+  const double w = -log1p(-(x * x));
+  const bool small = w < 6.25, mid = w < 16.0;
+  const double z = small ? w - 3.125 : sqrt(w) - (mid ? 3.25 : 5.0);
+  const double* c = small ? kErfSmall : (mid ? kErfMid : kErfLarge);
+  const int len = small ? 23 : (mid ? 19 : 17);
+  double p = c[0];
+  for (int i = 1; i < len; ++i) p = c[i] + p * z;
+  if (fabs(x) == 1.0) return x * CUDART_INF;
+  return p * x;
+}
 
 __device__ __forceinline__ float erfinv_xla(float x) {
   const float small_c[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
@@ -89,16 +139,24 @@ __device__ __forceinline__ float pymod(float a, float b) {
   if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
   return r;
 }
+__device__ __forceinline__ double pymod(double a, double b) {
+  double r = fmod(a, b);
+  if (r != 0.0 && ((r < 0.0) != (b < 0.0))) r += b;
+  return r;
+}
 
-// kernel 1: one thread per (lane, stream, entry) - keys, size, gap increment
+// kernel 1: one thread per (lane, stream, entry) - keys, size, gap
+// increment (TimeT: the clock's type, float or double)
+template <typename TimeT>
 __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
                              const int* __restrict__ c0,
                              const int* __restrict__ family,
                              const float* __restrict__ sparams, int R, int S,
                              int n, float* __restrict__ sizes,
-                             float* __restrict__ inc,
+                             TimeT* __restrict__ inc,
                              int* __restrict__ aux_key,
-                             float* __restrict__ aux_u) {
+                             TimeT* __restrict__ aux_u) {
+  constexpr bool kD = sizeof(TimeT) == 8;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)R * S * n) return;
   const int rs = (int)(idx / n);  // lane * S + stream
@@ -108,7 +166,7 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
   const int fam = family[s];
   if (fam == kFamOff) {
     sizes[idx] = 0.0f;
-    inc[idx] = 0.0f;
+    inc[idx] = (TimeT)0;
     return;
   }
   const float rate = sparams[4 * s + 0];
@@ -121,23 +179,53 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
   // sample_job_size: (k_u, k_n) = split(k_size)
   uint32_t u0, u1, z0, z1;
   float size;
-  if ((s & 1) == 0) {
-    child(a0, a1, 0u, u0, u1);
-    const float u = fmaxf(1e-9f, 1.0f - unit_float(bits32(u0, u1)));
-    size = 1.0f / powf(u, 0.555555582f);
+  if constexpr (kD) {
+    if ((s & 1) == 0) {
+      child(a0, a1, 0u, u0, u1);
+      uint32_t h, l;
+      tf::bits64(u0, u1, h, l);
+      const double u = fmax(1e-9, 1.0 - unit_double(h, l));
+      size = (float)(1.0 / pow(u, 1.0 / 1.8));
+    } else {
+      child(a0, a1, 1u, z0, z1);
+      // uniform in (nextafter(-1, 0), 1): f * (1 - lo) + lo, 1 - lo = 2
+      const double lo = -0x1.fffffffffffffp-1;  // nextafter(-1, 0)
+      uint32_t h, l;
+      tf::bits64(z0, z1, h, l);
+      const double un = fmax(lo, unit_double(h, l) * (1.0 - lo) + lo);
+      const double z = 1.4142135623730951 * erfinv_f64(un);
+      const double mu = (double)logf(50000.0f);
+      size = (float)fmax(0.1, exp(mu + 0.4 * z));
+    }
   } else {
-    child(a0, a1, 1u, z0, z1);
-    const float un = fmaxf(-0.99999994f,
-                           unit_float(bits32(z0, z1)) * 2.0f + -0.99999994f);
-    const float z = erfinv_xla(un) * 1.41421354f;
-    const float mu = logf(50000.0f);
-    size = fmaxf(0.1f, expf(mu + 0.4f * z));
+    if ((s & 1) == 0) {
+      child(a0, a1, 0u, u0, u1);
+      const float u = fmaxf(1e-9f, 1.0f - unit_float(bits32(u0, u1)));
+      size = 1.0f / powf(u, 0.555555582f);
+    } else {
+      child(a0, a1, 1u, z0, z1);
+      const float un = fmaxf(-0.99999994f,
+                             unit_float(bits32(z0, z1)) * 2.0f + -0.99999994f);
+      const float z = erfinv_xla(un) * 1.41421354f;
+      const float mu = logf(50000.0f);
+      size = fmaxf(0.1f, expf(mu + 0.4f * z));
+    }
   }
   sizes[idx] = size;
-  const float ug = unit_float(bits32(b0, b1));
-  const float e = -log1pf(-ug);
+  TimeT ug, e;
+  if constexpr (kD) {
+    uint32_t h, l;
+    tf::bits64(b0, b1, h, l);
+    ug = unit_double(h, l);
+    e = -log1p(-ug);
+  } else {
+    ug = unit_float(bits32(b0, b1));
+    e = -log1pf(-ug);
+  }
   if (fam == kFamPoisson) {
-    inc[idx] = rate > 0.0f ? e * (1.0f / fmaxf(rate, 1e-30f)) : CUDART_INF_F;
+    // e * (1/rate): the float32 rate's reciprocal in the clock's type
+    inc[idx] = rate > 0.0f ? e * ((TimeT)1 / (TimeT)fmaxf(rate, 1e-30f))
+                           : (TimeT)CUDART_INF_F;
   } else {
     inc[idx] = e;
   }
@@ -151,27 +239,36 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
 // A stream's constants of its next arrivals, once per (stream, lane): its
 // family, the epoch, and for the sinusoid's inversion the terms that do
 // not depend on the entry
+// (the epoch, the phase and its cosine in the clock's type; the float32
+// shape terms promote to it where they meet them)
+template <typename TimeT>
 struct Arrive {
   int fam;
-  float ep, rate, period, w, phase0, cos0, coef, den_lo, den_hi, den_per;
+  TimeT ep;
+  float rate, period, w;
+  TimeT phase0, cos0;
+  float coef, den_lo, den_hi, den_per;
 };
 
-__device__ __forceinline__ Arrive arrive_of(const int* __restrict__ family,
-                                            const float* __restrict__ sparams,
-                                            const float* __restrict__ epoch,
-                                            int s, int rs) {
-  Arrive A;
+__device__ __forceinline__ float cos_t(float x) { return cosf(x); }
+__device__ __forceinline__ double cos_t(double x) { return cos(x); }
+
+template <typename TimeT>
+__device__ __forceinline__ Arrive<TimeT> arrive_of(
+    const int* __restrict__ family, const float* __restrict__ sparams,
+    const TimeT* __restrict__ epoch, int s, int rs) {
+  Arrive<TimeT> A;
   A.fam = family[s];
   A.ep = epoch[rs];
   const float rate = sparams[4 * s + 0], amp_s = sparams[4 * s + 1];
   const float period = sparams[4 * s + 2];
-  const float anchor = A.ep + sparams[4 * s + 3];
+  const TimeT anchor = A.ep + (TimeT)sparams[4 * s + 3];
   const float a = fabsf(amp_s);
   A.rate = rate;
   A.period = period;
   A.w = 6.28318548f / period;
-  A.phase0 = A.w * pymod(anchor, period);
-  A.cos0 = cosf(A.phase0);
+  A.phase0 = (TimeT)A.w * pymod(anchor, (TimeT)period);
+  A.cos0 = cos_t(A.phase0);
   A.coef = rate * amp_s / A.w;
   A.den_lo = fmaxf(rate * (1.0f + a), 1e-30f);
   A.den_hi = fmaxf(rate * (1.0f - a), 1e-9f);
@@ -181,7 +278,7 @@ __device__ __forceinline__ Arrive arrive_of(const int* __restrict__ family,
 
 // the 30-step bisection of the integrated sinusoid rate for cumulative
 // Exp sum s (ops/arrivals.py sinusoid_gap_from_cum)
-__device__ __forceinline__ float sin_inv_gap(const Arrive& A, float s) {
+__device__ __forceinline__ float sin_inv_gap(const Arrive<float>& A, float s) {
   float lo = s / A.den_lo;
   float hi = fminf(s / A.den_hi, (s / A.den_per + 1.0f) * A.period);
   for (int it = 0; it < 30; ++it) {
@@ -196,12 +293,30 @@ __device__ __forceinline__ float sin_inv_gap(const Arrive& A, float s) {
   }
   return 0.5f * (lo + hi);
 }
+// ... in double, the float32 terms widened
+__device__ __forceinline__ double sin_inv_gap(const Arrive<double>& A,
+                                              double s) {
+  const double rate = A.rate, w = A.w, coef = A.coef, period = A.period;
+  double lo = s / (double)A.den_lo;
+  double hi = fmin(s / (double)A.den_hi, (s / (double)A.den_per + 1.0) * period);
+  for (int it = 0; it < 30; ++it) {
+    const double mid = 0.5 * (lo + hi);
+    const double g = rate * mid + coef * (A.cos0 - cos(A.phase0 + w * mid));
+    if (g < s) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return 0.5 * (lo + hi);
+}
 
 // the next arrival of a stream from its fold f
-__device__ __forceinline__ float tnext_of(const Arrive& A, float f) {
+template <typename TimeT>
+__device__ __forceinline__ TimeT tnext_of(const Arrive<TimeT>& A, TimeT f) {
   if (A.fam == kFamPoisson) return f;
-  if (A.fam != kFamSinInv) return CUDART_INF_F;
-  return A.ep + (A.rate > 0.0f ? sin_inv_gap(A, f) : CUDART_INF_F);
+  if (A.fam != kFamSinInv) return (TimeT)CUDART_INF_F;
+  return A.ep + (A.rate > 0.0f ? sin_inv_gap(A, f) : (TimeT)CUDART_INF_F);
 }
 
 // The left fold c += tile[j], tile[j] = c over tile[0..len) by one thread
@@ -233,6 +348,15 @@ __device__ __forceinline__ void load_batch(float4 (&v)[kFoldVec],
   for (int u = 0; u < kFoldVec; ++u) v[u] = t4[u];
 }
 
+// the double clock's fold: one add an entry, in order
+__device__ __forceinline__ double fold_tile(double* tile, int len, double c) {
+  for (int j = 0; j < len; ++j) {
+    c = c + tile[j];
+    tile[j] = c;
+  }
+  return c;
+}
+
 __device__ __forceinline__ float fold_tile(float* tile, int len, float c) {
   float4* t4 = reinterpret_cast<float4*>(tile);
   const int nb = len / (4 * kFoldVec) * kFoldVec;  // float4s in whole batches
@@ -254,14 +378,15 @@ __device__ __forceinline__ float fold_tile(float* tile, int len, float c) {
 
 // src[0..len) into dst, threads t0, t0 + nt, ...: each thread's loads in
 // flight together
-__device__ __forceinline__ void stage(float* dst, const float* src, int len,
+template <typename TimeT>
+__device__ __forceinline__ void stage(TimeT* dst, const TimeT* src, int len,
                                       int t0, int nt) {
   for (int j0 = t0; j0 < len; j0 += 4 * nt) {
-    float v[4];
+    TimeT v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = j0 + u * nt;
-      v[u] = j < len ? src[j] : 0.0f;
+      v[u] = j < len ? src[j] : (TimeT)0;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -272,31 +397,32 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int len,
 // kernel 2: one block per (stream, lane) - the sequential fold of the
 // increments (in `cum`) into the cumulative row, in place; with `invert`
 // also the next arrivals (`tnext_of`) of its entries
+template <typename TimeT>
 __global__ void fold_kernel(const int* __restrict__ family,
                             const float* __restrict__ sparams,
-                            const float* __restrict__ t0,
-                            const float* __restrict__ cum0,
-                            const float* __restrict__ epoch, int n,
-                            int invert, float* __restrict__ cum,
-                            float* __restrict__ tnext) {
-  __shared__ __align__(16) float ring[kRing][kChunk + kFoldPad];
+                            const TimeT* __restrict__ t0,
+                            const TimeT* __restrict__ cum0,
+                            const TimeT* __restrict__ epoch, int n,
+                            int invert, TimeT* __restrict__ cum,
+                            TimeT* __restrict__ tnext) {
+  __shared__ __align__(16) TimeT ring[kRing][kChunk + kFoldPad];
   const int s = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int rs = blockIdx.y * gridDim.x + s;  // lane * S + stream
-  float* row = cum + (long long)rs * n;
-  float* trow = tnext + (long long)rs * n;
+  TimeT* row = cum + (long long)rs * n;
+  TimeT* trow = tnext + (long long)rs * n;
   const int nc = (n + kChunk - 1) / kChunk;
-  const Arrive A = arrive_of(family, sparams, epoch, s, rs);
+  const Arrive<TimeT> A = arrive_of(family, sparams, epoch, s, rs);
   // chunk k's fold out of the ring (and its next arrivals), threads t0,
   // t0 + step, ...
   auto drain = [&](int k, int t0, int step) {
-    const float* buf = ring[k % kRing];
+    const TimeT* buf = ring[k % kRing];
     const int base = k * kChunk, len = min(kChunk, n - base);
     for (int j = t0; j < len; j += step) {
       row[base + j] = buf[j];
       if (invert) trow[base + j] = tnext_of(A, buf[j]);
     }
   };
-  float c = A.fam == kFamSinInv ? cum0[rs] : t0[rs];  // thread 0's
+  TimeT c = A.fam == kFamSinInv ? cum0[rs] : t0[rs];  // thread 0's
   stage(ring[0], row, min(kChunk, n), tid, nt);
   __syncthreads();
   for (int k = 0; k < nc; ++k) {
@@ -315,15 +441,49 @@ __global__ void fold_kernel(const int* __restrict__ family,
 
 // kernel 3: one thread per (lane, stream, entry) - the next arrival from
 // the fold
+template <typename TimeT>
 __global__ void tnext_kernel(const int* __restrict__ family,
                              const float* __restrict__ sparams,
-                             const float* __restrict__ epoch, int R, int S,
-                             int n, const float* __restrict__ cum,
-                             float* __restrict__ tnext) {
+                             const TimeT* __restrict__ epoch, int R, int S,
+                             int n, const TimeT* __restrict__ cum,
+                             TimeT* __restrict__ tnext) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)R * S * n) return;
   const int rs = (int)(idx / n);  // lane * S + stream
   tnext[idx] = tnext_of(arrive_of(family, sparams, epoch, rs % S, rs), cum[idx]);
+}
+
+// The three launches for one clock type (see arrival_tables_launch).
+template <typename TimeT>
+int launch_tables(const int64_t* arr_key, const int* c0, const TimeT* t0,
+                  const TimeT* cum0, const TimeT* epoch, const int* family,
+                  const float* sparams, int R, int S, int n, float* sizes,
+                  TimeT* tnext, TimeT* cum, int* aux_key, TimeT* aux_u,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R <= 0 || S <= 0 || n <= 0) return (int)cudaSuccess;
+  if (R > 65535) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long total = (long long)R * S * n;
+  const int blocks = (int)((total + threads - 1) / threads);
+  draws_kernel<TimeT><<<blocks, threads, 0, st>>>(
+      arr_key, c0, family, sparams, R, S, n, sizes, cum, aux_key, aux_u);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the fold blocks invert their own entries where they alone fill the card
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int invert = (long long)S * R >= 2LL * sms;
+  fold_kernel<TimeT><<<dim3(S, R), threads, 0, st>>>(
+      family, sparams, t0, cum0, epoch, n, invert, cum, tnext);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || invert) return (int)err;
+  tnext_kernel<TimeT><<<blocks, threads, 0, st>>>(family, sparams, epoch, R, S,
+                                                  n, cum, tnext);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -340,28 +500,21 @@ extern "C" int arrival_tables_launch(const int64_t* arr_key, const int* c0,
                                      float* sizes, float* tnext, float* cum,
                                      int* aux_key, float* aux_u,
                                      void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (R <= 0 || S <= 0 || n <= 0) return (int)cudaSuccess;
-  if (R > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long total = (long long)R * S * n;
-  const int blocks = (int)((total + threads - 1) / threads);
-  draws_kernel<<<blocks, threads, 0, st>>>(arr_key, c0, family, sparams, R, S,
-                                          n, sizes, cum, aux_key, aux_u);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // the fold blocks invert their own entries where they alone fill the card
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int invert = (long long)S * R >= 2LL * sms;
-  fold_kernel<<<dim3(S, R), threads, 0, st>>>(family, sparams, t0, cum0, epoch,
-                                              n, invert, cum, tnext);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || invert) return (int)err;
-  tnext_kernel<<<blocks, threads, 0, st>>>(family, sparams, epoch, R, S, n,
-                                          cum, tnext);
-  return (int)cudaGetLastError();
+  return launch_tables<float>(arr_key, c0, t0, cum0, epoch, family, sparams,
+                              R, S, n, sizes, tnext, cum, aux_key, aux_u,
+                              stream);
+}
+
+// The float64 clock's tables: the clocks, `tnext`, `cum` and `aux_u` are
+// double (`sizes` stays float32); otherwise as arrival_tables_launch.
+extern "C" int arrival_tables64_launch(const int64_t* arr_key, const int* c0,
+                                       const double* t0, const double* cum0,
+                                       const double* epoch, const int* family,
+                                       const float* sparams, int R, int S,
+                                       int n, float* sizes, double* tnext,
+                                       double* cum, int* aux_key,
+                                       double* aux_u, void* stream) {
+  return launch_tables<double>(arr_key, c0, t0, cum0, epoch, family, sparams,
+                               R, S, n, sizes, tnext, cum, aux_key, aux_u,
+                               stream);
 }

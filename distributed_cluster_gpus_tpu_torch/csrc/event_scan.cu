@@ -114,6 +114,22 @@
 // to the preallocated [R, n_steps, ...] buffers; the rest of the state is
 // written back once, at chunk end.  No host read happens inside the chunk.
 //
+// The clock (SimParams.time_dtype): every instance above is built for a
+// float clock here and for a double one in csrc/event_scan64.cu, which
+// compiles this source with DCG_CLOCK64 defined (its entry points carry
+// "64" in their names).  The double instances (the float64 clock, jax's
+// x64 mode in the JAX package) hold in double the lane's clock, first
+// event time and log clock, the DCs' energy and GPU-time accumulators, the
+// arrival clocks, the slab's four time columns (JF_TING, JF_TAVAIL,
+// JF_TSTART, JF_PT: a [4, J] double array after the float slab, whose four
+// float columns of those fields go unused) and every field of a ring
+// record (88 bytes); the rest stays float32 and int32.  The head's argmins
+// of double keys do not fit the float instances' one 64-bit (key << 32 |
+// slot) word: each warp posts its least (64-bit key, slot, value) to
+// shared memory and every thread takes the least (key, slot) over the
+// warps after the barrier (ties to the lower slot, as before).  The float
+// instances compile as they did.
+//
 // Rounding: built with -fmad=false and IEEE division (-prec-div=true, the
 // default), never fast math.  Each float expression is the plain engine's,
 // op for op: `fmul_pinned` is a*b + a*0 (one rounding, the reference's
@@ -130,7 +146,20 @@
 
 #include "threefry.cuh"
 
+#ifdef DCG_CLOCK64
+#define DCG_ENTRY(name) name##64
+#else
+#define DCG_ENTRY(name) name
+#endif
+
 namespace {
+
+// this build's clock (see the head note)
+#ifdef DCG_CLOCK64
+using Clock = double;
+#else
+using Clock = float;
+#endif
 
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kMaxDC = 32;
@@ -226,6 +255,9 @@ enum Flt {
   F_POWER_CAP, F_CAP_THR, F_W_LAT, F_W_E, F_W_C, F_W_COST, F_W_Q,
   N_FLTS
 };
+// the double clock's run end and log interval (kernels/event_scan.py
+// DBL_NAMES)
+enum Dbl { D_END, D_LOG_INTERVAL, N_DBLS };
 
 // the extended instance's choices (kernels/event_scan.py ADM_/ROUTE_/
 // ECO_/CAP_ codes)
@@ -240,6 +272,9 @@ struct Args {
   void* p[N_PTRS];
   int i[N_INTS];
   float f[N_FLTS];
+#ifdef DCG_CLOCK64
+  double d[N_DBLS];
+#endif
 };
 
 // slab fields in shared memory: 8 int32 columns then 10 float32 columns
@@ -255,10 +290,24 @@ __constant__ int kJobCol[18] = {JI_STATUS, JI_JTYPE, JI_INGRESS, JI_DC,
                                 JI_FIDX,   JF_TING,  JF_TAVAIL,  JF_TSTART,
                                 JF_NETLAT, JI_PCOUNT, JF_PT,     JF_TPT,
                                 JF_SPU,    JF_WATTS};
+// JobSlab dataclass order -> the time column of the double instances'
+// [4, J] array (-1: not a time field)
+__constant__ int kJobTime[18] = {-1, -1, -1, -1, -1, -1, -1, -1, -1,
+                                 0,  1,  2,  -1, -1, 3,  -1, -1, -1};
+// the time columns' index in that array (any other column: unused)
+__host__ __device__ constexpr int time_col(int f) {
+  return f == JF_TING ? 0 : f == JF_TAVAIL ? 1 : f == JF_TSTART ? 2 : 3;
+}
+// the double instances' head: each warp's least (key, slot, value) of the
+// three argmins, in shared memory after the time columns
+constexpr int kWarpMinBytes = 3 * kMaxWarps * (8 + 8 + 4);
 
-// per-lane scalars and small arrays, in static shared memory
-struct Small {
-  float t, t_first, next_log_t, dt;
+// per-lane scalars and small arrays, in static shared memory (the time
+// fields in the clock's type)
+template <typename TimeT>
+struct SmallT {
+  TimeT t, t_first, next_log_t;
+  float dt;
   uint32_t k0, k1, kev0, kev1;
   uint32_t kc[6];  // the key's children 0, 1 (and 2 under RL)
   // the head's block argmins (finish, xfer, arrival) as (key << 32 | slot)
@@ -273,7 +322,8 @@ struct Small {
   // step-local results of the head, read by every lane
   int branch, j_fin, j_x, a_idx, has_slot, slot, can, flag;
   int busy[kMaxDC], cur_f[kMaxDC], total[kMaxDC];
-  float energy[kMaxDC], util[kMaxDC], acc[kMaxDC], powers[kMaxDC];
+  TimeT energy[kMaxDC], util[kMaxDC];
+  float acc[kMaxDC], powers[kMaxDC];
   float red[kMaxDC], idle_w[kMaxDC], inv_total[kMaxDC];
   // each DC's running-job power (the dc_sum of the accrual), kept between
   // events and recomputed only for a DC whose running set changed
@@ -285,9 +335,9 @@ struct Small {
   float la[2 * kMaxDC], lb[2 * kMaxDC], lg[2 * kMaxDC];
   int jnf_n[2 * kMaxDC], jnf_f[2 * kMaxDC];
   float freq[kMaxF];
-  float next_arr[kMaxS];
+  TimeT next_arr[kMaxS];
   int arr_count[kMaxS], c0[kMaxS];
-  float rec[N_REC];
+  TimeT rec[N_REC];
   // RL mode: the action key, the step's finish record and pending decision,
   // both windows' p99, the masks, the action and the deferred start
   uint32_t ka0, ka1;
@@ -303,7 +353,8 @@ struct Small {
   int g_cap;          // the GPU-count mask's last feasible count
   int a_dc, a_g;
   int st_on, st_j, st_dcj, st_jt, st_n, st_f, st_newf;
-  float st_t0, st_pt0, st_tpt0;
+  TimeT st_t0, st_pt0;
+  float st_tpt0;
 };
 
 // the extended instance's scalars and tables, in static shared memory of
@@ -328,9 +379,18 @@ __device__ __forceinline__ float fmulp(float a, float b) {
   return a * b + a * 0.0f;
 }
 
+// the double clock's fmul_pinned (a float32 power or GPU count widened,
+// times the double gap): one rounding and the fence, in double
+__device__ __forceinline__ double fmulp(double a, double b) {
+  return __dadd_rn(__dmul_rn(a, b), __dmul_rn(a, 0.0));
+}
+
 // torch.clamp(x, min=m): NaN propagates
 __device__ __forceinline__ float clamp_min(float x, float m) {
   return isnan(x) ? x : fmaxf(x, m);
+}
+__device__ __forceinline__ double clamp_min(double x, double m) {
+  return isnan(x) ? x : fmax(x, m);
 }
 
 // torch.minimum: NaN propagates
@@ -344,6 +404,13 @@ __device__ __forceinline__ float tmod(float a, float b) {
   if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r = r + b;
   return r;
 }
+__device__ __forceinline__ double tmod(double a, double b) {
+  double r = fmod(a, b);
+  if (r != 0.0 && ((r < 0.0) != (b < 0.0))) r = r + b;
+  return r;
+}
+__device__ __forceinline__ float round_even(float x) { return rintf(x); }
+__device__ __forceinline__ double round_even(double x) { return rint(x); }
 
 // torch.remainder on int32
 __device__ __forceinline__ int iremainder(int a, int b) {
@@ -353,11 +420,13 @@ __device__ __forceinline__ int iremainder(int a, int b) {
 }
 
 // Engine._hour: floor((t mod 86400) / 3600) clipped to [0, 23], exact
-// (t - t mod 3600 is a multiple of 3600)
-__device__ __forceinline__ int hour_of(float t) {
-  const float day = tmod(t, 86400.0f);
-  const float whole = day - tmod(day, 3600.0f);
-  const int h = (int)rintf(whole / 3600.0f);
+// (t - t mod 3600 is a multiple of 3600), XLA's floor_divide in either
+// clock's type
+template <typename TimeT>
+__device__ __forceinline__ int hour_of(TimeT t) {
+  const TimeT day = tmod(t, (TimeT)86400);
+  const TimeT whole = day - tmod(day, (TimeT)3600);
+  const int h = (int)round_even(whole / (TimeT)3600);
   return h < 0 ? 0 : (h > 23 ? 23 : h);
 }
 
@@ -405,6 +474,14 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
+__device__ __forceinline__ bool before(double a, int ia, double b, int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return (na && nb) ? ia < ib : na;
+  if (a < b) return true;
+  if (b < a) return false;
+  return ia < ib;
+}
+
 // before()'s order as an unsigned key: NaN first, then the float order with
 // -0 == +0 (ties go to the lower index, which a key carries beside it);
 // +inf maps below 0xffffffff, the key of "no candidate"
@@ -412,6 +489,12 @@ __device__ __forceinline__ uint32_t order_key(float v) {
   if (isnan(v)) return 0u;
   const uint32_t u = __float_as_uint(v == 0.0f ? 0.0f : v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+// ... and of a double (+inf below ~0)
+__device__ __forceinline__ uint64_t order_key(double v) {
+  if (isnan(v)) return 0ull;
+  const uint64_t u = (uint64_t)__double_as_longlong(v == 0.0 ? 0.0 : v);
+  return (u & 0x8000000000000000ull) ? ~u : (u | 0x8000000000000000ull);
 }
 
 template <typename T>
@@ -1106,29 +1189,37 @@ namespace {
 // extended heuristic instance (carbon_cost, debug, bandit, eco and weighted
 // routing, the log tick's control), whose code the default_policy /
 // joint_nf instance does not carry.
-template <int NT, bool kWide = false, bool kExt = false>
+template <int NT, bool kWide = false, bool kExt = false,
+          typename TimeT = float>
 struct Lane {
   static constexpr int NW = NT / 32;
-  Small& sm;
+  // the double clock's instance (see the head note)
+  static constexpr bool kD = sizeof(TimeT) == 8;
+  SmallT<TimeT>& sm;
   int tid, lane, warp, n_sum;
   int par;  // the parity of the head's argmin accumulators (sm.amin)
   int J, P, n_dc, n_f, Q, W, n_tab, k_drain, default_f, algo_jnf, perf_first,
       inf_priority, reserve, maxgpu, f_hi, f_lo, scale_out_low;
-  float end, li;
+  TimeT end, li;
   int* si;      // [N_JI, J] shared
   float* sf;    // [N_JF, J] shared
+  TimeT* sd;    // double instances: [4, J] shared, the time columns
+  // double instances: each warp's least (key, slot, value) per argmin
+  unsigned long long* wkey;  // [3, kMaxWarps] shared
+  double* wval;              // [3, kMaxWarps] shared
+  int* widx;                 // [3, kMaxWarps] shared
   float* vals;  // [P] shared scratch
   float* scr;   // [n_sum, P] shared scratch: a row per DC-summing warp
   float* red_v; // [kRed / 2] shared: the value of each warp's argmin
   int* red_i;   // [kRed / 2] shared: the warps' first EMPTY slots
-  float* recs;  // [n_dc, 2, Q, N_REC] global (this lane's)
+  TimeT* recs;  // [n_dc, 2, Q, N_REC] global (this lane's)
   float* lat_buf;
   float* em_t;
   int* em_branch;
   float* em_cluster;
   float* em_job;
   const float* sizes;  // [S, n_tab] (this lane's)
-  const float* tnext;
+  const TimeT* tnext;
   const float* transfer;  // [n_ing, n_dc, 2]
   const float* netlat;    // [n_ing, n_dc]
   const float* egrid;     // E_grid_cap [n_dc, 2, n_cap, n_f]
@@ -1177,6 +1268,11 @@ struct Lane {
 
   __device__ __forceinline__ int& I(int f, int j) { return si[f * J + j]; }
   __device__ __forceinline__ float& F(int f, int j) { return sf[f * J + j]; }
+  // a time column of the slab (JF_TING, JF_TAVAIL, JF_TSTART, JF_PT)
+  __device__ __forceinline__ TimeT& TF(int f, int j) {
+    if constexpr (kD) return sd[time_col(f) * J + j];
+    else return sf[f * J + j];
+  }
   __device__ __forceinline__ void bar() { rlk::bar<NT>(); }
 
   // ------------------------------------------------ block-wide slab passes
@@ -1203,6 +1299,41 @@ struct Lane {
   }
   __device__ __forceinline__ float argmin_value(int s, int idx) {
     return red_v[s * kMaxWarps + ((idx % NT) >> 5)];
+  }
+  // The double instances' block argmin: a warp's least 64-bit key by two
+  // REDUX (its high word, then the low word among those), the least index
+  // with it, the value from that slot's lane; lane 0 posts all three for
+  // slot s (every warp that takes part posts, so nothing stale remains).
+  __device__ __forceinline__ void argmin_post64(int s, uint64_t key, int idx,
+                                                double v) {
+    const uint32_t hi = __reduce_min_sync(kAll, (uint32_t)(key >> 32));
+    const uint32_t lo = __reduce_min_sync(
+        kAll, (uint32_t)(key >> 32) == hi ? (uint32_t)key : 0xffffffffu);
+    const uint64_t wk = ((uint64_t)hi << 32) | lo;
+    const int wj = __reduce_min_sync(kAll, key == wk ? idx : 0x7fffffff);
+    const double wv = __shfl_sync(kAll, v, (wj % NT) & 31);
+    if (lane == 0) {
+      wkey[s * kMaxWarps + warp] = wk;
+      widx[s * kMaxWarps + warp] = wj;
+      wval[s * kMaxWarps + warp] = wv;
+    }
+  }
+  // the least (key, index) over the first nw warps' posts of slot s, after
+  // the barrier: its index, its value in v
+  __device__ __forceinline__ int argmin_read64(int s, int nw, TimeT& v) {
+    unsigned long long bk = wkey[s * kMaxWarps];
+    int bj = widx[s * kMaxWarps], bw = 0;
+    for (int w = 1; w < nw; ++w) {
+      const unsigned long long k = wkey[s * kMaxWarps + w];
+      const int j = widx[s * kMaxWarps + w];
+      if (k < bk || (k == bk && j < bj)) {
+        bk = k;
+        bj = j;
+        bw = w;
+      }
+    }
+    v = (TimeT)wval[s * kMaxWarps + bw];
+    return bj;
   }
 
   // first EMPTY slot, or J when the slab is full (every thread calls it;
@@ -1302,26 +1433,26 @@ struct Lane {
     watts = fmulp((float)n2, gp);
   }
 
-  __device__ void rec_from_slab(int j, float* rec) {
+  __device__ void rec_from_slab(int j, TimeT* rec) {
     rec[R_SIZE] = F(JF_SIZE, j);
-    rec[R_SEQ] = (float)I(JI_SEQ, j);
-    rec[R_INGRESS] = (float)I(JI_INGRESS, j);
-    rec[R_T_INGRESS] = F(JF_TING, j);
-    rec[R_T_AVAIL] = F(JF_TAVAIL, j);
+    rec[R_SEQ] = (TimeT)I(JI_SEQ, j);
+    rec[R_INGRESS] = (TimeT)I(JI_INGRESS, j);
+    rec[R_T_INGRESS] = TF(JF_TING, j);
+    rec[R_T_AVAIL] = TF(JF_TAVAIL, j);
     rec[R_NET_LAT] = F(JF_NETLAT, j);
     rec[R_UNITS_DONE] = F(JF_UDONE, j);
-    rec[R_T_START] = F(JF_TSTART, j);
-    rec[R_PREEMPT_COUNT] = (float)I(JI_PCOUNT, j);
-    rec[R_PREEMPT_T] = F(JF_PT, j);
+    rec[R_T_START] = TF(JF_TSTART, j);
+    rec[R_PREEMPT_COUNT] = (TimeT)I(JI_PCOUNT, j);
+    rec[R_PREEMPT_T] = TF(JF_PT, j);
     rec[R_TOTAL_PREEMPT] = F(JF_TPT, j);
   }
 
   // _ring_push: append, or count a drop when the ring is full
-  __device__ void ring_push(int dcj, int jt, const float* rec) {
+  __device__ void ring_push(int dcj, int jt, const TimeT* rec) {
     const int q = dcj * 2 + jt;
     const int tail = sm.qtail[q];
     if (wsub(tail, sm.qhead[q]) < Q) {
-      float* row = recs + ((long long)q * Q + iremainder(tail, Q)) * N_REC;
+      TimeT* row = recs + ((long long)q * Q + iremainder(tail, Q)) * N_REC;
       for (int k = 0; k < N_REC; ++k) row[k] = rec[k];
       sm.qtail[q] = wadd(tail, 1);
     } else {
@@ -1347,7 +1478,7 @@ struct Lane {
     const bool has_t = has1 && free_for(dcj, 1) > 0;
     const int jt = inf_priority ? (has_i ? 0 : 1) : (has_t ? 1 : 0);
     const int q = dcj * 2 + jt;
-    const float* row =
+    const TimeT* row =
         recs + ((long long)q * Q + iremainder(sm.qhead[q], Q)) * N_REC;
     for (int k = 0; k < N_REC; ++k) sm.rec[k] = row[k];
     found = has_i || has_t;
@@ -1355,7 +1486,7 @@ struct Lane {
   }
 
   // _decide_start_vals + _start_from_rec: commit `rec` to RUNNING at slot
-  __device__ void start_from_rec(int slot, int dcj, int jt, const float* rec) {
+  __device__ void start_from_rec(int slot, int dcj, int jt, const TimeT* rec) {
     const int fr = free_for(dcj, jt);
     const int cur = sm.cur_f[dcj];
     int n_d, f_d, new_f;
@@ -1394,28 +1525,28 @@ struct Lane {
     const int n_st = m > 1 ? m : 1;
     float spu, watts;
     row_tp(dcj, jt, n_st, f_d, spu, watts);
-    const float t = sm.t;
-    const float t_start0 = rec[R_T_START];
+    const TimeT t = sm.t;
+    const TimeT t_start0 = rec[R_T_START];
     const bool resuming = rec[R_PREEMPT_T] > 0.0f;
     I(JI_STATUS, slot) = ST_RUNNING;
     I(JI_JTYPE, slot) = jt;
     I(JI_INGRESS, slot) = (int)rec[R_INGRESS];
     I(JI_DC, slot) = dcj;
     I(JI_SEQ, slot) = (int)rec[R_SEQ];
-    F(JF_SIZE, slot) = rec[R_SIZE];
-    F(JF_UDONE, slot) = rec[R_UNITS_DONE];
+    F(JF_SIZE, slot) = (float)rec[R_SIZE];
+    F(JF_UDONE, slot) = (float)rec[R_UNITS_DONE];
     I(JI_N, slot) = n_st;
     I(JI_FIDX, slot) = f_d;
     F(JF_SPU, slot) = spu;
     F(JF_WATTS, slot) = watts;
-    F(JF_TING, slot) = rec[R_T_INGRESS];
-    F(JF_TAVAIL, slot) = rec[R_T_AVAIL];
-    F(JF_TSTART, slot) = t_start0 <= 0.0f ? t : t_start0;
-    F(JF_NETLAT, slot) = rec[R_NET_LAT];
+    TF(JF_TING, slot) = rec[R_T_INGRESS];
+    TF(JF_TAVAIL, slot) = rec[R_T_AVAIL];
+    TF(JF_TSTART, slot) = t_start0 <= 0.0f ? t : t_start0;
+    F(JF_NETLAT, slot) = (float)rec[R_NET_LAT];
     I(JI_PCOUNT, slot) = (int)rec[R_PREEMPT_COUNT];
-    F(JF_PT, slot) = 0.0f;
-    F(JF_TPT, slot) = rec[R_TOTAL_PREEMPT] +
-                      (resuming ? (t - rec[R_PREEMPT_T]) : 0.0f);
+    TF(JF_PT, slot) = 0.0f;
+    F(JF_TPT, slot) = (float)rec[R_TOTAL_PREEMPT] +
+                      (resuming ? (float)(t - rec[R_PREEMPT_T]) : 0.0f);
     sm.busy[dcj] = wadd(sm.busy[dcj], n_st);
     sm.cur_f[dcj] = new_f;
     sm.dirty[dcj] = 1;
@@ -1738,7 +1869,7 @@ struct Lane {
     for (int it = 0; it < k_drain; ++it) {
       if (xfer_j >= 0 && it == 0) {
         if (tid == 0) {
-          float rec[N_REC];
+          TimeT rec[N_REC];
           rec_from_slab(xfer_j, rec);
           start_from_rec(xfer_j, dcj, I(JI_JTYPE, xfer_j), rec);
         }
@@ -1768,9 +1899,9 @@ struct Lane {
 
   __device__ void head(int i) {
     // what thread 0 rewrites below, read by every thread before the barrier
-    const float t = sm.t;
+    const TimeT t = sm.t;
     const int done0 = sm.done, started0 = sm.started;
-    const float next_log = sm.next_log_t;
+    const TimeT next_log = sm.next_log_t;
     const int p = par;
     par ^= 1;
     // the per-event key split, a child per thread: (key, k_ev) =
@@ -1783,45 +1914,86 @@ struct Lane {
     }
     // each thread's argmins over its slots (ascending: a tie keeps the
     // first), its first EMPTY slot and the dc_sum input
-    uint32_t kf = 0xffffffffu, kx = 0xffffffffu, ka = 0xffffffffu;
     int jf = 0x7fffffff, jx = 0x7fffffff, ia = 0x7fffffff, fe = J;
-    float bf = CUDART_INF_F, bx = CUDART_INF_F, ba = CUDART_INF_F;
-    for (int j = tid; j < J; j += NT) {
-      const int st = I(JI_STATUS, j);
-      const bool running = st == ST_RUNNING;
-      const float runT = running ? F(JF_SPU, j) : CUDART_INF_F;
-      const bool fin_ok = isfinite(runT);
-      const float rem = clamp_min(F(JF_SIZE, j) - F(JF_UDONE, j), 0.0f);
-      const float tf = fin_ok ? t + fmulp(rem, runT) : CUDART_INF_F;
-      const uint32_t k1 = order_key(tf);
-      if (k1 < kf) {
-        kf = k1;
-        jf = j;
-        bf = tf;
+    TimeT bf = CUDART_INF_F, bx = CUDART_INF_F, ba = CUDART_INF_F;
+    if constexpr (kD) {
+      // the double clock: 64-bit keys, posted a warp at a time
+      uint64_t kf = ~0ull, kx = ~0ull, ka = ~0ull;
+      for (int j = tid; j < J; j += NT) {
+        const int st = I(JI_STATUS, j);
+        const bool running = st == ST_RUNNING;
+        const float runT = running ? F(JF_SPU, j) : CUDART_INF_F;
+        const bool fin_ok = isfinite(runT);
+        const float rem = clamp_min(F(JF_SIZE, j) - F(JF_UDONE, j), 0.0f);
+        // the float32 product, then the clock's add
+        const TimeT tf = fin_ok ? t + (TimeT)fmulp(rem, runT) : (TimeT)CUDART_INF_F;
+        const uint64_t k1 = order_key(tf);
+        if (k1 < kf) {
+          kf = k1;
+          jf = j;
+          bf = tf;
+        }
+        const TimeT ta = st == ST_XFER ? TF(JF_TAVAIL, j) : (TimeT)CUDART_INF_F;
+        const uint64_t k2 = order_key(ta);
+        if (k2 < kx) {
+          kx = k2;
+          jx = j;
+          bx = ta;
+        }
+        if (st == ST_EMPTY && j < fe) fe = j;
+        vals[j] = running ? F(JF_WATTS, j) : 0.0f;
       }
-      const float ta = st == ST_XFER ? F(JF_TAVAIL, j) : CUDART_INF_F;
-      const uint32_t k2 = order_key(ta);
-      if (k2 < kx) {
-        kx = k2;
-        jx = j;
-        bx = ta;
+      for (int s = tid; s < 2 * n_ing; s += NT) {
+        const TimeT v = sm.next_arr[s];
+        const uint64_t k3 = order_key(v);
+        if (k3 < ka) {
+          ka = k3;
+          ia = s;
+          ba = v;
+        }
       }
-      if (st == ST_EMPTY && j < fe) fe = j;
-      // the dc_sum input: running jobs' cached watts
-      vals[j] = running ? F(JF_WATTS, j) : 0.0f;
+      argmin_post64(0, kf, jf, bf);
+      argmin_post64(1, kx, jx, bx);
+      if (warp * 32 < 2 * n_ing) argmin_post64(2, ka, ia, ba);
+    } else {
+      uint32_t kf = 0xffffffffu, kx = 0xffffffffu, ka = 0xffffffffu;
+      for (int j = tid; j < J; j += NT) {
+        const int st = I(JI_STATUS, j);
+        const bool running = st == ST_RUNNING;
+        const float runT = running ? F(JF_SPU, j) : CUDART_INF_F;
+        const bool fin_ok = isfinite(runT);
+        const float rem = clamp_min(F(JF_SIZE, j) - F(JF_UDONE, j), 0.0f);
+        const float tf = fin_ok ? t + fmulp(rem, runT) : CUDART_INF_F;
+        const uint32_t k1 = order_key(tf);
+        if (k1 < kf) {
+          kf = k1;
+          jf = j;
+          bf = tf;
+        }
+        const float ta = st == ST_XFER ? F(JF_TAVAIL, j) : CUDART_INF_F;
+        const uint32_t k2 = order_key(ta);
+        if (k2 < kx) {
+          kx = k2;
+          jx = j;
+          bx = ta;
+        }
+        if (st == ST_EMPTY && j < fe) fe = j;
+        // the dc_sum input: running jobs' cached watts
+        vals[j] = running ? F(JF_WATTS, j) : 0.0f;
+      }
+      for (int s = tid; s < 2 * n_ing; s += NT) {
+        const float v = sm.next_arr[s];
+        const uint32_t k3 = order_key(v);
+        if (k3 < ka) {
+          ka = k3;
+          ia = s;
+          ba = v;
+        }
+      }
+      argmin_post(&sm.amin[p][0], 0, kf, jf, bf);
+      argmin_post(&sm.amin[p][1], 1, kx, jx, bx);
+      if (warp * 32 < 2 * n_ing) argmin_post(&sm.amin[p][2], 2, ka, ia, ba);
     }
-    for (int s = tid; s < 2 * n_ing; s += NT) {
-      const float v = sm.next_arr[s];
-      const uint32_t k3 = order_key(v);
-      if (k3 < ka) {
-        ka = k3;
-        ia = s;
-        ba = v;
-      }
-    }
-    argmin_post(&sm.amin[p][0], 0, kf, jf, bf);
-    argmin_post(&sm.amin[p][1], 1, kx, jx, bx);
-    if (warp * 32 < 2 * n_ing) argmin_post(&sm.amin[p][2], 2, ka, ia, ba);
     fe = __reduce_min_sync(kAll, fe);
     if (lane == 0) atomicMin(&sm.afe[p], fe);
     bar();
@@ -1829,17 +2001,24 @@ struct Lane {
     // of that DC, so only a DC whose running set changed since its last
     // sum (a finish or a start there) is summed again
     dc_tree_sums(sm.active, true);
-    jf = argmin_index(sm.amin[p][0]);
-    jx = argmin_index(sm.amin[p][1]);
-    ia = argmin_index(sm.amin[p][2]);
-    bf = argmin_value(0, jf);
-    bx = argmin_value(1, jx);
-    ba = argmin_value(2, ia);
+    if constexpr (kD) {
+      const int nw_arr = (2 * n_ing + 31) / 32 < NW ? (2 * n_ing + 31) / 32 : NW;
+      jf = argmin_read64(0, NW, bf);
+      jx = argmin_read64(1, NW, bx);
+      ia = argmin_read64(2, nw_arr, ba);
+    } else {
+      jf = argmin_index(sm.amin[p][0]);
+      jx = argmin_index(sm.amin[p][1]);
+      ia = argmin_index(sm.amin[p][2]);
+      bf = argmin_value(0, jf);
+      bx = argmin_value(1, jx);
+      ba = argmin_value(2, ia);
+    }
     fe = sm.afe[p];
     // the event choice, on every thread from the values read above
-    const float cand[4] = {bf, bx, ba, next_log};
+    const TimeT cand[4] = {bf, bx, ba, next_log};
     int kind = 0;
-    float tn = cand[0];
+    TimeT tn = cand[0];
     for (int k = 1; k < 4; ++k) {
       if (before(cand[k], k, tn, kind)) {
         tn = cand[k];
@@ -1847,8 +2026,10 @@ struct Lane {
       }
     }
     const bool past_end = (tn > end) || !isfinite(tn) || done0;
-    const float t_adv = past_end ? end : tn;
-    const float dt = clamp_min(t_adv - t, 0.0f);
+    const TimeT t_adv = past_end ? end : tn;
+    const TimeT dt = clamp_min(t_adv - t, (TimeT)0);
+    // the progress pass's gap (float32 under either clock)
+    const float dt_f = (float)dt;
     // the accrual, a DC per thread
     if (tid < n_dc) {
       const int d = tid;
@@ -1857,10 +2038,11 @@ struct Lane {
       const int idle_n = wsub(sm.total[d], sm.busy[d]);
       const float pw = sm.active[d] + fmulp((float)idle_n, sm.idle_w[d]);
       sm.powers[d] = pw;
-      const float e_inc = fmulp(pw, dt);
-      const float u_inc = fmulp((float)sm.busy[d], dt);
-      sm.energy[d] = sm.energy[d] + (accrue ? e_inc : 0.0f);
-      sm.util[d] = sm.util[d] + (accrue ? u_inc : 0.0f);
+      // fmul_pinned in the clock's type (float32 x clock)
+      const TimeT e_inc = fmulp((TimeT)pw, dt);
+      const TimeT u_inc = fmulp((TimeT)sm.busy[d], dt);
+      sm.energy[d] = sm.energy[d] + (accrue ? e_inc : (TimeT)0);
+      sm.util[d] = sm.util[d] + (accrue ? u_inc : (TimeT)0);
     }
     if (tid == 0) {
       // the other parity's accumulators, for the next event
@@ -1868,7 +2050,7 @@ struct Lane {
       sm.afe[p ^ 1] = 0x7fffffff;
       sm.t_first = started0 ? sm.t_first : t_adv;
       sm.t = t_adv;
-      sm.dt = dt;
+      sm.dt = dt_f;
       sm.started = 1;
       const int done = done0 || past_end;
       sm.done = done;
@@ -1882,7 +2064,7 @@ struct Lane {
         sm.ka0 = sm.kc[4];
         sm.ka1 = sm.kc[5];
       }
-      em_t[i] = t_adv;
+      em_t[i] = (float)t_adv;
       if (branch != EV_NOOP) em_branch[i] = branch;
       sm.j_fin = jf;
       sm.j_x = jx;
@@ -1896,7 +2078,7 @@ struct Lane {
       const bool running = I(JI_STATUS, j) == ST_RUNNING;
       const float runT = running ? F(JF_SPU, j) : CUDART_INF_F;
       const bool fin_ok = isfinite(runT);
-      const float prog = fin_ok ? dt / (fin_ok ? runT : 1.0f) : 0.0f;
+      const float prog = fin_ok ? dt_f / (fin_ok ? runT : 1.0f) : 0.0f;
       F(JF_UDONE, j) = minimum(F(JF_SIZE, j), F(JF_UDONE, j) + prog);
     }
     bar();
@@ -1907,15 +2089,15 @@ struct Lane {
   __device__ void finish(int i) {  // thread 0
     const int j = sm.j_fin;
     const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
-    const float t = sm.t;
+    const TimeT t = sm.t;
     const int n = I(JI_N, j);
     const float f_used = sm.freq[I(JI_FIDX, j)];
     const float size_j = F(JF_SIZE, j);
-    const float span = tmod(t, li);
+    const float span = (float)tmod(t, li);
     const float acc = span / F(JF_SPU, j);
     const float Tp = F(JF_SPU, j), Pp = F(JF_WATTS, j);
     const float Ep = Tp * Pp;
-    const float soj = clamp_min(t - F(JF_TSTART, j), 0.0f);
+    const float soj = (float)clamp_min(t - TF(JF_TSTART, j), (TimeT)0);
     float* row = em_job + (long long)i * kJobCols;
     row[0] = (float)I(JI_SEQ, j);
     row[1] = (float)I(JI_INGRESS, j);
@@ -1925,8 +2107,8 @@ struct Lane {
     row[5] = f_used;
     row[6] = (float)n;
     row[7] = F(JF_NETLAT, j);
-    row[8] = F(JF_TSTART, j);
-    row[9] = t;
+    row[8] = (float)TF(JF_TSTART, j);
+    row[9] = (float)t;
     row[10] = soj;
     row[11] = (float)I(JI_PCOUNT, j);
     row[12] = Tp;
@@ -1957,18 +2139,18 @@ struct Lane {
   __device__ void arrival() {  // thread 0
     const int s = sm.a_idx;  // stream = ingress * 2 + jtype
     const int ing = s >> 1, jt = s & 1;
-    const float t = sm.t;
+    const TimeT t = sm.t;
     int idx = wsub(sm.arr_count[s], sm.c0[s]);
     if (idx > n_tab - 1) idx = n_tab - 1;
     if (idx < 0) idx = 0;
     const float size = sizes[(long long)s * n_tab + idx];
-    const float t_next_arr = tnext[(long long)s * n_tab + idx];
+    const TimeT t_next_arr = tnext[(long long)s * n_tab + idx];
     const int dc_sel = (kExt && route != RT_RANDOM)
                            ? route_det(ing, jt, size)
                            : tf::randint(sm.kev0, sm.kev1, n_dc);
     const float xfer_s = transfer[(ing * n_dc + dc_sel) * 2 + jt];
     const float nl = netlat[ing * n_dc + dc_sel];
-    const float t_avail = t + xfer_s;
+    const TimeT t_avail = t + (TimeT)xfer_s;
     const int jid = sm.jid;
     if (sm.has_slot) {
       const int j = sm.slot;
@@ -1981,19 +2163,19 @@ struct Lane {
       F(JF_UDONE, j) = 0.0f;
       I(JI_N, j) = 0;
       I(JI_FIDX, j) = default_f;
-      F(JF_TING, j) = t;
-      F(JF_TAVAIL, j) = t_avail;
-      F(JF_TSTART, j) = 0.0f;
+      TF(JF_TING, j) = t;
+      TF(JF_TAVAIL, j) = t_avail;
+      TF(JF_TSTART, j) = 0.0f;
       F(JF_NETLAT, j) = nl;
       I(JI_PCOUNT, j) = 0;
-      F(JF_PT, j) = 0.0f;
+      TF(JF_PT, j) = 0.0f;
       F(JF_TPT, j) = 0.0f;
     } else {
-      float rec[N_REC];
+      TimeT rec[N_REC];
       for (int k = 0; k < N_REC; ++k) rec[k] = 0.0f;
       rec[R_SIZE] = size;
-      rec[R_SEQ] = (float)jid;
-      rec[R_INGRESS] = (float)ing;
+      rec[R_SEQ] = (TimeT)jid;
+      rec[R_INGRESS] = (TimeT)ing;
       rec[R_T_INGRESS] = t;
       rec[R_T_AVAIL] = t_avail;
       rec[R_NET_LAT] = nl;
@@ -2013,7 +2195,7 @@ struct Lane {
     for (int j = tid; j < J; j += NT) {
       const bool running = I(JI_STATUS, j) == ST_RUNNING;
       const float tpt = running ? 1.0f / F(JF_SPU, j) : 0.0f;
-      vals[j] = fmulp(tpt, li);
+      vals[j] = fmulp(tpt, (float)li);
     }
     if (tid < n_dc) {
       sm.run_tot[tid] = 0;
@@ -2042,13 +2224,14 @@ struct Lane {
     // a DC's cluster row per thread
     if (tid < n_dc) {
       const int d = tid;
-      const float t = sm.t;
-      const float elapsed = clamp_min(t - sm.t_first, 1e-9f);
-      const float inv_1000 = 1.0f / 1000.0f;
+      const TimeT t = sm.t;
+      const TimeT elapsed = clamp_min(t - sm.t_first, kD ? (TimeT)1e-9 : (TimeT)1e-9f);
+      // XLA's reciprocal for `/ 1000.0`, in the clock's type
+      const TimeT inv_1000 = (TimeT)1 / (TimeT)1000;
       sm.acc[d] = sm.acc[d] + sm.red[d];
       const int busy = sm.busy[d], total = sm.total[d];
       float* row = em_cluster + ((long long)i * n_dc + d) * kClusterCols;
-      row[0] = t;
+      row[0] = (float)t;
       row[1] = sm.freq[sm.cur_f[d]];
       row[2] = (float)busy;
       row[3] = (float)wsub(total, busy);
@@ -2058,10 +2241,10 @@ struct Lane {
       row[7] = (float)wsub(sm.qtail[2 * d], sm.qhead[2 * d]);
       row[8] = (float)wsub(sm.qtail[2 * d + 1], sm.qhead[2 * d + 1]);
       row[9] = (float)busy * sm.inv_total[d];
-      row[10] = sm.util[d] / ((float)total * elapsed);
+      row[10] = (float)(sm.util[d] / ((TimeT)total * elapsed));
       row[11] = sm.acc[d];
       row[12] = sm.powers[d];
-      row[13] = sm.energy[d] * inv_1000;
+      row[13] = (float)(sm.energy[d] * inv_1000);
     }
     if (tid == 0) sm.next_log_t = sm.next_log_t + li;
     bar();
@@ -2084,7 +2267,7 @@ struct Lane {
       const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
       if (!sm.can) {  // queue-on-full: evict the row into the ring
         if (tid == 0) {
-          float rec[N_REC];
+          TimeT rec[N_REC];
           rec_from_slab(j, rec);
           I(JI_STATUS, j) = ST_EMPTY;
           ring_push(dcj, jt, rec);
@@ -2136,20 +2319,20 @@ struct Lane {
   // `_commit_tail`'s start: clamp to free, refresh the cached physics,
   // stamp the start / close a preemption wait (thread 0)
   __device__ void start_req(int j, int dcj, int jt, int n_d, int f_d,
-                            int new_f, float t_start0, float pt0,
+                            int new_f, TimeT t_start0, TimeT pt0,
                             float tpt0) {
     const int fr = free_for(dcj, jt);
     const int m = n_d < fr ? n_d : fr;
     const int n_st = m > 1 ? m : 1;
     float spu, watts;
     row_tp(dcj, jt, n_st, f_d, spu, watts);
-    const float t = sm.t;
+    const TimeT t = sm.t;
     I(JI_STATUS, j) = ST_RUNNING;
     I(JI_N, j) = n_st;
     I(JI_FIDX, j) = f_d;
-    F(JF_TSTART, j) = t_start0 <= 0.0f ? t : t_start0;
-    F(JF_PT, j) = 0.0f;
-    F(JF_TPT, j) = tpt0 + (pt0 > 0.0f ? (t - pt0) : 0.0f);
+    TF(JF_TSTART, j) = t_start0 <= 0.0f ? t : t_start0;
+    TF(JF_PT, j) = 0.0f;
+    F(JF_TPT, j) = tpt0 + (pt0 > 0.0f ? (float)(t - pt0) : 0.0f);
     F(JF_SPU, j) = spu;
     F(JF_WATTS, j) = watts;
     sm.busy[dcj] = wadd(sm.busy[dcj], n_st);
@@ -2194,7 +2377,7 @@ struct Lane {
       sm.fin_jt = jt;
       sm.fin_dcj = dcj;
       sm.fin_slot = j;
-      sm.fin_soj = clamp_min(sm.t - F(JF_TSTART, j), 0.0f);
+      sm.fin_soj = (float)clamp_min(sm.t - TF(JF_TSTART, j), (TimeT)0);
       sm.fin_over = (float)(over > 0 ? over : 0);
     }
   }
@@ -2209,7 +2392,7 @@ struct Lane {
     if (idx > n_tab - 1) idx = n_tab - 1;
     if (idx < 0) idx = 0;
     const float size = sizes[(long long)s * n_tab + idx];
-    const float t_next_arr = tnext[(long long)s * n_tab + idx];
+    const TimeT t_next_arr = tnext[(long long)s * n_tab + idx];
     if (sm.has_slot) {
       const int j = sm.slot;
       I(JI_STATUS, j) = ST_XFER;
@@ -2221,12 +2404,12 @@ struct Lane {
       F(JF_UDONE, j) = 0.0f;
       I(JI_N, j) = 0;
       I(JI_FIDX, j) = default_f;
-      F(JF_TING, j) = sm.t;
-      F(JF_TAVAIL, j) = CUDART_INF_F;
-      F(JF_TSTART, j) = 0.0f;
+      TF(JF_TING, j) = sm.t;
+      TF(JF_TAVAIL, j) = CUDART_INF_F;
+      TF(JF_TSTART, j) = 0.0f;
       F(JF_NETLAT, j) = 0.0f;
       I(JI_PCOUNT, j) = 0;
-      F(JF_PT, j) = 0.0f;
+      TF(JF_PT, j) = 0.0f;
       F(JF_TPT, j) = 0.0f;
       rl_valid[j] = 0;
       sm.req_kind = REQ_ROUTE;
@@ -2243,11 +2426,13 @@ struct Lane {
   // busy/total, free/total, f, log1p(q_inf)/4, log1p(q_trn)/4] (every
   // thread)
   __device__ void build_obs() {
-    const float inv7 = 1.0f / 7.0f, inv_day = 1.0f / 86400.0f;
+    const float inv7 = 1.0f / 7.0f;
+    // the day's reciprocal in the clock's type (XLA's `/ 86400.0`)
+    const TimeT inv_day = (TimeT)1 / (TimeT)86400;
     for (int k = tid; k < obs_dim; k += NT) {
       float v;
       if (k == 0) {
-        v = tmod(sm.t, 86400.0f) * inv_day;
+        v = (float)(tmod(sm.t, (TimeT)86400) * inv_day);
       } else {
         const int d = (k - 1) / 6, c = (k - 1) % 6;
         const float total = (float)sm.total[d], busy = (float)sm.busy[d];
@@ -2332,13 +2517,13 @@ struct Lane {
       const float p_now =
           sm.active[df] +
           fmulp((float)wsub(sm.total[df], sm.busy[df]), sm.idle_w[df]);
-      float e_sum = sm.energy[0];
+      TimeT e_sum = sm.energy[0];
       for (int d = 1; d < n_dc; ++d) e_sum = e_sum + sm.energy[d];
       float* c = e_costs + (long long)i * 4;
       c[0] = p99_ms;
       c[1] = p_now;
       c[2] = sm.fin_over;
-      c[3] = e_sum;
+      c[3] = (float)e_sum;
     }
     bar();
     for (int k = tid; k < obs_dim; k += NT)
@@ -2370,7 +2555,8 @@ struct Lane {
       if (tid == 0) {
         const int jt_s = I(JI_JTYPE, slot), ing_s = I(JI_INGRESS, slot);
         I(JI_DC, slot) = a_dc;
-        F(JF_TAVAIL, slot) = sm.t + transfer[(ing_s * n_dc + a_dc) * 2 + jt_s];
+        TF(JF_TAVAIL, slot) =
+            sm.t + (TimeT)transfer[(ing_s * n_dc + a_dc) * 2 + jt_s];
         F(JF_NETLAT, slot) = netlat[ing_s * n_dc + a_dc];
       }
       write_trace(slot);
@@ -2390,19 +2576,19 @@ struct Lane {
       if (ok) {
         int n, f;
         chsac_nf(a_dc, jt_sel, free_tgt, sm.a_g, n, f);
-        const float* rec = sm.rec;
+        const TimeT* rec = sm.rec;
         I(JI_JTYPE, slot) = jt_sel;
         I(JI_INGRESS, slot) = (int)rec[R_INGRESS];
         I(JI_DC, slot) = a_dc;
         I(JI_SEQ, slot) = (int)rec[R_SEQ];
-        F(JF_SIZE, slot) = rec[R_SIZE];
-        F(JF_UDONE, slot) = rec[R_UNITS_DONE];
-        F(JF_TING, slot) = rec[R_T_INGRESS];
-        F(JF_TAVAIL, slot) = rec[R_T_AVAIL];
-        F(JF_NETLAT, slot) = rec[R_NET_LAT];
+        F(JF_SIZE, slot) = (float)rec[R_SIZE];
+        F(JF_UDONE, slot) = (float)rec[R_UNITS_DONE];
+        TF(JF_TING, slot) = rec[R_T_INGRESS];
+        TF(JF_TAVAIL, slot) = rec[R_T_AVAIL];
+        F(JF_NETLAT, slot) = (float)rec[R_NET_LAT];
         I(JI_PCOUNT, slot) = (int)rec[R_PREEMPT_COUNT];
         start_req(slot, a_dc, jt_sel, n, f, sm.cur_f[a_dc], rec[R_T_START],
-                  rec[R_PREEMPT_T], rec[R_TOTAL_PREEMPT]);
+                  rec[R_PREEMPT_T], (float)rec[R_TOTAL_PREEMPT]);
         sm.qhead[dcj * 2 + jt_sel] = wadd(sm.qhead[dcj * 2 + jt_sel], 1);
       }
     }
@@ -2441,7 +2627,7 @@ struct Lane {
         const int j = sm.j_x;
         const int dcj = I(JI_DC, j), jt = I(JI_JTYPE, j);
         if (!sm.can) {  // queue-on-full: evict the row into the ring
-          float rec[N_REC];
+          TimeT rec[N_REC];
           rec_from_slab(j, rec);
           I(JI_STATUS, j) = ST_EMPTY;
           ring_push(dcj, jt, rec);
@@ -2455,8 +2641,8 @@ struct Lane {
           sm.st_n = n;
           sm.st_f = f;
           sm.st_newf = sm.cur_f[dcj];
-          sm.st_t0 = F(JF_TSTART, j);
-          sm.st_pt0 = F(JF_PT, j);
+          sm.st_t0 = TF(JF_TSTART, j);
+          sm.st_pt0 = TF(JF_PT, j);
           sm.st_tpt0 = F(JF_TPT, j);
         }
       }
@@ -2495,12 +2681,12 @@ namespace {
 // kernel carries none of the RL code's registers or stack; NT: the block's
 // threads (the wrapper's choice, one of kernel_of's below); kWide: RL mode
 // with more than 32 GPU-count actions; kExt: the extended heuristic
-// instance (`Lane`).
-template <bool kRL, int NT, bool kWide, bool kExt>
+// instance (`Lane`); TimeT: the clock's type (this build's `Clock`).
+template <bool kRL, int NT, bool kWide, bool kExt, typename TimeT>
 __global__ void __launch_bounds__(NT)
     event_scan_kernel(const Args a) {
   extern __shared__ __align__(16) float dyn[];
-  __shared__ Small sm;
+  __shared__ SmallT<TimeT> sm;
   __shared__ typename ExtOf<kExt>::T xs_sm;
   __shared__ rlk::Policy pol;
   __shared__ rlk::Slice slice;
@@ -2513,7 +2699,8 @@ __global__ void __launch_bounds__(NT)
   const int n_ing = a.i[I_NING], S = 2 * n_ing, n_f = a.i[I_NF];
   const int Q = a.i[I_Q], W = a.i[I_W], n_tab = a.i[I_NTAB];
   const int n_steps = a.i[I_NSTEPS], n_cap = a.i[I_NCAP];
-  Lane<NT, kWide, kExt> L{sm};
+  Lane<NT, kWide, kExt, TimeT> L{sm};
+  constexpr bool kD = sizeof(TimeT) == 8;
   L.tid = tid;
   L.lane = tid & 31;
   L.warp = tid >> 5;
@@ -2568,8 +2755,13 @@ __global__ void __launch_bounds__(NT)
   L.f_hi = a.i[I_FHI];
   L.f_lo = a.i[I_FLO];
   L.scale_out_low = a.i[I_SCALE_OUT_LOW];
+#ifdef DCG_CLOCK64
+  L.end = a.d[D_END];
+  L.li = a.d[D_LOG_INTERVAL];
+#else
   L.end = a.f[F_END];
   L.li = a.f[F_LOG_INTERVAL];
+#endif
   L.n_ing = n_ing;
   L.si = reinterpret_cast<int*>(base);
   L.sf = base + N_JI * J;
@@ -2577,7 +2769,7 @@ __global__ void __launch_bounds__(NT)
   L.scr = L.vals + P;
   L.red_v = L.scr + (P > 32 * kRegSlots ? L.n_sum * P : 0);
   L.red_i = reinterpret_cast<int*>(L.red_v + kRed / 2);
-  L.recs = lane_ptr<float>(a, P_Q_RECS, (long long)n_dc * 2 * Q * N_REC, r);
+  L.recs = lane_ptr<TimeT>(a, P_Q_RECS, (long long)n_dc * 2 * Q * N_REC, r);
   L.lat_buf = lane_ptr<float>(a, P_LAT_BUF, 2LL * W, r);
   L.em_t = lane_ptr<float>(a, P_EM_T, n_steps, r);
   L.em_branch = lane_ptr<int>(a, P_EM_BRANCH, n_steps, r);
@@ -2585,7 +2777,7 @@ __global__ void __launch_bounds__(NT)
                                  (long long)n_steps * n_dc * kClusterCols, r);
   L.em_job = lane_ptr<float>(a, P_EM_JOB, (long long)n_steps * kJobCols, r);
   L.sizes = lane_ptr<const float>(a, P_SIZES, (long long)S * n_tab, r);
-  L.tnext = lane_ptr<const float>(a, P_TNEXT, (long long)S * n_tab, r);
+  L.tnext = lane_ptr<const TimeT>(a, P_TNEXT, (long long)S * n_tab, r);
   L.transfer = reinterpret_cast<const float*>(a.p[P_TRANSFER]);
   L.netlat = reinterpret_cast<const float*>(a.p[P_NETLAT]);
   L.egrid = reinterpret_cast<const float*>(a.p[P_EGRID]);
@@ -2660,9 +2852,25 @@ __global__ void __launch_bounds__(NT)
     L.e_mg = lane_ptr<uint8_t>(a, P_E_MG, (long long)n_steps * n_g, r);
     for (int k = tid; k < 2 * W; k += NT) L.lat_buf[k] = lat_global[k];
   }
+  if constexpr (kD) {
+    // the time columns and the warps' argmins after the float slab (8-byte
+    // aligned; event_scan_smem_bytes counts them)
+    float* end_f = kRL ? L.obs + kMaxObs : L.red_v + kRed;
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(end_f) + 7) & ~(uintptr_t)7;
+    L.sd = reinterpret_cast<TimeT*>(at);
+    L.wkey = reinterpret_cast<unsigned long long*>(L.sd + 4LL * J);
+    L.wval = reinterpret_cast<double*>(L.wkey + 3 * kMaxWarps);
+    L.widx = reinterpret_cast<int*>(L.wval + 3 * kMaxWarps);
+  }
 
   // ---- load: the slab into shared memory, lane state into `sm`
   for (int f = 0; f < 18; ++f) {
+    if (kD && kJobTime[f] >= 0) {
+      const TimeT* src = lane_ptr<const TimeT>(a, P_JOBS + f, J, r);
+      TimeT* dst = L.sd + kJobTime[f] * J;
+      for (int j = tid; j < J; j += NT) dst[j] = src[j];
+      continue;
+    }
     const int* src = lane_ptr<const int>(a, P_JOBS + f, J, r);
     int* dst = kJobIsF[f] ? reinterpret_cast<int*>(L.sf) + kJobCol[f] * J
                           : L.si + kJobCol[f] * J;
@@ -2672,8 +2880,8 @@ __global__ void __launch_bounds__(NT)
     sm.dirty[d] = 1;
     sm.busy[d] = lane_ptr<int>(a, P_BUSY, n_dc, r)[d];
     sm.cur_f[d] = lane_ptr<int>(a, P_CUR_F, n_dc, r)[d];
-    sm.energy[d] = lane_ptr<float>(a, P_ENERGY, n_dc, r)[d];
-    sm.util[d] = lane_ptr<float>(a, P_UTIL, n_dc, r)[d];
+    sm.energy[d] = lane_ptr<TimeT>(a, P_ENERGY, n_dc, r)[d];
+    sm.util[d] = lane_ptr<TimeT>(a, P_UTIL, n_dc, r)[d];
     sm.acc[d] = lane_ptr<float>(a, P_ACC, n_dc, r)[d];
     const int tot = reinterpret_cast<const int*>(a.p[P_TOTAL])[d];
     sm.total[d] = tot;
@@ -2731,19 +2939,19 @@ __global__ void __launch_bounds__(NT)
   for (int k = tid; k < n_f; k += NT)
     sm.freq[k] = reinterpret_cast<const float*>(a.p[P_FREQ])[k];
   for (int s = tid; s < S; s += NT) {
-    sm.next_arr[s] = lane_ptr<float>(a, P_NEXT_ARR, S, r)[s];
+    sm.next_arr[s] = lane_ptr<TimeT>(a, P_NEXT_ARR, S, r)[s];
     sm.arr_count[s] = lane_ptr<int>(a, P_ARR_COUNT, S, r)[s];
     sm.c0[s] = lane_ptr<int>(a, P_C0, S, r)[s];
   }
   if (tid == 0) {
-    sm.t = lane_ptr<float>(a, P_T, 1, r)[0];
+    sm.t = lane_ptr<TimeT>(a, P_T, 1, r)[0];
     const int64_t* key = lane_ptr<int64_t>(a, P_KEY, 2, r);
     sm.k0 = (uint32_t)key[0];
     sm.k1 = (uint32_t)key[1];
     sm.jid = lane_ptr<int>(a, P_JID, 1, r)[0];
     sm.started = lane_ptr<uint8_t>(a, P_STARTED, 1, r)[0] != 0;
-    sm.t_first = lane_ptr<float>(a, P_T_FIRST, 1, r)[0];
-    sm.next_log_t = lane_ptr<float>(a, P_NEXT_LOG, 1, r)[0];
+    sm.t_first = lane_ptr<TimeT>(a, P_T_FIRST, 1, r)[0];
+    sm.next_log_t = lane_ptr<TimeT>(a, P_NEXT_LOG, 1, r)[0];
     sm.n_events = lane_ptr<int>(a, P_N_EVENTS, 1, r)[0];
     sm.n_dropped = lane_ptr<int>(a, P_N_DROP, 1, r)[0];
     sm.done = lane_ptr<uint8_t>(a, P_DONE, 1, r)[0] != 0;
@@ -2768,7 +2976,7 @@ __global__ void __launch_bounds__(NT)
         tf::child(sm.k0, sm.k1, 0u, n0, n1);
         sm.k0 = n0;
         sm.k1 = n1;
-        L.em_t[i] = sm.t;
+        L.em_t[i] = (float)sm.t;
       }
       if constexpr (kRL) {  // and, under RL, emits the final state's record
         if (rec_row < 0) {
@@ -2799,6 +3007,12 @@ __global__ void __launch_bounds__(NT)
 
   // ---- write back
   for (int f = 0; f < 18; ++f) {
+    if (kD && kJobTime[f] >= 0) {
+      TimeT* dst = lane_ptr<TimeT>(a, P_JOBS + f, J, r);
+      const TimeT* src = L.sd + kJobTime[f] * J;
+      for (int j = tid; j < J; j += NT) dst[j] = src[j];
+      continue;
+    }
     int* dst = lane_ptr<int>(a, P_JOBS + f, J, r);
     const int* src = kJobIsF[f]
                          ? reinterpret_cast<const int*>(L.sf) + kJobCol[f] * J
@@ -2808,8 +3022,8 @@ __global__ void __launch_bounds__(NT)
   for (int d = tid; d < n_dc; d += NT) {
     lane_ptr<int>(a, P_BUSY, n_dc, r)[d] = sm.busy[d];
     lane_ptr<int>(a, P_CUR_F, n_dc, r)[d] = sm.cur_f[d];
-    lane_ptr<float>(a, P_ENERGY, n_dc, r)[d] = sm.energy[d];
-    lane_ptr<float>(a, P_UTIL, n_dc, r)[d] = sm.util[d];
+    lane_ptr<TimeT>(a, P_ENERGY, n_dc, r)[d] = sm.energy[d];
+    lane_ptr<TimeT>(a, P_UTIL, n_dc, r)[d] = sm.util[d];
     lane_ptr<float>(a, P_ACC, n_dc, r)[d] = sm.acc[d];
   }
   for (int q = tid; q < 2 * n_dc; q += NT) {
@@ -2817,7 +3031,7 @@ __global__ void __launch_bounds__(NT)
     lane_ptr<int>(a, P_Q_TAIL, 2 * n_dc, r)[q] = sm.qtail[q];
   }
   for (int s = tid; s < S; s += NT) {
-    lane_ptr<float>(a, P_NEXT_ARR, S, r)[s] = sm.next_arr[s];
+    lane_ptr<TimeT>(a, P_NEXT_ARR, S, r)[s] = sm.next_arr[s];
     lane_ptr<int>(a, P_ARR_COUNT, S, r)[s] = sm.arr_count[s];
   }
   if constexpr (kRL)
@@ -2832,14 +3046,14 @@ __global__ void __launch_bounds__(NT)
     }
   }
   if (tid == 0) {
-    lane_ptr<float>(a, P_T, 1, r)[0] = sm.t;
+    lane_ptr<TimeT>(a, P_T, 1, r)[0] = sm.t;
     int64_t* key = lane_ptr<int64_t>(a, P_KEY, 2, r);
     key[0] = (int64_t)sm.k0;
     key[1] = (int64_t)sm.k1;
     lane_ptr<int>(a, P_JID, 1, r)[0] = sm.jid;
     lane_ptr<uint8_t>(a, P_STARTED, 1, r)[0] = sm.started ? 1 : 0;
-    lane_ptr<float>(a, P_T_FIRST, 1, r)[0] = sm.t_first;
-    lane_ptr<float>(a, P_NEXT_LOG, 1, r)[0] = sm.next_log_t;
+    lane_ptr<TimeT>(a, P_T_FIRST, 1, r)[0] = sm.t_first;
+    lane_ptr<TimeT>(a, P_NEXT_LOG, 1, r)[0] = sm.next_log_t;
     lane_ptr<int>(a, P_N_EVENTS, 1, r)[0] = sm.n_events;
     lane_ptr<int>(a, P_N_DROP, 1, r)[0] = sm.n_dropped;
     lane_ptr<uint8_t>(a, P_DONE, 1, r)[0] = sm.done ? 1 : 0;
@@ -2873,6 +3087,7 @@ bool policy_ok(const Args& a) {
   return true;
 }
 
+#ifndef DCG_CLOCK64
 // ---------------------------------------------------------------- standalone
 // B3 and B4 over a batch through the same device functions (chip_smoke.py
 // holds them against their plain versions; the main path never calls it).
@@ -2961,14 +3176,16 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
   rlk::release_cluster<NT>(cmd, cs, tid);
 }
 
+#endif  // DCG_CLOCK64
+
 // The block widths each mode is built for (kernels/event_scan.py
 // BLOCK_WIDTHS; the wrapper picks one); RL mode in a second instance for
-// GPU-count heads wider than a warp.
+// GPU-count heads wider than a warp; every instance for this build's clock.
 template <bool kRL, bool kWide, bool kExt>
 void (*kernel_of(int threads))(Args) {
   switch (threads) {
-    case 32: return event_scan_kernel<kRL, 32, kWide, kExt>;
-    case 256: return event_scan_kernel<kRL, 256, kWide, kExt>;
+    case 32: return event_scan_kernel<kRL, 32, kWide, kExt, Clock>;
+    case 256: return event_scan_kernel<kRL, 256, kWide, kExt, Clock>;
     default: return nullptr;
   }
 }
@@ -2982,6 +3199,7 @@ void (*kernel_of(const int* ints))(Args) {
                              : kernel_of<true, false, false>(threads);
 }
 
+#ifndef DCG_CLOCK64
 void (*tail_kernel_of(const int* ints))(TailArgs) {
   const bool wide = ints[I_MAXGPU] > 32;
   switch (ints[I_THREADS]) {
@@ -2992,6 +3210,7 @@ void (*tail_kernel_of(const int* ints))(TailArgs) {
     default: return nullptr;
   }
 }
+#endif  // DCG_CLOCK64
 
 }  // namespace
 
@@ -3051,6 +3270,7 @@ static cudaError_t launch_clusters(void (*kernel)(A), int blocks, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, args);
 }
 
+#ifndef DCG_CLOCK64
 // Plain C entry point of the standalone launch: `ptrs` N_TAIL_PTRS device
 // pointers (TailPtr order), `ints` the event scan's N_INTS (I_THREADS the
 // block width, I_CLUSTER and I_LEAD the row's cluster) followed by B, W
@@ -3089,6 +3309,7 @@ extern "C" int rl_tail_batch_launch(const uint64_t* ptrs, int n_ptrs,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+#endif  // DCG_CLOCK64
 
 // The dynamic shared memory of a launch's blocks (`ints` in INT_NAMES
 // order).  A lane's slab: the job fields, the [P] row of the slots' values,
@@ -3096,13 +3317,16 @@ extern "C" int rl_tail_batch_launch(const uint64_t* ptrs, int n_ptrs,
 // the block-reduction words, and in RL mode the latency windows, the
 // observation and the log-probabilities; in RL mode inside its cluster's
 // rows (`cluster_block_bytes`; B3's scratch shares their activation rows).
-extern "C" long long event_scan_smem_bytes(const int* ints) {
+// The double clock's build adds the [4, J] double time columns and the
+// warps' argmins after an 8-byte alignment pad.
+extern "C" long long DCG_ENTRY(event_scan_smem_bytes)(const int* ints) {
   const int J = ints[I_J], P = ints[I_P], rl = ints[I_RL];
   const long long rl_part = rl ? 2LL * ints[I_W] + kMaxObs : 0;
   const long long rows =
       P > 32 * kRegSlots ? (long long)ints[I_SUM_WARPS] * P : 0;
-  const long long slab =
+  long long slab =
       4LL * ((N_JI + N_JF) * (long long)J + P + rows + kRed + rl_part);
+  if (sizeof(Clock) == 8) slab += 8 + 32LL * J + kWarpMinBytes;
   return rl ? cluster_block_bytes(ints, slab) : slab;
 }
 
@@ -3115,13 +3339,28 @@ extern "C" long long event_scan_smem_bytes(const int* ints) {
 // ints[I_LEAD] is set).  Returns the cudaError_t of the launch (0 on
 // success), -1 for a table of the wrong length, -2 for a shape the kernel
 // does not take (too many DCs, streams or frequency levels, a block width it
-// is not built for), -3 when the slab does not fit in shared memory.
+// is not built for), -3 when the slab does not fit in shared memory.  The
+// double clock's build (event_scan64_launch) takes N_DBLS doubles after
+// the floats: the run's end and log interval.
+#ifdef DCG_CLOCK64
+extern "C" int event_scan64_launch(const uint64_t* ptrs, int n_ptrs,
+                                   const int* ints, int n_ints,
+                                   const float* floats, int n_floats,
+                                   const double* doubles, int n_doubles,
+                                   void* stream) {
+  if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLTS ||
+      n_doubles != N_DBLS)
+    return -1;
+  Args a;
+  for (int k = 0; k < N_DBLS; ++k) a.d[k] = doubles[k];
+#else
 extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
                                  const int* ints, int n_ints,
                                  const float* floats, int n_floats,
                                  void* stream) {
   if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLTS) return -1;
   Args a;
+#endif
   for (int k = 0; k < N_PTRS; ++k) a.p[k] = (void*)ptrs[k];
   for (int k = 0; k < N_INTS; ++k) a.i[k] = ints[k];
   for (int k = 0; k < N_FLTS; ++k) a.f[k] = floats[k];
@@ -3141,14 +3380,14 @@ extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
        a.p[P_BAND_T] == nullptr || a.p[P_EGRID_FULL] == nullptr ||
        a.i[I_DEBUG_ROW] < 0 || a.i[I_DEBUG_ROW] >= a.i[I_NMAX]))
     return -2;
-  const long long smem = event_scan_smem_bytes(a.i);
+  const long long smem = DCG_ENTRY(event_scan_smem_bytes)(a.i);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem + (long long)(sizeof(Small) + sizeof(rlk::Policy) +
+  if (smem + (long long)(sizeof(SmallT<Clock>) + sizeof(rlk::Policy) +
                          sizeof(rlk::Slice) + (a.i[I_EXT] ? sizeof(Ext) : 0)) >
       optin)
     return -3;

@@ -8,7 +8,10 @@
 // What it computes, for a ring of C rows and a batch of Bs draws:
 //   total  = number of valid rows (an exact integer count: JAX's float32
 //            cumsum is exact too, since C <= 2^24)
-//   u_s    = unit_float(threefry bits of draw s) * max(total, 1)   (float32)
+//   u_s    = unit_float(threefry bits of draw s) * max(total, 1)   (float32;
+//            under the float64 clock, x64, unit_double of the block's 64
+//            bits times max(total, 1) in double, as jax under
+//            jax_enable_x64 draws it)
 //   r_s    = floor(u_s);  idx_s = the row of rank r_s among the valid rows,
 //            or C - 1 when r_s >= total (JAX's clip of searchsorted's C:
 //            an empty ring, or u_s rounded up to the total)
@@ -204,6 +207,7 @@ __global__ void __launch_bounds__(kCountThreads)
   if (tid == 0) *ticket = 0u;
 }
 
+template <bool kX64>
 __global__ void __launch_bounds__(kDrawThreads)
     replay_sample_draw_kernel(const __grid_constant__ Fields f,
                               const uint8_t* __restrict__ valid, int C, int T,
@@ -236,8 +240,14 @@ __global__ void __launch_bounds__(kDrawThreads)
   uint32_t o0, o1;
   tf::threefry(k0, k1, 0u, (uint32_t)s, o0, o1);
   const int total = prefix[T];
-  const float u = tf::unit_float(o0 ^ o1) * fmaxf((float)total, 1.0f);
-  const int r = (int)u;  // u >= 0 and below 2^24: the floor, exactly
+  int r;  // u >= 0 and below 2^24: the floor, exactly
+  if constexpr (kX64) {  // the float64 clock's run: a double uniform
+    const double u = tf::unit_double(o0, o1) * fmax((double)total, 1.0);
+    r = (int)u;
+  } else {
+    const float u = tf::unit_float(o0 ^ o1) * fmaxf((float)total, 1.0f);
+    r = (int)u;
+  }
   int row = C - 1;
   if (r < total) {
     // the tile a with prefix[a] <= r < prefix[a + 1], by a 32-way search:
@@ -343,7 +353,8 @@ extern "C" int replay_sample_tiles(int C) { return (C + kTile - 1) / kTile; }
 // C validity bytes (16-byte aligned); `key` two int64 words on the device
 // (the sample key, or with `index` non-null the chunk key and the int32
 // update index on the device, which `advance` increments once every draw
-// has read it); idx [Bs] int32; `scratch` 2T + 1 ints; `ticket` two
+// has read it); `x64` draws u in double (the float64 clock's run, jax under
+// jax_enable_x64); idx [Bs] int32; `scratch` 2T + 1 ints; `ticket` two
 // unsigned on the device, 0 at the launch and left 0.
 // Launches the two kernels on `stream`.  Returns the first failing
 // launch's cudaError_t, -1 for a bad field table, -2 for a batch or ring the
@@ -352,8 +363,9 @@ extern "C" int replay_sample_launch(const uint64_t* src, const uint64_t* dst,
                                     const int* row_bytes, const int* cast,
                                     int n_fields, const void* valid, int C,
                                     int Bs, const void* key, void* index,
-                                    int advance, void* idx, void* scratch,
-                                    void* ticket, void* stream) {
+                                    int advance, int x64, void* idx,
+                                    void* scratch, void* ticket,
+                                    void* stream) {
   if (n_fields < 1 || n_fields > kMaxFields) return -1;
   if (C < 1 || C > (1 << 24) || Bs < 1 ||
       reinterpret_cast<uint64_t>(valid) % 16 != 0 ||
@@ -383,7 +395,9 @@ extern "C" int replay_sample_launch(const uint64_t* src, const uint64_t* dst,
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int warps = kDrawThreads / 32;
-  replay_sample_draw_kernel<<<(Bs + warps - 1) / warps, kDrawThreads, 0, s>>>(
+  auto draw = x64 ? replay_sample_draw_kernel<true>
+                  : replay_sample_draw_kernel<false>;
+  draw<<<(Bs + warps - 1) / warps, kDrawThreads, 0, s>>>(
       f, reinterpret_cast<const uint8_t*>(valid), C, T, prefix, Bs,
       reinterpret_cast<const long long*>(key), reinterpret_cast<int*>(index),
       advance, reinterpret_cast<unsigned*>(ticket) + 1,

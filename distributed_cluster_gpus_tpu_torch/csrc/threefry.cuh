@@ -57,9 +57,25 @@ __device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1) {
   return o0 ^ o1;
 }
 
+// the 64 bits of a scalar draw from key (k0, k1) under jax_enable_x64: the
+// block on counter (0, 0) as (hi, lo), whose 32-bit draw is hi ^ lo
+__device__ __forceinline__ void bits64(uint32_t k0, uint32_t k1, uint32_t& hi,
+                                       uint32_t& lo) {
+  threefry(k0, k1, 0u, 0u, hi, lo);
+}
+
 // jax `_uniform`'s mantissa trick: a float32 in [0, 1)
 __device__ __forceinline__ float unit_float(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// ... in float64 (jax under jax_enable_x64): the 64 bits of a scalar draw
+// are (o0 << 32) | o1 of the block whose 32 bits are o0 ^ o1; the top 52
+// under the exponent of 1.0, less 1 (ops/prng.py words_to_unit_double)
+__device__ __forceinline__ double unit_double(uint32_t o0, uint32_t o1) {
+  const unsigned long long m =
+      ((unsigned long long)o0 << 20) | (unsigned long long)(o1 >> 12);
+  return __longlong_as_double((long long)(m | 0x3FF0000000000000ull)) - 1.0;
 }
 
 // jax.random.randint(k, (), 0, maxval, int32) for a small positive span:

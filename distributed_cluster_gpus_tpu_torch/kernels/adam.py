@@ -57,7 +57,7 @@ def _lib():
     lib = build.load("adam")
     if _argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.adam_launch.argtypes = [P, P, P, P, P, I, P, P, P, P]
+        lib.adam_launch.argtypes = [P, P, P, P, P, I, P, I, P, P, P, P]
         lib.adam_launch.restype = ctypes.c_int
         _argtypes = True
     return lib
@@ -130,16 +130,21 @@ def adam_update(groups: Sequence[AdamGroup], cfg, plain: bool = False) -> None:
         clamps[i] = 0.0 if gr.clamp is None else f32(gr.clamp)
         n_blocks += k
     consts = (ctypes.c_float * 9)(*cfg.constants(), f32(1.0 - tau), f32(tau))
+    # the float64 clock's run: the bias corrections' double decays
+    decays = (ctypes.c_double * 2)(cfg.b1, cfg.b2)
     partial = torch.empty(n_blocks, dtype=f32t, device=dev)
     bc = torch.empty(2 * n_g, dtype=f32t, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().adam_launch(ptrs, ns, kr, flags, clamps, n_g, consts,
-                                partial.data_ptr(), bc.data_ptr(),
-                                build.stream_of(dev))
+                                int(cfg.x64), decays, partial.data_ptr(),
+                                bc.data_ptr(), build.stream_of(dev))
     if rc != 0:
         why = "a bad group table" if rc == -1 else f"cudaError {rc}"
         raise RuntimeError(f"adam_update kernel launch failed: {why}")
     adam_update.launches += 1
+    adam_update.x64_launches += bool(cfg.x64)
 
 
 adam_update.launches = 0
+#: calls with the float64 bias corrections (the float64 clock's run)
+adam_update.x64_launches = 0

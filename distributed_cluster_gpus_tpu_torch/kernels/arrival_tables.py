@@ -6,7 +6,10 @@ Replaces the XLA-fused region ``WorkloadProgram.tables``
 families this slice ports (``off``, ``poisson``, ``sin_inv``).  Given the
 workload key, each stream's draw cursor ``c0``, clock ``t0``, cumulative
 Exp sum ``cum0`` and epoch, it returns ``sizes``, ``tnext`` and ``cum``
-([S, n] float32), exactly what the JAX function returns.  With a leading
+([S, n] float32), exactly what the JAX function returns; clocks in float64
+(the float64 clock) take the kernel's double instance, as the JAX package
+under ``jax_enable_x64`` draws them (float64 samplers, ``tnext`` and
+``cum`` float64, ``sizes`` float32).  With a leading
 lane axis (``arr_key`` [R, 2], the per-stream inputs [R, S]) one launch
 builds every rollout lane's tables ([R, S, n]); each lane's are bit for bit
 its single-lane tables.
@@ -58,8 +61,12 @@ def _validate(arr_key, c0, t0, cum0, epoch, family, sparams):
     dev = c0.device
     _check("arr_key", arr_key, torch.int64, lanes + (2,), dev)
     _check("c0", c0, torch.int32, lanes + (S,), dev)
+    td = t0.dtype
+    if td not in (torch.float32, torch.float64):
+        raise TypeError(f"arrival_tables: the clocks must be float32 or float64, "
+                        f"got {td}")
     for name, t in (("t0", t0), ("cum0", cum0), ("epoch", epoch)):
-        _check(name, t, torch.float32, lanes + (S,), dev)
+        _check(name, t, td, lanes + (S,), dev)
     _check("family", family, torch.int32, (S,), dev)
     _check("sparams", sparams, torch.float32, (S, 4), dev)
     return lanes, S, dev
@@ -70,10 +77,10 @@ def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
     """Plain torch version: the same draws, fold and inversion, op by op
     (lane by lane when the inputs carry a lane axis).
 
-    Returns {"sizes", "tnext", "cum"} ([S, n] float32, [R, S, n] with lanes),
-    plus with ``with_aux`` "aux_key" ([..., S, n, 2] int32, each entry's
-    k_gap key words) and "aux_u" ([..., S, n] float32, its uniform draw) —
-    the kernel's debug outputs."""
+    Returns {"sizes", "tnext", "cum"} ([S, n], [R, S, n] with lanes: sizes
+    float32, the others in the clocks' dtype), plus with ``with_aux``
+    "aux_key" ([..., S, n, 2] int32, each entry's k_gap key words) and
+    "aux_u" ([..., S, n], its uniform draw) — the kernel's debug outputs."""
     lanes, S, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
     if lanes:
         outs = [arrival_tables_reference(arr_key[r], c0[r], t0[r], cum0[r],
@@ -83,25 +90,29 @@ def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     fam = family.tolist()
     sp = sparams.tolist()
+    td = t0.dtype
+    uniform = prng.uniform64 if td == torch.float64 else prng.uniform
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     counts = c0.to(torch.int64)[:, None] + torch.arange(n, device=dev)
     sizes = torch.zeros((S, n), dtype=torch.float32, device=dev)
-    inc = torch.zeros((S, n), dtype=torch.float32, device=dev)
+    inc = torch.zeros((S, n), dtype=td, device=dev)
     aux_key = torch.zeros((S, n, 2), dtype=torch.int32, device=dev)
-    aux_u = torch.zeros((S, n), dtype=torch.float32, device=dev)
+    aux_u = torch.zeros((S, n), dtype=td, device=dev)
     for s in range(S):
         if fam[s] == FAM_OFF:
             continue
         k_size, k_gap = stream_draw_keys(arr_key, s, counts[s])
-        sizes[s] = sample_job_size(k_size, s % 2)
-        u = prng.uniform(k_gap)
+        sizes[s] = sample_job_size(k_size, s % 2, td).to(torch.float32)
+        u = uniform(k_gap)
         e = -torch.log1p(-u)
         if fam[s] == FAM_POISSON:
             rate = f32(sp[s][RATE])
             # e * (1/rate): XLA turns the division by the (constant) rate
-            # into a multiply by its float32 reciprocal
-            inc[s] = torch.where(rate > 0, e * (1.0 / torch.clamp(rate, min=1e-30)),
-                                 f32(math.inf))
+            # into a multiply by its reciprocal, in the draw's dtype (the
+            # float32 rate widened under the float64 clock)
+            inc[s] = torch.where(
+                rate > 0, e * (1.0 / torch.clamp(rate, min=1e-30).to(td)),
+                torch.tensor(math.inf, dtype=td, device=dev))
         else:
             inc[s] = e
         aux_key[s] = k_gap.to(torch.int32)
@@ -109,19 +120,21 @@ def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
     # the left fold, one add per entry (never a parallel cumsum: chunk
     # invariance needs exactly this association)
     carry = torch.where(family == FAM_SIN_INV, cum0, t0)
-    cum = torch.empty((S, n), dtype=torch.float32, device=dev)
+    cum = torch.empty((S, n), dtype=td, device=dev)
     for i in range(n):
         carry = carry + inc[:, i]
         cum[:, i] = carry
-    tnext = torch.full((S, n), math.inf, dtype=torch.float32, device=dev)
+    tnext = torch.full((S, n), math.inf, dtype=td, device=dev)
     for s in range(S):
         if fam[s] == FAM_POISSON:
             tnext[s] = cum[s]
         elif fam[s] == FAM_SIN_INV:
             rate, amp, period, phase = sp[s]
             arr_p = ArrivalParams(MODE_SINUSOID, rate, amp, period)
-            delta = sinusoid_gap_from_cum(arr_p, epoch[s] + f32(phase), cum[s])
-            delta = torch.where(f32(rate) > 0, delta, f32(math.inf))
+            delta = sinusoid_gap_from_cum(arr_p, epoch[s] + f32(phase).to(td),
+                                          cum[s])
+            delta = torch.where(f32(rate) > 0, delta,
+                                torch.tensor(math.inf, dtype=td, device=dev))
             tnext[s] = epoch[s] + delta
     out = {"sizes": sizes, "tnext": tnext, "cum": cum}
     if with_aux:
@@ -136,9 +149,9 @@ def _lib():
     lib = build.load("arrival_tables")
     if _argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.arrival_tables_launch.argtypes = [P, P, P, P, P, P, P, I, I, I,
-                                              P, P, P, P, P, P]
-        lib.arrival_tables_launch.restype = ctypes.c_int
+        for fn in (lib.arrival_tables_launch, lib.arrival_tables64_launch):
+            fn.argtypes = [P, P, P, P, P, P, P, I, I, I, P, P, P, P, P, P]
+            fn.restype = ctypes.c_int
         _argtypes = True
     return lib
 
@@ -160,17 +173,20 @@ def arrival_tables(arr_key, c0, t0, cum0, epoch, family, sparams, n: int,
     if R > 65535:
         raise ValueError("arrival_tables: at most 65,535 lanes per launch")
     lib = _lib()
+    td = t0.dtype
     shape = lanes + (S, n)
     sizes = torch.empty(shape, dtype=torch.float32, device=dev)
-    tnext = torch.empty(shape, dtype=torch.float32, device=dev)
-    cum = torch.empty(shape, dtype=torch.float32, device=dev)
+    tnext = torch.empty(shape, dtype=td, device=dev)
+    cum = torch.empty(shape, dtype=td, device=dev)
     aux_key = aux_u = None
     if with_aux:
         aux_key = torch.empty(shape + (2,), dtype=torch.int32, device=dev)
-        aux_u = torch.empty(shape, dtype=torch.float32, device=dev)
+        aux_u = torch.empty(shape, dtype=td, device=dev)
+    x64 = td == torch.float64
+    launch = lib.arrival_tables64_launch if x64 else lib.arrival_tables_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.arrival_tables_launch(
+        rc = launch(
             arr_key.data_ptr(), c0.data_ptr(), t0.data_ptr(), cum0.data_ptr(),
             epoch.data_ptr(), family.data_ptr(), sparams.data_ptr(), R, S, n,
             sizes.data_ptr(), tnext.data_ptr(), cum.data_ptr(),
@@ -179,6 +195,7 @@ def arrival_tables(arr_key, c0, t0, cum0, epoch, family, sparams, n: int,
     if rc != 0:
         raise RuntimeError(f"arrival_tables kernel launch failed: cudaError {rc}")
     arrival_tables.launches += 1
+    arrival_tables.x64_launches += x64
     out = {"sizes": sizes, "tnext": tnext, "cum": cum}
     if with_aux:
         out.update(aux_key=aux_key, aux_u=aux_u)
@@ -186,3 +203,5 @@ def arrival_tables(arr_key, c0, t0, cum0, epoch, family, sparams, n: int,
 
 
 arrival_tables.launches = 0
+#: launches of the double instance (the float64 clock)
+arrival_tables.x64_launches = 0

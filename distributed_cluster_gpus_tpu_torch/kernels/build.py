@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -50,7 +51,11 @@ def _target(name: str) -> tuple:
     src = os.path.join(CSRC_DIR, name + ".cu")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+    # a source that includes another (csrc/event_scan64.cu) hashes it too
+    with open(src) as f:
+        included = re.findall(r'^#include "([^"]+\.cu)"', f.read(), re.M)
+    for path in ([src] + [os.path.join(CSRC_DIR, c) for c in included]
+                 + [os.path.join(CSRC_DIR, h) for h in headers]):
         with open(path, "rb") as f:
             digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")

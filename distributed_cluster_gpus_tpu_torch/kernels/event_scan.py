@@ -141,6 +141,13 @@ INT_NAMES = (
 #: the float parameters, in csrc/event_scan.cu's `enum Flt` order
 FLT_NAMES = ("end", "log_interval", "sla_thr", "neg_w", "sla_ms",
              "power_cap", "cap_thr", "w_lat", "w_e", "w_c", "w_cost", "w_q")
+#: the double clock's parameters (csrc/event_scan.cu `enum Dbl`), which its
+#: build (csrc/event_scan64.cu) reads in place of the first two floats
+DBL_NAMES = ("end", "log_interval")
+#: what the double clock's slab adds to a lane's (csrc/event_scan.cu
+#: ``event_scan_smem_bytes``): an 8-byte alignment pad, the [4, J] double
+#: time columns and the warps' argmins (kWarpMinBytes)
+X64_PAD, X64_WARP_MIN = 8, 3 * 8 * (8 + 8 + 4)
 
 #: csrc/event_scan.cu's codes for the extended instance's choices
 ADM_HEUR, ADM_TABLE, ADM_CC, ADM_BANDIT = 0, 1, 2, 3
@@ -189,7 +196,11 @@ _JOB_DTYPES = {
     "rl_a_dc": _I32, "rl_a_g": _I32, "rl_valid": _BOOL,
 }
 
-_argtypes = None
+#: the slab's fields in the clock's dtype (float32 above is the float32
+#: clock's; under the float64 clock these four are float64)
+TIME_JOB_FIELDS = ("t_ingress", "t_avail", "t_start", "preempt_t")
+
+_argtypes = set()
 
 
 def _get(obj, dotted: str):
@@ -228,27 +239,31 @@ def act_bytes(n_g: int) -> int:
     return 4 * (2 * ACT_LEN + logit_len(n_g) + 4)
 
 
-def slab_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1) -> int:
+def slab_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1,
+               x64: bool = False) -> int:
     """A lane's slab in shared memory: the job fields, the [P] row of the
     slots' values, a [P] row per DC-summing warp when P exceeds the trees
     kept in registers, the block-reduction words, and in RL mode the two
     latency windows and the observation (B3's scratch shares the cluster's
-    activation rows, :func:`act_bytes`)."""
+    activation rows, :func:`act_bytes`); under the float64 clock (``x64``)
+    the four double time columns (32 bytes a slot) and the warps' argmins."""
     P = pow2_at_least(J)
     rows = sum_warps * P if P > 32 * REG_SLOTS else 0
     rl_part = (2 * W + MAX_OBS) if rl else 0
-    return 4 * (18 * J + P + rows + RED_WORDS + rl_part)
+    extra = X64_PAD + 32 * J + X64_WARP_MIN if x64 else 0
+    return 4 * (18 * J + P + rows + RED_WORDS + rl_part) + extra
 
 
 def smem_bytes(J: int, W: int = 0, rl: bool = False, sum_warps: int = 1,
-               widths=None, cs: int = 1, lead: bool = True) -> int:
+               widths=None, cs: int = 1, lead: bool = True,
+               x64: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/event_scan.cu
     ``event_scan_smem_bytes``): the lane's slab (:func:`slab_bytes`); in RL
     mode the blocks of a cluster of ``cs`` hold :func:`act_bytes`, then
     their weight slices (:func:`slice_bytes` of ``widths``), and block 0
     holds the slab after its own slice, or (``lead`` false) in place of
     one."""
-    slab = slab_bytes(J, W, rl, sum_warps)
+    slab = slab_bytes(J, W, rl, sum_warps, x64)
     if not rl:
         return slab
     act = act_bytes(widths[-1])
@@ -271,14 +286,14 @@ def block_plan(prog, threads: int, widths=None):
     n_max = max(1, min(threads // 32, n_dc))
     if p.algo != ALGO_CHSAC_AF:
         n = n_max
-        while n > 1 and slab_bytes(J, W, False, n) > SMEM_BUDGET:
+        while n > 1 and slab_bytes(J, W, False, n, p.x64) > SMEM_BUDGET:
             n -= 1
         return n, 1, True
     w = (p.obs_dim(n_dc), *widths, n_dc, p.max_gpus_per_job)
     for cs in CLUSTERS:
         for lead in (True, False) if cs > 1 else (True,):
             for n in range(n_max, 0, -1):
-                if smem_bytes(J, W, True, n, w, cs, lead) <= SMEM_BUDGET:
+                if smem_bytes(J, W, True, n, w, cs, lead, p.x64) <= SMEM_BUDGET:
                     return n, cs, lead
     raise ValueError(
         f"event_scan: the policy's weights (widths {w}) do not fit in "
@@ -310,25 +325,26 @@ def _lane_specs(prog, R: int, n_tab: int):
     n_dc, n_ing, J = fleet.n_dc, fleet.n_ing, p.job_cap
     S = 2 * n_ing
     lane = lambda *s: (R,) + s  # noqa: E731
+    T = prog.td  # the clock's dtype (SimParams.time_dtype)
     specs = {
-        "t": (_F32, lane()), "key": (_I64, lane(2)), "jid_counter": (_I32, lane()),
-        "started_accrual": (_BOOL, lane()), "t_first": (_F32, lane()),
-        "next_log_t": (_F32, lane()), "n_events": (_I32, lane()),
+        "t": (T, lane()), "key": (_I64, lane(2)), "jid_counter": (_I32, lane()),
+        "started_accrual": (_BOOL, lane()), "t_first": (T, lane()),
+        "next_log_t": (T, lane()), "n_events": (_I32, lane()),
         "n_finished": (_I32, lane(2)), "units_finished": (_F32, lane(2)),
         "n_dropped": (_I32, lane()), "done": (_BOOL, lane()),
         "dc.busy": (_I32, lane(n_dc)), "dc.cur_f_idx": (_I32, lane(n_dc)),
-        "dc.energy_j": (_F32, lane(n_dc)), "dc.util_gpu_time": (_F32, lane(n_dc)),
+        "dc.energy_j": (T, lane(n_dc)), "dc.util_gpu_time": (T, lane(n_dc)),
         "dc.acc_job_unit": (_F32, lane(n_dc)),
-        "next_arrival": (_F32, lane(n_ing, 2)), "arr_count": (_I32, lane(n_ing, 2)),
+        "next_arrival": (T, lane(n_ing, 2)), "arr_count": (_I32, lane(n_ing, 2)),
         "lat.buf": (_F32, lane(2, p.lat_window)), "lat.count": (_I32, lane(2)),
         "lat.ptr": (_I32, lane(2)),
-        "queues.recs": (_F32, lane(n_dc, 2, p.queue_cap, QREC_FIELDS)),
+        "queues.recs": (T, lane(n_dc, 2, p.queue_cap, QREC_FIELDS)),
         "queues.head": (_I32, lane(n_dc, 2)), "queues.tail": (_I32, lane(n_dc, 2)),
-        "pre.sizes": (_F32, lane(S, n_tab)), "pre.tnext": (_F32, lane(S, n_tab)),
+        "pre.sizes": (_F32, lane(S, n_tab)), "pre.tnext": (T, lane(S, n_tab)),
         "pre.c0": (_I32, lane(S)),
     }
     for f, dt in _JOB_DTYPES.items():
-        specs["jobs." + f] = (dt, lane(J))
+        specs["jobs." + f] = (T if f in TIME_JOB_FIELDS else dt, lane(J))
     specs["bandit.N"] = (_I32, lane(n_dc, 2, fleet.n_f))
     specs["bandit.S"] = (_F32, lane(n_dc, 2, fleet.n_f))
     specs["bandit.t"] = (_I32, lane())
@@ -396,17 +412,26 @@ def event_scan_reference(prog, state, pre, n_steps: int, policy_params=None):
     return _stack(ems), stats
 
 
-def _lib():
-    global _argtypes
+def _lib(x64: bool = False):
+    """The float clock's build (csrc/event_scan.cu), or with ``x64`` the
+    double clock's (csrc/event_scan64.cu)."""
     from . import build
 
+    if x64:
+        lib = build.load("event_scan64")
+        if "event_scan64" not in _argtypes:
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.event_scan64_launch.argtypes = [P, I, P, I, P, I, P, I, P]
+            lib.event_scan64_launch.restype = ctypes.c_int
+            _argtypes.add("event_scan64")
+        return lib
     lib = build.load("event_scan")
-    if _argtypes is None:
+    if "event_scan" not in _argtypes:
         P, I = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.event_scan_launch, lib.rl_tail_batch_launch):
             fn.argtypes = [P, I, P, I, P, I, P]
             fn.restype = ctypes.c_int
-        _argtypes = True
+        _argtypes.add("event_scan")
     return lib
 
 
@@ -483,12 +508,12 @@ def check_kernel_covers(prog) -> None:
             f"{MAX_FREQS} frequency levels (got {fleet.n_dc}, {fleet.n_ing}, "
             f"{fleet.n_f})")
     rl = p.algo == ALGO_CHSAC_AF
-    need = slab_bytes(J, p.lat_window, rl, 1) + (
-        act_bytes(p.max_gpus_per_job) if rl else 0)
-    if need > SMEM_BUDGET:
+    if not slab_fits(J, p.lat_window, rl, p.max_gpus_per_job, p.x64):
+        need = lane_bytes(J, p.lat_window, rl, p.max_gpus_per_job, p.x64)
         raise ValueError(
             f"event_scan: job_cap {J} (lat_window {p.lat_window}) needs {need} B "
-            f"of shared memory per lane; the card offers {SMEM_BUDGET} B")
+            f"of shared memory per lane; the card offers {SMEM_BUDGET} B "
+            f"({slab_limit_text(p.lat_window, rl, p.max_gpus_per_job, p.x64)})")
     if rl:
         if getattr(prog.policy_apply, "kernel_mode", None) is None:
             raise ValueError(
@@ -497,6 +522,33 @@ def check_kernel_covers(prog) -> None:
                 "on the CPU")
         if not rl_covers(p.obs_dim(fleet.n_dc), fleet.n_dc, p.max_gpus_per_job):
             raise ValueError(f"event_scan: {RL_ENVELOPE}")
+
+
+def lane_bytes(J: int, W: int, rl: bool, n_g: int, x64: bool) -> int:
+    """The least shared memory a lane's block needs: its slab with one
+    DC-summing warp and, in RL mode, the cluster's activation rows."""
+    return slab_bytes(J, W, rl, 1, x64) + (act_bytes(n_g) if rl else 0)
+
+
+def slab_fits(J: int, W: int, rl: bool, n_g: int, x64: bool) -> bool:
+    return lane_bytes(J, W, rl, n_g, x64) <= SMEM_BUDGET
+
+
+def max_job_cap(W: int, rl: bool, n_g: int, x64: bool) -> int:
+    """The largest job_cap whose lane fits in a block's shared memory."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if slab_fits(mid, W, rl, n_g, x64) else (lo, mid - 1)
+    return lo
+
+
+def slab_limit_text(W: int, rl: bool, n_g: int, x64: bool) -> str:
+    """The job_cap limit of this clock and mode, for a refusal's message."""
+    mode = f"RL mode at lat_window {W}" if rl else "the heuristic instances"
+    clock = "float64" if x64 else "float32"
+    return (f"the {clock} clock's limit in {mode}: job_cap <= "
+            f"{max_job_cap(W, rl, n_g, x64)}")
 
 
 def policy_operands(prog, policy_params, device):
@@ -611,19 +663,28 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
     greedy = rl and prog.policy_apply.kernel_mode == "greedy"
     ints = kernel_ints(prog, R, n_steps, n_tab, greedy, widths, threads)
     floats = kernel_floats(prog)
-    lib = _lib()
+    x64 = prog.params.x64
+    lib = _lib(x64)
     c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_floats = (ctypes.c_float * len(floats))(*floats)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.event_scan_launch(c_ptrs, len(ptrs), c_ints, len(ints),
-                                   c_floats, len(floats), stream)
+        if x64:
+            dbls = [float(prog.params.duration), float(prog.params.log_interval)]
+            c_dbls = (ctypes.c_double * len(dbls))(*dbls)
+            rc = lib.event_scan64_launch(c_ptrs, len(ptrs), c_ints, len(ints),
+                                         c_floats, len(floats), c_dbls,
+                                         len(dbls), stream)
+        else:
+            rc = lib.event_scan_launch(c_ptrs, len(ptrs), c_ints, len(ints),
+                                       c_floats, len(floats), stream)
     if rc != 0:
         raise RuntimeError(f"event_scan kernel launch failed: {_launch_error(rc)}")
     event_scan.launches += 1
     event_scan.rl_launches += rl
     event_scan.ext_launches += ext
+    event_scan.x64_launches += x64
     return em, {"events": None, "host_reads": None, "ctl": ctl}
 
 
@@ -634,6 +695,8 @@ event_scan.rl_launches = 0
 #: launches of the extended heuristic instance (carbon_cost, debug, bandit,
 #: eco / weighted routing, the cap controllers)
 event_scan.ext_launches = 0
+#: launches of the double clock's instances (csrc/event_scan64.cu)
+event_scan.x64_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ def _lib():
     if _argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.replay_sample_launch.argtypes = [P, P, P, P, I, P, I, I, P, P, I,
-                                             P, P, P, P]
+                                             I, P, P, P, P]
         lib.replay_sample_launch.restype = ctypes.c_int
         lib.replay_sample_tiles.argtypes = [I]
         lib.replay_sample_tiles.restype = I
@@ -70,22 +70,24 @@ def sample_key(key: torch.Tensor, index: Optional[torch.Tensor] = None):
 
 def replay_sample(rb, key: torch.Tensor, batch: int, plain: bool = False,
                   index: Optional[torch.Tensor] = None,
-                  bf16_obs: bool = False, advance: bool = False
-                  ) -> Dict[str, torch.Tensor]:
+                  bf16_obs: bool = False, advance: bool = False,
+                  x64: bool = False) -> Dict[str, torch.Tensor]:
     """``batch`` rows of ``rb`` drawn with a threefry key (int64 [2] on the
     ring's device): the sample key ``key``, or, given ``index`` (an int32
     0-d tensor there), the key of update ``index`` of the chunk key ``key``
     (:func:`sample_key`); the rows by ``ROW_FIELDS`` name and ``idx``
     (int32 [batch]), as ``rl.replay.replay_sample`` returns them (``s0``
     and ``s1`` in bf16 with ``bf16_obs``).  With ``advance`` the index is
-    incremented after the draw."""
+    incremented after the draw.  ``x64`` draws the float64 uniform of the
+    float64 clock's run (the kernel's double instance of the draw)."""
     from ..rl import replay as rp
 
     dev = rb.valid.device
     if advance and index is None:
         raise ValueError("replay_sample: advance needs an update index")
     if plain or dev.type == "cpu":
-        out = rp.replay_sample(rb, sample_key(key, index), batch, bf16_obs)
+        out = rp.replay_sample(rb, sample_key(key, index), batch, bf16_obs,
+                               x64)
         if advance:
             index.add_(1)
         return out
@@ -129,7 +131,7 @@ def replay_sample(rb, key: torch.Tensor, batch: int, plain: bool = False,
             (ctypes.c_int * n)(*row_bytes), (ctypes.c_int * n)(*cast), n,
             rb.valid.data_ptr(), C, batch, key.data_ptr(),
             None if index is None else index.data_ptr(), int(advance),
-            idx.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
+            int(x64), idx.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
             build.stream_of(dev))
     if rc != 0:
         why = {-1: "a bad field table",
@@ -137,7 +139,10 @@ def replay_sample(rb, key: torch.Tensor, batch: int, plain: bool = False,
                    rc, f"cudaError {rc}")
         raise RuntimeError(f"replay_sample kernel launch failed: {why}")
     replay_sample.launches += 1
+    replay_sample.x64_launches += bool(x64)
     return out
 
 
 replay_sample.launches = 0
+#: calls of the float64 draw (the float64 clock's run)
+replay_sample.x64_launches = 0

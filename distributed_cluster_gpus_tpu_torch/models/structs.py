@@ -270,7 +270,7 @@ class SimParams:
     superstep_k: int = 1
     lat_window: int = 2048
     seed: int = 123
-    time_dtype: str = "float32"
+    time_dtype: str = "float32"  # or "float64" (SimParams.x64)
     faults: Optional[object] = None
     obs_enabled: bool = False
     obs_ema_alpha: float = 0.05
@@ -297,6 +297,8 @@ class SimParams:
             raise ValueError(
                 f"obs_qdepth_bins={self.obs_qdepth_bins} < 2: the queue "
                 "histogram needs at least an empty bin and an overflow bin")
+        if self.time_dtype not in ("float32", "float64"):
+            raise ValueError(f"unknown time_dtype {self.time_dtype!r}")
         if self.router_weights is not None and len(self.router_weights) != 5:
             raise ValueError(
                 "router_weights needs exactly 5 values "
@@ -304,8 +306,21 @@ class SimParams:
                 f"{self.router_weights!r}")
 
     @property
+    def x64(self) -> bool:
+        """The float64 clock and the reference's x64 numerics that come
+        with it (jax under ``jax_enable_x64``: its unpinned draws, the
+        replay sample's uniform and optax's bias correction in float64).
+        A property of the run, passed to the step, the workload, the
+        kernels and the agent; the port keeps no process-wide switch."""
+        return self.time_dtype == "float64"
+
+    @property
     def tdtype(self) -> torch.dtype:
-        return torch.float64 if self.time_dtype == "float64" else torch.float32
+        """The clock's dtype: every time-valued leaf (``SimState.t``,
+        ``t_first``, ``next_log_t``, the arrival clocks, the slab's four
+        time fields, the DCs' energy and GPU-time accumulators and every
+        field of a ring record)."""
+        return torch.float64 if self.x64 else torch.float32
 
     def obs_dim(self, n_dc: int) -> int:
         """RL observation: [now] + per-DC [total, busy, free, cur_f, q_inf,

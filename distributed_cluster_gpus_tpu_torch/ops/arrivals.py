@@ -54,28 +54,40 @@ def tmod(a, b):
 
 
 def lambda_t(p: ArrivalParams, t):
-    """Instantaneous rate lambda(t) >= 0 of one stream (float32 ``t``)."""
+    """Instantaneous rate lambda(t) >= 0 of one stream, in ``t``'s dtype
+    (float32, or float64 under the float64 clock, where the float32 shape
+    parameters promote as jax's do)."""
     dev = t.device
     if p.mode == MODE_POISSON:
         return torch.full_like(t, float(p.rate))
     if p.mode != MODE_SINUSOID:
         return torch.zeros_like(t)
-    period = _f32(p.period, dev)
+    period = _f32(p.period, dev).to(t.dtype)
     ph = (2.0 * math.pi) * tmod(t, period) / period
     sin_rate = _f32(p.rate, dev) * (1.0 + _f32(p.amp, dev) * torch.sin(ph))
     return torch.clamp(sin_rate, min=0.0)
 
 
-def _exponential_safe(k, lam: float):
+def _draws(td):
+    """(uniform, exponential) of the draw dtype: float32, or float64 under
+    the float64 clock (jax's unpinned draws under ``jax_enable_x64``)."""
+    if td == torch.float64:
+        return prng.uniform64, prng.exponential64
+    return prng.uniform, prng.exponential
+
+
+def _exponential_safe(k, lam: float, td=torch.float32):
     """Exp(lam) sample; +inf when lam <= 0."""
-    u = prng.exponential(k)
+    u = _draws(td)[1](k)
     if lam > 0:
-        return u / _f32(max(lam, 1e-30), k.device)
+        return u / _f32(max(lam, 1e-30), k.device).to(td)
     return torch.full_like(u, math.inf)
 
 
-def next_interarrival(k, p: ArrivalParams, t) -> torch.Tensor:
-    """Next inter-arrival gap of one stream at absolute time ``t`` (scalar).
+def next_interarrival(k, p: ArrivalParams, t, td=torch.float32) -> torch.Tensor:
+    """Next inter-arrival gap of one stream at absolute time ``t`` (scalar),
+    in ``td`` (the clock's dtype: its draws are float64 under the float64
+    clock).
 
     Poisson: one Exp(rate) draw.  Sinusoid: Ogata thinning against
     ``lam_max = rate * (1 + |amp|)`` — each candidate splits the key into
@@ -85,26 +97,25 @@ def next_interarrival(k, p: ArrivalParams, t) -> torch.Tensor:
     back to the host once per candidate."""
     dev = k.device
     f32 = lambda x: _f32(x, dev)  # noqa: E731
+    uniform, exponential = _draws(td)
     lam_max = float(f32(p.rate) * (1.0 + abs(f32(p.amp))))
     if p.mode == MODE_POISSON:
-        return _exponential_safe(k, p.rate)
-    if p.mode != MODE_SINUSOID:
-        return f32(math.inf)
-    if not lam_max > 0:
-        return f32(math.inf)
-    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-    w = f32(0.0)
-    lam_max_t = f32(lam_max)
-    denom = f32(max(lam_max, 1e-30))
+        return _exponential_safe(k, p.rate, td)
+    inf = torch.tensor(math.inf, dtype=td, device=dev)
+    if p.mode != MODE_SINUSOID or not lam_max > 0:
+        return inf
+    t = torch.as_tensor(t, dtype=td, device=dev)
+    w = torch.zeros((), dtype=td, device=dev)
+    denom = torch.maximum(f32(lam_max), f32(1e-30)).to(td)
     for _ in range(1 << 22):
         ks = prng.split(k, 3)
         k, k_w, k_u = ks[0], ks[1], ks[2]
-        gap = prng.exponential(k_w) / torch.maximum(lam_max_t, f32(1e-30))
+        gap = exponential(k_w) / denom
         w = w + gap
-        u = prng.uniform(k_u)
+        u = uniform(k_u)
         if bool(u <= lambda_t(p, t + w) / denom):
             break
-    return torch.where(torch.isfinite(w), w, f32(math.inf))
+    return torch.where(torch.isfinite(w), w, inf)
 
 
 def sinusoid_gap_from_cum(p: ArrivalParams, t0, s):
@@ -145,17 +156,24 @@ def stream_draw_keys(arr_key, stream: int, count):
     return ks[..., 0, :], ks[..., 1, :]
 
 
-def sample_job_size(k, jtype: int):
-    """Job sizes (work units) for keys ``k`` [..., 2] of one job type.
+def sample_job_size(k, jtype: int, td=torch.float32):
+    """Job sizes (work units) for keys ``k`` [..., 2] of one job type, in
+    the draw dtype ``td`` (float64 under the float64 clock; the caller
+    stores them as float32).
 
     inference: Pareto(x_m=1, alpha=1.8) by inverse CDF on u in (0, 1];
-    training: max(0.1, LogNormal(ln 50000, 0.4))."""
+    training: max(0.1, LogNormal(ln 50000, 0.4)) with ``ln 50000`` a
+    float32 log in either dtype."""
     ks = prng.split(k, 2)
     k_u, k_n = ks[..., 0, :], ks[..., 1, :]
     dev = k.device
+    x64 = td == torch.float64
     if jtype == JTYPE_INFERENCE:
+        if x64:
+            u = torch.clamp(1.0 - prng.uniform64(k_u), min=1e-9)
+            return 1.0 / torch.pow(u, 1.0 / PARETO_ALPHA)
         u = torch.clamp(1.0 - prng.uniform(k_u), min=1e-9)
         return 1.0 / torch.pow(u, _f32(1.0 / PARETO_ALPHA, dev))
-    z = prng.normal(k_n)
-    mu = torch.log(_f32(LOGNORM_MU_ARG, dev))
+    z = prng.normal64(k_n) if x64 else prng.normal(k_n)
+    mu = torch.log(_f32(LOGNORM_MU_ARG, dev)).to(td)
     return torch.clamp(torch.exp(mu + LOGNORM_SIGMA * z), min=0.1)

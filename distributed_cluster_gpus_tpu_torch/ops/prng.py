@@ -28,6 +28,7 @@ measures and bounds.  ``truncated_normal`` and flax's static fold-in
 from __future__ import annotations
 
 import hashlib
+import math
 
 import numpy as np
 import torch
@@ -145,6 +146,123 @@ def categorical(k, logits):
 def exponential(k):
     """``jax.random.exponential(k)``: ``-log1p(-u)``."""
     return -torch.log1p(-uniform(k))
+
+
+# ---------------------------------------------------------------------------
+# float64 draws (the float64 clock: jax under ``jax_enable_x64`` draws its
+# unpinned samples in float64).  The 64 random bits of a scalar draw are
+# ``(o0 << 32) | o1`` of the same threefry block whose 32-bit draw is
+# ``o0 ^ o1`` (jax ``_threefry_random_bits_partitionable``), so a float64
+# draw costs no more rounds than a float32 one.
+# ---------------------------------------------------------------------------
+
+_ONE_F64_BITS = 0x3FF0000000000000
+
+
+def random_bits64(k):
+    """64 random bits for a scalar draw from each key ``[..., 2]``, as the
+    pair of 32-bit words (hi, lo) held in int64."""
+    return _block(k, torch.zeros((), dtype=torch.int64, device=k.device))
+
+
+def words_to_unit_double(hi, lo):
+    """jax ``_uniform``'s mantissa trick in float64: the top 52 of the 64
+    bits ``hi:lo`` under the exponent of 1.0, less 1: a float64 in [0, 1)."""
+    mant = (hi << 20) | (lo >> 12)
+    return (mant | _ONE_F64_BITS).view(torch.float64) - 1.0
+
+
+def uniform64(k, minval: float = 0.0, maxval: float = 1.0):
+    """``jax.random.uniform(k, (), float64, minval, maxval)`` per key."""
+    f = words_to_unit_double(*random_bits64(k))
+    lo = torch.tensor(minval, dtype=torch.float64, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float64, device=k.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def uniform_vec64(k, n: int):
+    """``jax.random.uniform(k, (n,), float64)``: element i from the 64 bits
+    of the block on counter ``(0, i)``; ``[..., n]``."""
+    i = torch.arange(n, dtype=torch.int64, device=k.device)
+    return words_to_unit_double(*_block(k[..., None, :], i))
+
+
+def exponential64(k):
+    """``jax.random.exponential(k, (), float64)``: ``-log1p(-u)``."""
+    return -torch.log1p(-uniform64(k))
+
+
+#: XLA's double-precision ``erf_inv`` (Giles' three-branch polynomial, read
+#: from the optimized HLO of ``jax.scipy.special.erfinv`` on float64): the
+#: coefficients for w < 6.25 (23), w < 16 (19) and w >= 16 (17)
+ERFINV64_SMALL = (
+    -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+    1.1157877678025181e-17, -1.3331716628546209e-16, 2.0972767875968562e-17,
+    6.6376381343583238e-15, -4.0545662729752069e-14, -8.1519341976054722e-14,
+    2.6335093153082323e-12, -1.2975133253453532e-11, -5.4154120542946279e-11,
+    1.0512122733215323e-09, -4.1126339803469837e-09, -2.9070369957882005e-08,
+    4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+    0.00018673420803405714, -0.000740702534166267, -0.0060336708714301491,
+    0.24015818242558962, 1.6536545626831027)
+ERFINV64_MID = (
+    2.2137376921775787e-09, 9.0756561938885391e-08, -2.7517406297064545e-07,
+    1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+    2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+    6.8284851459573175e-05, 2.4031110387097894e-05, -0.00035503752036284748,
+    0.0009532893797373805, -0.0016882755560235047, 0.0024914420961078508,
+    -0.0037512085075692412, 0.0053709145535900636, 1.0052589676941592,
+    3.0838856104922208)
+ERFINV64_LARGE = (
+    -2.7109920616438573e-11, -2.5556418169965252e-10, 1.5076572693500548e-09,
+    -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+    2.9147953450901081e-08, -6.7711997758452339e-08, 2.2900482228026655e-07,
+    -9.9298272942317e-07, 4.5260625972231537e-06, -1.9681778105531671e-05,
+    7.5995277030017761e-05, -0.00021503011930044477, -0.00013871931833623122,
+    1.0103004648645344, 4.8499064014085844)
+
+
+def erfinv_f64(x):
+    """XLA's double-precision ``erf_inv``: ``w = -log1p(-x*x)``, then Horner
+    on ``w - 3.125`` (w < 6.25), ``sqrt(w) - 3.25`` (w < 16) or
+    ``sqrt(w) - 5``, each step ``c + p*w`` rounded twice (no fused
+    multiply-add, as ``csrc/arrival_tables.cu`` computes it under
+    ``-fmad=false``); ``x * inf`` at |x| = 1.  XLA's CPU code may contract
+    some steps, so this agrees with ``jnp``'s to the ulps
+    ``tests/test_torch_clock64_draws.py`` states."""
+    f64 = dict(dtype=torch.float64, device=x.device)
+    w = -torch.log1p(-(x * x))
+    small = w < 6.25
+    mid = w < 16.0
+    z = torch.where(small, w - 3.125,
+                    torch.sqrt(w) - torch.where(mid, torch.tensor(3.25, **f64),
+                                                torch.tensor(5.0, **f64)))
+
+    def coef(i):
+        c_s = torch.tensor(ERFINV64_SMALL[i], **f64)
+        c_m = torch.tensor(ERFINV64_MID[i], **f64) if i < 19 else c_s
+        c_l = torch.tensor(ERFINV64_LARGE[i], **f64) if i < 17 else c_m
+        return torch.where(small, c_s, torch.where(mid, c_m, c_l))
+
+    p = coef(0)
+    for i in range(1, 23):
+        step = coef(i) + p * z
+        # past a branch's last coefficient its value stands
+        if i >= 19:
+            step = torch.where(small, step, p)
+        elif i >= 17:
+            step = torch.where(mid, step, p)
+        p = step
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+_NORMAL_LO64 = float(np.nextafter(np.float64(-1.0), np.float64(0.0)))
+_SQRT2_F64 = float(np.sqrt(2.0))
+
+
+def normal64(k):
+    """``jax.random.normal(k, (), float64)``: ``sqrt(2) * erf_inv(u)``, u
+    in (-1, 1)."""
+    return _SQRT2_F64 * erfinv_f64(uniform64(k, _NORMAL_LO64, 1.0))
 
 
 _ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,

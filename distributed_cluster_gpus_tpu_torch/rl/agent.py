@@ -43,13 +43,14 @@ class CHSAC_AF:
                  seed: int = 0,
                  constraints=None,
                  critic_arch: str = "onehot",
+                 x64: bool = False,
                  device="cuda"):
         self.cfg = SACConfig(
             obs_dim=obs_dim, n_dc=n_dc, n_g=n_g_choices, batch=batch,
             constraints=(constraints if constraints is not None else
                          default_constraints(sla_p99_ms, power_cap,
                                              energy_budget_j)),
-            critic_arch=critic_arch)
+            critic_arch=critic_arch, x64=x64)
         if torch.device(device).type == "cuda":
             # the card's update kernels take a stated envelope: refuse
             # outside it now, not at the first update after the warm-up

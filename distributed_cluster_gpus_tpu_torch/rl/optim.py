@@ -81,6 +81,8 @@ class AdamConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    #: the bias corrections in float64 (the float64 clock's run)
+    x64: bool = False
 
     def constants(self):
         """The float32 constants of the elementwise pass, in the kernel's
@@ -152,8 +154,15 @@ def sum_squares(g: torch.Tensor) -> torch.Tensor:
     return tree_sum_last(tree_sum_last(acc))
 
 
-def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    """1 - decay^count (float32; the power in float64, rounded once)."""
+def bias_correction(decay: float, count: torch.Tensor,
+                    x64: bool = False) -> torch.Tensor:
+    """1 - decay^count as float32: the power of float32(decay) in float64,
+    rounded once, then the float32 difference; with ``x64`` (optax under
+    ``jax_enable_x64``) the power of the float64 decay and the difference
+    both in float64, rounded once at the end."""
+    if x64:
+        d = torch.full((), decay, dtype=torch.float64, device=count.device)
+        return (1.0 - torch.pow(d, count.to(torch.float64))).to(torch.float32)
     d = torch.full((), f32(decay), dtype=torch.float64, device=count.device)
     return 1 - torch.pow(d, count.to(torch.float64)).to(torch.float32)
 
@@ -177,8 +186,8 @@ def clip_adam_update(p: torch.Tensor, g: torch.Tensor, st: AdamState,
     mu = c1 * g + b1 * st.mu
     nu = c2 * (g * g) + b2 * st.nu
     count = torch.where(st.count < INT32_MAX, st.count + 1, st.count)
-    u = (mu / bias_correction(cfg.b1, count)) / (
-        torch.sqrt(nu / bias_correction(cfg.b2, count) + 0.0) + eps)
+    u = (mu / bias_correction(cfg.b1, count, cfg.x64)) / (
+        torch.sqrt(nu / bias_correction(cfg.b2, count, cfg.x64) + 0.0) + eps)
     p_new = p + u * neg_lr
     if target is not None:
         target.copy_(polyak(target, p_new, tau))

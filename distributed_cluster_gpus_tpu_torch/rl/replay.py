@@ -183,7 +183,8 @@ def replay_add_chunk(rb: ReplayState, tr: Dict[str, torch.Tensor],
 
 
 def replay_sample(rb: ReplayState, key, batch: int,
-                  bf16_obs: bool = False) -> Dict[str, torch.Tensor]:
+                  bf16_obs: bool = False, x64: bool = False
+                  ) -> Dict[str, torch.Tensor]:
     """B6b's plain version: ``batch`` rows drawn uniformly over the valid
     rows by the inverse CDF, as the JAX package draws them: ``cdf =
     cumsum(valid)`` (float32, exact below 2^24 rows), ``u = uniform(key,
@@ -191,13 +192,20 @@ def replay_sample(rb: ReplayState, key, batch: int,
     right), 0, C - 1)`` (an empty ring, or ``u`` rounding up to the total,
     gives row C - 1), then the rows of every ROW_FIELDS leaf at ``idx``
     (``s0`` and ``s1`` rounded to bf16 with ``bf16_obs``: the encoder's
-    input cast).  ``key`` is the sample's threefry key (int64 [2]).
+    input cast).  With ``x64`` (the float64 clock's run, jax under
+    ``jax_enable_x64``) the uniform is float64, drawn from 64 bits, and
+    ``u`` and the search run in float64.  ``key`` is the sample's threefry key (int64 [2]).
     Returns the rows by field name and ``idx`` (int32 [batch])."""
     C = rb.valid.shape[0]
     cdf = torch.cumsum(rb.valid.to(torch.float32), 0)
     total = torch.clamp_min(cdf[-1], 1.0)
-    u = prng.uniform_vec(key.to(cdf.device), batch) * total
-    idx = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, C - 1)
+    if x64:
+        u = prng.uniform_vec64(key.to(cdf.device), batch) * total.double()
+        idx = torch.clamp(torch.searchsorted(cdf.double(), u, right=True), 0,
+                          C - 1)
+    else:
+        u = prng.uniform_vec(key.to(cdf.device), batch) * total
+        idx = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, C - 1)
     out = {name: getattr(rb, name).index_select(0, idx) for name in ROW_FIELDS}
     if bf16_obs:
         for name in ("s0", "s1"):

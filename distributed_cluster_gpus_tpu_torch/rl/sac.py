@@ -109,6 +109,9 @@ class SACConfig:
     batch: int = 256
     constraints: Tuple[ConstraintSpec, ...] = ()
     critic_arch: str = "onehot"
+    #: the reference's x64 numerics in the update (the float64 clock's
+    #: run): B6b's uniform and B5c's bias corrections in float64
+    x64: bool = False
 
     def __post_init__(self):
         if not self.constraints:
@@ -121,7 +124,7 @@ class SACConfig:
                              f"got {self.alpha_max}")
 
     def adam(self) -> AdamConfig:
-        return AdamConfig(lr=self.lr, max_norm=self.grad_clip)
+        return AdamConfig(lr=self.lr, max_norm=self.grad_clip, x64=self.x64)
 
 
 #: the optimizer groups, in the update's order of application
@@ -569,7 +572,8 @@ def sac_train_step(cfg: SACConfig, sac: SACState, rb, key, plain: bool = False,
     # the sample, its observations in bf16 (the encoder's input cast); the
     # update index advances once the sample has read it
     batch = replay_sample(rb, key, cfg.batch, plain=plain, index=index,
-                          bf16_obs=True, advance=index is not None)
+                          bf16_obs=True, advance=index is not None,
+                          x64=cfg.x64)
     w, dw = sac.views(sac.shadow), sac.views(sac.stage)
     huber = quantile_huber_loss if plain else b5.quantile_huber
     target_fn = marginal_target if plain else b5.marginal_target

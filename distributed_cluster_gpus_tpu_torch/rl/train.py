@@ -44,6 +44,7 @@ def make_agent(fleet: FleetSpec, params: SimParams, device="cuda") -> CHSAC_AF:
         warmup=params.rl_warmup,
         seed=params.seed,
         critic_arch=params.critic_arch,
+        x64=params.x64,
         device=device)
 
 

@@ -6,12 +6,15 @@
         --power-cap 150000 --duration 600 --out runs/cap_greedy
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
         --duration 600 --out runs/chsac [--critic-arch heads]
+    python -m distributed_cluster_gpus_tpu_torch.run_sim --algo joint_nf \\
+        --duration 604800 --time-dtype float64 --out runs/week
 
 The port's counterpart of the repo's ``run_sim.py`` for the flags the port
 honours: every heuristic algorithm (``default_policy``, ``cap_uniform``,
 ``cap_greedy``, ``joint_nf``, ``bandit``, ``carbon_cost``, ``eco_route``,
 ``debug``) with the power cap and its control interval, the eco objective,
-``--router-weights`` and debug's fixed GPU count and frequency, and
+``--router-weights`` and debug's fixed GPU count and frequency, the
+clock's dtype (``--time-dtype``, float64 above 1e5 s by default), and
 ``chsac_af`` online (the policy runs inside the event loop and feeds the
 replay ring; once ``--rl-warmup`` transitions are in it, each chunk's SAC
 and Lagrange updates run on the card and the next chunk acts with the
@@ -58,7 +61,6 @@ UNPORTED_FLAGS = {
     "--ckpt-every": "queue A item 14 (checkpoints)",
     "--ckpt-keep": "queue A item 14 (checkpoints)",
     "--no-resume": "queue A item 14 (checkpoints)",
-    "--time-dtype": "queue A item 6 (float64 clock)",
     "--queue-mode": "queue A item 13 (slab queues)",
     "--superstep-k": "queue A item 13 (superstep K>1)",
     "--rollouts": "queue A item 8 (batched rollouts)",
@@ -122,6 +124,10 @@ def parse_args(argv=None):
                    choices=["onehot", "heads"],
                    help="onehot = reference-shaped critic (one-hot action "
                         "input); heads = per-joint-action output heads")
+    p.add_argument("--time-dtype", default="auto",
+                   choices=["auto", "float32", "float64"],
+                   help="the clock's dtype; auto = float64 above 1e5 s "
+                        "(with the reference's x64 numerics), else float32")
     p.add_argument("--chunk-steps", type=int, default=4096)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -136,23 +142,29 @@ def parse_args(argv=None):
     if a.algo == "ppo":
         p.exit(2, f"{p.prog}: --algo ppo is not ported yet (ROADMAP queue A "
                   "item 10)\n")
-    if a.duration > 1e5:
-        p.exit(2, f"{p.prog}: duration > 1e5 s needs the float64 clock, not "
-                  "ported yet (ROADMAP queue A item 6)\n")
     if a.algo == "chsac_af" and a.device == "cuda":
         # the card's acting kernel (B1) and update kernels each take a
         # stated envelope: refuse a setting outside either now, not at the
         # first chunk or the first update after the warm-up
         from .configs.paper import FLEET
         from .kernels.envelope import ENVELOPE, check_update
-        from .kernels.event_scan import RL_ENVELOPE, rl_covers
+        from .kernels.event_scan import (RL_ENVELOPE, rl_covers, slab_fits,
+                                         slab_limit_text)
 
         n_dc = 1 if a.single_dc else len(FLEET)
-        obs_dim = build_params(a).obs_dim(n_dc)
+        params = build_params(a)
+        obs_dim = params.obs_dim(n_dc)
         if not rl_covers(obs_dim, n_dc, a.max_gpus_per_job):
             p.exit(2, f"{p.prog}: chsac_af with {a.max_gpus_per_job} GPU-count "
                       f"actions is outside the card's envelope: {RL_ENVELOPE}; "
                       f"{ENVELOPE}\n")
+        # B1's RL-mode slab in shared memory, priced in the run's clock
+        # (the float64 clock's four time columns take 32 more bytes a slot)
+        if not slab_fits(a.job_cap, params.lat_window, True,
+                         a.max_gpus_per_job, params.x64):
+            p.exit(2, f"{p.prog}: chsac_af with --job-cap {a.job_cap} does not "
+                      f"fit B1's shared memory: "
+                      f"{slab_limit_text(params.lat_window, True, a.max_gpus_per_job, params.x64)}\n")
         try:
             check_update(a.rl_batch, n_dc, a.max_gpus_per_job, obs_dim,
                          critic_arch=a.critic_arch)
@@ -161,10 +173,19 @@ def parse_args(argv=None):
     return a
 
 
+def resolve_time_dtype(a) -> str:
+    """``--time-dtype auto``: float64 above 1e5 simulated seconds (the
+    reference's rule, repo ``run_sim.py``), float32 otherwise."""
+    if a.time_dtype == "auto":
+        return "float64" if a.duration > 1e5 else "float32"
+    return a.time_dtype
+
+
 def build_params(a):
     from .models.structs import SimParams
 
     return SimParams(
+        time_dtype=resolve_time_dtype(a),
         algo=a.algo, duration=a.duration,
         log_interval=(a.control_interval if a.control_interval > 0
                       else a.log_interval),

@@ -44,8 +44,6 @@ def check_ported(params: SimParams) -> None:
         todo.append("fault injection (ROADMAP queue A item 11)")
     if params.obs_enabled:
         todo.append("in-loop telemetry (ROADMAP queue A item 12)")
-    if params.time_dtype != "float32":
-        todo.append("the float64 clock (ROADMAP queue A item 6)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 

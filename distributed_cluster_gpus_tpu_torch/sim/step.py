@@ -60,6 +60,116 @@ from ..ops.optimizers import min_n_for_sla
 from . import algos
 
 EV_FINISH, EV_XFER, EV_ARRIVAL, EV_LOG, EV_NOOP = 0, 1, 2, 3, 4
+
+# ---------------------------------------------------------------------------
+# The float64 clock's float64 arithmetic.  Under the float64 clock the JAX
+# package runs in jax's x64 mode, so besides the clock its unpinned draws
+# and weak-typed promotions turn float64.  Every equation of the reference's
+# programs whose output is float64, as (primitive, JAX package or optax
+# site), by program, each site with the port's code that computes it the
+# same way (``tests/test_torch_clock64_sites.py`` walks the jaxprs and holds
+# the lists equal, so a site the port misses is named there).
+# ---------------------------------------------------------------------------
+
+_E = "distributed_cluster_gpus_tpu/sim/engine.py:"
+_A = "distributed_cluster_gpus_tpu/ops/arrivals.py:"
+_W = "distributed_cluster_gpus_tpu/workload/compiler.py:"
+#: JAX site -> (its float64 primitives, the port's code)
+X64_STEP = {
+    "distributed_cluster_gpus_tpu/ops/physics.py:73": (
+        ("mul",), "StepProgram._head: fmul_pinned(powers / busy in the clock's "
+                  "dtype, dt)"),
+    "distributed_cluster_gpus_tpu/ops/physics.py:74": (
+        ("add", "mul"), "StepProgram._head: fmul_pinned's float64 fence"),
+    _E + "1538": (("add", "rem"), "StepProgram._plan_finish: tmod(t, log_interval)"),
+    _E + "1544": (("max", "sub"), "StepProgram._plan_finish: the sojourn"),
+    _E + "2798": (("max", "sub"), "StepProgram._handle_log: elapsed"),
+    _E + "2799": (("div", "mul"), "StepProgram._handle_log: util_avg"),
+    _E + "2819": (("div",), "StepProgram._handle_log: energy_j * inv_1000 "
+                            "(XLA's reciprocal)"),
+    _E + "2839": (("add",), "StepProgram._handle_log: next_log_t"),
+    _E + "2985": (("add",), "StepProgram._head: t_fin_all (the float32 "
+                            "product widened)"),
+    _E + "3019": (("max", "sub"), "StepProgram._head: dt"),
+    _E + "3030": (("add",), "StepProgram._head: energy_j"),
+    _E + "3031": (("add",), "StepProgram._head: util_gpu_time"),
+}
+#: the heuristic programs' own sites
+X64_HEURISTIC = {
+    _E + "1123": (("sub",), "StepProgram._start_from_rec: the resumed job's "
+                            "preempt time"),
+    _E + "1771": (("add",), "StepProgram._plan_arrival: t_avail"),
+}
+#: the hour of the eco sites (eco_route, carbon_cost, weighted routing)
+X64_HOUR = {
+    _E + "723": (("add", "div", "rem", "round", "sign", "sub"),
+                 "algos.hour_of: XLA's floor_divide"),
+}
+#: chsac_af's acting step's own sites
+X64_RL = {
+    _E + "1878": (("sub",), "StepProgram._commit_tail: the preempt time"),
+    _E + "3503": (("reduce_sum",), "StepProgram._tail: the energy sum "
+                                   "(a left fold)"),
+    _E + "3620": (("add",), "StepProgram._tail: the routed t_avail"),
+    "distributed_cluster_gpus_tpu/sim/algos.py:271": (
+        ("div",), "algos.rl_obs: t_frac (the reciprocal of the day)"),
+}
+#: WorkloadProgram.tables (B2's plain version,
+#: kernels/arrival_tables.arrival_tables_reference)
+X64_TABLES = {
+    _A + "47": (("add", "rem"), "ops.arrivals.tmod"),
+    _A + "59": (("add", "bitcast_convert_type", "log1p", "max", "mul", "neg",
+                 "sub"), "ops.prng.uniform64 / exponential64"),
+    _A + "145": (("mul",), "ops.arrivals.sinusoid_gap_from_cum: phase0"),
+    _A + "146": (("cos",), "sinusoid_gap_from_cum: cos0"),
+    _A + "149": (("add", "cos", "mul", "sub"), "sinusoid_gap_from_cum: "
+                                               "gap_integral"),
+    _A + "153": (("div",), "sinusoid_gap_from_cum: lo"),
+    _A + "154": (("div", "min"), "sinusoid_gap_from_cum: hi"),
+    _A + "155": (("add", "div", "mul"), "sinusoid_gap_from_cum: hi"),
+    _A + "159": (("add", "mul"), "sinusoid_gap_from_cum: mid"),
+    _A + "164": (("add", "mul"), "sinusoid_gap_from_cum: the result"),
+    _A + "190": (("max", "sub"), "ops.arrivals.sample_job_size: u"),
+    _A + "191": (("div", "pow"), "sample_job_size: the Pareto size"),
+    _A + "192": (("add", "bitcast_convert_type", "erf_inv", "max", "mul",
+                  "sub"), "ops.prng.normal64 / erfinv_f64"),
+    _A + "196": (("add", "exp", "max"), "sample_job_size: the log-normal size"),
+    _A + "197": (("mul",), "sample_job_size"),
+    _W + "292": (("div",), "arrival_tables_reference: e * (1 / rate) "
+                           "(XLA's reciprocal)"),
+    _W + "303": (("add",), "arrival_tables_reference: the anchor"),
+    _W + "311": (("add",), "arrival_tables_reference: epoch + delta"),
+    _W + "364": (("add",), "arrival_tables_reference: the left fold"),
+}
+#: WorkloadProgram.init_clocks (draw #0: ops.arrivals.next_interarrival)
+X64_INIT_CLOCKS = {
+    _A + "46": (("mul",), "ops.arrivals.lambda_t"),
+    _A + "47": (("add", "div", "mul", "rem", "sin"), "ops.arrivals.lambda_t"),
+    _A + "52": (("max",), "lambda_t: the clamp"),
+    _A + "59": (("add", "bitcast_convert_type", "log1p", "max", "mul", "neg",
+                 "sub"), "ops.prng.uniform64 / exponential64"),
+    _A + "60": (("div",), "ops.arrivals._exponential_safe"),
+    _A + "103": (("add",), "next_interarrival: w + gap"),
+    _A + "105": (("add",), "next_interarrival: t + w"),
+    _A + "106": (("div",), "next_interarrival: the acceptance ratio"),
+}
+#: sac_train_step: B6b's uniform (rl.replay.replay_sample, x64) and B5c's
+#: bias corrections (rl.optim.bias_correction, x64)
+X64_UPDATE = {
+    "distributed_cluster_gpus_tpu/rl/replay.py:216": (
+        ("add", "bitcast_convert_type", "max", "mul", "sub"),
+        "rl.replay.replay_sample: u in float64"),
+    "optax/_src/transform.py:294": (("pow", "sub"),
+                                   "rl.optim.bias_correction: b1"),
+    "optax/_src/transform.py:298": (("pow", "sub"),
+                                   "rl.optim.bias_correction: b2"),
+}
+
+
+def x64_sites(*tables):
+    """The (primitive, JAX site) pairs of the given site tables."""
+    return {(prim, site) for t in tables for site, (prims, _) in t.items()
+            for prim in prims}
 #: the policy tail's pending decision: none, route an arrival, drain a ring
 REQ_NONE, REQ_ROUTE, REQ_DRAIN = 0, 1, 2
 
@@ -172,7 +282,9 @@ class StepProgram:
                 "total_f": self.total_gpus.to(torch.float32),
                 "freq_levels": self.freq_levels,
                 "inv7": 1.0 / torch.tensor(7.0, **f32),
-                "inv_day": 1.0 / torch.tensor(86400.0, **f32)}
+                # the day's reciprocal in the clock's dtype (XLA's rewrite
+                # of ``/ 86400.0`` under either clock)
+                "inv_day": 1.0 / torch.tensor(86400.0, dtype=td, device=dev)}
             self.inv_kwh = 1.0 / torch.tensor(3.6e6, **f32)
             self.neg_w = torch.tensor(-params.rl_energy_weight, **f32)
             self.c005 = torch.tensor(0.05, **f32)
@@ -740,7 +852,10 @@ class StepProgram:
         runT = torch.where(running, jobs.spu, self.inf.to(torch.float32))
         fin_ok = torch.isfinite(runT)
         rem = torch.clamp(jobs.size - jobs.units_done, min=0.0)
-        t_fin_all = torch.where(fin_ok, st.t + fmul_pinned(rem, runT), self.inf)
+        # the float32 product, then the clock's add (torch would keep a
+        # [J] float32 operand's dtype beside a 0-d float64 clock)
+        t_fin_all = torch.where(fin_ok, st.t + fmul_pinned(rem, runT).to(self.td),
+                                self.inf)
         j_fin = torch.argmin(t_fin_all)
         t_av_all = torch.where(jobs.status == JobStatus.XFER, jobs.t_avail,
                                self.inf)
@@ -756,8 +871,9 @@ class StepProgram:
         dt = torch.clamp(t_adv - st.t, min=0.0)
         busy = st.dc.busy
         powers = self._dc_power(jobs, busy)
-        e_inc = fmul_pinned(powers, dt)
-        u_inc = fmul_pinned(busy, dt)
+        # float32 x clock -> the clock's dtype (the product and its fence)
+        e_inc = fmul_pinned(powers.to(self.td), dt)
+        u_inc = fmul_pinned(busy.to(self.td), dt)
         accrue = st.started_accrual & ~st.done
         st.dc.energy_j = st.dc.energy_j + torch.where(accrue, e_inc, self.zero_f)
         st.dc.util_gpu_time = st.dc.util_gpu_time + torch.where(accrue, u_inc,

@@ -95,19 +95,18 @@ class WorkloadProgram:
                              period=st.period)
 
     def init_clocks(self, arr_key, tdtype=torch.float32):
-        """{"next_arrival", "arr_cum", "arr_epoch"} — [n_ing, 2] tensors.
+        """{"next_arrival", "arr_cum", "arr_epoch"} — [n_ing, 2] tensors in
+        the clock's dtype ``tdtype`` (whose draws are float64 under the
+        float64 clock).
 
         Draw #0 of every stream uses the unsplit fold key
         ``fold_in(fold_in(arr_key, s), 0)`` and the thinning draw, as the
         reference's ``init_state`` does."""
-        if tdtype != torch.float32:
-            raise NotImplementedError(
-                "the float64 clock is not ported yet (ROADMAP queue A item 6)")
         t0s = []
         for s, st in enumerate(self.flat):
             k0 = prng.fold_in(prng.fold_in(arr_key, s), 0)
-            t0s.append(next_interarrival(k0, self._arr_p(st), st.phase_s)
-                       .reshape(()))
+            t0s.append(next_interarrival(k0, self._arr_p(st), st.phase_s,
+                                         tdtype).reshape(()).to(tdtype))
         shape = (self.fleet.n_ing, 2)
         t0 = torch.stack(t0s).reshape(shape)
         return {"next_arrival": t0,
@@ -117,8 +116,9 @@ class WorkloadProgram:
     def tables(self, state, n_steps: int):
         """Pregenerate the next ``n_steps`` arrivals of every stream.
 
-        Returns {"sizes": [S, n] f32, "tnext": [S, n], "cum": [S, n],
-        "c0": [S] i32} (a leading [R] for a lane-stacked state): the engine
+        Returns {"sizes": [S, n] f32, "tnext": [S, n], "cum": [S, n] (both
+        in the clock's dtype), "c0": [S] i32} (a leading [R] for a
+        lane-stacked state): the engine
         reads ``sizes``/``tnext`` by cursor and `advance_carries` commits
         ``cum`` after the chunk."""
         shape = tuple(state.arr_count.shape[:-2]) + (self.n_streams,)

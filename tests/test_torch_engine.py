@@ -145,9 +145,10 @@ def test_unported_configs_raise():
 
     fleet = tduo()
     for bad in (dict(algo="bandit", faults=object()),
-                dict(algo="cap_greedy", time_dtype="float64"),
+                dict(algo="cap_greedy", superstep_k=2),
                 dict(algo="chsac_af", elastic_scaling=True),
                 dict(queue_mode="slab"), dict(superstep_k=4),
-                dict(time_dtype="float64"), dict(obs_enabled=True)):
+                dict(time_dtype="float64", faults=object()),
+                dict(obs_enabled=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(fleet, dataclasses.replace(SimParams(), **bad), device="cpu")

@@ -2120,3 +2120,204 @@ def test_update_graph_recaptures_after_buffer_replacement(cuda):
         assert a.graph_captures == 2 + i
         assert _same_learner(a, b) == []
         assert all(bool(torch.isfinite(v).all()) for v in a.sac.metrics.values())
+
+
+# ----------------------------------------------- the float64 clock's kernels
+
+#: a state bridged to t = 6.0e5 s, where a float32 clock's ulp is 1/16 s
+T_LATE = 6.0e5
+#: a quarter second before hour 7 of day 7: the eco sites' hour changes
+T_HOUR = 6 * 86400 + 7 * 3600.0 - 0.25
+
+
+def bridged(state, t0, log_interval):
+    """A lane-stacked state moved to clock ``t0`` in place: the streams'
+    next arrivals and epochs (the sinusoid's inversion anchors at its
+    epoch) and the log tick shifted with it."""
+    shift = torch.tensor(t0, dtype=state.t.dtype, device=state.t.device)
+    state.t.fill_(t0)
+    state.next_arrival.add_(shift)
+    state.arr_epoch.add_(shift)
+    state.next_log_t.fill_(t0 + log_interval)
+    return state
+
+
+def _f64(params, **kw):
+    import dataclasses
+
+    return dataclasses.replace(params, time_dtype="float64", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [None, T_LATE], ids=["init", "late"])
+@pytest.mark.parametrize("threads", HEUR_WIDTHS)
+@pytest.mark.parametrize("fleet_name", ["duo", "single"])
+@pytest.mark.parametrize("algo", ["default_policy", "joint_nf"])
+def test_event_scan_float64_matches_plain_version(cuda, algo, fleet_name,
+                                                  threads, start):
+    """B1's double instance (csrc/event_scan64.cu) against the plain step
+    under the float64 clock, bitwise: state (double clock, slab time
+    columns, accumulators, ring records), key words and emissions, two
+    chunks, from init_state and from t = 6e5 s."""
+    fleet = FLEETS[fleet_name]()
+    params = _f64(SimParams(algo=algo, duration=(start or 0.0) + 400.0,
+                            lat_window=64, seed=5, **LOADS[fleet_name]))
+    eng = Engine(fleet, params, device=cuda)
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device=cuda))
+    if start is not None:
+        bridged(st, start, params.log_interval)
+    assert st.t.dtype == torch.float64
+    before = (b1.event_scan.launches, b1.event_scan.x64_launches)
+    assert kernel_vs_plain(eng, st, N_STEPS, 2, threads) == []
+    assert (b1.event_scan.launches, b1.event_scan.x64_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert int(st.n_finished.sum()) > 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", HEUR_WIDTHS)
+@pytest.mark.parametrize("case", ["eco_cost", "carbon_cost", "cap_greedy",
+                                  "cap_uniform", "bandit"])
+def test_event_scan_float64_extended_instance(cuda, case, threads):
+    """The extended instance's double build, bitwise against the plain
+    step, from just before hour 7 of day 7 (the hour of the eco sites
+    changes past 1e5 s), the cap controllers firing as often."""
+    fleet_name, algo, kw = EXT_CASES[case]
+    fleet = FLEETS[fleet_name]()
+    params = _f64(SimParams(algo=algo, duration=T_HOUR + 400.0, lat_window=64,
+                            seed=5, **LOADS[fleet_name], **kw))
+    eng = Engine(fleet, params, device=cuda)
+    st = bridged(with_lane_axis(init_state(params.seed, fleet, params,
+                                           workload=eng.workload, device=cuda)),
+                 T_HOUR, params.log_interval)
+    bad, ctl_k, ctl_r = ext_kernel_vs_plain(eng, st, N_STEPS, 2, threads)
+    assert bad == [] and ctl_k == ctl_r
+    assert float(st.t.max()) > T_HOUR
+    if algo.startswith("cap_"):
+        assert sum(t for t, _ in ctl_k) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", RL_WIDTHS)
+@pytest.mark.parametrize("n_g", [8, 128])
+def test_event_scan_float64_rl_mode(cuda, n_g, threads):
+    """RL mode's double build (B3, B4 and the tail commit in the event
+    loop) bitwise against the plain step, from t = 6e5 s, at 8-wide and
+    128-wide GPU-count heads (the two RL instances)."""
+    fl, kw = RL_LOADS["duo"]
+    fleet = FLEETS[fl]()
+    params = _f64(SimParams(algo="chsac_af", duration=T_LATE + 400.0,
+                            lat_window=64, seed=3,
+                            **dict(kw, max_gpus_per_job=n_g)))
+    eng, agent = _rl_engine(fleet, params, cuda)
+    st = bridged(with_lane_axis(init_state(params.seed, fleet, params,
+                                           workload=eng.workload, device=cuda)),
+                 T_LATE, params.log_interval)
+    before = b1.event_scan.x64_launches
+    assert rl_kernel_vs_plain(eng, agent.sac, st, N_STEPS, 2, threads) == []
+    assert b1.event_scan.x64_launches == before + 2
+    assert int(st.jobs.rl_valid.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads", HEUR_WIDTHS)
+def test_event_scan_float64_lanes_and_run_end(cuda, threads):
+    """Three lanes of the double build in one launch, past the run's end,
+    against the plain version."""
+    fleet = build_duo_fleet()
+    params = _f64(SimParams(duration=3.0, job_cap=100, queue_cap=16,
+                            lat_window=16, log_interval=0.5, seed=1))
+    eng = Engine(fleet, params, device=cuda)
+    st = batched_init(fleet, params, 3, workload=eng.workload, device=cuda)
+    assert kernel_vs_plain(eng, st, 512, 3, threads) == []
+    assert bool(st.done.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2047, 4096, 4097])
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_arrival_tables_float64_bitwise(cuda, lanes, n):
+    """B2's double instance: every output (float32 sizes, float64 folds,
+    next arrivals, key words and uniforms) bitwise the plain version's, one
+    lane and 32 in one launch, from t = 6e5 s."""
+    fleet = build_fleet()
+    params = _f64(SimParams(queue_cap=64, job_cap=32, seed=5, inf_amp=0.8,
+                            duration=7e5))
+    wt = compile_workload(fleet, params, cuda)
+    st = bridged(batched_init(fleet, params, lanes, workload=wt, device=cuda),
+                 T_LATE, params.log_interval)
+    S = wt.n_streams
+    args = [st.arr_key, st.arr_count.reshape(lanes, S).contiguous(),
+            st.next_arrival.reshape(lanes, S).contiguous(),
+            st.arr_cum.reshape(lanes, S).contiguous(),
+            st.arr_epoch.reshape(lanes, S).contiguous(), wt.family_t,
+            wt.sparams]
+    if lanes == 1:
+        args = [a[0] for a in args[:5]] + args[5:]
+    before = b2.arrival_tables.x64_launches
+    out = b2.arrival_tables(*args, n, with_aux=True)
+    assert b2.arrival_tables.x64_launches == before + 1
+    ref = b2.arrival_tables_reference(*args, n, with_aux=True)
+    torch.cuda.synchronize()
+    assert out["cum"].dtype == out["tnext"].dtype == torch.float64
+    for k, v in ref.items():
+        assert _bits_equal(out[k], v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 256, 4096])
+@pytest.mark.parametrize("ring", ["partial", "wrapped_gaps", "multi_tile"])
+def test_replay_sample_x64_kernel_matches_plain_version(cuda, ring, batch):
+    """B6b's float64 draw (the float64 clock's update): indices and fields
+    bitwise the plain version's under x64."""
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_sample as b6b
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl import replay
+
+    C = 10_000 if ring == "multi_tile" else 300
+    rb = replay.replay_init(C, 13, 2, 8, 4, device=cuda)
+    g = torch.Generator().manual_seed(len(ring))
+    sizes, pv = {"partial": ([60, 50], 0.8), "wrapped_gaps": ([90] * 5, 0.7),
+                 "multi_tile": ([2000] * 7, 0.4)}[ring]
+    for N in sizes:
+        replay.replay_add_chunk(rb, _window(g, N, pv, cuda))
+    key = prng.split(prng.key(5 + batch, cuda), 2)[0]
+    index = torch.tensor(3, dtype=torch.int32, device=cuda)
+    for idx_arg in (None, index):
+        before = b6b.replay_sample.x64_launches
+        out_k = b6b.replay_sample(rb, key, batch, index=idx_arg, x64=True)
+        out_p = replay.replay_sample(rb, b6b.sample_key(key, idx_arg), batch,
+                                     x64=True)
+        assert b6b.replay_sample.x64_launches == before + 1
+        for name in (*replay.ROW_FIELDS, "idx"):
+            assert _bits_equal(out_k[name], out_p[name]), (name, idx_arg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", [0, 1, 999, 4999])
+def test_adam_x64_kernel_matches_plain_version(cuda, step):
+    """B5c with the float64 bias corrections (optax under x64): parameters,
+    moments and count bitwise the plain version's."""
+    from distributed_cluster_gpus_tpu_torch.kernels.adam import (AdamGroup,
+                                                                 adam_update)
+    from distributed_cluster_gpus_tpu_torch.rl import optim
+
+    g = torch.Generator().manual_seed(step)
+    n = 70_001
+    p = torch.randn(n, generator=g)
+    grad = torch.randn(n, generator=g) * 0.01
+    mu = torch.randn(n, generator=g) * 0.01 if step else torch.zeros(n)
+    nu = torch.rand(n, generator=g) * 1e-4 if step else torch.zeros(n)
+    outs = []
+    for kernel in (True, False):
+        st = optim.AdamState(count=torch.tensor(step, dtype=torch.int32).to(cuda),
+                             mu=mu.to(cuda), nu=nu.to(cuda))
+        pp = p.to(cuda)
+        before = adam_update.x64_launches
+        adam_update([AdamGroup(pp, grad.to(cuda), st)],
+                    optim.AdamConfig(x64=True), plain=not kernel)
+        assert adam_update.x64_launches == before + kernel
+        outs.append([pp, st.mu, st.nu, st.count])
+    for a, b in zip(*outs):
+        assert _bits_equal(a, b)

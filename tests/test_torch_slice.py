@@ -125,10 +125,10 @@ def test_cli_single_dc_byte_identical(tmp_path):
 def test_cli_refuses_unported(capsys):
     for argv, item in ((["--algo", "ppo"], "item 10"),
                        (["--algo", "chsac_af", "--offline-steps", "10"], "item 10"),
-                       (["--time-dtype", "float64"], "item 6"),
+                       (["--queue-mode", "slab"], "item 13"),
                        (["--workload", "diurnal"], "item 4"),
                        (["--faults-mtbf=3"], None),
-                       (["--duration", "2e5"], "item 6")):
+                       (["--duration", "2e5", "--ckpt-dir", "ck"], "item 14")):
         with pytest.raises(SystemExit) as e:
             run_sim.parse_args(argv)
         assert e.value.code == 2

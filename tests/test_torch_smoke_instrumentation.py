@@ -76,7 +76,8 @@ def test_wrapper_widths_are_built(src):
     """The widths the wrapper may launch are the kernel's instantiations,
     and each mode's choice is one of them."""
     built = sorted(int(n) for n in re.findall(
-        r"case (\d+): return event_scan_kernel<kRL, \1, kWide, kExt>;", src))
+        r"case (\d+): return event_scan_kernel<kRL, \1, kWide, kExt, Clock>;",
+        src))
     assert built == sorted(b1.BLOCK_WIDTHS)
     # the standalone launch: each width in both head instances
     tail = sorted(int(n) for n in re.findall(
