@@ -174,7 +174,23 @@ Phases (any failure exits non-zero before the result lines):
     ``chsac_af`` learning at the default warm-up with ``learning_run``'s
     checks; the run's clock float64, every B1 and B2 launch the double
     instance, the update's B6b and B5c calls the float64 ones;
-19. print the card line, the kernel JSON line, then the device line.
+19. (p) checkpoints, resume and graceful shutdown through the CLI: chsac_af
+    learning on the paper fleet at the CLI's defaults (job_cap 512, the
+    published nets, batch 256, a 200,000-row ring, warm-up 1,000) with
+    ``--ckpt-dir`` and a save every chunk on the float32 clock, three ways:
+    uninterrupted in this process; a child process sent SIGTERM once its
+    store holds the middle chunk (exit 143, ``run_summary.json``
+    "interrupted"); the resume of that store to the end, here.  The resumed
+    CSVs byte for byte and the final SimState, learner, ring and agent key
+    bitwise against the uninterrupted run's, updates on both sides of the
+    save, the update captured again after the restore, every kernel of the
+    path launched in the resumed run (counts zeroed just before it); the
+    same stop and resume on the float64 clock just past the auto threshold;
+    ``default_policy`` in a child sent SIGTERM mid-run (exit 143, CSVs a
+    strict byte prefix of the uninterrupted run's); save ms (the copy off
+    the card and the store's write), restore ms, a step's and the store's
+    bytes beside the card's name and power limit;
+20. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
@@ -207,6 +223,12 @@ Opt-in studies replace the smoke when asked for:
         B2 of the checkout at PARENT and of this one, alternating as
         above: device ms per call at the CLI's shape (R = 1, n = 4,096)
         and the bench's (R = 32, n = 512).
+    python3 chip_smoke.py --cells-ab PARENT
+        The cells' events/s of the checkout at PARENT and of this one,
+        alternating as above: the CLI's ``default_policy``, ``joint_nf``
+        and ``chsac_af`` acting at the main path's settings (wall around
+        ``run_sim.main``, CSVs included) and R=32 lanes at the bench
+        shape, as phases (b), (i) and (c) time them.
     python3 chip_smoke.py --b5d-plans
         B5d's forward at the update's layer shapes with every tile and ring
         that fits: each bitwise against the plain version, device us per
@@ -4404,6 +4426,391 @@ def phase_clock64_cli(report, out_root):
             "adam_update": launches["adam_update"]}
 
 
+# ------------------------------------- checkpoints, resume and shutdown (p)
+
+#: the checkpointed learning run: the paper fleet at the CLI's defaults,
+#: about six 4,096-step chunks (240 s ran ten on an H100), a save after
+#: every chunk (the two newest kept), the float32 clock
+CKPT_S = 150.0
+CKPT_ARGV = ("--time-dtype", "float32", "--ckpt-every", "1", "--ckpt-keep",
+             "2")
+#: the float64 clock's: just past the auto threshold with run.sh's training
+#: traffic and no inference (as phase (o)), a save every 4 chunks
+CKPT64_S = 100_500.0
+CKPT64_ARGV = (*CLOCK64_CLI_ARGV, "--ckpt-every", "4", "--ckpt-keep", "2")
+#: the heuristic stopped by SIGTERM: default_policy at the main path's
+#: settings over a horizon long enough for a signal to land mid-run
+SHUTDOWN_S = 1800.0
+SHUTDOWN_CSV_BYTES = 200_000
+
+
+#: the stages of a restore that CkptTally times, by (module, function):
+#: the verified walk (sha256 of each file, the manifest), the npz read, and
+#: each tree placed on the card (the learner's with ``sac_from_flax``'s CPU
+#: prototype and the shadows' refill); "other" is the rest of the restore
+RESTORE_STAGES = {"verify": ("ck", "verify_checkpoint"),
+                  "read": ("ck", "_restore_dir"),
+                  "sac": ("bridge", "sac_from_numpy"),
+                  "replay": ("bridge", "replay_from_numpy"),
+                  "sim": ("bridge", "state_from_numpy")}
+
+
+class CkptTally:
+    """While on, records each checkpoint save of a run (``ms_copy``: the
+    trees' copy off the card, ``ms_write``: the store's write, digests,
+    fsyncs and commit, ``bytes``: the step's payload) and each restore
+    (``ms_restore``: verify, read, place on the card, refill the shadows;
+    ``restore_split``: its stages' ms, ``RESTORE_STAGES``), every time
+    synchronized; and the agents the run used."""
+
+    def __enter__(self):
+        from distributed_cluster_gpus_tpu_torch import bridge
+        from distributed_cluster_gpus_tpu_torch.rl import train
+        from distributed_cluster_gpus_tpu_torch.rl.agent import CHSAC_AF
+        from distributed_cluster_gpus_tpu_torch.utils import checkpoint as ck
+
+        self._mods = (train, ck, CHSAC_AF)
+        self._orig = (train.ckpt_trees, ck.save_checkpoint, train.restore_run,
+                      CHSAC_AF.ingest_chunk)
+        o_trees, o_save, o_restore, o_ingest = self._orig
+        self.ms_copy, self.ms_write, self.ms_restore, self.bytes = [], [], [], []
+        self.agents, self.chunks, self.after_chunk = [], 0, None
+
+        def trees(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = o_trees(*a, **kw)
+            self.ms_copy.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def save(*a, **kw):
+            t0 = time.perf_counter()
+            d = o_save(*a, **kw)
+            self.ms_write.append((time.perf_counter() - t0) * 1e3)
+            self.bytes.append(ck.verify_checkpoint(d, digests=False)["total_bytes"])
+            return d
+
+        def restore(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.restore_split = dict.fromkeys(RESTORE_STAGES, 0.0)
+            self._restoring = True
+            try:
+                out = o_restore(*a, **kw)
+            finally:
+                self._restoring = False
+            torch.cuda.synchronize()
+            self.ms_restore.append((time.perf_counter() - t0) * 1e3)
+            self.restore_split["other"] = self.ms_restore[-1] - sum(
+                self.restore_split.values())
+            return out
+
+        self.restore_split, self._restoring = None, False
+        mods = {"ck": ck, "bridge": bridge}
+        self._stages = [(mods[m], attr, getattr(mods[m], attr))
+                        for m, attr in RESTORE_STAGES.values()]
+
+        def staged(stage, fn):
+            def timed_stage(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                if self._restoring:
+                    self.restore_split[stage] += (time.perf_counter() - t0) * 1e3
+                return out
+            return timed_stage
+
+        def ingest(agent, rl_em):
+            if agent not in self.agents:
+                self.agents.append(agent)
+            out = o_ingest(agent, rl_em)
+            self.chunks += 1
+            if self.after_chunk is not None:
+                self.after_chunk(self.chunks)
+            return out
+
+        train.ckpt_trees, ck.save_checkpoint, train.restore_run = trees, save, restore
+        CHSAC_AF.ingest_chunk = ingest
+        for stage, (mod, attr, fn) in zip(RESTORE_STAGES, self._stages):
+            setattr(mod, attr, staged(stage, fn))
+        return self
+
+    def __exit__(self, *exc):
+        train, ck, CHSAC_AF = self._mods
+        (train.ckpt_trees, ck.save_checkpoint, train.restore_run,
+         CHSAC_AF.ingest_chunk) = self._orig
+        for mod, attr, fn in self._stages:
+            setattr(mod, attr, fn)
+
+
+def _final_leaves(st, agent):
+    """A run's final SimState, learner, replay ring and agent key as trees."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+
+    return {"sim": bridge.state_to_numpy(st),
+            "sac": bridge.sac_to_numpy(agent.cfg, agent.sac),
+            "replay": bridge.replay_to_numpy(agent.replay),
+            "key": agent.key.numpy()}
+
+
+def _same_bytes(a_dir, b_dir, where, prefix=False):
+    """The two runs' CSVs byte for byte (or ``b``'s a strict prefix of
+    ``a``'s); returns their sizes."""
+    sizes = {}
+    for name in ("cluster_log.csv", "job_log.csv"):
+        with open(os.path.join(a_dir, name), "rb") as f:
+            a = f.read()
+        with open(os.path.join(b_dir, name), "rb") as f:
+            b = f.read()
+        ok = (0 < len(b) < len(a) and a.startswith(b)) if prefix else a == b
+        if not ok:
+            fail(f"{where}: {name} ({len(b)} bytes) is not "
+                 f"{'a strict byte prefix of' if prefix else 'byte for byte'} "
+                 f"the uninterrupted run's ({len(a)} bytes)")
+        sizes[name] = (len(a), len(b))
+    return sizes
+
+
+def _summary_status(out):
+    with open(os.path.join(out, "run_summary.json")) as f:
+        return json.load(f)["status"]
+
+
+def _sigterm_child(argv, ready, where, timeout=600):
+    """The CLI in a child process, sent SIGTERM once ``ready()`` holds:
+    (exit code, output, wall s).  Fails if the run ended before the
+    signal could be sent."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_cluster_gpus_tpu_torch.run_sim",
+         *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + timeout
+        while proc.poll() is None and not ready() and time.time() < deadline:
+            time.sleep(0.005)
+        if proc.poll() is not None:
+            fail(f"{where}: the run ended (exit {proc.returncode}) before "
+                 f"the signal was sent:\n{proc.stdout.read()[-2000:]}")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def _zero_launches():
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.kernels import replay_ingest as b6
+    from distributed_cluster_gpus_tpu_torch.kernels.param_pack import param_pack
+
+    counters = {"event_scan": b1.event_scan, "arrival_tables": b2.arrival_tables,
+                "replay_ingest": b6.replay_ingest, "param_pack": param_pack,
+                **update_counters()}
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    b1.event_scan.rl_launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        out = {k: w.launches for k, w in counters.items()}
+        out["rl"] = b1.event_scan.rl_launches
+        return out
+
+    return read
+
+
+def gc_cuda():
+    """Free what the earlier runs cached on the card, as a fresh CLI
+    process would start."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _resume_case(label, argv_of, out_root, external):
+    """One learning run three ways: uninterrupted, stopped by SIGTERM after
+    about half its chunks, resumed from the stopped run's store.
+    ``external``: the stop is a child process sent SIGTERM once its store
+    holds that chunk's step; else the CLI in this process signals itself
+    after that chunk.  Holds the CSVs byte for byte and the final SimState,
+    learner, ring and key bitwise; returns the case's record."""
+    import signal
+
+    from distributed_cluster_gpus_tpu_torch import bridge, run_sim
+    from distributed_cluster_gpus_tpu_torch.utils import checkpoint as ck
+
+    full, part = (os.path.join(out_root, f"{label}_{s}") for s in ("full", "part"))
+    gc_cuda()
+    with CkptTally() as t_full:
+        st_full = run_sim.main(argv_of(full))
+    n_chunks = t_full.chunks
+    agent_full = t_full.agents[-1]
+    k = max(1, n_chunks // 2 - 1)
+    if n_chunks < 3 or not (0 < agent_full.sac.step) or not bool(st_full.done):
+        fail(f"{label}: {n_chunks} chunks, {agent_full.sac.step} updates, done "
+             f"{bool(st_full.done)}: too short a run to stop and resume")
+    store = os.path.join(part, "ckpt")
+    wall_child = None
+    if external:
+        rc, text, wall_child = _sigterm_child(
+            argv_of(part), lambda: max(ck.steps(store), default=-1) >= k - 1,
+            f"{label} (child)")
+        if rc != 143 or "interrupted by signal 15: artifacts flushed, exiting 143" \
+                not in text:
+            fail(f"{label}: the child sent SIGTERM exited {rc}:\n{text[-2000:]}")
+    else:
+        def stop(chunks):  # after chunk k (the count is 1-based)
+            if chunks == k + 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        gc_cuda()
+        with CkptTally() as t_stop:
+            t_stop.after_chunk = stop
+            try:
+                run_sim.main(argv_of(part))
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+        if rc != 143:
+            fail(f"{label}: the CLI sent SIGTERM exited {rc}, not 143")
+    stopped_at = ck.latest_step(store, verified=True)
+    status = _summary_status(part)
+    if stopped_at is None or not (0 < stopped_at < n_chunks - 1) or \
+            status != "interrupted":
+        fail(f"{label}: stopped at step {stopped_at} of {n_chunks} chunks, "
+             f"run_summary.json {status!r}")
+    before = int(ck.restore_checkpoint(store, stopped_at,
+                                       names=["sac"])["sac"]["step"])
+    gc_cuda()
+    read = _zero_launches()
+    with CkptTally() as t_res:
+        st_res = run_sim.main(argv_of(part))
+    launches = read()
+    agent_res = t_res.agents[-1]
+    n_res = t_res.chunks
+    sizes = _same_bytes(full, part, label)
+    bad = bridge.tree_mismatches(_final_leaves(st_full, agent_full),
+                                 _final_leaves(st_res, agent_res))
+    if bad:
+        fail(f"{label}: the resumed run's final leaves differ bitwise from the "
+             f"uninterrupted run's: {bad[:8]}")
+    if _summary_status(part) != "completed":
+        fail(f"{label}: the resumed run's run_summary.json is not completed")
+    # the resumed run launched every kernel of its path: B1 (RL mode) and B2
+    # once a chunk, B6a, the update's kernels (its eager update and its
+    # capture), B5g for the new agent's shadows and again for the restored
+    want_chunks = [launches[k_] for k_ in ("event_scan", "rl", "arrival_tables")]
+    if want_chunks != [n_res] * 3 or launches["replay_ingest"] < n_res or \
+            launches["param_pack"] != 2 or min(
+                launches[k_] for k_ in update_counters()
+                if per_update("onehot")[k_]) <= 0:
+        fail(f"{label}: the resumed run's launches {launches} for {n_res} chunks")
+    if not 0 < before < agent_res.sac.step:
+        fail(f"{label}: {before} updates before the stop, "
+             f"{agent_res.sac.step} at the end: not both sides of the save")
+    if agent_res.graph_captures < 1 or agent_res.graph_replays <= 0:
+        fail(f"{label}: after the restore the update was captured "
+             f"{agent_res.graph_captures} times, replayed "
+             f"{agent_res.graph_replays}")
+    saves = t_full.ms_copy + t_res.ms_copy
+    writes = t_full.ms_write + t_res.ms_write
+    store_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(store) for f in fs)
+    rec = {"chunks": n_chunks, "stop_after": k, "stopped_at_step": stopped_at,
+           "resumed_chunks": n_res, "external_sigterm": external,
+           "child_wall_s": wall_child, "events": int(st_full.n_events),
+           "updates": agent_full.sac.step, "updates_before_stop": before,
+           "csv_bytes": sizes,
+           "graph_captures_after_restore": agent_res.graph_captures,
+           "graph_replays_after_restore": agent_res.graph_replays,
+           "save_copy_ms": saves, "save_write_ms": writes,
+           "save_ms_median": statistics.median(
+               [a + b for a, b in zip(saves, writes)]),
+           "restore_ms": t_res.ms_restore,
+           "restore_split_ms": t_res.restore_split,
+           "step_bytes": t_full.bytes[-1],
+           "store_bytes": store_bytes, "launches": launches,
+           "clock": str(st_res.t.dtype)}
+    print(f"{label}: {n_chunks} chunks ({int(st_full.n_events)} events, "
+          f"{agent_full.sac.step} updates) uninterrupted; SIGTERM "
+          f"{'to a child process' if external else 'to this process'} after "
+          f"chunk {k}: exit 143, stopped at step {stopped_at} after {before} "
+          f"updates, "
+          f"run_summary.json interrupted; resumed for {n_res} chunks: CSVs byte "
+          f"for byte ({sizes}), the final SimState, learner, ring and key "
+          f"bitwise; the update captured again after the restore "
+          f"({agent_res.graph_captures} capture, {agent_res.graph_replays} "
+          f"replays); save {statistics.median(saves):.1f} ms copy + "
+          f"{statistics.median(writes):.1f} ms write (median of {len(saves)}), "
+          f"restore {t_res.ms_restore[0]:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in t_res.restore_split.items())
+          + f"), {t_full.bytes[-1]} bytes a "
+          f"step, {store_bytes} bytes in the store; launches in the resumed "
+          f"run {launches}")
+    return rec
+
+
+def phase_checkpoint_cli(report, out_root):
+    """(p) checkpoints, resume and graceful shutdown through the CLI: the
+    learning main path (chsac_af on the paper fleet at the CLI's defaults,
+    ``--ckpt-dir`` with a save every chunk, the float32 clock) three ways:
+    uninterrupted; a child process sent SIGTERM once its store holds the
+    middle chunk (it exits 143, ``run_summary.json`` says "interrupted");
+    the resume of that store to the end.  The resumed CSVs byte for byte,
+    the final SimState, learner, ring and agent key bitwise against the
+    uninterrupted run's, the update captured again after the restore.  The
+    same for the float64 clock just past the auto threshold (the CLI
+    signalling itself after the middle chunk).  Then ``default_policy`` in
+    a child sent SIGTERM mid-run: exit 143, its CSVs a strict byte prefix
+    of the uninterrupted run's.  Save and restore ms and the store's bytes
+    beside the card's name and power limit."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+
+    rec = {"card": card_line()}
+    rec["float32"] = _resume_case(
+        "chsac_af checkpoints (float32)",
+        lambda o: learning_argv(o, duration=CKPT_S, extra=(
+            *CKPT_ARGV, "--ckpt-dir", os.path.join(o, "ckpt"))),
+        out_root, external=True)
+    argv64 = lambda o: learning_argv(o, duration=CKPT64_S, extra=(  # noqa: E731
+        *CKPT64_ARGV, "--ckpt-dir", os.path.join(o, "ckpt")))
+    if not run_sim.build_params(run_sim.parse_args(argv64("unused"))).x64:
+        fail("the CLI did not resolve the checkpoint case to the float64 clock")
+    rec["float64"] = _resume_case("chsac_af checkpoints (float64)", argv64,
+                                  out_root, external=False)
+    # default_policy: the uninterrupted run here, the stopped one a child
+    full = os.path.join(out_root, "shutdown_full")
+    part = os.path.join(out_root, "shutdown_part")
+    argv = lambda o: cli_argv("default_policy", o) + [  # noqa: E731
+        "--duration", str(SHUTDOWN_S)]
+    st = run_sim.main(argv(full))
+    cl = os.path.join(part, "cluster_log.csv")
+    rc, text, wall = _sigterm_child(
+        argv(part), lambda: os.path.exists(cl) and os.path.getsize(cl)
+        > SHUTDOWN_CSV_BYTES, "default_policy (child)")
+    if rc != 143 or _summary_status(part) != "interrupted":
+        fail(f"default_policy sent SIGTERM: exit {rc}, run_summary.json "
+             f"{_summary_status(part)!r}:\n{text[-2000:]}")
+    sizes = _same_bytes(full, part, "default_policy under SIGTERM", prefix=True)
+    print(f"default_policy ({SHUTDOWN_S:.0f} s) in a child sent SIGTERM: exit "
+          f"143, CSVs a strict byte prefix of the uninterrupted run's "
+          f"({sizes}; {int(st.n_events)} events uninterrupted), "
+          f"run_summary.json interrupted; {rec['card']}")
+    rec["default_policy"] = {"exit": rc, "csv_bytes": sizes,
+                             "child_wall_s": wall}
+    report["checkpoints"] = rec
+    return rec
+
+
 # ------------------------------------------------- opt-in studies of B1
 
 #: the instrumented kernel's ``g_prof`` slots: cycles on thread 0 by phase
@@ -5442,6 +5849,83 @@ def study_b1_ab(parent, change):
     print(json.dumps({"b1_ab": result}))
 
 
+#: the cells ``--cells-ab`` times: the main path's CLI runs (phases (b),
+#: (i)) and the R=32 lanes at the bench shape (phase (c))
+CELLS_AB_CLI = ("default_policy", "joint_nf", "chsac_af")
+CELLS_AB_LANES = ("default_policy", "joint_nf")
+
+
+def study_cells_child(root):
+    """``--cells-child ROOT``: events/s of the cells on the package at ROOT,
+    one JSON line.  Each CLI run of ``CELLS_AB_CLI`` at the main path's
+    settings (wall around ``run_sim.main``, CSVs included, after a 20 s
+    warm-up run of each), and the R=32 lanes of ``CELLS_AB_LANES`` at the
+    bench shape (phase (c)'s 4 chunks of 512 steps, tables and scan, wall
+    over all four, synchronized)."""
+    sys.path.insert(0, root)
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
+    from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
+
+    out_root = os.path.join(root, "smoke_out", "cells_ab")
+    shutil.rmtree(out_root, ignore_errors=True)
+    res = {"cli": {}, "lanes": {}}
+    for algo in CELLS_AB_CLI:
+        run_sim.main(cli_argv(algo, os.path.join(out_root, algo + "_warm"))
+                     + ["--duration", "20"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run_sim.main(cli_argv(algo, os.path.join(out_root, algo)))
+        torch.cuda.synchronize()
+        res["cli"][algo] = int(st.n_events) / (time.perf_counter() - t0)
+    fleet = build_fleet()
+    for algo in CELLS_AB_LANES:
+        params = SimParams(**dict(BENCH_SHAPE, algo=algo))
+        eng = Engine(fleet, params, device="cuda")
+        st = batched_init(fleet, params, 32, workload=eng.workload,
+                          device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            st, _ = eng.run_chunk(st, 512, pre=eng.workload.tables(st, 512))
+        torch.cuda.synchronize()
+        res["lanes"][algo] = int(st.n_events.sum()) / (time.perf_counter() - t0)
+    shutil.rmtree(out_root, ignore_errors=True)
+    print(json.dumps(res))
+
+
+def study_cells_ab(parent, change):
+    """``--cells-ab PARENT``: the cells' events/s (``--cells-child``) of two
+    checkouts, the parent and this one, alternating parent, change,
+    change, parent, each in its own process; the mean per checkout and the
+    change over the parent per cell; one JSON line at the end."""
+    per = {"parent": [], "change": []}
+    for name, root in (("parent", parent), ("change", change),
+                       ("change", change), ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--cells-child", root], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"cells A/B: {name} ({root}) failed:\n{r.stderr[-2000:]}")
+        d = json.loads(r.stdout.strip().splitlines()[-1])
+        per[name].append(d)
+        print(f"{name}: {json.dumps(d)}", flush=True)
+    result = {}
+    for kind, algos in (("cli", CELLS_AB_CLI), ("lanes", CELLS_AB_LANES)):
+        for algo in algos:
+            p, c = (statistics.mean(d[kind][algo] for d in per[k])
+                    for k in ("parent", "change"))
+            print(f"{kind} {algo}: parent {p:.1f} events/s, change {c:.1f} "
+                  f"events/s, change/parent {c / p:.4f}")
+            result[f"{kind}/{algo}"] = {
+                "parent": [d[kind][algo] for d in per["parent"]],
+                "change": [d[kind][algo] for d in per["change"]],
+                "ratio": c / p}
+    print(json.dumps({"cells_ab": result}))
+
+
 #: the B2 A/B's shapes: the CLI's (one lane, a 4,096-step chunk) and the
 #: bench's (32 lanes, 512-step chunks)
 B2_AB_SHAPES = ((1, 4096), (32, 512))
@@ -5589,6 +6073,11 @@ def main():
         if len(args) == 2 and args[0] == "--b1-ab":
             print(card_line())
             return study_b1_ab(os.path.abspath(args[1]), here)
+        if len(args) == 2 and args[0] == "--cells-ab":
+            print(card_line())
+            return study_cells_ab(os.path.abspath(args[1]), here)
+        if len(args) == 2 and args[0] == "--cells-child":
+            return study_cells_child(os.path.abspath(args[1]))
         if len(args) == 2 and args[0] == "--b2-ab":
             print(card_line())
             return study_b2_ab(os.path.abspath(args[1]), here)
@@ -5625,7 +6114,7 @@ def main():
             return study_update_child(*args[2:])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
-             "--b1-ext [CHECKOUT], "
+             "--b1-ext [CHECKOUT], --cells-ab PARENT_CHECKOUT, "
              "--b2-ab PARENT_CHECKOUT, --b6a-variants, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
              "PARENT_CHECKOUT [onehot|heads]")
@@ -5686,6 +6175,7 @@ def main():
         timed(phase_b1_after_learning, report, trained)
         upd_launches = timed(phase_learning_cli, report, out_root)
         x64_launches = timed(phase_clock64_cli, report, out_root)
+        timed(phase_checkpoint_cli, report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 

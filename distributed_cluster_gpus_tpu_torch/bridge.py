@@ -10,7 +10,11 @@ sub-states) are ignored on the way in and absent on the way out.
 :func:`sac_from_flax` carries the chsac_af learner (the JAX ``SACState``:
 parameters, target critic, temperature, optimizer and CMDP states) across,
 and :func:`sac_to_numpy` / :func:`flax_sac_to_numpy` put either side's in
-one nested-dict layout, flax's, for leaf-by-leaf comparison.
+one nested-dict layout, flax's, for leaf-by-leaf comparison;
+:func:`sac_from_numpy` reads that layout back.  :func:`replay_to_numpy` /
+:func:`replay_from_numpy` do the same for the replay ring in the JAX
+``ReplayState`` layout.  These trees are what a checkpoint holds
+(``utils/checkpoint.py``).
 
 PRNG keys travel as their two uint32 threefry words; the port holds them in
 int64 tensors (``ops/prng.py``).
@@ -202,35 +206,65 @@ def sac_from_flax(cfg, src, device="cuda"):
                     cmdp=cmdp, step=int(np.asarray(src.step)))
 
 
-def sac_to_numpy(cfg, sac):
+def sac_to_numpy(cfg, sac, leaf: Callable = tensor_leaf):
     """The port's SACState as nested dicts of numpy in flax's layout:
     ``{enc,actor,critic,target_critic}_params`` ({"params": {name: {kernel,
     bias}}}), ``log_alpha``, ``{enc,actor,critic,alpha}_opt`` ({count, mu,
-    nu}), ``cmdp`` ({lam, integral, prev_err}) and ``step`` (int32)."""
-    def np_(x):
-        return x.detach().cpu().numpy()
-
+    nu}), ``cmdp`` ({lam, integral, prev_err}) and ``step`` (int32).
+    ``leaf`` turns each tensor into its array (a host copy by default)."""
     out = {}
     for key, group in (("enc_params", "enc"), ("actor_params", "actor"),
                        ("critic_params", "critic"),
                        ("target_critic_params", "target")):
         names = _layer_names(sac, group)
-        out[key] = _tree_np(np_(sac.flat[group]), _group_layers(sac, group),
+        out[key] = _tree_np(leaf(sac.flat[group]), _group_layers(sac, group),
                             names)
-    out["log_alpha"] = np_(sac.log_alpha)
+    out["log_alpha"] = leaf(sac.log_alpha)
     for attr, group in _OPT_GROUPS:
         st = getattr(sac, attr)
         if group == "alpha":
-            mu, nu = np_(st.mu).reshape(()), np_(st.nu).reshape(())
+            mu, nu = leaf(st.mu).reshape(()), leaf(st.nu).reshape(())
         else:
             layers, names = _group_layers(sac, group), _layer_names(sac, group)
-            mu = _tree_np(np_(st.mu), layers, names)
-            nu = _tree_np(np_(st.nu), layers, names)
-        out[attr] = {"count": np_(st.count), "mu": mu, "nu": nu}
-    out["cmdp"] = {k: np_(getattr(sac.cmdp, k))
+            mu = _tree_np(leaf(st.mu), layers, names)
+            nu = _tree_np(leaf(st.nu), layers, names)
+        out[attr] = {"count": leaf(st.count), "mu": mu, "nu": nu}
+    out["cmdp"] = {k: leaf(getattr(sac.cmdp, k))
                    for k in ("lam", "integral", "prev_err")}
     out["step"] = np.asarray(sac.step, np.int32)
     return out
+
+
+def sac_from_numpy(cfg, tree, device="cuda"):
+    """The inverse of :func:`sac_to_numpy`: the port's whole learner on
+    ``device`` from a tree in flax's layout (a port checkpoint's ``sac``
+    tree, or :func:`flax_sac_to_numpy` of the JAX package's state).  The
+    bf16 shadows are filled from the float32 masters (B5g's kernel on the
+    card), so the first update after a restore reads what an uninterrupted
+    one would."""
+    from types import SimpleNamespace
+
+    src = SimpleNamespace(
+        **{k: tree[k] for k in ("enc_params", "actor_params", "critic_params",
+                                "target_critic_params", "log_alpha", "step")},
+        cmdp=SimpleNamespace(**tree["cmdp"]),
+        **{attr: SimpleNamespace(**tree[attr]) for attr, _ in _OPT_GROUPS})
+    return sac_from_flax(cfg, src, device)
+
+
+def replay_to_numpy(rb) -> Dict:
+    """The port's replay ring as a dict of numpy arrays in the JAX
+    package's ``ReplayState`` layout (the row leaves, ``valid``, ``ptr``,
+    ``size``, ``n_seen``)."""
+    return tree_to_numpy(rb, tensor_leaf)
+
+
+def replay_from_numpy(tree: Dict, device="cuda"):
+    """A port ``ReplayState`` on ``device`` from :func:`replay_to_numpy`'s
+    layout (or the JAX package's ``ReplayState`` as numpy)."""
+    from .rl.replay import ReplayState
+
+    return _build(ReplayState, tree, resolve_device(device))
 
 
 def flax_sac_to_numpy(src):

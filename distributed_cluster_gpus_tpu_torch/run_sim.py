@@ -8,6 +8,8 @@
         --duration 600 --out runs/chsac [--critic-arch heads]
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo joint_nf \\
         --duration 604800 --time-dtype float64 --out runs/week
+    python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
+        --duration 604800 --out runs/week_rl --ckpt-dir runs/week_rl/ckpt
 
 The port's counterpart of the repo's ``run_sim.py`` for the flags the port
 honours: every heuristic algorithm (``default_policy``, ``cap_uniform``,
@@ -18,8 +20,13 @@ clock's dtype (``--time-dtype``, float64 above 1e5 s by default), and
 ``chsac_af`` online (the policy runs inside the event loop and feeds the
 replay ring; once ``--rl-warmup`` transitions are in it, each chunk's SAC
 and Lagrange updates run on the card and the next chunk acts with the
-updated weights).  ``--device`` defaults to ``cuda`` and never falls back
-to the CPU.  The reference's other flags (and ``--algo ppo``) exit with a
+updated weights), with checkpoints (``--ckpt-dir``, ``--ckpt-every``,
+``--ckpt-keep``; a run resumes from its store unless ``--no-resume``).
+SIGTERM or SIGINT stops a run at the next chunk boundary with its
+artifacts flushed, and the process exits with 128 + the signal's number.
+``--device`` defaults to ``cuda`` and never falls back to the CPU; on the
+card a setting outside a kernel's envelope is refused before anything is
+written.  The reference's other flags (and ``--algo ppo``) exit with a
 message naming the ROADMAP item that ports them.
 """
 
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -57,10 +65,6 @@ UNPORTED_FLAGS = {
     "--obs": "queue A item 12 (telemetry)",
     "--obs-watchdog": "queue A item 12 (telemetry)",
     "--obs-trace": "queue A item 12 (telemetry)",
-    "--ckpt-dir": "queue A item 14 (checkpoints)",
-    "--ckpt-every": "queue A item 14 (checkpoints)",
-    "--ckpt-keep": "queue A item 14 (checkpoints)",
-    "--no-resume": "queue A item 14 (checkpoints)",
     "--queue-mode": "queue A item 13 (slab queues)",
     "--superstep-k": "queue A item 13 (superstep K>1)",
     "--rollouts": "queue A item 8 (batched rollouts)",
@@ -128,6 +132,19 @@ def parse_args(argv=None):
                    choices=["auto", "float32", "float64"],
                    help="the clock's dtype; auto = float64 above 1e5 s "
                         "(with the reference's x64 numerics), else float32")
+    # checkpoints (chsac_af)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint dir (chsac_af): saves and resumes. Saves "
+                        "commit atomically with a digest manifest and resume "
+                        "walks a verified fallback chain (offline check: "
+                        "python -m distributed_cluster_gpus_tpu_torch.fsck_ckpt)")
+    p.add_argument("--ckpt-every", type=int, default=50,
+                   help="chunks between saves")
+    p.add_argument("--ckpt-keep", type=int, default=0,
+                   help="keep only the newest N verified checkpoints (0 = keep "
+                        "all); stale crash-staging debris is swept after every "
+                        "save either way")
+    p.add_argument("--no-resume", action="store_true")
     p.add_argument("--chunk-steps", type=int, default=4096)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -142,35 +159,58 @@ def parse_args(argv=None):
     if a.algo == "ppo":
         p.exit(2, f"{p.prog}: --algo ppo is not ported yet (ROADMAP queue A "
                   "item 10)\n")
-    if a.algo == "chsac_af" and a.device == "cuda":
-        # the card's acting kernel (B1) and update kernels each take a
-        # stated envelope: refuse a setting outside either now, not at the
-        # first chunk or the first update after the warm-up
-        from .configs.paper import FLEET
-        from .kernels.envelope import ENVELOPE, check_update
-        from .kernels.event_scan import (RL_ENVELOPE, rl_covers, slab_fits,
-                                         slab_limit_text)
+    if a.ckpt_every < 1:
+        p.error("--ckpt-every must be at least 1 chunk")
+    if a.device == "cuda":
+        # the card's kernels each take a stated envelope: refuse a setting
+        # outside one now, before any file is written, not at the first
+        # chunk or the first update after the warm-up
+        why = card_refusal(a)
+        if why:
+            p.exit(2, f"{p.prog}: {why}\n")
+    return a
 
-        n_dc = 1 if a.single_dc else len(FLEET)
-        params = build_params(a)
-        obs_dim = params.obs_dim(n_dc)
-        if not rl_covers(obs_dim, n_dc, a.max_gpus_per_job):
-            p.exit(2, f"{p.prog}: chsac_af with {a.max_gpus_per_job} GPU-count "
-                      f"actions is outside the card's envelope: {RL_ENVELOPE}; "
-                      f"{ENVELOPE}\n")
-        # B1's RL-mode slab in shared memory, priced in the run's clock
-        # (the float64 clock's four time columns take 32 more bytes a slot)
-        if not slab_fits(a.job_cap, params.lat_window, True,
-                         a.max_gpus_per_job, params.x64):
-            p.exit(2, f"{p.prog}: chsac_af with --job-cap {a.job_cap} does not "
-                      f"fit B1's shared memory: "
-                      f"{slab_limit_text(params.lat_window, True, a.max_gpus_per_job, params.x64)}\n")
+
+def card_refusal(a):
+    """Why the card cannot run this CLI setting, or None: B1 (the event
+    scan) takes at most 32 DCs, 32 ingresses and 32 frequency levels and
+    keeps a lane's slab in one block's shared memory (priced in the run's
+    clock and mode: the float64 clock's time columns and RL mode's latency
+    windows take more a slot), for every algorithm; under chsac_af B1's RL
+    mode acts with heads of at most 256 columns and the update's kernels
+    take their envelope (``kernels/envelope.py``).  The message states the
+    limit."""
+    from .configs.paper import build_fleet, build_single_dc_fleet
+    from .kernels.envelope import ENVELOPE, check_update
+    from .kernels.event_scan import (MAX_DC, MAX_FREQS, MAX_STREAMS,
+                                     RL_ENVELOPE, rl_covers, slab_fits,
+                                     slab_limit_text)
+
+    fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
+    params = build_params(a)
+    rl = a.algo == "chsac_af"
+    if (fleet.n_dc > MAX_DC or 2 * fleet.n_ing > MAX_STREAMS
+            or fleet.n_f > MAX_FREQS):
+        return (f"a fleet of {fleet.n_dc} DCs, {fleet.n_ing} ingresses and "
+                f"{fleet.n_f} frequency levels is outside B1's limits: at most "
+                f"{MAX_DC} DCs, {MAX_STREAMS // 2} ingresses and {MAX_FREQS} "
+                "frequency levels")
+    obs_dim = params.obs_dim(fleet.n_dc)
+    if rl and not rl_covers(obs_dim, fleet.n_dc, a.max_gpus_per_job):
+        return (f"chsac_af with {a.max_gpus_per_job} GPU-count actions is "
+                f"outside the card's envelope: {RL_ENVELOPE}; {ENVELOPE}")
+    if not slab_fits(a.job_cap, params.lat_window, rl, a.max_gpus_per_job,
+                     params.x64):
+        return (f"{a.algo} with --job-cap {a.job_cap} does not fit B1's "
+                "shared memory: " + slab_limit_text(
+                    params.lat_window, rl, a.max_gpus_per_job, params.x64))
+    if rl:
         try:
-            check_update(a.rl_batch, n_dc, a.max_gpus_per_job, obs_dim,
+            check_update(a.rl_batch, fleet.n_dc, a.max_gpus_per_job, obs_dim,
                          critic_arch=a.critic_arch)
         except ValueError as e:
-            p.exit(2, f"{p.prog}: {e}; {RL_ENVELOPE}\n")
-    return a
+            return f"{e}; {RL_ENVELOPE}"
+    return None
 
 
 def resolve_time_dtype(a) -> str:
@@ -217,35 +257,64 @@ def finalize_queue_cap(params, fleet):
 
 def main(argv=None, pre_tables=None):
     """Run the CLI; returns the final SimState.  ``pre_tables`` (tests only)
-    injects each chunk's arrival tables."""
+    injects each chunk's arrival tables.  SIGTERM or SIGINT stops the run
+    at the next chunk boundary (``utils/shutdown.py``): the CSVs are
+    flushed, ``run_summary.json`` says "interrupted", a chsac_af run with
+    ``--ckpt-dir`` saves that chunk, and the process exits with 128 + the
+    signal's number."""
     a = parse_args(argv)
     from .configs.paper import build_fleet, build_single_dc_fleet
+    from .device import resolve_device
     from .sim.io import run_simulation
+    from .utils.logging import get_logger
+    from .utils.shutdown import graceful_shutdown
+    from .utils.validators import validate_gpus
 
+    resolve_device(a.device)  # no card: raise before anything is written
     fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
     params = finalize_queue_cap(build_params(a), fleet)
+    os.makedirs(a.out, exist_ok=True)
+    log = get_logger(a.out)
+    for w in validate_gpus(fleet, strict=False):
+        print(f"[gpu-validate] {w}")
+        log.warning("gpu-validate: %s", w)
     t0 = time.time()
     extra = ""
-    if a.algo == "chsac_af":
-        from .rl.train import train_chsac
+    with graceful_shutdown() as shutdown:
+        if a.algo == "chsac_af":
+            from .rl.train import train_chsac
 
-        state, agent, _ = train_chsac(fleet, params, out_dir=a.out,
-                                      chunk_steps=a.chunk_steps,
-                                      verbose=not a.quiet,
-                                      device=a.device, pre_tables=pre_tables)
-        extra = (f"; {int(agent.replay.n_seen)} transitions in the replay "
-                 f"ring, {agent.sac.step} train steps")
-    else:
-        state = run_simulation(fleet, params, out_dir=a.out,
-                               chunk_steps=a.chunk_steps, device=a.device,
-                               pre_tables=pre_tables, progress=not a.quiet)
+            state, agent, _ = train_chsac(
+                fleet, params, out_dir=a.out, chunk_steps=a.chunk_steps,
+                verbose=not a.quiet, ckpt_dir=a.ckpt_dir,
+                ckpt_every_chunks=a.ckpt_every, ckpt_keep=a.ckpt_keep,
+                resume=not a.no_resume, shutdown=shutdown, device=a.device,
+                pre_tables=pre_tables)
+            extra = (f"; {int(agent.replay.n_seen)} transitions in the replay "
+                     f"ring, {agent.sac.step} train steps")
+        else:
+            state = run_simulation(fleet, params, out_dir=a.out,
+                                   chunk_steps=a.chunk_steps, device=a.device,
+                                   pre_tables=pre_tables, progress=not a.quiet,
+                                   shutdown=shutdown)
     wall = time.time() - t0
+    n_fin = state.n_finished.tolist()
+    msg = (f"done: t={float(state.t):.0f}s sim, {int(state.n_events)} events, "
+           f"{n_fin[0]} inference + {n_fin[1]} training jobs finished, "
+           f"{int(state.n_dropped)} dropped; {wall:.1f}s wall on {a.device} "
+           f"-> logs in {a.out}{extra}")
     if not a.quiet:
-        n_fin = state.n_finished.tolist()
-        print(f"done: t={float(state.t):.0f}s sim, {int(state.n_events)} events, "
-              f"{n_fin[0]} inference + {n_fin[1]} training jobs finished, "
-              f"{int(state.n_dropped)} dropped; {wall:.1f}s wall on {a.device} "
-              f"-> logs in {a.out}{extra}")
+        print(msg)
+    log.info(msg)
+    if shutdown.requested:
+        # the artifacts are flushed and run_summary.json says "interrupted";
+        # exit nonzero (128 + signum, the shell convention) so wrappers and
+        # schedulers see the interruption
+        msg = (f"interrupted by signal {shutdown.signum}: artifacts "
+               f"flushed, exiting {shutdown.exit_code}")
+        print(msg)
+        log.warning(msg)
+        sys.exit(shutdown.exit_code)
     return state
 
 

@@ -3,9 +3,12 @@
 Counterpart of ``distributed_cluster_gpus_tpu/sim/io.py``: ``cluster_log.csv``
 and ``job_log.csv`` in the reference's schemas and formatting (the Python
 rendering path, which the JAX package's tests pin byte-identical to its
-native writer), ``drain_emissions`` and a serial ``run_simulation``.  The
-pipelined background drain, the telemetry sink and the shutdown hooks are
-ROADMAP queue A item 7's remaining work.
+native writer), ``drain_emissions`` and a serial ``run_simulation`` that
+stops at a chunk boundary when a shutdown flag trips (``utils/shutdown.py``)
+and then writes ``run_summary.json`` with ``status="interrupted"``.  The
+writers' byte offsets are the checkpoints' CSV watermark: a resumed run
+truncates both files back to them and appends.  The pipelined background
+drain and the telemetry sink are ROADMAP queue A items 7 and 12.
 """
 
 from __future__ import annotations
@@ -34,17 +37,40 @@ JOB_HEADER = [
 
 
 class CSVWriters:
-    """cluster_log.csv + job_log.csv in ``out_dir`` (reference formatting)."""
+    """cluster_log.csv + job_log.csv in ``out_dir`` (reference formatting).
 
-    def __init__(self, out_dir: str, fleet: FleetSpec):
+    ``append=True`` keeps existing rows and writes headers only for files
+    that do not exist yet: a run resumed from a checkpoint keeps the log
+    prefix written before it stopped."""
+
+    def __init__(self, out_dir: str, fleet: FleetSpec, append: bool = False):
         os.makedirs(out_dir, exist_ok=True)
         self.fleet = fleet
         self.cluster_path = os.path.join(out_dir, "cluster_log.csv")
         self.job_path = os.path.join(out_dir, "job_log.csv")
         for path, header in ((self.cluster_path, CLUSTER_HEADER),
                              (self.job_path, JOB_HEADER)):
+            if append and os.path.exists(path):
+                continue
             with open(path, "w", newline="") as f:
                 csv.writer(f).writerow(header)
+
+    # The byte offsets after the last drained chunk are a watermark: a
+    # resumed run truncates both files back to the offsets its checkpoint
+    # recorded, dropping rows a stopped or crashed run appended past its
+    # last checkpoint (those chunks run again and would appear twice).
+
+    def offsets(self) -> Dict[str, int]:
+        return {"cluster": os.path.getsize(self.cluster_path),
+                "job": os.path.getsize(self.job_path)}
+
+    def truncate_to(self, offsets: Dict[str, int]) -> None:
+        for path, key in ((self.cluster_path, "cluster"),
+                          (self.job_path, "job")):
+            size = os.path.getsize(path)
+            want = int(offsets[key])
+            if 0 < want < size:
+                os.truncate(path, want)
 
     def _cluster_row(self, w, row: np.ndarray, name: str):
         c = dict(zip(CLUSTER_COLS, row))
@@ -132,14 +158,18 @@ def run_simulation(fleet: FleetSpec, params: SimParams,
                    pre_tables: Optional[Sequence[Dict]] = None,
                    on_chunk=None, state0: Optional[SimState] = None,
                    engine: Optional[Engine] = None,
-                   progress: bool = False) -> SimState:
+                   progress: bool = False, shutdown=None) -> SimState:
     """Serial host loop: run chunks until the simulation clock passes its end.
 
     ``pre_tables`` injects each chunk's arrival tables in order (the test
     seam that feeds the reference's tables); None builds them per chunk.
     ``on_chunk(state, emissions, engine)`` is called after each chunk's
     drain.  ``progress`` prints the reference's line after each chunk (the
-    simulated-time bar and the event count).  Returns the final SimState
+    simulated-time bar and the event count).  ``shutdown`` (a
+    ``utils.shutdown.ShutdownFlag``): once it trips, the loop stops after
+    the chunk in flight has drained, so the CSVs are a byte prefix of the
+    uninterrupted run's, and writes ``run_summary.json`` with
+    ``status="interrupted"`` into ``out_dir``.  Returns the final SimState
     (on ``device``)."""
     engine = engine if engine is not None else Engine(fleet, params, device=device)
     state = (state0 if state0 is not None
@@ -159,5 +189,12 @@ def run_simulation(fleet: FleetSpec, params: SimParams,
             print(sim_progress(float(state.t), params.duration,
                                extra=f"events={int(state.n_events)}"))
         if bool(state.done):
+            break
+        if shutdown is not None and shutdown.requested:
+            if out_dir:
+                from ..obs.export import write_status_summary
+
+                write_status_summary(out_dir, algo=params.algo, fleet=fleet,
+                                     state=state, status="interrupted")
             break
     return state

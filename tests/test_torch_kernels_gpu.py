@@ -1440,6 +1440,59 @@ def test_update_graph_recaptures_after_replacement(cuda):
 
 
 @pytest.mark.gpu
+def test_checkpoint_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """A chsac_af run on the card (B1 in RL mode, B2, B6a, the captured
+    update) stopped after its first updating chunk, saved, and resumed from
+    the store in a fresh agent: every later chunk and its updates are those
+    of the run left uninterrupted (the CSV bytes, each chunk's last
+    metrics, the final SimState, learner, ring and key bitwise), the
+    restored agent's bf16 shadows are bf16 of its masters and its update
+    was captured again as a graph and replayed."""
+    from distributed_cluster_gpus_tpu_torch.rl.sac import SHADOWED
+    from distributed_cluster_gpus_tpu_torch.rl.train import train_chsac
+    from distributed_cluster_gpus_tpu_torch.utils.shutdown import ShutdownFlag
+
+    fleet = build_duo_fleet()
+    params = SimParams(algo="chsac_af", duration=2.0, log_interval=0.25,
+                       job_cap=48, queue_cap=8, lat_window=64, seed=21,
+                       inf_rate=15.0, trn_rate=2.0, rl_warmup=24, rl_batch=8,
+                       rl_buffer=128)
+
+    def run(out, ckpt=None, shutdown=None, on_chunk=None):
+        return train_chsac(fleet, params, out_dir=str(tmp_path / out),
+                           chunk_steps=48, max_train_steps_per_chunk=4,
+                           device=cuda, ckpt_dir=ckpt, ckpt_every_chunks=1,
+                           shutdown=shutdown, on_chunk=on_chunk)
+
+    sf, af, hf = run("full")
+    flag = ShutdownFlag()
+
+    def stop_after_first_update(chunk, state, history):
+        if history:
+            flag.trip(15)
+
+    ck = str(tmp_path / "ck")
+    _, a_stop, h_stop = run("part", ck, flag, stop_after_first_update)
+    sr, ar, hr = run("part", ck)
+    torch.cuda.synchronize()
+    assert 0 < a_stop.sac.step < ar.sac.step == af.sac.step
+    assert ar.graph_captures >= 1 and ar.graph_replays > 0
+    for name in ("cluster_log.csv", "job_log.csv"):
+        assert (tmp_path / "full" / name).read_bytes() == \
+            (tmp_path / "part" / name).read_bytes(), name
+    assert len(h_stop) + len(hr) == len(hf)
+    for m_full, m_res in zip(hf[len(h_stop):], hr):
+        assert all(m_full[k].tobytes() == m_res[k].tobytes() for k in m_full)
+    leaves = [{"sim": bridge.state_to_numpy(s),
+               "sac": bridge.sac_to_numpy(a.cfg, a.sac),
+               "replay": bridge.replay_to_numpy(a.replay),
+               "key": a.key.numpy()} for s, a in ((sf, af), (sr, ar))]
+    assert bridge.tree_mismatches(*leaves) == []
+    for g in SHADOWED:
+        assert _bits_equal(ar.sac.shadow[g], ar.sac.flat[g].to(torch.bfloat16))
+
+
+@pytest.mark.gpu
 def test_update_wrappers_reject_bad_operands(cuda):
     """No fallback: a CUDA operand of the wrong dtype, shape or layout
     raises instead of running the plain version."""

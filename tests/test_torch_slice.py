@@ -128,7 +128,7 @@ def test_cli_refuses_unported(capsys):
                        (["--queue-mode", "slab"], "item 13"),
                        (["--workload", "diurnal"], "item 4"),
                        (["--faults-mtbf=3"], None),
-                       (["--duration", "2e5", "--ckpt-dir", "ck"], "item 14")):
+                       (["--duration", "2e5", "--campaign", "c"], "item 15")):
         with pytest.raises(SystemExit) as e:
             run_sim.parse_args(argv)
         assert e.value.code == 2
