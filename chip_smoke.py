@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the result lines):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the main path from ``csrc/`` (one ``nvcc``
    per source, started together) and print the build time and each
-   kernel's ptxas line (registers, shared memory, spills);
+   kernel's ptxas line (registers, shared memory, spills); then the native
+   CSV writer (``csrc/csv_writer.cpp``, g++);
 3. hold B2 (arrival tables) against its plain torch version on the card at
    the main path's shapes (the paper fleet's S=16 streams, n=4096 entries;
    then R=32 lanes in one launch; both at n = 1, 1,024, 2,047, 2,048, 4,096
@@ -190,7 +191,21 @@ Phases (any failure exits non-zero before the result lines):
     strict byte prefix of the uninterrupted run's); save ms (the copy off
     the card and the store's write), restore ms, a step's and the store's
     bytes beside the card's name and power limit;
-20. print the card line, the kernel JSON line, then the device line.
+20. (q) the host loop: the main path's ``run_simulation`` pipelined (the
+    CLI's path: chunk N+1 dispatched before chunk N is rendered on the
+    drain's worker) against the serial loop, ``default_policy`` and
+    ``joint_nf`` on the paper fleet for 600 s, turns serial, pipelined,
+    pipelined, serial: the CSVs byte for byte and every final SimState leaf
+    bitwise; each run's events/s, phase split (``obs.trace.PhaseTimer``),
+    B1's device time and the device's busy share (the chunks' spans on the
+    stream over the wall); one chunk of real emissions through the native
+    CSV writer and the Python renderer, byte for byte, both timed; then the
+    harness: ``eval --config 3 --duration 120`` and ``eval --config 4
+    --rollouts 1 --duration 120``, B1 and B2 launched in every algorithm's
+    run (B1's RL mode, B6a and the update's kernels in chsac_af's), each
+    row equal field by field to ``_summarize`` of the same params run
+    through ``run_sim.main``;
+21. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
@@ -229,6 +244,9 @@ Opt-in studies replace the smoke when asked for:
         and ``chsac_af`` acting at the main path's settings (wall around
         ``run_sim.main``, CSVs included) and R=32 lanes at the bench
         shape, as phases (b), (i) and (c) time them.
+    python3 chip_smoke.py --host-loop
+        Phase (q) alone, after building B1 and B2 (and the update's
+        kernels, which chsac_af's eval run launches).
     python3 chip_smoke.py --b5d-plans
         B5d's forward at the update's layer shapes with every tile and ring
         that fits: each bitwise against the plain version, device us per
@@ -1277,8 +1295,9 @@ def phase_profile(report):
     of the main path's shape (paper fleet as the CLI builds it,
     ``default_policy``) after a warm-up chunk.  The host reads are the
     device-to-host copies the profiler saw (``.item()`` and ``.tolist()``
-    both make one), less the one read ``run_chunk`` makes after the chunk
-    (the events it ran); the warm-up chunk runs under the sync counter."""
+    both make one): ``run_chunk`` makes none (the events it ran stay on the
+    card, read here after the profile); the warm-up chunk runs under the
+    sync counter."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
@@ -1293,10 +1312,9 @@ def phase_profile(report):
     if in_chunk:
         fail(f"profile: {in_chunk} synchronizing CUDA calls inside the chunk "
              f"({syncs.by_file})")
-    # the profiler records only some of a chunk's short launches and
-    # copies, and now and then none: up to PROFILE_TRIES profiled chunks,
-    # the first in which it saw device work and the chunk's one read (the
-    # event count run_chunk reads after the kernel, always made) is read
+    # the profiler records only some of a chunk's short launches, and now
+    # and then none: up to PROFILE_TRIES profiled chunks, the first in which
+    # it saw device work is read
     for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1305,7 +1323,7 @@ def phase_profile(report):
             st, _ = eng.run_chunk(st, n_steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = eng.stats["events"]
+        events = int(eng.stats["events"])
         dev_us, n_dev, b1_us, b2_us, n_dtoh, n_scalar = 0.0, 0, 0.0, 0.0, 0, 0
         for e in prof.events():
             if e.name == "aten::_local_scalar_dense":
@@ -1322,18 +1340,15 @@ def phase_profile(report):
             if any(k in e.name for k in ("draws_kernel", "fold_kernel",
                                          "tnext_kernel")):
                 b2_us += dur
-        if n_dev and n_dtoh:
+        if n_dev:
             break
     if n_dev == 0:
         fail(f"profile: the profiler saw no device activity in "
              f"{PROFILE_TRIES} profiled chunks")
-    if n_dtoh < 1:
-        fail("profile: no device-to-host copy seen, though run_chunk reads the "
-             "chunk's event count after it")
-    reads_in_chunk = n_dtoh - 1
+    reads_in_chunk = n_dtoh
     if reads_in_chunk:
         fail(f"profile: {n_dtoh} device-to-host copies in one run_chunk, "
-             "expected only the read after the chunk")
+             "expected none")
     busy = dev_us / (wall * 1e6)
     ev = max(events, 1)
     print(f"profile (paper fleet as the CLI runs it, default_policy, {n_steps}"
@@ -4811,6 +4826,285 @@ def phase_checkpoint_cli(report, out_root):
     return rec
 
 
+# ------------------------------------------- (q) the host loop and harness
+
+#: phase (q)'s turns of each base algorithm, in the A/B order of the studies
+HOST_LOOP_TURNS = ("serial", "pipelined", "pipelined", "serial")
+#: the harness runs of phase (q): (config, eval flags)
+EVAL_S = 120.0
+EVAL_RUNS = (("3", ()), ("4", ("--rollouts", "1")))
+
+
+class ChunkSpans:
+    """While on, records CUDA events on the stream around every
+    ``Engine.run_chunk`` (a chunk's work as the host queues it: B2, B1 and
+    the carries' small ops); ``ms()`` after the run sums the spans, the
+    device's busy time as the stream saw it (idle gaps inside a chunk's
+    queueing included)."""
+
+    def __enter__(self):
+        from distributed_cluster_gpus_tpu_torch.sim import engine
+
+        self._cls, self._orig = engine.Engine, engine.Engine.run_chunk
+        self.events = []
+        orig = self._orig
+
+        def spanned(eng, *args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(eng, *args, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+
+        self._cls.run_chunk = spanned
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run_chunk = self._orig
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def _host_loop_run(algo, loop, out):
+    """One main-path run (the CLI's fleet and params for ``algo``) through
+    ``run_simulation``'s ``loop`` ("serial": a no-op hook; "pipelined": the
+    CLI's path); returns (final state, record, the first chunk's host
+    copy)."""
+    from distributed_cluster_gpus_tpu_torch.obs.trace import PhaseTimer
+    from distributed_cluster_gpus_tpu_torch.sim import io as sio
+
+    fleet, params, n_steps = cli_params(algo)
+    timer, first = PhaseTimer(), []
+
+    def hook(state, em, engine):
+        if not first:
+            first.append(sio.HostChunk.of(em, state).wait())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with B1Tally() as tally, ChunkSpans() as spans:
+        st = sio.run_simulation(fleet, params, out_dir=out,
+                                chunk_steps=n_steps, device="cuda",
+                                timer=timer,
+                                on_chunk=hook if loop == "serial" else None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = int(st.n_events)
+    rec = {"loop": loop, "events": events, "wall_s": wall,
+           "events_per_s": events / wall, "b1_ms": tally.ms(),
+           "chunk_span_ms": spans.ms(), "chunks": len(spans.events),
+           "phases_s": dict(timer.totals)}
+    rec["b1_us_per_event"] = rec["b1_ms"] / max(events, 1) * 1e3
+    rec["busy_share"] = rec["chunk_span_ms"] / (wall * 1e3)
+    # the engine's and the writers' set-up and the worker's last render
+    rec["outside_phases_s"] = wall - sum(
+        v for k, v in timer.totals.items() if k != "io_render")
+    return st, rec, (first[0] if first else None)
+
+
+def _native_vs_plain(fleet, host, root):
+    """One chunk of real emissions through the native writer and the
+    Python renderer: byte for byte; returns the two renders' ms."""
+    import numpy as np
+
+    from distributed_cluster_gpus_tpu_torch.sim import io as sio
+
+    em = host.emissions()
+    cl = np.nonzero(em["cluster_valid"])[0]
+    jb = np.nonzero(em["job_valid"])[0]
+    if not len(cl) or not len(jb):
+        fail(f"native writer: the first chunk has {len(cl)} log ticks and "
+             f"{len(jb)} job rows; the check needs both")
+    ms, data = {}, {}
+    for name, plain in (("native", False), ("python", True)):
+        d = os.path.join(root, f"render_{name}")
+        w = sio.CSVWriters(d, fleet, plain=plain)
+        t0 = time.perf_counter()
+        w.write_cluster_chunk(em["cluster"], cl)
+        w.write_job_chunk(em["job"], jb)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        data[name] = [open(p, "rb").read() for p in (w.cluster_path,
+                                                     w.job_path)]
+    if data["native"] != data["python"]:
+        fail("native writer: its bytes differ from the Python renderer's on "
+             "one chunk of real emissions")
+    return {"cluster_rows": int(len(cl)) * fleet.n_dc, "job_rows": int(len(jb)),
+            "bytes": sum(map(len, data["native"])), "native_ms": ms["native"],
+            "python_ms": ms["python"]}
+
+
+def _eval_cli_argv(base, algo, chunk_steps, out):
+    """run_sim's command line for ``base`` with ``algo``: the params the
+    harness runs (checked equal field by field before the run)."""
+    argv = ["--algo", algo, "--duration", repr(base.duration),
+            "--log-interval", repr(base.log_interval), "--seed", str(base.seed),
+            "--inf-mode", base.inf_mode, "--inf-rate", repr(base.inf_rate),
+            "--inf-amp", repr(base.inf_amp), "--inf-period",
+            repr(base.inf_period), "--trn-mode", base.trn_mode,
+            "--trn-rate", repr(base.trn_rate), "--job-cap", str(base.job_cap),
+            "--queue-cap", str(base.queue_cap), "--rl-warmup",
+            str(base.rl_warmup), "--rl-batch", str(base.rl_batch),
+            "--eco-objective", base.eco_objective, "--time-dtype",
+            base.time_dtype, "--chunk-steps", str(chunk_steps),
+            "--device", "cuda", "--quiet", "--out", out]
+    return argv
+
+
+def _same_row(a, b):
+    if set(a) != set(b):
+        return False
+    return all(a[k] == b[k] or (isinstance(a[k], float) and a[k] != a[k]
+                                and b[k] != b[k]) for k in a)
+
+
+def _phase_eval(report, root):
+    """The harness on the card: each run of ``EVAL_RUNS`` through the
+    port's eval CLI, B1 and B2 launched in every algorithm's run (B1's RL
+    mode, B6a and the update's kernels in chsac_af's), each row equal to
+    ``_summarize`` of the same params run through ``run_sim.main``."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch import evaluation, run_sim
+    from distributed_cluster_gpus_tpu_torch import eval as port_eval
+    from distributed_cluster_gpus_tpu_torch.rl import train as rtrain
+
+    out = {}
+    orig_run_algo = evaluation.run_algo
+    for n, flags in EVAL_RUNS:
+        counts = {}
+
+        def counted(fleet, params, *a, **kw):
+            read = _zero_launches()
+            s = orig_run_algo(fleet, params, *a, **kw)
+            counts[params.algo] = read()
+            return s
+
+        argv = ["--config", n, "--duration", str(EVAL_S), *flags]
+        evaluation.run_algo = counted
+        t0 = time.perf_counter()
+        try:
+            res = port_eval.main(argv)
+        finally:
+            evaluation.run_algo = orig_run_algo
+        wall = time.perf_counter() - t0
+        spec = (evaluation.baseline_config(int(n), EVAL_S))
+        rows = res[f"config{n}"]["per_seed"]["123"]
+        got = {}
+        for row in rows:
+            algo = row["algo"]
+            c = counts[algo]
+            if c["event_scan"] <= 0 or c["arrival_tables"] <= 0:
+                fail(f"eval config {n}: {algo} launched B1 {c['event_scan']} "
+                     f"and B2 {c['arrival_tables']} times")
+            if algo == "chsac_af":
+                upd = {k: c[k] for k in update_counters()}
+                if c["rl"] <= 0 or c["replay_ingest"] <= 0 or not all(
+                        upd.values()):
+                    fail(f"eval config {n}: chsac_af launched B1 in RL mode "
+                         f"{c['rl']}, B6a {c['replay_ingest']} times, the "
+                         f"update's kernels {upd}")
+            params = dataclasses.replace(spec["base"], algo=algo)
+            cli = _eval_cli_argv(spec["base"], algo, 4096,
+                                 os.path.join(root, f"eval{n}_{algo}"))
+            built = run_sim.build_params(run_sim.parse_args(cli))
+            if built != params:
+                fail(f"eval config {n} {algo}: the CLI builds other params "
+                     f"than the harness runs ({built} != {params})")
+            agents = []
+            orig_train = rtrain.train_chsac
+
+            def train_chsac(*a, **kw):
+                r = orig_train(*a, **kw)
+                agents.append(r[1])
+                return r
+
+            rtrain.train_chsac = train_chsac
+            try:
+                st = run_sim.main(cli)
+            finally:
+                rtrain.train_chsac = orig_train
+            extra = ({"train_steps": int(agents[0].sac.step)}
+                     if algo == "chsac_af" else None)
+            want = evaluation._summarize(algo, spec["fleet"], st, extra).row()
+            if not _same_row(row, want):
+                fail(f"eval config {n} {algo}: the harness's row {row} is not "
+                     f"run_sim's {want}")
+            got[algo] = {"row": row, "launches": c}
+            upd = sum(c[k] for k in update_counters())
+            print(f"eval config {n} ({' '.join(argv)}) {algo}: {row}; B1 "
+                  f"{c['event_scan']} launches ({c['rl']} RL mode), B2 "
+                  f"{c['arrival_tables']}, B6a {c['replay_ingest']}, the "
+                  f"update's wrappers {upd}; equal to run_sim.main's row")
+        out[n] = {"argv": argv, "wall_s": wall, "algos": got}
+    report["host_loop"]["eval"] = out
+
+
+def phase_host_loop(report, out_root):
+    """(q) the pipelined host loop against the serial one on the main path
+    (``default_policy`` and ``joint_nf``, paper fleet, 600 s; turns
+    serial, pipelined, pipelined, serial): the CSVs byte for byte and every
+    final SimState leaf bitwise; events/s, the timer's split, B1's device
+    time and the device's busy share for each; the native writer against
+    the Python renderer on one chunk of real emissions; then the harness
+    (``eval``) on the card."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+
+    card = card_line()
+    rec = {"card": card, "runs": {}}
+    report["host_loop"] = rec
+    for algo in ALGOS:
+        turns, ref, first = [], None, None
+        for i, loop in enumerate(HOST_LOOP_TURNS):
+            out = os.path.join(out_root, f"host_{algo}_{i}_{loop}")
+            st, r, host = _host_loop_run(algo, loop, out)
+            if host is not None and first is None:
+                first = host
+            leaves = bridge.state_to_numpy(st)
+            if ref is None:
+                ref = (out, leaves)
+            else:
+                _same_bytes(ref[0], out, f"host loop {algo} turn {i} ({loop})")
+                for k in leaves:
+                    if not _same_tree(ref[1][k], leaves[k]):
+                        fail(f"host loop {algo} turn {i} ({loop}): final "
+                             f"SimState leaf {k} differs from turn 0's")
+            turns.append(r)
+            ph = r["phases_s"]
+            print(f"host loop {algo} {loop}: {r['events_per_s']:.1f} events/s "
+                  f"({r['events']} events, {r['wall_s']:.3f} s wall, "
+                  f"{r['chunks']} chunks); B1 {r['b1_ms']:.2f} ms "
+                  f"({r['b1_us_per_event']:.3f} us/event); chunks' device "
+                  f"spans {r['chunk_span_ms']:.2f} ms, busy share "
+                  f"{r['busy_share']:.3f}; phases "
+                  + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in
+                              sorted(ph.items()))
+                  + f", outside them {r['outside_phases_s'] * 1e3:.2f} ms; "
+                  f"{card}")
+        native = _native_vs_plain(cli_params(algo)[0], first, out_root)
+        print(f"native writer, {algo}'s first chunk: {native['cluster_rows']} "
+              f"cluster + {native['job_rows']} job rows, {native['bytes']} "
+              f"bytes, byte for byte the Python renderer's; "
+              f"{native['native_ms']:.3f} ms native, {native['python_ms']:.3f} "
+              "ms Python")
+        rec["runs"][algo] = {"turns": turns, "native_writer": native}
+    _phase_eval(report, out_root)
+    return rec
+
+
+def _same_tree(a, b):
+    import numpy as np
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.tobytes() == b.tobytes())
+
+
 # ------------------------------------------------- opt-in studies of B1
 
 #: the instrumented kernel's ``g_prof`` slots: cycles on thread 0 by phase
@@ -5248,6 +5542,33 @@ def _fused_input_routes(r):
 
 #: the forward tiles and rings ``--b5d-plans`` times: (bm, bn)
 B5D_TILES = [(128, 256), (128, 128), (64, 256), (64, 128), (128, 64), (64, 64)]
+
+
+def study_host_loop(here):
+    """``--host-loop``: phase (q) alone, with its details in
+    ``smoke_out/host_loop.json``."""
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.utils.native import csv_writer_lib
+
+    t0 = time.perf_counter()
+    build.build(["event_scan", "arrival_tables", "replay_ingest",
+                 "quantile_huber", "marginal", "adam", "replay_sample",
+                 "param_pack", "dense", "log_softmax"])
+    print(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
+    csv_writer_lib()
+    out_root = os.path.join(here, "smoke_out", "host_loop")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        phase_host_loop(report, out_root)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"[phase_host_loop: {report['phase_s']:.1f} s]")
+    with open(os.path.join(here, "smoke_out", "host_loop.json"), "w") as f:
+        json.dump(report, f, indent=1)
 
 
 def study_b5d_plans():
@@ -6093,6 +6414,9 @@ def main():
             return study_b1_chunk_ms(args[2])
         if len(args) == 2 and args[0] == "--b6a-only":
             return study_b6a_only(os.path.abspath(args[1]))
+        if args == ["--host-loop"]:
+            print(card_line())
+            return study_host_loop(here)
         if args == ["--b6a-variants"]:
             print(card_line())
             return study_b6a_variants(here)
@@ -6115,7 +6439,7 @@ def main():
         fail(f"unknown arguments {args}: run with none for the smoke, or "
              "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
              "--b1-ext [CHECKOUT], --cells-ab PARENT_CHECKOUT, "
-             "--b2-ab PARENT_CHECKOUT, --b6a-variants, "
+             "--b2-ab PARENT_CHECKOUT, --b6a-variants, --host-loop, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
              "PARENT_CHECKOUT [onehot|heads]")
     report = {}
@@ -6126,6 +6450,7 @@ def main():
     report["cuda"] = torch.version.cuda
 
     from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.utils.native import csv_writer_lib
 
     t0 = time.perf_counter()
     build.build(["event_scan", "event_scan64", "arrival_tables",
@@ -6133,6 +6458,9 @@ def main():
                  "replay_sample", "param_pack", "dense", "log_softmax"])
     build_s = time.perf_counter() - t0
     print(f"built CUDA kernels in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    csv_writer_lib()
+    print(f"built the native CSV writer in {time.perf_counter() - t0:.1f} s")
     for name, log in build.ptxas_reports.items():
         print(f"[ptxas {name}] " + " | ".join(
             line.strip() for line in log.splitlines()
@@ -6176,6 +6504,7 @@ def main():
         upd_launches = timed(phase_learning_cli, report, out_root)
         x64_launches = timed(phase_clock64_cli, report, out_root)
         timed(phase_checkpoint_cli, report, out_root)
+        timed(phase_host_loop, report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 

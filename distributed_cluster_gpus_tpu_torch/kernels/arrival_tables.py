@@ -75,24 +75,45 @@ def _validate(arr_key, c0, t0, cum0, epoch, family, sparams):
 def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
                              n: int, with_aux: bool = False):
     """Plain torch version: the same draws, fold and inversion, op by op
-    (lane by lane when the inputs carry a lane axis).
+    (the draws and the inversion lane by lane when the inputs carry a lane
+    axis, the fold every lane at once: each entry's adds are the same).
 
     Returns {"sizes", "tnext", "cum"} ([S, n], [R, S, n] with lanes: sizes
     float32, the others in the clocks' dtype), plus with ``with_aux``
     "aux_key" ([..., S, n, 2] int32, each entry's k_gap key words) and
     "aux_u" ([..., S, n], its uniform draw) — the kernel's debug outputs."""
-    lanes, S, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
-    if lanes:
-        outs = [arrival_tables_reference(arr_key[r], c0[r], t0[r], cum0[r],
-                                         epoch[r], family, sparams, n,
-                                         with_aux=with_aux)
-                for r in range(lanes[0])]
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    lanes, _, dev = _validate(arr_key, c0, t0, cum0, epoch, family, sparams)
     fam = family.tolist()
     sp = sparams.tolist()
     td = t0.dtype
+    if lanes:
+        per = [_draws(arr_key[r], c0[r], fam, sp, n, td)
+               for r in range(lanes[0])]
+        draws = {k: torch.stack([d[k] for d in per]) for k in per[0]}
+    else:
+        draws = _draws(arr_key, c0, fam, sp, n, td)
+    # the left fold, one add per entry (never a parallel cumsum: chunk
+    # invariance needs exactly this association)
+    inc = draws.pop("inc")
+    carry = torch.where(family == FAM_SIN_INV, cum0, t0)
+    cum = torch.empty(inc.shape, dtype=td, device=dev)
+    for i in range(n):
+        carry = carry + inc[..., i]
+        cum[..., i] = carry
+    tnext = (torch.stack([_tnext(cum[r], epoch[r], fam, sp)
+                          for r in range(lanes[0])]) if lanes
+             else _tnext(cum, epoch, fam, sp))
+    out = {"sizes": draws["sizes"], "tnext": tnext, "cum": cum}
+    if with_aux:
+        out.update(aux_key=draws["aux_key"], aux_u=draws["aux_u"])
+    return out
+
+
+def _draws(arr_key, c0, fam, sp, n: int, td):
+    """One lane's entries: sizes, the fold's increments and the gap draws'
+    key words and uniforms ([S, n] each, the keys [S, n, 2])."""
+    S, dev = len(fam), c0.device
     uniform = prng.uniform64 if td == torch.float64 else prng.uniform
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     counts = c0.to(torch.int64)[:, None] + torch.arange(n, device=dev)
     sizes = torch.zeros((S, n), dtype=torch.float32, device=dev)
     inc = torch.zeros((S, n), dtype=td, device=dev)
@@ -106,7 +127,7 @@ def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
         u = uniform(k_gap)
         e = -torch.log1p(-u)
         if fam[s] == FAM_POISSON:
-            rate = f32(sp[s][RATE])
+            rate = torch.tensor(sp[s][RATE], dtype=torch.float32, device=dev)
             # e * (1/rate): XLA turns the division by the (constant) rate
             # into a multiply by its reciprocal, in the draw's dtype (the
             # float32 rate widened under the float64 clock)
@@ -117,15 +138,15 @@ def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
             inc[s] = e
         aux_key[s] = k_gap.to(torch.int32)
         aux_u[s] = u
-    # the left fold, one add per entry (never a parallel cumsum: chunk
-    # invariance needs exactly this association)
-    carry = torch.where(family == FAM_SIN_INV, cum0, t0)
-    cum = torch.empty((S, n), dtype=td, device=dev)
-    for i in range(n):
-        carry = carry + inc[:, i]
-        cum[:, i] = carry
-    tnext = torch.full((S, n), math.inf, dtype=td, device=dev)
-    for s in range(S):
+    return {"sizes": sizes, "inc": inc, "aux_key": aux_key, "aux_u": aux_u}
+
+
+def _tnext(cum, epoch, fam, sp):
+    """One lane's next arrivals from its folded clocks ([S, n])."""
+    td, dev = cum.dtype, cum.device
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    tnext = torch.full(cum.shape, math.inf, dtype=td, device=dev)
+    for s in range(len(fam)):
         if fam[s] == FAM_POISSON:
             tnext[s] = cum[s]
         elif fam[s] == FAM_SIN_INV:
@@ -136,10 +157,7 @@ def arrival_tables_reference(arr_key, c0, t0, cum0, epoch, family, sparams,
             delta = torch.where(f32(rate) > 0, delta,
                                 torch.tensor(math.inf, dtype=td, device=dev))
             tnext[s] = epoch[s] + delta
-    out = {"sizes": sizes, "tnext": tnext, "cum": cum}
-    if with_aux:
-        out.update(aux_key=aux_key, aux_u=aux_u)
-    return out
+    return tnext
 
 
 def _lib():

@@ -11,12 +11,13 @@ B5b, the fused heads' backward) and says which refuse;
 (``run_sim.parse_args``) and ``CHSAC_AF`` call it for the card, so a
 setting outside the envelope is refused at once, never after the warm-up,
 and never falls back to the plain path.  The plain path (the CPU) has no
-envelope.
+envelope.  :func:`card_limits` adds B1's limits for every algorithm; both
+CLIs (``run_sim`` and ``eval``) call it at parse time.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 from . import dense, log_softmax, sac_update
 
@@ -121,3 +122,41 @@ def check_config(cfg) -> None:
     """:func:`check_update` of a ``SACConfig``."""
     check_update(cfg.batch, cfg.n_dc, cfg.n_g, cfg.obs_dim, cfg.n_quantiles,
                  cfg.latent, cfg.critic_arch)
+
+
+def card_limits(fleet, params) -> Optional[str]:
+    """Why the card cannot run ``params`` on ``fleet``, or None: B1 (the
+    event scan) takes at most 32 DCs, 32 ingresses and 32 frequency levels
+    and keeps a lane's slab in one block's shared memory (priced in the
+    run's clock and mode: the float64 clock's time columns and RL mode's
+    latency windows take more a slot), for every algorithm; under chsac_af
+    B1's RL mode acts with heads of at most 256 columns and the update's
+    kernels take their envelope (:func:`check_update`).  The message
+    states the limit and names the job cap ``job_cap``, as ``SimParams``
+    does."""
+    from .event_scan import (MAX_DC, MAX_FREQS, MAX_STREAMS, RL_ENVELOPE,
+                             rl_covers, slab_fits, slab_limit_text)
+
+    rl = params.algo == "chsac_af"
+    n_g = params.max_gpus_per_job
+    if (fleet.n_dc > MAX_DC or 2 * fleet.n_ing > MAX_STREAMS
+            or fleet.n_f > MAX_FREQS):
+        return (f"a fleet of {fleet.n_dc} DCs, {fleet.n_ing} ingresses and "
+                f"{fleet.n_f} frequency levels is outside B1's limits: at most "
+                f"{MAX_DC} DCs, {MAX_STREAMS // 2} ingresses and {MAX_FREQS} "
+                "frequency levels")
+    obs_dim = params.obs_dim(fleet.n_dc)
+    if rl and not rl_covers(obs_dim, fleet.n_dc, n_g):
+        return (f"chsac_af with {n_g} GPU-count actions is "
+                f"outside the card's envelope: {RL_ENVELOPE}; {ENVELOPE}")
+    if not slab_fits(params.job_cap, params.lat_window, rl, n_g, params.x64):
+        return (f"{params.algo} with job_cap {params.job_cap} does not fit "
+                "B1's shared memory: " + slab_limit_text(
+                    params.lat_window, rl, n_g, params.x64))
+    if rl:
+        try:
+            check_update(params.rl_batch, fleet.n_dc, n_g, obs_dim,
+                         critic_arch=params.critic_arch)
+        except ValueError as e:
+            return f"{e}; {RL_ENVELOPE}"
+    return None

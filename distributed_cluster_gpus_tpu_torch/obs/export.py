@@ -8,7 +8,7 @@ reference's schema.  The totals come from the port's
 fields are null, because the port carries no telemetry yet (the
 streaming exporters, the watchdog and the in-loop telemetry are ROADMAP
 queue A item 12).  The host loops write it when a run stops early
-(``status="interrupted"`` after SIGTERM/SIGINT).
+(``status="interrupted"`` after SIGTERM/SIGINT), with their phase split.
 """
 
 from __future__ import annotations
@@ -79,11 +79,17 @@ def write_status_summary(out_dir: str, *, algo: str, fleet, state,
     return path
 
 
-def host_phase_seconds(totals: Optional[Dict[str, float]] = None
+def host_phase_seconds(timer=None, csv_render_s: Optional[float] = None
                        ) -> Dict[str, float]:
-    """A host loop's wall-time split for ``run_summary.json``: its
-    per-phase wall seconds ``totals`` ({phase: seconds}; the trainer's
-    checkpoint saves and restore) as ``<phase>_s``.  (The reference reads
-    its ``PhaseTimer``'s totals; the port's timer is ROADMAP queue A item
-    12's.)"""
-    return {f"{name}_s": secs for name, secs in (totals or {}).items()}
+    """A host loop's wall-time split for ``run_summary.json``.
+
+    ``timer`` is the loop's ``obs.trace.PhaseTimer`` (dispatch, rollout,
+    io, ingest, train, the trainer's checkpoint saves and restore), each
+    phase as ``<phase>_s``; ``csv_render_s`` is the CSV drain worker's
+    render time, measured off the loop's path, added to ``io_render_s``."""
+    out: Dict[str, float] = {}
+    if timer is not None:
+        out = {f"{name}_s": secs for name, secs in timer.totals.items()}
+    if csv_render_s is not None:
+        out["io_render_s"] = out.get("io_render_s", 0.0) + csv_render_s
+    return out

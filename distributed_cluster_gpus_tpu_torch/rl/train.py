@@ -4,14 +4,20 @@ Counterpart of ``distributed_cluster_gpus_tpu/rl/train.py``'s ``make_agent``
 (``:234``), ``warm_sac_from_checkpoint`` (``:251``) and ``train_chsac``
 (``:333``).  Each chunk runs the engine with the agent's policy (on the
 card: the B1 kernel in RL mode, the policy inside the event loop), drains
-the chunk's CSV rows, ingests its transition stream into the replay ring
+the chunk's CSV rows (the native writer), ingests its transition stream
+into the replay ring
 (the B6a kernel on the card) and then runs the chunk's SAC/CMDP updates
 (``CHSAC_AF.train_steps``: B6b, B5a, B5b and B5c on the card), one per new
 transition up to ``max_train_steps_per_chunk``, once the ring holds
 ``--rl-warmup`` transitions.  The next chunk acts with the updated
 weights.  ``history`` keeps the last update's metrics of each chunk that
 updated, as numpy; ``verbose`` prints the reference's per-chunk line (the
-progress bar, the ring's size, the last critic loss and lambda).
+progress bar, the ring's size, the last critic loss and lambda) and, at the
+end, the phase timer's summary.  The loop is serial, as the reference's is
+(each chunk acts with the weights the previous chunk's updates wrote); it
+times the reference's phases: ``rollout`` (fenced on the state), ``io``
+(the drain), ``ingest``, ``train`` (fenced on the update's metrics) and the
+checkpoint's ``ckpt_save`` and ``ckpt_restore``.
 
 With ``ckpt_dir`` the whole run (the learner, the replay ring, the agent's
 key, the simulation state and the CSVs' byte watermark) is saved to the
@@ -34,7 +40,8 @@ import torch
 from .. import bridge
 from ..models.structs import FleetSpec, SimParams
 from ..sim.engine import Engine, init_state
-from ..sim.io import CSVWriters, drain_emissions, sim_progress
+from ..obs.trace import PhaseTimer, sim_progress
+from ..sim.io import CSVWriters, drain_emissions
 from .agent import CHSAC_AF
 from .cmdp import constraints_from_params
 
@@ -257,7 +264,8 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
     history)`` runs after every chunk, before its checkpoint;
     ``pre_tables`` (tests) injects the arrival tables of chunk ``c`` as
     ``pre_tables[c]``, a resumed run's too.  The agent's device is the
-    run's: ``device`` builds a default agent there.
+    run's: ``device`` builds a default agent there.  ``run_summary.json``
+    carries the loop's phase split as its ``host_phases``.
 
     ``ckpt_dir``: save the run to that verified store every
     ``ckpt_every_chunks`` chunks, when it ends and when it stops, as step
@@ -281,8 +289,7 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
     state = init_state(params.seed, fleet, params, workload=engine.workload,
                        device=engine.device)
     start_chunk, csv_watermark, fingerprint = 0, None, ""
-    #: wall seconds of the checkpoint work, run_summary.json's host phases
-    phases: Dict[str, float] = {}
+    timer = PhaseTimer()
     if ckpt_dir:
         from ..utils.checkpoint import config_fingerprint
 
@@ -294,21 +301,20 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
             if got is not None:
                 state, step, csv_watermark = got
                 start_chunk = step + 1
-                phases["ckpt_restore"] = time.perf_counter() - t0
+                timer.add_span("ckpt_restore", time.perf_counter() - t0)
     writers = _open_writers(out_dir, fleet, start_chunk, csv_watermark)
     run_log = _run_log(out_dir)
 
     def save_ckpt(chunk):
         from ..utils.checkpoint import gc_checkpoints, save_checkpoint
 
-        t0 = time.perf_counter()
-        save_checkpoint(ckpt_dir, step=chunk,
-                        metadata=_ckpt_metadata(fleet, params, fingerprint,
-                                                chunk),
-                        **ckpt_trees(agent, state, _save_watermark(writers)))
-        gc_checkpoints(ckpt_dir, keep=ckpt_keep or None)
-        phases["ckpt_save"] = (phases.get("ckpt_save", 0.0)
-                               + time.perf_counter() - t0)
+        with timer.phase("ckpt_save"):
+            save_checkpoint(ckpt_dir, step=chunk,
+                            metadata=_ckpt_metadata(fleet, params,
+                                                    fingerprint, chunk),
+                            **ckpt_trees(agent, state,
+                                         _save_watermark(writers)))
+            gc_checkpoints(ckpt_dir, keep=ckpt_keep or None)
 
     history: List[Dict] = []
     status = "completed"
@@ -317,14 +323,19 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
         if pre_tables is not None:
             pre = {k: torch.tensor(np.asarray(v), device=engine.device)
                    for k, v in pre_tables[chunk].items()}
-        state, emissions = engine.run_chunk(state, chunk_steps, pre=pre,
-                                            policy_params=agent.sac)
-        drain_emissions(emissions, writers)
+        with timer.phase("rollout", fence=lambda: state.t):
+            state, emissions = engine.run_chunk(state, chunk_steps, pre=pre,
+                                                policy_params=agent.sac)
+        with timer.phase("io"):
+            drain_emissions(emissions, writers)
         n_new = int(emissions["rl"]["valid"].sum())
-        agent.ingest_chunk(emissions["rl"])
+        with timer.phase("ingest"):
+            agent.ingest_chunk(emissions["rl"])
         n_want = min(n_new // max(train_every_n, 1), max_train_steps_per_chunk)
-        metrics, n_done = (agent.train_steps(n_want, max_train_steps_per_chunk)
-                           if n_want else (None, 0))
+        with timer.phase("train", fence=lambda: agent.sac.metrics):
+            metrics, n_done = (
+                agent.train_steps(n_want, max_train_steps_per_chunk)
+                if n_want else (None, 0))
         if metrics is not None:
             history.append({k: v.detach().cpu().numpy()
                             for k, v in metrics.items()})
@@ -359,5 +370,7 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
                 os.path.join(out_dir, SUMMARY_FILE)):
             write_status_summary(out_dir, algo=params.algo, fleet=fleet,
                                  state=state, status=status,
-                                 host_phases=host_phase_seconds(phases))
+                                 host_phases=host_phase_seconds(timer))
+    if verbose:
+        print(timer.summary())
     return state, agent, history

@@ -172,45 +172,16 @@ def parse_args(argv=None):
 
 
 def card_refusal(a):
-    """Why the card cannot run this CLI setting, or None: B1 (the event
-    scan) takes at most 32 DCs, 32 ingresses and 32 frequency levels and
-    keeps a lane's slab in one block's shared memory (priced in the run's
-    clock and mode: the float64 clock's time columns and RL mode's latency
-    windows take more a slot), for every algorithm; under chsac_af B1's RL
-    mode acts with heads of at most 256 columns and the update's kernels
-    take their envelope (``kernels/envelope.py``).  The message states the
-    limit."""
+    """Why the card cannot run this CLI setting, or None
+    (``kernels/envelope.py::card_limits`` of the CLI's fleet and params,
+    the job cap named by its flag)."""
     from .configs.paper import build_fleet, build_single_dc_fleet
-    from .kernels.envelope import ENVELOPE, check_update
-    from .kernels.event_scan import (MAX_DC, MAX_FREQS, MAX_STREAMS,
-                                     RL_ENVELOPE, rl_covers, slab_fits,
-                                     slab_limit_text)
+    from .kernels.envelope import card_limits
 
     fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
-    params = build_params(a)
-    rl = a.algo == "chsac_af"
-    if (fleet.n_dc > MAX_DC or 2 * fleet.n_ing > MAX_STREAMS
-            or fleet.n_f > MAX_FREQS):
-        return (f"a fleet of {fleet.n_dc} DCs, {fleet.n_ing} ingresses and "
-                f"{fleet.n_f} frequency levels is outside B1's limits: at most "
-                f"{MAX_DC} DCs, {MAX_STREAMS // 2} ingresses and {MAX_FREQS} "
-                "frequency levels")
-    obs_dim = params.obs_dim(fleet.n_dc)
-    if rl and not rl_covers(obs_dim, fleet.n_dc, a.max_gpus_per_job):
-        return (f"chsac_af with {a.max_gpus_per_job} GPU-count actions is "
-                f"outside the card's envelope: {RL_ENVELOPE}; {ENVELOPE}")
-    if not slab_fits(a.job_cap, params.lat_window, rl, a.max_gpus_per_job,
-                     params.x64):
-        return (f"{a.algo} with --job-cap {a.job_cap} does not fit B1's "
-                "shared memory: " + slab_limit_text(
-                    params.lat_window, rl, a.max_gpus_per_job, params.x64))
-    if rl:
-        try:
-            check_update(a.rl_batch, fleet.n_dc, a.max_gpus_per_job, obs_dim,
-                         critic_arch=a.critic_arch)
-        except ValueError as e:
-            return f"{e}; {RL_ENVELOPE}"
-    return None
+    why = card_limits(fleet, build_params(a))
+    return why and why.replace(f"with job_cap {a.job_cap} ",
+                               f"with --job-cap {a.job_cap} ", 1)
 
 
 def resolve_time_dtype(a) -> str:

@@ -4,9 +4,9 @@ Counterpart of ``distributed_cluster_gpus_tpu/sim/engine.py`` for the
 programs the port runs (the step itself and its plain version are in
 ``sim/step.py``).  ``Engine.run_chunk`` runs a chunk through
 ``kernels/event_scan.py``: on the card the B1 kernel (``csrc/event_scan.cu``)
-advances every rollout lane in one launch with no host read inside the
-chunk; on the CPU the plain step loop (``StepProgram.scan_plain``) does,
-lane by lane.
+advances every rollout lane in one launch, and nothing in ``run_chunk``
+reads the card; on the CPU the plain step loop
+(``StepProgram.scan_plain``) does, lane by lane.
 
 A state either is single or carries a leading lane axis ``[R, ...]`` on every
 leaf (``parallel/rollout.py``).  The state is updated in place (the JAX
@@ -154,10 +154,11 @@ class Engine(StepProgram):
         super().__init__(fleet, params, device)
         self.policy_apply = policy_apply
         self.workload = compile_workload(fleet, params, self.device)
-        #: the last run_chunk call: steps, events (all lanes) and, on the
-        #: CPU, the plain loop's host reads inside the chunk (None on the
-        #: card: the engine cannot count them there; chip_smoke.py measures
-        #: them with the profiler)
+        #: the last run_chunk call: steps, events (all lanes; on the card a
+        #: 0-d device tensor, read only by whoever asks) and, on the CPU,
+        #: the plain loop's host reads inside the chunk (None on the card:
+        #: the engine cannot count them there; chip_smoke.py measures them
+        #: with the profiler)
         self.stats = {"steps": 0, "events": 0, "host_reads": 0}
 
     def run_chunk(self, state: SimState, n_steps: int, pre=None,
@@ -186,8 +187,9 @@ class Engine(StepProgram):
         em, stats = event_scan(self, lanes, pre, n_steps, policy_params)
         self.workload.advance_carries(lanes, pre)
         if stats["events"] is None:
-            # the kernel's chunk: one read after it, the events it ran
-            stats["events"] = int((lanes.n_events - before).sum())
+            # the kernel's chunk: the events it ran, left on the card (no
+            # host read: the pipelined loop dispatches the next chunk first)
+            stats["events"] = (lanes.n_events - before).sum()
         self.stats = {"steps": n_steps, **stats}
         branch = em.pop("branch")
         em["cluster_valid"] = branch == EV_LOG

@@ -2,8 +2,9 @@
 
 * With the reference's own arrival tables injected chunk by chunk, the
   port's ``run_simulation`` (duo fleet) and its CLI (``run_sim --single-dc
-  --device cpu``) write ``job_log.csv`` and ``cluster_log.csv`` byte for byte
-  as the JAX ``run_simulation`` does.
+  --device cpu``, through the pipelined loop and the native CSV writer)
+  write ``job_log.csv`` and ``cluster_log.csv`` byte for byte as the JAX
+  ``run_simulation`` does.
 * With the port's own tables (torch samplers, ulp-level differences; see
   ``tests/test_torch_ops.py``) the same run realizes the same arrival counts
   per stream, the same completions and drops, and ``_summarize`` agrees
@@ -106,7 +107,16 @@ def test_own_tables_same_arrivals_and_summary(duo_runs, algo):
         assert abs(a[k] - b[k]) <= 1e-4 * abs(a[k]), k
 
 
-def test_cli_single_dc_byte_identical(tmp_path):
+def test_cli_single_dc_byte_identical(tmp_path, monkeypatch):
+    """The CLI's run goes through the pipelined loop (chunk N+1 dispatched
+    before chunk N is rendered on the drain's worker)."""
+    from distributed_cluster_gpus_tpu_torch.sim import io as tio
+
+    handoffs = []
+    submit = tio.AsyncCSVDrain.submit
+    monkeypatch.setattr(tio.AsyncCSVDrain, "submit",
+                        lambda self, em: (handoffs.append(1),
+                                          submit(self, em)))
     argv = ["--algo", "joint_nf", "--single-dc", "--duration", "15",
             "--log-interval", "3", "--seed", "4", "--chunk-steps", str(CHUNK),
             "--device", "cpu", "--quiet", "--out", str(tmp_path / "port")]
@@ -120,6 +130,7 @@ def test_cli_single_dc_byte_identical(tmp_path):
     for name in ("job_log.csv", "cluster_log.csv"):
         assert _read(tmp_path / "jax" / name) == _read(tmp_path / "port" / name)
     assert int(st.n_finished.sum()) == int(np.asarray(sj.n_finished).sum()) > 0
+    assert len(handoffs) == len(pre) - 1 >= 2  # one handoff a chunk
 
 
 def test_cli_refuses_unported(capsys):
