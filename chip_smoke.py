@@ -205,7 +205,30 @@ Phases (any failure exits non-zero before the result lines):
     run (B1's RL mode, B6a and the update's kernels in chsac_af's), each
     row equal field by field to ``_summarize`` of the same params run
     through ``run_sim.main``;
-21. print the card line, the kernel JSON line, then the device line.
+21. (r) the workload layer: B2's trace, ``rate_timeline`` and thinning
+    families against the plain version, bitwise, on the paper fleet's 16
+    streams (a trace with sizes, a periodic and a finite timeline with a
+    zero-rate bin, thinning at amp 2; ``workload_doc``) at R = 1, n =
+    4,096 and R = 32, n = 512, both clocks, two chunks each (the second
+    from the carried cursors, clocks and folds), timed beside the plain
+    version and the bound, then each family alone on the 16 streams; B1's
+    signal builds against the plain step, bitwise (every leaf, the cost
+    and carbon accumulators and the 16-column rows included), two
+    512-event chunks each at the CLI's shape: the base instance under
+    ``flash_crowd``, the extended one (``carbon_cost``, ``eco_route``,
+    ``--router-weights``) under ``diurnal_flash_week``, RL mode with the
+    observed timelines, the float64 build from t = 6e5 s, each beside its
+    signal-free twin's us per event; the CLIs ``--workload flash_crowd
+    --algo eco_route`` (3,600 s), ``--workload diurnal_flash_week --algo
+    carbon_cost`` over the week (float64), ``--workload
+    diurnal_flash_week --workload-observe --algo chsac_af`` (a day,
+    learning) and the phase's JSON spec (1,800 s): events/s, B1's device
+    time, the busy share, ``energy_cost_usd`` and ``carbon_kg``, the CSV
+    header's two columns, every launch the signal build; the agent's
+    ``select_action`` against the plain policy, and ``train_step`` with an
+    energy budget and a power-cap constraint on the kernels against the
+    plain path within the parity bounds;
+22. print the card line, the kernel JSON line, then the device line.
 
 Details go to ``smoke_out/chip_smoke.json`` (git-ignored).
 
@@ -217,6 +240,12 @@ Opt-in studies replace the smoke when asked for:
         phase of each event on thread 0): ``default_policy`` at the CLI's
         paper-fleet shape, then RL mode at the chsac_af CLI's shape, cycles
         per event by phase over three 4,096-step chunks each.
+    python3 chip_smoke.py --b1-phases-signals
+        B1's signal builds against their signal-free twins (``default_policy``
+        under flash_crowd, ``carbon_cost`` and observed ``chsac_af`` under
+        diurnal_flash_week, at the CLI's paper-fleet shape): us per event
+        over 4,096-step chunks, then cycles per event by phase from the
+        instrumented copies of both builds, and each phase's difference.
     python3 chip_smoke.py --b1-widths
         B1 of this checkout at every block width the kernel is built for,
         both modes at the A/B's shapes: us per event.
@@ -247,6 +276,10 @@ Opt-in studies replace the smoke when asked for:
     python3 chip_smoke.py --host-loop
         Phase (q) alone, after building B1 and B2 (and the update's
         kernels, which chsac_af's eval run launches).
+    python3 chip_smoke.py --workload
+        Phase (r) alone, after building what it runs (B1's builds, the
+        signal-free twins' too, B2, B6a and the update's kernels); the
+        phase's record in ``smoke_out/workload.json``.
     python3 chip_smoke.py --b5d-plans
         B5d's forward at the update's layer shapes with every tile and ring
         that fits: each bitwise against the plain version, device us per
@@ -5283,6 +5316,73 @@ def _phase_table(label, out, n_steps, wall_ms):
             "wall_ms": wall_ms}
 
 
+def _instrumented_b1(d, names):
+    """Build ``B1_ANCHORS``' instrumented copy of this checkout's
+    ``csrc/event_scan.cu`` into ``d`` under each of ``names`` (``event_scan``
+    itself; ``event_scan_sig``, the same with ``DCG_SIGNALS``), all ``nvcc``
+    processes started together, and make B1's wrapper launch them; returns
+    {name: ctypes handle}."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(build.CSRC_DIR, "event_scan.cu")) as f:
+        src = instrumented_event_scan(f.read())
+    with open(os.path.join(d, "event_scan.cu"), "w") as f:
+        f.write(src)
+    with open(os.path.join(d, "event_scan_sig.cu"), "w") as f:
+        f.write('#define DCG_SIGNALS 1\n#include "event_scan.cu"\n')
+    for h in os.listdir(build.CSRC_DIR):
+        if h.endswith(".cuh"):
+            shutil.copy(os.path.join(build.CSRC_DIR, h), d)
+    procs = {name: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(d, f"lib{name}.so"), os.path.join(d, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in names}
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"instrumented {name}.cu: nvcc failed\n{log}")
+        lib = ctypes.CDLL(os.path.join(d, f"lib{name}.so"))
+        lib.prof_read.argtypes = [ctypes.c_void_p]
+        build._libs[name] = lib  # the wrapper declares its entry points
+        b1._argtypes.discard(name)
+        libs[name] = lib
+    print(f"instrumented {build.CSRC_DIR}/event_scan.cu as {sorted(libs)}")
+    return libs
+
+
+def _b1_phase_chunks(lib, name, eng, params, fleet, n_steps, sac, result):
+    """Three ``n_steps`` chunks of B1 through the instrumented ``lib`` from
+    the run's start: ``_phase_table`` of each into ``result``."""
+    import ctypes
+
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+
+    st = with_lane_axis(init_state(params.seed, fleet, params,
+                                   workload=eng.workload, device="cuda"))
+    print(f"{name}: {b1.THREADS} threads per lane")
+    for c in range(3):
+        pre = eng.workload.tables(st, n_steps)
+        lib.prof_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b1.event_scan(eng, st, pre, n_steps, sac)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        eng.workload.advance_carries(st, pre)
+        out = (ctypes.c_ulonglong * 32)()
+        lib.prof_read(ctypes.cast(out, ctypes.c_void_p))
+        result[f"{name} chunk {c}"] = _phase_table(
+            f"{name} chunk {c}", list(out), n_steps, wall)
+
+
 def study_b1_phases(root):
     """``--b1-phases [CHECKOUT]``: where B1's cycles go, both modes, in the
     kernel of the checkout at CHECKOUT (default: this one).  Builds the
@@ -5292,33 +5392,10 @@ def study_b1_phases(root):
     CLI's paper-fleet shape, then of the chsac_af CLI's shape
     (``rl_setup``): cycles per event by phase (thread 0's clock), B3's
     call, round and window-walk counts; one JSON line at the end."""
-    import ctypes
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine
 
-    from distributed_cluster_gpus_tpu_torch.kernels import build
-    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
-    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
-    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
-
-    d = os.path.join(root, "smoke_out", "b1_phases")
-    os.makedirs(d, exist_ok=True)
-    with open(os.path.join(build.CSRC_DIR, "event_scan.cu")) as f:
-        src = instrumented_event_scan(f.read())
-    with open(os.path.join(d, "event_scan.cu"), "w") as f:
-        f.write(src)
-    for h in os.listdir(build.CSRC_DIR):
-        if h.endswith(".cuh"):
-            shutil.copy(os.path.join(build.CSRC_DIR, h), d)
-    lib_path = os.path.join(d, "lib.so")
-    r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                        "-o", lib_path, os.path.join(d, "event_scan.cu")],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        fail(f"instrumented event_scan.cu: nvcc failed\n{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(lib_path)
-    lib.prof_read.argtypes = [ctypes.c_void_p]
-    build._libs["event_scan"] = lib  # the wrapper declares its entry points
-    b1._argtypes = None
-    print(f"instrumented {build.CSRC_DIR}/event_scan.cu")
+    lib = _instrumented_b1(os.path.join(root, "smoke_out", "b1_phases"),
+                           ["event_scan"])["event_scan"]
     fleet, params, n = cli_params("default_policy")
     runs = [("default_policy", Engine(fleet, params, device="cuda"), fleet,
              params, n, None)]
@@ -5326,26 +5403,93 @@ def study_b1_phases(root):
     runs.append(("chsac_af", eng, fleet, params, n, agent.sac))
     result = {}
     for name, eng, fleet, params, n_steps, sac in runs:
-        st = with_lane_axis(init_state(params.seed, fleet, params,
-                                       workload=eng.workload, device="cuda"))
-        print(f"{name}: {b1.THREADS} threads per lane")
-        for c in range(3):
-            pre = eng.workload.tables(st, n_steps)
-            lib.prof_reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            b1.event_scan(eng, st, pre, n_steps, sac)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            eng.workload.advance_carries(st, pre)
-            out = (ctypes.c_ulonglong * 32)()
-            lib.prof_read(ctypes.cast(out, ctypes.c_void_p))
-            result[f"{name} chunk {c}"] = _phase_table(
-                f"{name} chunk {c}", list(out), n_steps, wall)
+        _b1_phase_chunks(lib, name, eng, params, fleet, n_steps, sac, result)
     print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), "(SM clock, max)")
     print(json.dumps({"b1_phases": result}))
+
+
+#: ``--b1-phases-signals``' pairs: label -> (algo, the signal run's flags);
+#: each against its signal-free twin (the same streams, no timelines).  The
+#: week's rates end the CLI's 600 s within one chunk: its runs take a day
+SIG_PHASE_RUNS = {
+    "base/flash_crowd": ("default_policy", ("--workload", "flash_crowd")),
+    "ext/carbon_cost": ("carbon_cost", ("--workload", "diurnal_flash_week",
+                                        "--duration", "86400")),
+    "rl/observed": ("chsac_af", ("--workload", "diurnal_flash_week",
+                                 "--workload-observe", "--duration", "86400")),
+}
+
+
+def study_b1_phases_signals(root):
+    """``--b1-phases-signals``: where B1's signal builds spend what their
+    signal-free twins do not.  For each run of ``SIG_PHASE_RUNS`` at the
+    CLI's paper-fleet shape (float32 clock) and its twin (the same params
+    with ``signals=None``; chsac_af's with its own perturbed policy at the
+    narrower observation): us per event of the uninstrumented kernels over
+    chunks 2-4 of four CLI-sized chunks (CUDA events), then cycles per
+    event by phase from the instrumented copies of ``event_scan.cu`` and
+    its signal build over three chunks each (``--b1-phases``' counters);
+    one JSON line at the end."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    build.build(["event_scan", "event_scan_sig", "arrival_tables"])
+    runs = []
+    for label, (algo, flags) in SIG_PHASE_RUNS.items():
+        fleet, params, n = cli_params(algo, flags)
+        twin = dataclasses.replace(params, workload=dataclasses.replace(
+            params.workload, signals=None))
+        for side, p in (("signals", params), ("twin", twin)):
+            sac = apply = None
+            if algo == "chsac_af":
+                agent = make_agent(fleet, p, device="cuda")
+                perturb_policy(agent.sac)
+                sac, apply = agent.sac, agent.policy_apply
+            eng = Engine(fleet, p, device="cuda", policy_apply=apply)
+            if (eng.signals is None) != (side == "twin"):
+                fail(f"--b1-phases-signals {label} {side}: signals wrong")
+            runs.append((f"{label} {side}", eng, fleet, p, n, sac))
+    result = {"us_per_event": {}}
+    for name, eng, fleet, params, n, sac in runs:
+        st = with_lane_axis(init_state(params.seed, fleet, params,
+                                       workload=eng.workload, device="cuda"))
+        us = []
+        for c in range(4):
+            pre = eng.workload.tables(st, n)
+            ev0 = int(st.n_events.sum())
+            ms, _ = _timed_chunk(eng, st, pre, n, sac)
+            eng.workload.advance_carries(st, pre)
+            if c:
+                us.append(ms / max(int(st.n_events.sum()) - ev0, 1) * 1e3)
+        result["us_per_event"][name] = statistics.mean(us)
+        print(f"{name}: {statistics.mean(us):.4f} us/event over chunks 2-4 "
+              f"of {n} steps ({us})", flush=True)
+    for label in SIG_PHASE_RUNS:
+        u = result["us_per_event"]
+        print(f"{label}: signals over twin x"
+              f"{u[label + ' signals'] / u[label + ' twin']:.4f}")
+    libs = _instrumented_b1(os.path.join(root, "smoke_out", "b1_phases_sig"),
+                            ["event_scan", "event_scan_sig"])
+    for name, eng, fleet, params, n, sac in runs:
+        lib = libs["event_scan" if name.endswith("twin") else "event_scan_sig"]
+        _b1_phase_chunks(lib, name, eng, params, fleet, n, sac, result)
+    for label in SIG_PHASE_RUNS:
+        sig = result[f"{label} signals chunk 2"]["cycles_per_event"]
+        twin = result[f"{label} twin chunk 2"]["cycles_per_event"]
+        print(f"{label}, chunk 2, cycles per event, signals - twin: " + ", ".join(
+            f"{k} {sig[k] - twin.get(k, 0.0):+.0f}" for k in sig
+            if abs(sig[k] - twin.get(k, 0.0)) >= 1.0))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), "(SM clock, max)")
+    print(json.dumps({"b1_phases_signals": result}))
 
 
 AB_MODES = ("default_policy", "joint_nf", "chsac_af")
@@ -6370,6 +6514,544 @@ def study_b2_ab(parent, change):
     print(json.dumps({"b2_ab": runs}))
 
 
+# ---------------------------------------------------------------- (r) workload
+
+#: phase (r)'s JSON spec on the paper fleet: every new B2 family on ingresses
+#: 0 and 1 (a replayed trace with sizes, a periodic rate timeline with a
+#: zero-rate bin; a finite one, thinning at amp 2), Poisson elsewhere, and a
+#: price and carbon timeline with a price-0 bin.  The thinning stream's
+#: silent third of a period (20 s at 0.5 arrivals/s) takes ~10 candidates
+#: to cross, inside the plain replay's first block of 32
+WORKLOAD_BIN_S = 600.0
+WORKLOAD_TRACE_N = 20000
+
+
+def workload_doc(n_ing=8, n_dc=8):
+    """Phase (r)'s workload document (``workload_from_dict``)."""
+    import numpy as np
+
+    g = np.random.RandomState(18)
+    times = np.cumsum(g.exponential(1 / 25.0, WORKLOAD_TRACE_N))
+    poisson = ({"kind": "poisson", "rate": 4.0}, {"kind": "poisson", "rate": 0.05})
+    streams = [
+        {"ingress": 0,
+         "inference": {"kind": "trace", "times": times.round(4).tolist(),
+                       "sizes": g.uniform(1.0, 60.0, WORKLOAD_TRACE_N)
+                       .round(3).tolist()},
+         "training": {"kind": "rate_timeline", "rates": [0.2, 0.0, 0.5, 0.1],
+                      "bin_s": WORKLOAD_BIN_S, "periodic": True}},
+        {"ingress": 1,
+         "inference": {"kind": "rate_timeline", "rates": [6.0, 0.0, 20.0, 3.0],
+                       "bin_s": WORKLOAD_BIN_S, "periodic": False},
+         "training": {"kind": "sinusoid", "rate": 0.5, "amp": 2.0,
+                      "period": 20.0, "phase_s": 3.0}}]
+    streams += [{"ingress": i, "inference": poisson[0], "training": poisson[1]}
+                for i in range(2, n_ing)]
+    carbon = (g.uniform(0, 600, (6, n_dc)) * (g.random((6, n_dc)) > 0.2))
+    return {"name": "smoke_families", "streams": streams,
+            "signals": {"price": [0.12, 0.0, 0.31, 0.18, 0.09],
+                        "carbon": carbon.round(1).tolist(),
+                        "bin_s": 300.0, "periodic": True}}
+
+
+#: B2's per-family timing calls: (label, family code's name, the stream of
+#: workload_doc the family's streams copy)
+B2_FAMILIES = (("trace", "FAM_TRACE", (0, "inference")),
+               ("rate_timeline", "FAM_RATE_TL", (1, "inference")),
+               ("thinning", "FAM_THIN", (1, "training")))
+#: the JAX package's functions the new families replace
+B2_FAMILY_SITES = {"trace": "workload/compiler.py:322",
+                   "rate_timeline": "workload/compiler.py:410",
+                   "thinning": "workload/compiler.py:386"}
+#: phase (r)'s CLI runs: label -> argv past the output directory
+WORKLOAD_CLIS = {
+    "flash_eco": ("--workload", "flash_crowd", "--algo", "eco_route",
+                  "--duration", "3600"),
+    "week_carbon": ("--workload", "diurnal_flash_week", "--algo",
+                    "carbon_cost", "--duration", "604800"),
+    "day_rl": ("--workload", "diurnal_flash_week", "--workload-observe",
+               "--algo", "chsac_af", "--duration", "86400"),
+    "spec_default": ("--workload", "SPEC", "--algo", "default_policy",
+                     "--duration", "1800"),
+}
+#: B1's signal instances in phase (r): label -> (algo, workload, extra CLI
+#: flags, start time or None)
+SIG_B1_CASES = {
+    "base/flash_crowd": ("default_policy", "flash_crowd", (), None),
+    "ext/carbon_cost": ("carbon_cost", "diurnal_flash_week", (), None),
+    "ext/eco_route": ("eco_route", "diurnal_flash_week",
+                      ("--eco-objective", "carbon"), None),
+    "ext/weighted": ("default_policy", "diurnal_flash_week",
+                     ("--router-weights", ROUTER_WEIGHTS), None),
+    "rl/observed": ("chsac_af", "diurnal_flash_week", ("--workload-observe",),
+                    None),
+    "f64/eco_route": ("eco_route", "legacy_signals",
+                      ("--eco-objective", "cost", "--inf-mode", "poisson",
+                       "--duration", "604800"), 6.0e5),
+}
+SIG_B1_STEPS = 512
+#: the entries of B2's per-family calls (the thinning family's plain version
+#: replays every candidate with a host read: 1,024 keeps it to seconds)
+B2_FAMILY_N = 1024
+#: B2's mixed configurations (lanes, entries): the CLI's chunk and the
+#: bench's 32 lanes of 512
+B2_WORKLOAD_SHAPES = ((1, 4096), (32, 512))
+
+
+def _b2_args(wl, st, lanes=()):
+    S = wl.n_streams
+    shape = lanes + (S,)
+    return (st.arr_key, st.arr_count.reshape(shape).contiguous(),
+            st.next_arrival.reshape(shape).contiguous(),
+            st.arr_cum.reshape(shape).contiguous(),
+            st.arr_epoch.reshape(shape).contiguous(), wl.family_t, wl.sparams)
+
+
+def _b2_work(b2, wl, out, n, R):
+    """(bytes, ops) of one B2 call: the outputs written once, the inputs and
+    the packed constants read once; per entry the key chains and samplers
+    of every drawing stream, a timeline's search (log2 T + a few ops), and
+    for a thinning stream the candidates its entries needed (lam_max times
+    the span its entries cover, 3 threefry blocks, an Exp, a uniform and
+    the sinusoid each)."""
+    import math
+
+    fams = wl.family_t.tolist()
+    S = len(fams)
+    c = wl.consts(out["tnext"].dtype)
+    tb = out["tnext"].element_size()
+    cbytes = 0 if c is None else sum(x.numel() * x.element_size()
+                                     for x in (c.cbuf, c.sbuf, c.meta))
+    bytes_moved = R * S * (8 + 4 + 3 * tb) + cbytes + R * S * n * (4 + 2 * tb)
+    ops = 0
+    tn = out["tnext"].reshape(R, S, n)
+    for s, f in enumerate(fams):
+        if f == b2.FAM_OFF:
+            continue
+        ops += R * n * (BLOCKS_PER_ENTRY * THREEFRY_OPS + SAMPLER_OPS)
+        if f == b2.FAM_RATE_TL:
+            T = int(c.meta[s, 1])
+            ops += R * n * (2 * int(math.log2(T + 1) + 1) + 12)
+        if f == b2.FAM_THIN:
+            rate, amp = (float(x) for x in wl.sparams[s, :2])
+            lam_max = rate * (1.0 + abs(amp))
+            for r in range(R):
+                row = tn[r, s]
+                fin = row[torch.isfinite(row)]
+                span = float(fin[-1] - fin[0]) if fin.numel() > 1 else 0.0
+                cands = lam_max * span + n
+                ops += int(cands * (3 * THREEFRY_OPS + SAMPLER_OPS + 40))
+    return bytes_moved, ops
+
+
+def _b2_same(out, ref, where):
+    for k in ref:
+        a, b = out[k], ref[k]
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        if not _same_bits(a, b):
+            fail(f"{where}: {k} differs from the plain version")
+
+
+def _b2_carry(wl, st, out, used):
+    """The engine's carry over ``used`` consumed entries: cursors, clocks
+    (the last consumed entry) and the cumulative folds."""
+    c0 = st.arr_count.reshape(out["tnext"].shape[:-1]).clone()
+    st.arr_count += used
+    st.next_arrival.copy_(out["tnext"][..., used - 1].reshape(st.next_arrival.shape))
+    wl.advance_carries(st, dict(out, c0=c0))
+
+
+def phase_workload_b2(report):
+    """(r, B2) the new families against the plain version, bitwise."""
+    from distributed_cluster_gpus_tpu_torch.configs.paper import build_fleet
+    from distributed_cluster_gpus_tpu_torch.kernels import arrival_tables as b2
+    from distributed_cluster_gpus_tpu_torch.models.structs import SimParams
+    from distributed_cluster_gpus_tpu_torch.parallel.rollout import batched_init
+    from distributed_cluster_gpus_tpu_torch.sim.engine import init_state
+    from distributed_cluster_gpus_tpu_torch.workload import workload_from_dict
+    from distributed_cluster_gpus_tpu_torch.workload.compiler import (
+        compile_workload)
+
+    fleet = build_fleet()
+    doc = workload_doc(fleet.n_ing, fleet.n_dc)
+    rec = {"configs": {}, "families": {}}
+    for td in ("float32", "float64"):
+        spec = workload_from_dict(doc, n_ing=fleet.n_ing)
+        params = SimParams(workload=spec, time_dtype=td, job_cap=512,
+                           queue_cap=1024, seed=123)
+        wl = compile_workload(fleet, params, "cuda")
+        fams = wl.family_t.tolist()
+        for name in ("FAM_TRACE", "FAM_RATE_TL", "FAM_THIN"):
+            if getattr(b2, name) not in fams:
+                fail(f"B2 phase (r): the workload has no {name} stream")
+        for R, n in B2_WORKLOAD_SHAPES:
+            where = f"B2 families {td} R={R} n={n}"
+            st = (init_state(params.seed, fleet, params, workload=wl,
+                             device="cuda") if R == 1 else
+                  batched_init(fleet, params, R, workload=wl, device="cuda"))
+            lanes = () if R == 1 else (R,)
+            for chunk in range(2):
+                args = _b2_args(wl, st, lanes)
+                c = wl.consts(st.t.dtype)
+                out = b2.arrival_tables(*args, n, with_aux=True, consts=c)
+                t0 = time.perf_counter()
+                ref = b2.arrival_tables_reference(*args, n, with_aux=True,
+                                                  consts=c)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                _b2_same(out, ref, f"{where} chunk {chunk}")
+                if chunk == 1:
+                    ms = _queued_ms(lambda: b2.arrival_tables(*args, n, consts=c),
+                                    reps=10, runs=3, what=where)
+                    by, ops = _b2_work(b2, wl, out, n, R)
+                    bms, bby = bound(by, ops)
+                    rec["configs"][f"{td}/R{R}/n{n}"] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": bby, "bytes": by, "ops": ops}
+                    print(f"{where}: bitwise over 2 chunks; kernel {ms:.4f} ms, "
+                          f"plain {plain_ms:.1f} ms, bound {bms:.5f} ms ({bby})")
+                _b2_carry(wl, st, out, n // 2 + 1)
+    # each family alone on every stream (S = 16, R = 1, n = B2_FAMILY_N,
+    # float32): its own kernel time, plain time and bound
+    for label, fam_name, (ing, jt) in B2_FAMILIES:
+        src = doc["streams"][ing][jt]
+        fdoc = {"name": label, "streams": [
+            {"ingress": i, "inference": src, "training": src}
+            for i in range(fleet.n_ing)]}
+        params = SimParams(workload=workload_from_dict(fdoc, n_ing=fleet.n_ing),
+                           job_cap=512, queue_cap=1024, seed=123)
+        wl = compile_workload(fleet, params, "cuda")
+        st = init_state(params.seed, fleet, params, workload=wl, device="cuda")
+        args, c, n = _b2_args(wl, st), wl.consts(torch.float32), B2_FAMILY_N
+        out = b2.arrival_tables(*args, n, with_aux=True, consts=c)
+        t0 = time.perf_counter()
+        ref = b2.arrival_tables_reference(*args, n, with_aux=True, consts=c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _b2_same(out, ref, f"B2 {label} alone")
+        ms = _queued_ms(lambda: b2.arrival_tables(*args, n, consts=c), reps=10,
+                        runs=3, what=f"B2 {label}")
+        by, ops = _b2_work(b2, wl, out, n, 1)
+        bms, bby = bound(by, ops)
+        rec["families"][label] = {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bms, "bound_by": bby,
+                                  "bytes": by, "ops": ops, "max_abs_err": 0.0}
+        print(f"B2 {label} alone (S = 16, n = {n:,}, float32): bitwise; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bms:.5f} ms ({bby})")
+    report["workload_b2"] = rec
+
+
+def _signal_free_twin_us(fleet, params, sac, t_start):
+    """B1's us per event of the same run without its signal timelines (the
+    signal-free build, the same streams), over its second 512-step chunk
+    (kernel only); chsac_af with its own perturbed policy at the narrower
+    observation."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch.models.structs import with_lane_axis
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    twin = dataclasses.replace(params, workload=dataclasses.replace(
+        params.workload, signals=None))
+    apply = None
+    if twin.algo == "chsac_af":
+        agent = make_agent(fleet, twin, device="cuda")
+        perturb_policy(agent.sac)
+        sac, apply = agent.sac, agent.policy_apply
+    eng = Engine(fleet, twin, device="cuda", policy_apply=apply)
+    st = with_lane_axis(init_state(twin.seed, fleet, twin,
+                                   workload=eng.workload, device="cuda"))
+    if t_start is not None:
+        bridged(st, t_start, twin.log_interval)
+    for _ in range(2):
+        pre = eng.workload.tables(st, SIG_B1_STEPS)
+        ev0 = int(st.n_events.sum())
+        ms, _ = _timed_chunk(eng, st, pre, SIG_B1_STEPS, sac)
+        eng.workload.advance_carries(st, pre)
+    return ms / max(int(st.n_events.sum()) - ev0, 1) * 1e3
+
+
+def phase_workload_b1(report):
+    """(r, B1) the signal instances against the plain step, bitwise, two
+    512-event chunks each at the CLI's paper-fleet shape."""
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+    from distributed_cluster_gpus_tpu_torch.models.structs import (
+        clone_state, with_lane_axis)
+    from distributed_cluster_gpus_tpu_torch.sim.engine import Engine, init_state
+
+    rec = {}
+    for label, (algo, wl_name, extra, t_start) in SIG_B1_CASES.items():
+        flags = ("--workload", wl_name) + tuple(extra)
+        if algo == "chsac_af":
+            fleet, params, _, eng, agent = rl_setup(flags)
+            sac = agent.sac
+        else:
+            fleet, params, _ = cli_params(algo, flags)
+            eng, sac = Engine(fleet, params, device="cuda"), None
+        if eng.signals is None:
+            fail(f"B1 signals {label}: the run has no signal timelines")
+        st = with_lane_axis(init_state(params.seed, fleet, params,
+                                       workload=eng.workload, device="cuda"))
+        if t_start is not None:
+            bridged(st, t_start, params.log_interval)
+        other = clone_state(st)
+        before_sig = b1.event_scan.sig_launches
+        for c in range(2):
+            pre = eng.workload.tables(st, SIG_B1_STEPS)
+            before = clone_state(st)
+            k_ms, em_k = _timed_chunk(eng, st, pre, SIG_B1_STEPS, sac)
+            t0 = time.perf_counter()
+            em_r, _ = b1.event_scan_reference(eng, other, pre, SIG_B1_STEPS, sac)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            em_diff(em_k, em_r, f"B1 signals {label} chunk {c}")
+            eng.workload.advance_carries(st, pre)
+            eng.workload.advance_carries(other, pre)
+            bad = bridge.tree_mismatches(bridge.state_to_numpy(other),
+                                         bridge.state_to_numpy(st))
+            if bad:
+                fail(f"B1 signals {label} chunk {c}: state differs from the "
+                     f"plain step at {bad[:5]}")
+        if b1.event_scan.sig_launches != before_sig + 2:
+            fail(f"B1 signals {label}: {b1.event_scan.sig_launches - before_sig} "
+                 "signal launches, 2 expected")
+        twin_us = _signal_free_twin_us(fleet, params, sac, t_start)
+        by, ops, counts = b1_work(eng, before, st, pre, em_k, SIG_B1_STEPS)
+        n_log, n_dc = counts["log_ticks"], fleet.n_dc
+        sg = eng.signals
+        by += (8 * n_log * n_dc + sg.price.numel() * 4 + sg.carbon.numel() * 4
+               + 2 * 2 * n_dc * 4)  # the two columns, the timelines, the sums
+        ops += counts["events"] * 4 * n_dc  # the accrual's two products a DC
+        bms, bby = bound(by, ops)
+        ev = counts["events"]
+        rec[label] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                      "bound_by": bby, "events": ev,
+                      "us_per_event": k_ms / max(ev, 1) * 1e3,
+                      "twin_us_per_event": twin_us,
+                      "x64": params.x64, "max_abs_err": 0.0,
+                      "cost_usd": float(st.signals.cost_usd.sum()),
+                      "carbon_g": float(st.signals.carbon_g.sum())}
+        print(f"B1 signals {label} ({algo}, --workload {wl_name}"
+              f"{', from t = %.0f s' % t_start if t_start else ''}"
+              f"{', float64' if params.x64 else ''}): 2 x {SIG_B1_STEPS} steps "
+              f"bitwise (every leaf, signals.cost_usd and carbon_g included); "
+              f"second chunk {ev} events, kernel {k_ms:.3f} ms "
+              f"({rec[label]['us_per_event']:.2f} us/event; the signal-free "
+              f"twin {twin_us:.2f}, x{rec[label]['us_per_event'] / twin_us:.3f}), "
+              f"plain {p_ms:.0f} ms, bound {bms:.6f} ms ({bby})")
+    report["workload_b1"] = rec
+
+
+def phase_workload_cli(report, out_root):
+    """(r, CLIs) the workload CLIs: events/s, B1's device time, the busy
+    share, the energy cost and carbon; every kernel of each path launched."""
+    from distributed_cluster_gpus_tpu_torch import run_sim
+    from distributed_cluster_gpus_tpu_torch.kernels import event_scan as b1
+
+    spec_path = os.path.join(out_root, "smoke_families.json")
+    with open(spec_path, "w") as f:
+        json.dump(workload_doc(), f)
+    rec = {}
+    for label, flags in WORKLOAD_CLIS.items():
+        flags = tuple(spec_path if x == "SPEC" else x for x in flags)
+        out = os.path.join(out_root, f"workload_{label}")
+        argv = ["--out", out, "--device", "cuda", "--quiet", *flags]
+        gc_cuda()
+        read = _zero_launches()
+        b1.event_scan.sig_launches = b1.event_scan.x64_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with B1Tally() as tally, ChunkSpans() as spans:
+            st = run_sim.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        launches["sig"] = b1.event_scan.sig_launches
+        launches["x64"] = b1.event_scan.x64_launches
+        if launches["event_scan"] == 0 or launches["arrival_tables"] == 0:
+            fail(f"workload CLI {label}: B1 or B2 never launched {launches}")
+        if launches["sig"] != launches["event_scan"]:
+            fail(f"workload CLI {label}: {launches['sig']} of "
+                 f"{launches['event_scan']} B1 launches took the signal build")
+        if "--algo" in flags and flags[flags.index("--algo") + 1] == "chsac_af":
+            if launches["rl"] == 0 or launches["replay_ingest"] == 0 or \
+                    launches["quantile_huber"] == 0:
+                fail(f"workload CLI {label}: RL mode, B6a or the update never "
+                     f"ran {launches}")
+        with open(os.path.join(out, "cluster_log.csv")) as f:
+            header = f.readline().strip()
+        if not header.endswith("price_usd_kwh,carbon_g_kwh"):
+            fail(f"workload CLI {label}: cluster_log.csv header {header!r}")
+        from distributed_cluster_gpus_tpu_torch.evaluation import signal_metrics
+
+        sm = signal_metrics(st)
+        events = int(st.n_events)
+        r = {"events": events, "wall_s": wall, "events_per_s": events / wall,
+             "b1_ms": tally.ms(), "busy_share": spans.ms() / (wall * 1e3),
+             "time_dtype": str(st.t.dtype), "launches": launches, **sm}
+        if not all(map(lambda v: v == v and abs(v) < 1e30, sm.values())) or \
+                not sm.get("energy_cost_usd", 0) > 0:
+            fail(f"workload CLI {label}: signal totals {sm}")
+        rec[label] = r
+        print(f"workload CLI {label} ({' '.join(flags)}): {events} events in "
+              f"{wall:.2f} s, {r['events_per_s']:.1f} events/s; B1 "
+              f"{r['b1_ms']:.1f} ms device; busy share {r['busy_share']:.3f}; "
+              f"energy_cost_usd {sm['energy_cost_usd']:.4f}, carbon_kg "
+              f"{sm['carbon_kg']:.4f}; clock {r['time_dtype']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    report["workload_cli"] = rec
+    return rec
+
+
+def phase_workload_agent(report):
+    """(r, A9) the agent's host calls on the card: ``select_action`` equal
+    to the plain policy's action for the same key (B4's device code through
+    ``rl_tail_batch``); ``train_step`` with a finite energy budget and a
+    power-cap constraint on the kernels against the plain path's update
+    from the same state and sample, within the parity bounds."""
+    import dataclasses
+
+    from distributed_cluster_gpus_tpu_torch import bridge
+    from distributed_cluster_gpus_tpu_torch.ops import prng
+    from distributed_cluster_gpus_tpu_torch.rl.sac import sac_train_step
+
+    flags = ("--workload", "diurnal_flash_week", "--workload-observe",
+             "--energy_budget_j", "300", "--power-cap-constraint", "300",
+             "--rl-warmup", "100")
+    fleet, params, _, eng, agent = rl_setup(flags)
+    n_dc, n_g, obs_dim = fleet.n_dc, params.max_gpus_per_job, params.obs_dim(8)
+    obs, m_dc, m_g, _ = seeded_decisions(16, obs_dim, n_dc, n_g, seed=31)
+    for i in range(obs.shape[0]):
+        k = prng.split(agent.key, 2)[1]
+        got = agent.select_action(obs[i], m_dc[i], m_g[i], program=eng)
+        a_dc, a_g = agent.policy_apply(agent.sac, obs[i].cuda(), m_dc[i].cuda(),
+                                       m_g[i].cuda(), k.cuda())
+        if got != {"dc": int(a_dc), "g": int(a_g)}:
+            fail(f"select_action row {i}: {got} against the plain policy's "
+                 f"({int(a_dc)}, {int(a_g)})")
+    cons = [c.target for c in agent.cfg.constraints]
+    if cons[1] != 300.0 or cons[3] != 300.0:
+        fail(f"train_step: the constraints' targets are {cons}")
+    ring = seeded_ring(8192, 2, 2048, 0.6, 32, obs_dim=obs_dim, n_dc=n_dc,
+                       n_g=n_g)
+    agents = [agent]
+    from distributed_cluster_gpus_tpu_torch.rl.train import make_agent
+
+    agents.append(make_agent(fleet, params, device="cuda"))
+    agents[1].sac = bridge.sac_from_numpy(agents[0].cfg, bridge.sac_to_numpy(
+        agents[0].cfg, agents[0].sac), device="cuda")
+    agents[1].key = agents[0].key.clone()
+    for ag in agents:
+        ag.replay = ring
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        k = prng.split(agents[1].key, 2)[1]
+        mk = agents[0].train_step()
+        sac_train_step(agents[1].cfg, agents[1].sac, ring, k.cuda(), plain=True)
+        mp = {n: v.clone() for n, v in agents[1].sac.metrics.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if mk is None:
+        fail("train_step: not warmed up on a filled ring")
+    cfg = agents[0].cfg
+    e_tree = bridge.sac_to_numpy(cfg, agents[0].sac)
+    p_tree = bridge.sac_to_numpy(cfg, agents[1].sac)
+    far = bridge.sac_far_apart(cfg, p_tree, e_tree, 1, (mp, mk))
+    if far:
+        fail(f"train_step with the constraints: the plain path lies beyond "
+             f"the parity bounds at {far[:5]}")
+    lam = agents[0].sac.cmdp.lam.tolist()
+    print(f"A9 on the card: select_action equal to the plain policy on 16 "
+          f"seeded decisions (obs_dim {obs_dim}); train_step with "
+          f"energy_budget_j 300 and power_cap_constraint 300 within the parity "
+          f"bounds of the plain path; lambda {lam}")
+    report["workload_agent"] = {"lambda": lam, "obs_dim": obs_dim}
+
+
+def workload_entries(report, runs, entry):
+    """Phase (r)'s kernel-line entries: B2's three new families (launches:
+    B2's in the workload CLI runs whose workload has the family) and B1's
+    signal instances by clock (launches: the signal builds' in those runs;
+    ms, plain_ms and bound_ms from the same chunk)."""
+    fam_runs = {"trace": ("spec_default",), "thinning": ("spec_default",),
+                "rate_timeline": tuple(WORKLOAD_CLIS)}
+    out = []
+    fams = report["workload_b2"]["families"]
+    for label, _, _ in B2_FAMILIES:
+        out.append(dict(entry(f"arrival_tables_{label}", "arrival_tables.cu",
+                              B2_FAMILY_SITES[label],
+                              sum(runs[r]["launches"]["arrival_tables"]
+                                  for r in fam_runs[label]),
+                              fams[label], None),
+                        configs={k: v for k, v in
+                                 report["workload_b2"]["configs"].items()}))
+    b1r = report["workload_b1"]
+    for name, src, x64 in (("event_scan_signals", "event_scan_sig.cu", False),
+                           ("event_scan_signals_f64", "event_scan_sig64.cu",
+                            True)):
+        labels = [k for k, v in b1r.items() if v["x64"] == x64]
+        main = b1r[labels[0]]
+        launches = sum(r["launches"]["sig"] for r in runs.values()
+                       if (r["time_dtype"] == "torch.float64") == x64)
+        out.append(dict(entry(name, src, "sim/engine.py:725", launches, main,
+                              None),
+                        instances={k: {f: b1r[k][f] for f in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "us_per_event")} for k in labels}))
+    return out
+
+
+def study_workload(here):
+    """``--workload``: phase (r) alone, after building what it runs."""
+    from distributed_cluster_gpus_tpu_torch.kernels import build
+    from distributed_cluster_gpus_tpu_torch.utils.native import csv_writer_lib
+
+    t0 = time.perf_counter()
+    build.build(["event_scan", "event_scan64", "event_scan_sig",
+                 "event_scan_sig64", "arrival_tables", "replay_ingest",
+                 "quantile_huber", "marginal", "adam", "replay_sample",
+                 "param_pack", "dense", "log_softmax"])
+    csv_writer_lib()
+    print(f"built the phase's kernels in {time.perf_counter() - t0:.1f} s")
+    for name, log in build.ptxas_reports.items():
+        print(f"[ptxas {name}] " + " | ".join(
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line))
+    report = {"card": card_line()}
+    out_root = os.path.join(here, "smoke_out", "workload")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    try:
+        phase_workload(report, out_root)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(f"[phase_workload: {report['workload_s']:.1f} s]")
+    with open(os.path.join(here, "smoke_out", "workload.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({k: report[k] for k in ("workload_b2", "workload_b1")}))
+
+
+def phase_workload(report, out_root):
+    """(r) the workload layer: B2's new families, B1's signal instances, the
+    workload CLIs and the agent's host calls."""
+    t0 = time.perf_counter()
+    split = report["workload_phase_s"] = {}
+    for fn, args in ((phase_workload_b2, ()), (phase_workload_b1, ()),
+                     (phase_workload_cli, (out_root,)),
+                     (phase_workload_agent, ())):
+        t = time.perf_counter()
+        out = fn(report, *args)
+        split[fn.__name__] = time.perf_counter() - t
+        print(f"[{fn.__name__}: {split[fn.__name__]:.1f} s]", flush=True)
+        if fn is phase_workload_cli:
+            launches = out
+    report["workload_s"] = time.perf_counter() - t0
+    return launches
+
+
 def main():
     # cuBLAS's deterministic mode (phase (k) compares two paths' matmuls)
     # needs its workspace fixed before the first product
@@ -6388,6 +7070,9 @@ def main():
             sys.path.insert(0, root)
             print(card_line())
             return study_b1_phases(root)
+        if args == ["--b1-phases-signals"]:
+            print(card_line())
+            return study_b1_phases_signals(here)
         if args == ["--b1-widths"]:
             print(card_line())
             return study_b1_widths()
@@ -6417,6 +7102,9 @@ def main():
         if args == ["--host-loop"]:
             print(card_line())
             return study_host_loop(here)
+        if args == ["--workload"]:
+            print(card_line())
+            return study_workload(here)
         if args == ["--b6a-variants"]:
             print(card_line())
             return study_b6a_variants(here)
@@ -6437,9 +7125,11 @@ def main():
             sys.path.insert(0, os.path.abspath(args[1]))
             return study_update_child(*args[2:])
         fail(f"unknown arguments {args}: run with none for the smoke, or "
-             "--b1-phases [CHECKOUT], --b1-widths, --b1-ab PARENT_CHECKOUT, "
+             "--b1-phases [CHECKOUT], --b1-phases-signals, --b1-widths, "
+             "--b1-ab PARENT_CHECKOUT, "
              "--b1-ext [CHECKOUT], --cells-ab PARENT_CHECKOUT, "
              "--b2-ab PARENT_CHECKOUT, --b6a-variants, --host-loop, "
+             "--workload, "
              "--b5d-plans, --b5-tails, --fused-input-cuts or --update-ab "
              "PARENT_CHECKOUT [onehot|heads]")
     report = {}
@@ -6453,7 +7143,8 @@ def main():
     from distributed_cluster_gpus_tpu_torch.utils.native import csv_writer_lib
 
     t0 = time.perf_counter()
-    build.build(["event_scan", "event_scan64", "arrival_tables",
+    build.build(["event_scan", "event_scan64", "event_scan_sig",
+                 "event_scan_sig64", "arrival_tables",
                  "replay_ingest", "quantile_huber", "marginal", "adam",
                  "replay_sample", "param_pack", "dense", "log_softmax"])
     build_s = time.perf_counter() - t0
@@ -6505,6 +7196,7 @@ def main():
         x64_launches = timed(phase_clock64_cli, report, out_root)
         timed(phase_checkpoint_cli, report, out_root)
         timed(phase_host_loop, report, out_root)
+        wl_runs = timed(phase_workload, report, out_root)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
@@ -6620,6 +7312,7 @@ def main():
               x64_launches["replay_sample"], c64["b6b"], None),
         entry("clip_adam_polyak_x64", "adam.cu", "rl/sac.py:279",
               x64_launches["adam_update"], c64["b5c"], None),
+        *workload_entries(report, wl_runs, entry),
     ]}
     report["kernels"] = kernels["kernels"]
     with open(os.path.join(here, "smoke_out", "chip_smoke.json"), "w") as f:

@@ -30,7 +30,7 @@ import torch
 
 from .device import resolve_device
 from .models.structs import (DCArrays, FleetSpec, JobSlab, LatWindow,
-                             QueueRings, SimState)
+                             QueueRings, SignalState, SimState)
 from .ops import prng
 from .ops.bandit import BanditState
 from .ops.physics import LatencyCoeffs, PowerCoeffs
@@ -81,12 +81,18 @@ def _build(cls, tree, device):
 def state_from_numpy(tree: Dict, device="cuda") -> SimState:
     """A port SimState on ``device`` (the card unless the caller asks for
     the CPU) from nested dicts of numpy arrays.  A tree whose leaves carry a
-    leading lane axis (a JAX ``vmap``-ed state) gives a lane-stacked state."""
+    leading lane axis (a JAX ``vmap``-ed state) gives a lane-stacked state.
+    A tree without ``signals`` (a run without signal timelines) gives a
+    state whose ``signals`` is None."""
     device = resolve_device(device)
     nested = {"dc": DCArrays, "jobs": JobSlab, "lat": LatWindow,
-              "queues": QueueRings, "bandit": BanditState}
+              "queues": QueueRings, "bandit": BanditState,
+              "signals": SignalState}
     kw = {}
     for f in dataclasses.fields(SimState):
+        if f.name == "signals" and tree.get("signals") is None:
+            kw[f.name] = None
+            continue
         v = tree[f.name]
         if f.name in nested:
             kw[f.name] = _build(nested[f.name], v, device)

@@ -16,7 +16,20 @@
 //   * per stream: the sequential LEFT fold carry += inc[i] (never a
 //     parallel scan: chunk invariance depends on this association);
 //   * per (s, i): tnext = fold (poisson), epoch + 30-step bisection of the
-//     integrated sinusoid rate (sin_inv), or +inf (off).
+//     integrated sinusoid rate (sin_inv), the trace's time at the cursor
+//     (+inf past its end; a trace with explicit sizes reads them at
+//     count - 1 and draws nothing), the inversion of a rate timeline's
+//     integrated rate at the fold (a binary search over its cumulative
+//     rates qc, the periodic wrap and its base as fused multiply-adds,
+//     zero-rate bins and the end of a finite timeline), or +inf (off);
+//   * per thinning stream (a sinusoid with |amp| > 1), `thin_kernel`, one
+//     thread a (lane, stream) walking its entries in order: the rejection
+//     loop of ops/arrivals.py next_interarrival, three threefry blocks, an
+//     Exp, a uniform and the sinusoid a candidate (the slowest family: a
+//     warp's threads diverge on their candidate counts).
+// The trace and timeline constants come packed in one buffer with
+// per-stream offsets (kernels/arrival_tables.py StreamConsts), so one
+// launch still builds every stream's and every lane's tables.
 // R rollout lanes (the JAX vmap axis) share one launch: lane r has its own
 // arr_key, cursors and clocks, and its tables are bit for bit the ones a
 // single-lane launch with that lane's inputs writes.
@@ -68,6 +81,11 @@ namespace {
 constexpr int kFamOff = 0;
 constexpr int kFamPoisson = 1;
 constexpr int kFamSinInv = 2;
+constexpr int kFamTrace = 3;
+constexpr int kFamRateTl = 4;
+constexpr int kFamThin = 5;
+// StreamConsts.meta columns (kernels/arrival_tables.py M_*)
+constexpr int kMOff = 0, kMLen = 1, kMSoff = 2, kMFlag = 3;
 constexpr int kChunk = 512;  // a stage of the fold block's pipeline (floats)
 constexpr int kRing = 3;     // chunks in flight: staged, folded, drained
 constexpr int kFoldVec = 8;  // float4s the folding thread loads a batch
@@ -134,6 +152,15 @@ __device__ __forceinline__ float erfinv_xla(float x) {
   return p * x;
 }
 
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fmax_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_t(double a, double b) { return fmax(a, b); }
+
 __device__ __forceinline__ float pymod(float a, float b) {
   float r = fmodf(a, b);
   if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
@@ -146,13 +173,17 @@ __device__ __forceinline__ double pymod(double a, double b) {
 }
 
 // kernel 1: one thread per (lane, stream, entry) - keys, size, gap
-// increment (TimeT: the clock's type, float or double)
+// increment (TimeT: the clock's type, float or double).  A trace with
+// explicit sizes reads them at count - 1 and draws nothing; the trace and
+// thinning families draw no gap (their increments are 0).
 template <typename TimeT>
 __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
                              const int* __restrict__ c0,
                              const int* __restrict__ family,
                              const float* __restrict__ sparams, int R, int S,
-                             int n, float* __restrict__ sizes,
+                             int n, const float* __restrict__ sbuf,
+                             const int* __restrict__ meta,
+                             float* __restrict__ sizes,
                              TimeT* __restrict__ inc,
                              int* __restrict__ aux_key,
                              TimeT* __restrict__ aux_u) {
@@ -164,9 +195,24 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
   const int s = rs - r * S;
   const int i = (int)(idx - (long long)rs * n);
   const int fam = family[s];
+  const bool no_gap = fam == kFamOff || fam == kFamTrace || fam == kFamThin;
+  if (no_gap) {
+    inc[idx] = (TimeT)0;
+    if (aux_key != nullptr) {
+      aux_key[2 * idx] = 0;
+      aux_key[2 * idx + 1] = 0;
+      aux_u[idx] = (TimeT)0;
+    }
+  }
   if (fam == kFamOff) {
     sizes[idx] = 0.0f;
-    inc[idx] = (TimeT)0;
+    return;
+  }
+  if (fam == kFamTrace && meta[4 * s + kMFlag]) {
+    const int len = meta[4 * s + kMLen];
+    int c = c0[rs] + i - 1;
+    c = c < 0 ? 0 : (c > len - 1 ? len - 1 : c);
+    sizes[idx] = sbuf[meta[4 * s + kMSoff] + c];
     return;
   }
   const float rate = sparams[4 * s + 0];
@@ -212,6 +258,7 @@ __global__ void draws_kernel(const int64_t* __restrict__ arr_key,
     }
   }
   sizes[idx] = size;
+  if (no_gap) return;
   TimeT ug, e;
   if constexpr (kD) {
     uint32_t h, l;
@@ -248,6 +295,10 @@ struct Arrive {
   float rate, period, w;
   TimeT phase0, cos0;
   float coef, den_lo, den_hi, den_per;
+  // trace: its times and length and the stream's cursor; rate_timeline:
+  // qc [T+1], rates [T], bin_s, T * bin_s (at `tl`), T and periodic
+  const TimeT* tl;
+  int len, c0, per;
 };
 
 __device__ __forceinline__ float cos_t(float x) { return cosf(x); }
@@ -256,10 +307,19 @@ __device__ __forceinline__ double cos_t(double x) { return cos(x); }
 template <typename TimeT>
 __device__ __forceinline__ Arrive<TimeT> arrive_of(
     const int* __restrict__ family, const float* __restrict__ sparams,
-    const TimeT* __restrict__ epoch, int s, int rs) {
+    const TimeT* __restrict__ epoch, const TimeT* __restrict__ cbuf,
+    const int* __restrict__ meta, const int* __restrict__ c0, int s, int rs) {
   Arrive<TimeT> A;
   A.fam = family[s];
   A.ep = epoch[rs];
+  A.tl = nullptr;
+  A.len = A.c0 = A.per = 0;
+  if (A.fam == kFamTrace || A.fam == kFamRateTl) {
+    A.tl = cbuf + meta[4 * s + kMOff];
+    A.len = meta[4 * s + kMLen];
+    A.per = meta[4 * s + kMFlag];
+    A.c0 = c0[rs];
+  }
   const float rate = sparams[4 * s + 0], amp_s = sparams[4 * s + 1];
   const float period = sparams[4 * s + 2];
   const TimeT anchor = A.ep + (TimeT)sparams[4 * s + 3];
@@ -311,12 +371,58 @@ __device__ __forceinline__ double sin_inv_gap(const Arrive<double>& A,
   return 0.5 * (lo + hi);
 }
 
-// the next arrival of a stream from its fold f
+// Lambda^{-1}(s) of a piecewise-constant rate timeline (T bins), as
+// kernels/arrival_tables.py `invert_timeline` computes it: the periodic
+// wrap's remainder and its base added by fused multiply-adds (XLA's CPU
+// contraction, both clocks), searchsorted(side="right") as the count of
+// boundaries qc[k] <= s, zero-rate bins and the end of a finite timeline
 template <typename TimeT>
-__device__ __forceinline__ TimeT tnext_of(const Arrive<TimeT>& A, TimeT f) {
+__device__ TimeT invert_timeline(const TimeT* __restrict__ tl, int T, int per,
+                                 TimeT s) {
+  const TimeT* qc = tl;
+  const TimeT* rates = tl + T + 1;
+  const TimeT bs = tl[2 * T + 1], span = tl[2 * T + 2];
+  const TimeT inf = (TimeT)CUDART_INF_F;
+  TimeT srem = s, wraps = (TimeT)0;
+  if (per) {
+    const TimeT total = qc[T];
+    wraps = floor(s * ((TimeT)1 / total));
+    srem = fma_t(-wraps, total, s);
+  }
+  int lo = 0, hi = T + 1;  // the first boundary above srem
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (qc[mid] <= srem) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int b = lo - 1;
+  b = b < 0 ? 0 : (b > T - 1 ? T - 1 : b);
+  const TimeT rb = rates[b], qb = qc[b];
+  const TimeT bt = (TimeT)b * bs;
+  TimeT t_in = bt + (srem - qb) / fmax_t(rb, (TimeT)1e-30);
+  if (!(rb > (TimeT)0)) t_in = srem <= qb ? bt : inf;
+  if (!per) return srem > qc[T] ? inf : t_in;
+  return fma_t(wraps, span, t_in);
+}
+
+// the next arrival of entry i of a stream from its fold f (a thinning
+// stream's come from thin_kernel, which runs after)
+template <typename TimeT>
+__device__ __forceinline__ TimeT tnext_of(const Arrive<TimeT>& A, TimeT f,
+                                          int i) {
+  const TimeT inf = (TimeT)CUDART_INF_F;
   if (A.fam == kFamPoisson) return f;
-  if (A.fam != kFamSinInv) return (TimeT)CUDART_INF_F;
-  return A.ep + (A.rate > 0.0f ? sin_inv_gap(A, f) : (TimeT)CUDART_INF_F);
+  if (A.fam == kFamSinInv)
+    return A.ep + (A.rate > 0.0f ? sin_inv_gap(A, f) : inf);
+  if (A.fam == kFamTrace) {
+    const long long c = (long long)A.c0 + i;
+    return c < A.len ? A.tl[c] : inf;
+  }
+  if (A.fam == kFamRateTl) return invert_timeline(A.tl, A.len, A.per, f);
+  return inf;
 }
 
 // The left fold c += tile[j], tile[j] = c over tile[0..len) by one thread
@@ -402,7 +508,10 @@ __global__ void fold_kernel(const int* __restrict__ family,
                             const float* __restrict__ sparams,
                             const TimeT* __restrict__ t0,
                             const TimeT* __restrict__ cum0,
-                            const TimeT* __restrict__ epoch, int n,
+                            const TimeT* __restrict__ epoch,
+                            const TimeT* __restrict__ cbuf,
+                            const int* __restrict__ meta,
+                            const int* __restrict__ c0, int n,
                             int invert, TimeT* __restrict__ cum,
                             TimeT* __restrict__ tnext) {
   __shared__ __align__(16) TimeT ring[kRing][kChunk + kFoldPad];
@@ -411,7 +520,8 @@ __global__ void fold_kernel(const int* __restrict__ family,
   TimeT* row = cum + (long long)rs * n;
   TimeT* trow = tnext + (long long)rs * n;
   const int nc = (n + kChunk - 1) / kChunk;
-  const Arrive<TimeT> A = arrive_of(family, sparams, epoch, s, rs);
+  const Arrive<TimeT> A =
+      arrive_of(family, sparams, epoch, cbuf, meta, c0, s, rs);
   // chunk k's fold out of the ring (and its next arrivals), threads t0,
   // t0 + step, ...
   auto drain = [&](int k, int t0, int step) {
@@ -419,10 +529,11 @@ __global__ void fold_kernel(const int* __restrict__ family,
     const int base = k * kChunk, len = min(kChunk, n - base);
     for (int j = t0; j < len; j += step) {
       row[base + j] = buf[j];
-      if (invert) trow[base + j] = tnext_of(A, buf[j]);
+      if (invert) trow[base + j] = tnext_of(A, buf[j], base + j);
     }
   };
-  TimeT c = A.fam == kFamSinInv ? cum0[rs] : t0[rs];  // thread 0's
+  // thread 0's carry: the cumulative Exp sum or the clock
+  TimeT c = (A.fam == kFamSinInv || A.fam == kFamRateTl) ? cum0[rs] : t0[rs];
   stage(ring[0], row, min(kChunk, n), tid, nt);
   __syncthreads();
   for (int k = 0; k < nc; ++k) {
@@ -444,21 +555,101 @@ __global__ void fold_kernel(const int* __restrict__ family,
 template <typename TimeT>
 __global__ void tnext_kernel(const int* __restrict__ family,
                              const float* __restrict__ sparams,
-                             const TimeT* __restrict__ epoch, int R, int S,
+                             const TimeT* __restrict__ epoch,
+                             const TimeT* __restrict__ cbuf,
+                             const int* __restrict__ meta,
+                             const int* __restrict__ c0, int R, int S,
                              int n, const TimeT* __restrict__ cum,
                              TimeT* __restrict__ tnext) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)R * S * n) return;
   const int rs = (int)(idx / n);  // lane * S + stream
-  tnext[idx] = tnext_of(arrive_of(family, sparams, epoch, rs % S, rs), cum[idx]);
+  tnext[idx] = tnext_of(
+      arrive_of(family, sparams, epoch, cbuf, meta, c0, rs % S, rs), cum[idx],
+      (int)(idx - (long long)rs * n));
 }
 
-// The three launches for one clock type (see arrival_tables_launch).
+__device__ __forceinline__ float sin_t(float x) { return sinf(x); }
+__device__ __forceinline__ double sin_t(double x) { return sin(x); }
+
+// kernel 4: one thread per (lane, thinning stream) - the sequential replay
+// of the rejection loop, entry by entry (kernels/arrival_tables.py
+// `thinning_replay`, op for op): entry i's k_gap = split(fold_in(fold_in(
+// arr_key, s), c0 + i))[1]; each candidate splits its key into three (the
+// next key, the Exp draw's, the uniform's), adds Exp / lam_max to w and
+// accepts when u <= lambda(t + phase + w) / lam_max, lambda the clamped
+// sinusoid at (2 pi mod(x, period)) / period; at most 2^22 candidates.
+template <typename TimeT>
+__global__ void thin_kernel(const int64_t* __restrict__ arr_key,
+                            const int* __restrict__ c0,
+                            const TimeT* __restrict__ t0,
+                            const int* __restrict__ family,
+                            const float* __restrict__ sparams,
+                            const TimeT* __restrict__ cbuf,
+                            const int* __restrict__ meta, int R, int S, int n,
+                            TimeT* __restrict__ tnext) {
+  constexpr bool kD = sizeof(TimeT) == 8;
+  const int rs = blockIdx.x * blockDim.x + threadIdx.x;
+  if (rs >= R * S) return;
+  const int r = rs / S, s = rs - r * S;
+  if (family[s] != kFamThin) return;
+  const float rate = sparams[4 * s + 0], amp = sparams[4 * s + 1];
+  const TimeT period = (TimeT)sparams[4 * s + 2];
+  const TimeT phase = cbuf[meta[4 * s + kMOff]];
+  const float lam_max = rate * (1.0f + fabsf(amp));
+  const TimeT denom = (TimeT)fmaxf(lam_max, 1e-30f);
+  const bool live = lam_max > 0.0f;
+  const TimeT inf = (TimeT)CUDART_INF_F;
+  const TimeT two_pi = kD ? (TimeT)6.283185307179586 : (TimeT)6.2831855f;
+  uint32_t ks0, ks1;
+  child((uint32_t)arr_key[2 * r], (uint32_t)arr_key[2 * r + 1], (uint32_t)s,
+        ks0, ks1);
+  TimeT t = t0[rs];
+  TimeT* row = tnext + (long long)rs * n;
+  for (int i = 0; i < n; ++i) {
+    uint32_t k0, k1, g0, g1;
+    child(ks0, ks1, (uint32_t)(c0[rs] + i), k0, k1);
+    child(k0, k1, 1u, g0, g1);  // k_gap
+    const TimeT tq = t + phase;
+    TimeT w = (TimeT)0;
+    bool done = !live;
+    for (int it = 0; it < (1 << 22) && !done; ++it) {
+      uint32_t n0, n1, w0, w1, u0, u1;
+      child(g0, g1, 0u, n0, n1);
+      child(g0, g1, 1u, w0, w1);
+      child(g0, g1, 2u, u0, u1);
+      g0 = n0;
+      g1 = n1;
+      TimeT e, u;
+      if constexpr (kD) {
+        uint32_t h, l;
+        tf::bits64(w0, w1, h, l);
+        e = -log1p(-unit_double(h, l));
+        tf::bits64(u0, u1, h, l);
+        u = unit_double(h, l);
+      } else {
+        e = -log1pf(-unit_float(bits32(w0, w1)));
+        u = unit_float(bits32(u0, u1));
+      }
+      w = w + e / denom;
+      const TimeT x = tq + w;
+      const TimeT ph = two_pi * pymod(x, period) / period;
+      TimeT lam = (TimeT)rate * ((TimeT)1 + (TimeT)amp * sin_t(ph));
+      lam = isnan(lam) ? lam : fmax_t(lam, (TimeT)0);
+      done = u <= lam / denom;
+    }
+    t = t + ((live && isfinite(w)) ? w : inf);
+    row[i] = t;
+  }
+}
+
+// The launches for one clock type (see arrival_tables_launch).
 template <typename TimeT>
 int launch_tables(const int64_t* arr_key, const int* c0, const TimeT* t0,
                   const TimeT* cum0, const TimeT* epoch, const int* family,
                   const float* sparams, int R, int S, int n, float* sizes,
                   TimeT* tnext, TimeT* cum, int* aux_key, TimeT* aux_u,
+                  const TimeT* cbuf, const float* sbuf, const int* meta,
                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (R <= 0 || S <= 0 || n <= 0) return (int)cudaSuccess;
@@ -467,7 +658,8 @@ int launch_tables(const int64_t* arr_key, const int* c0, const TimeT* t0,
   const long long total = (long long)R * S * n;
   const int blocks = (int)((total + threads - 1) / threads);
   draws_kernel<TimeT><<<blocks, threads, 0, st>>>(
-      arr_key, c0, family, sparams, R, S, n, sizes, cum, aux_key, aux_u);
+      arr_key, c0, family, sparams, R, S, n, sbuf, meta, sizes, cum, aux_key,
+      aux_u);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the fold blocks invert their own entries where they alone fill the card
@@ -478,12 +670,22 @@ int launch_tables(const int64_t* arr_key, const int* c0, const TimeT* t0,
   if (err != cudaSuccess) return (int)err;
   const int invert = (long long)S * R >= 2LL * sms;
   fold_kernel<TimeT><<<dim3(S, R), threads, 0, st>>>(
-      family, sparams, t0, cum0, epoch, n, invert, cum, tnext);
+      family, sparams, t0, cum0, epoch, cbuf, meta, c0, n, invert, cum, tnext);
   err = cudaGetLastError();
-  if (err != cudaSuccess || invert) return (int)err;
-  tnext_kernel<TimeT><<<blocks, threads, 0, st>>>(family, sparams, epoch, R, S,
-                                                  n, cum, tnext);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (!invert) {
+    tnext_kernel<TimeT><<<blocks, threads, 0, st>>>(
+        family, sparams, epoch, cbuf, meta, c0, R, S, n, cum, tnext);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (meta != nullptr) {  // the thinning streams, if any, last
+    const int tb = 64;
+    thin_kernel<TimeT><<<(R * S + tb - 1) / tb, tb, 0, st>>>(
+        arr_key, c0, t0, family, sparams, cbuf, meta, R, S, n, tnext);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -492,17 +694,20 @@ int launch_tables(const int64_t* arr_key, const int* c0, const TimeT* t0,
 // (arr_key) and [R, S] (c0, t0, cum0, epoch); outputs are [R, S, n].  `cum`
 // doubles as the increment scratch of the first two kernels.  aux_key/aux_u
 // may be null; when given they receive each entry's k_gap key words and its
-// uniform draw.  Returns the cudaError_t of the launches (0 on success).
+// uniform draw.  cbuf/sbuf/meta (kernels/arrival_tables.py StreamConsts)
+// may be null when no stream is a trace, a rate timeline or a thinning
+// replay.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int arrival_tables_launch(const int64_t* arr_key, const int* c0,
                                      const float* t0, const float* cum0,
                                      const float* epoch, const int* family,
                                      const float* sparams, int R, int S, int n,
                                      float* sizes, float* tnext, float* cum,
                                      int* aux_key, float* aux_u,
-                                     void* stream) {
+                                     const float* cbuf, const float* sbuf,
+                                     const int* meta, void* stream) {
   return launch_tables<float>(arr_key, c0, t0, cum0, epoch, family, sparams,
                               R, S, n, sizes, tnext, cum, aux_key, aux_u,
-                              stream);
+                              cbuf, sbuf, meta, stream);
 }
 
 // The float64 clock's tables: the clocks, `tnext`, `cum` and `aux_u` are
@@ -513,8 +718,10 @@ extern "C" int arrival_tables64_launch(const int64_t* arr_key, const int* c0,
                                        const float* sparams, int R, int S,
                                        int n, float* sizes, double* tnext,
                                        double* cum, int* aux_key,
-                                       double* aux_u, void* stream) {
+                                       double* aux_u, const double* cbuf,
+                                       const float* sbuf, const int* meta,
+                                       void* stream) {
   return launch_tables<double>(arr_key, c0, t0, cum0, epoch, family, sparams,
                                R, S, n, sizes, tnext, cum, aux_key, aux_u,
-                               stream);
+                               cbuf, sbuf, meta, stream);
 }

@@ -7,7 +7,8 @@
 //
 // C ABI, loaded with ctypes by utils/native.py, which builds this file
 // with g++ -O2 -shared -fPIC on first use.  Rows arrive as packed float32
-// in the engine's column order (sim/step.py CLUSTER_COLS / JOB_COLS); the
+// in the engine's column order (sim/step.py CLUSTER_COLS / JOB_COLS; a run
+// with signal timelines appends SIGNAL_CLUSTER_COLS to the cluster rows); the
 // entity names come once as a '\n'-joined blob, indexed per row.  Each
 // call appends to the file at `path` and returns the rows written, or -1
 // with errno set when the file cannot be opened, written or closed.
@@ -51,12 +52,14 @@ int64_t finish(FILE* f, int64_t written) {
 
 extern "C" {
 
-// rows: [n_ticks, n_dc, 14] float32 in CLUSTER_COLS order.
+// rows: [n_ticks, n_dc, n_cols] float32 in CLUSTER_COLS order; n_cols is
+// 14, or 16 for a run with signal timelines (price_usd_kwh and
+// carbon_g_kwh after energy_kJ, "%.4f" and "%.2f" as sim/io.py writes them).
 int64_t write_cluster_rows(const char* path, const float* rows,
                            int64_t n_ticks, int64_t n_dc,
-                           const char* dc_names_blob) {
+                           const char* dc_names_blob, int64_t n_cols) {
   auto names = split_names(dc_names_blob);
-  if ((int64_t)names.size() < n_dc) {
+  if ((int64_t)names.size() < n_dc || (n_cols != 14 && n_cols != 16)) {
     errno = EINVAL;
     return -1;
   }
@@ -66,13 +69,15 @@ int64_t write_cluster_rows(const char* path, const float* rows,
   int64_t written = 0;
   for (int64_t t = 0; t < n_ticks; ++t) {
     for (int64_t d = 0; d < n_dc; ++d) {
-      const float* c = rows + (t * n_dc + d) * 14;
+      const float* c = rows + (t * n_dc + d) * n_cols;
       // time_s,dc,freq,busy,free,run_total,run_inf,run_train,q_inf,q_train,
       // util_inst,util_avg,acc_job_unit,power_W,energy_kJ
-      fprintf(f, "%.3f,%s,%.2f,%d,%d,%d,%d,%d,%d,%d,%.4f,%.4f,%.4f,%.2f,%.4f\r\n",
+      fprintf(f, "%.3f,%s,%.2f,%d,%d,%d,%d,%d,%d,%d,%.4f,%.4f,%.4f,%.2f,%.4f",
               c[0], names[d].c_str(), c[1], (int)c[2], (int)c[3], (int)c[4],
               (int)c[5], (int)c[6], (int)c[7], (int)c[8], c[9], c[10], c[11],
               c[12], c[13]);
+      if (n_cols == 16) fprintf(f, ",%.4f,%.2f", c[14], c[15]);
+      fputs("\r\n", f);
       ++written;
     }
   }

@@ -44,6 +44,20 @@
 //       counted per lane (P_CTL).  Every eco score is written in XLA's
 //       association (`E / 3.6e6 * price` as `E * (price * kKwh)`).
 //
+// The signal builds (`kSig`: csrc/event_scan_sig.cu and event_scan_sig64.cu
+// compile this source with DCG_SIGNALS; every instance, 256 threads a
+// lane): a workload's price timeline [T_p] and carbon timeline [T_c, n_dc]
+// in global memory, sampled by bin (floor(t * fl(1/bin_s)), wrapped or
+// clamped: workload/signals.py).  The accrual adds each DC's cost
+// e * (price * kKwh) (over one DC (e * kKwh) * price, as XLA associates
+// them) and carbon (e * kKwh) * ci beside its energy, at the gap's start,
+// each DC thread caching its last bins' samples in shared memory; the log
+// row takes the price and the DC's carbon at the tick (16 columns);
+// carbon_cost's admission table and eco_route's are kept per (price bin,
+// carbon bin) pair instead of per hour; the weighted score reads the
+// samples; RL mode appends price / 0.25 and carbon / 1000 to the
+// observation.  The signal-free builds compile as they did.
+//
 // RL mode (chsac_af, `Lane::step_rl`): the event branches defer routing and
 // the post-finish drain to the policy tail, which runs on every event:
 //   B3 (sim/algos.py:210 `windowed_percentile`, `rlk::windowed_p99`): the
@@ -146,7 +160,14 @@
 
 #include "threefry.cuh"
 
-#ifdef DCG_CLOCK64
+// the build's entry-point suffix: "64" for the double clock, "_sig" /
+// "_sig64" for the signal instances (csrc/event_scan_sig.cu,
+// csrc/event_scan_sig64.cu)
+#if defined(DCG_SIGNALS) && defined(DCG_CLOCK64)
+#define DCG_ENTRY(name) name##_sig64
+#elif defined(DCG_SIGNALS)
+#define DCG_ENTRY(name) name##_sig
+#elif defined(DCG_CLOCK64)
 #define DCG_ENTRY(name) name##64
 #else
 #define DCG_ENTRY(name) name
@@ -268,6 +289,15 @@ constexpr int CAP_NONE = 0, CAP_IDLE = 1, CAP_UNIFORM = 2, CAP_GREEDY = 3;
 // float32(1 / 3.6e6): XLA's multiplier for `/ 3.6e6` (sim/algos.py KWH)
 constexpr float kKwh = 2.7777778655035945e-07f;
 
+// the signal instances' operands (kernels/event_scan.py sig_operands): the
+// price timeline [T_p] and the carbon timeline [T_c, n_dc] (float32), the
+// lanes' cost and carbon accumulators [R, n_dc] (float32, read and
+// written), the timelines' lengths and wraps, and the reciprocals of their
+// bin widths in the clock's type (XLA's multiplier for `t / bin_s`)
+enum SigPtr { SP_PRICE, SP_CARBON, SP_COST, SP_CARB, N_SIG_PTRS };
+enum SigInt { SI_NP, SI_NC, SI_PPER, SI_CPER, N_SIG_INTS };
+enum SigDbl { SD_PINV, SD_CINV, N_SIG_DBLS };
+
 struct Args {
   void* p[N_PTRS];
   int i[N_INTS];
@@ -275,7 +305,20 @@ struct Args {
 #ifdef DCG_CLOCK64
   double d[N_DBLS];
 #endif
+#ifdef DCG_SIGNALS
+  void* sp[N_SIG_PTRS];
+  int si[N_SIG_INTS];
+  double sd[N_SIG_DBLS];
+#endif
 };
+
+// this build's signal flag: the signal instances are their own translation
+// units, so the signal-free builds compile as they did
+#ifdef DCG_SIGNALS
+constexpr bool kSigBuild = true;
+#else
+constexpr bool kSigBuild = false;
+#endif
 
 // slab fields in shared memory: 8 int32 columns then 10 float32 columns
 enum JI { JI_STATUS, JI_JTYPE, JI_INGRESS, JI_DC, JI_SEQ, JI_N, JI_FIDX,
@@ -371,6 +414,26 @@ struct Ext {
 };
 template <bool kExt> struct ExtOf { using T = Ext; };
 template <> struct ExtOf<false> { using T = int; };
+
+// The signal instances' lane state, in static shared memory of those
+// instances only (`SigOf`): the timelines and their shape, the bins'
+// reciprocals in the clock's type, the cost and carbon accumulators, and
+// each DC thread's cache of its last samples (the bin and the value of the
+// price and of its DC's carbon, so an event in the same bins reads no
+// timeline: the accrual runs on the DC threads, thread 0 among them, ahead
+// of the head's own work)
+template <typename TimeT>
+struct SigSm {
+  const float* price;   // [np]
+  const float* carbon;  // [nc, n_dc]
+  TimeT pinv, cinv;     // fl(1 / bin_s)
+  int np, nc, pper, cper;
+  float cost[kMaxDC], carb[kMaxDC];
+  int pbin[kMaxDC], cbin[kMaxDC];
+  float pval[kMaxDC], cval[kMaxDC];
+};
+template <bool kSig, typename TimeT> struct SigOf { using T = SigSm<TimeT>; };
+template <typename TimeT> struct SigOf<false, TimeT> { using T = int; };
 
 // ---------------------------------------------------------------- helpers
 
@@ -1190,9 +1253,12 @@ namespace {
 // routing, the log tick's control), whose code the default_policy /
 // joint_nf instance does not carry.
 template <int NT, bool kWide = false, bool kExt = false,
-          typename TimeT = float>
+          typename TimeT = float, bool kSig = false>
 struct Lane {
   static constexpr int NW = NT / 32;
+  // a cluster row's columns: the signal instances append the sampled price
+  // and the DC's carbon (sim/step.py SIGNAL_CLUSTER_COLS)
+  static constexpr int kCols = kSig ? kClusterCols + 2 : kClusterCols;
   // the double clock's instance (see the head note)
   static constexpr bool kD = sizeof(TimeT) == 8;
   SmallT<TimeT>& sm;
@@ -1265,8 +1331,55 @@ struct Lane {
   float* e_costs;
   uint8_t* e_mdc;
   uint8_t* e_mg;
+  // the signal instances' timelines and accumulators (shared)
+  typename SigOf<kSig, TimeT>::T* sg;
 
   __device__ __forceinline__ int& I(int f, int j) { return si[f * J + j]; }
+
+  // ------------------------------------------------ signal timelines
+  // (workload/signals.py CompiledSignals: the bin floor(t * fl(1/bin_s)),
+  // wrapped as jnp.mod wraps it when periodic, clipped into the table; the
+  // floor of a clock t >= 0 is a non-negative integer, so the wrap is the
+  // integer remainder, as exact as fmod and without its loop)
+  __device__ __forceinline__ int sig_bin(TimeT t, TimeT inv, int n, int per) {
+    const TimeT f = floor(t * inv);
+    if (per) {
+      if (f < (TimeT)2147483647) return (int)f % n;
+      return (int)((long long)f % n);
+    }
+    return f < (TimeT)0 ? 0 : (f > (TimeT)(n - 1) ? n - 1 : (int)f);
+  }
+  __device__ __forceinline__ int sig_pbin(TimeT t) {
+    return sig_bin(t, sg->pinv, sg->np, sg->pper);
+  }
+  __device__ __forceinline__ int sig_cbin(TimeT t) {
+    return sig_bin(t, sg->cinv, sg->nc, sg->cper);
+  }
+  __device__ __forceinline__ float sig_price(TimeT t) {
+    return sg->price[sig_pbin(t)];
+  }
+  __device__ __forceinline__ const float* sig_carbon(TimeT t) {
+    return sg->carbon + (long long)sig_cbin(t) * n_dc;
+  }
+  // the eco tables' key under signals: the (price bin, carbon bin) pair
+  __device__ __forceinline__ int sig_key(TimeT t) {
+    return sig_pbin(t) * sg->nc + sig_cbin(t);
+  }
+  // DC d's thread: the price and its DC's carbon at t, through its cache
+  __device__ __forceinline__ void sig_sample(int d, TimeT t, float& price,
+                                             float& ci) {
+    const int pb = sig_pbin(t), cb = sig_cbin(t);
+    if (pb != sg->pbin[d]) {
+      sg->pbin[d] = pb;
+      sg->pval[d] = sg->price[pb];
+    }
+    if (cb != sg->cbin[d]) {
+      sg->cbin[d] = cb;
+      sg->cval[d] = sg->carbon[(long long)cb * n_dc + d];
+    }
+    price = sg->pval[d];
+    ci = sg->cval[d];
+  }
   __device__ __forceinline__ float& F(int f, int j) { return sf[f * J + j]; }
   // a time column of the slab (JF_TING, JF_TAVAIL, JF_TSTART, JF_PT)
   __device__ __forceinline__ TimeT& TF(int f, int j) {
@@ -1498,8 +1611,13 @@ struct Lane {
       // a table of first-minimum cells: joint_nf's and debug's built at
       // launch, carbon_cost's for the hour of the decision
       if (kExt && adm == ADM_CC) {
-        const int h = hour_of(sm.t);
-        if (h != xs->cc_hour) cc_tables(h);
+        int key;
+        if constexpr (kSig) {
+          key = sig_key(sm.t);  // cached by the (price, carbon) bin pair
+        } else {
+          key = hour_of(sm.t);
+        }
+        if (key != xs->cc_hour) cc_tables(key);
       }
       n_d = sm.jnf_n[dcj * 2 + jt];
       f_d = sm.jnf_f[dcj * 2 + jt];
@@ -1584,14 +1702,23 @@ struct Lane {
     return f;
   }
 
-  // carbon_cost's admission table for hour h: each (dc, jtype)'s first
+  // carbon_cost's admission table for hour h (under signals: for the key
+  // of the current bins, sampled at sm.t): each (dc, jtype)'s first
   // minimum of E * (price * kKwh) over the capped grid when the price is
   // positive, else of E * ci
   __device__ void cc_tables(int h) {
-    const float pr = price[h];
+    float pr;
+    const float* cib;
+    if constexpr (kSig) {
+      pr = sig_price(sm.t);
+      cib = sig_carbon(sm.t);
+    } else {
+      pr = price[h];
+      cib = carbon;
+    }
     const float pc = pr * kKwh;
     for (int q = 0; q < 2 * n_dc; ++q) {
-      const float ci = carbon[q >> 1];
+      const float ci = cib[q >> 1];
       const float* eg = egrid + (long long)q * n_cap * n_f;
       float bv = 0.0f;
       int bi = 0;
@@ -1610,9 +1737,9 @@ struct Lane {
 
   // route_eco's first half for the hour key: each (dc, jtype)'s energy per
   // unit at its first-minimum cell of the objective's grid score
-  __device__ void eco_tables(int key, float pc) {
+  __device__ void eco_tables(int key, float pc, const float* cib) {
     for (int q = 0; q < 2 * n_dc; ++q) {
-      const float ci = carbon[q >> 1];
+      const float ci = cib[q >> 1];
       const float* eg = egrid + (long long)q * n_cap * n_f;
       float bv = 0.0f;
       int bi = 0;
@@ -1633,11 +1760,22 @@ struct Lane {
   // the DC an arrival of (ing, jt, size) is routed to: route_eco's or
   // route_weighted's first minimum over the DCs
   __device__ int route_det(int ing, int jt, float size) {
-    const int h = hour_of(sm.t);
-    const float pc = price[h] * kKwh;
+    int h;
+    float pc;
+    const float* cib;
+    if constexpr (kSig) {  // the timelines' samples at sm.t
+      h = sig_key(sm.t);
+      pc = sig_price(sm.t) * kKwh;
+      cib = sig_carbon(sm.t);
+    } else {
+      h = hour_of(sm.t);
+      pc = price[h] * kKwh;
+      cib = carbon;
+    }
     if (route == RT_ECO) {
-      const int key = eco_obj == ECO_COST ? h : 0;
-      if (key != xs->eco_key) eco_tables(key, pc);
+      const int key = eco_obj == ECO_ENERGY ? 0
+                      : (kSig || eco_obj == ECO_COST) ? h : 0;
+      if (key != xs->eco_key) eco_tables(key, pc, cib);
     }
     float bv = 0.0f;
     int bd = 0;
@@ -1646,14 +1784,14 @@ struct Lane {
       float v;
       if (route == RT_ECO) {
         v = eco_obj == ECO_ENERGY   ? e_job
-            : eco_obj == ECO_CARBON ? (e_job * kKwh) * carbon[d]
+            : eco_obj == ECO_CARBON ? (e_job * kKwh) * cib[d]
                                     : e_job * pc;
       } else {  // RouterPolicy.score, summed left to right
         const int ql = wadd(wsub(sm.qtail[2 * d], sm.qhead[2 * d]),
                             wsub(sm.qtail[2 * d + 1], sm.qhead[2 * d + 1]));
         v = w_lat * netlat[ing * n_dc + d];
         v = v + w_e * e_job;
-        v = v + w_c * ((e_job * kKwh) * carbon[d]);
+        v = v + w_c * ((e_job * kKwh) * cib[d]);
         v = v + w_cost * (e_job * pc);
         v = v + w_q * (float)ql;
       }
@@ -2043,6 +2181,19 @@ struct Lane {
       const TimeT u_inc = fmulp((TimeT)sm.busy[d], dt);
       sm.energy[d] = sm.energy[d] + (accrue ? e_inc : (TimeT)0);
       sm.util[d] = sm.util[d] + (accrue ? u_inc : (TimeT)0);
+      if constexpr (kSig) {
+        // cost and carbon over the same gap, sampled at its start; over
+        // two or more DCs the scalar price moves onto the reciprocal as XLA
+        // moves it (sim/step.py `_head`)
+        float price, ci;
+        sig_sample(d, t, price, ci);
+        const float e32 = (float)e_inc;
+        const float cost = n_dc == 1 ? fmulp(e32 * kKwh, price)
+                                     : fmulp(e32, price * kKwh);
+        const float carb = fmulp(e32 * kKwh, ci);
+        sg->cost[d] = sg->cost[d] + (accrue ? cost : 0.0f);
+        sg->carb[d] = sg->carb[d] + (accrue ? carb : 0.0f);
+      }
     }
     if (tid == 0) {
       // the other parity's accumulators, for the next event
@@ -2230,7 +2381,7 @@ struct Lane {
       const TimeT inv_1000 = (TimeT)1 / (TimeT)1000;
       sm.acc[d] = sm.acc[d] + sm.red[d];
       const int busy = sm.busy[d], total = sm.total[d];
-      float* row = em_cluster + ((long long)i * n_dc + d) * kClusterCols;
+      float* row = em_cluster + ((long long)i * n_dc + d) * kCols;
       row[0] = (float)t;
       row[1] = sm.freq[sm.cur_f[d]];
       row[2] = (float)busy;
@@ -2245,6 +2396,12 @@ struct Lane {
       row[11] = sm.acc[d];
       row[12] = sm.powers[d];
       row[13] = (float)(sm.energy[d] * inv_1000);
+      if constexpr (kSig) {
+        float price, ci;
+        sig_sample(d, t, price, ci);
+        row[14] = price;
+        row[15] = ci;
+      }
     }
     if (tid == 0) sm.next_log_t = sm.next_log_t + li;
     bar();
@@ -2433,6 +2590,14 @@ struct Lane {
       float v;
       if (k == 0) {
         v = (float)(tmod(sm.t, (TimeT)86400) * inv_day);
+      } else if (kSig && k > 6 * n_dc) {
+        // an observed workload's timelines: price / 0.25 and carbon / 1000
+        // as XLA's multiplies by the float32 reciprocals
+        if constexpr (kSig) {
+          const int c = k - 1 - 6 * n_dc;
+          v = c == 0 ? sig_price(sm.t) * (1.0f / 0.25f)
+                     : sig_carbon(sm.t)[c - 1] * (1.0f / 1000.0f);
+        }
       } else {
         const int d = (k - 1) / 6, c = (k - 1) % 6;
         const float total = (float)sm.total[d], busy = (float)sm.busy[d];
@@ -2681,13 +2846,16 @@ namespace {
 // kernel carries none of the RL code's registers or stack; NT: the block's
 // threads (the wrapper's choice, one of kernel_of's below); kWide: RL mode
 // with more than 32 GPU-count actions; kExt: the extended heuristic
-// instance (`Lane`); TimeT: the clock's type (this build's `Clock`).
-template <bool kRL, int NT, bool kWide, bool kExt, typename TimeT>
+// instance (`Lane`); TimeT: the clock's type (this build's `Clock`); kSig:
+// the signal timelines (this build's `kSigBuild`).
+template <bool kRL, int NT, bool kWide, bool kExt, typename TimeT,
+          bool kSig = false>
 __global__ void __launch_bounds__(NT)
     event_scan_kernel(const Args a) {
   extern __shared__ __align__(16) float dyn[];
   __shared__ SmallT<TimeT> sm;
   __shared__ typename ExtOf<kExt>::T xs_sm;
+  __shared__ typename SigOf<kSig, TimeT>::T sig_sm;
   __shared__ rlk::Policy pol;
   __shared__ rlk::Slice slice;
   const int tid = threadIdx.x;
@@ -2699,7 +2867,7 @@ __global__ void __launch_bounds__(NT)
   const int n_ing = a.i[I_NING], S = 2 * n_ing, n_f = a.i[I_NF];
   const int Q = a.i[I_Q], W = a.i[I_W], n_tab = a.i[I_NTAB];
   const int n_steps = a.i[I_NSTEPS], n_cap = a.i[I_NCAP];
-  Lane<NT, kWide, kExt, TimeT> L{sm};
+  Lane<NT, kWide, kExt, TimeT, kSig> L{sm};
   constexpr bool kD = sizeof(TimeT) == 8;
   L.tid = tid;
   L.lane = tid & 31;
@@ -2773,8 +2941,8 @@ __global__ void __launch_bounds__(NT)
   L.lat_buf = lane_ptr<float>(a, P_LAT_BUF, 2LL * W, r);
   L.em_t = lane_ptr<float>(a, P_EM_T, n_steps, r);
   L.em_branch = lane_ptr<int>(a, P_EM_BRANCH, n_steps, r);
-  L.em_cluster = lane_ptr<float>(a, P_EM_CLUSTER,
-                                 (long long)n_steps * n_dc * kClusterCols, r);
+  L.em_cluster = lane_ptr<float>(
+      a, P_EM_CLUSTER, (long long)n_steps * n_dc * L.kCols, r);
   L.em_job = lane_ptr<float>(a, P_EM_JOB, (long long)n_steps * kJobCols, r);
   L.sizes = lane_ptr<const float>(a, P_SIZES, (long long)S * n_tab, r);
   L.tnext = lane_ptr<const TimeT>(a, P_TNEXT, (long long)S * n_tab, r);
@@ -2808,6 +2976,26 @@ __global__ void __launch_bounds__(NT)
       xs_sm.ticks = xs_sm.iters = xs_sm.cycles = 0;
     }
   }
+#ifdef DCG_SIGNALS
+  L.sg = &sig_sm;
+  if (tid == 0) {
+    sig_sm.price = reinterpret_cast<const float*>(a.sp[SP_PRICE]);
+    sig_sm.carbon = reinterpret_cast<const float*>(a.sp[SP_CARBON]);
+    sig_sm.np = a.si[SI_NP];
+    sig_sm.nc = a.si[SI_NC];
+    sig_sm.pper = a.si[SI_PPER];
+    sig_sm.cper = a.si[SI_CPER];
+    sig_sm.pinv = (TimeT)a.sd[SD_PINV];
+    sig_sm.cinv = (TimeT)a.sd[SD_CINV];
+  }
+  float* const sig_cost = reinterpret_cast<float*>(a.sp[SP_COST]) + (long long)r * n_dc;
+  float* const sig_carb = reinterpret_cast<float*>(a.sp[SP_CARB]) + (long long)r * n_dc;
+  for (int d = tid; d < n_dc; d += NT) {
+    sig_sm.cost[d] = sig_cost[d];
+    sig_sm.carb[d] = sig_carb[d];
+    sig_sm.pbin[d] = sig_sm.cbin[d] = -1;
+  }
+#endif
   const int rl = kRL;
   L.rl = rl;
   float* lat_global = L.lat_buf;
@@ -3036,6 +3224,12 @@ __global__ void __launch_bounds__(NT)
   }
   if constexpr (kRL)
     for (int k = tid; k < 2 * W; k += NT) lat_global[k] = L.lat_buf[k];
+#ifdef DCG_SIGNALS
+  for (int d = tid; d < n_dc; d += NT) {
+    sig_cost[d] = sig_sm.cost[d];
+    sig_carb[d] = sig_sm.carb[d];
+  }
+#endif
   if constexpr (kExt) {
     if (tid == 0 && a.p[P_CTL] != nullptr) {
       long long* ctl = lane_ptr<long long>(a, P_CTL, 4, r);
@@ -3087,7 +3281,7 @@ bool policy_ok(const Args& a) {
   return true;
 }
 
-#ifndef DCG_CLOCK64
+#if !defined(DCG_CLOCK64) && !defined(DCG_SIGNALS)
 // ---------------------------------------------------------------- standalone
 // B3 and B4 over a batch through the same device functions (chip_smoke.py
 // holds them against their plain versions; the main path never calls it).
@@ -3176,18 +3370,24 @@ __global__ void __launch_bounds__(NT) rl_tail_batch_kernel(const TailArgs a) {
   rlk::release_cluster<NT>(cmd, cs, tid);
 }
 
-#endif  // DCG_CLOCK64
+#endif  // !DCG_CLOCK64 && !DCG_SIGNALS
 
 // The block widths each mode is built for (kernels/event_scan.py
 // BLOCK_WIDTHS; the wrapper picks one); RL mode in a second instance for
 // GPU-count heads wider than a warp; every instance for this build's clock.
 template <bool kRL, bool kWide, bool kExt>
 void (*kernel_of(int threads))(Args) {
+#ifdef DCG_SIGNALS
+  // the signal instances: the main path's block width only
+  return threads == 256 ? event_scan_kernel<kRL, 256, kWide, kExt, Clock, true>
+                        : nullptr;
+#else
   switch (threads) {
     case 32: return event_scan_kernel<kRL, 32, kWide, kExt, Clock>;
     case 256: return event_scan_kernel<kRL, 256, kWide, kExt, Clock>;
     default: return nullptr;
   }
+#endif
 }
 
 void (*kernel_of(const int* ints))(Args) {
@@ -3199,7 +3399,7 @@ void (*kernel_of(const int* ints))(Args) {
                              : kernel_of<true, false, false>(threads);
 }
 
-#ifndef DCG_CLOCK64
+#if !defined(DCG_CLOCK64) && !defined(DCG_SIGNALS)
 void (*tail_kernel_of(const int* ints))(TailArgs) {
   const bool wide = ints[I_MAXGPU] > 32;
   switch (ints[I_THREADS]) {
@@ -3270,7 +3470,7 @@ static cudaError_t launch_clusters(void (*kernel)(A), int blocks, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, args);
 }
 
-#ifndef DCG_CLOCK64
+#if !defined(DCG_CLOCK64) && !defined(DCG_SIGNALS)
 // Plain C entry point of the standalone launch: `ptrs` N_TAIL_PTRS device
 // pointers (TailPtr order), `ints` the event scan's N_INTS (I_THREADS the
 // block width, I_CLUSTER and I_LEAD the row's cluster) followed by B, W
@@ -3341,8 +3541,31 @@ extern "C" long long DCG_ENTRY(event_scan_smem_bytes)(const int* ints) {
 // does not take (too many DCs, streams or frequency levels, a block width it
 // is not built for), -3 when the slab does not fit in shared memory.  The
 // double clock's build (event_scan64_launch) takes N_DBLS doubles after
-// the floats: the run's end and log interval.
+// the floats: the run's end and log interval.  The signal builds
+// (event_scan_launch_sig, event_scan_launch_sig64) take the doubles in
+// either clock (the float clock's ignores them) and then the signal
+// operands: N_SIG_PTRS pointers, N_SIG_INTS ints and N_SIG_DBLS doubles.
+#if defined(DCG_SIGNALS)
+extern "C" int DCG_ENTRY(event_scan_launch)(
+    const uint64_t* ptrs, int n_ptrs, const int* ints, int n_ints,
+    const float* floats, int n_floats, const double* doubles, int n_doubles,
+    const uint64_t* sig_ptrs, const int* sig_ints, const double* sig_dbls,
+    void* stream) {
+  if (n_ptrs != N_PTRS || n_ints != N_INTS || n_floats != N_FLTS ||
+      n_doubles != N_DBLS)
+    return -1;
+  Args a;
 #ifdef DCG_CLOCK64
+  for (int k = 0; k < N_DBLS; ++k) a.d[k] = doubles[k];
+#endif
+  for (int k = 0; k < N_SIG_PTRS; ++k) a.sp[k] = (void*)sig_ptrs[k];
+  for (int k = 0; k < N_SIG_INTS; ++k) a.si[k] = sig_ints[k];
+  for (int k = 0; k < N_SIG_DBLS; ++k) a.sd[k] = sig_dbls[k];
+  if (a.si[SI_NP] < 1 || a.si[SI_NC] < 1 || a.sp[SP_PRICE] == nullptr ||
+      a.sp[SP_CARBON] == nullptr || a.sp[SP_COST] == nullptr ||
+      a.sp[SP_CARB] == nullptr)
+    return -2;
+#elif defined(DCG_CLOCK64)
 extern "C" int event_scan64_launch(const uint64_t* ptrs, int n_ptrs,
                                    const int* ints, int n_ints,
                                    const float* floats, int n_floats,
@@ -3388,7 +3611,8 @@ extern "C" int event_scan_launch(const uint64_t* ptrs, int n_ptrs,
                                dev);
   if (err != cudaSuccess) return (int)err;
   if (smem + (long long)(sizeof(SmallT<Clock>) + sizeof(rlk::Policy) +
-                         sizeof(rlk::Slice) + (a.i[I_EXT] ? sizeof(Ext) : 0)) >
+                         sizeof(rlk::Slice) + (a.i[I_EXT] ? sizeof(Ext) : 0) +
+                         (kSigBuild ? sizeof(SigSm<Clock>) : 0)) >
       optin)
     return -3;
   err = cudaFuncSetAttribute(kernel,

@@ -16,9 +16,11 @@ evaluated in float32 as the reference's ``windowed_percentile`` evaluates
 it.  Not ported yet: chsac_af through the distributed trainer (``rollouts >
 1``, a warm start, ``sac_steps_per_chunk``), ``run_ppo``, ``eval_warmstart``
 and ``eval_config5`` (ROADMAP queue A item 10), ``chaos_score`` (item 15),
-and the bodies of ``fault_metrics``, ``signal_metrics`` and ``obs_metrics``
-(items 11, 4 and 12): the port's state has no faults, signals or telemetry,
-so a row carries the keys of the reference's rows for such a run.
+and the bodies of ``fault_metrics`` and ``obs_metrics`` (items 11 and 12):
+the port's state has no faults or telemetry, so a row carries the keys of
+the reference's rows for such a run.  A run whose workload declares
+price or carbon timelines adds ``energy_cost_usd`` and ``carbon_kg``
+(``signal_metrics``).
 """
 
 from __future__ import annotations
@@ -90,9 +92,16 @@ def fault_metrics(fleet, state) -> Dict[str, float]:
 
 
 def signal_metrics(state) -> Dict[str, float]:
-    """Energy cost and carbon of a signal-enabled run: none, since the
-    port's state has no signal sub-state yet (ROADMAP queue A item 4)."""
-    return {}
+    """Energy cost and carbon totals of a run with signal timelines (else
+    {}): the accumulators integrate ``P dt price(t)`` and ``P dt ci(dc, t)``
+    over the exact inter-event gaps, the time-varying counterparts of
+    ``energy_kwh``, summed over the DCs by numpy as the reference sums them."""
+    if getattr(state, "signals", None) is None:
+        return {}
+    return {
+        "energy_cost_usd": float(_np(state.signals.cost_usd).sum()),
+        "carbon_kg": float(_np(state.signals.carbon_g).sum()) / 1e3,
+    }
 
 
 def obs_metrics(state) -> Dict[str, int]:

@@ -19,8 +19,15 @@ weighted routing run in a second heuristic instance of the kernel
 (:func:`ext_plan`; admission sites ``sim/engine.py:772-829`` and
 ``:1046-1078``, the bandit's ``:1573-1578`` and ``:1651-1656``, routing
 ``:1732-1753``, the log tick's control ``:1988-2205`` and ``:2776``), so
-the first instance compiles to what it ran before.  ``csrc/event_scan.cu``'s
-head note gives its design and what bounds it on the card.
+the first instance compiles to what it ran before.  A workload with price
+and carbon signal timelines (``workload/signals.py``; ``sim/engine.py:725
+_signal_kw`` and its sites: the eco admission and routing, the accrual's
+cost and carbon integrals, the log row's two columns and the observed
+features) runs every instance's signal build, ``csrc/event_scan_sig.cu``
+and ``csrc/event_scan_sig64.cu`` (the same source with the signal sites
+compiled in), so the signal-free builds compile as they did.
+``csrc/event_scan.cu``'s head note gives its design and what bounds it on
+the card.
 
 :func:`event_scan` is the wrapper ``Engine.run_chunk`` calls.  Its first
 argument is a ``sim.step.StepProgram`` (an ``Engine`` is one): the fleet
@@ -59,6 +66,8 @@ from ..sim import algos
 
 EV_NOOP = 4
 CLUSTER_COLS = 14
+#: a signal run's cluster rows: the price and carbon columns appended
+SIG_CLUSTER_COLS = 16
 JOB_COLS = 15
 QREC_FIELDS = 11
 #: the kernel's compile-time limits (csrc/event_scan.cu kMaxDC/kMaxS/kMaxF)
@@ -144,6 +153,7 @@ FLT_NAMES = ("end", "log_interval", "sla_thr", "neg_w", "sla_ms",
 #: the double clock's parameters (csrc/event_scan.cu `enum Dbl`), which its
 #: build (csrc/event_scan64.cu) reads in place of the first two floats
 DBL_NAMES = ("end", "log_interval")
+
 #: what the double clock's slab adds to a lane's (csrc/event_scan.cu
 #: ``event_scan_smem_bytes``): an 8-byte alignment pad, the [4, J] double
 #: time columns and the warps' argmins (kWarpMinBytes)
@@ -349,6 +359,9 @@ def _lane_specs(prog, R: int, n_tab: int):
     specs["bandit.S"] = (_F32, lane(n_dc, 2, fleet.n_f))
     specs["bandit.t"] = (_I32, lane())
     specs["jobs.rl_obs0"] = (_F32, lane(J, p.obs_dim(n_dc)))
+    if prog.signals is not None:
+        specs["signals.cost_usd"] = (_F32, lane(n_dc))
+        specs["signals.carbon_g"] = (_F32, lane(n_dc))
     specs["jobs.rl_mask_dc0"] = (_BOOL, lane(J, n_dc))
     specs["jobs.rl_mask_g0"] = (_BOOL, lane(J, p.max_gpus_per_job))
     return specs
@@ -375,6 +388,9 @@ def _validate(prog, state, pre, n_steps: int):
     R = n_lanes(state)
     if R is None:
         raise ValueError("event_scan: the state needs a leading lane axis [R, ...]")
+    if (state.signals is None) != (prog.signals is None):
+        raise ValueError("event_scan: the state's signal sub-state does not "
+                         "match the workload's signal timelines")
     n_tab = int(pre["sizes"].shape[-1])
     if n_tab < 1:
         raise ValueError("event_scan: the arrival tables are empty")
@@ -412,11 +428,22 @@ def event_scan_reference(prog, state, pre, n_steps: int, policy_params=None):
     return _stack(ems), stats
 
 
-def _lib(x64: bool = False):
+def _lib(x64: bool = False, sig: bool = False):
     """The float clock's build (csrc/event_scan.cu), or with ``x64`` the
-    double clock's (csrc/event_scan64.cu)."""
+    double clock's (csrc/event_scan64.cu); with ``sig`` the signal builds
+    (csrc/event_scan_sig.cu, csrc/event_scan_sig64.cu)."""
     from . import build
 
+    if sig:
+        name = "event_scan_sig64" if x64 else "event_scan_sig"
+        lib = build.load(name)
+        if name not in _argtypes:
+            P, I = ctypes.c_void_p, ctypes.c_int
+            fn = getattr(lib, "event_scan_launch" + name[len("event_scan"):])
+            fn.argtypes = [P, I, P, I, P, I, P, I, P, P, P, P]
+            fn.restype = ctypes.c_int
+            _argtypes.add(name)
+        return lib
     if x64:
         lib = build.load("event_scan64")
         if "event_scan64" not in _argtypes:
@@ -605,6 +632,23 @@ def _width(threads):
     return threads
 
 
+def sig_operands(prog, state):
+    """The signal build's operand tables, in csrc/event_scan.cu's `enum
+    SigPtr`, `SigInt` and `SigDbl` order: the price and carbon timelines
+    and the lanes' cost and carbon accumulators; the timelines' lengths
+    and wraps; the bins' reciprocals in the clock's type
+    (``CompiledSignals.inv_value``, as doubles: exact for a float32
+    value).  Nothing is read from the card."""
+    sg = prog.signals
+    td = prog.td
+    ptrs = [sg.price.data_ptr(), sg.carbon.data_ptr(),
+            state.signals.cost_usd.data_ptr(), state.signals.carbon_g.data_ptr()]
+    ints = [int(sg.price.shape[0]), int(sg.carbon.shape[0]),
+            int(sg.price_periodic), int(sg.carbon_periodic)]
+    dbls = [sg.inv_value("price", td), sg.inv_value("carbon", td)]
+    return ptrs, ints, dbls
+
+
 def event_scan(prog, state, pre, n_steps: int, policy_params=None,
                threads=None):
     """The B1 wrapper: kernel on a CUDA state, plain version on a CPU one.
@@ -621,12 +665,17 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
         raise ValueError(f"event_scan: unsupported device {dev}")
     check_kernel_covers(prog)
     threads = _width(threads)
+    sig = prog.signals is not None
+    if sig and threads != THREADS:
+        raise ValueError(f"event_scan: the signal builds take {THREADS} "
+                         "threads per lane")
     fleet = prog.fleet
     rl = prog.params.algo == ALGO_CHSAC_AF
     em = {
         "t": torch.empty((R, n_steps), dtype=_F32, device=dev),
         "branch": torch.full((R, n_steps), EV_NOOP, dtype=_I32, device=dev),
-        "cluster": torch.zeros((R, n_steps, fleet.n_dc, CLUSTER_COLS),
+        "cluster": torch.zeros((R, n_steps, fleet.n_dc,
+                                SIG_CLUSTER_COLS if sig else CLUSTER_COLS),
                                dtype=_F32, device=dev),
         "job": torch.zeros((R, n_steps, JOB_COLS), dtype=_F32, device=dev),
     }
@@ -664,13 +713,24 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
     ints = kernel_ints(prog, R, n_steps, n_tab, greedy, widths, threads)
     floats = kernel_floats(prog)
     x64 = prog.params.x64
-    lib = _lib(x64)
+    lib = _lib(x64, sig)
     c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_floats = (ctypes.c_float * len(floats))(*floats)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if x64:
+        if sig:
+            dbls = [float(prog.params.duration), float(prog.params.log_interval)]
+            c_dbls = (ctypes.c_double * len(dbls))(*dbls)
+            sp, si, sd = sig_operands(prog, state)
+            launch = (lib.event_scan_launch_sig64 if x64
+                      else lib.event_scan_launch_sig)
+            rc = launch(c_ptrs, len(ptrs), c_ints, len(ints), c_floats,
+                        len(floats), c_dbls, len(dbls),
+                        (ctypes.c_uint64 * len(sp))(*sp),
+                        (ctypes.c_int * len(si))(*si),
+                        (ctypes.c_double * len(sd))(*sd), stream)
+        elif x64:
             dbls = [float(prog.params.duration), float(prog.params.log_interval)]
             c_dbls = (ctypes.c_double * len(dbls))(*dbls)
             rc = lib.event_scan64_launch(c_ptrs, len(ptrs), c_ints, len(ints),
@@ -685,6 +745,7 @@ def event_scan(prog, state, pre, n_steps: int, policy_params=None,
     event_scan.rl_launches += rl
     event_scan.ext_launches += ext
     event_scan.x64_launches += x64
+    event_scan.sig_launches += sig
     return em, {"events": None, "host_reads": None, "ctl": ctl}
 
 
@@ -697,6 +758,8 @@ event_scan.rl_launches = 0
 event_scan.ext_launches = 0
 #: launches of the double clock's instances (csrc/event_scan64.cu)
 event_scan.x64_launches = 0
+#: launches of the signal builds (csrc/event_scan_sig.cu, event_scan_sig64.cu)
+event_scan.sig_launches = 0
 
 
 # ---------------------------------------------------------------------------

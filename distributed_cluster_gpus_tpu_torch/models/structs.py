@@ -148,8 +148,21 @@ class LatWindow:
 
 
 @dataclasses.dataclass
+class SignalState:
+    """Energy-signal accounting of a run whose workload declares price or
+    carbon timelines (``SimState.signals``; None otherwise): accrued over
+    the exact inter-event gaps beside the energy integral,
+    ``cost_usd += (P dt / 3.6e6) price(t)`` and ``carbon_g += (P dt / 3.6e6)
+    ci(dc, t)``, the samples at the interval's start."""
+
+    cost_usd: torch.Tensor  # [n_dc] f32
+    carbon_g: torch.Tensor  # [n_dc] f32
+
+
+@dataclasses.dataclass
 class SimState:
-    """Everything that changes during a run; every leaf on one device."""
+    """Everything that changes during a run; every leaf on one device
+    (``signals`` is None when the run has no signal timelines)."""
 
     t: torch.Tensor
     key: torch.Tensor  # [2] int64 threefry words
@@ -172,6 +185,7 @@ class SimState:
     units_finished: torch.Tensor  # [2] f32
     n_dropped: torch.Tensor  # int32
     done: torch.Tensor  # bool
+    signals: Optional[SignalState] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,12 +336,22 @@ class SimParams:
         field of a ring record)."""
         return torch.float64 if self.x64 else torch.float32
 
+    @property
+    def signals_observed(self) -> bool:
+        """True when the workload's price/carbon signals extend the RL
+        observation."""
+        return (self.workload is not None
+                and self.workload.signals is not None
+                and self.workload.signals.observe)
+
     def obs_dim(self, n_dc: int) -> int:
         """RL observation: [now] + per-DC [total, busy, free, cur_f, q_inf,
-        q_trn].  (The JAX package appends 1 + n_dc signal features for
-        workloads with observed price/carbon timelines, which the port does
-        not carry yet: ROADMAP queue A item 4.)"""
-        return 1 + 6 * n_dc
+        q_trn]; workloads with observed signals append [price] + per-DC
+        [carbon] (1 + n_dc more)."""
+        base = 1 + 6 * n_dc
+        if self.signals_observed:
+            base += 1 + n_dc
+        return base
 
 
 # ---------------------------------------------------------------------------
@@ -336,8 +360,11 @@ class SimParams:
 # ---------------------------------------------------------------------------
 
 def _map_tree(fn, *trees):
-    """Apply ``fn`` leaf-wise over dataclass trees of tensors."""
+    """Apply ``fn`` leaf-wise over dataclass trees of tensors (an absent
+    sub-state, None, stays None)."""
     first = trees[0]
+    if first is None:
+        return None
     if dataclasses.is_dataclass(first) and not isinstance(first, type):
         return type(first)(**{
             f.name: _map_tree(fn, *(getattr(t, f.name) for t in trees))
@@ -346,6 +373,8 @@ def _map_tree(fn, *trees):
 
 
 def leaves(tree):
+    if tree is None:
+        return
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
             yield from leaves(getattr(tree, f.name))

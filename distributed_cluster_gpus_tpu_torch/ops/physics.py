@@ -95,6 +95,43 @@ def fma_f32(a, b, c):
     return torch.where(fix, pick, r)
 
 
+def fma_f64(a, b, c):
+    """``a * b + c`` on float64 tensors rounded once, as a fused
+    multiply-add rounds it (XLA's CPU code contracts some float64 products
+    into FMAs too; CUDA's ``fma``), by Boldo and Melquiond's emulation: the
+    exact product (Veltkamp's split), the exact sum with ``c``, the two
+    error terms added with rounding to odd, then one rounding to nearest.
+    Exact for finite operands whose product neither overflows nor
+    underflows (the clock's values)."""
+    def split(x):
+        t = x * 134217729.0  # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    pe = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = c + p
+    sb = s - c
+    se = (c - (s - sb)) + (p - sb)
+    v = se + pe
+    vb = v - se
+    ve = (se - (v - vb)) + (pe - vb)
+    # round to odd: an inexact sum with an even last bit moves one ulp
+    # toward the exact value
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(ve > 0, torch.full_like(v, math.inf),
+                         torch.full_like(v, -math.inf))
+    v = torch.where((ve != 0) & even, torch.nextafter(v, toward), v)
+    return s + v
+
+
+def fma(a, b, c):
+    """:func:`fma_f32` or :func:`fma_f64` by the operands' dtype."""
+    return fma_f64(a, b, c) if a.dtype == torch.float64 else fma_f32(a, b, c)
+
+
 def gpu_power_w(f, pc: PowerCoeffs):
     """Per-GPU power draw at normalised frequency ``f``."""
     f = torch.clamp(f, min=0.0)

@@ -5,7 +5,10 @@ It holds the learned state (``rl/sac.py``), the replay ring (``rl/
 replay.py``) on the agent's device and the static ``SACConfig``; the engine
 acts through ``policy_apply`` with ``sac`` as its parameters, and
 :meth:`CHSAC_AF.train_steps` runs a chunk's updates (``sac_train_step``)
-with the JAX package's key chain, bit for bit.  On the card the update is
+with the JAX package's key chain, bit for bit.  The reference's host
+conveniences are here too: :meth:`CHSAC_AF.select_action` (one action,
+through B4's device code on the card) and :meth:`CHSAC_AF.train_step` (one
+update once warmed up).  On the card the update is
 one CUDA graph, captured once and replayed once per update: the port's
 counterpart of the JAX package's one jitted scan of a chunk's updates
 (``_build_fused``).
@@ -99,6 +102,55 @@ class CHSAC_AF:
         self._graph, self._graph_sig = None, None
         if g is not None:
             g.reset()
+
+    def select_action(self, obs, mask_dc, mask_g,
+                      program=None) -> Dict[str, int]:
+        """One action for one observation and its masks (the reference's
+        host convenience; the engine acts inside the event loop): the
+        agent's key splits as the reference's does, ``self.key, k =
+        split(key)``, and the DC head samples with ``split(k)[0]``, the
+        GPU count with ``split(k)[1]``.  On the card the action comes from
+        B4's device code (``kernels.event_scan.rl_tail_batch``, one row),
+        which reads its constants from ``program``, the step program the
+        agent acts in (the ``sim.engine.Engine`` built with this agent's
+        ``policy_apply``); on the CPU from the plain policy."""
+        dev = self.device
+        if dev.type == "cuda" and program is None:
+            raise ValueError(
+                "select_action on the card acts through B1's RL-mode device "
+                "code: pass program=, the engine the agent acts in")
+        ks = prng.split(self.key, 2)
+        self.key, k = ks[0].clone(), ks[1].clone()
+        obs = torch.as_tensor(obs, dtype=torch.float32, device=dev)
+        m_dc = torch.as_tensor(mask_dc, dtype=torch.bool, device=dev)
+        m_g = torch.as_tensor(mask_g, dtype=torch.bool, device=dev)
+        if dev.type == "cuda":
+            from ..kernels.event_scan import rl_tail_batch
+
+            out = rl_tail_batch(
+                program, self.sac,
+                torch.zeros((0, 1), dtype=torch.float32, device=dev),
+                torch.zeros((0,), dtype=torch.int32, device=dev),
+                obs.reshape(1, -1).contiguous(),
+                m_dc.reshape(1, -1).contiguous(),
+                m_g.reshape(1, -1).contiguous(), k.reshape(1, 2).to(dev))
+            a_dc, a_g = out["a_dc"][0], out["a_g"][0]
+        else:
+            a_dc, a_g = self.policy_apply(self.sac, obs, m_dc, m_g, k)
+        return {"dc": int(a_dc), "g": int(a_g)}
+
+    def train_step(self) -> Optional[Dict[str, torch.Tensor]]:
+        """One SAC + CMDP update once warmed up, else None (the reference's
+        ``train_step``): ``self.key, k = split(key)``, the update drawing
+        its sample with ``split(k)[0]``; on the card through the update's
+        kernels, on the CPU through their plain versions.  Returns a copy
+        of the update's metrics."""
+        if not self.ready:
+            return None
+        ks = prng.split(self.key, 2)
+        self.key, k = ks[0].clone(), ks[1]
+        sac_train_step(self.cfg, self.sac, self.replay, k.to(self.device))
+        return {name: v.clone() for name, v in self.sac.metrics.items()}
 
     def ingest_chunk(self, rl_emissions: Dict[str, torch.Tensor]) -> None:
         """Write one chunk's RL transition stream into the replay ring (the

@@ -90,14 +90,15 @@ def _save_watermark(writers) -> Dict[str, int]:
 
 
 def _open_writers(out_dir: Optional[str], fleet: FleetSpec, start_chunk: int,
-                  csv_watermark: Optional[Dict[str, int]]
-                  ) -> Optional[CSVWriters]:
+                  csv_watermark: Optional[Dict[str, int]],
+                  signal_cols: bool = False) -> Optional[CSVWriters]:
     """CSV writers for a (possibly resumed) run: append on resume,
     truncating back to the checkpoint's byte watermark so rows a stopped or
     crashed run wrote past its last checkpoint are not duplicated."""
     if not out_dir:
         return None
-    writers = CSVWriters(out_dir, fleet, append=start_chunk > 0)
+    writers = CSVWriters(out_dir, fleet, append=start_chunk > 0,
+                         signal_cols=signal_cols)
     if csv_watermark is not None:
         writers.truncate_to(csv_watermark)
     return writers
@@ -302,7 +303,8 @@ def train_chsac(fleet: FleetSpec, params: SimParams,
                 state, step, csv_watermark = got
                 start_chunk = step + 1
                 timer.add_span("ckpt_restore", time.perf_counter() - t0)
-    writers = _open_writers(out_dir, fleet, start_chunk, csv_watermark)
+    writers = _open_writers(out_dir, fleet, start_chunk, csv_watermark,
+                            signal_cols=engine.signals is not None)
     run_log = _run_log(out_dir)
 
     def save_ckpt(chunk):

@@ -10,6 +10,11 @@
         --duration 604800 --time-dtype float64 --out runs/week
     python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
         --duration 604800 --out runs/week_rl --ckpt-dir runs/week_rl/ckpt
+    python -m distributed_cluster_gpus_tpu_torch.run_sim --algo eco_route \\
+        --workload flash_crowd --duration 3600 --out runs/flash
+    python -m distributed_cluster_gpus_tpu_torch.run_sim --algo chsac_af \\
+        --workload diurnal_flash_week --workload-observe --duration 86400 \\
+        --out runs/week_obs
 
 The port's counterpart of the repo's ``run_sim.py`` for the flags the port
 honours: every heuristic algorithm (``default_policy``, ``cap_uniform``,
@@ -21,7 +26,10 @@ clock's dtype (``--time-dtype``, float64 above 1e5 s by default), and
 replay ring; once ``--rl-warmup`` transitions are in it, each chunk's SAC
 and Lagrange updates run on the card and the next chunk acts with the
 updated weights), with checkpoints (``--ckpt-dir``, ``--ckpt-every``,
-``--ckpt-keep``; a run resumes from its store unless ``--no-resume``).
+``--ckpt-keep``; a run resumes from its store unless ``--no-resume``), and
+workload scenarios (``--workload PRESET|SPEC.json``: replayed traces, rate
+timelines, flash crowds, price and carbon signal timelines, which the eco
+decisions read and ``--workload-observe`` puts into the RL observation).
 SIGTERM or SIGINT stops a run at the next chunk boundary with its
 artifacts flushed, and the process exits with 128 + the signal's number.
 ``--device`` defaults to ``cuda`` and never falls back to the CPU; on the
@@ -43,8 +51,6 @@ ALL_ALGOS = ("default_policy", "cap_uniform", "cap_greedy", "joint_nf",
 
 # reference flags this slice does not honour -> the ROADMAP item porting them
 UNPORTED_FLAGS = {
-    "--workload": "queue A item 4 (workload presets and spec files)",
-    "--workload-observe": "queue A item 4 (signal timelines)",
     "--elastic-scaling": "queue A item 13 (elastic scaling)",
     "--offline-dataset": "queue A item 10 (offline RL)",
     "--offline-steps": "queue A item 10 (offline RL)",
@@ -89,6 +95,16 @@ def parse_args(argv=None):
     p.add_argument("--inf-period", type=float, default=300.0)
     p.add_argument("--trn-mode", default="poisson", choices=["off", "poisson", "sinusoid"])
     p.add_argument("--trn-rate", type=float, default=0.3)
+    p.add_argument("--workload", default=None, metavar="PRESET|SPEC.json",
+                   help="workload scenario: a preset name (flash_crowd, "
+                        "diurnal_flash_week, legacy_signals) or a JSON spec "
+                        "file.  Overrides the --inf-*/--trn-* synthetic "
+                        "fields; adds time-varying price/carbon columns to "
+                        "cluster_log when the spec declares signal timelines")
+    p.add_argument("--workload-observe", action="store_true",
+                   help="extend the RL observation vector with the "
+                        "workload's sampled price + per-DC carbon "
+                        "signals (chsac_af)")
     p.add_argument("--policy", default="energy_aware", choices=["energy_aware", "perf_first"])
     p.add_argument("--max-gpus-per-job", type=int, default=8)
     p.add_argument("--no-inf-priority", action="store_true")
@@ -171,15 +187,21 @@ def parse_args(argv=None):
     return a
 
 
+def cli_fleet(a):
+    from .configs.paper import build_fleet, build_single_dc_fleet
+
+    return build_single_dc_fleet() if a.single_dc else build_fleet()
+
+
 def card_refusal(a):
     """Why the card cannot run this CLI setting, or None
     (``kernels/envelope.py::card_limits`` of the CLI's fleet and params,
-    the job cap named by its flag)."""
-    from .configs.paper import build_fleet, build_single_dc_fleet
+    the job cap named by its flag; an observed workload's wider
+    observation included)."""
     from .kernels.envelope import card_limits
 
-    fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
-    why = card_limits(fleet, build_params(a))
+    fleet = cli_fleet(a)
+    why = card_limits(fleet, build_params(a, fleet))
     return why and why.replace(f"with job_cap {a.job_cap} ",
                                f"with --job-cap {a.job_cap} ", 1)
 
@@ -192,10 +214,43 @@ def resolve_time_dtype(a) -> str:
     return a.time_dtype
 
 
-def build_params(a):
+def build_workload_spec(a, fleet, params=None):
+    """--workload PRESET|SPEC.json -> WorkloadSpec (or None), as the
+    repo's ``run_sim.py`` builds it: ``--workload-observe`` puts the signal
+    timelines into the RL observation whatever the preset or spec
+    declares, and ``params`` (the SimParams without the workload) feeds
+    ``legacy_signals``, so the --inf-*/--trn-* flags hold there."""
+    if not a.workload:
+        if a.workload_observe:
+            raise SystemExit("--workload-observe requires --workload")
+        return None
+    from .workload import PRESETS, load_workload_json, make_preset
+
+    if a.workload in PRESETS:
+        kw = {"observe": True} if a.workload_observe else {}
+        if a.workload == "legacy_signals" and params is not None:
+            kw["params"] = params
+        return make_preset(a.workload, fleet, **kw)
+    if not os.path.exists(a.workload):
+        raise SystemExit(
+            f"--workload {a.workload!r}: not a preset "
+            f"({', '.join(sorted(PRESETS))}) and no such spec file")
+    spec = load_workload_json(a.workload, fleet)
+    if a.workload_observe:
+        if spec.signals is None:
+            raise SystemExit("--workload-observe: the spec declares no "
+                             "signal timelines to observe")
+        spec = dataclasses.replace(
+            spec, signals=dataclasses.replace(spec.signals, observe=True))
+    return spec
+
+
+def build_params(a, fleet=None):
+    """The CLI's SimParams, with its workload (``fleet``: the CLI's, built
+    from ``a`` when None and a workload is asked for)."""
     from .models.structs import SimParams
 
-    return SimParams(
+    params = SimParams(
         time_dtype=resolve_time_dtype(a),
         algo=a.algo, duration=a.duration,
         log_interval=(a.control_interval if a.control_interval > 0
@@ -215,6 +270,11 @@ def build_params(a):
         router_weights=(tuple(float(w) for w in a.router_weights.split(","))
                         if a.router_weights else None),
         num_fixed_gpus=a.num_fixed_gpus, fixed_freq=a.fixed_freq)
+    if a.workload or a.workload_observe:
+        spec = build_workload_spec(a, fleet if fleet is not None
+                                   else cli_fleet(a), params)
+        params = dataclasses.replace(params, workload=spec)
+    return params
 
 
 def finalize_queue_cap(params, fleet):
@@ -243,7 +303,7 @@ def main(argv=None, pre_tables=None):
 
     resolve_device(a.device)  # no card: raise before anything is written
     fleet = build_single_dc_fleet() if a.single_dc else build_fleet()
-    params = finalize_queue_cap(build_params(a), fleet)
+    params = finalize_queue_cap(build_params(a, fleet), fleet)
     os.makedirs(a.out, exist_ok=True)
     log = get_logger(a.out)
     for w in validate_gpus(fleet, strict=False):

@@ -22,7 +22,8 @@ from ..device import resolve_device
 from ..kernels.event_scan import event_scan
 from ..models.structs import (ALGO_CHSAC_AF, PORTED_ALGOS, DCArrays,
                               FleetSpec, JobSlab, LatWindow, QRec, QueueRings,
-                              SimParams, SimState, n_lanes, with_lane_axis)
+                              SignalState, SimParams, SimState, n_lanes,
+                              with_lane_axis)
 from ..ops import prng
 from ..ops.bandit import bandit_init
 from ..workload.compiler import compile_workload
@@ -119,6 +120,9 @@ def init_state(key, fleet: FleetSpec, params: SimParams, workload=None,
             "sentinel — resolve it first (engine.auto_queue_cap)")
     queues = QueueRings(recs=zf((n_dc, 2, params.queue_cap, QRec.N_FIELDS)),
                         head=zi((n_dc, 2)), tail=zi((n_dc, 2)))
+    signals = None
+    if workload.signals is not None:
+        signals = SignalState(cost_usd=z32((n_dc,)), carbon_g=z32((n_dc,)))
     return SimState(
         t=zf(), key=key, jid_counter=torch.ones((), dtype=torch.int32, device=dev),
         started_accrual=torch.zeros((), dtype=torch.bool, device=dev),
@@ -131,7 +135,8 @@ def init_state(key, fleet: FleetSpec, params: SimParams, workload=None,
         next_log_t=torch.tensor(params.log_interval, dtype=td, device=dev),
         lat=lat, bandit=bandit_init(n_dc, fleet.n_f, dev), queues=queues,
         n_events=zi(), n_finished=zi((2,)), units_finished=z32((2,)),
-        n_dropped=zi(), done=torch.zeros((), dtype=torch.bool, device=dev))
+        n_dropped=zi(), done=torch.zeros((), dtype=torch.bool, device=dev),
+        signals=signals)
 
 
 def _lane0(em):
@@ -151,9 +156,10 @@ class Engine(StepProgram):
         check_ported(params)
         if params.algo == ALGO_CHSAC_AF and policy_apply is None:
             raise ValueError("chsac_af requires a policy_apply callable")
-        super().__init__(fleet, params, device)
+        workload = compile_workload(fleet, params, device)
+        super().__init__(fleet, params, device, signals=workload.signals)
         self.policy_apply = policy_apply
-        self.workload = compile_workload(fleet, params, self.device)
+        self.workload = workload
         #: the last run_chunk call: steps, events (all lanes; on the card a
         #: 0-d device tensor, read only by whoever asks) and, on the CPU,
         #: the plain loop's host reads inside the chunk (None on the card:
@@ -172,7 +178,8 @@ class Engine(StepProgram):
         converted; a lane axis first for a lane-stacked state); None builds
         them with ``workload.tables`` (the B2 kernel on the card).  Emissions
         are per-step records: "t" [n] f32, "cluster_valid"/"job_valid" [n]
-        bool, "cluster" [n, n_dc, 14] and "job" [n, 15] f32 (zero where
+        bool, "cluster" [n, n_dc, 14] (16 with signal timelines: the
+        price and carbon columns) and "job" [n, 15] f32 (zero where
         invalid), each with a leading [R] for a lane-stacked state; under
         chsac_af also "rl", the per-step transition records (the JAX
         package's keys), acting with ``policy_params``."""

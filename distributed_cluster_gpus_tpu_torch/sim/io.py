@@ -33,7 +33,7 @@ import torch
 from ..models.structs import FleetSpec, SimParams, SimState
 from ..obs.trace import PhaseTimer, sim_progress
 from .engine import Engine, init_state
-from .step import CLUSTER_COLS, JOB_COLS
+from .step import CLUSTER_COLS, JOB_COLS, SIGNAL_CLUSTER_COLS
 
 CLUSTER_HEADER = [
     "time_s", "dc", "freq", "busy", "free", "run_total", "run_inf", "run_train",
@@ -55,12 +55,15 @@ class CSVWriters:
     instead: the plain version the tests hold the native writer to.
     ``append=True`` keeps existing rows and writes headers only for files
     that do not exist yet: a run resumed from a checkpoint keeps the log
-    prefix written before it stopped."""
+    prefix written before it stopped.  ``signal_cols`` appends the signal
+    timelines' two columns (``SIGNAL_CLUSTER_COLS``) to the cluster rows."""
 
     def __init__(self, out_dir: str, fleet: FleetSpec, append: bool = False,
-                 plain: bool = False):
+                 plain: bool = False, signal_cols: bool = False):
         os.makedirs(out_dir, exist_ok=True)
         self.fleet = fleet
+        self.signal_cols = signal_cols
+        self.cols = CLUSTER_COLS + (SIGNAL_CLUSTER_COLS if signal_cols else ())
         self.cluster_path = os.path.join(out_dir, "cluster_log.csv")
         self.job_path = os.path.join(out_dir, "job_log.csv")
         self._lib = None
@@ -70,7 +73,9 @@ class CSVWriters:
             self._lib = csv_writer_lib()
         self._dc_blob = "\n".join(fleet.dc_names).encode()
         self._ing_blob = "\n".join(fleet.ingress_names).encode()
-        for path, header in ((self.cluster_path, CLUSTER_HEADER),
+        cluster_header = CLUSTER_HEADER + (list(SIGNAL_CLUSTER_COLS)
+                                           if signal_cols else [])
+        for path, header in ((self.cluster_path, cluster_header),
                              (self.job_path, JOB_HEADER)):
             if append and os.path.exists(path):
                 continue
@@ -95,8 +100,8 @@ class CSVWriters:
                 os.truncate(path, want)
 
     def _cluster_row(self, w, row: np.ndarray, name: str):
-        c = dict(zip(CLUSTER_COLS, row))
-        w.writerow([
+        c = dict(zip(self.cols, row))
+        out = [
             f"{c['time_s']:.3f}", name, f"{c['freq']:.2f}",
             int(c["busy"]), int(c["free"]), int(c["run_total"]),
             int(c["run_inf"]), int(c["run_train"]),
@@ -104,7 +109,10 @@ class CSVWriters:
             f"{c['util_inst']:.4f}", f"{c['util_avg']:.4f}",
             f"{c['acc_job_unit']:.4f}",
             f"{c['power_W']:.2f}", f"{c['energy_kJ']:.4f}",
-        ])
+        ]
+        if self.signal_cols:
+            out += [f"{c['price_usd_kwh']:.4f}", f"{c['carbon_g_kwh']:.2f}"]
+        w.writerow(out)
 
     def _job_row(self, w, row: np.ndarray):
         c = dict(zip(JOB_COLS, row))
@@ -129,7 +137,8 @@ class CSVWriters:
             raise OSError(err, f"native CSV writer: {os.strerror(err)}", path)
 
     def write_cluster_chunk(self, cluster: np.ndarray, idxs) -> None:
-        """Append the log ticks ``idxs`` of one chunk's [n, n_dc, 14] rows."""
+        """Append the log ticks ``idxs`` of one chunk's [n, n_dc, 14] rows
+        ([n, n_dc, 16] with ``signal_cols``)."""
         if self._lib is None:
             with open(self.cluster_path, "a", newline="") as f:
                 w = csv.writer(f)
@@ -139,11 +148,12 @@ class CSVWriters:
             return
         rows = np.ascontiguousarray(np.asarray(cluster)[np.asarray(idxs)],
                                     np.float32)
-        if rows.shape[1:] != (self.fleet.n_dc, len(CLUSTER_COLS)):
+        if rows.shape[1:] != (self.fleet.n_dc, len(self.cols)):
             raise ValueError(f"cluster rows of shape {rows.shape[1:]}, "
-                             f"expected {(self.fleet.n_dc, len(CLUSTER_COLS))}")
+                             f"expected {(self.fleet.n_dc, len(self.cols))}")
         self._native(self._lib.write_cluster_rows, self.cluster_path, rows,
-                     rows.shape[0], rows.shape[1], self._dc_blob)
+                     rows.shape[0], rows.shape[1], self._dc_blob,
+                     len(self.cols))
 
     def write_job_chunk(self, jobs: np.ndarray, idxs) -> None:
         """Append the rows ``idxs`` of one chunk's [n, 15] job rows."""
@@ -387,7 +397,9 @@ def run_simulation(fleet: FleetSpec, params: SimParams,
     state = (state0 if state0 is not None
              else init_state(params.seed, fleet, params,
                              workload=engine.workload, device=engine.device))
-    writers = CSVWriters(out_dir, fleet) if out_dir else None
+    writers = (CSVWriters(out_dir, fleet,
+                          signal_cols=engine.signals is not None)
+               if out_dir else None)
     timer = PhaseTimer() if timer is None else timer
 
     def tables(c):

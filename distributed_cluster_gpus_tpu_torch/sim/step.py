@@ -6,7 +6,11 @@ the programs the port runs: the heuristic algorithms (``default_policy``,
 power-cap controllers ``cap_uniform`` / ``cap_greedy``, any of them with
 ``--router-weights`` routing where the reference honours it) and
 ``chsac_af``'s acting path, ring queues, one event per step (superstep
-K=1), faults / signals / telemetry off, the write-plan commit.
+K=1), faults / telemetry off, the write-plan commit; with a workload's
+price and carbon timelines (``signals``) the eco admission and routing
+sample them, the accrual integrates cost and carbon
+(``SimState.signals``), the log row gains the two sampled columns and an
+observed workload extends the RL observation.
 Every step:
 
 1. computes the next event time as a min over the arrival clocks, the
@@ -178,6 +182,9 @@ CLUSTER_COLS = (
     "q_inf", "q_train", "util_inst", "util_avg", "acc_job_unit", "power_W",
     "energy_kJ",
 )
+#: the cluster columns a run with signal timelines appends: the sampled
+#: energy price and the DC's carbon intensity at the log tick
+SIGNAL_CLUSTER_COLS = ("price_usd_kwh", "carbon_g_kwh")
 JOB_COLS = (
     "jid", "ingress", "type", "size", "dc", "f_used", "n_gpus", "net_lat_s",
     "start_s", "finish_s", "latency_s", "preempt_count", "T_pred", "P_pred",
@@ -209,10 +216,16 @@ class StepProgram:
     """One (fleet, params)'s constants on one device and the plain step
     loop over them (``sim.engine.Engine`` is one, with its workload)."""
 
-    def __init__(self, fleet: FleetSpec, params: SimParams, device="cuda"):
+    def __init__(self, fleet: FleetSpec, params: SimParams, device="cuda",
+                 signals=None):
         self.fleet = fleet
         self.params = params
         self.device = dev = resolve_device(device)
+        #: the workload's compiled price/carbon timelines
+        #: (``workload.signals.CompiledSignals``), or None
+        self.signals = signals
+        self.n_cols = len(CLUSTER_COLS) + (len(SIGNAL_CLUSTER_COLS)
+                                           if signals is not None else 0)
         td = params.tdtype
         f32 = dict(dtype=torch.float32, device=dev)
         self.td = td
@@ -237,6 +250,7 @@ class StepProgram:
         self.zero_td = torch.zeros((), dtype=td, device=dev)
         self.inv_total = 1.0 / torch.clamp(self.total_gpus, min=1).to(torch.float32)
         self.inv_1000 = 1.0 / torch.tensor(1000.0, dtype=td, device=dev)
+        self.kwh_f = torch.tensor(algos.KWH, **f32)
         self.k_drain = max(params.max_gpus_per_job,
                            min(params.num_fixed_gpus, params.job_cap))
         self.default_f_idx = fleet.default_f_idx
@@ -286,6 +300,10 @@ class StepProgram:
                 # of ``/ 86400.0`` under either clock)
                 "inv_day": 1.0 / torch.tensor(86400.0, dtype=td, device=dev)}
             self.inv_kwh = 1.0 / torch.tensor(3.6e6, **f32)
+            # the observed signals' scales: XLA multiplies by the float32
+            # reciprocals of ``/ 0.25`` and ``/ 1000.0``
+            self.inv_q = 1.0 / torch.tensor(0.25, **f32)
+            self.inv_1000f = 1.0 / torch.tensor(1000.0, **f32)
             self.neg_w = torch.tensor(-params.rl_energy_weight, **f32)
             self.c005 = torch.tensor(0.05, **f32)
             self.c1000 = torch.tensor(1000.0, **f32)
@@ -419,6 +437,15 @@ class StepProgram:
         rec = torch.where(jt == 0, rec_i, rec_t)
         return rec, jt, has_i | has_t
 
+    def _eco_signals(self, st: SimState):
+        """(price, [n_dc] carbon) of the eco sites at ``st.t``: the signal
+        timelines' samples (``Engine._signal_kw``), else the hour's static
+        price and the per-DC carbon map.  Admission and routing both read
+        them at the event's time, which is ``st.t`` after the head."""
+        if self.signals is not None:
+            return self.signals.price_at(st.t), self.signals.carbon_at(st.t)
+        return self.price_hourly[algos.hour_of(st.t)], self.carbon
+
     # ---------------- admission ----------------
 
     def _decide_nf_core(self, st: SimState, dcj: int, jt, free, cur_f):
@@ -429,9 +456,9 @@ class StepProgram:
             n, f_idx = algos.admit_joint_nf(self.E_grid_cap, dcj, jt)
             return n, f_idx, cur_f
         if p.algo == ALGO_CARBON_COST:
-            price = self.price_hourly[algos.hour_of(st.t)]
+            price, ci = self._eco_signals(st)
             n, f_idx = algos.admit_carbon_cost(self.E_grid_cap, dcj, jt, price,
-                                               self.carbon[dcj])
+                                               ci[dcj])
             return n, f_idx, cur_f
         if p.algo == ALGO_DEBUG:
             n = torch.full_like(cur_f, p.num_fixed_gpus)
@@ -586,16 +613,15 @@ class StepProgram:
         if self.route == "random":
             dc_sel = prng.randint_int(k_ev, self.fleet.n_dc)
         else:
-            price = self.price_hourly[algos.hour_of(st.t)]
+            price, ci = self._eco_signals(st)
             if self.route == "eco":
                 dc_t = algos.route_eco(self.E_grid_cap, jt, size,
-                                       self.params.eco_objective, price,
-                                       self.carbon)
+                                       self.params.eco_objective, price, ci)
             else:
                 q_inf, q_trn = self._queue_lens(st)
                 dc_t = algos.route_weighted(
                     self.router, self.net_lat_s[ing], self.E_unit_min[:, jt],
-                    size, price, self.carbon, q_inf + q_trn)
+                    size, price, ci, q_inf + q_trn)
             dc_sel = int(dc_t)
             self._plain["host_reads"] += 1
         transfer = self.transfer_s[ing, dc_sel, jt]
@@ -837,6 +863,11 @@ class StepProgram:
             util_inst.to(f), util_avg.to(f), st.dc.acc_job_unit,
             powers.to(f), (st.dc.energy_j * self.inv_1000).to(f),
         ], dim=-1)
+        if self.signals is not None:
+            price = self.signals.price_at(st.t).to(f)
+            rows = torch.cat([rows, price.expand(fleet.n_dc)[:, None],
+                              self.signals.carbon_at(st.t).to(f)[:, None]],
+                             dim=-1)
         st.next_log_t = st.next_log_t + self.log_interval
         return rows
 
@@ -878,6 +909,25 @@ class StepProgram:
         st.dc.energy_j = st.dc.energy_j + torch.where(accrue, e_inc, self.zero_f)
         st.dc.util_gpu_time = st.dc.util_gpu_time + torch.where(accrue, u_inc,
                                                                 self.zero_f)
+        if self.signals is not None:
+            # cost and carbon over the same gap, the samples at its start
+            # (st.t before the advance); e_inc / 3.6e6 is XLA's multiply by
+            # the float32 reciprocal K.  Over two or more DCs XLA moves the
+            # scalar price onto the broadcast reciprocal, (e * K) * price
+            # as e * (price * K); over one DC the operands are [1] arrays,
+            # not broadcasts, and the product stays (e * K) * price (read
+            # from its optimized CPU HLO of Engine.run_chunk).  The per-DC
+            # carbon is (e * K) * ci either way.
+            e32 = e_inc.to(torch.float32)
+            kwh = e32 * self.kwh_f
+            sg = st.signals
+            price = self.signals.price_at(st.t)
+            cost = (fmul_pinned(kwh, price) if self.fleet.n_dc == 1
+                    else fmul_pinned(e32, price * self.kwh_f))
+            sg.cost_usd = sg.cost_usd + torch.where(accrue, cost, self.zero_f)
+            sg.carbon_g = sg.carbon_g + torch.where(
+                accrue, fmul_pinned(kwh, self.signals.carbon_at(st.t)),
+                self.zero_f)
         dt_f = dt.to(torch.float32)
         prog = torch.where(fin_ok, dt_f / torch.where(fin_ok, runT,
                                                       torch.ones_like(runT)),
@@ -962,7 +1012,7 @@ class StepProgram:
         dev = self.device
         n_dc = self.fleet.n_dc
         em = {"t": torch.zeros((n_steps,), dtype=torch.float32, device=dev),
-              "cluster": torch.zeros((n_steps, n_dc, len(CLUSTER_COLS)),
+              "cluster": torch.zeros((n_steps, n_dc, self.n_cols),
                                      dtype=torch.float32, device=dev),
               "job": torch.zeros((n_steps, len(JOB_COLS)), dtype=torch.float32,
                                  device=dev),
@@ -1071,6 +1121,19 @@ class StepProgram:
         st.arr_count[ing, jt] += 1
         return plan
 
+    def _obs(self, st: SimState):
+        """The policy's observation (reference ``Engine._obs``): ``rl_obs``
+        and, for an observed workload, the sampled price / 0.25 and carbon
+        / 1000 (XLA's multiplies by the float32 reciprocals)."""
+        q_inf, q_trn = self._queue_lens(st)
+        obs = algos.rl_obs(self.fleet, st.t, st.dc.busy, st.dc.cur_f_idx,
+                           q_inf, q_trn, self.obs_consts)
+        if self.signals is not None and self.signals.observe:
+            obs = torch.cat([obs,
+                             (self.signals.price_at(st.t) * self.inv_q).reshape(1),
+                             self.signals.carbon_at(st.t) * self.inv_1000f])
+        return obs
+
     def _tail(self, st: SimState, req_kind: int, req_idx: int, fin, k_act,
               pp):
         """The policy tail's head and dispatch (reference ``_tail_head`` +
@@ -1079,9 +1142,7 @@ class StepProgram:
         p, fleet = self.params, self.fleet
         jobs, busy = st.jobs, st.dc.busy
         perc2 = algos.windowed_percentile(st.lat.buf, st.lat.count, 99.0)
-        q_inf, q_trn = self._queue_lens(st)
-        obs = algos.rl_obs(fleet, st.t, busy, st.dc.cur_f_idx, q_inf, q_trn,
-                           self.obs_consts)
+        obs = self._obs(st)
         extra = 0
         if p.reserve_inf_gpus > 0:
             jt_req = 0

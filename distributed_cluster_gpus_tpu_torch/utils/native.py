@@ -65,7 +65,8 @@ def csv_writer_lib() -> ctypes.CDLL:
             lib.write_cluster_rows.restype = ctypes.c_int64
             lib.write_cluster_rows.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p]
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+                ctypes.c_int64]
             lib.write_job_rows.restype = ctypes.c_int64
             lib.write_job_rows.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),

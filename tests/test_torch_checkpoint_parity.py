@@ -71,8 +71,8 @@ def _leaf(x):
 
 
 def _port_fields(jtree, ptree):
-    """The JAX tree's leaves the port carries (no fault, telemetry or
-    signal sub-states)."""
+    """The JAX tree's leaves the port carries (no fault or telemetry
+    sub-state)."""
     if isinstance(ptree, dict):
         return {k: _port_fields(jtree[k], ptree[k]) for k in ptree}
     return jtree

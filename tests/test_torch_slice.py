@@ -137,7 +137,7 @@ def test_cli_refuses_unported(capsys):
     for argv, item in ((["--algo", "ppo"], "item 10"),
                        (["--algo", "chsac_af", "--offline-steps", "10"], "item 10"),
                        (["--queue-mode", "slab"], "item 13"),
-                       (["--workload", "diurnal"], "item 4"),
+                       (["--obs"], "item 12"),
                        (["--faults-mtbf=3"], None),
                        (["--duration", "2e5", "--campaign", "c"], "item 15")):
         with pytest.raises(SystemExit) as e:

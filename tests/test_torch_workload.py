@@ -157,10 +157,13 @@ def test_wrapper_cpu_path_and_checks():
 
 
 def test_unported_kinds_raise():
+    """Every stream kind is ported: a trace without times is refused with
+    the reference's message, and a sinusoid with |amp| > 1 compiles to the
+    thinning replay (tests/test_torch_workload_tables.py holds both)."""
     from distributed_cluster_gpus_tpu_torch.workload.spec import StreamSpec
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="trace stream needs a `times` array"):
         StreamSpec(kind="trace")
     params = dataclasses.replace(SimParams(), inf_amp=1.5)
-    with pytest.raises(NotImplementedError, match="thinning"):
-        compile_workload(build_duo_fleet(), params, "cpu")
+    wt = compile_workload(build_duo_fleet(), params, "cpu")
+    assert wt.families[0] == "thinning" and wt.families[1] == "poisson"
